@@ -1,0 +1,332 @@
+"""The E-step kernels of the IVI update, each behind a checked wrapper.
+
+* ``estep_fixed_point`` (K1) — the whole γ fixed point of a mini-batch,
+  with the TPU kernel's per-tile stopping rule; replaces
+  ``repro.kernels.lda_estep._fixed_point_kernel``.
+* ``token_pi`` (K2) — token-aligned π, optionally rounded through bf16;
+  replaces ``_token_pi_kernel``.
+* ``segment_scatter`` (K3) — the deterministic segment sum of cnt·π into
+  (V, K); replaces ``_segment_scatter_kernel``.
+* ``memo_delta`` — K2 then K3, the counterpart of ``repro``'s
+  ``memo_delta``.
+
+Each kernel is CUDA C++ (``csrc/lda_estep.cu``, built and loaded by
+`repro_torch.kernels.build`) and has a plain PyTorch twin here computing
+the same function. A wrapper takes the twin only for CPU tensors; for CUDA
+tensors it launches the kernel or raises. Each launch adds one to
+``LAUNCHES[name]``, so a run can show which kernels its path went through.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+_EPS = 1e-30  # fp32-safe (1e-100 underflows to 0)
+
+#: Launches of each kernel since the last ``reset_launches()``.
+LAUNCHES: Dict[str, int] = {"fixed_point": 0, "token_pi": 0,
+                            "segment_scatter": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by the wrappers
+# ---------------------------------------------------------------------------
+
+def _expect(name: str, t: torch.Tensor, dtype: torch.dtype,
+            shape: Tuple[int, ...]) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain twin), False for CUDA ones (kernel)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("tensors on several devices: "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cpu"
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: the γ fixed point
+# ---------------------------------------------------------------------------
+
+def _digamma(x: torch.Tensor) -> torch.Tensor:
+    """ψ(x) for x > 0 by the TPU kernel's series (not torch's digamma):
+    eight recurrence steps, then the asymptotic expansion."""
+    shift = torch.zeros_like(x)
+    for _ in range(8):
+        shift = shift + 1.0 / x
+        x = x + 1.0
+    inv = 1.0 / x
+    inv2 = inv * inv
+    series = torch.log(x) - 0.5 * inv - inv2 * (
+        1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0))
+    return series - shift
+
+
+def _exp_elog_theta(g: torch.Tensor) -> torch.Tensor:
+    s = g.sum(-1, keepdim=True)
+    return torch.exp(_digamma(g.clamp_min(1e-10)) - _digamma(s))
+
+
+def estep_fixed_point_plain(token_ids: torch.Tensor, counts: torch.Tensor,
+                            eb: torch.Tensor, gamma0: torch.Tensor,
+                            alpha0: float, tol: float, max_iters: int, *,
+                            block_b: int = 128):
+    """Plain twin of K1: the same sweeps, tile by tile, in torch."""
+    b, k = gamma0.shape
+    ebt = eb[token_ids.long()]                         # (B, L, K)
+    sweeps_cap = max(int(max_iters), 1)
+    gammas, sweeps = [], []
+    for lo in range(0, b, block_b):
+        hi = min(lo + block_b, b)
+        g, e, c = gamma0[lo:hi], ebt[lo:hi], counts[lo:hi]
+        n = 0
+        while n < sweeps_cap:
+            et = _exp_elog_theta(g)
+            p = torch.einsum("bk,blk->bl", et, e) + _EPS
+            g_new = alpha0 + et * torch.einsum("bl,blk->bk", c / p, e)
+            delta = (g_new - g).abs().sum() / ((hi - lo) * k)
+            g, n = g_new, n + 1
+            if bool(delta <= tol):
+                break
+        gammas.append(g)
+        sweeps.append(n)
+    gamma = torch.cat(gammas) if gammas else gamma0.clone()
+    return (gamma, _exp_elog_theta(gamma),
+            torch.tensor(sweeps, dtype=torch.int32, device=gamma0.device))
+
+
+def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
+                      eb: torch.Tensor, gamma0: torch.Tensor, alpha0: float,
+                      tol: float, max_iters: int, *, block_b: int = 128):
+    """The whole γ fixed point of a padded BOW batch (K1).
+
+    Shapes: token_ids int32 / counts float32 (B, L), eb = Eφ (V, K),
+    gamma0 (B, K) → (γ (B, K), Eθ (B, K), sweeps per B-tile (nb,) int32).
+    Each tile of ``block_b`` documents sweeps until its mean |Δγ| over its
+    real rows and topics is ≤ ``tol``, at most ``max(max_iters, 1)``
+    times; Eθ is recomputed from the final γ. The token ids of a row must
+    be unique (``corpus_from_docs`` makes them so) and padding slots carry
+    count 0, which makes this the TPU kernel's dense-count function.
+    """
+    b, l = token_ids.shape
+    v, k = eb.shape
+    _expect("token_ids", token_ids, torch.int32, (b, l))
+    _expect("counts", counts, torch.float32, (b, l))
+    _expect("eb", eb, torch.float32, (v, k))
+    _expect("gamma0", gamma0, torch.float32, (b, k))
+    if block_b < 1:
+        raise ValueError(f"block_b must be >= 1, got {block_b}")
+    if _on_cpu(token_ids, counts, eb, gamma0):
+        return estep_fixed_point_plain(token_ids, counts, eb, gamma0, alpha0,
+                                       tol, max_iters, block_b=block_b)
+    lib = build.load()
+    if k > lib.lda_fixed_point_max_k():
+        raise ValueError(f"estep_fixed_point: K={k} exceeds the kernel's "
+                         f"{lib.lda_fixed_point_max_k()} topics")
+    nb = -(-b // block_b)
+    gamma = torch.empty_like(gamma0)
+    et = torch.empty_like(gamma0)
+    iters = torch.empty(nb, dtype=torch.int32, device=gamma0.device)
+    if b == 0:
+        return gamma, et, iters
+    rc = lib.lda_fixed_point(
+        token_ids.data_ptr(), counts.data_ptr(), eb.data_ptr(),
+        gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(), iters.data_ptr(),
+        b, l, k, float(alpha0), float(tol), max(int(max_iters), 1), block_b,
+        _stream(gamma0))
+    build.check(rc, "lda_fixed_point")
+    LAUNCHES["fixed_point"] += 1
+    return gamma, et, iters
+
+
+# ---------------------------------------------------------------------------
+# K2: token-aligned π
+# ---------------------------------------------------------------------------
+
+def token_pi_plain(token_ids: torch.Tensor, counts: torch.Tensor,
+                   eb: torch.Tensor, etheta: torch.Tensor, *,
+                   quantize: bool = False) -> torch.Tensor:
+    """Plain twin of K2."""
+    ebt = eb[token_ids.long()]                         # (B, L, K)
+    et = etheta[:, None, :]
+    p = (et * ebt).sum(-1) + _EPS
+    pi = et * ebt / p[:, :, None]
+    pi = torch.where(counts[:, :, None] > 0, pi, 0.0)
+    if quantize:
+        pi = pi.to(torch.bfloat16).to(torch.float32)
+    return pi
+
+
+def token_pi(token_ids: torch.Tensor, counts: torch.Tensor, eb: torch.Tensor,
+             etheta: torch.Tensor, *, quantize: bool = False) -> torch.Tensor:
+    """π = Eθ⊙Eφ[id] / (Σ_k Eθ⊙Eφ[id] + 1e-30) per token slot (K2).
+
+    Shapes: token_ids int32 / counts float32 (B, L), eb (V, K), etheta
+    (B, K) → π (B, L, K) float32, zero where the count is 0. With
+    ``quantize`` π is rounded through bf16 (the memo wire) before it is
+    written, so the scatter sums exactly what the memo will hold.
+    """
+    b, l = token_ids.shape
+    v, k = eb.shape
+    _expect("token_ids", token_ids, torch.int32, (b, l))
+    _expect("counts", counts, torch.float32, (b, l))
+    _expect("eb", eb, torch.float32, (v, k))
+    _expect("etheta", etheta, torch.float32, (b, k))
+    if _on_cpu(token_ids, counts, eb, etheta):
+        return token_pi_plain(token_ids, counts, eb, etheta,
+                              quantize=quantize)
+    lib = build.load()
+    pi = torch.empty((b, l, k), dtype=torch.float32, device=eb.device)
+    if b * l == 0:
+        return pi
+    rc = lib.lda_token_pi(token_ids.data_ptr(), counts.data_ptr(),
+                          eb.data_ptr(), etheta.data_ptr(), pi.data_ptr(),
+                          b * l, l, k, int(bool(quantize)), _stream(eb))
+    build.check(rc, "lda_token_pi")
+    LAUNCHES["token_pi"] += 1
+    return pi
+
+
+# ---------------------------------------------------------------------------
+# K3: segment scatter
+# ---------------------------------------------------------------------------
+
+def scatter_segments(token_ids: torch.Tensor, counts: torch.Tensor):
+    """Index preparation of the scatter (replaces the TPU's ``iota == ids``
+    selector): drop rows with count 0, sort the rest stably by id, and
+    cut them into one segment per distinct id.
+
+    Returns (order (N',) int64 row indices in sorted order, seg_ids (U,)
+    int64, seg_len (U,) int64, seg_off (U + 1,) int64).
+    """
+    live = torch.nonzero(counts != 0).squeeze(1)
+    ids_sorted, perm = torch.sort(token_ids[live], stable=True)
+    order = live[perm]
+    seg_ids, seg_len = torch.unique_consecutive(ids_sorted,
+                                                return_counts=True)
+    seg_off = torch.zeros(seg_len.numel() + 1, dtype=torch.int64,
+                          device=counts.device)
+    seg_off[1:] = torch.cumsum(seg_len, 0)
+    return order, seg_ids.long(), seg_len, seg_off
+
+
+def segment_scatter_plain(token_ids: torch.Tensor, counts: torch.Tensor,
+                          pi_new: torch.Tensor,
+                          pi_old: Optional[torch.Tensor], vocab_size: int):
+    """Plain twin of K3: segment sums over the same sorted rows."""
+    order, seg_ids, seg_len, _ = scatter_segments(token_ids, counts)
+    k = pi_new.shape[1]
+    seg_of_row = torch.repeat_interleave(
+        torch.arange(seg_ids.numel(), device=counts.device), seg_len)
+    w = counts[order, None]
+
+    def one(pi):
+        sums = torch.zeros((seg_ids.numel(), k), dtype=torch.float32,
+                           device=pi.device)
+        sums.index_add_(0, seg_of_row, w * pi[order])
+        out = torch.zeros((vocab_size, k), dtype=torch.float32,
+                          device=pi.device)
+        out[seg_ids] = sums
+        return out
+
+    return one(pi_new), (None if pi_old is None else one(pi_old))
+
+
+def segment_scatter(token_ids: torch.Tensor, counts: torch.Tensor,
+                    pi_new: torch.Tensor, pi_old: Optional[torch.Tensor],
+                    vocab_size: int):
+    """S_new = Σ cnt·π_new and S_old = Σ cnt·π_old at the token ids (K3).
+
+    Shapes: flat token rows, token_ids int32 / counts float32 (N,), π rows
+    (N, K) → (S_new (V, K), S_old (V, K) or None). The sum over each id's
+    rows runs in a fixed (stably sorted) order, so two calls on the same
+    inputs give the same bits.
+    """
+    (n,) = token_ids.shape
+    k = pi_new.shape[1]
+    _expect("token_ids", token_ids, torch.int32, (n,))
+    _expect("counts", counts, torch.float32, (n,))
+    _expect("pi_new", pi_new, torch.float32, (n, k))
+    tensors = [token_ids, counts, pi_new]
+    if pi_old is not None:
+        _expect("pi_old", pi_old, torch.float32, (n, k))
+        tensors.append(pi_old)
+    if _on_cpu(*tensors):
+        return segment_scatter_plain(token_ids, counts, pi_new, pi_old,
+                                     vocab_size)
+    return segment_scatter_prepared(scatter_segments(token_ids, counts),
+                                    counts, pi_new, pi_old, vocab_size)
+
+
+def segment_scatter_prepared(segments, counts: torch.Tensor,
+                             pi_new: torch.Tensor,
+                             pi_old: Optional[torch.Tensor], vocab_size: int):
+    """K3 on CUDA tensors, given ``scatter_segments(token_ids, counts)``:
+    the zeroed outputs and the kernel launch, with no host sync (the
+    index preparation syncs, by ``nonzero`` and ``unique_consecutive``).
+    ``segment_scatter`` checks the arguments and calls this."""
+    if pi_new.device.type != "cuda":
+        raise ValueError(f"segment_scatter_prepared: CUDA tensors only, got "
+                         f"{pi_new.device}")
+    order, seg_ids, _, seg_off = segments
+    k = pi_new.shape[1]
+    lib = build.load()
+    s_new = torch.zeros((vocab_size, k), dtype=torch.float32,
+                        device=pi_new.device)
+    s_old = None if pi_old is None else torch.zeros_like(s_new)
+    rc = lib.lda_segment_scatter(
+        order.data_ptr(), seg_ids.data_ptr(), seg_off.data_ptr(),
+        seg_ids.numel(), counts.data_ptr(), pi_new.data_ptr(),
+        None if pi_old is None else pi_old.data_ptr(), s_new.data_ptr(),
+        None if s_old is None else s_old.data_ptr(), k, _stream(pi_new))
+    build.check(rc, "lda_segment_scatter")
+    LAUNCHES["segment_scatter"] += 1
+    return s_new, s_old
+
+
+# ---------------------------------------------------------------------------
+# the memo correction pair
+# ---------------------------------------------------------------------------
+
+def memo_delta(token_ids: torch.Tensor, counts: torch.Tensor,
+               eb: torch.Tensor, etheta: torch.Tensor, vocab_size: int,
+               old_pi: Optional[torch.Tensor] = None, *,
+               quantize: bool = False):
+    """Token-aligned π plus segment-summed new/old masses: K2 then K3.
+
+    Shapes: token_ids/counts (B, L), eb (V, K), etheta (B, K), old_pi
+    (B, L, K). Returns (π (B, L, K), S_new (V, K)[, S_old (V, K)]), so the
+    IVI correction is ``S_new − S_old`` and the batch sufficient
+    statistics are ``S_new``.
+    """
+    k = etheta.shape[1]
+    pi = token_pi(token_ids, counts, eb, etheta, quantize=quantize)
+    s_new, s_old = segment_scatter(
+        token_ids.reshape(-1), counts.reshape(-1), pi.reshape(-1, k),
+        None if old_pi is None else old_pi.reshape(-1, k), vocab_size)
+    if old_pi is None:
+        return pi, s_new
+    return pi, s_new, s_old

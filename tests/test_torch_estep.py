@@ -1,0 +1,216 @@
+"""Port parity, E-step: the gather and dense backends, the three kernels'
+plain twins and the CUDA backend's correction, held against ``repro`` (its
+Pallas kernels in interpret mode) on the same numpy inputs.
+
+Tolerances are ``tests/test_estep_backend.py``'s where a backend is held
+against another (γ 2e-3, π 2e-3 / 1e-4, sstats 1e-2 / 2e-3, correction
+2e-3): the fixed points stop at a mean |Δγ| of ``estep_tol``, so γ agrees
+to about that and not to fp32 rounding. A kernel's plain twin held against
+its Pallas kernel does the same arithmetic, so π and the scatter are held at
+1e-5; bf16-rounded π may land one bf16 ulp apart (2^-7 relative) where the
+fp32 values straddle a rounding boundary.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.estep import BowBatch as JBatch
+from repro.core.estep import densify as j_densify
+from repro.core.estep import get_backend as j_get_backend
+from repro.core.math import exp_dirichlet_expectation as j_eb
+from repro.core.types import LDAConfig as JConfig
+from repro.data.bow import corpus_from_docs as j_corpus_from_docs
+from repro.kernels import lda_estep as j_kernels
+from repro.kernels import ops as j_ops
+from repro_torch.core.estep import BowBatch, get_backend
+from repro_torch.core.types import LDAConfig
+from repro_torch.kernels import lda_estep, ops
+
+CPU = "cpu"
+BF16_ULP = 2.0 ** -7
+
+
+def _t(x, dtype=None):
+    return torch.from_numpy(np.array(x, dtype=dtype))
+
+
+def _inputs(seed, b=12, vocab=200, k=7, mean_len=25):
+    """A ragged batch plus Eφ, as numpy arrays both packages take."""
+    rng = np.random.default_rng(seed)
+    docs = [rng.integers(0, vocab, size=max(2, int(rng.poisson(mean_len))))
+            for _ in range(b)]
+    corpus = j_corpus_from_docs(docs, vocab)
+    lam = rng.gamma(100.0, 0.01, (vocab, k)).astype(np.float32)
+    eb = np.asarray(j_eb(jnp.asarray(lam), axis=0))
+    return (np.asarray(corpus.token_ids), np.asarray(corpus.counts), eb,
+            vocab, k)
+
+
+def _configs(vocab, k, **kw):
+    return (JConfig(num_topics=k, vocab_size=vocab, estep_max_iters=50, **kw),
+            LDAConfig(num_topics=k, vocab_size=vocab, estep_max_iters=50,
+                      **kw))
+
+
+def _close(got, want, rtol, atol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("backend", ["gather", "dense"])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_backend_solve_matches_repro(backend, seed):
+    ids, cnts, eb, vocab, k = _inputs(seed)
+    jcfg, tcfg = _configs(vocab, k)
+    want = j_get_backend(backend).solve(
+        jcfg, jnp.asarray(eb), JBatch(jnp.asarray(ids), jnp.asarray(cnts)))
+    got = get_backend(backend).solve(tcfg, _t(eb), BowBatch(_t(ids), _t(cnts)))
+    _close(got.gamma, want.gamma, 2e-3, 2e-3)
+    _close(got.pi, want.pi, 2e-3, 1e-4)
+    _close(got.sstats, want.sstats, 1e-2, 2e-3)
+    assert abs(int(got.iters) - int(want.iters)) <= 1
+
+
+@pytest.mark.parametrize("backend,reference", [
+    ("gather", "gather"), ("dense", "dense"), ("cuda", "pallas")])
+def test_backend_correction_matches_repro(backend, reference):
+    ids, cnts, eb, vocab, k = _inputs(1)
+    jcfg, tcfg = _configs(vocab, k)
+    rng = np.random.default_rng(1)
+    base = np.asarray(j_get_backend("gather").solve(
+        jcfg, jnp.asarray(eb), JBatch(jnp.asarray(ids), jnp.asarray(cnts))).pi)
+    visited = rng.random(ids.shape[0]) < 0.5
+    old_pi = np.where(visited[:, None, None], base, 0.0).astype(np.float32)
+    want = j_get_backend(reference).solve_correction(
+        jcfg, jnp.asarray(eb), JBatch(jnp.asarray(ids), jnp.asarray(cnts)),
+        jnp.asarray(old_pi), jnp.asarray(visited))
+    got = get_backend(backend).solve_correction(
+        tcfg, _t(eb), BowBatch(_t(ids), _t(cnts)), _t(old_pi), _t(visited))
+    _close(got[0], want[0], 2e-3, 2e-3)
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
+    _close(got[2].pi, want[2].pi, 2e-3, 1e-4)
+    _close(got[2].gamma, want[2].gamma, 2e-3, 2e-3)
+    _close(got[2].sstats, want[2].sstats, 1e-2, 2e-3)
+
+
+def test_fixed_point_twin_matches_pallas_kernel():
+    """K1's plain twin against the Pallas fixed point: B = 300 is three
+    stopping tiles of 128, the last ragged (44 rows). γ and Eθ at 2e-3 and
+    the per-tile sweep counts equal or at most 1 apart (a tile's mean |Δγ|
+    summed in another order can cross ``tol`` one sweep earlier or later).
+    """
+    ids, cnts, eb, vocab, k = _inputs(7, b=300, vocab=160, k=12, mean_len=20)
+    alpha0, tol, max_iters = 0.5, 1e-2, 60
+    # tile 0 starts at its own fixed point and stops after one sweep; the
+    # other tiles start fresh and stop on their own later sweeps
+    gamma0 = np.full((300, k), alpha0 + 1.0, np.float32)
+    gamma0[:128] = lda_estep.estep_fixed_point(
+        _t(ids[:128]), _t(cnts[:128]), _t(eb), _t(gamma0[:128]), alpha0,
+        tol / 100, 1000)[0].numpy()
+    c = j_densify(jnp.asarray(ids), jnp.asarray(cnts), vocab)
+    cpad, ebpad, _ = j_ops.pad_inputs(c, jnp.asarray(eb), 128, 512)
+    gpad = jnp.pad(jnp.asarray(gamma0),
+                   ((0, cpad.shape[0] - 300), (0, ebpad.shape[1] - k)),
+                   constant_values=alpha0)
+    jg, jet, jit = j_kernels.estep_fixed_point(
+        cpad, ebpad, gpad, alpha0, tol, max_iters, k_real=k, b_real=300,
+        block_b=128, block_v=512, interpret=True)
+    g, et, iters = lda_estep.estep_fixed_point(
+        _t(ids), _t(cnts), _t(eb), _t(gamma0), alpha0, tol, max_iters,
+        block_b=128)
+    _close(g, np.asarray(jg)[:300, :k], 2e-3, 2e-3)
+    _close(et, np.asarray(jet)[:300, :k], 2e-3, 2e-3)
+    want_iters = np.asarray(jit)[:, 0]
+    assert iters.shape == (3,)
+    assert np.abs(iters.numpy() - want_iters).max() <= 1, (iters, want_iters)
+    assert want_iters[0] < want_iters[1] < max_iters   # the tiles differ
+
+
+@pytest.mark.parametrize("with_old", [False, True])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_memo_delta_twins_match_pallas_kernels(with_old, quantize):
+    """K2 (token π) and K3 (segment scatter) twins against ``memo_delta``."""
+    ids, cnts, eb, vocab, k = _inputs(11, b=24, vocab=150, k=9)
+    rng = np.random.default_rng(11)
+    et = rng.gamma(1.0, 1.0, (24, k)).astype(np.float32)
+    old_pi = rng.random(ids.shape + (k,)).astype(np.float32)
+    jout = j_kernels.memo_delta(
+        jnp.asarray(ids), jnp.asarray(cnts), jnp.asarray(eb)[ids],
+        jnp.asarray(et), vocab,
+        old_pi=jnp.asarray(old_pi) if with_old else None, quantize=quantize,
+        interpret=True)
+    tout = lda_estep.memo_delta(_t(ids), _t(cnts), _t(eb), _t(et), vocab,
+                                old_pi=_t(old_pi) if with_old else None,
+                                quantize=quantize)
+    assert len(tout) == len(jout) == (3 if with_old else 2)
+    rtol = BF16_ULP if quantize else 1e-5
+    _close(tout[0], jout[0], rtol, 1e-6)
+    for got, want in zip(tout[1:], jout[1:]):
+        _close(got, want, rtol, 1e-5)
+    if quantize:
+        pi = tout[0]
+        assert torch.equal(pi, pi.to(torch.bfloat16).to(torch.float32))
+    assert not bool((tout[0][_t(cnts) == 0] != 0).any())
+
+
+def test_segment_scatter_twin_sums_in_float64():
+    """K3's twin against an fp64 sum on rows with repeated ids."""
+    rng = np.random.default_rng(2)
+    n, k, vocab = 400, 5, 30
+    ids = rng.integers(0, vocab, n).astype(np.int32)
+    cnts = rng.integers(0, 4, n).astype(np.float32)
+    pi_new = rng.random((n, k)).astype(np.float32)
+    pi_old = rng.random((n, k)).astype(np.float32)
+    s_new, s_old = lda_estep.segment_scatter(_t(ids), _t(cnts), _t(pi_new),
+                                             _t(pi_old), vocab)
+    for got, pi in ((s_new, pi_new), (s_old, pi_old)):
+        want = np.zeros((vocab, k))
+        np.add.at(want, ids, cnts[:, None].astype(np.float64) * pi)
+        _close(got, want, 1e-5, 1e-5)
+
+
+def test_memo_correction_cuda_matches_pallas():
+    """``memo_correction_cuda`` (plain twins on CPU tensors) against
+    ``repro.kernels.ops.memo_correction_pallas``."""
+    ids, cnts, eb, vocab, k = _inputs(4, b=20)
+    jcfg, tcfg = _configs(vocab, k)
+    rng = np.random.default_rng(4)
+    visited = rng.random(ids.shape[0]) < 0.5
+    old_pi = (rng.random(ids.shape + (k,)) * visited[:, None, None]
+              * (cnts > 0)[:, :, None]).astype(np.float32)
+    old_pi /= np.maximum(old_pi.sum(-1, keepdims=True), 1e-30)
+    wc, ww, wres = j_ops.memo_correction_pallas(
+        jcfg, jnp.asarray(eb), jnp.asarray(ids), jnp.asarray(cnts),
+        jnp.asarray(old_pi), jnp.asarray(visited))
+    gc, gw, gres = ops.memo_correction_cuda(
+        tcfg, _t(eb), _t(ids), _t(cnts), _t(old_pi), _t(visited))
+    _close(gc, wc, 2e-3, 2e-3)
+    np.testing.assert_allclose(float(gw), float(ww), rtol=1e-6)
+    _close(gres.gamma, wres.gamma, 2e-3, 2e-3)
+    _close(gres.pi, wres.pi, 2e-3, 1e-4)
+    _close(gres.sstats, wres.sstats, 1e-2, 2e-3)
+    assert int(gres.iters) == int(wres.iters)
+
+
+def test_cuda_backend_refuses_what_it_does_not_implement():
+    ids, cnts, eb, vocab, k = _inputs(0)
+    tcfg = LDAConfig(num_topics=k, vocab_size=vocab,
+                     estep_stream_dtype="bfloat16")
+    with pytest.raises(ValueError, match="bf16 streaming"):
+        get_backend("cuda").solve(tcfg, _t(eb), BowBatch(_t(ids), _t(cnts)))
+    old_pi = torch.zeros(ids.shape + (k,))
+    visited = torch.zeros(ids.shape[0], dtype=torch.bool)
+    with pytest.raises(ValueError, match="pi_dtype"):
+        ops.memo_correction_cuda(LDAConfig(num_topics=k, vocab_size=vocab),
+                                 _t(eb), _t(ids), _t(cnts), old_pi, visited,
+                                 pi_dtype="float16")
+    with pytest.raises(TypeError):
+        lda_estep.token_pi(_t(ids).long(), _t(cnts), _t(eb),
+                           torch.ones(ids.shape[0], k))
+    # K3's bare launch has no plain twin: on CPU tensors it refuses
+    flat_ids, flat_cnts = _t(ids).reshape(-1), _t(cnts).reshape(-1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        lda_estep.segment_scatter_prepared(
+            lda_estep.scatter_segments(flat_ids, flat_cnts), flat_cnts,
+            torch.ones(flat_ids.numel(), k), None, vocab)

@@ -1,0 +1,71 @@
+"""The port stands alone: it imports neither ``jax`` nor ``repro``, its entry
+points run on CUDA unless told otherwise, and its kernels are built for
+Hopper from the CUDA source in the package."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core.engines import LDAEngine
+from repro_torch.core.types import LDAConfig, resolve_device
+from repro_torch.data.bow import corpus_from_docs
+from repro_torch.kernels import build
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_neither_jax_nor_repro():
+    script = textwrap.dedent("""
+        import importlib, json, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "repro" or m.startswith("repro."))
+        print(json.dumps({"modules": names, "bad": bad}))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    import json
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bad"] == []
+    for name in ("repro_torch.core.engines", "repro_torch.kernels.ops",
+                 "repro_torch.kernels.lda_estep", "repro_torch.convert",
+                 "repro_torch.launch.train"):
+        assert name in got["modules"]
+
+
+def test_entry_points_run_on_cuda_unless_told():
+    corpus = corpus_from_docs([[1, 2, 2], [3, 4]], 8, device="cpu")
+    cfg = LDAConfig(num_topics=2, vocab_size=8)
+    if torch.cuda.is_available():
+        assert resolve_device() == torch.device("cuda")
+        assert LDAEngine(cfg, corpus, algo="ivi").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LDAEngine(cfg, corpus, algo="ivi")
+    assert LDAEngine(cfg, corpus, algo="ivi", device="cpu").device.type == \
+        "cpu"
+
+
+def test_build_targets_hopper_from_package_source():
+    cmd = build.nvcc_command("nvcc", Path("lib.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[-1] == str(build.SOURCE)
+    assert build.SOURCE.name == "lda_estep.cu"
+    assert build.SOURCE.parent.name == "csrc"
+    source = build.SOURCE.read_text()
+    for entry in build._SIGNATURES:
+        assert f" {entry}(" in source, entry
+    for kernel in ("fixed_point_kernel", "token_pi_kernel",
+                   "segment_scatter_kernel"):
+        assert kernel in source
