@@ -4,13 +4,17 @@
   the objective IVI provably increases monotonically (§3).
 * ``elbo_collapsed`` — the bound with π analytically maximised given (γ, λ);
   cheaper, for monitoring.
+* ``elbo_memoized_stream`` — the memoized bound when the corpus is a
+  ``DocStream``, read chunk by chunk.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.math import dirichlet_elbo_term, dirichlet_expectation
 from repro_torch.core.types import Corpus, LDAConfig
+from repro_torch.data.stream import iter_padded_chunks
 
 _EPS = 1e-30
 
@@ -91,3 +95,25 @@ def elbo_collapsed(cfg: LDAConfig, corpus: Corpus, gamma: torch.Tensor,
     docs = _collapsed_doc_terms(cfg, corpus.token_ids, corpus.counts,
                                 gamma, elog_beta)
     return docs + _topics_term(cfg, lam)
+
+
+def elbo_memoized_stream(cfg: LDAConfig, stream, store, lam: torch.Tensor,
+                         *, batch_docs: int = 512) -> torch.Tensor:
+    """The memoized ELBO when the corpus is a ``DocStream``.
+
+    The streaming analogue of ``elbo_memoized_store``: documents are pulled
+    and padded ``batch_docs`` at a time (``iter_padded_chunks``, the
+    document order ``MemoStore.iter_chunks`` walks), the matching memo rows gathered, and each chunk's word/θ terms
+    accumulated on ``lam``'s device; the topics term enters once.
+    """
+    elog_beta = dirichlet_expectation(lam, axis=0)
+    total = torch.zeros((), dtype=torch.float32, device=lam.device)
+    for start, ids, cnts in iter_padded_chunks(stream, batch_docs,
+                                               stream.max_unique):
+        pi, _vis = store.gather(np.arange(start, start + ids.shape[0]))
+        ids_t = torch.from_numpy(ids).to(lam.device)
+        cnts_t = torch.from_numpy(cnts).to(lam.device)
+        gamma = cfg.alpha0 + torch.einsum("blk,bl->bk", pi, cnts_t)
+        total = total + _memoized_doc_terms(cfg, ids_t, cnts_t, gamma, pi,
+                                            elog_beta)
+    return total + _topics_term(cfg, lam)

@@ -9,7 +9,7 @@ Every engine consumes the E-step through ``EStepBackend``:
   Σ_d cnt·(π_new − π_old) scattered into (V, K), with γ warm-started from
   the memo for visited documents.
 
-Three backends:
+Four backends:
 
 * ``gather`` — token-aligned: gathers rows of exp(E[ln φ]) at the batch's
   token ids, shape (B, L, K); the reference the others are held to.
@@ -18,8 +18,18 @@ Three backends:
 * ``cuda`` — the hand-written kernels (`repro_torch.kernels.ops`): the
   whole fixed point in one launch, then token π and a deterministic
   segment scatter.
+* ``csr`` — the flat-token CUDA kernels behind the padded contract (a
+  (B, L) batch flattens losslessly to a token stream), so the equivalence
+  tests can pin them against ``gather``.
 
-All backends return γ and the token-aligned π (B, L, K) that IVI stores.
+Every backend also implements the **flat-token contract**
+(``solve_tokens`` / ``solve_correction_tokens`` over a ``CSRTokenBatch``: a
+concatenated (T,) token stream with per-token segment ids): the plain
+``estep_csr_ref`` by default, the CSR kernels on ``cuda`` and ``csr``. The
+CSR stream engine and ragged serving run on it.
+
+All backends return γ and the token-aligned π that IVI stores: (B, L, K)
+on the padded contract, (T, K) on the flat one.
 """
 from __future__ import annotations
 
@@ -41,9 +51,20 @@ class BowBatch(NamedTuple):
     counts: torch.Tensor
 
 
+class CSRTokenBatch(NamedTuple):
+    """A flat CSR mini-batch: every document's tokens concatenated (all
+    (T,)). ``segments[t]`` is the local document row owning token ``t``;
+    padding slots carry segment 0 and count 0 (inert in every reduction)."""
+
+    token_ids: torch.Tensor  # int32
+    counts: torch.Tensor     # float32
+    segments: torch.Tensor   # int32 in [0, B)
+
+
 class EStepResult(NamedTuple):
     gamma: torch.Tensor   # (B, K)
     pi: torch.Tensor      # (B, L, K) token-aligned responsibilities
+                          # (flat-token paths: (T, K))
     sstats: torch.Tensor  # (V, K) Σ_d Σ_l cnt·π scattered at token ids
     iters: torch.Tensor   # () int32 fixed-point iterations used
 
@@ -90,6 +111,68 @@ def warm_start_gamma(cfg: LDAConfig, counts: torch.Tensor,
     gamma_memo = cfg.alpha0 + torch.einsum("blk,bl->bk", old_pi, counts)
     fresh = torch.full_like(gamma_memo, cfg.alpha0 + 1.0)
     return torch.where(visited[:, None], gamma_memo, fresh)
+
+
+# ---------------------------------------------------------------------------
+# flat-token (CSR) formulation
+# ---------------------------------------------------------------------------
+
+def segment_sum_docs(values: torch.Tensor, segments: torch.Tensor,
+                     num_docs: int) -> torch.Tensor:
+    """Σ over each document's tokens: (T, ...) → (num_docs, ...)."""
+    out = torch.zeros((num_docs,) + tuple(values.shape[1:]),
+                      dtype=values.dtype, device=values.device)
+    return out.index_add_(0, segments.long(), values)
+
+
+def scatter_sstats_flat(token_ids: torch.Tensor, weighted_pi: torch.Tensor,
+                        vocab_size: int) -> torch.Tensor:
+    """Scatter (T, K) flat weighted responsibilities into (V, K)."""
+    return scatter_sstats(token_ids, weighted_pi, vocab_size)
+
+
+def warm_start_gamma_flat(cfg: LDAConfig, tok: CSRTokenBatch,
+                          old_pi: torch.Tensor,
+                          visited: torch.Tensor) -> torch.Tensor:
+    """``warm_start_gamma`` on the flat layout: the memo term is a segment
+    sum of cnt·π_old over each document's tokens."""
+    gamma_memo = cfg.alpha0 + segment_sum_docs(
+        tok.counts[:, None] * old_pi, tok.segments, visited.shape[0])
+    fresh = torch.full_like(gamma_memo, cfg.alpha0 + 1.0)
+    return torch.where(visited[:, None], gamma_memo, fresh)
+
+
+def estep_csr_ref(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
+                  token_ids: torch.Tensor, counts: torch.Tensor,
+                  segments: torch.Tensor, num_docs: int,
+                  gamma0: Optional[torch.Tensor] = None) -> EStepResult:
+    """The plain flat-token E-step, the reference of the CSR kernels.
+
+    ``estep_gather``'s fixed point with the (B, L) einsums replaced by
+    per-token gathers and segment sums over the flat stream; zero-count
+    padding tokens are exact no-ops. π comes back flat (T, K).
+    """
+    eb_tok = exp_elog_beta[token_ids.long()]            # (T, K)
+    segs = segments.long()
+    if gamma0 is None:
+        gamma0 = _fresh_gamma(cfg, num_docs, eb_tok.device)
+
+    def update(gamma):
+        etheta = exp_dirichlet_expectation(gamma)       # (B, K)
+        p = (etheta[segs] * eb_tok).sum(-1) + _EPS      # (T,)
+        acc = segment_sum_docs((counts / p)[:, None] * eb_tok, segs,
+                               num_docs)
+        return cfg.alpha0 + etheta * acc
+
+    gamma, iters = _fixed_point(cfg, update, gamma0)
+
+    etheta = exp_dirichlet_expectation(gamma)
+    et_tok = etheta[segs]                               # (T, K)
+    p = (et_tok * eb_tok).sum(-1) + _EPS
+    pi = torch.where(counts[:, None] > 0, et_tok * eb_tok / p[:, None], 0.0)
+    sstats = scatter_sstats_flat(token_ids, counts[:, None] * pi,
+                                 exp_elog_beta.shape[0])
+    return EStepResult(gamma=gamma, pi=pi, sstats=sstats, iters=iters)
 
 
 def _fresh_gamma(cfg: LDAConfig, b: int, device) -> torch.Tensor:
@@ -208,6 +291,39 @@ class EStepBackend:
         words_first = torch.where(~visited, cnts.sum(-1), 0.0).sum()
         return correction, words_first, res
 
+    # -- flat-token (CSR) contract --------------------------------------
+    def solve_tokens(self, cfg: LDAConfig, exp_elog_beta: torch.Tensor,
+                     tok: CSRTokenBatch, num_docs: int,
+                     gamma0: Optional[torch.Tensor] = None) -> EStepResult:
+        """``solve`` on a flat CSR token stream; π comes back (T, K).
+        Default: the plain ``estep_csr_ref``."""
+        return estep_csr_ref(cfg, exp_elog_beta, tok.token_ids, tok.counts,
+                             tok.segments, num_docs, gamma0)
+
+    def solve_correction_tokens(
+            self, cfg: LDAConfig, exp_elog_beta: torch.Tensor,
+            tok: CSRTokenBatch, old_pi: torch.Tensor, visited: torch.Tensor,
+            pi_dtype: str = "float32",
+    ) -> Tuple[torch.Tensor, torch.Tensor, EStepResult]:
+        """``solve_correction`` on the flat layout (old_pi is (T, K)), with
+        the same quantize-then-rescatter discipline. The document axis is
+        ``visited``'s: rows that own no token still count in the fixed
+        point's batch-wide mean."""
+        num_docs = visited.shape[0]
+        gamma0 = warm_start_gamma_flat(cfg, tok, old_pi, visited)
+        res = self.solve_tokens(cfg, exp_elog_beta, tok, num_docs, gamma0)
+        pi = quantize_pi(res.pi, pi_dtype)
+        snew = scatter_sstats_flat(tok.token_ids, tok.counts[:, None] * pi,
+                                   cfg.vocab_size)
+        res = res._replace(pi=pi, sstats=snew)
+        sold = scatter_sstats_flat(tok.token_ids,
+                                   tok.counts[:, None] * old_pi,
+                                   cfg.vocab_size)
+        correction = snew - sold
+        doc_words = segment_sum_docs(tok.counts, tok.segments, num_docs)
+        words_first = torch.where(~visited, doc_words, 0.0).sum()
+        return correction, words_first, res
+
 
 class GatherBackend(EStepBackend):
     name = "gather"
@@ -228,8 +344,10 @@ class DenseBackend(EStepBackend):
 class CudaBackend(EStepBackend):
     """The hand-written kernels (`repro_torch.kernels.ops`): one fixed-point
     launch, then token π and the deterministic segment scatter — no
-    (B, L, K) Eφ gather and no dense (B, V) counts. The fixed point's
-    stopping tile is ``cfg.kernel_policy.block_b`` (default 128)."""
+    (B, L, K) Eφ gather and no dense (B, V) counts. On the padded contract
+    the fixed point (K1) stops per tile of ``cfg.kernel_policy.block_b``
+    documents (default 128); on the flat contract (K4) it stops batch-wide,
+    as ``gather`` does."""
 
     name = "cuda"
 
@@ -245,9 +363,57 @@ class CudaBackend(EStepBackend):
                                          batch.counts, old_pi, visited,
                                          pi_dtype=pi_dtype)
 
+    def solve_tokens(self, cfg, exp_elog_beta, tok, num_docs, gamma0=None):
+        from repro_torch.kernels import ops as kops
+        return kops.estep_cuda_csr(cfg, exp_elog_beta, tok.token_ids,
+                                   tok.counts, tok.segments, gamma0,
+                                   num_docs=num_docs)
+
+    def solve_correction_tokens(self, cfg, exp_elog_beta, tok, old_pi,
+                                visited, pi_dtype="float32"):
+        from repro_torch.kernels import ops as kops
+        return kops.memo_correction_cuda_csr(
+            cfg, exp_elog_beta, tok.token_ids, tok.counts, tok.segments,
+            old_pi, visited, pi_dtype=pi_dtype)
+
+
+class CSRBackend(CudaBackend):
+    """The flat-token CUDA kernels behind the PADDED ``solve`` /
+    ``solve_correction`` contract: a (B, L) batch flattens losslessly to a
+    (B·L,) stream whose segment ids are the row indices, so the backend
+    equivalence tests pin the CSR kernels against ``gather``. Its fixed
+    point stops batch-wide, as ``gather`` does. Flat-token callers use the
+    inherited ``solve_tokens`` / ``solve_correction_tokens`` directly."""
+
+    name = "csr"
+
+    @staticmethod
+    def flatten(batch: BowBatch) -> CSRTokenBatch:
+        b, l = batch.token_ids.shape
+        segs = torch.arange(b, dtype=torch.int32,
+                            device=batch.token_ids.device)
+        return CSRTokenBatch(batch.token_ids.reshape(-1),
+                             batch.counts.reshape(-1),
+                             segs.repeat_interleave(l))
+
+    def solve(self, cfg, exp_elog_beta, batch, gamma0=None):
+        b, l = batch.token_ids.shape
+        res = self.solve_tokens(cfg, exp_elog_beta, self.flatten(batch),
+                                num_docs=b, gamma0=gamma0)
+        return res._replace(pi=res.pi.reshape(b, l, -1))
+
+    def solve_correction(self, cfg, exp_elog_beta, batch, old_pi, visited,
+                         pi_dtype="float32"):
+        b, l = batch.token_ids.shape
+        corr, words_first, res = self.solve_correction_tokens(
+            cfg, exp_elog_beta, self.flatten(batch),
+            old_pi.reshape(b * l, -1), visited, pi_dtype=pi_dtype)
+        return corr, words_first, res._replace(pi=res.pi.reshape(b, l, -1))
+
 
 _BACKENDS: Dict[str, EStepBackend] = {
-    b.name: b for b in (GatherBackend(), DenseBackend(), CudaBackend())
+    b.name: b for b in (GatherBackend(), DenseBackend(), CudaBackend(),
+                        CSRBackend())
 }
 
 

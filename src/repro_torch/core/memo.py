@@ -4,16 +4,22 @@ IVI's defining cost (Alg. 1 / eq. 4) is the per-document memo of
 token-aligned responsibilities π. Engines reach it only through
 ``MemoStore``:
 
-    gather(doc_idx)            -> (π_old (B, L, K) fp32, visited (B,))
-    update(doc_idx, π_new, …)  -> store
+    gather(doc_idx, width=None) -> (π_old (B, width, K) fp32, visited (B,))
+    update(doc_idx, π_new)      -> store
 
 ``DenseMemoStore`` holds it on the device in fp32 ``(D, L, K)``: exact, and
 the store the single-host IVI path runs on. The bf16 host-chunked and
 γ-only stores of ``repro`` are not ported yet (ROADMAP.md).
+
+``gather`` takes an optional ``width`` (≤ L) and returns the first
+``width`` memo columns; ``update`` takes π at any width ≤ L and zero-pads
+it to L. Stream-fed batches are packed at a ladder width
+(`repro_torch.data.stream`), so the E-step and the memo traffic shrink to
+that width.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,12 +39,15 @@ class MemoStore:
     max_unique: int
     num_topics: int
 
-    def gather(self, doc_idx) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Return (π_old (B, L, K) fp32, visited (B,) bool)."""
+    def gather(self, doc_idx, width: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Return (π_old (B, width, K) fp32, visited (B,) bool); ``width``
+        defaults to L."""
         raise NotImplementedError
 
     def update(self, doc_idx, pi: torch.Tensor) -> "MemoStore":
-        """Write a batch's new π (B, L, K) and mark it visited.
+        """Write a batch's new π (B, width ≤ L, K), zero-padded to L, and
+        mark it visited.
 
         The return value is the handle valid after the call; callers that
         need a before/after comparison copy out (``gather``) first.
@@ -93,15 +102,20 @@ class DenseMemoStore(MemoStore):
         return torch.as_tensor(np.asarray(doc_idx), dtype=torch.int64,
                                device=self.pi.device)
 
-    def gather(self, doc_idx):
+    def gather(self, doc_idx, width: Optional[int] = None):
         idx = self._index(doc_idx)
-        return self.pi[idx], self.visited[idx]
+        pi = self.pi[idx] if width is None or width == self.max_unique \
+            else self.pi[idx, :width]
+        return pi, self.visited[idx]
 
     def update(self, doc_idx, pi) -> "DenseMemoStore":
         # in place: repro donates the memo buffers to this scatter
         # (memo.py:153), so the old handle is consumed either way
         idx = self._index(doc_idx)
-        self.pi[idx] = pi
+        w = pi.shape[1]
+        self.pi[idx, :w] = pi
+        if w < self.max_unique:
+            self.pi[idx, w:] = 0.0
         self.visited[idx] = True
         return self
 

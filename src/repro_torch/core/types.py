@@ -85,7 +85,7 @@ class LDAConfig:
     tau: float = 1.0             # learning-rate delay
     estep_max_iters: int = 100   # cap on the local fixed point
     estep_tol: float = 1e-4      # mean-abs-change convergence threshold
-    estep_backend: str = "gather"  # "gather" | "dense" | "cuda"
+    estep_backend: str = "gather"  # "gather" | "dense" | "cuda" | "csr"
     # dtype the fixed point streams its inputs in; only "float32" is
     # implemented on the card (ROADMAP.md lists bf16 streaming)
     estep_stream_dtype: str = "float32"

@@ -31,6 +31,10 @@ _SIGNATURES = {
                         _I, _P],
     "lda_token_pi": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "lda_segment_scatter": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _I, _P],
+    "lda_fixed_point_csr_blocks": [_I, _I],
+    "lda_fixed_point_csr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                            _F, _I, _I, _P],
+    "lda_token_pi_csr": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "lda_fixed_point_max_k": [],
     "lda_error_string": [_I],
 }

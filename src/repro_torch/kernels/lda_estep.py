@@ -9,6 +9,11 @@
   (V, K); replaces ``_segment_scatter_kernel``.
 * ``memo_delta`` — K2 then K3, the counterpart of ``repro``'s
   ``memo_delta``.
+* ``estep_fixed_point_csr`` (K4) — the γ fixed point over a flat CSR token
+  stream, stopped batch-wide; replaces ``_csr_fixed_point_kernel``.
+* ``token_pi_csr`` (K5) — flat π (T, K); replaces ``_csr_token_pi_kernel``.
+* ``memo_delta_csr`` — K5 then K3 on the flat rows, the counterpart of
+  ``repro``'s ``memo_delta_csr``.
 
 Each kernel is CUDA C++ (``csrc/lda_estep.cu``, built and loaded by
 `repro_torch.kernels.build`) and has a plain PyTorch twin here computing
@@ -28,7 +33,8 @@ _EPS = 1e-30  # fp32-safe (1e-100 underflows to 0)
 
 #: Launches of each kernel since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"fixed_point": 0, "token_pi": 0,
-                            "segment_scatter": 0}
+                            "segment_scatter": 0, "fixed_point_csr": 0,
+                            "token_pi_csr": 0}
 
 
 def reset_launches() -> None:
@@ -327,6 +333,203 @@ def memo_delta(token_ids: torch.Tensor, counts: torch.Tensor,
     s_new, s_old = segment_scatter(
         token_ids.reshape(-1), counts.reshape(-1), pi.reshape(-1, k),
         None if old_pi is None else old_pi.reshape(-1, k), vocab_size)
+    if old_pi is None:
+        return pi, s_new
+    return pi, s_new, s_old
+
+
+# ---------------------------------------------------------------------------
+# K4: the γ fixed point over a flat CSR token stream
+# ---------------------------------------------------------------------------
+
+def _live_end(counts: torch.Tensor) -> torch.Tensor:
+    """One past the last live slot (count != 0) of a flat stream, 0 when
+    none is live, as an int64 device scalar (no host sync)."""
+    pos = torch.arange(1, counts.numel() + 1, dtype=torch.int64,
+                       device=counts.device)
+    return torch.where(counts != 0, pos, 0).amax() if counts.numel() \
+        else torch.zeros((), dtype=torch.int64, device=counts.device)
+
+
+def check_csr_order(counts: torch.Tensor, segments: torch.Tensor,
+                    num_docs: int) -> None:
+    """Raise unless the flat stream has the layout K4 relies on: the
+    segments are non-decreasing over the slots up to the last live token
+    (count != 0), and every live token's segment lies in [0, num_docs). So
+    each document's tokens form one contiguous range. The CSR packer emits
+    this (documents in order, padding with segment 0 after the last live
+    token), and so does ``CSRBackend.flatten`` (each row's padding stays in
+    its row)."""
+    end = int(_live_end(counts))
+    segs = segments[:end].long()
+    if bool((segs[1:] < segs[:-1]).any()):
+        raise ValueError("CSR stream: live tokens are not grouped by segment "
+                         "in non-decreasing order")
+    live = segs[counts[:end] != 0]
+    if bool(((live < 0) | (live >= num_docs)).any()):
+        raise ValueError(f"CSR stream: a live token's segment lies outside "
+                         f"[0, {num_docs})")
+
+
+def csr_doc_offsets(counts: torch.Tensor, segments: torch.Tensor,
+                    num_docs: int) -> torch.Tensor:
+    """Each document's token range ``[offsets[d], offsets[d + 1])`` (int64,
+    (num_docs + 1,)), found on the device with no host sync under
+    ``check_csr_order``'s layout: the slots past the last live token (the
+    tail padding) are keyed ``num_docs``, which sorts the keys, and one
+    sorted search per document cuts the ranges. Documents that own no token
+    get empty ranges."""
+    pos = torch.arange(segments.numel(), dtype=torch.int64,
+                       device=segments.device)
+    key = torch.where(pos < _live_end(counts), segments.long(), num_docs)
+    return torch.searchsorted(
+        key, torch.arange(num_docs + 1, dtype=torch.int64,
+                          device=segments.device))
+
+
+def estep_fixed_point_csr_plain(token_ids: torch.Tensor, counts: torch.Tensor,
+                                segments: torch.Tensor, eb: torch.Tensor,
+                                gamma0: torch.Tensor, alpha0: float,
+                                tol: float, max_iters: int):
+    """Plain twin of K4: the same sweeps and batch-wide stop, in torch.
+    Checks ``check_csr_order`` first and raises where it fails."""
+    b, k = gamma0.shape
+    check_csr_order(counts, segments, b)
+    ebt = eb[token_ids.long()]                         # (T, K)
+    segs = segments.long()
+    g, n = gamma0, 0
+    while n < max(int(max_iters), 1):
+        et = _exp_elog_theta(g)
+        p = (et[segs] * ebt).sum(-1) + _EPS
+        acc = torch.zeros_like(g).index_add_(0, segs,
+                                             (counts / p)[:, None] * ebt)
+        g_new = alpha0 + et * acc
+        delta = (g_new - g).abs().sum() / (b * k)
+        g, n = g_new, n + 1
+        if bool(delta <= tol):
+            break
+    return (g, _exp_elog_theta(g),
+            torch.tensor([n], dtype=torch.int32, device=gamma0.device))
+
+
+def estep_fixed_point_csr(token_ids: torch.Tensor, counts: torch.Tensor,
+                          segments: torch.Tensor, eb: torch.Tensor,
+                          gamma0: torch.Tensor, alpha0: float, tol: float,
+                          max_iters: int):
+    """The whole γ fixed point of a flat CSR batch (K4).
+
+    Shapes: token_ids int32 / counts float32 / segments int32 (T,), eb = Eφ
+    (V, K), gamma0 (B, K) → (γ (B, K), Eθ (B, K), sweeps (1,) int32). The
+    batch sweeps until the mean |Δγ| over all B rows (rows that own no
+    token included) and K topics is ≤ ``tol``, at most ``max(max_iters,
+    1)`` times, then Eθ is recomputed from the final γ: ``repro``'s
+    batch-wide rule. Precondition (``check_csr_order``): live tokens are
+    grouped by segment in non-decreasing order, as the CSR packer and
+    ``CSRBackend.flatten`` emit them; the plain twin checks it, the kernel
+    relies on it.
+    """
+    (t,) = token_ids.shape
+    v, k = eb.shape
+    b = gamma0.shape[0]
+    _expect("token_ids", token_ids, torch.int32, (t,))
+    _expect("counts", counts, torch.float32, (t,))
+    _expect("segments", segments, torch.int32, (t,))
+    _expect("eb", eb, torch.float32, (v, k))
+    _expect("gamma0", gamma0, torch.float32, (b, k))
+    if _on_cpu(token_ids, counts, segments, eb, gamma0):
+        return estep_fixed_point_csr_plain(token_ids, counts, segments, eb,
+                                           gamma0, alpha0, tol, max_iters)
+    lib = build.load()
+    if k > lib.lda_fixed_point_max_k():
+        raise ValueError(f"estep_fixed_point_csr: K={k} exceeds the kernel's "
+                         f"{lib.lda_fixed_point_max_k()} topics")
+    gamma = torch.empty_like(gamma0)
+    et = torch.empty_like(gamma0)
+    iters = torch.zeros(1, dtype=torch.int32, device=gamma0.device)
+    if b == 0:
+        return gamma, et, iters
+    blocks = lib.lda_fixed_point_csr_blocks(b, k)
+    if blocks < 1:
+        build.check(-blocks, "lda_fixed_point_csr_blocks")
+    offsets = csr_doc_offsets(counts, segments, b)
+    partials = torch.empty(2 * blocks, dtype=torch.float32,
+                           device=gamma0.device)
+    rc = lib.lda_fixed_point_csr(
+        token_ids.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+        eb.data_ptr(), gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(),
+        partials.data_ptr(), iters.data_ptr(), b, k, float(alpha0),
+        float(tol), max(int(max_iters), 1), blocks, _stream(gamma0))
+    build.check(rc, "lda_fixed_point_csr")
+    LAUNCHES["fixed_point_csr"] += 1
+    return gamma, et, iters
+
+
+# ---------------------------------------------------------------------------
+# K5: flat-token π
+# ---------------------------------------------------------------------------
+
+def token_pi_csr_plain(token_ids: torch.Tensor, counts: torch.Tensor,
+                       segments: torch.Tensor, eb: torch.Tensor,
+                       etheta: torch.Tensor, *,
+                       quantize: bool = False) -> torch.Tensor:
+    """Plain twin of K5."""
+    ebt = eb[token_ids.long()]                         # (T, K)
+    et = etheta[segments.long()]                       # (T, K)
+    p = (et * ebt).sum(-1) + _EPS
+    pi = torch.where(counts[:, None] > 0, et * ebt / p[:, None], 0.0)
+    if quantize:
+        pi = pi.to(torch.bfloat16).to(torch.float32)
+    return pi
+
+
+def token_pi_csr(token_ids: torch.Tensor, counts: torch.Tensor,
+                 segments: torch.Tensor, eb: torch.Tensor,
+                 etheta: torch.Tensor, *,
+                 quantize: bool = False) -> torch.Tensor:
+    """π = Eθ[seg]⊙Eφ[id] / (Σ_k Eθ[seg]⊙Eφ[id] + 1e-30) per flat token slot
+    (K5).
+
+    Shapes: token_ids int32 / counts float32 / segments int32 (T,), eb
+    (V, K), etheta (B, K) → π (T, K) float32, zero where the count is 0,
+    rounded through bf16 with ``quantize``.
+    """
+    (t,) = token_ids.shape
+    v, k = eb.shape
+    _expect("token_ids", token_ids, torch.int32, (t,))
+    _expect("counts", counts, torch.float32, (t,))
+    _expect("segments", segments, torch.int32, (t,))
+    _expect("eb", eb, torch.float32, (v, k))
+    _expect("etheta", etheta, torch.float32, (etheta.shape[0], k))
+    if _on_cpu(token_ids, counts, segments, eb, etheta):
+        return token_pi_csr_plain(token_ids, counts, segments, eb, etheta,
+                                  quantize=quantize)
+    lib = build.load()
+    pi = torch.empty((t, k), dtype=torch.float32, device=eb.device)
+    if t == 0:
+        return pi
+    rc = lib.lda_token_pi_csr(token_ids.data_ptr(), counts.data_ptr(),
+                              segments.data_ptr(), eb.data_ptr(),
+                              etheta.data_ptr(), pi.data_ptr(), t, k,
+                              int(bool(quantize)), _stream(eb))
+    build.check(rc, "lda_token_pi_csr")
+    LAUNCHES["token_pi_csr"] += 1
+    return pi
+
+
+def memo_delta_csr(token_ids: torch.Tensor, counts: torch.Tensor,
+                   segments: torch.Tensor, eb: torch.Tensor,
+                   etheta: torch.Tensor, vocab_size: int,
+                   old_pi: Optional[torch.Tensor] = None, *,
+                   quantize: bool = False):
+    """Flat π plus segment-summed new/old masses: K5 then K3.
+
+    Shapes: token_ids/counts/segments (T,), eb (V, K), etheta (B, K),
+    old_pi (T, K) in the same flat layout. Returns (π (T, K), S_new (V, K)
+    [, S_old (V, K)]).
+    """
+    pi = token_pi_csr(token_ids, counts, segments, eb, etheta,
+                      quantize=quantize)
+    s_new, s_old = segment_scatter(token_ids, counts, pi, old_pi, vocab_size)
     if old_pi is None:
         return pi, s_new
     return pi, s_new, s_old

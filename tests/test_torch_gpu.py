@@ -1,6 +1,6 @@
-"""Card-only tests: each CUDA kernel against its plain twin at the main
-path's shapes (the Arxiv vocabulary V = 141,927, K = 100, B = 1024, L
-about 163). Whether a card is present is decided inside the ``cuda``
+"""Card-only tests: each CUDA kernel against its plain twin, K1–K3 at the
+main path's shapes (the Arxiv vocabulary V = 141,927, K = 100, B = 1024, L
+about 163), K4 and K5 on a small flat CSR batch. Whether a card is present is decided inside the ``cuda``
 fixture, so every worker collects the same tests; without a card they skip.
 
 Run on the card:  python -m pytest -m gpu tests/test_torch_gpu.py
@@ -98,3 +98,90 @@ def test_segment_scatter_kernel_is_deterministic_and_exact(path_inputs):
         want.index_add_(0, flat_ids.long(),
                         flat_cnts[:, None].double() * pi.double())
         torch.testing.assert_close(x.double(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def csr_inputs(cuda):
+    """A small flat CSR batch on the card: 40 ragged documents (empty and
+    single-token ones included) in a 2,048-slot stream with tail padding,
+    K = 24, Eφ from peaked topics so the batch stops before the cap."""
+    from repro_torch.data.stream import BatchPacker
+    rng = np.random.default_rng(3)
+    v, k, n = 2000, 24, 40
+    packer = BatchPacker(n, layout="csr", token_budget=2048)
+    lengths = rng.integers(2, 90, n)
+    lengths[[3, 17]] = 0
+    lengths[[5, 30]] = 1
+    for pos, m in enumerate(lengths):
+        ids = np.sort(rng.choice(v, size=int(m), replace=False))
+        batch = packer.add(pos, ids.astype(np.int32),
+                           rng.integers(1, 4, int(m)).astype(np.float32))
+    lam = torch.from_numpy((rng.gamma(0.3, 2.0, (v, k)) + 0.05)
+                           .astype(np.float32))
+    eb = exp_dirichlet_expectation(lam.to(cuda), axis=0).contiguous()
+    flat = [torch.from_numpy(a).to(cuda)
+            for a in (batch.token_ids, batch.counts, batch.segments)]
+    return flat, eb, batch.num_docs
+
+
+@pytest.mark.parametrize("phantom", [0, 9])
+def test_csr_fixed_point_kernel_matches_twin(csr_inputs, phantom):
+    """K4 against its twin: the same batch-wide sweep count, γ at 2e-3 and
+    Eθ at rtol 1e-4 / atol 1e-6; ``phantom`` rows own no token and start
+    fresh, so they count in the first sweep's mean."""
+    (ids, cnts, segs), eb, b = csr_inputs
+    gamma0 = torch.full((b + phantom, eb.shape[1]), 1.5, device=eb.device)
+    args = (ids, cnts, segs, eb, gamma0, 0.5, 1e-3, 60)
+    g, et, it = lda_estep.estep_fixed_point_csr(*args)
+    pg, pet, pit = lda_estep.estep_fixed_point_csr_plain(*args)
+    torch.cuda.synchronize()
+    assert int(it[0]) == int(pit[0]) < 60
+    torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(et, pet, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_csr_token_pi_kernel_matches_twin(csr_inputs, quantize):
+    (ids, cnts, segs), eb, b = csr_inputs
+    et = torch.rand((b, eb.shape[1]),
+                    generator=torch.Generator(eb.device).manual_seed(4),
+                    device=eb.device) + 0.01
+    got = lda_estep.token_pi_csr(ids, cnts, segs, eb, et, quantize=quantize)
+    want = lda_estep.token_pi_csr_plain(ids, cnts, segs, eb, et,
+                                        quantize=quantize)
+    if quantize:   # one bf16 ulp where the fp32 values straddle a rounding
+        torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-38)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_csr_backend_matches_gather_on_card(cuda):
+    """The ``csr`` backend (K4 → K5 → K3 on a flattened padded batch, each
+    row's padding inside its range) against ``gather`` on the card: both
+    stop batch-wide, so the same iteration count; γ and the correction at
+    2e-3."""
+    from repro_torch.core.estep import BowBatch, get_backend
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.bow import corpus_from_docs
+    rng = np.random.default_rng(5)
+    v, k = 3000, 24
+    docs = [rng.integers(0, v, size=int(rng.integers(1, 80)))
+            for _ in range(40)]
+    corpus = corpus_from_docs(docs, v, device=cuda)
+    lam = torch.from_numpy((rng.gamma(0.3, 2.0, (v, k)) + 0.05)
+                           .astype(np.float32)).to(cuda)
+    eb = exp_dirichlet_expectation(lam, axis=0).contiguous()
+    cfg = LDAConfig(num_topics=k, vocab_size=v, estep_max_iters=60,
+                    estep_tol=1e-3)
+    batch = BowBatch(corpus.token_ids, corpus.counts)
+    want = get_backend("gather").solve(cfg, eb, batch)
+    visited = torch.arange(40, device=cuda) % 2 == 0
+    old_pi = torch.where(visited[:, None, None], want.pi, 0.0).contiguous()
+    got = get_backend("csr").solve_correction(cfg, eb, batch, old_pi,
+                                              visited)
+    ref = get_backend("gather").solve_correction(cfg, eb, batch, old_pi,
+                                                 visited)
+    assert int(got[2].iters) == int(ref[2].iters) < 60
+    torch.testing.assert_close(got[2].gamma, ref[2].gamma, rtol=2e-3,
+                               atol=2e-3)
+    torch.testing.assert_close(got[0], ref[0], rtol=2e-3, atol=2e-3)

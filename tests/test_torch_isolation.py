@@ -40,7 +40,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert got["bad"] == []
     for name in ("repro_torch.core.engines", "repro_torch.kernels.ops",
                  "repro_torch.kernels.lda_estep", "repro_torch.convert",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.data.stream"):
         assert name in got["modules"]
 
 
@@ -67,5 +67,8 @@ def test_build_targets_hopper_from_package_source():
     for entry in build._SIGNATURES:
         assert f" {entry}(" in source, entry
     for kernel in ("fixed_point_kernel", "token_pi_kernel",
-                   "segment_scatter_kernel"):
-        assert kernel in source
+                   "segment_scatter_kernel", "csr_fixed_point_kernel",
+                   "csr_token_pi_kernel"):
+        assert f" {kernel}(" in source, kernel
+    # K4 stops batch-wide across its grid: one cooperative launch
+    assert "cudaLaunchCooperativeKernel" in source
