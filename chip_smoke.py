@@ -28,6 +28,17 @@ then the flat CSR token-stream path, on the same corpus:
  11. warm_csr  — the CSR fixed point against its twin from the trained
                memo's warm starts
  12. profile_csr — torch.profiler over a few more CSR updates
+then the pre-fusion baseline and attention:
+ 13. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
+               one-hot memo delta (K8) on phase 3's documents, λ and γ₀:
+               each kernel against its twin and timed; the whole E-step
+               against the same loop over the twins; the legacy correction
+               against the fused one (K1–K3), here and at BENCH_estep's
+               shape (B = 128, V = 4096, K = 128, L = 64)
+ 14. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
+               heads, 2 KV heads, hd = 128), B = 1, S = 4096, bf16, causal,
+               against its twin and timed beside scaled_dot_product_attention;
+               then fp32, not causal, S = 1000 against mha_ref
 Then the ``kernels`` summary line and, last, the ``ok`` line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -42,9 +53,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor,
+# bf16 dense tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # operations per element of the in-kernel exp(E[ln θ]): two series digammas
 # (8 divisions + 8 additions + log + 6 series terms each), a subtraction and
 # an exp, counting a division, log or exp as one operation
@@ -55,15 +68,34 @@ BATCH = 1024
 TOPICS = 100
 ESTEP_ITERS = 60
 CSR_BUDGET = 131_072     # flat slots per CSR batch: 1024 documents fit
-SOURCE = "src/repro_torch/kernels/csrc/lda_estep.cu"
+ESTEP_SOURCE = "src/repro_torch/kernels/csrc/lda_estep.cu"
+ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {"fixed_point": "src/repro/kernels/lda_estep.py:99",
             "token_pi": "src/repro/kernels/lda_estep.py:208",
             "segment_scatter": "src/repro/kernels/lda_estep.py:227",
             "fixed_point_csr": "src/repro/kernels/lda_estep.py:433",
-            "token_pi_csr": "src/repro/kernels/lda_estep.py:558"}
+            "token_pi_csr": "src/repro/kernels/lda_estep.py:558",
+            "sweep": "src/repro/kernels/lda_estep.py:817",
+            "sstats": "src/repro/kernels/lda_estep.py:870",
+            "memo_delta_onehot": "src/repro/kernels/lda_estep.py:677",
+            "flash_attention": "src/repro/kernels/flash_attention.py:31"}
+SOURCES = {name: ATTENTION_SOURCE if name == "flash_attention"
+           else ESTEP_SOURCE for name in REPLACES}
 # the kernels each path launches
 PADDED_KERNELS = ("fixed_point", "token_pi", "segment_scatter")
 CSR_KERNELS = ("fixed_point_csr", "token_pi_csr", "segment_scatter")
+LEGACY_KERNELS = ("sweep", "sstats", "memo_delta_onehot")
+# BENCH_estep's shape (benchmarks/kernel_bench.py:196-206)
+BENCH_ESTEP = dict(b=128, v=4096, k=128, l=64, iters=30)
+# Qwen2.5-3B's attention (src/repro/configs/qwen2_5_3b.py), one sequence
+QWEN_ATTENTION = dict(b=1, s=4096, h=16, kv=2, hd=128)
+# K9's bf16 output against its fp32-math twin, both rounded once to bf16:
+# about two bf16 ulps (2^-7 relative) plus a floor for values near 0
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
+# SDPA (the yardstick) may keep bf16 intermediates, a few ulps per element,
+# so it is held by its relative L2 error: a different function (another
+# mask, another head mapping) is off by O(1)
+LIBRARY_REL_L2 = 2.0 ** -7
 
 
 def emit(obj) -> None:
@@ -77,6 +109,20 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean host-clock time of ``fn`` over ``reps`` calls, the device
+    synced before and after (for paths that sync the host themselves)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -95,8 +141,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -123,16 +169,19 @@ def phase_device():
 
 
 def phase_build():
+    """Both libraries from the checkout's sources, one nvcc each, started
+    together."""
     from repro_torch.kernels import build
-    stale = build.library_path()
-    if stale.exists():           # build from the checkout's source, always
-        stale.unlink()
+    for source, _, _ in build.LIBRARIES.values():
+        stale = build.library_path(source)
+        if stale.exists():       # build from the checkout's source, always
+            stale.unlink()
     t0 = time.perf_counter()
-    build.load()
+    build.build_all()
+    for name in build.LIBRARIES:
+        build.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": build.BUILD_INFO.get("seconds"),
-          "command": build.BUILD_INFO.get("command"),
-          "ptxas": build.BUILD_INFO.get("ptxas")})
+          "libraries": build.BUILD_INFO})
 
 
 def phase_data(device, corpus="arxiv", scale=ARXIV_SCALE):
@@ -784,6 +833,368 @@ def phase_fixed_point_csr_warm(eng, kernels, timer):
     emit({"phase": "kernels_csr_warm", "fixed_point_csr": res})
 
 
+# ---------------------------------------------------------------------------
+# the pre-fusion baseline (K6, K7, K8) and attention (K9)
+# ---------------------------------------------------------------------------
+
+def dense_bound(b, v, k):
+    """K6's or K7's bound on (B, V) counts and K topics: C, Eθ and Eφ read
+    once, one (B, K) or (V, K) output; two products of 2·B·V·K operations
+    plus the ε add and the division per (b, v)."""
+    nbytes = (b * v + b * k + v * k + max(b, v) * k) * 4
+    return bound_ms(nbytes, 4.0 * b * v * k + 2.0 * b * v)
+
+
+def check_corrections(legacy, fused, label):
+    """The legacy correction against the fused one, at the correction bar
+    of tests/test_estep_backend.py (rtol = atol = 2e-3)."""
+    import torch
+    err = float((legacy - fused).abs().max())
+    check(torch.allclose(legacy, fused, rtol=2e-3, atol=2e-3),
+          f"legacy ({label}): correction off the fused one by {err}")
+    return err
+
+
+def legacy_correction(cfg, eb, ids, cnts, old_pi, **blocks):
+    """The pre-fusion correction as benchmarks/kernel_bench.py:207-213
+    builds it: the per-sweep E-step, then scatter of cnt·(π − old π)."""
+    from repro_torch.core.estep import scatter_sstats
+    from repro_torch.kernels import ops
+    res = ops.estep_cuda_sweeps(cfg, eb, ids, cnts, **blocks)
+    delta = cnts[:, :, None] * (res.pi - old_pi)
+    return scatter_sstats(ids, delta, eb.shape[0]), res
+
+
+def fused_correction(cfg, eb, ids, cnts, old_pi, visited):
+    from repro_torch.kernels import ops
+    corr, _, res = ops.memo_correction_cuda(cfg, eb, ids, cnts, old_pi,
+                                            visited)
+    return corr, res
+
+
+def phase_legacy(device, spec, train, topics, batch, timer):
+    """The pre-fusion baseline on phase 3's documents, λ and γ₀ (the first
+    ``batch`` Arxiv-shaped documents, 60 sweeps from cold): K6 and K7 (on a
+    seeded γ) and K8 against their twins and timed; the per-sweep E-step (K6 per sweep, K7
+    once), then K8 on its Eθ, as one driven path with its launches
+    counted; the legacy correction against the fused one, here and at
+    BENCH_estep's shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.estep import densify
+    from repro_torch.core.math import exp_dirichlet_expectation
+    from repro_torch.core.types import LDAConfig, init_global_state
+    from repro_torch.kernels import lda_estep, ops
+
+    cfg = LDAConfig(num_topics=topics, vocab_size=spec.vocab_size,
+                    estep_max_iters=ESTEP_ITERS)
+    gen = torch.Generator(device=device).manual_seed(0)
+    lam = init_global_state(cfg, device=device, generator=gen).lam
+    eb = exp_dirichlet_expectation(lam, axis=0).contiguous()
+    ids = train.token_ids[:batch].contiguous()
+    cnts = train.counts[:batch].contiguous()
+    b, l = ids.shape
+    k, v = topics, spec.vocab_size
+    live = int((cnts != 0).sum())
+    out = {}
+
+    # K6 and K7 on the padded inputs, with a seeded γ that differs by row
+    # and topic, so that Eθ does too and a mis-indexed Eθ shows -----------
+    cpad, ebpad, _ = ops.pad_inputs(densify(ids, cnts, v), eb, 128, 512)
+    (bp, vp), kp = cpad.shape, ebpad.shape[1]
+    gamma0 = torch.full((b, k), cfg.alpha0 + 1.0, device=device)
+    g_rand = cfg.alpha0 + 0.1 + 20.0 * torch.rand(
+        (b, k), generator=gen, device=device)
+    gpad = F.pad(g_rand, (0, kp - k, 0, bp - b), value=cfg.alpha0)
+    et0 = ops.padded_exp_elog_theta(gpad, k)
+    for name, kern, plain, args in (
+            ("sweep", lda_estep.estep_sweep, lda_estep.estep_sweep_plain,
+             (cpad, et0, ebpad, cfg.alpha0)),
+            ("sstats", lda_estep.sstats, lda_estep.sstats_plain,
+             (cpad, et0, ebpad))):
+        got, again, want = kern(*args), kern(*args), plain(*args)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+              f"{name}: off its twin by {err}")
+        check(torch.equal(got, again), f"{name}: two launches differ")
+        bms, by = dense_bound(bp, vp, kp)
+        out[name] = {
+            "max_abs_err": err, "tol": "rtol=atol=2e-5 (fp32 twin, no TF32)",
+            "deterministic": True, "shape": [bp, vp, kp],
+            "ms": timer(lambda: kern(*args), 10),
+            "plain_ms": timer(lambda: plain(*args), 10),
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+    # the driven path: the per-sweep E-step, then K8 on its Eθ -------------
+    old_pi = lda_estep.token_pi(ids, cnts, eb,
+                                exp_dirichlet_expectation(gamma0))
+    ebt = eb[ids.long()].contiguous()
+    lda_estep.reset_launches()
+    ops.HOST_SYNCS["estep_cuda_sweeps"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ops.estep_cuda_sweeps(cfg, eb, ids, cnts, gamma0)
+    et = exp_dirichlet_expectation(res.gamma).contiguous()
+    onehot = lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v,
+                                         old_pi=old_pi)
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(lda_estep.LAUNCHES)
+    syncs = ops.HOST_SYNCS["estep_cuda_sweeps"]
+    sweeps = int(res.iters)
+    check(all(launches[n] > 0 for n in LEGACY_KERNELS),
+          f"legacy: a kernel of the path never launched: {launches}")
+    check(launches["sweep"] == sweeps and launches["sstats"] == 1,
+          f"legacy: {launches} for {sweeps} sweeps")
+    twin = ops.estep_sweeps(cfg, eb, ids, cnts, gamma0, block_b=128,
+                            block_v=512, sweep=lda_estep.estep_sweep_plain,
+                            sstats=lda_estep.sstats_plain)
+    check(sweeps == int(twin.iters),
+          f"legacy: {sweeps} sweeps vs the twin path's {int(twin.iters)}")
+    gerr = float((res.gamma - twin.gamma).abs().max())
+    check(torch.allclose(res.gamma, twin.gamma, rtol=2e-3, atol=2e-3),
+          f"legacy: γ off the twin path by {gerr}")
+    serr = float((res.sstats - twin.sstats).abs().max())
+    check(torch.allclose(res.sstats, twin.sstats, rtol=1e-2, atol=2e-3),
+          f"legacy: sstats off the twin path by {serr}")
+    check(bool(torch.isfinite(res.gamma).all()) and
+          bool(torch.isfinite(onehot[1]).all()), "legacy: non-finite output")
+    estep = {"sweeps": sweeps, "host_syncs": syncs,
+             "launches": {n: launches[n] for n in LEGACY_KERNELS},
+             "max_abs_err_gamma_vs_twin_path": gerr,
+             "max_abs_err_sstats_vs_twin_path": serr,
+             "tol": "γ rtol=atol=2e-3, sstats rtol 1e-2 atol 2e-3, the same "
+                    "sweep count", "path_first_call_ms": path_ms,
+             "wall_ms": wall_ms(lambda: ops.estep_cuda_sweeps(
+                 cfg, eb, ids, cnts, gamma0), 3),
+             "twin_path_wall_ms": wall_ms(lambda: ops.estep_sweeps(
+                 cfg, eb, ids, cnts, gamma0, block_b=128, block_v=512,
+                 sweep=lda_estep.estep_sweep_plain,
+                 sstats=lda_estep.sstats_plain), 2)}
+    for name in ("sweep", "sstats"):
+        out[name]["launches_per_estep"] = launches[name]
+    bms, _ = dense_bound(bp, vp, kp)
+    estep["bound_ms"] = bms * (sweeps + 1)
+
+    # the legacy correction against the fused one (cold: no memo) ---------
+    zero_pi = torch.zeros((b, l, k), device=device)
+    unvisited = torch.zeros(b, dtype=torch.bool, device=device)
+    corr_l, _ = legacy_correction(cfg, eb, ids, cnts, zero_pi)
+    corr_f, res_f = fused_correction(cfg, eb, ids, cnts, zero_pi, unvisited)
+    corrections = {"arxiv": {
+        "shape": {"B": b, "V": v, "K": k, "L": l, "sweeps": sweeps,
+                  "fused_tile_sweeps_max": int(res_f.iters)},
+        "max_abs_err": check_corrections(corr_l, corr_f, "arxiv"),
+        "legacy_ms": wall_ms(lambda: legacy_correction(
+            cfg, eb, ids, cnts, zero_pi), 2),
+        "fused_ms": wall_ms(lambda: fused_correction(
+            cfg, eb, ids, cnts, zero_pi, unvisited), 5)}}
+    # ... and at BENCH_estep's shape (its ids, counts and λ, from numpy)
+    be = BENCH_ESTEP
+    rng = np.random.default_rng(0)
+    b_ids = torch.from_numpy(rng.integers(0, be["v"], (be["b"], be["l"]))
+                             .astype(np.int32)).to(device)
+    b_cnts = torch.from_numpy((rng.poisson(1.5, (be["b"], be["l"])) + 1)
+                              .astype(np.float32)).to(device)
+    b_lam = torch.from_numpy(rng.gamma(100.0, 0.01, (be["v"], be["k"]))
+                             .astype(np.float32)).to(device)
+    b_eb = exp_dirichlet_expectation(b_lam, axis=0).contiguous()
+    b_cfg = LDAConfig(num_topics=be["k"], vocab_size=be["v"],
+                      estep_max_iters=be["iters"])
+    b_old = torch.zeros((be["b"], be["l"], be["k"]), device=device)
+    b_vis = torch.zeros(be["b"], dtype=torch.bool, device=device)
+    b_corr_l, b_res = legacy_correction(b_cfg, b_eb, b_ids, b_cnts, b_old,
+                                        block_v=be["v"])
+    b_corr_f, b_res_f = fused_correction(b_cfg, b_eb, b_ids, b_cnts, b_old,
+                                         b_vis)
+    corrections["bench_estep"] = {
+        "shape": {"B": be["b"], "V": be["v"], "K": be["k"], "L": be["l"],
+                  "sweeps": int(b_res.iters),
+                  "fused_tile_sweeps_max": int(b_res_f.iters)},
+        "max_abs_err": check_corrections(b_corr_l, b_corr_f, "bench_estep"),
+        "legacy_ms": wall_ms(lambda: legacy_correction(
+            b_cfg, b_eb, b_ids, b_cnts, b_old, block_v=be["v"]), 5),
+        "fused_ms": wall_ms(lambda: fused_correction(
+            b_cfg, b_eb, b_ids, b_cnts, b_old, b_vis), 10)}
+    for row in corrections.values():
+        row["legacy_over_fused"] = row["legacy_ms"] / row["fused_ms"]
+
+    # K8 against its twin, and against K2 + K3 ----------------------------
+    pi, s_new, s_old = onehot
+    want = lda_estep.memo_delta_onehot_plain(ids, cnts, ebt, et, v, old_pi)
+    err = max(float((x - y).abs().max()) for x, y in zip(onehot, want))
+    check(torch.allclose(pi, want[0], rtol=1e-5, atol=1e-6)
+          and all(torch.allclose(x, y, rtol=1e-4, atol=1e-4)
+                  for x, y in zip(onehot[1:], want[1:])),
+          f"memo_delta_onehot: off its twin by {err}")
+    one_q = lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old_pi,
+                                        quantize=True)
+    seg_q = lda_estep.memo_delta(ids, cnts, eb, et, v, old_pi=old_pi,
+                                 quantize=True)
+    check(torch.equal(one_q[0], seg_q[0]),
+          "memo_delta_onehot: π is not K2's bit for bit")
+    seg_err = max(float((x - y).abs().max())
+                  for x, y in zip(one_q[1:], seg_q[1:]))
+    check(all(torch.allclose(x, y, rtol=1e-4, atol=1e-4)
+              for x, y in zip(one_q[1:], seg_q[1:])),
+          f"memo_delta_onehot: S off K2 + K3 by {seg_err}")
+    del one_q, seg_q, want
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old_pi)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    nb = b // lda_estep.delta_effective_block_b(b, l, k)
+    vpad = -(-v // 128) * 128
+    bms, by = bound_ms(b * l * 8 + 3 * b * l * k * 4 + b * k * 4
+                       + 2 * v * k * 4, 4.0 * live * k + 4.0 * live * k)
+    out["memo_delta_onehot"] = {
+        "max_abs_err": err, "tol": "π rtol 1e-5 atol 1e-6, S rtol=atol "
+        "1e-4; with quantize π equal to K2's, S within 1e-4 of K2 + K3",
+        "pi_equal_to_k2": True, "max_abs_err_s_vs_k2_k3": seg_err,
+        "peak_bytes_above_baseline": peak,
+        "ms": timer(lambda: lda_estep.memo_delta_onehot(
+            ids, cnts, ebt, et, v, old_pi=old_pi), 5),
+        "plain_ms": timer(lambda: lda_estep.memo_delta_onehot_plain(
+            ids, cnts, ebt, et, v, old_pi), 2, 1),
+        "k2_k3_ms": timer(lambda: lda_estep.memo_delta(
+            ids, cnts, eb, et, v, old_pi=old_pi), 5),
+        "bound_ms": bms, "bound_by": by, "library_ms": None}
+    # bounds and sizes derived from the shapes: this line only, never the
+    # kernels line, which carries measured numbers and bound_ms alone
+    derived = {
+        "sweep_sstats_bound_ms_unpadded": dense_bound(b, v, k)[0],
+        "onehot_partials": nb, "onehot_partial_bytes": 2 * nb * vpad * k * 4,
+        "onehot_partials_bound_ms": 2 * 2 * nb * vpad * k * 4
+        / HBM_BYTES_PER_S * 1e3}
+    emit({"phase": "legacy", "shape": {"B": b, "L": l, "K": k, "V": v,
+                                       "padded": [bp, vp, kp],
+                                       "live_slots": live},
+          "estep_cuda_sweeps": estep, "corrections": corrections,
+          "kernels": out, "derived": derived})
+    return out, launches
+
+
+def phase_attention(device, timer):
+    """flash_mha (K9) at Qwen2.5-3B's attention widths, bf16, causal, S =
+    4096, one sequence: its launches; K9 against its twin at about two bf16
+    ulps; its time, its bound and scaled_dot_product_attention's on the same
+    inputs. Then fp32 at the same shape, causal, against the twin, and fp32,
+    not causal, S = 1000 (padded to 1024) against mha_ref on the unpadded
+    inputs, both at 2e-5."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    qa = QWEN_ATTENTION
+    b, s, h, kvh, hd = qa["b"], qa["s"], qa["h"], qa["kv"], qa["hd"]
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def normal(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    q = normal(b, s, h, hd, dtype=torch.bfloat16)
+    k = normal(b, s, kvh, hd, dtype=torch.bfloat16)
+    v = normal(b, s, kvh, hd, dtype=torch.bfloat16)
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ops.flash_mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    mha_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.LAUNCHES)
+    check(launches["flash_attention"] == 1,
+          f"attention: flash_mha launched {launches}")
+    check(out.shape == q.shape and out.dtype == q.dtype
+          and bool(torch.isfinite(out.float()).all()),
+          "attention: flash_mha output shape, dtype or values")
+
+    def heads(x):
+        return x.permute(0, 2, 1, 3).reshape(b * x.shape[2], s, hd) \
+            .contiguous()
+
+    qf, kf, vf = heads(q), heads(k), heads(v)
+    got = fa.flash_attention(qf, kf, vf, causal=True)
+    check(torch.equal(got, heads(out)), "attention: flash_mha is not K9")
+    want = fa.flash_attention_plain(qf, kf, vf, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
+                         atol=BF16_ATOL),
+          f"flash_attention: off its twin by {err}")
+    q4, k4, v4 = (x.view(b, x.shape[0] // b, s, hd) for x in (qf, kf, vf))
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+
+    lib = library().reshape(b * h, s, hd).float() - want.float()
+    lib_err = float(lib.abs().max())
+    lib_rel = float(lib.norm() / want.float().norm())
+    check(lib_rel <= LIBRARY_REL_L2,
+          f"attention: SDPA off the twin by {lib_rel} relative L2")
+    del lib, want
+    pairs = b * h * s * (s + 1) / 2            # (query, key) pairs computed
+    ops_count = 4.0 * hd * pairs               # Q·Kᵀ and P·V
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+    bms, by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
+    row = {"max_abs_err": err,
+           "tol": f"bf16 rtol={BF16_RTOL} atol={BF16_ATOL} (SDPA: relative "
+                  f"L2 {LIBRARY_REL_L2}); fp32 causal S={s} and not causal "
+                  "S=1000 rtol=atol=2e-5",
+           "shape": {"B": b, "S": s, "H": h, "KV": kvh, "hd": hd,
+                     "dtype": "bfloat16", "causal": True},
+           "flash_mha_first_call_ms": mha_ms,
+           "ms": timer(lambda: fa.flash_attention(qf, kf, vf, causal=True),
+                       10),
+           "plain_ms": timer(lambda: fa.flash_attention_plain(
+               qf, kf, vf, causal=True), 3),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(library, 10),
+           "library_call": "F.scaled_dot_product_attention(is_causal, "
+                           "enable_gqa)",
+           "max_abs_err_library_vs_twin": lib_err,
+           "rel_l2_err_library_vs_twin": lib_rel}
+
+    # fp32, causal, the same widths and S: the template's fp32 instance,
+    # held tight at the main shape --------------------------------------
+    qf, kf, vf = (x.float() for x in (qf, kf, vf))
+    got = fa.flash_attention(qf, kf, vf, causal=True)
+    want = fa.flash_attention_plain(qf, kf, vf, causal=True)
+    f32_err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+          f"flash_attention: fp32 causal S={s} off its twin by {f32_err}")
+    row["max_abs_err_fp32_causal"] = f32_err
+    del qf, kf, vf, got, want
+
+    # fp32, not causal, S = 1000: the padded keys must be masked ------------
+    n = 1000
+    q = normal(b, n, h, hd, dtype=torch.float32)
+    k = normal(b, n, kvh, hd, dtype=torch.float32)
+    v = normal(b, n, kvh, hd, dtype=torch.float32)
+    got = ops.flash_mha(q, k, v, causal=False)
+
+    def flat(x, rep):
+        return x.permute(0, 2, 1, 3).reshape(-1, n, hd) \
+            .repeat_interleave(rep, dim=0)
+
+    want = ref.mha_ref(flat(q, 1), flat(k, h // kvh), flat(v, h // kvh),
+                       causal=False).reshape(b, h, n, hd).permute(0, 2, 1, 3)
+    pad_err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+          f"attention: fp32 S={n} not causal off mha_ref by {pad_err}")
+    row["padded_fp32"] = {"S": n, "padded_to": 1024, "causal": False,
+                          "max_abs_err_vs_mha_ref": pad_err,
+                          "tol": "rtol=atol=2e-5"}
+    emit({"phase": "attention", "kernels": {"flash_attention": row},
+          "launches": launches,
+          "derived": {"bound_ms_fp32_simt": ops_count / FP32_OPS_PER_S
+                      * 1e3}})
+    return {"flash_attention": row}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -794,6 +1205,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     device = torch.device("cuda")
+    # the dense twins' products in full fp32, as the kernels compute them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     info = phase_device()
     phase_build()
     spec, train, test = phase_data(device)
@@ -813,14 +1227,25 @@ def main() -> int:
                                         BATCH, torch.cuda.synchronize)
     phase_fixed_point_csr_warm(eng, kernels, cuda_ms)
     phase_profile(eng.stream_step, phase="profile_csr")
+    del eng
+
+    legacy, launches_legacy = phase_legacy(device, spec, train, TOPICS, BATCH,
+                                           cuda_ms)
+    kernels.update(legacy)
+    attention, launches_attention = phase_attention(device, cuda_ms)
+    kernels.update(attention)
     # each kernel's launches on the path that runs it
     launches.update(fixed_point_csr=launches_csr["fixed_point_csr"],
-                    token_pi_csr=launches_csr["token_pi_csr"])
+                    token_pi_csr=launches_csr["token_pi_csr"],
+                    **{n: launches_legacy[n] for n in LEGACY_KERNELS},
+                    flash_attention=launches_attention["flash_attention"])
     kernels["segment_scatter"]["launches_csr"] = \
         launches_csr["segment_scatter"]
+    check(all(launches[name] > 0 for name in REPLACES),
+          f"a kernel never launched on its path: {launches}")
     emit({"phase": "summary", "card": info["nvidia_smi"],
           "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [dict(name=name, route="cuda", source=SOURCE,
+    emit({"kernels": [dict(name=name, route="cuda", source=SOURCES[name],
                            replaces=REPLACES[name], launches=launches[name],
                            **kernels[name]) for name in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -9,6 +9,12 @@
 //   K4 csr_fixed_point_kernel  the gamma fixed point, stopped batch-wide
 //   K5 csr_token_pi_kernel     flat pi (T, K)
 //   K3                         unchanged: flat rows are its native input
+// and three of the pre-fusion baseline (one launch per sweep over a dense
+// count matrix C (B, V), and the one-hot scatter it used):
+//   K6 sweep_kernel            one dense fixed-point sweep
+//   K7 sstats_kernel           expected topic-word counts from C
+//   K8 onehot_partials_kernel  pi and per-B-tile (nb, Vp, K) partials,
+//      onehot_reduce_kernel    summed over nb
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (repro_torch/kernels/build.py). Every entry point launches on
@@ -451,6 +457,432 @@ __global__ void __launch_bounds__(256)
                et + static_cast<size_t>(segs[s]) * K, K, lane, quantize);
 }
 
+// ---------------------------------------------------------------------------
+// K6 and K7: the dense per-sweep E-step (the pre-fusion baseline).
+//
+// Both form P = E[theta] * Eφ^T + 1e-30 and R = C / P tile by tile in
+// shared memory and registers; the (B, V) arrays P and R never reach
+// device memory. The dense count matrix C (B, V) is read exactly once per
+// launch. All products are fp32 FMAs on the SIMT cores: TF32 tensor cores
+// keep 10 mantissa bits, which the 2e-5 parity bars cannot absorb.
+//
+// K is register-blocked up to kDenseK (the wrapper pads it to 128, as the
+// TPU path pads its lanes); shared-memory rows are zero beyond K, so
+// padded topics add nothing. Rows are kDenseStride floats apart: a
+// multiple of 4 (float4 loads) whose offset of 4 banks per row makes the
+// lane-per-row float4 reads of the P phase conflict-free.
+// ---------------------------------------------------------------------------
+constexpr int kDenseK = 128;
+constexpr int kDenseStride = kDenseK + 4;
+constexpr int kDenseThreads = 256;     // 8 warps
+constexpr int kSweepBM = 64;           // K6: B rows per block (8 per warp)
+constexpr int kSweepBV = 32;           // K6: V columns per inner tile
+constexpr int kSweepBlocks = 256;      // K6: blocks aimed for per launch
+constexpr int kSstatsBV = 64;          // K7: V rows per block (8 per warp)
+constexpr int kSstatsBB = 32;          // K7: B rows per inner tile
+
+constexpr size_t kSweepSmem =
+    (static_cast<size_t>(kSweepBM + kSweepBV) * kDenseStride +
+     kSweepBM * (kSweepBV + 1)) * sizeof(float);
+constexpr size_t kSstatsSmem =
+    (static_cast<size_t>(kSstatsBV + kSstatsBB) * kDenseStride +
+     kSstatsBB * (kSstatsBV + 1)) * sizeof(float);
+
+// rows [r0, r0 + n) of a row-major (R, K) matrix into shared memory, with
+// zeros past row R and past column K
+__device__ __forceinline__ void load_dense_rows(float* dst,
+                                                const float* __restrict__ src,
+                                                int r0, int n, int R, int K) {
+  for (int i = threadIdx.x; i < n * kDenseK; i += blockDim.x) {
+    const int r = i / kDenseK, k = i % kDenseK;
+    const int row = r0 + r;
+    dst[r * kDenseStride + k] =
+        (row < R && k < K) ? src[static_cast<size_t>(row) * K + k] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// K6: one dense sweep, gamma' = alpha0 + E[theta] * ((C / P) . Eφ).
+//
+// Replaces _sweep_kernel (repro/kernels/lda_estep.py:817). Grid (B / 64,
+// splits): block (x, y) owns 64 rows of B and the y-th contiguous range of
+// V tiles. It keeps those rows' E[theta] in shared memory, walks its V
+// range 32 columns at a time (Eφ tile into shared memory; P, R for 64 x 32
+// in registers, R to shared memory; acc += R . Eφ) and writes its (64, K)
+// partial sum to `part`. The split over V is what fills the card: at
+// B = 1024 there are only 16 row tiles. The last block of a row tile to
+// finish (an integer ticket, __threadfence before it) sums the partials
+// in split order and writes gamma', so each output element is written by
+// one block, with no fp32 atomics, and the result is the same bits on
+// every launch. The block resets its ticket for the next launch.
+//
+// Bound: operations (4*B*V*K FMA-counted operations per sweep, two
+// products); C is read once. The inner loops issue about one shared-memory
+// wavefront per 2.7 FMA instructions, so they cannot reach the fp32 peak;
+// a wgmma (3xTF32) design is later work.
+__global__ void __launch_bounds__(kDenseThreads)
+    sweep_kernel(const float* __restrict__ c, const float* __restrict__ et,
+                 const float* __restrict__ eb, float* __restrict__ out,
+                 float* __restrict__ part, int* __restrict__ tickets, int B,
+                 int V, int K, float alpha0, int tiles_per_split) {
+  extern __shared__ float4 smem4[];
+  float* s_et = reinterpret_cast<float*>(smem4);         // [BM][stride]
+  float* s_eb = s_et + kSweepBM * kDenseStride;          // [BV][stride]
+  float* s_r = s_eb + kSweepBV * kDenseStride;           // [BM][BV + 1]
+  __shared__ int is_last;
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const int row0 = blockIdx.x * kSweepBM;
+  const int nsplit = gridDim.y;
+  const int vtiles = (V + kSweepBV - 1) / kSweepBV;
+  const int t_lo = blockIdx.y * tiles_per_split;
+  const int t_hi = min(vtiles, t_lo + tiles_per_split);
+  const int kq = (K + 3) & ~3;
+
+  load_dense_rows(s_et, et, row0, kSweepBM, B, K);
+  float acc[8][4];   // rows warp * 8 + i, topics lane + 32 * j
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int v0 = t * kSweepBV;
+    __syncthreads();   // the last tile's reads of s_eb and s_r are done
+    load_dense_rows(s_eb, eb, v0, kSweepBV, V, K);
+    __syncthreads();
+    // P and R for rows warp * 8 + i, column lane
+    {
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p[i] = 0.f;
+      const float* e_row = s_eb + lane * kDenseStride;
+      for (int k = 0; k < kq; k += 4) {
+        const float4 e = lds4(e_row + k);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          p[i] = dot4(lds4(s_et + (warp * 8 + i) * kDenseStride + k), e, p[i]);
+      }
+      const int v = v0 + lane;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = warp * 8 + i, row = row0 + m;
+        const float cv =
+            (row < B && v < V) ? c[static_cast<size_t>(row) * V + v] : 0.f;
+        s_r[m * (kSweepBV + 1) + lane] = cv / (p[i] + kEps);
+      }
+    }
+    __syncthreads();
+    // acc += R . Eφ
+    for (int vv = 0; vv < kSweepBV; ++vv) {
+      float e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e[j] = s_eb[vv * kDenseStride + lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float r = s_r[(warp * 8 + i) * (kSweepBV + 1) + vv];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(r, e[j], acc[i][j]);
+      }
+    }
+  }
+
+  // this block's partial sum, then the row tile's ticket
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + warp * 8 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = lane + 32 * j;
+      if (row < B && k < K) {
+        part[(static_cast<size_t>(blockIdx.y) * B + row) * K + k] = acc[i][j];
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(tickets + blockIdx.x, 1) == nsplit - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = warp * 8 + i, row = row0 + m;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = lane + 32 * j;
+      if (row < B && k < K) {
+        float s = 0.f;
+        for (int q = 0; q < nsplit; ++q) {
+          s += __ldcg(part + (static_cast<size_t>(q) * B + row) * K + k);
+        }
+        out[static_cast<size_t>(row) * K + k] =
+            alpha0 + s_et[m * kDenseStride + k] * s;
+      }
+    }
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
+}
+
+// K7: expected topic-word counts S = Eφ * (R^T . E[theta]).
+//
+// Replaces _sstats_kernel (repro/kernels/lda_estep.py:870). One block owns
+// 64 rows of V and every B row: it keeps its Eφ rows in shared memory,
+// walks B 32 rows at a time (E[theta] tile into shared memory; P, R for
+// 32 x 64 in registers, R to shared memory; acc += R^T . E[theta]) and
+// writes Eφ * acc. The output tile is owned by one block, summed in B
+// order: deterministic, no atomics. V / 64 blocks (2,224 at the Arxiv
+// vocabulary) fill the card without a split.
+//
+// Bound: operations, as K6.
+__global__ void __launch_bounds__(kDenseThreads)
+    sstats_kernel(const float* __restrict__ c, const float* __restrict__ et,
+                  const float* __restrict__ eb, float* __restrict__ out,
+                  int B, int V, int K) {
+  extern __shared__ float4 smem4[];
+  float* s_eb = reinterpret_cast<float*>(smem4);         // [BV][stride]
+  float* s_et = s_eb + kSstatsBV * kDenseStride;         // [BB][stride]
+  float* s_r = s_et + kSstatsBB * kDenseStride;          // [BB][BV + 1]
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const int v0 = blockIdx.x * kSstatsBV;
+  const int kq = (K + 3) & ~3;
+
+  load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K);
+  float acc[8][4];   // V rows warp * 8 + i, topics lane + 32 * j
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  // P phase: V column (warp & 1) * 32 + lane, B rows (warp >> 1) * 8 + i
+  const int pv = (warp & 1) * kWarp + lane;
+  const int pb = (warp >> 1) * 8;
+  for (int b0 = 0; b0 < B; b0 += kSstatsBB) {
+    __syncthreads();   // the last tile's reads of s_et and s_r are done
+    load_dense_rows(s_et, et, b0, kSstatsBB, B, K);
+    __syncthreads();
+    {
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p[i] = 0.f;
+      const float* e_row = s_eb + pv * kDenseStride;
+      for (int k = 0; k < kq; k += 4) {
+        const float4 e = lds4(e_row + k);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          p[i] = dot4(lds4(s_et + (pb + i) * kDenseStride + k), e, p[i]);
+      }
+      const int v = v0 + pv;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int b = b0 + pb + i;
+        const float cv =
+            (b < B && v < V) ? c[static_cast<size_t>(b) * V + v] : 0.f;
+        s_r[(pb + i) * (kSstatsBV + 1) + pv] = cv / (p[i] + kEps);
+      }
+    }
+    __syncthreads();
+    // acc += R^T . E[theta]
+    for (int m = 0; m < kSstatsBB; ++m) {
+      float t[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) t[j] = s_et[m * kDenseStride + lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float r = s_r[m * (kSstatsBV + 1) + warp * 8 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(r, t[j], acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int vl = warp * 8 + i, v = v0 + vl;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = lane + 32 * j;
+      if (v < V && k < K) {
+        out[static_cast<size_t>(v) * K + k] =
+            s_eb[vl * kDenseStride + k] * acc[i][j];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8: the one-hot memo delta (the retired scatter, kept as a baseline).
+//
+// Replaces _memo_delta_onehot_kernel (repro/kernels/lda_estep.py:677). It
+// keeps the baseline's structure, which is what BENCH_estep prices: grid
+// (V tiles of 128, B tiles of block_b); block (j, i) writes its own
+// (128, K) slice of the per-B-tile partials part[i] (nb, Vp, K), every row
+// of it exactly once, zeros included; a second kernel sums the partials
+// over nb in index order. The TPU's (128 x block_b*L) one-hot matmul is
+// not carried over: block (j, i) compacts, in token order, the tile's
+// slots whose id falls in V tile j into shared memory (1,024 slots per
+// pass), forms pi for exactly those slots with K2's device function (so pi
+// is written once over the grid and equals K2's bits), and warp w sums
+// cnt * pi into its rows w, w + 32, w + 64, w + 96 in token order.
+// Slots whose id lies outside [0, Vp) have their pi written by the j = 0
+// blocks and are scattered nowhere, as the one-hot selects no row for them.
+//
+// Bound: bytes. The function moves the (B, L, K) cubes (eb_tok, old pi in;
+// pi out) and the (V, K) outputs; the partials add 2 * nb * Vp * K * 4
+// bytes written and read again, the transient the segment-sum path (K2 +
+// K3) removes.
+// ---------------------------------------------------------------------------
+constexpr int kOnehotBV = 128;
+constexpr int kOnehotThreads = 1024;
+constexpr int kOnehotRowsPerWarp = kOnehotBV / (kOnehotThreads / kWarp);
+
+template <int KPL>
+__global__ void __launch_bounds__(kOnehotThreads)
+    onehot_partials_kernel(const int32_t* __restrict__ ids,
+                           const float* __restrict__ cnts,
+                           const float* __restrict__ eb_tok,
+                           const float* __restrict__ old_pi,
+                           const float* __restrict__ et, float* pi,
+                           float* __restrict__ part_new,
+                           float* __restrict__ part_old, int L, int K,
+                           int block_b, int vp, int quantize) {
+  __shared__ int s_slot[kOnehotThreads];
+  __shared__ int s_row[kOnehotThreads];
+  __shared__ int s_warp_off[kWarp];
+  __shared__ int s_n;
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const int j = blockIdx.x;
+  const int v_lo = j * kOnehotBV;
+  const int64_t slot0 = static_cast<int64_t>(blockIdx.y) * block_b * L;
+  const int nslots = block_b * L;
+  const bool has_old = old_pi != nullptr;
+
+  float acc_new[kOnehotRowsPerWarp][KPL], acc_old[kOnehotRowsPerWarp][KPL];
+#pragma unroll
+  for (int q = 0; q < kOnehotRowsPerWarp; ++q)
+#pragma unroll
+    for (int jj = 0; jj < KPL; ++jj) acc_new[q][jj] = acc_old[q][jj] = 0.f;
+
+  for (int c0 = 0; c0 < nslots; c0 += kOnehotThreads) {
+    // 1. this tile's slots, compacted in token order: local row, or -1 for
+    //    a slot whose pi this block writes but scatters nowhere
+    const int s = c0 + tid;
+    int row = -2;
+    if (s < nslots) {
+      const int id = ids[slot0 + s];
+      if (id >= v_lo && id < v_lo + kOnehotBV) {
+        row = id - v_lo;
+      } else if (j == 0 && (id < 0 || id >= vp)) {
+        row = -1;
+      }
+    }
+    const unsigned mine = __ballot_sync(0xffffffffu, row != -2);
+    if (lane == 0) s_warp_off[warp] = __popc(mine);
+    __syncthreads();
+    if (warp == 0) {
+      const int n = s_warp_off[lane];
+      int incl = n;
+#pragma unroll
+      for (int o = 1; o < kWarp; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      s_warp_off[lane] = incl - n;
+      if (lane == kWarp - 1) s_n = incl;
+    }
+    __syncthreads();
+    if (row != -2) {
+      const int pos = s_warp_off[warp] + __popc(mine & ((1u << lane) - 1u));
+      s_slot[pos] = s;
+      s_row[pos] = row;
+    }
+    __syncthreads();
+    const int n = s_n;
+
+    // 2. pi of the compacted slots, one warp per slot
+    for (int t = warp; t < n; t += kOnehotThreads / kWarp) {
+      const int64_t g = slot0 + s_slot[t];
+      float* out = pi + g * K;
+      if (!(cnts[g] > 0.f)) {
+        for (int k = lane; k < K; k += kWarp) out[k] = 0.f;
+      } else {
+        token_pi_row(out, eb_tok + g * K, et + (g / L) * K, K, lane,
+                     quantize);
+      }
+    }
+    __syncthreads();   // the block's pi writes are visible to all its warps
+
+    // 3. cnt * pi into this warp's rows, in token order
+    for (int t0 = 0; t0 < n; t0 += kWarp) {
+      const int t = t0 + lane;
+      const int r = t < n ? s_row[t] : -1;
+      unsigned match =
+          __ballot_sync(0xffffffffu, r >= 0 && (r & (kWarp - 1)) == warp);
+      while (match) {
+        const int src = __ffs(match) - 1;
+        match &= match - 1;
+        const int q = __shfl_sync(0xffffffffu, r, src) / kWarp;
+        const int64_t g = slot0 + s_slot[t0 + src];
+        const float cnt = cnts[g];
+#pragma unroll
+        for (int jj = 0; jj < KPL; ++jj) {
+          const int k = lane + jj * kWarp;
+          if (k < K) {
+            const float wn = cnt * pi[g * K + k];
+            const float wo = has_old ? cnt * old_pi[g * K + k] : 0.f;
+#pragma unroll
+            for (int qq = 0; qq < kOnehotRowsPerWarp; ++qq) {
+              if (qq == q) {
+                acc_new[qq][jj] += wn;
+                acc_old[qq][jj] += wo;
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // s_slot / s_row are refilled by the next pass
+  }
+
+  // 4. every row of this block's partial slice, written once
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * vp + v_lo;
+#pragma unroll
+  for (int q = 0; q < kOnehotRowsPerWarp; ++q) {
+    const int64_t v = base + warp + q * kWarp;
+#pragma unroll
+    for (int jj = 0; jj < KPL; ++jj) {
+      const int k = lane + jj * kWarp;
+      if (k < K) {
+        part_new[v * K + k] = acc_new[q][jj];
+        if (has_old) part_old[v * K + k] = acc_old[q][jj];
+      }
+    }
+  }
+}
+
+// S[e] = sum over i of part[i][e] for the first V * K elements of each
+// (Vp, K) partial, in index order i = 0, 1, ..., nb - 1.
+__global__ void __launch_bounds__(256)
+    onehot_reduce_kernel(const float* __restrict__ part,
+                         float* __restrict__ out, int nb, int64_t n,
+                         int64_t stride) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int i = 0; i < nb; ++i) s += part[i * stride + e];
+  out[e] = s;
+}
+
 template <int KPL>
 cudaError_t launch_fixed_point(const int32_t* ids, const float* cnts,
                                const float* eb, const float* gamma0,
@@ -501,6 +933,53 @@ cudaError_t launch_fixed_point_csr(const int32_t* ids, const float* cnts,
   return cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(&csr_fixed_point_kernel<KPL>),
       dim3(blocks), dim3(kCsrThreads), args, 0, stream);
+}
+
+// K6's V tiles per split for B rows and V columns: about kSweepBlocks
+// blocks in all, at most one split per V tile. A function of the shape
+// only, so the partial sums, and with them gamma's bits, do not depend on
+// the card.
+int sweep_tiles_per_split(int B, int V) {
+  const int row_tiles = std::max(1, (B + kSweepBM - 1) / kSweepBM);
+  const int vtiles = (V + kSweepBV - 1) / kSweepBV;
+  const int want =
+      std::max(1, std::min((kSweepBlocks + row_tiles - 1) / row_tiles, vtiles));
+  return std::max(1, (vtiles + want - 1) / want);
+}
+
+// K6's splits: the V tiles cut into runs of sweep_tiles_per_split, none
+// empty (at least one split, so a V of 0 still writes gamma' = alpha0).
+int sweep_splits(int B, int V) {
+  const int vtiles = (V + kSweepBV - 1) / kSweepBV;
+  const int per = sweep_tiles_per_split(B, V);
+  return std::max(1, (vtiles + per - 1) / per);
+}
+
+template <int KPL>
+cudaError_t launch_memo_delta_onehot(const int32_t* ids, const float* cnts,
+                                     const float* eb_tok, const float* old_pi,
+                                     const float* et, float* pi,
+                                     float* part_new, float* part_old,
+                                     float* s_new, float* s_old, int B, int L,
+                                     int K, int V, int block_b, int vp,
+                                     int quantize, cudaStream_t stream) {
+  const dim3 grid(vp / kOnehotBV, B / block_b);
+  onehot_partials_kernel<KPL><<<grid, kOnehotThreads, 0, stream>>>(
+      ids, cnts, eb_tok, old_pi, et, pi, part_new, part_old, L, K, block_b,
+      vp, quantize);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int nb = B / block_b;
+  const int64_t n = static_cast<int64_t>(V) * K;
+  const int64_t stride = static_cast<int64_t>(vp) * K;
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  onehot_reduce_kernel<<<blocks, 256, 0, stream>>>(part_new, s_new, nb, n,
+                                                   stride);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || old_pi == nullptr) return err;
+  onehot_reduce_kernel<<<blocks, 256, 0, stream>>>(part_old, s_old, nb, n,
+                                                   stride);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -636,6 +1115,81 @@ int lda_segment_scatter(const int64_t* order, const int64_t* seg_ids,
                            static_cast<cudaStream_t>(stream)>>>(
       order, seg_ids, seg_off, nseg, cnts, pi_new, pi_old, s_new, s_old, K);
   return cudaGetLastError();
+}
+
+// Highest K of the dense kernels K6, K7 and K8 (their register blocks).
+int lda_dense_max_k() { return kDenseK; }
+
+// K6's V splits for B rows and V columns: the first dimension of its
+// `part` scratch (splits, B, K).
+int lda_sweep_splits(int B, int V) { return sweep_splits(B, V); }
+
+int lda_sweep(const float* c, const float* et, const float* eb, float* out,
+              float* part, int* tickets, int B, int V, int K, float alpha0,
+              int nsplit, void* stream) {
+  cudaGetLastError();
+  if (K > kDenseK || nsplit != sweep_splits(B, V)) {
+    return cudaErrorInvalidValue;
+  }
+  if (B == 0) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSweepSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + kSweepBM - 1) / kSweepBM, nsplit);
+  sweep_kernel<<<grid, kDenseThreads, kSweepSmem,
+                 static_cast<cudaStream_t>(stream)>>>(
+      c, et, eb, out, part, tickets, B, V, K, alpha0,
+      sweep_tiles_per_split(B, V));
+  return cudaGetLastError();
+}
+
+int lda_sstats(const float* c, const float* et, const float* eb, float* out,
+               int B, int V, int K, void* stream) {
+  cudaGetLastError();
+  if (K > kDenseK) return cudaErrorInvalidValue;
+  if (V == 0) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      sstats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSstatsSmem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (V + kSstatsBV - 1) / kSstatsBV;
+  sstats_kernel<<<blocks, kDenseThreads, kSstatsSmem,
+                  static_cast<cudaStream_t>(stream)>>>(c, et, eb, out, B, V,
+                                                       K);
+  return cudaGetLastError();
+}
+
+// K8's V tile: the partials' vocabulary axis is padded to a multiple of it.
+int lda_onehot_block_v() { return kOnehotBV; }
+
+int lda_memo_delta_onehot(const int32_t* ids, const float* cnts,
+                          const float* eb_tok, const float* old_pi,
+                          const float* et, float* pi, float* part_new,
+                          float* part_old, float* s_new, float* s_old, int B,
+                          int L, int K, int V, int block_b, int vp,
+                          int quantize, void* stream) {
+  cudaGetLastError();
+  if (block_b < 1 || B % block_b != 0 || vp % kOnehotBV != 0 || vp < V) {
+    return cudaErrorInvalidValue;
+  }
+  if (B == 0 || vp == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kpl = (K + kWarp - 1) / kWarp;
+#define LDA_ONEHOT_CASE(N)                                                  \
+  case N:                                                                   \
+    return launch_memo_delta_onehot<N>(ids, cnts, eb_tok, old_pi, et, pi,   \
+                                       part_new, part_old, s_new, s_old, B, \
+                                       L, K, V, block_b, vp, quantize, s);
+  switch (kpl) {
+    LDA_ONEHOT_CASE(1)
+    LDA_ONEHOT_CASE(2)
+    LDA_ONEHOT_CASE(3)
+    LDA_ONEHOT_CASE(4)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef LDA_ONEHOT_CASE
 }
 
 }  // extern "C"

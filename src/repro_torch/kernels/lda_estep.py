@@ -15,6 +15,15 @@
 * ``memo_delta_csr`` — K5 then K3 on the flat rows, the counterpart of
   ``repro``'s ``memo_delta_csr``.
 
+The pre-fusion baseline (``ops.estep_cuda_sweeps`` and the retired
+scatter), kept to measure the fused kernels against:
+
+* ``estep_sweep`` (K6) — one dense fixed-point sweep over a count matrix
+  C (B, V); replaces ``_sweep_kernel``.
+* ``sstats`` (K7) — S = Eφ ⊙ (Rᵀ·Eθ) from C; replaces ``_sstats_kernel``.
+* ``memo_delta_onehot`` (K8) — π and the new/old masses through per-B-tile
+  (nb, V, K) partials; replaces ``_memo_delta_onehot_kernel``.
+
 Each kernel is CUDA C++ (``csrc/lda_estep.cu``, built and loaded by
 `repro_torch.kernels.build`) and has a plain PyTorch twin here computing
 the same function. A wrapper takes the twin only for CPU tensors; for CUDA
@@ -27,14 +36,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 _EPS = 1e-30  # fp32-safe (1e-100 underflows to 0)
 
 #: Launches of each kernel since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"fixed_point": 0, "token_pi": 0,
                             "segment_scatter": 0, "fixed_point_csr": 0,
-                            "token_pi_csr": 0}
+                            "token_pi_csr": 0, "sweep": 0, "sstats": 0,
+                            "memo_delta_onehot": 0}
 
 
 def reset_launches() -> None:
@@ -172,11 +182,10 @@ def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
 # K2: token-aligned π
 # ---------------------------------------------------------------------------
 
-def token_pi_plain(token_ids: torch.Tensor, counts: torch.Tensor,
-                   eb: torch.Tensor, etheta: torch.Tensor, *,
-                   quantize: bool = False) -> torch.Tensor:
-    """Plain twin of K2."""
-    ebt = eb[token_ids.long()]                         # (B, L, K)
+def _pi_of_tokens(ebt: torch.Tensor, counts: torch.Tensor,
+                  etheta: torch.Tensor, quantize: bool) -> torch.Tensor:
+    """π from the gathered Eφ rows ebt (B, L, K): the arithmetic of K2's
+    twin and K8's, so the two agree bit for bit."""
     et = etheta[:, None, :]
     p = (et * ebt).sum(-1) + _EPS
     pi = et * ebt / p[:, :, None]
@@ -184,6 +193,13 @@ def token_pi_plain(token_ids: torch.Tensor, counts: torch.Tensor,
     if quantize:
         pi = pi.to(torch.bfloat16).to(torch.float32)
     return pi
+
+
+def token_pi_plain(token_ids: torch.Tensor, counts: torch.Tensor,
+                   eb: torch.Tensor, etheta: torch.Tensor, *,
+                   quantize: bool = False) -> torch.Tensor:
+    """Plain twin of K2."""
+    return _pi_of_tokens(eb[token_ids.long()], counts, etheta, quantize)
 
 
 def token_pi(token_ids: torch.Tensor, counts: torch.Tensor, eb: torch.Tensor,
@@ -530,6 +546,215 @@ def memo_delta_csr(token_ids: torch.Tensor, counts: torch.Tensor,
     pi = token_pi_csr(token_ids, counts, segments, eb, etheta,
                       quantize=quantize)
     s_new, s_old = segment_scatter(token_ids, counts, pi, old_pi, vocab_size)
+    if old_pi is None:
+        return pi, s_new
+    return pi, s_new, s_old
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the dense per-sweep E-step (pre-fusion baseline)
+# ---------------------------------------------------------------------------
+
+def _check_dense(name: str, c: torch.Tensor, etheta: torch.Tensor,
+                 eb: torch.Tensor, block_b: int, block_v: int):
+    """Shapes of K6/K7's inputs and ``repro``'s grid rule: B and V divide by
+    ``min(block, size)``. The blocks only check the grid here; the CUDA
+    kernels pick their own tiles."""
+    b, v = c.shape
+    k = etheta.shape[1]
+    _expect("c", c, torch.float32, (b, v))
+    _expect("etheta", etheta, torch.float32, (b, k))
+    _expect("eb", eb, torch.float32, (v, k))
+    bb, bv = min(block_b, b), min(block_v, v)
+    if bb < 1 or bv < 1 or b % bb or v % bv:
+        raise ValueError(f"{name}: B={b}, V={v} must be padded to the grid "
+                         f"(block_b={block_b}, block_v={block_v})")
+    return b, v, k
+
+
+def _dense_lib(name: str, k: int):
+    lib = build.load()
+    if k > lib.lda_dense_max_k():
+        raise ValueError(f"{name}: K={k} exceeds the kernel's "
+                         f"{lib.lda_dense_max_k()} topics")
+    return lib
+
+
+def estep_sweep_plain(c: torch.Tensor, etheta: torch.Tensor,
+                      eb: torch.Tensor, alpha0: float) -> torch.Tensor:
+    """Plain twin of K6: the dense oracle."""
+    return ref.estep_sweep_ref(c, etheta, eb, alpha0)
+
+
+def estep_sweep(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor,
+                alpha0: float, *, block_b: int = 128,
+                block_v: int = 512) -> torch.Tensor:
+    """One fixed-point sweep γ' = α₀ + Eθ ⊙ ((C ⊘ (Eθ·Eφᵀ + ε))·Eφ) (K6).
+
+    Shapes: c (B, V), etheta (B, K), eb (V, K) float32 → (B, K). B and V
+    must already be padded to the block grid (see ``ops.pad_inputs``); on
+    the card K is at most ``lda_dense_max_k()`` (128).
+    """
+    b, v, k = _check_dense("estep_sweep", c, etheta, eb, block_b, block_v)
+    if _on_cpu(c, etheta, eb):
+        return estep_sweep_plain(c, etheta, eb, alpha0)
+    lib = _dense_lib("estep_sweep", k)
+    out = torch.empty((b, k), dtype=torch.float32, device=c.device)
+    if b == 0:
+        return out
+    splits = lib.lda_sweep_splits(b, v)
+    part = torch.empty((splits, b, k), dtype=torch.float32, device=c.device)
+    # one ticket per 64-row tile (the kernel's kSweepBM)
+    tickets = torch.zeros(-(-b // 64), dtype=torch.int32, device=c.device)
+    rc = lib.lda_sweep(c.data_ptr(), etheta.data_ptr(), eb.data_ptr(),
+                       out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                       b, v, k, float(alpha0), splits, _stream(c))
+    build.check(rc, "lda_sweep")
+    LAUNCHES["sweep"] += 1
+    return out
+
+
+def sstats_plain(c: torch.Tensor, etheta: torch.Tensor,
+                 eb: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K7: the dense oracle."""
+    return ref.sstats_ref(c, etheta, eb)
+
+
+def sstats(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor, *,
+           block_b: int = 128, block_v: int = 512) -> torch.Tensor:
+    """Expected topic-word counts S = Eφ ⊙ (Rᵀ·Eθ), R = C ⊘ (Eθ·Eφᵀ + ε)
+    (K7). Shapes and grid as ``estep_sweep``; returns (V, K)."""
+    b, v, k = _check_dense("sstats", c, etheta, eb, block_b, block_v)
+    if _on_cpu(c, etheta, eb):
+        return sstats_plain(c, etheta, eb)
+    lib = _dense_lib("sstats", k)
+    out = torch.empty((v, k), dtype=torch.float32, device=c.device)
+    rc = lib.lda_sstats(c.data_ptr(), etheta.data_ptr(), eb.data_ptr(),
+                        out.data_ptr(), b, v, k, _stream(c))
+    build.check(rc, "lda_sstats")
+    LAUNCHES["sstats"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8: the one-hot memo delta (the retired scatter, kept as a baseline)
+# ---------------------------------------------------------------------------
+
+# The TPU kernel's VMEM budget for one grid step (``repro``'s
+# ``_DELTA_VMEM_BUDGET``): the B-tile, and with it the number of partials,
+# follows from it, so the card keeps the baseline's partial count.
+_DELTA_VMEM_BUDGET = 8 * 1024 * 1024
+
+
+def delta_effective_block_b(b: int, l: int, k: int, *, block_b: int = 32,
+                            block_v: int = 128, has_old: bool = True) -> int:
+    """The B-tile ``memo_delta_onehot`` runs: ``block_b`` (capped at B),
+    halved until the TPU step ((3 or 4) (bB, L, K) cubes plus the
+    (block_v, bB·L) one-hot, fp32) fits the budget, keeping B divisible."""
+    block_b = min(block_b, b)
+    ncubes = 4 if has_old else 3
+
+    def _step_bytes(bb):
+        return (ncubes * bb * l * k + block_v * bb * l) * 4
+
+    while block_b > 1 and _step_bytes(block_b) > _DELTA_VMEM_BUDGET:
+        nxt = block_b // 2
+        block_b = nxt if b % nxt == 0 else 1   # keep the grid exact
+    return block_b
+
+
+def memo_delta_onehot_plain(token_ids: torch.Tensor, counts: torch.Tensor,
+                            eb_tok: torch.Tensor, etheta: torch.Tensor,
+                            vocab_size: int,
+                            old_pi: Optional[torch.Tensor] = None, *,
+                            quantize: bool = False, block_b: int = 32,
+                            block_v: int = 128):
+    """Plain twin of K8: π as K2's twin forms it, then one (Vp, K) partial
+    per B-tile (``index_add_`` of cnt·π), summed over the tiles."""
+    b, l = token_ids.shape
+    k = etheta.shape[1]
+    bb = delta_effective_block_b(b, l, k, block_b=block_b, block_v=block_v,
+                                 has_old=old_pi is not None)
+    vp = -(-vocab_size // block_v) * block_v
+    pi = _pi_of_tokens(eb_tok, counts, etheta, quantize)
+    inside = (token_ids >= 0) & (token_ids < vp)
+    idx = torch.where(inside, token_ids, 0).long()
+
+    def partials(p):
+        w = torch.where(inside[:, :, None], counts[:, :, None] * p, 0.0)
+        part = torch.zeros((b // bb, vp, k), dtype=torch.float32,
+                           device=p.device)
+        for i in range(b // bb):
+            rows = slice(i * bb, (i + 1) * bb)
+            part[i].index_add_(0, idx[rows].reshape(-1),
+                               w[rows].reshape(-1, k))
+        return part.sum(0)[:vocab_size]
+
+    if old_pi is None:
+        return pi, partials(pi)
+    return pi, partials(pi), partials(old_pi)
+
+
+def memo_delta_onehot(token_ids: torch.Tensor, counts: torch.Tensor,
+                      eb_tok: torch.Tensor, etheta: torch.Tensor,
+                      vocab_size: int, old_pi: Optional[torch.Tensor] = None,
+                      *, quantize: bool = False, block_b: int = 32,
+                      block_v: int = 128):
+    """The retired memo delta, kept as the benchmark baseline (K8).
+
+    Same contract as ``memo_delta`` with the gathered cube as input:
+    token_ids int32 / counts float32 (B, L), eb_tok = Eφ[ids] (B, L, K),
+    etheta (B, K), old_pi (B, L, K) → (π (B, L, K), S_new (V, K)[, S_old]).
+    The masses pass through nb = B / ``delta_effective_block_b(...)``
+    per-B-tile (nb, Vp, K) partials (Vp = V padded to ``block_v``), each
+    written once and summed over nb: the transient the segment-sum pair
+    (K2 + K3) removes. B must divide by the effective B-tile. On the card
+    the V tile is 128 (``block_v`` sets the B-tile and the padding only)
+    and K is at most 128.
+    """
+    b, l = token_ids.shape
+    k = etheta.shape[1]
+    _expect("token_ids", token_ids, torch.int32, (b, l))
+    _expect("counts", counts, torch.float32, (b, l))
+    _expect("eb_tok", eb_tok, torch.float32, (b, l, k))
+    _expect("etheta", etheta, torch.float32, (b, k))
+    tensors = [token_ids, counts, eb_tok, etheta]
+    if old_pi is not None:
+        _expect("old_pi", old_pi, torch.float32, (b, l, k))
+        tensors.append(old_pi)
+    bb = delta_effective_block_b(b, l, k, block_b=block_b, block_v=block_v,
+                                 has_old=old_pi is not None)
+    if b % bb:
+        raise ValueError(f"memo_delta_onehot: B={b} does not divide by the "
+                         f"B-tile {bb}")
+    if _on_cpu(*tensors):
+        return memo_delta_onehot_plain(token_ids, counts, eb_tok, etheta,
+                                       vocab_size, old_pi, quantize=quantize,
+                                       block_b=block_b, block_v=block_v)
+    lib = _dense_lib("memo_delta_onehot", k)
+    nb = b // bb
+    if nb > 65535 or bb * l >= 2 ** 31:
+        raise ValueError(f"memo_delta_onehot: {nb} B-tiles of {bb * l} slots "
+                         "exceed the kernel's grid")
+    tile_v = lib.lda_onehot_block_v()
+    vp = -(-vocab_size // tile_v) * tile_v
+    dev = eb_tok.device
+    pi = torch.empty((b, l, k), dtype=torch.float32, device=dev)
+    s_new = torch.empty((vocab_size, k), dtype=torch.float32, device=dev)
+    part_new = torch.empty((nb, vp, k), dtype=torch.float32, device=dev)
+    s_old = part_old = None
+    if old_pi is not None:
+        s_old = torch.empty_like(s_new)
+        part_old = torch.empty_like(part_new)
+    rc = lib.lda_memo_delta_onehot(
+        token_ids.data_ptr(), counts.data_ptr(), eb_tok.data_ptr(),
+        None if old_pi is None else old_pi.data_ptr(), etheta.data_ptr(),
+        pi.data_ptr(), part_new.data_ptr(),
+        None if part_old is None else part_old.data_ptr(), s_new.data_ptr(),
+        None if s_old is None else s_old.data_ptr(), b, l, k, vocab_size, bb,
+        vp, int(bool(quantize)), _stream(eb_tok))
+    build.check(rc, "lda_memo_delta_onehot")
+    LAUNCHES["memo_delta_onehot"] += 1
     if old_pi is None:
         return pi, s_new
     return pi, s_new, s_old

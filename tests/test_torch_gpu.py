@@ -1,7 +1,9 @@
 """Card-only tests: each CUDA kernel against its plain twin, K1–K3 at the
 main path's shapes (the Arxiv vocabulary V = 141,927, K = 100, B = 1024, L
-about 163), K4 and K5 on a small flat CSR batch. Whether a card is present is decided inside the ``cuda``
-fixture, so every worker collects the same tests; without a card they skip.
+about 163), K4 and K5 on a small flat CSR batch, K6–K9 (the pre-fusion
+baseline and flash attention) at small sizes. Whether a card is present is
+decided inside the ``cuda`` fixture, so every worker collects the same
+tests; without a card they skip.
 
 Run on the card:  python -m pytest -m gpu tests/test_torch_gpu.py
 """
@@ -185,3 +187,127 @@ def test_csr_backend_matches_gather_on_card(cuda):
     torch.testing.assert_close(got[2].gamma, ref[2].gamma, rtol=2e-3,
                                atol=2e-3)
     torch.testing.assert_close(got[0], ref[0], rtol=2e-3, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# K6–K9
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def fp32_matmul(cuda):
+    """The dense twins' products in full fp32 (no TF32), as the kernels."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _dense_inputs(cuda, b, v, k, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    c = torch.poisson(torch.full((b, v), 0.3, device=cuda), generator=gen)
+    et = torch.rand((b, k), generator=gen, device=cuda) + 0.05
+    eb = torch.rand((v, k), generator=gen, device=cuda) + 0.05
+    return c, et, eb
+
+
+@pytest.mark.parametrize("b,v,k", [(256, 3000, 100), (100, 517, 128),
+                                   (64, 96, 7)])
+def test_sweep_and_sstats_kernels_match_twins(cuda, fp32_matmul, b, v, k):
+    """K6 and K7 against the dense oracles at 2e-5 (tests/test_kernels.py's
+    bar), ragged B and V tiles included, and the same bits on a second
+    launch (K6 sums its V splits in a fixed order)."""
+    c, et, eb = _dense_inputs(cuda, b, v, k, b + v)
+    got = lda_estep.estep_sweep(c, et, eb, 0.5, block_b=b, block_v=v)
+    again = lda_estep.estep_sweep(c, et, eb, 0.5, block_b=b, block_v=v)
+    want = lda_estep.estep_sweep_plain(c, et, eb, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    got = lda_estep.sstats(c, et, eb, block_b=b, block_v=v)
+    want = lda_estep.sstats_plain(c, et, eb)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_estep_cuda_sweeps_matches_twin_path(cuda, fp32_matmul):
+    """The per-sweep E-step through K6/K7 against the same loop over the
+    twins, on the card: the same sweep count, γ at 1e-4."""
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(6)
+    v, k, b, l = 2000, 24, 200, 60
+    ids = torch.from_numpy(np.stack([rng.choice(v, l, replace=False)
+                                     for _ in range(b)]).astype(np.int32))
+    cnts = torch.from_numpy(rng.integers(0, 4, (b, l)).astype(np.float32))
+    lam = torch.from_numpy((rng.gamma(0.3, 2.0, (v, k)) + 0.05)
+                           .astype(np.float32))
+    eb = exp_dirichlet_expectation(lam.to(cuda), axis=0).contiguous()
+    cfg = LDAConfig(num_topics=k, vocab_size=v, estep_max_iters=100,
+                    estep_tol=1e-3)
+    got = ops.estep_cuda_sweeps(cfg, eb, ids.to(cuda), cnts.to(cuda))
+    want = ops.estep_sweeps(cfg, eb, ids.to(cuda), cnts.to(cuda), None,
+                            block_b=128, block_v=512,
+                            sweep=lda_estep.estep_sweep_plain,
+                            sstats=lda_estep.sstats_plain)
+    assert int(got.iters) == int(want.iters) < 100
+    torch.testing.assert_close(got.gamma, want.gamma, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.sstats, want.sstats, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("k", [100, 128, 20])
+def test_memo_delta_onehot_kernel_matches_twin_and_k2(cuda, k):
+    """K8 against its twin (π 1e-5 / 1e-6, masses 1e-4) over nb = 2
+    partials, and with ``quantize`` its π equal to K2's bit for bit."""
+    rng = np.random.default_rng(k)
+    b, l, v = 64, 40, 700
+    ids = torch.from_numpy(rng.integers(0, v, (b, l)).astype(np.int32)
+                           ).to(cuda)
+    cnts = torch.from_numpy(rng.poisson(1.0, (b, l)).astype(np.float32)
+                            ).to(cuda)
+    eb = torch.from_numpy(rng.gamma(1.0, 1.0, (v, k)).astype(np.float32)
+                          ).to(cuda)
+    et = torch.from_numpy(rng.gamma(1.0, 1.0, (b, k)).astype(np.float32)
+                          ).to(cuda)
+    old = torch.from_numpy(rng.random((b, l, k)).astype(np.float32)).to(cuda)
+    ebt = eb[ids.long()].contiguous()
+    assert b // lda_estep.delta_effective_block_b(b, l, k) == 2
+    got = lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old)
+    want = lda_estep.memo_delta_onehot_plain(ids, cnts, ebt, et, v, old)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for x, y in zip(got[1:], want[1:]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+    one = lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old,
+                                      quantize=True)
+    seg = lda_estep.memo_delta(ids, cnts, eb, et, v, old_pi=old,
+                               quantize=True)
+    assert torch.equal(one[0], seg[0])
+    for x, y in zip(one[1:], seg[1:]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,hd,rep,kv_len", [
+    (256, 128, 4, None),     # Qwen2.5-3B's head width, GQA 4
+    (70, 64, 1, None),       # one ragged 64-row tile past the first
+    (256, 256, 2, 200),      # the widest head; padded keys masked
+    (128, 40, 1, 100),       # a head width that is no multiple of 32
+])
+def test_flash_attention_kernel_matches_twin(cuda, dtype, causal, s, hd, rep,
+                                             kv_len):
+    """K9 against its twin: 2e-5 in fp32; in bf16, where both round one
+    fp32 result once, about two bf16 ulps (rtol 2^-7, atol 1e-3)."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(cuda).manual_seed(s + hd)
+    bh = 4 * rep
+    q = torch.randn((bh, s, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((bh // rep, s, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((bh // rep, s, hd), generator=gen, device=cuda).to(dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=s, block_k=s,
+                             kv_len=kv_len)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)

@@ -40,7 +40,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert got["bad"] == []
     for name in ("repro_torch.core.engines", "repro_torch.kernels.ops",
                  "repro_torch.kernels.lda_estep", "repro_torch.convert",
-                 "repro_torch.launch.train", "repro_torch.data.stream"):
+                 "repro_torch.launch.train", "repro_torch.data.stream",
+                 "repro_torch.kernels.ref",
+                 "repro_torch.kernels.flash_attention"):
         assert name in got["modules"]
 
 
@@ -72,3 +74,28 @@ def test_build_targets_hopper_from_package_source():
         assert f" {kernel}(" in source, kernel
     # K4 stops batch-wide across its grid: one cooperative launch
     assert "cudaLaunchCooperativeKernel" in source
+
+
+def test_attention_builds_its_own_library_from_package_source():
+    """Flash attention is a second library with its own source digest, so
+    the E-step library's build and name stay as they were."""
+    src = build.ATTENTION_SOURCE
+    assert src.name == "flash_attention.cu"
+    assert src.parent == build.SOURCE.parent
+    cmd = build.nvcc_command("nvcc", Path("lib.so"), src)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[-1] == str(src)
+    assert build.library_path(src).name.startswith("libflash_attention_")
+    assert build.library_path().name.startswith("liblda_estep_")
+    source, signatures, _ = build.LIBRARIES["flash_attention"]
+    assert source == src
+    text = src.read_text()
+    for entry in signatures:
+        assert f" {entry}(" in text, entry
+    assert " flash_kernel(" in text
+    assert "cudaFuncSetAttribute" in text   # its tiles need > 48 KB
+    # the E-step library carries the baseline kernels K6–K8
+    estep = build.SOURCE.read_text()
+    for kernel in ("sweep_kernel", "sstats_kernel", "onehot_partials_kernel",
+                   "onehot_reduce_kernel"):
+        assert f" {kernel}(" in estep, kernel
