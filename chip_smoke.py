@@ -8,14 +8,16 @@ path first:
   1. device  — nvidia-smi's name and power limit, torch's device name/count
   2. build   — nvcc builds the kernels from src/repro_torch/kernels/csrc
   3. kernels — each kernel against its plain twin at the path's shapes
-               (Arxiv: V = 141,927, K = 100, B = 1024), then timed
+               (Arxiv: V = 141,927, K = 100, B = 1024), then timed; K1
+               also gives the same bits on two launches
   4. serve   — γ for 1,024 held-out documents through the CUDA backend,
                against the gather backend
   5. train   — LDAEngine IVI on an Arxiv-shaped corpus (16,430 documents),
                two epochs; kernel launch counts, LPP, the memoized ELBO
                after every update of epoch 2, the memo invariant
   6. warm    — the fixed point against its twin again, from the trained λ
-               and memo warm starts, where tiles stop at different sweeps
+               and memo warm starts, where tiles stop at different sweeps,
+               and the same bits on two launches
   7. profile — torch.profiler over a few more updates: device time by
                operation and the device's idle share
 then the flat CSR token-stream path, on the same corpus:
@@ -37,7 +39,9 @@ then the pre-fusion baseline and attention:
                shape (B = 128, V = 4096, K = 128, L = 64)
  14. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
                heads, 2 KV heads, hd = 128), B = 1, S = 4096, bf16, causal,
-               against its twin and timed beside scaled_dot_product_attention;
+               against its twin, the same bits on two launches, timed beside
+               scaled_dot_product_attention; the count of wgmma (HGMMA) and
+               TMA load (UTMALDG) instructions in the built library's SASS;
                then fp32, not causal, S = 1000 against mha_ref
 Then the ``kernels`` summary line and, last, the ``ok`` line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -203,7 +207,8 @@ def check_fixed_point(args, label, block_b=128):
     """K1 against its plain twin on one set of inputs. γ is held at 2e-3
     and the tile sweeps within 1; Eθ at rtol 1e-4 / atol 1e-6 in every
     tile whose sweep count agrees with the twin's (a tile one sweep apart
-    is held at γ's tolerance). Returns the errors, the tile sweeps and
+    is held at γ's tolerance). A second launch must give the same bits
+    (γ, Eθ and the tile sweeps). Returns the errors, the tile sweeps and
     the bound for this run's sweeps."""
     import torch
     from repro_torch.kernels import lda_estep
@@ -211,6 +216,9 @@ def check_fixed_point(args, label, block_b=128):
     ids, cnts, eb, gamma0 = args[:4]
     (b, k), l = gamma0.shape, ids.shape[1]
     g, et, it = lda_estep.estep_fixed_point(*args, block_b=block_b)
+    again = lda_estep.estep_fixed_point(*args, block_b=block_b)
+    check(all(torch.equal(x, y) for x, y in zip((g, et, it), again)),
+          f"fixed_point ({label}): two launches differ")
     pg, pet, pit = lda_estep.estep_fixed_point_plain(*args, block_b=block_b)
     sweep_gap = int((it - pit).abs().max())
     check(sweep_gap <= 1, f"fixed_point ({label}): tile sweeps {it} vs {pit}")
@@ -236,6 +244,7 @@ def check_fixed_point(args, label, block_b=128):
             "tol": "γ rtol=atol=2e-3; Eθ rtol=1e-4 atol=1e-6 in tiles whose "
                    "sweeps agree; tile sweeps within 1",
             "sweep_gap": sweep_gap, "tile_sweeps": sweeps.tolist(),
+            "bit_equal_two_launches": True,
             "bound_ms": bms, "bound_by": by, "_etheta": et,
             "_etheta_plain": pet}
 
@@ -245,7 +254,7 @@ def phase_kernels(device, spec, train, topics, batch, timer):
     import torch
     from repro_torch.core.math import exp_dirichlet_expectation
     from repro_torch.core.types import LDAConfig, init_global_state
-    from repro_torch.kernels import lda_estep
+    from repro_torch.kernels import build, lda_estep
 
     cfg = LDAConfig(num_topics=topics, vocab_size=spec.vocab_size,
                     estep_max_iters=ESTEP_ITERS)
@@ -336,7 +345,10 @@ def phase_kernels(device, spec, train, topics, batch, timer):
     emit({"phase": "kernels", "shape": {"B": b, "L": l, "K": k, "V": v,
                                         "live_slots": live,
                                         "distinct_ids": distinct},
-          "kernels": out})
+          "kernels": out,
+          # the blocks of K1's cooperative grid at this shape
+          "fixed_point_grid_blocks": build.load().lda_fixed_point_blocks(
+              b, l, k, 128)})
     return out
 
 
@@ -504,6 +516,8 @@ def phase_fixed_point_warm(eng, kernels, timer, max_batches=4):
                                       for r in checked),
             "sweep_gap": max(r["sweep_gap"] for r in checked),
             "tile_sweeps": [r["tile_sweeps"] for r in checked],
+            "bit_equal_two_launches": all(r["bit_equal_two_launches"]
+                                          for r in checked),
             "ms": timer(lambda: lda_estep.estep_fixed_point(*first), 10),
             "bound_ms": checked[0]["bound_ms"],
             "bound_by": checked[0]["bound_by"]}
@@ -921,7 +935,7 @@ def phase_legacy(device, spec, train, topics, batch, timer):
         bms, by = dense_bound(bp, vp, kp)
         out[name] = {
             "max_abs_err": err, "tol": "rtol=atol=2e-5 (fp32 twin, no TF32)",
-            "deterministic": True, "shape": [bp, vp, kp],
+            "deterministic": True,
             "ms": timer(lambda: kern(*args), 10),
             "plain_ms": timer(lambda: plain(*args), 10),
             "bound_ms": bms, "bound_by": by, "library_ms": None}
@@ -1077,13 +1091,29 @@ def phase_legacy(device, spec, train, topics, batch, timer):
     return out, launches
 
 
+def sass_counts(library, ops=("HGMMA", "UTMALDG")):
+    """How many SASS instructions of each kind the built library holds
+    (``cuobjdump -sass``, beside nvcc): wgmma is HGMMA, a TMA tile load
+    UTMALDG."""
+    from repro_torch.kernels import build
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    lib = build.library_path(build.LIBRARIES[library][0])
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass {lib}: {sass.stderr}")
+    lines = sass.stdout.splitlines()
+    return {op: sum(op in ln for ln in lines) for op in ops}
+
+
 def phase_attention(device, timer):
     """flash_mha (K9) at Qwen2.5-3B's attention widths, bf16, causal, S =
     4096, one sequence: its launches; K9 against its twin at about two bf16
-    ulps; its time, its bound and scaled_dot_product_attention's on the same
-    inputs. Then fp32 at the same shape, causal, against the twin, and fp32,
-    not causal, S = 1000 (padded to 1024) against mha_ref on the unpadded
-    inputs, both at 2e-5."""
+    ulps and the same bits on a second launch; its time, its bound and
+    scaled_dot_product_attention's on the same inputs; the tensor-core
+    (HGMMA) and TMA (UTMALDG) instructions in its library's SASS. Then fp32
+    at the same shape, causal, against the twin, and fp32, not causal, S =
+    1000 (padded to 1024) against mha_ref on the unpadded inputs, both at
+    2e-5."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1119,6 +1149,11 @@ def phase_attention(device, timer):
     qf, kf, vf = heads(q), heads(k), heads(v)
     got = fa.flash_attention(qf, kf, vf, causal=True)
     check(torch.equal(got, heads(out)), "attention: flash_mha is not K9")
+    check(torch.equal(got, fa.flash_attention(qf, kf, vf, causal=True)),
+          "flash_attention: two bf16 launches differ")
+    sass = sass_counts("flash_attention")
+    check(all(n > 0 for n in sass.values()),
+          f"flash_attention: no wgmma or TMA instruction in the SASS: {sass}")
     want = fa.flash_attention_plain(qf, kf, vf, causal=True)
     err = float((got.float() - want.float()).abs().max())
     check(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
@@ -1140,12 +1175,10 @@ def phase_attention(device, timer):
     ops_count = 4.0 * hd * pairs               # Q·Kᵀ and P·V
     nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
     bms, by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
-    row = {"max_abs_err": err,
+    row = {"max_abs_err": err, "bit_equal_two_launches": True, "sass": sass,
            "tol": f"bf16 rtol={BF16_RTOL} atol={BF16_ATOL} (SDPA: relative "
                   f"L2 {LIBRARY_REL_L2}); fp32 causal S={s} and not causal "
                   "S=1000 rtol=atol=2e-5",
-           "shape": {"B": b, "S": s, "H": h, "KV": kvh, "hd": hd,
-                     "dtype": "bfloat16", "causal": True},
            "flash_mha_first_call_ms": mha_ms,
            "ms": timer(lambda: fa.flash_attention(qf, kf, vf, causal=True),
                        10),
@@ -1167,6 +1200,8 @@ def phase_attention(device, timer):
     check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
           f"flash_attention: fp32 causal S={s} off its twin by {f32_err}")
     row["max_abs_err_fp32_causal"] = f32_err
+    row["ms_fp32_causal"] = timer(
+        lambda: fa.flash_attention(qf, kf, vf, causal=True), 3)
     del qf, kf, vf, got, want
 
     # fp32, not causal, S = 1000: the padded keys must be masked ------------
@@ -1185,12 +1220,20 @@ def phase_attention(device, timer):
     pad_err = float((got - want).abs().max())
     check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
           f"attention: fp32 S={n} not causal off mha_ref by {pad_err}")
-    row["padded_fp32"] = {"S": n, "padded_to": 1024, "causal": False,
+    row["padded_fp32"] = {"causal": False,
                           "max_abs_err_vs_mha_ref": pad_err,
                           "tol": "rtol=atol=2e-5"}
-    emit({"phase": "attention", "kernels": {"flash_attention": row},
-          "launches": launches,
+    # the shapes and the bounds derived from them: this line only, never
+    # the kernels line
+    emit({"phase": "attention",
+          "shape": {"B": b, "S": s, "H": h, "KV": kvh, "hd": hd,
+                    "dtype": "bfloat16", "causal": True},
+          "padded_fp32_shape": {"S": n, "padded_to": 1024},
+          "kernels": {"flash_attention": row}, "launches": launches,
           "derived": {"bound_ms_fp32_simt": ops_count / FP32_OPS_PER_S
+                      * 1e3,
+                      # the design's own floor: P·V twice (P_hi and P_lo)
+                      "design_floor_ms": 1.5 * ops_count / BF16_OPS_PER_S
                       * 1e3}})
     return {"flash_attention": row}, launches
 
@@ -1244,7 +1287,13 @@ def main() -> int:
     check(all(launches[name] > 0 for name in REPLACES),
           f"a kernel never launched on its path: {launches}")
     emit({"phase": "summary", "card": info["nvidia_smi"],
-          "seconds": time.perf_counter() - t_start})
+          "seconds": time.perf_counter() - t_start,
+          # the two fixed points, cold, on the same documents, λ and γ₀
+          "cold_ms_same_docs": {
+              "fixed_point": kernels["fixed_point"]["ms"],
+              "fixed_point_csr": kernels["fixed_point_csr"]["ms"],
+              "same_docs": kernels["fixed_point_csr"][
+                  "same_docs_as_fixed_point"]}})
     emit({"kernels": [dict(name=name, route="cuda", source=SOURCES[name],
                            replaces=REPLACES[name], launches=launches[name],
                            **kernels[name]) for name in REPLACES]})

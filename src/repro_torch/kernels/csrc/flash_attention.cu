@@ -1,30 +1,55 @@
-// K9: flash attention for Hopper (sm_90a), fp32 math on fp32 or bf16 inputs.
+// K9: flash attention for Hopper (sm_90a), on fp32 or bf16 inputs.
 //
 // Replaces _flash_kernel (repro/kernels/flash_attention.py:31): online-
 // softmax attention over (BH, S, hd), causal or not, output in the inputs'
-// dtype. The (S, S) score matrix never reaches device memory.
+// dtype. The (S, S) score matrix never reaches device memory. Scores of
+// keys at or past kv_len, and above the diagonal when causal, are -1e30,
+// as in the TPU kernel; key tiles past the causal limit are skipped (a tile
+// runs when its first key is <= the query tile's last row, the TPU
+// kernel's rule); the row sum is clamped at 1e-30 before the division.
+// Keys and values are read from head bh / rep, so grouped-query attention
+// needs no repeated copy. Two bodies:
 //
-// One block owns one (head, 64-query tile): it loads the tile's queries,
-// scaled, into shared memory as fp32 and walks the key/value tiles up to
-// the causal limit (a tile runs when its first key is <= the tile's last
-// query, the TPU kernel's skip rule) and up to kv_len. Each of the 8 warps
-// owns 8 query rows; their running max, sum and accumulator (8 x hd) stay
-// in registers, in fp32. Scores of keys at or past kv_len, and above the
-// diagonal when causal, are -1e30, as in the TPU kernel; the sum is
-// clamped at 1e-30 before the division. Keys and values are read from head
-// bh / rep, so grouped-query attention needs no repeated copy.
+// bf16 (flash_tc_kernel): the tensor cores, FlashAttention-3's shape. One
+// block owns one (head, 128-query tile): two consumer warpgroups of 64
+// query rows each, and one producer warp. The producer loads the query
+// tile once and keeps K and V tiles in flight by TMA (tensor maps encoded
+// on the host, 128-byte swizzle) into a 2-stage ring in shared memory,
+// signalled by mbarriers; the consumers release a stage once both have
+// read it. S = Q.K^T is wgmma with both operands in shared memory and fp32
+// accumulators; the scale, the masks and the online softmax run on the
+// fp32 scores in registers. O += P.V is two register-A wgmmas, P_hi.V +
+// P_lo.V with P_hi = bf16(P) and P_lo = bf16(P - P_hi): a single bf16 P is
+// off the fp32-math twin by up to 2x the bf16 bar this kernel is held to
+// (rtol 2^-7, atol 1e-3), the split keeps P to about 16 bits. The head
+// width is padded to the template's (64, 128 or 256) by TMA's zero fill of
+// the columns past hd; hd must be a multiple of 8 (TMA's 16-byte row
+// pitch: the wrapper pads other widths). No atomics: the same bits on
+// every launch.
+// Bound: operations on the bf16 tensor cores. The function needs 2
+// products of S x S x hd per head (halved when causal): 68.7 GFLOP at
+// Qwen2.5-3B's widths (16 heads, hd = 128, S = 4096, causal), 0.0695 ms at
+// 989 TFLOP/s. The split makes P.V twice the work, 103 GFLOP in all: this
+// design's floor is 0.104 ms.
+// Shared memory: the query tile (128 x D), 2 stages of K and V tiles
+// (BK x D each; BK = 128 up to D = 128, 64 at D = 256): 160 KB at D = 128,
+// 192 KB at D = 256, one block per SM.
 //
-// Bound: operations on the fp32 SIMT cores as written (2 products of
-// S x S x hd per head, halved when causal); the bf16 tensor cores would
-// bound it 15x lower, the later redesign (wgmma) this kernel waits for.
-// Shared memory: fp32 Q, K and V tiles plus the 64 x BK probabilities,
-// 117 KB at hd = 128 with 64-key tiles, so the key tile is cut to 32 above
-// hd = 128 (141 KB at hd = 256, the cap); both above the 48 KB default,
-// raised with cudaFuncSetAttribute.
+// fp32 (flash_kernel): fp32 SIMT math. The fp32 bars (2e-5) rule out bf16
+// and TF32 products. One block owns one (head, 64-query tile): it loads the
+// tile's queries, scaled, into shared memory and walks the key/value tiles;
+// each of the 8 warps owns 8 query rows, their running max, sum and
+// accumulator (8 x hd) in registers. Bound: operations on the fp32 SIMT
+// cores (1.03 ms at the widths above). Shared memory: Q, K and V tiles plus
+// the 64 x BK probabilities, 117 KB at hd = 128 with 64-key tiles, the key
+// tile cut to 32 above hd = 128 (141 KB at hd = 256).
 //
 // Built by nvcc into its own shared library with a plain C interface and
-// loaded with ctypes (repro_torch/kernels/build.py).
+// loaded with ctypes (repro_torch/kernels/build.py). The tensor-map encoder
+// (cuTensorMapEncodeTiled) is a driver function, fetched at run time through
+// the runtime's driver entry point, so the library links no libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,15 +62,6 @@ constexpr int kRows = 8;                          // query rows per warp
 constexpr int kBQ = kRows * (kThreads / kWarp);   // 64 query rows per block
 constexpr int kMaxDpl = 8;                        // hd <= 256
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -73,10 +89,10 @@ struct Tile {
       sizeof(float);
 };
 
-template <typename T, int DPL, int BK>
+template <int DPL, int BK>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int BH,
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int BH,
                  int rep, int S, int hd, int kv_len, float scale,
                  int causal) {
   using Tl = Tile<DPL, BK>;
@@ -99,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + r;
     s_q[r * Tl::kStride + d] =
         (row < S && d < hd)
-            ? to_f32(q[q_base + static_cast<size_t>(row) * hd + d]) * scale
+            ? q[q_base + static_cast<size_t>(row) * hd + d] * scale
             : 0.f;
   }
 
@@ -120,8 +136,8 @@ __global__ void __launch_bounds__(kThreads)
       const int key = k0 + c;
       const bool in = key < S && d < hd;
       const size_t at = kv_base + static_cast<size_t>(key) * hd + d;
-      s_k[c * Tl::kStride + d] = in ? to_f32(k[at]) : 0.f;
-      s_v[c * Tl::kD + d] = in ? to_f32(v[at]) : 0.f;
+      s_k[c * Tl::kStride + d] = in ? k[at] : 0.f;
+      s_v[c * Tl::kD + d] = in ? v[at] : 0.f;
     }
     __syncthreads();
 
@@ -204,14 +220,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int dd = 0; dd < DPL; ++dd) {
       const int d = lane + kWarp * dd;
       if (d < hd) {
-        store_out(out + q_base + static_cast<size_t>(row) * hd + d,
-                  acc[i][dd] * inv);
+        out[q_base + static_cast<size_t>(row) * hd + d] = acc[i][dd] * inv;
       }
     }
   }
 }
 
-template <typename T, int DPL>
+template <int DPL>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          void* out, int BH, int rep, int S, int hd,
                          int kv_len, float scale, int causal,
@@ -219,28 +234,27 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   constexpr int BK = DPL <= 4 ? 64 : 32;
   using Tl = Tile<DPL, BK>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DPL, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<DPL, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Tl::kSmem));
   if (err != cudaSuccess) return err;
   const int64_t blocks = static_cast<int64_t>(BH) * ((S + kBQ - 1) / kBQ);
-  flash_kernel<T, DPL, BK>
+  flash_kernel<DPL, BK>
       <<<static_cast<unsigned>(blocks), kThreads, Tl::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), BH, rep, S, hd, kv_len,
-      scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), BH, rep, S, hd,
+      kv_len, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_flash(const void* q, const void* k, const void* v,
-                           void* out, int BH, int rep, int S, int hd,
-                           int kv_len, float scale, int causal,
-                           cudaStream_t stream) {
+cudaError_t dispatch_flash_f32(const void* q, const void* k, const void* v,
+                               void* out, int BH, int rep, int S, int hd,
+                               int kv_len, float scale, int causal,
+                               cudaStream_t stream) {
   const int dpl = (hd + kWarp - 1) / kWarp;
-#define ATTN_CASE(N)                                                        \
-  case N:                                                                   \
-    return launch_flash<T, N>(q, k, v, out, BH, rep, S, hd, kv_len, scale, \
-                              causal, stream);
+#define ATTN_CASE(N)                                                     \
+  case N:                                                                \
+    return launch_flash<N>(q, k, v, out, BH, rep, S, hd, kv_len, scale, \
+                           causal, stream);
   switch (dpl) {
     ATTN_CASE(1)
     ATTN_CASE(2)
@@ -256,6 +270,506 @@ cudaError_t dispatch_flash(const void* q, const void* k, const void* v,
 #undef ATTN_CASE
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;                     // query rows per block
+constexpr int kConsumers = 2;                // warpgroups of 64 rows
+constexpr int kProducerWarp = 4 * kConsumers;
+constexpr int kThreads = 128 * kConsumers + kWarp;
+constexpr int kStages = 2;
+constexpr int kChunk = 64;                   // bf16 columns per 128-byte row
+constexpr int kRowBytes = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// D: the head width padded to the template; BK: keys per tile.
+template <int D>
+struct Cfg {
+  static constexpr int BK = D <= 128 ? 128 : 64;
+  static constexpr int kChunks = D / kChunk;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kTileBytes = BK * D * 2;   // one K or V tile
+  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte-swizzled tile:
+// start address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma's registers across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64(d, a, b, accumulate);
+  } else {
+    static_assert(N == 128, "score tile of 64 or 128 keys");
+    wgmma_ss_n128(d, a, b, accumulate);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, b);
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, b);
+  } else {
+    static_assert(N == 256, "head width of 64, 128 or 256");
+    wgmma_rs_n256(d, a, b);
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Accumulator layout of a 64 x N wgmma tile (fp32): thread t of warp w in
+// the warpgroup holds, for column block j (8 columns), d[4j + e] at row
+// 16w + t/4 + 8(e/2), column 8j + 2(t%4) + e%2. A register-A operand
+// (64 x 16, bf16 pairs) has the same rows and columns for the 16 columns of
+// blocks 2kk and 2kk + 1, so P is handed to the P.V product in registers.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    __nv_bfloat16* __restrict__ out, int BH, int rep, int S,
+                    int hd, int kv_len, float scale, int causal) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t k_full[kStages];
+  __shared__ __align__(8) uint64_t v_full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
+  // swizzled tiles start on 1024-byte boundaries (the swizzle's period)
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_kv = s_q + C::kQBytes;   // K stages, then V stages
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  // the longest causal rows first: tile nqt - 1 of every head, then nqt - 2
+  const int nqt = (S + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x % BH;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x / BH);
+  const int q0 = qt * kBQ;
+  const int kv_end = causal ? min(kv_len, q0 + kBQ) : kv_len;
+  const int ntiles = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&empty[st], 4 * kConsumers);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      const int kvh = bh / rep;
+      mbar_expect_tx(&q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) {
+        tma_load_3d(s_q + c * kBQ * kRowBytes, &tm_q, &q_full, c * kChunk,
+                    q0, bh);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % kStages, round = t / kStages;
+        if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
+        const uint32_t s_k = s_kv + st * C::kTileBytes;
+        const uint32_t s_v = s_kv + (kStages + st) * C::kTileBytes;
+        mbar_expect_tx(&k_full[st], C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load_3d(s_k + c * BK * kRowBytes, &tm_k, &k_full[st],
+                      c * kChunk, t * BK, kvh);
+        }
+        mbar_expect_tx(&v_full[st], C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load_3d(s_v + c * BK * kRowBytes, &tm_v, &v_full[st],
+                      c * kChunk, t * BK, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. q0 + 64 wg + 63
+  const int wg = warp / 4;
+  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;   // and +8
+  const int col0 = 2 * (lane % 4);
+  const float scale2 = scale * kLog2e;   // scores in log2 units
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(&q_full, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % kStages;
+    const uint32_t parity = (t / kStages) & 1;
+    const uint32_t s_k = s_kv + st * C::kTileBytes;
+    const uint32_t s_v = s_kv + (kStages + st) * C::kTileBytes;
+    const int k0 = t * BK;
+
+    // S = Q K^T (64 x BK per warpgroup), fp32
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    mbar_wait(&k_full[st], parity);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;   // 16 columns within a row
+      const uint64_t da = desc_sw128(
+          s_q + (kk / 4) * kBQ * kRowBytes + wg * 64 * kRowBytes + off, 16,
+          1024);
+      const uint64_t db =
+          desc_sw128(s_k + (kk / 4) * BK * kRowBytes + off, 16, 1024);
+      wgmma_ss<BK>(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // masks and the running max (rows row0 and row0 + 8)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1);
+        const int col = k0 + 8 * j + col0 + (e & 1);
+        const bool keep = col < kv_len && (!causal || row >= col);
+        const float x = keep ? s[4 * j + e] * scale2 : kNegInf;
+        s[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];   // this thread's share of the row sum
+    }
+
+    // P = exp(S - m) in fp32, split into bf16 P_hi + P_lo, as A fragments
+    uint32_t phi[BK / 16][4], plo[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r & 1;
+        const float p0 = exp2f(s[8 * kk + 2 * r] - m[h]);
+        const float p1 = exp2f(s[8 * kk + 2 * r + 1] - m[h]);
+        l[h] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        phi[kk][r] = bf16x2_bits(hi);
+        plo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+
+    // O += P_hi V + P_lo V
+    mbar_wait(&v_full[st], parity);
+    fence_regs(o);
+    fence_regs(phi);
+    fence_regs(plo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = desc_sw128(s_v + kk * 16 * kRowBytes,
+                                     BK * kRowBytes, 1024);
+      wgmma_rs<D>(o, phi[kk], dv);
+      wgmma_rs<D>(o, plo[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&empty[st]);   // this warp is done with st
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  }
+  const size_t base = static_cast<size_t>(bh) * S;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < S && col < hd) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (base + row) * hd + col) =
+            __floats2bfloat162_rn(o[4 * j + 2 * h] * inv[h],
+                                  o[4 * j + 2 * h + 1] * inv[h]);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A (heads, S, hd) bf16 tensor as a 3-D tensor map: boxes of 64 columns
+// by `rows` rows of one head, 128-byte swizzle, zeros past every edge.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int S,
+                     int hd, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(S) * hd * 2};
+  const cuuint32_t box[3] = {kChunk, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int BH, int rep, int S, int hd, int kv_len, float scale,
+                   int causal, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_map(&mq, q, BH, S, hd, kBQ);
+  if (err == cudaSuccess) err = make_map(&mk, k, BH / rep, S, hd, C::BK);
+  if (err == cudaSuccess) err = make_map(&mv, v, BH / rep, S, hd, C::BK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = static_cast<int64_t>(BH) * ((S + kBQ - 1) / kBQ);
+  flash_tc_kernel<D><<<static_cast<unsigned>(blocks), kThreads, C::kSmem,
+                       stream>>>(mq, mk, mv,
+                                 static_cast<__nv_bfloat16*>(out), BH, rep,
+                                 S, hd, kv_len, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+cudaError_t dispatch_flash_bf16(const void* q, const void* k, const void* v,
+                                void* out, int BH, int rep, int S, int hd,
+                                int kv_len, float scale, int causal,
+                                cudaStream_t stream) {
+  // TMA: 16-byte row pitch and base addresses
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  if (hd % 8 != 0 || (addr & 15) != 0) return cudaErrorInvalidValue;
+  if (hd <= 64) {
+    return tc::launch<64>(q, k, v, out, BH, rep, S, hd, kv_len, scale, causal,
+                          stream);
+  }
+  if (hd <= 128) {
+    return tc::launch<128>(q, k, v, out, BH, rep, S, hd, kv_len, scale,
+                           causal, stream);
+  }
+  if (hd <= 256) {
+    return tc::launch<256>(q, k, v, out, BH, rep, S, hd, kv_len, scale,
+                           causal, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -264,13 +778,14 @@ const char* attn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Highest head dimension the kernel takes (its per-lane register arrays).
+// Highest head dimension the kernels take (their register arrays).
 int attn_max_head_dim() { return kMaxDpl * kWarp; }
 
 // out = softmax(q k^T * scale, masked) v for BH query heads of S rows and
 // hd dims; keys and values have BH / rep heads (head bh reads bh / rep).
 // Keys at or past kv_len are masked; causal masks keys after the query.
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike).
+// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike; hd a multiple of 8
+// and 16-byte aligned bases for bfloat16).
 int attn_flash(const void* q, const void* k, const void* v, void* out,
                int BH, int rep, int S, int hd, int kv_len, float scale,
                int causal, int dtype, void* stream) {
@@ -281,12 +796,12 @@ int attn_flash(const void* q, const void* k, const void* v, void* out,
   if (BH == 0 || S == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return dispatch_flash<float>(q, k, v, out, BH, rep, S, hd, kv_len, scale,
-                                 causal, s);
+    return dispatch_flash_f32(q, k, v, out, BH, rep, S, hd, kv_len, scale,
+                              causal, s);
   }
   if (dtype == 1) {
-    return dispatch_flash<__nv_bfloat16>(q, k, v, out, BH, rep, S, hd, kv_len,
-                                         scale, causal, s);
+    return dispatch_flash_bf16(q, k, v, out, BH, rep, S, hd, kv_len, scale,
+                               causal, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -27,6 +27,9 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace cg = cooperative_groups;
 
@@ -88,8 +91,7 @@ __device__ __forceinline__ void exp_elog_theta(const float (&g)[KPL],
 // lane's |d gamma| added to dsum. The ids and counts are fetched 32 at a
 // time with one coalesced load; a ballot skips the count-0 slots, and each
 // live slot costs one Eφ row read (K floats, coalesced) and one warp
-// reduction. Shared by K1 (a padded row, n = L) and K4 (a document's range
-// of the flat stream).
+// reduction. K4's walk of a document's range of the flat stream.
 template <int KPL>
 __device__ __forceinline__ void row_sweep(float* g_row,
                                           const int32_t* __restrict__ ids,
@@ -170,70 +172,219 @@ __device__ __forceinline__ void row_etheta(const float* g_row, float* et_row,
 // 99.9% zeros at the Arxiv shape: per sweep 4*B*L*K operations instead of
 // 4*B*V*K.
 //
-// One block owns one tile of block_b documents and runs every sweep of
-// that tile; the tile stops once the mean |d gamma| over its real rows and
-// topics is <= tol, exactly the TPU kernel's per-tile rule. One warp owns
-// one document row at a time (rows warp, warp + nwarps, ...); the row's
-// gamma, E[theta] and accumulator live in registers, gamma between sweeps
-// in the gamma output (the block's own rows, L1/L2 resident).
+// Stopping rule: the TPU kernel's, per tile of block_b documents. A tile
+// stops once the mean |d gamma| over its real rows and K topics is <= tol,
+// or after max_sweeps; iters holds one count per tile.
 //
-// Bound: operations (4*K per live token per sweep, plus the digamma
-// series); the bytes it must move are the token rows and the distinct Eφ
-// rows, read once. What holds it back is occupancy: B / block_b blocks
-// (8 at B = 1024 on 132 SMs) and a serial token loop per row (row_sweep).
-// Raising the block count (splitting a tile's rows across a cluster with
-// one reduction per sweep, as K4 spreads its rows over the whole grid) is
-// later work (ROADMAP.md).
+// One cooperative launch runs every sweep of every tile. A document's L
+// slots are split over W warps (fp_warps_per_doc: 4 at L = 163), warp p
+// taking slots p, p + W, p + 2W, ... (the padding at a row's end spreads
+// over all W); W and the split depend on the shape alone, so the bits do
+// not depend on the grid. Each warp sums its slots' cnt / (E[theta].Eφ[id]
+// + 1e-30) * Eφ[id] into a K-vector, with the Eφ rows of up to 4 live
+// tokens loaded before their reductions (no serial load -> reduce -> load
+// chain); the W vectors are summed in shared memory in warp order, and the
+// document's first warp writes gamma' = alpha0 + E[theta] * acc, its
+// E[theta] (kept in the E[theta] output between sweeps, so after the last
+// sweep it holds E[theta] of the final gamma) and the row's |d gamma| to
+// the document's slot of `delta`, double-buffered by sweep parity. After a
+// grid sync every block sums each running tile's slots in index order with
+// one fixed butterfly, so every block takes the same stop decision from the
+// same bits; a stopped tile does no more sweeps, and the launch ends when
+// every tile has stopped. Documents loop over the co-resident grid (the
+// wrapper refuses a grid that cannot be launched that way). No atomics.
+//
+// Bound: operations (4*K per live token per sweep, plus the digamma series
+// per row); the bytes it must move are the token rows and the distinct Eφ
+// rows, read once. At B = 1024, L = 163 about 4,096 warps are in flight: a
+// sweep costs about a quarter of the longest row's serial walk plus one
+// grid-wide sync.
 // ---------------------------------------------------------------------------
+constexpr int kFpThreads = 256;
+constexpr int kFpWarps = kFpThreads / kWarp;
+
+// Warps per document row of L slots: a power of two, about 48 slots each,
+// at most the block's warps.
+int fp_warps_per_doc(int L) {
+  int w = 1;
+  while (w < kFpWarps && w * 48 < L) w *= 2;
+  return w;
+}
+
+// Warp p's share of one row's sweep: acc += ratio * Eφ[id] over the live
+// slots p, p + W, ... of the n slots at ids/cnts, in slot order.
 template <int KPL>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ void strided_partial(
+    const int32_t* __restrict__ ids, const float* __restrict__ cnts, int n,
+    int p, int W, const float* __restrict__ eb, int K,
+    const float (&et)[KPL], float (&acc)[KPL], int lane) {
+  constexpr int U = KPL <= 4 ? 4 : 2;   // tokens in flight per warp
+  for (int i0 = p; i0 < n; i0 += W * kWarp) {
+    const int slot = i0 + W * lane;
+    const int32_t my_id = slot < n ? ids[slot] : 0;
+    const float my_cnt = slot < n ? cnts[slot] : 0.f;
+    // count-0 slots (padding) contribute exactly 0: skip them
+    unsigned live = __ballot_sync(0xffffffffu, my_cnt != 0.f);
+    while (live) {
+      float c[U], part[U], e[U][KPL];
+      bool has[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        has[u] = live != 0;   // warp-uniform
+        const int t = has[u] ? __ffs(live) - 1 : 0;
+        live &= live - 1;
+        c[u] = __shfl_sync(0xffffffffu, my_cnt, t);
+        const int32_t id = __shfl_sync(0xffffffffu, my_id, t);
+        const float* e_row = eb + static_cast<size_t>(id) * K;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const int k = lane + j * kWarp;
+          e[u][j] = has[u] && k < K ? __ldg(e_row + k) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        part[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) part[u] += et[j] * e[u][j];
+        part[u] = warp_sum(part[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (has[u]) {
+          const float ratio = c[u] / (part[u] + kEps);
+#pragma unroll
+          for (int j = 0; j < KPL; ++j) acc[j] += ratio * e[u][j];
+        }
+      }
+    }
+  }
+}
+
+template <int KPL>
+__global__ void __launch_bounds__(kFpThreads, 4)
     fixed_point_kernel(const int32_t* __restrict__ ids,
                        const float* __restrict__ cnts,
                        const float* __restrict__ eb,
                        const float* __restrict__ gamma0,
                        float* __restrict__ gamma, float* __restrict__ et_out,
-                       int32_t* __restrict__ iters, int B, int L, int K,
-                       float alpha0, float tol, int max_sweeps, int block_b) {
-  __shared__ float warp_delta[kWarp];
-  __shared__ int done;
+                       float* __restrict__ delta, int32_t* __restrict__ iters,
+                       int B, int L, int K, float alpha0, float tol,
+                       int max_sweeps, int block_b, int W) {
+  constexpr int KP = KPL * kWarp;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float fp_smem[];
+  float* part = fp_smem;                                    // [warps][KP]
+  int* stop = reinterpret_cast<int*>(part + kFpWarps * KP);  // [tiles]
+  __shared__ int all_done;
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  const int row0 = blockIdx.x * block_b;
-  const int rows = min(block_b, B - row0);
+  const int dpb = kFpWarps / W;       // documents per block per round
+  const int grp = warp / W, p = warp % W;
+  const int nb = (B + block_b - 1) / block_b;
+  const int64_t per_round = static_cast<int64_t>(gridDim.x) * dpb;
+  const int rounds = static_cast<int>((B + per_round - 1) / per_round);
+  auto doc = [&](int r) {
+    return (r * static_cast<int64_t>(gridDim.x) + blockIdx.x) * dpb + grp;
+  };
 
-  for (int r = warp; r < rows; r += nwarps) {
-    const size_t off = static_cast<size_t>(row0 + r) * K;
-    for (int k = lane; k < K; k += kWarp) gamma[off + k] = gamma0[off + k];
-  }
-
-  int sweeps = 0;
-  while (sweeps < max_sweeps) {
-    float dsum = 0.f;
-    for (int r = warp; r < rows; r += nwarps) {
-      const size_t b = static_cast<size_t>(row0 + r);
-      row_sweep<KPL>(gamma + b * K, ids + b * L, cnts + b * L, L, eb, K,
-                     alpha0, lane, dsum);
+  // stop[t]: the sweeps tile t ran once it stopped, 0 while it runs
+  for (int t = threadIdx.x; t < nb; t += kFpThreads) stop[t] = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const int64_t d = doc(r);
+    if (d < B && p == 0) {
+      float g[KPL], et[KPL];
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int k = lane + j * kWarp;
+        g[j] = k < K ? gamma0[d * K + k] : 0.f;
+      }
+      exp_elog_theta<KPL>(g, et, K, lane);
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int k = lane + j * kWarp;
+        if (k < K) {
+          gamma[d * K + k] = g[j];
+          et_out[d * K + k] = et[j];
+        }
+      }
     }
-    dsum = warp_sum(dsum);
-    if (lane == 0) warp_delta[warp] = dsum;
+  }
+  __syncthreads();
+
+  for (int sweep = 0; sweep < max_sweeps; ++sweep) {
+    float* slots = delta + static_cast<size_t>(sweep & 1) * B;
+    for (int r = 0; r < rounds; ++r) {
+      const int64_t d = doc(r);
+      const bool active = d < B && stop[d / block_b] == 0;
+      float et[KPL], acc[KPL];
+      if (active) {
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const int k = lane + j * kWarp;
+          et[j] = k < K ? et_out[d * K + k] : 0.f;
+          acc[j] = 0.f;
+        }
+        strided_partial<KPL>(ids + d * L, cnts + d * L, L, p, W, eb, K, et,
+                             acc, lane);
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) part[warp * KP + lane + j * kWarp] = acc[j];
+      }
+      __syncthreads();
+      if (active && p == 0) {
+        float g[KPL], et_new[KPL], dsum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const int k = lane + j * kWarp;
+          float a = part[warp * KP + lane + j * kWarp];
+          for (int q = 1; q < W; ++q) a += part[(warp + q) * KP + lane + j * kWarp];
+          g[j] = 0.f;
+          if (k < K) {
+            g[j] = alpha0 + et[j] * a;
+            dsum += fabsf(g[j] - gamma[d * K + k]);
+            gamma[d * K + k] = g[j];
+          }
+        }
+        exp_elog_theta<KPL>(g, et_new, K, lane);
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const int k = lane + j * kWarp;
+          if (k < K) et_out[d * K + k] = et_new[j];
+        }
+        dsum = warp_sum(dsum);
+        if (lane == 0) slots[d] = dsum;
+      }
+      __syncthreads();   // `part` is refilled by the next round
+    }
+    __threadfence();
+    grid.sync();
+    // every block decides every running tile, from the same slots in the
+    // same order (read past its L1: other SMs wrote them)
+    for (int t = warp; t < nb; t += kFpWarps) {
+      if (stop[t] != 0) continue;
+      const int lo = t * block_b, rows = min(block_b, B - lo);
+      float total = 0.f;
+      for (int i = lane; i < rows; i += kWarp) total += __ldcg(slots + lo + i);
+      total = warp_sum(total);
+      if (lane == 0 && total / static_cast<float>(rows * K) <= tol) {
+        stop[t] = sweep + 1;
+      }
+    }
     __syncthreads();
     if (threadIdx.x == 0) {
-      float total = 0.f;
-      for (int w = 0; w < nwarps; ++w) total += warp_delta[w];
-      done = total / static_cast<float>(rows * K) <= tol;
+      int all = 1;
+      for (int t = 0; t < nb; ++t) all &= stop[t] != 0;
+      all_done = all;
     }
-    ++sweeps;
     __syncthreads();
-    if (done) break;
+    if (all_done) break;
   }
 
-  // E[theta] of the final gamma, as the TPU kernel's _finish
-  for (int r = warp; r < rows; r += nwarps) {
-    const size_t off = static_cast<size_t>(row0 + r) * K;
-    row_etheta<KPL>(gamma + off, et_out + off, K, lane);
+  if (blockIdx.x == 0) {
+    for (int t = threadIdx.x; t < nb; t += kFpThreads) {
+      iters[t] = stop[t] != 0 ? stop[t] : max_sweeps;
+    }
   }
-  if (threadIdx.x == 0) iters[blockIdx.x] = sweeps;
 }
 
 // ---------------------------------------------------------------------------
@@ -336,8 +487,8 @@ __global__ void __launch_bounds__(256)
 // TPU kernel found each token's document through an iota == segments
 // selector matmul on the MXU; here each document's tokens are a contiguous
 // range [offsets[d], offsets[d + 1]) of the stream (the wrapper derives the
-// offsets from the segment ids on the device), walked by one warp with the
-// same row_sweep as K1.
+// offsets from the segment ids on the device), walked by one warp
+// (row_sweep).
 //
 // Stopping rule: the TPU kernel's, batch-wide. After each sweep the mean
 // |d gamma| over all B rows (rows that own no token included) and K topics
@@ -883,18 +1034,84 @@ __global__ void __launch_bounds__(256)
   out[e] = s;
 }
 
+// K1's dynamic shared memory: the warps' partial vectors and the tiles'
+// stop counts.
+size_t fp_smem_bytes(int KPL, int nb) {
+  return static_cast<size_t>(kFpWarps) * KPL * kWarp * sizeof(float) +
+         static_cast<size_t>(nb) * sizeof(int);
+}
+
+// The co-resident capacity of K1 (blocks per SM times SMs) for a dynamic
+// shared size, cached per device and size: the attribute call and the
+// occupancy query run once for each, not on every update. The kernel's
+// shared-memory limit only ever rises (to the largest size seen), so a
+// cached smaller size still launches after a larger one.
+template <int KPL>
+cudaError_t fp_capacity(size_t smem, int* capacity) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> cache;
+  static std::map<int, size_t> limit;   // the attribute as set, per device
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find({dev, smem});
+  if (hit != cache.end()) {
+    *capacity = hit->second;
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > limit[dev]) {
+    err = cudaFuncSetAttribute(fixed_point_kernel<KPL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    limit[dev] = smem;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fixed_point_kernel<KPL>, kFpThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *capacity = cache[{dev, smem}] = per_sm * sms;
+  return cudaSuccess;
+}
+
+// The co-resident grid of K1 for B documents of L slots: W warps per
+// document, at most the capacity. Returns cudaSuccess and sets *blocks, or
+// the error that forbids a cooperative launch.
+template <int KPL>
+cudaError_t fp_grid(int B, int L, int block_b, int* blocks) {
+  int capacity = 0;
+  const cudaError_t err =
+      fp_capacity<KPL>(fp_smem_bytes(KPL, (B + block_b - 1) / block_b),
+                       &capacity);
+  if (err != cudaSuccess) return err;
+  const int dpb = kFpWarps / fp_warps_per_doc(L);
+  *blocks = std::max(1, std::min((B + dpb - 1) / dpb, capacity));
+  return cudaSuccess;
+}
+
 template <int KPL>
 cudaError_t launch_fixed_point(const int32_t* ids, const float* cnts,
                                const float* eb, const float* gamma0,
-                               float* gamma, float* et, int32_t* iters, int B,
-                               int L, int K, float alpha0, float tol,
-                               int max_sweeps, int block_b, int threads,
-                               cudaStream_t stream) {
-  const int nb = (B + block_b - 1) / block_b;
-  fixed_point_kernel<KPL><<<nb, threads, 0, stream>>>(
-      ids, cnts, eb, gamma0, gamma, et, iters, B, L, K, alpha0, tol,
-      max_sweeps, block_b);
-  return cudaGetLastError();
+                               float* gamma, float* et, float* delta,
+                               int32_t* iters, int B, int L, int K,
+                               float alpha0, float tol, int max_sweeps,
+                               int block_b, cudaStream_t stream) {
+  int W = fp_warps_per_doc(L), blocks = 0;
+  cudaError_t err = fp_grid<KPL>(B, L, block_b, &blocks);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&ids, &cnts,  &eb,    &gamma0, &gamma,      &et,
+                  &delta, &iters, &B,   &L,      &K,          &alpha0,
+                  &tol, &max_sweeps, &block_b, &W};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&fixed_point_kernel<KPL>), dim3(blocks),
+      dim3(kFpThreads), args,
+      fp_smem_bytes(KPL, (B + block_b - 1) / block_b), stream);
 }
 
 // The co-resident grid of K4 for B documents: one warp per document, at
@@ -993,19 +1210,49 @@ const char* lda_error_string(int err) {
 // Highest K the fixed point takes (its per-lane register arrays).
 int lda_fixed_point_max_k() { return kMaxKPerLane * kWarp; }
 
+// Blocks of K1's cooperative grid for B documents of L slots and K topics
+// in tiles of block_b, or minus a CUDA error code (lda_fixed_point sizes
+// its own grid the same way; this reports it).
+int lda_fixed_point_blocks(int B, int L, int K, int block_b) {
+  cudaGetLastError();
+  if (B < 1 || L < 0 || block_b < 1) return -cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  const int kpl = (K + kWarp - 1) / kWarp;
+#define LDA_FP_GRID_CASE(N)                        \
+  case N:                                          \
+    err = fp_grid<N>(B, L, block_b, &blocks);      \
+    break;
+  switch (kpl) {
+    LDA_FP_GRID_CASE(1)
+    LDA_FP_GRID_CASE(2)
+    LDA_FP_GRID_CASE(3)
+    LDA_FP_GRID_CASE(4)
+    LDA_FP_GRID_CASE(5)
+    LDA_FP_GRID_CASE(6)
+    LDA_FP_GRID_CASE(7)
+    LDA_FP_GRID_CASE(8)
+    default:
+      break;
+  }
+#undef LDA_FP_GRID_CASE
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// delta: 2 * B floats of scratch (the per-document |d gamma| slots).
 int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
                     const float* gamma0, float* gamma, float* et,
-                    int32_t* iters, int B, int L, int K, float alpha0,
-                    float tol, int max_sweeps, int block_b, void* stream) {
+                    float* delta, int32_t* iters, int B, int L, int K,
+                    float alpha0, float tol, int max_sweeps, int block_b,
+                    void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
-  const int threads = std::min(1024, kWarp * block_b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kpl = (K + kWarp - 1) / kWarp;
-#define LDA_FP_CASE(N)                                                       \
-  case N:                                                                    \
-    return launch_fixed_point<N>(ids, cnts, eb, gamma0, gamma, et, iters, B, \
-                                 L, K, alpha0, tol, max_sweeps, block_b,     \
-                                 threads, s);
+#define LDA_FP_CASE(N)                                                     \
+  case N:                                                                  \
+    return launch_fixed_point<N>(ids, cnts, eb, gamma0, gamma, et, delta,  \
+                                 iters, B, L, K, alpha0, tol, max_sweeps,  \
+                                 block_b, s);
   switch (kpl) {
     LDA_FP_CASE(1)
     LDA_FP_CASE(2)

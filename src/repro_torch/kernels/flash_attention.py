@@ -2,18 +2,21 @@
 
 ``flash_attention`` replaces ``repro.kernels.flash_attention.
 _flash_kernel``: online-softmax attention over (BH, S, hd), causal or not,
-fp32 math on fp32 or bf16 inputs, output in q's dtype. The kernel is CUDA
-C++ (``csrc/flash_attention.cu``, its own library, built and loaded by
-`repro_torch.kernels.build`); ``flash_attention_plain`` is its plain
-PyTorch twin. The wrapper takes the twin only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. Each launch adds one to
-``LAUNCHES["flash_attention"]``.
+on fp32 or bf16 inputs, output in q's dtype. The kernel is CUDA C++
+(``csrc/flash_attention.cu``, its own library, built and loaded by
+`repro_torch.kernels.build`): bf16 on the tensor cores (``wgmma``, with K
+and V tiles fed by TMA; P enters P·V as a bf16 high part plus a bf16 low
+part, so its products keep about 16 bits), fp32 in fp32 SIMT math.
+``flash_attention_plain`` is its plain PyTorch twin. The wrapper takes the
+twin only for CPU tensors; for CUDA tensors it launches the kernel or
+raises. Each launch adds one to ``LAUNCHES["flash_attention"]``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.lda_estep import _on_cpu, _stream
@@ -66,7 +69,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_len`` (default S) are masked whether or not the call is causal, so
     a caller that pads S gets attention over the true length. Query head
     ``bh`` reads key/value head ``bh // rep``: grouped-query attention
-    without a repeated copy. On the card hd is at most 256.
+    without a repeated copy. On the card hd is at most 256. The bf16
+    kernel's tensor maps need 16-byte aligned bases and row pitches: a bf16
+    hd that is no multiple of 8 is zero-padded here to the next one (and
+    the output sliced back), and an input whose base is not aligned is
+    copied.
     """
     bh, s, hd = q.shape
     if k.shape != v.shape or k.ndim != 3 or k.shape[1:] != (s, hd):
@@ -97,11 +104,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd > lib.attn_max_head_dim():
         raise ValueError(f"flash_attention: hd={hd} exceeds the kernel's "
                          f"{lib.attn_max_head_dim()}")
+    width = hd
+    if q.dtype == torch.bfloat16:
+        width = -(-hd // 8) * 8
+        q, k, v = (F.pad(t, (0, width - hd)) if width != hd
+                   else t.clone() if t.data_ptr() % 16 else t
+                   for t in (q, k, v))
     out = torch.empty_like(q)
     rc = lib.attn_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), bh, bh // k.shape[0], s, hd, kv_len,
-                        float(scale), int(bool(causal)), _DTYPES[q.dtype],
-                        _stream(q))
+                        out.data_ptr(), bh, bh // k.shape[0], s, width,
+                        kv_len, float(scale), int(bool(causal)),
+                        _DTYPES[q.dtype], _stream(q))
     build.check(rc, "attn_flash", library="flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out if width == hd else out[..., :hd].contiguous()

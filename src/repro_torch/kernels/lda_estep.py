@@ -143,9 +143,12 @@ def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
     gamma0 (B, K) → (γ (B, K), Eθ (B, K), sweeps per B-tile (nb,) int32).
     Each tile of ``block_b`` documents sweeps until its mean |Δγ| over its
     real rows and topics is ≤ ``tol``, at most ``max(max_iters, 1)``
-    times; Eθ is recomputed from the final γ. The token ids of a row must
-    be unique (``corpus_from_docs`` makes them so) and padding slots carry
-    count 0, which makes this the TPU kernel's dense-count function.
+    times; Eθ is recomputed from the final γ. On the card this is one
+    cooperative launch over a co-resident grid (several warps per
+    document); a grid that cannot be launched that way raises. The token
+    ids of a row must be unique (``corpus_from_docs`` makes them so) and
+    padding slots carry count 0, which makes this the TPU kernel's
+    dense-count function.
     """
     b, l = token_ids.shape
     v, k = eb.shape
@@ -168,11 +171,12 @@ def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
     iters = torch.empty(nb, dtype=torch.int32, device=gamma0.device)
     if b == 0:
         return gamma, et, iters
+    delta = torch.empty(2 * b, dtype=torch.float32, device=gamma0.device)
     rc = lib.lda_fixed_point(
         token_ids.data_ptr(), counts.data_ptr(), eb.data_ptr(),
-        gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(), iters.data_ptr(),
-        b, l, k, float(alpha0), float(tol), max(int(max_iters), 1), block_b,
-        _stream(gamma0))
+        gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(), delta.data_ptr(),
+        iters.data_ptr(), b, l, k, float(alpha0), float(tol),
+        max(int(max_iters), 1), block_b, _stream(gamma0))
     build.check(rc, "lda_fixed_point")
     LAUNCHES["fixed_point"] += 1
     return gamma, et, iters

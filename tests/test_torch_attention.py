@@ -4,6 +4,8 @@ kernel (interpret mode), its ``flash_mha`` and its oracle ``mha_ref`` on
 the same numpy inputs, at ``repro``'s own bars (``tests/
 test_extensions.py``): 2e-5 in fp32, 3e-2 in bf16.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ import torch
 from repro.kernels import ops as j_ops
 from repro.kernels import ref as j_ref
 from repro.kernels.flash_attention import flash_attention as j_flash
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 
@@ -146,3 +148,92 @@ def test_flash_attention_plain_masks_keys_past_kv_len():
     # every query sees the first 50 keys only
     want = ref.mha_ref(_t(q), _t(k[:, :50]), _t(v[:, :50]), causal=False)
     _close(got, want, 2e-5)
+
+
+# K9's card tests (tests/test_torch_gpu.py): (S, hd, rep, kv_len), BH = 4·rep
+CARD_SHAPES = [(256, 128, 4, None), (70, 64, 1, None), (256, 256, 2, 200),
+               (128, 40, 1, 100)]
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3   # the card tests' bf16 bar
+
+
+def _kernel_key_tile(hd):
+    """Keys per tile of K9's bf16 body for head width hd, read from the
+    kernel's source (its template widths 64, 128, 256 and ``Cfg::BK``), so
+    that the emulation follows the kernel's tiling."""
+    src = build.ATTENTION_SOURCE.read_text()
+    cut, small, large = map(int, re.search(
+        r"BK = D <= (\d+) \? (\d+) : (\d+);", src).groups())
+    width = next(d for d in (64, 128, 256) if hd <= d)
+    return small if width <= cut else large
+
+
+def _tensor_core_arithmetic(q, k, v, causal, kv_len, split):
+    """K9's bf16 body in plain torch: fp32 scores of the bf16 inputs, the
+    online softmax over the kernel's key tiles in log2 units, P from fp32
+    exponentials entering P·V as bf16 — as P_hi + P_lo (P_lo = bf16(P −
+    P_hi)) with ``split``, as one bf16 P without — the products and the row
+    sum in fp32, the output rounded to bf16. This checks the design's
+    numerics on the CPU; K9 itself is held to the same bar by the card
+    tests (tests/test_torch_gpu.py)."""
+    bh, s, hd = q.shape
+    rep = bh // k.shape[0]
+    bk = _kernel_key_tile(hd)
+    log2e = 1.4426950408889634
+    qf = q.float()
+    kf = k.float().repeat_interleave(rep, 0)
+    vf = v.float().repeat_interleave(rep, 0)
+    m = torch.full((bh, s, 1), -1e30)
+    l = torch.zeros((bh, s, 1))
+    o = torch.zeros((bh, s, hd))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        cols = torch.arange(k0, min(k0 + bk, s))[None, :]
+        keep = cols < kv_len
+        if causal:
+            keep = keep & (rows >= cols)
+        sc = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + bk]) * (
+            hd ** -0.5 * log2e)
+        sc = torch.where(keep, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr, p = torch.exp2(m - m_new), torch.exp2(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vf[:, k0:k0 + bk]
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vf[:, k0:k0 + bk]
+        o, m = o * corr + pv, m_new
+    return (o / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+def _card_inputs(s, hd, rep, seed):
+    rng = np.random.default_rng(seed)
+    bh = 4 * rep
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (n, s, hd))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for n in (bh, bh // rep, bh // rep))
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,hd,rep,kv_len", CARD_SHAPES)
+def test_split_p_arithmetic_meets_the_card_bar(s, hd, rep, kv_len, causal):
+    """P·V as two bf16 products (P_hi + P_lo, fp32 sums) stays within the
+    card tests' bf16 bar of the fp32-math twin at every card test shape."""
+    q, k, v = _card_inputs(s, hd, rep, s + hd)
+    kv_len = s if kv_len is None else kv_len
+    got = _tensor_core_arithmetic(q, k, v, causal, kv_len, split=True)
+    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("s,hd,rep,kv_len", CARD_SHAPES)
+def test_single_bf16_p_misses_the_card_bar(s, hd, rep, kv_len):
+    """One bf16 P (what a plain bf16 P·V would do) misses the same bar at
+    the causal card shapes: the reason K9 splits P."""
+    q, k, v = _card_inputs(s, hd, rep, s + hd)
+    kv_len = s if kv_len is None else kv_len
+    got = _tensor_core_arithmetic(q, k, v, True, kv_len, split=False)
+    want = flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+    assert not torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
+                              atol=BF16_ATOL)

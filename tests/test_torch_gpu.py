@@ -73,6 +73,73 @@ def test_fixed_point_kernel_matches_twin(path_inputs, start):
         assert len(set(it.tolist())) >= 2, it
 
 
+def test_fixed_point_kernel_is_deterministic(path_inputs):
+    """Two launches of K1 on the same inputs give the same bits: γ, Eθ and
+    the tile sweeps (each document's warps sum in a fixed order, every block
+    takes the tiles' stop decisions from the same slots in the same order).
+    Warm starts on the even tiles make the tiles stop at different sweeps."""
+    ids, cnts, eb = path_inputs
+    cold = torch.full((B, K), 1.5, device=eb.device)
+    near = lda_estep.estep_fixed_point_plain(ids, cnts, eb, cold, 0.5, 0.0,
+                                             30)[0]
+    even = (torch.arange(B, device=eb.device) // 128) % 2 == 0
+    gamma0 = torch.where(even[:, None], near, cold).contiguous()
+    args = (ids, cnts, eb, gamma0, 0.5, 0.028, 60)
+    first = lda_estep.estep_fixed_point(*args)
+    second = lda_estep.estep_fixed_point(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    assert len(set(first[2].tolist())) >= 2, first[2]
+
+
+def test_fixed_point_kernel_loops_over_the_grid(path_inputs):
+    """K1 at B = 4,100 (no multiple of 128: a last tile of 4 rows), more
+    documents than the co-resident grid holds at once, so each block walks
+    several: the same bars as at B = 1,024."""
+    from repro_torch.kernels import build
+    ids, cnts, eb = path_inputs
+    b = 4100
+    rows = torch.arange(b, device=eb.device) % B
+    big_ids, big_cnts = ids[rows].contiguous(), cnts[rows].contiguous()
+    blocks = build.load().lda_fixed_point_blocks(b, L, K, 128)
+    assert 0 < blocks * 2 < b   # 4 warps per document at L = 163, 8 a block
+    gamma0 = (1.0 + torch.rand((b, K), device=eb.device,
+                               generator=torch.Generator(eb.device)
+                               .manual_seed(7))).contiguous()
+    args = (big_ids, big_cnts, eb, gamma0, 0.5, 0.03, 25)
+    g, et, it = lda_estep.estep_fixed_point(*args)
+    pg, pet, pit = lda_estep.estep_fixed_point_plain(*args)
+    torch.cuda.synchronize()
+    assert it.shape == (33,)
+    assert int((it - pit).abs().max()) <= 1
+    torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
+    same = (it == pit).repeat_interleave(128)[:b]
+    torch.testing.assert_close(et[same], pet[same], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(et, pet, rtol=2e-3, atol=2e-3)
+
+
+def test_fixed_point_kernel_between_batch_sizes(path_inputs):
+    """K1 at B = 1,024, then a smaller last batch (one tile), then B =
+    1,024 again, as an epoch's batches come: each launch sizes its grid
+    and shared memory for its own B, and the third gives the first's
+    bits."""
+    ids, cnts, eb = path_inputs
+    gamma0 = torch.full((B, K), 1.5, device=eb.device)
+    args = (ids, cnts, eb, gamma0, 0.5, 1e-3, 60)
+    first = lda_estep.estep_fixed_point(*args)
+    small = (ids[:46].contiguous(), cnts[:46].contiguous(), eb,
+             gamma0[:46].contiguous(), 0.5, 1e-3, 60)
+    g, et, it = lda_estep.estep_fixed_point(*small)
+    pg, pet, pit = lda_estep.estep_fixed_point_plain(*small)
+    third = lda_estep.estep_fixed_point(*args)
+    torch.cuda.synchronize()
+    assert int((it - pit).abs().max()) <= 1
+    torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
+    for x, y in zip(first, third):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("quantize", [False, True])
 def test_token_pi_kernel_matches_twin(path_inputs, quantize):
     ids, cnts, eb = path_inputs
@@ -292,6 +359,7 @@ def test_memo_delta_onehot_kernel_matches_twin_and_k2(cuda, k):
     (70, 64, 1, None),       # one ragged 64-row tile past the first
     (256, 256, 2, 200),      # the widest head; padded keys masked
     (128, 40, 1, 100),       # a head width that is no multiple of 32
+    (96, 36, 2, 90),         # no multiple of 8: bf16 pads it to 40
 ])
 def test_flash_attention_kernel_matches_twin(cuda, dtype, causal, s, hd, rep,
                                              kv_len):
@@ -311,3 +379,60 @@ def test_flash_attention_kernel_matches_twin(cuda, dtype, causal, s, hd, rep,
     rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-3)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("hd", [128, 36])
+def test_flash_attention_bf16_kernel_on_unaligned_inputs(cuda, hd):
+    """K9 bf16 on contiguous q, k, v whose bases are not 16-byte aligned
+    (views one element into a larger buffer): the wrapper copies them for
+    the tensor maps (and pads hd = 36 to 40); the bf16 bar as above."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(cuda).manual_seed(hd)
+
+    def unaligned(*shape):
+        n = shape[0] * shape[1] * shape[2]
+        buf = torch.randn(n + 1, generator=gen, device=cuda)
+        t = buf.to(torch.bfloat16)[1:].view(shape)
+        assert t.is_contiguous() and t.data_ptr() % 16
+        return t
+
+    q, k, v = unaligned(8, 128, hd), unaligned(2, 128, hd), \
+        unaligned(2, 128, hd)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+
+
+def _qwen_heads(cuda, dtype=torch.bfloat16, s=4096):
+    """Qwen2.5-3B's attention widths (16 query heads, 2 KV heads, hd = 128)
+    for one sequence of S tokens, heads flattened."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    q = torch.randn((16, s, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, s, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, s, 128), generator=gen, device=cuda).to(dtype)
+    return q, k, v
+
+
+def test_flash_attention_bf16_kernel_is_deterministic(cuda):
+    """Two launches of K9's bf16 body give the same bits (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qwen_heads(cuda, s=1024)
+    a = fa.flash_attention(q, k, v, causal=True)
+    b = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_kernel_at_qwen_length(cuda):
+    """K9 bf16, causal, S = 4,096 at Qwen2.5-3B's widths (GQA 16 / 2),
+    against its twin at the bf16 bar (rtol 2^-7, atol 1e-3)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qwen_heads(cuda)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
