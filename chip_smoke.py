@@ -9,7 +9,9 @@ path first:
   2. build   — nvcc builds the kernels from src/repro_torch/kernels/csrc
   3. kernels — each kernel against its plain twin at the path's shapes
                (Arxiv: V = 141,927, K = 100, B = 1024), then timed; K1
-               also gives the same bits on two launches
+               and K3 also give the same bits on two launches; K3 again
+               with one id in every document, its segment lengths, its
+               preparation's time and the host syncs of one call
   4. serve   — γ for 1,024 held-out documents through the CUDA backend,
                against the gather backend
   5. train   — LDAEngine IVI on an Arxiv-shaped corpus (16,430 documents),
@@ -19,10 +21,13 @@ path first:
                and memo warm starts, where tiles stop at different sweeps,
                and the same bits on two launches
   7. profile — torch.profiler over a few more updates: device time by
-               operation and the device's idle share
+               operation, the device's idle share, and host time by
+               operation
 then the flat CSR token-stream path, on the same corpus:
   8. kernels_csr — the CSR kernels against their twins on the first flat
-               batch (B = 1024 documents in a 131,072-slot stream), timed
+               batch (B = 1024 documents in a 131,072-slot stream), timed;
+               K4 also gives the same bits on two launches, and its warps
+               per document, grid and µs per sweep
   9. serve_csr — γ for 1,024 held-out documents packed as one flat batch,
                through the CUDA backend against the plain flat reference
  10. train_csr — LDAEngine IVI over a CorpusDocStream in the CSR layout,
@@ -143,6 +148,26 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Mean device time per call of ``fn`` of the CUDA kernels whose name
+    holds ``kernel``, by torch.profiler over ``reps`` calls after one
+    warm-up: the kernel alone, where a wrapper's host work may outlast it
+    and hold back back-to-back calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key)
+    check(total > 0, f"kernel_ms: no device time for {kernel}")
+    return total / 1e3 / reps
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -305,20 +330,27 @@ def phase_kernels(device, spec, train, topics, batch, timer):
     flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
     pi_new = pi.reshape(-1, k)
     pi_old = lda_estep.token_pi(ids, cnts, eb, pet).reshape(-1, k)
-    s1 = lda_estep.segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v)
-    s2 = lda_estep.segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v)
-    check(all(torch.equal(x, y) for x, y in zip(s1, s2)),
-          "segment_scatter: two launches differ (not deterministic)")
-    err = 0.0
-    for got, p in zip(s1, (pi_new, pi_old)):
-        want = torch.zeros((v, k), dtype=torch.float64, device=device)
-        want.index_add_(0, flat_ids.long(), flat_cnts[:, None].double()
-                        * p.double())
-        err = max(err, float((got.double() - want).abs().max()))
-        check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-5),
-              f"segment_scatter: off the fp64 sum by {err}")
+    err = check_segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v, "path")
+    # one frequent id in every document: a 1,024-row segment, split over
+    # a block's warps
+    skew_ids = ids.clone()
+    skew_ids[:, 1:][skew_ids[:, 1:] == 7] = 8
+    skew_ids[:, 0] = 7
+    skew_ids = skew_ids.reshape(-1)
+    skew_err = check_segment_scatter(skew_ids, flat_cnts, pi_new, pi_old, v,
+                                     "one id in every document")
     idx64 = flat_ids.long()
-    segments = lda_estep.scatter_segments(flat_ids, flat_cnts)
+    segments = lda_estep.scatter_segments(flat_ids, flat_cnts, v)
+    seg_len = segments[1][1:] - segments[1][:-1]
+    seg_len = seg_len[seg_len > 0].double()
+    syncs = host_syncs(lambda: lda_estep.segment_scatter(
+        flat_ids, flat_cnts, pi_new, pi_old, v))
+    check(syncs == 0, f"segment_scatter: {syncs} host syncs in one call")
+    # the counter sees syncs where there are some: the twin's preparation
+    # (nonzero, unique_consecutive) makes them
+    plain_syncs = host_syncs(lambda: lda_estep.scatter_segments_plain(
+        flat_ids, flat_cnts))
+    check(plain_syncs > 0, "host_syncs: the twin's preparation showed none")
 
     def library():
         a = torch.zeros((v, k), device=device).index_add_(
@@ -329,13 +361,21 @@ def phase_kernels(device, spec, train, topics, batch, timer):
 
     bms, by = bound_ms(live * 8 + 2 * live * k * 4 + 2 * v * k * 4,
                        4.0 * live * k)
+    skew_segments = lda_estep.scatter_segments(skew_ids, flat_cnts, v)
     out["segment_scatter"] = {
-        "max_abs_err": err, "tol": "rtol=atol=1e-5 vs fp64; bitwise "
-        "equal across launches", "deterministic": True,
-        # the launch on prepared segments (with its two zeroed outputs);
-        # the wrapper adds the index preparation, which syncs the host
+        "max_abs_err": err, "max_abs_err_skewed": skew_err,
+        "tol": "rtol=atol=1e-5 vs fp64; bitwise equal across launches; "
+               "also with one id in every document", "deterministic": True,
+        # the launch on prepared segments (it writes every output row); the
+        # wrapper adds the fixed-size preparation (sort_ms)
         "ms": timer(lambda: lda_estep.segment_scatter_prepared(
             segments, flat_cnts, pi_new, pi_old, v), 20),
+        "kernel_ms": kernel_ms(lambda: lda_estep.segment_scatter_prepared(
+            segments, flat_cnts, pi_new, pi_old, v), "segment_scatter_kernel"),
+        "ms_skewed": timer(lambda: lda_estep.segment_scatter_prepared(
+            skew_segments, flat_cnts, pi_new, pi_old, v), 20),
+        "sort_ms": timer(lambda: lda_estep.scatter_segments(
+            flat_ids, flat_cnts, v), 20),
         "wrapper_ms": timer(lambda: lda_estep.segment_scatter(
             flat_ids, flat_cnts, pi_new, pi_old, v), 20),
         "plain_ms": timer(lambda: lda_estep.segment_scatter_plain(
@@ -348,8 +388,56 @@ def phase_kernels(device, spec, train, topics, batch, timer):
           "kernels": out,
           # the blocks of K1's cooperative grid at this shape
           "fixed_point_grid_blocks": build.load().lda_fixed_point_blocks(
-              b, l, k, 128)})
+              b, l, k, 128),
+          # K3's rows per live id, and the host syncs of one wrapper call
+          # (torch's sync debug mode) beside the twin's preparation's
+          "segment_scatter": {"segment_len_max": int(seg_len.max()),
+                              "segment_len_p99": float(torch.quantile(
+                                  seg_len, 0.99)),
+                              "segments": int(seg_len.numel()),
+                              "host_syncs": syncs,
+                              "host_syncs_plain_preparation": plain_syncs}})
     return out
+
+
+def check_segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v, label):
+    """K3 against an fp64 ``index_add_`` at rtol = atol = 1e-5, and the same
+    bits on a second launch. Returns the largest error."""
+    import torch
+    from repro_torch.kernels import lda_estep
+    k = pi_new.shape[1]
+    s1 = lda_estep.segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v)
+    s2 = lda_estep.segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v)
+    check(all(torch.equal(x, y) for x, y in zip(s1, s2)),
+          f"segment_scatter ({label}): two launches differ")
+    err = 0.0
+    for got, p in zip(s1, (pi_new, pi_old)):
+        want = torch.zeros((v, k), dtype=torch.float64, device=p.device)
+        want.index_add_(0, flat_ids.long(), flat_cnts[:, None].double()
+                        * p.double())
+        err = max(err, float((got.double() - want).abs().max()))
+        check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-5),
+              f"segment_scatter ({label}): off the fp64 sum by {err}")
+    return err
+
+
+def host_syncs(fn):
+    """Host syncs in one call of ``fn``: torch's sync debug mode "warn"
+    reports each synchronizing CUDA operation as a warning ("called a
+    synchronizing CUDA operation"; setting the mode may warn too, that it
+    is a prototype)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def phase_serve(device, spec, test, topics, batch, sync):
@@ -528,7 +616,8 @@ def phase_fixed_point_warm(eng, kernels, timer, max_batches=4):
 def phase_profile(step, updates=4, phase="profile"):
     """Where one update's time goes: ``torch.profiler`` over ``updates``
     more updates (``step()`` runs one, after every check above), device
-    time by operation and the device's idle share of the wall time."""
+    time by operation, the device's idle share of the wall time, and the
+    host's time by operation (its own CPU time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -548,11 +637,17 @@ def phase_profile(step, updates=4, phase="profile"):
                   and e.self_device_time_total > 0),
                  key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in ops)
+    # where the host's time goes: operations by their own CPU time
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda r: -r[1])
     emit({"phase": phase, "updates": updates, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
           "top_device_ms": [{"op": k[:80], "ms": ms, "count": n}
-                            for k, ms, n in ops[:12]]})
+                            for k, ms, n in ops[:12]],
+          "top_host_ms": [{"op": k[:80], "ms": ms, "count": n}
+                          for k, ms, n in host[:12]]})
 
 
 # ---------------------------------------------------------------------------
@@ -580,14 +675,18 @@ def flat_tensors(cb, device):
 
 def check_fixed_point_csr(args, label):
     """K4 against its plain twin on one set of inputs: the same batch-wide
-    sweep count, γ at 2e-3, Eθ at rtol 1e-4 / atol 1e-6. Returns the
-    errors, the sweeps and the bound for this run's sweeps."""
+    sweep count, γ at 2e-3, Eθ at rtol 1e-4 / atol 1e-6; a second launch
+    must give the same bits. Returns the errors, the sweeps and the bound
+    for this run's sweeps."""
     import torch
     from repro_torch.kernels import lda_estep
 
     ids, cnts, segs, eb, gamma0 = args[:5]
     b, k = gamma0.shape
     g, et, it = lda_estep.estep_fixed_point_csr(*args)
+    again = lda_estep.estep_fixed_point_csr(*args)
+    check(all(torch.equal(x, y) for x, y in zip((g, et, it), again)),
+          f"fixed_point_csr ({label}): two launches differ")
     pg, pet, pit = lda_estep.estep_fixed_point_csr_plain(*args)
     sweeps = int(it[0])
     check(sweeps == int(pit[0]),
@@ -608,8 +707,21 @@ def check_fixed_point_csr(args, label):
             "tol": "γ rtol=atol=2e-3; Eθ rtol=1e-4 atol=1e-6; the same "
                    "batch-wide sweep count",
             "sweeps": sweeps, "live_tokens": live, "distinct_ids": distinct,
+            "bit_equal_two_launches": True,
             "bound_ms": bms, "bound_by": by, "_etheta": et,
             "_etheta_plain": pet}
+
+
+def csr_grid(b, t, k, ms, sweeps):
+    """K4's warps per document (from ceil(T / B)), the blocks of its
+    cooperative grid, and its µs per sweep (of the kernel's device
+    time)."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    rows = -(-t // b)
+    return {"warps_per_doc": lib.lda_fixed_point_warps(rows),
+            "grid_blocks": lib.lda_fixed_point_blocks(b, rows, k, b),
+            "us_per_sweep": ms * 1e3 / sweeps}
 
 
 def phase_kernels_csr(device, spec, train, topics, batch, timer):
@@ -644,6 +756,8 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
     distinct = out["fixed_point_csr"]["distinct_ids"]
     out["fixed_point_csr"].update(
         ms=timer(lambda: lda_estep.estep_fixed_point_csr(*args), 10),
+        kernel_ms=kernel_ms(lambda: lda_estep.estep_fixed_point_csr(*args),
+                            "fixed_point_kernel"),
         plain_ms=timer(lambda: lda_estep.estep_fixed_point_csr_plain(*args),
                        2, 1),
         library_ms=None,
@@ -687,12 +801,15 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
         err = max(err, float((got.double() - want).abs().max()))
         check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-5),
               f"memo_delta_csr: S off the fp64 sum by {err}")
+    k4 = out["fixed_point_csr"]
     emit({"phase": "kernels_csr",
           "shape": {"B": b, "T": t, "K": k, "V": v, "live_tokens": live,
                     "distinct_ids": distinct,
                     "longest_doc": int(cb.doc_lengths.max())},
           "memo_delta_csr": {"max_abs_err_vs_fp64": err,
                              "tol": "rtol=atol=1e-5 vs fp64"},
+          "fixed_point_csr_grid": csr_grid(b, t, k, k4["kernel_ms"],
+                                           k4["sweeps"]),
           "kernels": out})
     return out
 
@@ -843,8 +960,13 @@ def phase_fixed_point_csr_warm(eng, kernels, timer):
           f"warm K4 check: the batch ran to the cap ({res['sweeps']} "
           "sweeps), so the stopping rule was not exercised")
     res["ms"] = timer(lambda: lda_estep.estep_fixed_point_csr(*args), 10)
+    res["kernel_ms"] = kernel_ms(
+        lambda: lda_estep.estep_fixed_point_csr(*args), "fixed_point_kernel")
     kernels["fixed_point_csr"]["warm"] = res
-    emit({"phase": "kernels_csr_warm", "fixed_point_csr": res})
+    emit({"phase": "kernels_csr_warm", "fixed_point_csr": res,
+          "fixed_point_csr_grid": csr_grid(
+              gamma0.shape[0], cb.token_budget, gamma0.shape[1],
+              res["kernel_ms"], res["sweeps"])})
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@
 //   K3 segment_scatter_kernel  S = sum cnt * pi into (V, K) at the token ids
 // and three on the flat CSR token stream (documents concatenated, one
 // segment id per token):
-//   K4 csr_fixed_point_kernel  the gamma fixed point, stopped batch-wide
+//   K4 fixed_point_kernel      K1's kernel over each document's range of
+//                              the stream, as one tile: stopped batch-wide
 //   K5 csr_token_pi_kernel     flat pi (T, K)
 //   K3                         unchanged: flat rows are its native input
 // and three of the pre-fusion baseline (one launch per sweep over a dense
@@ -83,86 +84,6 @@ __device__ __forceinline__ void exp_elog_theta(const float (&g)[KPL],
   }
 }
 
-// One sweep of one document row, held across a warp (lane owns topics
-// lane, lane + 32, ...): E[theta] of the row's gamma, then for each live
-// slot (count != 0) of the n slots at ids/cnts, in slot order,
-//   acc += cnt / (sum_k E[theta] * Eφ[id] + 1e-30) * Eφ[id],
-// then gamma = alpha0 + E[theta] * acc, written back to g_row, with the
-// lane's |d gamma| added to dsum. The ids and counts are fetched 32 at a
-// time with one coalesced load; a ballot skips the count-0 slots, and each
-// live slot costs one Eφ row read (K floats, coalesced) and one warp
-// reduction. K4's walk of a document's range of the flat stream.
-template <int KPL>
-__device__ __forceinline__ void row_sweep(float* g_row,
-                                          const int32_t* __restrict__ ids,
-                                          const float* __restrict__ cnts,
-                                          int64_t n,
-                                          const float* __restrict__ eb,
-                                          int K, float alpha0, int lane,
-                                          float& dsum) {
-  float g[KPL], et[KPL], acc[KPL];
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = lane + j * kWarp;
-    g[j] = k < K ? g_row[k] : 0.f;
-    acc[j] = 0.f;
-  }
-  exp_elog_theta<KPL>(g, et, K, lane);
-
-  for (int64_t l0 = 0; l0 < n; l0 += kWarp) {
-    const int64_t mine = l0 + lane;
-    const int32_t my_id = mine < n ? ids[mine] : 0;
-    const float my_cnt = mine < n ? cnts[mine] : 0.f;
-    // count-0 slots (padding) contribute exactly 0: skip them
-    unsigned live = __ballot_sync(0xffffffffu, my_cnt != 0.f);
-    while (live) {
-      const int t = __ffs(live) - 1;
-      live &= live - 1;
-      const float c = __shfl_sync(0xffffffffu, my_cnt, t);
-      const int32_t id = __shfl_sync(0xffffffffu, my_id, t);
-      const float* e_row = eb + static_cast<size_t>(id) * K;
-      float e[KPL];
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int k = lane + j * kWarp;
-        e[j] = k < K ? __ldg(e_row + k) : 0.f;
-        part += et[j] * e[j];
-      }
-      const float ratio = c / (warp_sum(part) + kEps);
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) acc[j] += ratio * e[j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = lane + j * kWarp;
-    if (k < K) {
-      const float g_new = alpha0 + et[j] * acc[j];
-      dsum += fabsf(g_new - g[j]);
-      g_row[k] = g_new;
-    }
-  }
-}
-
-// E[theta] of a final gamma row (the TPU kernels' _finish), across a warp.
-template <int KPL>
-__device__ __forceinline__ void row_etheta(const float* g_row, float* et_row,
-                                           int K, int lane) {
-  float g[KPL], et[KPL];
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = lane + j * kWarp;
-    g[j] = k < K ? g_row[k] : 0.f;
-  }
-  exp_elog_theta<KPL>(g, et, K, lane);
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = lane + j * kWarp;
-    if (k < K) et_row[k] = et[j];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K1: the gamma fixed point.
 //
@@ -173,35 +94,60 @@ __device__ __forceinline__ void row_etheta(const float* g_row, float* et_row,
 // 4*B*V*K.
 //
 // Stopping rule: the TPU kernel's, per tile of block_b documents. A tile
-// stops once the mean |d gamma| over its real rows and K topics is <= tol,
-// or after max_sweeps; iters holds one count per tile.
+// stops once the mean |d gamma| over its rows and K topics is <= tol, or
+// after max_sweeps; iters holds one count per tile.
 //
-// One cooperative launch runs every sweep of every tile. A document's L
-// slots are split over W warps (fp_warps_per_doc: 4 at L = 163), warp p
-// taking slots p, p + W, p + 2W, ... (the padding at a row's end spreads
-// over all W); W and the split depend on the shape alone, so the bits do
-// not depend on the grid. Each warp sums its slots' cnt / (E[theta].Eφ[id]
-// + 1e-30) * Eφ[id] into a K-vector, with the Eφ rows of up to 4 live
-// tokens loaded before their reductions (no serial load -> reduce -> load
-// chain); the W vectors are summed in shared memory in warp order, and the
-// document's first warp writes gamma' = alpha0 + E[theta] * acc, its
-// E[theta] (kept in the E[theta] output between sweeps, so after the last
-// sweep it holds E[theta] of the final gamma) and the row's |d gamma| to
-// the document's slot of `delta`, double-buffered by sweep parity. After a
-// grid sync every block sums each running tile's slots in index order with
-// one fixed butterfly, so every block takes the same stop decision from the
-// same bits; a stopped tile does no more sweeps, and the launch ends when
-// every tile has stopped. Documents loop over the co-resident grid (the
-// wrapper refuses a grid that cannot be launched that way). No atomics.
+// One cooperative launch runs every sweep of every tile. Row d's slots are
+// d*L ... d*L + L - 1 (the padded layout), or [offsets[d], offsets[d + 1])
+// of a flat stream when `offsets` is given (K4). They are split over W
+// warps (fp_warps_per_doc: 4 at L = 163), warp p taking the row's slots
+// p, p + W, p + 2W, ... (the padding at a row's end spreads over all W); W
+// and the split depend on the shape alone, so the bits do not depend on
+// the grid. Each warp sums its slots' cnt / (E[theta].Eφ[id] + 1e-30) *
+// Eφ[id] into a K-vector, with the Eφ rows of up to 4 live tokens loaded
+// before their reductions (no serial load -> reduce -> load chain); the W
+// vectors are summed in shared memory in warp order, and the document's
+// first warp writes gamma' = alpha0 + E[theta] * acc, its E[theta] (kept in
+// the E[theta] output between sweeps, so after the last sweep it holds
+// E[theta] of the final gamma) and the row's |d gamma| to the document's
+// slot of `delta`, double-buffered by sweep parity. After a grid sync every
+// block sums each running tile's slots in fixed 128-row chunks (one warp a
+// chunk, lanes strided over its slots, one butterfly), then the tile's
+// chunk sums in chunk order, so every block takes the same stop decision
+// from the same bits; a stopped tile does no more sweeps, and the launch
+// ends when every tile has stopped. A 128-row tile is one chunk, summed as
+// one warp summed the whole tile before the chunks existed, so K1's
+// outputs are bit-identical to that design's. Documents loop over the
+// co-resident grid (the wrapper refuses a grid that cannot be launched that
+// way). No atomics.
 //
 // Bound: operations (4*K per live token per sweep, plus the digamma series
 // per row); the bytes it must move are the token rows and the distinct Eφ
 // rows, read once. At B = 1024, L = 163 about 4,096 warps are in flight: a
 // sweep costs about a quarter of the longest row's serial walk plus one
 // grid-wide sync.
+//
+// K4: the gamma fixed point over a flat CSR token stream.
+//
+// Replaces _csr_fixed_point_kernel (repro/kernels/lda_estep.py:433). The
+// TPU kernel found each token's document through an iota == segments
+// selector matmul on the MXU; here each document's tokens are a contiguous
+// range of the stream (the wrapper derives the offsets from the segment
+// ids on the device), and K1's kernel runs with those ranges and the whole
+// batch as one tile, so the stop is batch-wide as repro's: the mean
+// |d gamma| over all B rows (rows that own no token included) and K
+// topics. W = fp_warps_per_doc(ceil(T / B)) (4 at T = 131,072, B = 1,024).
+// Bound: operations, as K1 (0.0459 ms for 60 sweeps on the Arxiv-shaped
+// first batch). A single warp walking a document's tokens as a chain of
+// dependent load -> reduce -> FMA steps took ~450 ns a token (4.19 ms cold
+// on an H100); here W warps share a document, each with four tokens'
+// loads in flight, and the stop sum after each grid sync is spread over
+// the block's warps (B / 128 chunks) instead of one warp walking all B
+// slots.
 // ---------------------------------------------------------------------------
 constexpr int kFpThreads = 256;
 constexpr int kFpWarps = kFpThreads / kWarp;
+constexpr int kStopChunk = 128;   // rows per partial sum of the stop test
 
 // Warps per document row of L slots: a power of two, about 48 slots each,
 // at most the block's warps.
@@ -261,10 +207,18 @@ __device__ __forceinline__ void strided_partial(
   }
 }
 
+// Stop-test chunks per tile of block_b rows.
+__host__ __device__ __forceinline__ int fp_chunks_per_tile(int block_b) {
+  return (block_b + kStopChunk - 1) / kStopChunk;
+}
+
+// offsets: nullptr for the padded layout (row d is slots d*L ... d*L + L
+// - 1), else B + 1 range starts into the flat stream (L then only sets W).
 template <int KPL>
 __global__ void __launch_bounds__(kFpThreads, 4)
     fixed_point_kernel(const int32_t* __restrict__ ids,
                        const float* __restrict__ cnts,
+                       const int64_t* __restrict__ offsets,
                        const float* __restrict__ eb,
                        const float* __restrict__ gamma0,
                        float* __restrict__ gamma, float* __restrict__ et_out,
@@ -273,15 +227,18 @@ __global__ void __launch_bounds__(kFpThreads, 4)
                        int max_sweeps, int block_b, int W) {
   constexpr int KP = KPL * kWarp;
   cg::grid_group grid = cg::this_grid();
+  const int nb = (B + block_b - 1) / block_b;
+  const int cpt = fp_chunks_per_tile(block_b);
+  const int nchunks = nb * cpt;
   extern __shared__ float fp_smem[];
-  float* part = fp_smem;                                    // [warps][KP]
-  int* stop = reinterpret_cast<int*>(part + kFpWarps * KP);  // [tiles]
+  float* part = fp_smem;                                   // [warps][KP]
+  float* csum = part + kFpWarps * KP;                      // [nb * cpt]
+  int* stop = reinterpret_cast<int*>(csum + nchunks);      // [nb]
   __shared__ int all_done;
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
   const int dpb = kFpWarps / W;       // documents per block per round
   const int grp = warp / W, p = warp % W;
-  const int nb = (B + block_b - 1) / block_b;
   const int64_t per_round = static_cast<int64_t>(gridDim.x) * dpb;
   const int rounds = static_cast<int>((B + per_round - 1) / per_round);
   auto doc = [&](int r) {
@@ -325,8 +282,11 @@ __global__ void __launch_bounds__(kFpThreads, 4)
           et[j] = k < K ? et_out[d * K + k] : 0.f;
           acc[j] = 0.f;
         }
-        strided_partial<KPL>(ids + d * L, cnts + d * L, L, p, W, eb, K, et,
-                             acc, lane);
+        const int64_t lo = offsets != nullptr ? offsets[d] : d * L;
+        const int n = offsets != nullptr
+                          ? static_cast<int>(offsets[d + 1] - lo) : L;
+        strided_partial<KPL>(ids + lo, cnts + lo, n, p, W, eb, K, et, acc,
+                             lane);
 #pragma unroll
         for (int j = 0; j < KPL; ++j) part[warp * KP + lane + j * kWarp] = acc[j];
       }
@@ -359,14 +319,26 @@ __global__ void __launch_bounds__(kFpThreads, 4)
     __threadfence();
     grid.sync();
     // every block decides every running tile, from the same slots in the
-    // same order (read past its L1: other SMs wrote them)
-    for (int t = warp; t < nb; t += kFpWarps) {
+    // same order (read past its L1: other SMs wrote them): 128-row chunk
+    // sums, one warp a chunk, then each tile's chunks in chunk order
+    for (int c = warp; c < nchunks; c += kFpWarps) {
+      const int t = c / cpt;
       if (stop[t] != 0) continue;
-      const int lo = t * block_b, rows = min(block_b, B - lo);
-      float total = 0.f;
-      for (int i = lane; i < rows; i += kWarp) total += __ldcg(slots + lo + i);
-      total = warp_sum(total);
-      if (lane == 0 && total / static_cast<float>(rows * K) <= tol) {
+      const int lo = t * block_b + (c % cpt) * kStopChunk;
+      const int hi = min(min(t * block_b + block_b, B), lo + kStopChunk);
+      float s = 0.f;
+      for (int i = lo + lane; i < hi; i += kWarp) s += __ldcg(slots + i);
+      s = warp_sum(s);
+      if (lane == 0) csum[c] = s;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < nb; t += kFpThreads) {
+      if (stop[t] != 0) continue;
+      const int rows = min(block_b, B - t * block_b);
+      const int n = fp_chunks_per_tile(rows);
+      float total = csum[t * cpt];
+      for (int c = 1; c < n; ++c) total += csum[t * cpt + c];
+      if (total / static_cast<float>(static_cast<int64_t>(rows) * K) <= tol) {
         stop[t] = sweep + 1;
       }
     }
@@ -441,139 +413,236 @@ __global__ void __launch_bounds__(256)
 //
 // Replaces _segment_scatter_kernel (repro/kernels/lda_estep.py:227).
 // S_new[v] = sum cnt * pi_new and S_old[v] = sum cnt * pi_old over the
-// token rows whose id is v. The wrapper drops count-0 rows, sorts the rest
-// stably by id and builds segment offsets; here one warp owns one id's
-// segment and sums its rows in sorted order, so the result is bitwise
-// deterministic (no fp32 atomics): resume bit-equality and the memo
-// invariant need a fixed summation order. Rows of S no token maps to are
-// zeroed by the wrapper.
+// token rows whose id is v. The wrapper segments the rows with fixed-size
+// device ops and no host sync: every row gets the key id (V where its
+// count is 0), one stable sort of all N keys gives `order`, and a sorted
+// search gives seg_off (V + 1): id v's rows are order[seg_off[v] ...
+// seg_off[v + 1]), in row order, empty for an id no live row carries (and
+// ids outside [0, V) fall outside every range, as the TPU's one-hot
+// selects no row for them).
+//
+// The kernel covers all V ids and writes every output row once, zeros for
+// an empty id, so the wrapper fills nothing. Each warp owns kScatterIds
+// consecutive ids, whose rows are one contiguous run of `order`: it loads
+// their offsets with one coalesced load, then walks the run as one stream,
+// 32 order entries and counts at a time, and stores an id's sums when the
+// stream passes its last row (the lane owns topics lane, lane + 32, ...
+// in registers; each id's rows are summed from zero in row order). The pi
+// rows of a batch of 32 are prefetched into L2 as soon as their order
+// entries arrive, so the row-by-row loads that follow wait on L2, not on
+// device memory: the kernel is bound by the latency of dependent loads
+// (offsets -> order -> pi), and this pays device-memory latency about
+// once per 32 rows. Eight ids a warp (about seven live rows at the Arxiv
+// shape, half the ids owning none) keep many short streams in flight; a
+// row at a time and 64 registers (4 blocks an SM) keep the body free of
+// spills. A segment of more than kLongSegment rows (a frequent word in
+// many documents: up to B rows of a padded batch) is left out of the
+// stream and summed by the whole block afterwards: cut into kScatterWarps
+// contiguous parts of ceil(n / 8) rows, one a warp, the parts added in
+// warp order in shared memory. The cut depends on the length alone, so
+// every launch gives the same bits, with no fp32 atomics: resume
+// bit-equality and the memo invariant need a fixed summation order.
 //
 // Bound: bytes: the live pi rows it reads (K floats each, coalesced) and
-// the (V, K) outputs the wrapper zero-fills. The TPU's iota == ids selector
-// matmul is replaced by the sort, so no (block_v, T) selector exists.
+// the 2 * V * K floats it writes once (0.0624 ms on the Arxiv-shaped
+// padded batch: 118,318 live rows, V = 141,927, K = 100). The TPU's
+// iota == ids selector matmul is replaced by the sort, so no (block_v, T)
+// selector exists.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
+constexpr int kScatterThreads = 256;
+constexpr int kScatterWarps = kScatterThreads / kWarp;
+constexpr int kScatterIds = 8;   // consecutive ids a warp owns
+constexpr int64_t kLongSegment = 32;
+
+template <int KPL>
+__device__ __forceinline__ void store_row(float* out, const float (&v)[KPL],
+                                          int K, int lane) {
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int k = lane + j * kWarp;
+    if (k < K) out[k] = v[j];
+  }
+}
+
+// Ask L2 for the K floats of a row (every 128-byte line they touch).
+__device__ __forceinline__ void prefetch_row(const float* row, int K) {
+  const char* p = reinterpret_cast<const char*>(row);
+  const int bytes = K * static_cast<int>(sizeof(float));
+  for (int o = 0; o < bytes; o += 128) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + o));
+  }
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p + bytes - 1));
+}
+
+// Row i < n of the sorted rows starting at order + i0: its index and count
+// into the lane's registers, and its pi rows asked of L2.
+__device__ __forceinline__ void fetch_rows(
+    const int64_t* __restrict__ order, const float* __restrict__ cnts,
+    const float* __restrict__ pi_new, const float* __restrict__ pi_old,
+    int64_t i0, int64_t n, int K, int lane, int64_t& row, float& cnt) {
+  row = 0;
+  cnt = 0.f;
+  if (i0 + lane < n) {
+    row = order[i0 + lane];
+    prefetch_row(pi_new + row * K, K);
+    if (pi_old != nullptr) prefetch_row(pi_old + row * K, K);
+    cnt = __ldg(cnts + row);
+  }
+}
+
+// pi_new and pi_old of one row into the lane's registers (zeros past K,
+// and for pi_old when there is none).
+template <int KPL>
+__device__ __forceinline__ void load_pi_row(
+    const float* __restrict__ pi_new, const float* __restrict__ pi_old,
+    int64_t row, int K, float (&en)[KPL], float (&eo)[KPL], int lane) {
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int k = lane + j * kWarp;
+    en[j] = k < K ? __ldg(pi_new + row * K + k) : 0.f;
+    eo[j] = k < K && pi_old != nullptr ? __ldg(pi_old + row * K + k) : 0.f;
+  }
+}
+
+template <int KPL>
+__device__ __forceinline__ void add_row(float c, const float (&en)[KPL],
+                                        const float (&eo)[KPL],
+                                        float (&acc_new)[KPL],
+                                        float (&acc_old)[KPL]) {
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    acc_new[j] += c * en[j];
+    acc_old[j] += c * eo[j];
+  }
+}
+
+template <int KPL>
+__global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
     segment_scatter_kernel(const int64_t* __restrict__ order,
-                           const int64_t* __restrict__ seg_ids,
-                           const int64_t* __restrict__ seg_off, int64_t nseg,
+                           const int64_t* __restrict__ seg_off, int V,
                            const float* __restrict__ cnts,
                            const float* __restrict__ pi_new,
                            const float* __restrict__ pi_old,
                            float* __restrict__ s_new,
                            float* __restrict__ s_old, int K) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int64_t seg = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x) / kWarp;
-  if (seg >= nseg) return;
-  const int64_t lo = seg_off[seg], hi = seg_off[seg + 1];
-  const size_t out = static_cast<size_t>(seg_ids[seg]) * K;
-  for (int k = lane; k < K; k += kWarp) {
-    float acc_new = 0.f, acc_old = 0.f;
-    for (int64_t i = lo; i < hi; ++i) {
-      const int64_t row = order[i];
-      const float c = cnts[row];
-      acc_new += c * pi_new[row * K + k];
-      if (pi_old != nullptr) acc_old += c * pi_old[row * K + k];
-    }
-    s_new[out + k] = acc_new;
-    if (pi_old != nullptr) s_old[out + k] = acc_old;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4: the gamma fixed point over a flat CSR token stream.
-//
-// Replaces _csr_fixed_point_kernel (repro/kernels/lda_estep.py:433). The
-// TPU kernel found each token's document through an iota == segments
-// selector matmul on the MXU; here each document's tokens are a contiguous
-// range [offsets[d], offsets[d + 1]) of the stream (the wrapper derives the
-// offsets from the segment ids on the device), walked by one warp
-// (row_sweep).
-//
-// Stopping rule: the TPU kernel's, batch-wide. After each sweep the mean
-// |d gamma| over all B rows (rows that own no token included) and K topics
-// is compared with tol; the whole batch stops at <= tol or after
-// max_sweeps. One cooperative launch runs every sweep: warp w of the grid
-// owns documents w, w + W, ... (W warps in the grid, gamma between sweeps
-// in the gamma output, only ever touched by its owner lane); each block
-// writes its partial |d gamma| sum to its slot of `partials`, double
-// buffered by sweep parity, the grid syncs, and every block sums all slots
-// in the same lane-strided order and butterfly, so every block takes the
-// same decision from the same bits. The grid is sized to be co-resident
-// (at most the occupancy limit times the SM count); the wrapper refuses
-// what cannot be launched that way.
-//
-// Bound: operations, as K1 (4*K per live token per sweep plus the digamma
-// series). Every row of the batch is in flight at once (one warp each, 128
-// blocks at B = 1024), so a sweep takes about the longest document's serial
-// token walk plus one grid-wide sync.
-// ---------------------------------------------------------------------------
-constexpr int kCsrThreads = 256;
-constexpr int kCsrWarps = kCsrThreads / kWarp;
-
-template <int KPL>
-__global__ void __launch_bounds__(kCsrThreads)
-    csr_fixed_point_kernel(const int32_t* __restrict__ ids,
-                           const float* __restrict__ cnts,
-                           const int64_t* __restrict__ offsets,
-                           const float* __restrict__ eb,
-                           const float* __restrict__ gamma0,
-                           float* __restrict__ gamma,
-                           float* __restrict__ et_out,
-                           float* __restrict__ partials,
-                           int32_t* __restrict__ iters, int B, int K,
-                           float alpha0, float tol, int max_sweeps) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ float warp_delta[kCsrWarps];
-  __shared__ int done;
+  constexpr int KP = KPL * kWarp;
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ float part[2][kScatterWarps][KP];   // long segments: new, old
+  __shared__ unsigned long_ids[kScatterWarps];   // per warp, bit t: id t
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kCsrWarps + warp;
-  const int nblocks = gridDim.x;
-  const int64_t stride = static_cast<int64_t>(nblocks) * kCsrWarps;
-
-  for (int64_t d = first; d < B; d += stride) {
-    const int64_t off = d * K;
-    for (int k = lane; k < K; k += kWarp) gamma[off + k] = gamma0[off + k];
+  const bool has_old = pi_old != nullptr;
+  const int64_t block_v =
+      static_cast<int64_t>(blockIdx.x) * kScatterWarps * kScatterIds;
+  const int64_t v0 = block_v + warp * kScatterIds;
+  const int nvalid = static_cast<int>(max(
+      static_cast<int64_t>(0), min(static_cast<int64_t>(kScatterIds), V - v0)));
+  // lane t < nvalid: the rows [lo, hi) of id v0 + t
+  int64_t lo = 0, hi = 0;
+  if (lane < nvalid) {
+    lo = seg_off[v0 + lane];
+    hi = seg_off[v0 + lane + 1];
   }
+  const unsigned longs_all = __ballot_sync(kAll, hi - lo > kLongSegment);
+  if (lane == 0) long_ids[warp] = longs_all;
 
-  int sweeps = 0;
-  while (sweeps < max_sweeps) {
-    float dsum = 0.f;
-    for (int64_t d = first; d < B; d += stride) {
-      const int64_t lo = offsets[d];
-      row_sweep<KPL>(gamma + d * K, ids + lo, cnts + lo, offsets[d + 1] - lo,
-                     eb, K, alpha0, lane, dsum);
-    }
-    dsum = warp_sum(dsum);
-    if (lane == 0) warp_delta[warp] = dsum;
-    __syncthreads();
-    float* slots = partials + (sweeps & 1) * nblocks;
-    if (threadIdx.x == 0) {
-      float total = 0.f;
-      for (int w = 0; w < kCsrWarps; ++w) total += warp_delta[w];
-      slots[blockIdx.x] = total;
-      __threadfence();
-    }
-    grid.sync();
-    if (warp == 0) {
-      // every block reads every slot past its L1 (__ldcg) in one order
-      float total = 0.f;
-      for (int i = lane; i < nblocks; i += kWarp) total += __ldcg(slots + i);
-      total = warp_sum(total);
-      if (lane == 0) {
-        done = total / static_cast<float>(static_cast<int64_t>(B) * K) <= tol;
+  float acc_new[KPL], acc_old[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) acc_new[j] = acc_old[j] = 0.f;
+  int t = 0;                                  // the id being summed
+  int64_t t_hi = __shfl_sync(kAll, hi, 0);    // one past its last row
+  // store id t's sums (zeros for an empty id) and move on to id t + 1
+  auto flush = [&]() {
+    store_row<KPL>(s_new + (v0 + t) * K, acc_new, K, lane);
+    if (has_old) store_row<KPL>(s_old + (v0 + t) * K, acc_old, K, lane);
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) acc_new[j] = acc_old[j] = 0.f;
+    ++t;
+    t_hi = __shfl_sync(kAll, hi, t & (kWarp - 1));
+  };
+
+  // the warp's run of rows, long segments left out: [pos, stop) up to the
+  // next long segment, then on past it
+  int64_t pos = __shfl_sync(kAll, lo, 0);
+  unsigned longs = longs_all;
+  while (true) {
+    const int next = longs ? __ffs(longs) - 1 : nvalid;
+    const int64_t stop = next < nvalid
+                             ? __shfl_sync(kAll, lo, next)
+                             : __shfl_sync(kAll, hi, max(nvalid - 1, 0));
+    for (int64_t i0 = pos; i0 < stop; i0 += kWarp) {
+      int64_t my_row;
+      float my_cnt;
+      fetch_rows(order, cnts, pi_new, pi_old, i0, stop, K, lane, my_row,
+                 my_cnt);
+      const int m = static_cast<int>(min(static_cast<int64_t>(kWarp),
+                                         stop - i0));
+      for (int u = 0; u < m; ++u) {
+        float en[KPL], eo[KPL];   // loads first: they fly while ids flush
+        load_pi_row<KPL>(pi_new, pi_old, __shfl_sync(kAll, my_row, u), K, en,
+                         eo, lane);
+        const float c = __shfl_sync(kAll, my_cnt, u);
+        while (t_hi <= i0 + u) flush();   // ids that ended before this row
+        add_row<KPL>(c, en, eo, acc_new, acc_old);
       }
     }
-    ++sweeps;
-    __syncthreads();
-    if (done) break;
+    if (next >= nvalid) break;
+    while (t < next) flush();
+    // id `next` is long: the block sums and stores it below
+    t = next + 1;
+    t_hi = __shfl_sync(kAll, hi, t & (kWarp - 1));
+    pos = __shfl_sync(kAll, hi, next);
+    longs &= longs - 1;
   }
+  while (t < nvalid) flush();
 
-  for (int64_t d = first; d < B; d += stride) {
-    row_etheta<KPL>(gamma + d * K, et_out + d * K, K, lane);
+  // the block's long segments, one after another, each over all its warps
+  __syncthreads();
+  for (int w = 0; w < kScatterWarps; ++w) {
+    for (unsigned m = long_ids[w]; m != 0; m &= m - 1) {   // block-uniform
+      const int64_t v = block_v + w * kScatterIds + (__ffs(m) - 1);
+      const int64_t start = seg_off[v];
+      const int64_t len = seg_off[v + 1] - start;
+      const int64_t per = (len + kScatterWarps - 1) / kScatterWarps;
+      const int64_t a = start + min(len, warp * per);
+      const int64_t b = start + min(len, (warp + 1) * per);
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) acc_new[j] = acc_old[j] = 0.f;
+      for (int64_t i0 = a; i0 < b; i0 += kWarp) {
+        int64_t my_row;
+        float my_cnt;
+        fetch_rows(order, cnts, pi_new, pi_old, i0, b, K, lane, my_row,
+                   my_cnt);
+        const int n = static_cast<int>(min(static_cast<int64_t>(kWarp),
+                                           b - i0));
+        for (int u = 0; u < n; ++u) {
+          float en[KPL], eo[KPL];
+          load_pi_row<KPL>(pi_new, pi_old, __shfl_sync(kAll, my_row, u), K,
+                           en, eo, lane);
+          add_row<KPL>(__shfl_sync(kAll, my_cnt, u), en, eo, acc_new,
+                       acc_old);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        part[0][warp][lane + j * kWarp] = acc_new[j];
+        part[1][warp][lane + j * kWarp] = acc_old[j];
+      }
+      __syncthreads();
+      if (warp < (has_old ? 2 : 1)) {   // warp 0 sums S_new, warp 1 S_old
+        float sum[KPL];
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          sum[j] = part[warp][0][lane + j * kWarp];
+          for (int q = 1; q < kScatterWarps; ++q) {
+            sum[j] += part[warp][q][lane + j * kWarp];
+          }
+        }
+        store_row<KPL>((warp == 0 ? s_new : s_old) + v * K, sum, K, lane);
+      }
+      __syncthreads();   // `part` is refilled by the next long segment
+    }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) iters[0] = sweeps;
 }
 
 // ---------------------------------------------------------------------------
@@ -1034,11 +1103,13 @@ __global__ void __launch_bounds__(256)
   out[e] = s;
 }
 
-// K1's dynamic shared memory: the warps' partial vectors and the tiles'
-// stop counts.
-size_t fp_smem_bytes(int KPL, int nb) {
+// K1's dynamic shared memory: the warps' partial vectors, the stop test's
+// chunk sums and the tiles' stop counts.
+size_t fp_smem_bytes(int KPL, int B, int block_b) {
+  const size_t nb = (B + block_b - 1) / block_b;
   return static_cast<size_t>(kFpWarps) * KPL * kWarp * sizeof(float) +
-         static_cast<size_t>(nb) * sizeof(int);
+         nb * fp_chunks_per_tile(block_b) * sizeof(float) +
+         nb * sizeof(int);
 }
 
 // The co-resident capacity of K1 (blocks per SM times SMs) for a dynamic
@@ -1087,69 +1158,59 @@ template <int KPL>
 cudaError_t fp_grid(int B, int L, int block_b, int* blocks) {
   int capacity = 0;
   const cudaError_t err =
-      fp_capacity<KPL>(fp_smem_bytes(KPL, (B + block_b - 1) / block_b),
-                       &capacity);
+      fp_capacity<KPL>(fp_smem_bytes(KPL, B, block_b), &capacity);
   if (err != cudaSuccess) return err;
   const int dpb = kFpWarps / fp_warps_per_doc(L);
   *blocks = std::max(1, std::min((B + dpb - 1) / dpb, capacity));
   return cudaSuccess;
 }
 
+// K1 (offsets == nullptr) or K4 (L = ceil(T / B), block_b = B).
 template <int KPL>
 cudaError_t launch_fixed_point(const int32_t* ids, const float* cnts,
-                               const float* eb, const float* gamma0,
-                               float* gamma, float* et, float* delta,
-                               int32_t* iters, int B, int L, int K,
-                               float alpha0, float tol, int max_sweeps,
+                               const int64_t* offsets, const float* eb,
+                               const float* gamma0, float* gamma, float* et,
+                               float* delta, int32_t* iters, int B, int L,
+                               int K, float alpha0, float tol, int max_sweeps,
                                int block_b, cudaStream_t stream) {
   int W = fp_warps_per_doc(L), blocks = 0;
   cudaError_t err = fp_grid<KPL>(B, L, block_b, &blocks);
   if (err != cudaSuccess) return err;
-  void* args[] = {&ids, &cnts,  &eb,    &gamma0, &gamma,      &et,
-                  &delta, &iters, &B,   &L,      &K,          &alpha0,
-                  &tol, &max_sweeps, &block_b, &W};
+  void* args[] = {&ids,   &cnts,  &offsets, &eb,     &gamma0,
+                  &gamma, &et,    &delta,   &iters,  &B,
+                  &L,     &K,     &alpha0,  &tol,    &max_sweeps,
+                  &block_b, &W};
   return cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(&fixed_point_kernel<KPL>), dim3(blocks),
-      dim3(kFpThreads), args,
-      fp_smem_bytes(KPL, (B + block_b - 1) / block_b), stream);
+      dim3(kFpThreads), args, fp_smem_bytes(KPL, B, block_b), stream);
 }
 
-// The co-resident grid of K4 for B documents: one warp per document, at
-// most the occupancy limit times the SM count. Returns cudaSuccess and sets
-// *blocks, or the error that forbids a cooperative launch.
-template <int KPL>
-cudaError_t csr_grid(int B, int* blocks) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, csr_fixed_point_kernel<KPL>, kCsrThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int want = (B + kCsrWarps - 1) / kCsrWarps;
-  *blocks = std::max(1, std::min(want, per_sm * sms));
-  return cudaSuccess;
-}
-
-template <int KPL>
-cudaError_t launch_fixed_point_csr(const int32_t* ids, const float* cnts,
-                                   const int64_t* offsets, const float* eb,
-                                   const float* gamma0, float* gamma,
-                                   float* et, float* partials,
-                                   int32_t* iters, int B, int K, float alpha0,
-                                   float tol, int max_sweeps, int blocks,
-                                   cudaStream_t stream) {
-  void* args[] = {&ids,   &cnts,  &offsets, &eb,   &gamma0,
-                  &gamma, &et,    &partials, &iters, &B,
-                  &K,     &alpha0, &tol,     &max_sweeps};
-  return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&csr_fixed_point_kernel<KPL>),
-      dim3(blocks), dim3(kCsrThreads), args, 0, stream);
+// launch_fixed_point for K topics (KPL = ceil(K / 32) of 1 ... 8).
+cudaError_t dispatch_fixed_point(const int32_t* ids, const float* cnts,
+                                 const int64_t* offsets, const float* eb,
+                                 const float* gamma0, float* gamma, float* et,
+                                 float* delta, int32_t* iters, int B, int L,
+                                 int K, float alpha0, float tol,
+                                 int max_sweeps, int block_b,
+                                 cudaStream_t stream) {
+#define LDA_FP_CASE(N)                                                       \
+  case N:                                                                    \
+    return launch_fixed_point<N>(ids, cnts, offsets, eb, gamma0, gamma, et,  \
+                                 delta, iters, B, L, K, alpha0, tol,         \
+                                 max_sweeps, block_b, stream);
+  switch ((K + kWarp - 1) / kWarp) {
+    LDA_FP_CASE(1)
+    LDA_FP_CASE(2)
+    LDA_FP_CASE(3)
+    LDA_FP_CASE(4)
+    LDA_FP_CASE(5)
+    LDA_FP_CASE(6)
+    LDA_FP_CASE(7)
+    LDA_FP_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef LDA_FP_CASE
 }
 
 // K6's V tiles per split for B rows and V columns: about kSweepBlocks
@@ -1212,7 +1273,8 @@ int lda_fixed_point_max_k() { return kMaxKPerLane * kWarp; }
 
 // Blocks of K1's cooperative grid for B documents of L slots and K topics
 // in tiles of block_b, or minus a CUDA error code (lda_fixed_point sizes
-// its own grid the same way; this reports it).
+// its own grid the same way; this reports it). K4's grid is the one for
+// L = ceil(T / B) and block_b = B.
 int lda_fixed_point_blocks(int B, int L, int K, int block_b) {
   cudaGetLastError();
   if (B < 1 || L < 0 || block_b < 1) return -cudaErrorInvalidValue;
@@ -1239,6 +1301,9 @@ int lda_fixed_point_blocks(int B, int L, int K, int block_b) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+// Warps per document of K1 and K4 for rows of L slots (K4: L = ceil(T / B)).
+int lda_fixed_point_warps(int L) { return fp_warps_per_doc(L); }
+
 // delta: 2 * B floats of scratch (the per-document |d gamma| slots).
 int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
                     const float* gamma0, float* gamma, float* et,
@@ -1246,26 +1311,9 @@ int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
                     float alpha0, float tol, int max_sweeps, int block_b,
                     void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kpl = (K + kWarp - 1) / kWarp;
-#define LDA_FP_CASE(N)                                                     \
-  case N:                                                                  \
-    return launch_fixed_point<N>(ids, cnts, eb, gamma0, gamma, et, delta,  \
-                                 iters, B, L, K, alpha0, tol, max_sweeps,  \
-                                 block_b, s);
-  switch (kpl) {
-    LDA_FP_CASE(1)
-    LDA_FP_CASE(2)
-    LDA_FP_CASE(3)
-    LDA_FP_CASE(4)
-    LDA_FP_CASE(5)
-    LDA_FP_CASE(6)
-    LDA_FP_CASE(7)
-    LDA_FP_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef LDA_FP_CASE
+  return dispatch_fixed_point(ids, cnts, nullptr, eb, gamma0, gamma, et,
+                              delta, iters, B, L, K, alpha0, tol, max_sweeps,
+                              block_b, static_cast<cudaStream_t>(stream));
 }
 
 int lda_token_pi(const int32_t* ids, const float* cnts, const float* eb,
@@ -1280,60 +1328,21 @@ int lda_token_pi(const int32_t* ids, const float* cnts, const float* eb,
   return cudaGetLastError();
 }
 
-// Blocks of K4's cooperative grid for B documents of K topics (the size of
-// its `partials` scratch is twice this), or minus a CUDA error code.
-int lda_fixed_point_csr_blocks(int B, int K) {
-  cudaGetLastError();
-  int blocks = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  const int kpl = (K + kWarp - 1) / kWarp;
-#define LDA_CSR_GRID_CASE(N)            \
-  case N:                               \
-    err = csr_grid<N>(B, &blocks);      \
-    break;
-  switch (kpl) {
-    LDA_CSR_GRID_CASE(1)
-    LDA_CSR_GRID_CASE(2)
-    LDA_CSR_GRID_CASE(3)
-    LDA_CSR_GRID_CASE(4)
-    LDA_CSR_GRID_CASE(5)
-    LDA_CSR_GRID_CASE(6)
-    LDA_CSR_GRID_CASE(7)
-    LDA_CSR_GRID_CASE(8)
-    default:
-      break;
-  }
-#undef LDA_CSR_GRID_CASE
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
-}
-
+// K4 over a T-slot stream: document d's tokens are [offsets[d],
+// offsets[d + 1]); the whole batch is one stopping tile, iters one count;
+// delta: 2 * B floats of scratch.
 int lda_fixed_point_csr(const int32_t* ids, const float* cnts,
                         const int64_t* offsets, const float* eb,
                         const float* gamma0, float* gamma, float* et,
-                        float* partials, int32_t* iters, int B, int K,
-                        float alpha0, float tol, int max_sweeps, int blocks,
+                        float* delta, int32_t* iters, int B, int64_t T,
+                        int K, float alpha0, float tol, int max_sweeps,
                         void* stream) {
   cudaGetLastError();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kpl = (K + kWarp - 1) / kWarp;
-#define LDA_CSR_CASE(N)                                                      \
-  case N:                                                                    \
-    return launch_fixed_point_csr<N>(ids, cnts, offsets, eb, gamma0, gamma,  \
-                                     et, partials, iters, B, K, alpha0, tol, \
-                                     max_sweeps, blocks, s);
-  switch (kpl) {
-    LDA_CSR_CASE(1)
-    LDA_CSR_CASE(2)
-    LDA_CSR_CASE(3)
-    LDA_CSR_CASE(4)
-    LDA_CSR_CASE(5)
-    LDA_CSR_CASE(6)
-    LDA_CSR_CASE(7)
-    LDA_CSR_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef LDA_CSR_CASE
+  if (B < 1 || T < 0) return cudaErrorInvalidValue;
+  const int L = static_cast<int>(std::min<int64_t>((T + B - 1) / B, 1 << 30));
+  return dispatch_fixed_point(ids, cnts, offsets, eb, gamma0, gamma, et,
+                              delta, iters, B, L, K, alpha0, tol, max_sweeps,
+                              B, static_cast<cudaStream_t>(stream));
 }
 
 int lda_token_pi_csr(const int32_t* ids, const float* cnts,
@@ -1349,18 +1358,37 @@ int lda_token_pi_csr(const int32_t* ids, const float* cnts,
   return cudaGetLastError();
 }
 
-int lda_segment_scatter(const int64_t* order, const int64_t* seg_ids,
-                        const int64_t* seg_off, int64_t nseg,
+// K3 over all V ids: seg_off (V + 1) cuts `order`; writes every row of
+// s_new (and of s_old when pi_old is given). K is at most
+// lda_fixed_point_max_k().
+int lda_segment_scatter(const int64_t* order, const int64_t* seg_off, int V,
                         const float* cnts, const float* pi_new,
                         const float* pi_old, float* s_new, float* s_old,
                         int K, void* stream) {
   cudaGetLastError();
-  constexpr int threads = 256;
-  const int64_t blocks = (nseg * kWarp + threads - 1) / threads;
-  if (blocks == 0) return cudaSuccess;
-  segment_scatter_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      order, seg_ids, seg_off, nseg, cnts, pi_new, pi_old, s_new, s_old, K);
+  if (V < 0) return cudaErrorInvalidValue;
+  if (V == 0) return cudaSuccess;
+  constexpr int per_block = kScatterWarps * kScatterIds;
+  const unsigned blocks = (V + per_block - 1) / per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LDA_SCATTER_CASE(N)                                                  \
+  case N:                                                                    \
+    segment_scatter_kernel<N><<<blocks, kScatterThreads, 0, s>>>(            \
+        order, seg_off, V, cnts, pi_new, pi_old, s_new, s_old, K);           \
+    break;
+  switch ((K + kWarp - 1) / kWarp) {
+    LDA_SCATTER_CASE(1)
+    LDA_SCATTER_CASE(2)
+    LDA_SCATTER_CASE(3)
+    LDA_SCATTER_CASE(4)
+    LDA_SCATTER_CASE(5)
+    LDA_SCATTER_CASE(6)
+    LDA_SCATTER_CASE(7)
+    LDA_SCATTER_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef LDA_SCATTER_CASE
   return cudaGetLastError();
 }
 

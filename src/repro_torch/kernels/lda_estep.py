@@ -240,10 +240,30 @@ def token_pi(token_ids: torch.Tensor, counts: torch.Tensor, eb: torch.Tensor,
 # K3: segment scatter
 # ---------------------------------------------------------------------------
 
-def scatter_segments(token_ids: torch.Tensor, counts: torch.Tensor):
-    """Index preparation of the scatter (replaces the TPU's ``iota == ids``
-    selector): drop rows with count 0, sort the rest stably by id, and
-    cut them into one segment per distinct id.
+def scatter_segments(token_ids: torch.Tensor, counts: torch.Tensor,
+                     vocab_size: int):
+    """K3's index preparation (replaces the TPU's ``iota == ids`` selector),
+    with fixed sizes only, so it never waits for the device: every row is
+    keyed by its id, or by ``vocab_size`` where its count is 0; one stable
+    sort of all N keys gives the row order, and a sorted search cuts it at
+    every id.
+
+    Returns (order (N,) int64 row indices in sorted order, seg_off (V + 1,)
+    int64): id v's rows are ``order[seg_off[v]:seg_off[v + 1]]``, in row
+    order, empty for an id that no live row carries. Ids outside [0, V)
+    fall outside every range.
+    """
+    key = torch.where(counts != 0, token_ids, vocab_size)
+    keys, order = torch.sort(key, stable=True)
+    seg_off = torch.searchsorted(
+        keys, torch.arange(vocab_size + 1, dtype=keys.dtype,
+                           device=keys.device))
+    return order, seg_off
+
+
+def scatter_segments_plain(token_ids: torch.Tensor, counts: torch.Tensor):
+    """The plain twin's index preparation: drop rows with count 0, sort the
+    rest stably by id, and cut them into one segment per distinct id.
 
     Returns (order (N',) int64 row indices in sorted order, seg_ids (U,)
     int64, seg_len (U,) int64, seg_off (U + 1,) int64).
@@ -263,7 +283,7 @@ def segment_scatter_plain(token_ids: torch.Tensor, counts: torch.Tensor,
                           pi_new: torch.Tensor,
                           pi_old: Optional[torch.Tensor], vocab_size: int):
     """Plain twin of K3: segment sums over the same sorted rows."""
-    order, seg_ids, seg_len, _ = scatter_segments(token_ids, counts)
+    order, seg_ids, seg_len, _ = scatter_segments_plain(token_ids, counts)
     k = pi_new.shape[1]
     seg_of_row = torch.repeat_interleave(
         torch.arange(seg_ids.numel(), device=counts.device), seg_len)
@@ -289,7 +309,7 @@ def segment_scatter(token_ids: torch.Tensor, counts: torch.Tensor,
     Shapes: flat token rows, token_ids int32 / counts float32 (N,), π rows
     (N, K) → (S_new (V, K), S_old (V, K) or None). The sum over each id's
     rows runs in a fixed (stably sorted) order, so two calls on the same
-    inputs give the same bits.
+    inputs give the same bits. On CUDA tensors it never syncs the host.
     """
     (n,) = token_ids.shape
     k = pi_new.shape[1]
@@ -303,31 +323,35 @@ def segment_scatter(token_ids: torch.Tensor, counts: torch.Tensor,
     if _on_cpu(*tensors):
         return segment_scatter_plain(token_ids, counts, pi_new, pi_old,
                                      vocab_size)
-    return segment_scatter_prepared(scatter_segments(token_ids, counts),
-                                    counts, pi_new, pi_old, vocab_size)
+    return segment_scatter_prepared(
+        scatter_segments(token_ids, counts, vocab_size), counts, pi_new,
+        pi_old, vocab_size)
 
 
 def segment_scatter_prepared(segments, counts: torch.Tensor,
                              pi_new: torch.Tensor,
                              pi_old: Optional[torch.Tensor], vocab_size: int):
-    """K3 on CUDA tensors, given ``scatter_segments(token_ids, counts)``:
-    the zeroed outputs and the kernel launch, with no host sync (the
-    index preparation syncs, by ``nonzero`` and ``unique_consecutive``).
+    """K3 on CUDA tensors, given ``scatter_segments(token_ids, counts,
+    vocab_size)``: the kernel launch alone, which writes every output row.
     ``segment_scatter`` checks the arguments and calls this."""
     if pi_new.device.type != "cuda":
         raise ValueError(f"segment_scatter_prepared: CUDA tensors only, got "
                          f"{pi_new.device}")
-    order, seg_ids, _, seg_off = segments
+    order, seg_off = segments
     k = pi_new.shape[1]
+    _expect("seg_off", seg_off, torch.int64, (vocab_size + 1,))
     lib = build.load()
-    s_new = torch.zeros((vocab_size, k), dtype=torch.float32,
+    if k > lib.lda_fixed_point_max_k():
+        raise ValueError(f"segment_scatter: K={k} exceeds the kernel's "
+                         f"{lib.lda_fixed_point_max_k()} topics")
+    s_new = torch.empty((vocab_size, k), dtype=torch.float32,
                         device=pi_new.device)
-    s_old = None if pi_old is None else torch.zeros_like(s_new)
+    s_old = None if pi_old is None else torch.empty_like(s_new)
     rc = lib.lda_segment_scatter(
-        order.data_ptr(), seg_ids.data_ptr(), seg_off.data_ptr(),
-        seg_ids.numel(), counts.data_ptr(), pi_new.data_ptr(),
-        None if pi_old is None else pi_old.data_ptr(), s_new.data_ptr(),
-        None if s_old is None else s_old.data_ptr(), k, _stream(pi_new))
+        order.data_ptr(), seg_off.data_ptr(), vocab_size, counts.data_ptr(),
+        pi_new.data_ptr(), None if pi_old is None else pi_old.data_ptr(),
+        s_new.data_ptr(), None if s_old is None else s_old.data_ptr(), k,
+        _stream(pi_new))
     build.check(rc, "lda_segment_scatter")
     LAUNCHES["segment_scatter"] += 1
     return s_new, s_old
@@ -446,7 +470,9 @@ def estep_fixed_point_csr(token_ids: torch.Tensor, counts: torch.Tensor,
     batch-wide rule. Precondition (``check_csr_order``): live tokens are
     grouped by segment in non-decreasing order, as the CSR packer and
     ``CSRBackend.flatten`` emit them; the plain twin checks it, the kernel
-    relies on it.
+    relies on it. On the card this is K1's cooperative launch over each
+    document's range of the stream, with the whole batch as one stopping
+    tile and ``ceil(T / B)`` setting the warps per document.
     """
     (t,) = token_ids.shape
     v, k = eb.shape
@@ -468,17 +494,13 @@ def estep_fixed_point_csr(token_ids: torch.Tensor, counts: torch.Tensor,
     iters = torch.zeros(1, dtype=torch.int32, device=gamma0.device)
     if b == 0:
         return gamma, et, iters
-    blocks = lib.lda_fixed_point_csr_blocks(b, k)
-    if blocks < 1:
-        build.check(-blocks, "lda_fixed_point_csr_blocks")
     offsets = csr_doc_offsets(counts, segments, b)
-    partials = torch.empty(2 * blocks, dtype=torch.float32,
-                           device=gamma0.device)
+    delta = torch.empty(2 * b, dtype=torch.float32, device=gamma0.device)
     rc = lib.lda_fixed_point_csr(
         token_ids.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
         eb.data_ptr(), gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(),
-        partials.data_ptr(), iters.data_ptr(), b, k, float(alpha0),
-        float(tol), max(int(max_iters), 1), blocks, _stream(gamma0))
+        delta.data_ptr(), iters.data_ptr(), b, t, k, float(alpha0),
+        float(tol), max(int(max_iters), 1), _stream(gamma0))
     build.check(rc, "lda_fixed_point_csr")
     LAUNCHES["fixed_point_csr"] += 1
     return gamma, et, iters

@@ -120,6 +120,92 @@ def test_csr_fixed_point_twin_matches_pallas_kernel(start):
         assert torch.all(g[batch.num_docs:] == jcfg.alpha0)
 
 
+def _warp_sum(v):
+    """The card's butterfly over the last axis of 32 lanes (xor 16, 8, 4,
+    2, 1); every lane ends with the same bits, lane 0's are returned."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
+def _lane_sums(x):
+    """Lane l's running sum of x[l], x[l + 32], ... in that order, over the
+    last axis (zero-padded to a multiple of 32), then the butterfly."""
+    pad = (-x.shape[-1]) % 32
+    x = torch.nn.functional.pad(x, (0, pad)).unflatten(-1, (-1, 32))
+    s = torch.zeros(x.shape[:-2] + (32,))
+    for j in range(x.shape[-2]):
+        s = s + x[..., j, :]
+    return _warp_sum(s)
+
+
+def _k4_order(ids, cnts, segs, eb, gamma0, alpha0, tol, max_iters):
+    """The card's K4 order of summation, in fp32 torch: W warps per
+    document from ceil(T / B), warp p summing the live slots lo + p,
+    lo + p + W, ... of its document in slot order; the W partial vectors
+    added in warp order; each row's |Δγ| summed lane by lane; the batch
+    mean from 128-row chunk sums (lanes strided over the chunk, one
+    butterfly) added in chunk order. Returns (γ, sweeps, W)."""
+    b, k = gamma0.shape
+    t = ids.numel()
+    rows_per_doc = -(-t // b)
+    w = 1
+    while w < 8 and w * 48 < rows_per_doc:
+        w *= 2
+    offsets = lda_estep.csr_doc_offsets(cnts, segs, b)
+    owner = segs.long()
+    live = cnts != 0
+    warp = (torch.arange(t) - offsets[owner]) % w
+    ebt = eb[ids.long()]
+    g, n = gamma0, 0
+    while n < max(int(max_iters), 1):
+        et = lda_estep._exp_elog_theta(g)
+        ratio = cnts / ((et[owner] * ebt).sum(-1) + 1e-30)
+        part = torch.zeros(w * b, k).index_add_(
+            0, (warp * b + owner)[live], (ratio[:, None] * ebt)[live])
+        acc = part[:b]
+        for p in range(1, w):
+            acc = acc + part[p * b:(p + 1) * b]
+        g_new = alpha0 + et * acc
+        slots = _lane_sums((g_new - g).abs())
+        total = torch.zeros(())
+        for c in range(0, b, 128):
+            total = total + _lane_sums(slots[c:c + 128])
+        g, n = g_new, n + 1
+        if bool(total / torch.tensor(float(b * k)) <= torch.tensor(tol)):
+            break
+    return g, n, w
+
+
+@pytest.mark.parametrize("start,budget,n_docs,max_len,want_w", [
+    ("cold", 512, 17, 40, 1), ("phantom", 512, 17, 40, 1),
+    ("cold", 2048, 17, 40, 4), ("phantom", 2048, 17, 40, 2),
+    ("cold", 4096, 300, 12, 1)])
+def test_k4_order_matches_pallas_kernel(start, budget, n_docs, max_len,
+                                        want_w):
+    """The card's K4 order of summation (``_k4_order``) against ``repro``'s
+    CSR fixed point: γ at 2e-3 and the same batch-wide sweep count, with
+    W = 1, 2 and 4 warps per document, phantom rows (7 more documents that
+    own no token) and, at 300 documents, a mean taken over three 128-row
+    chunks."""
+    batch, eb = _flat_batch(3, n_docs=n_docs, budget=budget, max_len=max_len)
+    k, vocab = eb.shape[1], eb.shape[0]
+    jcfg, _ = _configs(vocab, k, estep_tol=1e-3)
+    b = batch.num_docs + (7 if start == "phantom" else 0)
+    gamma0 = np.full((b, k), jcfg.alpha0 + 1.0, np.float32)
+    jg, _, _, jit = j_ops._run_fixed_point_csr(
+        jcfg, jnp.asarray(eb), jnp.asarray(batch.token_ids),
+        jnp.asarray(batch.counts), jnp.asarray(batch.segments), b,
+        jnp.asarray(gamma0), 512)
+    g, sweeps, w = _k4_order(
+        _t(batch.token_ids), _t(batch.counts), _t(batch.segments), _t(eb),
+        _t(gamma0), jcfg.alpha0, jcfg.estep_tol, jcfg.estep_max_iters)
+    assert w == want_w
+    assert sweeps == int(jit) < jcfg.estep_max_iters
+    _close(g, jg, 2e-3, 2e-3)
+
+
 def test_csr_fixed_point_caps_sweeps():
     batch, eb = _flat_batch(4)
     gamma0 = torch.full((batch.num_docs, eb.shape[1]), 1.5)

@@ -170,6 +170,45 @@ def test_segment_scatter_twin_sums_in_float64():
         _close(got, want, 1e-5, 1e-5)
 
 
+@pytest.mark.parametrize("case", ["padded", "all_dead", "last_id"])
+def test_scatter_segments_match_plain_preparation(case):
+    """K3's fixed-size preparation (one stable sort of every row's key, a
+    sorted search per id) against the twin's (``nonzero``, stable sort,
+    ``unique_consecutive``): for every id the same rows in the same order,
+    and an empty range for every id no live row carries. ``padded``: rows
+    of a padded batch (each row's tail has count 0, one row is padding
+    only); ``all_dead``: every count 0; ``last_id``: id V − 1 carried by
+    several rows."""
+    ids, cnts, _, vocab, _ = _inputs(12, b=10, vocab=60, mean_len=15)
+    ids, cnts = _t(ids), _t(cnts)
+    if case == "padded":
+        cnts[3] = 0.0
+    elif case == "all_dead":
+        cnts.zero_()
+    else:
+        ids[::2, 0] = vocab - 1
+        cnts[::2, 0] = 2.0
+    flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
+    order, seg_off = lda_estep.scatter_segments(flat_ids, flat_cnts, vocab)
+    assert order.shape == flat_ids.shape and seg_off.shape == (vocab + 1,)
+    assert order.dtype == seg_off.dtype == torch.int64
+    p_order, seg_ids, _, p_off = lda_estep.scatter_segments_plain(flat_ids,
+                                                                  flat_cnts)
+    want = {int(v): p_order[p_off[i]:p_off[i + 1]]
+            for i, v in enumerate(seg_ids)}
+    for v in range(vocab):
+        got = order[seg_off[v]:seg_off[v + 1]]
+        if v in want:
+            assert torch.equal(got, want[v]), v
+        else:
+            assert got.numel() == 0, v
+    assert int(seg_off[-1]) == int((flat_cnts != 0).sum())
+    if case == "last_id":
+        assert vocab - 1 in want and want[vocab - 1].numel() >= 5
+    if case == "all_dead":
+        assert not want and int(seg_off.max()) == 0
+
+
 def test_memo_correction_cuda_matches_pallas():
     """``memo_correction_cuda`` (plain twins on CPU tensors) against
     ``repro.kernels.ops.memo_correction_pallas``."""
@@ -212,5 +251,5 @@ def test_cuda_backend_refuses_what_it_does_not_implement():
     flat_ids, flat_cnts = _t(ids).reshape(-1), _t(cnts).reshape(-1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         lda_estep.segment_scatter_prepared(
-            lda_estep.scatter_segments(flat_ids, flat_cnts), flat_cnts,
-            torch.ones(flat_ids.numel(), k), None, vocab)
+            lda_estep.scatter_segments(flat_ids, flat_cnts, vocab),
+            flat_cnts, torch.ones(flat_ids.numel(), k), None, vocab)

@@ -1,6 +1,7 @@
 """Card-only tests: each CUDA kernel against its plain twin, K1–K3 at the
 main path's shapes (the Arxiv vocabulary V = 141,927, K = 100, B = 1024, L
-about 163), K4 and K5 on a small flat CSR batch, K6–K9 (the pre-fusion
+about 163), K4 at the path's shape flattened and on small flat CSR
+batches, K5 on a small flat CSR batch, K6–K9 (the pre-fusion
 baseline and flash attention) at small sizes. Whether a card is present is
 decided inside the ``cuda`` fixture, so every worker collects the same
 tests; without a card they skip.
@@ -153,12 +154,28 @@ def test_token_pi_kernel_matches_twin(path_inputs, quantize):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_segment_scatter_kernel_is_deterministic_and_exact(path_inputs):
+@pytest.mark.parametrize("batch", ["path", "skewed", "all_dead"])
+def test_segment_scatter_kernel_is_deterministic_and_exact(path_inputs,
+                                                           batch):
+    """K3 gives the same bits on two launches and stays within rtol = atol
+    = 1e-5 of an fp64 ``index_add_``: on the path's rows; with one id in
+    every one of the 1,024 documents (a 1,024-row segment, split over a
+    block's warps); and with every count 0 (every output row zero)."""
     ids, cnts, eb = path_inputs
+    if batch == "skewed":
+        ids = ids.clone()
+        ids[:, 1:][ids[:, 1:] == 7] = 8     # id 7 once in every row
+        ids[:, 0] = 7
+        cnts = cnts.clone()
+        cnts[:, 0] = 3.0
+    elif batch == "all_dead":
+        cnts = torch.zeros_like(cnts)
     gen = torch.Generator(eb.device).manual_seed(2)
     pi_new = torch.rand((B * L, K), generator=gen, device=eb.device)
     pi_old = torch.rand((B * L, K), generator=gen, device=eb.device)
     flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
+    if batch == "skewed":
+        assert int(((flat_ids == 7) & (flat_cnts != 0)).sum()) == B
     a = lda_estep.segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, V)
     b = lda_estep.segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, V)
     for x, y, pi in zip(a, b, (pi_new, pi_old)):
@@ -167,6 +184,51 @@ def test_segment_scatter_kernel_is_deterministic_and_exact(path_inputs):
         want.index_add_(0, flat_ids.long(),
                         flat_cnts[:, None].double() * pi.double())
         torch.testing.assert_close(x.double(), want, rtol=1e-5, atol=1e-5)
+        if batch == "all_dead":
+            assert not bool(x.any())
+
+
+def test_segment_scatter_makes_no_host_sync(path_inputs):
+    """K3's wrapper on CUDA tensors (the fixed-size preparation and the
+    launch) raises nothing under ``set_sync_debug_mode("error")``."""
+    ids, cnts, eb = path_inputs
+    pi = torch.rand((B * L, K), generator=torch.Generator(eb.device)
+                    .manual_seed(3), device=eb.device)
+    flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
+    lda_estep.segment_scatter(flat_ids, flat_cnts, pi, pi, V)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_new, s_old = lda_estep.segment_scatter(flat_ids, flat_cnts, pi, pi,
+                                                 V)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(s_new, s_old)
+
+
+def _csr_card_batch(cuda, seed, n_docs, max_len, budget, v=2000, k=24):
+    """One flat CSR batch on the card: ``n_docs`` ragged documents of up to
+    ``max_len`` unique tokens (two of them empty, two of a single token)
+    in a ``budget``-slot stream with tail padding, and Eφ from peaked
+    topics, so the batch stops before the cap."""
+    from repro_torch.data.stream import BatchPacker
+    rng = np.random.default_rng(seed)
+    packer = BatchPacker(n_docs, layout="csr", token_budget=budget)
+    lengths = rng.integers(2, max_len + 1, n_docs)
+    lengths[[3, n_docs * 17 // 40]] = 0
+    lengths[[5, n_docs * 30 // 40]] = 1
+    for pos, m in enumerate(lengths):
+        ids = np.sort(rng.choice(v, size=int(m), replace=False))
+        batch = packer.add(pos, ids.astype(np.int32),
+                           rng.integers(1, 4, int(m)).astype(np.float32))
+    assert batch is not None and batch.num_docs == n_docs
+    lam = torch.from_numpy((rng.gamma(0.3, 2.0, (v, k)) + 0.05)
+                           .astype(np.float32))
+    eb = exp_dirichlet_expectation(lam.to(cuda), axis=0).contiguous()
+    flat = [torch.from_numpy(a).to(cuda)
+            for a in (batch.token_ids, batch.counts, batch.segments)]
+    return flat, eb, batch.num_docs
 
 
 @pytest.fixture(scope="module")
@@ -174,23 +236,7 @@ def csr_inputs(cuda):
     """A small flat CSR batch on the card: 40 ragged documents (empty and
     single-token ones included) in a 2,048-slot stream with tail padding,
     K = 24, Eφ from peaked topics so the batch stops before the cap."""
-    from repro_torch.data.stream import BatchPacker
-    rng = np.random.default_rng(3)
-    v, k, n = 2000, 24, 40
-    packer = BatchPacker(n, layout="csr", token_budget=2048)
-    lengths = rng.integers(2, 90, n)
-    lengths[[3, 17]] = 0
-    lengths[[5, 30]] = 1
-    for pos, m in enumerate(lengths):
-        ids = np.sort(rng.choice(v, size=int(m), replace=False))
-        batch = packer.add(pos, ids.astype(np.int32),
-                           rng.integers(1, 4, int(m)).astype(np.float32))
-    lam = torch.from_numpy((rng.gamma(0.3, 2.0, (v, k)) + 0.05)
-                           .astype(np.float32))
-    eb = exp_dirichlet_expectation(lam.to(cuda), axis=0).contiguous()
-    flat = [torch.from_numpy(a).to(cuda)
-            for a in (batch.token_ids, batch.counts, batch.segments)]
-    return flat, eb, batch.num_docs
+    return _csr_card_batch(cuda, 3, 40, 89, 2048)
 
 
 @pytest.mark.parametrize("phantom", [0, 9])
@@ -207,6 +253,83 @@ def test_csr_fixed_point_kernel_matches_twin(csr_inputs, phantom):
     assert int(it[0]) == int(pit[0]) < 60
     torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(et, pet, rtol=1e-4, atol=1e-6)
+
+
+def _check_csr_kernel(args):
+    """K4 against its twin (the same batch-wide sweep count, below the cap;
+    γ at 2e-3, Eθ at rtol 1e-4 / atol 1e-6) and the same bits on a second
+    launch."""
+    g, et, it = lda_estep.estep_fixed_point_csr(*args)
+    again = lda_estep.estep_fixed_point_csr(*args)
+    pg, pet, pit = lda_estep.estep_fixed_point_csr_plain(*args)
+    torch.cuda.synchronize()
+    for x, y in zip((g, et, it), again):
+        assert torch.equal(x, y)
+    assert int(it[0]) == int(pit[0]) < args[-1]
+    torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(et, pet, rtol=1e-4, atol=1e-6)
+
+
+def _flat_rows(ids, cnts, budget):
+    """The live slots of padded rows as one flat CSR stream of ``budget``
+    slots: documents in row order, tail padding (segment 0, count 0)."""
+    live = cnts != 0
+    rows = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
+    flat = (ids[live], cnts[live], rows[:, None].expand_as(ids)[live])
+    pad = budget - flat[0].numel()
+    assert pad >= 0
+    return [torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)])
+            for x in flat]
+
+
+def test_csr_fixed_point_kernel_is_deterministic(path_inputs):
+    """K4 on the path's shape (1,024 documents in a 131,072-slot stream:
+    W = 4 warps per document), with γ₀ drawn per row and topic so the batch
+    stops before the cap: the same bits on two launches, and the twin's
+    sweeps, γ and Eθ."""
+    from repro_torch.kernels import build
+    ids, cnts, eb = path_inputs
+    flat = _flat_rows(ids, cnts, 131_072)
+    assert build.load().lda_fixed_point_warps(131_072 // B) == 4
+    gamma0 = (1.0 + torch.rand((B, K), device=eb.device,
+                               generator=torch.Generator(eb.device)
+                               .manual_seed(8))).contiguous()
+    _check_csr_kernel((*flat, eb, gamma0, 0.5, 0.03, 25))
+
+
+def test_csr_fixed_point_kernel_loops_over_the_grid(path_inputs):
+    """K4 at B = 4,100 documents (T = 128 slots a document, W = 4), more
+    than the co-resident grid holds at once, so each block walks several:
+    the same bits on two launches, and the twin's sweeps, γ and Eθ."""
+    from repro_torch.kernels import build
+    ids, cnts, eb = path_inputs
+    b = 4100
+    rows = torch.arange(b, device=eb.device) % B
+    flat = _flat_rows(ids[rows], cnts[rows], 128 * b)
+    blocks = build.load().lda_fixed_point_blocks(b, 128, K, b)
+    assert 0 < blocks * 2 < b   # 4 warps per document, 2 a block
+    gamma0 = (1.0 + torch.rand((b, K), device=eb.device,
+                               generator=torch.Generator(eb.device)
+                               .manual_seed(7))).contiguous()
+    _check_csr_kernel((*flat, eb, gamma0, 0.5, 0.03, 25))
+
+
+@pytest.mark.parametrize("phantom", [0, 9])
+@pytest.mark.parametrize("n_docs,max_len,budget,warps", [
+    (64, 16, 1024, 1),       # T / B = 16
+    (16, 480, 8192, 8)])     # T / B = 512
+def test_csr_fixed_point_kernel_warps_per_doc(cuda, n_docs, max_len, budget,
+                                              warps, phantom):
+    """K4 with 1 and 8 warps per document (W from ceil(T / B)), with and
+    without phantom rows that own no token, against its twin (the long
+    documents stop after about 70 sweeps, the short ones after about 27)."""
+    from repro_torch.kernels import build
+    (ids, cnts, segs), eb, b = _csr_card_batch(cuda, n_docs, n_docs, max_len,
+                                               budget, v=3000)
+    b += phantom
+    assert build.load().lda_fixed_point_warps(-(-budget // b)) == warps
+    gamma0 = torch.full((b, eb.shape[1]), 1.5, device=eb.device)
+    _check_csr_kernel((ids, cnts, segs, eb, gamma0, 0.5, 1e-3, 100))
 
 
 @pytest.mark.parametrize("quantize", [False, True])

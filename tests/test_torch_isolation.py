@@ -69,11 +69,13 @@ def test_build_targets_hopper_from_package_source():
     for entry in build._SIGNATURES:
         assert f" {entry}(" in source, entry
     for kernel in ("fixed_point_kernel", "token_pi_kernel",
-                   "segment_scatter_kernel", "csr_fixed_point_kernel",
-                   "csr_token_pi_kernel"):
+                   "segment_scatter_kernel", "csr_token_pi_kernel"):
         assert f" {kernel}(" in source, kernel
-    # K4 stops batch-wide across its grid: one cooperative launch
+    # K1 and K4 stop across their grid: one cooperative launch of one
+    # kernel, K4 over each document's range of the flat stream
     assert "cudaLaunchCooperativeKernel" in source
+    assert " csr_fixed_point_kernel(" not in source
+    assert " row_sweep(" not in source
 
 
 def test_attention_builds_its_own_library_from_package_source():
