@@ -6,20 +6,27 @@ Run from the root of a checkout, with no arguments:  python3 chip_smoke.py
 Phases, each printing one JSON line; any failure exits non-zero. The padded
 path first:
   1. device  — nvidia-smi's name and power limit, torch's device name/count
-  2. build   — nvcc builds the kernels from src/repro_torch/kernels/csrc
+  2. build   — nvcc builds the kernels from src/repro_torch/kernels/csrc;
+               K1/K4's instance at K = 100 must not spill registers
   3. kernels — each kernel against its plain twin at the path's shapes
                (Arxiv: V = 141,927, K = 100, B = 1024), then timed; K1
-               and K3 also give the same bits on two launches; K3 again
-               with one id in every document, its segment lengths, its
-               preparation's time and the host syncs of one call
+               and K3 also give the same bits on two launches; K1 with its
+               π finish (the path's launch) gives K1's bits without it and
+               K2's π bit for bit, its grid holds every document at once,
+               and one bf16-streamed launch agrees with its twin more
+               closely than the fp32 stream does; K2 then
+               K3 driven as memo_delta; K3 again with one id in every
+               document, its segment lengths, its preparation's time and
+               the host syncs of one call
   4. serve   — γ for 1,024 held-out documents through the CUDA backend,
                against the gather backend
   5. train   — LDAEngine IVI on an Arxiv-shaped corpus (16,430 documents),
-               two epochs; kernel launch counts, LPP, the memoized ELBO
-               after every update of epoch 2, the memo invariant
+               two epochs; kernel launch counts (2 an update: K1 with its
+               π finish, K3), LPP, the memoized ELBO after every update of
+               epoch 2, the memo invariant
   6. warm    — the fixed point against its twin again, from the trained λ
                and memo warm starts, where tiles stop at different sweeps,
-               and the same bits on two launches
+               and the same bits on two launches; the π finish's bits
   7. profile — torch.profiler over a few more updates: device time by
                operation, the device's idle share, and host time by
                operation
@@ -27,7 +34,12 @@ then the flat CSR token-stream path, on the same corpus:
   8. kernels_csr — the CSR kernels against their twins on the first flat
                batch (B = 1024 documents in a 131,072-slot stream), timed;
                K4 also gives the same bits on two launches, and its warps
-               per document, grid and µs per sweep
+               per document, grid and µs per sweep; K4 with its π finish
+               gives K4's bits and K5's π bit for bit; one bf16-streamed
+               launch against its twin, as in phase 3; K4 on a shuffled
+               copy of the batch
+               against its twin with no host sync, and the sort's time;
+               K5 then K3 driven as memo_delta_csr
   9. serve_csr — γ for 1,024 held-out documents packed as one flat batch,
                through the CUDA backend against the plain flat reference
  10. train_csr — LDAEngine IVI over a CorpusDocStream in the CSR layout,
@@ -90,9 +102,10 @@ REPLACES = {"fixed_point": "src/repro/kernels/lda_estep.py:99",
             "flash_attention": "src/repro/kernels/flash_attention.py:31"}
 SOURCES = {name: ATTENTION_SOURCE if name == "flash_attention"
            else ESTEP_SOURCE for name in REPLACES}
-# the kernels each path launches
-PADDED_KERNELS = ("fixed_point", "token_pi", "segment_scatter")
-CSR_KERNELS = ("fixed_point_csr", "token_pi_csr", "segment_scatter")
+# the kernels each path launches, once an update each (K2 and K5 run
+# fused in the fixed point's finish)
+PADDED_KERNELS = ("fixed_point", "segment_scatter")
+CSR_KERNELS = ("fixed_point_csr", "segment_scatter")
 LEGACY_KERNELS = ("sweep", "sstats", "memo_delta_onehot")
 # BENCH_estep's shape (benchmarks/kernel_bench.py:196-206)
 BENCH_ESTEP = dict(b=128, v=4096, k=128, l=64, iters=30)
@@ -105,6 +118,10 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
 # so it is held by its relative L2 error: a different function (another
 # mask, another head mapping) is off by O(1)
 LIBRARY_REL_L2 = 2.0 ** -7
+# K1/K4's γ in the bf16 stream against the twin in the same mode, rtol and
+# atol: above the kernel's summation-order error, below the fp32 stream's
+# distance from that twin, which the check requires to fail it
+STREAM_BAR = 2e-4
 
 
 def emit(obj) -> None:
@@ -209,8 +226,31 @@ def phase_build():
     build.build_all()
     for name in build.LIBRARIES:
         build.load(name)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    # K1/K4's instance at the path's K: the π finish must fit the sweeps'
+    # 64 registers a thread
+    spills = fixed_point_spills(build.BUILD_INFO["lda_estep"]["ptxas"],
+                                -(-TOPICS // 32))
+    check(spills == [[0, 0]],
+          f"fixed_point_kernel spills at K = {TOPICS}: {spills}")
+    emit({"phase": "build", "seconds": seconds,
+          "fixed_point_spill_bytes": spills,
           "libraries": build.BUILD_INFO})
+
+
+def fixed_point_spills(ptxas, kpl):
+    """Spill stores and loads (bytes) of each fixed_point_kernel instance
+    for ``kpl`` topics a lane, from ptxas's report."""
+    import re
+    out = []
+    for ln, props in zip(ptxas, ptxas[1:]):
+        if "Function properties" in ln and \
+                f"fixed_point_kernelILi{kpl}E" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", props)
+            if m:
+                out.append([int(m.group(1)), int(m.group(2))])
+    return out
 
 
 def phase_data(device, corpus="arxiv", scale=ARXIV_SCALE):
@@ -264,14 +304,79 @@ def check_fixed_point(args, label, block_b=128):
                            + 4 * k * tile_rows)).sum() + ETHETA_OPS * b * k)
     distinct = int(torch.unique(ids[cnts != 0]).numel())
     nbytes = b * l * 8 + distinct * k * 4 + 3 * b * k * 4 + len(sweeps) * 4
-    bms, by = bound_ms(nbytes, ops)
+    bms0, _ = bound_ms(nbytes, ops)
+    # the π finish: the (B, L, K) π written, 4 operations a live topic
+    bms, by = bound_ms(nbytes + b * l * k * 4,
+                       ops + 4.0 * k * float(tile_live.sum()))
     return {"max_abs_err": gerr, "max_abs_err_etheta": eterr,
             "tol": "γ rtol=atol=2e-3; Eθ rtol=1e-4 atol=1e-6 in tiles whose "
                    "sweeps agree; tile sweeps within 1",
             "sweep_gap": sweep_gap, "tile_sweeps": sweeps.tolist(),
             "bit_equal_two_launches": True,
-            "bound_ms": bms, "bound_by": by, "_etheta": et,
-            "_etheta_plain": pet}
+            "bound_ms": bms, "bound_by": by, "bound_ms_without_pi": bms0,
+            "_etheta": et, "_etheta_plain": pet}
+
+
+def check_fused_pi(run_pi, run_alone, standalone_pi, label):
+    """The fixed point with its π finish against the same launch without
+    it (γ, Eθ and the sweeps bit for bit) and its π against the standalone
+    π kernel (K2 or K5) on its Eθ, bit for bit, with quantize off and on.
+    ``run_pi(quantize)`` gives (γ, Eθ, sweeps, π), ``run_alone()`` (γ, Eθ,
+    sweeps), ``standalone_pi(Eθ, quantize)`` π."""
+    import torch
+    alone = run_alone()
+    for quantize in (False, True):
+        g, et, it, pi = run_pi(quantize)
+        check(all(torch.equal(x, y) for x, y in zip((g, et, it), alone)),
+              f"{label}: γ, Eθ or the sweeps differ with the π finish")
+        check(torch.equal(pi, standalone_pi(et, quantize)),
+              f"{label}: π (quantize={quantize}) is not the standalone "
+              "kernel's bit for bit")
+    return {"bit_equal_without_pi": True, "pi_bit_equal_to_standalone": True}
+
+
+def bar_ratio(got, want, tol):
+    """max |got - want| / (tol + tol·|want|): above 1 fails allclose at
+    rtol = atol = tol."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def check_bf16(run, run_fp32, plain, label, block):
+    """One bf16-streamed launch with its π finish against its twin in the
+    same mode. The sweeps are equal (K4, ``block`` = B) or, per tile of
+    ``block`` rows (K1), within 1; γ at 2e-3 everywhere and at rtol = atol
+    = STREAM_BAR in the tiles whose sweeps agree, where the fp32 stream's
+    γ (``run_fp32``) must fail that bar, so the check would catch a launch
+    that skipped the rounding; π at rtol 2e-3 / atol 1e-4."""
+    import torch
+    g, _, it, pi = run()
+    g32 = run_fp32()[0]
+    pg, _, pit, ppi = plain()
+    gap = int((it - pit).abs().max())
+    check(gap == 0 if block == g.shape[0] else gap <= 1,
+          f"{label} bf16: sweeps {it.tolist()} vs twin {pit.tolist()}")
+    gerr = float((g - pg).abs().max())
+    check(torch.allclose(g, pg, rtol=2e-3, atol=2e-3),
+          f"{label} bf16: γ off its twin by {gerr}")
+    same = (it == pit).repeat_interleave(block)[:g.shape[0]]
+    check(bool(same.any()), f"{label} bf16: no tile's sweeps agree")
+    ratio = bar_ratio(g[same], pg[same], STREAM_BAR)
+    ratio32 = bar_ratio(g32[same], pg[same], STREAM_BAR)
+    check(ratio <= 1.0 < ratio32,
+          f"{label} bf16: γ at {ratio} of the {STREAM_BAR} bar, the fp32 "
+          f"stream's at {ratio32}")
+    perr = float((pi - ppi).abs().max())
+    check(torch.allclose(pi, ppi, rtol=2e-3, atol=1e-4),
+          f"{label} bf16: π off its twin by {perr}")
+    return {"max_abs_err_bf16": gerr, "max_abs_err_pi_bf16": perr,
+            "sweep_gap_bf16": gap, "stream_bar_ratio_bf16": ratio,
+            "stream_bar_ratio_fp32": ratio32,
+            "max_abs_err_fp32_vs_bf16_twin": float((g32 - pg).abs().max()),
+            "tol_bf16": f"γ rtol=atol=2e-3, and {STREAM_BAR} in tiles whose "
+                        "sweeps agree (the fp32 stream must fail it); π "
+                        "rtol 2e-3 atol 1e-4; sweeps "
+                        + ("equal" if block == g.shape[0]
+                           else "within 1 a tile")}
 
 
 def phase_kernels(device, spec, train, topics, batch, timer):
@@ -301,10 +406,39 @@ def phase_kernels(device, spec, train, topics, batch, timer):
     out["fixed_point"] = check_fixed_point(args, "cold γ₀")
     et = out["fixed_point"].pop("_etheta")
     pet = out["fixed_point"].pop("_etheta_plain")
+    out["fixed_point"].update(check_fused_pi(
+        lambda q: lda_estep.estep_fixed_point_pi(*args, quantize=q),
+        lambda: lda_estep.estep_fixed_point(*args),
+        lambda e, q: lda_estep.token_pi(ids, cnts, eb, e, quantize=q),
+        "fixed_point"))
+    out["fixed_point"].update(check_bf16(
+        lambda: lda_estep.estep_fixed_point_pi(*args,
+                                               stream_dtype="bfloat16"),
+        lambda: lda_estep.estep_fixed_point_pi(*args),
+        lambda: lda_estep.estep_fixed_point_pi_plain(
+            *args, stream_dtype="bfloat16"), "fixed_point", 128))
+    # the path's launch: the fixed point with its π finish
     out["fixed_point"].update(
-        ms=timer(lambda: lda_estep.estep_fixed_point(*args), 10),
-        plain_ms=timer(lambda: lda_estep.estep_fixed_point_plain(*args), 2, 1),
+        ms=timer(lambda: lda_estep.estep_fixed_point_pi(*args), 10),
+        ms_without_pi=timer(lambda: lda_estep.estep_fixed_point(*args), 10),
+        ms_bf16=timer(lambda: lda_estep.estep_fixed_point_pi(
+            *args, stream_dtype="bfloat16"), 10),
+        kernel_ms=kernel_ms(lambda: lda_estep.estep_fixed_point_pi(*args),
+                            "fixed_point_kernel"),
+        kernel_ms_without_pi=kernel_ms(
+            lambda: lda_estep.estep_fixed_point(*args), "fixed_point_kernel"),
+        # the bf16 stream's kernel alone (ms_bf16 adds the wrapper's
+        # rounding of Eφ and the counts through bf16)
+        kernel_ms_bf16=kernel_ms(lambda: lda_estep.estep_fixed_point_pi(
+            *args, stream_dtype="bfloat16"), "fixed_point_kernel"),
+        plain_ms=timer(lambda: lda_estep.estep_fixed_point_pi_plain(*args),
+                       2, 1),
         library_ms=None)
+    lib = build.load()
+    grid = lib.lda_fixed_point_blocks(b, l, k, 128)
+    one_round = -(-b // (8 // lib.lda_fixed_point_warps(l)))
+    check(grid == one_round, f"fixed_point: grid {grid} blocks, not the "
+          f"{one_round} that hold every document at once")
 
     # K2 ------------------------------------------------------------------
     errs = {}
@@ -316,6 +450,18 @@ def phase_kernels(device, spec, train, topics, batch, timer):
         check(torch.allclose(got, want, rtol=rtol, atol=atol),
               f"token_pi(quantize={quantize}): off by {errs[quantize]}")
     pi = lda_estep.token_pi(ids, cnts, eb, et)
+    pi_old_full = lda_estep.token_pi(ids, cnts, eb, pet)
+    # K2 then K3 driven as memo_delta (the counterpart of repro's), counted
+    lda_estep.reset_launches()
+    memo_delta = lda_estep.memo_delta(ids, cnts, eb, et, v,
+                                      old_pi=pi_old_full, quantize=True)
+    memo_delta_launches = dict(lda_estep.LAUNCHES)
+    check(memo_delta_launches["token_pi"] == 1
+          and memo_delta_launches["segment_scatter"] == 1,
+          f"memo_delta: {memo_delta_launches}")
+    check(torch.equal(memo_delta[0], lda_estep.token_pi(
+        ids, cnts, eb, et, quantize=True)), "memo_delta: π is not K2's")
+    del memo_delta
     bms, by = bound_ms(b * l * 8 + distinct * k * 4 + b * k * 4
                        + b * l * k * 4, 4.0 * live * k)
     out["token_pi"] = {
@@ -329,7 +475,7 @@ def phase_kernels(device, spec, train, topics, batch, timer):
     # K3 ------------------------------------------------------------------
     flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
     pi_new = pi.reshape(-1, k)
-    pi_old = lda_estep.token_pi(ids, cnts, eb, pet).reshape(-1, k)
+    pi_old = pi_old_full.reshape(-1, k)
     err = check_segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v, "path")
     # one frequent id in every document: a 1,024-row segment, split over
     # a block's warps
@@ -386,9 +532,10 @@ def phase_kernels(device, spec, train, topics, batch, timer):
                                         "live_slots": live,
                                         "distinct_ids": distinct},
           "kernels": out,
-          # the blocks of K1's cooperative grid at this shape
-          "fixed_point_grid_blocks": build.load().lda_fixed_point_blocks(
-              b, l, k, 128),
+          # the blocks of K1's cooperative grid at this shape, and the
+          # launches of memo_delta (K2 then K3)
+          "fixed_point_grid_blocks": grid,
+          "memo_delta_launches": memo_delta_launches,
           # K3's rows per live id, and the host syncs of one wrapper call
           # (torch's sync debug mode) beside the twin's preparation's
           "segment_scatter": {"segment_len_max": int(seg_len.max()),
@@ -397,7 +544,7 @@ def phase_kernels(device, spec, train, topics, batch, timer):
                               "segments": int(seg_len.numel()),
                               "host_syncs": syncs,
                               "host_syncs_plain_preparation": plain_syncs}})
-    return out
+    return out, memo_delta_launches
 
 
 def check_segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v, label):
@@ -483,7 +630,8 @@ def phase_serve(device, spec, test, topics, batch, sync):
           f"serve: π off by {errs['pi']}")
     check(torch.allclose(got.sstats, sstats, rtol=1e-2, atol=2e-3),
           f"serve: sstats off by {errs['sstats']}")
-    check(all(launches[n] > 0 for n in PADDED_KERNELS), f"serve: {launches}")
+    check(all(launches[n] == 1 for n in PADDED_KERNELS)
+          and sum(launches.values()) == 2, f"serve: {launches}")
     emit({"phase": "serve", "docs": n, "seconds": seconds,
           "docs_per_s": n / seconds, "launches": launches,
           "max_abs_err_vs_gather": errs, "iters": int(got.iters)})
@@ -542,8 +690,10 @@ def phase_train(device, spec, train, test, topics, batch, sync):
             elbo.append(eng.full_bound())    # the bound epoch 2 starts from
         lpp.append(eng.evaluate()["lpp"])
     launches = dict(lda_estep.LAUNCHES)
-    check(all(launches[n] > 0 for n in PADDED_KERNELS),
-          f"train: a kernel of the path never launched: {launches}")
+    updates = len(update_s)
+    check(all(launches[n] == updates for n in PADDED_KERNELS)
+          and sum(launches.values()) == 2 * updates,
+          f"train: not 2 launches an update over {updates}: {launches}")
     drops = [(a, b_) for a, b_ in zip(elbo, elbo[1:])
              if b_ < a - max(5e-3, 2e-6 * abs(a))]
     check(not drops, f"memoized ELBO decreased in epoch 2: {drops}")
@@ -598,7 +748,12 @@ def phase_fixed_point_warm(eng, kernels, timer, max_batches=4):
             break
     check(len(set(sweeps)) >= 2, f"warm K1 check: every tile ran the same "
           f"sweeps {sweeps}, so the stopping rule was not exercised")
-    warm = {"batches": len(checked),
+    fused = check_fused_pi(
+        lambda q: lda_estep.estep_fixed_point_pi(*first, quantize=q),
+        lambda: lda_estep.estep_fixed_point(*first),
+        lambda e, q: lda_estep.token_pi(*first[:3], e, quantize=q),
+        "warm fixed_point")
+    warm = {"batches": len(checked), **fused,
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "max_abs_err_etheta": max(r["max_abs_err_etheta"]
                                       for r in checked),
@@ -606,7 +761,12 @@ def phase_fixed_point_warm(eng, kernels, timer, max_batches=4):
             "tile_sweeps": [r["tile_sweeps"] for r in checked],
             "bit_equal_two_launches": all(r["bit_equal_two_launches"]
                                           for r in checked),
-            "ms": timer(lambda: lda_estep.estep_fixed_point(*first), 10),
+            "ms": timer(lambda: lda_estep.estep_fixed_point_pi(*first), 10),
+            "ms_without_pi": timer(
+                lambda: lda_estep.estep_fixed_point(*first), 10),
+            "kernel_ms": kernel_ms(
+                lambda: lda_estep.estep_fixed_point_pi(*first),
+                "fixed_point_kernel"),
             "bound_ms": checked[0]["bound_ms"],
             "bound_by": checked[0]["bound_by"]}
     kernels["fixed_point"]["warm"] = warm
@@ -702,14 +862,49 @@ def check_fixed_point_csr(args, label):
     ops = float(sweeps * (4 * k * live + (ETHETA_OPS + 4) * k * b)
                 + ETHETA_OPS * b * k)
     nbytes = live * 12 + distinct * k * 4 + 3 * b * k * 4 + 4
-    bms, by = bound_ms(nbytes, ops)
+    bms0, _ = bound_ms(nbytes, ops)
+    # the π finish: the flat (T, K) π written, 4 operations a live topic
+    bms, by = bound_ms(nbytes + ids.numel() * k * 4, ops + 4.0 * k * live)
     return {"max_abs_err": gerr, "max_abs_err_etheta": eterr,
             "tol": "γ rtol=atol=2e-3; Eθ rtol=1e-4 atol=1e-6; the same "
                    "batch-wide sweep count",
             "sweeps": sweeps, "live_tokens": live, "distinct_ids": distinct,
             "bit_equal_two_launches": True,
-            "bound_ms": bms, "bound_by": by, "_etheta": et,
-            "_etheta_plain": pet}
+            "bound_ms": bms, "bound_by": by, "bound_ms_without_pi": bms0,
+            "_etheta": et, "_etheta_plain": pet}
+
+
+def check_shuffled_csr(ids, cnts, segs, eb, gamma0, cfg, seed=0):
+    """K4 with its π finish on the flat batch shuffled slot by slot (live
+    tokens no longer grouped by segment, padding interleaved) against its
+    twin: the same sweeps, γ at 2e-3, Eθ at rtol 1e-4 / atol 1e-6, π equal
+    to K5's on the shuffled stream, and no host sync in the wrapper (sort,
+    sorted search, gathers, launch)."""
+    import torch
+    from repro_torch.kernels import lda_estep
+    gen = torch.Generator(device=ids.device).manual_seed(seed)
+    perm = torch.randperm(ids.numel(), generator=gen, device=ids.device)
+    flat = [x[perm].contiguous() for x in (ids, cnts, segs)]
+    args = (*flat, eb, gamma0, cfg.alpha0, cfg.estep_tol, cfg.estep_max_iters)
+    syncs = host_syncs(lambda: lda_estep.estep_fixed_point_csr_pi(*args))
+    check(syncs == 0, f"fixed_point_csr (shuffled): {syncs} host syncs")
+    g, et, it, pi = lda_estep.estep_fixed_point_csr_pi(*args)
+    pg, pet, pit = lda_estep.estep_fixed_point_csr_plain(*args)
+    check(int(it[0]) == int(pit[0]),
+          f"fixed_point_csr (shuffled): sweeps {int(it[0])} vs twin "
+          f"{int(pit[0])}")
+    gerr = float((g - pg).abs().max())
+    eterr = float((et - pet).abs().max())
+    check(torch.allclose(g, pg, rtol=2e-3, atol=2e-3)
+          and torch.allclose(et, pet, rtol=1e-4, atol=1e-6),
+          f"fixed_point_csr (shuffled): γ off by {gerr}, Eθ by {eterr}")
+    check(torch.equal(pi, lda_estep.token_pi_csr(*flat, eb, et)),
+          "fixed_point_csr (shuffled): π is not K5's bit for bit")
+    return {"max_abs_err": gerr, "max_abs_err_etheta": eterr,
+            "sweeps": int(it[0]), "host_syncs": syncs,
+            "pi_bit_equal_to_standalone": True,
+            "ms": cuda_ms(lambda: lda_estep.estep_fixed_point_csr_pi(*args),
+                          10)}
 
 
 def csr_grid(b, t, k, ms, sweeps):
@@ -754,13 +949,41 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
     pet = out["fixed_point_csr"].pop("_etheta_plain")
     live = out["fixed_point_csr"]["live_tokens"]
     distinct = out["fixed_point_csr"]["distinct_ids"]
+    out["fixed_point_csr"].update(check_fused_pi(
+        lambda q: lda_estep.estep_fixed_point_csr_pi(*args, quantize=q),
+        lambda: lda_estep.estep_fixed_point_csr(*args),
+        lambda e, q: lda_estep.token_pi_csr(ids, cnts, segs, eb, e,
+                                            quantize=q),
+        "fixed_point_csr"))
+    out["fixed_point_csr"].update(check_bf16(
+        lambda: lda_estep.estep_fixed_point_csr_pi(*args,
+                                                   stream_dtype="bfloat16"),
+        lambda: lda_estep.estep_fixed_point_csr_pi(*args),
+        lambda: lda_estep.estep_fixed_point_csr_pi_plain(
+            *args, stream_dtype="bfloat16"), "fixed_point_csr", b))
+    shuffled = check_shuffled_csr(ids, cnts, segs, eb, gamma0, cfg)
+
+    # the path's launch: the fixed point with its π finish; the wrapper
+    # adds the sort by segment (sort_ms: sort and sorted search) and the
+    # two gathers of the ids and counts
     out["fixed_point_csr"].update(
-        ms=timer(lambda: lda_estep.estep_fixed_point_csr(*args), 10),
-        kernel_ms=kernel_ms(lambda: lda_estep.estep_fixed_point_csr(*args),
-                            "fixed_point_kernel"),
-        plain_ms=timer(lambda: lda_estep.estep_fixed_point_csr_plain(*args),
-                       2, 1),
-        library_ms=None,
+        ms=timer(lambda: lda_estep.estep_fixed_point_csr_pi(*args), 10),
+        ms_without_pi=timer(
+            lambda: lda_estep.estep_fixed_point_csr(*args), 10),
+        ms_bf16=timer(lambda: lda_estep.estep_fixed_point_csr_pi(
+            *args, stream_dtype="bfloat16"), 10),
+        kernel_ms=kernel_ms(
+            lambda: lda_estep.estep_fixed_point_csr_pi(*args),
+            "fixed_point_kernel"),
+        kernel_ms_without_pi=kernel_ms(
+            lambda: lda_estep.estep_fixed_point_csr(*args),
+            "fixed_point_kernel"),
+        kernel_ms_bf16=kernel_ms(lambda: lda_estep.estep_fixed_point_csr_pi(
+            *args, stream_dtype="bfloat16"), "fixed_point_kernel"),
+        sort_ms=timer(lambda: lda_estep.csr_doc_ranges(cnts, segs, b), 20),
+        plain_ms=timer(lambda: lda_estep.estep_fixed_point_csr_pi_plain(
+            *args), 2, 1),
+        library_ms=None, shuffled=shuffled,
         # phase 3 timed K1 on these documents, with this λ and γ₀
         same_docs_as_fixed_point=bool(np.array_equal(cb.rows,
                                                      np.arange(batch))))
@@ -787,10 +1010,15 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
             ids, cnts, segs, eb, et), 5),
         "bound_ms": bms, "bound_by": by, "library_ms": None}
 
-    # memo_delta_csr: K5 then K3 on the flat rows --------------------------
+    # memo_delta_csr: K5 then K3 on the flat rows, driven and counted -----
     pi_old = lda_estep.token_pi_csr(ids, cnts, segs, eb, pet)
+    lda_estep.reset_launches()
     pi, s_new, s_old = lda_estep.memo_delta_csr(ids, cnts, segs, eb, et, v,
                                                 old_pi=pi_old)
+    memo_delta_launches = dict(lda_estep.LAUNCHES)
+    check(memo_delta_launches["token_pi_csr"] == 1
+          and memo_delta_launches["segment_scatter"] == 1,
+          f"memo_delta_csr: {memo_delta_launches}")
     check(torch.allclose(pi, lda_estep.token_pi_csr_plain(
         ids, cnts, segs, eb, et), rtol=1e-5, atol=1e-6),
         "memo_delta_csr: π off its twin")
@@ -807,11 +1035,12 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
                     "distinct_ids": distinct,
                     "longest_doc": int(cb.doc_lengths.max())},
           "memo_delta_csr": {"max_abs_err_vs_fp64": err,
-                             "tol": "rtol=atol=1e-5 vs fp64"},
+                             "tol": "rtol=atol=1e-5 vs fp64",
+                             "launches": memo_delta_launches},
           "fixed_point_csr_grid": csr_grid(b, t, k, k4["kernel_ms"],
                                            k4["sweeps"]),
           "kernels": out})
-    return out
+    return out, memo_delta_launches
 
 
 def phase_serve_csr(device, spec, test, topics, batch, sync):
@@ -856,7 +1085,8 @@ def phase_serve_csr(device, spec, test, topics, batch, sync):
           f"serve_csr: π off by {errs['pi']}")
     check(torch.allclose(got.sstats, want.sstats, rtol=1e-2, atol=2e-3),
           f"serve_csr: sstats off by {errs['sstats']}")
-    check(all(launches[n] > 0 for n in CSR_KERNELS), f"serve_csr: {launches}")
+    check(all(launches[n] == 1 for n in CSR_KERNELS)
+          and sum(launches.values()) == 2, f"serve_csr: {launches}")
     emit({"phase": "serve_csr", "docs": n, "live_tokens": cb.live_tokens,
           "seconds": seconds, "docs_per_s": n / seconds,
           "launches": launches, "max_abs_err_vs_csr_ref": errs,
@@ -902,10 +1132,10 @@ def phase_train_csr(device, spec, train, test, topics, batch, sync):
             elbo.append(eng.full_bound())    # the bound epoch 2 starts from
         lpp.append(eng.evaluate()["lpp"])
     launches = dict(lda_estep.LAUNCHES)
-    check(all(launches[n] > 0 for n in CSR_KERNELS),
-          f"train_csr: a kernel of the path never launched: {launches}")
-    check(launches["fixed_point"] == launches["token_pi"] == 0,
-          f"train_csr: the padded path ran: {launches}")
+    updates = len(update_s)
+    check(all(launches[n] == updates for n in CSR_KERNELS)
+          and sum(launches.values()) == 2 * updates,
+          f"train_csr: not 2 launches an update over {updates}: {launches}")
     drops = [(a, b_) for a, b_ in zip(elbo, elbo[1:])
              if b_ < a - max(5e-3, 2e-6 * abs(a))]
     check(not drops, f"memoized ELBO decreased in epoch 2: {drops}")
@@ -959,9 +1189,17 @@ def phase_fixed_point_csr_warm(eng, kernels, timer):
     check(res["sweeps"] < cfg.estep_max_iters,
           f"warm K4 check: the batch ran to the cap ({res['sweeps']} "
           "sweeps), so the stopping rule was not exercised")
-    res["ms"] = timer(lambda: lda_estep.estep_fixed_point_csr(*args), 10)
+    res.update(check_fused_pi(
+        lambda q: lda_estep.estep_fixed_point_csr_pi(*args, quantize=q),
+        lambda: lda_estep.estep_fixed_point_csr(*args),
+        lambda e, q: lda_estep.token_pi_csr(*tok, eb, e, quantize=q),
+        "warm fixed_point_csr"))
+    res["ms"] = timer(lambda: lda_estep.estep_fixed_point_csr_pi(*args), 10)
+    res["ms_without_pi"] = timer(
+        lambda: lda_estep.estep_fixed_point_csr(*args), 10)
     res["kernel_ms"] = kernel_ms(
-        lambda: lda_estep.estep_fixed_point_csr(*args), "fixed_point_kernel")
+        lambda: lda_estep.estep_fixed_point_csr_pi(*args),
+        "fixed_point_kernel")
     kernels["fixed_point_csr"]["warm"] = res
     emit({"phase": "kernels_csr_warm", "fixed_point_csr": res,
           "fixed_point_csr_grid": csr_grid(
@@ -1376,7 +1614,8 @@ def main() -> int:
     info = phase_device()
     phase_build()
     spec, train, test = phase_data(device)
-    kernels = phase_kernels(device, spec, train, TOPICS, BATCH, cuda_ms)
+    kernels, memo_delta_launches = phase_kernels(device, spec, train, TOPICS,
+                                                 BATCH, cuda_ms)
     phase_serve(device, spec, test, TOPICS, BATCH, torch.cuda.synchronize)
     launches, eng = phase_train(device, spec, train, test, TOPICS, BATCH,
                                 torch.cuda.synchronize)
@@ -1385,8 +1624,9 @@ def main() -> int:
     phase_profile(lambda: eng.run_minibatch(next(batches)))
     del eng, batches
 
-    kernels.update(phase_kernels_csr(device, spec, train, TOPICS, BATCH,
-                                     cuda_ms))
+    kernels_csr, memo_delta_csr_launches = phase_kernels_csr(
+        device, spec, train, TOPICS, BATCH, cuda_ms)
+    kernels.update(kernels_csr)
     phase_serve_csr(device, spec, test, TOPICS, BATCH, torch.cuda.synchronize)
     launches_csr, eng = phase_train_csr(device, spec, train, test, TOPICS,
                                         BATCH, torch.cuda.synchronize)
@@ -1399,9 +1639,11 @@ def main() -> int:
     kernels.update(legacy)
     attention, launches_attention = phase_attention(device, cuda_ms)
     kernels.update(attention)
-    # each kernel's launches on the path that runs it
+    # each kernel's launches on the path that runs it: K2 and K5 on
+    # memo_delta / memo_delta_csr (the training paths run them fused)
     launches.update(fixed_point_csr=launches_csr["fixed_point_csr"],
-                    token_pi_csr=launches_csr["token_pi_csr"],
+                    token_pi=memo_delta_launches["token_pi"],
+                    token_pi_csr=memo_delta_csr_launches["token_pi_csr"],
                     **{n: launches_legacy[n] for n in LEGACY_KERNELS},
                     flash_attention=launches_attention["flash_attention"])
     kernels["segment_scatter"]["launches_csr"] = \

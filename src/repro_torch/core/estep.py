@@ -343,8 +343,8 @@ class DenseBackend(EStepBackend):
 
 class CudaBackend(EStepBackend):
     """The hand-written kernels (`repro_torch.kernels.ops`): one fixed-point
-    launch, then token π and the deterministic segment scatter — no
-    (B, L, K) Eφ gather and no dense (B, V) counts. On the padded contract
+    launch that ends by writing token π, then the deterministic segment
+    scatter — no (B, L, K) Eφ gather and no dense (B, V) counts. On the padded contract
     the fixed point (K1) stops per tile of ``cfg.kernel_policy.block_b``
     documents (default 128); on the flat contract (K4) it stops batch-wide,
     as ``gather`` does."""

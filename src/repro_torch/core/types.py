@@ -86,8 +86,9 @@ class LDAConfig:
     estep_max_iters: int = 100   # cap on the local fixed point
     estep_tol: float = 1e-4      # mean-abs-change convergence threshold
     estep_backend: str = "gather"  # "gather" | "dense" | "cuda" | "csr"
-    # dtype the fixed point streams its inputs in; only "float32" is
-    # implemented on the card (ROADMAP.md lists bf16 streaming)
+    # dtype the cuda fixed point streams Eφ in: "float32" or "bfloat16"
+    # (Eφ, and on the padded layout the counts, rounded through bf16, fp32
+    # arithmetic; π and the scatter stay fp32), as repro's pallas backend
     estep_stream_dtype: str = "float32"
     kernel_policy: Optional[KernelPolicy] = None
 

@@ -34,12 +34,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lda_fixed_point_blocks": [_I, _I, _I, _I],
     "lda_fixed_point_warps": [_I],
-    "lda_fixed_point": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                        _I, _I, _P],
+    "lda_fixed_point": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _I, _I, _P],
     "lda_token_pi": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "lda_segment_scatter": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
-    "lda_fixed_point_csr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I,
-                            _F, _F, _I, _P],
+    "lda_fixed_point_csr": [_P] * 12 + [_I, _I64, _I, _F, _F, _I, _I, _P],
     "lda_token_pi_csr": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "lda_fixed_point_max_k": [],
     "lda_dense_max_k": [],
@@ -122,7 +120,8 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         os.replace(tmp, outs[name])   # atomic: others see a whole file
         BUILD_INFO[name] = dict(
             seconds=seconds, command=" ".join(cmd),
-            ptxas=[ln.strip() for ln in log.splitlines() if "ptxas" in ln])
+            ptxas=[ln.strip() for ln in log.splitlines()
+                   if "ptxas" in ln or "spill" in ln])
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs

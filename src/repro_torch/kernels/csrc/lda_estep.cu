@@ -1,15 +1,21 @@
 // CUDA kernels of the LDA E-step (IVI, Algorithm 1) for Hopper (sm_90a).
 //
-// Three kernels carry one IVI update on the padded (B, L) layout:
-//   K1 fixed_point_kernel      the whole gamma fixed point of a mini-batch
-//   K2 token_pi_kernel         token-aligned responsibilities pi
+// Two launches carry one IVI update on the padded (B, L) layout:
+//   K1 fixed_point_kernel      the whole gamma fixed point of a mini-batch,
+//                              ending with a finish pass that writes the
+//                              token-aligned responsibilities pi (K2's
+//                              function, fused)
 //   K3 segment_scatter_kernel  S = sum cnt * pi into (V, K) at the token ids
-// and three on the flat CSR token stream (documents concatenated, one
+// and two on the flat CSR token stream (documents concatenated, one
 // segment id per token):
 //   K4 fixed_point_kernel      K1's kernel over each document's range of
-//                              the stream, as one tile: stopped batch-wide
-//   K5 csr_token_pi_kernel     flat pi (T, K)
+//                              the stream (sorted by segment on the
+//                              device), as one tile: stopped batch-wide;
+//                              its finish writes flat pi (K5's function)
 //   K3                         unchanged: flat rows are its native input
+// The standalone pi kernels stay behind memo_delta / memo_delta_csr:
+//   K2 token_pi_kernel         token-aligned pi
+//   K5 csr_token_pi_kernel     flat pi (T, K)
 // and three of the pre-fusion baseline (one launch per sweep over a dense
 // count matrix C (B, V), and the one-hot scatter it used):
 //   K6 sweep_kernel            one dense fixed-point sweep
@@ -98,47 +104,78 @@ __device__ __forceinline__ void exp_elog_theta(const float (&g)[KPL],
 // after max_sweeps; iters holds one count per tile.
 //
 // One cooperative launch runs every sweep of every tile. Row d's slots are
-// d*L ... d*L + L - 1 (the padded layout), or [offsets[d], offsets[d + 1])
-// of a flat stream when `offsets` is given (K4). They are split over W
-// warps (fp_warps_per_doc: 4 at L = 163), warp p taking the row's slots
-// p, p + W, p + 2W, ... (the padding at a row's end spreads over all W); W
-// and the split depend on the shape alone, so the bits do not depend on
-// the grid. Each warp sums its slots' cnt / (E[theta].Eφ[id] + 1e-30) *
-// Eφ[id] into a K-vector, with the Eφ rows of up to 4 live tokens loaded
-// before their reductions (no serial load -> reduce -> load chain); the W
-// vectors are summed in shared memory in warp order, and the document's
-// first warp writes gamma' = alpha0 + E[theta] * acc, its E[theta] (kept in
-// the E[theta] output between sweeps, so after the last sweep it holds
-// E[theta] of the final gamma) and the row's |d gamma| to the document's
-// slot of `delta`, double-buffered by sweep parity. After a grid sync every
-// block sums each running tile's slots in fixed 128-row chunks (one warp a
-// chunk, lanes strided over its slots, one butterfly), then the tile's
-// chunk sums in chunk order, so every block takes the same stop decision
-// from the same bits; a stopped tile does no more sweeps, and the launch
-// ends when every tile has stopped. A 128-row tile is one chunk, summed as
-// one warp summed the whole tile before the chunks existed, so K1's
-// outputs are bit-identical to that design's. Documents loop over the
-// co-resident grid (the wrapper refuses a grid that cannot be launched that
-// way). No atomics.
+// d*L ... d*L + L - 1 (the padded layout), or offsets[d] ... offsets[d +
+// 1] - 1 of the flat stream sorted by segment when `offsets` is given
+// (K4). They are
+// split over W warps (fp_warps_per_doc: 4 at L = 163), warp p taking the
+// row's slots p, p + W, p + 2W, ... (the padding at a row's end spreads
+// over all W); W and the split depend on the shape alone, so the bits do
+// not depend on the grid. Each warp sums its slots' cnt / (E[theta].Eφ[id]
+// + 1e-30) * Eφ[id] into a K-vector, with the Eφ rows of up to 4 live
+// tokens loaded before their reductions (no serial load -> reduce -> load
+// chain); the W vectors are summed in shared memory in warp order, and the
+// document's first warp writes gamma' = alpha0 + E[theta] * acc, its
+// E[theta] (kept in the E[theta] output between sweeps, so after the last
+// sweep it holds E[theta] of the final gamma) and the row's |d gamma| to
+// the document's slot of `delta`, double-buffered by sweep parity. After a
+// grid sync every block sums each running tile's slots in fixed 128-row
+// chunks (one warp a chunk, lanes strided over its slots, one butterfly),
+// then the tile's chunk sums in chunk order, so every block takes the same
+// stop decision from the same bits; a stopped tile does no more sweeps,
+// and the sweeps end when every tile has stopped. A 128-row tile is one
+// chunk, summed as one warp summed the whole tile before the chunks
+// existed, so K1's outputs are bit-identical to that design's. Documents
+// loop over the co-resident grid (the wrapper refuses a grid that cannot
+// be launched that way). No atomics.
+//
+// The sweeps and the finish take their counts and Eφ through separate
+// pointers: repro's estep_stream_dtype = "bfloat16" streams Eφ (and, on
+// the padded layout, the dense counts) rounded through bf16 into fp32
+// arithmetic, so the wrapper passes the sweeps copies rounded through bf16
+// (the same values a bf16 load widens to) and the finish the fp32 inputs.
+//
+// The finish (K2 and K5 fused, when `pi` is given): after the last sweep
+// each document's W warps walk their slots again, in the sweeps' order,
+// with the document's final E[theta] in registers (one load a warp), and
+// write pi = E[theta] * Eφ[id] / (sum_k E[theta] * Eφ[id] + 1e-30) from
+// the fp32 Eφ, rounded through bf16 with `quantize`: two tokens' rows in
+// flight, each row kept in registers between its dot and its store (read
+// once). The dot runs lane by lane over k = lane, lane + 32, ... < K,
+// then the same butterfly, each step the same explicitly rounded
+// intrinsic as K2's (pi_dot_step, pi_value), so pi has K2's and K5's
+// bits. Slots with count <= 0 get zero rows, and on the flat stream so
+// does every slot outside the document ranges (a grid-strided
+// loop over order[0, offsets[0]) and order[offsets[B], T)). The finish
+// runs after the sweeps and within their 64 registers a thread (no
+// spills, the same co-resident grid), so gamma, E[theta] and the sweep
+// counts have the same bits, and the sweeps the same speed, with and
+// without it.
 //
 // Bound: operations (4*K per live token per sweep, plus the digamma series
 // per row); the bytes it must move are the token rows and the distinct Eφ
-// rows, read once. At B = 1024, L = 163 about 4,096 warps are in flight: a
-// sweep costs about a quarter of the longest row's serial walk plus one
-// grid-wide sync.
+// rows, read once, plus pi written once with the finish. At B = 1024,
+// L = 163 about 4,096 warps are in flight: a sweep costs about a quarter
+// of the longest row's serial walk plus one grid-wide sync.
 //
 // K4: the gamma fixed point over a flat CSR token stream.
 //
 // Replaces _csr_fixed_point_kernel (repro/kernels/lda_estep.py:433). The
 // TPU kernel found each token's document through an iota == segments
-// selector matmul on the MXU; here each document's tokens are a contiguous
-// range of the stream (the wrapper derives the offsets from the segment
-// ids on the device), and K1's kernel runs with those ranges and the whole
-// batch as one tile, so the stop is batch-wide as repro's: the mean
-// |d gamma| over all B rows (rows that own no token included) and K
-// topics. W = fp_warps_per_doc(ceil(T / B)) (4 at T = 131,072, B = 1,024).
-// Bound: operations, as K1 (0.0459 ms for 60 sweeps on the Arxiv-shaped
-// first batch). A single warp walking a document's tokens as a chain of
+// selector matmul on the MXU, so any token order gives the same gamma; here
+// the wrapper sorts the slots by segment on the device (one stable sort of
+// T keys: the segment where the count is not 0, else B; no host sync) and
+// gathers the ids and counts in that order once, so each document's live
+// tokens are one contiguous range and the sweeps read no `order`; only
+// the finish reads it, to write each slot's pi row where the slot lies in
+// the stream. K1's kernel runs with those ranges and the whole batch as
+// one tile, so the stop is
+// batch-wide as repro's: the mean |d gamma| over all B rows (rows that own
+// no token included) and K topics. On a stream already grouped by segment
+// (the packer's) the live part of the order is the identity, so the warps
+// walk the same slots in the same order as without it. W =
+// fp_warps_per_doc(ceil(T / B)) (4 at T = 131,072, B = 1,024). Bound:
+// operations, as K1 (0.0459 ms for 60 sweeps on the Arxiv-shaped first
+// batch). A single warp walking a document's tokens as a chain of
 // dependent load -> reduce -> FMA steps took ~450 ns a token (4.19 ms cold
 // on an H100); here W warps share a document, each with four tokens'
 // loads in flight, and the stop sum after each grid sync is spread over
@@ -148,6 +185,7 @@ __device__ __forceinline__ void exp_elog_theta(const float (&g)[KPL],
 constexpr int kFpThreads = 256;
 constexpr int kFpWarps = kFpThreads / kWarp;
 constexpr int kStopChunk = 128;   // rows per partial sum of the stop test
+constexpr unsigned kAllLanes = 0xffffffffu;
 
 // Warps per document row of L slots: a power of two, about 48 slots each,
 // at most the block's warps.
@@ -157,8 +195,24 @@ int fp_warps_per_doc(int L) {
   return w;
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The steps of pi = t * e / (sum_k t * e + 1e-30), each an explicitly
+// rounded intrinsic, so no kernel's compilation contracts them another
+// way: K2, K5, K8 and K1/K4's finish form the same bits.
+__device__ __forceinline__ float pi_dot_step(float t, float e, float part) {
+  return __fmaf_rn(t, e, part);
+}
+__device__ __forceinline__ float pi_value(float t, float e, float p,
+                                          int quantize) {
+  const float v = __fdiv_rn(__fmul_rn(t, e), p);
+  return quantize ? round_bf16(v) : v;
+}
+
 // Warp p's share of one row's sweep: acc += ratio * Eφ[id] over the live
-// slots p, p + W, ... of the n slots at ids/cnts, in slot order.
+// slots p, p + W, ... of the n at ids/cnts, in slot order.
 template <int KPL>
 __device__ __forceinline__ void strided_partial(
     const int32_t* __restrict__ ids, const float* __restrict__ cnts, int n,
@@ -166,11 +220,15 @@ __device__ __forceinline__ void strided_partial(
     const float (&et)[KPL], float (&acc)[KPL], int lane) {
   constexpr int U = KPL <= 4 ? 4 : 2;   // tokens in flight per warp
   for (int i0 = p; i0 < n; i0 += W * kWarp) {
-    const int slot = i0 + W * lane;
-    const int32_t my_id = slot < n ? ids[slot] : 0;
-    const float my_cnt = slot < n ? cnts[slot] : 0.f;
+    const int i = i0 + W * lane;
+    int32_t my_id = 0;
+    float my_cnt = 0.f;
+    if (i < n) {
+      my_id = ids[i];
+      my_cnt = cnts[i];
+    }
     // count-0 slots (padding) contribute exactly 0: skip them
-    unsigned live = __ballot_sync(0xffffffffu, my_cnt != 0.f);
+    unsigned live = __ballot_sync(kAllLanes, my_cnt != 0.f);
     while (live) {
       float c[U], part[U], e[U][KPL];
       bool has[U];
@@ -179,8 +237,8 @@ __device__ __forceinline__ void strided_partial(
         has[u] = live != 0;   // warp-uniform
         const int t = has[u] ? __ffs(live) - 1 : 0;
         live &= live - 1;
-        c[u] = __shfl_sync(0xffffffffu, my_cnt, t);
-        const int32_t id = __shfl_sync(0xffffffffu, my_id, t);
+        c[u] = __shfl_sync(kAllLanes, my_cnt, t);
+        const int32_t id = __shfl_sync(kAllLanes, my_id, t);
         const float* e_row = eb + static_cast<size_t>(id) * K;
 #pragma unroll
         for (int j = 0; j < KPL; ++j) {
@@ -207,24 +265,145 @@ __device__ __forceinline__ void strided_partial(
   }
 }
 
+// Warp p's share of one row's finish: pi of the slots p, p + W, ... of the
+// n at ids/cnts, from the fp32 Eφ and the row's final E[theta] et, in slot
+// order; slot i's row is written at pi + ord[i] * K (pi + i * K without
+// ord), a zero row where the count is not > 0.
+template <int KPL>
+__device__ __forceinline__ void strided_pi(
+    const int32_t* __restrict__ ids, const float* __restrict__ cnts,
+    const int64_t* __restrict__ ord, int n, int p, int W,
+    const float* __restrict__ eb, int K, const float (&et)[KPL],
+    float* __restrict__ pi, int quantize, int lane) {
+  // two tokens in flight: four (the sweep's) push the kernel past its 64
+  // registers a thread, into spills
+  constexpr int U = 2;
+  for (int i0 = p; i0 < n; i0 += W * kWarp) {
+    const int i = i0 + W * lane;
+    int my_s = 0;   // the output row (the flat entry checks T < 2^31)
+    int32_t my_id = 0;
+    float my_cnt = 0.f;
+    if (i < n) {
+      my_s = ord != nullptr ? static_cast<int>(ord[i]) : i;
+      my_id = ids[i];
+      my_cnt = cnts[i];
+    }
+    const bool mine = my_cnt > 0.f;
+    for (unsigned dead = __ballot_sync(kAllLanes, i < n && !mine); dead;
+         dead &= dead - 1) {
+      float* out = pi + static_cast<int64_t>(
+                            __shfl_sync(kAllLanes, my_s, __ffs(dead) - 1)) * K;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int k = lane + j * kWarp;
+        if (k < K) out[k] = 0.f;
+      }
+    }
+    unsigned live = __ballot_sync(kAllLanes, mine);
+    while (live) {
+      float part[U], e[U][KPL];
+      int s[U];
+      bool has[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        has[u] = live != 0;   // warp-uniform
+        const int t = has[u] ? __ffs(live) - 1 : 0;
+        live &= live - 1;
+        s[u] = __shfl_sync(kAllLanes, my_s, t);
+        const int32_t id = __shfl_sync(kAllLanes, my_id, t);
+        const float* e_row = eb + static_cast<size_t>(id) * K;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const int k = lane + j * kWarp;
+          e[u][j] = has[u] && k < K ? __ldg(e_row + k) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // token_pi_row's dot: lane sums over k = lane, lane + 32, ... < K,
+        // the butterfly, then + 1e-30
+        part[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          if (lane + j * kWarp < K) {
+            part[u] = pi_dot_step(et[j], e[u][j], part[u]);
+          }
+        }
+        part[u] = __fadd_rn(warp_sum(part[u]), kEps);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (has[u]) {
+          float* out = pi + static_cast<int64_t>(s[u]) * K;
+#pragma unroll
+          for (int j = 0; j < KPL; ++j) {
+            const int k = lane + j * kWarp;
+            if (k < K) out[k] = pi_value(et[j], e[u][j], part[u], quantize);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Row d's slots: n of them at base (d*L and L on the padded layout, the
+// range offsets[d] ... offsets[d + 1] of the sorted flat stream).
+__device__ __forceinline__ void fp_row(const int64_t* __restrict__ offsets,
+                                       int L, int64_t d, int64_t& base,
+                                       int& n) {
+  base = offsets != nullptr ? offsets[d] : d * L;
+  n = offsets != nullptr ? static_cast<int>(offsets[d + 1] - base) : L;
+}
+
 // Stop-test chunks per tile of block_b rows.
 __host__ __device__ __forceinline__ int fp_chunks_per_tile(int block_b) {
   return (block_b + kStopChunk - 1) / kStopChunk;
 }
 
-// offsets: nullptr for the padded layout (row d is slots d*L ... d*L + L
-// - 1), else B + 1 range starts into the flat stream (L then only sets W).
+// The fixed point's arguments, as the host gathers them (the kernel takes
+// each as a __restrict__ parameter). offsets: nullptr for the padded
+// layout (row d is slots d*L ... d*L + L - 1), else B + 1 range starts
+// into the flat stream sorted by segment: ids and cnts are then the
+// stream's gathered in `order` (T slots; sorted position i is stream slot
+// order[i]), and L only sets W. cnts, eb: the counts and Eφ the sweeps
+// read (rounded through bf16 for the bf16 stream); cnts32, eb32: the fp32
+// ones the finish reads (the same pointers for the fp32 stream). pi:
+// nullptr for no finish.
+struct FpArgs {
+  const int32_t* ids;
+  const float* cnts;
+  const float* cnts32;
+  const int64_t* offsets;
+  const int64_t* order;
+  const float* eb;
+  const float* eb32;
+  const float* gamma0;
+  float* gamma;
+  float* et_out;
+  float* delta;
+  int32_t* iters;
+  float* pi;
+  int64_t T;
+  int B, L, K;
+  float alpha0, tol;
+  int max_sweeps, block_b, W, quantize;
+};
+
 template <int KPL>
 __global__ void __launch_bounds__(kFpThreads, 4)
     fixed_point_kernel(const int32_t* __restrict__ ids,
                        const float* __restrict__ cnts,
+                       const float* __restrict__ cnts32,
                        const int64_t* __restrict__ offsets,
+                       const int64_t* __restrict__ order,
                        const float* __restrict__ eb,
+                       const float* __restrict__ eb32,
                        const float* __restrict__ gamma0,
                        float* __restrict__ gamma, float* __restrict__ et_out,
                        float* __restrict__ delta, int32_t* __restrict__ iters,
-                       int B, int L, int K, float alpha0, float tol,
-                       int max_sweeps, int block_b, int W) {
+                       float* __restrict__ pi, int64_t T, int B, int L, int K,
+                       float alpha0, float tol, int max_sweeps, int block_b,
+                       int W, int quantize) {
   constexpr int KP = KPL * kWarp;
   cg::grid_group grid = cg::this_grid();
   const int nb = (B + block_b - 1) / block_b;
@@ -244,6 +423,8 @@ __global__ void __launch_bounds__(kFpThreads, 4)
   auto doc = [&](int r) {
     return (r * static_cast<int64_t>(gridDim.x) + blockIdx.x) * dpb + grp;
   };
+  int64_t base = 0;   // row d's n slots are ids/cnts + base
+  int n = 0;
 
   // stop[t]: the sweeps tile t ran once it stopped, 0 while it runs
   for (int t = threadIdx.x; t < nb; t += kFpThreads) stop[t] = 0;
@@ -282,11 +463,9 @@ __global__ void __launch_bounds__(kFpThreads, 4)
           et[j] = k < K ? et_out[d * K + k] : 0.f;
           acc[j] = 0.f;
         }
-        const int64_t lo = offsets != nullptr ? offsets[d] : d * L;
-        const int n = offsets != nullptr
-                          ? static_cast<int>(offsets[d + 1] - lo) : L;
-        strided_partial<KPL>(ids + lo, cnts + lo, n, p, W, eb, K, et, acc,
-                             lane);
+        fp_row(offsets, L, d, base, n);
+        strided_partial<KPL>(ids + base, cnts + base, n, p, W, eb, K, et,
+                             acc, lane);
 #pragma unroll
         for (int j = 0; j < KPL; ++j) part[warp * KP + lane + j * kWarp] = acc[j];
       }
@@ -296,11 +475,11 @@ __global__ void __launch_bounds__(kFpThreads, 4)
 #pragma unroll
         for (int j = 0; j < KPL; ++j) {
           const int k = lane + j * kWarp;
-          float a = part[warp * KP + lane + j * kWarp];
-          for (int q = 1; q < W; ++q) a += part[(warp + q) * KP + lane + j * kWarp];
+          float v = part[warp * KP + lane + j * kWarp];
+          for (int q = 1; q < W; ++q) v += part[(warp + q) * KP + lane + j * kWarp];
           g[j] = 0.f;
           if (k < K) {
-            g[j] = alpha0 + et[j] * a;
+            g[j] = alpha0 + et[j] * v;
             dsum += fabsf(g[j] - gamma[d * K + k]);
             gamma[d * K + k] = g[j];
           }
@@ -335,9 +514,9 @@ __global__ void __launch_bounds__(kFpThreads, 4)
     for (int t = threadIdx.x; t < nb; t += kFpThreads) {
       if (stop[t] != 0) continue;
       const int rows = min(block_b, B - t * block_b);
-      const int n = fp_chunks_per_tile(rows);
+      const int nc = fp_chunks_per_tile(rows);
       float total = csum[t * cpt];
-      for (int c = 1; c < n; ++c) total += csum[t * cpt + c];
+      for (int c = 1; c < nc; ++c) total += csum[t * cpt + c];
       if (total / static_cast<float>(static_cast<int64_t>(rows) * K) <= tol) {
         stop[t] = sweep + 1;
       }
@@ -357,6 +536,39 @@ __global__ void __launch_bounds__(kFpThreads, 4)
       iters[t] = stop[t] != 0 ? stop[t] : max_sweeps;
     }
   }
+  if (pi == nullptr) return;
+
+  // the finish: each document's E[theta] row was last written by its first
+  // warp, in this block, before the sweeps' last __syncthreads
+  for (int r = 0; r < rounds; ++r) {
+    const int64_t d = doc(r);
+    if (d >= B) continue;
+    float et[KPL];
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int k = lane + j * kWarp;
+      et[j] = k < K ? et_out[d * K + k] : 0.f;
+    }
+    fp_row(offsets, L, d, base, n);
+    const bool flat = offsets != nullptr;
+    strided_pi<KPL>(ids + base, cnts32 + base,
+                    flat ? order + base : nullptr, n, p, W, eb32, K, et,
+                    flat ? pi : pi + base * K, quantize, lane);
+  }
+  if (offsets != nullptr) {
+    // the flat slots no document range covers get zero rows
+    const int64_t head = offsets[0], tail = offsets[B];
+    const int64_t uncovered = head + (T - tail);
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kFpWarps + warp;
+         i < uncovered; i += static_cast<int64_t>(gridDim.x) * kFpWarps) {
+      float* out = pi + order[i < head ? i : tail + (i - head)] * K;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int k = lane + j * kWarp;
+        if (k < K) out[k] = 0.f;
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -370,21 +582,23 @@ __global__ void __launch_bounds__(kFpThreads, 4)
 // Bound: bytes, dominated by the (B, L, K) fp32 pi it writes. One warp per
 // token slot reads the Eφ row itself (no (B, L, K) gather is materialised
 // in torch, unlike the TPU path) and writes its K outputs coalesced; slots
-// with count 0 only write zeros.
+// with count 0 only write zeros. The IVI update forms the same pi in K1's
+// finish (the same bits); this launch serves memo_delta.
 // ---------------------------------------------------------------------------
 // pi of one live token slot across a warp: E[theta] row t_row times the
-// token's Eφ row, normalised (shared by K2 and K5).
+// token's Eφ row, normalised (shared by K2, K5 and K8; pi_dot_step and
+// pi_value keep its bits equal to K1/K4's finish).
 __device__ __forceinline__ void token_pi_row(float* out,
                                              const float* __restrict__ e_row,
                                              const float* __restrict__ t_row,
                                              int K, int lane, int quantize) {
   float part = 0.f;
-  for (int k = lane; k < K; k += kWarp) part += t_row[k] * __ldg(e_row + k);
-  const float p = warp_sum(part) + kEps;
   for (int k = lane; k < K; k += kWarp) {
-    float v = t_row[k] * __ldg(e_row + k) / p;
-    if (quantize) v = __bfloat162float(__float2bfloat16_rn(v));
-    out[k] = v;
+    part = pi_dot_step(t_row[k], __ldg(e_row + k), part);
+  }
+  const float p = __fadd_rn(warp_sum(part), kEps);
+  for (int k = lane; k < K; k += kWarp) {
+    out[k] = pi_value(t_row[k], __ldg(e_row + k), p, quantize);
   }
 }
 
@@ -654,7 +868,8 @@ __global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
 // body with the E[theta] row taken from the segment id instead of slot / L.
 //
 // Bound: bytes, dominated by the (T, K) fp32 pi it writes (slots with count
-// 0 only write zeros).
+// 0 only write zeros). The IVI update forms the same pi in K4's finish;
+// this launch serves memo_delta_csr.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(256)
     csr_token_pi_kernel(const int32_t* __restrict__ ids,
@@ -1167,38 +1382,29 @@ cudaError_t fp_grid(int B, int L, int block_b, int* blocks) {
 
 // K1 (offsets == nullptr) or K4 (L = ceil(T / B), block_b = B).
 template <int KPL>
-cudaError_t launch_fixed_point(const int32_t* ids, const float* cnts,
-                               const int64_t* offsets, const float* eb,
-                               const float* gamma0, float* gamma, float* et,
-                               float* delta, int32_t* iters, int B, int L,
-                               int K, float alpha0, float tol, int max_sweeps,
-                               int block_b, cudaStream_t stream) {
-  int W = fp_warps_per_doc(L), blocks = 0;
-  cudaError_t err = fp_grid<KPL>(B, L, block_b, &blocks);
+cudaError_t launch_fixed_point(FpArgs a, cudaStream_t stream) {
+  a.W = fp_warps_per_doc(a.L);
+  int blocks = 0;
+  const cudaError_t err = fp_grid<KPL>(a.B, a.L, a.block_b, &blocks);
   if (err != cudaSuccess) return err;
-  void* args[] = {&ids,   &cnts,  &offsets, &eb,     &gamma0,
-                  &gamma, &et,    &delta,   &iters,  &B,
-                  &L,     &K,     &alpha0,  &tol,    &max_sweeps,
-                  &block_b, &W};
+  void* args[] = {&a.ids,    &a.cnts,   &a.cnts32,     &a.offsets,
+                  &a.order,  &a.eb,     &a.eb32,       &a.gamma0,
+                  &a.gamma,  &a.et_out, &a.delta,      &a.iters,
+                  &a.pi,     &a.T,      &a.B,          &a.L,
+                  &a.K,      &a.alpha0, &a.tol,        &a.max_sweeps,
+                  &a.block_b, &a.W,     &a.quantize};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&fixed_point_kernel<KPL>), dim3(blocks),
-      dim3(kFpThreads), args, fp_smem_bytes(KPL, B, block_b), stream);
+      reinterpret_cast<const void*>(&fixed_point_kernel<KPL>),
+      dim3(blocks), dim3(kFpThreads), args,
+      fp_smem_bytes(KPL, a.B, a.block_b), stream);
 }
 
 // launch_fixed_point for K topics (KPL = ceil(K / 32) of 1 ... 8).
-cudaError_t dispatch_fixed_point(const int32_t* ids, const float* cnts,
-                                 const int64_t* offsets, const float* eb,
-                                 const float* gamma0, float* gamma, float* et,
-                                 float* delta, int32_t* iters, int B, int L,
-                                 int K, float alpha0, float tol,
-                                 int max_sweeps, int block_b,
-                                 cudaStream_t stream) {
-#define LDA_FP_CASE(N)                                                       \
-  case N:                                                                    \
-    return launch_fixed_point<N>(ids, cnts, offsets, eb, gamma0, gamma, et,  \
-                                 delta, iters, B, L, K, alpha0, tol,         \
-                                 max_sweeps, block_b, stream);
-  switch ((K + kWarp - 1) / kWarp) {
+cudaError_t dispatch_fixed_point(FpArgs a, cudaStream_t stream) {
+#define LDA_FP_CASE(N) \
+  case N:              \
+    return launch_fixed_point<N>(a, stream);
+  switch ((a.K + kWarp - 1) / kWarp) {
     LDA_FP_CASE(1)
     LDA_FP_CASE(2)
     LDA_FP_CASE(3)
@@ -1281,9 +1487,9 @@ int lda_fixed_point_blocks(int B, int L, int K, int block_b) {
   int blocks = 0;
   cudaError_t err = cudaErrorInvalidValue;
   const int kpl = (K + kWarp - 1) / kWarp;
-#define LDA_FP_GRID_CASE(N)                        \
-  case N:                                          \
-    err = fp_grid<N>(B, L, block_b, &blocks);      \
+#define LDA_FP_GRID_CASE(N)                              \
+  case N:                                                \
+    err = fp_grid<N>(B, L, block_b, &blocks);            \
     break;
   switch (kpl) {
     LDA_FP_GRID_CASE(1)
@@ -1304,16 +1510,41 @@ int lda_fixed_point_blocks(int B, int L, int K, int block_b) {
 // Warps per document of K1 and K4 for rows of L slots (K4: L = ceil(T / B)).
 int lda_fixed_point_warps(int L) { return fp_warps_per_doc(L); }
 
-// delta: 2 * B floats of scratch (the per-document |d gamma| slots).
+// K1 over a padded (B, L) batch. cnts (B, L) and eb = Eφ (V, K): fp32;
+// sweep_cnts and sweep_eb: what the sweeps read (the same pointers, or
+// copies rounded through bf16 for repro's bf16 stream of the dense counts
+// and Eφ). pi: nullptr, or the (B, L, K) output of the finish (from cnts
+// and eb, rounded through bf16 with quantize). delta: 2 * B floats of
+// scratch (the per-document |d gamma| slots).
 int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
+                    const float* sweep_cnts, const float* sweep_eb,
                     const float* gamma0, float* gamma, float* et,
-                    float* delta, int32_t* iters, int B, int L, int K,
-                    float alpha0, float tol, int max_sweeps, int block_b,
-                    void* stream) {
+                    float* delta, int32_t* iters, float* pi, int B, int L,
+                    int K, float alpha0, float tol, int max_sweeps,
+                    int block_b, int quantize, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
-  return dispatch_fixed_point(ids, cnts, nullptr, eb, gamma0, gamma, et,
-                              delta, iters, B, L, K, alpha0, tol, max_sweeps,
-                              block_b, static_cast<cudaStream_t>(stream));
+  FpArgs a{};
+  a.ids = ids;
+  a.cnts = sweep_cnts;
+  a.cnts32 = cnts;
+  a.eb = sweep_eb;
+  a.eb32 = eb;
+  a.gamma0 = gamma0;
+  a.gamma = gamma;
+  a.et_out = et;
+  a.delta = delta;
+  a.iters = iters;
+  a.pi = pi;
+  a.T = static_cast<int64_t>(B) * L;
+  a.B = B;
+  a.L = L;
+  a.K = K;
+  a.alpha0 = alpha0;
+  a.tol = tol;
+  a.max_sweeps = max_sweeps;
+  a.block_b = block_b;
+  a.quantize = quantize;
+  return dispatch_fixed_point(a, static_cast<cudaStream_t>(stream));
 }
 
 int lda_token_pi(const int32_t* ids, const float* cnts, const float* eb,
@@ -1328,21 +1559,49 @@ int lda_token_pi(const int32_t* ids, const float* cnts, const float* eb,
   return cudaGetLastError();
 }
 
-// K4 over a T-slot stream: document d's tokens are [offsets[d],
-// offsets[d + 1]); the whole batch is one stopping tile, iters one count;
+// K4 over a T-slot stream (T < 2^31): order (T) lists the slots sorted by
+// segment, ids and cnts are the stream's gathered in that order, and
+// document d's tokens are sorted positions offsets[d] ... offsets[d + 1] -
+// 1; the whole batch is one stopping tile, iters one count. eb / sweep_eb
+// as lda_fixed_point (the counts stay fp32 on this layout, as in repro).
+// pi: nullptr, or the flat (T, K) output of the finish, in stream order.
 // delta: 2 * B floats of scratch.
 int lda_fixed_point_csr(const int32_t* ids, const float* cnts,
-                        const int64_t* offsets, const float* eb,
+                        const int64_t* offsets, const int64_t* order,
+                        const float* eb, const float* sweep_eb,
                         const float* gamma0, float* gamma, float* et,
-                        float* delta, int32_t* iters, int B, int64_t T,
-                        int K, float alpha0, float tol, int max_sweeps,
-                        void* stream) {
+                        float* delta, int32_t* iters, float* pi, int B,
+                        int64_t T, int K, float alpha0, float tol,
+                        int max_sweeps, int quantize, void* stream) {
   cudaGetLastError();
-  if (B < 1 || T < 0) return cudaErrorInvalidValue;
-  const int L = static_cast<int>(std::min<int64_t>((T + B - 1) / B, 1 << 30));
-  return dispatch_fixed_point(ids, cnts, offsets, eb, gamma0, gamma, et,
-                              delta, iters, B, L, K, alpha0, tol, max_sweeps,
-                              B, static_cast<cudaStream_t>(stream));
+  if (B < 1 || T < 0 || T >= (int64_t{1} << 31) || offsets == nullptr ||
+      order == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  FpArgs a{};
+  a.ids = ids;
+  a.cnts = cnts;
+  a.cnts32 = cnts;
+  a.offsets = offsets;
+  a.order = order;
+  a.eb = sweep_eb;
+  a.eb32 = eb;
+  a.gamma0 = gamma0;
+  a.gamma = gamma;
+  a.et_out = et;
+  a.delta = delta;
+  a.iters = iters;
+  a.pi = pi;
+  a.T = T;
+  a.B = B;
+  a.L = static_cast<int>(std::min<int64_t>((T + B - 1) / B, 1 << 30));
+  a.K = K;
+  a.alpha0 = alpha0;
+  a.tol = tol;
+  a.max_sweeps = max_sweeps;
+  a.block_b = B;
+  a.quantize = quantize;
+  return dispatch_fixed_point(a, static_cast<cudaStream_t>(stream));
 }
 
 int lda_token_pi_csr(const int32_t* ids, const float* cnts,

@@ -2,7 +2,9 @@
 
 * ``estep_fixed_point`` (K1) — the whole γ fixed point of a mini-batch,
   with the TPU kernel's per-tile stopping rule; replaces
-  ``repro.kernels.lda_estep._fixed_point_kernel``.
+  ``repro.kernels.lda_estep._fixed_point_kernel``. ``estep_fixed_point_pi``
+  is the same launch ending with a finish that writes K2's π (the IVI
+  update's path).
 * ``token_pi`` (K2) — token-aligned π, optionally rounded through bf16;
   replaces ``_token_pi_kernel``.
 * ``segment_scatter`` (K3) — the deterministic segment sum of cnt·π into
@@ -10,10 +12,18 @@
 * ``memo_delta`` — K2 then K3, the counterpart of ``repro``'s
   ``memo_delta``.
 * ``estep_fixed_point_csr`` (K4) — the γ fixed point over a flat CSR token
-  stream, stopped batch-wide; replaces ``_csr_fixed_point_kernel``.
+  stream in any token order, stopped batch-wide; replaces
+  ``_csr_fixed_point_kernel``. ``estep_fixed_point_csr_pi`` ends with K5's
+  π.
 * ``token_pi_csr`` (K5) — flat π (T, K); replaces ``_csr_token_pi_kernel``.
 * ``memo_delta_csr`` — K5 then K3 on the flat rows, the counterpart of
   ``repro``'s ``memo_delta_csr``.
+
+K1 and K4 stream Eφ in fp32 or, with ``stream_dtype="bfloat16"``,
+rounded through bf16 (``repro``'s ``estep_stream_dtype``): the wrapper
+passes the sweeps a rounded fp32 copy of Eφ, and on the padded layout of
+the counts too (the flat layout keeps its counts fp32), and π is always
+formed from the fp32 Eφ and counts.
 
 The pre-fusion baseline (``ops.estep_cuda_sweeps`` and the retired
 scatter), kept to measure the fused kernels against:
@@ -39,6 +49,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 _EPS = 1e-30  # fp32-safe (1e-100 underflows to 0)
+
+#: The types K1 and K4 stream Eφ in (``LDAConfig.estep_stream_dtype``).
+STREAM_DTYPES = ("float32", "bfloat16")
 
 #: Launches of each kernel since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"fixed_point": 0, "token_pi": 0,
@@ -83,6 +96,32 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _max_k(lib, name: str, k: int) -> None:
+    if k > lib.lda_fixed_point_max_k():
+        raise ValueError(f"{name}: K={k} exceeds the kernel's "
+                         f"{lib.lda_fixed_point_max_k()} topics")
+
+
+def check_stream_dtype(stream_dtype: str) -> None:
+    """Raise for a type the fixed point does not stream, as ``repro``'s
+    ``_stream_cast`` does."""
+    if stream_dtype not in STREAM_DTYPES:
+        raise ValueError(f"unknown estep_stream_dtype: {stream_dtype}")
+
+
+def stream_round(x: torch.Tensor, stream_dtype: str) -> torch.Tensor:
+    """``x`` as the fixed point reads it when streamed in ``stream_dtype``:
+    rounded through bf16 for "bfloat16", as it is for "float32"."""
+    check_stream_dtype(stream_dtype)
+    if stream_dtype == "float32":
+        return x
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 # ---------------------------------------------------------------------------
 # K1: the γ fixed point
 # ---------------------------------------------------------------------------
@@ -109,10 +148,13 @@ def _exp_elog_theta(g: torch.Tensor) -> torch.Tensor:
 def estep_fixed_point_plain(token_ids: torch.Tensor, counts: torch.Tensor,
                             eb: torch.Tensor, gamma0: torch.Tensor,
                             alpha0: float, tol: float, max_iters: int, *,
-                            block_b: int = 128):
-    """Plain twin of K1: the same sweeps, tile by tile, in torch."""
+                            block_b: int = 128,
+                            stream_dtype: str = "float32"):
+    """Plain twin of K1: the same sweeps, tile by tile, in torch, on Eφ and
+    the counts as ``stream_dtype`` streams them."""
     b, k = gamma0.shape
-    ebt = eb[token_ids.long()]                         # (B, L, K)
+    ebt = stream_round(eb, stream_dtype)[token_ids.long()]   # (B, L, K)
+    counts = stream_round(counts, stream_dtype)
     sweeps_cap = max(int(max_iters), 1)
     gammas, sweeps = [], []
     for lo in range(0, b, block_b):
@@ -134,52 +176,105 @@ def estep_fixed_point_plain(token_ids: torch.Tensor, counts: torch.Tensor,
             torch.tensor(sweeps, dtype=torch.int32, device=gamma0.device))
 
 
+def estep_fixed_point_pi_plain(token_ids: torch.Tensor, counts: torch.Tensor,
+                               eb: torch.Tensor, gamma0: torch.Tensor,
+                               alpha0: float, tol: float, max_iters: int, *,
+                               block_b: int = 128,
+                               stream_dtype: str = "float32",
+                               quantize: bool = False):
+    """Plain twin of K1 with its finish: ``estep_fixed_point_plain``, then
+    ``token_pi_plain`` on its Eθ with the fp32 Eφ and counts."""
+    gamma, et, sweeps = estep_fixed_point_plain(
+        token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
+        block_b=block_b, stream_dtype=stream_dtype)
+    return gamma, et, sweeps, token_pi_plain(token_ids, counts, eb, et,
+                                             quantize=quantize)
+
+
 def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
                       eb: torch.Tensor, gamma0: torch.Tensor, alpha0: float,
-                      tol: float, max_iters: int, *, block_b: int = 128):
+                      tol: float, max_iters: int, *, block_b: int = 128,
+                      stream_dtype: str = "float32"):
     """The whole γ fixed point of a padded BOW batch (K1).
 
     Shapes: token_ids int32 / counts float32 (B, L), eb = Eφ (V, K),
     gamma0 (B, K) → (γ (B, K), Eθ (B, K), sweeps per B-tile (nb,) int32).
     Each tile of ``block_b`` documents sweeps until its mean |Δγ| over its
     real rows and topics is ≤ ``tol``, at most ``max(max_iters, 1)``
-    times; Eθ is recomputed from the final γ. On the card this is one
-    cooperative launch over a co-resident grid (several warps per
+    times; Eθ is recomputed from the final γ. With ``stream_dtype=
+    "bfloat16"`` the sweeps read Eφ and the counts rounded through bf16,
+    as ``repro`` streams its dense C and Eφ. On the card this
+    is one cooperative launch over a co-resident grid (several warps per
     document); a grid that cannot be launched that way raises. The token
     ids of a row must be unique (``corpus_from_docs`` makes them so) and
     padding slots carry count 0, which makes this the TPU kernel's
     dense-count function.
     """
+    return _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol,
+                        max_iters, block_b, stream_dtype, None)[:3]
+
+
+def estep_fixed_point_pi(token_ids: torch.Tensor, counts: torch.Tensor,
+                         eb: torch.Tensor, gamma0: torch.Tensor,
+                         alpha0: float, tol: float, max_iters: int, *,
+                         block_b: int = 128, stream_dtype: str = "float32",
+                         quantize: bool = False):
+    """K1 ending with K2's π: (γ, Eθ, sweeps, π (B, L, K)) in one launch.
+
+    γ, Eθ and the sweeps are ``estep_fixed_point``'s, bit for bit; π is
+    ``token_pi(token_ids, counts, eb, Eθ, quantize=quantize)``'s, bit for
+    bit, formed from the fp32 Eφ whatever ``stream_dtype`` streams.
+    """
+    return _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol,
+                        max_iters, block_b, stream_dtype, bool(quantize))
+
+
+def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
+                 block_b, stream_dtype, quantize):
+    """K1, with the finish unless ``quantize`` is None. Returns (γ, Eθ,
+    sweeps, π or None)."""
     b, l = token_ids.shape
     v, k = eb.shape
     _expect("token_ids", token_ids, torch.int32, (b, l))
     _expect("counts", counts, torch.float32, (b, l))
     _expect("eb", eb, torch.float32, (v, k))
     _expect("gamma0", gamma0, torch.float32, (b, k))
+    check_stream_dtype(stream_dtype)
     if block_b < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
+    with_pi = quantize is not None
     if _on_cpu(token_ids, counts, eb, gamma0):
-        return estep_fixed_point_plain(token_ids, counts, eb, gamma0, alpha0,
-                                       tol, max_iters, block_b=block_b)
+        args = (token_ids, counts, eb, gamma0, alpha0, tol, max_iters)
+        if with_pi:
+            return estep_fixed_point_pi_plain(
+                *args, block_b=block_b, stream_dtype=stream_dtype,
+                quantize=quantize)
+        return (*estep_fixed_point_plain(*args, block_b=block_b,
+                                         stream_dtype=stream_dtype), None)
     lib = build.load()
-    if k > lib.lda_fixed_point_max_k():
-        raise ValueError(f"estep_fixed_point: K={k} exceeds the kernel's "
-                         f"{lib.lda_fixed_point_max_k()} topics")
+    _max_k(lib, "estep_fixed_point", k)
     nb = -(-b // block_b)
     gamma = torch.empty_like(gamma0)
     et = torch.empty_like(gamma0)
     iters = torch.empty(nb, dtype=torch.int32, device=gamma0.device)
+    pi = (torch.empty((b, l, k), dtype=torch.float32, device=eb.device)
+          if with_pi else None)
     if b == 0:
-        return gamma, et, iters
+        return gamma, et, iters, pi
     delta = torch.empty(2 * b, dtype=torch.float32, device=gamma0.device)
+    # the sweeps' inputs as the stream rounds them (one cast each per call)
+    sweep_counts = stream_round(counts, stream_dtype)
+    sweep_eb = stream_round(eb, stream_dtype)
     rc = lib.lda_fixed_point(
         token_ids.data_ptr(), counts.data_ptr(), eb.data_ptr(),
-        gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(), delta.data_ptr(),
-        iters.data_ptr(), b, l, k, float(alpha0), float(tol),
-        max(int(max_iters), 1), block_b, _stream(gamma0))
+        sweep_counts.data_ptr(), sweep_eb.data_ptr(), gamma0.data_ptr(),
+        gamma.data_ptr(), et.data_ptr(), delta.data_ptr(), iters.data_ptr(),
+        _ptr(pi), b, l, k, float(alpha0), float(tol),
+        max(int(max_iters), 1), block_b, int(bool(quantize)),
+        _stream(gamma0))
     build.check(rc, "lda_fixed_point")
     LAUNCHES["fixed_point"] += 1
-    return gamma, et, iters
+    return gamma, et, iters, pi
 
 
 # ---------------------------------------------------------------------------
@@ -341,9 +436,7 @@ def segment_scatter_prepared(segments, counts: torch.Tensor,
     k = pi_new.shape[1]
     _expect("seg_off", seg_off, torch.int64, (vocab_size + 1,))
     lib = build.load()
-    if k > lib.lda_fixed_point_max_k():
-        raise ValueError(f"segment_scatter: K={k} exceeds the kernel's "
-                         f"{lib.lda_fixed_point_max_k()} topics")
+    _max_k(lib, "segment_scatter", k)
     s_new = torch.empty((vocab_size, k), dtype=torch.float32,
                         device=pi_new.device)
     s_old = None if pi_old is None else torch.empty_like(s_new)
@@ -397,13 +490,13 @@ def _live_end(counts: torch.Tensor) -> torch.Tensor:
 
 def check_csr_order(counts: torch.Tensor, segments: torch.Tensor,
                     num_docs: int) -> None:
-    """Raise unless the flat stream has the layout K4 relies on: the
+    """Raise unless the flat stream has the CSR packer's layout: the
     segments are non-decreasing over the slots up to the last live token
     (count != 0), and every live token's segment lies in [0, num_docs). So
     each document's tokens form one contiguous range. The CSR packer emits
     this (documents in order, padding with segment 0 after the last live
     token), and so does ``CSRBackend.flatten`` (each row's padding stays in
-    its row)."""
+    its row). K4 does not need it: it sorts the stream by segment."""
     end = int(_live_end(counts))
     segs = segments[:end].long()
     if bool((segs[1:] < segs[:-1]).any()):
@@ -415,32 +508,53 @@ def check_csr_order(counts: torch.Tensor, segments: torch.Tensor,
                          f"[0, {num_docs})")
 
 
-def csr_doc_offsets(counts: torch.Tensor, segments: torch.Tensor,
-                    num_docs: int) -> torch.Tensor:
-    """Each document's token range ``[offsets[d], offsets[d + 1])`` (int64,
-    (num_docs + 1,)), found on the device with no host sync under
-    ``check_csr_order``'s layout: the slots past the last live token (the
-    tail padding) are keyed ``num_docs``, which sorts the keys, and one
-    sorted search per document cuts the ranges. Documents that own no token
-    get empty ranges."""
-    pos = torch.arange(segments.numel(), dtype=torch.int64,
-                       device=segments.device)
-    key = torch.where(pos < _live_end(counts), segments.long(), num_docs)
-    return torch.searchsorted(
-        key, torch.arange(num_docs + 1, dtype=torch.int64,
-                          device=segments.device))
+def csr_doc_ranges(counts: torch.Tensor, segments: torch.Tensor,
+                   num_docs: int):
+    """K4's walk of a flat stream in any token order, found on the device
+    with no host sync: every slot is keyed by its segment where its count
+    is not 0, else by ``num_docs``; one stable sort of the T keys gives
+    ``order``, and a sorted search cuts it into each document's range
+    ``order[offsets[d]:offsets[d + 1]]``: its live tokens, in stream order
+    (on the packer's layout the live part of ``order`` is the identity).
+    Count-0 slots, and live tokens whose segment lies outside [0,
+    num_docs), fall outside every range (the keys are clamped to [-1,
+    num_docs], so below 2^15 documents they sort as int16: fewer radix
+    passes than int32).
+
+    Returns (order (T,) int64, offsets (num_docs + 1,) int64).
+    """
+    key = torch.where(counts != 0, segments.clamp(-1, num_docs), num_docs)
+    if num_docs < 2 ** 15:
+        key = key.to(torch.int16)
+    keys, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        keys, torch.arange(num_docs + 1, dtype=keys.dtype,
+                           device=keys.device))
+    return order, offsets
+
+
+def _in_range(counts: torch.Tensor, segments: torch.Tensor, num_docs: int):
+    """K4's view of a flat stream: the counts with every token whose
+    segment lies outside [0, num_docs) set to 0 (it belongs to no
+    document, as in ``repro``'s ``iota == segments`` selector), and the
+    segments clamped into range, as int64."""
+    inside = (segments >= 0) & (segments < num_docs)
+    return (torch.where(inside, counts, 0.0),
+            segments.long().clamp(0, max(num_docs - 1, 0)))
 
 
 def estep_fixed_point_csr_plain(token_ids: torch.Tensor, counts: torch.Tensor,
                                 segments: torch.Tensor, eb: torch.Tensor,
                                 gamma0: torch.Tensor, alpha0: float,
-                                tol: float, max_iters: int):
-    """Plain twin of K4: the same sweeps and batch-wide stop, in torch.
-    Checks ``check_csr_order`` first and raises where it fails."""
+                                tol: float, max_iters: int, *,
+                                stream_dtype: str = "float32"):
+    """Plain twin of K4: the same sweeps and batch-wide stop, in torch, on
+    Eφ as ``stream_dtype`` streams it (the counts stay fp32). The segment
+    sums (``index_add_``) take the tokens in any order; a token whose
+    segment lies outside [0, B) adds nothing."""
     b, k = gamma0.shape
-    check_csr_order(counts, segments, b)
-    ebt = eb[token_ids.long()]                         # (T, K)
-    segs = segments.long()
+    ebt = stream_round(eb, stream_dtype)[token_ids.long()]   # (T, K)
+    counts, segs = _in_range(counts, segments, b)
     g, n = gamma0, 0
     while n < max(int(max_iters), 1):
         et = _exp_elog_theta(g)
@@ -456,10 +570,28 @@ def estep_fixed_point_csr_plain(token_ids: torch.Tensor, counts: torch.Tensor,
             torch.tensor([n], dtype=torch.int32, device=gamma0.device))
 
 
+def estep_fixed_point_csr_pi_plain(token_ids: torch.Tensor,
+                                   counts: torch.Tensor,
+                                   segments: torch.Tensor, eb: torch.Tensor,
+                                   gamma0: torch.Tensor, alpha0: float,
+                                   tol: float, max_iters: int, *,
+                                   stream_dtype: str = "float32",
+                                   quantize: bool = False):
+    """Plain twin of K4 with its finish: ``estep_fixed_point_csr_plain``,
+    then ``token_pi_csr_plain`` on its Eθ with the fp32 Eφ (zero rows for
+    tokens whose segment lies outside [0, B))."""
+    gamma, et, sweeps = estep_fixed_point_csr_plain(
+        token_ids, counts, segments, eb, gamma0, alpha0, tol, max_iters,
+        stream_dtype=stream_dtype)
+    counts, segs = _in_range(counts, segments, gamma0.shape[0])
+    return gamma, et, sweeps, token_pi_csr_plain(
+        token_ids, counts, segs.to(torch.int32), eb, et, quantize=quantize)
+
+
 def estep_fixed_point_csr(token_ids: torch.Tensor, counts: torch.Tensor,
                           segments: torch.Tensor, eb: torch.Tensor,
                           gamma0: torch.Tensor, alpha0: float, tol: float,
-                          max_iters: int):
+                          max_iters: int, *, stream_dtype: str = "float32"):
     """The whole γ fixed point of a flat CSR batch (K4).
 
     Shapes: token_ids int32 / counts float32 / segments int32 (T,), eb = Eφ
@@ -467,13 +599,38 @@ def estep_fixed_point_csr(token_ids: torch.Tensor, counts: torch.Tensor,
     batch sweeps until the mean |Δγ| over all B rows (rows that own no
     token included) and K topics is ≤ ``tol``, at most ``max(max_iters,
     1)`` times, then Eθ is recomputed from the final γ: ``repro``'s
-    batch-wide rule. Precondition (``check_csr_order``): live tokens are
-    grouped by segment in non-decreasing order, as the CSR packer and
-    ``CSRBackend.flatten`` emit them; the plain twin checks it, the kernel
-    relies on it. On the card this is K1's cooperative launch over each
-    document's range of the stream, with the whole batch as one stopping
-    tile and ``ceil(T / B)`` setting the warps per document.
+    batch-wide rule. The tokens may come in any order, as in ``repro``.
+    With ``stream_dtype="bfloat16"`` the sweeps read Eφ rounded through
+    bf16 (the counts stay fp32, as ``repro``'s CSR path keeps them). On the
+    card this is K1's cooperative launch over each document's range of the
+    stream sorted by segment (``csr_doc_ranges``; the ids and counts
+    gathered in that order once a call), with the whole batch as one
+    stopping tile and ``ceil(T / B)`` setting the warps per document.
     """
+    return _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0,
+                            tol, max_iters, stream_dtype, None)[:3]
+
+
+def estep_fixed_point_csr_pi(token_ids: torch.Tensor, counts: torch.Tensor,
+                             segments: torch.Tensor, eb: torch.Tensor,
+                             gamma0: torch.Tensor, alpha0: float, tol: float,
+                             max_iters: int, *, stream_dtype: str = "float32",
+                             quantize: bool = False):
+    """K4 ending with K5's π: (γ, Eθ, sweeps, π (T, K)) in one launch.
+
+    γ, Eθ and the sweeps are ``estep_fixed_point_csr``'s, bit for bit; π is
+    ``token_pi_csr(..., Eθ, quantize=quantize)``'s, bit for bit, from the
+    fp32 Eφ, with zero rows for count-0 slots and for live tokens whose
+    segment lies outside [0, B).
+    """
+    return _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0,
+                            tol, max_iters, stream_dtype, bool(quantize))
+
+
+def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
+                     max_iters, stream_dtype, quantize):
+    """K4, with the finish unless ``quantize`` is None. Returns (γ, Eθ,
+    sweeps, π or None)."""
     (t,) = token_ids.shape
     v, k = eb.shape
     b = gamma0.shape[0]
@@ -482,28 +639,44 @@ def estep_fixed_point_csr(token_ids: torch.Tensor, counts: torch.Tensor,
     _expect("segments", segments, torch.int32, (t,))
     _expect("eb", eb, torch.float32, (v, k))
     _expect("gamma0", gamma0, torch.float32, (b, k))
+    check_stream_dtype(stream_dtype)
+    with_pi = quantize is not None
     if _on_cpu(token_ids, counts, segments, eb, gamma0):
-        return estep_fixed_point_csr_plain(token_ids, counts, segments, eb,
-                                           gamma0, alpha0, tol, max_iters)
+        args = (token_ids, counts, segments, eb, gamma0, alpha0, tol,
+                max_iters)
+        if with_pi:
+            return estep_fixed_point_csr_pi_plain(
+                *args, stream_dtype=stream_dtype, quantize=quantize)
+        return (*estep_fixed_point_csr_plain(*args,
+                                             stream_dtype=stream_dtype), None)
     lib = build.load()
-    if k > lib.lda_fixed_point_max_k():
-        raise ValueError(f"estep_fixed_point_csr: K={k} exceeds the kernel's "
-                         f"{lib.lda_fixed_point_max_k()} topics")
+    _max_k(lib, "estep_fixed_point_csr", k)
     gamma = torch.empty_like(gamma0)
     et = torch.empty_like(gamma0)
     iters = torch.zeros(1, dtype=torch.int32, device=gamma0.device)
+    pi = (torch.empty((t, k), dtype=torch.float32, device=eb.device)
+          if with_pi else None)
     if b == 0:
-        return gamma, et, iters
-    offsets = csr_doc_offsets(counts, segments, b)
+        if pi is not None:
+            pi.zero_()
+        return gamma, et, iters, pi
+    if t >= 2 ** 31:
+        raise ValueError(f"estep_fixed_point_csr: {t} slots exceed the "
+                         "kernel's 2^31")
+    order, offsets = csr_doc_ranges(counts, segments, b)
+    # the sweeps read each document's tokens as one contiguous run
+    ids_sorted, cnts_sorted = token_ids[order], counts[order]
     delta = torch.empty(2 * b, dtype=torch.float32, device=gamma0.device)
+    sweep_eb = stream_round(eb, stream_dtype)
     rc = lib.lda_fixed_point_csr(
-        token_ids.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-        eb.data_ptr(), gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(),
-        delta.data_ptr(), iters.data_ptr(), b, t, k, float(alpha0),
-        float(tol), max(int(max_iters), 1), _stream(gamma0))
+        ids_sorted.data_ptr(), cnts_sorted.data_ptr(), offsets.data_ptr(),
+        order.data_ptr(), eb.data_ptr(), sweep_eb.data_ptr(),
+        gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(), delta.data_ptr(),
+        iters.data_ptr(), _ptr(pi), b, t, k, float(alpha0), float(tol),
+        max(int(max_iters), 1), int(bool(quantize)), _stream(gamma0))
     build.check(rc, "lda_fixed_point_csr")
     LAUNCHES["fixed_point_csr"] += 1
-    return gamma, et, iters
+    return gamma, et, iters, pi
 
 
 # ---------------------------------------------------------------------------

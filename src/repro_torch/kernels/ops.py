@@ -3,17 +3,24 @@
 Padded (B, L) layout: ``estep_cuda`` is the counterpart of
 ``repro.kernels.ops.estep_pallas`` (serving, ``EStepBackend.solve``) and
 ``memo_correction_cuda`` of ``memo_correction_pallas`` (the IVI update,
-``solve_correction``). Each runs three kernel launches: the fixed point
-(K1), token π (K2) and the segment scatter (K3). No count matrix is
-densified: the fixed point works on the token layout directly.
+``solve_correction``). Each runs two kernel launches: the fixed point
+(K1), whose finish writes token π (K2's function), and the segment
+scatter (K3). No count matrix is densified: the fixed point works on the
+token layout directly.
 
 Flat CSR layout: ``estep_cuda_csr`` and ``memo_correction_cuda_csr`` are
 the counterparts of ``estep_pallas_csr`` and ``memo_correction_pallas_csr``
 (``solve_tokens`` / ``solve_correction_tokens``): the CSR fixed point (K4),
-flat π (K5) and K3. ``repro``'s ``csr_effective_block_t`` has no
-counterpart: it promotes the TPU kernel's token tile to the whole stream
-when it fits VMEM, and K4 has no token tile (each warp walks its
-document's range of the stream).
+whose finish writes flat π (K5's function), and K3; the tokens may come in
+any order. ``repro``'s ``csr_effective_block_t`` has no counterpart: it
+promotes the TPU kernel's token tile to the whole stream when it fits
+VMEM, and K4 has no token tile (each warp walks its document's range of
+the stream).
+
+``cfg.estep_stream_dtype`` is ``repro``'s: "bfloat16" streams Eφ through
+the fixed point rounded through bf16 (and, on the padded layout, the
+counts), with fp32 arithmetic; π and the scatter use the fp32 Eφ and
+counts.
 
 The pre-fusion baseline: ``estep_cuda_sweeps`` is the counterpart of
 ``estep_pallas_sweeps``: one dense sweep kernel (K6) launch per sweep,
@@ -60,11 +67,8 @@ def _check_pi_dtype(pi_dtype: str) -> None:
 
 def _fixed_point_start(cfg: LDAConfig, num_docs: int, device,
                        gamma0: Optional[torch.Tensor]) -> torch.Tensor:
-    """Refuse what the fixed-point kernels do not stream; γ₀ default."""
-    if cfg.estep_stream_dtype != "float32":
-        raise ValueError(
-            f"estep_stream_dtype={cfg.estep_stream_dtype!r}: the CUDA fixed "
-            "point streams float32 only (bf16 streaming: ROADMAP.md)")
+    """Refuse a stream type the fixed point does not know; γ₀ default."""
+    lda_estep.check_stream_dtype(cfg.estep_stream_dtype)
     if gamma0 is None:
         return torch.full((num_docs, cfg.num_topics), cfg.alpha0 + 1.0,
                           dtype=torch.float32, device=device)
@@ -73,26 +77,29 @@ def _fixed_point_start(cfg: LDAConfig, num_docs: int, device,
 
 def _run_fixed_point(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                      token_ids: torch.Tensor, counts: torch.Tensor,
-                     gamma0: Optional[torch.Tensor]):
-    """γ₀ default, then K1 with the policy's stopping tile. Returns
-    (γ, Eθ, the most sweeps of any tile)."""
+                     gamma0: Optional[torch.Tensor], quantize: bool):
+    """γ₀ default, then K1 with the policy's stopping tile and its π
+    finish. Returns (γ, the most sweeps of any tile, π)."""
     gamma0 = _fixed_point_start(cfg, token_ids.shape[0],
                                 exp_elog_beta.device, gamma0)
-    gamma, et, iters = lda_estep.estep_fixed_point(
+    gamma, _, iters, pi = lda_estep.estep_fixed_point_pi(
         token_ids, counts, exp_elog_beta, gamma0, cfg.alpha0,
         cfg.estep_tol, cfg.estep_max_iters,
-        block_b=resolve_policy(cfg).block_b)
-    return gamma, et, iters.max()
+        block_b=resolve_policy(cfg).block_b,
+        stream_dtype=cfg.estep_stream_dtype, quantize=quantize)
+    return gamma, iters.max(), pi
 
 
 def estep_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                token_ids: torch.Tensor, counts: torch.Tensor,
                gamma0: Optional[torch.Tensor] = None) -> EStepResult:
-    """Batched E-step: fixed point, then token π and its scatter."""
-    gamma, et, iters = _run_fixed_point(cfg, exp_elog_beta, token_ids,
-                                        counts, gamma0)
-    pi, snew = lda_estep.memo_delta(token_ids, counts, exp_elog_beta, et,
-                                    exp_elog_beta.shape[0])
+    """Batched E-step: the fixed point with its π finish, then the
+    scatter."""
+    gamma, iters, pi = _run_fixed_point(cfg, exp_elog_beta, token_ids,
+                                        counts, gamma0, False)
+    snew, _ = lda_estep.segment_scatter(
+        token_ids.reshape(-1), counts.reshape(-1),
+        pi.reshape(-1, pi.shape[-1]), None, exp_elog_beta.shape[0])
     return EStepResult(gamma=gamma, pi=pi, sstats=snew, iters=iters)
 
 
@@ -109,11 +116,13 @@ def memo_correction_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     """
     _check_pi_dtype(pi_dtype)
     gamma0 = warm_start_gamma(cfg, counts, old_pi, visited)
-    gamma, et, iters = _run_fixed_point(cfg, exp_elog_beta, token_ids,
-                                        counts, gamma0)
-    pi, snew, sold = lda_estep.memo_delta(
-        token_ids, counts, exp_elog_beta, et, exp_elog_beta.shape[0],
-        old_pi=old_pi, quantize=(pi_dtype == "bfloat16"))
+    gamma, iters, pi = _run_fixed_point(cfg, exp_elog_beta, token_ids,
+                                        counts, gamma0,
+                                        pi_dtype == "bfloat16")
+    k = pi.shape[-1]
+    snew, sold = lda_estep.segment_scatter(
+        token_ids.reshape(-1), counts.reshape(-1), pi.reshape(-1, k),
+        old_pi.reshape(-1, k), exp_elog_beta.shape[0])
     correction = snew - sold
     words_first = torch.where(~visited, counts.sum(-1), 0.0).sum()
     res = EStepResult(gamma=gamma, pi=pi, sstats=snew, iters=iters)
@@ -127,13 +136,15 @@ def memo_correction_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
 def _run_fixed_point_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                          token_ids: torch.Tensor, counts: torch.Tensor,
                          segments: torch.Tensor, num_docs: int,
-                         gamma0: Optional[torch.Tensor]):
-    """γ₀ default, then K4 (batch-wide stop). Returns (γ, Eθ, sweeps)."""
+                         gamma0: Optional[torch.Tensor], quantize: bool):
+    """γ₀ default, then K4 (batch-wide stop) with its π finish. Returns
+    (γ, sweeps, π)."""
     gamma0 = _fixed_point_start(cfg, num_docs, exp_elog_beta.device, gamma0)
-    gamma, et, iters = lda_estep.estep_fixed_point_csr(
+    gamma, _, iters, pi = lda_estep.estep_fixed_point_csr_pi(
         token_ids, counts, segments, exp_elog_beta, gamma0, cfg.alpha0,
-        cfg.estep_tol, cfg.estep_max_iters)
-    return gamma, et, iters[0]
+        cfg.estep_tol, cfg.estep_max_iters,
+        stream_dtype=cfg.estep_stream_dtype, quantize=quantize)
+    return gamma, iters[0], pi
 
 
 def estep_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
@@ -141,14 +152,13 @@ def estep_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                    segments: torch.Tensor,
                    gamma0: Optional[torch.Tensor] = None, *,
                    num_docs: int) -> EStepResult:
-    """Flat-token E-step (ragged serving): K4, then K5 and K3. The flat
-    (T,) stream's padding slots carry segment 0 and count 0; π comes back
-    flat (T, K)."""
-    gamma, et, iters = _run_fixed_point_csr(cfg, exp_elog_beta, token_ids,
+    """Flat-token E-step (ragged serving): K4 with its π finish, then K3.
+    The flat (T,) stream's padding slots carry count 0; π comes back flat
+    (T, K)."""
+    gamma, iters, pi = _run_fixed_point_csr(cfg, exp_elog_beta, token_ids,
                                             counts, segments, num_docs,
-                                            gamma0)
-    pi, snew = lda_estep.memo_delta_csr(token_ids, counts, segments,
-                                        exp_elog_beta, et,
+                                            gamma0, False)
+    snew, _ = lda_estep.segment_scatter(token_ids, counts, pi, None,
                                         exp_elog_beta.shape[0])
     return EStepResult(gamma=gamma, pi=pi, sstats=snew, iters=iters)
 
@@ -168,13 +178,11 @@ def memo_correction_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     num_docs = visited.shape[0]
     tok = CSRTokenBatch(token_ids, counts, segments)
     gamma0 = warm_start_gamma_flat(cfg, tok, old_pi, visited)
-    gamma, et, iters = _run_fixed_point_csr(cfg, exp_elog_beta, token_ids,
+    gamma, iters, pi = _run_fixed_point_csr(cfg, exp_elog_beta, token_ids,
                                             counts, segments, num_docs,
-                                            gamma0)
-    pi, snew, sold = lda_estep.memo_delta_csr(
-        token_ids, counts, segments, exp_elog_beta, et,
-        exp_elog_beta.shape[0], old_pi=old_pi,
-        quantize=(pi_dtype == "bfloat16"))
+                                            gamma0, pi_dtype == "bfloat16")
+    snew, sold = lda_estep.segment_scatter(token_ids, counts, pi, old_pi,
+                                           exp_elog_beta.shape[0])
     correction = snew - sold
     doc_words = segment_sum_docs(counts, segments, num_docs)
     words_first = torch.where(~visited, doc_words, 0.0).sum()

@@ -142,8 +142,9 @@ def _lane_sums(x):
 
 def _k4_order(ids, cnts, segs, eb, gamma0, alpha0, tol, max_iters):
     """The card's K4 order of summation, in fp32 torch: W warps per
-    document from ceil(T / B), warp p summing the live slots lo + p,
-    lo + p + W, ... of its document in slot order; the W partial vectors
+    document from ceil(T / B), warp p summing the live slots at positions
+    p, p + W, ... of its document's range of ``csr_doc_ranges``'s order
+    (stream order); the W partial vectors
     added in warp order; each row's |Δγ| summed lane by lane; the batch
     mean from 128-row chunk sums (lanes strided over the chunk, one
     butterfly) added in chunk order. Returns (γ, sweeps, W)."""
@@ -153,10 +154,12 @@ def _k4_order(ids, cnts, segs, eb, gamma0, alpha0, tol, max_iters):
     w = 1
     while w < 8 and w * 48 < rows_per_doc:
         w *= 2
-    offsets = lda_estep.csr_doc_offsets(cnts, segs, b)
+    order, offsets = lda_estep.csr_doc_ranges(cnts, segs, b)
     owner = segs.long()
     live = cnts != 0
-    warp = (torch.arange(t) - offsets[owner]) % w
+    rank = torch.empty(t, dtype=torch.int64)     # each slot's place in order
+    rank[order] = torch.arange(t)
+    warp = (rank - offsets[owner.clamp(0, b - 1)]) % w
     ebt = eb[ids.long()]
     g, n = gamma0, 0
     while n < max(int(max_iters), 1):
@@ -181,26 +184,30 @@ def _k4_order(ids, cnts, segs, eb, gamma0, alpha0, tol, max_iters):
 @pytest.mark.parametrize("start,budget,n_docs,max_len,want_w", [
     ("cold", 512, 17, 40, 1), ("phantom", 512, 17, 40, 1),
     ("cold", 2048, 17, 40, 4), ("phantom", 2048, 17, 40, 2),
-    ("cold", 4096, 300, 12, 1)])
+    ("cold", 4096, 300, 12, 1), ("shuffled", 2048, 17, 40, 4)])
 def test_k4_order_matches_pallas_kernel(start, budget, n_docs, max_len,
                                         want_w):
     """The card's K4 order of summation (``_k4_order``) against ``repro``'s
     CSR fixed point: γ at 2e-3 and the same batch-wide sweep count, with
     W = 1, 2 and 4 warps per document, phantom rows (7 more documents that
-    own no token) and, at 300 documents, a mean taken over three 128-row
-    chunks."""
+    own no token), at 300 documents a mean taken over three 128-row
+    chunks, and on a stream shuffled slot by slot (both sides fed the same
+    shuffled stream)."""
     batch, eb = _flat_batch(3, n_docs=n_docs, budget=budget, max_len=max_len)
     k, vocab = eb.shape[1], eb.shape[0]
     jcfg, _ = _configs(vocab, k, estep_tol=1e-3)
     b = batch.num_docs + (7 if start == "phantom" else 0)
     gamma0 = np.full((b, k), jcfg.alpha0 + 1.0, np.float32)
+    flat = (batch.token_ids, batch.counts, batch.segments)
+    if start == "shuffled":
+        perm = np.random.default_rng(3).permutation(budget)
+        flat = tuple(a[perm] for a in flat)
     jg, _, _, jit = j_ops._run_fixed_point_csr(
-        jcfg, jnp.asarray(eb), jnp.asarray(batch.token_ids),
-        jnp.asarray(batch.counts), jnp.asarray(batch.segments), b,
+        jcfg, jnp.asarray(eb), *map(jnp.asarray, flat), b,
         jnp.asarray(gamma0), 512)
     g, sweeps, w = _k4_order(
-        _t(batch.token_ids), _t(batch.counts), _t(batch.segments), _t(eb),
-        _t(gamma0), jcfg.alpha0, jcfg.estep_tol, jcfg.estep_max_iters)
+        *map(_t, flat), _t(eb), _t(gamma0), jcfg.alpha0, jcfg.estep_tol,
+        jcfg.estep_max_iters)
     assert w == want_w
     assert sweeps == int(jit) < jcfg.estep_max_iters
     _close(g, jg, 2e-3, 2e-3)
@@ -228,30 +235,54 @@ def test_csr_order_check_raises_on_shuffled_stream():
     perm = torch.from_numpy(np.random.default_rng(0).permutation(len(segs)))
     gamma0 = torch.full((batch.num_docs, eb.shape[1]), 1.5)
     with pytest.raises(ValueError, match="grouped by segment"):
-        lda_estep.estep_fixed_point_csr(
-            _t(batch.token_ids)[perm], counts[perm], segs[perm], _t(eb),
-            gamma0, 0.5, 1e-3, 10)
+        lda_estep.check_csr_order(counts[perm], segs[perm], batch.num_docs)
+    grouped = lda_estep.estep_fixed_point_csr(
+        _t(batch.token_ids), counts, segs, _t(eb), gamma0, 0.5, 1e-3, 10)
+    shuffled = lda_estep.estep_fixed_point_csr(
+        _t(batch.token_ids)[perm], counts[perm], segs[perm], _t(eb),
+        gamma0, 0.5, 1e-3, 10)
+    _close(shuffled[0], grouped[0], 1e-5, 1e-5)
     with pytest.raises(ValueError, match="outside"):
         lda_estep.check_csr_order(counts, segs, batch.num_docs - 1)
 
 
 def test_csr_doc_offsets_cut_each_documents_range():
-    """K4's document ranges, on the packer's layout (tail padding, three
-    phantom rows) and on ``flatten``'s (padding inside each row, empty
-    rows in the middle and at the end)."""
+    """K4's document ranges (``csr_doc_ranges``): on the packer's layout
+    (tail padding, three phantom rows) the offsets are the packer's and the
+    live part of the order is the identity; on ``flatten``'s (padding
+    inside each row, empty rows in the middle and at the end) each range
+    holds its row's live slots in stream order, and every count-0 slot
+    follows the last range, in stream order."""
     batch, _ = _flat_batch(6)
-    got = lda_estep.csr_doc_offsets(_t(batch.counts), _t(batch.segments), 20)
+    order, got = lda_estep.csr_doc_ranges(_t(batch.counts),
+                                          _t(batch.segments), 20)
     want = np.concatenate([batch.offsets,
                            np.full(20 - batch.num_docs, batch.live_tokens)])
     np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.arange(len(batch.counts)))
 
     cnts = torch.zeros(5, 4)
     cnts[0, :2] = 1.0
     cnts[2, :3] = 2.0                      # rows 1, 3 and 4 are empty
     flat = CSRBackend.flatten(BowBatch(torch.zeros(5, 4, dtype=torch.int32),
                                        cnts))
-    got = lda_estep.csr_doc_offsets(flat.counts, flat.segments, 5)
-    np.testing.assert_array_equal(got.numpy(), [0, 4, 8, 11, 11, 11])
+    order, got = lda_estep.csr_doc_ranges(flat.counts, flat.segments, 5)
+    np.testing.assert_array_equal(got.numpy(), [0, 2, 2, 5, 5, 5])
+    np.testing.assert_array_equal(
+        order.numpy(), [0, 1, 8, 9, 10, 2, 3, 4, 5, 6, 7, *range(11, 20)])
+
+
+def test_csr_doc_ranges_leave_out_of_range_segments_uncovered():
+    """A live token whose segment lies outside [0, B) is in no document's
+    range: a negative segment sorts before the first range, one at or
+    past B (70,000 included, which int16 keys could not hold unclamped)
+    after the last, with the count-0 slots."""
+    cnts = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0, 1.0])
+    segs = torch.tensor([1, -3, 0, 70_000, 0, 1], dtype=torch.int32)
+    order, offsets = lda_estep.csr_doc_ranges(cnts, segs, 2)
+    np.testing.assert_array_equal(offsets.numpy(), [1, 2, 4])
+    np.testing.assert_array_equal(order.numpy(), [1, 4, 0, 5, 2, 3])
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +347,147 @@ def test_memo_correction_cuda_csr_matches_pallas():
     with pytest.raises(ValueError, match="pi_dtype"):
         ops.memo_correction_cuda_csr(tcfg, _t(eb), *map(_t, args),
                                      pi_dtype="float16")
+
+
+def _shuffled(batch, seed):
+    """The batch's flat stream permuted slot by slot: live tokens no longer
+    grouped by segment, padding interleaved."""
+    perm = np.random.default_rng(seed).permutation(len(batch.token_ids))
+    return tuple(a[perm] for a in (batch.token_ids, batch.counts,
+                                   batch.segments))
+
+
+def _correction_inputs(batch, k, seed, b):
+    rng = np.random.default_rng(seed)
+    visited = rng.random(b) < 0.5
+    seg_visited = visited[batch.segments] & (batch.counts > 0)
+    old_pi = rng.random((len(batch.token_ids), k)) * seg_visited[:, None]
+    old_pi = (old_pi / np.maximum(old_pi.sum(-1, keepdims=True), 1e-30)
+              ).astype(np.float32)
+    return old_pi, visited
+
+
+def test_shuffled_stream_correction_matches_repro():
+    """``memo_correction_cuda_csr`` on a stream shuffled slot by slot
+    (``old_pi`` permuted with it), with phantom rows, against ``repro``'s
+    ``memo_correction_pallas_csr`` on the same shuffled stream: the
+    correction, γ and π at the bars of the grouped test, the same sweeps;
+    and γ equal to the grouped stream's within 1e-5."""
+    batch, eb = _flat_batch(12)
+    k, vocab = eb.shape[1], eb.shape[0]
+    jcfg, tcfg = _configs(vocab, k)
+    b = batch.num_docs + 3
+    old_pi, visited = _correction_inputs(batch, k, 12, b)
+    perm = np.random.default_rng(12).permutation(len(batch.token_ids))
+    args = (batch.token_ids[perm], batch.counts[perm], batch.segments[perm],
+            old_pi[perm], visited)
+    wc, ww, wres = j_ops.memo_correction_pallas_csr(
+        jcfg, jnp.asarray(eb), *map(jnp.asarray, args))
+    gc, gw, gres = ops.memo_correction_cuda_csr(tcfg, _t(eb),
+                                                *map(_t, args))
+    _close(gc, wc, 2e-3, 2e-3)
+    assert float(gw) == float(ww)
+    _close(gres.gamma, wres.gamma, 2e-3, 2e-3)
+    _close(gres.pi, wres.pi, 2e-3, 1e-4)
+    assert int(gres.iters) == int(wres.iters) < tcfg.estep_max_iters
+    grouped = ops.memo_correction_cuda_csr(
+        tcfg, _t(eb), _t(batch.token_ids), _t(batch.counts),
+        _t(batch.segments), _t(old_pi), _t(visited))
+    _close(gres.gamma, grouped[2].gamma, 1e-5, 1e-5)
+    _close(gres.pi, grouped[2].pi[_t(perm)], 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("entry", ["estep", "correction"])
+def test_csr_bf16_stream_matches_repro(entry):
+    """``estep_stream_dtype="bfloat16"`` on the flat layout:
+    ``estep_cuda_csr`` / ``memo_correction_cuda_csr`` against ``repro``'s
+    ``estep_pallas_csr`` / ``memo_correction_pallas_csr`` under the same
+    config: only Eφ streams as bf16 (one token's count of 257 stays 257),
+    fp32 arithmetic, π from the fp32 Eφ. γ, π and the correction at 2e-3,
+    γ also at 2e-4, the same sweeps; the fp32 stream's γ fails the 2e-3
+    comparison with ``repro`` that the bf16 stream passes."""
+    batch, eb = _flat_batch(13)
+    counts = batch.counts.copy()
+    counts[0] = 257.0
+    k, vocab = eb.shape[1], eb.shape[0]
+    jcfg, tcfg = _configs(vocab, k, estep_stream_dtype="bfloat16")
+    f32cfg = _configs(vocab, k)[1]
+    b = batch.num_docs
+    flat = (batch.token_ids, counts, batch.segments)
+    jargs = (jnp.asarray(eb), *map(jnp.asarray, flat))
+    targs = (_t(eb), *map(_t, flat))
+    if entry == "estep":
+        want = j_ops.estep_pallas_csr(jcfg, *jargs, num_docs=b)
+        got = ops.estep_cuda_csr(tcfg, *targs, num_docs=b)
+        fp32 = ops.estep_cuda_csr(f32cfg, *targs, num_docs=b)
+    else:
+        old_pi, visited = _correction_inputs(batch, k, 13, b)
+        wc, _, want = j_ops.memo_correction_pallas_csr(
+            jcfg, *jargs, jnp.asarray(old_pi), jnp.asarray(visited))
+        gc, _, got = ops.memo_correction_cuda_csr(
+            tcfg, *targs, _t(old_pi), _t(visited))
+        _close(gc, wc, 2e-3, 2e-3)
+        fp32 = ops.memo_correction_cuda_csr(f32cfg, *targs, _t(old_pi),
+                                            _t(visited))[2]
+    _close(got.gamma, want.gamma, 2e-3, 2e-3)
+    _close(got.pi, want.pi, 2e-3, 1e-4)
+    _close(got.sstats, want.sstats, 1e-2, 2e-3)
+    assert int(got.iters) == int(want.iters) < tcfg.estep_max_iters
+    assert float((fp32.gamma - got.gamma).abs().max()) > 2e-3
+    _close(got.gamma, want.gamma, 2e-4, 2e-4)
+    assert not np.allclose(fp32.gamma, want.gamma, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("stream_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_fused_csr_fixed_point_pi_is_token_pi_csr(stream_dtype, quantize):
+    """K4 with its π finish (``estep_fixed_point_csr_pi``) on a shuffled
+    stream with phantom rows: γ, Eθ and the sweeps are
+    ``estep_fixed_point_csr``'s, and π is ``token_pi_csr_plain``'s on that
+    Eθ with the fp32 Eφ, exactly."""
+    batch, eb = _flat_batch(14)
+    flat = tuple(map(_t, _shuffled(batch, 14)))
+    gamma0 = torch.full((batch.num_docs + 4, eb.shape[1]), 1.5)
+    args = (*flat, _t(eb), gamma0, 0.5, 1e-3, 50)
+    g, et, it, pi = lda_estep.estep_fixed_point_csr_pi(
+        *args, stream_dtype=stream_dtype, quantize=quantize)
+    alone = lda_estep.estep_fixed_point_csr(*args, stream_dtype=stream_dtype)
+    for x, y in zip((g, et, it), alone):
+        assert torch.equal(x, y)
+    assert torch.equal(pi, lda_estep.token_pi_csr_plain(
+        *flat, _t(eb), et, quantize=quantize))
+    with pytest.raises(ValueError, match="unknown estep_stream_dtype"):
+        lda_estep.estep_fixed_point_csr(*args, stream_dtype="float16")
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_fused_csr_fixed_point_drops_out_of_range_segments(quantize):
+    """Live tokens whose segment is -1 or B (a shuffled stream, phantom
+    rows) belong to no document, on the CPU as on the card and in
+    ``repro``'s selector: γ, Eθ and the sweeps of
+    ``estep_fixed_point_csr_pi`` equal those of the same stream with those
+    tokens' counts set to 0, and their π rows are zero, the other rows
+    equal."""
+    batch, eb = _flat_batch(15)
+    ids, cnts, segs = map(_t, _shuffled(batch, 15))
+    b = batch.num_docs + 2
+    live = torch.nonzero(cnts != 0).squeeze(1)
+    outside = live[:6]
+    segs = segs.clone()
+    segs[outside[:3]] = -1
+    segs[outside[3:]] = b
+    dropped = cnts.clone()
+    dropped[outside] = 0.0
+    gamma0 = torch.full((b, eb.shape[1]), 1.5)
+    tail = (_t(eb), gamma0, 0.5, 1e-3, 50)
+    g, et, it, pi = lda_estep.estep_fixed_point_csr_pi(
+        ids, cnts, segs, *tail, quantize=quantize)
+    wg, wet, wit, wpi = lda_estep.estep_fixed_point_csr_pi(
+        ids, dropped, segs.clamp(0, b - 1), *tail, quantize=quantize)
+    for x, y in zip((g, et, it, pi), (wg, wet, wit, wpi)):
+        assert torch.equal(x, y)
+    assert not bool(pi[outside].any())
+    assert int(it[0]) < 50
 
 
 # ---------------------------------------------------------------------------

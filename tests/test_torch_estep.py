@@ -232,11 +232,93 @@ def test_memo_correction_cuda_matches_pallas():
     assert int(gres.iters) == int(wres.iters)
 
 
+def _count_257_inputs(seed):
+    """``_inputs``'s documents with a count of 257 in row 0, which bf16
+    rounds to 256, and Eφ from peaked topics, so the fixed point stops
+    well before its cap."""
+    ids, cnts, _, vocab, k = _inputs(seed, b=20)
+    cnts = cnts.copy()
+    cnts[0, 0] = 257.0
+    rng = np.random.default_rng(seed)
+    lam = (rng.gamma(0.3, 2.0, (vocab, k)) + 0.05).astype(np.float32)
+    eb = np.asarray(j_eb(jnp.asarray(lam), axis=0))
+    return ids, cnts, eb, vocab, k
+
+
+def _old_pi(ids, cnts, k, seed):
+    rng = np.random.default_rng(seed)
+    visited = rng.random(ids.shape[0]) < 0.5
+    old_pi = (rng.random(ids.shape + (k,)) * visited[:, None, None]
+              * (cnts > 0)[:, :, None]).astype(np.float32)
+    old_pi /= np.maximum(old_pi.sum(-1, keepdims=True), 1e-30)
+    return old_pi, visited
+
+
+@pytest.mark.parametrize("entry", ["estep", "correction"])
+def test_bf16_stream_matches_repro(entry):
+    """``estep_stream_dtype="bfloat16"``: ``estep_cuda`` and
+    ``memo_correction_cuda`` (plain twins on CPU tensors) against
+    ``repro``'s ``estep_pallas`` / ``memo_correction_pallas`` under the
+    same config (Eφ and the dense counts streamed as bf16, fp32
+    arithmetic, π from the fp32 Eφ): γ, π and the correction at 2e-3 and
+    the same sweep count, γ also at 2e-4. Row 0 carries a count of 257,
+    which bf16 rounds to 256: the fp32 stream's γ of that row lies well
+    outside the bar, and its γ fails the 2e-3 comparison with ``repro``
+    that the bf16 stream passes."""
+    ids, cnts, eb, vocab, k = _count_257_inputs(5)
+    jcfg, tcfg = _configs(vocab, k, estep_stream_dtype="bfloat16")
+    f32cfg = _configs(vocab, k)[1]
+    jargs = (jnp.asarray(eb), jnp.asarray(ids), jnp.asarray(cnts))
+    targs = (_t(eb), _t(ids), _t(cnts))
+    if entry == "estep":
+        want = j_ops.estep_pallas(jcfg, *jargs)
+        got = ops.estep_cuda(tcfg, *targs)
+        fp32 = ops.estep_cuda(f32cfg, *targs)
+    else:
+        old_pi, visited = _old_pi(ids, cnts, k, 5)
+        wc, _, want = j_ops.memo_correction_pallas(
+            jcfg, *jargs, jnp.asarray(old_pi), jnp.asarray(visited))
+        gc, _, got = ops.memo_correction_cuda(tcfg, *targs, _t(old_pi),
+                                              _t(visited))
+        _close(gc, wc, 2e-3, 2e-3)
+        fp32 = ops.memo_correction_cuda(f32cfg, *targs, _t(old_pi),
+                                        _t(visited))[2]
+    _close(got.gamma, want.gamma, 2e-3, 2e-3)
+    _close(got.pi, want.pi, 2e-3, 1e-4)
+    _close(got.sstats, want.sstats, 1e-2, 2e-3)
+    assert int(got.iters) == int(want.iters) < tcfg.estep_max_iters
+    assert float((fp32.gamma[0] - got.gamma[0]).abs().max()) > 0.5
+    _close(got.gamma, want.gamma, 2e-4, 2e-4)
+    assert not np.allclose(fp32.gamma, want.gamma, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("stream_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_fused_fixed_point_pi_is_token_pi(stream_dtype, quantize):
+    """K1 with its π finish (``estep_fixed_point_pi``): γ, Eθ and the tile
+    sweeps are ``estep_fixed_point``'s, and π is ``token_pi_plain``'s on
+    that Eθ with the fp32 Eφ and counts, exactly (two stopping tiles)."""
+    ids, cnts, eb, vocab, k = _count_257_inputs(6)
+    ids, cnts = np.tile(ids, (8, 1)), np.tile(cnts, (8, 1))     # B = 160
+    gamma0 = torch.full((ids.shape[0], k), 1.5)
+    args = (_t(ids), _t(cnts), _t(eb), gamma0, 0.5, 1e-4, 50)
+    g, et, it, pi = lda_estep.estep_fixed_point_pi(
+        *args, stream_dtype=stream_dtype, quantize=quantize)
+    alone = lda_estep.estep_fixed_point(*args, stream_dtype=stream_dtype)
+    assert it.shape == (2,)
+    for x, y in zip((g, et, it), alone):
+        assert torch.equal(x, y)
+    assert torch.equal(pi, lda_estep.token_pi_plain(
+        _t(ids), _t(cnts), _t(eb), et, quantize=quantize))
+    with pytest.raises(ValueError, match="unknown estep_stream_dtype"):
+        lda_estep.estep_fixed_point_pi(*args, stream_dtype="float16")
+
+
 def test_cuda_backend_refuses_what_it_does_not_implement():
     ids, cnts, eb, vocab, k = _inputs(0)
     tcfg = LDAConfig(num_topics=k, vocab_size=vocab,
-                     estep_stream_dtype="bfloat16")
-    with pytest.raises(ValueError, match="bf16 streaming"):
+                     estep_stream_dtype="float16")
+    with pytest.raises(ValueError, match="unknown estep_stream_dtype"):
         get_backend("cuda").solve(tcfg, _t(eb), BowBatch(_t(ids), _t(cnts)))
     old_pi = torch.zeros(ids.shape + (k,))
     visited = torch.zeros(ids.shape[0], dtype=torch.bool)

@@ -1,8 +1,10 @@
 """Card-only tests: each CUDA kernel against its plain twin, K1–K3 at the
 main path's shapes (the Arxiv vocabulary V = 141,927, K = 100, B = 1024, L
 about 163), K4 at the path's shape flattened and on small flat CSR
-batches, K5 on a small flat CSR batch, K6–K9 (the pre-fusion
-baseline and flash attention) at small sizes. Whether a card is present is
+batches, K5 on a small flat CSR batch, K1/K4's π finish bit for bit
+against K2/K5, their bf16 stream against the twins, K4 on a shuffled
+stream, K6–K9 (the pre-fusion baseline and flash attention) at small
+sizes. Whether a card is present is
 decided inside the ``cuda`` fixture, so every worker collects the same
 tests; without a card they skip.
 
@@ -345,6 +347,160 @@ def test_csr_token_pi_kernel_matches_twin(csr_inputs, quantize):
         torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-38)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _seeded_gamma0(b, device, seed):
+    """γ₀ drawn per row and topic, so the path's batch stops before 25
+    sweeps at tol 0.03."""
+    return (1.0 + torch.rand((b, K), device=device,
+                             generator=torch.Generator(device)
+                             .manual_seed(seed))).contiguous()
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_fused_pi_bit_equals_k2(path_inputs, quantize):
+    """K1 with its π finish at the path's shape: γ, Eθ and the tile sweeps
+    bit-equal to K1 without it, and π bit-equal to K2 on K1's Eθ."""
+    ids, cnts, eb = path_inputs
+    args = (ids, cnts, eb, _seeded_gamma0(B, eb.device, 9), 0.5, 0.03, 25)
+    g, et, it, pi = lda_estep.estep_fixed_point_pi(*args, quantize=quantize)
+    alone = lda_estep.estep_fixed_point(*args)
+    want = lda_estep.token_pi(ids, cnts, eb, et, quantize=quantize)
+    torch.cuda.synchronize()
+    for x, y in zip((g, et, it), alone):
+        assert torch.equal(x, y)
+    assert torch.equal(pi, want)
+    assert int(it.max()) < 25
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_fused_csr_pi_bit_equals_k5(path_inputs, quantize):
+    """K4 with its π finish on the path's flat stream (1,024 documents in
+    131,072 slots) with 9 phantom rows: γ, Eθ and the sweeps bit-equal to
+    K4 without it, and π bit-equal to K5 on K4's Eθ (zero rows for the
+    tail padding)."""
+    ids, cnts, eb = path_inputs
+    flat = _flat_rows(ids, cnts, 131_072)
+    args = (*flat, eb, _seeded_gamma0(B + 9, eb.device, 10), 0.5, 0.03, 25)
+    g, et, it, pi = lda_estep.estep_fixed_point_csr_pi(*args,
+                                                       quantize=quantize)
+    alone = lda_estep.estep_fixed_point_csr(*args)
+    want = lda_estep.token_pi_csr(*flat, eb, et, quantize=quantize)
+    torch.cuda.synchronize()
+    for x, y in zip((g, et, it), alone):
+        assert torch.equal(x, y)
+    assert torch.equal(pi, want)
+    assert int(it[0]) < 25
+
+
+@pytest.mark.parametrize("layout", ["padded", "csr"])
+def test_bf16_fixed_point_kernels_match_twins(path_inputs, layout):
+    """K1 and K4 streaming Eφ (and, padded, the counts) rounded through
+    bf16 against their twins in the same mode: γ at 2e-3 and Eθ at 2e-3;
+    K4's batch-wide sweeps equal, K1's tile sweeps within 1 (a tile's mean
+    |Δγ| summed in another order can cross tol one sweep apart). In the
+    tiles whose sweeps agree γ is held at 2e-4, a bar that the fp32
+    stream's γ fails. The fused π equals K2/K5 on the fp32 Eφ bit for
+    bit."""
+    ids, cnts, eb = path_inputs
+    block = 128
+    if layout == "padded":
+        cnts = cnts.clone()
+        cnts[0, 0] = 257.0          # bf16 rounds it to 256
+        args = (ids, cnts, eb, _seeded_gamma0(B, eb.device, 11), 0.5, 0.03,
+                25)
+        g, et, it, pi = lda_estep.estep_fixed_point_pi(
+            *args, stream_dtype="bfloat16")
+        pg, pet, pit = lda_estep.estep_fixed_point_plain(
+            *args, stream_dtype="bfloat16")
+        g32 = lda_estep.estep_fixed_point(*args)[0]
+        want_pi = lda_estep.token_pi(ids, cnts, eb, et)
+        torch.cuda.synchronize()
+        assert int((it - pit).abs().max()) <= 1
+    else:
+        flat = _flat_rows(ids, cnts, 131_072)
+        args = (*flat, eb, _seeded_gamma0(B, eb.device, 11), 0.5, 0.03, 25)
+        g, et, it, pi = lda_estep.estep_fixed_point_csr_pi(
+            *args, stream_dtype="bfloat16")
+        pg, pet, pit = lda_estep.estep_fixed_point_csr_plain(
+            *args, stream_dtype="bfloat16")
+        g32 = lda_estep.estep_fixed_point_csr(*args)[0]
+        want_pi = lda_estep.token_pi_csr(*flat, eb, et)
+        torch.cuda.synchronize()
+        assert int(it[0]) == int(pit[0]) < 25
+        block = B
+    torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(et, pet, rtol=2e-3, atol=2e-3)
+    same = (it == pit).repeat_interleave(block)[:B]
+    assert bool(same.any())
+    torch.testing.assert_close(g[same], pg[same], rtol=2e-4, atol=2e-4)
+    assert not torch.allclose(g32[same], pg[same], rtol=2e-4, atol=2e-4)
+    assert torch.equal(pi, want_pi)
+
+
+def test_csr_fixed_point_kernel_on_shuffled_stream(path_inputs):
+    """K4 on the path's flat stream shuffled slot by slot (live tokens no
+    longer grouped by segment, padding interleaved): the twin's sweeps, γ
+    at 2e-3 and Eθ at rtol 1e-4 / atol 1e-6, the grouped stream's γ at
+    2e-3; the fused π bit-equal to K5 on the shuffled stream; and the
+    wrapper (sort, sorted search, launch) raises nothing under
+    ``set_sync_debug_mode("error")``."""
+    ids, cnts, eb = path_inputs
+    flat = _flat_rows(ids, cnts, 131_072)
+    perm = torch.randperm(131_072, generator=torch.Generator(eb.device)
+                          .manual_seed(12), device=eb.device)
+    shuffled = [x[perm].contiguous() for x in flat]
+    gamma0 = _seeded_gamma0(B, eb.device, 12)
+    args = (*shuffled, eb, gamma0, 0.5, 0.03, 25)
+    lda_estep.estep_fixed_point_csr_pi(*args)               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g, et, it, pi = lda_estep.estep_fixed_point_csr_pi(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pg, pet, pit = lda_estep.estep_fixed_point_csr_plain(*args)
+    grouped = lda_estep.estep_fixed_point_csr(*flat, eb, gamma0, 0.5, 0.03,
+                                              25)
+    want_pi = lda_estep.token_pi_csr(*shuffled, eb, et)
+    torch.cuda.synchronize()
+    assert int(it[0]) == int(pit[0]) < 25
+    torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(et, pet, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(g, grouped[0], rtol=2e-3, atol=2e-3)
+    assert torch.equal(pi, want_pi)
+
+
+def test_csr_fixed_point_kernel_drops_out_of_range_segments(path_inputs):
+    """K4 with its π finish on the path's flat stream where 64 live tokens
+    carry segment -1 and 64 carry B: as its twin, they belong to no
+    document. The twin's sweeps, γ at 2e-3, and the same launch on the
+    stream with those counts set to 0 bit for bit; their π rows are zero
+    and π equals K5's on that stream."""
+    ids, cnts, eb = path_inputs
+    flat_ids, flat_cnts, segs = _flat_rows(ids, cnts, 131_072)
+    outside = torch.nonzero(flat_cnts != 0).squeeze(1)[::700][:128]
+    segs = segs.clone()
+    segs[outside[:64]] = -1
+    segs[outside[64:]] = B
+    dropped = flat_cnts.clone()
+    dropped[outside] = 0.0
+    kept = segs.clamp(0, B - 1)
+    tail = (eb, _seeded_gamma0(B, eb.device, 13), 0.5, 0.03, 25)
+    g, et, it, pi = lda_estep.estep_fixed_point_csr_pi(
+        flat_ids, flat_cnts, segs, *tail)
+    pg, _, pit = lda_estep.estep_fixed_point_csr_plain(
+        flat_ids, flat_cnts, segs, *tail)
+    want = lda_estep.estep_fixed_point_csr_pi(flat_ids, dropped, kept, *tail)
+    want_pi = lda_estep.token_pi_csr(flat_ids, dropped, kept, eb, et)
+    torch.cuda.synchronize()
+    assert outside.numel() == 128
+    assert int(it[0]) == int(pit[0]) < 25
+    torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
+    for x, y in zip((g, et, it, pi), want):
+        assert torch.equal(x, y)
+    assert not bool(pi[outside].any())
+    assert torch.equal(pi, want_pi)
 
 
 def test_csr_backend_matches_gather_on_card(cuda):
