@@ -47,14 +47,39 @@ then the flat CSR token-stream path, on the same corpus:
  11. warm_csr  — the CSR fixed point against its twin from the trained
                memo's warm starts
  12. profile_csr — torch.profiler over a few more CSR updates
+then the paper's baselines, the host memo stores, length buckets and
+telemetry, each on the same corpus at the same widths:
+ 13. train_mvi — MVI, two epochs of 17 batches (K1 and K3 once a batch, the
+               tail padded with sentinel-row documents): λ − β₀ carries the
+               corpus's word mass, LPP above its start, the collapsed bound
+               finite; then full-batch IVI = MVI on 4,099 documents
+               (batch = D, three epochs), LPP within 5e-3: λ entry by
+               entry within rtol 1e-3 under the gather E-step's batch-wide
+               stop, as a whole (relative L1 1e-3) under K1's per-tile
+               stop
+ 14. train_svi — SVI, two padded epochs (K1 then K3): the first update's λ
+               against the same update through the plain path, tile by tile
+ 15. train_svi_csr — SVI on the CSR stream (K4 then K3), the first update
+               against the plain flat reference
+ 16. train_chunked — IVI with the bf16 host-chunked store, two epochs from
+               phase 5's λ₀: no memo bytes on the device, the memo
+               invariant, the memoized ELBO over epoch 2, LPP within 0.01 of
+               phase 5's, gather bit for bit what update wrote, footprints
+ 17. train_gamma — S-IVI with the γ-only store, two epochs; its footprint;
+               the reconstructed π against the dense store's after a write
+ 18. train_bucketed — IVI in length buckets, one epoch: every document
+               once, each batch at its bucket's width
+ 19. telemetry — a live bundle on each layout: the spans' split of an
+               update, the same λ bits without it, the disabled update's
+               host syncs against the parent's sequence, an armed watchdog
 then the pre-fusion baseline and attention:
- 13. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
+ 20. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
                one-hot memo delta (K8) on phase 3's documents, λ and γ₀:
                each kernel against its twin and timed; the whole E-step
                against the same loop over the twins; the legacy correction
                against the fused one (K1–K3), here and at BENCH_estep's
                shape (B = 128, V = 4096, K = 128, L = 64)
- 14. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
+ 21. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
                heads, 2 KV heads, hd = 128), B = 1, S = 4096, bf16, causal,
                against its twin, the same bits on two launches, timed beside
                scaled_dot_product_attention; the count of wgmma (HGMMA) and
@@ -638,15 +663,17 @@ def phase_serve(device, spec, test, topics, batch, sync):
 
 
 def memo_invariant_gap(eng, train, topics, device):
-    """⟨m_vk⟩ against Σ_d scatter(cnt·π_memo), rebuilt in fp64; fails
-    outside rtol 1e-3 / atol 1e-2. Returns the largest gap."""
+    """⟨m_vk⟩ against Σ_d scatter(cnt·π_memo), rebuilt in fp64 from the
+    memo store's ``gather``; fails outside rtol 1e-3 / atol 1e-2. Returns
+    the largest gap."""
+    import numpy as np
     import torch
     rebuilt = torch.zeros(eng.state.m_vk.shape, dtype=torch.float64,
                           device=device)
     for lo in range(0, eng.num_docs, 2048):
+        pi, _ = eng.memo.gather(np.arange(lo, min(lo + 2048, eng.num_docs)))
         ids = train.token_ids[lo:lo + 2048].reshape(-1).long()
-        w = (train.counts[lo:lo + 2048, :, None].double()
-             * eng.memo.pi[lo:lo + 2048].double())
+        w = train.counts[lo:lo + 2048, :, None].double() * pi.double()
         rebuilt.index_add_(0, ids, w.reshape(-1, topics))
     gap = float((eng.state.m_vk.double() - rebuilt).abs().max())
     check(torch.allclose(eng.state.m_vk.double(), rebuilt, rtol=1e-3,
@@ -672,7 +699,7 @@ def phase_train(device, spec, train, test, topics, batch, sync):
     update_s, docs, tokens, lpp, elbo = [], 0, 0.0, [], []
     lda_estep.reset_launches()
     for epoch in (1, 2):
-        for rows in eng.epoch_batches():
+        for rows, _ in eng.epoch_batches():
             sync()
             t0 = time.perf_counter()
             eng.run_minibatch(rows)
@@ -712,7 +739,7 @@ def phase_train(device, spec, train, test, topics, batch, sync):
     if device.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
-    return launches, eng
+    return launches, eng, out
 
 
 def phase_fixed_point_warm(eng, kernels, timer, max_batches=4):
@@ -729,7 +756,7 @@ def phase_fixed_point_warm(eng, kernels, timer, max_batches=4):
     cfg = eng.cfg
     eb = exp_dirichlet_expectation(eng.state.lam, axis=0).contiguous()
     checked, sweeps, first = [], [], None
-    for rows in eng.epoch_batches()[:max_batches]:
+    for rows, _ in eng.epoch_batches()[:max_batches]:
         idx = torch.as_tensor(rows, dtype=torch.int64, device=eng.device)
         ids = eng.corpus.token_ids[idx].contiguous()
         cnts = eng.corpus.counts[idx].contiguous()
@@ -1158,7 +1185,7 @@ def phase_train_csr(device, spec, train, test, topics, batch, sync):
     if device.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
-    return launches, eng
+    return launches, eng, out
 
 
 def phase_fixed_point_csr_warm(eng, kernels, timer):
@@ -1205,6 +1232,575 @@ def phase_fixed_point_csr_warm(eng, kernels, timer):
           "fixed_point_csr_grid": csr_grid(
               gamma0.shape[0], cb.token_budget, gamma0.shape[1],
               res["kernel_ms"], res["sweeps"])})
+
+
+# ---------------------------------------------------------------------------
+# the paper's baselines, the host memo stores, length buckets, telemetry
+# ---------------------------------------------------------------------------
+
+# full-batch IVI = MVI: 782,385 × 0.00524 = 4,099 documents, one batch
+FULL_BATCH_SCALE = 0.00524
+# ⟨m_vk⟩ against the bf16 store's memo (tests/test_estep_backend.py:85)
+CHUNKED_GAP = 2e-3
+# the γ-only store's π against the dense store's right after a write
+# (tests/test_estep_backend.py:111-131)
+GAMMA_PI_BAR = 2e-2
+# the paper's full Arxiv training set (data/synthetic.py)
+ARXIV_DOCS = 782_385
+
+
+def train_config(spec, topics):
+    from repro_torch.core.types import LDAConfig
+    return LDAConfig(num_topics=topics, vocab_size=spec.vocab_size,
+                     estep_max_iters=ESTEP_ITERS, estep_backend="cuda")
+
+
+def timed_epoch(eng, sync, after=None):
+    """One epoch of a materialized engine's mini-batches, each update timed
+    on the host clock between two syncs; ``after()`` runs after each update,
+    outside the timing. Returns the ms of each update and its width."""
+    ms, widths = [], []
+    for rows, width in eng.epoch_batches():
+        sync()
+        t0 = time.perf_counter()
+        eng.run_minibatch(rows, width=width)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        widths.append(width)
+        if after is not None:
+            after()
+    return ms, widths
+
+
+def timed_stream_steps(eng, sync, steps=None):
+    """Stream steps of an engine, each timed as ``timed_epoch`` times an
+    update, until the epoch ends (or ``steps`` steps)."""
+    ms = []
+    while steps is None or len(ms) < steps:
+        sync()
+        t0 = time.perf_counter()
+        stepped = eng.stream_step()
+        sync()
+        if not stepped:
+            break
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def check_two_launches(label, launches, updates, fixed_point):
+    """The path's fixed point (K1 or K4) and K3 once an update, nothing
+    else."""
+    check(launches[fixed_point] == launches["segment_scatter"] == updates
+          and sum(launches.values()) == 2 * updates,
+          f"{label}: not 2 launches an update over {updates}: {launches}")
+
+
+def median(ms):
+    import numpy as np
+    return float(np.median(ms))
+
+
+def phase_train_mvi(device, spec, train, test, topics, batch, sync):
+    """MVI (batch coordinate ascent) through LDAEngine, two epochs of 17
+    E-step batches (the tail padded with sentinel-row documents): K1 and K3
+    once a batch, λ − β₀ = Σ sstats carrying the corpus's word mass, LPP
+    above its start, the collapsed bound finite. Then full-batch IVI = MVI
+    on 4,099 documents (batch = D) over 3 epochs, under K1's per-tile stop
+    and under the gather E-step's batch-wide stop."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.kernels import lda_estep
+
+    cfg = train_config(spec, topics)
+    eng = LDAEngine(cfg, train, algo="mvi", batch_size=batch, seed=0,
+                    test_corpus=test, device=device)
+    words = float(train.num_words)
+    n_batches = -(-eng.num_docs // batch)
+    lpp = [eng.evaluate()["lpp"]]
+    epochs = []
+    for epoch in (1, 2):
+        lda_estep.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        eng.run_epoch()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(lda_estep.LAUNCHES)
+        check_two_launches(f"train_mvi epoch {epoch}", launches, n_batches,
+                           "fixed_point")
+        mass = float((eng.state.lam.double() - cfg.beta0).sum())
+        check(abs(mass - words) <= 1e-5 * words,
+              f"train_mvi: λ − β₀ holds {mass} words, the corpus {words}")
+        lpp.append(eng.evaluate()["lpp"])
+        bound = eng.full_bound()
+        check(bool(np.isfinite(bound)), f"train_mvi: bound {bound}")
+        epochs.append({"ms": ms, "ms_per_batch": ms / n_batches,
+                       "launches": launches, "mass_rel_err":
+                           abs(mass - words) / words,
+                       "collapsed_bound": bound})
+    check(all(np.isfinite(lpp)) and min(lpp[1:]) > lpp[0],
+          f"train_mvi: LPP {lpp} not above its start")
+    # the tail batch's phantom documents write α₀ + Σ 0·π into row D
+    sentinel = cfg.alpha0 + (0.0 if eng.num_docs % batch else 1.0)
+    check(bool(torch.all(eng._gamma_buf[-1] == sentinel)),
+          f"train_mvi: the sentinel row is not {sentinel}")
+
+    small = make_corpus(spec, split="train", seed=0, scale=FULL_BATCH_SCALE,
+                        device=device)
+    small_test = make_corpus(spec, split="test", seed=0,
+                             scale=FULL_BATCH_SCALE, device=device)
+    full = {backend: full_batch_ivi_vs_mvi(
+        dataclasses.replace(cfg, estep_backend=backend), small, small_test,
+        device) for backend in ("cuda", "gather")}
+    emit({"phase": "train_mvi", "algo": "mvi", "backend": "cuda",
+          "docs": eng.num_docs, "batch": batch, "batches_per_epoch":
+              n_batches, "tail_docs": eng.num_docs % batch,
+          "epochs": epochs, "lpp_start_then_epochs": lpp,
+          "full_batch": full})
+
+
+def full_batch_ivi_vs_mvi(cfg, train, test, device):
+    """IVI with batch = D against MVI over three epochs, from one λ₀: the
+    strongest check of the incremental bookkeeping (repro's
+    test_fullbatch_ivi_equals_mvi). The first epoch runs the same E-step
+    from the same start in both, so λ agrees to rounding. After it the
+    E-steps start from λs that differ by rounding (⟨m_vk⟩ = S₁ + (S₂ − S₁)
+    is not S₂ in fp32). Under the batch-wide stop (``gather``) λ stays
+    within rtol 1e-3 entry by entry; under K1's per-tile stop (``cuda``,
+    the Pallas kernel's rule) a tile can stop one sweep apart, which moves
+    single entries of λ (a rare word's λ is β₀ plus a few tokens' π) by
+    percents, so λ is held as a whole there (relative L1 1e-3). LPP within
+    5e-3 on both, repro's bar."""
+    import numpy as np
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.kernels import lda_estep
+
+    d = train.num_docs
+    mvi, ivi = (LDAEngine(cfg, train, algo=algo, batch_size=d, seed=0,
+                          test_corpus=test, device=device)
+                for algo in ("mvi", "ivi"))
+    lda_estep.reset_launches()
+    lam_err = []
+    for _ in range(3):
+        mvi.run_epoch()
+        ivi.run_minibatch(rows=np.arange(d))
+        diff = (ivi.state.lam - mvi.state.lam).double().abs()
+        lam_err.append({"max_rel": float((diff / mvi.state.lam).max()),
+                        "rel_l1": float(diff.sum()
+                                        / mvi.state.lam.double().sum()),
+                        "entries_over_1e-3": int(
+                            (diff > 1e-3 * mvi.state.lam).sum())})
+    launches = dict(lda_estep.LAUNCHES)
+    label = f"full batch ({cfg.estep_backend})"
+    if cfg.estep_backend == "cuda":
+        check_two_launches(label, launches, 6, "fixed_point")
+        check(lam_err[0]["max_rel"] < 1e-5 and lam_err[-1]["rel_l1"] < 1e-3,
+              f"{label}: IVI λ off MVI's: {lam_err}")
+    else:
+        check(sum(launches.values()) == 0, f"{label}: {launches}")
+        check(lam_err[-1]["max_rel"] < 1e-3,
+              f"{label}: IVI λ off MVI's: {lam_err}")
+    lm, li = mvi.evaluate()["lpp"], ivi.evaluate()["lpp"]
+    check(abs(lm - li) < 5e-3, f"{label}: IVI LPP {li} vs MVI {lm}")
+    return {"docs": d, "epochs": 3, "launches": launches, "lpp_mvi": lm,
+            "lpp_ivi": li, "lam_err_by_epoch": lam_err}
+
+
+def phase_train_svi(device, spec, train, test, topics, batch, sync, layout,
+                    ivi):
+    """SVI (eq. 3) through LDAEngine, two epochs, padded (K1 then K3) or on
+    the CSR stream (K4 then K3). The first update's λ is held to the same
+    update through the plain path: the gather E-step tile by tile (K1 stops
+    each 128-document tile) or the plain flat reference (K4 stops
+    batch-wide), at the sstats bar of phases 4 and 9 carried through the
+    update (rtol 1e-2, atol 2e-3·ρ·D/B)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LDAEngine, _svi_global_update
+    from repro_torch.core.estep import BowBatch, estep_csr_ref, get_backend
+    from repro_torch.core.math import exp_dirichlet_expectation
+    from repro_torch.core.types import DEFAULT_KERNEL_POLICY, init_global_state
+    from repro_torch.data.stream import CorpusDocStream
+    from repro_torch.kernels import lda_estep
+
+    cfg = train_config(spec, topics)
+    csr = layout == "csr"
+    corpus = CorpusDocStream(train, spec.vocab_size) if csr else train
+    eng = LDAEngine(cfg, corpus, algo="svi", batch_size=batch, seed=0,
+                    test_corpus=test, device=device, layout=layout,
+                    token_budget=CSR_BUDGET if csr else None)
+    lam0 = eng.state.lam.clone()
+    eb = exp_dirichlet_expectation(lam0, axis=0)
+    lda_estep.reset_launches()
+    if csr:
+        cb = first_csr_batch(corpus, batch, corpus.max_unique)
+        ms = timed_stream_steps(eng, sync, steps=1)
+        plain = estep_csr_ref(cfg, eb, *flat_tensors(cb, device),
+                              num_docs=batch)
+        check(int(eng.last_iters) == int(plain.iters),
+              f"train_svi_csr: {int(eng.last_iters)} sweeps, the plain "
+              f"reference {int(plain.iters)}")
+        sstats, b_real = plain.sstats, cb.num_docs
+    else:
+        batches = eng.epoch_batches()
+        rows = batches[0][0]
+        sync()
+        t0 = time.perf_counter()
+        eng.run_minibatch(rows)
+        sync()
+        ms = [(time.perf_counter() - t0) * 1e3]
+        idx = torch.as_tensor(rows, device=device)
+        ids, cnts = train.token_ids[idx], train.counts[idx]
+        tile = DEFAULT_KERNEL_POLICY.block_b
+        sstats = sum(get_backend("gather").solve(
+            cfg, eb, BowBatch(ids[i:i + tile], cnts[i:i + tile])).sstats
+            for i in range(0, len(rows), tile))
+        b_real = len(rows)
+    scale = eng.num_docs / b_real
+    want = _svi_global_update(cfg, init_global_state(cfg, device=device,
+                                                     lam0=lam0),
+                              sstats, scale).lam
+    atol = 2e-3 * scale * float(cfg.rho(1))
+    err = float((eng.state.lam - want).abs().max())
+    check(torch.allclose(eng.state.lam, want, rtol=1e-2, atol=atol),
+          f"train_svi ({layout}): first update's λ off the plain path by "
+          f"{err}")
+    lpp = []
+    for epoch in (1, 2):
+        if csr:
+            ms += timed_stream_steps(eng, sync)
+        else:
+            for rows, width in (batches[1:] if epoch == 1
+                                else eng.epoch_batches()):
+                sync()
+                t0 = time.perf_counter()
+                eng.run_minibatch(rows, width=width)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        lpp.append(eng.evaluate()["lpp"])
+    launches = dict(lda_estep.LAUNCHES)
+    check_two_launches(f"train_svi ({layout})", launches, len(ms),
+                       "fixed_point_csr" if csr else "fixed_point")
+    check(eng.docs_seen == 2 * eng.num_docs, f"train_svi: {eng.docs_seen}")
+    check(all(np.isfinite(lpp)) and bool(torch.isfinite(eng.state.lam).all()),
+          "train_svi: non-finite LPP or λ")
+    emit({"phase": "train_svi_csr" if csr else "train_svi", "algo": "svi",
+          "backend": "cuda", "layout": layout, "docs": eng.num_docs,
+          "batch": batch, "epochs": 2, "updates": len(ms),
+          "median_ms_per_update": median(ms),
+          "ivi_median_ms_per_update": ivi["median_ms_per_update"],
+          "launches": launches, "lpp": lpp,
+          "first_update_lam_max_abs_err_vs_plain": err,
+          "tol": f"rtol 1e-2, atol {atol}"})
+
+
+def allocated_by(make):
+    """(what ``make()`` returns, the device bytes it left allocated)."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    obj = make()
+    torch.cuda.synchronize()
+    return obj, torch.cuda.memory_allocated() - before
+
+
+def phase_train_chunked(device, spec, train, test, topics, batch, sync,
+                        dense):
+    """IVI with the bf16 host-chunked memo store, two padded epochs from
+    phase 5's λ₀ and seed: no memo bytes on the device, the memo
+    invariant, the memoized ELBO over epoch 2, LPP beside phase 5's,
+    gather returning what update wrote, and the footprints."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.core.memo import make_memo_store, memo_footprint_bytes
+    from repro_torch.kernels import lda_estep
+
+    cfg = train_config(spec, topics)
+    d, l = train.num_docs, train.max_unique
+
+    def engine(store):
+        return LDAEngine(cfg, train, algo="ivi", batch_size=batch, seed=0,
+                         test_corpus=test, device=device, memo_store=store)
+
+    probe, dense_bytes = allocated_by(lambda: engine("dense"))
+    del probe
+    eng, chunked_bytes = allocated_by(lambda: engine("chunked"))
+    _, store_bytes = allocated_by(lambda: make_memo_store(
+        "chunked", cfg, d, l, device=device))
+    drop = dense_bytes - chunked_bytes
+    check(store_bytes == 0, f"chunked store holds {store_bytes} device bytes")
+    check(drop >= d * l * topics * 4,
+          f"chunked engine saves {drop} device bytes, the dense memo is "
+          f"{d * l * topics * 4}")
+    host_bytes = eng.memo.footprint_bytes()
+    check(host_bytes == memo_footprint_bytes("chunked", d, l, topics)
+          == d * l * topics * 2 + d, f"chunked footprint {host_bytes}")
+    lda_estep.reset_launches()
+    ms, _ = timed_epoch(eng, sync)
+    check(float(eng.state.init_frac) == 0.0, "init mass not retired")
+    lpp = [eng.evaluate()["lpp"]]
+    elbo = [eng.full_bound()]
+    ms2, _ = timed_epoch(eng, sync,
+                         after=lambda: elbo.append(eng.full_bound()))
+    ms += ms2
+    lpp.append(eng.evaluate()["lpp"])
+    launches = dict(lda_estep.LAUNCHES)
+    check_two_launches("train_chunked", launches, len(ms), "fixed_point")
+    drops = [(a, b_) for a, b_ in zip(elbo, elbo[1:])
+             if b_ < a - max(5e-3, 2e-6 * abs(a))]
+    check(not drops, f"train_chunked: memoized ELBO decreased: {drops}")
+    lpp_gap = max(abs(a - b_) for a, b_ in zip(lpp, dense["lpp"]))
+    check(lpp_gap < 0.01, f"train_chunked: LPP {lpp} vs dense {dense['lpp']}")
+    gap = memo_invariant_gap(eng, train, topics, device)
+    check(gap < CHUNKED_GAP, f"train_chunked: memo invariant gap {gap}")
+    # one more update with update() spied on: gather returns its bf16 bits
+    store, written = eng.memo, {}
+    real_update = store.update
+
+    def spy(doc_idx, pi, **kw):
+        written["pi"] = pi.to(torch.bfloat16)
+        return real_update(doc_idx, pi, **kw)
+
+    rows = eng.epoch_batches()[0][0]
+    store.update = spy
+    try:
+        eng.run_minibatch(rows)
+    finally:
+        del store.update
+    got, visited = eng.memo.gather(rows)
+    check(bool(visited.all()) and torch.equal(got, written["pi"].float()),
+          "train_chunked: gather does not return the bf16 of what update "
+          "wrote")
+    full = {kind: memo_footprint_bytes(kind, ARXIV_DOCS, l, topics,
+                                       vocab_size=spec.vocab_size)
+            for kind in ("dense", "chunked", "gamma")}
+    emit({"phase": "train_chunked", "algo": "ivi", "memo_store": "chunked",
+          "chunk_docs": eng.memo.chunk_docs, "docs": d, "batch": batch,
+          "epochs": 2, "updates": len(ms),
+          "median_ms_per_update": median(ms),
+          "dense_median_ms_per_update": dense["median_ms_per_update"],
+          "launches": launches, "lpp": lpp, "dense_lpp": dense["lpp"],
+          "elbo_epoch2": elbo, "memo_invariant_gap": gap,
+          "gather_bit_equal_to_update": True,
+          "device_bytes": {"dense_engine": dense_bytes,
+                           "chunked_engine": chunked_bytes,
+                           "saved": drop, "chunked_store": store_bytes},
+          "host_memo_bytes": host_bytes,
+          "full_arxiv_footprint_bytes": full})
+
+
+def phase_train_gamma(device, spec, train, test, topics, batch, sync, dense):
+    """S-IVI with the γ-only store, two epochs (K1 and K3 once an update):
+    LPP finite and above its start, the footprint of γ plus three bf16 Eφ
+    snapshots; then, right after one write with chunk_docs = D, the
+    reconstructed π against the dense store's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.core.memo import memo_footprint_bytes
+    from repro_torch.kernels import lda_estep
+
+    cfg = train_config(spec, topics)
+    d, l = train.num_docs, train.max_unique
+    eng = LDAEngine(cfg, train, algo="sivi", batch_size=batch, seed=0,
+                    test_corpus=test, device=device, memo_store="gamma")
+    lpp = [eng.evaluate()["lpp"]]
+    lda_estep.reset_launches()
+    ms = []
+    for _ in (1, 2):
+        ms += timed_epoch(eng, sync)[0]
+        lpp.append(eng.evaluate()["lpp"])
+    launches = dict(lda_estep.LAUNCHES)
+    check_two_launches("train_gamma", launches, len(ms), "fixed_point")
+    check(all(np.isfinite(lpp)) and min(lpp[1:]) > lpp[0],
+          f"train_gamma: LPP {lpp} not above its start")
+    footprint = eng.memo.footprint_bytes()
+    want = memo_footprint_bytes("gamma", d, l, topics,
+                                vocab_size=spec.vocab_size)
+    check(footprint == want, f"train_gamma: footprint {footprint} != {want}")
+    del eng
+
+    def one_write(store):
+        e = LDAEngine(cfg, train, algo="sivi", batch_size=batch, seed=1,
+                      device=device, memo_store=store, chunk_docs=d)
+        e.run_minibatch(rows)
+        return e.memo.gather(rows)
+
+    rows = np.arange(batch)
+    pi_g, vis_g = one_write("gamma")
+    pi_d, vis_d = one_write("dense")
+    err = float((pi_g - pi_d).abs().max())
+    check(torch.equal(vis_g, vis_d) and torch.allclose(
+        pi_g, pi_d, rtol=GAMMA_PI_BAR, atol=GAMMA_PI_BAR),
+        f"train_gamma: reconstructed π off the dense store's by {err}")
+    emit({"phase": "train_gamma", "algo": "sivi", "memo_store": "gamma",
+          "docs": d, "batch": batch, "epochs": 2, "updates": len(ms),
+          "median_ms_per_update": median(ms),
+          "dense_ivi_median_ms_per_update": dense["median_ms_per_update"],
+          "launches": launches, "lpp_start_then_epochs": lpp,
+          "footprint_bytes": footprint,
+          "reconstructed_pi_max_abs_err_vs_dense": err,
+          "tol": f"rtol = atol = {GAMMA_PI_BAR}"})
+
+
+def phase_train_bucketed(device, spec, train, test, topics, batch, sync,
+                         dense):
+    """IVI with length buckets, one epoch: every document once, each batch
+    at its bucket's width (no row live past it), K1 and K3 once an
+    update."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.data.stream import _last_live
+    from repro_torch.kernels import lda_estep
+
+    cfg = train_config(spec, topics)
+    eng = LDAEngine(cfg, train, algo="ivi", batch_size=batch, seed=0,
+                    test_corpus=test, device=device, bucket_by_length=True)
+    last = _last_live(train.counts.cpu().numpy())
+    seen = np.zeros(eng.num_docs, np.int64)
+    stats = eng.bucket_stats
+    bucket_widths = {b["width"] for b in stats["per_bucket"]}
+    lda_estep.reset_launches()
+    ms = []
+    for rows, width in eng.epoch_batches():
+        check(width in bucket_widths and len(rows) <= batch
+              and int(last[rows].max()) <= width,
+              f"train_bucketed: a batch of {len(rows)} at width {width}")
+        seen[rows] += 1
+        sync()
+        t0 = time.perf_counter()
+        eng.run_minibatch(rows, width=width)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(lda_estep.LAUNCHES)
+    check_two_launches("train_bucketed", launches, len(ms), "fixed_point")
+    check(bool((seen == 1).all()) and eng.docs_seen == eng.num_docs
+          and bool(eng.memo.visited.all()),
+          "train_bucketed: not every document visited once")
+    check(float(eng.state.init_frac) == 0.0
+          and torch.allclose(eng.state.lam, cfg.beta0 + eng.state.m_vk,
+                             rtol=1e-5, atol=1e-5),
+          "train_bucketed: λ != β₀ + ⟨m_vk⟩ after the covering pass")
+    lpp = eng.evaluate()["lpp"]
+    check(bool(np.isfinite(lpp)), f"train_bucketed: LPP {lpp}")
+    emit({"phase": "train_bucketed", "algo": "ivi", "docs": eng.num_docs,
+          "batch": batch, "epochs": 1, "updates": len(ms),
+          "median_ms_per_update": median(ms),
+          "dense_ivi_median_ms_per_update": dense["median_ms_per_update"],
+          "slot_ratio": stats["slot_ratio"],
+          "per_bucket": stats["per_bucket"], "launches": launches,
+          "lpp": lpp})
+
+
+def parent_update(eng, rows):
+    """A padded IVI update as the parent tree's engine ran it, with no
+    telemetry hooks (``run_minibatch`` then ``_update_batch`` of PR 16):
+    the index copy, the memo gather, ``incremental_update``, the memo
+    write."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import incremental_update
+    idx = torch.as_tensor(np.asarray(rows), dtype=torch.int64,
+                          device=eng.device)
+    ids, cnts = eng.corpus.token_ids[idx], eng.corpus.counts[idx]
+    old_pi, visited = eng.memo.gather(rows, width=ids.shape[1])
+    eng.state, res, _ = incremental_update(
+        eng.cfg, eng.algo == "sivi", eng.state, ids, cnts, old_pi, visited,
+        eng.num_words_total, eng.memo.pi_wire_dtype)
+    eng.last_iters = res.iters
+    eng.memo = eng.memo.update(rows, res.pi)
+    eng.docs_seen += len(rows)
+
+
+def span_ms_per_update(tel):
+    """Each span's total over the run, per ``train/update``, in ms."""
+    from repro_torch.obs import spans_by_name
+    agg = spans_by_name(tel.trace.records)
+    n = agg["train/update"]["count"]
+    return {name: a["total_s"] * 1e3 / n for name, a in agg.items()}
+
+
+def phase_telemetry(device, spec, train, topics, batch, sync):
+    """Telemetry on the card, each layout: engines with a live bundle (spans
+    that wait for the card) beside engines without one, on the same
+    updates. The spans split an update's time; the bits of λ do not depend
+    on the bundle; the disabled update's host syncs are no more than the
+    parent's update sequence's; an armed raise-policy watchdog checking
+    every update sees no violation."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.data.stream import CorpusDocStream
+    from repro_torch.obs import ElboWatchdog, SpanRecorder, Telemetry
+
+    cfg = train_config(spec, topics)
+    out = {"phase": "telemetry"}
+
+    def bundle():
+        return Telemetry(trace=SpanRecorder(device_sync=True),
+                         watchdog=ElboWatchdog(check_every=1,
+                                               policy="raise"))
+
+    # padded: one covering pass (the watchdog arms at its last update), then
+    # two armed updates
+    tel = bundle()
+    on, off = (LDAEngine(cfg, train, algo="ivi", batch_size=batch, seed=0,
+                         device=device, telemetry=t) for t in (tel, None))
+    for eng in (on, off):
+        eng.run_epoch()
+        for rows, _ in eng.epoch_batches()[:2]:
+            eng.run_minibatch(rows)
+    check(torch.equal(on.state.lam, off.state.lam)
+          and torch.equal(on.state.m_vk, off.state.m_vk),
+          "telemetry: λ with the bundle differs from λ without it")
+    status = tel.watchdog.status()
+    check(status["ok"] and status["armed_checks"] >= 2,
+          f"telemetry: watchdog {status}")
+    rows = off.epoch_batches()
+    syncs = host_syncs(lambda: off.run_minibatch(rows[0][0]))
+    parent_syncs = host_syncs(lambda: parent_update(off, rows[1][0]))
+    check(syncs <= parent_syncs,
+          f"telemetry: the disabled update syncs {syncs} times, the parent "
+          f"sequence {parent_syncs}")
+    out["padded"] = {"updates": on._updates,
+                     "span_ms_per_update": span_ms_per_update(tel),
+                     "watchdog": status, "bit_equal_off_on": True,
+                     "host_syncs_disabled_update": syncs,
+                     "host_syncs_parent_update": parent_syncs,
+                     "counters": {n: tel.metrics.total(n) for n in (
+                         "train.docs", "train.batches", "train.tokens")}}
+    del on, off
+
+    # CSR: one epoch of stream steps; packing is the step's time outside
+    # its train/update span (no per-update watchdog here: its bound read
+    # would run inside the step)
+    tel = Telemetry(trace=SpanRecorder(device_sync=True))
+    stream = CorpusDocStream(train, spec.vocab_size)
+    on, off = (LDAEngine(cfg, stream, algo="ivi", batch_size=batch, seed=0,
+                         device=device, telemetry=t, layout="csr",
+                         token_budget=CSR_BUDGET) for t in (tel, None))
+    step_ms = timed_stream_steps(on, sync)
+    timed_stream_steps(off, sync)
+    check(torch.equal(on.state.lam, off.state.lam),
+          "telemetry: CSR λ with the bundle differs from λ without it")
+    spans = span_ms_per_update(tel)
+    out["csr"] = {"updates": len(step_ms), "span_ms_per_update": spans,
+                  "step_ms_mean": float(np.mean(step_ms)),
+                  "step_ms_median": median(step_ms),
+                  "pack_ms_per_update": float(np.mean(step_ms))
+                  - spans["train/update"],
+                  "unspanned_ms_per_update": spans["train/update"] - sum(
+                      spans[n] for n in ("train/memo_gather", "train/solve",
+                                         "train/memo_update")),
+                  "host_syncs_disabled_step": host_syncs(off.stream_step),
+                  "bit_equal_off_on": True}
+    emit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -1617,22 +2213,33 @@ def main() -> int:
     kernels, memo_delta_launches = phase_kernels(device, spec, train, TOPICS,
                                                  BATCH, cuda_ms)
     phase_serve(device, spec, test, TOPICS, BATCH, torch.cuda.synchronize)
-    launches, eng = phase_train(device, spec, train, test, TOPICS, BATCH,
-                                torch.cuda.synchronize)
+    launches, eng, ivi = phase_train(device, spec, train, test, TOPICS,
+                                     BATCH, torch.cuda.synchronize)
     phase_fixed_point_warm(eng, kernels, cuda_ms)
     batches = iter(eng.epoch_batches())
-    phase_profile(lambda: eng.run_minibatch(next(batches)))
+    phase_profile(lambda: eng.run_minibatch(next(batches)[0]))
     del eng, batches
 
     kernels_csr, memo_delta_csr_launches = phase_kernels_csr(
         device, spec, train, TOPICS, BATCH, cuda_ms)
     kernels.update(kernels_csr)
     phase_serve_csr(device, spec, test, TOPICS, BATCH, torch.cuda.synchronize)
-    launches_csr, eng = phase_train_csr(device, spec, train, test, TOPICS,
-                                        BATCH, torch.cuda.synchronize)
+    launches_csr, eng, ivi_csr = phase_train_csr(
+        device, spec, train, test, TOPICS, BATCH, torch.cuda.synchronize)
     phase_fixed_point_csr_warm(eng, kernels, cuda_ms)
     phase_profile(eng.stream_step, phase="profile_csr")
     del eng
+
+    sync = torch.cuda.synchronize
+    phase_train_mvi(device, spec, train, test, TOPICS, BATCH, sync)
+    phase_train_svi(device, spec, train, test, TOPICS, BATCH, sync, "padded",
+                    ivi)
+    phase_train_svi(device, spec, train, test, TOPICS, BATCH, sync, "csr",
+                    ivi_csr)
+    phase_train_chunked(device, spec, train, test, TOPICS, BATCH, sync, ivi)
+    phase_train_gamma(device, spec, train, test, TOPICS, BATCH, sync, ivi)
+    phase_train_bucketed(device, spec, train, test, TOPICS, BATCH, sync, ivi)
+    phase_telemetry(device, spec, train, TOPICS, BATCH, sync)
 
     legacy, launches_legacy = phase_legacy(device, spec, train, TOPICS, BATCH,
                                            cuda_ms)

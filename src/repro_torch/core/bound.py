@@ -4,15 +4,17 @@
   the objective IVI provably increases monotonically (§3).
 * ``elbo_collapsed`` — the bound with π analytically maximised given (γ, λ);
   cheaper, for monitoring.
-* ``elbo_memoized_stream`` — the memoized bound when the corpus is a
-  ``DocStream``, read chunk by chunk.
+* ``elbo_memoized_stream`` / ``elbo_collapsed_stream`` — the two bounds
+  when the corpus is a ``DocStream``, read chunk by chunk.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.math import dirichlet_elbo_term, dirichlet_expectation
+from repro_torch.core.estep import estep_gather
+from repro_torch.core.math import (dirichlet_elbo_term, dirichlet_expectation,
+                                   exp_dirichlet_expectation)
 from repro_torch.core.types import Corpus, LDAConfig
 from repro_torch.data.stream import iter_padded_chunks
 
@@ -116,4 +118,23 @@ def elbo_memoized_stream(cfg: LDAConfig, stream, store, lam: torch.Tensor,
         gamma = cfg.alpha0 + torch.einsum("blk,bl->bk", pi, cnts_t)
         total = total + _memoized_doc_terms(cfg, ids_t, cnts_t, gamma, pi,
                                             elog_beta)
+    return total + _topics_term(cfg, lam)
+
+
+def elbo_collapsed_stream(cfg: LDAConfig, stream, lam: torch.Tensor, *,
+                          batch_docs: int = 512) -> torch.Tensor:
+    """Collapsed corpus bound over a ``DocStream`` (the MVI/SVI monitoring
+    path): a fresh token-gather E-step per chunk, doc terms accumulated on
+    ``lam``'s device, the topics term once; never a full-corpus (D, L, K)
+    intermediate."""
+    elog_beta = dirichlet_expectation(lam, axis=0)
+    eb = exp_dirichlet_expectation(lam, axis=0)
+    total = torch.zeros((), dtype=torch.float32, device=lam.device)
+    for _start, ids, cnts in iter_padded_chunks(stream, batch_docs,
+                                                stream.max_unique):
+        ids_t = torch.from_numpy(ids).to(lam.device)
+        cnts_t = torch.from_numpy(cnts).to(lam.device)
+        res = estep_gather(cfg, eb, ids_t, cnts_t)
+        total = total + _collapsed_doc_terms(cfg, ids_t, cnts_t, res.gamma,
+                                             elog_beta)
     return total + _topics_term(cfg, lam)

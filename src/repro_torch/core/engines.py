@@ -1,5 +1,13 @@
-"""Single-host incremental engines for LDA: IVI and S-IVI.
+"""Single-host inference engines for LDA: MVI, SVI, IVI, S-IVI.
 
+All four consume the E-step through the ``EStepBackend`` contract and the
+incremental engines reach their π memo through ``MemoStore``; they differ
+only in how the global topic-word parameter λ is updated, the contrast the
+paper draws:
+
+* **MVI** (batch, Blei et al. 2003): λ = β₀ + Σ_d s_d after a full pass,
+  each document's E-step warm-started from its previous visit.
+* **SVI** (Hoffman et al. 2013, eq. 3): λ ← (1−ρ_t)λ + ρ_t(β₀ + (D/|B|)·s_B).
 * **IVI** (the paper, eq. 4 / Alg. 1): memoize per-document π; maintain the
   exact accumulator ⟨m_vk⟩ by subtract-old/add-new; λ = β₀ + ⟨m_vk⟩. No
   learning rate; monotone in the memoized ELBO once every document has
@@ -7,35 +15,114 @@
 * **S-IVI** (eq. 5): the IVI correction inside a Robbins–Monro average:
   λ ← (1−ρ_t)λ + ρ_t(β₀ + ⟨m_vk⟩⁺).
 
-Both consume the E-step through the ``EStepBackend`` contract and the memo
-through ``MemoStore``. The random-initialisation mass is carried explicitly
-(``init_mass``) and each document's pro-rata share retires on its first
-visit, so after one full pass ⟨m_vk⟩ == Σ_d s_d exactly.
+The random-initialisation mass is carried explicitly (``init_mass``) and
+each document's pro-rata share retires on its first visit, so after one
+full pass ⟨m_vk⟩ == Σ_d s_d exactly.
 
-``LDAEngine`` trains on a materialized padded ``Corpus`` or on a
-``DocStream`` (`repro_torch.data.stream`), packed per mini-batch in the
-padded layout at a ladder width or in the flat CSR layout
-(``incremental_update_csr``). MVI and SVI (``svi_step_csr`` with them), the
-corpus-side length buckets and telemetry are not ported yet (ROADMAP.md).
+``LDAEngine`` trains on a materialized padded ``Corpus`` (optionally in
+length buckets) or on a ``DocStream`` (`repro_torch.data.stream`), packed
+per mini-batch in the padded layout at a ladder width or in the flat CSR
+layout (``incremental_update_csr``, ``svi_step_csr``), with the dense,
+bf16-chunked or γ-only memo store and optional telemetry
+(`repro_torch.obs`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.bound import elbo_memoized_store, elbo_memoized_stream
-from repro_torch.core.estep import BowBatch, CSRTokenBatch, get_backend
+from repro_torch.core.bound import (elbo_collapsed, elbo_collapsed_stream,
+                                    elbo_memoized_store, elbo_memoized_stream)
+from repro_torch.core.estep import (BowBatch, CSRTokenBatch, estep,
+                                    estep_gather, get_backend)
 from repro_torch.core.math import exp_dirichlet_expectation
 from repro_torch.core.memo import MemoStore, make_memo_store
+from repro_torch.core.metrics import effective_topics
 from repro_torch.core.predictive import log_predictive, split_heldout
 from repro_torch.core.types import (Corpus, GlobalState, LDAConfig,
                                     init_global_state, resolve_device)
+from repro_torch.data.bow import bucket_corpus, bucket_padding_stats
 from repro_torch.data.stream import BatchPacker, CSRBatch, is_doc_stream
+from repro_torch.obs import as_telemetry
 
+
+# ---------------------------------------------------------------------------
+# MVI — batch coordinate ascent
+# ---------------------------------------------------------------------------
+
+def mvi_scan(cfg: LDAConfig, eb: torch.Tensor, ids_b: torch.Tensor,
+             cnts_b: torch.Tensor, doc_idx_b: torch.Tensor,
+             gamma_buf: torch.Tensor, sstats: torch.Tensor):
+    """The E-step over stacked batches, accumulating Σ_d s_d.
+
+    ids_b/cnts_b/doc_idx_b: (num_batches, B, ...). γ persists across epochs
+    in ``gamma_buf`` (D+1, K), updated in place: each document's E-step
+    resumes from α₀ + Σ_l cnt·π of its previous visit (batch coordinate
+    ascent, and the warm start the incremental engines use), so full-batch
+    IVI and MVI follow one trajectory. Row D is the sentinel slot the tail
+    batch's padding reads and writes: every such write is α₀ + Σ 0·π = α₀,
+    so which duplicate lands last does not matter. Returns (sstats,
+    gamma_buf).
+    """
+    for ids, cnts, idx in zip(ids_b, cnts_b, doc_idx_b):
+        res = estep(cfg, eb, ids, cnts, gamma_buf[idx])
+        gamma_buf[idx] = cfg.alpha0 + torch.einsum("blk,bl->bk", res.pi,
+                                                   cnts)
+        sstats = sstats + res.sstats
+    return sstats, gamma_buf
+
+
+# ---------------------------------------------------------------------------
+# SVI — stochastic natural gradient (eq. 3)
+# ---------------------------------------------------------------------------
+
+def _svi_global_update(cfg: LDAConfig, state: GlobalState,
+                       sstats: torch.Tensor, scale) -> GlobalState:
+    """λ ← (1−ρ_t)λ + ρ_t(β₀ + scale·s_B), in place; bumps ``t``."""
+    lam_hat = cfg.beta0 + scale * sstats
+    rho = cfg.rho(state.t + 1)
+    state.lam.copy_((1.0 - rho) * state.lam + rho * lam_hat)
+    state.t.add_(1)
+    return state
+
+
+def svi_step(cfg: LDAConfig, state: GlobalState, ids: torch.Tensor,
+             cnts: torch.Tensor, num_docs_total: float):
+    """Eq. 3 on a padded (B, W) batch, the state updated in place (``repro``
+    donates it). Returns (state, fixed-point sweeps)."""
+    eb = exp_dirichlet_expectation(state.lam, axis=0)
+    res = estep(cfg, eb, ids, cnts)
+    state = _svi_global_update(cfg, state, res.sstats,
+                               num_docs_total / ids.shape[0])
+    return state, res.iters
+
+
+def svi_step_csr(cfg: LDAConfig, state: GlobalState, ids: torch.Tensor,
+                 cnts: torch.Tensor, segs: torch.Tensor, batch_docs: int,
+                 num_docs_total: float, *, num_docs: int):
+    """Eq. 3 on a flat CSR token batch, in place.
+
+    ``num_docs`` is the segment capacity (the engine pads it to
+    ``batch_size``); ``batch_docs`` is the live-document count the
+    natural-gradient scale divides by. Phantom documents own no tokens, so
+    they add nothing to the sstats, but they do count in the fixed point's
+    batch-wide mean, as in ``repro``. Returns (state, sweeps).
+    """
+    eb = exp_dirichlet_expectation(state.lam, axis=0)
+    res = get_backend(cfg.estep_backend).solve_tokens(
+        cfg, eb, CSRTokenBatch(ids, cnts, segs), num_docs=num_docs)
+    state = _svi_global_update(cfg, state, res.sstats,
+                               num_docs_total / batch_docs)
+    return state, res.iters
+
+
+# ---------------------------------------------------------------------------
+# IVI / S-IVI — incremental updates (eqs. 4 & 5)
+# ---------------------------------------------------------------------------
 
 def memo_correction(cfg: LDAConfig, eb: torch.Tensor, ids: torch.Tensor,
                     cnts: torch.Tensor, old_pi: torch.Tensor,
@@ -100,15 +187,16 @@ def incremental_update(cfg: LDAConfig, averaged: bool, state: GlobalState,
     a padded (B, W) batch, the state updated in place.
 
     Takes the gathered (π_old, visited) rows from a ``MemoStore`` and
-    returns the new π for the caller to write back. Returns
-    (state, π_new (B, W, K), fixed-point sweeps).
+    returns what the caller writes back: (state, EStepResult (π_new (B, W,
+    K) rounded through ``pi_dtype``, the sweeps), Eφ). Eφ, the one the
+    E-step ran against, is what a γ-only store snapshots.
     """
     eb = exp_dirichlet_expectation(state.lam, axis=0)
     corr, words_first, res = memo_correction(cfg, eb, ids, cnts, old_pi,
                                              visited, pi_dtype)
     state = _apply_correction(cfg, averaged, state, corr, words_first,
                               num_words_total)
-    return state, res.pi, res.iters
+    return state, res, eb
 
 
 def _csr_gather_flat(old_pi: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
@@ -146,8 +234,9 @@ def incremental_update_csr(cfg: LDAConfig, averaged: bool,
     only the (B, L) token axes are replaced by one (T,) stream plus the
     flat index ``ix`` that maps each token slot onto its (doc, position)
     memo cell. The memo stays doc-aligned (B, W, K): old π rows are
-    gathered through ``ix`` on the way in and the new π scattered back
-    through it on the way out. Returns (state, π_new (B, W, K), sweeps).
+    gathered through ``ix`` on the way in and the result's π is scattered
+    back through it on the way out. Returns (state, EStepResult with π
+    (B, W, K), Eφ).
     """
     b, w, _ = old_pi.shape
     eb = exp_dirichlet_expectation(state.lam, axis=0)
@@ -157,7 +246,7 @@ def incremental_update_csr(cfg: LDAConfig, averaged: bool,
             _csr_gather_flat(old_pi, ix), visited, pi_dtype)
     state = _apply_correction(cfg, averaged, state, corr, words_first,
                               num_words_total)
-    return state, _csr_scatter_flat(res.pi, ix, b, w), res.iters
+    return state, res._replace(pi=_csr_scatter_flat(res.pi, ix, b, w)), eb
 
 
 # ---------------------------------------------------------------------------
@@ -175,34 +264,46 @@ class History:
 class LDAEngine:
     """The host-side loop: shuffling, mini-batching, evaluation, timing.
 
-    Runs IVI or S-IVI with the dense memo. ``corpus`` is a materialized
-    padded ``Corpus`` or a ``DocStream`` (`repro_torch.data.stream`): ragged
-    documents pulled and packed per mini-batch, so no (D, L) corpus is
-    resident. One pass over a stream is one epoch, in stream order; packing
-    is bit-transparent, so a padded-layout stream run reproduces the
-    materialized run under the same batch schedule. ``layout="csr"`` (a
-    stream only) packs each mini-batch as one flat stream of
-    ``token_budget`` slots and runs ``incremental_update_csr``; the default
-    budget is ``repro``'s, ``min(64·batch_size, 8192)``.
+    ``algo`` is ``mvi``, ``svi``, ``ivi`` or ``sivi``. ``corpus`` is a
+    materialized padded ``Corpus`` or a ``DocStream``
+    (`repro_torch.data.stream`): ragged documents pulled and packed per
+    mini-batch, so no (D, L) corpus is resident. One pass over a stream is
+    one epoch, in stream order; packing is bit-transparent, so a
+    padded-layout stream run reproduces the materialized run under the same
+    batch schedule. ``layout="csr"`` (a stream only) packs each mini-batch
+    as one flat stream of ``token_budget`` slots; the default budget is
+    ``repro``'s, ``min(64·batch_size, 8192)``. MVI (full batch) and the
+    γ-only store (π reconstructed from resident corpus rows) need the
+    materialized corpus.
+
+    ``memo_store`` selects the π memo of the incremental engines: ``dense``
+    (device fp32), ``chunked`` (bf16 host chunks of ``chunk_docs``
+    documents) or ``gamma`` (γ-only reconstruction: S-IVI only, eq. 4's
+    exactness needs the true π). ``bucket_by_length=True`` batches each
+    epoch inside length buckets (`repro_torch.data.bow.bucket_corpus`), so
+    E-step work and memo traffic scale with each bucket's own width;
+    ``bucket_stats`` then holds the per-bucket pad fractions. ``telemetry``
+    is ``repro_torch.obs.as_telemetry``'s argument: off (None) by default,
+    and then the update does exactly what it does without the hooks.
 
     The materialized batch order draws from ``np.random.default_rng(seed)``
     exactly as ``repro`` does, so the same seed visits the same batches; λ₀
     is ``lam0`` when given (how parity tests start both packages from one
     point), else a Gamma(100, 0.01) draw from a ``torch.Generator`` seeded
-    with ``seed``. ``last_iters`` holds the latest update's fixed-point
-    sweeps (a device tensor).
+    with ``seed``. ``last_iters`` holds the latest mini-batch update's
+    fixed-point sweeps (a device tensor).
     """
 
     def __init__(self, cfg: LDAConfig, corpus, *, algo: str,
                  batch_size: int = 64, seed: int = 0,
                  test_corpus: Optional[Corpus] = None, device=None,
-                 lam0=None, layout: str = "padded",
-                 token_budget: Optional[int] = None):
-        if algo in ("mvi", "svi"):
-            raise NotImplementedError(
-                f"algo {algo!r} is not ported yet (ROADMAP.md, queue 2)")
-        if algo not in ("ivi", "sivi"):
-            raise ValueError(f"unknown algo {algo!r} (have ivi | sivi)")
+                 lam0=None, memo_store: str = "dense",
+                 chunk_docs: int = 8192, bucket_by_length: bool = False,
+                 layout: str = "padded", token_budget: Optional[int] = None,
+                 telemetry=None):
+        if algo not in ("mvi", "svi", "ivi", "sivi"):
+            raise ValueError(f"unknown algo {algo!r} "
+                             "(have mvi | svi | ivi | sivi)")
         if layout not in ("padded", "csr"):
             raise ValueError(f"unknown layout {layout!r} "
                              "(expected 'padded' or 'csr')")
@@ -216,12 +317,19 @@ class LDAEngine:
             # kept for parity, a caller on the card passes its own budget
             token_budget = min(batch_size * 64, 8192)
         self.token_budget = token_budget if layout == "csr" else None
+        self.tel = as_telemetry(telemetry)
+        self._updates = 0            # global updates, counted with telemetry
+        self._doc_tokens = None      # per-doc token totals (telemetry only)
         self.rng = np.random.default_rng(seed)
         gen = None
         if lam0 is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
         self.state = init_global_state(cfg, device=self.device,
                                        generator=gen, lam0=lam0)
+        self.memo: Optional[MemoStore] = None
+        self._gamma_buf: Optional[torch.Tensor] = None
+        self._buckets = None
+        self.bucket_stats: Optional[dict] = None
         self.corpus: Optional[Corpus] = None
         self.stream = None
         if isinstance(corpus, Corpus):
@@ -234,8 +342,22 @@ class LDAEngine:
             if int(self.corpus.token_ids.max()) >= cfg.vocab_size:
                 raise ValueError(f"corpus token ids reach past vocab_size="
                                  f"{cfg.vocab_size}")
-            num_words = float(self.corpus.counts.cpu().numpy().sum())
+            host_counts = self.corpus.counts.cpu().numpy()
+            num_words = float(host_counts.sum())
+            if self.tel.enabled:
+                # per-doc token totals, once, so the token counter is a
+                # host-side fancy-index and sum
+                self._doc_tokens = host_counts.sum(axis=1)
         elif is_doc_stream(corpus):
+            if algo == "mvi":
+                raise ValueError(
+                    "mvi is full-batch coordinate ascent: it scans the "
+                    "materialized corpus every epoch; use "
+                    "data.stream.materialize(stream) or a mini-batch algo")
+            if memo_store == "gamma":
+                raise ValueError(
+                    "the γ-only store reconstructs π from resident corpus "
+                    "rows: materialize the stream or pick dense/chunked")
             self.stream = corpus
             num_words = float(corpus.num_words)
             self._packer = self._make_packer()
@@ -248,9 +370,32 @@ class LDAEngine:
         self.num_docs = corpus.num_docs
         self.num_words_total = torch.tensor(num_words, dtype=torch.float32,
                                             device=self.device)
-        self.memo: MemoStore = make_memo_store(
-            "dense", cfg, self.num_docs, corpus.max_unique,
-            device=self.device)
+        if algo in ("ivi", "sivi"):
+            if memo_store == "gamma" and algo == "ivi":
+                raise ValueError(
+                    "the γ-only store reconstructs π approximately: it "
+                    "breaks IVI's exact eq. 4 accumulator; use it with "
+                    "sivi, or pick dense/chunked for ivi")
+            self.memo = make_memo_store(
+                memo_store, cfg, self.num_docs, corpus.max_unique,
+                corpus=self.corpus, chunk_docs=chunk_docs, device=self.device)
+        elif algo == "mvi":
+            # per-document warm starts carried across epochs (see mvi_scan);
+            # row D is the sentinel slot of the tail batch's padding
+            self._gamma_buf = torch.full(
+                (self.num_docs + 1, cfg.num_topics), cfg.alpha0 + 1.0,
+                dtype=torch.float32, device=self.device)
+            ids, cnts = self.corpus.token_ids, self.corpus.counts
+            self._mvi_ids = torch.cat([ids, ids.new_zeros((1, ids.shape[1]))])
+            self._mvi_cnts = torch.cat([cnts,
+                                        cnts.new_zeros((1, cnts.shape[1]))])
+        if bucket_by_length and self.stream is None:
+            if algo == "mvi":
+                raise ValueError("bucket_by_length applies to the "
+                                 "mini-batch engines (svi/ivi/sivi)")
+            self._buckets = bucket_corpus(self.corpus)
+            self.bucket_stats = bucket_padding_stats(self.corpus,
+                                                     self._buckets)
         self.docs_seen = 0
         self.last_iters: Optional[torch.Tensor] = None
         self.history = History()
@@ -263,23 +408,22 @@ class LDAEngine:
 
     def _make_packer(self) -> BatchPacker:
         """A fresh ``BatchPacker`` in this engine's layout, the ladder capped
-        at the stream's ``max_unique`` and every id checked against the
-        vocabulary."""
+        at the stream's ``max_unique``, every id checked against the
+        vocabulary, and its counters in the telemetry's registry."""
         return BatchPacker(self.batch_size, max_width=self.stream.max_unique,
                            vocab_size=self.cfg.vocab_size, layout=self.layout,
-                           token_budget=self.token_budget)
+                           token_budget=self.token_budget,
+                           metrics=self.tel.metrics if self.tel.enabled
+                           else None)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
     # -- batching ----------------------------------------------------------
-    def epoch_batches(self) -> List[np.ndarray]:
-        """Draw one epoch's mini-batches of document rows: a full cover,
-        every document exactly once, the ``D % batch_size`` tail as a final
-        smaller batch (the draws of ``repro``'s ``_epoch_order``)."""
-        if self.stream is not None:
-            raise ValueError("stream ingest has no materialized epoch "
-                             "order: drive it with stream_step/run_epoch")
+    def _epoch_order(self) -> List[np.ndarray]:
+        """A full cover: every document exactly once, the ``D % batch_size``
+        tail as a final smaller batch (the draws of ``repro``'s
+        ``_epoch_order``)."""
         d = self.num_docs
         order = self.rng.permutation(d)
         b = self.batch_size
@@ -291,14 +435,56 @@ class LDAEngine:
             batches.append(order[n:])
         return batches
 
+    def _bucketed_epoch_order(self) -> List[Tuple[np.ndarray, int]]:
+        """Per-bucket batches (rows, width), bucket visit order shuffled."""
+        out: List[Tuple[np.ndarray, int]] = []
+        for rows_all, width in zip(self._buckets.doc_idx,
+                                   self._buckets.widths):
+            order = rows_all[self.rng.permutation(len(rows_all))]
+            for lo in range(0, len(order), self.batch_size):
+                out.append((order[lo:lo + self.batch_size], width))
+        self.rng.shuffle(out)
+        return out
+
+    def epoch_batches(self) -> List[Tuple[np.ndarray, Optional[int]]]:
+        """Draw one epoch's mini-batches: (rows, width or None) pairs, the
+        sequence (and the rng draws) ``run_epoch`` processes."""
+        if self.algo == "mvi":
+            raise ValueError("mvi is full-batch: use run_epoch")
+        if self.stream is not None:
+            raise ValueError("stream ingest has no materialized epoch "
+                             "order: drive it with stream_step/run_epoch")
+        if self._buckets is not None:
+            return self._bucketed_epoch_order()
+        return [(rows, None) for rows in self._epoch_order()]
+
     # -- steps -------------------------------------------------------------
     def run_epoch(self) -> None:
         if self.stream is not None:
             while self.stream_step():
                 pass
             return
-        for rows in self.epoch_batches():
-            self.run_minibatch(rows)
+        if self.algo == "mvi":
+            self._run_mvi_epoch()
+            return
+        for rows, width in self.epoch_batches():
+            self.run_minibatch(rows, width=width)
+
+    def _run_mvi_epoch(self) -> None:
+        d = self.num_docs
+        b = min(self.batch_size, d)
+        batches = self._epoch_order()
+        idx = np.full((len(batches), b), d, np.int64)     # sentinel = row D
+        for r, rows in enumerate(batches):
+            idx[r, : len(rows)] = rows
+        idx = self._to_device(idx)
+        eb = exp_dirichlet_expectation(self.state.lam, axis=0)
+        sstats, self._gamma_buf = mvi_scan(
+            self.cfg, eb, self._mvi_ids[idx], self._mvi_cnts[idx], idx,
+            self._gamma_buf, torch.zeros_like(self.state.lam))
+        self.state.lam.copy_(self.cfg.beta0 + sstats)
+        self.state.t.add_(1)
+        self.docs_seen += d
 
     def run_minibatch(self, rows: Optional[np.ndarray] = None,
                       width: Optional[int] = None) -> None:
@@ -322,13 +508,74 @@ class LDAEngine:
                       cnts: torch.Tensor) -> None:
         """One global update on a padded (B', W) batch: the shared core of
         the materialized (``run_minibatch``) and stream (``stream_step``)
-        paths; W is the width the batch was packed or sliced to."""
-        old_pi, visited = self.memo.gather(rows, width=ids.shape[1])
-        self.state, new_pi, self.last_iters = incremental_update(
-            self.cfg, self.algo == "sivi", self.state, ids, cnts, old_pi,
-            visited, self.num_words_total, self.memo.pi_wire_dtype)
-        self.memo = self.memo.update(rows, new_pi)
+        paths; W is the width the batch was packed or sliced to.
+
+        Every telemetry touch is gated on ``tel.enabled``: with telemetry
+        off the update launches, syncs and allocates nothing more than
+        without the hooks.
+        """
+        tel = self.tel
+        on = tel.enabled
+        width = ids.shape[1]
+        sp = tel.trace.begin("train/update", algo=self.algo, width=width,
+                             docs=len(rows)) if on else None
+        if self.algo == "svi":
+            self.state, self.last_iters = svi_step(
+                self.cfg, self.state, ids, cnts, float(self.num_docs))
+        elif self.algo in ("ivi", "sivi"):
+            g = tel.trace.begin("train/memo_gather", width=width) \
+                if on else None
+            old_pi, visited = self.memo.gather(rows, width=width)
+            if g is not None:
+                tel.trace.end(g)
+            s = tel.trace.begin("train/solve", width=width) if on else None
+            self.state, res, eb = incremental_update(
+                self.cfg, self.algo == "sivi", self.state, ids, cnts, old_pi,
+                visited, self.num_words_total, self.memo.pi_wire_dtype)
+            self.last_iters = res.iters
+            if s is not None:
+                tel.trace.end(s, sync=self.state.lam)
+            u = tel.trace.begin("train/memo_update", width=width) \
+                if on else None
+            self.memo = self.memo.update(rows, res.pi, exp_elog_beta=eb)
+            if u is not None:
+                tel.trace.end(u)
+        else:
+            raise ValueError(f"{self.algo} has no mini-batch update: "
+                             "use run_epoch")
         self.docs_seen += len(rows)
+        if sp is not None:
+            tokens = (float(self._doc_tokens[rows].sum())
+                      if self._doc_tokens is not None
+                      else float(cnts.cpu().numpy().sum()))
+            self._record_update(sp, len(rows), width, tokens)
+
+    def _record_update(self, span, docs: int, width: int,
+                       tokens: float) -> None:
+        """Close an update's span and write its counters, the memo gauge
+        and, at the watchdog's cadence, a bound check (telemetry on)."""
+        tel = self.tel
+        tel.trace.end(span, sync=self.state.lam)
+        self._updates += 1
+        m = tel.metrics
+        m.inc("train.docs", docs)
+        m.inc("train.batches", width=width)
+        m.inc("train.tokens", tokens)
+        if self.memo is not None:
+            m.set_gauge("train.memo_resident_bytes",
+                        self.memo.footprint_bytes())
+        wd = tel.watchdog
+        if (self.algo in ("ivi", "sivi") and wd.enabled
+                and wd.should_check(self._updates)):
+            # O(corpus) memoized-bound read, priced by check_every
+            wd.observe(self.full_bound(), step=self._updates,
+                       armed=self._watchdog_armed())
+
+    def _watchdog_armed(self) -> bool:
+        """Whether the monotone-ELBO guarantee is in force: IVI (eq. 4;
+        S-IVI's averaging forfeits it) after the random-init mass has fully
+        retired, i.e. the first complete pass is done."""
+        return self.algo == "ivi" and float(self.state.init_frac) == 0.0
 
     # -- stream ingest -----------------------------------------------------
     def stream_step(self) -> bool:
@@ -383,25 +630,52 @@ class LDAEngine:
     def _update_batch_csr(self, batch: CSRBatch) -> None:
         """One global update on a flat CSR batch. The memo is read and
         written at W, the ladder rung covering the batch's longest document.
-        The document axis is padded to ``batch_size`` by re-reading row 0:
-        phantom documents own no tokens, so their memo rows are never
-        touched and their visited flags add nothing to the first-visit
-        count, but they do count in the fixed point's batch-wide mean, as
-        in ``repro``."""
+        The document axis is padded to ``batch_size`` (by re-reading row 0
+        for the memo): phantom documents own no tokens, so their memo rows
+        are never touched and their visited flags add nothing to the
+        first-visit count, but they do count in the fixed point's
+        batch-wide mean, as in ``repro``."""
+        tel = self.tel
+        on = tel.enabled
         rows = batch.rows
         b_real, b_pad = len(rows), self.batch_size
         width = self._packer.width_for(
             int(batch.doc_lengths.max()) if b_real else 1)
-        rows_pad = np.concatenate([rows, np.zeros(b_pad - b_real, np.int64)])
-        old_pi, visited = self.memo.gather(rows_pad, width=width)
-        self.state, new_pi, self.last_iters = incremental_update_csr(
-            self.cfg, self.algo == "sivi", self.state,
-            self._to_device(batch.token_ids), self._to_device(batch.counts),
-            self._to_device(batch.segments),
-            self._to_device(self._csr_flat_index(batch, width)), old_pi,
-            visited, self.num_words_total, self.memo.pi_wire_dtype)
-        self.memo = self.memo.update(rows, new_pi[:b_real])
+        sp = tel.trace.begin("train/update", algo=self.algo, width=width,
+                             docs=b_real) if on else None
+        ids = self._to_device(batch.token_ids)
+        cnts = self._to_device(batch.counts)
+        segs = self._to_device(batch.segments)
+        if self.algo == "svi":
+            self.state, self.last_iters = svi_step_csr(
+                self.cfg, self.state, ids, cnts, segs, b_real,
+                float(self.num_docs), num_docs=b_pad)
+        else:
+            rows_pad = np.concatenate([rows,
+                                       np.zeros(b_pad - b_real, np.int64)])
+            g = tel.trace.begin("train/memo_gather", width=width) \
+                if on else None
+            old_pi, visited = self.memo.gather(rows_pad, width=width)
+            if g is not None:
+                tel.trace.end(g)
+            ix = self._to_device(self._csr_flat_index(batch, width))
+            s = tel.trace.begin("train/solve", width=width) if on else None
+            self.state, res, eb = incremental_update_csr(
+                self.cfg, self.algo == "sivi", self.state, ids, cnts, segs,
+                ix, old_pi, visited, self.num_words_total,
+                self.memo.pi_wire_dtype)
+            self.last_iters = res.iters
+            if s is not None:
+                tel.trace.end(s, sync=self.state.lam)
+            u = tel.trace.begin("train/memo_update", width=width) \
+                if on else None
+            self.memo = self.memo.update(rows, res.pi[:b_real],
+                                         exp_elog_beta=eb)
+            if u is not None:
+                tel.trace.end(u)
         self.docs_seen += b_real
+        if sp is not None:
+            self._record_update(sp, b_real, width, float(batch.counts.sum()))
 
     def stream_padding_stats(self) -> dict:
         """Pad-waste accounting of everything packed so far (stream mode)."""
@@ -409,7 +683,9 @@ class LDAEngine:
 
     # -- evaluation --------------------------------------------------------
     def evaluate(self) -> Dict[str, float]:
-        """Held-out LPP with a test corpus, else the memoized ELBO."""
+        """Held-out LPP with a test corpus, else the corpus bound (the
+        memoized ELBO for the incremental engines), fed to the watchdog
+        and with the effective-topics gauge when telemetry is on."""
         out: Dict[str, float] = {}
         if self._obs is not None:
             out["lpp"] = float(log_predictive(self.cfg, self.state.lam,
@@ -418,16 +694,39 @@ class LDAEngine:
         else:
             out["elbo"] = self.full_bound()
             self.history.elbo.append(out["elbo"])
+            if (self.tel.enabled and self.tel.watchdog.enabled
+                    and self.algo in ("ivi", "sivi")):
+                # a bound computed anyway: feed it to the watchdog even at
+                # check_every=0 (the free cadence)
+                self.tel.watchdog.observe(out["elbo"], step=self._updates,
+                                          armed=self._watchdog_armed())
+        if self.tel.enabled:
+            self.tel.metrics.set_gauge("train.effective_topics",
+                                       effective_topics(self.state.lam))
         self.history.docs_seen.append(self.docs_seen)
         self.history.wall.append(time.perf_counter() - self._t0)
         return out
 
     def full_bound(self) -> float:
-        """The exact memoized corpus ELBO, the quantity IVI monotonically
-        increases, read through the memo store chunk by chunk (with stream
-        ingest, the stream is re-read chunk by chunk too)."""
+        """The exact corpus ELBO.
+
+        For the incremental engines the memoized bound, the quantity IVI
+        monotonically increases, read through the memo store chunk by chunk
+        (with stream ingest the stream is re-read chunk by chunk too). For
+        MVI/SVI the collapsed bound at freshly fitted γ: on a materialized
+        corpus one ``estep_gather`` over all D documents whatever
+        ``cfg.estep_backend`` (a full-corpus E-step; call it at evaluation
+        points only), on a stream chunk by chunk.
+        """
+        cfg, lam = self.cfg, self.state.lam
         if self.stream is not None:
-            return float(elbo_memoized_stream(self.cfg, self.stream,
-                                              self.memo, self.state.lam))
-        return float(elbo_memoized_store(self.cfg, self.corpus, self.memo,
-                                         self.state.lam))
+            if self.memo is not None:
+                return float(elbo_memoized_stream(cfg, self.stream,
+                                                  self.memo, lam))
+            return float(elbo_collapsed_stream(cfg, self.stream, lam))
+        if self.memo is not None:
+            return float(elbo_memoized_store(cfg, self.corpus, self.memo,
+                                             lam))
+        eb = exp_dirichlet_expectation(lam, axis=0)
+        res = estep_gather(cfg, eb, self.corpus.token_ids, self.corpus.counts)
+        return float(elbo_collapsed(cfg, self.corpus, res.gamma, lam))

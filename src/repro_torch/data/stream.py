@@ -21,8 +21,8 @@ consumes.
 Packing is bit-transparent: a padded batch packed from ragged documents
 equals the same rows gathered from a padded ``Corpus`` and sliced to the
 bucket width, and both layouts emit what ``repro``'s packer emits on the
-same documents, bit for bit. Not ported yet: ``QueueDocStream``, the
-sharded streams and the packer's ``metrics`` hook (ROADMAP.md).
+same documents, bit for bit. Not ported yet: ``QueueDocStream`` and the
+sharded streams (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -261,12 +261,15 @@ class BatchPacker:
     at the memo width) or ``None`` (serving). A document with more unique
     tokens than its cap (``max_width``, and in CSR mode also
     ``token_budget``) keeps its most frequent tokens. ``vocab_size``, when
-    given, is checked against every packed token id.
+    given, is checked against every packed token id. ``metrics``, an
+    optional `repro_torch.obs` ``MetricsRegistry``, gets ``repro``'s
+    per-width ``pack.*`` counters and gauges for each emitted batch.
     """
 
     def __init__(self, batch_size: int, *, max_width: Optional[int] = None,
                  boundaries: Sequence[int] = WIDTH_BOUNDARIES,
-                 vocab_size: Optional[int] = None, layout: str = "padded",
+                 vocab_size: Optional[int] = None, metrics=None,
+                 layout: str = "padded",
                  token_budget: Optional[int] = None):
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
@@ -281,6 +284,7 @@ class BatchPacker:
         self.batch_size = batch_size
         self.max_width = max_width
         self.vocab_size = vocab_size
+        self.metrics = metrics
         self.layout = layout
         self.token_budget = int(token_budget) if token_budget else None
         self.boundaries = tuple(boundaries)
@@ -335,11 +339,23 @@ class BatchPacker:
             return self._emit(w)
         return None
 
-    def _record(self, width: int, docs: int, live: int, padded: int) -> None:
+    def _record(self, width: int, docs: int, live: int, padded: int,
+                counts: np.ndarray) -> None:
         st = self._stats.setdefault(width, _WidthStats())
         st.docs += docs
         st.live_slots += live
         st.padded_slots += padded
+        if self.metrics is not None:
+            m = self.metrics
+            m.inc("pack.batches", width=width)
+            m.inc("pack.docs", docs, width=width)
+            m.inc("pack.tokens", float(counts.sum()), width=width)
+            m.set_gauge("pack.pad_frac",
+                        1.0 - st.live_slots / max(st.padded_slots, 1),
+                        width=width)
+            m.set_gauge("pack.wasted_token_bytes",
+                        (st.padded_slots - st.live_slots) * TOKEN_SLOT_BYTES,
+                        width=width)
 
     def _emit(self, width: int) -> PackedBatch:
         docs = self._open.pop(width)
@@ -350,7 +366,8 @@ class BatchPacker:
         for r, (_, ids, cnts) in enumerate(docs):
             out_ids[r, : len(ids)] = ids
             out_cnt[r, : len(cnts)] = cnts
-        self._record(width, b, sum(len(i) for _, i, _ in docs), b * width)
+        self._record(width, b, sum(len(i) for _, i, _ in docs), b * width,
+                     out_cnt)
         return PackedBatch(rows, out_ids, out_cnt, width)
 
     def _add_csr(self, pos: int, ids: np.ndarray,
@@ -387,7 +404,7 @@ class BatchPacker:
             out_seg[cur: cur + n] = r
             cur += n
             offsets[r + 1] = cur
-        self._record(t, len(docs), cur, t)
+        self._record(t, len(docs), cur, t, out_cnt)
         return CSRBatch(rows, out_ids, out_cnt, out_seg, offsets, t)
 
     def flush(self) -> list:

@@ -1,10 +1,23 @@
-"""Training launcher of the port: IVI / S-IVI on a synthetic paper-shaped
-corpus, with periodic held-out LPP.
+"""Training launcher of the port: MVI / SVI / IVI / S-IVI on a synthetic
+paper-shaped corpus, with periodic held-out LPP.
+
+It builds ``LDAEngine`` directly and prints the memo store's footprint,
+the length buckets' padding (``--bucketed``) and, with any telemetry flag
+(``--trace``, ``--metrics-json``, ``--watchdog``), the telemetry summary.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus small
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
       --topics 8 --backend gather --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
+      --topics 8 --algo mvi --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
+      --topics 8 --algo svi --bucketed --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
+      --topics 8 --memo-store chunked --chunk-docs 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
+      --topics 8 --algo sivi --memo-store gamma --watchdog warn \\
+      --trace run.jsonl --device cpu
 """
 from __future__ import annotations
 
@@ -17,6 +30,7 @@ def main_lda(args) -> None:
     from repro_torch.core.types import LDAConfig, resolve_device
     from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
 
+    tel = _build_telemetry(args)
     device = resolve_device(args.device)
     spec = PAPER_CORPORA[args.corpus]
     train = make_corpus(spec, split="train", seed=args.seed,
@@ -30,9 +44,18 @@ def main_lda(args) -> None:
                     estep_max_iters=args.estep_iters,
                     estep_backend=args.backend)
     eng = LDAEngine(cfg, train, algo=args.algo, batch_size=args.batch,
-                    seed=args.seed, test_corpus=test, device=device)
-    print(f"memo_store={eng.memo.kind} "
-          f"footprint={eng.memo.footprint_bytes() / 1e6:.2f}MB")
+                    seed=args.seed, test_corpus=test, device=device,
+                    memo_store=args.memo_store, chunk_docs=args.chunk_docs,
+                    bucket_by_length=args.bucketed, telemetry=tel)
+    if eng.memo is not None:
+        print(f"memo_store={eng.memo.kind} "
+              f"footprint={eng.memo.footprint_bytes() / 1e6:.2f}MB")
+    stats = eng.bucket_stats
+    if stats is not None:
+        per = " ".join(f"w{b['width']}:{b['docs']}d/{b['pad_frac']:.0%}"
+                       for b in stats["per_bucket"])
+        print(f"bucket_padding_stats slot_ratio={stats['slot_ratio']:.3f} "
+              f"[{per}]")
     t0 = time.perf_counter()
     for epoch in range(1, args.epochs + 1):
         eng.run_epoch()
@@ -42,13 +65,50 @@ def main_lda(args) -> None:
                   f"wall={time.perf_counter() - t0:.2f}s")
     if args.bound:
         print("final exact bound:", eng.full_bound())
+    if tel is not None:
+        _report_telemetry(tel, args)
+
+
+def _build_telemetry(args):
+    """The run's ``repro_torch.obs`` bundle from the CLI flags (None when no
+    telemetry flag is set: the no-op path)."""
+    if not (args.trace or args.metrics_json or args.watchdog != "off"):
+        return None
+    from repro_torch.obs import ElboWatchdog, Telemetry
+    if args.watchdog != "off":
+        return Telemetry(watchdog=ElboWatchdog(
+            policy=args.watchdog, check_every=args.watchdog_every))
+    return Telemetry()
+
+
+def _report_telemetry(tel, args) -> None:
+    """End-of-run telemetry summary and the --trace/--metrics-json dumps."""
+    m, wd = tel.metrics, tel.watchdog
+    tokens = m.total("train.tokens")
+    wall = sum(r["dur_us"] for r in tel.trace.records
+               if r["type"] == "span" and r["name"] == "train/update") / 1e6
+    rate = f"{tokens / wall:,.0f} tok/s" if wall > 0 else "n/a"
+    st = wd.status()
+    wd_line = ("off" if not st["enabled"] else
+               f"{st['policy']} checks={st['checks']} "
+               f"violations={st['violations']} "
+               f"{'OK' if st['ok'] else 'VIOLATED'}")
+    print(f"telemetry: tokens={tokens:,.0f} update_time={wall:.2f}s "
+          f"({rate}) spans={tel.trace.num_records} watchdog={wd_line}")
+    if args.trace:
+        n = tel.trace.dump_jsonl(args.trace)
+        print(f"trace: wrote {n} records to {args.trace}")
+    if args.metrics_json:
+        m.dump_json(args.metrics_json)
+        print(f"metrics: wrote {args.metrics_json}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
     lda = sub.add_parser("lda")
-    lda.add_argument("--algo", default="ivi", choices=["ivi", "sivi"])
+    lda.add_argument("--algo", default="ivi",
+                     choices=["mvi", "svi", "ivi", "sivi"])
     lda.add_argument("--corpus", default="small")
     lda.add_argument("--scale", type=float, default=1.0)
     lda.add_argument("--topics", type=int, default=50)
@@ -57,9 +117,28 @@ def main() -> None:
     lda.add_argument("--estep-iters", type=int, default=60)
     lda.add_argument("--backend", default="cuda",
                      choices=["cuda", "gather", "dense"])
+    lda.add_argument("--memo-store", default="dense",
+                     choices=["dense", "chunked", "gamma"],
+                     help="π-memo representation for ivi/sivi (gamma: sivi "
+                          "only)")
+    lda.add_argument("--chunk-docs", type=int, default=8192,
+                     help="documents per host-store chunk")
+    lda.add_argument("--bucketed", action="store_true",
+                     help="length-bucketed epoch batching (svi/ivi/sivi)")
     lda.add_argument("--eval-every", type=int, default=1)
     lda.add_argument("--bound", action="store_true")
     lda.add_argument("--seed", type=int, default=0)
+    lda.add_argument("--trace", default=None, metavar="PATH",
+                     help="record a span trace and write it as JSONL here")
+    lda.add_argument("--metrics-json", default=None, metavar="PATH",
+                     help="write the run's metrics-registry snapshot here")
+    lda.add_argument("--watchdog", default="off",
+                     choices=["off", "warn", "raise"],
+                     help="ELBO-monotonicity watchdog policy on the "
+                          "incremental path (armed once init mass retires)")
+    lda.add_argument("--watchdog-every", type=int, default=0,
+                     help="check the memoized bound every N updates "
+                          "(O(corpus) each; 0 = only at evaluations)")
     lda.add_argument("--device", default="cuda",
                      help="torch device; 'cpu' runs the kernels' plain "
                           "versions")

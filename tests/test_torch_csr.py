@@ -706,8 +706,13 @@ def test_stream_engine_refusals():
         LDAEngine(cfg, train, algo="ivi", layout="csr", device=CPU)
     with pytest.raises(ValueError, match="layout"):
         LDAEngine(cfg, stream, algo="ivi", layout="ragged", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LDAEngine(cfg, stream, algo="svi", layout="csr", device=CPU)
+    # repro's stream refusals: full-batch MVI, and the γ-only store that
+    # reconstructs π from resident corpus rows
+    with pytest.raises(ValueError, match="full-batch"):
+        LDAEngine(cfg, stream, algo="mvi", layout="csr", device=CPU)
+    with pytest.raises(ValueError, match="resident corpus"):
+        LDAEngine(cfg, stream, algo="sivi", layout="csr",
+                  memo_store="gamma", device=CPU)
     with pytest.raises(TypeError, match="DocStream"):
         LDAEngine(cfg, [[1, 2]], algo="ivi", device=CPU)
     eng = LDAEngine(cfg, stream, algo="ivi", layout="csr", device=CPU)

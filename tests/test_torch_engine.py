@@ -23,6 +23,7 @@ from repro_torch.core.estep import scatter_sstats
 from repro_torch.core.memo import make_memo_store
 from repro_torch.core.types import LDAConfig
 from repro_torch.data.bow import corpus_from_docs
+from repro_torch.data.stream import CorpusDocStream
 from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
 
 CPU = "cpu"
@@ -156,17 +157,32 @@ def test_state_and_memo_round_trip_through_convert():
 
 
 def test_engine_refuses_unported_modes():
+    """``repro``'s refusals (engines.py:392-400, :429-433, :447-449), each
+    a ``ValueError`` as there: every algo and store is ported, and what
+    ``repro`` refuses the port refuses too."""
     corpus = _random_corpus(0, 8, 20, 5)
+    stream = CorpusDocStream(corpus, 20)
     cfg = LDAConfig(num_topics=3, vocab_size=20)
-    for algo in ("mvi", "svi"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LDAEngine(cfg, corpus, algo=algo, device=CPU)
+    with pytest.raises(ValueError, match="full-batch"):
+        LDAEngine(cfg, stream, algo="mvi", device=CPU)
+    with pytest.raises(ValueError, match="eq. 4"):
+        LDAEngine(cfg, corpus, algo="ivi", memo_store="gamma", device=CPU)
+    with pytest.raises(ValueError, match="resident corpus"):
+        LDAEngine(cfg, stream, algo="sivi", memo_store="gamma", device=CPU)
+    with pytest.raises(ValueError, match="mini-batch engines"):
+        LDAEngine(cfg, corpus, algo="mvi", bucket_by_length=True,
+                  device=CPU)
     with pytest.raises(ValueError, match="vocab_size"):
         LDAEngine(LDAConfig(num_topics=3, vocab_size=10), corpus,
                   algo="ivi", device=CPU)
-    for kind in ("chunked", "gamma"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_memo_store(kind, cfg, 8, 4, device=CPU)
+    with pytest.raises(ValueError, match="unknown algo"):
+        LDAEngine(cfg, corpus, algo="divi", device=CPU)
+    with pytest.raises(ValueError, match="needs the corpus"):
+        make_memo_store("gamma", cfg, 8, 4, device=CPU)
+    with pytest.raises(ValueError, match="unknown memo store"):
+        make_memo_store("sparse", cfg, 8, 4, device=CPU)
+    with pytest.raises(ValueError, match="full-batch"):
+        LDAEngine(cfg, corpus, algo="mvi", device=CPU).epoch_batches()
 
 
 def test_memo_state_dict_is_a_snapshot():

@@ -715,3 +715,75 @@ def test_flash_attention_bf16_kernel_at_qwen_length(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
                                atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the host-chunked memo store and SVI on the card
+# ---------------------------------------------------------------------------
+
+def test_chunked_store_round_trip_through_pinned_memory(cuda):
+    """The bf16 host store with a CUDA wire: both staging buffers are
+    pinned, two gathers in a row (the second waits for the first's copy)
+    and an update round-trip bf16-exact π bit for bit, the chunks hold what
+    a CPU-wire store holds after the same writes, and nothing of the memo
+    stays on the card."""
+    from repro_torch.core.memo import make_memo_store
+    from repro_torch.core.types import LDAConfig
+    cfg = LDAConfig(num_topics=K)
+    d, l = 300, 24
+    before = torch.cuda.memory_allocated()
+    card = make_memo_store("chunked", cfg, d, l, chunk_docs=64, device=cuda)
+    host = make_memo_store("chunked", cfg, d, l, chunk_docs=64, device="cpu")
+    assert torch.cuda.memory_allocated() == before
+    rng = np.random.default_rng(2)
+    for rows, w in ((rng.choice(d, 100, replace=False), l),
+                    (rng.choice(d, 70, replace=False), l - 9)):
+        pi = torch.from_numpy(rng.random((len(rows), w, K)).astype(
+            np.float32)).to(torch.bfloat16).float()
+        card.update(rows, pi.to(cuda))
+        host.update(rows, pi)
+        got, vis = card.gather(rows, width=w)
+        again, _ = card.gather(rows[::-1].copy(), width=w)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert torch.equal(got.cpu(), pi) and bool(vis.all())
+        assert torch.equal(again.cpu(), pi.flip(0))
+    assert card._stage["in"].is_pinned() and card._stage["out"].is_pinned()
+    for key, arr in host.state_dict().items():
+        np.testing.assert_array_equal(card.state_dict()[key], arr)
+
+
+@pytest.mark.parametrize("layout", ["padded", "csr"])
+def test_svi_step_matches_plain_path(path_inputs, layout):
+    """One SVI step (eq. 3) at the Arxiv widths on 128 documents (one K1
+    tile, so both paths stop batch-wide), through the kernels (K1 then K3,
+    or K4 then K3) against the plain path (``gather``'s E-step, or the plain
+    flat reference), at the sstats bar of chip_smoke's serve phase."""
+    from repro_torch.core.engines import svi_step, svi_step_csr
+    from repro_torch.core.estep import BowBatch, CSRBackend
+    from repro_torch.core.types import LDAConfig, init_global_state
+    ids, cnts, _ = path_inputs
+    ids, cnts = ids[:128].contiguous(), cnts[:128].contiguous()
+    gen = torch.Generator(device=ids.device).manual_seed(3)
+    lam0 = init_global_state(LDAConfig(num_topics=K, vocab_size=V),
+                             device=ids.device, generator=gen).lam
+    out = {}
+    for backend in ("cuda", "gather"):
+        cfg = LDAConfig(num_topics=K, vocab_size=V, estep_max_iters=60,
+                        estep_backend=backend)
+        state = init_global_state(cfg, device=ids.device, lam0=lam0)
+        lda_estep.reset_launches()
+        if layout == "padded":
+            state, _ = svi_step(cfg, state, ids, cnts, 128.0)
+        else:
+            tok = CSRBackend.flatten(BowBatch(ids, cnts))
+            state, _ = svi_step_csr(cfg, state, *tok, 128, 128.0,
+                                    num_docs=128)
+        torch.cuda.synchronize()
+        out[backend] = (state, dict(lda_estep.LAUNCHES))
+    (got, launches), (want, plain) = out["cuda"], out["gather"]
+    fp = "fixed_point" if layout == "padded" else "fixed_point_csr"
+    assert launches[fp] == launches["segment_scatter"] == 1
+    assert sum(launches.values()) == 2 and sum(plain.values()) == 0
+    assert int(got.t) == int(want.t) == 1
+    torch.testing.assert_close(got.lam, want.lam, rtol=1e-2, atol=2e-3)

@@ -26,6 +26,17 @@ def test_port_imports_neither_jax_nor_repro():
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        # the names this slice added, by name
+        from repro_torch.core.memo import (ChunkedMemoStore, GammaMemoStore,
+                                           memo_footprint_bytes)
+        from repro_torch.core.metrics import (effective_topics,
+                                              npmi_coherence, top_words)
+        from repro_torch.data.bow import (LengthBuckets, bucket_corpus,
+                                          bucket_padding_stats, pad_corpus)
+        from repro_torch.core.engines import mvi_scan, svi_step, svi_step_csr
+        from repro_torch.core.bound import elbo_collapsed_stream
+        from repro_torch.obs import NULL_TELEMETRY, Telemetry, as_telemetry
+        from repro_torch.obs.roofline import HW
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -42,7 +53,11 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.kernels.lda_estep", "repro_torch.convert",
                  "repro_torch.launch.train", "repro_torch.data.stream",
                  "repro_torch.kernels.ref",
-                 "repro_torch.kernels.flash_attention"):
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.core.memo", "repro_torch.core.metrics",
+                 "repro_torch.data.bow", "repro_torch.obs",
+                 "repro_torch.obs.trace", "repro_torch.obs.metrics",
+                 "repro_torch.obs.watchdog", "repro_torch.obs.roofline"):
         assert name in got["modules"]
 
 

@@ -1,0 +1,358 @@
+"""The port's telemetry (`repro_torch.obs`) and quality metrics
+(`repro_torch.core.metrics`): ``tests/test_obs.py``'s recorder, registry,
+watchdog and bundle cases on the port's copies, the roofline join over the
+H100 row, the engine's hooks (off: the same bits as on; on: the span names
+and counter totals of ``repro``'s engine on the same batches), and the
+metrics against ``repro``'s."""
+import json
+import warnings
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import LDAConfig as JConfig
+from repro.core import LDAEngine as JEngine
+from repro.core import metrics as j_metrics
+from repro.core.types import init_global_state as j_init_global_state
+from repro.data import PAPER_CORPORA as J_CORPORA
+from repro.data import make_corpus as j_make_corpus
+from repro.data import stream as j_stream
+from repro.obs import Telemetry as JTelemetry
+from repro_torch.core import metrics
+from repro_torch.core.engines import LDAEngine
+from repro_torch.core.types import LDAConfig
+from repro_torch.data.stream import CorpusDocStream
+from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+from repro_torch.obs import (NULL_TELEMETRY, BoundMonotonicityError,
+                             ElboMonotonicityWarning, ElboWatchdog,
+                             MetricsRegistry, SpanRecorder, Telemetry,
+                             as_telemetry, chrome_trace_from_jsonl,
+                             load_jsonl, roofline, spans_by_name,
+                             validate_jsonl)
+
+CPU = "cpu"
+SPEC = PAPER_CORPORA["tiny"]
+SPANS = ("train/update", "train/memo_gather", "train/solve",
+         "train/memo_update")
+
+
+# ---------------------------------------------------------------------------
+# trace
+# ---------------------------------------------------------------------------
+
+def test_span_recorder_nesting_and_roundtrip(tmp_path):
+    rec = SpanRecorder()
+    with rec.span("outer", phase="a"):
+        with rec.span("inner"):
+            pass
+        rec.event("marker", n=3)
+    tok = rec.begin("manual")
+    rec.end(tok)
+    assert rec.num_records == 4
+    by_name = {r["name"]: r for r in rec.records}
+    assert by_name["inner"]["depth"] == 1
+    assert by_name["outer"]["depth"] == 0
+    assert by_name["outer"]["dur_us"] >= by_name["inner"]["dur_us"]
+    assert by_name["marker"]["type"] == "event"
+
+    jsonl = str(tmp_path / "t.jsonl")
+    chrome = str(tmp_path / "t.chrome.json")
+    assert rec.dump_jsonl(jsonl) == 4
+    assert validate_jsonl(jsonl) == 4
+    # Chrome conversion is count-exact: 1 record -> 1 traceEvent
+    assert chrome_trace_from_jsonl(jsonl, chrome) == 4
+    with open(chrome) as f:
+        ct = json.load(f)
+    assert len(ct["traceEvents"]) == 4
+    assert {e["ph"] for e in ct["traceEvents"]} == {"X", "i"}
+
+
+def test_validate_rejects_malformed(tmp_path):
+    rec = SpanRecorder()
+    rec.event("ok")
+    jsonl = str(tmp_path / "bad.jsonl")
+    rec.dump_jsonl(jsonl)
+    meta, records = load_jsonl(jsonl)
+    records[0].pop("ts_us")
+    with open(jsonl, "w") as f:
+        f.write(json.dumps(meta) + "\n")
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    with pytest.raises(ValueError, match="missing 'ts_us'"):
+        validate_jsonl(jsonl)
+
+
+def test_spans_by_name_aggregates():
+    rec = SpanRecorder()
+    for _ in range(3):
+        with rec.span("train/solve"):
+            pass
+    agg = spans_by_name(rec.records)
+    assert agg["train/solve"]["count"] == 3
+    assert agg["train/solve"]["min_s"] <= agg["train/solve"]["mean_s"]
+
+
+def test_device_sync_span_waits_only_when_asked():
+    """``end(sync=t)`` waits for a CUDA tensor's device only with
+    ``device_sync=True``; a CPU tensor never needs it."""
+    for sync in (False, True):
+        rec = SpanRecorder(device_sync=sync)
+        tok = rec.begin("train/solve")
+        rec.end(tok, sync=torch.zeros(2))
+        assert rec.num_records == 1 and rec.device_sync == sync
+
+
+# ---------------------------------------------------------------------------
+# metrics
+# ---------------------------------------------------------------------------
+
+def test_metrics_counters_gauges_labels():
+    m = MetricsRegistry()
+    m.inc("train.batches", width=64)
+    m.inc("train.batches", width=64)
+    m.inc("train.batches", width=128)
+    assert m.value("train.batches", width=64) == 2.0
+    assert m.total("train.batches") == 3.0
+    m.set_gauge("pack.pad_frac", 0.25, width=64)
+    m.set_gauge("pack.pad_frac", 0.5, width=64)       # gauges overwrite
+    assert m.value("pack.pad_frac", width=64) == 0.5
+    snap = m.snapshot()
+    assert any(c["name"] == "train.batches" and c["labels"] == {"width": 128}
+               for c in snap["counters"])
+
+
+def test_metrics_percentiles_and_empty():
+    m = MetricsRegistry()
+    for v in range(1, 101):
+        m.observe("lat", float(v))
+    pct = m.percentiles("lat")
+    assert pct["p50"] == pytest.approx(50.5)
+    assert pct["p99"] == pytest.approx(np.percentile(np.arange(1, 101), 99))
+    empty = m.percentiles("nothing")
+    assert all(np.isnan(v) for v in empty.values())
+    assert m.histogram_values("nothing") == []
+
+
+# ---------------------------------------------------------------------------
+# watchdog
+# ---------------------------------------------------------------------------
+
+def test_watchdog_warns_then_raises_on_injected_decrease():
+    wd = ElboWatchdog(policy="warn", tol=1e-6)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        assert not wd.observe(-100.0, step=1)
+        assert not wd.observe(-99.0, step=2)          # increase: fine
+        assert wd.observe(-99.5, step=3)              # injected decrease
+    assert len(w) == 1 and issubclass(w[0].category, ElboMonotonicityWarning)
+    assert wd.status()["violations"] == 1 and not wd.status()["ok"]
+
+    hard = ElboWatchdog(policy="raise", tol=1e-6)
+    hard.observe(-100.0, step=1)
+    with pytest.raises(BoundMonotonicityError, match="monotonicity"):
+        hard.observe(-101.0, step=2)
+
+
+def test_watchdog_unarmed_and_slack():
+    wd = ElboWatchdog(policy="raise", tol=1e-6)
+    # unarmed readings (random-init mass still retiring) never enforce
+    wd.observe(-100.0, armed=False)
+    assert not wd.observe(-200.0, armed=False)
+    # an armed reading right after an unarmed one has no armed baseline
+    assert not wd.observe(-300.0, armed=True)
+    # within-slack jitter passes: slack = max(tol, rel_tol * |prev|)
+    loose = ElboWatchdog(policy="raise", tol=5e-3)
+    loose.observe(-100.0)
+    assert not loose.observe(-100.004)
+    assert wd.status()["armed_checks"] == 1
+
+
+def test_watchdog_counts_into_metrics_and_cadence():
+    m = MetricsRegistry()
+    wd = ElboWatchdog(policy="warn", tol=1e-6, check_every=4, metrics=m)
+    assert not wd.should_check(3)
+    assert wd.should_check(8)
+    assert not ElboWatchdog(check_every=0).should_check(7)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        wd.observe(-1.0)
+        wd.observe(-2.0)
+    assert m.value("watchdog.violations") == 1.0
+    assert wd.bound_tail(1) == [-2.0]
+
+
+# ---------------------------------------------------------------------------
+# the bundle, the null object, the roofline join
+# ---------------------------------------------------------------------------
+
+def test_as_telemetry_coercions():
+    assert as_telemetry(None) is NULL_TELEMETRY
+    assert as_telemetry(False) is NULL_TELEMETRY
+    t = as_telemetry(True)
+    assert isinstance(t, Telemetry) and t.enabled
+    assert t.watchdog.check_every == 0     # default: observe at evaluate()
+    assert t.watchdog.metrics is t.metrics  # bundle wires them together
+    assert as_telemetry(t) is t
+    with pytest.raises(TypeError):
+        as_telemetry("yes")
+
+
+def test_null_telemetry_is_inert():
+    assert not NULL_TELEMETRY.enabled
+    assert NULL_TELEMETRY.trace.begin("x") is None
+    NULL_TELEMETRY.trace.end(None)
+    NULL_TELEMETRY.metrics.inc("x")
+    assert NULL_TELEMETRY.trace.num_records == 0
+    assert NULL_TELEMETRY.trace.records == []
+    assert NULL_TELEMETRY.metrics.snapshot() == {"counters": [], "gauges": [],
+                                                 "histograms": []}
+    assert not NULL_TELEMETRY.watchdog.observe(-1e9)
+
+
+def test_roofline_join_over_the_h100_row():
+    """The measured-vs-modeled join at the H100 row's memory rate: a span
+    that took exactly its bytes over 3.35 TB/s agrees, one 10× slower is
+    flagged, a span the trace lacks is listed. The row holds the H100 data
+    sheet's figures and nothing else."""
+    hw = roofline.HW
+    assert hw["name"] == "NVIDIA H100 80GB HBM3 (data sheet)"
+    assert (hw["hbm_bw"], hw["peak_flops_fp32"], hw["peak_flops_bf16"],
+            roofline.HBM_GB) == (3.35e12, 67e12, 989e12, 80.0)
+    gbps = hw["hbm_bw"] / 1e9
+    rec = [{"type": "span", "name": name, "dur_us": us, "ts_us": 0.0,
+            "tid": 0, "depth": 0, "attrs": {}}
+           for name, us in (("fast", 100.0), ("slow", 1000.0))]
+    nbytes = 100e-6 * hw["hbm_bw"]
+    out = roofline.roofline_from_trace(
+        rec, {"fast": nbytes, "slow": nbytes, "absent": 1.0}, hbm_gbps=gbps)
+    assert out["missing_spans"] == ["absent"]
+    assert out["flagged"] == ["slow"] and out["n_agree"] == 1
+    fast = out["records"][0]
+    assert fast["measured_vs_modeled"] == pytest.approx(1.0)
+    with pytest.raises(ValueError):
+        roofline.roofline_check([], hbm_gbps=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the engine's hooks
+# ---------------------------------------------------------------------------
+
+def _engine(layout="padded", algo="ivi", telemetry=None, store="dense",
+            seed=0):
+    cfg = LDAConfig(num_topics=4, vocab_size=SPEC.vocab_size,
+                    estep_max_iters=15)
+    train = make_corpus(SPEC, seed=0, device=CPU)
+    if layout == "csr":
+        train = CorpusDocStream(train, SPEC.vocab_size)
+    return LDAEngine(cfg, train, algo=algo, batch_size=16, seed=seed,
+                     layout=layout, token_budget=256 if layout == "csr"
+                     else None, memo_store=store, telemetry=telemetry,
+                     device=CPU)
+
+
+@pytest.mark.parametrize("layout,algo,store", [
+    ("padded", "ivi", "dense"), ("csr", "ivi", "dense"),
+    ("padded", "svi", "dense"), ("padded", "sivi", "chunked"),
+    ("csr", "sivi", "chunked"),
+])
+def test_telemetry_off_bit_equals_on(layout, algo, store):
+    """The same two epochs with telemetry off (the null object) and on: the
+    same λ bits, and the live bundle recorded every update."""
+    off = _engine(layout, algo, None, store)
+    tel = Telemetry()
+    on = _engine(layout, algo, tel, store)
+    assert off.tel is NULL_TELEMETRY
+    for _ in range(2):
+        off.run_epoch()
+        on.run_epoch()
+    for f in ("lam", "m_vk", "init_frac", "t"):
+        assert torch.equal(getattr(off.state, f), getattr(on.state, f)), f
+    agg = spans_by_name(tel.trace.records)
+    assert agg["train/update"]["count"] == on._updates > 0
+    assert off.tel.trace.num_records == 0
+
+
+def _repro_pair(layout, algo, seed=0):
+    """``repro``'s engine and the port's on the same batches (the same seed,
+    or the same stream), both with a live bundle, from one λ₀."""
+    jcfg = JConfig(num_topics=4, vocab_size=SPEC.vocab_size,
+                   estep_max_iters=15)
+    jtrain = j_make_corpus(J_CORPORA["tiny"], seed=0)
+    budget = None
+    if layout == "csr":
+        jtrain = j_stream.CorpusDocStream(jtrain, SPEC.vocab_size)
+        budget = 256
+    jtel, ttel = JTelemetry(), Telemetry()
+    jeng = JEngine(jcfg, jtrain, algo=algo, batch_size=16, seed=seed,
+                   layout=layout, token_budget=budget, telemetry=jtel)
+    teng = _engine(layout, algo, ttel, seed=seed)
+    teng.state.lam.copy_(torch.from_numpy(np.array(
+        j_init_global_state(jcfg, jax.random.key(seed)).lam)))
+    return jeng, jtel, teng, ttel
+
+
+@pytest.mark.parametrize("layout,algo", [("padded", "ivi"), ("csr", "ivi"),
+                                         ("padded", "svi"), ("csr", "sivi")])
+def test_span_names_and_counters_equal_repro(layout, algo):
+    """After one epoch each: the same span names with the same counts, and
+    the same counters (``train.*`` and, on a stream, the packer's
+    ``pack.*``) with the same labels and totals, and the same memo gauge;
+    then ``evaluate`` sets the effective-topics gauge and feeds the
+    watchdog on the incremental path."""
+    jeng, jtel, teng, ttel = _repro_pair(layout, algo)
+    jeng.run_epoch()
+    teng.run_epoch()
+    jagg = spans_by_name(jtel.trace.records)
+    tagg = spans_by_name(ttel.trace.records)
+    assert {n: a["count"] for n, a in tagg.items()} == \
+        {n: a["count"] for n, a in jagg.items()}
+    want = set(SPANS) if algo != "svi" else {"train/update"}
+    assert set(tagg) == want
+    jsnap, tsnap = jtel.metrics.snapshot(), ttel.metrics.snapshot()
+    assert tsnap["counters"] == jsnap["counters"]
+    assert tsnap["gauges"] == jsnap["gauges"]
+    assert ttel.metrics.total("train.docs") == 96
+    teng.evaluate()
+    assert ttel.metrics.value("train.effective_topics") > 1.0
+    checks = ttel.watchdog.status()["checks"]
+    assert checks == (1 if algo != "svi" else 0)
+
+
+def test_watchdog_catches_real_bound_decrease():
+    """``repro``'s test on the port: corrupting λ out from under the
+    memoized statistics breaks eq. 4's bookkeeping, and the next armed
+    per-update check raises; before that, a full armed epoch passes."""
+    tel = Telemetry(watchdog=ElboWatchdog(policy="raise", check_every=1))
+    eng = _engine(telemetry=tel)
+    eng.run_epoch()                       # retires init mass -> armed
+    eng.run_epoch()                       # a full armed epoch: no violation
+    assert float(eng.state.init_frac) == 0.0
+    assert tel.watchdog.status()["armed_checks"] > 0
+    assert tel.watchdog.status()["ok"]
+    eng.state.lam.copy_(eng.state.lam.flip(1) * 7.0 + 11.0)
+    with pytest.raises(BoundMonotonicityError):
+        eng.run_epoch()
+    assert tel.watchdog.status()["violations"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# quality metrics
+# ---------------------------------------------------------------------------
+
+def test_quality_metrics_equal_repro():
+    """``top_words`` and ``npmi_coherence`` equal ``repro``'s on the same λ
+    and corpus, from a tensor or an array; ``effective_topics`` to fp32
+    rounding."""
+    jc = j_make_corpus(J_CORPORA["tiny"], seed=0)
+    tc = make_corpus(SPEC, seed=0, device=CPU)
+    lam = np.random.default_rng(3).gamma(
+        2.0, 1.0, size=(SPEC.vocab_size, 6)).astype(np.float32)
+    for arg in (lam, torch.from_numpy(lam)):
+        np.testing.assert_array_equal(metrics.top_words(arg, 6),
+                                      j_metrics.top_words(lam, 6))
+        assert metrics.npmi_coherence(arg, tc, k=6) == pytest.approx(
+            j_metrics.npmi_coherence(lam, jc, k=6), abs=1e-12)
+        assert metrics.effective_topics(arg) == pytest.approx(
+            j_metrics.effective_topics(jax.numpy.asarray(lam)), rel=1e-6)
