@@ -72,14 +72,34 @@ telemetry, each on the same corpus at the same widths:
  19. telemetry — a live bundle on each layout: the spans' split of an
                update, the same λ bits without it, the disabled update's
                host syncs against the parent's sequence, an armed watchdog
+then the facade, serving and checkpoints, and the lifted K caps:
+ 20. facade  — LDA (IVI, cuda backend) for two epochs from warm_start of
+               phase 5's λ₀, booked as init_global_state books it: 2
+               launches an update, λ bit-equal to phase 5's LDAEngine run;
+               then a mid-epoch save, load and resume bit-equal to the
+               uninterrupted run, dense and chunked stores, both layouts,
+               on the first 4,096 documents (the cut is in the line), with
+               save and load ms and bytes
+ 21. serve_infer — TopicInferencer on the 2,100 held-out documents, padded
+               (batch 1,024) and CSR (131,072-slot batches), from phase
+               5's λ: 1 launch a batch, γ against the gather backend (tile
+               by tile on the padded layout), double-buffered bits equal to
+               synchronous ones, no host sync before the final gather,
+               docs/s both ways, and a swapper thread flipping between two
+               snapshots under traffic (each batch's γ one snapshot's)
+ 22. kcap    — K1, K4, K3, K6, K7 and K8 at K = 300 and 1,000 against
+               their twins on the first 256 documents (K8: 16) at the
+               Arxiv V, timed beside their bounds; every fixed-point
+               instance's spills; at K = 100 the parent commit's bits
+               (sha256 of each kernel's outputs on seeded inputs)
 then the pre-fusion baseline and attention:
- 20. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
+ 23. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
                one-hot memo delta (K8) on phase 3's documents, λ and γ₀:
                each kernel against its twin and timed; the whole E-step
                against the same loop over the twins; the legacy correction
                against the fused one (K1–K3), here and at BENCH_estep's
                shape (B = 128, V = 4096, K = 128, L = 64)
- 21. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
+ 24. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
                heads, 2 KV heads, hd = 128), B = 1, S = 4096, bf16, causal,
                against its twin, the same bits on two launches, timed beside
                scaled_dot_product_attention; the count of wgmma (HGMMA) and
@@ -265,12 +285,19 @@ def phase_build():
 
 def fixed_point_spills(ptxas, kpl):
     """Spill stores and loads (bytes) of each fixed_point_kernel instance
-    for ``kpl`` topics a lane, from ptxas's report."""
+    for ``kpl`` topics a lane (0: the wide kernel above 256 topics), from
+    ptxas's report."""
+    return kernel_spills(ptxas, "fixed_point_wide_kernel" if kpl == 0
+                         else f"fixed_point_kernelILi{kpl}E")
+
+
+def kernel_spills(ptxas, fragment):
+    """Spill stores and loads (bytes) of each kernel whose mangled name
+    holds ``fragment``, from ptxas's report."""
     import re
     out = []
     for ln, props in zip(ptxas, ptxas[1:]):
-        if "Function properties" in ln and \
-                f"fixed_point_kernelILi{kpl}E" in ln:
+        if "Function properties" in ln and fragment in ln:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", props)
             if m:
@@ -2194,6 +2221,486 @@ def phase_attention(device, timer):
     return {"flash_attention": row}, launches
 
 
+# ---------------------------------------------------------------------------
+# the facade, its checkpoints and the inferencer
+# ---------------------------------------------------------------------------
+
+# the checkpoint round trip runs on the first 4,096 training documents: the
+# dense memo of all 16,430 is 1.07 GB on disk
+CKPT_DOCS = 4096
+CKPT_DIR = ROOT / "_smoke_ckpt"
+
+
+def dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_facade(device, spec, train, topics, batch, sync, lam_train):
+    """``LDA`` with IVI on the cuda backend, two epochs on the Arxiv
+    corpus from ``warm_start`` of phase train's λ₀ (booked as
+    ``init_global_state`` books it): 2 launches an update, and λ bit-equal
+    to phase train's direct ``LDAEngine`` run (``lam_train``). Then a
+    mid-epoch save, load and resume bit-equal to the uninterrupted run, on
+    the dense and chunked stores and both layouts, on ``CKPT_DOCS``
+    documents, with the save and load times and bytes."""
+    import shutil
+    import torch
+    from repro_torch.core.types import Corpus, init_global_state
+    from repro_torch.kernels import lda_estep
+    from repro_torch.lda import LDA
+
+    cfg = train_config(spec, topics)
+    gen = torch.Generator(device=device).manual_seed(0)
+    lam0 = init_global_state(cfg, device=device, generator=gen).lam
+    lda = LDA(cfg, algo="ivi", batch_size=batch, seed=0, device=device)
+    lda.partial_fit(train, steps=0).warm_start(lam0)
+    want = init_global_state(cfg, device=device, lam0=lam0)
+    check(all(torch.equal(getattr(lda.state, f), getattr(want, f))
+              for f in ("lam", "m_vk", "init_mass", "init_frac", "t")),
+          "facade: warm_start did not book λ₀ as init_global_state does")
+    lda_estep.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    lda.fit(epochs=2)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = dict(lda_estep.LAUNCHES)
+    updates = 2 * -(-train.num_docs // batch)
+    check_two_launches("facade", launches, updates, "fixed_point")
+    check(torch.equal(lda.lam, lam_train),
+          "facade: λ is not the direct LDAEngine run's bit for bit")
+    out = {"phase": "facade", "docs": train.num_docs, "epochs": 2,
+           "updates": updates, "launches": launches,
+           "ms_per_update": seconds * 1e3 / updates,
+           "bit_equal_to_engine": True, "warm_start_as_init": True,
+           "round_trip": {}}
+    del lda
+
+    sub = Corpus(train.token_ids[:CKPT_DOCS].contiguous(),
+                 train.counts[:CKPT_DOCS].contiguous())
+    out["round_trip_docs"] = CKPT_DOCS
+    out["round_trip_cut"] = (f"the first {CKPT_DOCS:,} of {train.num_docs:,} "
+                             "training documents")
+    try:
+        for layout in ("padded", "csr"):
+            for store in ("dense", "chunked"):
+                shutil.rmtree(CKPT_DIR, ignore_errors=True)
+                kw = dict(algo="ivi", batch_size=batch, seed=0,
+                          memo_store=store, chunk_docs=CKPT_DOCS // 2,
+                          layout=layout, device=device)
+                if layout == "csr":
+                    kw["token_budget"] = CSR_BUDGET
+                a = LDA(cfg, **kw).partial_fit(sub, steps=2)
+                sync()
+                t0 = time.perf_counter()
+                a.save(str(CKPT_DIR))
+                save_ms = (time.perf_counter() - t0) * 1e3
+                nbytes = dir_bytes(CKPT_DIR)
+                a.partial_fit(steps=5)        # past the epoch's end
+                t0 = time.perf_counter()
+                b = LDA.load(str(CKPT_DIR), device=device).resume(sub)
+                sync()
+                load_ms = (time.perf_counter() - t0) * 1e3
+                b.partial_fit(steps=5)
+                same = all(torch.equal(getattr(a.state, f),
+                                       getattr(b.state, f))
+                           for f in ("lam", "m_vk", "init_mass",
+                                     "init_frac", "t"))
+                check(same and a.docs_seen == b.docs_seen,
+                      f"facade: {layout}/{store} resume is not bit-equal")
+                out["round_trip"][f"{layout}_{store}"] = {
+                    "save_ms": save_ms, "load_resume_ms": load_ms,
+                    "bytes": nbytes, "bit_equal": True}
+                del a, b
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit(out)
+    return out
+
+
+def phase_serve_infer(device, spec, test, topics, lam):
+    """``TopicInferencer`` on the held-out documents, padded (batch 1,024)
+    and CSR (131,072-slot batches): 1 launch a batch (the fixed point
+    without its finish), γ against the gather backend tile by tile (padded)
+    or the flat reference (CSR) at phase serve's bar, the double-buffered
+    bits equal to the synchronous ones, no host sync before the final
+    gather, docs/s both ways; then a swapper thread flipping between two
+    snapshots under traffic, each batch's γ one snapshot's."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core.estep import BowBatch, CSRTokenBatch, get_backend
+    from repro_torch.core.types import init_global_state
+    from repro_torch.data.stream import BatchPacker, CorpusDocStream
+    from repro_torch.kernels import lda_estep
+    from repro_torch.lda import TopicInferencer
+
+    cfg = train_config(spec, topics)
+    stream = CorpusDocStream(test, spec.vocab_size)
+    out = {"phase": "serve_infer", "docs": test.num_docs}
+    gen = torch.Generator(device=device).manual_seed(1)
+    lam2 = init_global_state(cfg, device=device, generator=gen).lam
+    for layout in ("padded", "csr"):
+        inf = TopicInferencer(cfg, lam, batch_size=BATCH, layout=layout,
+                              token_budget=CSR_BUDGET, device=device)
+        packer = BatchPacker(**inf.packer_kwargs())
+        batches = [x for x in (packer.add(p, i, c) for p, (i, c)
+                               in enumerate(stream.iter_from(0))) if x]
+        batches += packer.flush()
+        name = "fixed_point_csr" if layout == "csr" else "fixed_point"
+        inf.posterior_docs(stream)                        # warm-up
+        lda_estep.reset_launches()
+        got = inf.posterior_docs(stream, double_buffer=True)
+        launches = dict(lda_estep.LAUNCHES)
+        check(launches[name] == len(batches)
+              and sum(launches.values()) == len(batches),
+              f"serve_infer ({layout}): not 1 launch a batch over "
+              f"{len(batches)}: {launches}")
+        sync_got = inf.posterior_docs(stream, double_buffer=False)
+        check(np.array_equal(got, sync_got),
+              f"serve_infer ({layout}): double-buffered bits differ")
+        syncs = host_syncs(lambda: inf._solve_docs(stream,
+                                                   double_buffer=True))
+        check(syncs == 0, f"serve_infer ({layout}): {syncs} host syncs "
+                          "before the final gather")
+        # γ against the gather backend: tile by tile (K1's stopping tiles)
+        # on the padded layout, the whole flat batch on CSR
+        eb = inf.exp_elog_beta
+        gather = get_backend("gather")
+        err = 0.0
+        for x in batches:
+            rows, gamma, n, _ = inf.posterior_packed(x)
+            if layout == "csr":
+                tok = CSRTokenBatch(*flat_tensors(x, device))
+                ref = gather.solve_tokens_gamma(cfg, eb, tok,
+                                                num_docs=BATCH)[:n]
+            else:
+                ids = torch.zeros((BATCH, x.width), dtype=torch.int32,
+                                  device=device)
+                cnts = torch.zeros((BATCH, x.width), device=device)
+                ids[:n] = torch.from_numpy(x.token_ids).to(device)
+                cnts[:n] = torch.from_numpy(x.counts).to(device)
+                ref = torch.cat([gather.solve_gamma(
+                    cfg, eb, BowBatch(ids[i:i + 128], cnts[i:i + 128]))
+                    for i in range(0, BATCH, 128)])[:n]
+            err = max(err, float((gamma[:n] - ref).abs().max()))
+            check(torch.allclose(gamma[:n], ref, rtol=2e-3, atol=2e-3),
+                  f"serve_infer ({layout}): γ off the gather backend by "
+                  f"{err}")
+        # docs/s of whole calls (packing, copies, solves, the gather), the
+        # two paths in turns; host-clock times spread, so five of each
+        rates = {}
+        for mode in (True, False) * 5:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inf.posterior_docs(stream, double_buffer=mode)
+            rates.setdefault("double_buffered" if mode else "synchronous",
+                             []).append(test.num_docs
+                                        / (time.perf_counter() - t0))
+        rates = {m: {"median": median(r), "all": r} for m, r in rates.items()}
+        # a swapper flips the snapshot while batches are served
+        other = TopicInferencer(cfg, lam2, batch_size=BATCH, layout=layout,
+                                token_budget=CSR_BUDGET, device=device)
+        want = [[inf.posterior_packed(x)[1], other.posterior_packed(x)[1]]
+                for x in batches]
+        stop = threading.Event()
+
+        def swapper():
+            n = 0
+            while not stop.is_set():
+                n += 1
+                inf.swap_model(lam2 if n % 2 else lam)
+                time.sleep(1e-3)    # let batches land between the swaps
+
+        t = threading.Thread(target=swapper)
+        t.start()
+        versions = []
+        try:
+            for _ in range(4):
+                for i, x in enumerate(batches):
+                    _, gamma, _, version = inf.posterior_packed(x)
+                    check(torch.equal(gamma, want[i][version % 2]),
+                          f"serve_infer ({layout}): a batch's γ is not its "
+                          "snapshot's")
+                    versions.append(version)
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        check(not t.is_alive() and versions == sorted(versions)
+              and len(set(v % 2 for v in versions)) == 2,
+              f"serve_infer ({layout}): swaps under traffic: {versions}")
+        out[layout] = {
+            "batches": len(batches), "launches": launches,
+            "max_abs_err_vs_gather": err,
+            "tol": "γ rtol=atol=2e-3 against gather (tile by tile padded)",
+            "double_buffered_bits_equal_synchronous": True,
+            "host_syncs_before_gather": syncs,
+            "docs_per_s": rates,
+            "padding": inf.padding_stats(),
+            "swap": {"batches": len(versions),
+                     "versions_seen": len(set(versions))}}
+        del inf, other, want
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the lifted K caps: K1/K4 above 256 topics, K3 over column chunks, K6-K8
+# over K tiles
+# ---------------------------------------------------------------------------
+
+KCAP_TOPICS = (300, 1000)
+KCAP_BATCH = 256          # the first 256 Arxiv-shaped documents, V = 141,927
+# K8's partials are (B / B-tile, V, K) floats twice: at K = 1,000 its
+# B-tile is 2, so 16 documents make 8 partials (9.1 GB with the twin's)
+KCAP_ONEHOT_BATCH = 16
+# sha256 of each kernel's outputs at K = 100 on ``digest_inputs``, as the
+# parent commit 1391254 built them (chip run, NVIDIA H100 80GB HBM3): the
+# instances at K <= 256 (K1/K4) and K <= 128 (K6-K8) keep their bits
+PARENT_DIGESTS = {
+    "fixed_point":
+        "6a74054a1150a2687342dae805774ec7a4924a701332e6326c908aaebfb99588",
+    "fixed_point_csr":
+        "e4d2329444c64fd971b56cf1141cb6676dc6c8b4364fe44f5cd2acff3dc17ba9",
+    "segment_scatter":
+        "7156093ddcca0aeee14af409f594c74ce9982b9c72755bea9b4a42e1ba1bf410",
+    "sweep":
+        "0a55f40e7eaf88d446aad9d9bc44d206083fe8a77d2ce1c162d9b199d624943d",
+    "sstats":
+        "82296b778b6f260ac5b78c129c68416c7fc71b703d755cf5f587348cb6d3816c",
+    "memo_delta_onehot":
+        "e734394fe429b74b2df3ce086cf8576699ace3b9b52b3d72424567c206a64e4b",
+}
+# ptxas's spill bytes (stores, loads) of the fixed point's register
+# instances as the parent built them: KPL = 6-8 (K = 161-256) spilled
+# there already and are kept as they were (their bits); every other
+# instance, and the wide kernel above 256 topics, must not spill
+PARENT_SPILLS = {"kpl6": [[8, 16]], "kpl7": [[16, 52]], "kpl8": [[36, 100]]}
+
+
+def digest_inputs(device, k=100, b=512, l=64, v=8192, seed=0):
+    """Seeded numpy inputs of every lifted kernel at K topics: B documents
+    of L unique ids (a random live length each, counts 1-5), Eφ a positive
+    (V, K) matrix with unit columns."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    ids = np.stack([rng.choice(v, l, replace=False) for _ in range(b)])
+    lens = rng.integers(1, l + 1, b)
+    cnts = rng.integers(1, 6, (b, l)) * (np.arange(l) < lens[:, None])
+    eb = rng.gamma(1.0, 1.0, (v, k)).astype(np.float32)
+    eb /= eb.sum(0, keepdims=True)
+    return (torch.from_numpy(ids.astype(np.int32)).to(device),
+            torch.from_numpy(cnts.astype(np.float32)).to(device),
+            torch.from_numpy(eb).to(device))
+
+
+def kernel_digests(device, k=100):
+    """sha256 of the outputs of K1, K4 (each with its π finish), K3, K6,
+    K7 and K8 on ``digest_inputs`` at K topics."""
+    import hashlib
+    import torch
+    from repro_torch.core.estep import densify
+    from repro_torch.kernels import lda_estep
+
+    ids, cnts, eb = digest_inputs(device, k)
+    (b, l), v = ids.shape, eb.shape[0]
+    gamma0 = torch.full((b, k), 1.5, device=device)
+    flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
+    segs = torch.arange(b, dtype=torch.int32,
+                        device=device).repeat_interleave(l)
+
+    def sha(*xs):
+        h = hashlib.sha256()
+        for x in xs:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    k1 = lda_estep.estep_fixed_point_pi(ids, cnts, eb, gamma0, 0.5, 1e-4,
+                                        60)
+    k4 = lda_estep.estep_fixed_point_csr_pi(flat_ids, flat_cnts, segs, eb,
+                                            gamma0, 0.5, 1e-4, 60)
+    pi1, pi4 = k1[3].reshape(-1, k), k4[3]
+    c = densify(ids, cnts, v)
+    return {
+        "fixed_point": sha(*k1),
+        "fixed_point_csr": sha(*k4),
+        "segment_scatter": sha(*lda_estep.segment_scatter(
+            flat_ids, flat_cnts, pi1, pi4, v)),
+        "sweep": sha(lda_estep.estep_sweep(c, k1[1], eb, 0.5)),
+        "sstats": sha(lda_estep.sstats(c, k1[1], eb)),
+        "memo_delta_onehot": sha(*lda_estep.memo_delta_onehot(
+            ids, cnts, eb[ids.long()].contiguous(), k1[1], v,
+            old_pi=pi4.reshape(b, l, k), quantize=True)),
+    }
+
+
+def phase_kcap(device, spec, train, timer):
+    """K1, K4, K3, K6, K7 and K8 at K = 300 and 1,000 against their twins
+    on the first Arxiv-shaped documents (V = 141,927), timed beside their
+    bounds; every fixed-point instance's spills (0 required); at K = 100
+    the parent's bits."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.estep import densify
+    from repro_torch.core.math import exp_dirichlet_expectation
+    from repro_torch.core.types import LDAConfig, init_global_state
+    from repro_torch.kernels import build, lda_estep, ops
+
+    ptxas = build.BUILD_INFO["lda_estep"]["ptxas"]
+    spills = {f"kpl{n}" if n else "wide": fixed_point_spills(ptxas, n)
+              for n in range(9)}
+    check(all(v == PARENT_SPILLS.get(name, [[0, 0]])
+              for name, v in spills.items()),
+          f"fixed_point instances spill: {spills}")
+    digests = kernel_digests(device)
+    same = {name: digests[name] == want
+            for name, want in PARENT_DIGESTS.items()}
+    check(all(same.values()) and len(same) == 6,
+          f"K = 100: not the parent's bits: {same}")
+
+    ids = train.token_ids[:KCAP_BATCH].contiguous()
+    cnts = train.counts[:KCAP_BATCH].contiguous()
+    (b, l), v = ids.shape, spec.vocab_size
+    live = int((cnts != 0).sum())
+    flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
+    segs = torch.arange(b, dtype=torch.int32,
+                        device=device).repeat_interleave(l)
+    rows = {}
+    for k in KCAP_TOPICS:
+        cfg = LDAConfig(num_topics=k, vocab_size=v,
+                        estep_max_iters=ESTEP_ITERS)
+        gen = torch.Generator(device=device).manual_seed(k)
+        eb = exp_dirichlet_expectation(init_global_state(
+            cfg, device=device, generator=gen).lam, axis=0).contiguous()
+        gamma0 = torch.full((b, k), cfg.alpha0 + 1.0, device=device)
+        fp = (cfg.alpha0, cfg.estep_tol, cfg.estep_max_iters)
+
+        # K1 ---------------------------------------------------------------
+        args = (ids, cnts, eb, gamma0, *fp)
+        k1 = check_fixed_point(args, f"K={k}")
+        et = k1.pop("_etheta")
+        k1.pop("_etheta_plain")
+        k1.update(check_fused_pi(
+            lambda q: lda_estep.estep_fixed_point_pi(*args, quantize=q),
+            lambda: lda_estep.estep_fixed_point(*args),
+            lambda e, q: lda_estep.token_pi(ids, cnts, eb, e, quantize=q),
+            f"fixed_point K={k}"))
+        k1.update(ms=timer(lambda: lda_estep.estep_fixed_point_pi(*args), 5),
+                  plain_ms=timer(
+                      lambda: lda_estep.estep_fixed_point_pi_plain(*args),
+                      1, 1))
+
+        # K4 on the same documents, flattened ------------------------------
+        cargs = (flat_ids, flat_cnts, segs, eb, gamma0, *fp)
+        k4 = check_fixed_point_csr(cargs, f"K={k}")
+        et4 = k4.pop("_etheta")
+        k4.pop("_etheta_plain")
+        k4.update(check_fused_pi(
+            lambda q: lda_estep.estep_fixed_point_csr_pi(*cargs, quantize=q),
+            lambda: lda_estep.estep_fixed_point_csr(*cargs),
+            lambda e, q: lda_estep.token_pi_csr(flat_ids, flat_cnts, segs,
+                                                eb, e, quantize=q),
+            f"fixed_point_csr K={k}"))
+        k4.update(ms=timer(
+            lambda: lda_estep.estep_fixed_point_csr_pi(*cargs), 5),
+            plain_ms=timer(
+                lambda: lda_estep.estep_fixed_point_csr_pi_plain(*cargs),
+                1, 1))
+
+        # K3 on the two fixed points' π ------------------------------------
+        pi_new = lda_estep.token_pi(ids, cnts, eb, et).reshape(-1, k)
+        pi_old = lda_estep.token_pi(ids, cnts, eb, et4).reshape(-1, k)
+        err = check_segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v,
+                                    f"K={k}")
+        segments = lda_estep.scatter_segments(flat_ids, flat_cnts, v)
+        bms, by = bound_ms(live * 8 + 2 * live * k * 4 + 2 * v * k * 4,
+                           4.0 * live * k)
+        k3 = {"max_abs_err": err, "tol": "rtol=atol=1e-5 vs fp64; bitwise "
+                                         "equal across launches",
+              "ms": timer(lambda: lda_estep.segment_scatter_prepared(
+                  segments, flat_cnts, pi_new, pi_old, v), 10),
+              "plain_ms": timer(lambda: lda_estep.segment_scatter_plain(
+                  flat_ids, flat_cnts, pi_new, pi_old, v), 2, 1),
+              "bound_ms": bms, "bound_by": by}
+        del pi_new, pi_old, segments
+
+        # K6 and K7 on the padded dense counts, a seeded γ -------------------
+        cpad, ebpad, _ = ops.pad_inputs(densify(ids, cnts, v), eb, 128, 512)
+        (bp, vp), kp = cpad.shape, ebpad.shape[1]
+        g_rand = cfg.alpha0 + 0.1 + 20.0 * torch.rand(
+            (b, k), generator=gen, device=device)
+        et0 = ops.padded_exp_elog_theta(
+            F.pad(g_rand, (0, kp - k, 0, bp - b), value=cfg.alpha0), k)
+        dense = {}
+        for name, kern, plain, dargs in (
+                ("sweep", lda_estep.estep_sweep, lda_estep.estep_sweep_plain,
+                 (cpad, et0, ebpad, cfg.alpha0)),
+                ("sstats", lda_estep.sstats, lda_estep.sstats_plain,
+                 (cpad, et0, ebpad))):
+            got, again, want = kern(*dargs), kern(*dargs), plain(*dargs)
+            derr = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+                  f"{name} K={k}: off its twin by {derr}")
+            check(torch.equal(got, again), f"{name} K={k}: two launches "
+                                           "differ")
+            bms, by = dense_bound(bp, vp, kp)
+            dense[name] = {"max_abs_err": derr,
+                           "tol": "rtol=atol=2e-5 (fp32 twin, no TF32)",
+                           "ms": timer(lambda: kern(*dargs), 3),
+                           "plain_ms": timer(lambda: plain(*dargs), 3),
+                           "bound_ms": bms, "bound_by": by}
+        del cpad, ebpad, et0
+
+        # K8 on the first few documents, with phase legacy's bars ----------
+        n8 = KCAP_ONEHOT_BATCH
+        ids8, cnts8 = ids[:n8].contiguous(), cnts[:n8].contiguous()
+        ebt8 = eb[ids8.long()].contiguous()
+        et8 = et[:n8].contiguous()
+        old8 = lda_estep.token_pi(ids8, cnts8, eb, et4[:n8].contiguous())
+        o8 = (ids8, cnts8, ebt8, et8, v, old8)
+        got = lda_estep.memo_delta_onehot(*o8)
+        check(all(torch.equal(x, y) for x, y in
+                  zip(got, lda_estep.memo_delta_onehot(*o8))),
+              f"memo_delta_onehot K={k}: two launches differ")
+        want = lda_estep.memo_delta_onehot_plain(*o8)
+        oerr = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        check(torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+              and all(torch.allclose(x, y, rtol=1e-4, atol=1e-4)
+                      for x, y in zip(got[1:], want[1:])),
+              f"memo_delta_onehot K={k}: off its twin by {oerr}")
+        del got, want
+        got = lda_estep.memo_delta_onehot(*o8, quantize=True)
+        seg = lda_estep.memo_delta(ids8, cnts8, eb, et8, v, old_pi=old8,
+                                   quantize=True)
+        check(torch.equal(got[0], seg[0]),
+              f"memo_delta_onehot K={k}: π is not K2's bit for bit")
+        check(all(torch.allclose(x, y, rtol=1e-4, atol=1e-4)
+                  for x, y in zip(got[1:], seg[1:])),
+              f"memo_delta_onehot K={k}: S off K2 + K3")
+        del got, seg
+        live8 = int((cnts8 != 0).sum())
+        bms, by = bound_ms(n8 * l * (8 + 3 * k * 4) + 2 * v * k * 4,
+                           8.0 * live8 * k)
+        dense["memo_delta_onehot"] = {
+            "max_abs_err": oerr,
+            "tol": "π rtol=1e-5 atol=1e-6, S rtol=atol=1e-4 (phase legacy's "
+                   "bars); quantized π bit-equal to K2's",
+            "B": n8,
+            "ms": timer(lambda: lda_estep.memo_delta_onehot(*o8), 3),
+            "plain_ms": timer(lambda: lda_estep.memo_delta_onehot_plain(*o8),
+                              2, 1),
+            "bound_ms": bms, "bound_by": by}
+        del ebt8, o8
+        rows[k] = {"fixed_point": k1, "fixed_point_csr": k4,
+                   "segment_scatter": k3, **dense}
+        torch.cuda.empty_cache()
+    emit({"phase": "kcap", "B": b, "L": l, "V": v, "live_slots": live,
+          "fixed_point_spill_bytes": spills, "digests_k100": digests,
+          "parent_bits_k100": same, "kernels": rows})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2215,6 +2722,7 @@ def main() -> int:
     phase_serve(device, spec, test, TOPICS, BATCH, torch.cuda.synchronize)
     launches, eng, ivi = phase_train(device, spec, train, test, TOPICS,
                                      BATCH, torch.cuda.synchronize)
+    lam_train = eng.state.lam.clone()     # after the two epochs
     phase_fixed_point_warm(eng, kernels, cuda_ms)
     batches = iter(eng.epoch_batches())
     phase_profile(lambda: eng.run_minibatch(next(batches)[0]))
@@ -2240,6 +2748,10 @@ def main() -> int:
     phase_train_gamma(device, spec, train, test, TOPICS, BATCH, sync, ivi)
     phase_train_bucketed(device, spec, train, test, TOPICS, BATCH, sync, ivi)
     phase_telemetry(device, spec, train, TOPICS, BATCH, sync)
+    phase_facade(device, spec, train, TOPICS, BATCH, sync, lam_train)
+    phase_serve_infer(device, spec, test, TOPICS, lam_train)
+    del lam_train
+    phase_kcap(device, spec, train, cuda_ms)
 
     legacy, launches_legacy = phase_legacy(device, spec, train, TOPICS, BATCH,
                                            cuda_ms)

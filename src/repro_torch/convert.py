@@ -4,7 +4,8 @@
 (``lam``, ``m_vk``, ``init_mass``, ``init_frac``, ``t``; see
 ``repro/lda/trainer.py``) and ``memo_from_numpy`` the ``{"pi", "visited"}``
 that ``repro``'s ``DenseMemoStore.state_dict()`` returns, so a state built
-by either package can continue in the port.
+by either package can continue in the port. ``lda_from_repro_checkpoint``
+loads a whole ``repro`` facade checkpoint (a manifest directory).
 """
 from __future__ import annotations
 
@@ -57,3 +58,11 @@ def memo_from_numpy(arrays: Mapping[str, np.ndarray],
                          f"{visited.shape}")
     return DenseMemoStore(pi=torch.from_numpy(pi).to(device),
                           visited=torch.from_numpy(visited).to(device))
+
+
+def lda_from_repro_checkpoint(path: str, device=None):
+    """A ``repro`` ``LDA.save`` directory as the port's ``LDA``: serving
+    works at once, ``resume(corpus)`` continues the run (the port's
+    ``load_lda_checkpoint``; the two packages share the format)."""
+    from repro_torch.lda.ckpt import load_lda_checkpoint
+    return load_lda_checkpoint(path, device=device)

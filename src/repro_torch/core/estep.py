@@ -119,10 +119,24 @@ def warm_start_gamma(cfg: LDAConfig, counts: torch.Tensor,
 
 def segment_sum_docs(values: torch.Tensor, segments: torch.Tensor,
                      num_docs: int) -> torch.Tensor:
-    """Σ over each document's tokens: (T, ...) → (num_docs, ...)."""
-    out = torch.zeros((num_docs,) + tuple(values.shape[1:]),
-                      dtype=values.dtype, device=values.device)
-    return out.index_add_(0, segments.long(), values)
+    """Σ over each document's tokens: (T, ...) → (num_docs, ...), summed in
+    the same order on every call. On CUDA ``index_add_`` adds in whatever
+    order its float atomics land, which would make the CSR update's warm
+    start γ₀, and with it a resumed run, differ from run to run: there the
+    tokens are sorted by document (stably, no host sync) and each
+    document's run is summed in order by ``segment_reduce``. The CPU's
+    ``index_add_`` already adds in token order. Tokens whose segment lies
+    outside [0, num_docs) add nothing on CUDA."""
+    if values.device.type != "cuda":
+        out = torch.zeros((num_docs,) + tuple(values.shape[1:]),
+                          dtype=values.dtype, device=values.device)
+        return out.index_add_(0, segments.long(), values)
+    segs, order = torch.sort(segments.long(), stable=True)
+    bounds = torch.searchsorted(
+        segs, torch.arange(num_docs + 1, dtype=segs.dtype,
+                           device=segs.device))
+    return torch.segment_reduce(values[order], "sum", offsets=bounds,
+                                axis=0, unsafe=True)
 
 
 def scatter_sstats_flat(token_ids: torch.Tensor, weighted_pi: torch.Tensor,
@@ -291,6 +305,14 @@ class EStepBackend:
         words_first = torch.where(~visited, cnts.sum(-1), 0.0).sum()
         return correction, words_first, res
 
+    def solve_gamma(self, cfg: LDAConfig, exp_elog_beta: torch.Tensor,
+                    batch: BowBatch,
+                    gamma0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """γ alone, what serving needs: ``solve(...).gamma``. The CUDA
+        backend runs its fixed point without the π finish and the scatter
+        that serving would throw away."""
+        return self.solve(cfg, exp_elog_beta, batch, gamma0).gamma
+
     # -- flat-token (CSR) contract --------------------------------------
     def solve_tokens(self, cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                      tok: CSRTokenBatch, num_docs: int,
@@ -299,6 +321,15 @@ class EStepBackend:
         Default: the plain ``estep_csr_ref``."""
         return estep_csr_ref(cfg, exp_elog_beta, tok.token_ids, tok.counts,
                              tok.segments, num_docs, gamma0)
+
+    def solve_tokens_gamma(self, cfg: LDAConfig,
+                           exp_elog_beta: torch.Tensor, tok: CSRTokenBatch,
+                           num_docs: int,
+                           gamma0: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """``solve_gamma`` on the flat layout."""
+        return self.solve_tokens(cfg, exp_elog_beta, tok, num_docs,
+                                 gamma0).gamma
 
     def solve_correction_tokens(
             self, cfg: LDAConfig, exp_elog_beta: torch.Tensor,
@@ -363,11 +394,23 @@ class CudaBackend(EStepBackend):
                                          batch.counts, old_pi, visited,
                                          pi_dtype=pi_dtype)
 
+    def solve_gamma(self, cfg, exp_elog_beta, batch, gamma0=None):
+        from repro_torch.kernels import ops as kops
+        return kops.estep_gamma_cuda(cfg, exp_elog_beta, batch.token_ids,
+                                     batch.counts, gamma0)
+
     def solve_tokens(self, cfg, exp_elog_beta, tok, num_docs, gamma0=None):
         from repro_torch.kernels import ops as kops
         return kops.estep_cuda_csr(cfg, exp_elog_beta, tok.token_ids,
                                    tok.counts, tok.segments, gamma0,
                                    num_docs=num_docs)
+
+    def solve_tokens_gamma(self, cfg, exp_elog_beta, tok, num_docs,
+                           gamma0=None):
+        from repro_torch.kernels import ops as kops
+        return kops.estep_gamma_cuda_csr(cfg, exp_elog_beta, tok.token_ids,
+                                         tok.counts, tok.segments, gamma0,
+                                         num_docs=num_docs)
 
     def solve_correction_tokens(self, cfg, exp_elog_beta, tok, old_pi,
                                 visited, pi_dtype="float32"):
@@ -401,6 +444,12 @@ class CSRBackend(CudaBackend):
         res = self.solve_tokens(cfg, exp_elog_beta, self.flatten(batch),
                                 num_docs=b, gamma0=gamma0)
         return res._replace(pi=res.pi.reshape(b, l, -1))
+
+    def solve_gamma(self, cfg, exp_elog_beta, batch, gamma0=None):
+        return self.solve_tokens_gamma(cfg, exp_elog_beta,
+                                       self.flatten(batch),
+                                       num_docs=batch.token_ids.shape[0],
+                                       gamma0=gamma0)
 
     def solve_correction(self, cfg, exp_elog_beta, batch, old_pi, visited,
                          pi_dtype="float32"):

@@ -42,6 +42,27 @@ from repro_torch.core.types import Corpus, LDAConfig, resolve_device
 _EPS = 1e-30
 
 
+def _bits16(v) -> np.ndarray:
+    """bf16 values as their 16-bit patterns: a ``torch.bfloat16`` tensor (a
+    manifest's "bfloat16" tag) or any 2-byte numpy array (``uint16`` bits,
+    or ``repro``'s ``ml_dtypes`` bf16), unchanged."""
+    if isinstance(v, torch.Tensor):
+        if v.dtype != torch.bfloat16:
+            raise ValueError(f"expected bf16 bits, got a {v.dtype} tensor")
+        return v.contiguous().view(torch.int16).numpy().view(np.uint16)
+    v = np.asarray(v)
+    if v.dtype.itemsize != 2:
+        raise ValueError(f"expected bf16 bits (2 bytes an element), got "
+                         f"{v.dtype}")
+    return np.ascontiguousarray(v).view(np.uint16)
+
+
+def bits_as_bf16(bits: np.ndarray) -> torch.Tensor:
+    """uint16 bf16 patterns as a ``torch.bfloat16`` CPU tensor (a copy)."""
+    return torch.from_numpy(_bits16(bits).view(np.int16).copy()) \
+        .view(torch.bfloat16)
+
+
 def _chunk_partition(idx: np.ndarray, chunk_docs: int
                      ) -> Iterator[Tuple[int, np.ndarray, np.ndarray]]:
     """Partition doc indices by chunk: yields (chunk, sel, local) where
@@ -57,6 +78,9 @@ class MemoStore:
     """One memo contract for every engine (see module docstring)."""
 
     kind: str = "abstract"
+    # keys of ``state_dict`` that hold bf16 patterns (as uint16) start with
+    # this, so a checkpoint can tag them "bfloat16"
+    bf16_prefix: Optional[str] = None
     # wire dtype of the stored π: engines round π through it BEFORE the
     # add-new side of the correction so ⟨m_vk⟩ adds exactly what the store
     # will later subtract
@@ -198,6 +222,7 @@ class ChunkedMemoStore(MemoStore):
 
     kind = "chunked"
     pi_wire_dtype = "bfloat16"
+    bf16_prefix = "chunk_"
 
     def __init__(self, cfg: LDAConfig, num_docs: int, max_unique: int, *,
                  chunk_docs: int = 8192, device=None):
@@ -273,16 +298,13 @@ class ChunkedMemoStore(MemoStore):
 
     def load_state_dict(self, state) -> "ChunkedMemoStore":
         for c, chunk in enumerate(self._chunks):
-            bits = np.asarray(state[f"chunk_{c:05d}"])
+            bits = _bits16(state[f"chunk_{c:05d}"])
             if bits.shape != tuple(chunk.shape):
                 raise ValueError(f"memo chunk {c}: checkpoint shape "
                                  f"{bits.shape} != store "
                                  f"{tuple(chunk.shape)}")
-            if bits.dtype.itemsize != 2:
-                raise ValueError(f"memo chunk {c}: expected bf16 bits "
-                                 f"(2 bytes an element), got {bits.dtype}")
             chunk.view(torch.int16).copy_(
-                torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)))
+                torch.from_numpy(bits.view(np.int16)))
         self._visited[:] = np.asarray(state["visited"], bool)
         return self
 
@@ -309,6 +331,7 @@ class GammaMemoStore(MemoStore):
     """
 
     kind = "gamma"
+    bf16_prefix = "snap_"
 
     def __init__(self, cfg: LDAConfig, corpus: Corpus, *,
                  chunk_docs: int = 8192):
@@ -385,7 +408,7 @@ class GammaMemoStore(MemoStore):
         self._visited[:] = np.asarray(state["visited"], bool)
         self._snap = {
             int(k[len("snap_"):]): torch.from_numpy(
-                np.ascontiguousarray(v).view(np.int16)).to(self.device)
+                _bits16(v).view(np.int16).copy()).to(self.device)
             .view(torch.bfloat16)
             for k, v in state.items() if k.startswith("snap_")}
         return self

@@ -39,8 +39,9 @@ _SIGNATURES = {
     "lda_segment_scatter": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
     "lda_fixed_point_csr": [_P] * 12 + [_I, _I64, _I, _F, _F, _I, _I, _P],
     "lda_token_pi_csr": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
-    "lda_fixed_point_max_k": [],
-    "lda_dense_max_k": [],
+    "lda_fixed_point_smem_bytes": [_I, _I, _I],
+    "lda_max_smem_bytes": [],
+    "lda_dense_k_tiles": [_I],
     "lda_sweep_splits": [_I, _I],
     "lda_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "lda_sstats": [_P, _P, _P, _P, _I, _I, _I, _P],

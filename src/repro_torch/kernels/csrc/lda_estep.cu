@@ -23,6 +23,10 @@
 //   K8 onehot_partials_kernel  pi and per-B-tile (nb, Vp, K) partials,
 //      onehot_reduce_kernel    summed over nb
 //
+// Any K: K1/K4 keep a row in registers up to 256 topics (KPL = 1 ... 8
+// instances) and run fixed_point_wide_kernel above, with the row in
+// shared memory; K3 runs over 256-column chunks; K6-K8 tile K by 128.
+//
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (repro_torch/kernels/build.py). Every entry point launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError().
@@ -36,6 +40,7 @@
 #include <algorithm>
 #include <map>
 #include <mutex>
+#include <tuple>
 #include <utility>
 
 namespace cg = cooperative_groups;
@@ -44,7 +49,7 @@ namespace {
 
 constexpr float kEps = 1e-30f;   // fp32-safe normaliser epsilon
 constexpr int kWarp = 32;
-constexpr int kMaxKPerLane = 8;  // K <= 256 in the fixed point
+constexpr int kMaxKPerLane = 8;  // K <= 256 in the register instances
 
 __device__ __forceinline__ float warp_sum(float v) {
   // butterfly: every lane ends with the same bits (each step is a + b on
@@ -572,6 +577,257 @@ __global__ void __launch_bounds__(kFpThreads, 4)
 }
 
 // ---------------------------------------------------------------------------
+// K1/K4 for K > kNarrowK topics.
+//
+// The KPL instances above keep a row's E[theta] and accumulator in
+// registers, KPL values a lane, which caps them at kNarrowK = 256 topics
+// (at 64 registers a thread, KPL = 6-8 already spill a few bytes; they
+// are kept as they were, for their bits). Above that, each warp
+// holds its document's E[theta] and its accumulator in shared memory, K
+// floats each (2 * 8 * K * 4 bytes a block: 64 KB at K = 1,000), and walks
+// each live token's Eφ row twice, lane-strided over all K: first
+// p = sum_k E[theta] * Eφ (then the butterfly), then acc += c / p * Eφ.
+// The second read of the row comes from L1/L2. Everything else is the KPL
+// kernel's: the documents, warps and slots, the stop test and its chunk
+// sums, the co-resident grid, the finish's pi bits (the same explicitly
+// rounded steps, in K2's order, so pi equals K2's at any K). A lane owns
+// topics lane, lane + 32, ... of the shared rows, so no two lanes write
+// one word; the rows are bank-conflict free.
+//
+// Bound: operations, as the KPL kernel; the limit is shared memory (the
+// wrapper raises past the card's per-block maximum: K <= 3,631 at
+// B = 1,024 on an H100).
+// ---------------------------------------------------------------------------
+constexpr int kNarrowK = kMaxKPerLane * kWarp;
+
+// warp's share of one row's sweep, acc and et in shared memory
+__device__ __forceinline__ void wide_partial(
+    const int32_t* __restrict__ ids, const float* __restrict__ cnts, int n,
+    int p, int W, const float* __restrict__ eb, int K,
+    const float* __restrict__ et, float* __restrict__ acc, int lane) {
+  for (int i0 = p; i0 < n; i0 += W * kWarp) {
+    const int i = i0 + W * lane;
+    int32_t my_id = 0;
+    float my_cnt = 0.f;
+    if (i < n) {
+      my_id = ids[i];
+      my_cnt = cnts[i];
+    }
+    unsigned live = __ballot_sync(kAllLanes, my_cnt != 0.f);
+    while (live) {
+      const int t = __ffs(live) - 1;
+      live &= live - 1;
+      const float c = __shfl_sync(kAllLanes, my_cnt, t);
+      const float* e_row =
+          eb + static_cast<size_t>(__shfl_sync(kAllLanes, my_id, t)) * K;
+      float part = 0.f;
+#pragma unroll 4
+      for (int k = lane; k < K; k += kWarp) part += et[k] * __ldg(e_row + k);
+      const float ratio = c / (warp_sum(part) + kEps);
+#pragma unroll 4
+      for (int k = lane; k < K; k += kWarp) acc[k] += ratio * __ldg(e_row + k);
+    }
+  }
+}
+
+// warp's share of one row's finish (strided_pi over shared E[theta])
+__device__ __forceinline__ void wide_pi(
+    const int32_t* __restrict__ ids, const float* __restrict__ cnts,
+    const int64_t* __restrict__ ord, int n, int p, int W,
+    const float* __restrict__ eb, int K, const float* __restrict__ et,
+    float* __restrict__ pi, int quantize, int lane) {
+  for (int i0 = p; i0 < n; i0 += W * kWarp) {
+    const int i = i0 + W * lane;
+    int my_s = 0;
+    int32_t my_id = 0;
+    float my_cnt = 0.f;
+    if (i < n) {
+      my_s = ord != nullptr ? static_cast<int>(ord[i]) : i;
+      my_id = ids[i];
+      my_cnt = cnts[i];
+    }
+    const bool mine = my_cnt > 0.f;
+    for (unsigned dead = __ballot_sync(kAllLanes, i < n && !mine); dead;
+         dead &= dead - 1) {
+      float* out = pi + static_cast<int64_t>(
+                            __shfl_sync(kAllLanes, my_s, __ffs(dead) - 1)) * K;
+      for (int k = lane; k < K; k += kWarp) out[k] = 0.f;
+    }
+    for (unsigned live = __ballot_sync(kAllLanes, mine); live;
+         live &= live - 1) {
+      const int t = __ffs(live) - 1;
+      float* out = pi + static_cast<int64_t>(__shfl_sync(kAllLanes, my_s, t)) * K;
+      const float* e_row =
+          eb + static_cast<size_t>(__shfl_sync(kAllLanes, my_id, t)) * K;
+      float part = 0.f;
+      for (int k = lane; k < K; k += kWarp) {
+        part = pi_dot_step(et[k], __ldg(e_row + k), part);
+      }
+      part = __fadd_rn(warp_sum(part), kEps);
+      for (int k = lane; k < K; k += kWarp) {
+        out[k] = pi_value(et[k], __ldg(e_row + k), part, quantize);
+      }
+    }
+  }
+}
+
+// E[theta] of row d from its gamma (written to gamma first): the sum over
+// all K, then the digamma series per topic
+__device__ __forceinline__ void wide_etheta(const float* g, float* et_row,
+                                            int K, int lane) {
+  float s = 0.f;
+  for (int k = lane; k < K; k += kWarp) s += g[k];
+  const float psi_s = digamma_series(warp_sum(s));
+  for (int k = lane; k < K; k += kWarp) {
+    et_row[k] = expf(digamma_series(fmaxf(g[k], 1e-10f)) - psi_s);
+  }
+}
+
+__global__ void __launch_bounds__(kFpThreads, 4)
+    fixed_point_wide_kernel(const int32_t* __restrict__ ids,
+                            const float* __restrict__ cnts,
+                            const float* __restrict__ cnts32,
+                            const int64_t* __restrict__ offsets,
+                            const int64_t* __restrict__ order,
+                            const float* __restrict__ eb,
+                            const float* __restrict__ eb32,
+                            const float* __restrict__ gamma0,
+                            float* __restrict__ gamma,
+                            float* __restrict__ et_out,
+                            float* __restrict__ delta,
+                            int32_t* __restrict__ iters,
+                            float* __restrict__ pi, int64_t T, int B, int L,
+                            int K, float alpha0, float tol, int max_sweeps,
+                            int block_b, int W, int quantize) {
+  cg::grid_group grid = cg::this_grid();
+  const int nb = (B + block_b - 1) / block_b;
+  const int cpt = fp_chunks_per_tile(block_b);
+  const int nchunks = nb * cpt;
+  extern __shared__ float fp_smem[];
+  float* part = fp_smem;                                   // [warps][K]
+  float* ets = part + kFpWarps * K;                        // [warps][K]
+  float* csum = ets + kFpWarps * K;                        // [nb * cpt]
+  int* stop = reinterpret_cast<int*>(csum + nchunks);      // [nb]
+  __shared__ int all_done;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int dpb = kFpWarps / W;
+  const int grp = warp / W, p = warp % W;
+  const int64_t per_round = static_cast<int64_t>(gridDim.x) * dpb;
+  const int rounds = static_cast<int>((B + per_round - 1) / per_round);
+  auto doc = [&](int r) {
+    return (r * static_cast<int64_t>(gridDim.x) + blockIdx.x) * dpb + grp;
+  };
+  float* acc = part + warp * K;   // this warp's rows
+  float* et = ets + warp * K;
+  int64_t base = 0;
+  int n = 0;
+
+  for (int t = threadIdx.x; t < nb; t += kFpThreads) stop[t] = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const int64_t d = doc(r);
+    if (d < B && p == 0) {
+      for (int k = lane; k < K; k += kWarp) gamma[d * K + k] = gamma0[d * K + k];
+      __syncwarp();
+      wide_etheta(gamma + d * K, et_out + d * K, K, lane);
+    }
+  }
+  __syncthreads();
+
+  for (int sweep = 0; sweep < max_sweeps; ++sweep) {
+    float* slots = delta + static_cast<size_t>(sweep & 1) * B;
+    for (int r = 0; r < rounds; ++r) {
+      const int64_t d = doc(r);
+      const bool active = d < B && stop[d / block_b] == 0;
+      if (active) {
+        for (int k = lane; k < K; k += kWarp) {
+          et[k] = et_out[d * K + k];
+          acc[k] = 0.f;
+        }
+        __syncwarp();
+        fp_row(offsets, L, d, base, n);
+        wide_partial(ids + base, cnts + base, n, p, W, eb, K, et, acc, lane);
+      }
+      __syncthreads();
+      if (active && p == 0) {
+        float dsum = 0.f;
+        for (int k = lane; k < K; k += kWarp) {
+          float v = part[warp * K + k];
+          for (int q = 1; q < W; ++q) v += part[(warp + q) * K + k];
+          const float g = alpha0 + et[k] * v;
+          dsum += fabsf(g - gamma[d * K + k]);
+          gamma[d * K + k] = g;
+        }
+        __syncwarp();
+        wide_etheta(gamma + d * K, et_out + d * K, K, lane);
+        dsum = warp_sum(dsum);
+        if (lane == 0) slots[d] = dsum;
+      }
+      __syncthreads();
+    }
+    __threadfence();
+    grid.sync();
+    for (int c = warp; c < nchunks; c += kFpWarps) {
+      const int t = c / cpt;
+      if (stop[t] != 0) continue;
+      const int lo = t * block_b + (c % cpt) * kStopChunk;
+      const int hi = min(min(t * block_b + block_b, B), lo + kStopChunk);
+      float s = 0.f;
+      for (int i = lo + lane; i < hi; i += kWarp) s += __ldcg(slots + i);
+      s = warp_sum(s);
+      if (lane == 0) csum[c] = s;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < nb; t += kFpThreads) {
+      if (stop[t] != 0) continue;
+      const int rows = min(block_b, B - t * block_b);
+      const int nc = fp_chunks_per_tile(rows);
+      float total = csum[t * cpt];
+      for (int c = 1; c < nc; ++c) total += csum[t * cpt + c];
+      if (total / static_cast<float>(static_cast<int64_t>(rows) * K) <= tol) {
+        stop[t] = sweep + 1;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int all = 1;
+      for (int t = 0; t < nb; ++t) all &= stop[t] != 0;
+      all_done = all;
+    }
+    __syncthreads();
+    if (all_done) break;
+  }
+
+  if (blockIdx.x == 0) {
+    for (int t = threadIdx.x; t < nb; t += kFpThreads) {
+      iters[t] = stop[t] != 0 ? stop[t] : max_sweeps;
+    }
+  }
+  if (pi == nullptr) return;
+
+  for (int r = 0; r < rounds; ++r) {
+    const int64_t d = doc(r);
+    if (d >= B) continue;
+    for (int k = lane; k < K; k += kWarp) et[k] = et_out[d * K + k];
+    __syncwarp();
+    fp_row(offsets, L, d, base, n);
+    const bool flat = offsets != nullptr;
+    wide_pi(ids + base, cnts32 + base, flat ? order + base : nullptr, n, p,
+            W, eb32, K, et, flat ? pi : pi + base * K, quantize, lane);
+    __syncwarp();   // `et` is refilled by the next round
+  }
+  if (offsets != nullptr) {
+    const int64_t head = offsets[0], tail = offsets[B];
+    const int64_t uncovered = head + (T - tail);
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kFpWarps + warp;
+         i < uncovered; i += static_cast<int64_t>(gridDim.x) * kFpWarps) {
+      float* out = pi + order[i < head ? i : tail + (i - head)] * K;
+      for (int k = lane; k < K; k += kWarp) out[k] = 0.f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K2: token-aligned pi.
 //
 // Replaces _token_pi_kernel (repro/kernels/lda_estep.py:208).
@@ -689,32 +945,36 @@ __device__ __forceinline__ void prefetch_row(const float* row, int K) {
 }
 
 // Row i < n of the sorted rows starting at order + i0: its index and count
-// into the lane's registers, and its pi rows asked of L2.
+// into the lane's registers, and its K columns of pi (rows ld floats apart)
+// asked of L2.
 __device__ __forceinline__ void fetch_rows(
     const int64_t* __restrict__ order, const float* __restrict__ cnts,
     const float* __restrict__ pi_new, const float* __restrict__ pi_old,
-    int64_t i0, int64_t n, int K, int lane, int64_t& row, float& cnt) {
+    int64_t i0, int64_t n, int K, int64_t ld, int lane, int64_t& row,
+    float& cnt) {
   row = 0;
   cnt = 0.f;
   if (i0 + lane < n) {
     row = order[i0 + lane];
-    prefetch_row(pi_new + row * K, K);
-    if (pi_old != nullptr) prefetch_row(pi_old + row * K, K);
+    prefetch_row(pi_new + row * ld, K);
+    if (pi_old != nullptr) prefetch_row(pi_old + row * ld, K);
     cnt = __ldg(cnts + row);
   }
 }
 
-// pi_new and pi_old of one row into the lane's registers (zeros past K,
-// and for pi_old when there is none).
+// The K columns of pi_new and pi_old of one row (rows ld floats apart)
+// into the lane's registers (zeros past K, and for pi_old when there is
+// none).
 template <int KPL>
 __device__ __forceinline__ void load_pi_row(
     const float* __restrict__ pi_new, const float* __restrict__ pi_old,
-    int64_t row, int K, float (&en)[KPL], float (&eo)[KPL], int lane) {
+    int64_t row, int K, int64_t ld, float (&en)[KPL], float (&eo)[KPL],
+    int lane) {
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
     const int k = lane + j * kWarp;
-    en[j] = k < K ? __ldg(pi_new + row * K + k) : 0.f;
-    eo[j] = k < K && pi_old != nullptr ? __ldg(pi_old + row * K + k) : 0.f;
+    en[j] = k < K ? __ldg(pi_new + row * ld + k) : 0.f;
+    eo[j] = k < K && pi_old != nullptr ? __ldg(pi_old + row * ld + k) : 0.f;
   }
 }
 
@@ -730,6 +990,9 @@ __device__ __forceinline__ void add_row(float c, const float (&en)[KPL],
   }
 }
 
+// K > 256: blockIdx.y picks a chunk of KP = 256 columns (the KPL = 8
+// instance; gridDim.y = 1 below), each summed in the same row order, so
+// every column has the bits a launch over it alone would give.
 template <int KPL>
 __global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
     segment_scatter_kernel(const int64_t* __restrict__ order,
@@ -738,9 +1001,17 @@ __global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
                            const float* __restrict__ pi_new,
                            const float* __restrict__ pi_old,
                            float* __restrict__ s_new,
-                           float* __restrict__ s_old, int K) {
+                           float* __restrict__ s_old, int K_all) {
   constexpr int KP = KPL * kWarp;
   constexpr unsigned kAll = 0xffffffffu;
+  // this block's columns [k0, k0 + K) of the K_all-wide rows
+  const int64_t ld = K_all;
+  const int k0 = blockIdx.y * KP;
+  const int K = min(KP, K_all - k0);
+  pi_new += k0;
+  if (pi_old != nullptr) pi_old += k0;
+  s_new += k0;
+  if (s_old != nullptr) s_old += k0;
   __shared__ float part[2][kScatterWarps][KP];   // long segments: new, old
   __shared__ unsigned long_ids[kScatterWarps];   // per warp, bit t: id t
   const int lane = threadIdx.x & (kWarp - 1);
@@ -767,8 +1038,8 @@ __global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
   int64_t t_hi = __shfl_sync(kAll, hi, 0);    // one past its last row
   // store id t's sums (zeros for an empty id) and move on to id t + 1
   auto flush = [&]() {
-    store_row<KPL>(s_new + (v0 + t) * K, acc_new, K, lane);
-    if (has_old) store_row<KPL>(s_old + (v0 + t) * K, acc_old, K, lane);
+    store_row<KPL>(s_new + (v0 + t) * ld, acc_new, K, lane);
+    if (has_old) store_row<KPL>(s_old + (v0 + t) * ld, acc_old, K, lane);
 #pragma unroll
     for (int j = 0; j < KPL; ++j) acc_new[j] = acc_old[j] = 0.f;
     ++t;
@@ -787,14 +1058,14 @@ __global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
     for (int64_t i0 = pos; i0 < stop; i0 += kWarp) {
       int64_t my_row;
       float my_cnt;
-      fetch_rows(order, cnts, pi_new, pi_old, i0, stop, K, lane, my_row,
+      fetch_rows(order, cnts, pi_new, pi_old, i0, stop, K, ld, lane, my_row,
                  my_cnt);
       const int m = static_cast<int>(min(static_cast<int64_t>(kWarp),
                                          stop - i0));
       for (int u = 0; u < m; ++u) {
         float en[KPL], eo[KPL];   // loads first: they fly while ids flush
-        load_pi_row<KPL>(pi_new, pi_old, __shfl_sync(kAll, my_row, u), K, en,
-                         eo, lane);
+        load_pi_row<KPL>(pi_new, pi_old, __shfl_sync(kAll, my_row, u), K, ld,
+                         en, eo, lane);
         const float c = __shfl_sync(kAll, my_cnt, u);
         while (t_hi <= i0 + u) flush();   // ids that ended before this row
         add_row<KPL>(c, en, eo, acc_new, acc_old);
@@ -825,14 +1096,14 @@ __global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
       for (int64_t i0 = a; i0 < b; i0 += kWarp) {
         int64_t my_row;
         float my_cnt;
-        fetch_rows(order, cnts, pi_new, pi_old, i0, b, K, lane, my_row,
+        fetch_rows(order, cnts, pi_new, pi_old, i0, b, K, ld, lane, my_row,
                    my_cnt);
         const int n = static_cast<int>(min(static_cast<int64_t>(kWarp),
                                            b - i0));
         for (int u = 0; u < n; ++u) {
           float en[KPL], eo[KPL];
           load_pi_row<KPL>(pi_new, pi_old, __shfl_sync(kAll, my_row, u), K,
-                           en, eo, lane);
+                           ld, en, eo, lane);
           add_row<KPL>(__shfl_sync(kAll, my_cnt, u), en, eo, acc_new,
                        acc_old);
         }
@@ -852,7 +1123,7 @@ __global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
             sum[j] += part[warp][q][lane + j * kWarp];
           }
         }
-        store_row<KPL>((warp == 0 ? s_new : s_old) + v * K, sum, K, lane);
+        store_row<KPL>((warp == 0 ? s_new : s_old) + v * ld, sum, K, lane);
       }
       __syncthreads();   // `part` is refilled by the next long segment
     }
@@ -901,9 +1172,15 @@ __global__ void __launch_bounds__(256)
 // launch. All products are fp32 FMAs on the SIMT cores: TF32 tensor cores
 // keep 10 mantissa bits, which the 2e-5 parity bars cannot absorb.
 //
-// K is register-blocked up to kDenseK (the wrapper pads it to 128, as the
-// TPU path pads its lanes); shared-memory rows are zero beyond K, so
-// padded topics add nothing. Rows are kDenseStride floats apart: a
+// K is register-blocked in tiles of kDenseK = 128 (shared-memory rows are
+// zero beyond K, so padded topics add nothing). Above 128 topics the grid
+// gains an axis over K tiles: each block still forms the whole
+// denominator P over every K tile (loading the tiles in turn, in K order,
+// so every block of a row forms the same P bits), then accumulates and
+// writes its own tile's columns. At K <= 128 the kTiled = false instance
+// runs: one tile known at compile time, the single-tile design's code and
+// arithmetic. Rows are kDenseStride
+// floats apart: a
 // multiple of 4 (float4 loads) whose offset of 4 banks per row makes the
 // lane-per-row float4 reads of the P phase conflict-free.
 // ---------------------------------------------------------------------------
@@ -923,17 +1200,24 @@ constexpr size_t kSstatsSmem =
     (static_cast<size_t>(kSstatsBV + kSstatsBB) * kDenseStride +
      kSstatsBB * (kSstatsBV + 1)) * sizeof(float);
 
-// rows [r0, r0 + n) of a row-major (R, K) matrix into shared memory, with
-// zeros past row R and past column K
+// rows [r0, r0 + n) and columns [k0, k0 + 128) of a row-major (R, K)
+// matrix into shared memory, with zeros past row R and past column K
 __device__ __forceinline__ void load_dense_rows(float* dst,
                                                 const float* __restrict__ src,
-                                                int r0, int n, int R, int K) {
+                                                int r0, int n, int R, int K,
+                                                int k0) {
   for (int i = threadIdx.x; i < n * kDenseK; i += blockDim.x) {
     const int r = i / kDenseK, k = i % kDenseK;
     const int row = r0 + r;
     dst[r * kDenseStride + k] =
-        (row < R && k < K) ? src[static_cast<size_t>(row) * K + k] : 0.f;
+        (row < R && k0 + k < K) ? src[static_cast<size_t>(row) * K + k0 + k]
+                                : 0.f;
   }
+}
+
+// the float4 steps of a K tile starting at k0: its columns rounded up to 4
+__device__ __forceinline__ int dense_kq(int K, int k0) {
+  return (min(kDenseK, K - k0) + 3) & ~3;
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -950,21 +1234,24 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 // K6: one dense sweep, gamma' = alpha0 + E[theta] * ((C / P) . Eφ).
 //
 // Replaces _sweep_kernel (repro/kernels/lda_estep.py:817). Grid (B / 64,
-// splits): block (x, y) owns 64 rows of B and the y-th contiguous range of
-// V tiles. It keeps those rows' E[theta] in shared memory, walks its V
-// range 32 columns at a time (Eφ tile into shared memory; P, R for 64 x 32
-// in registers, R to shared memory; acc += R . Eφ) and writes its (64, K)
-// partial sum to `part`. The split over V is what fills the card: at
-// B = 1024 there are only 16 row tiles. The last block of a row tile to
-// finish (an integer ticket, __threadfence before it) sums the partials
-// in split order and writes gamma', so each output element is written by
-// one block, with no fp32 atomics, and the result is the same bits on
-// every launch. The block resets its ticket for the next launch.
+// splits, K tiles): block (x, y, z) owns 64 rows of B, the y-th contiguous
+// range of V tiles and the z-th tile of 128 topics. It keeps those rows'
+// E[theta] in shared memory, walks its V range 32 columns at a time (Eφ
+// tile into shared memory; P over every K tile, R for 64 x 32 in
+// registers, R to shared memory; acc += R . Eφ over its topics) and writes
+// its (64, 128) partial sum to `part`. The split over V is what fills the
+// card: at B = 1024 there are only 16 row tiles. The last block of a (row
+// tile, K tile) to finish (an integer ticket, __threadfence before it)
+// sums the partials in split order and writes gamma', so each output
+// element is written by one block, with no fp32 atomics, and the result is
+// the same bits on every launch. The block resets its ticket for the next
+// launch.
 //
 // Bound: operations (4*B*V*K FMA-counted operations per sweep, two
-// products); C is read once. The inner loops issue about one shared-memory
-// wavefront per 2.7 FMA instructions, so they cannot reach the fp32 peak;
-// a wgmma (3xTF32) design is later work.
+// products); C is read once per K tile. The inner loops issue about one
+// shared-memory wavefront per 2.7 FMA instructions, so they cannot reach
+// the fp32 peak; a wgmma (3xTF32) design is later work.
+template <bool kTiled>
 __global__ void __launch_bounds__(kDenseThreads)
     sweep_kernel(const float* __restrict__ c, const float* __restrict__ et,
                  const float* __restrict__ eb, float* __restrict__ out,
@@ -981,10 +1268,12 @@ __global__ void __launch_bounds__(kDenseThreads)
   const int vtiles = (V + kSweepBV - 1) / kSweepBV;
   const int t_lo = blockIdx.y * tiles_per_split;
   const int t_hi = min(vtiles, t_lo + tiles_per_split);
-  const int kq = (K + 3) & ~3;
+  // this block's topics; one tile (the K <= 128 instance) at compile time
+  const int nk = kTiled ? gridDim.z : 1;
+  const int kc = kTiled ? blockIdx.z * kDenseK : 0;
 
-  load_dense_rows(s_et, et, row0, kSweepBM, B, K);
-  float acc[8][4];   // rows warp * 8 + i, topics lane + 32 * j
+  if (nk == 1) load_dense_rows(s_et, et, row0, kSweepBM, B, K, 0);
+  float acc[8][4];   // rows warp * 8 + i, topics kc + lane + 32 * j
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -992,21 +1281,30 @@ __global__ void __launch_bounds__(kDenseThreads)
 
   for (int t = t_lo; t < t_hi; ++t) {
     const int v0 = t * kSweepBV;
-    __syncthreads();   // the last tile's reads of s_eb and s_r are done
-    load_dense_rows(s_eb, eb, v0, kSweepBV, V, K);
-    __syncthreads();
-    // P and R for rows warp * 8 + i, column lane
-    {
-      float p[8];
+    // P for rows warp * 8 + i, column lane, over every K tile in order
+    float p[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) p[i] = 0.f;
+    for (int i = 0; i < 8; ++i) p[i] = 0.f;
+    for (int q = 0; q < nk; ++q) {
+      __syncthreads();   // the last tile's reads of s_et, s_eb, s_r are done
+      if (nk > 1) load_dense_rows(s_et, et, row0, kSweepBM, B, K, q * kDenseK);
+      load_dense_rows(s_eb, eb, v0, kSweepBV, V, K, q * kDenseK);
+      __syncthreads();
       const float* e_row = s_eb + lane * kDenseStride;
+      const int kq = dense_kq(K, q * kDenseK);
       for (int k = 0; k < kq; k += 4) {
         const float4 e = lds4(e_row + k);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           p[i] = dot4(lds4(s_et + (warp * 8 + i) * kDenseStride + k), e, p[i]);
       }
+    }
+    if (nk > 1 && blockIdx.z != nk - 1) {   // back to this block's topics
+      __syncthreads();
+      load_dense_rows(s_et, et, row0, kSweepBM, B, K, kc);
+      load_dense_rows(s_eb, eb, v0, kSweepBV, V, K, kc);
+    }
+    {
       const int v = v0 + lane;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -1030,14 +1328,18 @@ __global__ void __launch_bounds__(kDenseThreads)
       }
     }
   }
+  if (nk > 1) {   // this block's E[theta] tile, whatever the V loop left
+    __syncthreads();
+    load_dense_rows(s_et, et, row0, kSweepBM, B, K, kc);
+  }
 
-  // this block's partial sum, then the row tile's ticket
+  // this block's partial sum, then the (row tile, K tile)'s ticket
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = row0 + warp * 8 + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int k = lane + 32 * j;
+      const int k = kc + lane + 32 * j;
       if (row < B && k < K) {
         part[(static_cast<size_t>(blockIdx.y) * B + row) * K + k] = acc[i][j];
       }
@@ -1045,7 +1347,8 @@ __global__ void __launch_bounds__(kDenseThreads)
   }
   __threadfence();
   __syncthreads();
-  if (tid == 0) is_last = atomicAdd(tickets + blockIdx.x, 1) == nsplit - 1;
+  int* ticket = tickets + blockIdx.z * gridDim.x + blockIdx.x;
+  if (tid == 0) is_last = atomicAdd(ticket, 1) == nsplit - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
@@ -1054,31 +1357,33 @@ __global__ void __launch_bounds__(kDenseThreads)
     const int m = warp * 8 + i, row = row0 + m;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int k = lane + 32 * j;
+      const int k = kc + lane + 32 * j;
       if (row < B && k < K) {
         float s = 0.f;
         for (int q = 0; q < nsplit; ++q) {
           s += __ldcg(part + (static_cast<size_t>(q) * B + row) * K + k);
         }
         out[static_cast<size_t>(row) * K + k] =
-            alpha0 + s_et[m * kDenseStride + k] * s;
+            alpha0 + s_et[m * kDenseStride + lane + 32 * j] * s;
       }
     }
   }
-  if (tid == 0) tickets[blockIdx.x] = 0;
+  if (tid == 0) *ticket = 0;
 }
 
 // K7: expected topic-word counts S = Eφ * (R^T . E[theta]).
 //
-// Replaces _sstats_kernel (repro/kernels/lda_estep.py:870). One block owns
-// 64 rows of V and every B row: it keeps its Eφ rows in shared memory,
-// walks B 32 rows at a time (E[theta] tile into shared memory; P, R for
-// 32 x 64 in registers, R to shared memory; acc += R^T . E[theta]) and
-// writes Eφ * acc. The output tile is owned by one block, summed in B
-// order: deterministic, no atomics. V / 64 blocks (2,224 at the Arxiv
-// vocabulary) fill the card without a split.
+// Replaces _sstats_kernel (repro/kernels/lda_estep.py:870). Block (x, y)
+// owns 64 rows of V, every B row and the z-th tile of 128 topics: it keeps
+// its Eφ rows in shared memory, walks B 32 rows at a time (E[theta] tile
+// into shared memory; P over every K tile, R for 32 x 64 in registers, R
+// to shared memory; acc += R^T . E[theta] over its topics) and writes Eφ *
+// acc. The output tile is owned by one block, summed in B order:
+// deterministic, no atomics. V / 64 blocks (2,224 at the Arxiv vocabulary)
+// fill the card without a split.
 //
 // Bound: operations, as K6.
+template <bool kTiled>
 __global__ void __launch_bounds__(kDenseThreads)
     sstats_kernel(const float* __restrict__ c, const float* __restrict__ et,
                   const float* __restrict__ eb, float* __restrict__ out,
@@ -1089,10 +1394,12 @@ __global__ void __launch_bounds__(kDenseThreads)
   float* s_r = s_et + kSstatsBB * kDenseStride;          // [BB][BV + 1]
   const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
   const int v0 = blockIdx.x * kSstatsBV;
-  const int kq = (K + 3) & ~3;
+  // this block's topics; one tile (the K <= 128 instance) at compile time
+  const int nk = kTiled ? gridDim.y : 1;
+  const int kc = kTiled ? blockIdx.y * kDenseK : 0;
 
-  load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K);
-  float acc[8][4];   // V rows warp * 8 + i, topics lane + 32 * j
+  if (nk == 1) load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K, 0);
+  float acc[8][4];   // V rows warp * 8 + i, topics kc + lane + 32 * j
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -1102,20 +1409,29 @@ __global__ void __launch_bounds__(kDenseThreads)
   const int pv = (warp & 1) * kWarp + lane;
   const int pb = (warp >> 1) * 8;
   for (int b0 = 0; b0 < B; b0 += kSstatsBB) {
-    __syncthreads();   // the last tile's reads of s_et and s_r are done
-    load_dense_rows(s_et, et, b0, kSstatsBB, B, K);
-    __syncthreads();
-    {
-      float p[8];
+    float p[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) p[i] = 0.f;
+    for (int i = 0; i < 8; ++i) p[i] = 0.f;
+    for (int q = 0; q < nk; ++q) {
+      __syncthreads();   // the last tile's reads of s_eb, s_et, s_r are done
+      if (nk > 1) load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K, q * kDenseK);
+      load_dense_rows(s_et, et, b0, kSstatsBB, B, K, q * kDenseK);
+      __syncthreads();
       const float* e_row = s_eb + pv * kDenseStride;
+      const int kq = dense_kq(K, q * kDenseK);
       for (int k = 0; k < kq; k += 4) {
         const float4 e = lds4(e_row + k);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           p[i] = dot4(lds4(s_et + (pb + i) * kDenseStride + k), e, p[i]);
       }
+    }
+    if (nk > 1 && blockIdx.y != nk - 1) {   // back to this block's topics
+      __syncthreads();
+      load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K, kc);
+      load_dense_rows(s_et, et, b0, kSstatsBB, B, K, kc);
+    }
+    {
       const int v = v0 + pv;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -1139,16 +1455,21 @@ __global__ void __launch_bounds__(kDenseThreads)
       }
     }
   }
+  if (nk > 1) {   // this block's Eφ tile, whatever the B loop left
+    __syncthreads();
+    load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K, kc);
+    __syncthreads();
+  }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int vl = warp * 8 + i, v = v0 + vl;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int k = lane + 32 * j;
+      const int k = kc + lane + 32 * j;
       if (v < V && k < K) {
         out[static_cast<size_t>(v) * K + k] =
-            s_eb[vl * kDenseStride + k] * acc[i][j];
+            s_eb[vl * kDenseStride + lane + 32 * j] * acc[i][j];
       }
     }
   }
@@ -1170,6 +1491,10 @@ __global__ void __launch_bounds__(kDenseThreads)
 // cnt * pi into its rows w, w + 32, w + 64, w + 96 in token order.
 // Slots whose id lies outside [0, Vp) have their pi written by the j = 0
 // blocks and are scattered nowhere, as the one-hot selects no row for them.
+// Above 128 topics the grid gains an axis z over tiles of 128 topics:
+// block (j, i, z) forms each slot's whole denominator (K2's sum, so the
+// same bits in every block) and writes, reads and scatters only its own
+// topics' pi columns.
 //
 // Bound: bytes. The function moves the (B, L, K) cubes (eb_tok, old pi in;
 // pi out) and the (V, K) outputs; the partials add 2 * nb * Vp * K * 4
@@ -1180,7 +1505,24 @@ constexpr int kOnehotBV = 128;
 constexpr int kOnehotThreads = 1024;
 constexpr int kOnehotRowsPerWarp = kOnehotBV / (kOnehotThreads / kWarp);
 
-template <int KPL>
+// pi of one live token slot, columns [k0, k1) only: token_pi_row's
+// denominator over all K, the same steps, so the columns equal its bits.
+__device__ __forceinline__ void token_pi_cols(float* out,
+                                              const float* __restrict__ e_row,
+                                              const float* __restrict__ t_row,
+                                              int K, int k0, int k1, int lane,
+                                              int quantize) {
+  float part = 0.f;
+  for (int k = lane; k < K; k += kWarp) {
+    part = pi_dot_step(t_row[k], __ldg(e_row + k), part);
+  }
+  const float p = __fadd_rn(warp_sum(part), kEps);
+  for (int k = k0 + lane; k < k1; k += kWarp) {
+    out[k] = pi_value(t_row[k], __ldg(e_row + k), p, quantize);
+  }
+}
+
+template <int KPL, bool kTiled>
 __global__ void __launch_bounds__(kOnehotThreads)
     onehot_partials_kernel(const int32_t* __restrict__ ids,
                            const float* __restrict__ cnts,
@@ -1200,6 +1542,9 @@ __global__ void __launch_bounds__(kOnehotThreads)
   const int64_t slot0 = static_cast<int64_t>(blockIdx.y) * block_b * L;
   const int nslots = block_b * L;
   const bool has_old = old_pi != nullptr;
+  // this block's topics [kc, kc + kn); all K (<= 128) when not tiled
+  const int kc = kTiled ? blockIdx.z * kDenseK : 0;
+  const int kn = kTiled ? min(kDenseK, K - kc) : K;
 
   float acc_new[kOnehotRowsPerWarp][KPL], acc_old[kOnehotRowsPerWarp][KPL];
 #pragma unroll
@@ -1248,7 +1593,10 @@ __global__ void __launch_bounds__(kOnehotThreads)
       const int64_t g = slot0 + s_slot[t];
       float* out = pi + g * K;
       if (!(cnts[g] > 0.f)) {
-        for (int k = lane; k < K; k += kWarp) out[k] = 0.f;
+        for (int k = kc + lane; k < kc + kn; k += kWarp) out[k] = 0.f;
+      } else if (kTiled) {
+        token_pi_cols(out, eb_tok + g * K, et + (g / L) * K, K, kc, kc + kn,
+                      lane, quantize);
       } else {
         token_pi_row(out, eb_tok + g * K, et + (g / L) * K, K, lane,
                      quantize);
@@ -1270,8 +1618,8 @@ __global__ void __launch_bounds__(kOnehotThreads)
         const float cnt = cnts[g];
 #pragma unroll
         for (int jj = 0; jj < KPL; ++jj) {
-          const int k = lane + jj * kWarp;
-          if (k < K) {
+          const int k = kc + lane + jj * kWarp;
+          if (k < kc + kn) {
             const float wn = cnt * pi[g * K + k];
             const float wo = has_old ? cnt * old_pi[g * K + k] : 0.f;
 #pragma unroll
@@ -1295,8 +1643,8 @@ __global__ void __launch_bounds__(kOnehotThreads)
     const int64_t v = base + warp + q * kWarp;
 #pragma unroll
     for (int jj = 0; jj < KPL; ++jj) {
-      const int k = lane + jj * kWarp;
-      if (k < K) {
+      const int k = kc + lane + jj * kWarp;
+      if (k < kc + kn) {
         part_new[v * K + k] = acc_new[q][jj];
         if (has_old) part_old[v * K + k] = acc_old[q][jj];
       }
@@ -1318,30 +1666,35 @@ __global__ void __launch_bounds__(256)
   out[e] = s;
 }
 
-// K1's dynamic shared memory: the warps' partial vectors, the stop test's
-// chunk sums and the tiles' stop counts.
-size_t fp_smem_bytes(int KPL, int B, int block_b) {
+// K1's dynamic shared memory for K topics: the warps' partial vectors
+// (KPL * 32 floats each; for K > kNarrowK, the wide kernel's accumulator
+// and E[theta], K floats each), the stop test's chunk sums and the tiles'
+// stop counts.
+size_t fp_smem_bytes(int K, int B, int block_b) {
   const size_t nb = (B + block_b - 1) / block_b;
-  return static_cast<size_t>(kFpWarps) * KPL * kWarp * sizeof(float) +
+  const size_t per_warp = K <= kNarrowK
+                              ? static_cast<size_t>((K + kWarp - 1) / kWarp) * kWarp
+                              : 2 * static_cast<size_t>(K);
+  return static_cast<size_t>(kFpWarps) * per_warp * sizeof(float) +
          nb * fp_chunks_per_tile(block_b) * sizeof(float) +
          nb * sizeof(int);
 }
 
-// The co-resident capacity of K1 (blocks per SM times SMs) for a dynamic
-// shared size, cached per device and size: the attribute call and the
-// occupancy query run once for each, not on every update. The kernel's
-// shared-memory limit only ever rises (to the largest size seen), so a
-// cached smaller size still launches after a larger one.
-template <int KPL>
-cudaError_t fp_capacity(size_t smem, int* capacity) {
+// The co-resident capacity of a fixed-point kernel (blocks per SM times
+// SMs) for a dynamic shared size, cached per kernel, device and size: the
+// attribute call and the occupancy query run once for each, not on every
+// update. A kernel's shared-memory limit only ever rises (to the largest
+// size seen), so a cached smaller size still launches after a larger one.
+cudaError_t fp_capacity(const void* kernel, size_t smem, int* capacity) {
   static std::mutex mu;
-  static std::map<std::pair<int, size_t>, int> cache;
-  static std::map<int, size_t> limit;   // the attribute as set, per device
+  static std::map<std::tuple<const void*, int, size_t>, int> cache;
+  // the attribute as set, per kernel and device
+  static std::map<std::pair<const void*, int>, size_t> limit;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find({dev, smem});
+  const auto hit = cache.find({kernel, dev, smem});
   if (hit != cache.end()) {
     *capacity = hit->second;
     return cudaSuccess;
@@ -1351,60 +1704,28 @@ cudaError_t fp_capacity(size_t smem, int* capacity) {
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (smem > limit[dev]) {
-    err = cudaFuncSetAttribute(fixed_point_kernel<KPL>,
+  if (smem > limit[{kernel, dev}]) {
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    limit[dev] = smem;
+    limit[{kernel, dev}] = smem;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fixed_point_kernel<KPL>, kFpThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kFpThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *capacity = cache[{dev, smem}] = per_sm * sms;
+  *capacity = cache[{kernel, dev, smem}] = per_sm * sms;
   return cudaSuccess;
 }
 
-// The co-resident grid of K1 for B documents of L slots: W warps per
-// document, at most the capacity. Returns cudaSuccess and sets *blocks, or
-// the error that forbids a cooperative launch.
-template <int KPL>
-cudaError_t fp_grid(int B, int L, int block_b, int* blocks) {
-  int capacity = 0;
-  const cudaError_t err =
-      fp_capacity<KPL>(fp_smem_bytes(KPL, B, block_b), &capacity);
-  if (err != cudaSuccess) return err;
-  const int dpb = kFpWarps / fp_warps_per_doc(L);
-  *blocks = std::max(1, std::min((B + dpb - 1) / dpb, capacity));
-  return cudaSuccess;
-}
-
-// K1 (offsets == nullptr) or K4 (L = ceil(T / B), block_b = B).
-template <int KPL>
-cudaError_t launch_fixed_point(FpArgs a, cudaStream_t stream) {
-  a.W = fp_warps_per_doc(a.L);
-  int blocks = 0;
-  const cudaError_t err = fp_grid<KPL>(a.B, a.L, a.block_b, &blocks);
-  if (err != cudaSuccess) return err;
-  void* args[] = {&a.ids,    &a.cnts,   &a.cnts32,     &a.offsets,
-                  &a.order,  &a.eb,     &a.eb32,       &a.gamma0,
-                  &a.gamma,  &a.et_out, &a.delta,      &a.iters,
-                  &a.pi,     &a.T,      &a.B,          &a.L,
-                  &a.K,      &a.alpha0, &a.tol,        &a.max_sweeps,
-                  &a.block_b, &a.W,     &a.quantize};
-  return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&fixed_point_kernel<KPL>),
-      dim3(blocks), dim3(kFpThreads), args,
-      fp_smem_bytes(KPL, a.B, a.block_b), stream);
-}
-
-// launch_fixed_point for K topics (KPL = ceil(K / 32) of 1 ... 8).
-cudaError_t dispatch_fixed_point(FpArgs a, cudaStream_t stream) {
+// The fixed point's kernel for K topics: the KPL = ceil(K / 32) instance
+// of 1 ... 8, or the wide kernel above kNarrowK.
+const void* fp_kernel(int K) {
 #define LDA_FP_CASE(N) \
   case N:              \
-    return launch_fixed_point<N>(a, stream);
-  switch ((a.K + kWarp - 1) / kWarp) {
+    return reinterpret_cast<const void*>(&fixed_point_kernel<N>);
+  switch ((K + kWarp - 1) / kWarp) {
     LDA_FP_CASE(1)
     LDA_FP_CASE(2)
     LDA_FP_CASE(3)
@@ -1414,9 +1735,42 @@ cudaError_t dispatch_fixed_point(FpArgs a, cudaStream_t stream) {
     LDA_FP_CASE(7)
     LDA_FP_CASE(8)
     default:
-      return cudaErrorInvalidValue;
+      return reinterpret_cast<const void*>(&fixed_point_wide_kernel);
   }
 #undef LDA_FP_CASE
+}
+
+// The co-resident grid of K1 for B documents of L slots and K topics: W
+// warps per document, at most the capacity. Returns cudaSuccess and sets
+// *blocks, or the error that forbids a cooperative launch.
+cudaError_t fp_grid(int B, int L, int K, int block_b, int* blocks) {
+  if (K < 1) return cudaErrorInvalidValue;
+  int capacity = 0;
+  const cudaError_t err =
+      fp_capacity(fp_kernel(K), fp_smem_bytes(K, B, block_b), &capacity);
+  if (err != cudaSuccess) return err;
+  const int dpb = kFpWarps / fp_warps_per_doc(L);
+  *blocks = std::max(1, std::min((B + dpb - 1) / dpb, capacity));
+  return cudaSuccess;
+}
+
+// K1 (offsets == nullptr) or K4 (L = ceil(T / B), block_b = B), on the
+// kernel for a.K topics.
+cudaError_t dispatch_fixed_point(FpArgs a, cudaStream_t stream) {
+  a.W = fp_warps_per_doc(a.L);
+  int blocks = 0;
+  const cudaError_t err = fp_grid(a.B, a.L, a.K, a.block_b, &blocks);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&a.ids,    &a.cnts,   &a.cnts32,     &a.offsets,
+                  &a.order,  &a.eb,     &a.eb32,       &a.gamma0,
+                  &a.gamma,  &a.et_out, &a.delta,      &a.iters,
+                  &a.pi,     &a.T,      &a.B,          &a.L,
+                  &a.K,      &a.alpha0, &a.tol,        &a.max_sweeps,
+                  &a.block_b, &a.W,     &a.quantize};
+  return cudaLaunchCooperativeKernel(fp_kernel(a.K), dim3(blocks),
+                                     dim3(kFpThreads), args,
+                                     fp_smem_bytes(a.K, a.B, a.block_b),
+                                     stream);
 }
 
 // K6's V tiles per split for B rows and V columns: about kSweepBlocks
@@ -1439,7 +1793,7 @@ int sweep_splits(int B, int V) {
   return std::max(1, (vtiles + per - 1) / per);
 }
 
-template <int KPL>
+template <int KPL, bool kTiled>
 cudaError_t launch_memo_delta_onehot(const int32_t* ids, const float* cnts,
                                      const float* eb_tok, const float* old_pi,
                                      const float* et, float* pi,
@@ -1447,8 +1801,8 @@ cudaError_t launch_memo_delta_onehot(const int32_t* ids, const float* cnts,
                                      float* s_new, float* s_old, int B, int L,
                                      int K, int V, int block_b, int vp,
                                      int quantize, cudaStream_t stream) {
-  const dim3 grid(vp / kOnehotBV, B / block_b);
-  onehot_partials_kernel<KPL><<<grid, kOnehotThreads, 0, stream>>>(
+  const dim3 grid(vp / kOnehotBV, B / block_b, (K + kDenseK - 1) / kDenseK);
+  onehot_partials_kernel<KPL, kTiled><<<grid, kOnehotThreads, 0, stream>>>(
       ids, cnts, eb_tok, old_pi, et, pi, part_new, part_old, L, K, block_b,
       vp, quantize);
   cudaError_t err = cudaGetLastError();
@@ -1466,6 +1820,34 @@ cudaError_t launch_memo_delta_onehot(const int32_t* ids, const float* cnts,
   return cudaGetLastError();
 }
 
+// K6 / K7 on the single-tile (K <= 128) or the K-tiled instance.
+template <bool kTiled>
+cudaError_t launch_sweep(dim3 grid, cudaStream_t stream, const float* c,
+                         const float* et, const float* eb, float* out,
+                         float* part, int* tickets, int B, int V, int K,
+                         float alpha0, int tiles_per_split) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sweep_kernel<kTiled>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSweepSmem));
+  if (err != cudaSuccess) return err;
+  sweep_kernel<kTiled><<<grid, kDenseThreads, kSweepSmem, stream>>>(
+      c, et, eb, out, part, tickets, B, V, K, alpha0, tiles_per_split);
+  return cudaGetLastError();
+}
+
+template <bool kTiled>
+cudaError_t launch_sstats(dim3 grid, cudaStream_t stream, const float* c,
+                          const float* et, const float* eb, float* out,
+                          int B, int V, int K) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sstats_kernel<kTiled>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSstatsSmem));
+  if (err != cudaSuccess) return err;
+  sstats_kernel<kTiled><<<grid, kDenseThreads, kSstatsSmem, stream>>>(
+      c, et, eb, out, B, V, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1474,8 +1856,25 @@ const char* lda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Highest K the fixed point takes (its per-lane register arrays).
-int lda_fixed_point_max_k() { return kMaxKPerLane * kWarp; }
+// Bytes of dynamic shared memory a block of K1/K4 takes for B documents
+// and K topics in tiles of block_b (K4: block_b = B), and the card's
+// per-block maximum (or minus a CUDA error code): the fixed point's only
+// limit on K.
+int lda_fixed_point_smem_bytes(int B, int K, int block_b) {
+  if (B < 1 || K < 1 || block_b < 1) return 0;
+  return static_cast<int>(std::min<size_t>(fp_smem_bytes(K, B, block_b),
+                                           INT32_MAX));
+}
+
+int lda_max_smem_bytes() {
+  int dev = 0, bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return err == cudaSuccess ? bytes : -static_cast<int>(err);
+}
 
 // Blocks of K1's cooperative grid for B documents of L slots and K topics
 // in tiles of block_b, or minus a CUDA error code (lda_fixed_point sizes
@@ -1485,25 +1884,7 @@ int lda_fixed_point_blocks(int B, int L, int K, int block_b) {
   cudaGetLastError();
   if (B < 1 || L < 0 || block_b < 1) return -cudaErrorInvalidValue;
   int blocks = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  const int kpl = (K + kWarp - 1) / kWarp;
-#define LDA_FP_GRID_CASE(N)                              \
-  case N:                                                \
-    err = fp_grid<N>(B, L, block_b, &blocks);            \
-    break;
-  switch (kpl) {
-    LDA_FP_GRID_CASE(1)
-    LDA_FP_GRID_CASE(2)
-    LDA_FP_GRID_CASE(3)
-    LDA_FP_GRID_CASE(4)
-    LDA_FP_GRID_CASE(5)
-    LDA_FP_GRID_CASE(6)
-    LDA_FP_GRID_CASE(7)
-    LDA_FP_GRID_CASE(8)
-    default:
-      break;
-  }
-#undef LDA_FP_GRID_CASE
+  const cudaError_t err = fp_grid(B, L, K, block_b, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -1618,24 +1999,26 @@ int lda_token_pi_csr(const int32_t* ids, const float* cnts,
 }
 
 // K3 over all V ids: seg_off (V + 1) cuts `order`; writes every row of
-// s_new (and of s_old when pi_old is given). K is at most
-// lda_fixed_point_max_k().
+// s_new (and of s_old when pi_old is given). Any K: above 256 topics the
+// KPL = 8 instance runs over ceil(K / 256) column chunks (grid y).
 int lda_segment_scatter(const int64_t* order, const int64_t* seg_off, int V,
                         const float* cnts, const float* pi_new,
                         const float* pi_old, float* s_new, float* s_old,
                         int K, void* stream) {
   cudaGetLastError();
-  if (V < 0) return cudaErrorInvalidValue;
+  if (V < 0 || K < 1) return cudaErrorInvalidValue;
   if (V == 0) return cudaSuccess;
   constexpr int per_block = kScatterWarps * kScatterIds;
-  const unsigned blocks = (V + per_block - 1) / per_block;
+  const int kpl = std::min((K + kWarp - 1) / kWarp, kMaxKPerLane);
+  const dim3 grid((V + per_block - 1) / per_block,
+                  (K + kpl * kWarp - 1) / (kpl * kWarp));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LDA_SCATTER_CASE(N)                                                  \
   case N:                                                                    \
-    segment_scatter_kernel<N><<<blocks, kScatterThreads, 0, s>>>(            \
+    segment_scatter_kernel<N><<<grid, kScatterThreads, 0, s>>>(              \
         order, seg_off, V, cnts, pi_new, pi_old, s_new, s_old, K);           \
     break;
-  switch ((K + kWarp - 1) / kWarp) {
+  switch (kpl) {
     LDA_SCATTER_CASE(1)
     LDA_SCATTER_CASE(2)
     LDA_SCATTER_CASE(3)
@@ -1651,8 +2034,9 @@ int lda_segment_scatter(const int64_t* order, const int64_t* seg_off, int V,
   return cudaGetLastError();
 }
 
-// Highest K of the dense kernels K6, K7 and K8 (their register blocks).
-int lda_dense_max_k() { return kDenseK; }
+// K tiles of the dense kernels K6, K7 and K8 (128 topics each): K6's
+// tickets are one per (64-row tile, K tile).
+int lda_dense_k_tiles(int K) { return (K + kDenseK - 1) / kDenseK; }
 
 // K6's V splits for B rows and V columns: the first dimension of its
 // `part` scratch (splits, B, K).
@@ -1662,36 +2046,30 @@ int lda_sweep(const float* c, const float* et, const float* eb, float* out,
               float* part, int* tickets, int B, int V, int K, float alpha0,
               int nsplit, void* stream) {
   cudaGetLastError();
-  if (K > kDenseK || nsplit != sweep_splits(B, V)) {
-    return cudaErrorInvalidValue;
-  }
+  if (K < 1 || nsplit != sweep_splits(B, V)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSweepSmem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + kSweepBM - 1) / kSweepBM, nsplit);
-  sweep_kernel<<<grid, kDenseThreads, kSweepSmem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      c, et, eb, out, part, tickets, B, V, K, alpha0,
-      sweep_tiles_per_split(B, V));
-  return cudaGetLastError();
+  const dim3 grid((B + kSweepBM - 1) / kSweepBM, nsplit,
+                  (K + kDenseK - 1) / kDenseK);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per_split = sweep_tiles_per_split(B, V);
+  return K > kDenseK
+             ? launch_sweep<true>(grid, s, c, et, eb, out, part, tickets, B,
+                                  V, K, alpha0, per_split)
+             : launch_sweep<false>(grid, s, c, et, eb, out, part, tickets, B,
+                                   V, K, alpha0, per_split);
 }
 
 int lda_sstats(const float* c, const float* et, const float* eb, float* out,
                int B, int V, int K, void* stream) {
   cudaGetLastError();
-  if (K > kDenseK) return cudaErrorInvalidValue;
+  if (K < 1) return cudaErrorInvalidValue;
   if (V == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      sstats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSstatsSmem));
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (V + kSstatsBV - 1) / kSstatsBV;
-  sstats_kernel<<<blocks, kDenseThreads, kSstatsSmem,
-                  static_cast<cudaStream_t>(stream)>>>(c, et, eb, out, B, V,
-                                                       K);
-  return cudaGetLastError();
+  const dim3 blocks((V + kSstatsBV - 1) / kSstatsBV,
+                    (K + kDenseK - 1) / kDenseK);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return K > kDenseK
+             ? launch_sstats<true>(blocks, s, c, et, eb, out, B, V, K)
+             : launch_sstats<false>(blocks, s, c, et, eb, out, B, V, K);
 }
 
 // K8's V tile: the partials' vocabulary axis is padded to a multiple of it.
@@ -1704,18 +2082,23 @@ int lda_memo_delta_onehot(const int32_t* ids, const float* cnts,
                           int L, int K, int V, int block_b, int vp,
                           int quantize, void* stream) {
   cudaGetLastError();
-  if (block_b < 1 || B % block_b != 0 || vp % kOnehotBV != 0 || vp < V) {
+  if (block_b < 1 || B % block_b != 0 || vp % kOnehotBV != 0 || vp < V ||
+      K < 1) {
     return cudaErrorInvalidValue;
   }
   if (B == 0 || vp == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kpl = (K + kWarp - 1) / kWarp;
+  if (K > kDenseK) {   // tiles of 128 topics over grid z
+    return launch_memo_delta_onehot<kDenseK / kWarp, true>(
+        ids, cnts, eb_tok, old_pi, et, pi, part_new, part_old, s_new, s_old,
+        B, L, K, V, block_b, vp, quantize, s);
+  }
 #define LDA_ONEHOT_CASE(N)                                                  \
   case N:                                                                   \
-    return launch_memo_delta_onehot<N>(ids, cnts, eb_tok, old_pi, et, pi,   \
-                                       part_new, part_old, s_new, s_old, B, \
-                                       L, K, V, block_b, vp, quantize, s);
-  switch (kpl) {
+    return launch_memo_delta_onehot<N, false>(                              \
+        ids, cnts, eb_tok, old_pi, et, pi, part_new, part_old, s_new, s_old, \
+        B, L, K, V, block_b, vp, quantize, s);
+  switch ((K + kWarp - 1) / kWarp) {
     LDA_ONEHOT_CASE(1)
     LDA_ONEHOT_CASE(2)
     LDA_ONEHOT_CASE(3)

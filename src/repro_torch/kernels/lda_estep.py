@@ -96,10 +96,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _max_k(lib, name: str, k: int) -> None:
-    if k > lib.lda_fixed_point_max_k():
-        raise ValueError(f"{name}: K={k} exceeds the kernel's "
-                         f"{lib.lda_fixed_point_max_k()} topics")
+def _check_fixed_point_smem(lib, name: str, b: int, k: int,
+                            block_b: int) -> None:
+    """Raise when K1/K4's block would need more shared memory than the card
+    gives a block: the fixed point's one limit on K (above 256 topics each
+    warp holds its document's Eθ and accumulator there, 2·8·K floats a
+    block; K ≤ 3,631 at B = 1,024 on an H100)."""
+    need = lib.lda_fixed_point_smem_bytes(b, k, block_b)
+    have = lib.lda_max_smem_bytes()
+    if have < 0:
+        build.check(-have, "lda_max_smem_bytes")
+    if need > have:
+        raise ValueError(f"{name}: K={k} at B={b} needs {need} bytes of "
+                         f"shared memory a block; the card allows {have}")
 
 
 def check_stream_dtype(stream_dtype: str) -> None:
@@ -252,7 +261,6 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
         return (*estep_fixed_point_plain(*args, block_b=block_b,
                                          stream_dtype=stream_dtype), None)
     lib = build.load()
-    _max_k(lib, "estep_fixed_point", k)
     nb = -(-b // block_b)
     gamma = torch.empty_like(gamma0)
     et = torch.empty_like(gamma0)
@@ -261,6 +269,7 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
           if with_pi else None)
     if b == 0:
         return gamma, et, iters, pi
+    _check_fixed_point_smem(lib, "estep_fixed_point", b, k, block_b)
     delta = torch.empty(2 * b, dtype=torch.float32, device=gamma0.device)
     # the sweeps' inputs as the stream rounds them (one cast each per call)
     sweep_counts = stream_round(counts, stream_dtype)
@@ -436,7 +445,6 @@ def segment_scatter_prepared(segments, counts: torch.Tensor,
     k = pi_new.shape[1]
     _expect("seg_off", seg_off, torch.int64, (vocab_size + 1,))
     lib = build.load()
-    _max_k(lib, "segment_scatter", k)
     s_new = torch.empty((vocab_size, k), dtype=torch.float32,
                         device=pi_new.device)
     s_old = None if pi_old is None else torch.empty_like(s_new)
@@ -650,7 +658,6 @@ def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
         return (*estep_fixed_point_csr_plain(*args,
                                              stream_dtype=stream_dtype), None)
     lib = build.load()
-    _max_k(lib, "estep_fixed_point_csr", k)
     gamma = torch.empty_like(gamma0)
     et = torch.empty_like(gamma0)
     iters = torch.zeros(1, dtype=torch.int32, device=gamma0.device)
@@ -663,6 +670,7 @@ def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
     if t >= 2 ** 31:
         raise ValueError(f"estep_fixed_point_csr: {t} slots exceed the "
                          "kernel's 2^31")
+    _check_fixed_point_smem(lib, "estep_fixed_point_csr", b, k, b)
     order, offsets = csr_doc_ranges(counts, segments, b)
     # the sweeps read each document's tokens as one contiguous run
     ids_sorted, cnts_sorted = token_ids[order], counts[order]
@@ -771,14 +779,6 @@ def _check_dense(name: str, c: torch.Tensor, etheta: torch.Tensor,
     return b, v, k
 
 
-def _dense_lib(name: str, k: int):
-    lib = build.load()
-    if k > lib.lda_dense_max_k():
-        raise ValueError(f"{name}: K={k} exceeds the kernel's "
-                         f"{lib.lda_dense_max_k()} topics")
-    return lib
-
-
 def estep_sweep_plain(c: torch.Tensor, etheta: torch.Tensor,
                       eb: torch.Tensor, alpha0: float) -> torch.Tensor:
     """Plain twin of K6: the dense oracle."""
@@ -791,20 +791,23 @@ def estep_sweep(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor,
     """One fixed-point sweep γ' = α₀ + Eθ ⊙ ((C ⊘ (Eθ·Eφᵀ + ε))·Eφ) (K6).
 
     Shapes: c (B, V), etheta (B, K), eb (V, K) float32 → (B, K). B and V
-    must already be padded to the block grid (see ``ops.pad_inputs``); on
-    the card K is at most ``lda_dense_max_k()`` (128).
+    must already be padded to the block grid (see ``ops.pad_inputs``). On
+    the card any K runs: above 128 topics the grid gains an axis over tiles
+    of 128, each block forming the whole denominator before its own tile's
+    columns.
     """
     b, v, k = _check_dense("estep_sweep", c, etheta, eb, block_b, block_v)
     if _on_cpu(c, etheta, eb):
         return estep_sweep_plain(c, etheta, eb, alpha0)
-    lib = _dense_lib("estep_sweep", k)
+    lib = build.load()
     out = torch.empty((b, k), dtype=torch.float32, device=c.device)
     if b == 0:
         return out
     splits = lib.lda_sweep_splits(b, v)
     part = torch.empty((splits, b, k), dtype=torch.float32, device=c.device)
-    # one ticket per 64-row tile (the kernel's kSweepBM)
-    tickets = torch.zeros(-(-b // 64), dtype=torch.int32, device=c.device)
+    # one ticket per (64-row tile (the kernel's kSweepBM), K tile)
+    tickets = torch.zeros(-(-b // 64) * lib.lda_dense_k_tiles(k),
+                          dtype=torch.int32, device=c.device)
     rc = lib.lda_sweep(c.data_ptr(), etheta.data_ptr(), eb.data_ptr(),
                        out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
                        b, v, k, float(alpha0), splits, _stream(c))
@@ -826,7 +829,7 @@ def sstats(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor, *,
     b, v, k = _check_dense("sstats", c, etheta, eb, block_b, block_v)
     if _on_cpu(c, etheta, eb):
         return sstats_plain(c, etheta, eb)
-    lib = _dense_lib("sstats", k)
+    lib = build.load()
     out = torch.empty((v, k), dtype=torch.float32, device=c.device)
     rc = lib.lda_sstats(c.data_ptr(), etheta.data_ptr(), eb.data_ptr(),
                         out.data_ptr(), b, v, k, _stream(c))
@@ -908,8 +911,8 @@ def memo_delta_onehot(token_ids: torch.Tensor, counts: torch.Tensor,
     per-B-tile (nb, Vp, K) partials (Vp = V padded to ``block_v``), each
     written once and summed over nb: the transient the segment-sum pair
     (K2 + K3) removes. B must divide by the effective B-tile. On the card
-    the V tile is 128 (``block_v`` sets the B-tile and the padding only)
-    and K is at most 128.
+    the V tile is 128 (``block_v`` sets the B-tile and the padding only);
+    above 128 topics the grid gains an axis over tiles of 128 topics.
     """
     b, l = token_ids.shape
     k = etheta.shape[1]
@@ -930,7 +933,7 @@ def memo_delta_onehot(token_ids: torch.Tensor, counts: torch.Tensor,
         return memo_delta_onehot_plain(token_ids, counts, eb_tok, etheta,
                                        vocab_size, old_pi, quantize=quantize,
                                        block_b=block_b, block_v=block_v)
-    lib = _dense_lib("memo_delta_onehot", k)
+    lib = build.load()
     nb = b // bb
     if nb > 65535 or bb * l >= 2 ** 31:
         raise ValueError(f"memo_delta_onehot: {nb} B-tiles of {bb * l} slots "

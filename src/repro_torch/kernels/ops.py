@@ -103,6 +103,20 @@ def estep_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     return EStepResult(gamma=gamma, pi=pi, sstats=snew, iters=iters)
 
 
+def estep_gamma_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
+                     token_ids: torch.Tensor, counts: torch.Tensor,
+                     gamma0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """γ alone, for serving: K1 without its π finish and no scatter, one
+    launch. ``estep_cuda(...).gamma``'s bits (the finish does not touch
+    γ)."""
+    gamma0 = _fixed_point_start(cfg, token_ids.shape[0],
+                                exp_elog_beta.device, gamma0)
+    return lda_estep.estep_fixed_point(
+        token_ids, counts, exp_elog_beta, gamma0, cfg.alpha0, cfg.estep_tol,
+        cfg.estep_max_iters, block_b=resolve_policy(cfg).block_b,
+        stream_dtype=cfg.estep_stream_dtype)[0]
+
+
 def memo_correction_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                          token_ids: torch.Tensor, counts: torch.Tensor,
                          old_pi: torch.Tensor, visited: torch.Tensor, *,
@@ -161,6 +175,20 @@ def estep_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     snew, _ = lda_estep.segment_scatter(token_ids, counts, pi, None,
                                         exp_elog_beta.shape[0])
     return EStepResult(gamma=gamma, pi=pi, sstats=snew, iters=iters)
+
+
+def estep_gamma_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
+                         token_ids: torch.Tensor, counts: torch.Tensor,
+                         segments: torch.Tensor,
+                         gamma0: Optional[torch.Tensor] = None, *,
+                         num_docs: int) -> torch.Tensor:
+    """γ alone on the flat layout, for serving: K4 without its π finish
+    and no scatter, one launch."""
+    gamma0 = _fixed_point_start(cfg, num_docs, exp_elog_beta.device, gamma0)
+    return lda_estep.estep_fixed_point_csr(
+        token_ids, counts, segments, exp_elog_beta, gamma0, cfg.alpha0,
+        cfg.estep_tol, cfg.estep_max_iters,
+        stream_dtype=cfg.estep_stream_dtype)[0]
 
 
 def memo_correction_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,

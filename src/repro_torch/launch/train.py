@@ -1,9 +1,14 @@
 """Training launcher of the port: MVI / SVI / IVI / S-IVI on a synthetic
-paper-shaped corpus, with periodic held-out LPP.
+paper-shaped corpus, with periodic held-out LPP, through the
+`repro_torch.lda.LDA` facade.
 
-It builds ``LDAEngine`` directly and prints the memo store's footprint,
-the length buckets' padding (``--bucketed``) and, with any telemetry flag
-(``--trace``, ``--metrics-json``, ``--watchdog``), the telemetry summary.
+It prints the memo store's footprint, the length buckets' padding
+(``--bucketed``) and, with any telemetry flag (``--trace``,
+``--metrics-json``, ``--watchdog``), the telemetry summary. ``--ckpt``
+writes a manifest checkpoint of the full incremental state at the end
+(``repro``'s format), and ``--resume`` continues such a run, the port's or
+``repro``'s, bit-equal to one that never stopped (its algo, store and
+batching come from the checkpoint).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus small
@@ -14,7 +19,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
       --topics 8 --algo svi --bucketed --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
-      --topics 8 --memo-store chunked --chunk-docs 64 --device cpu
+      --topics 8 --memo-store chunked --chunk-docs 64 --device cpu \\
+      --epochs 1 --ckpt run1
+  PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
+      --topics 8 --device cpu --epochs 1 --resume run1 --ckpt run1
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
       --topics 8 --algo sivi --memo-store gamma --watchdog warn \\
       --trace run.jsonl --device cpu
@@ -26,9 +34,9 @@ import time
 
 
 def main_lda(args) -> None:
-    from repro_torch.core.engines import LDAEngine
     from repro_torch.core.types import LDAConfig, resolve_device
     from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+    from repro_torch.lda import LDA
 
     tel = _build_telemetry(args)
     device = resolve_device(args.device)
@@ -40,13 +48,23 @@ def main_lda(args) -> None:
     print(f"corpus={args.corpus} docs={train.num_docs} "
           f"words={float(train.num_words):.0f} K={args.topics} "
           f"device={device}")
-    cfg = LDAConfig(num_topics=args.topics, vocab_size=spec.vocab_size,
-                    estep_max_iters=args.estep_iters,
-                    estep_backend=args.backend)
-    eng = LDAEngine(cfg, train, algo=args.algo, batch_size=args.batch,
-                    seed=args.seed, test_corpus=test, device=device,
-                    memo_store=args.memo_store, chunk_docs=args.chunk_docs,
-                    bucket_by_length=args.bucketed, telemetry=tel)
+    if args.resume:
+        lda = LDA.load(args.resume, telemetry=tel, device=device).resume(
+            train, test_corpus=test)
+        print(f"resumed {args.resume}: algo={lda.algo} "
+              f"docs_seen={lda.docs_seen}")
+    else:
+        cfg = LDAConfig(num_topics=args.topics, vocab_size=spec.vocab_size,
+                        estep_max_iters=args.estep_iters,
+                        estep_backend=args.backend)
+        lda = LDA(cfg, algo=args.algo, batch_size=args.batch,
+                  seed=args.seed, memo_store=args.memo_store,
+                  chunk_docs=args.chunk_docs,
+                  bucket_by_length=args.bucketed, telemetry=tel,
+                  device=device)
+        # bind the corpus without stepping, so the memo is reportable
+        lda.partial_fit(train, steps=0, test_corpus=test)
+    eng = lda.trainer.eng
     if eng.memo is not None:
         print(f"memo_store={eng.memo.kind} "
               f"footprint={eng.memo.footprint_bytes() / 1e6:.2f}MB")
@@ -58,15 +76,17 @@ def main_lda(args) -> None:
               f"[{per}]")
     t0 = time.perf_counter()
     for epoch in range(1, args.epochs + 1):
-        eng.run_epoch()
+        lda.fit(epochs=1)
         if epoch % args.eval_every == 0 or epoch == args.epochs:
-            lpp = eng.evaluate()["lpp"]
-            print(f"epoch={epoch} docs_seen={eng.docs_seen} lpp={lpp:.4f} "
+            lpp = lda.evaluate()["lpp"]
+            print(f"epoch={epoch} docs_seen={lda.docs_seen} lpp={lpp:.4f} "
                   f"wall={time.perf_counter() - t0:.2f}s")
     if args.bound:
-        print("final exact bound:", eng.full_bound())
+        print("final exact bound:", lda.bound())
     if tel is not None:
         _report_telemetry(tel, args)
+    if args.ckpt:
+        print("saved", lda.save(args.ckpt))
 
 
 def _build_telemetry(args):
@@ -142,6 +162,13 @@ def main() -> None:
     lda.add_argument("--device", default="cuda",
                      help="torch device; 'cpu' runs the kernels' plain "
                           "versions")
+    lda.add_argument("--ckpt", default=None, metavar="DIR",
+                     help="write a manifest checkpoint of the full "
+                          "incremental state here at the end")
+    lda.add_argument("--resume", default=None, metavar="DIR",
+                     help="continue the run checkpointed in DIR (the "
+                          "port's or repro's); algo, store and batching "
+                          "come from the checkpoint")
     args = ap.parse_args()
     main_lda(args)
 

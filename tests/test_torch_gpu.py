@@ -4,7 +4,9 @@ about 163), K4 at the path's shape flattened and on small flat CSR
 batches, K5 on a small flat CSR batch, K1/K4's π finish bit for bit
 against K2/K5, their bf16 stream against the twins, K4 on a shuffled
 stream, K6–K9 (the pre-fusion baseline and flash attention) at small
-sizes. Whether a card is present is
+sizes; K1, K4, K3 and K6–K8 above their old K caps (K = 300 and 1,000),
+the K = 100 instances' bits against the parent commit's, and one facade
+save → load → resume. Whether a card is present is
 decided inside the ``cuda`` fixture, so every worker collects the same
 tests; without a card they skip.
 
@@ -557,7 +559,8 @@ def _dense_inputs(cuda, b, v, k, seed):
 
 
 @pytest.mark.parametrize("b,v,k", [(256, 3000, 100), (100, 517, 128),
-                                   (64, 96, 7)])
+                                   (64, 96, 7), (64, 600, 300),
+                                   (32, 300, 1000)])
 def test_sweep_and_sstats_kernels_match_twins(cuda, fp32_matmul, b, v, k):
     """K6 and K7 against the dense oracles at 2e-5 (tests/test_kernels.py's
     bar), ragged B and V tiles included, and the same bits on a second
@@ -787,3 +790,203 @@ def test_svi_step_matches_plain_path(path_inputs, layout):
     assert sum(launches.values()) == 2 and sum(plain.values()) == 0
     assert int(got.t) == int(want.t) == 1
     torch.testing.assert_close(got.lam, want.lam, rtol=1e-2, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# above the old K caps (K1/K4/K3: 256, K6-K8: 128); K = 100 unchanged
+# ---------------------------------------------------------------------------
+
+def _wide_inputs(cuda, k, b=160, l=64, v=5000, seed=0):
+    """``b`` documents (two K1 tiles) of up to ``l`` unique ids, Eφ from a
+    Gamma(100, 0.01) λ over ``k`` topics."""
+    rng = np.random.default_rng(seed + k)
+    ids = np.zeros((b, l), np.int32)
+    cnts = np.zeros((b, l), np.float32)
+    for r in range(b):
+        n = int(rng.integers(4, l + 1))
+        ids[r, :n] = rng.choice(v, size=n, replace=False)
+        cnts[r, :n] = rng.integers(1, 5, size=n)
+    lam = torch.from_numpy(rng.gamma(100.0, 0.01, (v, k)).astype(np.float32))
+    eb = exp_dirichlet_expectation(lam.to(cuda), axis=0).contiguous()
+    return torch.from_numpy(ids).to(cuda), torch.from_numpy(cnts).to(cuda), eb
+
+
+@pytest.mark.parametrize("k", [300, 1000])
+def test_fixed_points_and_scatter_above_256_topics(cuda, k):
+    """K1 and K4 (the wide kernel) against their twins: tile sweeps within
+    1 (K4: equal), γ at 2e-3, Eθ at 1e-4 / 1e-6 where the sweeps agree;
+    their π bit-equal to K2's / K5's; the same bits on two launches. K3
+    over 256-column chunks against an fp64 sum at 1e-5, deterministic."""
+    ids, cnts, eb = _wide_inputs(cuda, k)
+    b, l = ids.shape
+    g0 = torch.full((b, k), 1.5, device=cuda)
+    args = (ids, cnts, eb, g0, 0.5, 1e-4, 60)
+    g, et, it, pi = lda_estep.estep_fixed_point_pi(*args)
+    again = lda_estep.estep_fixed_point_pi(*args)
+    assert all(torch.equal(x, y) for x, y in zip((g, et, it, pi), again))
+    pg, pet, pit = lda_estep.estep_fixed_point_plain(*args)
+    assert int((it - pit).abs().max()) <= 1
+    torch.testing.assert_close(g, pg, rtol=2e-3, atol=2e-3)
+    same = (it == pit).repeat_interleave(128)[:b]
+    torch.testing.assert_close(et[same], pet[same], rtol=1e-4, atol=1e-6)
+    assert torch.equal(pi, lda_estep.token_pi(ids, cnts, eb, et))
+
+    flat = (ids.reshape(-1), cnts.reshape(-1),
+            torch.arange(b, dtype=torch.int32,
+                         device=cuda).repeat_interleave(l))
+    cargs = (*flat, eb, g0, 0.5, 1e-4, 60)
+    g4, et4, it4, pi4 = lda_estep.estep_fixed_point_csr_pi(*cargs)
+    assert all(torch.equal(x, y) for x, y in zip(
+        (g4, et4, it4), lda_estep.estep_fixed_point_csr(*cargs)))
+    pg4, pet4, pit4 = lda_estep.estep_fixed_point_csr_plain(*cargs)
+    assert int(it4[0]) == int(pit4[0])
+    torch.testing.assert_close(g4, pg4, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(et4, pet4, rtol=1e-4, atol=1e-6)
+    assert torch.equal(pi4, lda_estep.token_pi_csr(*flat, eb, et4))
+
+    v = eb.shape[0]
+    pi_new, pi_old = pi.reshape(-1, k), pi4
+    s1 = lda_estep.segment_scatter(flat[0], flat[1], pi_new, pi_old, v)
+    s2 = lda_estep.segment_scatter(flat[0], flat[1], pi_new, pi_old, v)
+    assert all(torch.equal(x, y) for x, y in zip(s1, s2))
+    for got, p in zip(s1, (pi_new, pi_old)):
+        want = torch.zeros((v, k), dtype=torch.float64, device=cuda)
+        want.index_add_(0, flat[0].long(), flat[1][:, None].double()
+                        * p.double())
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [300, 1000])
+def test_memo_delta_onehot_above_128_topics(cuda, k):
+    """K8 over tiles of 128 topics: its twin's bars (π 1e-5 / 1e-6, masses
+    1e-4), and with ``quantize`` π equal to K2's bit for bit."""
+    rng = np.random.default_rng(k)
+    b, l, v = 16, 40, 700
+    ids = torch.from_numpy(rng.integers(0, v, (b, l)).astype(np.int32)
+                           ).to(cuda)
+    cnts = torch.from_numpy(rng.poisson(1.0, (b, l)).astype(np.float32)
+                            ).to(cuda)
+    eb = torch.from_numpy(rng.gamma(1.0, 1.0, (v, k)).astype(np.float32)
+                          ).to(cuda)
+    et = torch.from_numpy(rng.gamma(1.0, 1.0, (b, k)).astype(np.float32)
+                          ).to(cuda)
+    old = torch.from_numpy(rng.random((b, l, k)).astype(np.float32)).to(cuda)
+    ebt = eb[ids.long()].contiguous()
+    got = lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old)
+    want = lda_estep.memo_delta_onehot_plain(ids, cnts, ebt, et, v, old)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for x, y in zip(got[1:], want[1:]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+    one = lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old,
+                                      quantize=True)
+    seg = lda_estep.memo_delta(ids, cnts, eb, et, v, old_pi=old,
+                               quantize=True)
+    assert torch.equal(one[0], seg[0])
+    for x, y in zip(one[1:], seg[1:]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+def test_k100_instances_keep_the_parent_bits(cuda):
+    """K1, K4, K3, K6, K7 and K8 at K = 100 on chip_smoke's seeded digest
+    inputs give the outputs the parent commit's kernels gave (their sha256
+    recorded in chip_smoke.py from a run of the parent's build)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    assert chip_smoke.kernel_digests(cuda) == chip_smoke.PARENT_DIGESTS
+
+
+def test_segment_sum_docs_is_order_fixed_on_card(cuda):
+    """The flat warm start's segment sum gives the same bits on every call
+    (no float atomics) with no host sync, within fp32 rounding of the fp64
+    sum."""
+    from repro_torch.core.estep import segment_sum_docs
+    gen = torch.Generator(cuda).manual_seed(0)
+    segs = torch.randint(0, 64, (50_000,), generator=gen, device=cuda)
+    vals = torch.rand((50_000, 100), generator=gen, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = segment_sum_docs(vals, segs, 64)      # no host sync
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for _ in range(3):
+        assert torch.equal(a, segment_sum_docs(vals, segs, 64))
+    want = torch.zeros((64, 100), dtype=torch.float64, device=cuda)
+    want.index_add_(0, segs, vals.double())
+    torch.testing.assert_close(a.double(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout,store", [("padded", "dense"),
+                                          ("padded", "chunked"),
+                                          ("csr", "dense")])
+def test_facade_save_load_resume_on_card(cuda, tmp_path, layout, store):
+    """``LDA`` on the cuda backend: a mid-epoch save, load and resume is
+    bit-equal to the run that never stopped."""
+    import os
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+    from repro_torch.lda import LDA
+    spec = PAPER_CORPORA["tiny"]
+    train = make_corpus(spec, seed=0, device=cuda)
+    cfg = LDAConfig(num_topics=8, vocab_size=spec.vocab_size,
+                    estep_backend="cuda", estep_max_iters=30)
+    path = os.path.join(tmp_path, "ck")
+    a = LDA(cfg, algo="ivi", batch_size=16, memo_store=store, chunk_docs=32,
+            layout=layout, token_budget=512, device=cuda).partial_fit(
+                train, steps=3)
+    a.save(path)
+    a.partial_fit(steps=5)
+    b = LDA.load(path, device=cuda).resume(train).partial_fit(steps=5)
+    for f in ("lam", "m_vk", "init_mass", "init_frac", "t"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+@pytest.mark.parametrize("layout", ["padded", "csr"])
+def test_inferencer_double_buffer_on_card(cuda, layout):
+    """``posterior_docs`` on the card: one launch a batch (the fixed point
+    without its finish), the double-buffered bits equal to the synchronous
+    ones, and γ at the gather backend's 2e-3 (batches of one 128-row
+    tile, so K1's per-tile stop is the whole batch's)."""
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.stream import CorpusDocStream
+    from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+    from repro_torch.lda import TopicInferencer
+    spec = PAPER_CORPORA["tiny"]
+    test = make_corpus(spec, split="test", seed=0, device=cuda)
+    lam = torch.from_numpy(np.random.default_rng(0).gamma(
+        2.0, 0.5, (spec.vocab_size, 8)).astype(np.float32))
+    cfg = LDAConfig(num_topics=8, vocab_size=spec.vocab_size,
+                    estep_backend="cuda", estep_max_iters=50)
+    inf = TopicInferencer(cfg, lam, batch_size=8, layout=layout,
+                          token_budget=256, device=cuda)
+    lda_estep.reset_launches()
+    got = inf.posterior_docs(CorpusDocStream(test))
+    batches = sum(inf.cache_info()["batches_per_width"].values())
+    name = "fixed_point_csr" if layout == "csr" else "fixed_point"
+    assert lda_estep.LAUNCHES[name] == sum(lda_estep.LAUNCHES.values()) \
+        == batches
+    assert np.array_equal(got, inf.posterior_docs(CorpusDocStream(test),
+                                                  double_buffer=False))
+    ref = TopicInferencer(cfg, lam, batch_size=8, layout=layout,
+                          token_budget=256, backend="gather", device=cuda)
+    np.testing.assert_allclose(got, ref.posterior_docs(CorpusDocStream(test)),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_fixed_point_refuses_past_shared_memory(cuda):
+    """Above the card's shared memory a block (about 3,600 topics at this
+    B) the wrappers raise, naming both byte counts."""
+    k = 4000
+    ids = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    cnts = torch.ones((2, 4), device=cuda)
+    eb = torch.full((8, k), 1.0 / 8, device=cuda)
+    g0 = torch.full((2, k), 1.5, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        lda_estep.estep_fixed_point(ids, cnts, eb, g0, 0.5, 1e-4, 5)
+    segs = torch.tensor([0, 0, 1, 1, 0, 0, 1, 1], dtype=torch.int32,
+                        device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        lda_estep.estep_fixed_point_csr(ids.reshape(-1), cnts.reshape(-1),
+                                        segs, eb, g0, 0.5, 1e-4, 5)

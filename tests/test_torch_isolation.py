@@ -37,6 +37,10 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.core.bound import elbo_collapsed_stream
         from repro_torch.obs import NULL_TELEMETRY, Telemetry, as_telemetry
         from repro_torch.obs.roofline import HW
+        from repro_torch.lda import LDA, TopicInferencer, load_lda_checkpoint
+        from repro_torch.checkpoint import load_manifest, save_manifest
+        from repro_torch.convert import lda_from_repro_checkpoint
+        from repro_torch.dist import DIVIConfig
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -57,7 +61,12 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.core.memo", "repro_torch.core.metrics",
                  "repro_torch.data.bow", "repro_torch.obs",
                  "repro_torch.obs.trace", "repro_torch.obs.metrics",
-                 "repro_torch.obs.watchdog", "repro_torch.obs.roofline"):
+                 "repro_torch.obs.watchdog", "repro_torch.obs.roofline",
+                 "repro_torch.lda", "repro_torch.lda.api",
+                 "repro_torch.lda.trainer", "repro_torch.lda.ckpt",
+                 "repro_torch.lda.infer", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.manifest", "repro_torch.dist",
+                 "repro_torch.dist.protocol"):
         assert name in got["modules"]
 
 
@@ -72,6 +81,18 @@ def test_entry_points_run_on_cuda_unless_told():
             LDAEngine(cfg, corpus, algo="ivi")
     assert LDAEngine(cfg, corpus, algo="ivi", device="cpu").device.type == \
         "cpu"
+    from repro_torch.lda import LDA, TopicInferencer
+    lam = torch.ones((8, 2))
+    if torch.cuda.is_available():
+        assert LDA(cfg).device.type == "cuda"
+        assert TopicInferencer(cfg, lam).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LDA(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TopicInferencer(cfg, lam)
+    assert LDA(cfg, device="cpu").device.type == "cpu"
+    assert TopicInferencer(cfg, lam, device="cpu").device.type == "cpu"
 
 
 def test_build_targets_hopper_from_package_source():
