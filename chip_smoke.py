@@ -72,7 +72,7 @@ telemetry, each on the same corpus at the same widths:
  19. telemetry — a live bundle on each layout: the spans' split of an
                update, the same λ bits without it, the disabled update's
                host syncs against the parent's sequence, an armed watchdog
-then the facade, serving and checkpoints, and the lifted K caps:
+then the facade, serving and checkpoints, D-IVI, and the lifted K caps:
  20. facade  — LDA (IVI, cuda backend) for two epochs from warm_start of
                phase 5's λ₀, booked as init_global_state books it: 2
                launches an update, λ bit-equal to phase 5's LDAEngine run;
@@ -87,19 +87,34 @@ then the facade, serving and checkpoints, and the lifted K caps:
                synchronous ones, no host sync before the final gather,
                docs/s both ways, and a swapper thread flipping between two
                snapshots under traffic (each batch's γ one snapshot's)
- 22. kcap    — K1, K4, K3, K6, K7 and K8 at K = 300 and 1,000 against
+ 22. divi    — D-IVI (paper §4), P workers simulated on the card through
+               DIVIEngine on the 16,430 documents: Table 2's P = 1, 4, 16
+               (B = 1,024 a worker, S = 1, two passes), Fig. 5's P = 4,
+               S = 2, delay_prob = 0.5, and P = 4 at B = 1,000 (no
+               multiple of K1's tile): 2 launches a sub-round (one grouped
+               K1 with its π finish, one K3) at every P, 0 host syncs in
+               a round, ms a round, docs/s, held-out LPP beside
+               single-host S-IVI at an equal document count, init_frac
+               exactly 0 after the cover; the grouped K1 bit for bit
+               against one launch a worker and against its twin's loop
+               over the workers (at 4,096 and 4,000 documents), its time
+               at 16,384 documents, the summed correction against the loop
+               over the workers; a mid-run save, load and resume through
+               LDA(algo="divi") bit-equal to the run that never stopped
+ 23. kcap    — K1, K4, K3, K6, K7 and K8 at K = 300 and 1,000 against
                their twins on the first 256 documents (K8: 16) at the
                Arxiv V, timed beside their bounds; every fixed-point
                instance's spills; at K = 100 the parent commit's bits
-               (sha256 of each kernel's outputs on seeded inputs)
+               (sha256 of each kernel's outputs on seeded inputs; K1 at
+               one group, group = B)
 then the pre-fusion baseline and attention:
- 23. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
+ 24. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
                one-hot memo delta (K8) on phase 3's documents, λ and γ₀:
                each kernel against its twin and timed; the whole E-step
                against the same loop over the twins; the legacy correction
                against the fused one (K1–K3), here and at BENCH_estep's
                shape (B = 128, V = 4096, K = 128, L = 64)
- 24. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
+ 25. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
                heads, 2 KV heads, hd = 128), B = 1, S = 4096, bf16, causal,
                against its twin, the same bits on two launches, timed beside
                scaled_dot_product_attention; the count of wgmma (HGMMA) and
@@ -213,10 +228,12 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
-    """Mean device time per call of ``fn`` of the CUDA kernels whose name
-    holds ``kernel``, by torch.profiler over ``reps`` calls after one
-    warm-up: the kernel alone, where a wrapper's host work may outlast it
-    and hold back back-to-back calls."""
+    """Mean device time of one launch of the CUDA kernel whose name holds
+    ``kernel`` (``fn`` launches it once), by torch.profiler over ``reps``
+    calls after one warm-up: the kernel alone, where a wrapper's host work
+    may outlast it and hold back back-to-back calls. The mean is over the
+    launches the profiler recorded: it can miss the first ones while it
+    starts up (with 5 ms kernels it kept 3 of 5)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -225,11 +242,14 @@ def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and kernel in e.key)
-    check(total > 0, f"kernel_ms: no device time for {kernel}")
-    return total / 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.key]
+    total = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    check(total > 0 and 0 < launches <= reps,
+          f"kernel_ms: {launches} launches of {kernel} recorded")
+    return total / 1e3 / launches
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -320,38 +340,18 @@ def phase_data(device, corpus="arxiv", scale=ARXIV_SCALE):
     return spec, train, test
 
 
-def check_fixed_point(args, label, block_b=128):
-    """K1 against its plain twin on one set of inputs. γ is held at 2e-3
-    and the tile sweeps within 1; Eθ at rtol 1e-4 / atol 1e-6 in every
-    tile whose sweep count agrees with the twin's (a tile one sweep apart
-    is held at γ's tolerance). A second launch must give the same bits
-    (γ, Eθ and the tile sweeps). Returns the errors, the tile sweeps and
-    the bound for this run's sweeps."""
+def fixed_point_bound(ids, cnts, k, sweeps, tiles):
+    """K1's bound for this run's sweeps: 4·K operations a live slot and
+    Eθ's series a row each sweep of its tile (``tiles``: (first row, rows)
+    per tile, ``lda_estep.fixed_point_tiles``), plus the tokens, the
+    distinct Eφ rows and γ₀, γ, Eθ moved once. Returns (bound ms, bound by,
+    bound ms without the π finish)."""
     import torch
-    from repro_torch.kernels import lda_estep
-
-    ids, cnts, eb, gamma0 = args[:4]
-    (b, k), l = gamma0.shape, ids.shape[1]
-    g, et, it = lda_estep.estep_fixed_point(*args, block_b=block_b)
-    again = lda_estep.estep_fixed_point(*args, block_b=block_b)
-    check(all(torch.equal(x, y) for x, y in zip((g, et, it), again)),
-          f"fixed_point ({label}): two launches differ")
-    pg, pet, pit = lda_estep.estep_fixed_point_plain(*args, block_b=block_b)
-    sweep_gap = int((it - pit).abs().max())
-    check(sweep_gap <= 1, f"fixed_point ({label}): tile sweeps {it} vs {pit}")
-    gerr = float((g - pg).abs().max())
-    check(torch.allclose(g, pg, rtol=2e-3, atol=2e-3),
-          f"fixed_point ({label}): γ off by {gerr}")
-    same = (it == pit).repeat_interleave(block_b)[:b]
-    eterr = float((et - pet)[same].abs().max()) if bool(same.any()) else 0.0
-    check(torch.allclose(et[same], pet[same], rtol=1e-4, atol=1e-6)
-          and torch.allclose(et, pet, rtol=2e-3, atol=2e-3),
-          f"fixed_point ({label}): Eθ off by {eterr}")
-    tile_live = torch.stack([(cnts[i:i + block_b] != 0).sum()
-                             for i in range(0, b, block_b)]).cpu()
-    tile_rows = torch.tensor([min(block_b, b - i)
-                              for i in range(0, b, block_b)])
-    sweeps = it.cpu().long()
+    b, l = ids.shape
+    tile_live = torch.stack([(cnts[lo:lo + n] != 0).sum()
+                             for lo, n in tiles]).cpu()
+    tile_rows = torch.tensor([n for _, n in tiles])
+    sweeps = sweeps.cpu().long()
     ops = float((sweeps * (4 * k * tile_live + ETHETA_OPS * k * tile_rows
                            + 4 * k * tile_rows)).sum() + ETHETA_OPS * b * k)
     distinct = int(torch.unique(ids[cnts != 0]).numel())
@@ -360,10 +360,46 @@ def check_fixed_point(args, label, block_b=128):
     # the π finish: the (B, L, K) π written, 4 operations a live topic
     bms, by = bound_ms(nbytes + b * l * k * 4,
                        ops + 4.0 * k * float(tile_live.sum()))
+    return bms, by, bms0
+
+
+def check_fixed_point(args, label, block_b=128, group=None):
+    """K1 against its plain twin on one set of inputs. γ is held at 2e-3
+    and the tile sweeps within 1; Eθ at rtol 1e-4 / atol 1e-6 in every
+    tile whose sweep count agrees with the twin's (a tile one sweep apart
+    is held at γ's tolerance). A second launch must give the same bits
+    (γ, Eθ and the tile sweeps). ``group``: the tiles cut within groups of
+    that many rows (D-IVI's stacked workers), the twin looping over the
+    groups. Returns the errors, the tile sweeps and the bound for this
+    run's sweeps."""
+    import torch
+    from repro_torch.kernels import lda_estep
+
+    ids, cnts, eb, gamma0 = args[:4]
+    (b, k), l = gamma0.shape, ids.shape[1]
+    kw = dict(block_b=block_b, group=group)
+    g, et, it = lda_estep.estep_fixed_point(*args, **kw)
+    again = lda_estep.estep_fixed_point(*args, **kw)
+    check(all(torch.equal(x, y) for x, y in zip((g, et, it), again)),
+          f"fixed_point ({label}): two launches differ")
+    pg, pet, pit = lda_estep.estep_fixed_point_plain(*args, **kw)
+    sweep_gap = int((it - pit).abs().max())
+    check(sweep_gap <= 1, f"fixed_point ({label}): tile sweeps {it} vs {pit}")
+    gerr = float((g - pg).abs().max())
+    check(torch.allclose(g, pg, rtol=2e-3, atol=2e-3),
+          f"fixed_point ({label}): γ off by {gerr}")
+    tiles = lda_estep.fixed_point_tiles(b, block_b, group)
+    same = (it == pit).repeat_interleave(
+        torch.tensor([n for _, n in tiles], device=it.device))
+    eterr = float((et - pet)[same].abs().max()) if bool(same.any()) else 0.0
+    check(torch.allclose(et[same], pet[same], rtol=1e-4, atol=1e-6)
+          and torch.allclose(et, pet, rtol=2e-3, atol=2e-3),
+          f"fixed_point ({label}): Eθ off by {eterr}")
+    bms, by, bms0 = fixed_point_bound(ids, cnts, k, it, tiles)
     return {"max_abs_err": gerr, "max_abs_err_etheta": eterr,
             "tol": "γ rtol=atol=2e-3; Eθ rtol=1e-4 atol=1e-6 in tiles whose "
                    "sweeps agree; tile sweeps within 1",
-            "sweep_gap": sweep_gap, "tile_sweeps": sweeps.tolist(),
+            "sweep_gap": sweep_gap, "tile_sweeps": it.cpu().tolist(),
             "bit_equal_two_launches": True,
             "bound_ms": bms, "bound_by": by, "bound_ms_without_pi": bms0,
             "_etheta": et, "_etheta_plain": pet}
@@ -487,7 +523,7 @@ def phase_kernels(device, spec, train, topics, batch, timer):
                        2, 1),
         library_ms=None)
     lib = build.load()
-    grid = lib.lda_fixed_point_blocks(b, l, k, 128)
+    grid = lib.lda_fixed_point_blocks(b, l, k, 128, b)
     one_round = -(-b // (8 // lib.lda_fixed_point_warps(l)))
     check(grid == one_round, f"fixed_point: grid {grid} blocks, not the "
           f"{one_round} that hold every document at once")
@@ -969,7 +1005,7 @@ def csr_grid(b, t, k, ms, sweeps):
     lib = build.load()
     rows = -(-t // b)
     return {"warps_per_doc": lib.lda_fixed_point_warps(rows),
-            "grid_blocks": lib.lda_fixed_point_blocks(b, rows, k, b),
+            "grid_blocks": lib.lda_fixed_point_blocks(b, rows, k, b, b),
             "us_per_sweep": ms * 1e3 / sweeps}
 
 
@@ -2449,6 +2485,285 @@ def phase_serve_infer(device, spec, test, topics, lam):
 # over K tiles
 # ---------------------------------------------------------------------------
 
+# Table 2's worker counts (B per worker, S = 1, no drops), Fig. 5's run
+# (P = 4, S = 2, half the sub-rounds dropped) and a batch that is no
+# multiple of K1's 128-row tile
+DIVI_WORKERS = (1, 4, 16)
+DIVI_PASSES = 2
+DIVI_ODD_BATCH = 1000
+# the save/resume round trip: the first 4,096 documents (the memo of all
+# 16,430 is 1.07 GB on disk), four workers of 1,000, mid-pass at the save
+DIVI_CKPT_DOCS = 4096
+
+
+def divi_run(cfg, train, obs_held, lam0, dcfg, rounds, device, sync):
+    """``rounds`` D-IVI rounds of a fresh ``DIVIEngine``: the first counts
+    its host syncs (telemetry off; must be 0), the others are timed on the
+    host clock between two syncs. Launches are counted from 0 over all of
+    them and held to 2 a sub-round that any worker ran (0 for the others).
+    Returns (the engine, its line)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.predictive import log_predictive
+    from repro_torch.dist import DIVIEngine
+    from repro_torch.kernels import lda_estep
+
+    eng = DIVIEngine(cfg, dcfg, train, seed=0, device=device, lam0=lam0)
+    delays = []
+    ingest = eng._ingest_round
+
+    def recorded():
+        out = ingest()
+        delays.append(out[3])
+        return out
+
+    eng._ingest_round = recorded
+    lda_estep.reset_launches()
+    syncs = host_syncs(eng.run_round)
+    ms = []
+    for _ in range(rounds - 1):
+        sync()
+        t0 = time.perf_counter()
+        eng.run_round()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(lda_estep.LAUNCHES)
+    ran = sum(int((~d).any(axis=0).sum()) for d in delays)
+    label = (f"divi P={dcfg.num_workers} B={dcfg.batch_size} "
+             f"S={dcfg.staleness}")
+    check_two_launches(label, launches, ran, "fixed_point")
+    check(syncs == 0, f"{label}: {syncs} host syncs in a round")
+    timed_docs = dcfg.batch_size * sum(int((~d).sum()) for d in delays[1:])
+    lpp = float(log_predictive(cfg, eng.state.lam, *obs_held))
+    check(np.isfinite(lpp) and bool(torch.isfinite(eng.state.lam).all()),
+          f"{label}: non-finite LPP or λ")
+    shard = eng.shard
+    return eng, {
+        "P": dcfg.num_workers, "B": dcfg.batch_size, "S": dcfg.staleness,
+        "delay_prob": dcfg.delay_prob, "rounds": rounds,
+        "shard_sizes": [min(eng.sharded.shard_sizes),
+                        max(eng.sharded.shard_sizes)],
+        "docs": eng.docs_seen, "subrounds_run": ran,
+        "subrounds_dropped_whole": rounds * dcfg.staleness - ran,
+        "launches": launches, "launches_per_subround": 2,
+        "host_syncs_first_round": syncs,
+        "median_ms_per_round": median(ms), "ms_per_round": ms,
+        "docs_per_s": timed_docs / (sum(ms) / 1e3),
+        "lpp": lpp, "init_frac": float(eng.state.init_frac),
+        "memo_bytes": shard.pi.numel() * 4 + shard.visited.numel()}
+
+
+def divi_subround(eng):
+    """The next sub-round's inputs as the round builds them: the live
+    workers' batches stacked (pulled from their shards), Eφ of the current
+    λ, the memo rows' warm starts. Returns (ids, cnts, eb, γ₀, π_old,
+    visited, B)."""
+    import torch
+    from repro_torch.core.estep import warm_start_gamma
+    from repro_torch.core.math import exp_dirichlet_expectation
+    ids, cnts, rows, delay = eng._ingest_round()
+    n = int((~delay[:, 0]).sum())
+    b, l = ids.shape[1:]
+    dev = eng.device
+    ids = torch.from_numpy(ids[:n].reshape(n * b, l)).to(dev)
+    cnts = torch.from_numpy(cnts[:n].reshape(n * b, l)).to(dev)
+    old_pi, visited = eng.shard.gather(
+        torch.from_numpy(rows[:n].reshape(n * b)).to(dev))
+    eb = exp_dirichlet_expectation(eng.state.lam, axis=0).contiguous()
+    gamma0 = warm_start_gamma(eng.cfg, cnts, old_pi, visited).contiguous()
+    return ids, cnts, eb, gamma0, old_pi.contiguous(), visited, b
+
+
+def check_grouped(eng, label, timer, twin):
+    """One sub-round of ``eng`` (its workers' next batches, warm starts
+    from their memos): the grouped K1 (one launch, one group a worker) bit
+    for bit against one launch a worker; with ``twin``, against its plain
+    twin's loop over the workers at K1's bars (``check_fixed_point``);
+    the summed correction (one K1, one K3) against the loop over the
+    workers (one correction each, then their sum) within K3's bar, each
+    term's S_new and S_old at rtol = atol = 1e-5 of their fp64 sums; π the
+    same bits. Returns its line."""
+    import torch
+    from repro_torch.core.estep import BowBatch, EStepBackend, get_backend
+    from repro_torch.kernels import build, lda_estep
+
+    ids, cnts, eb, gamma0, old_pi, visited, b = divi_subround(eng)
+    cfg = eng.cfg
+    n, (rows, l), k = ids.shape[0] // b, ids.shape, eb.shape[1]
+    args = (ids, cnts, eb, gamma0, cfg.alpha0, cfg.estep_tol,
+            cfg.estep_max_iters)
+    got = lda_estep.estep_fixed_point_pi(*args, group=b)
+    tiles = -(-b // 128)
+    for w in range(n):
+        sl = slice(w * b, (w + 1) * b)
+        alone = lda_estep.estep_fixed_point_pi(
+            ids[sl], cnts[sl], eb, gamma0[sl].contiguous(), *args[4:])
+        check(all(torch.equal(x, y) for x, y in
+                  zip((got[0][sl], got[1][sl],
+                       got[2][w * tiles:(w + 1) * tiles], got[3][sl]),
+                      alone)),
+              f"{label}: worker {w}'s rows of the grouped K1 are not its "
+              "own launch's bits")
+    out = {"docs": rows, "group": b, "workers": n,
+           "bit_equal_to_one_launch_a_worker": True,
+           "tile_sweeps": got[2].cpu().tolist()}
+    if twin:
+        res = check_fixed_point(args, label, group=b)
+        res.pop("_etheta"), res.pop("_etheta_plain")
+        out["twin"] = res
+    bms, by, _ = fixed_point_bound(ids, cnts, k, got[2],
+                                   lda_estep.fixed_point_tiles(rows, 128, b))
+    lib = build.load()
+    grid = lib.lda_fixed_point_blocks(rows, l, k, 128, b)
+    out.update(
+        ms=timer(lambda: lda_estep.estep_fixed_point_pi(*args, group=b), 5),
+        kernel_ms=kernel_ms(
+            lambda: lda_estep.estep_fixed_point_pi(*args, group=b),
+            "fixed_point_kernel", reps=5),
+        bound_ms=bms, bound_by=by, grid_blocks=grid,
+        docs_per_grid_pass=grid * (8 // lib.lda_fixed_point_warps(l)),
+        smem_bytes=lib.lda_fixed_point_smem_bytes(rows, k, 128, b))
+
+    backend = get_backend("cuda")
+    batch = BowBatch(ids, cnts)
+    corr, words, res = backend.solve_correction_grouped(
+        cfg, eb, batch, old_pi, visited, b)
+    lcorr, lwords, lres = EStepBackend.solve_correction_grouped(
+        backend, cfg, eb, batch, old_pi, visited, b)
+    check(torch.equal(res.pi, lres.pi), f"{label}: grouped π is not the "
+          "worker loop's")
+    flat = ids.reshape(-1).long()
+    w64 = cnts.reshape(-1, 1).double()
+    s_new = torch.zeros((eb.shape[0], k), dtype=torch.float64,
+                        device=eb.device).index_add_(
+        0, flat, w64 * res.pi.reshape(-1, k).double())
+    s_old = torch.zeros_like(s_new).index_add_(
+        0, flat, w64 * old_pi.reshape(-1, k).double())
+    scale = 1e-5 * (s_new.abs() + s_old.abs()) + 1e-5
+    err = float((corr.double() - lcorr.double()).abs().max())
+    ratio = float(((corr.double() - lcorr.double()).abs() / scale).max())
+    check(ratio <= 2.0, f"{label}: summed correction off the worker loop's "
+          f"by {err} ({ratio} of the bar)")
+    check(float(words) == float(lwords), f"{label}: first-visit words "
+          f"{float(words)} != {float(lwords)}")
+    out["correction"] = {
+        "max_abs_err_vs_worker_loop": err, "bar_ratio": ratio,
+        "tol": "|grouped − loop| ≤ 2·(1e-5·(|S_new| + |S_old|) + 1e-5) "
+               "(each of S_new, S_old within K3's rtol = atol = 1e-5 of "
+               "fp64); π and the first-visit words equal",
+        "ms": timer(lambda: backend.solve_correction_grouped(
+            cfg, eb, batch, old_pi, visited, b), 5),
+        "worker_loop_ms": timer(lambda: EStepBackend.solve_correction_grouped(
+            backend, cfg, eb, batch, old_pi, visited, b), 5)}
+    return out
+
+
+def phase_divi(device, spec, train, test, topics, batch, sync, timer):
+    """D-IVI (paper §4), P workers simulated on the card through
+    ``DIVIEngine``: Table 2's P sweep (P = 1, 4, 16 at B per worker, S = 1,
+    two passes), Fig. 5's P = 4, S = 2, delay_prob = 0.5 and P = 4 at
+    B = 1,000; single-host S-IVI at an equal document count beside them;
+    the grouped K1 and the summed correction against their per-worker
+    twins; a mid-run save and resume through ``LDA(algo="divi")``."""
+    import shutil
+    import torch
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.core.predictive import split_heldout
+    from repro_torch.core.types import Corpus, init_global_state
+    from repro_torch.dist import DIVIConfig
+    from repro_torch.lda import LDA
+
+    cfg = train_config(spec, topics)
+    gen = torch.Generator(device=device).manual_seed(0)
+    lam0 = init_global_state(cfg, device=device, generator=gen).lam
+    obs_held = split_heldout(test, seed=0)
+    target = DIVI_PASSES * train.num_docs
+    runs, grouped = [], {}
+    for p in DIVI_WORKERS:
+        dcfg = DIVIConfig(num_workers=p, batch_size=batch)
+        rounds = max(2, round(target / (p * batch)))
+        eng, line = divi_run(cfg, train, obs_held, lam0, dcfg, rounds,
+                             device, sync)
+        sizes = eng.sharded.shard_sizes
+        check(float(eng.state.init_frac) == 0.0 and all(
+            bool(eng.shard.visited[w, :n].all())
+            for w, n in enumerate(sizes)),
+              f"divi P={p}: init_frac {float(eng.state.init_frac)} after "
+              "covering every document")
+        runs.append(line)
+        if p > 1:
+            grouped[f"P{p}_B{batch}"] = check_grouped(
+                eng, f"divi P={p}", timer, twin=p * batch <= 4096)
+        del eng
+        torch.cuda.empty_cache()
+    for dcfg, rounds, grouped_check in (
+            (DIVIConfig(num_workers=4, batch_size=batch, staleness=2,
+                        delay_prob=0.5), runs[1]["rounds"], False),
+            (DIVIConfig(num_workers=4, batch_size=DIVI_ODD_BATCH),
+             max(2, round(target / (4 * DIVI_ODD_BATCH))), True)):
+        eng, line = divi_run(cfg, train, obs_held, lam0, dcfg, rounds,
+                             device, sync)
+        runs.append(line)
+        if grouped_check:
+            grouped[f"P4_B{dcfg.batch_size}"] = check_grouped(
+                eng, f"divi P=4 B={dcfg.batch_size}", timer, twin=True)
+        del eng
+        torch.cuda.empty_cache()
+
+    # single-host S-IVI from the same λ₀ at an equal document count
+    sivi = LDAEngine(cfg, train, algo="sivi", batch_size=batch, seed=0,
+                     test_corpus=test, device=device, lam0=lam0)
+    ms = []
+    while sivi.docs_seen < target:
+        ms += timed_epoch(sivi, sync)[0]
+    sivi_line = {"docs": sivi.docs_seen, "updates": len(ms),
+                 "median_ms_per_update": median(ms),
+                 "docs_per_s": sivi.docs_seen / (sum(ms) / 1e3),
+                 "lpp": sivi.evaluate()["lpp"]}
+    for line in runs:
+        line["lpp_minus_sivi"] = line["lpp"] - sivi_line["lpp"]
+    del sivi
+
+    # a mid-run save → load → resume through the facade, bit for bit
+    sub = Corpus(train.token_ids[:DIVI_CKPT_DOCS].contiguous(),
+                 train.counts[:DIVI_CKPT_DOCS].contiguous())
+    dcfg = DIVIConfig(num_workers=4, batch_size=DIVI_ODD_BATCH, staleness=2,
+                      delay_prob=0.5)
+    try:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        a = LDA(cfg, algo="divi", distributed=dcfg, seed=0,
+                device=device).partial_fit(sub, steps=1)
+        mid = [ing.cursor for ing in a.trainer.eng.ingest]
+        sync()
+        t0 = time.perf_counter()
+        a.save(str(CKPT_DIR))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = dir_bytes(CKPT_DIR)
+        a.partial_fit(steps=2)
+        t0 = time.perf_counter()
+        b = LDA.load(str(CKPT_DIR), device=device).resume(sub)
+        sync()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        b.partial_fit(steps=2)
+        same = all(torch.equal(getattr(a.state, f), getattr(b.state, f))
+                   for f in ("lam", "m_vk", "init_mass", "init_frac", "t"))
+        check(same and a.docs_seen == b.docs_seen
+              and torch.equal(a.trainer.eng.shard.pi, b.trainer.eng.shard.pi),
+              "divi: the resumed run is not the uninterrupted one's bits")
+        ckpt = {"docs": DIVI_CKPT_DOCS, "P": 4, "B": DIVI_ODD_BATCH, "S": 2,
+                "delay_prob": 0.5, "cursors_at_save": mid,
+                "save_ms": save_ms, "load_resume_ms": load_ms,
+                "bytes": nbytes, "bit_equal": True}
+        del a, b
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    out = {"phase": "divi", "runs": runs, "sivi": sivi_line,
+           "grouped": grouped, "checkpoint": ckpt,
+           "digests": "K1/K4/K3/K6-K8 at group = B: phase kcap"}
+    emit(out)
+    return out
+
+
 KCAP_TOPICS = (300, 1000)
 KCAP_BATCH = 256          # the first 256 Arxiv-shaped documents, V = 141,927
 # K8's partials are (B / B-tile, V, K) floats twice: at K = 1,000 its
@@ -2472,10 +2787,12 @@ PARENT_DIGESTS = {
         "e734394fe429b74b2df3ce086cf8576699ace3b9b52b3d72424567c206a64e4b",
 }
 # ptxas's spill bytes (stores, loads) of the fixed point's register
-# instances as the parent built them: KPL = 6-8 (K = 161-256) spilled
-# there already and are kept as they were (their bits); every other
-# instance, and the wide kernel above 256 topics, must not spill
-PARENT_SPILLS = {"kpl6": [[8, 16]], "kpl7": [[16, 52]], "kpl8": [[36, 100]]}
+# instances as this source builds them (chip run, NVIDIA H100 80GB HBM3):
+# KPL = 6-8 (K = 161-256) spill, as they did before the stop test's groups
+# (8/16, 16/52 and 36/100 bytes then; the groups' 32-bit tile index left
+# fewer), with their bits kept; every other instance, and the wide kernel
+# above 256 topics, must not spill
+PARENT_SPILLS = {"kpl6": [[4, 8]], "kpl7": [[4, 20]], "kpl8": [[24, 96]]}
 
 
 def digest_inputs(device, k=100, b=512, l=64, v=8192, seed=0):
@@ -2751,6 +3068,7 @@ def main() -> int:
     phase_facade(device, spec, train, TOPICS, BATCH, sync, lam_train)
     phase_serve_infer(device, spec, test, TOPICS, lam_train)
     del lam_train
+    divi = phase_divi(device, spec, train, test, TOPICS, BATCH, sync, cuda_ms)
     phase_kcap(device, spec, train, cuda_ms)
 
     legacy, launches_legacy = phase_legacy(device, spec, train, TOPICS, BATCH,
@@ -2767,6 +3085,15 @@ def main() -> int:
                     flash_attention=launches_attention["flash_attention"])
     kernels["segment_scatter"]["launches_csr"] = \
         launches_csr["segment_scatter"]
+    # the D-IVI runs: one grouped K1 and one K3 a sub-round; K1 at
+    # 16 workers' 16,384 documents in one launch
+    for name in PADDED_KERNELS:
+        kernels[name]["launches_divi"] = sum(r["launches"][name]
+                                             for r in divi["runs"])
+    kernels["fixed_point"]["divi_grouped"] = {
+        key: {f: g[f] for f in ("docs", "group", "ms", "kernel_ms",
+                                "bound_ms", "bound_by")}
+        for key, g in divi["grouped"].items()}
     check(all(launches[name] > 0 for name in REPLACES),
           f"a kernel never launched on its path: {launches}")
     emit({"phase": "summary", "card": info["nvidia_smi"],

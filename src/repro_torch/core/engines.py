@@ -43,7 +43,7 @@ from repro_torch.core.math import exp_dirichlet_expectation
 from repro_torch.core.memo import MemoStore, make_memo_store
 from repro_torch.core.metrics import effective_topics
 from repro_torch.core.predictive import log_predictive, split_heldout
-from repro_torch.core.types import (Corpus, GlobalState, LDAConfig,
+from repro_torch.core.types import (Corpus, GlobalState, LDAConfig, Memo,
                                     init_global_state, resolve_device)
 from repro_torch.data.bow import bucket_corpus, bucket_padding_stats
 from repro_torch.data.stream import BatchPacker, CSRBatch, is_doc_stream
@@ -247,6 +247,38 @@ def incremental_update_csr(cfg: LDAConfig, averaged: bool,
     state = _apply_correction(cfg, averaged, state, corr, words_first,
                               num_words_total)
     return state, res._replace(pi=_csr_scatter_flat(res.pi, ix, b, w)), eb
+
+
+def _raw_memo_step(cfg: LDAConfig, averaged: bool, state: GlobalState,
+                   memo: Memo, ids: torch.Tensor, cnts: torch.Tensor,
+                   doc_idx: torch.Tensor, num_words_total: torch.Tensor):
+    """One eq. 4 / eq. 5 update on a raw ``Memo``: the same core as the
+    engines, the memo rows ``doc_idx`` gathered and written back in place.
+    Returns (state, memo)."""
+    state, res, _ = incremental_update(
+        cfg, averaged, state, ids, cnts, memo.pi[doc_idx],
+        memo.visited[doc_idx], num_words_total)
+    memo.pi[doc_idx] = res.pi
+    memo.visited[doc_idx] = True
+    return state, memo
+
+
+def ivi_step(cfg: LDAConfig, state: GlobalState, memo: Memo,
+             ids: torch.Tensor, cnts: torch.Tensor, doc_idx: torch.Tensor,
+             num_words_total: torch.Tensor):
+    """Algorithm 1: partial E-step, then the exact incremental M-step
+    (eq. 4), on a raw memo, in place."""
+    return _raw_memo_step(cfg, False, state, memo, ids, cnts, doc_idx,
+                          num_words_total)
+
+
+def sivi_step(cfg: LDAConfig, state: GlobalState, memo: Memo,
+              ids: torch.Tensor, cnts: torch.Tensor, doc_idx: torch.Tensor,
+              num_words_total: torch.Tensor):
+    """Eq. 5: the incremental estimate inside a Robbins–Monro average, on a
+    raw memo, in place."""
+    return _raw_memo_step(cfg, True, state, memo, ids, cnts, doc_idx,
+                          num_words_total)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,10 @@ Every engine consumes the E-step through ``EStepBackend``:
   IVI hot path: E-step **plus** the subtract-old/add-new memo correction
   Σ_d cnt·(π_new − π_old) scattered into (V, K), with γ warm-started from
   the memo for visited documents.
+* ``solve_correction_grouped(..., group)`` — the same on B / group batches
+  stacked (D-IVI's live workers of one sub-round), each solved as if
+  alone, their corrections summed: one group at a time by default, all of
+  them in one fixed-point launch and one scatter on ``cuda``.
 
 Four backends:
 
@@ -305,6 +309,42 @@ class EStepBackend:
         words_first = torch.where(~visited, cnts.sum(-1), 0.0).sum()
         return correction, words_first, res
 
+    def solve_correction_grouped(
+            self, cfg: LDAConfig, exp_elog_beta: torch.Tensor,
+            batch: BowBatch, old_pi: torch.Tensor, visited: torch.Tensor,
+            group: int, pi_dtype: str = "float32",
+    ) -> Tuple[torch.Tensor, torch.Tensor, EStepResult]:
+        """``solve_correction`` on B / ``group`` batches of ``group`` rows
+        stacked row-wise, each solved as if it were alone (its own stop):
+        the corrections and first-visit words summed over the groups, γ and
+        π for every row, the sweeps the most of any group. Here one group
+        at a time, in order; the sum runs group by group."""
+        b = batch.token_ids.shape[0]
+        if group < 1 or b % group:
+            raise ValueError(f"group={group} does not divide B={b}")
+        if b == group:
+            return self.solve_correction(cfg, exp_elog_beta, batch, old_pi,
+                                         visited, pi_dtype)
+        corr = words = sstats = None
+        parts = []
+        for lo in range(0, b, group):
+            rows = slice(lo, lo + group)
+            c, w, res = self.solve_correction(
+                cfg, exp_elog_beta,
+                BowBatch(batch.token_ids[rows], batch.counts[rows]),
+                old_pi[rows], visited[rows], pi_dtype)
+            if corr is None:
+                corr, words, sstats = c, w, res.sstats
+            else:
+                corr, words = corr + c, words + w
+                sstats = sstats + res.sstats
+            parts.append(res)
+        res = EStepResult(
+            gamma=torch.cat([r.gamma for r in parts]),
+            pi=torch.cat([r.pi for r in parts]), sstats=sstats,
+            iters=torch.stack([r.iters for r in parts]).max())
+        return corr, words, res
+
     def solve_gamma(self, cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                     batch: BowBatch,
                     gamma0: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -394,6 +434,16 @@ class CudaBackend(EStepBackend):
                                          batch.counts, old_pi, visited,
                                          pi_dtype=pi_dtype)
 
+    def solve_correction_grouped(self, cfg, exp_elog_beta, batch, old_pi,
+                                 visited, group, pi_dtype="float32"):
+        """Every group in one K1 launch (its tiles cut within each group,
+        so each group stops as if alone) and one K3 over all their tokens:
+        the summed correction in one scatter."""
+        from repro_torch.kernels import ops as kops
+        return kops.memo_correction_cuda(cfg, exp_elog_beta, batch.token_ids,
+                                         batch.counts, old_pi, visited,
+                                         pi_dtype=pi_dtype, group=group)
+
     def solve_gamma(self, cfg, exp_elog_beta, batch, gamma0=None):
         from repro_torch.kernels import ops as kops
         return kops.estep_gamma_cuda(cfg, exp_elog_beta, batch.token_ids,
@@ -429,6 +479,8 @@ class CSRBackend(CudaBackend):
     inherited ``solve_tokens`` / ``solve_correction_tokens`` directly."""
 
     name = "csr"
+    # K4 stops batch-wide: stacked groups run one at a time
+    solve_correction_grouped = EStepBackend.solve_correction_grouped
 
     @staticmethod
     def flatten(batch: BowBatch) -> CSRTokenBatch:

@@ -115,6 +115,30 @@ class GlobalState:
     t: torch.Tensor            # () int32
 
 
+@dataclasses.dataclass
+class Memo:
+    """Per-document memoized responsibilities, token-aligned: the raw dense
+    pair the engines' ``DenseMemoStore`` wraps, and what ``ivi_step`` /
+    ``sivi_step`` take.
+
+    ``pi`` is (D, L, K), π for each (document, unique-token) slot, zero on
+    padding; ``visited`` (D,) marks documents whose memo counts in ⟨m_vk⟩.
+    """
+
+    pi: torch.Tensor           # (D, L, K) float32
+    visited: torch.Tensor      # (D,) bool
+
+
+def init_memo(cfg: "LDAConfig", num_docs: int, max_unique: int, *,
+              device=None) -> Memo:
+    """A zero memo with nothing visited."""
+    device = resolve_device(device)
+    return Memo(pi=torch.zeros((num_docs, max_unique, cfg.num_topics),
+                               dtype=torch.float32, device=device),
+                visited=torch.zeros((num_docs,), dtype=torch.bool,
+                                    device=device))
+
+
 def _standard_gamma(shape: float, size, generator: torch.Generator
                     ) -> torch.Tensor:
     """Gamma(shape, 1) draws for shape ≥ 1 (Marsaglia & Tsang 2000).

@@ -21,8 +21,15 @@ consumes.
 Packing is bit-transparent: a padded batch packed from ragged documents
 equals the same rows gathered from a padded ``Corpus`` and sliced to the
 bucket width, and both layouts emit what ``repro``'s packer emits on the
-same documents, bit for bit. Not ported yet: ``QueueDocStream`` and the
-sharded streams (ROADMAP.md).
+same documents, bit for bit.
+
+* ``ShardedDocStream`` — D-IVI's ingest: the positions of one base stream
+  dealt to P worker shards (``range`` or seeded ``hash``), each a
+  ``ShardDocStream`` with its own cursor and packer. The assignment, the
+  shard-local positions and the packed batches are ``repro``'s bit for
+  bit.
+
+Not ported yet: ``QueueDocStream`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -184,6 +191,217 @@ class ListDocStream(DocStream):
 def is_doc_stream(obj) -> bool:
     """Duck-typed DocStream check (protocol, not inheritance)."""
     return hasattr(obj, "iter_from") and hasattr(obj, "vocab_size")
+
+
+def as_doc_stream(data, vocab_size: Optional[int] = None) -> DocStream:
+    """A ``DocStream`` as is, a padded ``Corpus`` as a ``CorpusDocStream``,
+    any other iterable of documents as a ``ListDocStream``."""
+    if is_doc_stream(data):
+        return data
+    if isinstance(data, Corpus):
+        return CorpusDocStream(data, vocab_size)
+    if vocab_size is None:
+        raise ValueError("wrapping a raw document iterable needs vocab_size")
+    return ListDocStream(data, vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# sharding: one stream, P worker views
+# ---------------------------------------------------------------------------
+
+_U64 = np.uint64
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """The splitmix64 finalizer, vectorised: the position hash of
+    ``partitioner="hash"``. Integer mixing only, so an assignment is the
+    same on every machine."""
+    with np.errstate(over="ignore"):
+        x = (x + _U64(0x9E3779B97F4A7C15)) & _U64(0xFFFFFFFFFFFFFFFF)
+        x = (x ^ (x >> _U64(30))) * _U64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> _U64(27))) * _U64(0x94D049BB133111EB)
+        return x ^ (x >> _U64(31))
+
+
+SHARD_PARTITIONERS = ("range", "hash")
+
+
+class ShardDocStream(DocStream):
+    """One worker's view of a partitioned base stream, itself a
+    ``DocStream`` with local positions: ``iter_from(local_cursor)`` opens
+    the base stream at the shard's ``local_cursor``-th member and walks
+    forward, yielding only member documents (one forward pass over the
+    base for either partitioner: member positions are ascending)."""
+
+    def __init__(self, base: DocStream, positions: np.ndarray,
+                 shard_index: int):
+        self.base = base
+        self.shard_index = int(shard_index)
+        self._positions = np.asarray(positions, np.int64)
+        self.vocab_size = base.vocab_size
+        self._words: Optional[float] = None
+
+    @property
+    def positions(self) -> np.ndarray:
+        """Global positions of this shard's documents, ascending (local
+        position i is global ``positions[i]``)."""
+        return self._positions
+
+    @property
+    def num_docs(self) -> int:
+        return len(self._positions)
+
+    @property
+    def num_words(self) -> float:
+        if self._words is None:
+            self._words = sum(float(c.sum()) for _, c in self.iter_from(0))
+        return self._words
+
+    @property
+    def max_unique(self) -> int:
+        return self.base.max_unique
+
+    def iter_from(self, cursor: int = 0) -> Iterator[RaggedDoc]:
+        pos = self._positions
+        n = len(pos)
+        if cursor >= n:
+            return
+        k = cursor
+        g = int(pos[k])                       # global position of next yield
+        for doc in self.base.iter_from(g):
+            if g == pos[k]:
+                yield doc
+                k += 1
+                if k == n:
+                    return
+            g += 1
+
+    def make_packer(self, batch_size: int, *, layout: str = "padded",
+                    token_budget: Optional[int] = None, boundaries=None,
+                    metrics=None) -> "BatchPacker":
+        """A ``BatchPacker`` for this shard: the ladder capped at the base
+        stream's ``max_unique``, ids checked against its vocabulary.
+        ``boundaries=()`` gives the single-rung (B, L) packing the
+        distributed round consumes."""
+        return BatchPacker(
+            batch_size, max_width=self.base.max_unique,
+            boundaries=WIDTH_BOUNDARIES if boundaries is None else boundaries,
+            vocab_size=self.vocab_size, layout=layout,
+            token_budget=token_budget, metrics=metrics)
+
+
+class ShardedDocStream:
+    """Deal the positions of any ``DocStream`` to ``num_shards`` worker
+    views, once, on the host.
+
+    Either partitioner puts every document in exactly one shard, balances
+    the shard sizes to within one document and keeps each shard's
+    positions ascending:
+
+    * ``"range"``: contiguous position blocks (``np.array_split``); with one
+      shard the view is the base stream in order, which keeps P = 1
+      comparable with single-host S-IVI;
+    * ``"hash"``: documents dealt round-robin by the rank of their
+      splitmix64-hashed position (seeded), so shard content does not follow
+      the file's order.
+
+    The assignment is a function of ``(num_docs, num_shards, partitioner,
+    seed)`` alone; ``signature()`` is that tuple, and a resume refuses a
+    checkpoint whose signature differs.
+    """
+
+    def __init__(self, base: DocStream, num_shards: int, *,
+                 partitioner: str = "range", seed: int = 0):
+        if partitioner not in SHARD_PARTITIONERS:
+            raise ValueError(f"unknown partitioner {partitioner!r} "
+                             f"(have {SHARD_PARTITIONERS})")
+        d = int(base.num_docs)
+        if not 1 <= int(num_shards) <= d:
+            raise ValueError(
+                f"cannot deal {d} documents to {num_shards} shards: need "
+                f"1 <= num_shards <= num_docs (every worker must own at "
+                "least one document)")
+        self.base = base
+        self.num_shards = int(num_shards)
+        self.partitioner = partitioner
+        self.seed = int(seed)
+        if partitioner == "range":
+            parts = np.array_split(np.arange(d, dtype=np.int64),
+                                   self.num_shards)
+        else:
+            h = _splitmix64(np.arange(d, dtype=_U64)
+                            + _splitmix64(np.asarray(self.seed, _U64)))
+            order = np.argsort(h, kind="stable")     # rank by hash, stable
+            shard_of = np.empty(d, np.int64)
+            shard_of[order] = np.arange(d) % self.num_shards  # deal by rank
+            parts = [np.nonzero(shard_of == w)[0].astype(np.int64)
+                     for w in range(self.num_shards)]
+        self._positions: List[np.ndarray] = parts
+        self._shards: Dict[int, ShardDocStream] = {}
+
+    @property
+    def vocab_size(self) -> int:
+        return self.base.vocab_size
+
+    @property
+    def num_docs(self) -> int:
+        return self.base.num_docs
+
+    @property
+    def max_unique(self) -> int:
+        return self.base.max_unique
+
+    @property
+    def shard_sizes(self) -> List[int]:
+        return [len(p) for p in self._positions]
+
+    def positions(self, shard: int) -> np.ndarray:
+        """Global positions owned by ``shard`` (ascending)."""
+        return self._positions[shard]
+
+    def shard(self, shard: int) -> ShardDocStream:
+        if not 0 <= shard < self.num_shards:
+            raise ValueError(f"shard {shard} out of range "
+                             f"[0, {self.num_shards})")
+        if shard not in self._shards:
+            self._shards[shard] = ShardDocStream(
+                self.base, self._positions[shard], shard)
+        return self._shards[shard]
+
+    def shards(self) -> List[ShardDocStream]:
+        return [self.shard(w) for w in range(self.num_shards)]
+
+    def signature(self) -> Dict[str, object]:
+        """The assignment's identity, as a checkpoint records it: equal
+        signatures deal every document to the same shard at the same local
+        position."""
+        return {"partitioner": self.partitioner,
+                "num_shards": self.num_shards,
+                "seed": self.seed,
+                "num_docs": int(self.base.num_docs)}
+
+    def check_signature(self, saved: Dict[str, object]) -> None:
+        """Raise ``ValueError`` when ``saved`` (a checkpoint's ``sharding``)
+        is not this assignment: resuming across a mismatch would hand
+        workers the wrong documents beside stale memo rows."""
+        live = self.signature()
+        if saved == live:
+            return
+        if int(saved.get("num_shards", -1)) != live["num_shards"]:
+            raise ValueError(
+                f"checkpoint was taken with {saved.get('num_shards')} "
+                f"worker shards but this run has {live['num_shards']}: "
+                "the per-worker cursors/memos only make sense under the "
+                "shard count that produced them; resume with "
+                f"num_workers={saved.get('num_shards')}")
+        diffs = {k: (saved.get(k), live[k]) for k in live
+                 if saved.get(k) != live[k]}
+        raise ValueError(
+            "checkpoint shard assignment does not match this stream's: "
+            + ", ".join(f"{k}: saved={s!r} != live={l!r}"
+                        for k, (s, l) in sorted(diffs.items()))
+            + "; a mismatched partition would hand workers the wrong "
+            "documents: rebuild the engine with the saved settings")
 
 
 # ---------------------------------------------------------------------------

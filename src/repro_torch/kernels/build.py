@@ -32,14 +32,14 @@ _F = ctypes.c_float
 
 # C entry points of lda_estep.cu and their argument types
 _SIGNATURES = {
-    "lda_fixed_point_blocks": [_I, _I, _I, _I],
+    "lda_fixed_point_blocks": [_I, _I, _I, _I, _I],
     "lda_fixed_point_warps": [_I],
-    "lda_fixed_point": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _I, _I, _P],
+    "lda_fixed_point": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
     "lda_token_pi": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "lda_segment_scatter": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
     "lda_fixed_point_csr": [_P] * 12 + [_I, _I64, _I, _F, _F, _I, _I, _P],
     "lda_token_pi_csr": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
-    "lda_fixed_point_smem_bytes": [_I, _I, _I],
+    "lda_fixed_point_smem_bytes": [_I, _I, _I, _I],
     "lda_max_smem_bytes": [],
     "lda_dense_k_tiles": [_I],
     "lda_sweep_splits": [_I, _I],

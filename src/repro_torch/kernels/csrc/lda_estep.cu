@@ -106,7 +106,12 @@ __device__ __forceinline__ void exp_elog_theta(const float (&g)[KPL],
 //
 // Stopping rule: the TPU kernel's, per tile of block_b documents. A tile
 // stops once the mean |d gamma| over its rows and K topics is <= tol, or
-// after max_sweeps; iters holds one count per tile.
+// after max_sweeps; iters holds one count per tile. The tiles are cut
+// within groups of `group` rows (FpTiles): D-IVI stacks its live workers'
+// batches into one launch, one group a worker, so a tile never holds two
+// workers' documents and its mean counts its own worker's rows only, as
+// the TPU kernel under vmap stops each worker's tiles. group = B is one
+// batch's tiles.
 //
 // One cooperative launch runs every sweep of every tile. Row d's slots are
 // d*L ... d*L + L - 1 (the padded layout), or offsets[d] ... offsets[d +
@@ -365,6 +370,31 @@ __host__ __device__ __forceinline__ int fp_chunks_per_tile(int block_b) {
   return (block_b + kStopChunk - 1) / kStopChunk;
 }
 
+// The stop test's tiles: the B rows are B / group groups of `group` rows,
+// each cut into tiles of block_b rows from its own first row, so tile t
+// covers rows lo(t) ... lo(t) + rows(t) - 1 and no tile straddles two
+// groups. At group = B these are one batch's tiles (t * block_b, and
+// min(block_b, B - t * block_b) rows).
+struct FpTiles {
+  int group, block_b, per_group;
+  __host__ __device__ FpTiles(int group_, int block_b_)
+      : group(group_),
+        block_b(block_b_),
+        per_group((group_ + block_b_ - 1) / block_b_) {}
+  __host__ __device__ int count(int B) const { return B / group * per_group; }
+  // d < B < 2^31: 32-bit divisions, which keep the sweep loop's registers
+  __device__ __forceinline__ int of(int d) const {
+    const int g = d / group;
+    return g * per_group + (d - g * group) / block_b;
+  }
+  __device__ __forceinline__ int lo(int t) const {
+    return t / per_group * group + t % per_group * block_b;
+  }
+  __device__ __forceinline__ int rows(int t) const {
+    return min(block_b, group - t % per_group * block_b);
+  }
+};
+
 // The fixed point's arguments, as the host gathers them (the kernel takes
 // each as a __restrict__ parameter). offsets: nullptr for the padded
 // layout (row d is slots d*L ... d*L + L - 1), else B + 1 range starts
@@ -373,7 +403,8 @@ __host__ __device__ __forceinline__ int fp_chunks_per_tile(int block_b) {
 // order[i]), and L only sets W. cnts, eb: the counts and Eφ the sweeps
 // read (rounded through bf16 for the bf16 stream); cnts32, eb32: the fp32
 // ones the finish reads (the same pointers for the fp32 stream). pi:
-// nullptr for no finish.
+// nullptr for no finish. group: the rows of one stop-test group (B: one
+// batch; K4 always B).
 struct FpArgs {
   const int32_t* ids;
   const float* cnts;
@@ -391,7 +422,7 @@ struct FpArgs {
   int64_t T;
   int B, L, K;
   float alpha0, tol;
-  int max_sweeps, block_b, W, quantize;
+  int max_sweeps, block_b, group, W, quantize;
 };
 
 template <int KPL>
@@ -408,10 +439,11 @@ __global__ void __launch_bounds__(kFpThreads, 4)
                        float* __restrict__ delta, int32_t* __restrict__ iters,
                        float* __restrict__ pi, int64_t T, int B, int L, int K,
                        float alpha0, float tol, int max_sweeps, int block_b,
-                       int W, int quantize) {
+                       int group, int W, int quantize) {
   constexpr int KP = KPL * kWarp;
   cg::grid_group grid = cg::this_grid();
-  const int nb = (B + block_b - 1) / block_b;
+  const FpTiles tiles(group, block_b);
+  const int nb = tiles.count(B);
   const int cpt = fp_chunks_per_tile(block_b);
   const int nchunks = nb * cpt;
   extern __shared__ float fp_smem[];
@@ -459,7 +491,8 @@ __global__ void __launch_bounds__(kFpThreads, 4)
     float* slots = delta + static_cast<size_t>(sweep & 1) * B;
     for (int r = 0; r < rounds; ++r) {
       const int64_t d = doc(r);
-      const bool active = d < B && stop[d / block_b] == 0;
+      const bool active =
+          d < B && stop[tiles.of(static_cast<int>(d))] == 0;
       float et[KPL], acc[KPL];
       if (active) {
 #pragma unroll
@@ -508,8 +541,8 @@ __global__ void __launch_bounds__(kFpThreads, 4)
     for (int c = warp; c < nchunks; c += kFpWarps) {
       const int t = c / cpt;
       if (stop[t] != 0) continue;
-      const int lo = t * block_b + (c % cpt) * kStopChunk;
-      const int hi = min(min(t * block_b + block_b, B), lo + kStopChunk);
+      const int lo = tiles.lo(t) + (c % cpt) * kStopChunk;
+      const int hi = min(tiles.lo(t) + tiles.rows(t), lo + kStopChunk);
       float s = 0.f;
       for (int i = lo + lane; i < hi; i += kWarp) s += __ldcg(slots + i);
       s = warp_sum(s);
@@ -518,7 +551,7 @@ __global__ void __launch_bounds__(kFpThreads, 4)
     __syncthreads();
     for (int t = threadIdx.x; t < nb; t += kFpThreads) {
       if (stop[t] != 0) continue;
-      const int rows = min(block_b, B - t * block_b);
+      const int rows = tiles.rows(t);
       const int nc = fp_chunks_per_tile(rows);
       float total = csum[t * cpt];
       for (int c = 1; c < nc; ++c) total += csum[t * cpt + c];
@@ -698,9 +731,10 @@ __global__ void __launch_bounds__(kFpThreads, 4)
                             int32_t* __restrict__ iters,
                             float* __restrict__ pi, int64_t T, int B, int L,
                             int K, float alpha0, float tol, int max_sweeps,
-                            int block_b, int W, int quantize) {
+                            int block_b, int group, int W, int quantize) {
   cg::grid_group grid = cg::this_grid();
-  const int nb = (B + block_b - 1) / block_b;
+  const FpTiles tiles(group, block_b);
+  const int nb = tiles.count(B);
   const int cpt = fp_chunks_per_tile(block_b);
   const int nchunks = nb * cpt;
   extern __shared__ float fp_smem[];
@@ -738,7 +772,8 @@ __global__ void __launch_bounds__(kFpThreads, 4)
     float* slots = delta + static_cast<size_t>(sweep & 1) * B;
     for (int r = 0; r < rounds; ++r) {
       const int64_t d = doc(r);
-      const bool active = d < B && stop[d / block_b] == 0;
+      const bool active =
+          d < B && stop[tiles.of(static_cast<int>(d))] == 0;
       if (active) {
         for (int k = lane; k < K; k += kWarp) {
           et[k] = et_out[d * K + k];
@@ -770,8 +805,8 @@ __global__ void __launch_bounds__(kFpThreads, 4)
     for (int c = warp; c < nchunks; c += kFpWarps) {
       const int t = c / cpt;
       if (stop[t] != 0) continue;
-      const int lo = t * block_b + (c % cpt) * kStopChunk;
-      const int hi = min(min(t * block_b + block_b, B), lo + kStopChunk);
+      const int lo = tiles.lo(t) + (c % cpt) * kStopChunk;
+      const int hi = min(tiles.lo(t) + tiles.rows(t), lo + kStopChunk);
       float s = 0.f;
       for (int i = lo + lane; i < hi; i += kWarp) s += __ldcg(slots + i);
       s = warp_sum(s);
@@ -780,7 +815,7 @@ __global__ void __launch_bounds__(kFpThreads, 4)
     __syncthreads();
     for (int t = threadIdx.x; t < nb; t += kFpThreads) {
       if (stop[t] != 0) continue;
-      const int rows = min(block_b, B - t * block_b);
+      const int rows = tiles.rows(t);
       const int nc = fp_chunks_per_tile(rows);
       float total = csum[t * cpt];
       for (int c = 1; c < nc; ++c) total += csum[t * cpt + c];
@@ -1670,8 +1705,8 @@ __global__ void __launch_bounds__(256)
 // (KPL * 32 floats each; for K > kNarrowK, the wide kernel's accumulator
 // and E[theta], K floats each), the stop test's chunk sums and the tiles'
 // stop counts.
-size_t fp_smem_bytes(int K, int B, int block_b) {
-  const size_t nb = (B + block_b - 1) / block_b;
+size_t fp_smem_bytes(int K, int B, int block_b, int group) {
+  const size_t nb = FpTiles(group, block_b).count(B);
   const size_t per_warp = K <= kNarrowK
                               ? static_cast<size_t>((K + kWarp - 1) / kWarp) * kWarp
                               : 2 * static_cast<size_t>(K);
@@ -1743,34 +1778,35 @@ const void* fp_kernel(int K) {
 // The co-resident grid of K1 for B documents of L slots and K topics: W
 // warps per document, at most the capacity. Returns cudaSuccess and sets
 // *blocks, or the error that forbids a cooperative launch.
-cudaError_t fp_grid(int B, int L, int K, int block_b, int* blocks) {
-  if (K < 1) return cudaErrorInvalidValue;
+cudaError_t fp_grid(int B, int L, int K, int block_b, int group,
+                    int* blocks) {
+  if (K < 1 || group < 1 || B % group != 0) return cudaErrorInvalidValue;
   int capacity = 0;
-  const cudaError_t err =
-      fp_capacity(fp_kernel(K), fp_smem_bytes(K, B, block_b), &capacity);
+  const cudaError_t err = fp_capacity(
+      fp_kernel(K), fp_smem_bytes(K, B, block_b, group), &capacity);
   if (err != cudaSuccess) return err;
   const int dpb = kFpWarps / fp_warps_per_doc(L);
   *blocks = std::max(1, std::min((B + dpb - 1) / dpb, capacity));
   return cudaSuccess;
 }
 
-// K1 (offsets == nullptr) or K4 (L = ceil(T / B), block_b = B), on the
-// kernel for a.K topics.
+// K1 (offsets == nullptr) or K4 (L = ceil(T / B), block_b = group = B),
+// on the kernel for a.K topics.
 cudaError_t dispatch_fixed_point(FpArgs a, cudaStream_t stream) {
   a.W = fp_warps_per_doc(a.L);
   int blocks = 0;
-  const cudaError_t err = fp_grid(a.B, a.L, a.K, a.block_b, &blocks);
+  const cudaError_t err =
+      fp_grid(a.B, a.L, a.K, a.block_b, a.group, &blocks);
   if (err != cudaSuccess) return err;
   void* args[] = {&a.ids,    &a.cnts,   &a.cnts32,     &a.offsets,
                   &a.order,  &a.eb,     &a.eb32,       &a.gamma0,
                   &a.gamma,  &a.et_out, &a.delta,      &a.iters,
                   &a.pi,     &a.T,      &a.B,          &a.L,
                   &a.K,      &a.alpha0, &a.tol,        &a.max_sweeps,
-                  &a.block_b, &a.W,     &a.quantize};
-  return cudaLaunchCooperativeKernel(fp_kernel(a.K), dim3(blocks),
-                                     dim3(kFpThreads), args,
-                                     fp_smem_bytes(a.K, a.B, a.block_b),
-                                     stream);
+                  &a.block_b, &a.group, &a.W,    &a.quantize};
+  return cudaLaunchCooperativeKernel(
+      fp_kernel(a.K), dim3(blocks), dim3(kFpThreads), args,
+      fp_smem_bytes(a.K, a.B, a.block_b, a.group), stream);
 }
 
 // K6's V tiles per split for B rows and V columns: about kSweepBlocks
@@ -1857,13 +1893,13 @@ const char* lda_error_string(int err) {
 }
 
 // Bytes of dynamic shared memory a block of K1/K4 takes for B documents
-// and K topics in tiles of block_b (K4: block_b = B), and the card's
-// per-block maximum (or minus a CUDA error code): the fixed point's only
-// limit on K.
-int lda_fixed_point_smem_bytes(int B, int K, int block_b) {
-  if (B < 1 || K < 1 || block_b < 1) return 0;
-  return static_cast<int>(std::min<size_t>(fp_smem_bytes(K, B, block_b),
-                                           INT32_MAX));
+// and K topics in tiles of block_b within groups of `group` rows (K4:
+// block_b = group = B), and the card's per-block maximum (or minus a CUDA
+// error code): the fixed point's only limit on K.
+int lda_fixed_point_smem_bytes(int B, int K, int block_b, int group) {
+  if (B < 1 || K < 1 || block_b < 1 || group < 1 || B % group != 0) return 0;
+  return static_cast<int>(std::min<size_t>(
+      fp_smem_bytes(K, B, block_b, group), INT32_MAX));
 }
 
 int lda_max_smem_bytes() {
@@ -1877,14 +1913,14 @@ int lda_max_smem_bytes() {
 }
 
 // Blocks of K1's cooperative grid for B documents of L slots and K topics
-// in tiles of block_b, or minus a CUDA error code (lda_fixed_point sizes
-// its own grid the same way; this reports it). K4's grid is the one for
-// L = ceil(T / B) and block_b = B.
-int lda_fixed_point_blocks(int B, int L, int K, int block_b) {
+// in tiles of block_b within groups of `group` rows, or minus a CUDA error
+// code (lda_fixed_point sizes its own grid the same way; this reports
+// it). K4's grid is the one for L = ceil(T / B) and block_b = group = B.
+int lda_fixed_point_blocks(int B, int L, int K, int block_b, int group) {
   cudaGetLastError();
   if (B < 1 || L < 0 || block_b < 1) return -cudaErrorInvalidValue;
   int blocks = 0;
-  const cudaError_t err = fp_grid(B, L, K, block_b, &blocks);
+  const cudaError_t err = fp_grid(B, L, K, block_b, group, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -1896,13 +1932,15 @@ int lda_fixed_point_warps(int L) { return fp_warps_per_doc(L); }
 // copies rounded through bf16 for repro's bf16 stream of the dense counts
 // and Eφ). pi: nullptr, or the (B, L, K) output of the finish (from cnts
 // and eb, rounded through bf16 with quantize). delta: 2 * B floats of
-// scratch (the per-document |d gamma| slots).
+// scratch (the per-document |d gamma| slots). group: the rows of one
+// stop-test group, dividing B (B for one batch); iters holds
+// B / group * ceil(group / block_b) counts, group by group.
 int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
                     const float* sweep_cnts, const float* sweep_eb,
                     const float* gamma0, float* gamma, float* et,
                     float* delta, int32_t* iters, float* pi, int B, int L,
                     int K, float alpha0, float tol, int max_sweeps,
-                    int block_b, int quantize, void* stream) {
+                    int block_b, int group, int quantize, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   FpArgs a{};
   a.ids = ids;
@@ -1924,6 +1962,7 @@ int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
   a.tol = tol;
   a.max_sweeps = max_sweeps;
   a.block_b = block_b;
+  a.group = group;
   a.quantize = quantize;
   return dispatch_fixed_point(a, static_cast<cudaStream_t>(stream));
 }
@@ -1981,6 +2020,7 @@ int lda_fixed_point_csr(const int32_t* ids, const float* cnts,
   a.tol = tol;
   a.max_sweeps = max_sweeps;
   a.block_b = B;
+  a.group = B;
   a.quantize = quantize;
   return dispatch_fixed_point(a, static_cast<cudaStream_t>(stream));
 }

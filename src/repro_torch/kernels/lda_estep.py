@@ -42,7 +42,7 @@ tensors it launches the kernel or raises. Each launch adds one to
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -96,13 +96,13 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_fixed_point_smem(lib, name: str, b: int, k: int,
-                            block_b: int) -> None:
+def _check_fixed_point_smem(lib, name: str, b: int, k: int, block_b: int,
+                            group: int) -> None:
     """Raise when K1/K4's block would need more shared memory than the card
     gives a block: the fixed point's one limit on K (above 256 topics each
     warp holds its document's Eθ and accumulator there, 2·8·K floats a
     block; K ≤ 3,631 at B = 1,024 on an H100)."""
-    need = lib.lda_fixed_point_smem_bytes(b, k, block_b)
+    need = lib.lda_fixed_point_smem_bytes(b, k, block_b, group)
     have = lib.lda_max_smem_bytes()
     if have < 0:
         build.check(-have, "lda_max_smem_bytes")
@@ -154,20 +154,36 @@ def _exp_elog_theta(g: torch.Tensor) -> torch.Tensor:
     return torch.exp(_digamma(g.clamp_min(1e-10)) - _digamma(s))
 
 
+def fixed_point_tiles(b: int, block_b: int,
+                      group: Optional[int] = None) -> List[Tuple[int, int]]:
+    """K1's stop-test tiles as (first row, rows): each group of ``group``
+    rows (the whole batch when None) cut into tiles of ``block_b`` rows
+    from its own first row, so no tile straddles two groups."""
+    if b == 0:
+        return []
+    group = b if group is None else group
+    if group < 1 or b % group:
+        raise ValueError(f"group={group} does not divide B={b}")
+    return [(g + lo, min(block_b, group - lo))
+            for g in range(0, b, group) for lo in range(0, group, block_b)]
+
+
 def estep_fixed_point_plain(token_ids: torch.Tensor, counts: torch.Tensor,
                             eb: torch.Tensor, gamma0: torch.Tensor,
                             alpha0: float, tol: float, max_iters: int, *,
                             block_b: int = 128,
-                            stream_dtype: str = "float32"):
+                            stream_dtype: str = "float32",
+                            group: Optional[int] = None):
     """Plain twin of K1: the same sweeps, tile by tile, in torch, on Eφ and
-    the counts as ``stream_dtype`` streams them."""
+    the counts as ``stream_dtype`` streams them. With ``group`` it is the
+    loop over the groups of the same twin, one group at a time."""
     b, k = gamma0.shape
     ebt = stream_round(eb, stream_dtype)[token_ids.long()]   # (B, L, K)
     counts = stream_round(counts, stream_dtype)
     sweeps_cap = max(int(max_iters), 1)
     gammas, sweeps = [], []
-    for lo in range(0, b, block_b):
-        hi = min(lo + block_b, b)
+    for lo, rows in fixed_point_tiles(b, block_b, group):
+        hi = lo + rows
         g, e, c = gamma0[lo:hi], ebt[lo:hi], counts[lo:hi]
         n = 0
         while n < sweeps_cap:
@@ -190,12 +206,13 @@ def estep_fixed_point_pi_plain(token_ids: torch.Tensor, counts: torch.Tensor,
                                alpha0: float, tol: float, max_iters: int, *,
                                block_b: int = 128,
                                stream_dtype: str = "float32",
-                               quantize: bool = False):
+                               quantize: bool = False,
+                               group: Optional[int] = None):
     """Plain twin of K1 with its finish: ``estep_fixed_point_plain``, then
     ``token_pi_plain`` on its Eθ with the fp32 Eφ and counts."""
     gamma, et, sweeps = estep_fixed_point_plain(
         token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
-        block_b=block_b, stream_dtype=stream_dtype)
+        block_b=block_b, stream_dtype=stream_dtype, group=group)
     return gamma, et, sweeps, token_pi_plain(token_ids, counts, eb, et,
                                              quantize=quantize)
 
@@ -203,7 +220,8 @@ def estep_fixed_point_pi_plain(token_ids: torch.Tensor, counts: torch.Tensor,
 def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
                       eb: torch.Tensor, gamma0: torch.Tensor, alpha0: float,
                       tol: float, max_iters: int, *, block_b: int = 128,
-                      stream_dtype: str = "float32"):
+                      stream_dtype: str = "float32",
+                      group: Optional[int] = None):
     """The whole γ fixed point of a padded BOW batch (K1).
 
     Shapes: token_ids int32 / counts float32 (B, L), eb = Eφ (V, K),
@@ -218,16 +236,23 @@ def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
     ids of a row must be unique (``corpus_from_docs`` makes them so) and
     padding slots carry count 0, which makes this the TPU kernel's
     dense-count function.
+
+    ``group`` (dividing B; B when None) cuts the tiles within groups of
+    that many rows: the B rows are B / group batches stacked, as D-IVI
+    stacks its workers', and each stops tile by tile as if launched
+    alone. The sweeps come back group by group, ``ceil(group / block_b)``
+    each.
     """
     return _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol,
-                        max_iters, block_b, stream_dtype, None)[:3]
+                        max_iters, block_b, stream_dtype, None, group)[:3]
 
 
 def estep_fixed_point_pi(token_ids: torch.Tensor, counts: torch.Tensor,
                          eb: torch.Tensor, gamma0: torch.Tensor,
                          alpha0: float, tol: float, max_iters: int, *,
                          block_b: int = 128, stream_dtype: str = "float32",
-                         quantize: bool = False):
+                         quantize: bool = False,
+                         group: Optional[int] = None):
     """K1 ending with K2's π: (γ, Eθ, sweeps, π (B, L, K)) in one launch.
 
     γ, Eθ and the sweeps are ``estep_fixed_point``'s, bit for bit; π is
@@ -235,11 +260,12 @@ def estep_fixed_point_pi(token_ids: torch.Tensor, counts: torch.Tensor,
     bit, formed from the fp32 Eφ whatever ``stream_dtype`` streams.
     """
     return _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol,
-                        max_iters, block_b, stream_dtype, bool(quantize))
+                        max_iters, block_b, stream_dtype, bool(quantize),
+                        group)
 
 
 def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
-                 block_b, stream_dtype, quantize):
+                 block_b, stream_dtype, quantize, group):
     """K1, with the finish unless ``quantize`` is None. Returns (γ, Eθ,
     sweeps, π or None)."""
     b, l = token_ids.shape
@@ -251,17 +277,16 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
     check_stream_dtype(stream_dtype)
     if block_b < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
+    group = b if group is None else int(group)
+    nb = len(fixed_point_tiles(b, block_b, group))   # checks the group
     with_pi = quantize is not None
     if _on_cpu(token_ids, counts, eb, gamma0):
         args = (token_ids, counts, eb, gamma0, alpha0, tol, max_iters)
+        kw = dict(block_b=block_b, stream_dtype=stream_dtype, group=group)
         if with_pi:
-            return estep_fixed_point_pi_plain(
-                *args, block_b=block_b, stream_dtype=stream_dtype,
-                quantize=quantize)
-        return (*estep_fixed_point_plain(*args, block_b=block_b,
-                                         stream_dtype=stream_dtype), None)
+            return estep_fixed_point_pi_plain(*args, quantize=quantize, **kw)
+        return (*estep_fixed_point_plain(*args, **kw), None)
     lib = build.load()
-    nb = -(-b // block_b)
     gamma = torch.empty_like(gamma0)
     et = torch.empty_like(gamma0)
     iters = torch.empty(nb, dtype=torch.int32, device=gamma0.device)
@@ -269,7 +294,7 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
           if with_pi else None)
     if b == 0:
         return gamma, et, iters, pi
-    _check_fixed_point_smem(lib, "estep_fixed_point", b, k, block_b)
+    _check_fixed_point_smem(lib, "estep_fixed_point", b, k, block_b, group)
     delta = torch.empty(2 * b, dtype=torch.float32, device=gamma0.device)
     # the sweeps' inputs as the stream rounds them (one cast each per call)
     sweep_counts = stream_round(counts, stream_dtype)
@@ -279,7 +304,7 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
         sweep_counts.data_ptr(), sweep_eb.data_ptr(), gamma0.data_ptr(),
         gamma.data_ptr(), et.data_ptr(), delta.data_ptr(), iters.data_ptr(),
         _ptr(pi), b, l, k, float(alpha0), float(tol),
-        max(int(max_iters), 1), block_b, int(bool(quantize)),
+        max(int(max_iters), 1), block_b, group, int(bool(quantize)),
         _stream(gamma0))
     build.check(rc, "lda_fixed_point")
     LAUNCHES["fixed_point"] += 1
@@ -670,7 +695,7 @@ def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
     if t >= 2 ** 31:
         raise ValueError(f"estep_fixed_point_csr: {t} slots exceed the "
                          "kernel's 2^31")
-    _check_fixed_point_smem(lib, "estep_fixed_point_csr", b, k, b)
+    _check_fixed_point_smem(lib, "estep_fixed_point_csr", b, k, b, b)
     order, offsets = csr_doc_ranges(counts, segments, b)
     # the sweeps read each document's tokens as one contiguous run
     ids_sorted, cnts_sorted = token_ids[order], counts[order]

@@ -77,16 +77,18 @@ def _fixed_point_start(cfg: LDAConfig, num_docs: int, device,
 
 def _run_fixed_point(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                      token_ids: torch.Tensor, counts: torch.Tensor,
-                     gamma0: Optional[torch.Tensor], quantize: bool):
-    """γ₀ default, then K1 with the policy's stopping tile and its π
-    finish. Returns (γ, the most sweeps of any tile, π)."""
+                     gamma0: Optional[torch.Tensor], quantize: bool,
+                     group: Optional[int] = None):
+    """γ₀ default, then K1 with the policy's stopping tile (cut within
+    groups of ``group`` rows) and its π finish. Returns (γ, the most sweeps
+    of any tile, π)."""
     gamma0 = _fixed_point_start(cfg, token_ids.shape[0],
                                 exp_elog_beta.device, gamma0)
     gamma, _, iters, pi = lda_estep.estep_fixed_point_pi(
         token_ids, counts, exp_elog_beta, gamma0, cfg.alpha0,
         cfg.estep_tol, cfg.estep_max_iters,
         block_b=resolve_policy(cfg).block_b,
-        stream_dtype=cfg.estep_stream_dtype, quantize=quantize)
+        stream_dtype=cfg.estep_stream_dtype, quantize=quantize, group=group)
     return gamma, iters.max(), pi
 
 
@@ -120,19 +122,23 @@ def estep_gamma_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
 def memo_correction_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                          token_ids: torch.Tensor, counts: torch.Tensor,
                          old_pi: torch.Tensor, visited: torch.Tensor, *,
-                         pi_dtype: str = "float32"
+                         pi_dtype: str = "float32",
+                         group: Optional[int] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, EStepResult]:
     """The IVI hot path: E-step plus the subtract-old/add-new correction.
 
     Returns (correction (V, K), first-visit word count, EStepResult), the
     ``EStepBackend.solve_correction`` contract; the correction is
-    ``S_new − S_old`` from the scatter.
+    ``S_new − S_old`` from the scatter. With ``group`` the rows are
+    B / group batches stacked (``solve_correction_grouped``): K1 stops
+    each group's tiles on their own, and the one scatter sums every
+    group's correction.
     """
     _check_pi_dtype(pi_dtype)
     gamma0 = warm_start_gamma(cfg, counts, old_pi, visited)
     gamma, iters, pi = _run_fixed_point(cfg, exp_elog_beta, token_ids,
                                         counts, gamma0,
-                                        pi_dtype == "bfloat16")
+                                        pi_dtype == "bfloat16", group)
     k = pi.shape[-1]
     snew, sold = lda_estep.segment_scatter(
         token_ids.reshape(-1), counts.reshape(-1), pi.reshape(-1, k),

@@ -1,6 +1,7 @@
-"""Training launcher of the port: MVI / SVI / IVI / S-IVI on a synthetic
-paper-shaped corpus, with periodic held-out LPP, through the
-`repro_torch.lda.LDA` facade.
+"""Training launcher of the port: MVI / SVI / IVI / S-IVI, or D-IVI with
+P simulated workers (``--algo divi --workers --staleness --delay-prob
+--rounds``), on a synthetic paper-shaped corpus, with periodic held-out
+LPP, through the `repro_torch.lda.LDA` facade.
 
 It prints the memo store's footprint, the length buckets' padding
 (``--bucketed``) and, with any telemetry flag (``--trace``,
@@ -26,6 +27,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
       --topics 8 --algo sivi --memo-store gamma --watchdog warn \\
       --trace run.jsonl --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
+      --topics 8 --algo divi --workers 4 --batch 16 --rounds 10 \\
+      --eval-every 5 --device cpu
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import time
 def main_lda(args) -> None:
     from repro_torch.core.types import LDAConfig, resolve_device
     from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+    from repro_torch.dist import DIVIConfig
     from repro_torch.lda import LDA
 
     tel = _build_telemetry(args)
@@ -57,14 +62,31 @@ def main_lda(args) -> None:
         cfg = LDAConfig(num_topics=args.topics, vocab_size=spec.vocab_size,
                         estep_max_iters=args.estep_iters,
                         estep_backend=args.backend)
-        lda = LDA(cfg, algo=args.algo, batch_size=args.batch,
-                  seed=args.seed, memo_store=args.memo_store,
-                  chunk_docs=args.chunk_docs,
-                  bucket_by_length=args.bucketed, telemetry=tel,
-                  device=device)
+        if args.algo == "divi":
+            lda = LDA(cfg, algo="divi",
+                      distributed=DIVIConfig(num_workers=args.workers,
+                                             batch_size=args.batch,
+                                             staleness=args.staleness,
+                                             delay_prob=args.delay_prob),
+                      seed=args.seed, telemetry=tel, device=device)
+        else:
+            lda = LDA(cfg, algo=args.algo, batch_size=args.batch,
+                      seed=args.seed, memo_store=args.memo_store,
+                      chunk_docs=args.chunk_docs,
+                      bucket_by_length=args.bucketed, telemetry=tel,
+                      device=device)
         # bind the corpus without stepping, so the memo is reportable
         lda.partial_fit(train, steps=0, test_corpus=test)
     eng = lda.trainer.eng
+    if lda.distributed is not None:
+        shard = eng.shard
+        print(f"workers={lda.distributed.num_workers} "
+              f"shards={eng.sharded.shard_sizes} memo_footprint="
+              f"{(shard.pi.numel() * 4 + shard.visited.numel()) / 1e6:.2f}MB")
+        lda.fit(rounds=args.rounds, eval_every=args.eval_every,
+                verbose=True)
+        _finish(lda, tel, args)
+        return
     if eng.memo is not None:
         print(f"memo_store={eng.memo.kind} "
               f"footprint={eng.memo.footprint_bytes() / 1e6:.2f}MB")
@@ -81,6 +103,11 @@ def main_lda(args) -> None:
             lpp = lda.evaluate()["lpp"]
             print(f"epoch={epoch} docs_seen={lda.docs_seen} lpp={lpp:.4f} "
                   f"wall={time.perf_counter() - t0:.2f}s")
+    _finish(lda, tel, args)
+
+
+def _finish(lda, tel, args) -> None:
+    """The end of a run: the bound, the telemetry summary, the checkpoint."""
     if args.bound:
         print("final exact bound:", lda.bound())
     if tel is not None:
@@ -106,7 +133,8 @@ def _report_telemetry(tel, args) -> None:
     m, wd = tel.metrics, tel.watchdog
     tokens = m.total("train.tokens")
     wall = sum(r["dur_us"] for r in tel.trace.records
-               if r["type"] == "span" and r["name"] == "train/update") / 1e6
+               if r["type"] == "span"
+               and r["name"] in ("train/update", "divi/round")) / 1e6
     rate = f"{tokens / wall:,.0f} tok/s" if wall > 0 else "n/a"
     st = wd.status()
     wd_line = ("off" if not st["enabled"] else
@@ -128,12 +156,20 @@ def main() -> None:
     sub = ap.add_subparsers(dest="mode", required=True)
     lda = sub.add_parser("lda")
     lda.add_argument("--algo", default="ivi",
-                     choices=["mvi", "svi", "ivi", "sivi"])
+                     choices=["mvi", "svi", "ivi", "sivi", "divi"])
     lda.add_argument("--corpus", default="small")
     lda.add_argument("--scale", type=float, default=1.0)
     lda.add_argument("--topics", type=int, default=50)
     lda.add_argument("--batch", type=int, default=32)
     lda.add_argument("--epochs", type=int, default=5)
+    lda.add_argument("--rounds", type=int, default=50,
+                     help="global rounds of --algo divi")
+    lda.add_argument("--workers", type=int, default=4,
+                     help="D-IVI workers, simulated on the one device")
+    lda.add_argument("--staleness", type=int, default=1,
+                     help="D-IVI sub-rounds a round (parameter lag)")
+    lda.add_argument("--delay-prob", type=float, default=0.0,
+                     help="probability a D-IVI worker drops a sub-round")
     lda.add_argument("--estep-iters", type=int, default=60)
     lda.add_argument("--backend", default="cuda",
                      choices=["cuda", "gather", "dense"])

@@ -1,9 +1,8 @@
 """``repro_torch.lda``: the public estimator API, as ``repro.lda``.
 
 One facade (``LDA``) for train / resume / serve over the single-host
-engines (MVI, SVI, IVI, S-IVI), with ``repro``'s checkpoints. The D-IVI
-names are present and raise until D-IVI is ported (ROADMAP §1 item 6).
-``__all__`` is ``repro.lda``'s.
+engines (MVI, SVI, IVI, S-IVI) and D-IVI (P workers simulated on one
+device), with ``repro``'s checkpoints. ``__all__`` is ``repro.lda``'s.
 """
 from repro_torch.lda.api import LDA
 from repro_torch.lda.ckpt import (SCHEMA_VERSION, load_lda_checkpoint,

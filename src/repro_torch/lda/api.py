@@ -12,17 +12,19 @@ verbs and refusals:
     theta = lda.transform(unseen)                               # serve
 
 Training goes through a ``Trainer`` (`repro_torch.lda.trainer`) over
-``LDAEngine``, so a facade run is bit-equal to driving the engine with
-the same seed and λ₀. Serving goes through `repro_torch.lda.infer`;
-checkpoints are ``repro``'s manifests (`repro_torch.lda.ckpt`), so each
-package resumes the other's.
+``LDAEngine``, or over ``DIVIEngine`` for D-IVI (``algo="divi"`` or
+``distributed=DIVIConfig(...)``: P workers simulated on one device, a
+round a step, ``fit(rounds=)``), so a facade run is bit-equal to driving
+the engine with the same seed and λ₀. Serving goes through
+`repro_torch.lda.infer`; checkpoints are ``repro``'s manifests
+(`repro_torch.lda.ckpt`), so each package resumes the other's.
 
 The facade runs on ``device`` (the card unless the caller names another).
 λ₀ is drawn from a ``torch.Generator``, which cannot reproduce
 ``repro``'s ``jax.random`` draw: to start both packages from one point,
-load a ``repro`` checkpoint or hand λ₀ to ``warm_start``. D-IVI
-(``algo="divi"``, ``distributed=``) raises until ROADMAP §1 item 6, and
-``mesh``/``data_axes`` until ``sharding/`` is ported.
+load a ``repro`` checkpoint or hand λ₀ to ``warm_start`` (single-host
+engines). ``mesh``/``data_axes`` (D-IVI over several cards) raise until
+ROADMAP §1 item 11, ``tune_store`` until item 8.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from repro_torch.core.metrics import top_words as _top_words
 from repro_torch.core.predictive import log_predictive, split_heldout
 from repro_torch.core.types import (Corpus, GlobalState, LDAConfig,
                                     resolve_device)
-from repro_torch.dist.protocol import DIVIConfig, not_ported
+from repro_torch.dist.engine import mesh_not_ported
+from repro_torch.dist.protocol import DIVIConfig
 from repro_torch.lda.infer import TopicInferencer
 from repro_torch.lda.trainer import Trainer, make_trainer
 from repro_torch.obs import as_telemetry
@@ -50,9 +53,11 @@ class LDA:
 
     Args:
       cfg: an ``LDAConfig``, or its fields as keyword arguments.
-      algo: ``"mvi" | "svi" | "ivi" | "sivi"``; ``"divi"`` (S-IVI under
-        the distributed protocol) is refused until D-IVI is ported.
-      distributed: a ``DIVIConfig``; refused likewise.
+      algo: ``"mvi" | "svi" | "ivi" | "sivi" | "divi"``; ``"divi"`` is
+        S-IVI under the distributed protocol (``algo="sivi",
+        distributed=DIVIConfig()``).
+      distributed: a ``DIVIConfig`` to train with D-IVI's P workers,
+        simulated on ``device``.
       backend: E-step backend override (``gather | dense | cuda | csr``).
       memo_store / chunk_docs: the π memo of the incremental engines
         (``dense | chunked | gamma``).
@@ -60,7 +65,8 @@ class LDA:
       layout / token_budget: ``"padded"`` batches, or ``"csr"`` flat token
         batches of ``token_budget`` slots (a padded ``Corpus`` is then
         streamed).
-      mesh / data_axes: refused until ``sharding/`` is ported.
+      mesh / data_axes: D-IVI over several cards; refused until ROADMAP
+        §1 item 11.
       telemetry: `repro_torch.obs` (None/False off, True defaults, or a
         ``Telemetry``), threaded through the trainer, the engine, the
         packer and the inferencers this estimator makes.
@@ -95,16 +101,14 @@ class LDA:
             raise ValueError("bucket_by_length is the padded layout's "
                              "padding mitigation; layout='csr' has no "
                              "width buckets to begin with")
+        if algo == "divi" and distributed is None:
+            distributed = DIVIConfig()
         if distributed is not None and algo not in ("sivi", "divi"):
             raise ValueError(
                 f"distributed training runs the S-IVI update (eq. 5): "
                 f"algo={algo!r} is incompatible; use algo='sivi' or 'divi'")
-        if algo == "divi" or distributed is not None:
-            raise not_ported()
         if mesh is not None or data_axes is not None:
-            raise NotImplementedError(
-                "mesh / data_axes: sharding/ is not ported to repro_torch "
-                "yet (ROADMAP §1 item 10)")
+            raise mesh_not_ported()
         if tune_store is not None:
             raise NotImplementedError(
                 "tune_store: the policy tuner is not ported to repro_torch "
@@ -137,14 +141,28 @@ class LDA:
 
     def _coerce_data(self, data):
         """A padded ``Corpus`` (streamed under ``layout='csr'``), a
-        ``DocStream``, or any iterable of documents (wrapped as a stream)."""
+        ``DocStream``, a pre-dealt ``ShardedDocStream`` (D-IVI), or any
+        iterable of documents (wrapped as a stream)."""
         if data is None:
             return data
         from repro_torch.data.stream import (CorpusDocStream, ListDocStream,
-                                             is_doc_stream)
+                                             ShardedDocStream, is_doc_stream)
         if isinstance(data, Corpus):
             if self.layout == "csr":
                 return CorpusDocStream(data, vocab_size=self.cfg.vocab_size)
+            return data
+        if isinstance(data, ShardedDocStream):
+            # already dealt into worker views: the distributed engine takes
+            # it as it is (it is no DocStream itself: it has no cursor)
+            if self.distributed is None:
+                raise ValueError(
+                    "a ShardedDocStream is the distributed ingest form; "
+                    "single-host training takes the base DocStream (pass "
+                    "sharded.base, or set distributed=DIVIConfig(...))")
+            if data.vocab_size > self.cfg.vocab_size:
+                raise ValueError(
+                    f"stream vocab_size {data.vocab_size} exceeds the "
+                    f"model's {self.cfg.vocab_size}")
             return data
         if is_doc_stream(data):
             if data.vocab_size > self.cfg.vocab_size:
@@ -197,26 +215,31 @@ class LDA:
             rounds: Optional[int] = None,
             test_corpus: Optional[Corpus] = None, eval_every: int = 0,
             verbose: bool = False) -> "LDA":
-        """Train ``epochs`` full passes; repeated calls continue on the
-        bound corpus. ``corpus``: a padded ``Corpus``, a ``DocStream`` (one
-        pass over it per epoch) or an iterable of documents."""
+        """Train ``epochs`` full passes (single host) or ``rounds`` global
+        rounds (D-IVI; ``epochs`` when unset); repeated calls continue on
+        the bound corpus. ``corpus``: a padded ``Corpus``, a ``DocStream``
+        (one pass over it per epoch) or an iterable of documents."""
         tr = self._bind(corpus, test_corpus)
-        if rounds is not None:
+        if rounds is not None and self.distributed is None:
             raise ValueError("rounds= applies to distributed training; "
                              "single-host engines take epochs=")
-        for i in range(epochs):
+        n = (rounds if rounds is not None else epochs) \
+            if self.distributed is not None else epochs
+        unit = "round" if self.distributed is not None else "epoch"
+        for i in range(n):
             tr.run_pass()
             if eval_every and (i + 1) % eval_every == 0:
                 ev = tr.evaluate()
                 if verbose:
                     metrics = " ".join(f"{k}={v:.4f}"
                                        for k, v in sorted(ev.items()))
-                    print(f"epoch={i + 1} docs={tr.docs_seen} {metrics}")
+                    print(f"{unit}={i + 1} docs={tr.docs_seen} {metrics}")
         return self
 
     def partial_fit(self, corpus=None, *, steps: int = 1,
                     test_corpus: Optional[Corpus] = None) -> "LDA":
-        """Run ``steps`` mini-batches (the smallest resumable unit)."""
+        """Run ``steps`` smallest resumable units (mini-batches; D-IVI:
+        rounds)."""
         tr = self._bind(corpus, test_corpus)
         for _ in range(steps):
             tr.run_step()
@@ -234,6 +257,10 @@ class LDA:
         ``lda.partial_fit(corpus, steps=0)``.
         """
         tr = self._require_trainer()
+        if tr.kind != "single":
+            raise ValueError("warm_start drives the single-host incremental "
+                             "engines; seed a distributed run by "
+                             "checkpointing instead")
         if int(tr.state.t) != 0 or tr.docs_seen:
             raise ValueError(
                 "warm_start needs an untrained estimator: this one has "
@@ -259,9 +286,7 @@ class LDA:
         that never stopped. The corpus is data, not state: it is not in
         the checkpoint and must be passed again."""
         if mesh is not None or data_axes is not None:
-            raise NotImplementedError(
-                "mesh / data_axes: sharding/ is not ported to repro_torch "
-                "yet (ROADMAP §1 item 10)")
+            raise mesh_not_ported()
         if self._pending_restore is None:
             raise ValueError(
                 "nothing to resume: this estimator was not produced by "
@@ -355,7 +380,9 @@ class LDA:
         tr = self._require_trainer()
         b = tr.full_bound()
         eng = tr.eng
-        if (eng.tel.enabled and eng.tel.watchdog.enabled
+        # D-IVI averages the guarantee away: its readings are never armed
+        if (tr.kind == "single" and eng.tel.enabled
+                and eng.tel.watchdog.enabled
                 and eng.algo in ("ivi", "sivi")):
             eng.tel.watchdog.observe(b, step=eng._updates,
                                      armed=eng._watchdog_armed())

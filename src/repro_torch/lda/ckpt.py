@@ -4,14 +4,18 @@ by the port.
 A saved ``LDA`` is one manifest directory (`repro_torch.checkpoint`):
 
     meta.constructor   everything needed to rebuild the facade: the
-                       LDAConfig fields, algo, the DIVIConfig (null), batch
-                       size, seed, memo store, bucketing, layout, budget;
+                       LDAConfig fields, algo, the DIVIConfig (or null),
+                       batch size, seed, memo store, bucketing, layout,
+                       budget;
     meta.trainer       the Trainer's meta: rng bit-generator state,
                        docs_seen, history, the pending epoch's widths, the
                        stream cursor and the packer's open documents;
     state.npz          λ, ⟨m_vk⟩, init_mass, init_frac, t;
     memo.npz           the memo store's state in its wire dtype (bf16
-                       chunks and snapshots tagged "bfloat16");
+                       chunks and snapshots tagged "bfloat16"), or the
+                       D-IVI worker memos (W, D_w, L, K);
+    ingest.npz         D-IVI: each worker packer's open documents (the
+                       cursors are in meta.trainer);
     pending.npz / mvi.npz / stream.npz
                        the epoch remainder, the MVI γ buffer, the stream's
                        open documents and emitted batches.
@@ -91,7 +95,8 @@ def save_lda_checkpoint(path: str, lda) -> str:
         "constructor": {
             "cfg": _cfg_to_repro(lda.cfg),
             "algo": lda.algo,
-            "distributed": None,
+            "distributed": (dataclasses.asdict(lda.distributed)
+                            if lda.distributed is not None else None),
             "batch_size": lda.batch_size,
             "seed": lda.seed,
             "memo_store": lda.memo_store,

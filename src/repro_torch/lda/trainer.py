@@ -3,8 +3,8 @@
 The port's counterpart of ``repro.lda.trainer``. The facade
 (`repro_torch.lda.api.LDA`) drives a ``Trainer`` and never an engine:
 
-* ``run_pass()``: one full unit of cover, an epoch;
-* ``run_step()``: the smallest resumable unit, one mini-batch;
+* ``run_pass()``: one full unit of cover, an epoch (D-IVI: a round);
+* ``run_step()``: the smallest resumable unit, one mini-batch (a round);
 * ``capture()`` / ``restore()``: the trainer's full durable state as
   (json-able meta, named array groups) for `repro_torch.checkpoint`.
 
@@ -14,8 +14,8 @@ the unvisited remainder of the current epoch (for a stream, the cursor,
 the packer's open documents and the emitted batches). ``capture`` writes
 all of it under ``repro``'s keys and meta, so save → load → resume is
 bit-equal to a run that never stopped, and each package resumes the
-other's checkpoints. Only ``SingleHostTrainer`` is ported; D-IVI
-(``DIVITrainer``) raises until ROADMAP §1 item 6.
+other's checkpoints. ``DIVITrainer``'s state adds the worker memo shards,
+every worker's ingest cursor and the shard assignment.
 """
 from __future__ import annotations
 
@@ -26,12 +26,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.bound import _memoized_doc_terms, _topics_term
 from repro_torch.core.engines import History, LDAEngine
+from repro_torch.core.math import dirichlet_expectation
 from repro_torch.core.memo import bits_as_bf16
-from repro_torch.core.predictive import split_heldout
+from repro_torch.core.predictive import log_predictive, split_heldout
 from repro_torch.core.types import Corpus, GlobalState, LDAConfig
-from repro_torch.data.stream import CSRBatch, PackedBatch
-from repro_torch.dist.protocol import DIVIConfig, not_ported
+from repro_torch.data.stream import CSRBatch, PackedBatch, iter_padded_chunks
+from repro_torch.dist.engine import DIVIEngine
+from repro_torch.dist.protocol import DIVIConfig
 
 _STATE_FIELDS = ("lam", "m_vk", "init_mass", "init_frac", "t")
 
@@ -317,13 +320,150 @@ class SingleHostTrainer(Trainer):
 
 
 class DIVITrainer(Trainer):
-    """D-IVI behind the Trainer contract: not ported yet (ROADMAP §1 item
-    6); constructing one raises."""
+    """``DIVIEngine`` behind the Trainer contract.
+
+    One pass is one global round (``staleness`` sub-rounds of P concurrent
+    worker batches), and so is a step. ``data`` is anything the engine
+    takes: a padded ``Corpus``, any ``DocStream``, or a pre-built
+    ``ShardedDocStream``. The durable state adds the worker memo shards
+    and every worker's ingest (its cursor, pass count and the packer's
+    open documents) to the global leaves, under ``repro``'s keys, so a save
+    mid-pass resumes bit-equal and each package resumes the other's.
+    ``restore`` refuses a checkpoint whose shard assignment (worker count,
+    partitioner, seed, corpus size) is not the live engine's.
+    """
 
     kind = "divi"
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("DIVITrainer")
+    def __init__(self, cfg: LDAConfig, dcfg: DIVIConfig, data, *,
+                 seed: int = 0, test_corpus: Optional[Corpus] = None,
+                 mesh=None, data_axes=None, telemetry=None, device=None):
+        self.cfg, self.dcfg = cfg, dcfg
+        self.algo = "sivi"          # D-IVI is the eq. 5 protocol distributed
+        self.eng = DIVIEngine(cfg, dcfg, data, seed=seed, mesh=mesh,
+                              data_axes=data_axes, telemetry=telemetry,
+                              device=device)
+        self.history = History()
+        self._t0 = time.perf_counter()
+        if test_corpus is not None:
+            self.set_test_corpus(test_corpus, seed=seed)
+        else:
+            self._obs = self._held = None
+
+    @property
+    def state(self) -> GlobalState:
+        return self.eng.state
+
+    @property
+    def docs_seen(self) -> int:
+        return self.eng.docs_seen
+
+    def run_step(self) -> None:
+        self.eng.run_round()
+
+    run_pass = run_step
+
+    def evaluate(self) -> Dict[str, float]:
+        """Held-out LPP with a test corpus, else the memoized corpus bound
+        (``full_bound``)."""
+        out: Dict[str, float] = {}
+        if self._obs is not None:
+            out["lpp"] = float(log_predictive(self.cfg, self.eng.lam,
+                                              self._obs, self._held))
+            self.history.lpp.append(out["lpp"])
+        else:
+            out["elbo"] = self.full_bound()
+            self.history.elbo.append(out["elbo"])
+        self.history.docs_seen.append(self.docs_seen)
+        self.history.wall.append(time.perf_counter() - self._t0)
+        return out
+
+    def set_test_corpus(self, corpus: Corpus, *, seed: int = 0) -> None:
+        self._obs, self._held = split_heldout(corpus.to(self.eng.device),
+                                              seed=seed)
+
+    def full_bound(self) -> float:
+        """The memoized corpus ELBO over the worker memos, shard by shard:
+        each worker's documents are read back through its shard view in
+        chunks (`data.stream.iter_padded_chunks`) beside its memo rows, and
+        the topics term enters once. Every document lies in one shard, so
+        the bound covers the whole corpus."""
+        eng = self.eng
+        lam = eng.state.lam
+        elog_beta = dirichlet_expectation(lam, axis=0)
+        total = 0.0
+        for w, ing in enumerate(eng.ingest):
+            for start, ids, cnts in iter_padded_chunks(ing.stream, 512,
+                                                       eng.max_unique):
+                pi = eng.shard.pi[w, start:start + ids.shape[0]]
+                ids_t = torch.from_numpy(ids).to(lam.device)
+                cnts_t = torch.from_numpy(cnts).to(lam.device)
+                gamma = self.cfg.alpha0 + torch.einsum("blk,bl->bk", pi,
+                                                       cnts_t)
+                total += float(_memoized_doc_terms(self.cfg, ids_t, cnts_t,
+                                                   gamma, pi, elog_beta))
+        return total + float(_topics_term(self.cfg, lam))
+
+    def capture(self):
+        eng = self.eng
+        ingest_meta, ingest_arrays = [], {}
+        for w, ing in enumerate(eng.ingest):
+            m, arrs = ing.capture()
+            ingest_meta.append(m)
+            for k, v in arrs.items():
+                ingest_arrays[f"w{w:03d}_{k}"] = v
+        meta: Dict[str, Any] = {
+            "kind": self.kind,
+            "algo": "divi",
+            "docs_seen": eng.docs_seen,
+            "rng": eng.rng.bit_generator.state,
+            "history": dataclasses.asdict(self.history),
+            "wall_elapsed": time.perf_counter() - self._t0,
+            # the shard assignment this state belongs to: restore refuses
+            # any other
+            "sharding": eng.sharded.signature(),
+            "ingest": ingest_meta,
+        }
+        arrays = {
+            "state": _capture_state(eng.state),
+            "memo": {"pi": eng.shard.pi.to("cpu", copy=True).numpy(),
+                     "visited": eng.shard.visited.to("cpu",
+                                                     copy=True).numpy()},
+            "ingest": ingest_arrays,
+        }
+        return meta, arrays
+
+    def restore(self, meta, arrays) -> None:
+        if meta["algo"] != "divi":
+            raise ValueError(f"checkpoint algo {meta['algo']!r} is not a "
+                             "D-IVI checkpoint")
+        eng = self.eng
+        if "sharding" not in meta:
+            raise ValueError(
+                "D-IVI checkpoint predates streaming shards (no shard "
+                "assignment recorded): it cannot be resumed by this "
+                "version; retrain or restore with the version that wrote it")
+        eng.sharded.check_signature(meta["sharding"])
+        memo = arrays["memo"]
+        pi = np.asarray(memo["pi"])
+        if pi.shape != tuple(eng.shard.pi.shape):
+            raise ValueError(f"worker memo: checkpoint shape {pi.shape} != "
+                             f"live {tuple(eng.shard.pi.shape)}: the "
+                             "checkpoint belongs to a different "
+                             "corpus/config")
+        for w, (ing, m) in enumerate(zip(eng.ingest, meta["ingest"])):
+            prefix = f"w{w:03d}_"
+            ing.restore(m, {k[len(prefix):]: v
+                            for k, v in arrays.get("ingest", {}).items()
+                            if k.startswith(prefix)})
+        _restore_state(arrays["state"], eng.state)
+        eng.shard.pi.copy_(torch.from_numpy(np.array(pi, dtype=np.float32)))
+        eng.shard.visited.copy_(torch.from_numpy(
+            np.array(memo["visited"], dtype=bool)))
+        eng.rng.bit_generator.state = meta["rng"]
+        eng.docs_seen = int(meta["docs_seen"])
+        self.history = History(**meta["history"])
+        self._t0 = time.perf_counter() - float(meta["wall_elapsed"])
 
 
 def make_trainer(cfg: LDAConfig, corpus, *, algo: str,
@@ -332,12 +472,20 @@ def make_trainer(cfg: LDAConfig, corpus, *, algo: str,
                  test_corpus: Optional[Corpus] = None,
                  memo_store: str = "dense", chunk_docs: int = 8192,
                  bucket_by_length: bool = False, layout: str = "padded",
-                 token_budget: Optional[int] = None, telemetry=None,
-                 device=None) -> Trainer:
-    """Bind a corpus (or ``DocStream``) to its Trainer. ``distributed``
-    raises until D-IVI is ported."""
+                 token_budget: Optional[int] = None, mesh=None,
+                 data_axes=None, telemetry=None, device=None) -> Trainer:
+    """Bind a corpus (or ``DocStream``) to its Trainer: ``DIVITrainer``
+    with ``distributed`` (any data source: D-IVI shards a stream into
+    worker views, a padded ``Corpus`` is wrapped on the way in), else
+    ``SingleHostTrainer``."""
     if distributed is not None:
-        raise not_ported()
+        if layout != "padded":
+            raise ValueError("distributed training packs padded worker "
+                             "batches; layout='csr' is single-host only")
+        return DIVITrainer(cfg, distributed, corpus, seed=seed,
+                           test_corpus=test_corpus, mesh=mesh,
+                           data_axes=data_axes, telemetry=telemetry,
+                           device=device)
     return SingleHostTrainer(cfg, corpus, algo=algo, batch_size=batch_size,
                              seed=seed, test_corpus=test_corpus,
                              memo_store=memo_store, chunk_docs=chunk_docs,

@@ -295,8 +295,9 @@ def test_refusals(tmp_path, corpora):
         LDA(_cfg(), num_topics=8, device=CPU)
     with pytest.raises(ValueError, match="unknown algo"):
         LDA(_cfg(), algo="vb", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        LDA(_cfg(), algo="divi", device=CPU)
+    assert LDA(_cfg(), algo="divi", device=CPU).distributed == DIVIConfig()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        LDA(_cfg(), algo="divi", mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="sharding"):
         LDA(_cfg(), mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -309,7 +310,10 @@ def test_refusals(tmp_path, corpora):
 
 
 def test_repro_divi_checkpoint_refuses(tmp_path, corpora):
-    jtrain, _, _ = corpora
+    """A ``repro`` D-IVI checkpoint loads in the port (its DIVIConfig in
+    the constructor), and what the port still refuses is refused: another
+    corpus (a foreign shard assignment) and a mesh (ROADMAP §1 item 11)."""
+    jtrain, train, test = corpora
     jcfg = JConfig(num_topics=4, vocab_size=SPEC.vocab_size,
                    estep_max_iters=10)
     from repro.dist import DIVIConfig as JDIVIConfig
@@ -317,8 +321,13 @@ def test_repro_divi_checkpoint_refuses(tmp_path, corpora):
     JLDA(jcfg, algo="divi", distributed=JDIVIConfig(num_workers=2,
                                                     batch_size=8)).fit(
         jtrain, rounds=1).save(path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        LDA.load(path, device=CPU)
+    loaded = LDA.load(path, device=CPU)
+    assert loaded.distributed == DIVIConfig(num_workers=2, batch_size=8)
+    with pytest.raises(ValueError, match="num_docs"):
+        loaded.resume(test)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        loaded.resume(train, mesh=object())
+    assert loaded.resume(train).docs_seen == 16
 
 
 def test_launcher_ckpt_then_resume_equals_one_run(tmp_path, monkeypatch):

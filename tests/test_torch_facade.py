@@ -181,7 +181,7 @@ def test_facade_views_and_metrics(corpora):
 
 def test_public_api_surface_matches_repro():
     """``repro_torch.lda.__all__`` is ``repro.lda``'s; the D-IVI names are
-    present and raise."""
+    present, and only their multi-card path (a mesh) raises."""
     import repro.lda as jpkg
     import repro_torch.lda as pkg
     from repro_torch.lda import DIVITrainer, make_trainer
@@ -189,8 +189,12 @@ def test_public_api_surface_matches_repro():
     assert set(pkg.__all__) == set(jpkg.__all__)
     for name in pkg.__all__:
         assert getattr(pkg, name) is not None
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DIVITrainer()
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_trainer(cfg, None, algo="sivi", distributed=DIVIConfig())
+    corpus = make_corpus(PAPER_CORPORA["tiny"], seed=0, device="cpu")
+    tr = make_trainer(cfg, corpus, algo="sivi",
+                      distributed=DIVIConfig(num_workers=2, batch_size=8),
+                      device="cpu")
+    assert isinstance(tr, DIVITrainer) and tr.kind == "divi"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        make_trainer(cfg, corpus, algo="sivi", distributed=DIVIConfig(),
+                     mesh=object(), device="cpu")

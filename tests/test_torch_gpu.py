@@ -107,7 +107,7 @@ def test_fixed_point_kernel_loops_over_the_grid(path_inputs):
     b = 4100
     rows = torch.arange(b, device=eb.device) % B
     big_ids, big_cnts = ids[rows].contiguous(), cnts[rows].contiguous()
-    blocks = build.load().lda_fixed_point_blocks(b, L, K, 128)
+    blocks = build.load().lda_fixed_point_blocks(b, L, K, 128, b)
     assert 0 < blocks * 2 < b   # 4 warps per document at L = 163, 8 a block
     gamma0 = (1.0 + torch.rand((b, K), device=eb.device,
                                generator=torch.Generator(eb.device)
@@ -310,7 +310,7 @@ def test_csr_fixed_point_kernel_loops_over_the_grid(path_inputs):
     b = 4100
     rows = torch.arange(b, device=eb.device) % B
     flat = _flat_rows(ids[rows], cnts[rows], 128 * b)
-    blocks = build.load().lda_fixed_point_blocks(b, 128, K, b)
+    blocks = build.load().lda_fixed_point_blocks(b, 128, K, b, b)
     assert 0 < blocks * 2 < b   # 4 warps per document, 2 a block
     gamma0 = (1.0 + torch.rand((b, K), device=eb.device,
                                generator=torch.Generator(eb.device)
@@ -990,3 +990,83 @@ def test_fixed_point_refuses_past_shared_memory(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         lda_estep.estep_fixed_point_csr(ids.reshape(-1), cnts.reshape(-1),
                                         segs, eb, g0, 0.5, 1e-4, 5)
+
+
+@pytest.mark.parametrize("group", [1024, 1000, 12])
+def test_grouped_fixed_point_equals_one_launch_a_group(path_inputs, group):
+    """K1 with its stop tiles cut within groups (D-IVI stacks its live
+    workers' batches into one launch, one group a worker): each group's γ,
+    Eθ, tile sweeps and π bit-equal to that group launched alone (a
+    document's bits depend on its own rows and its tile's stop only), and
+    the whole against the twin's loop over the groups at K1's bars. The
+    even groups start warm and the odd ones cold, so the groups stop at
+    different sweeps; at B = 1,000 and 12 a 128-row tile would straddle
+    two groups."""
+    ids, cnts, eb = path_inputs
+    n = 4
+    rows = torch.arange(n * group, device=eb.device) % B
+    gids, gcnts = ids[rows].contiguous(), cnts[rows].contiguous()
+    cold = torch.full((n * group, K), 1.5, device=eb.device)
+    near = lda_estep.estep_fixed_point_plain(gids, gcnts, eb, cold, 0.5, 0.0,
+                                             30, group=group)[0]
+    even = (torch.arange(n * group, device=eb.device) // group) % 2 == 0
+    gamma0 = torch.where(even[:, None], near, cold).contiguous()
+    args = (gids, gcnts, eb, gamma0, 0.5, 0.028, 60)
+    got = lda_estep.estep_fixed_point_pi(*args, group=group)
+    tiles = -(-group // 128)
+    assert got[2].shape == (n * tiles,)
+    for w in range(n):
+        sl = slice(w * group, (w + 1) * group)
+        alone = lda_estep.estep_fixed_point_pi(
+            gids[sl], gcnts[sl], eb, gamma0[sl].contiguous(), *args[4:])
+        for x, y in zip((got[0][sl], got[1][sl], got[3][sl]),
+                        (alone[0], alone[1], alone[3])):
+            assert torch.equal(x, y)
+        assert torch.equal(got[2][w * tiles:(w + 1) * tiles], alone[2])
+    pg, pet, pit, ppi = lda_estep.estep_fixed_point_pi_plain(*args,
+                                                             group=group)
+    torch.cuda.synchronize()
+    assert int((got[2] - pit).abs().max()) <= 1
+    torch.testing.assert_close(got[0], pg, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got[3], ppi, rtol=2e-3, atol=1e-4)
+    assert len(set(got[2].tolist())) >= 2, got[2]
+
+
+def test_divi_round_on_card_matches_gather(cuda):
+    """D-IVI on the card (P = 4, B = 12, S = 2, each worker dropping a
+    sub-round with probability 0.5; seed 8 drops every worker of one
+    sub-round) against the same engine on the gather backend, which runs
+    the workers one at a time (at B = 12 each worker is one tile, so the
+    stop rules agree): λ within 1e-3 after four rounds, two launches a
+    sub-round that any worker ran and none otherwise, and two runs with
+    the same bits."""
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+    from repro_torch.dist import DIVIConfig, DIVIEngine
+    spec = PAPER_CORPORA["tiny"]
+    train = make_corpus(spec, seed=0, device=cuda)
+    dcfg = DIVIConfig(num_workers=4, batch_size=12, staleness=2,
+                      delay_prob=0.5)
+    lam0 = np.random.default_rng(3).gamma(100.0, 0.01, (spec.vocab_size, 8))
+    engines = {}
+    for name, backend in (("cuda", "cuda"), ("again", "cuda"),
+                          ("gather", "gather")):
+        cfg = LDAConfig(num_topics=8, vocab_size=spec.vocab_size,
+                        estep_backend=backend, estep_max_iters=40)
+        eng = DIVIEngine(cfg, dcfg, train, seed=8, device=cuda, lam0=lam0)
+        lda_estep.reset_launches()
+        for _ in range(4):
+            eng.run_round()
+        engines[name] = (eng, dict(lda_estep.LAUNCHES))
+    eng, launches = engines["cuda"]
+    # the engine's coins: the only draws of its rng
+    rng = np.random.default_rng(8)
+    delay = [rng.random((4, 2)) < 0.5 for _ in range(4)]
+    ran = sum(int((~d).any(axis=0).sum()) for d in delay)
+    assert eng.docs_seen == 12 * sum(int((~d).sum()) for d in delay)
+    assert 0 < ran < 8
+    assert launches["fixed_point"] == launches["segment_scatter"] == ran
+    assert sum(launches.values()) == 2 * ran
+    assert torch.equal(eng.state.lam, engines["again"][0].state.lam)
+    torch.testing.assert_close(eng.state.lam, engines["gather"][0].state.lam,
+                               rtol=1e-3, atol=1e-3)

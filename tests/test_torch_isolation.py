@@ -41,6 +41,18 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.checkpoint import load_manifest, save_manifest
         from repro_torch.convert import lda_from_repro_checkpoint
         from repro_torch.dist import DIVIConfig
+        # D-IVI: the engine, the protocol, the sharded streams, the raw memo
+        from repro_torch.dist.engine import DIVIEngine, mesh_not_ported
+        from repro_torch.dist.protocol import (DIVIState, WorkerIngest,
+                                               WorkerShard, divi_round,
+                                               master_update,
+                                               worker_correction)
+        from repro_torch.data.stream import (SHARD_PARTITIONERS,
+                                             ShardDocStream,
+                                             ShardedDocStream, as_doc_stream)
+        from repro_torch.core.types import Memo, init_memo
+        from repro_torch.core.engines import ivi_step, sivi_step
+        from repro_torch.lda.trainer import DIVITrainer
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -66,7 +78,7 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.lda.trainer", "repro_torch.lda.ckpt",
                  "repro_torch.lda.infer", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.manifest", "repro_torch.dist",
-                 "repro_torch.dist.protocol"):
+                 "repro_torch.dist.protocol", "repro_torch.dist.engine"):
         assert name in got["modules"]
 
 
