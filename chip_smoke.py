@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure exits non-zero. The padded
 path first:
   1. device  — nvidia-smi's name and power limit, torch's device name/count
   2. build   — nvcc builds the kernels from src/repro_torch/kernels/csrc;
-               K1/K4's instance at K = 100 must not spill registers
+               K1/K4's instance at K = 100 and K6's tensor-core instances
+               must not spill registers
   3. kernels — each kernel against its plain twin at the path's shapes
                (Arxiv: V = 141,927, K = 100, B = 1024), then timed; K1
                and K3 also give the same bits on two launches; K1 with its
@@ -110,10 +111,15 @@ then the facade, serving and checkpoints, D-IVI, and the lifted K caps:
 then the pre-fusion baseline and attention:
  24. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
                one-hot memo delta (K8) on phase 3's documents, λ and γ₀:
-               each kernel against its twin and timed; the whole E-step
-               against the same loop over the twins; the legacy correction
-               against the fused one (K1–K3), here and at BENCH_estep's
-               shape (B = 128, V = 4096, K = 128, L = 64)
+               each kernel against its twin and timed (K6 on the tensor
+               cores, bound_ms its bf16 x 3 floor there: at least 15% of
+               that floor's rate, half its fp32 bound's and below its
+               twin; K8 at
+               most K2 + K3's device time a call, its peak memory at most
+               π + 2·S + 0.5 GB, and again with one id in every document);
+               the whole E-step against the same loop over the twins; the
+               legacy correction against the fused one (K1–K3), here and
+               at BENCH_estep's shape (B = 128, V = 4096, K = 128, L = 64)
  25. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
                heads, 2 KV heads, hd = 128), B = 1, S = 4096, bf16, causal,
                against its twin, the same bits on two launches, timed beside
@@ -139,6 +145,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# K6 at the legacy shape: at least this share of its tensor-core floor's
+# rate (it reached 22% on an NVIDIA H100 80GB HBM3 at 700 W)
+K6_FLOOR_SHARE = 0.15
 # operations per element of the in-kernel exp(E[ln θ]): two series digammas
 # (8 divisions + 8 additions + log + 6 series terms each), a subtraction and
 # an exp, counting a division, log or exp as one operation
@@ -252,6 +261,25 @@ def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
     return total / 1e3 / launches
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device time of one call of ``fn``: every kernel and memset it
+    launches (a wrapper's preparation included), by torch.profiler over
+    ``reps`` calls after one warm-up. Unlike ``cuda_ms``, host time
+    between the launches does not count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(total > 0, "device_ms: no device time recorded")
+    return total / 1e3 / reps
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
@@ -294,12 +322,25 @@ def phase_build():
     seconds = time.perf_counter() - t0
     # K1/K4's instance at the path's K: the π finish must fit the sweeps'
     # 64 registers a thread
-    spills = fixed_point_spills(build.BUILD_INFO["lda_estep"]["ptxas"],
-                                -(-TOPICS // 32))
+    ptxas = build.BUILD_INFO["lda_estep"]["ptxas"]
+    spills = fixed_point_spills(ptxas, -(-TOPICS // 32))
     check(spills == [[0, 0]],
           f"fixed_point_kernel spills at K = {TOPICS}: {spills}")
+    # K6's tensor-core instances (K <= 64 and K <= 128): the six products'
+    # operands and accumulators fit the block's 255 registers a thread
+    sweep_tc = kernel_spills(ptxas, "sweep_tc_kernel")
+    check(len(sweep_tc) == 2 and all(x == [0, 0] for x in sweep_tc),
+          f"sweep_tc_kernel spills: {sweep_tc}")
+    # K8's instances: none spills at K <= 128, the tiled one as this
+    # source builds it (ONEHOT_SPILLS)
+    onehot = {name: kernel_spills(ptxas, f"onehot_kernelILi{name[3]}ELb"
+                                         f"{int(name.endswith('tiled'))}E")
+              for name in ONEHOT_SPILLS}
+    check(onehot == ONEHOT_SPILLS, f"onehot_kernel spills: {onehot}")
     emit({"phase": "build", "seconds": seconds,
           "fixed_point_spill_bytes": spills,
+          "sweep_tc_spill_bytes": sweep_tc,
+          "onehot_spill_bytes": onehot,
           "libraries": build.BUILD_INFO})
 
 
@@ -1878,6 +1919,14 @@ def dense_bound(b, v, k):
     return bound_ms(nbytes, 4.0 * b * v * k + 2.0 * b * v)
 
 
+def sweep_tc_bound(b, v, k):
+    """K6's floor on the tensor cores: C, Eθ and Eφ read once, γ' written
+    once; its bf16 x 3 split does six bf16 products of each of its two
+    2·B·V·K-operation products."""
+    return bound_ms((b * v + 2 * b * k + v * k) * 4, 12.0 * b * v * k,
+                    BF16_OPS_PER_S)
+
+
 def check_corrections(legacy, fused, label):
     """The legacy correction against the fused one, at the correction bar
     of tests/test_estep_backend.py (rtol = atol = 2e-3)."""
@@ -1958,6 +2007,19 @@ def phase_legacy(device, spec, train, topics, batch, timer):
             "ms": timer(lambda: kern(*args), 10),
             "plain_ms": timer(lambda: plain(*args), 10),
             "bound_ms": bms, "bound_by": by, "library_ms": None}
+    # K6 runs on the tensor cores (bf16 x 3), so its bound is the split's
+    # floor there, not the fp32 SIMT bound (which it beats; kept in
+    # `derived`). Gated at 15% of that floor's rate (1.5 ms here), half
+    # the fp32 bound's rate, and below its twin's two cuBLAS products
+    k6 = out["sweep"]
+    k6["tol"] = "rtol=atol=2e-5 (fp32 twin, no TF32; K6's products bf16 x 3)"
+    fp32_bound = k6["bound_ms"]
+    k6["bound_ms"], k6["bound_by"] = sweep_tc_bound(bp, vp, kp)
+    check(k6["ms"] * K6_FLOOR_SHARE <= k6["bound_ms"]
+          and k6["ms"] <= 2 * fp32_bound and k6["ms"] < k6["plain_ms"],
+          f"sweep: {k6['ms']} ms against {K6_FLOOR_SHARE} of its "
+          f"tensor-core floor's rate ({k6['bound_ms']} ms), twice its fp32 "
+          f"bound {2 * fp32_bound} and its twin's {k6['plain_ms']}")
 
     # the driven path: the per-sweep E-step, then K8 on its Eθ -------------
     old_pi = lda_estep.token_pi(ids, cnts, eb,
@@ -2007,8 +2069,8 @@ def phase_legacy(device, spec, train, topics, batch, timer):
                  sstats=lda_estep.sstats_plain), 2)}
     for name in ("sweep", "sstats"):
         out[name]["launches_per_estep"] = launches[name]
-    bms, _ = dense_bound(bp, vp, kp)
-    estep["bound_ms"] = bms * (sweeps + 1)
+    estep["bound_ms"] = (sweep_tc_bound(bp, vp, kp)[0] * sweeps
+                         + dense_bound(bp, vp, kp)[0])
 
     # the legacy correction against the fused one (cold: no memo) ---------
     zero_pi = torch.zeros((b, l, k), device=device)
@@ -2079,8 +2141,27 @@ def phase_legacy(device, spec, train, topics, batch, timer):
     lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old_pi)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
+    # no (nb, Vp, K) partial: π, S_new, S_old and the sort's scratch
+    budget = b * l * k * 4 + 2 * v * k * 4 + 500_000_000
+    check(peak <= budget, f"memo_delta_onehot: {peak} bytes above the "
+                          f"baseline, more than π + 2·S + 0.5 GB = {budget}")
+    # a frequent word: one id in every document (the block sums its
+    # segment by B tiles), against the twin and timed
+    ids_hot = ids.clone()
+    ids_hot[:, 0] = int(ids[0, 0])
+    ebt_hot = eb[ids_hot.long()].contiguous()
+    hot = (ids_hot, cnts, ebt_hot, et, v)
+    got_hot = lda_estep.memo_delta_onehot(*hot, old_pi=old_pi)
+    want_hot = lda_estep.memo_delta_onehot_plain(*hot, old_pi)
+    hot_err = max(float((x - y).abs().max())
+                  for x, y in zip(got_hot, want_hot))
+    check(torch.allclose(got_hot[0], want_hot[0], rtol=1e-5, atol=1e-6)
+          and all(torch.allclose(x, y, rtol=1e-4, atol=1e-4)
+                  for x, y in zip(got_hot[1:], want_hot[1:])),
+          f"memo_delta_onehot (one id in every document): off its twin by "
+          f"{hot_err}")
+    del got_hot, want_hot
     nb = b // lda_estep.delta_effective_block_b(b, l, k)
-    vpad = -(-v // 128) * 128
     bms, by = bound_ms(b * l * 8 + 3 * b * l * k * 4 + b * k * 4
                        + 2 * v * k * 4, 4.0 * live * k + 4.0 * live * k)
     out["memo_delta_onehot"] = {
@@ -2094,14 +2175,39 @@ def phase_legacy(device, spec, train, topics, batch, timer):
             ids, cnts, ebt, et, v, old_pi), 2, 1),
         "k2_k3_ms": timer(lambda: lda_estep.memo_delta(
             ids, cnts, eb, et, v, old_pi=old_pi), 5),
+        # device time a call, the preparation included: the host-clocked
+        # ms above are mostly the wrappers' launch overhead at this size
+        "device_ms": device_ms(lambda: lda_estep.memo_delta_onehot(
+            ids, cnts, ebt, et, v, old_pi=old_pi)),
+        "k2_k3_device_ms": device_ms(lambda: lda_estep.memo_delta(
+            ids, cnts, eb, et, v, old_pi=old_pi)),
+        "kernel_ms": kernel_ms(lambda: lda_estep.memo_delta_onehot(
+            ids, cnts, ebt, et, v, old_pi=old_pi), "onehot_kernel"),
+        "one_id_in_every_document": {
+            "max_abs_err": hot_err,
+            "ms": timer(lambda: lda_estep.memo_delta_onehot(
+                *hot, old_pi=old_pi), 5),
+            "k2_k3_ms": timer(lambda: lda_estep.memo_delta(
+                ids_hot, cnts, eb, et, v, old_pi=old_pi), 5),
+            "device_ms": device_ms(lambda: lda_estep.memo_delta_onehot(
+                *hot, old_pi=old_pi)),
+            "k2_k3_device_ms": device_ms(lambda: lda_estep.memo_delta(
+                ids_hot, cnts, eb, et, v, old_pi=old_pi))},
         "bound_ms": bms, "bound_by": by, "library_ms": None}
+    del hot, ids_hot, ebt_hot
+    k8 = out["memo_delta_onehot"]
+    check(k8["device_ms"] <= k8["k2_k3_device_ms"],
+          f"memo_delta_onehot: {k8['device_ms']} device ms a call, slower "
+          f"than K2 + K3's {k8['k2_k3_device_ms']}")
     # bounds and sizes derived from the shapes: this line only, never the
-    # kernels line, which carries measured numbers and bound_ms alone
+    # kernels line, which carries measured numbers and bound_ms alone.
+    # K6's floor on the tensor cores (its bound_ms) beside the fp32 SIMT
+    # bound of the kernel it replaced
     derived = {
         "sweep_sstats_bound_ms_unpadded": dense_bound(b, v, k)[0],
-        "onehot_partials": nb, "onehot_partial_bytes": 2 * nb * vpad * k * 4,
-        "onehot_partials_bound_ms": 2 * 2 * nb * vpad * k * 4
-        / HBM_BYTES_PER_S * 1e3}
+        "sweep_bound_tc_ms": sweep_tc_bound(bp, vp, kp)[0],
+        "sweep_bound_fp32_simt_ms": dense_bound(bp, vp, kp)[0],
+        "onehot_b_tiles": nb, "onehot_peak_budget_bytes": budget}
     emit({"phase": "legacy", "shape": {"B": b, "L": l, "K": k, "V": v,
                                        "padded": [bp, vp, kp],
                                        "live_slots": live},
@@ -2766,12 +2872,16 @@ def phase_divi(device, spec, train, test, topics, batch, sync, timer):
 
 KCAP_TOPICS = (300, 1000)
 KCAP_BATCH = 256          # the first 256 Arxiv-shaped documents, V = 141,927
-# K8's partials are (B / B-tile, V, K) floats twice: at K = 1,000 its
-# B-tile is 2, so 16 documents make 8 partials (9.1 GB with the twin's)
+# K8's twin keeps (B / B-tile, V, K) partials twice: at K = 1,000 its
+# B-tile is 2, so 16 documents make 8 partials (4.5 GB; the kernel keeps
+# none)
 KCAP_ONEHOT_BATCH = 16
 # sha256 of each kernel's outputs at K = 100 on ``digest_inputs``, as the
 # parent commit 1391254 built them (chip run, NVIDIA H100 80GB HBM3): the
-# instances at K <= 256 (K1/K4) and K <= 128 (K6-K8) keep their bits
+# instances at K <= 256 (K1/K4) and K <= 128 (K7, K8) keep their bits.
+# K6's ("sweep") is re-anchored to its tensor-core design's build:
+# its bf16 x 3 products sum in another order by design, within 2e-5 of the
+# fp32 twin; K8's one-pass redesign keeps the parent's bits.
 PARENT_DIGESTS = {
     "fixed_point":
         "6a74054a1150a2687342dae805774ec7a4924a701332e6326c908aaebfb99588",
@@ -2780,7 +2890,7 @@ PARENT_DIGESTS = {
     "segment_scatter":
         "7156093ddcca0aeee14af409f594c74ce9982b9c72755bea9b4a42e1ba1bf410",
     "sweep":
-        "0a55f40e7eaf88d446aad9d9bc44d206083fe8a77d2ce1c162d9b199d624943d",
+        "ce2bab201ccd08efd57b033ae080109ee29dec214425fda183cb573f1ac094e4",
     "sstats":
         "82296b778b6f260ac5b78c129c68416c7fc71b703d755cf5f587348cb6d3816c",
     "memo_delta_onehot":
@@ -2793,6 +2903,11 @@ PARENT_DIGESTS = {
 # fewer), with their bits kept; every other instance, and the wide kernel
 # above 256 topics, must not spill
 PARENT_SPILLS = {"kpl6": [[4, 8]], "kpl7": [[4, 20]], "kpl8": [[24, 96]]}
+# ... and of K8's instances (KPL topics a lane; "tiled": 128-topic tiles
+# above 128 topics), as this source builds them (chip run, NVIDIA H100
+# 80GB HBM3): only the tiled one spills
+ONEHOT_SPILLS = {"kpl1": [[0, 0]], "kpl2": [[0, 0]], "kpl3": [[0, 0]],
+                 "kpl4": [[0, 0]], "kpl4_tiled": [[32, 48]]}
 
 
 def digest_inputs(device, k=100, b=512, l=64, v=8192, seed=0):

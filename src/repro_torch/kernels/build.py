@@ -2,9 +2,10 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, at first use, into
-``_build/`` beside this module (named by a hash of the source, so an
-edited source is rebuilt): ``lda_estep.cu`` (the E-step kernels K1–K8)
-and ``flash_attention.cu`` (K9). A library is loaded with ``ctypes``:
+``_build/`` beside this module (named by a hash of the source and the
+headers beside it, so an edited source or header is rebuilt): ``lda_estep.cu`` (the E-step kernels
+K1–K8) and ``flash_attention.cu`` (K9), both including ``hopper_wgmma.cuh``
+(the tensor-core helpers of K6 and K9). A library is loaded with ``ctypes``:
 pointers and the CUDA stream pass as ``c_void_p``, and each entry returns
 ``cudaGetLastError()``. ``build_all`` starts one ``nvcc`` per library at
 once, so a cold start pays the slowest build and not their sum.
@@ -41,13 +42,12 @@ _SIGNATURES = {
     "lda_token_pi_csr": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "lda_fixed_point_smem_bytes": [_I, _I, _I, _I],
     "lda_max_smem_bytes": [],
-    "lda_dense_k_tiles": [_I],
-    "lda_sweep_splits": [_I, _I],
+    "lda_sweep_splits": [_I, _I, _I],
+    "lda_sweep_tickets": [_I, _I],
     "lda_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "lda_sstats": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "lda_onehot_block_v": [],
-    "lda_memo_delta_onehot": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _I, _P],
+    "lda_memo_delta_onehot": [_P, _P, _I, _I64, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I64, _I, _P],
     "lda_error_string": [_I],
 }
 
@@ -89,8 +89,12 @@ def nvcc_command(nvcc: str, out: Path, source: Path = SOURCE) -> List[str]:
 
 
 def library_path(source: Path = SOURCE) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """The build of ``source``, named by a hash of it and of the headers
+    beside it (``*.cuh``, which the sources include)."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:

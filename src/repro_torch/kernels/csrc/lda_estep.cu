@@ -17,25 +17,30 @@
 //   K2 token_pi_kernel         token-aligned pi
 //   K5 csr_token_pi_kernel     flat pi (T, K)
 // and three of the pre-fusion baseline (one launch per sweep over a dense
-// count matrix C (B, V), and the one-hot scatter it used):
-//   K6 sweep_kernel            one dense fixed-point sweep
+// count matrix C (B, V), and the one-hot memo delta it used):
+//   K6 sweep_tc_kernel         one dense fixed-point sweep on the tensor
+//                              cores (K <= 128; sweep_kernel above)
 //   K7 sstats_kernel           expected topic-word counts from C
-//   K8 onehot_partials_kernel  pi and per-B-tile (nb, Vp, K) partials,
-//      onehot_reduce_kernel    summed over nb
+//   K8 onehot_kernel           pi and the new/old masses in one segment
+//                              pass, summed by B tile in the baseline's order
 //
 // Any K: K1/K4 keep a row in registers up to 256 topics (KPL = 1 ... 8
 // instances) and run fixed_point_wide_kernel above, with the row in
-// shared memory; K3 runs over 256-column chunks; K6-K8 tile K by 128.
+// shared memory; K3 runs over 256-column chunks; K6 (SIMT above 128
+// topics), K7 and K8 tile K by 128.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (repro_torch/kernels/build.py). Every entry point launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError().
-// All arithmetic is fp32.
+// All arithmetic is fp32, but for K6's products (bf16 x 3 on wgmma,
+// fp32 accumulators: see its note).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_wgmma.cuh"
 
 #include <algorithm>
 #include <map>
@@ -1204,15 +1209,16 @@ __global__ void __launch_bounds__(256)
 // Both form P = E[theta] * Eφ^T + 1e-30 and R = C / P tile by tile in
 // shared memory and registers; the (B, V) arrays P and R never reach
 // device memory. The dense count matrix C (B, V) is read exactly once per
-// launch. All products are fp32 FMAs on the SIMT cores: TF32 tensor cores
-// keep 10 mantissa bits, which the 2e-5 parity bars cannot absorb.
+// launch. K6 at K <= 128 runs its products on the tensor cores
+// (sweep_tc_kernel, below K7); K6 above 128 topics and K7 run fp32 FMAs on
+// the SIMT cores.
 //
 // K is register-blocked in tiles of kDenseK = 128 (shared-memory rows are
 // zero beyond K, so padded topics add nothing). Above 128 topics the grid
 // gains an axis over K tiles: each block still forms the whole
 // denominator P over every K tile (loading the tiles in turn, in K order,
 // so every block of a row forms the same P bits), then accumulates and
-// writes its own tile's columns. At K <= 128 the kTiled = false instance
+// writes its own tile's columns. At K <= 128 K7's kTiled = false instance
 // runs: one tile known at compile time, the single-tile design's code and
 // arithmetic. Rows are kDenseStride
 // floats apart: a
@@ -1266,27 +1272,27 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// K6: one dense sweep, gamma' = alpha0 + E[theta] * ((C / P) . Eφ).
+// K6 above 128 topics: one dense sweep, gamma' = alpha0 + E[theta] *
+// ((C / P) . Eφ), on the SIMT cores.
 //
-// Replaces _sweep_kernel (repro/kernels/lda_estep.py:817). Grid (B / 64,
-// splits, K tiles): block (x, y, z) owns 64 rows of B, the y-th contiguous
-// range of V tiles and the z-th tile of 128 topics. It keeps those rows'
-// E[theta] in shared memory, walks its V range 32 columns at a time (Eφ
-// tile into shared memory; P over every K tile, R for 64 x 32 in
-// registers, R to shared memory; acc += R . Eφ over its topics) and writes
-// its (64, 128) partial sum to `part`. The split over V is what fills the
-// card: at B = 1024 there are only 16 row tiles. The last block of a (row
-// tile, K tile) to finish (an integer ticket, __threadfence before it)
-// sums the partials in split order and writes gamma', so each output
-// element is written by one block, with no fp32 atomics, and the result is
-// the same bits on every launch. The block resets its ticket for the next
-// launch.
+// Replaces _sweep_kernel (repro/kernels/lda_estep.py:817) for K > 128
+// (sweep_tc_kernel below serves K <= 128). Grid (B / 64, splits, K
+// tiles): block (x, y, z) owns 64 rows of B, the y-th contiguous range of
+// V tiles and the z-th tile of 128 topics. It keeps those rows' E[theta]
+// in shared memory, walks its V range 32 columns at a time (Eφ tile into
+// shared memory; P over every K tile, R for 64 x 32 in registers, R to
+// shared memory; acc += R . Eφ over its topics) and writes its (64, 128)
+// partial sum to `part`. The split over V is what fills the card. The
+// last block of a (row tile, K tile) to finish (an integer ticket,
+// __threadfence before it) sums the partials in split order and writes
+// gamma', so each output element is written by one block, with no fp32
+// atomics, and the result is the same bits on every launch. The block
+// resets its ticket for the next launch.
 //
 // Bound: operations (4*B*V*K FMA-counted operations per sweep, two
 // products); C is read once per K tile. The inner loops issue about one
 // shared-memory wavefront per 2.7 FMA instructions, so they cannot reach
-// the fp32 peak; a wgmma (3xTF32) design is later work.
-template <bool kTiled>
+// the fp32 peak, and every K tile re-forms the whole denominator.
 __global__ void __launch_bounds__(kDenseThreads)
     sweep_kernel(const float* __restrict__ c, const float* __restrict__ et,
                  const float* __restrict__ eb, float* __restrict__ out,
@@ -1303,9 +1309,9 @@ __global__ void __launch_bounds__(kDenseThreads)
   const int vtiles = (V + kSweepBV - 1) / kSweepBV;
   const int t_lo = blockIdx.y * tiles_per_split;
   const int t_hi = min(vtiles, t_lo + tiles_per_split);
-  // this block's topics; one tile (the K <= 128 instance) at compile time
-  const int nk = kTiled ? gridDim.z : 1;
-  const int kc = kTiled ? blockIdx.z * kDenseK : 0;
+  // this block's topics
+  const int nk = gridDim.z;
+  const int kc = blockIdx.z * kDenseK;
 
   if (nk == 1) load_dense_rows(s_et, et, row0, kSweepBM, B, K, 0);
   float acc[8][4];   // rows warp * 8 + i, topics kc + lane + 32 * j
@@ -1511,194 +1517,788 @@ __global__ void __launch_bounds__(kDenseThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K8: the one-hot memo delta (the retired scatter, kept as a baseline).
+// K6 at K <= 128: one dense sweep on the tensor cores.
 //
-// Replaces _memo_delta_onehot_kernel (repro/kernels/lda_estep.py:677). It
-// keeps the baseline's structure, which is what BENCH_estep prices: grid
-// (V tiles of 128, B tiles of block_b); block (j, i) writes its own
-// (128, K) slice of the per-B-tile partials part[i] (nb, Vp, K), every row
-// of it exactly once, zeros included; a second kernel sums the partials
-// over nb in index order. The TPU's (128 x block_b*L) one-hot matmul is
-// not carried over: block (j, i) compacts, in token order, the tile's
-// slots whose id falls in V tile j into shared memory (1,024 slots per
-// pass), forms pi for exactly those slots with K2's device function (so pi
-// is written once over the grid and equals K2's bits), and warp w sums
-// cnt * pi into its rows w, w + 32, w + 64, w + 96 in token order.
-// Slots whose id lies outside [0, Vp) have their pi written by the j = 0
-// blocks and are scattered nowhere, as the one-hot selects no row for them.
-// Above 128 topics the grid gains an axis z over tiles of 128 topics:
-// block (j, i, z) forms each slot's whole denominator (K2's sum, so the
-// same bits in every block) and writes, reads and scatters only its own
-// topics' pi columns.
+// Replaces _sweep_kernel (repro/kernels/lda_estep.py:817) for K <= 128
+// topics. The sweep has flash attention's shape: E[theta] plays the
+// queries, Eφ both keys and values, and R = C / (S + 1e-30), with C read
+// tile by tile, plays the softmax. One block owns 128 rows of B (two
+// consumer warpgroups of 64) and a contiguous range of V tiles of 64
+// columns; for each tile it computes
+//   S = E[theta] . Eφ_tile^T    wgmma, both operands in shared memory
+//   R = C_tile / (S + 1e-30)    in registers, C loaded in S's layout
+//   acc += R . Eφ_tile          wgmma, R as the register operand, Eφ
+//                               MN-major in shared memory
+// and the (B, V) arrays S and R never reach device memory.
 //
-// Bound: bytes. The function moves the (B, L, K) cubes (eb_tok, old pi in;
-// pi out) and the (V, K) outputs; the partials add 2 * nb * Vp * K * 4
-// bytes written and read again, the transient the segment-sum path (K2 +
-// K3) removes.
+// Precision: bf16 x 3. Every fp32 operand x is split on the fly into
+// x = hi + mid + lo (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid): 24 bits of x), and each product sums the six part products down to
+// 2^-16 of the leading term (hi.hi, hi.mid, mid.hi, hi.lo, mid.mid,
+// lo.hi; the smallest first) in fp32 accumulators. The dropped terms are
+// below 2^-23 relative, so the sweep stays within the fp32 twin's 2e-5
+// bars (about 1e-6 relative; tests/test_torch_legacy.py emulates the split
+// in torch on the twins' shapes). TF32 could serve as well (3 x TF32 costs
+// the same), but wgmma takes TF32 operands K-major only, and acc += R . Eφ
+// reduces over V, so a row-major Eφ tile would need a transposed copy;
+// bf16's B operand may be MN-major, and its register A operand has the
+// accumulator's layout, so R goes from S's registers into the second
+// product without shared memory. A single bf16 or TF32 pass (8 or 11
+// bits) misses the 2e-5 bars.
+//
+// The pipeline, per tile: the next tile's fp32 Eφ rows are copied by
+// cp.async into a staging tile and its counts loaded into registers
+// while this tile's products run; the block converts the staged rows
+// into the next stage's three 128-byte-swizzled bf16 part tiles (two
+// stages) while the second product runs, and retires that product before
+// the next tile touches S's registers (a wgmma group in flight across
+// them would serialize every product). E[theta]'s three parts are made
+// once. A zero count takes R = +0 without a division: C is almost all
+// zeros, and a zero dividend sends the IEEE division to its slow path.
+//
+// Not K9's producer/consumer pipeline (a producer warp keeping TMA loads
+// of Eφ and C in flight in an mbarrier ring); that design was not built
+// or timed here, for three reasons of layout. The wgmma operands are bf16
+// parts that a TMA copy cannot make, so every Eφ tile passes through the
+// consumers' threads anyway, and TMA would only replace the cp.async of
+// the raw fp32 tile, which already overlaps the products. C is read into
+// S's accumulator registers, where R is formed and fed to the second
+// product; a TMA tile of C would cost 32 KB of shared memory a stage
+// (the block uses 225 KB of the SM's 227) and a second read of each count.
+// And the consumers take 224 registers a thread (57,344 of the SM's
+// 65,536), so a producer warpgroup would have to take registers from them.
+// The cost: the two warpgroups run in step, and the tensor cores idle
+// while R and the parts are made.
+//
+// The epilogue is K6's: each block writes its (128, K) partial sum to
+// `part`, and the last block of a row tile to finish (an integer ticket)
+// sums the partials in split order and writes gamma' = alpha0 + E[theta]
+// * acc, so two launches give the same bits and no fp32 atomics are used.
+//
+// Bound: operations. The function is 4*B*V*K fp32 operations (1.118 ms
+// at B = 1,024, V = 142,336, K = 128 on the SIMT cores' 67 TFLOP/s); the
+// split does six bf16 products of each: 12*B*V*Kp tensor-core operations,
+// 0.226 ms at 989 TFLOP/s, plus reading C (583 MB, 0.174 ms). Eφ is read
+// once per row tile (the 8 row tiles of a V range run side by side at
+// B = 1,024, so mostly from L2). The block (224 registers a thread, 225
+// KB of shared memory) fills its SM alone, and its two warpgroups run
+// each tile's phases in step, so the tensor cores idle while R is formed
+// and the parts are made.
 // ---------------------------------------------------------------------------
-constexpr int kOnehotBV = 128;
-constexpr int kOnehotThreads = 1024;
-constexpr int kOnehotRowsPerWarp = kOnehotBV / (kOnehotThreads / kWarp);
+namespace sweep_tc {
 
-// pi of one live token slot, columns [k0, k1) only: token_pi_row's
-// denominator over all K, the same steps, so the columns equal its bits.
-__device__ __forceinline__ void token_pi_cols(float* out,
-                                              const float* __restrict__ e_row,
-                                              const float* __restrict__ t_row,
-                                              int K, int k0, int k1, int lane,
-                                              int quantize) {
-  float part = 0.f;
-  for (int k = lane; k < K; k += kWarp) {
-    part = pi_dot_step(t_row[k], __ldg(e_row + k), part);
+using namespace hopper;
+
+constexpr int kBM = 128;        // B rows per block: two warpgroups of 64
+constexpr int kBV = 64;         // V columns per tile
+constexpr int kThreads = 256;
+constexpr int kStages = 2;      // Eφ tiles in shared memory
+constexpr int kParts = 3;       // bf16 hi, mid, lo
+constexpr int kBlocks = 132;    // blocks aimed for per launch (one an SM)
+
+// The six part products (part of E[theta] or R, part of Eφ), smallest first.
+__device__ __forceinline__ constexpr int pair_a(int p) {
+  return p < 3 ? 2 - p : (p == 3 ? 1 : 0);
+}
+__device__ __forceinline__ constexpr int pair_b(int p) {
+  return p < 3 ? p : (p == 4 ? 1 : 0);
+}
+
+// KC: chunks of 64 topics (K <= 64 KC).
+template <int KC>
+struct Cfg {
+  static constexpr int kKp = 64 * KC;
+  static constexpr uint32_t kEtPart = KC * kBM * 128;   // bytes
+  static constexpr uint32_t kEbPart = KC * kBV * 128;
+  static constexpr uint32_t kStage = kParts * kEbPart;
+  static constexpr uint32_t kRaw = kBV * kKp * 4;       // the fp32 tile
+  static constexpr int kUnits = kBV * KC * 8 / kThreads;   // Eφ units a thread
+  static constexpr int kSmem =
+      kParts * kEtPart + kStages * kStage + kRaw + 1024;
+};
+
+// cp.async of `bytes` (<= size) from src into shared memory at dst, the
+// rest of the size zero-filled (src is not read at 0 bytes)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+__device__ __forceinline__ void split3(float x, float y, uint32_t (&w)[3]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float x1 = x - hf.x, y1 = y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(x1, y1);
+  const float2 mf = __bfloat1622float2(m);
+  w[0] = bf16x2_bits(h);
+  w[1] = bf16x2_bits(m);
+  w[2] = bf16x2_bits(__floats2bfloat162_rn(x1 - mf.x, y1 - mf.y));
+}
+
+// Columns c0 ... c0 + 7 of row r of an (R, K) fp32 matrix (zeros past R
+// and K).
+__device__ __forceinline__ void load_unit(const float* __restrict__ src,
+                                          int r, int R, int K, int c0,
+                                          float (&v)[8]) {
+  const float* row = src + static_cast<size_t>(r) * K;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[i] = (r < R && c0 + i < K) ? __ldg(row + c0 + i) : 0.f;
   }
-  const float p = __fadd_rn(warp_sum(part), kEps);
-  for (int k = k0 + lane; k < k1; k += kWarp) {
-    out[k] = pi_value(t_row[k], __ldg(e_row + k), p, quantize);
+}
+
+// The three parts of those 8 columns into row r of the swizzled part tiles
+// at base, base + part, base + 2 part (tiles of `rows` rows).
+__device__ __forceinline__ void store_unit(uint32_t base, uint32_t part,
+                                           int r, int c0, int rows,
+                                           const float (&v)[8]) {
+  uint32_t w[kParts][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t s[3];
+    split3(v[2 * i], v[2 * i + 1], s);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) w[q][i] = s[q];
+  }
+  const uint32_t off = sw128_offset(r, c0, rows);
+#pragma unroll
+  for (int q = 0; q < kParts; ++q) {
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     base + q * part + off),
+                 "r"(w[q][0]), "r"(w[q][1]), "r"(w[q][2]), "r"(w[q][3])
+                 : "memory");
+  }
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kThreads, 1)
+    sweep_tc_kernel(const float* __restrict__ c,
+                    const float* __restrict__ et,
+                    const float* __restrict__ eb, float* __restrict__ out,
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    int B, int V, int K, float alpha0, int tiles_per_split) {
+  using Cf = Cfg<KC>;
+  constexpr int kUnitsPerRow = 8 * KC;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int is_last;
+  // swizzled tiles start on 1024-byte boundaries
+  const uint32_t s_et = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_eb = s_et + kParts * Cf::kEtPart;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int wg = warp / 4;
+  const int row0 = blockIdx.x * kBM;
+  const int vtiles = (V + kBV - 1) / kBV;
+  const int t_lo = blockIdx.y * tiles_per_split;
+  const int t_hi = min(vtiles, t_lo + tiles_per_split);
+
+  // E[theta]'s three parts, once
+  for (int u = tid; u < kBM * kUnitsPerRow; u += kThreads) {
+    const int r = u / kUnitsPerRow, c0 = 8 * (u % kUnitsPerRow);
+    float v[8];
+    load_unit(et, row0 + r, B, K, c0, v);
+    store_unit(s_et, Cf::kEtPart, r, c0, kBM, v);
+  }
+  // Eφ tile t's fp32 units (this thread's: 8 topics of a row each) copied
+  // asynchronously into the fp32 staging tile (16 bytes at a time where
+  // every row is 16-byte aligned), then the same units from there into a
+  // stage's three parts: a thread converts only what it copied, so a
+  // wait on its own copies suffices
+  const uint32_t s_raw = s_eb + kStages * Cf::kStage;
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(eb) % 16 == 0;
+  auto load_eb = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < Cf::kUnits; ++i) {
+      const int u = tid + kThreads * i;
+      const int r = u / kUnitsPerRow, c0 = 8 * (u % kUnitsPerRow);
+      const int row = t * kBV + r;
+      const float* src = eb + static_cast<size_t>(min(row, V - 1)) * K;
+      const uint32_t dst = s_raw + (r * Cf::kKp + c0) * 4;
+      if (vec) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + 4 * h;
+          const int n = row < V ? max(0, min(4, K - c)) : 0;
+          cp_async16(dst + 16 * h, n > 0 ? src + c : eb, 4 * n);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const bool in = row < V && c0 + q < K;
+          cp_async4(dst + 4 * q, in ? src + c0 + q : eb, in ? 4 : 0);
+        }
+      }
+    }
+  };
+  auto store_eb = [&](int stage) {
+    cp_async_wait_all();
+#pragma unroll
+    for (int i = 0; i < Cf::kUnits; ++i) {
+      const int u = tid + kThreads * i;
+      const int r = u / kUnitsPerRow, c0 = 8 * (u % kUnitsPerRow);
+      float v[8];
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%8];\n"
+                   "ld.shared.v4.f32 {%4, %5, %6, %7}, [%8+16];\n"
+                   : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]),
+                     "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7])
+                   : "r"(s_raw + (r * Cf::kKp + c0) * 4)
+                   : "memory");
+      store_unit(s_eb + stage * Cf::kStage, Cf::kEbPart, r, c0, kBV, v);
+    }
+  };
+  if (t_lo < t_hi) {
+    load_eb(t_lo);
+    store_eb(0);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // this thread's rows of S and acc: r_lo and r_lo + 8
+  const int r_lo = row0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  // tile t's counts in S's layout (zeros past B and V)
+  auto load_c = [&](int t, float (&cv)[kBV / 2]) {
+#pragma unroll
+    for (int j = 0; j < kBV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r_lo + 8 * (e >> 1);
+        const int col = t * kBV + 8 * j + col0 + (e & 1);
+        cv[4 * j + e] = (t < t_hi && row < B && col < V)
+                            ? __ldg(c + static_cast<size_t>(row) * V + col)
+                            : 0.f;
+      }
+    }
+  };
+  float acc[Cf::kKp / 2];
+#pragma unroll
+  for (int i = 0; i < Cf::kKp / 2; ++i) acc[i] = 0.f;
+  float cv[kBV / 2];
+  load_c(t_lo, cv);
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int st = (t - t_lo) % kStages;
+    const uint32_t s_tile = s_eb + st * Cf::kStage;
+    // the next tile's counts and Eφ rows, in flight a whole tile ahead (C
+    // streams from device memory, each count read once)
+    float cv_next[kBV / 2];
+    load_c(t + 1, cv_next);
+    if (t + 1 < t_hi) load_eb(t + 1);
+
+    // S = E[theta] . Eφ_tile^T: six part products over the topic steps
+    float s[kBV / 2];
+#pragma unroll
+    for (int i = 0; i < kBV / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 6; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < 4 * KC; ++kk) {
+        const uint32_t off = (kk % 4) * 32;   // 16 topics of a row
+        const uint64_t da = desc_sw128(
+            s_et + pair_a(p) * Cf::kEtPart + (kk / 4) * kBM * 128 +
+                wg * 64 * 128 + off,
+            16, 1024);
+        const uint64_t db = desc_sw128(
+            s_tile + pair_b(p) * Cf::kEbPart + (kk / 4) * kBV * 128 + off,
+            16, 1024);
+        wgmma_ss<kBV>(s, da, db, p > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // R = C / (S + 1e-30), split into the register operand's three parts.
+    // C is almost all zeros, and a zero dividend takes the division's slow
+    // path: its quotient (+0, S + 1e-30 being positive) is set directly.
+    uint32_t ra[kParts][kBV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBV / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        const float r0 = cv[i] != 0.f ? cv[i] / (s[i] + kEps) : 0.f;
+        const float r1 = cv[i + 1] != 0.f ? cv[i + 1] / (s[i + 1] + kEps)
+                                          : 0.f;
+        uint32_t w[3];
+        split3(r0, r1, w);
+#pragma unroll
+        for (int q = 0; q < kParts; ++q) ra[q][kk][r] = w[q];
+      }
+    }
+    // acc += R . Eφ_tile: six part products over the tile's 32 columns
+    fence_regs(acc);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) fence_regs(ra[q]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 6; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < kBV / 16; ++kk) {
+        const uint64_t db = desc_sw128(
+            s_tile + pair_b(p) * Cf::kEbPart + kk * 16 * 128, kBV * 128,
+            1024);
+        wgmma_rs<Cf::kKp>(acc, ra[pair_a(p)][kk], db);
+      }
+    }
+    wgmma_commit();
+    // the next tile's parts into the other stage (last read by tile t - 1,
+    // whose products both warpgroups retired before the barrier that
+    // ended it) while the product runs; the product is retired before the
+    // next tile touches S's registers (a wgmma group in flight across
+    // them would serialize every product)
+    if (t + 1 < t_hi) store_eb((st + 1) % kStages);
+    fence_proxy_async();
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < kBV / 2; ++i) cv[i] = cv_next[i];
+    __syncthreads();
+  }
+
+  // this block's partial sum, then the row tile's ticket
+#pragma unroll
+  for (int j = 0; j < Cf::kKp / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r_lo + 8 * (e >> 1);
+      const int col = 8 * j + col0 + (e & 1);
+      if (row < B && col < K) {
+        part[(static_cast<size_t>(blockIdx.y) * B + row) * K + col] =
+            acc[4 * j + e];
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  int* ticket = tickets + blockIdx.x;
+  if (tid == 0) is_last = atomicAdd(ticket, 1) == gridDim.y - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int i = tid; i < kBM * K; i += kThreads) {
+    const int row = row0 + i / K, col = i % K;
+    if (row >= B) break;
+    float sum = 0.f;
+    for (int q = 0; q < static_cast<int>(gridDim.y); ++q) {
+      sum += __ldcg(part + (static_cast<size_t>(q) * B + row) * K + col);
+    }
+    out[static_cast<size_t>(row) * K + col] =
+        alpha0 + __ldg(et + static_cast<size_t>(row) * K + col) * sum;
+  }
+  if (tid == 0) *ticket = 0;
+}
+
+}  // namespace sweep_tc
+
+// ---------------------------------------------------------------------------
+// K8: the one-hot memo delta (the retired scatter, kept as a baseline), as
+// one segment pass.
+//
+// Replaces _memo_delta_onehot_kernel (repro/kernels/lda_estep.py:677):
+// pi of every token slot from its gathered Eφ row, and S_new[v] = sum cnt *
+// pi, S_old[v] = sum cnt * old_pi over the slots whose id is v, summed in
+// the baseline's order: S[v] = ((0 + P_0) + P_1) + ... over the B tiles of
+// block_b documents (tile_slots = block_b * L slots), P_i the sum over tile
+// i's slots in token order, each term cnt * pi rounded before it is added
+// (the baseline's FMUL then FADD). The TPU kept one (nb, Vp, K) partial a B
+// tile because Pallas may not revisit an output block out of order; here
+// the partials never exist. The preparation is K3's: one stable sort of
+// the slots by id (count 0 keyed V), a sorted search for each id's range.
+// Each warp owns kOnehotIds consecutive ids, whose slots are one
+// contiguous run of the sorted order, and walks the run as one stream in
+// sorted (token) order, storing an id's sums when the stream passes its
+// last slot (zeros for an id with none): for every slot it forms pi with
+// K2's steps (onehot_pi: the same dot, butterfly and division, so pi has
+// K2's bits), writes it once and adds cnt * pi to a sub-sum that is added
+// to the id's total whenever the walk enters another B tile (the tile
+// index never decreases in token order), which is the baseline's sum
+// with its zero partials left out (adding +0 changes no bit). Walking
+// each id on its own instead would pay the chain of dependent loads
+// (offsets -> order -> count -> row) once an id. A segment of more than
+// kOnehotLong slots (a frequent word) is summed by the whole block, 8 B
+// tiles a round: warp w finds tile t0 + w's slots by a 32-way search and
+// sums them in token order, and the 8 sums are added to the total in tile
+// order. Slots outside every segment (count 0, or an id outside [0, V))
+// get their pi row in a grid-strided pass of the same launch: zeros where
+// the count is not > 0, else pi, scattered nowhere. Above 128 topics
+// gridDim.y covers tiles of 128 topics, each block forming every slot's
+// whole dot over all K topics and writing its own columns.
+//
+// Bound: bytes. The function reads each slot's Eφ row and old pi and
+// writes its pi ((B, L, K) each) and the two (V, K) sums once; the
+// preparation adds the sort of B*L keys. The walk is bound by the latency
+// of dependent loads, as K3's: the order entries and counts of 32 slots
+// come in one load a lane, their rows are prefetched into L2, and two
+// slots' rows are loaded before either is summed (124 registers a thread
+// at K <= 128, two blocks an SM).
+// ---------------------------------------------------------------------------
+constexpr int kOnehotThreads = 256;
+constexpr int kOnehotWarps = kOnehotThreads / kWarp;
+constexpr int kOnehotIds = 8;           // consecutive ids a warp owns
+constexpr int64_t kOnehotLong = 32;     // longer segments: the whole block
+
+struct OnehotArgs {
+  const int64_t* order;     // N slots, sorted by id (count 0 keyed V)
+  const int64_t* seg_off;   // V + 1: id v's slots order[seg_off[v] ...]
+  const float* cnts;        // N
+  const float* eb_tok;      // N x K: each slot's Eφ row
+  const float* old_pi;      // N x K, or nullptr
+  const float* et;          // B x K
+  float* pi;                // N x K
+  float* s_new;             // V x K
+  float* s_old;             // V x K, or nullptr
+  int64_t N;
+  int64_t tile_slots;       // block_b * L
+  int V, L, K, quantize;
+};
+
+// Slot g's inputs over this block's columns kc + lane + 32 j < kc + kn,
+// loaded together: its Eφ row, its document's E[theta] row and, with
+// `old`, its old pi (zeros past the columns).
+template <int KPL>
+__device__ __forceinline__ void onehot_load(const OnehotArgs& a, int64_t g,
+                                            int kc, int kn, int lane,
+                                            bool old, float (&e)[KPL],
+                                            float (&t)[KPL],
+                                            float (&o)[KPL]) {
+  const int K = a.K;
+  const float* t_row =
+      a.et + static_cast<size_t>(static_cast<uint32_t>(g) /
+                                 static_cast<uint32_t>(a.L)) * K;
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int k = kc + lane + j * kWarp;
+    const bool in = k < kc + kn;
+    e[j] = in ? __ldg(a.eb_tok + g * K + k) : 0.f;
+    t[j] = in ? __ldg(t_row + k) : 0.f;
+    o[j] = in && old ? __ldg(a.old_pi + g * K + k) : 0.f;
+  }
+}
+
+// Slot g's pi row over this block's columns, written and kept in pi:
+// zeros where the count is not > 0, else K2's steps (token_pi_row's dot
+// over all K topics, the butterfly, then the division).
+template <int KPL, bool kTiled>
+__device__ __forceinline__ void onehot_pi(const OnehotArgs& a, int64_t g,
+                                          float c, int kc, int kn, int lane,
+                                          const float (&e)[KPL],
+                                          const float (&t)[KPL],
+                                          float (&pi)[KPL]) {
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) pi[j] = 0.f;
+  if (c > 0.f) {
+    float part = 0.f;
+    if (kTiled) {   // the dot over every topic, not only this block's
+      const int K = a.K;
+      const float* t_row =
+          a.et + static_cast<size_t>(static_cast<uint32_t>(g) /
+                                     static_cast<uint32_t>(a.L)) * K;
+      for (int k = lane; k < K; k += kWarp) {
+        part = pi_dot_step(t_row[k], __ldg(a.eb_tok + g * K + k), part);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        if (lane + j * kWarp < kn) part = pi_dot_step(t[j], e[j], part);
+      }
+    }
+    const float p = __fadd_rn(warp_sum(part), kEps);
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      if (kc + lane + j * kWarp < kc + kn) {
+        pi[j] = pi_value(t[j], e[j], p, a.quantize);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int k = kc + lane + j * kWarp;
+    if (k < kc + kn) a.pi[g * a.K + k] = pi[j];
+  }
+}
+
+template <int KPL>
+__device__ __forceinline__ void add_into(float (&tot)[KPL],
+                                         float (&sub)[KPL]) {
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    tot[j] = __fadd_rn(tot[j], sub[j]);
+    sub[j] = 0.f;
+  }
+}
+
+// Slot g (count c, inputs e, t, o) into the sums: its pi written, and cnt
+// * pi, cnt * old pi added to the sub-sums (the baseline's rounding: the
+// product, then the sum), which are first added to the totals when g lies
+// past tile_end (one past the current B tile's last slot).
+template <int KPL, bool kTiled>
+__device__ __forceinline__ void onehot_add(
+    const OnehotArgs& a, int64_t g, float c, int kc, int kn, int lane,
+    const float (&e)[KPL], const float (&t)[KPL], const float (&o)[KPL],
+    float (&tot_n)[KPL], float (&tot_o)[KPL], float (&sub_n)[KPL],
+    float (&sub_o)[KPL], int64_t& tile_end) {
+  if (g >= tile_end) {
+    add_into<KPL>(tot_n, sub_n);
+    add_into<KPL>(tot_o, sub_o);
+    tile_end = (static_cast<uint32_t>(g) /
+                    static_cast<uint32_t>(a.tile_slots) + 1) *
+               a.tile_slots;
+  }
+  float pi[KPL];
+  onehot_pi<KPL, kTiled>(a, g, c, kc, kn, lane, e, t, pi);
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    sub_n[j] = __fadd_rn(sub_n[j], __fmul_rn(c, pi[j]));
+    sub_o[j] = __fadd_rn(sub_o[j], __fmul_rn(c, o[j]));
+  }
+}
+
+// Sorted positions [lo, hi) in token order into the sums, two slots'
+// loads in flight at a time; before(i) runs before position i is added
+// (the stream of a warp's ids closes the ids that end there). Each warp's
+// walk is a chain of dependent loads (order -> row -> pi), so the order
+// entries and counts of 32 slots come in one load each, and their rows
+// are prefetched into L2 as they arrive.
+template <int KPL, bool kTiled, typename Before>
+__device__ __forceinline__ void onehot_walk(
+    const OnehotArgs& a, int64_t lo, int64_t hi, int kc, int kn, int lane,
+    float (&tot_n)[KPL], float (&tot_o)[KPL], float (&sub_n)[KPL],
+    float (&sub_o)[KPL], int64_t& tile_end, Before before) {
+  const int K = a.K;
+  const bool old = a.old_pi != nullptr;
+  for (int64_t i0 = lo; i0 < hi; i0 += kWarp) {
+    int64_t my_g = 0;
+    float my_c = 0.f;
+    if (i0 + lane < hi) {
+      my_g = a.order[i0 + lane];
+      my_c = a.cnts[my_g];
+      prefetch_row(a.eb_tok + my_g * K, K);
+      if (old) prefetch_row(a.old_pi + my_g * K + kc, kn);
+    }
+    const int m = static_cast<int>(min(static_cast<int64_t>(kWarp), hi - i0));
+    for (int u = 0; u < m; u += 2) {
+      const int u1 = min(u + 1, m - 1);
+      const int64_t g0 = __shfl_sync(0xffffffffu, my_g, u);
+      const int64_t g1 = __shfl_sync(0xffffffffu, my_g, u1);
+      const float c0 = __shfl_sync(0xffffffffu, my_c, u);
+      const float c1 = __shfl_sync(0xffffffffu, my_c, u1);
+      float e0[KPL], t0[KPL], o0[KPL], e1[KPL], t1[KPL], o1[KPL];
+      onehot_load<KPL>(a, g0, kc, kn, lane, old, e0, t0, o0);
+      onehot_load<KPL>(a, g1, kc, kn, lane, old, e1, t1, o1);
+      before(i0 + u);
+      onehot_add<KPL, kTiled>(a, g0, c0, kc, kn, lane, e0, t0, o0, tot_n,
+                              tot_o, sub_n, sub_o, tile_end);
+      if (u1 > u) {
+        before(i0 + u1);
+        onehot_add<KPL, kTiled>(a, g1, c1, kc, kn, lane, e1, t1, o1, tot_n,
+                                tot_o, sub_n, sub_o, tile_end);
+      }
+    }
+  }
+}
+
+// The first sorted position in [lo, hi) whose slot is >= gmin (hi if
+// none): slots ascend within a segment, so each step probes 32 evenly
+// spaced positions, one a lane.
+__device__ __forceinline__ int64_t first_slot_at_least(
+    const int64_t* __restrict__ order, int64_t lo, int64_t hi, int64_t gmin,
+    int lane) {
+  while (hi - lo > kWarp) {
+    const int64_t step = (hi - lo + kWarp - 1) / kWarp;
+    const int64_t probe = lo + (lane + 1) * step - 1;
+    const unsigned m =
+        __ballot_sync(0xffffffffu, probe >= hi || order[probe] >= gmin);
+    if (m == 0) return hi;
+    const int64_t nlo = lo + (__ffs(m) - 1) * step;
+    hi = min(hi, nlo + step);
+    lo = nlo;
+  }
+  const unsigned m = __ballot_sync(0xffffffffu,
+                                   lo + lane >= hi || order[lo + lane] >= gmin);
+  return m ? lo + __ffs(m) - 1 : hi;
+}
+
+template <int KPL>
+__device__ __forceinline__ void store_sums(float* out, const float (&v)[KPL],
+                                           int kc, int kn, int lane) {
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int k = kc + lane + j * kWarp;
+    if (k < kc + kn) out[k] = v[j];
   }
 }
 
 template <int KPL, bool kTiled>
-__global__ void __launch_bounds__(kOnehotThreads)
-    onehot_partials_kernel(const int32_t* __restrict__ ids,
-                           const float* __restrict__ cnts,
-                           const float* __restrict__ eb_tok,
-                           const float* __restrict__ old_pi,
-                           const float* __restrict__ et, float* pi,
-                           float* __restrict__ part_new,
-                           float* __restrict__ part_old, int L, int K,
-                           int block_b, int vp, int quantize) {
-  __shared__ int s_slot[kOnehotThreads];
-  __shared__ int s_row[kOnehotThreads];
-  __shared__ int s_warp_off[kWarp];
-  __shared__ int s_n;
-  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
-  const int j = blockIdx.x;
-  const int v_lo = j * kOnehotBV;
-  const int64_t slot0 = static_cast<int64_t>(blockIdx.y) * block_b * L;
-  const int nslots = block_b * L;
-  const bool has_old = old_pi != nullptr;
+__global__ void __launch_bounds__(kOnehotThreads, 2)
+    onehot_kernel(const OnehotArgs a) {
+  constexpr int KP = KPL * kWarp;
+  __shared__ float part[2][kOnehotWarps][KP];   // long segments: new, old
+  __shared__ int64_t cut[kOnehotWarps + 1];
+  __shared__ unsigned long_ids[kOnehotWarps];   // per warp, bit t: id t
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int K = a.K;
   // this block's topics [kc, kc + kn); all K (<= 128) when not tiled
-  const int kc = kTiled ? blockIdx.z * kDenseK : 0;
+  const int kc = kTiled ? blockIdx.y * kDenseK : 0;
   const int kn = kTiled ? min(kDenseK, K - kc) : K;
-
-  float acc_new[kOnehotRowsPerWarp][KPL], acc_old[kOnehotRowsPerWarp][KPL];
+  float tot_n[KPL], tot_o[KPL], sub_n[KPL], sub_o[KPL];
+  auto clear = [&]() {
 #pragma unroll
-  for (int q = 0; q < kOnehotRowsPerWarp; ++q)
-#pragma unroll
-    for (int jj = 0; jj < KPL; ++jj) acc_new[q][jj] = acc_old[q][jj] = 0.f;
+    for (int j = 0; j < KPL; ++j) tot_n[j] = tot_o[j] = sub_n[j] = sub_o[j] = 0.f;
+  };
 
-  for (int c0 = 0; c0 < nslots; c0 += kOnehotThreads) {
-    // 1. this tile's slots, compacted in token order: local row, or -1 for
-    //    a slot whose pi this block writes but scatters nowhere
-    const int s = c0 + tid;
-    int row = -2;
-    if (s < nslots) {
-      const int id = ids[slot0 + s];
-      if (id >= v_lo && id < v_lo + kOnehotBV) {
-        row = id - v_lo;
-      } else if (j == 0 && (id < 0 || id >= vp)) {
-        row = -1;
+  // 1. slots outside every segment, 32 a warp at a time: their pi rows
+  //    only (zeros, without loading the row, where the count is not > 0)
+  {
+    const int64_t lo_end = a.seg_off[0], hi_start = a.seg_off[a.V];
+    const int64_t n_out = lo_end + (a.N - hi_start);
+    for (int64_t i0 = (static_cast<int64_t>(blockIdx.x) * kOnehotWarps +
+                       warp) * kWarp;
+         i0 < n_out;
+         i0 += static_cast<int64_t>(gridDim.x) * kOnehotWarps * kWarp) {
+      const int64_t i = i0 + lane;
+      int64_t my_g = 0;
+      float my_c = 0.f;
+      if (i < n_out) {
+        my_g = a.order[i < lo_end ? i : hi_start + (i - lo_end)];
+        my_c = a.cnts[my_g];
+      }
+      const int m = static_cast<int>(
+          min(static_cast<int64_t>(kWarp), n_out - i0));
+      for (int u = 0; u < m; ++u) {
+        const int64_t g = __shfl_sync(0xffffffffu, my_g, u);
+        const float c = __shfl_sync(0xffffffffu, my_c, u);
+        float e[KPL], t[KPL], o[KPL], pi[KPL];
+        if (c > 0.f) onehot_load<KPL>(a, g, kc, kn, lane, false, e, t, o);
+        onehot_pi<KPL, kTiled>(a, g, c, kc, kn, lane, e, t, pi);
       }
     }
-    const unsigned mine = __ballot_sync(0xffffffffu, row != -2);
-    if (lane == 0) s_warp_off[warp] = __popc(mine);
-    __syncthreads();
-    if (warp == 0) {
-      const int n = s_warp_off[lane];
-      int incl = n;
-#pragma unroll
-      for (int o = 1; o < kWarp; o <<= 1) {
-        const int up = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += up;
-      }
-      s_warp_off[lane] = incl - n;
-      if (lane == kWarp - 1) s_n = incl;
-    }
-    __syncthreads();
-    if (row != -2) {
-      const int pos = s_warp_off[warp] + __popc(mine & ((1u << lane) - 1u));
-      s_slot[pos] = s;
-      s_row[pos] = row;
-    }
-    __syncthreads();
-    const int n = s_n;
+  }
 
-    // 2. pi of the compacted slots, one warp per slot
-    for (int t = warp; t < n; t += kOnehotThreads / kWarp) {
-      const int64_t g = slot0 + s_slot[t];
-      float* out = pi + g * K;
-      if (!(cnts[g] > 0.f)) {
-        for (int k = kc + lane; k < kc + kn; k += kWarp) out[k] = 0.f;
-      } else if (kTiled) {
-        token_pi_cols(out, eb_tok + g * K, et + (g / L) * K, K, kc, kc + kn,
-                      lane, quantize);
-      } else {
-        token_pi_row(out, eb_tok + g * K, et + (g / L) * K, K, lane,
-                     quantize);
-      }
+  // 2. the warp's ids, segments of at most kOnehotLong slots: their
+  //    positions are one contiguous run of the order, walked as one
+  //    stream (long segments left out), each id's sums stored when the
+  //    stream passes its last position (zeros for an empty id)
+  const int64_t block_v =
+      static_cast<int64_t>(blockIdx.x) * kOnehotWarps * kOnehotIds;
+  const int64_t v0 = block_v + warp * kOnehotIds;
+  const int nvalid = static_cast<int>(max(
+      static_cast<int64_t>(0),
+      min(static_cast<int64_t>(kOnehotIds), a.V - v0)));
+  int64_t lo = 0, hi = 0;   // lane t < nvalid: id v0 + t's positions
+  if (lane < nvalid) {
+    lo = a.seg_off[v0 + lane];
+    hi = a.seg_off[v0 + lane + 1];
+  }
+  const unsigned longs_all =
+      __ballot_sync(0xffffffffu, lane < nvalid && hi - lo > kOnehotLong);
+  if (lane == 0) long_ids[warp] = longs_all;
+  clear();
+  int t = 0;                                        // the id being summed
+  int64_t t_hi = __shfl_sync(0xffffffffu, hi, 0);   // one past its last
+  int64_t tile_end = -1;
+  // store id t's sums and move on to id t + 1
+  auto flush = [&]() {
+    add_into<KPL>(tot_n, sub_n);
+    add_into<KPL>(tot_o, sub_o);
+    store_sums<KPL>(a.s_new + (v0 + t) * K, tot_n, kc, kn, lane);
+    if (a.s_old != nullptr) {
+      store_sums<KPL>(a.s_old + (v0 + t) * K, tot_o, kc, kn, lane);
     }
-    __syncthreads();   // the block's pi writes are visible to all its warps
+    clear();
+    tile_end = -1;
+    ++t;
+    t_hi = __shfl_sync(0xffffffffu, hi, t & (kWarp - 1));
+  };
+  // the warp's run up to the next long segment, then on past it
+  int64_t pos = __shfl_sync(0xffffffffu, lo, 0);
+  unsigned longs = longs_all;
+  while (true) {
+    const int next = longs ? __ffs(longs) - 1 : nvalid;
+    const int64_t stop =
+        next < nvalid ? __shfl_sync(0xffffffffu, lo, next)
+                      : __shfl_sync(0xffffffffu, hi, max(nvalid - 1, 0));
+    onehot_walk<KPL, kTiled>(a, pos, stop, kc, kn, lane, tot_n, tot_o, sub_n,
+                             sub_o, tile_end, [&](int64_t i) {
+                               while (t_hi <= i) flush();
+                             });
+    if (next >= nvalid) break;
+    while (t < next) flush();
+    // id `next` is long: the block sums and stores it below
+    t = next + 1;
+    t_hi = __shfl_sync(0xffffffffu, hi, t & (kWarp - 1));
+    pos = __shfl_sync(0xffffffffu, hi, next);
+    longs &= longs - 1;
+  }
+  while (t < nvalid) flush();
 
-    // 3. cnt * pi into this warp's rows, in token order
-    for (int t0 = 0; t0 < n; t0 += kWarp) {
-      const int t = t0 + lane;
-      const int r = t < n ? s_row[t] : -1;
-      unsigned match =
-          __ballot_sync(0xffffffffu, r >= 0 && (r & (kWarp - 1)) == warp);
-      while (match) {
-        const int src = __ffs(match) - 1;
-        match &= match - 1;
-        const int q = __shfl_sync(0xffffffffu, r, src) / kWarp;
-        const int64_t g = slot0 + s_slot[t0 + src];
-        const float cnt = cnts[g];
+  // 3. the block's long segments, 8 B tiles a round over its warps
+  __syncthreads();
+  for (int w = 0; w < kOnehotWarps; ++w) {
+    for (unsigned m = long_ids[w]; m != 0; m &= m - 1) {   // block-uniform
+      const int64_t v = block_v + w * kOnehotIds + (__ffs(m) - 1);
+      const int64_t start = a.seg_off[v], end = a.seg_off[v + 1];
+      clear();
+      int64_t next = start;
+      while (next < end) {
+        // the round's first tile: the next slot's
+        const int64_t t0 = static_cast<uint32_t>(a.order[next]) /
+                           static_cast<uint32_t>(a.tile_slots);
+        const int64_t from = first_slot_at_least(
+            a.order, next, end, (t0 + warp) * a.tile_slots, lane);
+        if (lane == 0) cut[warp] = from;
+        if (warp == kOnehotWarps - 1) {
+          const int64_t to = first_slot_at_least(
+              a.order, from, end, (t0 + kOnehotWarps) * a.tile_slots, lane);
+          if (lane == 0) cut[kOnehotWarps] = to;
+        }
+        __syncthreads();
+        float pn[KPL], po[KPL], none[KPL];
 #pragma unroll
-        for (int jj = 0; jj < KPL; ++jj) {
-          const int k = kc + lane + jj * kWarp;
-          if (k < kc + kn) {
-            const float wn = cnt * pi[g * K + k];
-            const float wo = has_old ? cnt * old_pi[g * K + k] : 0.f;
+        for (int j = 0; j < KPL; ++j) pn[j] = po[j] = none[j] = 0.f;
+        int64_t tile_end = (t0 + warp + 1) * a.tile_slots;   // one tile
+        onehot_walk<KPL, kTiled>(a, cut[warp], cut[warp + 1], kc, kn, lane,
+                                 none, none, pn, po, tile_end,
+                                 [](int64_t) {});
 #pragma unroll
-            for (int qq = 0; qq < kOnehotRowsPerWarp; ++qq) {
-              if (qq == q) {
-                acc_new[qq][jj] += wn;
-                acc_old[qq][jj] += wo;
-              }
+        for (int j = 0; j < KPL; ++j) {
+          part[0][warp][lane + j * kWarp] = pn[j];
+          part[1][warp][lane + j * kWarp] = po[j];
+        }
+        __syncthreads();
+        // warp 0 adds the round's S_new sums to its tot_n, warp 1 the S_old
+        // sums to its own tot_n
+        if (warp < 2) {
+#pragma unroll
+          for (int j = 0; j < KPL; ++j) {
+            for (int q = 0; q < kOnehotWarps; ++q) {
+              tot_n[j] = __fadd_rn(tot_n[j], part[warp][q][lane + j * kWarp]);
             }
           }
         }
+        next = cut[kOnehotWarps];
+        __syncthreads();   // `part` and `cut` are refilled next round
       }
-    }
-    __syncthreads();   // s_slot / s_row are refilled by the next pass
-  }
-
-  // 4. every row of this block's partial slice, written once
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * vp + v_lo;
-#pragma unroll
-  for (int q = 0; q < kOnehotRowsPerWarp; ++q) {
-    const int64_t v = base + warp + q * kWarp;
-#pragma unroll
-    for (int jj = 0; jj < KPL; ++jj) {
-      const int k = kc + lane + jj * kWarp;
-      if (k < kc + kn) {
-        part_new[v * K + k] = acc_new[q][jj];
-        if (has_old) part_old[v * K + k] = acc_old[q][jj];
+      if (warp == 0) store_sums<KPL>(a.s_new + v * K, tot_n, kc, kn, lane);
+      if (warp == 1 && a.s_old != nullptr) {
+        store_sums<KPL>(a.s_old + v * K, tot_n, kc, kn, lane);
       }
     }
   }
-}
-
-// S[e] = sum over i of part[i][e] for the first V * K elements of each
-// (Vp, K) partial, in index order i = 0, 1, ..., nb - 1.
-__global__ void __launch_bounds__(256)
-    onehot_reduce_kernel(const float* __restrict__ part,
-                         float* __restrict__ out, int nb, int64_t n,
-                         int64_t stride) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (e >= n) return;
-  float s = 0.f;
-  for (int i = 0; i < nb; ++i) s += part[i * stride + e];
-  out[e] = s;
 }
 
 // K1's dynamic shared memory for K topics: the warps' partial vectors
@@ -1809,64 +2409,76 @@ cudaError_t dispatch_fixed_point(FpArgs a, cudaStream_t stream) {
       fp_smem_bytes(a.K, a.B, a.block_b, a.group), stream);
 }
 
-// K6's V tiles per split for B rows and V columns: about kSweepBlocks
-// blocks in all, at most one split per V tile. A function of the shape
-// only, so the partial sums, and with them gamma's bits, do not depend on
-// the card.
-int sweep_tiles_per_split(int B, int V) {
-  const int row_tiles = std::max(1, (B + kSweepBM - 1) / kSweepBM);
-  const int vtiles = (V + kSweepBV - 1) / kSweepBV;
-  const int want =
-      std::max(1, std::min((kSweepBlocks + row_tiles - 1) / row_tiles, vtiles));
+// K6's tiles for K topics: the tensor-core instance's at K <= 128 (128 rows
+// by 64 columns, one ticket a row tile), the SIMT instance's above (64 rows
+// by 32 columns, one ticket a (row tile, K tile)).
+struct SweepTiles {
+  int bm, bv, blocks, ktiles;
+};
+
+SweepTiles sweep_tiles(int K) {
+  if (K <= kDenseK) return {sweep_tc::kBM, sweep_tc::kBV, sweep_tc::kBlocks, 1};
+  return {kSweepBM, kSweepBV, kSweepBlocks, (K + kDenseK - 1) / kDenseK};
+}
+
+// K6's V tiles per split for B rows, V columns and K topics: about the
+// instance's aim of blocks in all (per K tile), at most one split per V
+// tile. The tensor-core instance rounds the splits a row tile down, so
+// its one-block-an-SM launch stays within one wave; the SIMT instance
+// rounds up, as it did before the tensor-core one. A function of the
+// shape only, so the partial sums, and with them gamma's bits, do not
+// depend on the card.
+int sweep_tiles_per_split(int B, int V, int K) {
+  const SweepTiles st = sweep_tiles(K);
+  const int row_tiles = std::max(1, (B + st.bm - 1) / st.bm);
+  const int vtiles = (V + st.bv - 1) / st.bv;
+  const int aim = K <= kDenseK ? st.blocks / row_tiles
+                               : (st.blocks + row_tiles - 1) / row_tiles;
+  const int want = std::max(1, std::min(aim, vtiles));
   return std::max(1, (vtiles + want - 1) / want);
 }
 
 // K6's splits: the V tiles cut into runs of sweep_tiles_per_split, none
 // empty (at least one split, so a V of 0 still writes gamma' = alpha0).
-int sweep_splits(int B, int V) {
-  const int vtiles = (V + kSweepBV - 1) / kSweepBV;
-  const int per = sweep_tiles_per_split(B, V);
+int sweep_splits(int B, int V, int K) {
+  const int vtiles = (V + sweep_tiles(K).bv - 1) / sweep_tiles(K).bv;
+  const int per = sweep_tiles_per_split(B, V, K);
   return std::max(1, (vtiles + per - 1) / per);
 }
 
 template <int KPL, bool kTiled>
-cudaError_t launch_memo_delta_onehot(const int32_t* ids, const float* cnts,
-                                     const float* eb_tok, const float* old_pi,
-                                     const float* et, float* pi,
-                                     float* part_new, float* part_old,
-                                     float* s_new, float* s_old, int B, int L,
-                                     int K, int V, int block_b, int vp,
-                                     int quantize, cudaStream_t stream) {
-  const dim3 grid(vp / kOnehotBV, B / block_b, (K + kDenseK - 1) / kDenseK);
-  onehot_partials_kernel<KPL, kTiled><<<grid, kOnehotThreads, 0, stream>>>(
-      ids, cnts, eb_tok, old_pi, et, pi, part_new, part_old, L, K, block_b,
-      vp, quantize);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int nb = B / block_b;
-  const int64_t n = static_cast<int64_t>(V) * K;
-  const int64_t stride = static_cast<int64_t>(vp) * K;
-  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
-  onehot_reduce_kernel<<<blocks, 256, 0, stream>>>(part_new, s_new, nb, n,
-                                                   stride);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || old_pi == nullptr) return err;
-  onehot_reduce_kernel<<<blocks, 256, 0, stream>>>(part_old, s_old, nb, n,
-                                                   stride);
+cudaError_t launch_onehot(const OnehotArgs& a, cudaStream_t stream) {
+  constexpr int per_block = kOnehotWarps * kOnehotIds;
+  const dim3 grid(std::max(1, (a.V + per_block - 1) / per_block),
+                  kTiled ? (a.K + kDenseK - 1) / kDenseK : 1);
+  onehot_kernel<KPL, kTiled><<<grid, kOnehotThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-// K6 / K7 on the single-tile (K <= 128) or the K-tiled instance.
-template <bool kTiled>
+template <int KC>
+cudaError_t launch_sweep_tc(dim3 grid, cudaStream_t stream, const float* c,
+                            const float* et, const float* eb, float* out,
+                            float* part, int* tickets, int B, int V, int K,
+                            float alpha0, int tiles_per_split) {
+  constexpr int smem = sweep_tc::Cfg<KC>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sweep_tc::sweep_tc_kernel<KC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  sweep_tc::sweep_tc_kernel<KC><<<grid, sweep_tc::kThreads, smem, stream>>>(
+      c, et, eb, out, part, tickets, B, V, K, alpha0, tiles_per_split);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_sweep(dim3 grid, cudaStream_t stream, const float* c,
                          const float* et, const float* eb, float* out,
                          float* part, int* tickets, int B, int V, int K,
                          float alpha0, int tiles_per_split) {
   const cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<kTiled>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSweepSmem));
   if (err != cudaSuccess) return err;
-  sweep_kernel<kTiled><<<grid, kDenseThreads, kSweepSmem, stream>>>(
+  sweep_kernel<<<grid, kDenseThreads, kSweepSmem, stream>>>(
       c, et, eb, out, part, tickets, B, V, K, alpha0, tiles_per_split);
   return cudaGetLastError();
 }
@@ -2074,29 +2686,35 @@ int lda_segment_scatter(const int64_t* order, const int64_t* seg_off, int V,
   return cudaGetLastError();
 }
 
-// K tiles of the dense kernels K6, K7 and K8 (128 topics each): K6's
-// tickets are one per (64-row tile, K tile).
-int lda_dense_k_tiles(int K) { return (K + kDenseK - 1) / kDenseK; }
+// K6's V splits for B rows, V columns and K topics: the first dimension
+// of its `part` scratch (splits, B, K).
+int lda_sweep_splits(int B, int V, int K) { return sweep_splits(B, V, K); }
 
-// K6's V splits for B rows and V columns: the first dimension of its
-// `part` scratch (splits, B, K).
-int lda_sweep_splits(int B, int V) { return sweep_splits(B, V); }
+// K6's tickets for B rows and K topics: one per row tile of its instance
+// (and per 128-topic tile above 128 topics).
+int lda_sweep_tickets(int B, int K) {
+  const SweepTiles st = sweep_tiles(K);
+  return (B + st.bm - 1) / st.bm * st.ktiles;
+}
 
 int lda_sweep(const float* c, const float* et, const float* eb, float* out,
               float* part, int* tickets, int B, int V, int K, float alpha0,
               int nsplit, void* stream) {
   cudaGetLastError();
-  if (K < 1 || nsplit != sweep_splits(B, V)) return cudaErrorInvalidValue;
+  if (K < 1 || nsplit != sweep_splits(B, V, K)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const dim3 grid((B + kSweepBM - 1) / kSweepBM, nsplit,
-                  (K + kDenseK - 1) / kDenseK);
+  const SweepTiles st = sweep_tiles(K);
+  const dim3 grid((B + st.bm - 1) / st.bm, nsplit, st.ktiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_split = sweep_tiles_per_split(B, V);
-  return K > kDenseK
-             ? launch_sweep<true>(grid, s, c, et, eb, out, part, tickets, B,
-                                  V, K, alpha0, per_split)
-             : launch_sweep<false>(grid, s, c, et, eb, out, part, tickets, B,
-                                   V, K, alpha0, per_split);
+  const int per_split = sweep_tiles_per_split(B, V, K);
+  if (K > kDenseK) {
+    return launch_sweep(grid, s, c, et, eb, out, part, tickets, B, V, K,
+                        alpha0, per_split);
+  }
+  return K > 64 ? launch_sweep_tc<2>(grid, s, c, et, eb, out, part, tickets,
+                                     B, V, K, alpha0, per_split)
+                : launch_sweep_tc<1>(grid, s, c, et, eb, out, part, tickets,
+                                     B, V, K, alpha0, per_split);
 }
 
 int lda_sstats(const float* c, const float* et, const float* eb, float* out,
@@ -2112,41 +2730,38 @@ int lda_sstats(const float* c, const float* et, const float* eb, float* out,
              : launch_sstats<false>(blocks, s, c, et, eb, out, B, V, K);
 }
 
-// K8's V tile: the partials' vocabulary axis is padded to a multiple of it.
-int lda_onehot_block_v() { return kOnehotBV; }
-
-int lda_memo_delta_onehot(const int32_t* ids, const float* cnts,
+// K8 over N = B * L token slots (N < 2^31) in tiles of tile_slots =
+// block_b * L: order (N) and seg_off (V + 1) are K3's preparation of the
+// flat ids and counts (scatter_segments); eb_tok (N, K) the slots' Eφ rows,
+// old_pi (N, K) or nullptr, et (B, K). Writes pi (N, K) and every row of
+// s_new (and of s_old when old_pi is given).
+int lda_memo_delta_onehot(const int64_t* order, const int64_t* seg_off,
+                          int V, int64_t N, const float* cnts,
                           const float* eb_tok, const float* old_pi,
-                          const float* et, float* pi, float* part_new,
-                          float* part_old, float* s_new, float* s_old, int B,
-                          int L, int K, int V, int block_b, int vp,
+                          const float* et, float* pi, float* s_new,
+                          float* s_old, int L, int K, int64_t tile_slots,
                           int quantize, void* stream) {
   cudaGetLastError();
-  if (block_b < 1 || B % block_b != 0 || vp % kOnehotBV != 0 || vp < V ||
-      K < 1) {
+  if (V < 0 || N < 0 || N >= (int64_t{1} << 31) || L < 1 || K < 1 ||
+      tile_slots < 1) {
     return cudaErrorInvalidValue;
   }
-  if (B == 0 || vp == 0) return cudaSuccess;
+  if (N == 0 && V == 0) return cudaSuccess;
+  OnehotArgs a{order, seg_off, cnts,  eb_tok, old_pi, et, pi,
+               s_new, old_pi != nullptr ? s_old : nullptr,
+               N,     tile_slots, V, L, K, quantize};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K > kDenseK) {   // tiles of 128 topics over grid z
-    return launch_memo_delta_onehot<kDenseK / kWarp, true>(
-        ids, cnts, eb_tok, old_pi, et, pi, part_new, part_old, s_new, s_old,
-        B, L, K, V, block_b, vp, quantize, s);
-  }
-#define LDA_ONEHOT_CASE(N)                                                  \
-  case N:                                                                   \
-    return launch_memo_delta_onehot<N, false>(                              \
-        ids, cnts, eb_tok, old_pi, et, pi, part_new, part_old, s_new, s_old, \
-        B, L, K, V, block_b, vp, quantize, s);
+  if (K > kDenseK) return launch_onehot<kDenseK / kWarp, true>(a, s);
   switch ((K + kWarp - 1) / kWarp) {
-    LDA_ONEHOT_CASE(1)
-    LDA_ONEHOT_CASE(2)
-    LDA_ONEHOT_CASE(3)
-    LDA_ONEHOT_CASE(4)
+    case 1:
+      return launch_onehot<1, false>(a, s);
+    case 2:
+      return launch_onehot<2, false>(a, s);
+    case 3:
+      return launch_onehot<3, false>(a, s);
     default:
-      return cudaErrorInvalidValue;
+      return launch_onehot<4, false>(a, s);
   }
-#undef LDA_ONEHOT_CASE
 }
 
 }  // extern "C"

@@ -31,8 +31,9 @@ scatter), kept to measure the fused kernels against:
 * ``estep_sweep`` (K6) — one dense fixed-point sweep over a count matrix
   C (B, V); replaces ``_sweep_kernel``.
 * ``sstats`` (K7) — S = Eφ ⊙ (Rᵀ·Eθ) from C; replaces ``_sstats_kernel``.
-* ``memo_delta_onehot`` (K8) — π and the new/old masses through per-B-tile
-  (nb, V, K) partials; replaces ``_memo_delta_onehot_kernel``.
+* ``memo_delta_onehot`` (K8) — π and the new/old masses summed by B tile
+  in the baseline's order (the twin's per-B-tile partials; on the card one
+  segment pass with none); replaces ``_memo_delta_onehot_kernel``.
 
 Each kernel is CUDA C++ (``csrc/lda_estep.cu``, built and loaded by
 `repro_torch.kernels.build`) and has a plain PyTorch twin here computing
@@ -817,9 +818,10 @@ def estep_sweep(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor,
 
     Shapes: c (B, V), etheta (B, K), eb (V, K) float32 → (B, K). B and V
     must already be padded to the block grid (see ``ops.pad_inputs``). On
-    the card any K runs: above 128 topics the grid gains an axis over tiles
-    of 128, each block forming the whole denominator before its own tile's
-    columns.
+    the card K ≤ 128 runs on the tensor cores (bf16 × 3 split products,
+    fp32 accumulators, within the fp32 twin's 2e-5); above 128 topics the
+    SIMT kernel runs with an axis over tiles of 128, each block forming the
+    whole denominator before its own tile's columns.
     """
     b, v, k = _check_dense("estep_sweep", c, etheta, eb, block_b, block_v)
     if _on_cpu(c, etheta, eb):
@@ -828,11 +830,10 @@ def estep_sweep(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor,
     out = torch.empty((b, k), dtype=torch.float32, device=c.device)
     if b == 0:
         return out
-    splits = lib.lda_sweep_splits(b, v)
+    splits = lib.lda_sweep_splits(b, v, k)
     part = torch.empty((splits, b, k), dtype=torch.float32, device=c.device)
-    # one ticket per (64-row tile (the kernel's kSweepBM), K tile)
-    tickets = torch.zeros(-(-b // 64) * lib.lda_dense_k_tiles(k),
-                          dtype=torch.int32, device=c.device)
+    tickets = torch.zeros(lib.lda_sweep_tickets(b, k), dtype=torch.int32,
+                          device=c.device)
     rc = lib.lda_sweep(c.data_ptr(), etheta.data_ptr(), eb.data_ptr(),
                        out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
                        b, v, k, float(alpha0), splits, _stream(c))
@@ -868,8 +869,9 @@ def sstats(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 # The TPU kernel's VMEM budget for one grid step (``repro``'s
-# ``_DELTA_VMEM_BUDGET``): the B-tile, and with it the number of partials,
-# follows from it, so the card keeps the baseline's partial count.
+# ``_DELTA_VMEM_BUDGET``): the B-tile, and with it the order in which the
+# masses are summed (tile by tile), follows from it, so the card keeps the
+# baseline's sums.
 _DELTA_VMEM_BUDGET = 8 * 1024 * 1024
 
 
@@ -932,12 +934,13 @@ def memo_delta_onehot(token_ids: torch.Tensor, counts: torch.Tensor,
     Same contract as ``memo_delta`` with the gathered cube as input:
     token_ids int32 / counts float32 (B, L), eb_tok = Eφ[ids] (B, L, K),
     etheta (B, K), old_pi (B, L, K) → (π (B, L, K), S_new (V, K)[, S_old]).
-    The masses pass through nb = B / ``delta_effective_block_b(...)``
-    per-B-tile (nb, Vp, K) partials (Vp = V padded to ``block_v``), each
-    written once and summed over nb: the transient the segment-sum pair
-    (K2 + K3) removes. B must divide by the effective B-tile. On the card
-    the V tile is 128 (``block_v`` sets the B-tile and the padding only);
-    above 128 topics the grid gains an axis over tiles of 128 topics.
+    The masses are summed per B-tile of ``delta_effective_block_b(...)``
+    documents and the tiles' sums added in tile order (the twin's nb
+    per-B-tile (nb, Vp, K) partials, Vp = V padded to ``block_v``); B must
+    divide by that B-tile. On the card no partial exists: one launch walks
+    each id's slots in token order after K3's preparation (one stable sort,
+    one sorted search), with the same sums bit for bit; above 128 topics
+    the grid gains an axis over tiles of 128 topics.
     """
     b, l = token_ids.shape
     k = etheta.shape[1]
@@ -958,28 +961,23 @@ def memo_delta_onehot(token_ids: torch.Tensor, counts: torch.Tensor,
         return memo_delta_onehot_plain(token_ids, counts, eb_tok, etheta,
                                        vocab_size, old_pi, quantize=quantize,
                                        block_b=block_b, block_v=block_v)
+    if b * l >= 2 ** 31:
+        raise ValueError(f"memo_delta_onehot: {b * l} token slots exceed "
+                         "the kernel's 2^31")
     lib = build.load()
-    nb = b // bb
-    if nb > 65535 or bb * l >= 2 ** 31:
-        raise ValueError(f"memo_delta_onehot: {nb} B-tiles of {bb * l} slots "
-                         "exceed the kernel's grid")
-    tile_v = lib.lda_onehot_block_v()
-    vp = -(-vocab_size // tile_v) * tile_v
     dev = eb_tok.device
+    order, seg_off = scatter_segments(token_ids.reshape(-1),
+                                      counts.reshape(-1), vocab_size)
     pi = torch.empty((b, l, k), dtype=torch.float32, device=dev)
     s_new = torch.empty((vocab_size, k), dtype=torch.float32, device=dev)
-    part_new = torch.empty((nb, vp, k), dtype=torch.float32, device=dev)
-    s_old = part_old = None
-    if old_pi is not None:
-        s_old = torch.empty_like(s_new)
-        part_old = torch.empty_like(part_new)
+    s_old = None if old_pi is None else torch.empty_like(s_new)
     rc = lib.lda_memo_delta_onehot(
-        token_ids.data_ptr(), counts.data_ptr(), eb_tok.data_ptr(),
+        order.data_ptr(), seg_off.data_ptr(), vocab_size, b * l,
+        counts.data_ptr(), eb_tok.data_ptr(),
         None if old_pi is None else old_pi.data_ptr(), etheta.data_ptr(),
-        pi.data_ptr(), part_new.data_ptr(),
-        None if part_old is None else part_old.data_ptr(), s_new.data_ptr(),
-        None if s_old is None else s_old.data_ptr(), b, l, k, vocab_size, bb,
-        vp, int(bool(quantize)), _stream(eb_tok))
+        pi.data_ptr(), s_new.data_ptr(),
+        None if s_old is None else s_old.data_ptr(), l, k, bb * l,
+        int(bool(quantize)), _stream(eb_tok))
     build.check(rc, "lda_memo_delta_onehot")
     LAUNCHES["memo_delta_onehot"] += 1
     if old_pi is None:

@@ -560,11 +560,17 @@ def _dense_inputs(cuda, b, v, k, seed):
 
 @pytest.mark.parametrize("b,v,k", [(256, 3000, 100), (100, 517, 128),
                                    (64, 96, 7), (64, 600, 300),
-                                   (32, 300, 1000)])
+                                   (32, 300, 1000),
+                                   # K6's tensor-core tiling (128 rows, 64
+                                   # columns, 64 or 128 topics) at its edges
+                                   (1, 50, 1), (200, 1000, 128),
+                                   (130, 777, 64), (129, 333, 65),
+                                   (100, 517, 129)])
 def test_sweep_and_sstats_kernels_match_twins(cuda, fp32_matmul, b, v, k):
     """K6 and K7 against the dense oracles at 2e-5 (tests/test_kernels.py's
     bar), ragged B and V tiles included, and the same bits on a second
-    launch (K6 sums its V splits in a fixed order)."""
+    launch (K6 sums its V splits in a fixed order). K6 runs on the tensor
+    cores up to 128 topics and on the SIMT cores above."""
     c, et, eb = _dense_inputs(cuda, b, v, k, b + v)
     got = lda_estep.estep_sweep(c, et, eb, 0.5, block_b=b, block_v=v)
     again = lda_estep.estep_sweep(c, et, eb, 0.5, block_b=b, block_v=v)
@@ -605,7 +611,7 @@ def test_estep_cuda_sweeps_matches_twin_path(cuda, fp32_matmul):
 @pytest.mark.parametrize("k", [100, 128, 20])
 def test_memo_delta_onehot_kernel_matches_twin_and_k2(cuda, k):
     """K8 against its twin (π 1e-5 / 1e-6, masses 1e-4) over nb = 2
-    partials, and with ``quantize`` its π equal to K2's bit for bit."""
+    B-tiles, and with ``quantize`` its π equal to K2's bit for bit."""
     rng = np.random.default_rng(k)
     b, l, v = 64, 40, 700
     ids = torch.from_numpy(rng.integers(0, v, (b, l)).astype(np.int32)
@@ -631,6 +637,47 @@ def test_memo_delta_onehot_kernel_matches_twin_and_k2(cuda, k):
                                quantize=True)
     assert torch.equal(one[0], seg[0])
     for x, y in zip(one[1:], seg[1:]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [100, 300])
+def test_memo_delta_onehot_allocates_no_partials_and_takes_skew(cuda, k):
+    """K8 in one pass: at B = 256 (16 B-tiles of its twin at K = 100) its
+    peak memory above the inputs is π, S_new, S_old and the sort's
+    scratch, below one (nb, Vp, K) partial; with one id in every document
+    (a segment the block sums by B tiles) it matches its twin and the same
+    bits come from two launches."""
+    rng = np.random.default_rng(k + 1)
+    b, l, v = 256, 48, 3000
+    ids = torch.from_numpy(rng.integers(0, v, (b, l)).astype(np.int32)
+                           ).to(cuda)
+    ids[:, 0] = 11
+    cnts = torch.from_numpy((rng.poisson(1.0, (b, l)) + (np.arange(l) < 4))
+                            .astype(np.float32)).to(cuda)
+    eb = torch.from_numpy(rng.gamma(1.0, 1.0, (v, k)).astype(np.float32)
+                          ).to(cuda)
+    et = torch.from_numpy(rng.gamma(1.0, 1.0, (b, k)).astype(np.float32)
+                          ).to(cuda)
+    old = torch.from_numpy(rng.random((b, l, k)).astype(np.float32)).to(cuda)
+    ebt = eb[ids.long()].contiguous()
+    nb = b // lda_estep.delta_effective_block_b(b, l, k)
+    vp = -(-v // 128) * 128
+    assert nb > 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outputs = (b * l * k + 2 * v * k) * 4
+    assert peak < outputs + nb * vp * k * 4
+    # the sort's keys, order and scratch, the sorted search's cuts
+    assert peak < outputs + b * l * 64 + (v + 1) * 16 + (1 << 20)
+    again = lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v, old_pi=old)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = lda_estep.memo_delta_onehot_plain(ids, cnts, ebt, et, v, old)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for x, y in zip(got[1:], want[1:]):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
 
 
@@ -889,7 +936,8 @@ def test_memo_delta_onehot_above_128_topics(cuda, k):
 def test_k100_instances_keep_the_parent_bits(cuda):
     """K1, K4, K3, K6, K7 and K8 at K = 100 on chip_smoke's seeded digest
     inputs give the outputs the parent commit's kernels gave (their sha256
-    recorded in chip_smoke.py from a run of the parent's build)."""
+    recorded in chip_smoke.py from a run of the parent's build; K6's from
+    its tensor-core design's, which sums in another order by design)."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))

@@ -76,6 +76,55 @@ def test_sstats_twin_matches_pallas_kernel(b, v, k, bb, bv):
     _close(got, want, 2e-5, 2e-5)
 
 
+# K6's tensor-core arithmetic on the card (csrc/lda_estep.cu, sweep_tc):
+# every fp32 operand split into three bf16 parts, six part products in
+# fp32, smallest first. The card tests' shapes (tests/test_torch_gpu.py),
+# made here with numpy: the tiling's edges, and K = 300 and 1,000.
+CARD_SWEEP_SHAPES = [(256, 3000, 100), (100, 517, 128), (64, 96, 7),
+                     (1, 50, 1), (200, 1000, 128), (130, 777, 64),
+                     (129, 333, 65), (64, 600, 300), (32, 300, 1000)]
+SPLIT_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def _split3(x):
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    return hi, mid, (x - hi - mid).to(torch.bfloat16).float()
+
+
+def _split_matmul(a, b, pairs=SPLIT_PAIRS):
+    pa, pb = _split3(a), _split3(b)
+    out = torch.zeros((a.shape[0], b.shape[1]))
+    for i, j in pairs:
+        out = out + pa[i] @ pb[j]
+    return out
+
+
+def _sweep_split(c, et, eb, alpha0, pairs=SPLIT_PAIRS):
+    s = _split_matmul(et, eb.T, pairs)
+    return alpha0 + et * _split_matmul(c / (s + 1e-30), eb, pairs)
+
+
+@pytest.mark.parametrize("b,v,k,card", [s[:3] + (False,) for s in SHAPES]
+                         + [s + (True,) for s in CARD_SWEEP_SHAPES])
+def test_sweep_bf16x3_split_meets_the_twin_bar(b, v, k, card):
+    """K6's split (bf16 hi + mid + lo, six products) emulated in torch holds
+    the fp32 twin to its 2e-5 bar on this file's shapes and on the card
+    tests'; one bf16 product (the hi parts alone) does not."""
+    if card:
+        rng = np.random.default_rng(b + v)
+        c = _t(rng.poisson(0.3, (b, v)).astype(np.float32))
+        et = _t((rng.random((b, k)) + 0.05).astype(np.float32))
+        eb = _t((rng.random((v, k)) + 0.05).astype(np.float32))
+    else:
+        c, et, eb = map(_t, _dense(b + v + k, b, v, k))
+    want = ref.estep_sweep_ref(c, et, eb, 0.5)
+    torch.testing.assert_close(_sweep_split(c, et, eb, 0.5), want,
+                               rtol=2e-5, atol=2e-5)
+    one_pass = _sweep_split(c, et, eb, 0.5, pairs=((0, 0),))
+    assert not torch.allclose(one_pass, want, rtol=2e-5, atol=2e-5)
+
+
 def test_dense_oracles_match_repro():
     c, et, eb = _dense(5, 12, 90, 7)
     _close(ref.estep_sweep_ref(_t(c), _t(et), _t(eb), 0.3),
