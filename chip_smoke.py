@@ -7,8 +7,9 @@ Phases, each printing one JSON line; any failure exits non-zero. The padded
 path first:
   1. device  — nvidia-smi's name and power limit, torch's device name/count
   2. build   — nvcc builds the kernels from src/repro_torch/kernels/csrc;
-               K1/K4's instance at K = 100 and K6's tensor-core instances
-               must not spill registers
+               K1/K4's instance at K = 100, K6's and K7's tensor-core
+               instances and their R pass must not spill registers (their
+               register counts printed), and ptxas must serialize no wgmma
   3. kernels — each kernel against its plain twin at the path's shapes
                (Arxiv: V = 141,927, K = 100, B = 1024), then timed; K1
                and K3 also give the same bits on two launches; K1 with its
@@ -104,17 +105,19 @@ then the facade, serving and checkpoints, D-IVI, and the lifted K caps:
                LDA(algo="divi") bit-equal to the run that never stopped
  23. kcap    — K1, K4, K3, K6, K7 and K8 at K = 300 and 1,000 against
                their twins on the first 256 documents (K8: 16) at the
-               Arxiv V, timed beside their bounds; every fixed-point
-               instance's spills; at K = 100 the parent commit's bits
-               (sha256 of each kernel's outputs on seeded inputs; K1 at
-               one group, group = B)
+               Arxiv V, timed beside their bounds (K6 and K7, on the
+               tensor cores in two passes, below their twins and beside
+               their split's floor); every fixed-point instance's spills;
+               at K = 100 the parent commit's bits (sha256 of each
+               kernel's outputs on seeded inputs; K1 at one group,
+               group = B; K7's re-anchored)
 then the pre-fusion baseline and attention:
  24. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
                one-hot memo delta (K8) on phase 3's documents, λ and γ₀:
-               each kernel against its twin and timed (K6 on the tensor
-               cores, bound_ms its bf16 x 3 floor there: at least 15% of
-               that floor's rate, half its fp32 bound's and below its
-               twin; K8 at
+               each kernel against its twin and timed (K6 and K7 on the
+               tensor cores, bound_ms their bf16 x 3 floor there: at
+               least 30% of that floor's rate, half their fp32 bound's
+               and below their twins; K8 at
                most K2 + K3's device time a call, its peak memory at most
                π + 2·S + 0.5 GB, and again with one id in every document);
                the whole E-step against the same loop over the twins; the
@@ -145,9 +148,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
-# K6 at the legacy shape: at least this share of its tensor-core floor's
-# rate (it reached 22% on an NVIDIA H100 80GB HBM3 at 700 W)
-K6_FLOOR_SHARE = 0.15
+# K6 and K7 at the legacy shape: at least this share of their tensor-core
+# floor's rate, sweep_tc_bound (K6 reached 45% of it on an NVIDIA H100
+# 80GB HBM3 at 700 W): ms <= 0.4527 / 0.30 = 1.509 ms
+DENSE_FLOOR_SHARE = 0.30
 # operations per element of the in-kernel exp(E[ln θ]): two series digammas
 # (8 divisions + 8 additions + log + 6 series terms each), a subtraction and
 # an exp, counting a division, log or exp as one operation
@@ -236,29 +240,51 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
-    """Mean device time of one launch of the CUDA kernel whose name holds
-    ``kernel`` (``fn`` launches it once), by torch.profiler over ``reps``
-    calls after one warm-up: the kernel alone, where a wrapper's host work
-    may outlast it and hold back back-to-back calls. The mean is over the
-    launches the profiler recorded: it can miss the first ones while it
-    starts up (with 5 ms kernels it kept 3 of 5)."""
+def profiled(fn, reps: int):
+    """torch.profiler's device events over ``reps`` calls of ``fn`` after
+    one warm-up. A session that recorded no device time at all is taken
+    again, twice at most: the profiler once came back empty from a whole
+    session in a run of this script on the H100 while the sessions before
+    and after it recorded as usual."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel in e.key]
-    total = sum(e.self_device_time_total for e in events)
-    launches = sum(e.count for e in events)
-    check(total > 0 and 0 < launches <= reps,
-          f"kernel_ms: {launches} launches of {kernel} recorded")
-    return total / 1e3 / launches
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in events) > 0:
+            break
+    return events
+
+
+def kernels_ms(fn, kernels, reps: int = 10):
+    """Mean device time of one launch of each CUDA kernel whose name holds
+    one of ``kernels`` (``fn`` launches each once), from one profiler
+    session over ``reps`` calls after one warm-up: the kernels alone,
+    where a wrapper's host work may outlast them and hold back
+    back-to-back calls. The mean is over the launches the profiler
+    recorded: it can miss the first ones while it starts up (with 5 ms
+    kernels it kept 3 of 5)."""
+    events = profiled(fn, reps)
+    out = {}
+    for kernel in kernels:
+        mine = [e for e in events if kernel in e.key]
+        total = sum(e.self_device_time_total for e in mine)
+        launches = sum(e.count for e in mine)
+        check(total > 0 and 0 < launches <= reps,
+              f"kernel_ms: {launches} launches of {kernel} recorded")
+        out[kernel] = total / 1e3 / launches
+    return out
+
+
+def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
+    """``kernels_ms`` of one kernel."""
+    return kernels_ms(fn, (kernel,), reps)[kernel]
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -266,16 +292,7 @@ def device_ms(fn, reps: int = 10) -> float:
     launches (a wrapper's preparation included), by torch.profiler over
     ``reps`` calls after one warm-up. Unlike ``cuda_ms``, host time
     between the launches does not count."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    total = sum(e.self_device_time_total for e in profiled(fn, reps))
     check(total > 0, "device_ms: no device time recorded")
     return total / 1e3 / reps
 
@@ -326,11 +343,18 @@ def phase_build():
     spills = fixed_point_spills(ptxas, -(-TOPICS // 32))
     check(spills == [[0, 0]],
           f"fixed_point_kernel spills at K = {TOPICS}: {spills}")
-    # K6's tensor-core instances (K <= 64 and K <= 128): the six products'
-    # operands and accumulators fit the block's 255 registers a thread
-    sweep_tc = kernel_spills(ptxas, "sweep_tc_kernel")
-    check(len(sweep_tc) == 2 and all(x == [0, 0] for x in sweep_tc),
-          f"sweep_tc_kernel spills: {sweep_tc}")
+    # K6's and K7's tensor-core instances (one launch at K <= 64 and K <=
+    # 128; the product passes above 128 topics) and the R pass's two
+    # kernels: the six products' operands and accumulators fit the block's
+    # 255 registers a thread, and ptxas serializes no wgmma
+    dense = {name: kernel_spills(ptxas, fragment)
+             for name, fragment in DENSE_INSTANCES.items()}
+    check(all(x == [[0, 0]] for x in dense.values()),
+          f"K6/K7 instances spill (or are missing): {dense}")
+    serialized = [ln for ln in ptxas if "serialized" in ln]
+    check(not serialized, f"ptxas serialized wgmma: {serialized}")
+    registers = {name: kernel_registers(ptxas, fragment)
+                 for name, fragment in DENSE_INSTANCES.items()}
     # K8's instances: none spills at K <= 128, the tiled one as this
     # source builds it (ONEHOT_SPILLS)
     onehot = {name: kernel_spills(ptxas, f"onehot_kernelILi{name[3]}ELb"
@@ -339,7 +363,7 @@ def phase_build():
     check(onehot == ONEHOT_SPILLS, f"onehot_kernel spills: {onehot}")
     emit({"phase": "build", "seconds": seconds,
           "fixed_point_spill_bytes": spills,
-          "sweep_tc_spill_bytes": sweep_tc,
+          "dense_spill_bytes": dense, "dense_registers": registers,
           "onehot_spill_bytes": onehot,
           "libraries": build.BUILD_INFO})
 
@@ -350,6 +374,22 @@ def fixed_point_spills(ptxas, kpl):
     ptxas's report."""
     return kernel_spills(ptxas, "fixed_point_wide_kernel" if kpl == 0
                          else f"fixed_point_kernelILi{kpl}E")
+
+
+def kernel_registers(ptxas, fragment):
+    """Registers a thread of each kernel whose mangled name holds
+    ``fragment``, from ptxas's report (its "Used N registers" line follows
+    the kernel's properties)."""
+    import re
+    out, current = [], None
+    for ln in ptxas:
+        if "Function properties" in ln:
+            current = ln
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and current is not None and fragment in current:
+            out.append(int(m.group(1)))
+            current = None
+    return out
 
 
 def kernel_spills(ptxas, fragment):
@@ -1919,12 +1959,15 @@ def dense_bound(b, v, k):
     return bound_ms(nbytes, 4.0 * b * v * k + 2.0 * b * v)
 
 
-def sweep_tc_bound(b, v, k):
-    """K6's floor on the tensor cores: C, Eθ and Eφ read once, γ' written
-    once; its bf16 x 3 split does six bf16 products of each of its two
-    2·B·V·K-operation products."""
-    return bound_ms((b * v + 2 * b * k + v * k) * 4, 12.0 * b * v * k,
-                    BF16_OPS_PER_S)
+def sweep_tc_bound(b, v, k, out_rows=None):
+    """K6's (or, with ``out_rows`` = V, K7's) floor on the tensor cores: C,
+    Eθ and Eφ read once, the (B, K) or (V, K) output written once; the
+    bf16 x 3 split does six bf16 products of each of the two
+    2·B·V·K-operation products (a multiply-add counts two operations, as
+    the 989 TFLOP/s peak counts them)."""
+    out_rows = b if out_rows is None else out_rows
+    return bound_ms((b * v + b * k + v * k + out_rows * k) * 4,
+                    24.0 * b * v * k, BF16_OPS_PER_S)
 
 
 def check_corrections(legacy, fused, label):
@@ -2007,19 +2050,20 @@ def phase_legacy(device, spec, train, topics, batch, timer):
             "ms": timer(lambda: kern(*args), 10),
             "plain_ms": timer(lambda: plain(*args), 10),
             "bound_ms": bms, "bound_by": by, "library_ms": None}
-    # K6 runs on the tensor cores (bf16 x 3), so its bound is the split's
-    # floor there, not the fp32 SIMT bound (which it beats; kept in
-    # `derived`). Gated at 15% of that floor's rate (1.5 ms here), half
-    # the fp32 bound's rate, and below its twin's two cuBLAS products
-    k6 = out["sweep"]
-    k6["tol"] = "rtol=atol=2e-5 (fp32 twin, no TF32; K6's products bf16 x 3)"
-    fp32_bound = k6["bound_ms"]
-    k6["bound_ms"], k6["bound_by"] = sweep_tc_bound(bp, vp, kp)
-    check(k6["ms"] * K6_FLOOR_SHARE <= k6["bound_ms"]
-          and k6["ms"] <= 2 * fp32_bound and k6["ms"] < k6["plain_ms"],
-          f"sweep: {k6['ms']} ms against {K6_FLOOR_SHARE} of its "
-          f"tensor-core floor's rate ({k6['bound_ms']} ms), twice its fp32 "
-          f"bound {2 * fp32_bound} and its twin's {k6['plain_ms']}")
+    # K6 and K7 run on the tensor cores (bf16 x 3), so their bound is the
+    # split's floor there, not the fp32 SIMT bound (which they beat; kept
+    # in `derived`). Gated at 30% of that floor's rate (1.51 ms here), half
+    # the fp32 bound's rate, and below their twins' two cuBLAS products
+    for name, rows in (("sweep", bp), ("sstats", vp)):
+        kd = out[name]
+        kd["tol"] = "rtol=atol=2e-5 (fp32 twin, no TF32; products bf16 x 3)"
+        fp32_bound = kd["bound_ms"]
+        kd["bound_ms"], kd["bound_by"] = sweep_tc_bound(bp, vp, kp, rows)
+        check(kd["ms"] * DENSE_FLOOR_SHARE <= kd["bound_ms"]
+              and kd["ms"] <= 2 * fp32_bound and kd["ms"] < kd["plain_ms"],
+              f"{name}: {kd['ms']} ms against {DENSE_FLOOR_SHARE} of its "
+              f"tensor-core floor's rate ({kd['bound_ms']} ms), twice its "
+              f"fp32 bound {2 * fp32_bound} and its twin's {kd['plain_ms']}")
 
     # the driven path: the per-sweep E-step, then K8 on its Eθ -------------
     old_pi = lda_estep.token_pi(ids, cnts, eb,
@@ -2070,7 +2114,7 @@ def phase_legacy(device, spec, train, topics, batch, timer):
     for name in ("sweep", "sstats"):
         out[name]["launches_per_estep"] = launches[name]
     estep["bound_ms"] = (sweep_tc_bound(bp, vp, kp)[0] * sweeps
-                         + dense_bound(bp, vp, kp)[0])
+                         + sweep_tc_bound(bp, vp, kp, vp)[0])
 
     # the legacy correction against the fused one (cold: no memo) ---------
     zero_pi = torch.zeros((b, l, k), device=device)
@@ -2201,12 +2245,15 @@ def phase_legacy(device, spec, train, topics, batch, timer):
           f"than K2 + K3's {k8['k2_k3_device_ms']}")
     # bounds and sizes derived from the shapes: this line only, never the
     # kernels line, which carries measured numbers and bound_ms alone.
-    # K6's floor on the tensor cores (its bound_ms) beside the fp32 SIMT
-    # bound of the kernel it replaced
+    # K6's floor on the tensor cores (its bound_ms; K7's is the same, both
+    # bound by operations) beside the fp32 SIMT bound of the kernels they
+    # replaced
     derived = {
         "sweep_sstats_bound_ms_unpadded": dense_bound(b, v, k)[0],
         "sweep_bound_tc_ms": sweep_tc_bound(bp, vp, kp)[0],
         "sweep_bound_fp32_simt_ms": dense_bound(bp, vp, kp)[0],
+        "floor_share": {n: out[n]["bound_ms"] / out[n]["ms"]
+                        for n in ("sweep", "sstats")},
         "onehot_b_tiles": nb, "onehot_peak_budget_bytes": budget}
     emit({"phase": "legacy", "shape": {"B": b, "L": l, "K": k, "V": v,
                                        "padded": [bp, vp, kp],
@@ -2878,10 +2925,12 @@ KCAP_BATCH = 256          # the first 256 Arxiv-shaped documents, V = 141,927
 KCAP_ONEHOT_BATCH = 16
 # sha256 of each kernel's outputs at K = 100 on ``digest_inputs``, as the
 # parent commit 1391254 built them (chip run, NVIDIA H100 80GB HBM3): the
-# instances at K <= 256 (K1/K4) and K <= 128 (K7, K8) keep their bits.
-# K6's ("sweep") is re-anchored to its tensor-core design's build:
-# its bf16 x 3 products sum in another order by design, within 2e-5 of the
-# fp32 twin; K8's one-pass redesign keeps the parent's bits.
+# instances at K <= 256 (K1/K4) and K <= 128 (K8) keep their bits. K6's
+# ("sweep") is its tensor-core design's build (re-anchored at 92e741b),
+# which K7's transposed instance beside it leaves unchanged. K7's
+# ("sstats") is re-anchored to its tensor-core build: its bf16 x 3 products
+# sum in another order than the SIMT kernel's fp32 FMAs by design, within
+# 2e-5 of the fp32 twin. K8's one-pass redesign keeps the parent's bits.
 PARENT_DIGESTS = {
     "fixed_point":
         "6a74054a1150a2687342dae805774ec7a4924a701332e6326c908aaebfb99588",
@@ -2892,7 +2941,7 @@ PARENT_DIGESTS = {
     "sweep":
         "ce2bab201ccd08efd57b033ae080109ee29dec214425fda183cb573f1ac094e4",
     "sstats":
-        "82296b778b6f260ac5b78c129c68416c7fc71b703d755cf5f587348cb6d3816c",
+        "201bdb1097c4518cec953518f4a2921fc68f0077f057df31cf7d42e0e3dd718c",
     "memo_delta_onehot":
         "e734394fe429b74b2df3ce086cf8576699ace3b9b52b3d72424567c206a64e4b",
 }
@@ -2903,6 +2952,19 @@ PARENT_DIGESTS = {
 # fewer), with their bits kept; every other instance, and the wide kernel
 # above 256 topics, must not spill
 PARENT_SPILLS = {"kpl6": [[4, 8]], "kpl7": [[4, 20]], "kpl8": [[24, 96]]}
+# K6's and K7's tensor-core instances (dense_tc_kernel<KC, kT, kR>: KC
+# chunks of 64 topics in registers, kT K7's transposed roles, kR the
+# product pass above 128 topics) and the R pass's kernels, by the
+# fragment of their mangled names
+DENSE_INSTANCES = {
+    "sweep_kc1": "dense_tc_kernelILi1ELb0ELb0E",
+    "sweep_kc2": "dense_tc_kernelILi2ELb0ELb0E",
+    "sweep_product": "dense_tc_kernelILi2ELb0ELb1E",
+    "sstats_kc1": "dense_tc_kernelILi1ELb1ELb0E",
+    "sstats_kc2": "dense_tc_kernelILi2ELb1ELb0E",
+    "sstats_product": "dense_tc_kernelILi2ELb1ELb1E",
+    "r_pass": "r_pass_kernel",
+    "et_image": "et_image_kernel"}
 # ... and of K8's instances (KPL topics a lane; "tiled": 128-topic tiles
 # above 128 topics), as this source builds them (chip run, NVIDIA H100
 # 80GB HBM3): only the tiled one spills
@@ -3076,12 +3138,27 @@ def phase_kcap(device, spec, train, timer):
                   f"{name} K={k}: off its twin by {derr}")
             check(torch.equal(got, again), f"{name} K={k}: two launches "
                                            "differ")
-            bms, by = dense_bound(bp, vp, kp)
+            del got, again, want
+            # on the tensor cores (the R pass, then the products by
+            # 128-topic chunks): the split's floor there, and below the
+            # twin (its two fp32 cuBLAS products) in this run
+            bms, by = sweep_tc_bound(bp, vp, kp,
+                                     vp if name == "sstats" else bp)
+            kms, pms = timer(lambda: kern(*dargs), 5), timer(
+                lambda: plain(*dargs), 5)
+            check(kms < pms, f"{name} K={k}: {kms} ms, not below its "
+                             f"twin's {pms}")
             dense[name] = {"max_abs_err": derr,
-                           "tol": "rtol=atol=2e-5 (fp32 twin, no TF32)",
-                           "ms": timer(lambda: kern(*dargs), 3),
-                           "plain_ms": timer(lambda: plain(*dargs), 3),
-                           "bound_ms": bms, "bound_by": by}
+                           "tol": "rtol=atol=2e-5 (fp32 twin, no TF32; "
+                                  "products bf16 x 3)",
+                           "ms": kms, "plain_ms": pms, "bound_ms": bms,
+                           "bound_by": by, "floor_share": bms / kms,
+                           "fp32_bound_ms": dense_bound(bp, vp, kp)[0],
+                           # a call's three kernels, by the profiler
+                           "kernel_ms": kernels_ms(
+                               lambda: kern(*dargs),
+                               ("et_image_kernel", "r_pass_kernel",
+                                "dense_tc_kernel"), 5)}
         del cpad, ebpad, et0
 
         # K8 on the first few documents, with phase legacy's bars ----------

@@ -5,7 +5,7 @@ its own shared library with a plain C interface, at first use, into
 ``_build/`` beside this module (named by a hash of the source and the
 headers beside it, so an edited source or header is rebuilt): ``lda_estep.cu`` (the E-step kernels
 K1–K8) and ``flash_attention.cu`` (K9), both including ``hopper_wgmma.cuh``
-(the tensor-core helpers of K6 and K9). A library is loaded with ``ctypes``:
+(the tensor-core helpers of K6, K7 and K9). A library is loaded with ``ctypes``:
 pointers and the CUDA stream pass as ``c_void_p``, and each entry returns
 ``cudaGetLastError()``. ``build_all`` starts one ``nvcc`` per library at
 once, so a cold start pays the slowest build and not their sum.
@@ -44,12 +44,16 @@ _SIGNATURES = {
     "lda_max_smem_bytes": [],
     "lda_sweep_splits": [_I, _I, _I],
     "lda_sweep_tickets": [_I, _I],
-    "lda_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "lda_sstats": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "lda_dense_scratch_bytes": [_I, _I, _I],
+    "lda_sweep": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+    "lda_sstats": [_P] * 5 + [_I, _I, _I, _P],
     "lda_memo_delta_onehot": [_P, _P, _I, _I64, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I64, _I, _P],
     "lda_error_string": [_I],
 }
+
+# entries returning a 64-bit count (every other returns an int)
+_RESTYPES = {"lda_dense_scratch_bytes": ctypes.c_int64}
 
 # C entry points of flash_attention.cu and their argument types
 _ATTENTION_SIGNATURES = {
@@ -68,7 +72,7 @@ LIBRARIES = {
 _libs: Dict[str, ctypes.CDLL] = {}
 #: What the builds of this process reported, by library: seconds, the nvcc
 #: command and the ``-Xptxas -v`` lines (registers, shared memory, spills
-#: per kernel).
+#: per kernel; ptxas's warnings, such as a serialized ``wgmma``).
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
 
 
@@ -126,7 +130,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         BUILD_INFO[name] = dict(
             seconds=seconds, command=" ".join(cmd),
             ptxas=[ln.strip() for ln in log.splitlines()
-                   if "ptxas" in ln or "spill" in ln])
+                   if "ptxas" in ln or "spill" in ln or "wgmma" in ln])
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
@@ -142,7 +146,7 @@ def load(name: str = "lda_estep") -> ctypes.CDLL:
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = (ctypes.c_char_p if entry == error_entry
-                          else ctypes.c_int)
+                          else _RESTYPES.get(entry, ctypes.c_int))
         _libs[name] = lib
     return _libs[name]
 

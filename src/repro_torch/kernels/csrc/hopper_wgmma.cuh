@@ -1,5 +1,5 @@
 // Hopper warpgroup matrix multiply (wgmma) on bf16 operands with fp32
-// accumulators, shared by the port's tensor-core kernels (K6 in
+// accumulators, shared by the port's tensor-core kernels (K6 and K7 in
 // lda_estep.cu, K9 in flash_attention.cu). sm_90a only.
 //
 // Operands in shared memory are 128-byte-swizzled tiles: rows of 64 bf16

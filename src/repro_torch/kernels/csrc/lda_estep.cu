@@ -18,22 +18,24 @@
 //   K5 csr_token_pi_kernel     flat pi (T, K)
 // and three of the pre-fusion baseline (one launch per sweep over a dense
 // count matrix C (B, V), and the one-hot memo delta it used):
-//   K6 sweep_tc_kernel         one dense fixed-point sweep on the tensor
-//                              cores (K <= 128; sweep_kernel above)
-//   K7 sstats_kernel           expected topic-word counts from C
+//   K6 dense_tc_kernel         one dense fixed-point sweep on the tensor
+//                              cores
+//   K7 dense_tc_kernel         expected topic-word counts from C, the same
+//      (transposed)            body with the operands' roles swapped
 //   K8 onehot_kernel           pi and the new/old masses in one segment
 //                              pass, summed by B tile in the baseline's order
 //
 // Any K: K1/K4 keep a row in registers up to 256 topics (KPL = 1 ... 8
 // instances) and run fixed_point_wide_kernel above, with the row in
-// shared memory; K3 runs over 256-column chunks; K6 (SIMT above 128
-// topics), K7 and K8 tile K by 128.
+// shared memory; K3 runs over 256-column chunks; K6 and K7 above 128
+// topics make R in a first pass (r_pass_kernel) and tile the topics of
+// their product pass by 128, and K8 tiles K by 128.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (repro_torch/kernels/build.py). Every entry point launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError().
-// All arithmetic is fp32, but for K6's products (bf16 x 3 on wgmma,
-// fp32 accumulators: see its note).
+// All arithmetic is fp32, but for K6's and K7's products (bf16 x 3 on
+// wgmma, fp32 accumulators: see their note).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -1204,399 +1206,125 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// K6 and K7: the dense per-sweep E-step (the pre-fusion baseline).
+// K6 and K7: the dense per-sweep E-step (the pre-fusion baseline), on the
+// tensor cores.
 //
-// Both form P = E[theta] * Eφ^T + 1e-30 and R = C / P tile by tile in
-// shared memory and registers; the (B, V) arrays P and R never reach
-// device memory. The dense count matrix C (B, V) is read exactly once per
-// launch. K6 at K <= 128 runs its products on the tensor cores
-// (sweep_tc_kernel, below K7); K6 above 128 topics and K7 run fp32 FMAs on
-// the SIMT cores.
+// Replace _sweep_kernel (repro/kernels/lda_estep.py:817) and
+// _sstats_kernel (:870). Both read the dense counts C (B, V) and form
+//   R = C / (E[theta] . Eφ^T + 1e-30)
+//   K6: gamma' = alpha0 + E[theta] * (R . Eφ)     one fixed-point sweep
+//   K7: S = Eφ * (R^T . E[theta])                  expected topic-word counts
 //
-// K is register-blocked in tiles of kDenseK = 128 (shared-memory rows are
-// zero beyond K, so padded topics add nothing). Above 128 topics the grid
-// gains an axis over K tiles: each block still forms the whole
-// denominator P over every K tile (loading the tiles in turn, in K order,
-// so every block of a row forms the same P bits), then accumulates and
-// writes its own tile's columns. At K <= 128 K7's kTiled = false instance
-// runs: one tile known at compile time, the single-tile design's code and
-// arithmetic. Rows are kDenseStride
-// floats apart: a
-// multiple of 4 (float4 loads) whose offset of 4 banks per row makes the
-// lane-per-row float4 reads of the P phase conflict-free.
-// ---------------------------------------------------------------------------
-constexpr int kDenseK = 128;
-constexpr int kDenseStride = kDenseK + 4;
-constexpr int kDenseThreads = 256;     // 8 warps
-constexpr int kSweepBM = 64;           // K6: B rows per block (8 per warp)
-constexpr int kSweepBV = 32;           // K6: V columns per inner tile
-constexpr int kSweepBlocks = 256;      // K6: blocks aimed for per launch
-constexpr int kSstatsBV = 64;          // K7: V rows per block (8 per warp)
-constexpr int kSstatsBB = 32;          // K7: B rows per inner tile
-
-constexpr size_t kSweepSmem =
-    (static_cast<size_t>(kSweepBM + kSweepBV) * kDenseStride +
-     kSweepBM * (kSweepBV + 1)) * sizeof(float);
-constexpr size_t kSstatsSmem =
-    (static_cast<size_t>(kSstatsBV + kSstatsBB) * kDenseStride +
-     kSstatsBB * (kSstatsBV + 1)) * sizeof(float);
-
-// rows [r0, r0 + n) and columns [k0, k0 + 128) of a row-major (R, K)
-// matrix into shared memory, with zeros past row R and past column K
-__device__ __forceinline__ void load_dense_rows(float* dst,
-                                                const float* __restrict__ src,
-                                                int r0, int n, int R, int K,
-                                                int k0) {
-  for (int i = threadIdx.x; i < n * kDenseK; i += blockDim.x) {
-    const int r = i / kDenseK, k = i % kDenseK;
-    const int row = r0 + r;
-    dst[r * kDenseStride + k] =
-        (row < R && k0 + k < K) ? src[static_cast<size_t>(row) * K + k0 + k]
-                                : 0.f;
-  }
-}
-
-// the float4 steps of a K tile starting at k0: its columns rounded up to 4
-__device__ __forceinline__ int dense_kq(int K, int k0) {
-  return (min(kDenseK, K - k0) + 3) & ~3;
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// K6 above 128 topics: one dense sweep, gamma' = alpha0 + E[theta] *
-// ((C / P) . Eφ), on the SIMT cores.
-//
-// Replaces _sweep_kernel (repro/kernels/lda_estep.py:817) for K > 128
-// (sweep_tc_kernel below serves K <= 128). Grid (B / 64, splits, K
-// tiles): block (x, y, z) owns 64 rows of B, the y-th contiguous range of
-// V tiles and the z-th tile of 128 topics. It keeps those rows' E[theta]
-// in shared memory, walks its V range 32 columns at a time (Eφ tile into
-// shared memory; P over every K tile, R for 64 x 32 in registers, R to
-// shared memory; acc += R . Eφ over its topics) and writes its (64, 128)
-// partial sum to `part`. The split over V is what fills the card. The
-// last block of a (row tile, K tile) to finish (an integer ticket,
-// __threadfence before it) sums the partials in split order and writes
-// gamma', so each output element is written by one block, with no fp32
-// atomics, and the result is the same bits on every launch. The block
-// resets its ticket for the next launch.
-//
-// Bound: operations (4*B*V*K FMA-counted operations per sweep, two
-// products); C is read once per K tile. The inner loops issue about one
-// shared-memory wavefront per 2.7 FMA instructions, so they cannot reach
-// the fp32 peak, and every K tile re-forms the whole denominator.
-__global__ void __launch_bounds__(kDenseThreads)
-    sweep_kernel(const float* __restrict__ c, const float* __restrict__ et,
-                 const float* __restrict__ eb, float* __restrict__ out,
-                 float* __restrict__ part, int* __restrict__ tickets, int B,
-                 int V, int K, float alpha0, int tiles_per_split) {
-  extern __shared__ float4 smem4[];
-  float* s_et = reinterpret_cast<float*>(smem4);         // [BM][stride]
-  float* s_eb = s_et + kSweepBM * kDenseStride;          // [BV][stride]
-  float* s_r = s_eb + kSweepBV * kDenseStride;           // [BM][BV + 1]
-  __shared__ int is_last;
-  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
-  const int row0 = blockIdx.x * kSweepBM;
-  const int nsplit = gridDim.y;
-  const int vtiles = (V + kSweepBV - 1) / kSweepBV;
-  const int t_lo = blockIdx.y * tiles_per_split;
-  const int t_hi = min(vtiles, t_lo + tiles_per_split);
-  // this block's topics
-  const int nk = gridDim.z;
-  const int kc = blockIdx.z * kDenseK;
-
-  if (nk == 1) load_dense_rows(s_et, et, row0, kSweepBM, B, K, 0);
-  float acc[8][4];   // rows warp * 8 + i, topics kc + lane + 32 * j
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int v0 = t * kSweepBV;
-    // P for rows warp * 8 + i, column lane, over every K tile in order
-    float p[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = 0.f;
-    for (int q = 0; q < nk; ++q) {
-      __syncthreads();   // the last tile's reads of s_et, s_eb, s_r are done
-      if (nk > 1) load_dense_rows(s_et, et, row0, kSweepBM, B, K, q * kDenseK);
-      load_dense_rows(s_eb, eb, v0, kSweepBV, V, K, q * kDenseK);
-      __syncthreads();
-      const float* e_row = s_eb + lane * kDenseStride;
-      const int kq = dense_kq(K, q * kDenseK);
-      for (int k = 0; k < kq; k += 4) {
-        const float4 e = lds4(e_row + k);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          p[i] = dot4(lds4(s_et + (warp * 8 + i) * kDenseStride + k), e, p[i]);
-      }
-    }
-    if (nk > 1 && blockIdx.z != nk - 1) {   // back to this block's topics
-      __syncthreads();
-      load_dense_rows(s_et, et, row0, kSweepBM, B, K, kc);
-      load_dense_rows(s_eb, eb, v0, kSweepBV, V, K, kc);
-    }
-    {
-      const int v = v0 + lane;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = warp * 8 + i, row = row0 + m;
-        const float cv =
-            (row < B && v < V) ? c[static_cast<size_t>(row) * V + v] : 0.f;
-        s_r[m * (kSweepBV + 1) + lane] = cv / (p[i] + kEps);
-      }
-    }
-    __syncthreads();
-    // acc += R . Eφ
-    for (int vv = 0; vv < kSweepBV; ++vv) {
-      float e[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e[j] = s_eb[vv * kDenseStride + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float r = s_r[(warp * 8 + i) * (kSweepBV + 1) + vv];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(r, e[j], acc[i][j]);
-      }
-    }
-  }
-  if (nk > 1) {   // this block's E[theta] tile, whatever the V loop left
-    __syncthreads();
-    load_dense_rows(s_et, et, row0, kSweepBM, B, K, kc);
-  }
-
-  // this block's partial sum, then the (row tile, K tile)'s ticket
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + warp * 8 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = kc + lane + 32 * j;
-      if (row < B && k < K) {
-        part[(static_cast<size_t>(blockIdx.y) * B + row) * K + k] = acc[i][j];
-      }
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  int* ticket = tickets + blockIdx.z * gridDim.x + blockIdx.x;
-  if (tid == 0) is_last = atomicAdd(ticket, 1) == nsplit - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = warp * 8 + i, row = row0 + m;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = kc + lane + 32 * j;
-      if (row < B && k < K) {
-        float s = 0.f;
-        for (int q = 0; q < nsplit; ++q) {
-          s += __ldcg(part + (static_cast<size_t>(q) * B + row) * K + k);
-        }
-        out[static_cast<size_t>(row) * K + k] =
-            alpha0 + s_et[m * kDenseStride + lane + 32 * j] * s;
-      }
-    }
-  }
-  if (tid == 0) *ticket = 0;
-}
-
-// K7: expected topic-word counts S = Eφ * (R^T . E[theta]).
-//
-// Replaces _sstats_kernel (repro/kernels/lda_estep.py:870). Block (x, y)
-// owns 64 rows of V, every B row and the z-th tile of 128 topics: it keeps
-// its Eφ rows in shared memory, walks B 32 rows at a time (E[theta] tile
-// into shared memory; P over every K tile, R for 32 x 64 in registers, R
-// to shared memory; acc += R^T . E[theta] over its topics) and writes Eφ *
-// acc. The output tile is owned by one block, summed in B order:
-// deterministic, no atomics. V / 64 blocks (2,224 at the Arxiv vocabulary)
-// fill the card without a split.
-//
-// Bound: operations, as K6.
-template <bool kTiled>
-__global__ void __launch_bounds__(kDenseThreads)
-    sstats_kernel(const float* __restrict__ c, const float* __restrict__ et,
-                  const float* __restrict__ eb, float* __restrict__ out,
-                  int B, int V, int K) {
-  extern __shared__ float4 smem4[];
-  float* s_eb = reinterpret_cast<float*>(smem4);         // [BV][stride]
-  float* s_et = s_eb + kSstatsBV * kDenseStride;         // [BB][stride]
-  float* s_r = s_et + kSstatsBB * kDenseStride;          // [BB][BV + 1]
-  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
-  const int v0 = blockIdx.x * kSstatsBV;
-  // this block's topics; one tile (the K <= 128 instance) at compile time
-  const int nk = kTiled ? gridDim.y : 1;
-  const int kc = kTiled ? blockIdx.y * kDenseK : 0;
-
-  if (nk == 1) load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K, 0);
-  float acc[8][4];   // V rows warp * 8 + i, topics kc + lane + 32 * j
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  // P phase: V column (warp & 1) * 32 + lane, B rows (warp >> 1) * 8 + i
-  const int pv = (warp & 1) * kWarp + lane;
-  const int pb = (warp >> 1) * 8;
-  for (int b0 = 0; b0 < B; b0 += kSstatsBB) {
-    float p[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = 0.f;
-    for (int q = 0; q < nk; ++q) {
-      __syncthreads();   // the last tile's reads of s_eb, s_et, s_r are done
-      if (nk > 1) load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K, q * kDenseK);
-      load_dense_rows(s_et, et, b0, kSstatsBB, B, K, q * kDenseK);
-      __syncthreads();
-      const float* e_row = s_eb + pv * kDenseStride;
-      const int kq = dense_kq(K, q * kDenseK);
-      for (int k = 0; k < kq; k += 4) {
-        const float4 e = lds4(e_row + k);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          p[i] = dot4(lds4(s_et + (pb + i) * kDenseStride + k), e, p[i]);
-      }
-    }
-    if (nk > 1 && blockIdx.y != nk - 1) {   // back to this block's topics
-      __syncthreads();
-      load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K, kc);
-      load_dense_rows(s_et, et, b0, kSstatsBB, B, K, kc);
-    }
-    {
-      const int v = v0 + pv;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int b = b0 + pb + i;
-        const float cv =
-            (b < B && v < V) ? c[static_cast<size_t>(b) * V + v] : 0.f;
-        s_r[(pb + i) * (kSstatsBV + 1) + pv] = cv / (p[i] + kEps);
-      }
-    }
-    __syncthreads();
-    // acc += R^T . E[theta]
-    for (int m = 0; m < kSstatsBB; ++m) {
-      float t[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) t[j] = s_et[m * kDenseStride + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float r = s_r[m * (kSstatsBV + 1) + warp * 8 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(r, t[j], acc[i][j]);
-      }
-    }
-  }
-  if (nk > 1) {   // this block's Eφ tile, whatever the B loop left
-    __syncthreads();
-    load_dense_rows(s_eb, eb, v0, kSstatsBV, V, K, kc);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int vl = warp * 8 + i, v = v0 + vl;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = kc + lane + 32 * j;
-      if (v < V && k < K) {
-        out[static_cast<size_t>(v) * K + k] =
-            s_eb[vl * kDenseStride + lane + 32 * j] * acc[i][j];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6 at K <= 128: one dense sweep on the tensor cores.
-//
-// Replaces _sweep_kernel (repro/kernels/lda_estep.py:817) for K <= 128
-// topics. The sweep has flash attention's shape: E[theta] plays the
-// queries, Eφ both keys and values, and R = C / (S + 1e-30), with C read
-// tile by tile, plays the softmax. One block owns 128 rows of B (two
-// consumer warpgroups of 64) and a contiguous range of V tiles of 64
-// columns; for each tile it computes
+// Up to 128 topics one launch computes the whole function, which has flash
+// attention's shape (dense_tc_kernel). K6: one block owns 128 rows of B
+// (two consumer warpgroups of 64), whose E[theta] parts stay resident in
+// shared memory, and walks a contiguous range of V tiles of 64 columns;
+// for each tile it computes
 //   S = E[theta] . Eφ_tile^T    wgmma, both operands in shared memory
 //   R = C_tile / (S + 1e-30)    in registers, C loaded in S's layout
 //   acc += R . Eφ_tile          wgmma, R as the register operand, Eφ
 //                               MN-major in shared memory
-// and the (B, V) arrays S and R never reach device memory.
+// K7 is the same body with the roles of the two operands swapped (kT):
+// a block owns 128 rows of V, whose Eφ parts stay resident, and walks
+// every B tile of 64 rows in order:
+//   S^T = Eφ . E[theta]_tile^T,  R^T = C^T / (S^T + 1e-30),
+//   acc += R^T . E[theta]_tile
+// with C read in S^T's layout: each load instruction reads 8 consecutive
+// v of 4 rows of C, four 32-byte sectors used whole. The (B, V) arrays S
+// and R never reach device memory.
+//
+// Above 128 topics the accumulator and the resident parts no longer fit
+// (786 KB of parts at K = 1,000), and the output's topics are tiled over
+// the grid in chunks of 128. Forming the denominator in every chunk's
+// block would repeat the first product K / 128 times, so R goes through
+// device memory once instead:
+//   et_image_kernel   E[theta]'s three parts, once a call, as the
+//                     shared-memory tiles the R pass copies
+//   r_pass_kernel     R (B, V) in fp32 over every topic, in chunks of 64
+//   dense_tc_kernel   with kR: acc += R . Eφ (K6) or R^T . E[theta] (K7)
+//                     over one 128-topic chunk a block, R loaded and split
+//                     in place of C, no first product
+// The round trip costs writing and reading R once (2 * 4 * B * V bytes);
+// the product blocks of one row tile run side by side and share R's
+// reads in L2.
 //
 // Precision: bf16 x 3. Every fp32 operand x is split on the fly into
 // x = hi + mid + lo (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
 // mid): 24 bits of x), and each product sums the six part products down to
 // 2^-16 of the leading term (hi.hi, hi.mid, mid.hi, hi.lo, mid.mid,
 // lo.hi; the smallest first) in fp32 accumulators. The dropped terms are
-// below 2^-23 relative, so the sweep stays within the fp32 twin's 2e-5
+// below 2^-23 relative, so both functions stay within the fp32 twins' 2e-5
 // bars (about 1e-6 relative; tests/test_torch_legacy.py emulates the split
-// in torch on the twins' shapes). TF32 could serve as well (3 x TF32 costs
-// the same), but wgmma takes TF32 operands K-major only, and acc += R . Eφ
-// reduces over V, so a row-major Eφ tile would need a transposed copy;
-// bf16's B operand may be MN-major, and its register A operand has the
-// accumulator's layout, so R goes from S's registers into the second
-// product without shared memory. A single bf16 or TF32 pass (8 or 11
-// bits) misses the 2e-5 bars.
+// in torch, both passes above 128 topics included). TF32 could serve as
+// well (3 x TF32 costs the same), but wgmma takes TF32 operands K-major
+// only, and the second product reduces over the streamed rows, so a
+// row-major tile would need a transposed copy; bf16's B operand may be
+// MN-major, and its register A operand has the accumulator's layout, so
+// R goes from S's registers into the second product without shared
+// memory. A single bf16 or TF32 pass (8 or 11 bits) misses the 2e-5 bars.
 //
-// The pipeline, per tile: the next tile's fp32 Eφ rows are copied by
-// cp.async into a staging tile and its counts loaded into registers
-// while this tile's products run; the block converts the staged rows
-// into the next stage's three 128-byte-swizzled bf16 part tiles (two
-// stages) while the second product runs, and retires that product before
-// the next tile touches S's registers (a wgmma group in flight across
-// them would serialize every product). E[theta]'s three parts are made
-// once. A zero count takes R = +0 without a division: C is almost all
-// zeros, and a zero dividend sends the IEEE division to its slow path.
+// The pipeline, per tile: the next tile's fp32 rows of the streamed
+// operand are copied by cp.async into a staging tile and its counts loaded
+// into registers while this tile's products run; the block converts the
+// staged rows into the next stage's three 128-byte-swizzled bf16 part
+// tiles (two stages) while the second product runs, and retires that
+// product before the next tile touches S's registers (a wgmma group in
+// flight across them would serialize every product). A zero count takes
+// R = +0 without a division: C is almost all zeros, and a zero dividend
+// sends the IEEE division to its slow path.
 //
 // Not K9's producer/consumer pipeline (a producer warp keeping TMA loads
-// of Eφ and C in flight in an mbarrier ring); that design was not built
-// or timed here, for three reasons of layout. The wgmma operands are bf16
-// parts that a TMA copy cannot make, so every Eφ tile passes through the
-// consumers' threads anyway, and TMA would only replace the cp.async of
-// the raw fp32 tile, which already overlaps the products. C is read into
-// S's accumulator registers, where R is formed and fed to the second
-// product; a TMA tile of C would cost 32 KB of shared memory a stage
-// (the block uses 225 KB of the SM's 227) and a second read of each count.
-// And the consumers take 224 registers a thread (57,344 of the SM's
-// 65,536), so a producer warpgroup would have to take registers from them.
-// The cost: the two warpgroups run in step, and the tensor cores idle
-// while R and the parts are made.
+// of the streamed operand and C in flight in an mbarrier ring); that
+// design was not built or timed here, for three reasons of layout. The
+// wgmma operands are bf16 parts that a TMA copy cannot make, so every
+// streamed tile passes through the consumers' threads anyway, and TMA
+// would only replace the cp.async of the raw fp32 tile, which already
+// overlaps the products. C is read into S's accumulator registers, where
+// R is formed and fed to the second product; a TMA tile of C would cost
+// 32 KB of shared memory a stage (the block uses 225 KB of the SM's 227)
+// and a second read of each count. And the consumers take up to 234
+// registers a thread (59,904 of the SM's 65,536), so a producer warpgroup
+// would have to take registers from them. The cost: the two warpgroups run in
+// step, and the tensor cores idle while R and the parts are made.
 //
-// The epilogue is K6's: each block writes its (128, K) partial sum to
-// `part`, and the last block of a row tile to finish (an integer ticket)
-// sums the partials in split order and writes gamma' = alpha0 + E[theta]
-// * acc, so two launches give the same bits and no fp32 atomics are used.
+// The epilogues. K6 splits V over blocks to fill the card (B = 1,024 has
+// 8 row tiles): each block writes its (128, 128) partial sum to `part`,
+// and the last block of a row tile (and topic chunk) to finish (an integer
+// ticket) sums the partials in split order and writes gamma' = alpha0 +
+// E[theta] * acc. A K7 block owns its 128 output rows, sums B in order and
+// writes Eφ * acc from its accumulators. Either way two launches give the
+// same bits, with no fp32 atomics.
 //
-// Bound: operations. The function is 4*B*V*K fp32 operations (1.118 ms
-// at B = 1,024, V = 142,336, K = 128 on the SIMT cores' 67 TFLOP/s); the
-// split does six bf16 products of each: 12*B*V*Kp tensor-core operations,
-// 0.226 ms at 989 TFLOP/s, plus reading C (583 MB, 0.174 ms). Eφ is read
-// once per row tile (the 8 row tiles of a V range run side by side at
-// B = 1,024, so mostly from L2). The block (224 registers a thread, 225
-// KB of shared memory) fills its SM alone, and its two warpgroups run
-// each tile's phases in step, so the tensor cores idle while R is formed
-// and the parts are made.
+// Bound: operations. The function is 4*B*V*K fp32 operations (two
+// products of 2*B*V*K); the split does six bf16 products of each,
+// 24*B*V*Kp tensor-core operations: 0.453 ms at B = 1,024, V = 142,336,
+// K = 128 on the H100's 989 TFLOP/s, against 0.174 ms to read C (583 MB).
+// A block (166-234 registers a thread, up to 225 KB of shared memory)
+// fills its SM alone. K6's Eφ is read once per row tile (the row tiles of
+// a V range run side by side, so mostly from L2); K7's 1,112 blocks at
+// the Arxiv vocabulary run in 8.4 waves, each making its resident parts
+// before its first tile. Above 128 topics the R pass does half the
+// operations and the round trip adds 8*B*V bytes; K7's product blocks
+// walk only B / 64 tiles each, so their pipeline fill shows.
 // ---------------------------------------------------------------------------
+constexpr int kDenseK = 128;   // K6/K7's topics in registers; K8's tile
+
 namespace sweep_tc {
 
 using namespace hopper;
 
-constexpr int kBM = 128;        // B rows per block: two warpgroups of 64
-constexpr int kBV = 64;         // V columns per tile
+constexpr int kBM = 128;        // resident rows per block: two warpgroups
+constexpr int kBV = 64;         // streamed rows per tile
 constexpr int kThreads = 256;
-constexpr int kStages = 2;      // Eφ tiles in shared memory
+constexpr int kStages = 2;      // streamed tiles in shared memory
 constexpr int kParts = 3;       // bf16 hi, mid, lo
 constexpr int kBlocks = 132;    // blocks aimed for per launch (one an SM)
+constexpr int kChunk = 64;      // the R pass's topics a step
+// E[theta]'s image: one 128-row tile's parts of one 64-topic chunk
+constexpr uint32_t kImage = kParts * kBM * 128;
 
-// The six part products (part of E[theta] or R, part of Eφ), smallest first.
+// The six part products (part of the first operand or R, part of the
+// second), smallest first.
 __device__ __forceinline__ constexpr int pair_a(int p) {
   return p < 3 ? 2 - p : (p == 3 ? 1 : 0);
 }
@@ -1604,22 +1332,33 @@ __device__ __forceinline__ constexpr int pair_b(int p) {
   return p < 3 ? p : (p == 4 ? 1 : 0);
 }
 
-// KC: chunks of 64 topics (K <= 64 KC).
-template <int KC>
+// KC: chunks of 64 topics in registers (K <= 64 KC, or with kR one
+// 64 KC-topic chunk of the output); kR: R given, no resident operand.
+template <int KC, bool kR>
 struct Cfg {
   static constexpr int kKp = 64 * KC;
-  static constexpr uint32_t kEtPart = KC * kBM * 128;   // bytes
-  static constexpr uint32_t kEbPart = KC * kBV * 128;
-  static constexpr uint32_t kStage = kParts * kEbPart;
+  static constexpr uint32_t kResPart = kR ? 0 : KC * kBM * 128;   // bytes
+  static constexpr uint32_t kStrPart = KC * kBV * 128;
+  static constexpr uint32_t kStage = kParts * kStrPart;
   static constexpr uint32_t kRaw = kBV * kKp * 4;       // the fp32 tile
-  static constexpr int kUnits = kBV * KC * 8 / kThreads;   // Eφ units a thread
+  static constexpr int kUnits = kBV * KC * 8 / kThreads;   // units a thread
   static constexpr int kSmem =
-      kParts * kEtPart + kStages * kStage + kRaw + 1024;
+      kParts * kResPart + kStages * kStage + kRaw + 1024;
+};
+
+// The R pass's shared memory: two stages of E[theta]'s image and an Eφ
+// tile's parts (64 rows, 64 topics), and the Eφ tile's fp32 staging.
+struct RCfg {
+  static constexpr uint32_t kEbPart = kBV * 128;
+  static constexpr uint32_t kStage = kImage + kParts * kEbPart;
+  static constexpr uint32_t kRaw = kBV * kChunk * 4;
+  static constexpr int kUnits = kBV * 8 / kThreads;
+  static constexpr int kSmem = kStages * kStage + kRaw + 1024;
 };
 
 // cp.async of `bytes` (<= size) from src into shared memory at dst, the
 // rest of the size zero-filled (src is not read at 0 bytes)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
@@ -1659,12 +1398,9 @@ __device__ __forceinline__ void load_unit(const float* __restrict__ src,
   }
 }
 
-// The three parts of those 8 columns into row r of the swizzled part tiles
-// at base, base + part, base + 2 part (tiles of `rows` rows).
-__device__ __forceinline__ void store_unit(uint32_t base, uint32_t part,
-                                           int r, int c0, int rows,
-                                           const float (&v)[8]) {
-  uint32_t w[kParts][4];
+// The three parts of 8 columns, as 16 bytes each.
+__device__ __forceinline__ void split_unit(const float (&v)[8],
+                                           uint32_t (&w)[kParts][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     uint32_t s[3];
@@ -1672,6 +1408,15 @@ __device__ __forceinline__ void store_unit(uint32_t base, uint32_t part,
 #pragma unroll
     for (int q = 0; q < kParts; ++q) w[q][i] = s[q];
   }
+}
+
+// The three parts of those 8 columns into row r of the swizzled part tiles
+// at base, base + part, base + 2 part (tiles of `rows` rows).
+__device__ __forceinline__ void store_unit(uint32_t base, uint32_t part,
+                                           int r, int c0, int rows,
+                                           const float (&v)[8]) {
+  uint32_t w[kParts][4];
+  split_unit(v, w);
   const uint32_t off = sw128_offset(r, c0, rows);
 #pragma unroll
   for (int q = 0; q < kParts; ++q) {
@@ -1682,66 +1427,82 @@ __device__ __forceinline__ void store_unit(uint32_t base, uint32_t part,
   }
 }
 
-template <int KC>
+// One body for K6 (kT = false) and K7 (kT = true). The resident operand
+// `res` (K6: E[theta], B rows; K7: Eφ, V rows) in tiles of 128 rows, the
+// streamed operand `str` (K6: Eφ; K7: E[theta]) in tiles of 64 rows, both
+// (rows, K) fp32. c: the counts (B, V), or with kR R; row b of either is
+// document b's, ldc floats apart. Grid: (resident tiles, splits) without
+// kR, (topic chunks, resident tiles, splits) with it (a row tile's chunks
+// side by side, sharing its R reads); K7 has one split.
+template <int KC, bool kT, bool kR>
 __global__ void __launch_bounds__(kThreads, 1)
-    sweep_tc_kernel(const float* __restrict__ c,
-                    const float* __restrict__ et,
-                    const float* __restrict__ eb, float* __restrict__ out,
+    dense_tc_kernel(const float* __restrict__ c, int ldc,
+                    const float* __restrict__ res,
+                    const float* __restrict__ str, float* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ tickets,
                     int B, int V, int K, float alpha0, int tiles_per_split) {
-  using Cf = Cfg<KC>;
+  using Cf = Cfg<KC, kR>;
   constexpr int kUnitsPerRow = 8 * KC;
   extern __shared__ uint8_t smem_raw[];
   __shared__ int is_last;
   // swizzled tiles start on 1024-byte boundaries
-  const uint32_t s_et = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t s_eb = s_et + kParts * Cf::kEtPart;
+  const uint32_t s_res = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_str = s_res + kParts * Cf::kResPart;
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int wg = warp / 4;
-  const int row0 = blockIdx.x * kBM;
-  const int vtiles = (V + kBV - 1) / kBV;
-  const int t_lo = blockIdx.y * tiles_per_split;
-  const int t_hi = min(vtiles, t_lo + tiles_per_split);
+  const int n_res = kT ? V : B, n_str = kT ? B : V;
+  const int kt = kR ? blockIdx.x : 0;            // this block's topic chunk
+  const int rt = kR ? blockIdx.y : blockIdx.x;   // its resident tile
+  const int sp = kR ? blockIdx.z : blockIdx.y;   // its split
+  const int nsplit = kR ? gridDim.z : gridDim.y;
+  const int kc = kt * Cf::kKp;
+  const int row0 = rt * kBM;
+  const int tiles = (n_str + kBV - 1) / kBV;
+  const int t_lo = sp * tiles_per_split;
+  const int t_hi = min(tiles, t_lo + tiles_per_split);
 
-  // E[theta]'s three parts, once
-  for (int u = tid; u < kBM * kUnitsPerRow; u += kThreads) {
-    const int r = u / kUnitsPerRow, c0 = 8 * (u % kUnitsPerRow);
-    float v[8];
-    load_unit(et, row0 + r, B, K, c0, v);
-    store_unit(s_et, Cf::kEtPart, r, c0, kBM, v);
+  if constexpr (!kR) {
+    // the resident rows' three parts, once
+    for (int u = tid; u < kBM * kUnitsPerRow; u += kThreads) {
+      const int r = u / kUnitsPerRow, c0 = 8 * (u % kUnitsPerRow);
+      float v[8];
+      load_unit(res, row0 + r, n_res, K, c0, v);
+      store_unit(s_res, Cf::kResPart, r, c0, kBM, v);
+    }
   }
-  // Eφ tile t's fp32 units (this thread's: 8 topics of a row each) copied
-  // asynchronously into the fp32 staging tile (16 bytes at a time where
-  // every row is 16-byte aligned), then the same units from there into a
-  // stage's three parts: a thread converts only what it copied, so a
-  // wait on its own copies suffices
-  const uint32_t s_raw = s_eb + kStages * Cf::kStage;
-  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(eb) % 16 == 0;
-  auto load_eb = [&](int t) {
+  // tile t's fp32 units (this thread's: 8 topics of a row each, from
+  // topic kc) copied asynchronously into the fp32 staging tile (16 bytes
+  // at a time where every row is 16-byte aligned), then the same units
+  // from there into a stage's three parts: a thread converts only what it
+  // copied, so a wait on its own copies suffices
+  const uint32_t s_raw = s_str + kStages * Cf::kStage;
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(str) % 16 == 0;
+  auto load_str = [&](int t) {
 #pragma unroll
     for (int i = 0; i < Cf::kUnits; ++i) {
       const int u = tid + kThreads * i;
       const int r = u / kUnitsPerRow, c0 = 8 * (u % kUnitsPerRow);
       const int row = t * kBV + r;
-      const float* src = eb + static_cast<size_t>(min(row, V - 1)) * K;
+      const float* src =
+          str + static_cast<size_t>(min(row, n_str - 1)) * K + kc;
       const uint32_t dst = s_raw + (r * Cf::kKp + c0) * 4;
       if (vec) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int c = c0 + 4 * h;
-          const int n = row < V ? max(0, min(4, K - c)) : 0;
-          cp_async16(dst + 16 * h, n > 0 ? src + c : eb, 4 * n);
+          const int cc = c0 + 4 * h;
+          const int n = row < n_str ? max(0, min(4, K - kc - cc)) : 0;
+          cp_async16(dst + 16 * h, n > 0 ? src + cc : str, 4 * n);
         }
       } else {
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          const bool in = row < V && c0 + q < K;
-          cp_async4(dst + 4 * q, in ? src + c0 + q : eb, in ? 4 : 0);
+          const bool in = row < n_str && kc + c0 + q < K;
+          cp_async4(dst + 4 * q, in ? src + c0 + q : str, in ? 4 : 0);
         }
       }
     }
   };
-  auto store_eb = [&](int stage) {
+  auto store_str = [&](int stage) {
     cp_async_wait_all();
 #pragma unroll
     for (int i = 0; i < Cf::kUnits; ++i) {
@@ -1754,20 +1515,21 @@ __global__ void __launch_bounds__(kThreads, 1)
                      "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7])
                    : "r"(s_raw + (r * Cf::kKp + c0) * 4)
                    : "memory");
-      store_unit(s_eb + stage * Cf::kStage, Cf::kEbPart, r, c0, kBV, v);
+      store_unit(s_str + stage * Cf::kStage, Cf::kStrPart, r, c0, kBV, v);
     }
   };
   if (t_lo < t_hi) {
-    load_eb(t_lo);
-    store_eb(0);
+    load_str(t_lo);
+    store_str(0);
   }
   fence_proxy_async();
   __syncthreads();
 
-  // this thread's rows of S and acc: r_lo and r_lo + 8
+  // this thread's resident rows of S and acc (r_lo and r_lo + 8) and
+  // streamed columns of S (col0 + 8 j + {0, 1})
   const int r_lo = row0 + wg * 64 + (warp % 4) * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
-  // tile t's counts in S's layout (zeros past B and V)
+  // tile t's counts (or R) in S's layout (zeros past B and V)
   auto load_c = [&](int t, float (&cv)[kBV / 2]) {
 #pragma unroll
     for (int j = 0; j < kBV / 8; ++j) {
@@ -1775,8 +1537,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e) {
         const int row = r_lo + 8 * (e >> 1);
         const int col = t * kBV + 8 * j + col0 + (e & 1);
-        cv[4 * j + e] = (t < t_hi && row < B && col < V)
-                            ? __ldg(c + static_cast<size_t>(row) * V + col)
+        const size_t at = kT ? static_cast<size_t>(col) * ldc + row
+                             : static_cast<size_t>(row) * ldc + col;
+        cv[4 * j + e] = (t < t_hi && row < n_res && col < n_str)
+                            ? __ldg(c + at)
                             : 0.f;
       }
     }
@@ -1789,57 +1553,73 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int t = t_lo; t < t_hi; ++t) {
     const int st = (t - t_lo) % kStages;
-    const uint32_t s_tile = s_eb + st * Cf::kStage;
-    // the next tile's counts and Eφ rows, in flight a whole tile ahead (C
+    const uint32_t s_tile = s_str + st * Cf::kStage;
+    // the next tile's counts and rows, in flight a whole tile ahead (C
     // streams from device memory, each count read once)
     float cv_next[kBV / 2];
     load_c(t + 1, cv_next);
-    if (t + 1 < t_hi) load_eb(t + 1);
+    if (t + 1 < t_hi) load_str(t + 1);
 
-    // S = E[theta] . Eφ_tile^T: six part products over the topic steps
-    float s[kBV / 2];
-#pragma unroll
-    for (int i = 0; i < kBV / 2; ++i) s[i] = 0.f;
-    fence_regs(s);
-    wgmma_fence();
-#pragma unroll
-    for (int p = 0; p < 6; ++p) {
-#pragma unroll
-      for (int kk = 0; kk < 4 * KC; ++kk) {
-        const uint32_t off = (kk % 4) * 32;   // 16 topics of a row
-        const uint64_t da = desc_sw128(
-            s_et + pair_a(p) * Cf::kEtPart + (kk / 4) * kBM * 128 +
-                wg * 64 * 128 + off,
-            16, 1024);
-        const uint64_t db = desc_sw128(
-            s_tile + pair_b(p) * Cf::kEbPart + (kk / 4) * kBV * 128 + off,
-            16, 1024);
-        wgmma_ss<kBV>(s, da, db, p > 0 || kk > 0);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-
-    // R = C / (S + 1e-30), split into the register operand's three parts.
-    // C is almost all zeros, and a zero dividend takes the division's slow
-    // path: its quotient (+0, S + 1e-30 being positive) is set directly.
+    // R's register operand in three parts
     uint32_t ra[kParts][kBV / 16][4];
+    if constexpr (kR) {
 #pragma unroll
-    for (int kk = 0; kk < kBV / 16; ++kk) {
+      for (int kk = 0; kk < kBV / 16; ++kk) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = 8 * kk + 2 * r;
-        const float r0 = cv[i] != 0.f ? cv[i] / (s[i] + kEps) : 0.f;
-        const float r1 = cv[i + 1] != 0.f ? cv[i + 1] / (s[i + 1] + kEps)
-                                          : 0.f;
-        uint32_t w[3];
-        split3(r0, r1, w);
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          uint32_t w[3];
+          split3(cv[i], cv[i + 1], w);
 #pragma unroll
-        for (int q = 0; q < kParts; ++q) ra[q][kk][r] = w[q];
+          for (int q = 0; q < kParts; ++q) ra[q][kk][r] = w[q];
+        }
+      }
+    } else {
+      // S = res . tile^T: six part products over the topic steps
+      float s[kBV / 2];
+#pragma unroll
+      for (int i = 0; i < kBV / 2; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 6; ++p) {
+#pragma unroll
+        for (int kk = 0; kk < 4 * KC; ++kk) {
+          const uint32_t off = (kk % 4) * 32;   // 16 topics of a row
+          const uint64_t da = desc_sw128(
+              s_res + pair_a(p) * Cf::kResPart + (kk / 4) * kBM * 128 +
+                  wg * 64 * 128 + off,
+              16, 1024);
+          const uint64_t db = desc_sw128(
+              s_tile + pair_b(p) * Cf::kStrPart + (kk / 4) * kBV * 128 + off,
+              16, 1024);
+          wgmma_ss<kBV>(s, da, db, p > 0 || kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // R = C / (S + 1e-30), split into the register operand's three
+      // parts. C is almost all zeros, and a zero dividend takes the
+      // division's slow path: its quotient (+0, S + 1e-30 being
+      // positive) is set directly.
+#pragma unroll
+      for (int kk = 0; kk < kBV / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const float r0 = cv[i] != 0.f ? cv[i] / (s[i] + kEps) : 0.f;
+          const float r1 = cv[i + 1] != 0.f ? cv[i + 1] / (s[i + 1] + kEps)
+                                            : 0.f;
+          uint32_t w[3];
+          split3(r0, r1, w);
+#pragma unroll
+          for (int q = 0; q < kParts; ++q) ra[q][kk][r] = w[q];
+        }
       }
     }
-    // acc += R . Eφ_tile: six part products over the tile's 32 columns
+    // acc += R . tile: six part products over the tile's 64 rows
     fence_regs(acc);
 #pragma unroll
     for (int q = 0; q < kParts; ++q) fence_regs(ra[q]);
@@ -1849,7 +1629,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < kBV / 16; ++kk) {
         const uint64_t db = desc_sw128(
-            s_tile + pair_b(p) * Cf::kEbPart + kk * 16 * 128, kBV * 128,
+            s_tile + pair_b(p) * Cf::kStrPart + kk * 16 * 128, kBV * 128,
             1024);
         wgmma_rs<Cf::kKp>(acc, ra[pair_a(p)][kk], db);
       }
@@ -1860,7 +1640,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ended it) while the product runs; the product is retired before the
     // next tile touches S's registers (a wgmma group in flight across
     // them would serialize every product)
-    if (t + 1 < t_hi) store_eb((st + 1) % kStages);
+    if (t + 1 < t_hi) store_str((st + 1) % kStages);
     fence_proxy_async();
     wgmma_wait_all();
     fence_regs(acc);
@@ -1869,37 +1649,228 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
   }
 
-  // this block's partial sum, then the row tile's ticket
+  if constexpr (kT) {
+    // K7: the block owns these rows of S = Eφ * acc
 #pragma unroll
-  for (int j = 0; j < Cf::kKp / 8; ++j) {
+    for (int j = 0; j < Cf::kKp / 8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r_lo + 8 * (e >> 1);
-      const int col = 8 * j + col0 + (e & 1);
-      if (row < B && col < K) {
-        part[(static_cast<size_t>(blockIdx.y) * B + row) * K + col] =
-            acc[4 * j + e];
+      for (int e = 0; e < 4; ++e) {
+        const int row = r_lo + 8 * (e >> 1);
+        const int col = kc + 8 * j + col0 + (e & 1);
+        if (row < n_res && col < K) {
+          const size_t at = static_cast<size_t>(row) * K + col;
+          out[at] = __ldg(res + at) * acc[4 * j + e];
+        }
       }
     }
-  }
-  __threadfence();
-  __syncthreads();
-  int* ticket = tickets + blockIdx.x;
-  if (tid == 0) is_last = atomicAdd(ticket, 1) == gridDim.y - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int i = tid; i < kBM * K; i += kThreads) {
-    const int row = row0 + i / K, col = i % K;
-    if (row >= B) break;
-    float sum = 0.f;
-    for (int q = 0; q < static_cast<int>(gridDim.y); ++q) {
-      sum += __ldcg(part + (static_cast<size_t>(q) * B + row) * K + col);
+  } else {
+    // K6: this block's partial sum, then the row tile's (and topic
+    // chunk's) ticket
+#pragma unroll
+    for (int j = 0; j < Cf::kKp / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r_lo + 8 * (e >> 1);
+        const int col = kc + 8 * j + col0 + (e & 1);
+        if (row < B && col < K) {
+          part[(static_cast<size_t>(sp) * B + row) * K + col] =
+              acc[4 * j + e];
+        }
+      }
     }
-    out[static_cast<size_t>(row) * K + col] =
-        alpha0 + __ldg(et + static_cast<size_t>(row) * K + col) * sum;
+    __threadfence();
+    __syncthreads();
+    int* ticket = tickets + (kR ? rt * gridDim.x + kt : rt);
+    if (tid == 0) is_last = atomicAdd(ticket, 1) == nsplit - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    const int kn = min(Cf::kKp, K - kc);
+    for (int i = tid; i < kBM * kn; i += kThreads) {
+      const int row = row0 + i / kn, col = kc + i % kn;
+      if (row >= B) break;
+      float sum = 0.f;
+      for (int q = 0; q < nsplit; ++q) {
+        sum += __ldcg(part + (static_cast<size_t>(q) * B + row) * K + col);
+      }
+      out[static_cast<size_t>(row) * K + col] =
+          alpha0 + __ldg(res + static_cast<size_t>(row) * K + col) * sum;
+    }
+    if (tid == 0) *ticket = 0;
   }
-  if (tid == 0) *ticket = 0;
+}
+
+// Above 128 topics: E[theta]'s parts as the R pass's shared-memory tiles.
+// Block (x, q) writes image x * nq + q: part p's swizzled (128, 64) tile
+// of rows x * 128 ... and topics q * 64 ... at p * 16 KB (zeros past B
+// and K).
+__global__ void __launch_bounds__(kThreads)
+    et_image_kernel(const float* __restrict__ et, uint8_t* __restrict__ img,
+                    int B, int K) {
+  uint8_t* dst =
+      img + (static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y) *
+                kImage;
+  for (int u = threadIdx.x; u < kBM * 8; u += kThreads) {
+    const int r = u / 8, c0 = 8 * (u % 8);
+    float v[8];
+    load_unit(et, blockIdx.x * kBM + r, B, K, blockIdx.y * kChunk + c0, v);
+    uint32_t w[kParts][4];
+    split_unit(v, w);
+    const uint32_t off = sw128_offset(r, c0, kBM);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) {
+      *reinterpret_cast<uint4*>(dst + q * kBM * 128 + off) =
+          make_uint4(w[q][0], w[q][1], w[q][2], w[q][3]);
+    }
+  }
+}
+
+// Above 128 topics, the first pass: R = C / (E[theta] . Eφ^T + 1e-30)
+// into r (ldr floats a row; every row of every 128-row tile and every
+// column of every 64-column tile written, zeros past B and V). Block
+// (x, y) owns rows x * 128 ... (two warpgroups of 64) and the y-th range
+// of V tiles. For each tile it sums S over the topics in chunks of 64,
+// each chunk's six part products smallest first: a step copies the
+// chunk's E[theta] image (48 KB, made once a call) and stages the Eφ
+// tile's chunk in fp32, both by cp.async a step ahead, and cuts the Eφ
+// rows into parts while the step's products run, as the streamed operand
+// of dense_tc_kernel. After the tile's last chunk, R is formed in S's
+// registers (+0 without a division where C is 0, C loaded at the tile's
+// first chunk) and stored.
+__global__ void __launch_bounds__(kThreads, 1)
+    r_pass_kernel(const float* __restrict__ c,
+                  const uint8_t* __restrict__ img,
+                  const float* __restrict__ eb, float* __restrict__ r,
+                  int B, int V, int K, int ldr, int tiles_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_raw = base + kStages * RCfg::kStage;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int wg = warp / 4;
+  const int row0 = blockIdx.x * kBM;
+  const int nq = (K + kChunk - 1) / kChunk;
+  const int vtiles = (V + kBV - 1) / kBV;
+  const int t_lo = blockIdx.y * tiles_per_split;
+  const int t_hi = min(vtiles, t_lo + tiles_per_split);
+  const int steps = max(0, t_hi - t_lo) * nq;
+  const uint8_t* my_img = img + static_cast<size_t>(blockIdx.x) * nq * kImage;
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(eb) % 16 == 0;
+  // step s: V tile t_lo + s / nq, topic chunk s % nq
+  auto load = [&](int s) {
+    const int t = t_lo + s / nq, q = s % nq;
+    const uint32_t stage = base + (s % kStages) * RCfg::kStage;
+    const uint8_t* src = my_img + static_cast<size_t>(q) * kImage;
+    for (int i = tid; i < static_cast<int>(kImage / 16); i += kThreads) {
+      cp_async16(stage + 16 * i, src + 16 * i, 16);
+    }
+#pragma unroll
+    for (int i = 0; i < RCfg::kUnits; ++i) {
+      const int u = tid + kThreads * i;
+      const int rr = u / 8, c0 = 8 * (u % 8), cq = q * kChunk + c0;
+      const int row = t * kBV + rr;
+      const float* srow = eb + static_cast<size_t>(min(row, V - 1)) * K;
+      const uint32_t dst = s_raw + (rr * kChunk + c0) * 4;
+      if (vec) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int cc = cq + 4 * h;
+          const int n = row < V ? max(0, min(4, K - cc)) : 0;
+          cp_async16(dst + 16 * h, n > 0 ? srow + cc : eb, 4 * n);
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 8; ++h) {
+          const bool in = row < V && cq + h < K;
+          cp_async4(dst + 4 * h, in ? srow + cq + h : eb, in ? 4 : 0);
+        }
+      }
+    }
+  };
+  auto convert = [&](int s) {
+    cp_async_wait_all();
+    const uint32_t parts = base + (s % kStages) * RCfg::kStage + kImage;
+#pragma unroll
+    for (int i = 0; i < RCfg::kUnits; ++i) {
+      const int u = tid + kThreads * i;
+      const int rr = u / 8, c0 = 8 * (u % 8);
+      float v[8];
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%8];\n"
+                   "ld.shared.v4.f32 {%4, %5, %6, %7}, [%8+16];\n"
+                   : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]),
+                     "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7])
+                   : "r"(s_raw + (rr * kChunk + c0) * 4)
+                   : "memory");
+      store_unit(parts, RCfg::kEbPart, rr, c0, kBV, v);
+    }
+  };
+  if (steps > 0) {
+    load(0);
+    convert(0);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int r_lo = row0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  float s[kBV / 2], cv[kBV / 2];
+#pragma unroll
+  for (int i = 0; i < kBV / 2; ++i) s[i] = cv[i] = 0.f;
+  for (int step = 0; step < steps; ++step) {
+    const int t = t_lo + step / nq, q = step % nq;
+    const uint32_t stage = base + (step % kStages) * RCfg::kStage;
+    if (step + 1 < steps) load(step + 1);
+    if (q == 0) {   // the tile's counts, used after its last chunk
+#pragma unroll
+      for (int j = 0; j < kBV / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r_lo + 8 * (e >> 1);
+          const int col = t * kBV + 8 * j + col0 + (e & 1);
+          cv[4 * j + e] =
+              (row < B && col < V)
+                  ? __ldg(c + static_cast<size_t>(row) * V + col)
+                  : 0.f;
+        }
+      }
+    }
+    // S (+)= E[theta]_chunk . Eφ_chunk^T: six part products, 4 steps each
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 6; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_sw128(
+            stage + pair_a(p) * kBM * 128 + wg * 64 * 128 + kk * 32, 16,
+            1024);
+        const uint64_t db = desc_sw128(
+            stage + kImage + pair_b(p) * RCfg::kEbPart + kk * 32, 16, 1024);
+        wgmma_ss<kBV>(s, da, db, q > 0 || p > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    // the next step's Eφ parts into the other stage while the products run
+    if (step + 1 < steps) convert(step + 1);
+    fence_proxy_async();
+    wgmma_wait_all();
+    fence_regs(s);
+    if (q == nq - 1) {
+#pragma unroll
+      for (int j = 0; j < kBV / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          float2 x;
+          x.x = cv[i] != 0.f ? cv[i] / (s[i] + kEps) : 0.f;
+          x.y = cv[i + 1] != 0.f ? cv[i + 1] / (s[i + 1] + kEps) : 0.f;
+          *reinterpret_cast<float2*>(
+              r + static_cast<size_t>(r_lo + 8 * h) * ldr + t * kBV + 8 * j +
+              col0) = x;
+        }
+      }
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace sweep_tc
@@ -2409,31 +2380,22 @@ cudaError_t dispatch_fixed_point(FpArgs a, cudaStream_t stream) {
       fp_smem_bytes(a.K, a.B, a.block_b, a.group), stream);
 }
 
-// K6's tiles for K topics: the tensor-core instance's at K <= 128 (128 rows
-// by 64 columns, one ticket a row tile), the SIMT instance's above (64 rows
-// by 32 columns, one ticket a (row tile, K tile)).
-struct SweepTiles {
-  int bm, bv, blocks, ktiles;
-};
-
-SweepTiles sweep_tiles(int K) {
-  if (K <= kDenseK) return {sweep_tc::kBM, sweep_tc::kBV, sweep_tc::kBlocks, 1};
-  return {kSweepBM, kSweepBV, kSweepBlocks, (K + kDenseK - 1) / kDenseK};
+// K6/K7's topic chunks for K topics: one up to 128 topics (the single-pass
+// body), else chunks of 128 over the product pass's grid.
+int dense_chunks(int K) {
+  return K <= kDenseK ? 1 : (K + kDenseK - 1) / kDenseK;
 }
 
-// K6's V tiles per split for B rows, V columns and K topics: about the
-// instance's aim of blocks in all (per K tile), at most one split per V
-// tile. The tensor-core instance rounds the splits a row tile down, so
-// its one-block-an-SM launch stays within one wave; the SIMT instance
-// rounds up, as it did before the tensor-core one. A function of the
-// shape only, so the partial sums, and with them gamma's bits, do not
-// depend on the card.
+// K6's V tiles per split for B rows, V columns and K topics: about one
+// block an SM in all (row tiles x topic chunks x splits), rounded down so
+// the one-block-an-SM launch stays within one wave, and at most one split
+// per V tile. A function of the shape only, so the partial sums, and with
+// them gamma's bits, do not depend on the card. The R pass splits its V
+// tiles as one chunk's would be.
 int sweep_tiles_per_split(int B, int V, int K) {
-  const SweepTiles st = sweep_tiles(K);
-  const int row_tiles = std::max(1, (B + st.bm - 1) / st.bm);
-  const int vtiles = (V + st.bv - 1) / st.bv;
-  const int aim = K <= kDenseK ? st.blocks / row_tiles
-                               : (st.blocks + row_tiles - 1) / row_tiles;
+  const int row_tiles = std::max(1, (B + sweep_tc::kBM - 1) / sweep_tc::kBM);
+  const int vtiles = (V + sweep_tc::kBV - 1) / sweep_tc::kBV;
+  const int aim = sweep_tc::kBlocks / (row_tiles * dense_chunks(K));
   const int want = std::max(1, std::min(aim, vtiles));
   return std::max(1, (vtiles + want - 1) / want);
 }
@@ -2441,9 +2403,26 @@ int sweep_tiles_per_split(int B, int V, int K) {
 // K6's splits: the V tiles cut into runs of sweep_tiles_per_split, none
 // empty (at least one split, so a V of 0 still writes gamma' = alpha0).
 int sweep_splits(int B, int V, int K) {
-  const int vtiles = (V + sweep_tiles(K).bv - 1) / sweep_tiles(K).bv;
+  const int vtiles = (V + sweep_tc::kBV - 1) / sweep_tc::kBV;
   const int per = sweep_tiles_per_split(B, V, K);
   return std::max(1, (vtiles + per - 1) / per);
+}
+
+// K6/K7's scratch above 128 topics (none at K <= 128): R, rows B rounded
+// up to 128 and ldr = V rounded up to 64 floats apart, then E[theta]'s
+// images (one a 128-row tile and 64-topic chunk) from byte img_off.
+struct DenseScratch {
+  int64_t ldr, img_off, bytes;
+};
+
+DenseScratch dense_scratch(int B, int V, int K) {
+  if (K <= kDenseK || B < 1) return {0, 0, 0};
+  const int64_t tiles = (B + sweep_tc::kBM - 1) / sweep_tc::kBM;
+  const int64_t ldr = (static_cast<int64_t>(V) + sweep_tc::kBV - 1) /
+                      sweep_tc::kBV * sweep_tc::kBV;
+  const int64_t r_bytes = tiles * sweep_tc::kBM * ldr * 4;
+  const int64_t nq = (K + sweep_tc::kChunk - 1) / sweep_tc::kChunk;
+  return {ldr, r_bytes, r_bytes + tiles * nq * sweep_tc::kImage};
 }
 
 template <int KPL, bool kTiled>
@@ -2455,44 +2434,48 @@ cudaError_t launch_onehot(const OnehotArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int KC>
-cudaError_t launch_sweep_tc(dim3 grid, cudaStream_t stream, const float* c,
-                            const float* et, const float* eb, float* out,
-                            float* part, int* tickets, int B, int V, int K,
-                            float alpha0, int tiles_per_split) {
-  constexpr int smem = sweep_tc::Cfg<KC>::kSmem;
+template <int KC, bool kT, bool kR>
+cudaError_t launch_dense_tc(dim3 grid, cudaStream_t stream, const float* c,
+                            int ldc, const float* res, const float* str,
+                            float* out, float* part, int* tickets, int B,
+                            int V, int K, float alpha0, int tiles_per_split) {
+  constexpr int smem = sweep_tc::Cfg<KC, kR>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      sweep_tc::sweep_tc_kernel<KC>,
+      sweep_tc::dense_tc_kernel<KC, kT, kR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  sweep_tc::sweep_tc_kernel<KC><<<grid, sweep_tc::kThreads, smem, stream>>>(
-      c, et, eb, out, part, tickets, B, V, K, alpha0, tiles_per_split);
+  sweep_tc::dense_tc_kernel<KC, kT, kR>
+      <<<grid, sweep_tc::kThreads, smem, stream>>>(
+          c, ldc, res, str, out, part, tickets, B, V, K, alpha0,
+          tiles_per_split);
   return cudaGetLastError();
 }
 
-cudaError_t launch_sweep(dim3 grid, cudaStream_t stream, const float* c,
-                         const float* et, const float* eb, float* out,
-                         float* part, int* tickets, int B, int V, int K,
-                         float alpha0, int tiles_per_split) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSweepSmem));
-  if (err != cudaSuccess) return err;
-  sweep_kernel<<<grid, kDenseThreads, kSweepSmem, stream>>>(
-      c, et, eb, out, part, tickets, B, V, K, alpha0, tiles_per_split);
-  return cudaGetLastError();
-}
-
-template <bool kTiled>
-cudaError_t launch_sstats(dim3 grid, cudaStream_t stream, const float* c,
-                          const float* et, const float* eb, float* out,
+// Above 128 topics, the first pass into the scratch: E[theta]'s images,
+// then R (nothing to do at B = 0; the images only at V = 0).
+cudaError_t launch_r_pass(cudaStream_t stream, const float* c,
+                          const float* et, const float* eb, void* scratch,
                           int B, int V, int K) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      sstats_kernel<kTiled>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSstatsSmem));
+  const DenseScratch d = dense_scratch(B, V, K);
+  const int tiles = (B + sweep_tc::kBM - 1) / sweep_tc::kBM;
+  if (tiles == 0) return cudaSuccess;
+  uint8_t* img = static_cast<uint8_t*>(scratch) + d.img_off;
+  sweep_tc::et_image_kernel<<<
+      dim3(tiles, (K + sweep_tc::kChunk - 1) / sweep_tc::kChunk),
+      sweep_tc::kThreads, 0, stream>>>(et, img, B, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || V == 0) return err;
+  constexpr int smem = sweep_tc::RCfg::kSmem;
+  err = cudaFuncSetAttribute(sweep_tc::r_pass_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
-  sstats_kernel<kTiled><<<grid, kDenseThreads, kSstatsSmem, stream>>>(
-      c, et, eb, out, B, V, K);
+  const int per = sweep_tiles_per_split(B, V, kDenseK);
+  const int vtiles = (V + sweep_tc::kBV - 1) / sweep_tc::kBV;
+  sweep_tc::r_pass_kernel<<<dim3(tiles, (vtiles + per - 1) / per),
+                            sweep_tc::kThreads, smem, stream>>>(
+      c, img, eb, static_cast<float*>(scratch), B, V, K,
+      static_cast<int>(d.ldr), per);
   return cudaGetLastError();
 }
 
@@ -2690,44 +2673,84 @@ int lda_segment_scatter(const int64_t* order, const int64_t* seg_off, int V,
 // of its `part` scratch (splits, B, K).
 int lda_sweep_splits(int B, int V, int K) { return sweep_splits(B, V, K); }
 
-// K6's tickets for B rows and K topics: one per row tile of its instance
-// (and per 128-topic tile above 128 topics).
+// K6's tickets for B rows and K topics: one per row tile (and per
+// 128-topic chunk above 128 topics).
 int lda_sweep_tickets(int B, int K) {
-  const SweepTiles st = sweep_tiles(K);
-  return (B + st.bm - 1) / st.bm * st.ktiles;
+  return (B + sweep_tc::kBM - 1) / sweep_tc::kBM * dense_chunks(K);
 }
 
+// Bytes of the scratch K6 and K7 take for B rows, V columns and K topics:
+// 0 up to 128 topics, R and E[theta]'s images above.
+int64_t lda_dense_scratch_bytes(int B, int V, int K) {
+  return dense_scratch(B, V, K).bytes;
+}
+
+// K6: gamma' (B, K) from c (B, V), et (B, K) and eb (V, K). part: nsplit
+// (= lda_sweep_splits) x B x K floats; tickets: lda_sweep_tickets zeros
+// (left zero); scratch: lda_dense_scratch_bytes (nullptr at K <= 128).
 int lda_sweep(const float* c, const float* et, const float* eb, float* out,
-              float* part, int* tickets, int B, int V, int K, float alpha0,
-              int nsplit, void* stream) {
+              float* part, int* tickets, void* scratch, int B, int V, int K,
+              float alpha0, int nsplit, void* stream) {
   cudaGetLastError();
-  if (K < 1 || nsplit != sweep_splits(B, V, K)) return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
-  const SweepTiles st = sweep_tiles(K);
-  const dim3 grid((B + st.bm - 1) / st.bm, nsplit, st.ktiles);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_split = sweep_tiles_per_split(B, V, K);
-  if (K > kDenseK) {
-    return launch_sweep(grid, s, c, et, eb, out, part, tickets, B, V, K,
-                        alpha0, per_split);
+  if (K < 1 || B < 0 || V < 0 || nsplit != sweep_splits(B, V, K) ||
+      (dense_scratch(B, V, K).bytes > 0 && scratch == nullptr)) {
+    return cudaErrorInvalidValue;
   }
-  return K > 64 ? launch_sweep_tc<2>(grid, s, c, et, eb, out, part, tickets,
-                                     B, V, K, alpha0, per_split)
-                : launch_sweep_tc<1>(grid, s, c, et, eb, out, part, tickets,
-                                     B, V, K, alpha0, per_split);
+  if (B == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int row_tiles = (B + sweep_tc::kBM - 1) / sweep_tc::kBM;
+  const int per_split = sweep_tiles_per_split(B, V, K);
+  if (K <= 64) {
+    return launch_dense_tc<1, false, false>(
+        dim3(row_tiles, nsplit), s, c, V, et, eb, out, part, tickets, B, V,
+        K, alpha0, per_split);
+  }
+  if (K <= kDenseK) {
+    return launch_dense_tc<2, false, false>(
+        dim3(row_tiles, nsplit), s, c, V, et, eb, out, part, tickets, B, V,
+        K, alpha0, per_split);
+  }
+  if (row_tiles > 65535 || nsplit > 65535) return cudaErrorInvalidValue;
+  const cudaError_t err = launch_r_pass(s, c, et, eb, scratch, B, V, K);
+  if (err != cudaSuccess) return err;
+  return launch_dense_tc<2, false, true>(
+      dim3(dense_chunks(K), row_tiles, nsplit), s,
+      static_cast<const float*>(scratch),
+      static_cast<int>(dense_scratch(B, V, K).ldr), et, eb, out, part,
+      tickets, B, V, K, alpha0, per_split);
 }
 
+// K7: S (V, K) from c (B, V), et (B, K) and eb (V, K); scratch as
+// lda_sweep's.
 int lda_sstats(const float* c, const float* et, const float* eb, float* out,
-               int B, int V, int K, void* stream) {
+               void* scratch, int B, int V, int K, void* stream) {
   cudaGetLastError();
-  if (K < 1) return cudaErrorInvalidValue;
+  if (K < 1 || B < 0 || V < 0 ||
+      (dense_scratch(B, V, K).bytes > 0 && scratch == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   if (V == 0) return cudaSuccess;
-  const dim3 blocks((V + kSstatsBV - 1) / kSstatsBV,
-                    (K + kDenseK - 1) / kDenseK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return K > kDenseK
-             ? launch_sstats<true>(blocks, s, c, et, eb, out, B, V, K)
-             : launch_sstats<false>(blocks, s, c, et, eb, out, B, V, K);
+  const int v_tiles = (V + sweep_tc::kBM - 1) / sweep_tc::kBM;
+  // one split: every B tile, in order
+  const int b_tiles = std::max(1, (B + sweep_tc::kBV - 1) / sweep_tc::kBV);
+  if (K <= 64) {
+    return launch_dense_tc<1, true, false>(
+        dim3(v_tiles), s, c, V, eb, et, out, nullptr, nullptr, B, V, K, 0.f,
+        b_tiles);
+  }
+  if (K <= kDenseK) {
+    return launch_dense_tc<2, true, false>(
+        dim3(v_tiles), s, c, V, eb, et, out, nullptr, nullptr, B, V, K, 0.f,
+        b_tiles);
+  }
+  if (v_tiles > 65535) return cudaErrorInvalidValue;
+  const cudaError_t err = launch_r_pass(s, c, et, eb, scratch, B, V, K);
+  if (err != cudaSuccess) return err;
+  return launch_dense_tc<2, true, true>(
+      dim3(dense_chunks(K), v_tiles), s, static_cast<const float*>(scratch),
+      static_cast<int>(dense_scratch(B, V, K).ldr), eb, et, out, nullptr,
+      nullptr, B, V, K, 0.f, b_tiles);
 }
 
 // K8 over N = B * L token slots (N < 2^31) in tiles of tile_slots =

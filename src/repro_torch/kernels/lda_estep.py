@@ -811,6 +811,16 @@ def estep_sweep_plain(c: torch.Tensor, etheta: torch.Tensor,
     return ref.estep_sweep_ref(c, etheta, eb, alpha0)
 
 
+def _dense_scratch(lib, b: int, v: int, k: int,
+                   device: torch.device) -> Optional[torch.Tensor]:
+    """K6/K7's scratch above 128 topics (R in fp32 and Eθ's bf16 parts),
+    allocated per call; None at K ≤ 128, where one launch needs none."""
+    nbytes = lib.lda_dense_scratch_bytes(b, v, k)
+    if nbytes == 0:
+        return None
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
 def estep_sweep(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor,
                 alpha0: float, *, block_b: int = 128,
                 block_v: int = 512) -> torch.Tensor:
@@ -818,10 +828,11 @@ def estep_sweep(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor,
 
     Shapes: c (B, V), etheta (B, K), eb (V, K) float32 → (B, K). B and V
     must already be padded to the block grid (see ``ops.pad_inputs``). On
-    the card K ≤ 128 runs on the tensor cores (bf16 × 3 split products,
-    fp32 accumulators, within the fp32 twin's 2e-5); above 128 topics the
-    SIMT kernel runs with an axis over tiles of 128, each block forming the
-    whole denominator before its own tile's columns.
+    the card every K runs on the tensor cores (bf16 × 3 split products,
+    fp32 accumulators, within the fp32 twin's 2e-5): up to 128 topics in
+    one launch that keeps R in registers; above, R = C ⊘ (Eθ·Eφᵀ + ε) is
+    written once to a per-call scratch, then a product pass covers the
+    topics in chunks of 128. One call counts one launch either way.
     """
     b, v, k = _check_dense("estep_sweep", c, etheta, eb, block_b, block_v)
     if _on_cpu(c, etheta, eb):
@@ -834,9 +845,11 @@ def estep_sweep(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor,
     part = torch.empty((splits, b, k), dtype=torch.float32, device=c.device)
     tickets = torch.zeros(lib.lda_sweep_tickets(b, k), dtype=torch.int32,
                           device=c.device)
+    scratch = _dense_scratch(lib, b, v, k, c.device)
     rc = lib.lda_sweep(c.data_ptr(), etheta.data_ptr(), eb.data_ptr(),
                        out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-                       b, v, k, float(alpha0), splits, _stream(c))
+                       _ptr(scratch), b, v, k, float(alpha0), splits,
+                       _stream(c))
     build.check(rc, "lda_sweep")
     LAUNCHES["sweep"] += 1
     return out
@@ -851,14 +864,18 @@ def sstats_plain(c: torch.Tensor, etheta: torch.Tensor,
 def sstats(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor, *,
            block_b: int = 128, block_v: int = 512) -> torch.Tensor:
     """Expected topic-word counts S = Eφ ⊙ (Rᵀ·Eθ), R = C ⊘ (Eθ·Eφᵀ + ε)
-    (K7). Shapes and grid as ``estep_sweep``; returns (V, K)."""
+    (K7). Shapes and grid as ``estep_sweep``; returns (V, K). On the card
+    K6's tensor-core body with the operands' roles swapped: up to 128
+    topics one launch, each block owning 128 rows of V and summing B in
+    order; above, the same two passes as ``estep_sweep``."""
     b, v, k = _check_dense("sstats", c, etheta, eb, block_b, block_v)
     if _on_cpu(c, etheta, eb):
         return sstats_plain(c, etheta, eb)
     lib = build.load()
     out = torch.empty((v, k), dtype=torch.float32, device=c.device)
+    scratch = _dense_scratch(lib, b, v, k, c.device)
     rc = lib.lda_sstats(c.data_ptr(), etheta.data_ptr(), eb.data_ptr(),
-                        out.data_ptr(), b, v, k, _stream(c))
+                        out.data_ptr(), _ptr(scratch), b, v, k, _stream(c))
     build.check(rc, "lda_sstats")
     LAUNCHES["sstats"] += 1
     return out

@@ -565,22 +565,33 @@ def _dense_inputs(cuda, b, v, k, seed):
                                    # columns, 64 or 128 topics) at its edges
                                    (1, 50, 1), (200, 1000, 128),
                                    (130, 777, 64), (129, 333, 65),
-                                   (100, 517, 129)])
+                                   (100, 517, 129),
+                                   # K7's (128 rows of V, 64 of B) at its
+                                   # edges
+                                   (1, 1, 100), (63, 127, 128),
+                                   (65, 128, 64), (200, 129, 128),
+                                   (64, 1111, 100),
+                                   # above 128 topics: R, then the topics
+                                   # in chunks of 128
+                                   (65, 129, 256), (200, 257, 257),
+                                   (63, 1111, 300), (130, 1111, 1000)])
 def test_sweep_and_sstats_kernels_match_twins(cuda, fp32_matmul, b, v, k):
     """K6 and K7 against the dense oracles at 2e-5 (tests/test_kernels.py's
     bar), ragged B and V tiles included, and the same bits on a second
-    launch (K6 sums its V splits in a fixed order). K6 runs on the tensor
-    cores up to 128 topics and on the SIMT cores above."""
+    launch (K6 sums its V splits in a fixed order, K7 its B tiles in
+    order). Both run on the tensor cores at every K: one launch up to 128
+    topics, R's pass and the chunked products above."""
     c, et, eb = _dense_inputs(cuda, b, v, k, b + v)
-    got = lda_estep.estep_sweep(c, et, eb, 0.5, block_b=b, block_v=v)
-    again = lda_estep.estep_sweep(c, et, eb, 0.5, block_b=b, block_v=v)
-    want = lda_estep.estep_sweep_plain(c, et, eb, 0.5)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-    got = lda_estep.sstats(c, et, eb, block_b=b, block_v=v)
-    want = lda_estep.sstats_plain(c, et, eb)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for kern, plain, args in (
+            (lda_estep.estep_sweep, lda_estep.estep_sweep_plain,
+             (c, et, eb, 0.5)),
+            (lda_estep.sstats, lda_estep.sstats_plain, (c, et, eb))):
+        got = kern(*args, block_b=b, block_v=v)
+        again = kern(*args, block_b=b, block_v=v)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_estep_cuda_sweeps_matches_twin_path(cuda, fp32_matmul):

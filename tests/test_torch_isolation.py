@@ -144,11 +144,14 @@ def test_attention_builds_its_own_library_from_package_source():
         assert f" {entry}(" in text, entry
     assert " flash_kernel(" in text
     assert "cudaFuncSetAttribute" in text   # its tiles need > 48 KB
-    # the E-step library carries the baseline kernels K6–K8, and both
-    # libraries the tensor-core helpers of the header beside them
+    # the E-step library carries the baseline kernels K6–K8 (K6 and K7 on
+    # the tensor cores only: the SIMT bodies are gone), and both libraries
+    # the tensor-core helpers of the header beside them
     estep = build.SOURCE.read_text()
-    for kernel in ("sweep_tc_kernel", "sweep_kernel", "sstats_kernel",
+    for kernel in ("dense_tc_kernel", "r_pass_kernel", "et_image_kernel",
                    "onehot_kernel"):
         assert f" {kernel}(" in estep, kernel
+    for kernel in ("sweep_kernel", "sstats_kernel"):
+        assert f" {kernel}(" not in estep, kernel
     for text in (estep, src.read_text()):
         assert '#include "hopper_wgmma.cuh"' in text

@@ -4,6 +4,11 @@ per-sweep E-step ``estep_cuda_sweeps``, held against ``repro``'s Pallas
 kernels (interpret mode) and ``estep_pallas_sweeps`` on the same numpy
 inputs.
 
+Beside them, the card's arithmetic for K6 and K7 (bf16 × 3 split
+products on the tensor cores, and above 128 topics R written in fp32 and
+split again by 128-topic chunks) is emulated in torch and held to the
+twins' 2e-5.
+
 Tolerances are ``repro``'s own for these kernels: rtol/atol 2e-5 for a
 sweep and for sstats (``tests/test_kernels.py``), π 1e-5 / 1e-6 and the
 masses 1e-4 for the one-hot delta (one bf16 ulp, 2^-7 relative, for π
@@ -37,6 +42,7 @@ SHAPES = [
     (64, 1024, 128, 32, 256),
     (8, 512, 64, 8, 512),      # single V tile
     (128, 128, 128, 64, 64),
+    (16, 256, 300, 8, 64),     # above 128 topics (the card's two passes)
 ]
 
 
@@ -76,10 +82,11 @@ def test_sstats_twin_matches_pallas_kernel(b, v, k, bb, bv):
     _close(got, want, 2e-5, 2e-5)
 
 
-# K6's tensor-core arithmetic on the card (csrc/lda_estep.cu, sweep_tc):
-# every fp32 operand split into three bf16 parts, six part products in
-# fp32, smallest first. The card tests' shapes (tests/test_torch_gpu.py),
-# made here with numpy: the tiling's edges, and K = 300 and 1,000.
+# K6's and K7's tensor-core arithmetic on the card (csrc/lda_estep.cu,
+# sweep_tc): every fp32 operand split into three bf16 parts, six part
+# products in fp32, smallest first. The card tests' shapes
+# (tests/test_torch_gpu.py), made here with numpy: the tiling's edges, and
+# K = 300 and 1,000.
 CARD_SWEEP_SHAPES = [(256, 3000, 100), (100, 517, 128), (64, 96, 7),
                      (1, 50, 1), (200, 1000, 128), (130, 777, 64),
                      (129, 333, 65), (64, 600, 300), (32, 300, 1000)]
@@ -105,24 +112,85 @@ def _sweep_split(c, et, eb, alpha0, pairs=SPLIT_PAIRS):
     return alpha0 + et * _split_matmul(c / (s + 1e-30), eb, pairs)
 
 
-@pytest.mark.parametrize("b,v,k,card", [s[:3] + (False,) for s in SHAPES]
-                         + [s + (True,) for s in CARD_SWEEP_SHAPES])
+def _sstats_split(c, et, eb, pairs=SPLIT_PAIRS):
+    """K7 on the card: K6's body with the operands' roles swapped, Sᵀ =
+    Eφ·Eθᵀ, then Rᵀ·Eθ."""
+    st = _split_matmul(eb, et.T, pairs)
+    return eb * _split_matmul(c.T / (st + 1e-30), et, pairs)
+
+
+def _split_inputs(b, v, k, card):
+    if card:
+        rng = np.random.default_rng(b + v)
+        return (_t(rng.poisson(0.3, (b, v)).astype(np.float32)),
+                _t((rng.random((b, k)) + 0.05).astype(np.float32)),
+                _t((rng.random((v, k)) + 0.05).astype(np.float32)))
+    return tuple(map(_t, _dense(b + v + k, b, v, k)))
+
+
+SPLIT_CASES = ([s[:3] + (False,) for s in SHAPES]
+               + [s + (True,) for s in CARD_SWEEP_SHAPES])
+
+
+@pytest.mark.parametrize("b,v,k,card", SPLIT_CASES)
 def test_sweep_bf16x3_split_meets_the_twin_bar(b, v, k, card):
     """K6's split (bf16 hi + mid + lo, six products) emulated in torch holds
     the fp32 twin to its 2e-5 bar on this file's shapes and on the card
     tests'; one bf16 product (the hi parts alone) does not."""
-    if card:
-        rng = np.random.default_rng(b + v)
-        c = _t(rng.poisson(0.3, (b, v)).astype(np.float32))
-        et = _t((rng.random((b, k)) + 0.05).astype(np.float32))
-        eb = _t((rng.random((v, k)) + 0.05).astype(np.float32))
-    else:
-        c, et, eb = map(_t, _dense(b + v + k, b, v, k))
+    c, et, eb = _split_inputs(b, v, k, card)
     want = ref.estep_sweep_ref(c, et, eb, 0.5)
     torch.testing.assert_close(_sweep_split(c, et, eb, 0.5), want,
                                rtol=2e-5, atol=2e-5)
     one_pass = _sweep_split(c, et, eb, 0.5, pairs=((0, 0),))
     assert not torch.allclose(one_pass, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,v,k,card", SPLIT_CASES)
+def test_sstats_bf16x3_split_meets_the_twin_bar(b, v, k, card):
+    """K7's split, its products transposed, holds the fp32 twin to 2e-5 on
+    the same shapes; the hi parts alone do not."""
+    c, et, eb = _split_inputs(b, v, k, card)
+    want = ref.sstats_ref(c, et, eb)
+    torch.testing.assert_close(_sstats_split(c, et, eb), want,
+                               rtol=2e-5, atol=2e-5)
+    one_pass = _sstats_split(c, et, eb, pairs=((0, 0),))
+    assert not torch.allclose(one_pass, want, rtol=2e-5, atol=2e-5)
+
+
+def _r_pass_split(c, et, eb, chunk=64):
+    """R as the card's first pass above 128 topics makes it: S summed over
+    the topics in chunks of 64, each chunk's six part products smallest
+    first, then R = C ⊘ (S + ε) in fp32, +0 where C = 0."""
+    s = torch.zeros(c.shape)
+    for q in range(0, et.shape[1], chunk):
+        pa, pb = _split3(et[:, q:q + chunk]), _split3(eb[:, q:q + chunk].T)
+        for i, j in SPLIT_PAIRS:
+            s = s + pa[i] @ pb[j]
+    return torch.where(c != 0, c / (s + 1e-30), torch.zeros(()))
+
+
+def _chunked(a, b, chunk=128):
+    """The product pass: a · b split, one 128-topic chunk of b at a time."""
+    return torch.cat([_split_matmul(a, b[:, q:q + chunk])
+                      for q in range(0, b.shape[1], chunk)], 1)
+
+
+@pytest.mark.parametrize("kernel", ["sweep", "sstats"])
+@pytest.mark.parametrize("b,v,k", [(64, 600, 300), (32, 300, 1000),
+                                   (100, 517, 129)])
+def test_two_pass_split_above_128_topics_meets_the_twin_bar(kernel, b, v,
+                                                            k):
+    """Above 128 topics the card writes R in fp32 (one pass over every
+    topic), then splits it again in the product pass over 128-topic
+    chunks: K6 and K7 so emulated hold their fp32 twins to 2e-5."""
+    c, et, eb = _split_inputs(b, v, k, True)
+    r = _r_pass_split(c, et, eb)
+    if kernel == "sweep":
+        got, want = 0.5 + et * _chunked(r, eb), ref.estep_sweep_ref(
+            c, et, eb, 0.5)
+    else:
+        got, want = eb * _chunked(r.T, et), ref.sstats_ref(c, et, eb)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_dense_oracles_match_repro():
