@@ -7,16 +7,19 @@ Phases, each printing one JSON line; any failure exits non-zero. The padded
 path first:
   1. device  — nvidia-smi's name and power limit, torch's device name/count
   2. build   — nvcc builds the kernels from src/repro_torch/kernels/csrc;
-               K1/K4's instance at K = 100, K6's and K7's tensor-core
-               instances and their R pass must not spill registers (their
-               register counts printed), and ptxas must serialize no wgmma
+               K1/K4's instance at K = 100, K2's and K5's instances, K6's
+               and K7's tensor-core instances and their R pass must not
+               spill registers (K6/K7's register counts printed), and ptxas
+               must serialize no wgmma
   3. kernels — each kernel against its plain twin at the path's shapes
                (Arxiv: V = 141,927, K = 100, B = 1024), then timed; K1
                and K3 also give the same bits on two launches; K1 with its
                π finish (the path's launch) gives K1's bits without it and
                K2's π bit for bit, its grid holds every document at once,
                and one bf16-streamed launch agrees with its twin more
-               closely than the fp32 stream does; K2 then
+               closely than the fp32 stream does, and its finish's own
+               time; K2 timed by device time beside its byte bound (at
+               least PI_BOUND_SHARE of it), then K2 then
                K3 driven as memo_delta; K3 again with one id in every
                document, its segment lengths, its preparation's time and
                the host syncs of one call
@@ -41,7 +44,7 @@ then the flat CSR token-stream path, on the same corpus:
                launch against its twin, as in phase 3; K4 on a shuffled
                copy of the batch
                against its twin with no host sync, and the sort's time;
-               K5 then K3 driven as memo_delta_csr
+               K5 gated as K2; K5 then K3 driven as memo_delta_csr
   9. serve_csr — γ for 1,024 held-out documents packed as one flat batch,
                through the CUDA backend against the plain flat reference
  10. train_csr — LDAEngine IVI over a CorpusDocStream in the CSR layout,
@@ -103,7 +106,7 @@ then the facade, serving and checkpoints, D-IVI, and the lifted K caps:
                at 16,384 documents, the summed correction against the loop
                over the workers; a mid-run save, load and resume through
                LDA(algo="divi") bit-equal to the run that never stopped
- 23. kcap    — K1, K4, K3, K6, K7 and K8 at K = 300 and 1,000 against
+ 23. kcap    — K1, K4, K2, K5, K3, K6, K7 and K8 at K = 300 and 1,000 against
                their twins on the first 256 documents (K8: 16) at the
                Arxiv V, timed beside their bounds (K6 and K7, on the
                tensor cores in two passes, below their twins and beside
@@ -152,6 +155,11 @@ BF16_OPS_PER_S = 989e12
 # floor's rate, sweep_tc_bound (K6 reached 45% of it on an NVIDIA H100
 # 80GB HBM3 at 700 W): ms <= 0.4527 / 0.30 = 1.509 ms
 DENSE_FLOOR_SHARE = 0.30
+# K2 and K5 at the path's shapes: at least this share of their byte bound,
+# by device time. On an NVIDIA H100 80GB HBM3 at 700 W the runs of slots
+# reached 0.49-0.51 of it and the first port's one-warp-a-slot kernels
+# 0.34, so a fall back to that speed fails the run
+PI_BOUND_SHARE = 0.42
 # operations per element of the in-kernel exp(E[ln θ]): two series digammas
 # (8 divisions + 8 additions + log + 6 series terms each), a subtraction and
 # an exp, counting a division, log or exp as one operation
@@ -297,6 +305,17 @@ def device_ms(fn, reps: int = 10) -> float:
     return total / 1e3 / reps
 
 
+def paired_device_ms(fns, rounds: int = 3, reps: int = 10):
+    """``device_ms`` of each of ``fns``, measured in turns (``rounds``
+    profiler sessions each) and averaged, so that a change of the card's
+    clocks between two sessions falls on each alike."""
+    sums = [0.0] * len(fns)
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            sums[i] += device_ms(fn, reps)
+    return [x / rounds for x in sums]
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
@@ -341,6 +360,8 @@ def phase_build():
     # 64 registers a thread
     ptxas = build.BUILD_INFO["lda_estep"]["ptxas"]
     spills = fixed_point_spills(ptxas, -(-TOPICS // 32))
+    if spills != [[0, 0]]:
+        emit({"phase": "build", "ptxas": ptxas})
     check(spills == [[0, 0]],
           f"fixed_point_kernel spills at K = {TOPICS}: {spills}")
     # K6's and K7's tensor-core instances (one launch at K <= 64 and K <=
@@ -361,10 +382,15 @@ def phase_build():
                                          f"{int(name.endswith('tiled'))}E")
               for name in ONEHOT_SPILLS}
     check(onehot == ONEHOT_SPILLS, f"onehot_kernel spills: {onehot}")
+    # K2's and K5's instances (KPL = 1 ... 8 and the wide body, each
+    # layout): none spills
+    pi = kernel_spills(ptxas, "token_pi_kernel")
+    check(len(pi) == 18 and all(x == [0, 0] for x in pi),
+          f"token_pi_kernel instances spill (or are missing): {pi}")
     emit({"phase": "build", "seconds": seconds,
           "fixed_point_spill_bytes": spills,
           "dense_spill_bytes": dense, "dense_registers": registers,
-          "onehot_spill_bytes": onehot,
+          "onehot_spill_bytes": onehot, "token_pi_spill_bytes": pi,
           "libraries": build.BUILD_INFO})
 
 
@@ -548,6 +574,36 @@ def check_bf16(run, run_fp32, plain, label, block):
                            else "within 1 a tile")}
 
 
+def finish_times(row, pi_bytes):
+    """The π finish's own device time (the fixed point's kernel with it
+    less without it) beside the bound with it less without it (small
+    where the sweeps' operations bound the kernel) and the time to write
+    π's ``pi_bytes`` once."""
+    return {"finish_ms": row["kernel_ms"] - row["kernel_ms_without_pi"],
+            "finish_bound_ms": row["bound_ms"] - row["bound_ms_without_pi"],
+            "finish_write_bound_ms": pi_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def pi_times(run, plain, kernel, nbytes, ops, timer, reps=20):
+    """K2's or K5's times on one batch: events over back-to-back calls
+    (``ms``, the wrapper's host work included where it outlasts the
+    kernel), the kernel's device time by the profiler (``kernel_ms``), its
+    twin's, and its bound (π written once, the tokens, the distinct Eφ
+    rows and Eθ read once; 4 operations a live topic)."""
+    bms, by = bound_ms(nbytes, ops)
+    kms = kernel_ms(run, kernel, reps)
+    return {"ms": timer(run, reps), "kernel_ms": kms,
+            "plain_ms": timer(plain, 5), "bound_ms": bms, "bound_by": by,
+            "bound_share": bms / kms, "library_ms": None}
+
+
+def gate_pi(row, name):
+    check(row["bound_share"] >= PI_BOUND_SHARE,
+          f"{name}: {row['kernel_ms']} ms of device time, "
+          f"{row['bound_share']:.3f} of its {row['bound_ms']} ms bound "
+          f"(at least {PI_BOUND_SHARE} required)")
+
+
 def phase_kernels(device, spec, train, topics, batch, timer):
     """Each kernel against its plain twin on one path-shaped batch."""
     import torch
@@ -603,6 +659,8 @@ def phase_kernels(device, spec, train, topics, batch, timer):
         plain_ms=timer(lambda: lda_estep.estep_fixed_point_pi_plain(*args),
                        2, 1),
         library_ms=None)
+    finish = finish_times(out["fixed_point"], b * l * k * 4)
+    out["fixed_point"]["finish_ms"] = finish["finish_ms"]
     lib = build.load()
     grid = lib.lda_fixed_point_blocks(b, l, k, 128, b)
     one_round = -(-b // (8 // lib.lda_fixed_point_warps(l)))
@@ -631,15 +689,16 @@ def phase_kernels(device, spec, train, topics, batch, timer):
     check(torch.equal(memo_delta[0], lda_estep.token_pi(
         ids, cnts, eb, et, quantize=True)), "memo_delta: π is not K2's")
     del memo_delta
-    bms, by = bound_ms(b * l * 8 + distinct * k * 4 + b * k * 4
-                       + b * l * k * 4, 4.0 * live * k)
-    out["token_pi"] = {
-        "max_abs_err": errs[False], "max_abs_err_bf16": errs[True],
-        "tol": "rtol=1e-5 atol=1e-6 fp32; 1 bf16 ulp with quantize",
-        "ms": timer(lambda: lda_estep.token_pi(ids, cnts, eb, et), 20),
-        "plain_ms": timer(lambda: lda_estep.token_pi_plain(ids, cnts, eb, et),
-                          5),
-        "bound_ms": bms, "bound_by": by, "library_ms": None}
+    out["token_pi"] = pi_times(
+        lambda: lda_estep.token_pi(ids, cnts, eb, et),
+        lambda: lda_estep.token_pi_plain(ids, cnts, eb, et), "token_pi_kernel",
+        b * l * 8 + distinct * k * 4 + b * k * 4 + b * l * k * 4,
+        4.0 * live * k, timer)
+    out["token_pi"].update(max_abs_err=errs[False],
+                           max_abs_err_bf16=errs[True],
+                           tol="rtol=1e-5 atol=1e-6 fp32; 1 bf16 ulp with "
+                               "quantize")
+    gate_pi(out["token_pi"], "token_pi")
 
     # K3 ------------------------------------------------------------------
     flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
@@ -701,6 +760,9 @@ def phase_kernels(device, spec, train, topics, batch, timer):
                                         "live_slots": live,
                                         "distinct_ids": distinct},
           "kernels": out,
+          # the π finish's device time beside its bounds (computed, so
+          # kept out of the kernels line)
+          "finish": finish,
           # the blocks of K1's cooperative grid at this shape, and the
           # launches of memo_delta (K2 then K3)
           "fixed_point_grid_blocks": grid,
@@ -1158,6 +1220,8 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
         # phase 3 timed K1 on these documents, with this λ and γ₀
         same_docs_as_fixed_point=bool(np.array_equal(cb.rows,
                                                      np.arange(batch))))
+    finish = finish_times(out["fixed_point_csr"], t * k * 4)
+    out["fixed_point_csr"]["finish_ms"] = finish["finish_ms"]
 
     # K5 ------------------------------------------------------------------
     errs = {}
@@ -1170,16 +1234,17 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
         rtol, atol = (2.0 ** -7, 1e-38) if quantize else (1e-5, 1e-6)
         check(torch.allclose(got, want, rtol=rtol, atol=atol),
               f"token_pi_csr(quantize={quantize}): off by {errs[quantize]}")
-    bms, by = bound_ms(t * 12 + distinct * k * 4 + b * k * 4 + t * k * 4,
-                       4.0 * live * k)
-    out["token_pi_csr"] = {
-        "max_abs_err": errs[False], "max_abs_err_bf16": errs[True],
-        "tol": "rtol=1e-5 atol=1e-6 fp32; 1 bf16 ulp with quantize",
-        "ms": timer(lambda: lda_estep.token_pi_csr(ids, cnts, segs, eb, et),
-                    20),
-        "plain_ms": timer(lambda: lda_estep.token_pi_csr_plain(
-            ids, cnts, segs, eb, et), 5),
-        "bound_ms": bms, "bound_by": by, "library_ms": None}
+    out["token_pi_csr"] = pi_times(
+        lambda: lda_estep.token_pi_csr(ids, cnts, segs, eb, et),
+        lambda: lda_estep.token_pi_csr_plain(ids, cnts, segs, eb, et),
+        "csr_token_pi_kernel",
+        t * 12 + distinct * k * 4 + b * k * 4 + t * k * 4, 4.0 * live * k,
+        timer)
+    out["token_pi_csr"].update(max_abs_err=errs[False],
+                               max_abs_err_bf16=errs[True],
+                               tol="rtol=1e-5 atol=1e-6 fp32; 1 bf16 ulp "
+                                   "with quantize")
+    gate_pi(out["token_pi_csr"], "token_pi_csr")
 
     # memo_delta_csr: K5 then K3 on the flat rows, driven and counted -----
     pi_old = lda_estep.token_pi_csr(ids, cnts, segs, eb, pet)
@@ -1210,7 +1275,7 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
                              "launches": memo_delta_launches},
           "fixed_point_csr_grid": csr_grid(b, t, k, k4["kernel_ms"],
                                            k4["sweeps"]),
-          "kernels": out})
+          "finish": finish, "kernels": out})
     return out, memo_delta_launches
 
 
@@ -2206,6 +2271,18 @@ def phase_legacy(device, spec, train, topics, batch, timer):
           f"{hot_err}")
     del got_hot, want_hot
     nb = b // lda_estep.delta_effective_block_b(b, l, k)
+    # device time a call, the preparation included (the host-clocked ms
+    # below are mostly the wrappers' launch overhead at this size), K8
+    # and K2 + K3 in turns: with K2's runs of slots they lie within ~5% of
+    # each other on an H100
+    k8_ms, k2_k3_ms = paired_device_ms((
+        lambda: lda_estep.memo_delta_onehot(ids, cnts, ebt, et, v,
+                                            old_pi=old_pi),
+        lambda: lda_estep.memo_delta(ids, cnts, eb, et, v, old_pi=old_pi)))
+    hot_ms, hot_k2_k3_ms = paired_device_ms((
+        lambda: lda_estep.memo_delta_onehot(*hot, old_pi=old_pi),
+        lambda: lda_estep.memo_delta(ids_hot, cnts, eb, et, v,
+                                     old_pi=old_pi)))
     bms, by = bound_ms(b * l * 8 + 3 * b * l * k * 4 + b * k * 4
                        + 2 * v * k * 4, 4.0 * live * k + 4.0 * live * k)
     out["memo_delta_onehot"] = {
@@ -2219,12 +2296,7 @@ def phase_legacy(device, spec, train, topics, batch, timer):
             ids, cnts, ebt, et, v, old_pi), 2, 1),
         "k2_k3_ms": timer(lambda: lda_estep.memo_delta(
             ids, cnts, eb, et, v, old_pi=old_pi), 5),
-        # device time a call, the preparation included: the host-clocked
-        # ms above are mostly the wrappers' launch overhead at this size
-        "device_ms": device_ms(lambda: lda_estep.memo_delta_onehot(
-            ids, cnts, ebt, et, v, old_pi=old_pi)),
-        "k2_k3_device_ms": device_ms(lambda: lda_estep.memo_delta(
-            ids, cnts, eb, et, v, old_pi=old_pi)),
+        "device_ms": k8_ms, "k2_k3_device_ms": k2_k3_ms,
         "kernel_ms": kernel_ms(lambda: lda_estep.memo_delta_onehot(
             ids, cnts, ebt, et, v, old_pi=old_pi), "onehot_kernel"),
         "one_id_in_every_document": {
@@ -2233,10 +2305,7 @@ def phase_legacy(device, spec, train, topics, batch, timer):
                 *hot, old_pi=old_pi), 5),
             "k2_k3_ms": timer(lambda: lda_estep.memo_delta(
                 ids_hot, cnts, eb, et, v, old_pi=old_pi), 5),
-            "device_ms": device_ms(lambda: lda_estep.memo_delta_onehot(
-                *hot, old_pi=old_pi)),
-            "k2_k3_device_ms": device_ms(lambda: lda_estep.memo_delta(
-                ids_hot, cnts, eb, et, v, old_pi=old_pi))},
+            "device_ms": hot_ms, "k2_k3_device_ms": hot_k2_k3_ms},
         "bound_ms": bms, "bound_by": by, "library_ms": None}
     del hot, ids_hot, ebt_hot
     k8 = out["memo_delta_onehot"]
@@ -3030,10 +3099,10 @@ def kernel_digests(device, k=100):
 
 
 def phase_kcap(device, spec, train, timer):
-    """K1, K4, K3, K6, K7 and K8 at K = 300 and 1,000 against their twins
-    on the first Arxiv-shaped documents (V = 141,927), timed beside their
-    bounds; every fixed-point instance's spills (0 required); at K = 100
-    the parent's bits."""
+    """K1, K4, K2, K5, K3, K6, K7 and K8 at K = 300 and 1,000 against their
+    twins on the first Arxiv-shaped documents (V = 141,927), timed beside
+    their bounds; every fixed-point instance's spills (0 required); at K =
+    100 the parent's bits."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.estep import densify
@@ -3101,6 +3170,26 @@ def phase_kcap(device, spec, train, timer):
             plain_ms=timer(
                 lambda: lda_estep.estep_fixed_point_csr_pi_plain(*cargs),
                 1, 1))
+
+        # K2 and K5 on the same documents (the flat stream of K4 above) ----
+        distinct = int(torch.unique(ids[cnts != 0]).numel())
+        pis = {}
+        for name, run, plain, kernel, nbytes in (
+                ("token_pi", lambda: lda_estep.token_pi(ids, cnts, eb, et),
+                 lambda: lda_estep.token_pi_plain(ids, cnts, eb, et),
+                 "token_pi_kernel", b * l * 8),
+                ("token_pi_csr", lambda: lda_estep.token_pi_csr(
+                    flat_ids, flat_cnts, segs, eb, et4),
+                 lambda: lda_estep.token_pi_csr_plain(
+                     flat_ids, flat_cnts, segs, eb, et4),
+                 "csr_token_pi_kernel", b * l * 12)):
+            perr = float((run() - plain()).abs().max())
+            check(torch.allclose(run(), plain(), rtol=1e-5, atol=1e-6),
+                  f"{name} K={k}: off its twin by {perr}")
+            pis[name] = pi_times(run, plain, kernel, nbytes + distinct * k * 4
+                                 + b * k * 4 + b * l * k * 4, 4.0 * live * k,
+                                 timer, 10)
+            pis[name].update(max_abs_err=perr, tol="rtol=1e-5 atol=1e-6")
 
         # K3 on the two fixed points' π ------------------------------------
         pi_new = lda_estep.token_pi(ids, cnts, eb, et).reshape(-1, k)
@@ -3201,7 +3290,7 @@ def phase_kcap(device, spec, train, timer):
                               2, 1),
             "bound_ms": bms, "bound_by": by}
         del ebt8, o8
-        rows[k] = {"fixed_point": k1, "fixed_point_csr": k4,
+        rows[k] = {"fixed_point": k1, "fixed_point_csr": k4, **pis,
                    "segment_scatter": k3, **dense}
         torch.cuda.empty_cache()
     emit({"phase": "kcap", "B": b, "L": l, "V": v, "live_slots": live,

@@ -13,7 +13,8 @@
 //                              device), as one tile: stopped batch-wide;
 //                              its finish writes flat pi (K5's function)
 //   K3                         unchanged: flat rows are its native input
-// The standalone pi kernels stay behind memo_delta / memo_delta_csr:
+// The standalone pi kernels stay behind memo_delta / memo_delta_csr, one
+// body over runs of consecutive slots with 16-byte span stores:
 //   K2 token_pi_kernel         token-aligned pi
 //   K5 csr_token_pi_kernel     flat pi (T, K)
 // and three of the pre-fusion baseline (one launch per sweep over a dense
@@ -166,7 +167,11 @@ __device__ __forceinline__ void exp_elog_theta(const float (&g)[KPL],
 // runs after the sweeps and within their 64 registers a thread (no
 // spills, the same co-resident grid), so gamma, E[theta] and the sweep
 // counts have the same bits, and the sweeps the same speed, with and
-// without it.
+// without it. It keeps its scalar stores: K2's path (rows staged in shared
+// memory, then 16-byte stores) needs registers the 64 do not leave (every
+// instance spilled with it), and what fits (the rows asked of L2 as their
+// ids arrive, streaming stores, 16-byte zero rows) measured within the
+// finish's run-to-run spread on an H100.
 //
 // Bound: operations (4*K per live token per sweep, plus the digamma series
 // per row); the bytes it must move are the token rows and the distinct Eφ
@@ -226,6 +231,76 @@ __device__ __forceinline__ float pi_value(float t, float e, float p,
                                           int quantize) {
   const float v = __fdiv_rn(__fmul_rn(t, e), p);
   return quantize ? round_bf16(v) : v;
+}
+
+// K2's and K5's stores of pi: streaming (evict-first), so the 67 MB of pi
+// that K2 writes through the 50 MB L2 at the Arxiv shape pushes out less
+// of the Eφ rows that its next loads hit there (about 1% faster than plain
+// stores on an H100).
+__device__ __forceinline__ void pi_store(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void pi_store4(float4* p, float4 v) {
+  __stcs(p, v);
+}
+
+// Floats from dst to its next 16-byte boundary (0 ... 3).
+__device__ __forceinline__ int to_16b(const float* dst) {
+  return static_cast<int>((0u - (reinterpret_cast<uintptr_t>(dst) >> 2)) & 3u);
+}
+
+// The warp's copy of `len` floats from src (a staging buffer in shared
+// memory) to dst: scalars up to dst's first 16-byte boundary, whole 16-byte
+// vectors (a lane a vector, so a warp's store covers 512 contiguous bytes;
+// read from shared memory as one vector where src is aligned as dst is,
+// else as four floats), then up to 3 scalars. A copy: no bit changes.
+__device__ __forceinline__ void store_span(float* __restrict__ dst,
+                                           const float* src, int len,
+                                           int lane) {
+  const int head = min(len, to_16b(dst));
+  const int nv = (len - head) >> 2;
+  const int tail = head + 4 * nv;
+  if (lane < head) pi_store(dst + lane, src[lane]);
+  if (lane < len - tail) pi_store(dst + tail + lane, src[tail + lane]);
+  float4* dv = reinterpret_cast<float4*>(dst + head);
+  const float* sv = src + head;
+  if ((reinterpret_cast<uintptr_t>(sv) & 15u) == 0) {
+    const float4* sv4 = reinterpret_cast<const float4*>(sv);
+    for (int q = lane; q < nv; q += kWarp) pi_store4(dv + q, sv4[q]);
+  } else {
+    for (int q = lane; q < nv; q += kWarp) {
+      pi_store4(dv + q, make_float4(sv[4 * q], sv[4 * q + 1], sv[4 * q + 2],
+                                    sv[4 * q + 3]));
+    }
+  }
+}
+
+// Where to stage the floats bound for dst: at dst's offset from a 16-byte
+// boundary past the 16-byte aligned `stage`.
+__device__ __forceinline__ float* staged_like(float* stage, const float* dst) {
+  return stage + ((reinterpret_cast<uintptr_t>(dst) >> 2) & 3u);
+}
+
+// The warp's `len` zeros at dst, as store_span stores them.
+__device__ __forceinline__ void store_zeros(float* __restrict__ dst, int len,
+                                            int lane) {
+  const int head = min(len, to_16b(dst));
+  const int nv = (len - head) >> 2;
+  const int tail = head + 4 * nv;
+  if (lane < head) pi_store(dst + lane, 0.f);
+  if (lane < len - tail) pi_store(dst + tail + lane, 0.f);
+  float4* dv = reinterpret_cast<float4*>(dst + head);
+  for (int q = lane; q < nv; q += kWarp) {
+    pi_store4(dv + q, make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+}
+
+// Ask L2 for the K floats of a row (every 128-byte line they touch).
+__device__ __forceinline__ void prefetch_row(const float* row, int K) {
+  const char* p = reinterpret_cast<const char*>(row);
+  const int bytes = K * static_cast<int>(sizeof(float));
+  for (int o = 0; o < bytes; o += 128) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + o));
+  }
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p + bytes - 1));
 }
 
 // Warp p's share of one row's sweep: acc += ratio * Eφ[id] over the live
@@ -870,54 +945,282 @@ __global__ void __launch_bounds__(kFpThreads, 4)
 }
 
 // ---------------------------------------------------------------------------
-// K2: token-aligned pi.
+// K2 and K5: token-aligned pi, on the padded layout and on the flat stream.
 //
-// Replaces _token_pi_kernel (repro/kernels/lda_estep.py:208).
-// pi[b, l] = E[theta][b] * Eφ[id] / (sum_k E[theta][b] * Eφ[id] + 1e-30),
-// zero where the count is 0, optionally rounded through bf16 before it is
-// written (the memo wire; the scatter then sums the rounded value).
+// K2 replaces _token_pi_kernel (repro/kernels/lda_estep.py:208), K5
+// _csr_token_pi_kernel (:558). Slot s's pi row is
+//   E[theta][doc] * Eφ[id] / (sum_k E[theta][doc] * Eφ[id] + 1e-30)
+// with doc = s / L (K2) or the slot's segment id (K5), a zero row where the
+// count is not > 0, rounded through bf16 with `quantize` (the memo wire: the
+// scatter then sums the rounded value). K1's and K4's finish forms the same
+// pi with the same explicitly rounded steps (pi_dot_step, pi_value), so the
+// bits are equal; these launches serve memo_delta and memo_delta_csr.
 //
-// Bound: bytes, dominated by the (B, L, K) fp32 pi it writes. One warp per
-// token slot reads the Eφ row itself (no (B, L, K) gather is materialised
-// in torch, unlike the TPU path) and writes its K outputs coalesced; slots
-// with count 0 only write zeros. The IVI update forms the same pi in K1's
-// finish (the same bits); this launch serves memo_delta.
+// Bound: bytes, the (slots, K) fp32 pi written once (66.8 MB at the Arxiv
+// shape, 0.020 of the 0.028 ms bound), then the distinct Eφ rows, the
+// tokens and E[theta]. The first port gave each slot a warp that loaded the
+// count, then the id, then the Eφ and E[theta] rows twice (the dot, the
+// values), then stored four scalar floats a lane over a row only 16-byte
+// aligned: about 20 waves of short dependent chains, a third of the bound's
+// rate. Timed in parts on an H100, its loads alone took 63% of its time, the dot and division 18%, the stores 19%.
+//
+// Here, up to 256 topics (KPL = ceil(K / 32) <= 8), a warp owns runs of 8
+// consecutive slots (kPiRun), and the grid, what is co-resident, loops
+// over the runs:
+//   - a run's ids, counts and documents come in one load (a lane a slot),
+//     the next run's while this one is computed, and its live Eφ rows are
+//     asked of L2 at once;
+//   - its slots go in groups of up to U (tokens in flight) whose live slots
+//     share one document, and E[theta] is loaded into registers only when
+//     the document changes: about once a run on the padded layout, once a
+//     segment on the packer's flat stream (any order is right, only slower);
+//   - a group's Eφ rows are loaded together, each dot reduced in the first
+//     port's order (lane sums over k = lane, lane + 32, ..., each step
+//     pi_dot_step, the butterfly, then + 1e-30), and the values (pi_value,
+//     elementwise, so their layout touches no bit) and the zero rows written
+//     to the warp's staging rows in shared memory;
+//   - the group's rows are one contiguous span of pi on both layouts (m * K
+//     floats), written by store_span as whole 16-byte vectors, 512
+//     contiguous bytes a warp store, with a scalar head and tail where the
+//     span is not 16-byte aligned (K % 4 != 0); the span is staged at its
+//     destination's offset from a 16-byte boundary, so the vectors are read
+//     from shared memory whole too.
+// Above 256 topics (KPL = 0) a row is long enough to fill a warp, and a
+// warp takes one slot, as the first port did, every slot of the batch
+// launched at once: its Eφ row is copied into the warp's staging row by
+// cp.async (every copy in flight, no register held), the dot is taken
+// from there with E[theta] through L1, the values overwrite the row, and
+// the row goes out as one span. On an H100 this is about 5% slower than
+// the first port at K = 300 (whose rows stay in L1, with no shared memory
+// beside it) and about 18% faster at 1,000; runs of slots, with their rows
+// in registers or 4 rows staged in shared memory, were slower still at
+// 300: too few rows in flight an SM at their occupancy.
+// At the Arxiv shape K2 reaches about half the byte bound's rate on an
+// H100 (0.056 ms against 0.028, from 0.080).
 // ---------------------------------------------------------------------------
-// pi of one live token slot across a warp: E[theta] row t_row times the
-// token's Eφ row, normalised (shared by K2, K5 and K8; pi_dot_step and
-// pi_value keep its bits equal to K1/K4's finish).
-__device__ __forceinline__ void token_pi_row(float* out,
-                                             const float* __restrict__ e_row,
-                                             const float* __restrict__ t_row,
-                                             int K, int lane, int quantize) {
-  float part = 0.f;
-  for (int k = lane; k < K; k += kWarp) {
-    part = pi_dot_step(t_row[k], __ldg(e_row + k), part);
+constexpr int kPiThreads = 256;
+
+constexpr int kPiRun = 8;   // slots of a run with rows in registers
+
+// Rows of a group (tokens in flight) at KPL topics a lane.
+__host__ __device__ constexpr int pi_group(int kpl) {
+  return kpl <= 4 ? 4 : 2;
+}
+
+// Floats of a warp's staging rows: `rows` rows of K and 3 to align them, a
+// multiple of 4 (so the next warp's rows start 16-byte aligned).
+__host__ __device__ inline int pi_stage_floats(int rows, int K) {
+  return (rows * K + 6) / 4 * 4;
+}
+
+// Copy one float from global to shared memory without a register
+// (cp.async, through L1); the copies complete at copy_async_wait.
+__device__ __forceinline__ void copy_async_f32(float* smem,
+                                               const float* gmem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The wide body of K2 (segs == nullptr: doc = slot / L) and K5 (doc =
+// segs[s]): a warp a slot.
+__device__ __forceinline__ void pi_slot(
+    const int32_t* __restrict__ ids, const float* __restrict__ cnts,
+    const int32_t* __restrict__ segs, const float* __restrict__ eb,
+    const float* __restrict__ et, float* __restrict__ pi, int64_t slots,
+    int L, int K, int quantize) {
+  extern __shared__ __align__(16) float pi_smem[];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) + warp;
+  if (s >= slots) return;
+  float* dst = pi + s * K;
+  if (!(cnts[s] > 0.f)) {
+    store_zeros(dst, K, lane);
+    return;
   }
-  const float p = __fadd_rn(warp_sum(part), kEps);
+  // the Eφ row copied into the staging row with every copy in flight,
+  // then the dot and the values (in place) with E[theta] through L1; a
+  // lane touches only its own topics until the span's store
+  float* row = staged_like(pi_smem + warp * pi_stage_floats(1, K), dst);
+  const float* e_row = eb + static_cast<size_t>(ids[s]) * K;
+  for (int k = lane; k < K; k += kWarp) copy_async_f32(row + k, e_row + k);
+  const float* t_row =
+      et + static_cast<int64_t>(segs != nullptr ? segs[s] : s / L) * K;
+  copy_async_wait();
+  float part = 0.f;
+#pragma unroll 4
   for (int k = lane; k < K; k += kWarp) {
-    out[k] = pi_value(t_row[k], __ldg(e_row + k), p, quantize);
+    part = pi_dot_step(__ldg(t_row + k), row[k], part);
+  }
+  part = __fadd_rn(warp_sum(part), kEps);
+#pragma unroll 4
+  for (int k = lane; k < K; k += kWarp) {
+    row[k] = pi_value(__ldg(t_row + k), row[k], part, quantize);
+  }
+  __syncwarp();
+  store_span(dst, row, K, lane);
+}
+
+// The body of K2 and K5 up to kNarrowK topics, over runs of kPiRun slots.
+template <int KPL>
+__device__ __forceinline__ void pi_runs(
+    const int32_t* __restrict__ ids, const float* __restrict__ cnts,
+    const int32_t* __restrict__ segs, const float* __restrict__ eb,
+    const float* __restrict__ et, float* __restrict__ pi, int64_t slots,
+    int L, int K, int quantize) {
+  constexpr int U = pi_group(KPL);
+  constexpr int run = kPiRun;
+  extern __shared__ __align__(16) float pi_smem[];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  float* stage = pi_smem + warp * pi_stage_floats(U, K);
+  const int64_t runs = (slots + run - 1) / run;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * warps;
+  // lane < run: the id, count and document of slot r * run + lane
+  auto fetch = [&](int64_t r, int32_t& id, float& c, int& doc) {
+    const int64_t s = r * run + lane;
+    id = 0;
+    c = 0.f;
+    doc = 0;
+    if (lane < run && s < slots) {
+      id = ids[s];
+      c = cnts[s];
+      doc = segs != nullptr ? segs[s] : static_cast<int>(s / L);
+    }
+  };
+  int64_t r = static_cast<int64_t>(blockIdx.x) * warps + warp;
+  int32_t next_id;
+  float next_c;
+  int next_doc;
+  fetch(r, next_id, next_c, next_doc);
+  int cur = -1;   // the document whose E[theta] the warp holds
+  float t[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) t[j] = 0.f;
+  for (; r < runs; r += step) {
+    const int32_t my_id = next_id;
+    const float my_c = next_c;
+    const int my_doc = next_doc;
+    fetch(r + step, next_id, next_c, next_doc);
+    const int64_t s0 = r * run;
+    const int m =
+        static_cast<int>(min(static_cast<int64_t>(run), slots - s0));
+    const unsigned live = __ballot_sync(kAllLanes, lane < m && my_c > 0.f);
+    if ((live >> lane) & 1u) {
+      prefetch_row(eb + static_cast<size_t>(my_id) * K, K);
+    }
+    for (int i = 0; i < m;) {
+      // the group: slots i ... i + g - 1, its live ones of one document
+      int g = 0, gdoc = -1;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int d = __shfl_sync(kAllLanes, my_doc, (i + u) & (kWarp - 1));
+        const bool in = g == u && i + u < m;
+        const bool lv = in && ((live >> (i + u)) & 1u);
+        if (in && (!lv || gdoc < 0 || d == gdoc)) {
+          ++g;
+          if (lv) gdoc = d;
+        }
+      }
+      float* dst = pi + (s0 + i) * K;
+      float* src = staged_like(stage, dst);
+      if (gdoc >= 0 && gdoc != cur) {
+        cur = gdoc;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const int k = lane + j * kWarp;
+          t[j] = k < K ? et[static_cast<int64_t>(cur) * K + k] : 0.f;
+        }
+      }
+      float e[U][KPL], part[U];
+      bool has[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        has[u] = u < g && ((live >> (i + u)) & 1u);   // warp-uniform
+        const int32_t id =
+            __shfl_sync(kAllLanes, my_id, (i + u) & (kWarp - 1));
+        const float* e_row = eb + static_cast<size_t>(id) * K;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const int k = lane + j * kWarp;
+          e[u][j] = has[u] && k < K ? __ldg(e_row + k) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        part[u] = 0.f;
+        if (has[u]) {
+#pragma unroll
+          for (int j = 0; j < KPL; ++j) {
+            if (lane + j * kWarp < K) {
+              part[u] = pi_dot_step(t[j], e[u][j], part[u]);
+            }
+          }
+          part[u] = __fadd_rn(warp_sum(part[u]), kEps);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u < g) {
+#pragma unroll
+          for (int j = 0; j < KPL; ++j) {
+            const int k = lane + j * kWarp;
+            if (k < K) {
+              src[u * K + k] =
+                  has[u] ? pi_value(t[j], e[u][j], part[u], quantize) : 0.f;
+            }
+          }
+        }
+      }
+      __syncwarp();
+      store_span(dst, src, g * K, lane);
+      __syncwarp();   // the staging rows are refilled by the next group
+      i += g;
+    }
   }
 }
 
-__global__ void __launch_bounds__(256)
+// Blocks an SM the register budget is set for: 4 (64 registers a thread),
+// 3 where KPL >= 5 rows in flight would spill at 64, and 8 for the wide
+// body (KPL = 0), which keeps nothing across slots.
+__host__ __device__ constexpr int pi_min_blocks(int kpl) {
+  return kpl == 0 ? 8 : kpl >= 5 ? 3 : 4;
+}
+
+template <int KPL>
+__global__ void __launch_bounds__(kPiThreads, pi_min_blocks(KPL))
     token_pi_kernel(const int32_t* __restrict__ ids,
                     const float* __restrict__ cnts,
                     const float* __restrict__ eb,
                     const float* __restrict__ et, float* __restrict__ pi,
                     int64_t slots, int L, int K, int quantize) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int64_t s = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x) / kWarp;
-  if (s >= slots) return;
-  float* out = pi + s * K;
-  const float c = cnts[s];
-  if (!(c > 0.f)) {
-    for (int k = lane; k < K; k += kWarp) out[k] = 0.f;
-    return;
+  if constexpr (KPL == 0) {
+    pi_slot(ids, cnts, nullptr, eb, et, pi, slots, L, K, quantize);
+  } else {
+    pi_runs<KPL>(ids, cnts, nullptr, eb, et, pi, slots, L, K, quantize);
   }
-  token_pi_row(out, eb + static_cast<size_t>(ids[s]) * K, et + (s / L) * K,
-               K, lane, quantize);
+}
+
+template <int KPL>
+__global__ void __launch_bounds__(kPiThreads, pi_min_blocks(KPL))
+    csr_token_pi_kernel(const int32_t* __restrict__ ids,
+                        const float* __restrict__ cnts,
+                        const int32_t* __restrict__ segs,
+                        const float* __restrict__ eb,
+                        const float* __restrict__ et, float* __restrict__ pi,
+                        int64_t slots, int K, int quantize) {
+  if constexpr (KPL == 0) {
+    pi_slot(ids, cnts, segs, eb, et, pi, slots, 1, K, quantize);
+  } else {
+    pi_runs<KPL>(ids, cnts, segs, eb, et, pi, slots, 1, K, quantize);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -974,16 +1277,6 @@ __device__ __forceinline__ void store_row(float* out, const float (&v)[KPL],
     const int k = lane + j * kWarp;
     if (k < K) out[k] = v[j];
   }
-}
-
-// Ask L2 for the K floats of a row (every 128-byte line they touch).
-__device__ __forceinline__ void prefetch_row(const float* row, int K) {
-  const char* p = reinterpret_cast<const char*>(row);
-  const int bytes = K * static_cast<int>(sizeof(float));
-  for (int o = 0; o < bytes; o += 128) {
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + o));
-  }
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p + bytes - 1));
 }
 
 // Row i < n of the sorted rows starting at order + i0: its index and count
@@ -1170,39 +1463,6 @@ __global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
       __syncthreads();   // `part` is refilled by the next long segment
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// K5: flat-token pi.
-//
-// Replaces _csr_token_pi_kernel (repro/kernels/lda_estep.py:558).
-// pi[t] = E[theta][seg[t]] * Eφ[id[t]] / (sum_k ... + 1e-30), zero where the
-// count is 0, optionally rounded through bf16 before it is written. K2's
-// body with the E[theta] row taken from the segment id instead of slot / L.
-//
-// Bound: bytes, dominated by the (T, K) fp32 pi it writes (slots with count
-// 0 only write zeros). The IVI update forms the same pi in K4's finish;
-// this launch serves memo_delta_csr.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
-    csr_token_pi_kernel(const int32_t* __restrict__ ids,
-                        const float* __restrict__ cnts,
-                        const int32_t* __restrict__ segs,
-                        const float* __restrict__ eb,
-                        const float* __restrict__ et, float* __restrict__ pi,
-                        int64_t slots, int K, int quantize) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int64_t s = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x) / kWarp;
-  if (s >= slots) return;
-  float* out = pi + s * K;
-  const float c = cnts[s];
-  if (!(c > 0.f)) {
-    for (int k = lane; k < K; k += kWarp) out[k] = 0.f;
-    return;
-  }
-  token_pi_row(out, eb + static_cast<size_t>(ids[s]) * K,
-               et + static_cast<size_t>(segs[s]) * K, K, lane, quantize);
 }
 
 // ---------------------------------------------------------------------------
@@ -2286,28 +2546,33 @@ size_t fp_smem_bytes(int K, int B, int block_b, int group) {
          nb * sizeof(int);
 }
 
-// The co-resident capacity of a fixed-point kernel (blocks per SM times
-// SMs) for a dynamic shared size, cached per kernel, device and size: the
-// attribute call and the occupancy query run once for each, not on every
-// update. A kernel's shared-memory limit only ever rises (to the largest
-// size seen), so a cached smaller size still launches after a larger one.
-cudaError_t fp_capacity(const void* kernel, size_t smem, int* capacity) {
+// The co-resident capacity of a kernel (blocks per SM times SMs) for a
+// block of `threads` and a dynamic shared size, cached per kernel, device,
+// size and block: the attribute call and the occupancy query run once for
+// each, not on every launch. A kernel's shared-memory limit only ever rises
+// (to the largest size seen), so a cached smaller size still launches after
+// a larger one. `cooperative`: refuse a card without cooperative launches
+// (the fixed point's grid syncs).
+cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
+                            bool cooperative, int* capacity) {
   static std::mutex mu;
-  static std::map<std::tuple<const void*, int, size_t>, int> cache;
+  static std::map<std::tuple<const void*, int, size_t, int>, int> cache;
   // the attribute as set, per kernel and device
   static std::map<std::pair<const void*, int>, size_t> limit;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find({kernel, dev, smem});
+  const auto hit = cache.find({kernel, dev, smem, threads});
   if (hit != cache.end()) {
     *capacity = hit->second;
     return cudaSuccess;
   }
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
+  if (cooperative) {
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+  }
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (smem > limit[{kernel, dev}]) {
@@ -2318,10 +2583,10 @@ cudaError_t fp_capacity(const void* kernel, size_t smem, int* capacity) {
     limit[{kernel, dev}] = smem;
   }
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kFpThreads, smem);
+                                                      threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *capacity = cache[{kernel, dev, smem}] = per_sm * sms;
+  *capacity = cache[{kernel, dev, smem, threads}] = per_sm * sms;
   return cudaSuccess;
 }
 
@@ -2353,8 +2618,9 @@ cudaError_t fp_grid(int B, int L, int K, int block_b, int group,
                     int* blocks) {
   if (K < 1 || group < 1 || B % group != 0) return cudaErrorInvalidValue;
   int capacity = 0;
-  const cudaError_t err = fp_capacity(
-      fp_kernel(K), fp_smem_bytes(K, B, block_b, group), &capacity);
+  const cudaError_t err =
+      resident_blocks(fp_kernel(K), kFpThreads,
+                      fp_smem_bytes(K, B, block_b, group), true, &capacity);
   if (err != cudaSuccess) return err;
   const int dpb = kFpWarps / fp_warps_per_doc(L);
   *blocks = std::max(1, std::min((B + dpb - 1) / dpb, capacity));
@@ -2479,6 +2745,88 @@ cudaError_t launch_r_pass(cudaStream_t stream, const float* c,
   return cudaGetLastError();
 }
 
+// K2 (segs == nullptr) or K5 over `slots` slots at K topics: the KPL =
+// ceil(K / 32) instance up to 256 topics, the wide body (KPL = 0) above; 8
+// warps a block, or fewer where a warp's staging rows would not fit 8 to a
+// block (K above ~7,000); the runs over as many blocks as are co-resident
+// (at most one run a warp), the wide body a warp a slot.
+template <int KPL>
+cudaError_t launch_token_pi(const int32_t* ids, const float* cnts,
+                            const int32_t* segs, const float* eb,
+                            const float* et, float* pi, int64_t slots, int L,
+                            int K, int quantize, cudaStream_t stream) {
+  const void* kernel =
+      segs == nullptr
+          ? reinterpret_cast<const void*>(&token_pi_kernel<KPL>)
+          : reinterpret_cast<const void*>(&csr_token_pi_kernel<KPL>);
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t per_warp =
+      pi_stage_floats(KPL > 0 ? pi_group(KPL) : 1, K) * sizeof(float);
+  const int warps = static_cast<int>(std::min<size_t>(
+      kPiThreads / kWarp, static_cast<size_t>(max_smem) / per_warp));
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem = warps * per_warp;
+  // the wide body: a warp a slot, every slot at once; the runs: the
+  // co-resident grid
+  const int64_t items = KPL > 0 ? (slots + kPiRun - 1) / kPiRun : slots;
+  int64_t blocks = (items + warps - 1) / warps;
+  if (KPL > 0) {
+    int capacity = 0;
+    err = resident_blocks(kernel, warps * kWarp, smem, false, &capacity);
+    if (err != cudaSuccess) return err;
+    blocks = std::min<int64_t>(blocks, capacity);
+  } else if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(std::max<int64_t>(1, blocks)));
+  if (segs == nullptr) {
+    token_pi_kernel<KPL><<<grid, warps * kWarp, smem, stream>>>(
+        ids, cnts, eb, et, pi, slots, L, K, quantize);
+  } else {
+    csr_token_pi_kernel<KPL><<<grid, warps * kWarp, smem, stream>>>(
+        ids, cnts, segs, eb, et, pi, slots, K, quantize);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_token_pi(const int32_t* ids, const float* cnts,
+                              const int32_t* segs, const float* eb,
+                              const float* et, float* pi, int64_t slots,
+                              int L, int K, int quantize, void* stream) {
+  if (K < 1 || slots < 0 || (segs == nullptr && L < 1)) {
+    return cudaErrorInvalidValue;
+  }
+  if (slots == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LDA_PI_CASE(N)                                                     \
+  case N:                                                                  \
+    return launch_token_pi<N>(ids, cnts, segs, eb, et, pi, slots, L, K,    \
+                              quantize, s);
+  switch (K <= kNarrowK ? (K + kWarp - 1) / kWarp : 0) {
+    LDA_PI_CASE(1)
+    LDA_PI_CASE(2)
+    LDA_PI_CASE(3)
+    LDA_PI_CASE(4)
+    LDA_PI_CASE(5)
+    LDA_PI_CASE(6)
+    LDA_PI_CASE(7)
+    LDA_PI_CASE(8)
+    default:
+      return launch_token_pi<0>(ids, cnts, segs, eb, et, pi, slots, L, K,
+                                quantize, s);
+  }
+#undef LDA_PI_CASE
+}
+
 }  // namespace
 
 extern "C" {
@@ -2562,16 +2910,13 @@ int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
   return dispatch_fixed_point(a, static_cast<cudaStream_t>(stream));
 }
 
+// K2 over `slots` = B * L padded slots (rows of L; any K).
 int lda_token_pi(const int32_t* ids, const float* cnts, const float* eb,
                  const float* et, float* pi, int64_t slots, int L, int K,
                  int quantize, void* stream) {
   cudaGetLastError();
-  constexpr int threads = 256;
-  const int64_t blocks = (slots * kWarp + threads - 1) / threads;
-  token_pi_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      ids, cnts, eb, et, pi, slots, L, K, quantize);
-  return cudaGetLastError();
+  return dispatch_token_pi(ids, cnts, nullptr, eb, et, pi, slots, L, K,
+                           quantize, stream);
 }
 
 // K4 over a T-slot stream (T < 2^31): order (T) lists the slots sorted by
@@ -2620,17 +2965,16 @@ int lda_fixed_point_csr(const int32_t* ids, const float* cnts,
   return dispatch_fixed_point(a, static_cast<cudaStream_t>(stream));
 }
 
+// K5 over a flat stream of `slots` slots, each slot's document its
+// segment id (any order; any K).
 int lda_token_pi_csr(const int32_t* ids, const float* cnts,
                      const int32_t* segs, const float* eb, const float* et,
                      float* pi, int64_t slots, int K, int quantize,
                      void* stream) {
   cudaGetLastError();
-  constexpr int threads = 256;
-  const int64_t blocks = (slots * kWarp + threads - 1) / threads;
-  csr_token_pi_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      ids, cnts, segs, eb, et, pi, slots, K, quantize);
-  return cudaGetLastError();
+  if (segs == nullptr) return cudaErrorInvalidValue;
+  return dispatch_token_pi(ids, cnts, segs, eb, et, pi, slots, 1, K,
+                           quantize, stream);
 }
 
 // K3 over all V ids: seg_off (V + 1) cuts `order`; writes every row of

@@ -289,12 +289,15 @@ def test_csr_doc_ranges_leave_out_of_range_segments_uncovered():
 # K5 and memo_delta_csr
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("k", [6, 101, 400])
 @pytest.mark.parametrize("with_old", [False, True])
 @pytest.mark.parametrize("quantize", [False, True])
-def test_memo_delta_csr_twins_match_pallas_kernels(with_old, quantize):
+def test_memo_delta_csr_twins_match_pallas_kernels(with_old, quantize, k):
     """K5 (flat π) and K3 against ``repro``'s ``memo_delta_csr``: π at
-    1e-6 (bf16: one ulp), S_new / S_old at 2e-3."""
-    batch, eb = _flat_batch(7)
+    1e-6 (bf16: one ulp), S_new / S_old at 2e-3; at K below one warp, at
+    K % 4 != 0 (K5's scalar span tail) and above 256 topics (K5's wide
+    body)."""
+    batch, eb = _flat_batch(7, k=k)
     k, vocab = eb.shape[1], eb.shape[0]
     rng = np.random.default_rng(7)
     et = rng.gamma(1.0, 1.0, (batch.num_docs, k)).astype(np.float32)

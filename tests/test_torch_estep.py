@@ -127,11 +127,14 @@ def test_fixed_point_twin_matches_pallas_kernel():
     assert want_iters[0] < want_iters[1] < max_iters   # the tiles differ
 
 
+@pytest.mark.parametrize("k", [9, 101, 400])
 @pytest.mark.parametrize("with_old", [False, True])
 @pytest.mark.parametrize("quantize", [False, True])
-def test_memo_delta_twins_match_pallas_kernels(with_old, quantize):
-    """K2 (token π) and K3 (segment scatter) twins against ``memo_delta``."""
-    ids, cnts, eb, vocab, k = _inputs(11, b=24, vocab=150, k=9)
+def test_memo_delta_twins_match_pallas_kernels(with_old, quantize, k):
+    """K2 (token π) and K3 (segment scatter) twins against ``memo_delta``,
+    at K below one warp, at K % 4 != 0 (K2's scalar span tail) and above
+    256 topics (K2's wide body)."""
+    ids, cnts, eb, vocab, k = _inputs(11, b=24, vocab=150, k=k)
     rng = np.random.default_rng(11)
     et = rng.gamma(1.0, 1.0, (24, k)).astype(np.float32)
     old_pi = rng.random(ids.shape + (k,)).astype(np.float32)

@@ -1,8 +1,8 @@
 """Card-only tests: each CUDA kernel against its plain twin, K1–K3 at the
 main path's shapes (the Arxiv vocabulary V = 141,927, K = 100, B = 1024, L
 about 163), K4 at the path's shape flattened and on small flat CSR
-batches, K5 on a small flat CSR batch, K1/K4's π finish bit for bit
-against K2/K5, their bf16 stream against the twins, K4 on a shuffled
+batches, K5 on a small flat CSR batch, K2/K5 and K1/K4's π finish bit
+for bit against them at K from 9 to 1,000, their bf16 stream against the twins, K4 on a shuffled
 stream, K6–K9 (the pre-fusion baseline and flash attention) at small
 sizes; K1, K4, K3 and K6–K8 above their old K caps (K = 300 and 1,000),
 the K = 100 instances' bits against the parent commit's, and one facade
@@ -349,6 +349,92 @@ def test_csr_token_pi_kernel_matches_twin(csr_inputs, quantize):
         torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-38)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+PI_TOPICS = [9, 100, 101, 256, 257, 1000]
+
+
+def _pi_inputs(cuda, k, b=70, l=37, v=3000):
+    """``b`` documents of ``l`` slots (no multiple of K2's 8-slot runs, so
+    runs cross documents), unique ids a row, a random live length (some
+    rows empty), counts 1–4, Eφ from a Gamma(100, 0.01) λ, and a positive
+    Eθ."""
+    rng = np.random.default_rng(k)
+    ids = np.zeros((b, l), np.int32)
+    cnts = np.zeros((b, l), np.float32)
+    for r in range(b):
+        n = int(rng.integers(0, l + 1))
+        ids[r, :n] = rng.choice(v, size=n, replace=False)
+        cnts[r, :n] = rng.integers(1, 5, size=n)
+    lam = torch.from_numpy(rng.gamma(100.0, 0.01, (v, k)).astype(np.float32))
+    eb = exp_dirichlet_expectation(lam.to(cuda), axis=0).contiguous()
+    et = torch.from_numpy(rng.gamma(1.0, 1.0, (b, k)).astype(np.float32))
+    return (torch.from_numpy(ids).to(cuda), torch.from_numpy(cnts).to(cuda),
+            eb, et.to(cuda))
+
+
+def _pi_close(got, want, quantize):
+    if quantize:   # one bf16 ulp where the fp32 values straddle a rounding
+        torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-38)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("layout", ["padded", "csr"])
+@pytest.mark.parametrize("k", PI_TOPICS)
+def test_token_pi_kernels_and_finish_across_topics(cuda, k, layout,
+                                                   quantize):
+    """K2 / K5 (a warp a run of 8 slots, 16-byte span stores) against their
+    twins below one warp of topics, at the instances' edges (K % 4 != 0:
+    scalar span tails; 257: the wide bodies) and at 1,000; K1's / K4's π
+    finish bit for bit against them; a batch whose counts are all 0 gives
+    zero rows from both. Flat: the stream shuffled slot by slot (a run
+    holds many segments), and 24 live slots given segment -1 or B: K4's
+    finish gives them zero rows, as K5 on the stream with their counts 0."""
+    ids, cnts, eb, et = _pi_inputs(cuda, k)
+    b, l = ids.shape
+    g0 = torch.full((b, k), 1.5, device=cuda)
+    for c in (cnts, torch.zeros_like(cnts)):
+        if layout == "padded":
+            got = lda_estep.token_pi(ids, c, eb, et, quantize=quantize)
+            _pi_close(got, lda_estep.token_pi_plain(ids, c, eb, et,
+                                                    quantize=quantize),
+                      quantize)
+            args = (ids, c, eb, g0, 0.5, 1e-4, 60)
+            g, e, it, pi = lda_estep.estep_fixed_point_pi(*args,
+                                                          quantize=quantize)
+            alone = lda_estep.estep_fixed_point(*args)
+            want = lda_estep.token_pi(ids, c, eb, e, quantize=quantize)
+        else:
+            perm = torch.randperm(b * l, device=cuda,
+                                  generator=torch.Generator(cuda)
+                                  .manual_seed(k))
+            segs = torch.arange(b, dtype=torch.int32,
+                                device=cuda).repeat_interleave(l)
+            flat = [x.reshape(-1)[perm].contiguous() for x in (ids, c, segs)]
+            got = lda_estep.token_pi_csr(*flat, eb, et, quantize=quantize)
+            _pi_close(got, lda_estep.token_pi_csr_plain(
+                *flat, eb, et, quantize=quantize), quantize)
+            live = torch.nonzero(flat[1] > 0).squeeze(1)[:24]
+            outside = flat[2].clone()
+            outside[live[:12]] = -1
+            outside[live[12:]] = b
+            dropped = flat[1].clone()
+            dropped[live] = 0.0
+            args = (flat[0], flat[1], outside, eb, g0, 0.5, 1e-4, 60)
+            g, e, it, pi = lda_estep.estep_fixed_point_csr_pi(
+                *args, quantize=quantize)
+            alone = lda_estep.estep_fixed_point_csr(*args)
+            want = lda_estep.token_pi_csr(flat[0], dropped, flat[2], eb, e,
+                                          quantize=quantize)
+            assert not bool(pi[live].any())
+        torch.cuda.synchronize()
+        for x, y in zip((g, e, it), alone):
+            assert torch.equal(x, y)
+        assert torch.equal(pi, want)
+        if not bool(c.any()):
+            assert not bool(got.any()) and not bool(pi.any())
 
 
 def _seeded_gamma0(b, device, seed):
