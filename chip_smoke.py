@@ -77,7 +77,8 @@ telemetry, each on the same corpus at the same widths:
  19. telemetry — a live bundle on each layout: the spans' split of an
                update, the same λ bits without it, the disabled update's
                host syncs against the parent's sequence, an armed watchdog
-then the facade, serving and checkpoints, D-IVI, and the lifted K caps:
+then the facade, serving and checkpoints, the serving service, D-IVI,
+and the lifted K caps:
  20. facade  — LDA (IVI, cuda backend) for two epochs from warm_start of
                phase 5's λ₀, booked as init_global_state books it: 2
                launches an update, λ bit-equal to phase 5's LDAEngine run;
@@ -92,7 +93,22 @@ then the facade, serving and checkpoints, D-IVI, and the lifted K caps:
                synchronous ones, no host sync before the final gather,
                docs/s both ways, and a swapper thread flipping between two
                snapshots under traffic (each batch's γ one snapshot's)
- 22. divi    — D-IVI (paper §4), P workers simulated on the card through
+ 22. service — repro_torch.serve from phase 5's λ on both layouts, the
+               held-out documents as requests (20 ms flush timeout): (a)
+               a replayed burst of 32,768 requests: docs/s, conservation,
+               each served batch's γ bit-equal to posterior_docs of its
+               admitted documents, 1 launch a batch, host syncs a batch
+               (2: the stream wait, the γ copy); (b) 16,384 Poisson
+               arrivals at half of (a)'s docs/s; (c) ON/OFF bursts
+               (0.1 s on, 0.1 s off) at (a)'s docs/s: latency
+               percentiles, docs/s, partial flushes, the SLO report
+               validated; (d, padded) (b)'s schedule with the
+               OnlineLearner on a CUDA stream of its own, then drain(2):
+               served versions advance, each batch's γ is its version's
+               snapshot's bit for bit, an armed watchdog reading and no
+               violation, swap stalls within 50 ms, 1 launch a served
+               batch and 2 a learner update, the learner's thread joined
+ 23. divi    — D-IVI (paper §4), P workers simulated on the card through
                DIVIEngine on the 16,430 documents: Table 2's P = 1, 4, 16
                (B = 1,024 a worker, S = 1, two passes), Fig. 5's P = 4,
                S = 2, delay_prob = 0.5, and P = 4 at B = 1,000 (no
@@ -106,7 +122,7 @@ then the facade, serving and checkpoints, D-IVI, and the lifted K caps:
                at 16,384 documents, the summed correction against the loop
                over the workers; a mid-run save, load and resume through
                LDA(algo="divi") bit-equal to the run that never stopped
- 23. kcap    — K1, K4, K2, K5, K3, K6, K7 and K8 at K = 300 and 1,000 against
+ 24. kcap    — K1, K4, K2, K5, K3, K6, K7 and K8 at K = 300 and 1,000 against
                their twins on the first 256 documents (K8: 16) at the
                Arxiv V, timed beside their bounds (K6 and K7, on the
                tensor cores in two passes, below their twins and beside
@@ -115,7 +131,7 @@ then the facade, serving and checkpoints, D-IVI, and the lifted K caps:
                kernel's outputs on seeded inputs; K1 at one group,
                group = B; K7's re-anchored)
 then the pre-fusion baseline and attention:
- 24. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
+ 25. legacy  — the per-sweep E-step (K6 once per sweep, K7 once) and the
                one-hot memo delta (K8) on phase 3's documents, λ and γ₀:
                each kernel against its twin and timed (K6 and K7 on the
                tensor cores, bound_ms their bf16 x 3 floor there: at
@@ -126,7 +142,7 @@ then the pre-fusion baseline and attention:
                the whole E-step against the same loop over the twins; the
                legacy correction against the fused one (K1–K3), here and
                at BENCH_estep's shape (B = 128, V = 4096, K = 128, L = 64)
- 25. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
+ 26. attention — flash_mha (K9) at Qwen2.5-3B's attention widths (16 query
                heads, 2 KV heads, hd = 128), B = 1, S = 4096, bf16, causal,
                against its twin, the same bits on two launches, timed beside
                scaled_dot_product_attention; the count of wgmma (HGMMA) and
@@ -2703,6 +2719,277 @@ def phase_serve_infer(device, spec, test, topics, lam):
 
 
 # ---------------------------------------------------------------------------
+# the online serving service: admission, snapshots, the SLO loop and the
+# background IVI learner
+# ---------------------------------------------------------------------------
+
+SERVICE_BURST = 32_768         # (a) replayed at t = 0
+SERVICE_REQUESTS = 16_384      # (b), (c) and (d)
+SERVICE_FLUSH_S = 0.020        # the launcher's flush timeout
+SERVICE_LOAD = 0.5             # (b): Poisson at half of (a)'s docs/s
+SERVICE_ON_OFF_S = 0.1         # (c): ON and OFF spans at (a)'s docs/s
+SERVICE_SYNC_DOCS = 4 * BATCH  # the burst whose host syncs are counted
+# (d)'s learner, on (b)'s schedule (padded): its window, memo width,
+# mini-batch, cadence and the new documents a pass waits for
+LEARNER = dict(capacity=16_384, max_unique=256, batch_size=BATCH,
+               cadence_s=0.25, min_new_docs=1024)
+SWAP_STALL_BOUND_MS = 50.0     # repro's bound on a publish's swap stall
+LEARNER_JOIN_S = 120.0
+
+
+def service_requests(docs, arrivals):
+    """Requests over the held-out documents, cycled in the launcher's
+    seeded order (``default_rng(0).choice``)."""
+    import numpy as np
+    from repro_torch.serve import requests_from_docs
+    order = np.random.default_rng(0).choice(len(docs), size=len(arrivals))
+    return requests_from_docs([docs[i] for i in order], arrivals)
+
+
+def service_run(inf, reqs, learner=None):
+    """One open-loop ``ServingService`` run over ``reqs`` (the learner,
+    when given, started just before and stopped just after), the launch
+    counts set to 0 just before and read just after. Returns the service,
+    each served batch with its responses, the launches and the validated
+    SLO report; fails unless every request was served."""
+    from repro_torch.kernels import lda_estep
+    from repro_torch.serve import (ServiceConfig, ServingService,
+                                   validate_slo_report)
+    svc = ServingService(inf, learner=learner, config=ServiceConfig(
+        flush_timeout_s=SERVICE_FLUSH_S))
+    served = []
+    real = svc._serve_batch
+
+    def record(batch):
+        n0 = len(svc.responses)
+        real(batch)
+        served.append((batch, svc.responses[n0:]))
+
+    svc._serve_batch = record
+    lda_estep.reset_launches()
+    if learner is not None:
+        learner.start()
+    try:
+        svc.run(reqs)
+    finally:
+        if learner is not None:
+            try:
+                learner.stop(timeout=LEARNER_JOIN_S)
+            except RuntimeError as e:
+                fail(f"service: {e}")
+    launches = dict(lda_estep.LAUNCHES)
+    rep = validate_slo_report(svc.slo_report())
+    check(rep["conservation_ok"] and rep["served"] == rep["offered"]
+          == len(reqs) and rep["shed"] == rep["pending"] == 0,
+          f"service: {rep['offered']} offered, {rep['served']} served, "
+          f"{rep['shed']} shed, {rep['pending']} pending of {len(reqs)}")
+    return svc, served, launches, rep
+
+
+def service_line(svc, rep, served, rate=None):
+    line = {"requests": rep["offered"], "batches": len(served),
+            "docs_per_s": rep["throughput_docs_s"], "wall_s": rep["wall_s"],
+            "latency_ms": rep["latency_ms"],
+            "partial_flushes": svc.metrics.total("admit.partial_flushes"),
+            "slo_report_valid": True}
+    if rate is not None:
+        line["offered_rate_docs_s"] = rate
+    return line
+
+
+def phase_service(device, spec, test, topics, lam):
+    """``repro_torch.serve`` on the card from phase train's λ, padded
+    (batch 1,024) and CSR (131,072-slot batches), the 2,100 held-out
+    documents as requests: (a) a replayed burst of 32,768 requests
+    (docs/s, conservation, each batch's γ bit-equal to ``posterior_docs``
+    of its admitted documents, 1 launch a batch, host syncs a batch); (b)
+    Poisson at half of (a)'s docs/s; (c) ON/OFF bursts at (a)'s docs/s;
+    (d, padded) (b)'s schedule with the ``OnlineLearner`` training on a
+    stream of its own beside the serving one, then ``drain(2)``: versions
+    advance, each batch's γ its version's snapshot's bit for bit, an armed
+    watchdog without violations, swap stalls within 50 ms, 2 launches a
+    learner update and 1 a served batch, the learner's thread stopped."""
+    import numpy as np
+    import torch
+    from repro_torch.data.stream import CorpusDocStream
+    from repro_torch.lda import TopicInferencer
+    from repro_torch.serve import (onoff_arrivals, poisson_arrivals,
+                                   replay_arrivals)
+
+    t_phase = time.perf_counter()
+    cfg = train_config(spec, topics)
+    docs = list(CorpusDocStream(test, spec.vocab_size).iter_from(0))
+    out = {"phase": "service", "docs": len(docs),
+           "flush_timeout_s": SERVICE_FLUSH_S}
+    launches = {"fixed_point": 0, "fixed_point_csr": 0,
+                "segment_scatter": 0}
+
+    def make_inf(layout):
+        return TopicInferencer(cfg, lam, batch_size=BATCH, layout=layout,
+                               token_budget=CSR_BUDGET, device=device)
+
+    for layout in ("padded", "csr"):
+        name = "fixed_point_csr" if layout == "csr" else "fixed_point"
+        inf = make_inf(layout)
+        inf.posterior_docs(docs)                          # warm-up
+        line = {}
+        # (a) the burst: the highest rate the service sustains
+        reqs = service_requests(docs, replay_arrivals(SERVICE_BURST))
+        svc, served, counts, rep = service_run(inf, reqs)
+        check(counts[name] == len(served) == sum(counts.values()),
+              f"service (a, {layout}): not 1 launch a served batch over "
+              f"{len(served)}: {counts}")
+        launches[name] += counts[name]
+        rate = rep["throughput_docs_s"]
+        line["a_burst"] = service_line(svc, rep, served)
+        # each batch's γ: posterior_docs of the batch's admitted documents
+        # (the same packing, so the same bits)
+        by_rid = {r.rid: r for r in reqs}
+        for batch, responses in served:
+            want = inf.posterior_docs([(by_rid[x.rid].ids, by_rid[x.rid].cnts)
+                                       for x in responses])
+            check(np.array_equal(np.stack([x.gamma for x in responses]),
+                                 want),
+                  f"service (a, {layout}): a served batch's γ is not "
+                  "posterior_docs's bit for bit")
+        line["a_burst"]["bit_equal_to_posterior_docs"] = True
+        del svc, served, reqs, by_rid
+        # the host syncs of a served batch, over a short burst
+        small = service_requests(docs, replay_arrivals(SERVICE_SYNC_DOCS))
+        box = []
+        syncs = host_syncs(lambda: box.append(service_run(inf, small)))
+        line["a_burst"]["host_syncs_per_batch"] = syncs / len(box[0][1])
+        del box
+        # (b) Poisson at half the burst's rate, (c) ON/OFF at its rate
+        b_rate = SERVICE_LOAD * rate
+        b_arrivals = poisson_arrivals(SERVICE_REQUESTS, b_rate, seed=0)
+        for key, arrivals, offered in (
+                ("b_poisson", b_arrivals, b_rate),
+                ("c_onoff", onoff_arrivals(
+                    SERVICE_REQUESTS, rate, on_s=SERVICE_ON_OFF_S,
+                    off_s=SERVICE_ON_OFF_S, seed=0), rate)):
+            svc, served, counts, rep = service_run(
+                inf, service_requests(docs, arrivals))
+            check(counts[name] == len(served) == sum(counts.values()),
+                  f"service ({key}, {layout}): not 1 launch a served "
+                  f"batch: {counts}")
+            launches[name] += counts[name]
+            line[key] = service_line(svc, rep, served, offered)
+            del svc, served
+        out[layout] = line
+        if layout == "padded":
+            out["padded"]["d_online"] = service_online(
+                cfg, lam, make_inf, docs, b_arrivals, b_rate, launches)
+        del inf
+        torch.cuda.empty_cache()
+    d = out["padded"]["d_online"]
+    b = out["padded"]["b_poisson"]["latency_ms"]
+    d["latency_ms_minus_b"] = {p: d["latency_ms"][p] - b[p]
+                               for p in ("p50", "p95", "p99")}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out, launches
+
+
+def service_online(cfg, lam, make_inf, docs, arrivals, rate, launches):
+    """Phase service's (d): (b)'s schedule with the ``OnlineLearner`` on
+    its own stream, then ``drain(2)``; see ``phase_service``."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.kernels import lda_estep
+    from repro_torch.serve import OnlineLearner, SnapshotStore
+
+    inf = make_inf("padded")
+    eb0 = inf.exp_elog_beta
+    store = SnapshotStore(inf)
+    learner = OnlineLearner(cfg, store, lam0=lam, device=lam.device,
+                            **LEARNER)
+    # the learner's mini-batch updates, counted where the engine runs one
+    updates = [0]
+    lock = threading.Lock()
+    real = LDAEngine._run_packed
+
+    def counted(self, batch):
+        with lock:
+            updates[0] += 1
+        return real(self, batch)
+
+    LDAEngine._run_packed = counted
+    try:
+        svc, served, counts, rep = service_run(
+            inf, service_requests(docs, arrivals), learner=learner)
+        run_updates = updates[0]
+        lda_estep.reset_launches()
+        drained = learner.drain(2)
+        drain = dict(lda_estep.LAUNCHES)
+    finally:
+        LDAEngine._run_packed = real
+    check(learner._thread is None, "service (d): the learner's thread is "
+                                   "still alive")
+    versions = rep["model_versions"]
+    check(len(versions) >= 2 and rep["every_response_versioned"],
+          f"service (d): served versions {versions} did not advance")
+    check(len(drained) == 2, f"service (d): drain published {drained}")
+    check(counts["segment_scatter"] == run_updates
+          and counts["fixed_point"] == len(served) + run_updates
+          and sum(counts.values()) == len(served) + 2 * run_updates,
+          f"service (d): not 1 launch a served batch ({len(served)}) and 2 "
+          f"a learner update ({run_updates}): {counts}")
+    drain_updates = updates[0] - run_updates
+    check(drain["fixed_point"] == drain["segment_scatter"] == drain_updates
+          and sum(drain.values()) == 2 * drain_updates,
+          f"service (d): drain not 2 launches an update over "
+          f"{drain_updates}: {drain}")
+    for k in ("fixed_point", "segment_scatter"):
+        launches[k] += counts[k] + drain[k]
+    # each batch's γ against a fresh solve on its version's snapshot
+    snaps = {s.version: s.exp_elog_beta for s in store.history}
+    snaps[0] = eb0
+    refs = {}
+    for batch, responses in served:
+        v = responses[0].model_version
+        check({x.model_version for x in responses} == {v},
+              "service (d): one batch, two versions")
+        if v not in refs:
+            refs[v] = make_inf("padded")
+            if v:
+                refs[v].swap_model(exp_elog_beta=snaps[v], version=v)
+        _, gamma, n, got_v = refs[v].posterior_packed(batch)
+        check(got_v == v and np.array_equal(
+            np.stack([x.gamma for x in responses]),
+            gamma[:n].cpu().numpy()),
+              f"service (d): a batch served at version {v} is not that "
+              "snapshot's γ bit for bit")
+    wd = learner.watchdog
+    check(learner.armed_observations >= 1 and not wd.violations,
+          f"service (d): watchdog: {learner.armed_observations} armed "
+          f"readings, {len(wd.violations)} violations")
+    stalls = store.swap_stalls_ms()
+    check(max(stalls) <= SWAP_STALL_BOUND_MS,
+          f"service (d): a swap stalled {max(stalls)} ms")
+    line = service_line(svc, rep, served, rate)
+    line.update({
+        "learner": dict(LEARNER),
+        "versions_served": versions, "published": len(store.history),
+        "learner_passes": learner.updates,
+        "learner_updates_during_run": run_updates,
+        "drain_updates": drain_updates,
+        "docs_trained": learner.docs_trained,
+        "dropped": learner.stream.dropped,
+        "armed_readings": learner.armed_observations,
+        "watchdog_violations": len(wd.violations),
+        "swap_stall_ms": {"max": max(stalls), "median": median(stalls)},
+        "launches_run": counts, "launches_drain": drain,
+        "batches_bit_equal_to_their_snapshot": True,
+        "learner_thread_stopped": True})
+    del learner, store, refs, snaps, svc, served
+    torch.cuda.empty_cache()
+    return line
+
+
+# ---------------------------------------------------------------------------
 # the lifted K caps: K1/K4 above 256 topics, K3 over column chunks, K6-K8
 # over K tiles
 # ---------------------------------------------------------------------------
@@ -3348,6 +3635,8 @@ def main() -> int:
     phase_telemetry(device, spec, train, TOPICS, BATCH, sync)
     phase_facade(device, spec, train, TOPICS, BATCH, sync, lam_train)
     phase_serve_infer(device, spec, test, TOPICS, lam_train)
+    _, launches_service = phase_service(device, spec, test, TOPICS,
+                                        lam_train)
     del lam_train
     divi = phase_divi(device, spec, train, test, TOPICS, BATCH, sync, cuda_ms)
     phase_kcap(device, spec, train, cuda_ms)
@@ -3371,6 +3660,10 @@ def main() -> int:
     for name in PADDED_KERNELS:
         kernels[name]["launches_divi"] = sum(r["launches"][name]
                                              for r in divi["runs"])
+    # the serving service: 1 launch a served batch, and the learner's K1
+    # and K3 an update
+    for name, count in launches_service.items():
+        kernels[name]["launches_service"] = count
     kernels["fixed_point"]["divi_grouped"] = {
         key: {f: g[f] for f in ("docs", "group", "ms", "kernel_ms",
                                 "bound_ms", "bound_by")}

@@ -28,12 +28,14 @@ same documents, bit for bit.
   ``ShardDocStream`` with its own cursor and packer. The assignment, the
   shard-local positions and the packed batches are ``repro``'s bit for
   bit.
-
-Not ported yet: ``QueueDocStream`` (ROADMAP.md).
+* ``QueueDocStream`` — an append-only request queue behind the
+  ``DocStream`` contract, so the online learner (`repro_torch.serve.online`)
+  trains on documents a serving loop is still collecting.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -186,6 +188,106 @@ class ListDocStream(DocStream):
 
     def iter_from(self, cursor: int = 0) -> Iterator[RaggedDoc]:
         yield from self._docs[cursor:]
+
+
+class QueueDocStream(DocStream):
+    """An append-only request queue behind the ``DocStream`` contract: the
+    bridge that lets the incremental engines train on documents a serving
+    loop is still collecting (`repro_torch.serve.online`).
+
+    The engines want the corpus geometry up front (``num_docs`` sizes the π
+    memo at construction, ``num_words`` retires the init mass); an open
+    request stream has neither. The reconciliation, as ``repro``'s:
+
+    * ``capacity`` plays ``num_docs``: the memo is sized once for the whole
+      online window; ``append`` hands out stable, strictly increasing
+      positions below it and returns ``None`` (counted in ``dropped``) once
+      the window is full. Stable positions keep IVI's per-document memo
+      bookkeeping exact when a later pass revisits a document appended
+      mid-pass.
+    * ``num_words`` / ``max_unique`` report the words appended so far and
+      the declared per-document cap. An engine binding the stream reads both
+      once, so the learner binds only after traffic exists (an
+      underestimate of the eventual total retires the init mass early;
+      ``retire_init_frac`` clamps at 0).
+    * ``iter_from`` is a lock-free index walk that sees documents appended
+      after the iterator was made: one training pass drains everything
+      present by the time it reaches the tail, and the engine's
+      epoch-boundary rewind makes the next pass revisit from 0.
+
+    Documents longer than ``max_unique`` are clipped to their most frequent
+    tokens on append (``np.argsort(-counts)``, the ``corpus_from_docs``
+    rule), so ``num_words`` counts what will train. Thread-safe: any number
+    of appenders and one training consumer.
+    """
+
+    def __init__(self, vocab_size: int, *, capacity: int,
+                 max_unique: int = 256):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        if max_unique < 1:
+            raise ValueError("max_unique must be >= 1")
+        self.vocab_size = int(vocab_size)
+        self.capacity = int(capacity)
+        self._max_unique = int(max_unique)
+        self._docs: List[RaggedDoc] = []
+        self._words = 0.0
+        self._dropped = 0
+        self._lock = threading.Lock()
+
+    def append(self, doc) -> Optional[int]:
+        """File one document; returns its stable position, or ``None`` when
+        the window is full (the document is counted in ``dropped`` and not
+        kept). Accepts anything ``as_ragged_doc`` does."""
+        ids, cnts = as_ragged_doc(doc)
+        if len(ids) and not (0 <= int(ids.min())
+                             and int(ids.max()) < self.vocab_size):
+            raise ValueError(
+                f"token ids in [{ids.min()}, {ids.max()}] fall outside "
+                f"the vocabulary [0, {self.vocab_size})")
+        if len(ids) > self._max_unique:
+            top = np.argsort(-cnts)[: self._max_unique]
+            ids, cnts = ids[top], cnts[top]
+        with self._lock:
+            if len(self._docs) >= self.capacity:
+                self._dropped += 1
+                return None
+            pos = len(self._docs)
+            self._docs.append((ids, cnts))
+            self._words += float(cnts.sum())
+            return pos
+
+    @property
+    def num_docs(self) -> int:
+        """The capacity (the engine sizes the memo with it), not the
+        documents appended so far (``appended``)."""
+        return self.capacity
+
+    @property
+    def appended(self) -> int:
+        return len(self._docs)
+
+    @property
+    def dropped(self) -> int:
+        return self._dropped
+
+    @property
+    def num_words(self) -> float:
+        return self._words
+
+    @property
+    def max_unique(self) -> int:
+        return self._max_unique
+
+    def iter_from(self, cursor: int = 0) -> Iterator[RaggedDoc]:
+        i = cursor
+        while True:
+            # list.append is atomic; a stale length only ends the pass a
+            # document early, and that document trains on the next pass
+            if i >= len(self._docs):
+                return
+            yield self._docs[i]
+            i += 1
 
 
 def is_doc_stream(obj) -> bool:

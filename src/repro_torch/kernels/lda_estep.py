@@ -39,10 +39,13 @@ Each kernel is CUDA C++ (``csrc/lda_estep.cu``, built and loaded by
 `repro_torch.kernels.build`) and has a plain PyTorch twin here computing
 the same function. A wrapper takes the twin only for CPU tensors; for CUDA
 tensors it launches the kernel or raises. Each launch adds one to
-``LAUNCHES[name]``, so a run can show which kernels its path went through.
+``LAUNCHES[name]``, so a run can show which kernels its path went through;
+the count is taken under a lock, as a serving thread and a training thread
+may launch at once.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -61,9 +64,18 @@ LAUNCHES: Dict[str, int] = {"fixed_point": 0, "token_pi": 0,
                             "memo_delta_onehot": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +320,7 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
         max(int(max_iters), 1), block_b, group, int(bool(quantize)),
         _stream(gamma0))
     build.check(rc, "lda_fixed_point")
-    LAUNCHES["fixed_point"] += 1
+    _count("fixed_point")
     return gamma, et, iters, pi
 
 
@@ -362,7 +374,7 @@ def token_pi(token_ids: torch.Tensor, counts: torch.Tensor, eb: torch.Tensor,
                           eb.data_ptr(), etheta.data_ptr(), pi.data_ptr(),
                           b * l, l, k, int(bool(quantize)), _stream(eb))
     build.check(rc, "lda_token_pi")
-    LAUNCHES["token_pi"] += 1
+    _count("token_pi")
     return pi
 
 
@@ -480,7 +492,7 @@ def segment_scatter_prepared(segments, counts: torch.Tensor,
         s_new.data_ptr(), None if s_old is None else s_old.data_ptr(), k,
         _stream(pi_new))
     build.check(rc, "lda_segment_scatter")
-    LAUNCHES["segment_scatter"] += 1
+    _count("segment_scatter")
     return s_new, s_old
 
 
@@ -709,7 +721,7 @@ def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
         iters.data_ptr(), _ptr(pi), b, t, k, float(alpha0), float(tol),
         max(int(max_iters), 1), int(bool(quantize)), _stream(gamma0))
     build.check(rc, "lda_fixed_point_csr")
-    LAUNCHES["fixed_point_csr"] += 1
+    _count("fixed_point_csr")
     return gamma, et, iters, pi
 
 
@@ -761,7 +773,7 @@ def token_pi_csr(token_ids: torch.Tensor, counts: torch.Tensor,
                               etheta.data_ptr(), pi.data_ptr(), t, k,
                               int(bool(quantize)), _stream(eb))
     build.check(rc, "lda_token_pi_csr")
-    LAUNCHES["token_pi_csr"] += 1
+    _count("token_pi_csr")
     return pi
 
 
@@ -851,7 +863,7 @@ def estep_sweep(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor,
                        _ptr(scratch), b, v, k, float(alpha0), splits,
                        _stream(c))
     build.check(rc, "lda_sweep")
-    LAUNCHES["sweep"] += 1
+    _count("sweep")
     return out
 
 
@@ -877,7 +889,7 @@ def sstats(c: torch.Tensor, etheta: torch.Tensor, eb: torch.Tensor, *,
     rc = lib.lda_sstats(c.data_ptr(), etheta.data_ptr(), eb.data_ptr(),
                         out.data_ptr(), _ptr(scratch), b, v, k, _stream(c))
     build.check(rc, "lda_sstats")
-    LAUNCHES["sstats"] += 1
+    _count("sstats")
     return out
 
 
@@ -996,7 +1008,7 @@ def memo_delta_onehot(token_ids: torch.Tensor, counts: torch.Tensor,
         None if s_old is None else s_old.data_ptr(), l, k, bb * l,
         int(bool(quantize)), _stream(eb_tok))
     build.check(rc, "lda_memo_delta_onehot")
-    LAUNCHES["memo_delta_onehot"] += 1
+    _count("memo_delta_onehot")
     if old_pi is None:
         return pi, s_new
     return pi, s_new, s_old

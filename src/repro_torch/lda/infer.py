@@ -21,9 +21,12 @@ batch is one launch on the card: the fixed point without its π finish
   The synchronous path (``double_buffer=False``) packs, copies, runs and
   waits one batch at a time, on the same inputs: the same bits.
 * The topics are one versioned snapshot, the tuple ``(version, Eφ)``:
-  ``swap_model`` publishes new topics with one assignment and every batch
-  reads the tuple once, so a batch in flight completes on the snapshot it
-  started with.
+  ``swap_model`` publishes new topics with one assignment, after the
+  stream that computed them has finished, and every batch reads the tuple
+  once, so a batch in flight completes on the snapshot it started with.
+  The batch marks the snapshot's Eφ as used on its stream
+  (``record_stream``), so a swap from a publisher's stream cannot free
+  that memory under a running kernel.
 
 ``TopicInferencer`` is the reusable handle (λ → Eφ once); ``topic_posterior``
 is the one-shot form ``LDA.transform`` wraps.
@@ -125,6 +128,7 @@ class TopicInferencer:
         self.tel = as_telemetry(telemetry)
         self._model: Tuple[int, torch.Tensor] = (0, self._exp_elog_beta(lam))
         self._swap_lock = threading.Lock()
+        self._pinned_local = threading.local()   # posterior_packed's rings
         self._compiled_widths: Dict[int, int] = {}   # width → batches run
         self._live_slots = 0
         self._padded_slots = 0
@@ -148,16 +152,24 @@ class TopicInferencer:
                    version: Optional[int] = None) -> int:
         """Publish new topics atomically; returns the new version.
 
-        Eφ is computed outside the lock, on the caller's thread; the
-        critical section is one tuple assignment. A batch dispatched
-        before the swap completes on the old snapshot and reports its
-        version. ``version`` overrides the counter (it must advance).
+        Eφ is computed outside the lock, on the caller's thread and
+        current stream, which is synchronized before the swap: a batch on
+        another stream that reads the new snapshot reads a finished
+        tensor. ``exp_elog_beta`` must be finished already (as
+        ``SnapshotStore.publish`` hands it in). The critical section is one
+        tuple assignment. A batch dispatched before the swap completes on
+        the old snapshot and reports its version. ``version`` overrides the
+        counter (it must advance).
         """
         if (lam is None) == (exp_elog_beta is None):
             raise ValueError("pass exactly one of lam / exp_elog_beta")
-        eb = (self._exp_elog_beta(lam) if lam is not None else
-              torch.as_tensor(exp_elog_beta, dtype=torch.float32)
-              .to(self.device).contiguous())
+        if lam is not None:
+            eb = self._exp_elog_beta(lam)
+            if eb.is_cuda:
+                torch.cuda.current_stream(eb.device).synchronize()
+        else:
+            eb = (torch.as_tensor(exp_elog_beta, dtype=torch.float32)
+                  .to(self.device).contiguous())
         if eb.shape != self._model[1].shape:
             raise ValueError(
                 f"snapshot shape {tuple(eb.shape)} != serving "
@@ -307,7 +319,7 @@ class TopicInferencer:
             self._note_padding(int((cnts > 0).sum()), cnts.size)
         event = None
         if slot is not None:
-            if slot.copied is not None:
+            if slot.copied is not None and not slot.copied.query():
                 slot.copied.synchronize()    # its last copy has landed
             with torch.cuda.stream(side):
                 dev = {k: slot.view(k, np.ascontiguousarray(a))
@@ -326,15 +338,21 @@ class TopicInferencer:
 
     def _dispatch(self, staged: _Staged) -> _Result:
         """One batch's γ on the current stream: one read of the snapshot
-        tuple, then the backend's γ-only solve."""
+        tuple, then the backend's γ-only solve. The snapshot may come from
+        another stream (a publisher's): it is marked as used on this one,
+        so its memory outlives the batch's kernel even if a swap drops the
+        last reference to it meanwhile."""
         tel = self.tel
         rows, ids, cnts, aux, n, event = staged
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
         if event is not None:
-            stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
             for t in (ids, cnts) + ((aux,) if self.layout == "csr" else ()):
                 t.record_stream(stream)
         version, eb = self._model
+        if stream is not None:
+            eb.record_stream(stream)
         backend = get_backend(self.cfg.estep_backend)
         width = self.token_budget if self.layout == "csr" else aux
         sp = tel.trace.begin("serve/solve", width=width, docs=n) \
@@ -364,8 +382,19 @@ class TopicInferencer:
         """γ for one pre-packed batch (a ``PackedBatch``/``CSRBatch`` from a
         packer built from ``packer_kwargs``): ``(rows, γ on the device, n,
         model version)``, staged and solved as ``posterior_docs`` does, so
-        the same bits."""
-        return self._dispatch(self._stage(batch))
+        the same bits. On the card the batch is staged through pinned
+        buffers of this thread's own ring, copied without a host sync on
+        the current stream, so the serving loop's only waits are its own."""
+        if self.device.type != "cuda":
+            return self._dispatch(self._stage(batch))
+        local = self._pinned_local
+        if not hasattr(local, "ring"):
+            local.ring = [_Pinned() for _ in range(BUFFER_DEPTH + 1)]
+            local.next = 0
+        slot = local.ring[local.next % len(local.ring)]
+        local.next += 1
+        return self._dispatch(self._stage(
+            batch, torch.cuda.current_stream(self.device), slot))
 
     def packer_kwargs(self) -> Dict[str, object]:
         """The ``BatchPacker`` arguments this inferencer packs with."""

@@ -1215,3 +1215,146 @@ def test_divi_round_on_card_matches_gather(cuda):
     assert torch.equal(eng.state.lam, engines["again"][0].state.lam)
     torch.testing.assert_close(eng.state.lam, engines["gather"][0].state.lam,
                                rtol=1e-3, atol=1e-3)
+
+
+def _tiny_service_setup(cuda, layout="padded", k=8):
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.stream import CorpusDocStream
+    from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+    from repro_torch.lda import TopicInferencer
+    spec = PAPER_CORPORA["tiny"]
+    test = make_corpus(spec, split="test", seed=0, device=cuda)
+    lam = torch.from_numpy(np.random.default_rng(0).gamma(
+        2.0, 0.5, (spec.vocab_size, k)).astype(np.float32)).to(cuda)
+    cfg = LDAConfig(num_topics=k, vocab_size=spec.vocab_size,
+                    estep_backend="cuda", estep_max_iters=50)
+    inf = TopicInferencer(cfg, lam, batch_size=16, layout=layout,
+                          token_budget=512, device=cuda)
+    return cfg, lam, inf, list(CorpusDocStream(test).iter_from(0))
+
+
+@pytest.mark.parametrize("layout", ["padded", "csr"])
+def test_service_serves_posterior_docs_bits_on_card(cuda, layout):
+    """A replayed burst through ``ServingService`` on the card: one launch
+    a served batch, every response's γ bit-equal to ``posterior_docs`` on
+    the same admitted sequence, conservation."""
+    from repro_torch.serve import (ServiceConfig, ServingService,
+                                   replay_arrivals, requests_from_docs,
+                                   validate_slo_report)
+    _, _, inf, docs = _tiny_service_setup(cuda, layout)
+    offline = inf.posterior_docs(docs)
+    svc = ServingService(inf, config=ServiceConfig(flush_timeout_s=10.0))
+    lda_estep.reset_launches()
+    responses = svc.run(requests_from_docs(docs,
+                                           replay_arrivals(len(docs))))
+    batches = svc.metrics.total("serve.batches")
+    name = "fixed_point_csr" if layout == "csr" else "fixed_point"
+    assert lda_estep.LAUNCHES[name] == sum(lda_estep.LAUNCHES.values()) \
+        == batches
+    assert len(responses) == len(docs) and all(r.ok for r in responses)
+    for r in responses:
+        assert np.array_equal(r.gamma, offline[r.rid]), r.rid
+    rep = validate_slo_report(svc.slo_report())
+    assert rep["conservation_ok"] and rep["served"] == len(docs)
+
+
+def test_swap_from_publisher_stream_under_traffic_on_card(path_inputs):
+    """A publisher thread on a stream of its own swaps λ in (``swap_model``
+    drops each old snapshot's last reference) and scribbles NaN into fresh
+    blocks of Eφ's size on its stream, while batches at the path's shape
+    are dispatched back to back on the serving stream with no wait. Each
+    batch's γ must be the γ of the snapshot its version names: a swap that
+    published an unfinished Eφ, or a snapshot freed under a running K1
+    (no ``record_stream``), gives another γ or NaN."""
+    import threading
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.stream import PackedBatch
+    from repro_torch.lda import TopicInferencer
+    ids, cnts, _ = path_inputs
+    cuda = ids.device
+    rng = np.random.default_rng(1)
+    lams = [torch.from_numpy(rng.gamma(100.0, 0.01, (V, K))
+                             .astype(np.float32)).to(cuda)
+            for _ in range(2)]
+    cfg = LDAConfig(num_topics=K, vocab_size=V, estep_backend="cuda",
+                    estep_max_iters=20)
+    batch = PackedBatch(np.arange(B), ids.cpu().numpy(), cnts.cpu().numpy(),
+                        L)
+    want = [TopicInferencer(cfg, x, batch_size=B, device=cuda)
+            .posterior_packed(batch)[1] for x in lams]
+    inf = TopicInferencer(cfg, lams[0], batch_size=B, device=cuda)
+    torch.cuda.synchronize()
+    stop = threading.Event()
+    swaps = []
+
+    def publisher():
+        side = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(side):
+            n = 0
+            while not stop.is_set() and n < 400:
+                n += 1
+                swaps.append(inf.swap_model(lam=lams[n % 2]))
+                junk = [torch.full((V, K), float("nan"), device=cuda)
+                        for _ in range(2)]
+                del junk
+
+    t = threading.Thread(target=publisher)
+    t.start()
+    served = []
+    try:
+        for _ in range(60):
+            _, gamma, _, version = inf.posterior_packed(batch)
+            served.append((version, gamma))
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not t.is_alive()
+    torch.cuda.synchronize()
+    versions = [v for v, _ in served]
+    assert versions == sorted(versions) and len(set(versions)) >= 2
+    for version, gamma in served:
+        assert torch.equal(gamma, want[version % 2]), version
+
+
+def test_online_learner_trains_on_its_own_stream_on_card(cuda, monkeypatch):
+    """``OnlineLearner`` on the card: ``start``/``stop`` with no hang, a
+    published version, 2 launches an update, and every launch of the
+    learner's thread (and of ``drain`` on the main thread) on the
+    learner's stream, never on the serving stream."""
+    import threading
+    import time
+    from repro_torch.serve import OnlineLearner, SnapshotStore
+    cfg, lam, inf, docs = _tiny_service_setup(cuda)
+    store = SnapshotStore(inf)
+    learner = OnlineLearner(cfg, store, lam0=lam, capacity=256,
+                            max_unique=64, batch_size=16, cadence_s=0.01,
+                            min_new_docs=16)
+    seen = []
+    real = lda_estep._stream
+
+    def spy(x):
+        s = real(x)
+        seen.append((threading.current_thread().name, s))
+        return s
+
+    monkeypatch.setattr(lda_estep, "_stream", spy)
+    serving = torch.cuda.current_stream(cuda).cuda_stream
+    mine = learner._cuda_stream.cuda_stream
+    assert mine != serving
+    learner.observe(docs[:64])
+    lda_estep.reset_launches()
+    learner.start()
+    t0 = time.perf_counter()
+    while inf.model_version == 0 and time.perf_counter() - t0 < 120:
+        time.sleep(0.01)
+    learner.stop(timeout=120)
+    assert inf.model_version >= 1
+    assert learner.drain(2) == [inf.model_version - 1, inf.model_version]
+    assert learner.armed_observations >= 1
+    assert not learner.watchdog.violations
+    assert lda_estep.LAUNCHES["fixed_point"] == \
+        lda_estep.LAUNCHES["segment_scatter"] > 0
+    assert sum(lda_estep.LAUNCHES.values()) == \
+        2 * lda_estep.LAUNCHES["segment_scatter"]
+    assert seen and all(s == mine for _, s in seen)
+    assert {name for name, _ in seen} >= {"online-learner", "MainThread"}

@@ -53,6 +53,16 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.core.types import Memo, init_memo
         from repro_torch.core.engines import ivi_step, sivi_step
         from repro_torch.lda.trainer import DIVITrainer
+        # the online serving service, its queue stream and launcher
+        from repro_torch.serve import (SLO_SCHEMA, AdmissionController,
+                                       ModelSnapshot, OnlineLearner,
+                                       Request, Response, ServiceConfig,
+                                       ServingService, SnapshotStore,
+                                       onoff_arrivals, poisson_arrivals,
+                                       replay_arrivals, requests_from_docs,
+                                       validate_slo_report)
+        from repro_torch.data.stream import QueueDocStream
+        from repro_torch.launch.serve_lda import main as serve_main
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -78,7 +88,11 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.lda.trainer", "repro_torch.lda.ckpt",
                  "repro_torch.lda.infer", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.manifest", "repro_torch.dist",
-                 "repro_torch.dist.protocol", "repro_torch.dist.engine"):
+                 "repro_torch.dist.protocol", "repro_torch.dist.engine",
+                 "repro_torch.serve", "repro_torch.serve.admission",
+                 "repro_torch.serve.online", "repro_torch.serve.service",
+                 "repro_torch.serve.snapshot", "repro_torch.serve.traffic",
+                 "repro_torch.launch.serve_lda"):
         assert name in got["modules"]
 
 
