@@ -148,6 +148,34 @@ then the pre-fusion baseline and attention:
                scaled_dot_product_attention; the count of wgmma (HGMMA) and
                TMA load (UTMALDG) instructions in the built library's SASS;
                then fp32, not causal, S = 1000 against mha_ref
+and the tuner, UCI ingest, CVB0 and Minka's updates (hyper right after
+train, the other three after attention, so every earlier phase runs as
+it did; each path's launch counts set to 0 just before it and read just
+after):
+ 27. hyper   — α₀ and β₀ by Minka's fixed point from phase 5's γ (α₀ +
+               Σ cnt·π over the memo) and λ, in fp32 on the card, against a
+               float64 run of the same update on the CPU (rtol HYPER_RTOL)
+ 28. tune    — repro_torch.tune on the card, the padded task (B = 1,024,
+               L = 163) and the CSR one (T = 131,072, 1,024 documents):
+               measured seconds (proxy_regime false), the card's device
+               kind, every candidate's ms and gate verdict, the default's
+               and the winner's ms; the winner bit-equal to the default on
+               fresh inputs (the held-out documents); each single launch
+               knob (warps per document, ids a warp, the grid in waves of
+               SMs) timed and bit-checked beside the default; a grid above
+               the co-resident capacity refused with both numbers; the
+               store, in a temporary directory, read back with one
+               tune.cache hit each by LDA.fit and a CSR TopicInferencer
+ 29. uci     — phase 3's training corpus written with save_uci (gzip),
+               parsed (docs/s), the sidecar's second open timed, one IVI
+               epoch streamed from it through LDAEngine on both layouts
+               (docs/s), λ and ⟨m_vk⟩ bit-equal to the same epoch on the
+               materialized file
+ 30. cvb0    — CVB0Engine, one epoch at B = 1,024 with 5 inner
+               iterations: ms a mini-batch, 2 K3 launches a step, N_vk
+               against Σ cnt·γ over the memo (rtol 1e-3 / atol 1e-2), the
+               same bits on a second run, held-out LPP beside phase 5's
+               IVI after its first epoch
 Then the ``kernels`` summary line and, last, the ``ok`` line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -162,11 +190,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor,
-# bf16 dense tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+# the kernels' bounds: bytes and operations over the H100 SXM's published
+# peaks (HBM3 bytes/s, fp32 outside the tensor cores, bf16 dense tensor
+# cores), one copy of the formulas in the port's tuner model
+from repro_torch.tune.model import (  # noqa: E402  (the checkout's src)
+    BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, attention_work,
+    bound_ms, dense_bound, fixed_point_csr_work, fixed_point_work,
+    onehot_work, pi_finish_work, scatter_work, sweep_tc_bound,
+    token_pi_work)
 # K6 and K7 at the legacy shape: at least this share of their tensor-core
 # floor's rate, sweep_tc_bound (K6 reached 45% of it on an NVIDIA H100
 # 80GB HBM3 at 700 W): ms <= 0.4527 / 0.30 = 1.509 ms
@@ -176,11 +207,6 @@ DENSE_FLOOR_SHARE = 0.30
 # reached 0.49-0.51 of it and the first port's one-warp-a-slot kernels
 # 0.34, so a fall back to that speed fails the run
 PI_BOUND_SHARE = 0.42
-# operations per element of the in-kernel exp(E[ln θ]): two series digammas
-# (8 divisions + 8 additions + log + 6 series terms each), a subtraction and
-# an exp, counting a division, log or exp as one operation
-ETHETA_OPS = 34
-
 ARXIV_SCALE = 0.021      # 782,385 × 0.021 = 16,430 training documents
 BATCH = 1024
 TOPICS = 100
@@ -332,12 +358,6 @@ def paired_device_ms(fns, rounds: int = 3, reps: int = 10):
     return [x / rounds for x in sums]
 
 
-def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -403,10 +423,21 @@ def phase_build():
     pi = kernel_spills(ptxas, "token_pi_kernel")
     check(len(pi) == 18 and all(x == [0, 0] for x in pi),
           f"token_pi_kernel instances spill (or are missing): {pi}")
+    # K3's instances, KPL = 1 ... 8 at each of the ids a warp the launch
+    # knob takes: the default's (8 ids) as the parent's build, every
+    # other at 0
+    scatter = {f"kpl{kpl}_ids{ids}": kernel_spills(
+        ptxas, f"segment_scatter_kernelILi{kpl}ELi{ids}E")
+        for kpl in range(1, 9) for ids in (4, 8, 16, 32)}
+    want = {name: K3_PARENT_SPILLS.get(name, [[0, 0]]) for name in scatter}
+    check(scatter == want,
+          f"segment_scatter_kernel spills (or missing instances): "
+          f"{ {n: x for n, x in scatter.items() if x != want[n]} }")
     emit({"phase": "build", "seconds": seconds,
           "fixed_point_spill_bytes": spills,
           "dense_spill_bytes": dense, "dense_registers": registers,
           "onehot_spill_bytes": onehot, "token_pi_spill_bytes": pi,
+          "segment_scatter_spill_bytes": scatter,
           "libraries": build.BUILD_INFO})
 
 
@@ -471,18 +502,14 @@ def fixed_point_bound(ids, cnts, k, sweeps, tiles):
     bound ms without the π finish)."""
     import torch
     b, l = ids.shape
-    tile_live = torch.stack([(cnts[lo:lo + n] != 0).sum()
-                             for lo, n in tiles]).cpu()
-    tile_rows = torch.tensor([n for _, n in tiles])
-    sweeps = sweeps.cpu().long()
-    ops = float((sweeps * (4 * k * tile_live + ETHETA_OPS * k * tile_rows
-                           + 4 * k * tile_rows)).sum() + ETHETA_OPS * b * k)
+    tile_live = [int((cnts[lo:lo + n] != 0).sum()) for lo, n in tiles]
     distinct = int(torch.unique(ids[cnts != 0]).numel())
-    nbytes = b * l * 8 + distinct * k * 4 + 3 * b * k * 4 + len(sweeps) * 4
+    nbytes, ops = fixed_point_work(b, l, k, distinct, tile_live,
+                                   [n for _, n in tiles],
+                                   sweeps.cpu().tolist())
     bms0, _ = bound_ms(nbytes, ops)
-    # the π finish: the (B, L, K) π written, 4 operations a live topic
-    bms, by = bound_ms(nbytes + b * l * k * 4,
-                       ops + 4.0 * k * float(tile_live.sum()))
+    fin_bytes, fin_ops = pi_finish_work(b * l, k, sum(tile_live))
+    bms, by = bound_ms(nbytes + fin_bytes, ops + fin_ops)
     return bms, by, bms0
 
 
@@ -708,8 +735,7 @@ def phase_kernels(device, spec, train, topics, batch, timer):
     out["token_pi"] = pi_times(
         lambda: lda_estep.token_pi(ids, cnts, eb, et),
         lambda: lda_estep.token_pi_plain(ids, cnts, eb, et), "token_pi_kernel",
-        b * l * 8 + distinct * k * 4 + b * k * 4 + b * l * k * 4,
-        4.0 * live * k, timer)
+        *token_pi_work(8, b * l, b, k, distinct, live), timer)
     out["token_pi"].update(max_abs_err=errs[False],
                            max_abs_err_bf16=errs[True],
                            tol="rtol=1e-5 atol=1e-6 fp32; 1 bf16 ulp with "
@@ -749,8 +775,7 @@ def phase_kernels(device, spec, train, topics, batch, timer):
             0, idx64, flat_cnts[:, None] * pi_old)
         return a, c
 
-    bms, by = bound_ms(live * 8 + 2 * live * k * 4 + 2 * v * k * 4,
-                       4.0 * live * k)
+    bms, by = bound_ms(*scatter_work(live, v, k))
     skew_segments = lda_estep.scatter_segments(skew_ids, flat_cnts, v)
     out["segment_scatter"] = {
         "max_abs_err": err, "max_abs_err_skewed": skew_err,
@@ -1108,12 +1133,11 @@ def check_fixed_point_csr(args, label):
           f"fixed_point_csr ({label}): Eθ off by {eterr}")
     live = int((cnts != 0).sum())
     distinct = int(torch.unique(ids[cnts != 0]).numel())
-    ops = float(sweeps * (4 * k * live + (ETHETA_OPS + 4) * k * b)
-                + ETHETA_OPS * b * k)
-    nbytes = live * 12 + distinct * k * 4 + 3 * b * k * 4 + 4
+    nbytes, ops = fixed_point_csr_work(live, b, k, distinct, sweeps)
     bms0, _ = bound_ms(nbytes, ops)
     # the π finish: the flat (T, K) π written, 4 operations a live topic
-    bms, by = bound_ms(nbytes + ids.numel() * k * 4, ops + 4.0 * k * live)
+    fin_bytes, fin_ops = pi_finish_work(ids.numel(), k, live)
+    bms, by = bound_ms(nbytes + fin_bytes, ops + fin_ops)
     return {"max_abs_err": gerr, "max_abs_err_etheta": eterr,
             "tol": "γ rtol=atol=2e-3; Eθ rtol=1e-4 atol=1e-6; the same "
                    "batch-wide sweep count",
@@ -1253,8 +1277,7 @@ def phase_kernels_csr(device, spec, train, topics, batch, timer):
     out["token_pi_csr"] = pi_times(
         lambda: lda_estep.token_pi_csr(ids, cnts, segs, eb, et),
         lambda: lda_estep.token_pi_csr_plain(ids, cnts, segs, eb, et),
-        "csr_token_pi_kernel",
-        t * 12 + distinct * k * 4 + b * k * 4 + t * k * 4, 4.0 * live * k,
+        "csr_token_pi_kernel", *token_pi_work(12, t, b, k, distinct, live),
         timer)
     out["token_pi_csr"].update(max_abs_err=errs[False],
                                max_abs_err_bf16=errs[True],
@@ -2032,25 +2055,6 @@ def phase_telemetry(device, spec, train, topics, batch, sync):
 # the pre-fusion baseline (K6, K7, K8) and attention (K9)
 # ---------------------------------------------------------------------------
 
-def dense_bound(b, v, k):
-    """K6's or K7's bound on (B, V) counts and K topics: C, Eθ and Eφ read
-    once, one (B, K) or (V, K) output; two products of 2·B·V·K operations
-    plus the ε add and the division per (b, v)."""
-    nbytes = (b * v + b * k + v * k + max(b, v) * k) * 4
-    return bound_ms(nbytes, 4.0 * b * v * k + 2.0 * b * v)
-
-
-def sweep_tc_bound(b, v, k, out_rows=None):
-    """K6's (or, with ``out_rows`` = V, K7's) floor on the tensor cores: C,
-    Eθ and Eφ read once, the (B, K) or (V, K) output written once; the
-    bf16 x 3 split does six bf16 products of each of the two
-    2·B·V·K-operation products (a multiply-add counts two operations, as
-    the 989 TFLOP/s peak counts them)."""
-    out_rows = b if out_rows is None else out_rows
-    return bound_ms((b * v + b * k + v * k + out_rows * k) * 4,
-                    24.0 * b * v * k, BF16_OPS_PER_S)
-
-
 def check_corrections(legacy, fused, label):
     """The legacy correction against the fused one, at the correction bar
     of tests/test_estep_backend.py (rtol = atol = 2e-3)."""
@@ -2299,8 +2303,7 @@ def phase_legacy(device, spec, train, topics, batch, timer):
         lambda: lda_estep.memo_delta_onehot(*hot, old_pi=old_pi),
         lambda: lda_estep.memo_delta(ids_hot, cnts, eb, et, v,
                                      old_pi=old_pi)))
-    bms, by = bound_ms(b * l * 8 + 3 * b * l * k * 4 + b * k * 4
-                       + 2 * v * k * 4, 4.0 * live * k + 4.0 * live * k)
+    bms, by = bound_ms(*onehot_work(b * l, k, v, live, etheta_rows=b))
     out["memo_delta_onehot"] = {
         "max_abs_err": err, "tol": "π rtol 1e-5 atol 1e-6, S rtol=atol "
         "1e-4; with quantize π equal to K2's, S within 1e-4 of K2 + K3",
@@ -2428,9 +2431,8 @@ def phase_attention(device, timer):
     check(lib_rel <= LIBRARY_REL_L2,
           f"attention: SDPA off the twin by {lib_rel} relative L2")
     del lib, want
-    pairs = b * h * s * (s + 1) / 2            # (query, key) pairs computed
-    ops_count = 4.0 * hd * pairs               # Q·Kᵀ and P·V
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+    # Q·Kᵀ and P·V over the (query, key) pairs computed
+    nbytes, ops_count = attention_work(b, s, h, kvh, hd)
     bms, by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
     row = {"max_abs_err": err, "bit_equal_two_launches": True, "sass": sass,
            "tol": f"bf16 rtol={BF16_RTOL} atol={BF16_ATOL} (SDPA: relative "
@@ -3273,6 +3275,397 @@ def phase_divi(device, spec, train, test, topics, batch, sync, timer):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the tuner, UCI ingest, CVB0 and Minka's updates
+# ---------------------------------------------------------------------------
+
+TUNE_BUDGET = 6          # random candidates a task before refinement
+TUNE_REPS = 5            # timed reps a candidate (the minimum is its ms)
+# the single-knob variants timed and gated beside the search
+KNOB_SURVEY = ({"fp_warps": 1}, {"fp_warps": 2}, {"fp_warps": 8},
+               {"scatter_ids": 4}, {"scatter_ids": 16},
+               {"scatter_ids": 32})
+GRID_SURVEY_WAVES = (1, 2, 3, 4)
+
+
+def knob_fields(policy):
+    """A policy's fields that differ from the default (the knobs it sets)."""
+    import dataclasses
+    from repro_torch.core.types import DEFAULT_KERNEL_POLICY
+    return {f.name: getattr(policy, f.name)
+            for f in dataclasses.fields(policy)
+            if getattr(policy, f.name) != getattr(DEFAULT_KERNEL_POLICY,
+                                                   f.name)}
+
+
+def tune_fresh_inputs(shape, cfg, device, spec, test, lam, batch):
+    """Fresh inputs for the winner's bit check, unseen by the tune: the
+    held-out documents (padded: the first B rows, CSR: their first flat
+    batch) against Eφ of phase 5's trained λ, the tuner's warm and cold
+    rows (``search.warm_memo``), so tiles stop at different sweeps."""
+    from repro_torch.core.math import exp_dirichlet_expectation
+    from repro_torch.data.stream import CorpusDocStream
+    from repro_torch.tune.search import warm_memo
+    eb = exp_dirichlet_expectation(lam, axis=0).contiguous()
+    if shape.task == "padded":
+        ids = test.token_ids[:batch].contiguous()
+        cnts = test.counts[:batch].contiguous()
+        return (eb, ids, cnts) + warm_memo(shape, cfg, eb, ids, cnts)
+    cb = first_csr_batch(CorpusDocStream(test, spec.vocab_size), batch)
+    ids, cnts, segs = flat_tensors(cb, device)
+    return (eb, ids, cnts, segs) + warm_memo(shape, cfg, eb, ids, cnts,
+                                             segs)
+
+
+def tune_task(task, device, spec, train, test, lam, topics, batch, store):
+    """One task's tune on the card, its checks, the knob survey."""
+    import dataclasses
+    import torch
+    from repro_torch.core.types import DEFAULT_KERNEL_POLICY, LDAConfig
+    from repro_torch.kernels import build, lda_estep
+    from repro_torch.tune import current_device_kind
+    from repro_torch.tune import search as tsearch
+
+    if task == "padded":
+        shape = tsearch.TuneShape(task="padded", b_or_t=batch,
+                                  v=spec.vocab_size, k=topics,
+                                  w=train.max_unique)
+    else:
+        shape = tsearch.TuneShape(task="csr", b_or_t=CSR_BUDGET,
+                                  v=spec.vocab_size, k=topics,
+                                  num_docs=batch, layout="csr")
+    t0 = time.perf_counter()
+    res = tsearch.tune_and_store(store, shape, budget=TUNE_BUDGET, seed=0,
+                                 refine_rounds=1, gate_candidates=4,
+                                 iters=ESTEP_ITERS, device=device,
+                                 reps=TUNE_REPS)
+    seconds = time.perf_counter() - t0
+    kind = "gpu:" + torch.cuda.get_device_name(device).replace(
+        " ", "-").lower()
+    check(res.objective == "measured_seconds" and not res.proxy_regime,
+          f"tune {task}: objective {res.objective}, proxy {res.proxy_regime}")
+    check(res.device_kind == kind == current_device_kind(device),
+          f"tune {task}: device kind {res.device_kind} != {kind}")
+    check(res.tuned_cost <= res.default_cost,
+          f"tune {task}: the winner is slower than the default")
+    # the winner on fresh inputs: the default's bits
+    cfg = LDAConfig(num_topics=topics, vocab_size=spec.vocab_size,
+                    estep_max_iters=ESTEP_ITERS, estep_backend="cuda")
+    fresh = tsearch._gate_runner(shape, cfg, tune_fresh_inputs(
+        shape, cfg, device, spec, test, lam, batch))
+    want = fresh(DEFAULT_KERNEL_POLICY)
+    ok, mode, err = tsearch.equality_check(fresh, want, res.policy)
+    check(ok, f"tune {task}: the winner {res.policy} is not the default's "
+              f"bits on fresh inputs ({mode}, {err})")
+    # the single-knob survey: each variant's ms at the target shape and
+    # its verdict on the fresh inputs
+    target_cfg, target = tsearch._probe_inputs(
+        shape, {"b": batch, "v": spec.vocab_size, "k": topics,
+                "l": train.max_unique} if task == "padded" else
+        {"t": CSR_BUDGET, "b": batch, "v": spec.vocab_size, "k": topics},
+        0, ESTEP_ITERS, device)
+    timed = tsearch._gate_runner(shape, target_cfg, target)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    variants = list(KNOB_SURVEY) + [{"fp_blocks": n * sms}
+                                    for n in GRID_SURVEY_WAVES]
+    default_ms = tsearch._measured_cost(timed, DEFAULT_KERNEL_POLICY,
+                                        reps=TUNE_REPS) * 1e3
+    survey = []
+    for fields in variants:
+        pol = dataclasses.replace(DEFAULT_KERNEL_POLICY, **fields)
+        if not tsearch.launch_ok(shape, pol, device):
+            survey.append({"knob": fields, "launch": "refused"})
+            continue
+        vok, _, verr = tsearch.equality_check(fresh, want, pol)
+        survey.append({"knob": fields, "ms": tsearch._measured_cost(
+            timed, pol, reps=TUNE_REPS) * 1e3, "bit_equal": vok,
+            "max_abs_err": verr})
+    # a grid above the co-resident capacity raises, with both numbers
+    b, block_b, group = tsearch._launch_rows(shape, DEFAULT_KERNEL_POLICY)
+    cap = lda_estep.fixed_point_capacity(build.load(), b, topics, block_b,
+                                         group)
+    over = dataclasses.replace(DEFAULT_KERNEL_POLICY, fp_blocks=cap + 1)
+    check(not tsearch.launch_ok(shape, over, device),
+          f"tune {task}: launch_ok passed a grid above the capacity {cap}")
+    try:
+        fresh(over)
+        fail(f"tune {task}: a grid of {cap + 1} blocks launched above the "
+             f"co-resident capacity {cap}")
+    except ValueError as e:
+        check(str(cap) in str(e) and str(cap + 1) in str(e),
+              f"tune {task}: the refusal names neither number: {e}")
+    return {"task": task, "shape": dataclasses.asdict(shape),
+            "seconds": seconds, "objective": res.objective,
+            "proxy_regime": res.proxy_regime,
+            "device_kind": res.device_kind,
+            "default_ms": res.default_cost * 1e3,
+            "tuned_ms": res.tuned_cost * 1e3,
+            "improvement": res.improvement,
+            "winner": knob_fields(res.policy), "effective": res.effective,
+            "equality": res.equality, "trials": res.trials,
+            "candidates": [{"knobs": knob_fields(p), "ms": c * 1e3}
+                           for p, c in res.scored],
+            "gated": [{"knobs": knob_fields(p), "ms": c * 1e3,
+                       "passed": passed, "max_abs_err": e}
+                      for p, c, passed, e in res.gated],
+            "winner_fresh_bits": mode, "capacity": cap,
+            "survey_default_ms": default_ms, "survey": survey,
+            "policy": res.policy}
+
+
+def phase_tune(device, spec, train, test, topics, batch, lam):
+    """The kernel-policy tuner on the card, both tasks at the Arxiv shape:
+    measured objective, the winner bit-equal to the default on fresh
+    inputs, every candidate's ms and gate verdict, each single launch
+    knob's ms and bits beside the default's, the capacity refusal; then
+    the store read back by LDA.fit and a TopicInferencer, one tune.cache
+    hit each."""
+    import tempfile
+    import torch
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.stream import CorpusDocStream
+    from repro_torch.kernels import lda_estep
+    from repro_torch.lda import LDA, TopicInferencer
+    from repro_torch.obs import Telemetry
+    from repro_torch.tune import PolicyStore
+
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="smoke_tune_") as tmp:
+        store = PolicyStore(f"{tmp}/tune_store.json")
+        lda_estep.reset_launches()
+        for task in ("padded", "csr"):
+            rows[task] = tune_task(task, device, spec, train, test, lam,
+                                   topics, batch, store)
+        torch.cuda.synchronize()
+        launches = dict(lda_estep.LAUNCHES)
+        check(all(launches[n] > 0 for n in ("fixed_point",
+                                            "fixed_point_csr",
+                                            "segment_scatter")),
+              f"tune: a kernel of its path never launched: {launches}")
+        check(len(store.entries()) == 2,
+              f"tune: {len(store.entries())} entries stored")
+        # the store read back, one hit each: LDA.fit at the padded
+        # training shape, a CSR TopicInferencer at the CSR one
+        cfg = LDAConfig(num_topics=topics, vocab_size=spec.vocab_size,
+                        estep_max_iters=ESTEP_ITERS, estep_backend="cuda")
+        tel = Telemetry()
+        lda = LDA(cfg, algo="ivi", batch_size=batch, seed=0,
+                  tune_store=store.path, telemetry=tel, device=device)
+        lda.fit(train, epochs=1)
+        fit_hits = (tel.metrics.value("tune.cache", result="hit"),
+                    tel.metrics.value("tune.cache", result="miss"))
+        check(fit_hits == (1, 0) and
+              lda.cfg.kernel_policy == rows["padded"]["policy"],
+              f"tune: LDA.fit read {fit_hits} (hit, miss), policy "
+              f"{lda.cfg.kernel_policy}")
+        tel = Telemetry()
+        inf = TopicInferencer(cfg, lda.lam, batch_size=batch, layout="csr",
+                              token_budget=CSR_BUDGET,
+                              tune_store=store.path, telemetry=tel,
+                              device=device)
+        inf.posterior_docs(CorpusDocStream(test, spec.vocab_size))
+        inf_hits = (tel.metrics.value("tune.cache", result="hit"),
+                    tel.metrics.value("tune.cache", result="miss"))
+        check(inf_hits == (1, 0) and
+              inf.cfg.kernel_policy == rows["csr"]["policy"],
+              f"tune: the inferencer read {inf_hits} (hit, miss)")
+    for row in rows.values():
+        row.pop("policy")
+    out = {"phase": "tune", "tasks": rows, "launches": launches,
+           "fit_hits_misses": fit_hits, "inferencer_hits_misses": inf_hits}
+    emit(out)
+    return out
+
+
+def phase_uci(device, spec, train, test, topics, batch):
+    """UCI ingest: phase data's training corpus written with save_uci
+    (gzip), parsed, its sidecar reopened, and one IVI epoch streamed from
+    it through LDAEngine on both layouts, λ bit-equal to the same epoch on
+    the materialized file (the padded layout under the stream's batch
+    schedule, the CSR one on the corpus viewed as a stream)."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.core.engines import LDAEngine
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.stream import BatchPacker, CorpusDocStream
+    from repro_torch.data.uci import UCIDocStream, load_uci, save_uci
+    from repro_torch.kernels import lda_estep
+
+    cfg = LDAConfig(num_topics=topics, vocab_size=spec.vocab_size,
+                    estep_max_iters=ESTEP_ITERS, estep_backend="cuda")
+    out = {"phase": "uci", "docs": train.num_docs}
+    with tempfile.TemporaryDirectory(prefix="smoke_uci_") as tmp:
+        path = os.path.join(tmp, "docword.txt.gz")
+        t0 = time.perf_counter()
+        save_uci(train, path)
+        out["save_s"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        stream = UCIDocStream(path)
+        stats = (stream.num_words, stream.max_unique)   # the stats scan
+        out["first_open_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = UCIDocStream(path)
+        check((again.num_words, again.max_unique) == stats,
+              "uci: the sidecar's stats differ from the scan's")
+        out["sidecar_second_open_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = sum(1 for _ in stream.iter_from(0))
+        parse_s = time.perf_counter() - t0
+        check(n == train.num_docs, f"uci: parsed {n} documents")
+        out["parse_docs_per_s"] = n / parse_s
+        eager, _ = load_uci(path, device=device)
+        check(stats == (float(eager.counts.sum()), eager.max_unique),
+              "uci: the stream's stats differ from the materialized file's")
+        lda_estep.reset_launches()
+        for layout in ("padded", "csr"):
+            kw = dict(algo="ivi", batch_size=batch, seed=0, device=device,
+                      layout=layout)
+            if layout == "csr":
+                kw["token_budget"] = CSR_BUDGET
+            se = LDAEngine(cfg, UCIDocStream(path), **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            se.run_epoch()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            if layout == "csr":
+                ce = LDAEngine(cfg, CorpusDocStream(eager, spec.vocab_size),
+                               **kw)
+                ce.run_epoch()
+            else:
+                ce = LDAEngine(cfg, eager, **kw)
+                packer = BatchPacker(batch, max_width=stream.max_unique)
+                sched = []
+                for pos, (ids, cnts) in enumerate(stream.iter_from(0)):
+                    b = packer.add(pos, ids, cnts)
+                    if b is not None:
+                        sched.append(b)
+                for b in sched + packer.flush():
+                    ce.run_minibatch(b.rows, width=b.width)
+            check(torch.equal(se.state.lam, ce.state.lam)
+                  and torch.equal(se.state.m_vk, ce.state.m_vk),
+                  f"uci {layout}: λ from the stream differs from the "
+                  "materialized file's")
+            out[layout] = {"train_docs_per_s": se.num_docs / train_s,
+                           "epoch_s": train_s, "lam_bit_equal": True}
+            del se, ce
+        torch.cuda.synchronize()
+        launches = dict(lda_estep.LAUNCHES)
+    check(all(launches[n] > 0 for n in ("fixed_point", "fixed_point_csr",
+                                        "segment_scatter")),
+          f"uci: a kernel of its path never launched: {launches}")
+    out["launches"] = launches
+    emit(out)
+    return out
+
+
+def phase_cvb0(device, spec, train, test, topics, batch, ivi):
+    """CVB0 on the card: one epoch at B = 1,024, 5 inner iterations; ms a
+    mini-batch, 2 K3 launches a step, N_vk against Σ cnt·γ over the memo
+    (the memo invariant's bar), the same bits on a second run, held-out
+    LPP beside phase train's IVI after its first epoch."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cvb0 import CVB0Engine, scatter_counts
+    from repro_torch.core.predictive import log_predictive, split_heldout
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.kernels import lda_estep
+
+    cfg = LDAConfig(num_topics=topics, vocab_size=spec.vocab_size)
+    obs, held = split_heldout(test, seed=0)
+    runs, step_ms = [], []
+    for run in range(2):
+        eng = CVB0Engine(cfg, train, batch_size=batch, seed=0,
+                         inner_iters=5, device=device)
+        if run == 0:
+            lpp0 = float(log_predictive(cfg, eng.lam, obs, held))
+            # run_epoch's draw and batches, each step timed on its own
+            order = eng.rng.permutation(eng.corpus.num_docs)
+            n = (len(order) // batch) * batch
+            lda_estep.reset_launches()
+            for rows in order[:n].reshape(-1, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run_minibatch(rows)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(lda_estep.LAUNCHES)
+            steps = len(step_ms)
+            check(launches["segment_scatter"] == 2 * steps
+                  and sum(launches.values()) == 2 * steps,
+                  f"cvb0: not 2 K3 launches a step over {steps}: {launches}")
+        else:
+            eng.run_epoch()
+        runs.append(eng)
+    a, b = runs
+    check(torch.equal(a.state.n_vk, b.state.n_vk)
+          and torch.equal(a.state.gamma, b.state.gamma),
+          "cvb0: two runs differ")
+    ids, cnts = a.corpus.token_ids, a.corpus.counts
+    rebuilt = scatter_counts(ids, cnts, a.state.gamma, spec.vocab_size,
+                             lda_estep.scatter_segments(
+                                 ids.reshape(-1), cnts.reshape(-1),
+                                 spec.vocab_size))
+    gap = float((a.state.n_vk - rebuilt).abs().max())
+    check(torch.allclose(a.state.n_vk, rebuilt, rtol=1e-3, atol=1e-2),
+          f"cvb0: N_vk off Σ cnt·γ by {gap}")
+    words = float(a.state.n_vk.sum())
+    check(abs(words - float(train.num_words)) <= 1e-4 * words,
+          f"cvb0: Σ N_vk = {words} against {float(train.num_words)} words")
+    lpp = float(log_predictive(cfg, a.lam, obs, held))
+    check(np.isfinite(lpp), f"cvb0: LPP {lpp0} -> {lpp}")
+    out = {"phase": "cvb0", "batch": batch, "inner_iters": 5,
+           "docs": a.docs_seen, "steps": steps,
+           "median_ms_per_minibatch": float(np.median(step_ms)),
+           "docs_per_s": a.docs_seen / (sum(step_ms) / 1e3),
+           "launches": launches, "n_vk_gap": gap, "bits_equal_two_runs":
+           True, "lpp_start": lpp0, "lpp": lpp,
+           "ivi_lpp_epoch1": ivi["lpp"][0], "ivi_docs_epoch1": train.num_docs,
+           "gamma_memo_bytes": a.state.gamma.numel() * 4}
+    emit(out)
+    del runs, a, b
+    return out
+
+
+HYPER_RTOL = 1e-4   # the fp32 update on the card against float64 on the CPU
+
+
+def phase_hyper(eng, train, topics):
+    """Minka's α₀ and β₀ from phase train's γ (α₀ + Σ cnt·π over the memo)
+    and λ, on the card in fp32 against a float64 run of the same update on
+    the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hyper import update_alpha0, update_beta0
+
+    cfg = eng.cfg
+    gammas = []
+    for lo in range(0, eng.num_docs, 2048):
+        rows = np.arange(lo, min(lo + 2048, eng.num_docs))
+        pi, _ = eng.memo.gather(rows)
+        cnts = train.counts[lo:lo + len(rows)]
+        gammas.append(cfg.alpha0 + torch.einsum("bl,blk->bk", cnts, pi))
+    gamma = torch.cat(gammas)
+    lam = eng.state.lam
+    t0 = time.perf_counter()
+    alpha = update_alpha0(cfg.alpha0, gamma)
+    beta = update_beta0(cfg.beta0, lam)
+    seconds = time.perf_counter() - t0
+    alpha64 = update_alpha0(cfg.alpha0, gamma.double().cpu())
+    beta64 = update_beta0(cfg.beta0, lam.double().cpu())
+    errs = (abs(alpha - alpha64) / alpha64, abs(beta - beta64) / beta64)
+    check(max(errs) <= HYPER_RTOL,
+          f"hyper: α₀ {alpha} vs {alpha64}, β₀ {beta} vs {beta64}")
+    out = {"phase": "hyper", "alpha0": alpha, "alpha0_fp64_cpu": alpha64,
+           "beta0": beta, "beta0_fp64_cpu": beta64,
+           "rel_err": list(errs), "rtol": HYPER_RTOL,
+           "gamma_rows": int(gamma.shape[0]), "seconds": seconds}
+    emit(out)
+    return out
+
+
 KCAP_TOPICS = (300, 1000)
 KCAP_BATCH = 256          # the first 256 Arxiv-shaped documents, V = 141,927
 # K8's twin keeps (B / B-tile, V, K) partials twice: at K = 1,000 its
@@ -3308,6 +3701,12 @@ PARENT_DIGESTS = {
 # fewer), with their bits kept; every other instance, and the wide kernel
 # above 256 topics, must not spill
 PARENT_SPILLS = {"kpl6": [[4, 8]], "kpl7": [[4, 20]], "kpl8": [[24, 96]]}
+# K3's default instances (8 ids a warp), as this source builds them (chip
+# run, NVIDIA H100 80GB HBM3): KPL = 4 (97 to 128 topics, K = 100 among
+# them) spills 4/4 bytes at its 4 blocks an SM, as the same body did
+# before the ids-a-warp knob, with its bits kept; the knob's instances
+# must not spill
+K3_PARENT_SPILLS = {"kpl4_ids8": [[4, 4]]}
 # K6's and K7's tensor-core instances (dense_tc_kernel<KC, kT, kR>: KC
 # chunks of 64 topics in registers, kT K7's transposed roles, kR the
 # product pass above 128 topics) and the R pass's kernels, by the
@@ -3464,18 +3863,18 @@ def phase_kcap(device, spec, train, timer):
         for name, run, plain, kernel, nbytes in (
                 ("token_pi", lambda: lda_estep.token_pi(ids, cnts, eb, et),
                  lambda: lda_estep.token_pi_plain(ids, cnts, eb, et),
-                 "token_pi_kernel", b * l * 8),
+                 "token_pi_kernel", 8),
                 ("token_pi_csr", lambda: lda_estep.token_pi_csr(
                     flat_ids, flat_cnts, segs, eb, et4),
                  lambda: lda_estep.token_pi_csr_plain(
                      flat_ids, flat_cnts, segs, eb, et4),
-                 "csr_token_pi_kernel", b * l * 12)):
+                 "csr_token_pi_kernel", 12)):
             perr = float((run() - plain()).abs().max())
             check(torch.allclose(run(), plain(), rtol=1e-5, atol=1e-6),
                   f"{name} K={k}: off its twin by {perr}")
-            pis[name] = pi_times(run, plain, kernel, nbytes + distinct * k * 4
-                                 + b * k * 4 + b * l * k * 4, 4.0 * live * k,
-                                 timer, 10)
+            pis[name] = pi_times(run, plain, kernel,
+                                 *token_pi_work(nbytes, b * l, b, k, distinct,
+                                                live), timer, 10)
             pis[name].update(max_abs_err=perr, tol="rtol=1e-5 atol=1e-6")
 
         # K3 on the two fixed points' π ------------------------------------
@@ -3484,8 +3883,7 @@ def phase_kcap(device, spec, train, timer):
         err = check_segment_scatter(flat_ids, flat_cnts, pi_new, pi_old, v,
                                     f"K={k}")
         segments = lda_estep.scatter_segments(flat_ids, flat_cnts, v)
-        bms, by = bound_ms(live * 8 + 2 * live * k * 4 + 2 * v * k * 4,
-                           4.0 * live * k)
+        bms, by = bound_ms(*scatter_work(live, v, k))
         k3 = {"max_abs_err": err, "tol": "rtol=atol=1e-5 vs fp64; bitwise "
                                          "equal across launches",
               "ms": timer(lambda: lda_estep.segment_scatter_prepared(
@@ -3565,8 +3963,7 @@ def phase_kcap(device, spec, train, timer):
               f"memo_delta_onehot K={k}: S off K2 + K3")
         del got, seg
         live8 = int((cnts8 != 0).sum())
-        bms, by = bound_ms(n8 * l * (8 + 3 * k * 4) + 2 * v * k * 4,
-                           8.0 * live8 * k)
+        bms, by = bound_ms(*onehot_work(n8 * l, k, v, live8))
         dense["memo_delta_onehot"] = {
             "max_abs_err": oerr,
             "tol": "π rtol=1e-5 atol=1e-6, S rtol=atol=1e-4 (phase legacy's "
@@ -3608,6 +4005,7 @@ def main() -> int:
     launches, eng, ivi = phase_train(device, spec, train, test, TOPICS,
                                      BATCH, torch.cuda.synchronize)
     lam_train = eng.state.lam.clone()     # after the two epochs
+    phase_hyper(eng, train, TOPICS)
     phase_fixed_point_warm(eng, kernels, cuda_ms)
     batches = iter(eng.epoch_batches())
     phase_profile(lambda: eng.run_minibatch(next(batches)[0]))
@@ -3637,7 +4035,6 @@ def main() -> int:
     phase_serve_infer(device, spec, test, TOPICS, lam_train)
     _, launches_service = phase_service(device, spec, test, TOPICS,
                                         lam_train)
-    del lam_train
     divi = phase_divi(device, spec, train, test, TOPICS, BATCH, sync, cuda_ms)
     phase_kcap(device, spec, train, cuda_ms)
 
@@ -3646,6 +4043,11 @@ def main() -> int:
     kernels.update(legacy)
     attention, launches_attention = phase_attention(device, cuda_ms)
     kernels.update(attention)
+    # this slice's paths last, so every earlier phase runs as it did
+    tune = phase_tune(device, spec, train, test, TOPICS, BATCH, lam_train)
+    del lam_train
+    uci = phase_uci(device, spec, train, test, TOPICS, BATCH)
+    cvb0 = phase_cvb0(device, spec, train, test, TOPICS, BATCH, ivi)
     # each kernel's launches on the path that runs it: K2 and K5 on
     # memo_delta / memo_delta_csr (the training paths run them fused)
     launches.update(fixed_point_csr=launches_csr["fixed_point_csr"],
@@ -3664,6 +4066,19 @@ def main() -> int:
     # and K3 an update
     for name, count in launches_service.items():
         kernels[name]["launches_service"] = count
+    # the tuner, UCI ingest and CVB0: their paths' launches, and the
+    # launch knobs' measured effect on the rows of the kernels they tune
+    for name in ("fixed_point", "fixed_point_csr", "segment_scatter"):
+        kernels[name]["launches_tune"] = tune["launches"][name]
+        kernels[name]["launches_uci"] = uci["launches"][name]
+    kernels["segment_scatter"]["launches_cvb0"] = \
+        cvb0["launches"]["segment_scatter"]
+    for name, task in (("fixed_point", "padded"),
+                       ("fixed_point_csr", "csr")):
+        row = tune["tasks"][task]
+        kernels[name]["tune"] = {f: row[f] for f in (
+            "default_ms", "tuned_ms", "winner", "survey_default_ms",
+            "survey")}
     kernels["fixed_point"]["divi_grouped"] = {
         key: {f: g[f] for f in ("docs", "group", "ms", "kernel_ms",
                                 "bound_ms", "bound_by")}

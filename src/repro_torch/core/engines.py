@@ -317,6 +317,11 @@ class LDAEngine:
     ``bucket_stats`` then holds the per-bucket pad fractions. ``telemetry``
     is ``repro_torch.obs.as_telemetry``'s argument: off (None) by default,
     and then the update does exactly what it does without the hooks.
+    ``tune_store`` is a `repro_torch.tune` policy store (path or
+    ``PolicyStore``) looked up once here, on the ``cuda`` backend, for a
+    tuned ``KernelPolicy`` at this engine's shape; an explicit
+    ``cfg.kernel_policy`` always wins, and no store or a miss leaves the
+    policy None (the kernels' own launches).
 
     The materialized batch order draws from ``np.random.default_rng(seed)``
     exactly as ``repro`` does, so the same seed visits the same batches; λ₀
@@ -332,7 +337,7 @@ class LDAEngine:
                  lam0=None, memo_store: str = "dense",
                  chunk_docs: int = 8192, bucket_by_length: bool = False,
                  layout: str = "padded", token_budget: Optional[int] = None,
-                 telemetry=None):
+                 telemetry=None, tune_store=None):
         if algo not in ("mvi", "svi", "ivi", "sivi"):
             raise ValueError(f"unknown algo {algo!r} "
                              "(have mvi | svi | ivi | sivi)")
@@ -402,6 +407,21 @@ class LDAEngine:
         self.num_docs = corpus.num_docs
         self.num_words_total = torch.tensor(num_words, dtype=torch.float32,
                                             device=self.device)
+        if (tune_store is not None and cfg.kernel_policy is None
+                and cfg.estep_backend == "cuda"):
+            # the store's policy for this shape, looked up once: the key
+            # is fully known here
+            from repro_torch.tune.resolve import PolicyResolver
+            pol = PolicyResolver(tune_store, telemetry=self.tel,
+                                 device=self.device).resolve(
+                backend="cuda", layout=layout,
+                b_or_t=(self.token_budget if layout == "csr"
+                        else batch_size),
+                v=cfg.vocab_size, k=cfg.num_topics,
+                w=None if layout == "csr" else corpus.max_unique)
+            if pol is not None:
+                cfg = dataclasses.replace(cfg, kernel_policy=pol)
+                self.cfg = cfg
         if algo in ("ivi", "sivi"):
             if memo_store == "gamma" and algo == "ivi":
                 raise ValueError(

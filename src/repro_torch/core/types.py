@@ -58,15 +58,38 @@ class Corpus:
 
 @dataclasses.dataclass(frozen=True)
 class KernelPolicy:
-    """Tile policy of the CUDA E-step kernels.
+    """Policy of the CUDA E-step kernels (`repro_torch.tune` searches it).
 
-    ``block_b`` is the fixed point's stopping tile: each tile of
-    ``block_b`` documents stops on its own mean |Δγ|, exactly as the TPU
-    kernel's B-tile did, so the default (128, as in ``repro``) keeps γ and
-    the per-tile sweep counts comparable with the Pallas kernel.
+    Every field defaults to what the kernels chose before the tuner
+    existed, so ``KernelPolicy()`` and a ``None`` policy launch the same
+    kernels with the same bits.
+
+    * ``block_b`` — the fixed point's stopping tile: each tile of
+      ``block_b`` documents stops on its own mean |Δγ|, exactly as the TPU
+      kernel's B-tile did, so the default (128, as in ``repro``) keeps γ
+      and the per-tile sweep counts comparable with the Pallas kernel.
+    * ``wire_dtype`` — ``repro``'s advisory memo wire ("float32" or
+      "bfloat16") recorded by the tuner; the memo store still decides the
+      wire.
+    * ``double_buffer_depth`` — the staging queue of
+      ``TopicInferencer.posterior_docs`` (``repro``'s meaning and default).
+    * ``fp_warps`` / ``fp_blocks`` — K1/K4's launch: warps per document (a
+      power of two up to 8; None: ``fp_warps_per_doc``) and the
+      cooperative grid (None: one block for every 8 / W documents, at most
+      the co-resident capacity, which a given grid may not exceed).
+    * ``scatter_ids`` — K3's consecutive ids a warp (4, 16 or 32, each a
+      kernel instance; None: 8).
+
+    The tuner stores a launch knob only where the card gave the default's
+    bits with it, so a policy changes speed and never the result.
     """
 
     block_b: int = 128
+    wire_dtype: Optional[str] = None
+    double_buffer_depth: int = 2
+    fp_warps: Optional[int] = None
+    fp_blocks: Optional[int] = None
+    scatter_ids: Optional[int] = None
 
 
 #: The policy in effect when none is configured.

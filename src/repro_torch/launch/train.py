@@ -9,7 +9,11 @@ It prints the memo store's footprint, the length buckets' padding
 writes a manifest checkpoint of the full incremental state at the end
 (``repro``'s format), and ``--resume`` continues such a run, the port's or
 ``repro``'s, bit-equal to one that never stopped (its algo, store and
-batching come from the checkpoint).
+batching come from the checkpoint). ``--stream`` trains from a lazily read
+UCI docword file through a ``DocStream`` (``--docword`` an existing one;
+without it the synthetic corpus is written in UCI format once and
+streamed back), single-host or sharded over D-IVI's workers;
+``--tune-store`` resolves a tuned kernel policy (`repro_torch.tune`).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus small
@@ -30,29 +34,56 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
       --topics 8 --algo divi --workers 4 --batch 16 --rounds 10 \\
       --eval-every 5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
+      --topics 8 --stream --docword docword.txt.gz --tune-store t.json \\
+      --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
 
 def main_lda(args) -> None:
     from repro_torch.core.types import LDAConfig, resolve_device
     from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+    from repro_torch.data.uci import UCIDocStream, save_uci
     from repro_torch.dist import DIVIConfig
     from repro_torch.lda import LDA
 
     tel = _build_telemetry(args)
     device = resolve_device(args.device)
     spec = PAPER_CORPORA[args.corpus]
-    train = make_corpus(spec, split="train", seed=args.seed,
-                        scale=args.scale, device=device)
     test = make_corpus(spec, split="test", seed=args.seed, scale=args.scale,
                        device=device)
-    print(f"corpus={args.corpus} docs={train.num_docs} "
-          f"words={float(train.num_words):.0f} K={args.topics} "
-          f"device={device}")
+    if args.stream:
+        # ragged streaming ingest from a lazily read UCI docword file: no
+        # (D, L) padded corpus resident; D-IVI shards the stream into its
+        # workers' views. Only full-batch mvi needs a materialized corpus.
+        if args.algo == "mvi":
+            raise SystemExit("--stream needs a mini-batch engine; mvi is "
+                             "full-batch coordinate ascent")
+        docword = args.docword
+        if docword is None:
+            mat = make_corpus(spec, split="train", seed=args.seed,
+                              scale=args.scale, device="cpu")
+            docword = os.path.join(tempfile.mkdtemp(prefix="lda_stream_"),
+                                   "docword.txt.gz")
+            save_uci(mat, docword)
+        train = UCIDocStream(docword)
+        print(f"stream={docword} docs={train.num_docs} "
+              f"words={train.num_words:.0f} K={args.topics} "
+              f"device={device}")
+    elif args.docword:
+        raise SystemExit("--docword goes with --stream")
+    else:
+        train = make_corpus(spec, split="train", seed=args.seed,
+                            scale=args.scale, device=device)
+        print(f"corpus={args.corpus} docs={train.num_docs} "
+              f"words={float(train.num_words):.0f} K={args.topics} "
+              f"device={device}")
     if args.resume:
         lda = LDA.load(args.resume, telemetry=tel, device=device).resume(
             train, test_corpus=test)
@@ -68,15 +99,19 @@ def main_lda(args) -> None:
                                              batch_size=args.batch,
                                              staleness=args.staleness,
                                              delay_prob=args.delay_prob),
-                      seed=args.seed, telemetry=tel, device=device)
+                      seed=args.seed, telemetry=tel, device=device,
+                      tune_store=args.tune_store)
         else:
             lda = LDA(cfg, algo=args.algo, batch_size=args.batch,
                       seed=args.seed, memo_store=args.memo_store,
                       chunk_docs=args.chunk_docs,
                       bucket_by_length=args.bucketed, telemetry=tel,
-                      device=device)
+                      device=device, tune_store=args.tune_store)
         # bind the corpus without stepping, so the memo is reportable
         lda.partial_fit(train, steps=0, test_corpus=test)
+    if lda.cfg.kernel_policy is not None:
+        # a tuned (or checkpointed) policy is part of the run's identity
+        print(f"kernel_policy={lda.cfg.kernel_policy}")
     eng = lda.trainer.eng
     if lda.distributed is not None:
         shard = eng.shard
@@ -103,6 +138,11 @@ def main_lda(args) -> None:
             lpp = lda.evaluate()["lpp"]
             print(f"epoch={epoch} docs_seen={lda.docs_seen} lpp={lpp:.4f} "
                   f"wall={time.perf_counter() - t0:.2f}s")
+    if args.stream:
+        st = eng.stream_padding_stats()
+        per = " ".join(f"w{b['width']}:{b['docs']}d/{b['pad_frac']:.0%}"
+                       for b in st["per_width"])
+        print(f"stream_padding_stats pad_frac={st['pad_frac']:.3f} [{per}]")
     _finish(lda, tel, args)
 
 
@@ -205,6 +245,16 @@ def main() -> None:
                      help="continue the run checkpointed in DIR (the "
                           "port's or repro's); algo, store and batching "
                           "come from the checkpoint")
+    lda.add_argument("--stream", action="store_true",
+                     help="ragged streaming ingest through a UCI DocStream "
+                          "(no padded corpus resident)")
+    lda.add_argument("--docword", default=None,
+                     help="existing UCI docword(.gz) file to stream "
+                          "(with --stream; default: the synthetic corpus "
+                          "written out in UCI format)")
+    lda.add_argument("--tune-store", default=None, metavar="PATH",
+                     help="repro_torch.tune policy store of tuned kernel "
+                          "policies, resolved at this run's shape")
     args = ap.parse_args()
     main_lda(args)
 

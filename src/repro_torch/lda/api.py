@@ -24,7 +24,8 @@ The facade runs on ``device`` (the card unless the caller names another).
 ``repro``'s ``jax.random`` draw: to start both packages from one point,
 load a ``repro`` checkpoint or hand λ₀ to ``warm_start`` (single-host
 engines). ``mesh``/``data_axes`` (D-IVI over several cards) raise until
-ROADMAP §1 item 11, ``tune_store`` until item 8.
+ROADMAP §1 item 11. ``tune_store`` resolves a tuned kernel policy for the
+bound training shape (`repro_torch.tune`), as ``repro``'s facade does.
 """
 from __future__ import annotations
 
@@ -70,8 +71,12 @@ class LDA:
       telemetry: `repro_torch.obs` (None/False off, True defaults, or a
         ``Telemetry``), threaded through the trainer, the engine, the
         packer and the inferencers this estimator makes.
-      tune_store: refused until ``tune/`` is ported; an explicit
-        ``cfg.kernel_policy`` is honoured.
+      tune_store: a `repro_torch.tune` policy store (path or
+        ``PolicyStore``): the policy for the bound training shape is
+        looked up once when a corpus is bound (``cuda`` backend) and
+        written onto ``cfg``, so checkpoints carry it; the inferencers this
+        estimator makes resolve their own shapes from it. An explicit
+        ``cfg.kernel_policy`` always wins.
       device: where training and serving run; the card unless named.
     """
 
@@ -109,10 +114,6 @@ class LDA:
                 f"algo={algo!r} is incompatible; use algo='sivi' or 'divi'")
         if mesh is not None or data_axes is not None:
             raise mesh_not_ported()
-        if tune_store is not None:
-            raise NotImplementedError(
-                "tune_store: the policy tuner is not ported to repro_torch "
-                "yet (ROADMAP §1 item 8, tune/); pass cfg.kernel_policy")
         self.cfg = cfg
         self.algo = algo
         self.distributed = distributed
@@ -124,6 +125,8 @@ class LDA:
         self.layout = layout
         self.token_budget = token_budget if layout == "csr" else None
         self.telemetry = as_telemetry(telemetry)
+        self.tune_store = tune_store
+        self._cfg_pre_tune = None     # cfg before the store's policy, if any
         self.device = resolve_device(device)
         self.trainer: Optional[Trainer] = None
         self._corpus = None           # the coerced Corpus | DocStream
@@ -199,6 +202,7 @@ class LDA:
             return self.trainer
         if corpus is None:
             raise ValueError("first fit/partial_fit call must pass a corpus")
+        self._resolve_tuned_policy(corpus)
         self.trainer = make_trainer(
             self.cfg, corpus, algo=self.algo, distributed=self.distributed,
             batch_size=self.batch_size, seed=self.seed,
@@ -206,10 +210,41 @@ class LDA:
             chunk_docs=self.chunk_docs,
             bucket_by_length=self.bucket_by_length, layout=self.layout,
             token_budget=self.token_budget, telemetry=self.telemetry,
-            device=self.device)
+            device=self.device, tune_store=self.tune_store)
         self._corpus = corpus
         self._corpus_raw = raw
         return self.trainer
+
+    def _resolve_tuned_policy(self, corpus) -> None:
+        """Look up a tuned ``KernelPolicy`` for the bound training shape.
+
+        Resolved here, not only in the engine, so the winner lands on
+        ``self.cfg``, which checkpoints write: a resumed run replays the
+        tuned launches even without the store. A miss, no store, or an
+        explicit ``cfg.kernel_policy`` changes nothing.
+        """
+        cfg = self.cfg
+        if (self.tune_store is None or cfg.kernel_policy is not None
+                or cfg.estep_backend != "cuda"):
+            return
+        from repro_torch.tune.resolve import PolicyResolver
+        if self.layout == "csr":
+            # the engine's token-budget default, so the key is the shape
+            # the engine runs
+            b_or_t = (self.token_budget if self.token_budget is not None
+                      else min(self.batch_size * 64, 8192))
+            w = None
+        else:
+            b_or_t = (self.distributed.batch_size
+                      if self.distributed is not None else self.batch_size)
+            w = getattr(corpus, "max_unique", None)
+        pol = PolicyResolver(self.tune_store, telemetry=self.telemetry,
+                             device=self.device).resolve(
+            backend="cuda", layout=self.layout, b_or_t=b_or_t,
+            v=cfg.vocab_size, k=cfg.num_topics, w=w)
+        if pol is not None:
+            self._cfg_pre_tune = cfg
+            self.cfg = dataclasses.replace(cfg, kernel_policy=pol)
 
     def fit(self, corpus=None, *, epochs: int = 1,
             rounds: Optional[int] = None,
@@ -314,15 +349,21 @@ class LDA:
                    token_budget: Optional[int] = None, telemetry=None,
                    tune_store=None) -> TopicInferencer:
         """A reusable serving handle over the current topics (Eφ computed
-        once), in the training layout unless ``layout`` is given."""
+        once), in the training layout unless ``layout`` is given, resolving
+        its own shapes from ``tune_store`` (the estimator's by default)."""
         layout = self.layout if layout is None else layout
         if token_budget is None and layout == self.layout:
             token_budget = self.token_budget
+        # a training-shape policy from the store must not ride into
+        # serving's shapes: the inferencer gets the cfg before the store's
+        # policy and looks its own up (an explicit policy still wins)
+        cfg = self.cfg if self._cfg_pre_tune is None else self._cfg_pre_tune
         return TopicInferencer(
-            self.cfg, self.lam, backend=backend, batch_size=batch_size,
+            cfg, self.lam, backend=backend, batch_size=batch_size,
             layout=layout, token_budget=token_budget,
             telemetry=self.telemetry if telemetry is None else telemetry,
-            tune_store=tune_store, device=self.device)
+            tune_store=self.tune_store if tune_store is None else tune_store,
+            device=self.device)
 
     def transform(self, corpus: Corpus, *, backend: Optional[str] = None,
                   batch_size: int = 256) -> np.ndarray:

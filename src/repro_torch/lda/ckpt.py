@@ -23,11 +23,16 @@ A saved ``LDA`` is one manifest directory (`repro_torch.checkpoint`):
 The checkpoint speaks ``repro``'s vocabulary, so each package resumes the
 other's files: the port's ``cuda`` backend is written as ``pallas`` (and
 read back as ``cuda``), and a kernel policy is written with all nine of
-``repro``'s ``KernelPolicy`` fields, the port's ``block_b`` and
-``repro``'s defaults for the rest. On load only ``block_b`` applies: the
-other eight are TPU tile sizes (and the serving queue depth, 2 in the
-port), so a policy whose other fields differ from ``repro``'s defaults
-loads with its ``block_b`` alone.
+``repro``'s ``KernelPolicy`` fields: the port's ``block_b``,
+``wire_dtype`` and ``double_buffer_depth`` (the same meaning in both
+packages) and ``repro``'s defaults for its six TPU tile sizes. On load
+those three apply and the TPU tiles are dropped. The port's Hopper launch
+knobs (``fp_warps``, ``fp_blocks``, ``scatter_ids``) are not written:
+``repro``'s ``KernelPolicy(**fields)`` refuses fields it does not know,
+and a port checkpoint must resume in ``repro``. Nothing is lost by it:
+the tuner stores a launch knob only where the card gave the default
+launch's bits with it, so a run resumed with the kernels' own launches is
+bit-equal to one resumed with the tuned ones.
 
 ``load_lda_checkpoint`` also takes the legacy flat ``.npz`` of a bare
 ``GlobalState`` (``repro``'s old ``train.py`` wrote them): it carries no
@@ -68,9 +73,12 @@ def _cfg_to_repro(cfg: LDAConfig) -> dict:
     out = dataclasses.asdict(cfg)
     out["estep_backend"] = _BACKEND_TO_REPRO.get(cfg.estep_backend,
                                                  cfg.estep_backend)
-    if cfg.kernel_policy is not None:
-        out["kernel_policy"] = dict(REPRO_KERNEL_POLICY,
-                                    block_b=cfg.kernel_policy.block_b)
+    pol = cfg.kernel_policy
+    if pol is not None:
+        out["kernel_policy"] = dict(
+            REPRO_KERNEL_POLICY, block_b=pol.block_b,
+            wire_dtype=pol.wire_dtype,
+            double_buffer_depth=pol.double_buffer_depth)
     return out
 
 
@@ -81,7 +89,10 @@ def _cfg_from_repro(fields: dict) -> LDAConfig:
     pol = fields.get("kernel_policy")
     if pol is not None:
         fields["kernel_policy"] = KernelPolicy(
-            block_b=int(pol.get("block_b", KernelPolicy.block_b)))
+            block_b=int(pol.get("block_b", KernelPolicy.block_b)),
+            wire_dtype=pol.get("wire_dtype"),
+            double_buffer_depth=int(pol.get(
+                "double_buffer_depth", KernelPolicy.double_buffer_depth)))
     return LDAConfig(**fields)
 
 

@@ -49,9 +49,6 @@ from repro_torch.data.stream import (BatchPacker, CSRBatch, PackedBatch,
                                      bucket_rows)
 from repro_torch.obs import as_telemetry
 
-# ``repro``'s default staging-queue depth (one batch in flight, one staged)
-BUFFER_DEPTH = 2
-
 # one staged request batch: (request positions, device ids, device counts,
 # bucket width (padded) or device segments (csr), live rows, the event
 # after its copy or None)
@@ -98,8 +95,13 @@ class TopicInferencer:
       telemetry: a `repro_torch.obs` bundle (None/False = off): spans
         ``serve/stage`` and ``serve/solve`` (never synced), counters of
         documents and batches per width, the queue depth.
-      tune_store: not ported (ROADMAP §1 item 8); passing one raises. An
-        explicit ``cfg.kernel_policy`` is honoured.
+      tune_store: a `repro_torch.tune` policy store (path or
+        ``PolicyStore``). Padded serving resolves a policy per bucket
+        width, the first time a width is dispatched (each width is its own
+        launch shape); CSR serving resolves its one shape here. The
+        policy's ``double_buffer_depth`` sizes ``posterior_docs``'s staging
+        queue. An explicit ``cfg.kernel_policy`` always wins; no store (or a
+        miss) launches what the kernels choose.
       device: where the E-step runs; the card unless the caller names
         another device.
     """
@@ -108,10 +110,6 @@ class TopicInferencer:
                  batch_size: int = 256, layout: str = "padded",
                  token_budget: Optional[int] = None, telemetry=None,
                  tune_store=None, device=None):
-        if tune_store is not None:
-            raise NotImplementedError(
-                "tune_store: the policy tuner is not ported to repro_torch "
-                "yet (ROADMAP §1 item 8, tune/); pass cfg.kernel_policy")
         if backend is not None and backend != cfg.estep_backend:
             cfg = dataclasses.replace(cfg, estep_backend=backend)
         if layout not in ("padded", "csr"):
@@ -132,6 +130,48 @@ class TopicInferencer:
         self._compiled_widths: Dict[int, int] = {}   # width → batches run
         self._live_slots = 0
         self._padded_slots = 0
+        # tuned policies: per-width cfgs for padded serving, one lookup
+        # here for csr
+        self._resolver = None
+        self._cfg_by_width: Dict[int, LDAConfig] = {}
+        self._width_lock = threading.Lock()
+        if (tune_store is not None and cfg.kernel_policy is None
+                and cfg.estep_backend == "cuda"):
+            from repro_torch.tune.resolve import PolicyResolver
+            self._resolver = PolicyResolver(tune_store, telemetry=self.tel,
+                                            device=self.device)
+            if layout == "csr":
+                pol = self._resolver.resolve(
+                    backend="cuda", layout="csr", b_or_t=self.token_budget,
+                    v=cfg.vocab_size, k=cfg.num_topics, w=None)
+                if pol is not None:
+                    self.cfg = dataclasses.replace(cfg, kernel_policy=pol)
+
+    def _cfg_for_width(self, width: int) -> LDAConfig:
+        """The serving cfg of one bucket width: with that width's tuned
+        policy when the store has one (padded layout; csr resolved its one
+        shape at construction). Each width is looked up once (one
+        ``tune.cache`` count), under a lock: batches may come from several
+        threads."""
+        if self._resolver is None or self.layout == "csr":
+            return self.cfg
+        with self._width_lock:
+            cfg = self._cfg_by_width.get(width)
+            if cfg is None:
+                pol = self._resolver.resolve(
+                    backend="cuda", layout="padded", b_or_t=self.batch_size,
+                    v=self.cfg.vocab_size, k=self.cfg.num_topics, w=width)
+                cfg = (self.cfg if pol is None
+                       else dataclasses.replace(self.cfg, kernel_policy=pol))
+                self._cfg_by_width[width] = cfg
+        return cfg
+
+    def _buffer_depth(self) -> int:
+        """``posterior_docs``'s staging-queue size: the active policy's
+        ``double_buffer_depth`` (tuned or explicit), else ``repro``'s 2
+        (one batch in flight, one staged)."""
+        pol = self.cfg.kernel_policy
+        return pol.double_buffer_depth if pol is not None else 2
 
     def _exp_elog_beta(self, lam) -> torch.Tensor:
         lam = torch.as_tensor(lam, dtype=torch.float32).to(self.device)
@@ -232,9 +272,9 @@ class TopicInferencer:
             return results
         pinned = self.device.type == "cuda"
         side = torch.cuda.Stream(self.device) if pinned else None
-        ring = [_Pinned() for _ in range(BUFFER_DEPTH + 1)] if pinned \
-            else None
-        q: "queue.Queue" = queue.Queue(maxsize=BUFFER_DEPTH)
+        depth = self._buffer_depth()
+        ring = [_Pinned() for _ in range(depth + 1)] if pinned else None
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
         abort = threading.Event()
         err: List[BaseException] = []
 
@@ -362,7 +402,8 @@ class TopicInferencer:
                 self.cfg, eb, CSRTokenBatch(ids, cnts, aux),
                 num_docs=self.batch_size)
         else:
-            gamma = backend.solve_gamma(self.cfg, eb, BowBatch(ids, cnts))
+            gamma = backend.solve_gamma(self._cfg_for_width(width), eb,
+                                        BowBatch(ids, cnts))
         if sp is not None:
             tel.trace.end(sp)
         self._note_width(width, n)
@@ -389,7 +430,7 @@ class TopicInferencer:
             return self._dispatch(self._stage(batch))
         local = self._pinned_local
         if not hasattr(local, "ring"):
-            local.ring = [_Pinned() for _ in range(BUFFER_DEPTH + 1)]
+            local.ring = [_Pinned() for _ in range(self._buffer_depth() + 1)]
             local.next = 0
         slot = local.ring[local.next % len(local.ring)]
         local.next += 1

@@ -125,14 +125,14 @@ class SingleHostTrainer(Trainer):
                  memo_store: str = "dense", chunk_docs: int = 8192,
                  bucket_by_length: bool = False, layout: str = "padded",
                  token_budget: Optional[int] = None, telemetry=None,
-                 device=None):
+                 device=None, tune_store=None):
         self.eng = LDAEngine(cfg, corpus, algo=algo, batch_size=batch_size,
                              seed=seed, test_corpus=test_corpus,
                              device=device, memo_store=memo_store,
                              chunk_docs=chunk_docs,
                              bucket_by_length=bucket_by_length,
                              layout=layout, token_budget=token_budget,
-                             telemetry=telemetry)
+                             telemetry=telemetry, tune_store=tune_store)
         self.algo = algo
         self._streamed = self.eng.stream is not None
         self._pending: List[Tuple[np.ndarray, Optional[int]]] = []
@@ -473,15 +473,31 @@ def make_trainer(cfg: LDAConfig, corpus, *, algo: str,
                  memo_store: str = "dense", chunk_docs: int = 8192,
                  bucket_by_length: bool = False, layout: str = "padded",
                  token_budget: Optional[int] = None, mesh=None,
-                 data_axes=None, telemetry=None, device=None) -> Trainer:
+                 data_axes=None, telemetry=None, device=None,
+                 tune_store=None) -> Trainer:
     """Bind a corpus (or ``DocStream``) to its Trainer: ``DIVITrainer``
     with ``distributed`` (any data source: D-IVI shards a stream into
     worker views, a padded ``Corpus`` is wrapped on the way in), else
-    ``SingleHostTrainer``."""
+    ``SingleHostTrainer``. ``tune_store`` is a `repro_torch.tune` policy
+    store consulted once for a tuned kernel policy (``cuda`` backend; an
+    explicit ``cfg.kernel_policy`` wins)."""
     if distributed is not None:
         if layout != "padded":
             raise ValueError("distributed training packs padded worker "
                              "batches; layout='csr' is single-host only")
+        if tune_store is not None and cfg.kernel_policy is None \
+                and cfg.estep_backend == "cuda":
+            # the workers all run the same per-worker batch shape: one
+            # lookup covers them (the width is the stream's max_unique,
+            # the padded packer's width)
+            from repro_torch.tune.resolve import PolicyResolver
+            pol = PolicyResolver(tune_store, telemetry=telemetry,
+                                 device=device).resolve(
+                backend="cuda", layout="padded",
+                b_or_t=distributed.batch_size, v=cfg.vocab_size,
+                k=cfg.num_topics, w=getattr(corpus, "max_unique", None))
+            if pol is not None:
+                cfg = dataclasses.replace(cfg, kernel_policy=pol)
         return DIVITrainer(cfg, distributed, corpus, seed=seed,
                            test_corpus=test_corpus, mesh=mesh,
                            data_axes=data_axes, telemetry=telemetry,
@@ -491,4 +507,5 @@ def make_trainer(cfg: LDAConfig, corpus, *, algo: str,
                              memo_store=memo_store, chunk_docs=chunk_docs,
                              bucket_by_length=bucket_by_length,
                              layout=layout, token_budget=token_budget,
-                             telemetry=telemetry, device=device)
+                             telemetry=telemetry, device=device,
+                             tune_store=tune_store)

@@ -184,7 +184,9 @@ def test_port_names_in_repro_vocabulary(tmp_path, corpora):
 
 def test_repro_policy_loads_with_block_b_only(tmp_path, corpora):
     """A ``repro`` policy whose TPU-only fields differ from the defaults
-    loads with its ``block_b`` alone."""
+    loads with its ``block_b`` and the two fields both packages share
+    (``wire_dtype``, ``double_buffer_depth``); the TPU tiles are
+    dropped."""
     from repro.core.types import KernelPolicy as JPolicy
     jtrain, _, _ = corpora
     jcfg = JConfig(num_topics=4, vocab_size=SPEC.vocab_size,
@@ -195,7 +197,8 @@ def test_repro_policy_loads_with_block_b_only(tmp_path, corpora):
     JLDA(jcfg, algo="ivi", batch_size=16).partial_fit(jtrain,
                                                       steps=1).save(path)
     t = LDA.load(path, device=CPU)
-    assert t.cfg.kernel_policy == KernelPolicy(block_b=32)
+    assert t.cfg.kernel_policy == KernelPolicy(block_b=32,
+                                               double_buffer_depth=3)
 
 
 # ---------------------------------------------------------------------------
@@ -300,8 +303,22 @@ def test_refusals(tmp_path, corpora):
         LDA(_cfg(), algo="divi", mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="sharding"):
         LDA(_cfg(), mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LDA(_cfg(), tune_store="store.json", device=CPU)
+    # a tune store is accepted: the bound training shape's policy is
+    # looked up once (one tune.cache hit) and rides the cfg
+    from repro_torch.obs import Telemetry
+    from repro_torch.tune import PolicyKey, PolicyStore
+    store = PolicyStore(os.path.join(tmp_path, "store.json"))
+    pol = KernelPolicy(scatter_ids=16)
+    store.put(PolicyKey(backend="cuda", layout="padded", b_or_t=16,
+                        v=SPEC.vocab_size, k=4, w=train.max_unique,
+                        device_kind="cpu:cpu"), pol)
+    tel = Telemetry()
+    tuned = LDA(_cfg(estep_backend="cuda"), batch_size=16, tune_store=store,
+                telemetry=tel, device=CPU).partial_fit(train, steps=0)
+    assert tuned.cfg.kernel_policy == pol
+    assert tuned.trainer.eng.cfg.kernel_policy == pol
+    assert tel.metrics.value("tune.cache", result="hit") == 1
+    assert tel.metrics.value("tune.cache", result="miss") == 0
     with pytest.raises(ValueError, match="already bound"):
         LDA(_cfg(), batch_size=16, device=CPU).partial_fit(
             train, steps=0).partial_fit(test)

@@ -25,6 +25,7 @@
   port, each package resuming the other's checkpoint within 1e-3, the
   launcher.
 """
+import dataclasses
 import os
 
 import jax
@@ -414,7 +415,7 @@ def test_facade_trains_scores_saves_and_resumes(corpora, tmp_path):
     assert np.isfinite(b.bound())
 
 
-def test_facade_refusals_in_repros_words(corpora):
+def test_facade_refusals_in_repros_words(corpora, tmp_path):
     train, _, _ = corpora
     _, cfg = _cfgs()
     lda = LDA(cfg, algo="divi", distributed=DIVIConfig(num_workers=2,
@@ -429,8 +430,24 @@ def test_facade_refusals_in_repros_words(corpora):
         LDA(cfg, algo="sivi", device=CPU).fit(sharded)
     with pytest.raises(NotImplementedError, match="item 11"):
         LDA(cfg, algo="divi", data_axes=("data",), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LDA(cfg, algo="divi", tune_store="store.json", device=CPU)
+    # a tune store is accepted: one lookup at the per-worker batch shape
+    # (one tune.cache hit), and the workers' engine runs the policy
+    from repro_torch.core.types import KernelPolicy
+    from repro_torch.obs import Telemetry
+    from repro_torch.tune import PolicyKey, PolicyStore
+    store = PolicyStore(os.path.join(tmp_path, "store.json"))
+    pol = KernelPolicy(fp_warps=2)
+    store.put(PolicyKey(backend="cuda", layout="padded", b_or_t=8,
+                        v=SPEC.vocab_size, k=8, w=train.max_unique,
+                        device_kind="cpu:cpu"), pol)
+    tel = Telemetry()
+    tuned = LDA(dataclasses.replace(cfg, estep_backend="cuda"), algo="divi",
+                distributed=DIVIConfig(num_workers=2, batch_size=8),
+                tune_store=store, telemetry=tel,
+                device=CPU).partial_fit(train, steps=0)
+    assert tuned.cfg.kernel_policy == pol
+    assert tuned.trainer.eng.cfg.kernel_policy == pol
+    assert tel.metrics.value("tune.cache", result="hit") == 1
     with pytest.raises(ValueError, match="csr"):
         LDA(cfg, algo="divi", layout="csr", device=CPU).fit(train)
     # a pre-dealt ShardedDocStream trains as it is

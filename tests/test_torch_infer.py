@@ -155,11 +155,27 @@ def test_swap_model_under_traffic(setup):
         inf.swap_model(lam[:, :2])
 
 
-def test_inferencer_refusals_and_one_shot(setup):
+def test_inferencer_refusals_and_one_shot(setup, tmp_path):
     lam, _, jtest, test, _ = setup
     jcfg, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TopicInferencer(cfg, lam, tune_store="store.json", device=CPU)
+    # a tune store is accepted: each bucket width resolves once (a hit for
+    # the stored width, a miss for another)
+    from repro_torch.core.types import KernelPolicy
+    from repro_torch.obs import Telemetry
+    from repro_torch.tune import PolicyKey, PolicyStore
+    store = PolicyStore(tmp_path / "store.json")
+    pol = KernelPolicy(scatter_ids=4)
+    store.put(PolicyKey(backend="cuda", layout="padded", b_or_t=8,
+                        v=SPEC.vocab_size, k=K, w=16,
+                        device_kind="cpu:cpu"), pol)
+    tel = Telemetry()
+    tuned = TopicInferencer(_cfgs("cuda")[1], lam, batch_size=8,
+                            tune_store=store, telemetry=tel, device=CPU)
+    assert tuned._cfg_for_width(16).kernel_policy == pol
+    assert tuned._cfg_for_width(32).kernel_policy is None
+    assert tuned._cfg_for_width(16).kernel_policy == pol
+    assert tel.metrics.value("tune.cache", result="hit") == 1
+    assert tel.metrics.value("tune.cache", result="miss") == 1
     with pytest.raises(ValueError, match="layout"):
         TopicInferencer(cfg, lam, layout="ragged", device=CPU)
     with pytest.raises(ValueError, match="estep backend"):

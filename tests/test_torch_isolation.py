@@ -63,6 +63,16 @@ def test_port_imports_neither_jax_nor_repro():
                                        validate_slo_report)
         from repro_torch.data.stream import QueueDocStream
         from repro_torch.launch.serve_lda import main as serve_main
+        # the tuner, UCI ingest, CVB0 and Minka's updates
+        from repro_torch.tune import (PolicyKey, PolicyResolver,
+                                      PolicyStore, current_device_kind)
+        from repro_torch.tune.search import TuneShape, tune_and_store
+        from repro_torch.tune.model import bound_ms, modeled_cost_seconds
+        from repro_torch.tune.__main__ import main as tune_main
+        from repro_torch.data.uci import (UCIDocStream, load_uci,
+                                          load_vocab, save_uci)
+        from repro_torch.core.cvb0 import CVB0Engine, cvb0_step, init_cvb0
+        from repro_torch.core.hyper import update_alpha0, update_beta0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -88,6 +98,11 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.lda.trainer", "repro_torch.lda.ckpt",
                  "repro_torch.lda.infer", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.manifest", "repro_torch.dist",
+                 "repro_torch.tune", "repro_torch.tune.store",
+                 "repro_torch.tune.resolve", "repro_torch.tune.model",
+                 "repro_torch.tune.search", "repro_torch.tune.__main__",
+                 "repro_torch.data.uci", "repro_torch.core.cvb0",
+                 "repro_torch.core.hyper",
                  "repro_torch.dist.protocol", "repro_torch.dist.engine",
                  "repro_torch.serve", "repro_torch.serve.admission",
                  "repro_torch.serve.online", "repro_torch.serve.service",
