@@ -158,18 +158,18 @@ after):
  28. tune    — repro_torch.tune on the card, the padded task (B = 1,024,
                L = 163) and the CSR one (T = 131,072, 1,024 documents):
                measured seconds (proxy_regime false), the card's device
-               kind, every candidate's ms and gate verdict, the default's
-               and the winner's ms; the winner bit-equal to the default on
-               fresh inputs (the held-out documents); each single launch
-               knob (warps per document, ids a warp, the grid in waves of
-               SMs) timed and bit-checked beside the default; a grid above
-               the co-resident capacity refused with both numbers; the
-               store, in a temporary directory, read back with one
-               tune.cache hit each by LDA.fit and a CSR TopicInferencer
+               kind, every candidate's ms, gate verdict and bits on fresh
+               inputs (the held-out documents), the default's and the
+               winner's ms; the winner bit-equal to the default on the
+               fresh inputs; the store, in a temporary directory, read
+               back with one tune.cache hit each by LDA.fit and a CSR
+               TopicInferencer
  29. uci     — phase 3's training corpus written with save_uci (gzip),
                parsed (docs/s), the sidecar's second open timed, one IVI
-               epoch streamed from it through LDAEngine on both layouts
-               (docs/s), λ and ⟨m_vk⟩ bit-equal to the same epoch on the
+               epoch streamed from it through LDAEngine on each layout
+               (docs/s; its launch counts set to 0 just before the epoch
+               and read just after it: one K1 or K4 and one K3 an update),
+               λ and ⟨m_vk⟩ bit-equal to the same epoch on the
                materialized file
  30. cvb0    — CVB0Engine, one epoch at B = 1,024 with 5 inner
                iterations: ms a mini-batch, 2 K3 launches a step, N_vk
@@ -423,12 +423,11 @@ def phase_build():
     pi = kernel_spills(ptxas, "token_pi_kernel")
     check(len(pi) == 18 and all(x == [0, 0] for x in pi),
           f"token_pi_kernel instances spill (or are missing): {pi}")
-    # K3's instances, KPL = 1 ... 8 at each of the ids a warp the launch
-    # knob takes: the default's (8 ids) as the parent's build, every
-    # other at 0
-    scatter = {f"kpl{kpl}_ids{ids}": kernel_spills(
-        ptxas, f"segment_scatter_kernelILi{kpl}ELi{ids}E")
-        for kpl in range(1, 9) for ids in (4, 8, 16, 32)}
+    # K3's instances, KPL = 1 ... 8: KPL = 4 as K3_PARENT_SPILLS says,
+    # every other at 0
+    scatter = {f"kpl{kpl}": kernel_spills(
+        ptxas, f"segment_scatter_kernelILi{kpl}E")
+        for kpl in range(1, 9)}
     want = {name: K3_PARENT_SPILLS.get(name, [[0, 0]]) for name in scatter}
     check(scatter == want,
           f"segment_scatter_kernel spills (or missing instances): "
@@ -3281,11 +3280,6 @@ def phase_divi(device, spec, train, test, topics, batch, sync, timer):
 
 TUNE_BUDGET = 6          # random candidates a task before refinement
 TUNE_REPS = 5            # timed reps a candidate (the minimum is its ms)
-# the single-knob variants timed and gated beside the search
-KNOB_SURVEY = ({"fp_warps": 1}, {"fp_warps": 2}, {"fp_warps": 8},
-               {"scatter_ids": 4}, {"scatter_ids": 16},
-               {"scatter_ids": 32})
-GRID_SURVEY_WAVES = (1, 2, 3, 4)
 
 
 def knob_fields(policy):
@@ -3318,11 +3312,11 @@ def tune_fresh_inputs(shape, cfg, device, spec, test, lam, batch):
 
 
 def tune_task(task, device, spec, train, test, lam, topics, batch, store):
-    """One task's tune on the card, its checks, the knob survey."""
+    """One task's tune on the card and its checks: every candidate's ms
+    and its bits on fresh inputs beside the default's."""
     import dataclasses
     import torch
     from repro_torch.core.types import DEFAULT_KERNEL_POLICY, LDAConfig
-    from repro_torch.kernels import build, lda_estep
     from repro_torch.tune import current_device_kind
     from repro_torch.tune import search as tsearch
 
@@ -3357,43 +3351,6 @@ def tune_task(task, device, spec, train, test, lam, topics, batch, store):
     ok, mode, err = tsearch.equality_check(fresh, want, res.policy)
     check(ok, f"tune {task}: the winner {res.policy} is not the default's "
               f"bits on fresh inputs ({mode}, {err})")
-    # the single-knob survey: each variant's ms at the target shape and
-    # its verdict on the fresh inputs
-    target_cfg, target = tsearch._probe_inputs(
-        shape, {"b": batch, "v": spec.vocab_size, "k": topics,
-                "l": train.max_unique} if task == "padded" else
-        {"t": CSR_BUDGET, "b": batch, "v": spec.vocab_size, "k": topics},
-        0, ESTEP_ITERS, device)
-    timed = tsearch._gate_runner(shape, target_cfg, target)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    variants = list(KNOB_SURVEY) + [{"fp_blocks": n * sms}
-                                    for n in GRID_SURVEY_WAVES]
-    default_ms = tsearch._measured_cost(timed, DEFAULT_KERNEL_POLICY,
-                                        reps=TUNE_REPS) * 1e3
-    survey = []
-    for fields in variants:
-        pol = dataclasses.replace(DEFAULT_KERNEL_POLICY, **fields)
-        if not tsearch.launch_ok(shape, pol, device):
-            survey.append({"knob": fields, "launch": "refused"})
-            continue
-        vok, _, verr = tsearch.equality_check(fresh, want, pol)
-        survey.append({"knob": fields, "ms": tsearch._measured_cost(
-            timed, pol, reps=TUNE_REPS) * 1e3, "bit_equal": vok,
-            "max_abs_err": verr})
-    # a grid above the co-resident capacity raises, with both numbers
-    b, block_b, group = tsearch._launch_rows(shape, DEFAULT_KERNEL_POLICY)
-    cap = lda_estep.fixed_point_capacity(build.load(), b, topics, block_b,
-                                         group)
-    over = dataclasses.replace(DEFAULT_KERNEL_POLICY, fp_blocks=cap + 1)
-    check(not tsearch.launch_ok(shape, over, device),
-          f"tune {task}: launch_ok passed a grid above the capacity {cap}")
-    try:
-        fresh(over)
-        fail(f"tune {task}: a grid of {cap + 1} blocks launched above the "
-             f"co-resident capacity {cap}")
-    except ValueError as e:
-        check(str(cap) in str(e) and str(cap + 1) in str(e),
-              f"tune {task}: the refusal names neither number: {e}")
     return {"task": task, "shape": dataclasses.asdict(shape),
             "seconds": seconds, "objective": res.objective,
             "proxy_regime": res.proxy_regime,
@@ -3403,23 +3360,22 @@ def tune_task(task, device, spec, train, test, lam, topics, batch, store):
             "improvement": res.improvement,
             "winner": knob_fields(res.policy), "effective": res.effective,
             "equality": res.equality, "trials": res.trials,
-            "candidates": [{"knobs": knob_fields(p), "ms": c * 1e3}
+            "candidates": [{"knobs": knob_fields(p), "ms": c * 1e3,
+                            "fresh_bit_equal": tsearch.equality_check(
+                                fresh, want, p)[0]}
                            for p, c in res.scored],
             "gated": [{"knobs": knob_fields(p), "ms": c * 1e3,
                        "passed": passed, "max_abs_err": e}
                       for p, c, passed, e in res.gated],
-            "winner_fresh_bits": mode, "capacity": cap,
-            "survey_default_ms": default_ms, "survey": survey,
-            "policy": res.policy}
+            "winner_fresh_bits": mode, "policy": res.policy}
 
 
 def phase_tune(device, spec, train, test, topics, batch, lam):
     """The kernel-policy tuner on the card, both tasks at the Arxiv shape:
     measured objective, the winner bit-equal to the default on fresh
-    inputs, every candidate's ms and gate verdict, each single launch
-    knob's ms and bits beside the default's, the capacity refusal; then
-    the store read back by LDA.fit and a TopicInferencer, one tune.cache
-    hit each."""
+    inputs, every candidate's ms and gate verdict and its bits on the
+    fresh inputs; then the store read back by LDA.fit and a
+    TopicInferencer, one tune.cache hit each."""
     import tempfile
     import torch
     from repro_torch.core.types import LDAConfig
@@ -3518,7 +3474,7 @@ def phase_uci(device, spec, train, test, topics, batch):
         eager, _ = load_uci(path, device=device)
         check(stats == (float(eager.counts.sum()), eager.max_unique),
               "uci: the stream's stats differ from the materialized file's")
-        lda_estep.reset_launches()
+        launches = {}
         for layout in ("padded", "csr"):
             kw = dict(algo="ivi", batch_size=batch, seed=0, device=device,
                       layout=layout)
@@ -3526,10 +3482,23 @@ def phase_uci(device, spec, train, test, topics, batch):
                 kw["token_budget"] = CSR_BUDGET
             se = LDAEngine(cfg, UCIDocStream(path), **kw)
             torch.cuda.synchronize()
+            # the streamed epoch alone (run_epoch's loop, its updates
+            # counted): the counts are read before the reference runs
+            lda_estep.reset_launches()
             t0 = time.perf_counter()
-            se.run_epoch()
+            updates = 0
+            while se.stream_step():
+                updates += 1
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
+            counts = dict(lda_estep.LAUNCHES)
+            fp = "fixed_point" if layout == "padded" else "fixed_point_csr"
+            check(updates > 0 and counts[fp] == updates
+                  and counts["segment_scatter"] == updates
+                  and sum(counts.values()) == 2 * updates,
+                  f"uci {layout}: not one {fp} and one segment_scatter "
+                  f"an update over {updates}: {counts}")
+            launches[layout] = counts
             if layout == "csr":
                 ce = LDAEngine(cfg, CorpusDocStream(eager, spec.vocab_size),
                                **kw)
@@ -3549,13 +3518,9 @@ def phase_uci(device, spec, train, test, topics, batch):
                   f"uci {layout}: λ from the stream differs from the "
                   "materialized file's")
             out[layout] = {"train_docs_per_s": se.num_docs / train_s,
-                           "epoch_s": train_s, "lam_bit_equal": True}
+                           "epoch_s": train_s, "updates": updates,
+                           "launches": counts, "lam_bit_equal": True}
             del se, ce
-        torch.cuda.synchronize()
-        launches = dict(lda_estep.LAUNCHES)
-    check(all(launches[n] > 0 for n in ("fixed_point", "fixed_point_csr",
-                                        "segment_scatter")),
-          f"uci: a kernel of its path never launched: {launches}")
     out["launches"] = launches
     emit(out)
     return out
@@ -3701,12 +3666,11 @@ PARENT_DIGESTS = {
 # fewer), with their bits kept; every other instance, and the wide kernel
 # above 256 topics, must not spill
 PARENT_SPILLS = {"kpl6": [[4, 8]], "kpl7": [[4, 20]], "kpl8": [[24, 96]]}
-# K3's default instances (8 ids a warp), as this source builds them (chip
-# run, NVIDIA H100 80GB HBM3): KPL = 4 (97 to 128 topics, K = 100 among
-# them) spills 4/4 bytes at its 4 blocks an SM, as the same body did
-# before the ids-a-warp knob, with its bits kept; the knob's instances
-# must not spill
-K3_PARENT_SPILLS = {"kpl4_ids8": [[4, 4]]}
+# K3's instances as this source builds them (chip run, NVIDIA H100 80GB
+# HBM3): KPL = 4 (97 to 128 topics, K = 100 among them) spills 4/4 bytes
+# at its 4 blocks an SM (64 registers a thread), with its bits kept; every
+# other instance must not spill
+K3_PARENT_SPILLS = {"kpl4": [[4, 4]]}
 # K6's and K7's tensor-core instances (dense_tc_kernel<KC, kT, kR>: KC
 # chunks of 64 topics in registers, kT K7's transposed roles, kR the
 # product pass above 128 topics) and the R pass's kernels, by the
@@ -4066,19 +4030,25 @@ def main() -> int:
     # and K3 an update
     for name, count in launches_service.items():
         kernels[name]["launches_service"] = count
-    # the tuner, UCI ingest and CVB0: their paths' launches, and the
-    # launch knobs' measured effect on the rows of the kernels they tune
+    # the tuner, UCI ingest and CVB0: their paths' launches (UCI: each
+    # layout's streamed epoch alone), and the tune of the fixed points'
+    # rows
     for name in ("fixed_point", "fixed_point_csr", "segment_scatter"):
         kernels[name]["launches_tune"] = tune["launches"][name]
-        kernels[name]["launches_uci"] = uci["launches"][name]
+    kernels["fixed_point"]["launches_uci"] = \
+        uci["launches"]["padded"]["fixed_point"]
+    kernels["fixed_point_csr"]["launches_uci"] = \
+        uci["launches"]["csr"]["fixed_point_csr"]
+    kernels["segment_scatter"]["launches_uci"] = {
+        layout: uci["launches"][layout]["segment_scatter"]
+        for layout in ("padded", "csr")}
     kernels["segment_scatter"]["launches_cvb0"] = \
         cvb0["launches"]["segment_scatter"]
     for name, task in (("fixed_point", "padded"),
                        ("fixed_point_csr", "csr")):
         row = tune["tasks"][task]
         kernels[name]["tune"] = {f: row[f] for f in (
-            "default_ms", "tuned_ms", "winner", "survey_default_ms",
-            "survey")}
+            "default_ms", "tuned_ms", "winner")}
     kernels["fixed_point"]["divi_grouped"] = {
         key: {f: g[f] for f in ("docs", "group", "ms", "kernel_ms",
                                 "bound_ms", "bound_by")}

@@ -73,23 +73,15 @@ class KernelPolicy:
       wire.
     * ``double_buffer_depth`` — the staging queue of
       ``TopicInferencer.posterior_docs`` (``repro``'s meaning and default).
-    * ``fp_warps`` / ``fp_blocks`` — K1/K4's launch: warps per document (a
-      power of two up to 8; None: ``fp_warps_per_doc``) and the
-      cooperative grid (None: one block for every 8 / W documents, at most
-      the co-resident capacity, which a given grid may not exceed).
-    * ``scatter_ids`` — K3's consecutive ids a warp (4, 16 or 32, each a
-      kernel instance; None: 8).
 
-    The tuner stores a launch knob only where the card gave the default's
-    bits with it, so a policy changes speed and never the result.
+    The launch of each kernel (warps per document, grid, ids a warp)
+    stays the kernel's own choice: the card showed no other launch that
+    keeps the bits and is faster (ROADMAP, item 8).
     """
 
     block_b: int = 128
     wire_dtype: Optional[str] = None
     double_buffer_depth: int = 2
-    fp_warps: Optional[int] = None
-    fp_blocks: Optional[int] = None
-    scatter_ids: Optional[int] = None
 
 
 #: The policy in effect when none is configured.

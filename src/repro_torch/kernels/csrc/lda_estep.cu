@@ -125,13 +125,11 @@ __device__ __forceinline__ void exp_elog_theta(const float (&g)[KPL],
 // d*L ... d*L + L - 1 (the padded layout), or offsets[d] ... offsets[d +
 // 1] - 1 of the flat stream sorted by segment when `offsets` is given
 // (K4). They are
-// split over W warps (fp_warps_per_doc: 4 at L = 163, or the caller's
-// launch knob), warp p taking the row's slots p, p + W, p + 2W, ... (the
-// padding at a row's end spreads over all W); W and the split depend on
-// the shape and the knob alone, so the bits do not depend on the grid (the
-// grid is a launch knob too, at most the co-resident capacity). Each warp
-// sums its slots' cnt / (E[theta].Eφ[id] + 1e-30) * Eφ[id] into a
-// K-vector, with the Eφ rows of up to 4 live
+// split over W warps (fp_warps_per_doc: 4 at L = 163), warp p taking the
+// row's slots p, p + W, p + 2W, ... (the padding at a row's end spreads
+// over all W); W and the split depend on the shape alone, so the bits do
+// not depend on the grid. Each warp sums its slots' cnt / (E[theta].Eφ[id]
+// + 1e-30) * Eφ[id] into a K-vector, with the Eφ rows of up to 4 live
 // tokens loaded before their reductions (no serial load -> reduce -> load
 // chain); the W vectors are summed in shared memory in warp order, and the
 // document's first warp writes gamma' = alpha0 + E[theta] * acc, its
@@ -1239,12 +1237,9 @@ __global__ void __launch_bounds__(kPiThreads, pi_min_blocks(KPL))
 // selects no row for them).
 //
 // The kernel covers all V ids and writes every output row once, zeros for
-// an empty id, so the wrapper fills nothing. Each warp owns IDS
-// consecutive ids (a launch knob: kScatterIds by default, or 4, 16 or 32,
-// each its own instance, so the default's code depends on no other; at
-// most 32, as each warp marks its long ids in one 32-bit mask), whose rows
-// are one contiguous run of `order`: it loads their offsets with one
-// coalesced load, then walks the run as one stream,
+// an empty id, so the wrapper fills nothing. Each warp owns kScatterIds
+// consecutive ids, whose rows are one contiguous run of `order`: it loads
+// their offsets with one coalesced load, then walks the run as one stream,
 // 32 order entries and counts at a time, and stores an id's sums when the
 // stream passes its last row (the lane owns topics lane, lane + 32, ...
 // in registers; each id's rows are summed from zero in row order). The pi
@@ -1253,17 +1248,17 @@ __global__ void __launch_bounds__(kPiThreads, pi_min_blocks(KPL))
 // device memory: the kernel is bound by the latency of dependent loads
 // (offsets -> order -> pi), and this pays device-memory latency about
 // once per 32 rows. Eight ids a warp (about seven live rows at the Arxiv
-// shape, half the ids owning none) keep many short streams in flight; each
-// id's rows are summed in row order whatever IDS is, so the knob moves no
-// bit; a
-// row at a time and 64 registers (4 blocks an SM) keep the body free of
-// spills. A segment of more than kLongSegment rows (a frequent word in
-// many documents: up to B rows of a padded batch) is left out of the
-// stream and summed by the whole block afterwards: cut into kScatterWarps
-// contiguous parts of ceil(n / 8) rows, one a warp, the parts added in
-// warp order in shared memory. The cut depends on the length alone, so
-// every launch gives the same bits, with no fp32 atomics: resume
-// bit-equality and the memo invariant need a fixed summation order.
+// shape, half the ids owning none) keep many short streams in flight; a
+// row at a time keeps the body within 64 registers (4 blocks an SM), where
+// the KPL = 4 instance spills 4 bytes (stores and loads) and no other
+// spills (chip_smoke.py's build phase gates both). A segment of more than
+// kLongSegment rows (a frequent word in many documents: up to B rows of a
+// padded batch) is left out of the stream and summed by the whole block
+// afterwards: cut into kScatterWarps contiguous parts of ceil(n / 8)
+// rows, one a warp, the parts added in warp order in shared memory. The
+// cut depends on the length alone, so every launch gives the same bits,
+// with no fp32 atomics: resume bit-equality and the memo invariant need a
+// fixed summation order.
 //
 // Bound: bytes: the live pi rows it reads (K floats each, coalesced) and
 // the 2 * V * K floats it writes once (0.0624 ms on the Arxiv-shaped
@@ -1273,7 +1268,7 @@ __global__ void __launch_bounds__(kPiThreads, pi_min_blocks(KPL))
 // ---------------------------------------------------------------------------
 constexpr int kScatterThreads = 256;
 constexpr int kScatterWarps = kScatterThreads / kWarp;
-constexpr int kScatterIds = 8;   // consecutive ids a warp owns, by default
+constexpr int kScatterIds = 8;   // consecutive ids a warp owns
 constexpr int64_t kLongSegment = 32;
 
 template <int KPL>
@@ -1335,19 +1330,8 @@ __device__ __forceinline__ void add_row(float c, const float (&en)[KPL],
 // K > 256: blockIdx.y picks a chunk of KP = 256 columns (the KPL = 8
 // instance; gridDim.y = 1 below), each summed in the same row order, so
 // every column has the bits a launch over it alone would give.
-// Blocks an SM each K3 instance is built for: 4 up to 128 topics, 2 above.
-// The KPL = 4 body sits at the 64-register edge of 4 blocks and spills 4
-// bytes there; the default instance keeps that budget (and its speed), and
-// the launch knob's other ids a warp take the 128 registers of 2 blocks at
-// KPL = 4, as above 128 topics, which fits them without a spill (ptxas
-// spilled 8 bytes of them at 3 blocks' 80).
-constexpr int scatter_min_blocks(int kpl, int ids) {
-  return kpl > 4 || (kpl == 4 && ids != kScatterIds) ? 2 : 4;
-}
-
-template <int KPL, int IDS>
-__global__ void __launch_bounds__(kScatterThreads,
-                                  scatter_min_blocks(KPL, IDS))
+template <int KPL>
+__global__ void __launch_bounds__(kScatterThreads, KPL <= 4 ? 4 : 2)
     segment_scatter_kernel(const int64_t* __restrict__ order,
                            const int64_t* __restrict__ seg_off, int V,
                            const float* __restrict__ cnts,
@@ -1355,7 +1339,6 @@ __global__ void __launch_bounds__(kScatterThreads,
                            const float* __restrict__ pi_old,
                            float* __restrict__ s_new,
                            float* __restrict__ s_old, int K_all) {
-  static_assert(IDS >= 1 && IDS <= kWarp, "a warp's long ids: one mask");
   constexpr int KP = KPL * kWarp;
   constexpr unsigned kAll = 0xffffffffu;
   // this block's columns [k0, k0 + K) of the K_all-wide rows
@@ -1372,10 +1355,10 @@ __global__ void __launch_bounds__(kScatterThreads,
   const int warp = threadIdx.x / kWarp;
   const bool has_old = pi_old != nullptr;
   const int64_t block_v =
-      static_cast<int64_t>(blockIdx.x) * kScatterWarps * IDS;
-  const int64_t v0 = block_v + warp * IDS;
+      static_cast<int64_t>(blockIdx.x) * kScatterWarps * kScatterIds;
+  const int64_t v0 = block_v + warp * kScatterIds;
   const int nvalid = static_cast<int>(max(
-      static_cast<int64_t>(0), min(static_cast<int64_t>(IDS), V - v0)));
+      static_cast<int64_t>(0), min(static_cast<int64_t>(kScatterIds), V - v0)));
   // lane t < nvalid: the rows [lo, hi) of id v0 + t
   int64_t lo = 0, hi = 0;
   if (lane < nvalid) {
@@ -1439,7 +1422,7 @@ __global__ void __launch_bounds__(kScatterThreads,
   __syncthreads();
   for (int w = 0; w < kScatterWarps; ++w) {
     for (unsigned m = long_ids[w]; m != 0; m &= m - 1) {   // block-uniform
-      const int64_t v = block_v + w * IDS + (__ffs(m) - 1);
+      const int64_t v = block_v + w * kScatterIds + (__ffs(m) - 1);
       const int64_t start = seg_off[v];
       const int64_t len = seg_off[v + 1] - start;
       const int64_t per = (len + kScatterWarps - 1) / kScatterWarps;
@@ -2630,54 +2613,29 @@ const void* fp_kernel(int K) {
 #undef LDA_FP_CASE
 }
 
-// The co-resident capacity of K1's cooperative grid (blocks) for B
-// documents and K topics in tiles of block_b within groups of `group` rows.
-cudaError_t fp_capacity(int B, int K, int block_b, int group,
-                        int* capacity) {
-  if (K < 1 || group < 1 || B % group != 0) return cudaErrorInvalidValue;
-  return resident_blocks(fp_kernel(K), kFpThreads,
-                         fp_smem_bytes(K, B, block_b, group), true, capacity);
-}
-
-// A warps-per-document count the kernel takes: a power of two, at most the
-// block's warps (a document's warps are one aligned group of the block's).
-bool fp_warps_ok(int W) {
-  return W >= 1 && W <= kFpWarps && (W & (W - 1)) == 0;
-}
-
-// The co-resident grid of K1 for B documents and K topics at W warps per
-// document: `want` blocks when it is above 0 (refused above the capacity,
-// never clamped), else one block for every kFpWarps / W documents, at most
-// the capacity. The grid moves no bit: documents loop over it, and the
-// stop test sums fixed 128-row chunks in every block alike. Returns
-// cudaSuccess and sets *blocks, or the error that forbids the launch.
-cudaError_t fp_grid(int B, int K, int block_b, int group, int W, int want,
+// The co-resident grid of K1 for B documents of L slots and K topics: W
+// warps per document, at most the capacity. Returns cudaSuccess and sets
+// *blocks, or the error that forbids a cooperative launch.
+cudaError_t fp_grid(int B, int L, int K, int block_b, int group,
                     int* blocks) {
-  if (!fp_warps_ok(W) || want < 0) return cudaErrorInvalidValue;
+  if (K < 1 || group < 1 || B % group != 0) return cudaErrorInvalidValue;
   int capacity = 0;
-  const cudaError_t err = fp_capacity(B, K, block_b, group, &capacity);
+  const cudaError_t err =
+      resident_blocks(fp_kernel(K), kFpThreads,
+                      fp_smem_bytes(K, B, block_b, group), true, &capacity);
   if (err != cudaSuccess) return err;
-  if (want > 0) {
-    if (want > capacity) return cudaErrorCooperativeLaunchTooLarge;
-    *blocks = want;
-    return cudaSuccess;
-  }
-  const int dpb = kFpWarps / W;
+  const int dpb = kFpWarps / fp_warps_per_doc(L);
   *blocks = std::max(1, std::min((B + dpb - 1) / dpb, capacity));
   return cudaSuccess;
 }
 
 // K1 (offsets == nullptr) or K4 (L = ceil(T / B), block_b = group = B),
-// on the kernel for a.K topics, at `warps` warps per document and a grid
-// of `blocks` (0: fp_warps_per_doc(L), and the grid fp_grid sizes). W
-// sets how a document's slots are split, and so gamma's bits; the grid
-// does not.
-cudaError_t dispatch_fixed_point(FpArgs a, int warps, int want,
-                                 cudaStream_t stream) {
-  a.W = warps > 0 ? warps : fp_warps_per_doc(a.L);
+// on the kernel for a.K topics.
+cudaError_t dispatch_fixed_point(FpArgs a, cudaStream_t stream) {
+  a.W = fp_warps_per_doc(a.L);
   int blocks = 0;
   const cudaError_t err =
-      fp_grid(a.B, a.K, a.block_b, a.group, a.W, want, &blocks);
+      fp_grid(a.B, a.L, a.K, a.block_b, a.group, &blocks);
   if (err != cudaSuccess) return err;
   void* args[] = {&a.ids,    &a.cnts,   &a.cnts32,     &a.offsets,
                   &a.order,  &a.eb,     &a.eb32,       &a.gamma0,
@@ -2871,49 +2829,6 @@ cudaError_t dispatch_token_pi(const int32_t* ids, const float* cnts,
 #undef LDA_PI_CASE
 }
 
-// K3's arguments, and its launch for KPL topics a lane at IDS ids a warp:
-// one block of kScatterWarps warps covers kScatterWarps * IDS ids.
-struct ScatterArgs {
-  const int64_t* order;
-  const int64_t* seg_off;
-  int V;
-  const float* cnts;
-  const float* pi_new;
-  const float* pi_old;
-  float* s_new;
-  float* s_old;
-  int K;
-};
-
-template <int KPL, int IDS>
-cudaError_t launch_scatter_ids(const ScatterArgs& a, cudaStream_t s) {
-  constexpr int per_block = kScatterWarps * IDS;
-  const dim3 grid((a.V + per_block - 1) / per_block,
-                  (a.K + KPL * kWarp - 1) / (KPL * kWarp));
-  segment_scatter_kernel<KPL, IDS><<<grid, kScatterThreads, 0, s>>>(
-      a.order, a.seg_off, a.V, a.cnts, a.pi_new, a.pi_old, a.s_new, a.s_old,
-      a.K);
-  return cudaGetLastError();
-}
-
-// K3 at KPL topics a lane and `ids` ids a warp: kScatterIds, 4, 16 or 32
-// (SCATTER_IDS in kernels/lda_estep.py), one instance each.
-template <int KPL>
-cudaError_t launch_scatter(const ScatterArgs& a, int ids, cudaStream_t s) {
-  switch (ids) {
-    case 4:
-      return launch_scatter_ids<KPL, 4>(a, s);
-    case kScatterIds:
-      return launch_scatter_ids<KPL, kScatterIds>(a, s);
-    case 16:
-      return launch_scatter_ids<KPL, 16>(a, s);
-    case 32:
-      return launch_scatter_ids<KPL, 32>(a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -2944,27 +2859,14 @@ int lda_max_smem_bytes() {
 
 // Blocks of K1's cooperative grid for B documents of L slots and K topics
 // in tiles of block_b within groups of `group` rows, or minus a CUDA error
-// code (lda_fixed_point sizes its own grid the same way when it is given
-// no grid; this reports it). K4's grid is the one for L = ceil(T / B) and
-// block_b = group = B.
+// code (lda_fixed_point sizes its own grid the same way; this reports
+// it). K4's grid is the one for L = ceil(T / B) and block_b = group = B.
 int lda_fixed_point_blocks(int B, int L, int K, int block_b, int group) {
   cudaGetLastError();
   if (B < 1 || L < 0 || block_b < 1) return -cudaErrorInvalidValue;
   int blocks = 0;
-  const cudaError_t err =
-      fp_grid(B, K, block_b, group, fp_warps_per_doc(L), 0, &blocks);
+  const cudaError_t err = fp_grid(B, L, K, block_b, group, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
-}
-
-// The co-resident capacity of that grid: the most blocks lda_fixed_point
-// and lda_fixed_point_csr take as their `blocks` knob (or minus a CUDA
-// error code).
-int lda_fixed_point_capacity(int B, int K, int block_b, int group) {
-  cudaGetLastError();
-  if (B < 1 || block_b < 1) return -cudaErrorInvalidValue;
-  int capacity = 0;
-  const cudaError_t err = fp_capacity(B, K, block_b, group, &capacity);
-  return err == cudaSuccess ? capacity : -static_cast<int>(err);
 }
 
 // Warps per document of K1 and K4 for rows of L slots (K4: L = ceil(T / B)).
@@ -2977,15 +2879,13 @@ int lda_fixed_point_warps(int L) { return fp_warps_per_doc(L); }
 // and eb, rounded through bf16 with quantize). delta: 2 * B floats of
 // scratch (the per-document |d gamma| slots). group: the rows of one
 // stop-test group, dividing B (B for one batch); iters holds
-// B / group * ceil(group / block_b) counts, group by group. warps, blocks:
-// the launch knobs (0: the kernel's choice; see dispatch_fixed_point).
+// B / group * ceil(group / block_b) counts, group by group.
 int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
                     const float* sweep_cnts, const float* sweep_eb,
                     const float* gamma0, float* gamma, float* et,
                     float* delta, int32_t* iters, float* pi, int B, int L,
                     int K, float alpha0, float tol, int max_sweeps,
-                    int block_b, int group, int quantize, int warps,
-                    int blocks, void* stream) {
+                    int block_b, int group, int quantize, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   FpArgs a{};
   a.ids = ids;
@@ -3009,8 +2909,7 @@ int lda_fixed_point(const int32_t* ids, const float* cnts, const float* eb,
   a.block_b = block_b;
   a.group = group;
   a.quantize = quantize;
-  return dispatch_fixed_point(a, warps, blocks,
-                              static_cast<cudaStream_t>(stream));
+  return dispatch_fixed_point(a, static_cast<cudaStream_t>(stream));
 }
 
 // K2 over `slots` = B * L padded slots (rows of L; any K).
@@ -3028,15 +2927,14 @@ int lda_token_pi(const int32_t* ids, const float* cnts, const float* eb,
 // 1; the whole batch is one stopping tile, iters one count. eb / sweep_eb
 // as lda_fixed_point (the counts stay fp32 on this layout, as in repro).
 // pi: nullptr, or the flat (T, K) output of the finish, in stream order.
-// delta: 2 * B floats of scratch. warps, blocks: as lda_fixed_point.
+// delta: 2 * B floats of scratch.
 int lda_fixed_point_csr(const int32_t* ids, const float* cnts,
                         const int64_t* offsets, const int64_t* order,
                         const float* eb, const float* sweep_eb,
                         const float* gamma0, float* gamma, float* et,
                         float* delta, int32_t* iters, float* pi, int B,
                         int64_t T, int K, float alpha0, float tol,
-                        int max_sweeps, int quantize, int warps, int blocks,
-                        void* stream) {
+                        int max_sweeps, int quantize, void* stream) {
   cudaGetLastError();
   if (B < 1 || T < 0 || T >= (int64_t{1} << 31) || offsets == nullptr ||
       order == nullptr) {
@@ -3066,8 +2964,7 @@ int lda_fixed_point_csr(const int32_t* ids, const float* cnts,
   a.block_b = B;
   a.group = B;
   a.quantize = quantize;
-  return dispatch_fixed_point(a, warps, blocks,
-                              static_cast<cudaStream_t>(stream));
+  return dispatch_fixed_point(a, static_cast<cudaStream_t>(stream));
 }
 
 // K5 over a flat stream of `slots` slots, each slot's document its
@@ -3084,23 +2981,24 @@ int lda_token_pi_csr(const int32_t* ids, const float* cnts,
 
 // K3 over all V ids: seg_off (V + 1) cuts `order`; writes every row of
 // s_new (and of s_old when pi_old is given). Any K: above 256 topics the
-// KPL = 8 instance runs over ceil(K / 256) column chunks (grid y). ids:
-// the consecutive ids a warp owns, 4, 8, 16 or 32 (0: kScatterIds).
+// KPL = 8 instance runs over ceil(K / 256) column chunks (grid y).
 int lda_segment_scatter(const int64_t* order, const int64_t* seg_off, int V,
                         const float* cnts, const float* pi_new,
                         const float* pi_old, float* s_new, float* s_old,
-                        int K, int ids, void* stream) {
+                        int K, void* stream) {
   cudaGetLastError();
-  if (ids == 0) ids = kScatterIds;
   if (V < 0 || K < 1) return cudaErrorInvalidValue;
   if (V == 0) return cudaSuccess;
+  constexpr int per_block = kScatterWarps * kScatterIds;
   const int kpl = std::min((K + kWarp - 1) / kWarp, kMaxKPerLane);
+  const dim3 grid((V + per_block - 1) / per_block,
+                  (K + kpl * kWarp - 1) / (kpl * kWarp));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ScatterArgs a{order, seg_off, V, cnts, pi_new, pi_old, s_new,
-                      s_old, K};
 #define LDA_SCATTER_CASE(N)                                                  \
   case N:                                                                    \
-    return launch_scatter<N>(a, ids, s);
+    segment_scatter_kernel<N><<<grid, kScatterThreads, 0, s>>>(              \
+        order, seg_off, V, cnts, pi_new, pi_old, s_new, s_old, K);           \
+    break;
   switch (kpl) {
     LDA_SCATTER_CASE(1)
     LDA_SCATTER_CASE(2)
@@ -3114,6 +3012,7 @@ int lda_segment_scatter(const int64_t* order, const int64_t* seg_off, int V,
       return cudaErrorInvalidValue;
   }
 #undef LDA_SCATTER_CASE
+  return cudaGetLastError();
 }
 
 // K6's V splits for B rows, V columns and K topics: the first dimension

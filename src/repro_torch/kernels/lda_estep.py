@@ -42,14 +42,6 @@ tensors it launches the kernel or raises. Each launch adds one to
 ``LAUNCHES[name]``, so a run can show which kernels its path went through;
 the count is taken under a lock, as a serving thread and a training thread
 may launch at once.
-
-Launch knobs (``KernelPolicy``'s ``fp_warps``, ``fp_blocks`` and
-``scatter_ids``, tuned by `repro_torch.tune`): K1/K4 take ``warps`` per
-document and a grid of ``blocks``, K3 ``ids`` a warp; None leaves each to
-the kernel, as it chose before the knobs existed. A knob the card cannot
-launch raises with both numbers, never clamped. The plain twins have no
-warps or grid and ignore them: on the CPU every launch policy gives the
-same bits.
 """
 from __future__ import annotations
 
@@ -115,67 +107,6 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-#: Warps of K1/K4's block (``kFpWarps`` in ``csrc/lda_estep.cu``): the most
-#: warps per document the fixed point takes.
-FP_BLOCK_WARPS = 8
-#: The ids a K3 warp may own (``kScatterIds`` and ``kScatterIdsChoices`` in
-#: ``csrc/lda_estep.cu``, one kernel instance each; each warp marks its long
-#: ids in one 32-bit mask).
-SCATTER_IDS = (4, 8, 16, 32)
-
-
-def fixed_point_warps(l: int) -> int:
-    """The warps per document K1/K4 choose for rows of ``l`` slots (K4:
-    ``ceil(T / B)``): a power of two, about 48 slots each, at most the
-    block's warps (``fp_warps_per_doc`` in ``csrc/lda_estep.cu``)."""
-    w = 1
-    while w < FP_BLOCK_WARPS and w * 48 < l:
-        w *= 2
-    return w
-
-
-def check_launch_knobs(warps: Optional[int] = None,
-                       blocks: Optional[int] = None,
-                       ids: Optional[int] = None) -> None:
-    """Raise for a launch knob no card takes: ``warps`` a power of two up to
-    the block's ``FP_BLOCK_WARPS``, ``blocks`` at least 1, ``ids`` one of
-    ``SCATTER_IDS`` (None: the kernel's choice). The grid's upper limit,
-    the co-resident capacity, is the card's and is checked at launch."""
-    if warps is not None and not (
-            1 <= warps <= FP_BLOCK_WARPS and warps & (warps - 1) == 0):
-        raise ValueError(f"fp_warps={warps}: the fixed point takes a power "
-                         f"of two up to its block's {FP_BLOCK_WARPS} warps")
-    if blocks is not None and blocks < 1:
-        raise ValueError(f"fp_blocks={blocks}: a grid needs at least 1 "
-                         "block")
-    if ids is not None and ids not in SCATTER_IDS:
-        raise ValueError(f"scatter_ids={ids}: K3 takes one of {SCATTER_IDS} "
-                         "ids a warp")
-
-
-def fixed_point_capacity(lib, b: int, k: int, block_b: int,
-                         group: int) -> int:
-    """The co-resident capacity (blocks) of K1/K4's cooperative grid for B
-    documents and K topics: the most ``blocks`` a launch takes."""
-    cap = lib.lda_fixed_point_capacity(b, k, block_b, group)
-    if cap < 0:
-        build.check(-cap, "lda_fixed_point_capacity")
-    return cap
-
-
-def _check_grid(lib, name: str, b: int, k: int, block_b: int, group: int,
-                blocks: Optional[int]) -> None:
-    """Raise when a requested grid exceeds the co-resident capacity (a
-    cooperative launch cannot run it; the grid is never clamped)."""
-    if blocks is None:
-        return
-    cap = fixed_point_capacity(lib, b, k, block_b, group)
-    if blocks > cap:
-        raise ValueError(f"{name}: fp_blocks={blocks} exceeds the card's "
-                         f"co-resident capacity of {cap} blocks (B={b}, "
-                         f"K={k})")
 
 
 def _check_fixed_point_smem(lib, name: str, b: int, k: int, block_b: int,
@@ -303,9 +234,7 @@ def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
                       eb: torch.Tensor, gamma0: torch.Tensor, alpha0: float,
                       tol: float, max_iters: int, *, block_b: int = 128,
                       stream_dtype: str = "float32",
-                      group: Optional[int] = None,
-                      warps: Optional[int] = None,
-                      blocks: Optional[int] = None):
+                      group: Optional[int] = None):
     """The whole γ fixed point of a padded BOW batch (K1).
 
     Shapes: token_ids int32 / counts float32 (B, L), eb = Eφ (V, K),
@@ -326,14 +255,9 @@ def estep_fixed_point(token_ids: torch.Tensor, counts: torch.Tensor,
     stacks its workers', and each stops tile by tile as if launched
     alone. The sweeps come back group by group, ``ceil(group / block_b)``
     each.
-
-    ``warps`` and ``blocks`` are the launch knobs (module docstring): the
-    warps that split a document's slots (this sets the order of γ's sums,
-    so another value may change its bits) and the grid (which does not).
     """
     return _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol,
-                        max_iters, block_b, stream_dtype, None, group,
-                        warps, blocks)[:3]
+                        max_iters, block_b, stream_dtype, None, group)[:3]
 
 
 def estep_fixed_point_pi(token_ids: torch.Tensor, counts: torch.Tensor,
@@ -341,9 +265,7 @@ def estep_fixed_point_pi(token_ids: torch.Tensor, counts: torch.Tensor,
                          alpha0: float, tol: float, max_iters: int, *,
                          block_b: int = 128, stream_dtype: str = "float32",
                          quantize: bool = False,
-                         group: Optional[int] = None,
-                         warps: Optional[int] = None,
-                         blocks: Optional[int] = None):
+                         group: Optional[int] = None):
     """K1 ending with K2's π: (γ, Eθ, sweeps, π (B, L, K)) in one launch.
 
     γ, Eθ and the sweeps are ``estep_fixed_point``'s, bit for bit; π is
@@ -352,12 +274,11 @@ def estep_fixed_point_pi(token_ids: torch.Tensor, counts: torch.Tensor,
     """
     return _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol,
                         max_iters, block_b, stream_dtype, bool(quantize),
-                        group, warps, blocks)
+                        group)
 
 
 def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
-                 block_b, stream_dtype, quantize, group, warps=None,
-                 blocks=None):
+                 block_b, stream_dtype, quantize, group):
     """K1, with the finish unless ``quantize`` is None. Returns (γ, Eθ,
     sweeps, π or None)."""
     b, l = token_ids.shape
@@ -367,7 +288,6 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
     _expect("eb", eb, torch.float32, (v, k))
     _expect("gamma0", gamma0, torch.float32, (b, k))
     check_stream_dtype(stream_dtype)
-    check_launch_knobs(warps, blocks)
     if block_b < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
     group = b if group is None else int(group)
@@ -388,7 +308,6 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
     if b == 0:
         return gamma, et, iters, pi
     _check_fixed_point_smem(lib, "estep_fixed_point", b, k, block_b, group)
-    _check_grid(lib, "estep_fixed_point", b, k, block_b, group, blocks)
     delta = torch.empty(2 * b, dtype=torch.float32, device=gamma0.device)
     # the sweeps' inputs as the stream rounds them (one cast each per call)
     sweep_counts = stream_round(counts, stream_dtype)
@@ -399,7 +318,7 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
         gamma.data_ptr(), et.data_ptr(), delta.data_ptr(), iters.data_ptr(),
         _ptr(pi), b, l, k, float(alpha0), float(tol),
         max(int(max_iters), 1), block_b, group, int(bool(quantize)),
-        warps or 0, blocks or 0, _stream(gamma0))
+        _stream(gamma0))
     build.check(rc, "lda_fixed_point")
     _count("fixed_point")
     return gamma, et, iters, pi
@@ -526,15 +445,13 @@ def segment_scatter_plain(token_ids: torch.Tensor, counts: torch.Tensor,
 
 def segment_scatter(token_ids: torch.Tensor, counts: torch.Tensor,
                     pi_new: torch.Tensor, pi_old: Optional[torch.Tensor],
-                    vocab_size: int, *, ids: Optional[int] = None):
+                    vocab_size: int):
     """S_new = Σ cnt·π_new and S_old = Σ cnt·π_old at the token ids (K3).
 
     Shapes: flat token rows, token_ids int32 / counts float32 (N,), π rows
     (N, K) → (S_new (V, K), S_old (V, K) or None). The sum over each id's
     rows runs in a fixed (stably sorted) order, so two calls on the same
     inputs give the same bits. On CUDA tensors it never syncs the host.
-    ``ids``: the launch knob, consecutive ids a warp (None: 8); each id's
-    rows are summed in the same order whatever it is.
     """
     (n,) = token_ids.shape
     k = pi_new.shape[1]
@@ -545,26 +462,23 @@ def segment_scatter(token_ids: torch.Tensor, counts: torch.Tensor,
     if pi_old is not None:
         _expect("pi_old", pi_old, torch.float32, (n, k))
         tensors.append(pi_old)
-    check_launch_knobs(ids=ids)
     if _on_cpu(*tensors):
         return segment_scatter_plain(token_ids, counts, pi_new, pi_old,
                                      vocab_size)
     return segment_scatter_prepared(
         scatter_segments(token_ids, counts, vocab_size), counts, pi_new,
-        pi_old, vocab_size, ids=ids)
+        pi_old, vocab_size)
 
 
 def segment_scatter_prepared(segments, counts: torch.Tensor,
                              pi_new: torch.Tensor,
-                             pi_old: Optional[torch.Tensor], vocab_size: int,
-                             *, ids: Optional[int] = None):
+                             pi_old: Optional[torch.Tensor], vocab_size: int):
     """K3 on CUDA tensors, given ``scatter_segments(token_ids, counts,
     vocab_size)``: the kernel launch alone, which writes every output row.
     ``segment_scatter`` checks the arguments and calls this."""
     if pi_new.device.type != "cuda":
         raise ValueError(f"segment_scatter_prepared: CUDA tensors only, got "
                          f"{pi_new.device}")
-    check_launch_knobs(ids=ids)
     order, seg_off = segments
     k = pi_new.shape[1]
     _expect("seg_off", seg_off, torch.int64, (vocab_size + 1,))
@@ -576,7 +490,7 @@ def segment_scatter_prepared(segments, counts: torch.Tensor,
         order.data_ptr(), seg_off.data_ptr(), vocab_size, counts.data_ptr(),
         pi_new.data_ptr(), None if pi_old is None else pi_old.data_ptr(),
         s_new.data_ptr(), None if s_old is None else s_old.data_ptr(), k,
-        ids or 0, _stream(pi_new))
+        _stream(pi_new))
     build.check(rc, "lda_segment_scatter")
     _count("segment_scatter")
     return s_new, s_old
@@ -723,9 +637,7 @@ def estep_fixed_point_csr_pi_plain(token_ids: torch.Tensor,
 def estep_fixed_point_csr(token_ids: torch.Tensor, counts: torch.Tensor,
                           segments: torch.Tensor, eb: torch.Tensor,
                           gamma0: torch.Tensor, alpha0: float, tol: float,
-                          max_iters: int, *, stream_dtype: str = "float32",
-                          warps: Optional[int] = None,
-                          blocks: Optional[int] = None):
+                          max_iters: int, *, stream_dtype: str = "float32"):
     """The whole γ fixed point of a flat CSR batch (K4).
 
     Shapes: token_ids int32 / counts float32 / segments int32 (T,), eb = Eφ
@@ -739,22 +651,17 @@ def estep_fixed_point_csr(token_ids: torch.Tensor, counts: torch.Tensor,
     card this is K1's cooperative launch over each document's range of the
     stream sorted by segment (``csr_doc_ranges``; the ids and counts
     gathered in that order once a call), with the whole batch as one
-    stopping tile and ``ceil(T / B)`` setting the warps per document
-    unless ``warps`` is given; ``warps`` and ``blocks`` are K1's launch
-    knobs.
+    stopping tile and ``ceil(T / B)`` setting the warps per document.
     """
     return _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0,
-                            tol, max_iters, stream_dtype, None, warps,
-                            blocks)[:3]
+                            tol, max_iters, stream_dtype, None)[:3]
 
 
 def estep_fixed_point_csr_pi(token_ids: torch.Tensor, counts: torch.Tensor,
                              segments: torch.Tensor, eb: torch.Tensor,
                              gamma0: torch.Tensor, alpha0: float, tol: float,
                              max_iters: int, *, stream_dtype: str = "float32",
-                             quantize: bool = False,
-                             warps: Optional[int] = None,
-                             blocks: Optional[int] = None):
+                             quantize: bool = False):
     """K4 ending with K5's π: (γ, Eθ, sweeps, π (T, K)) in one launch.
 
     γ, Eθ and the sweeps are ``estep_fixed_point_csr``'s, bit for bit; π is
@@ -763,13 +670,11 @@ def estep_fixed_point_csr_pi(token_ids: torch.Tensor, counts: torch.Tensor,
     segment lies outside [0, B).
     """
     return _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0,
-                            tol, max_iters, stream_dtype, bool(quantize),
-                            warps, blocks)
+                            tol, max_iters, stream_dtype, bool(quantize))
 
 
 def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
-                     max_iters, stream_dtype, quantize, warps=None,
-                     blocks=None):
+                     max_iters, stream_dtype, quantize):
     """K4, with the finish unless ``quantize`` is None. Returns (γ, Eθ,
     sweeps, π or None)."""
     (t,) = token_ids.shape
@@ -781,7 +686,6 @@ def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
     _expect("eb", eb, torch.float32, (v, k))
     _expect("gamma0", gamma0, torch.float32, (b, k))
     check_stream_dtype(stream_dtype)
-    check_launch_knobs(warps, blocks)
     with_pi = quantize is not None
     if _on_cpu(token_ids, counts, segments, eb, gamma0):
         args = (token_ids, counts, segments, eb, gamma0, alpha0, tol,
@@ -805,7 +709,6 @@ def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
         raise ValueError(f"estep_fixed_point_csr: {t} slots exceed the "
                          "kernel's 2^31")
     _check_fixed_point_smem(lib, "estep_fixed_point_csr", b, k, b, b)
-    _check_grid(lib, "estep_fixed_point_csr", b, k, b, b, blocks)
     order, offsets = csr_doc_ranges(counts, segments, b)
     # the sweeps read each document's tokens as one contiguous run
     ids_sorted, cnts_sorted = token_ids[order], counts[order]
@@ -816,8 +719,7 @@ def _fixed_point_csr(token_ids, counts, segments, eb, gamma0, alpha0, tol,
         order.data_ptr(), eb.data_ptr(), sweep_eb.data_ptr(),
         gamma0.data_ptr(), gamma.data_ptr(), et.data_ptr(), delta.data_ptr(),
         iters.data_ptr(), _ptr(pi), b, t, k, float(alpha0), float(tol),
-        max(int(max_iters), 1), int(bool(quantize)), warps or 0, blocks or 0,
-        _stream(gamma0))
+        max(int(max_iters), 1), int(bool(quantize)), _stream(gamma0))
     build.check(rc, "lda_fixed_point_csr")
     _count("fixed_point_csr")
     return gamma, et, iters, pi

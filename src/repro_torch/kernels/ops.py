@@ -57,20 +57,6 @@ def resolve_policy(cfg: LDAConfig) -> KernelPolicy:
     return cfg.kernel_policy or DEFAULT_KERNEL_POLICY
 
 
-def _launch(cfg: LDAConfig) -> dict:
-    """K1/K4's launch knobs from the policy."""
-    pol = resolve_policy(cfg)
-    return dict(warps=pol.fp_warps, blocks=pol.fp_blocks)
-
-
-def _scatter(cfg: LDAConfig, token_ids, counts, pi_new, pi_old,
-             vocab_size: int):
-    """K3 with the policy's ids a warp."""
-    return lda_estep.segment_scatter(token_ids, counts, pi_new, pi_old,
-                                     vocab_size,
-                                     ids=resolve_policy(cfg).scatter_ids)
-
-
 def _check_pi_dtype(pi_dtype: str) -> None:
     if pi_dtype not in ("float32", "bfloat16"):
         # the in-kernel quantize only implements the bf16 wire; refuse
@@ -102,8 +88,7 @@ def _run_fixed_point(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
         token_ids, counts, exp_elog_beta, gamma0, cfg.alpha0,
         cfg.estep_tol, cfg.estep_max_iters,
         block_b=resolve_policy(cfg).block_b,
-        stream_dtype=cfg.estep_stream_dtype, quantize=quantize, group=group,
-        **_launch(cfg))
+        stream_dtype=cfg.estep_stream_dtype, quantize=quantize, group=group)
     return gamma, iters.max(), pi
 
 
@@ -114,9 +99,9 @@ def estep_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     scatter."""
     gamma, iters, pi = _run_fixed_point(cfg, exp_elog_beta, token_ids,
                                         counts, gamma0, False)
-    snew, _ = _scatter(cfg, token_ids.reshape(-1), counts.reshape(-1),
-                       pi.reshape(-1, pi.shape[-1]), None,
-                       exp_elog_beta.shape[0])
+    snew, _ = lda_estep.segment_scatter(
+        token_ids.reshape(-1), counts.reshape(-1),
+        pi.reshape(-1, pi.shape[-1]), None, exp_elog_beta.shape[0])
     return EStepResult(gamma=gamma, pi=pi, sstats=snew, iters=iters)
 
 
@@ -131,7 +116,7 @@ def estep_gamma_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     return lda_estep.estep_fixed_point(
         token_ids, counts, exp_elog_beta, gamma0, cfg.alpha0, cfg.estep_tol,
         cfg.estep_max_iters, block_b=resolve_policy(cfg).block_b,
-        stream_dtype=cfg.estep_stream_dtype, **_launch(cfg))[0]
+        stream_dtype=cfg.estep_stream_dtype)[0]
 
 
 def memo_correction_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
@@ -155,9 +140,9 @@ def memo_correction_cuda(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
                                         counts, gamma0,
                                         pi_dtype == "bfloat16", group)
     k = pi.shape[-1]
-    snew, sold = _scatter(cfg, token_ids.reshape(-1), counts.reshape(-1),
-                          pi.reshape(-1, k), old_pi.reshape(-1, k),
-                          exp_elog_beta.shape[0])
+    snew, sold = lda_estep.segment_scatter(
+        token_ids.reshape(-1), counts.reshape(-1), pi.reshape(-1, k),
+        old_pi.reshape(-1, k), exp_elog_beta.shape[0])
     correction = snew - sold
     words_first = torch.where(~visited, counts.sum(-1), 0.0).sum()
     res = EStepResult(gamma=gamma, pi=pi, sstats=snew, iters=iters)
@@ -178,8 +163,7 @@ def _run_fixed_point_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     gamma, _, iters, pi = lda_estep.estep_fixed_point_csr_pi(
         token_ids, counts, segments, exp_elog_beta, gamma0, cfg.alpha0,
         cfg.estep_tol, cfg.estep_max_iters,
-        stream_dtype=cfg.estep_stream_dtype, quantize=quantize,
-        **_launch(cfg))
+        stream_dtype=cfg.estep_stream_dtype, quantize=quantize)
     return gamma, iters[0], pi
 
 
@@ -194,8 +178,8 @@ def estep_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     gamma, iters, pi = _run_fixed_point_csr(cfg, exp_elog_beta, token_ids,
                                             counts, segments, num_docs,
                                             gamma0, False)
-    snew, _ = _scatter(cfg, token_ids, counts, pi, None,
-                       exp_elog_beta.shape[0])
+    snew, _ = lda_estep.segment_scatter(token_ids, counts, pi, None,
+                                        exp_elog_beta.shape[0])
     return EStepResult(gamma=gamma, pi=pi, sstats=snew, iters=iters)
 
 
@@ -210,7 +194,7 @@ def estep_gamma_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     return lda_estep.estep_fixed_point_csr(
         token_ids, counts, segments, exp_elog_beta, gamma0, cfg.alpha0,
         cfg.estep_tol, cfg.estep_max_iters,
-        stream_dtype=cfg.estep_stream_dtype, **_launch(cfg))[0]
+        stream_dtype=cfg.estep_stream_dtype)[0]
 
 
 def memo_correction_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
@@ -231,8 +215,8 @@ def memo_correction_cuda_csr(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
     gamma, iters, pi = _run_fixed_point_csr(cfg, exp_elog_beta, token_ids,
                                             counts, segments, num_docs,
                                             gamma0, pi_dtype == "bfloat16")
-    snew, sold = _scatter(cfg, token_ids, counts, pi, old_pi,
-                          exp_elog_beta.shape[0])
+    snew, sold = lda_estep.segment_scatter(token_ids, counts, pi, old_pi,
+                                           exp_elog_beta.shape[0])
     correction = snew - sold
     doc_words = segment_sum_docs(counts, segments, num_docs)
     words_first = torch.where(~visited, doc_words, 0.0).sum()

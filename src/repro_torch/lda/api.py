@@ -72,11 +72,11 @@ class LDA:
         ``Telemetry``), threaded through the trainer, the engine, the
         packer and the inferencers this estimator makes.
       tune_store: a `repro_torch.tune` policy store (path or
-        ``PolicyStore``): the policy for the bound training shape is
-        looked up once when a corpus is bound (``cuda`` backend) and
-        written onto ``cfg``, so checkpoints carry it; the inferencers this
-        estimator makes resolve their own shapes from it. An explicit
-        ``cfg.kernel_policy`` always wins.
+        ``PolicyStore``): the trainer looks up the policy for its shape
+        once when a corpus is bound (``cuda`` backend), and the facade
+        copies what it found onto ``cfg``, so checkpoints carry it; the
+        inferencers this estimator makes resolve their own shapes from it.
+        An explicit ``cfg.kernel_policy`` always wins.
       device: where training and serving run; the card unless named.
     """
 
@@ -202,7 +202,6 @@ class LDA:
             return self.trainer
         if corpus is None:
             raise ValueError("first fit/partial_fit call must pass a corpus")
-        self._resolve_tuned_policy(corpus)
         self.trainer = make_trainer(
             self.cfg, corpus, algo=self.algo, distributed=self.distributed,
             batch_size=self.batch_size, seed=self.seed,
@@ -211,40 +210,15 @@ class LDA:
             bucket_by_length=self.bucket_by_length, layout=self.layout,
             token_budget=self.token_budget, telemetry=self.telemetry,
             device=self.device, tune_store=self.tune_store)
+        pol = self.trainer.cfg.kernel_policy
+        if pol != self.cfg.kernel_policy:
+            # the trainer's store lookup found a policy for the bound
+            # shape: it rides on ``self.cfg``, which checkpoints write
+            self._cfg_pre_tune = self.cfg
+            self.cfg = dataclasses.replace(self.cfg, kernel_policy=pol)
         self._corpus = corpus
         self._corpus_raw = raw
         return self.trainer
-
-    def _resolve_tuned_policy(self, corpus) -> None:
-        """Look up a tuned ``KernelPolicy`` for the bound training shape.
-
-        Resolved here, not only in the engine, so the winner lands on
-        ``self.cfg``, which checkpoints write: a resumed run replays the
-        tuned launches even without the store. A miss, no store, or an
-        explicit ``cfg.kernel_policy`` changes nothing.
-        """
-        cfg = self.cfg
-        if (self.tune_store is None or cfg.kernel_policy is not None
-                or cfg.estep_backend != "cuda"):
-            return
-        from repro_torch.tune.resolve import PolicyResolver
-        if self.layout == "csr":
-            # the engine's token-budget default, so the key is the shape
-            # the engine runs
-            b_or_t = (self.token_budget if self.token_budget is not None
-                      else min(self.batch_size * 64, 8192))
-            w = None
-        else:
-            b_or_t = (self.distributed.batch_size
-                      if self.distributed is not None else self.batch_size)
-            w = getattr(corpus, "max_unique", None)
-        pol = PolicyResolver(self.tune_store, telemetry=self.telemetry,
-                             device=self.device).resolve(
-            backend="cuda", layout=self.layout, b_or_t=b_or_t,
-            v=cfg.vocab_size, k=cfg.num_topics, w=w)
-        if pol is not None:
-            self._cfg_pre_tune = cfg
-            self.cfg = dataclasses.replace(cfg, kernel_policy=pol)
 
     def fit(self, corpus=None, *, epochs: int = 1,
             rounds: Optional[int] = None,

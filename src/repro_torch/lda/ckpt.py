@@ -26,13 +26,7 @@ read back as ``cuda``), and a kernel policy is written with all nine of
 ``repro``'s ``KernelPolicy`` fields: the port's ``block_b``,
 ``wire_dtype`` and ``double_buffer_depth`` (the same meaning in both
 packages) and ``repro``'s defaults for its six TPU tile sizes. On load
-those three apply and the TPU tiles are dropped. The port's Hopper launch
-knobs (``fp_warps``, ``fp_blocks``, ``scatter_ids``) are not written:
-``repro``'s ``KernelPolicy(**fields)`` refuses fields it does not know,
-and a port checkpoint must resume in ``repro``. Nothing is lost by it:
-the tuner stores a launch knob only where the card gave the default
-launch's bits with it, so a run resumed with the kernels' own launches is
-bit-equal to one resumed with the tuned ones.
+those three apply and the TPU tiles are dropped.
 
 ``load_lda_checkpoint`` also takes the legacy flat ``.npz`` of a bare
 ``GlobalState`` (``repro``'s old ``train.py`` wrote them): it carries no

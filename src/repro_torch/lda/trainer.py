@@ -133,6 +133,7 @@ class SingleHostTrainer(Trainer):
                              bucket_by_length=bucket_by_length,
                              layout=layout, token_budget=token_budget,
                              telemetry=telemetry, tune_store=tune_store)
+        self.cfg = self.eng.cfg     # with the store's policy, if it had one
         self.algo = algo
         self._streamed = self.eng.stream is not None
         self._pending: List[Tuple[np.ndarray, Optional[int]]] = []
@@ -337,7 +338,21 @@ class DIVITrainer(Trainer):
 
     def __init__(self, cfg: LDAConfig, dcfg: DIVIConfig, data, *,
                  seed: int = 0, test_corpus: Optional[Corpus] = None,
-                 mesh=None, data_axes=None, telemetry=None, device=None):
+                 mesh=None, data_axes=None, telemetry=None, device=None,
+                 tune_store=None):
+        if tune_store is not None and cfg.kernel_policy is None \
+                and cfg.estep_backend == "cuda":
+            # the workers all run the same per-worker batch shape: one
+            # lookup covers them (the width is the stream's max_unique,
+            # the padded packer's width)
+            from repro_torch.tune.resolve import PolicyResolver
+            pol = PolicyResolver(tune_store, telemetry=telemetry,
+                                 device=device).resolve(
+                backend="cuda", layout="padded", b_or_t=dcfg.batch_size,
+                v=cfg.vocab_size, k=cfg.num_topics,
+                w=getattr(data, "max_unique", None))
+            if pol is not None:
+                cfg = dataclasses.replace(cfg, kernel_policy=pol)
         self.cfg, self.dcfg = cfg, dcfg
         self.algo = "sivi"          # D-IVI is the eq. 5 protocol distributed
         self.eng = DIVIEngine(cfg, dcfg, data, seed=seed, mesh=mesh,
@@ -485,23 +500,10 @@ def make_trainer(cfg: LDAConfig, corpus, *, algo: str,
         if layout != "padded":
             raise ValueError("distributed training packs padded worker "
                              "batches; layout='csr' is single-host only")
-        if tune_store is not None and cfg.kernel_policy is None \
-                and cfg.estep_backend == "cuda":
-            # the workers all run the same per-worker batch shape: one
-            # lookup covers them (the width is the stream's max_unique,
-            # the padded packer's width)
-            from repro_torch.tune.resolve import PolicyResolver
-            pol = PolicyResolver(tune_store, telemetry=telemetry,
-                                 device=device).resolve(
-                backend="cuda", layout="padded",
-                b_or_t=distributed.batch_size, v=cfg.vocab_size,
-                k=cfg.num_topics, w=getattr(corpus, "max_unique", None))
-            if pol is not None:
-                cfg = dataclasses.replace(cfg, kernel_policy=pol)
         return DIVITrainer(cfg, distributed, corpus, seed=seed,
                            test_corpus=test_corpus, mesh=mesh,
                            data_axes=data_axes, telemetry=telemetry,
-                           device=device)
+                           device=device, tune_store=tune_store)
     return SingleHostTrainer(cfg, corpus, algo=algo, batch_size=batch_size,
                              seed=seed, test_corpus=test_corpus,
                              memo_store=memo_store, chunk_docs=chunk_docs,

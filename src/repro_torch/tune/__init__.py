@@ -4,11 +4,11 @@ The port's counterpart of ``repro.tune``. The policy space
 (``KernelPolicy``, in `repro_torch.core.types`, so a tuned policy rides
 on ``LDAConfig``):
 
-* K1/K4's launch: ``fp_warps`` (warps per document), ``fp_blocks`` (the
-  cooperative grid);
-* K3's launch: ``scatter_ids`` (consecutive ids a warp);
-* the padded fixed point's stopping tile ``block_b``;
-* ``repro``'s memo ``wire_dtype`` and the serving ``double_buffer_depth``.
+* the padded fixed point's stopping tile ``block_b`` (the one knob the
+  search moves);
+* the serving ``double_buffer_depth`` and ``repro``'s memo
+  ``wire_dtype``, which a stored policy carries (the port's memo store,
+  not the policy, sets its wire).
 
 Winners live in ``repro``'s versioned on-disk store format
 (``PolicyStore``), keyed on ``(backend, layout, B_or_T, V, K, W,

@@ -37,7 +37,6 @@ def _cmd_tune(args) -> int:
     store = PolicyStore(args.store)
     res = tune_and_store(store, shape, budget=args.budget, seed=args.seed,
                          iters=args.iters,
-                         allow_bf16_wire=args.allow_bf16_wire,
                          device=args.device, verbose=args.verbose)
     kind = "measured" if not res.proxy_regime else "modeled (proxy_regime)"
     print(f"tuned {shape.task} B_or_T={shape.b_or_t} V={shape.v} "
@@ -109,9 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fixed-point sweeps of the gate's and the timed "
                         "runs (and of the model)")
     t.add_argument("--seed", type=int, default=0)
-    t.add_argument("--allow-bf16-wire", action="store_true",
-                   help="let the search flip the memo wire to bf16 "
-                        "(tolerance-gated)")
     t.add_argument("--device", default="cuda",
                    help="the device tuned for: 'cuda' times the kernels "
                         "(and raises without a card), 'cpu' prices the "

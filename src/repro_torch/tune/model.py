@@ -15,12 +15,11 @@ is not a card (every record then carries ``proxy_regime: true``): the
 bounds of one IVI update's two launches at a tune shape, the fixed point
 with its π finish and K3, with every slot live and every tile at
 ``iters`` sweeps. ``repro``'s model priced the Pallas kernels' VMEM tiles,
-which have no counterpart here. The launch knobs (warps per document, the
-grid, ids a warp) leave the work as it is, and so the model; the memo
-wire is rounded through bf16 but written in fp32, so it moves no byte
-either. Only ``block_b`` enters, through the sweep count written per
-tile. A modeled search over launch knobs therefore returns the default
-with ``improvement == 1.0``: the card, not the model, decides them.
+which have no counterpart here. Only ``block_b`` enters, through the
+sweep count written per tile; the kernels' launches are their own and do
+not. A modeled search therefore returns the default with
+``improvement == 1.0`` or a tile whose few bytes fewer the gate then
+judges: the card, not the model, decides.
 """
 from __future__ import annotations
 

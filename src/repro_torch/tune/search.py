@@ -7,11 +7,13 @@ the default costs nothing goes back), then the equality gate on the
 cheapest candidates. If nothing both passes the gate and beats the
 default, the default wins: a tuned store never regresses.
 
-**The lattice** is the Hopper launch knobs (K1/K4's warps per document
-``fp_warps`` and cooperative grid ``fp_blocks``, K3's ``scatter_ids``),
-plus ``block_b`` (the padded fixed point's stopping tile) and, when
-allowed, the memo ``wire_dtype``. The grid is searched on the card only,
-in whole waves of its SMs: the plain twins have no grid.
+**The lattice** is ``block_b``, the padded fixed point's stopping tile;
+the CSR fixed point stops the batch as one tile, so its lattice is empty
+and its tune times the default alone. The kernels' launches are not in
+it: warps per document, the cooperative grid and K3's ids a warp were
+tried on the card and none both kept the bits and beat the default
+outside its spread (ROADMAP, item 8). Nor is ``repro``'s memo
+``wire_dtype``: the port's memo store sets the wire, not the policy.
 
 **The objective** is measurement on the card: when the tune's device is
 CUDA every candidate runs the real ``memo_correction_cuda(_csr)`` at the
@@ -24,13 +26,11 @@ CUDA raises: nothing falls back to the model in its place.
 
 **Eligibility is gated on correctness**: before a candidate may win, its
 correction, γ and π are compared with the default policy's on probe
-inputs: bit for bit, or within ``BF16_WIRE_ATOL`` when it flips the wire
-to bf16. Warps per document regroup each document's sums (warp p takes
-slots p, p + W, ...), so another W may change γ's bits and fail; the
-grid and the ids a warp leave every sum's order alone. The gate, run on
-the tune's device, decides. The probe keeps the target's batch, width and
-K, so its kernel instance (the KPL instance, or the wide kernel above 256
-topics), its warps per document and its stopping tiles are the target's;
+inputs, bit for bit, whatever the candidate: a stored policy changes
+speed and never the result. The gate runs on the tune's device. The
+probe keeps the target's batch, width and K, so its kernel instance (the
+KPL instance, or the wide kernel above 256 topics), its warps per
+document and its stopping tiles are the target's;
 only V is cut (no kernel's structure depends on it). Its documents start
 warm (from a converged memo) and cold in blocks that no two stopping
 tiles of the lattice cut alike (``warm_rows``), so a ``block_b`` that
@@ -48,24 +48,13 @@ import torch
 
 from repro_torch.core.types import (DEFAULT_KERNEL_POLICY, KernelPolicy,
                                     LDAConfig)
-from repro_torch.kernels import lda_estep
 
 from . import model as tune_model
 from .store import PolicyKey, PolicyStore, current_device_kind
 
-# knob -> ordered lattice values (None: the kernel's own choice, placed
-# where that choice sits); refinement moves ±1 step here
-PADDED_LATTICE: Dict[str, Sequence] = {
-    "block_b": (64, 128, 256),
-    "fp_warps": (None, 1, 2, 4, 8),
-    "scatter_ids": (4, None, 16, 32),
-}
-CSR_LATTICE: Dict[str, Sequence] = {
-    "fp_warps": (None, 1, 2, 4, 8),
-    "scatter_ids": (4, None, 16, 32),
-}
-# the grid, in waves of the card's SMs (on the card only)
-GRID_WAVES = (1, 2, 3, 4)
+# knob -> ordered lattice values; refinement moves ±1 step here
+PADDED_LATTICE: Dict[str, Sequence] = {"block_b": (64, 128, 256)}
+CSR_LATTICE: Dict[str, Sequence] = {}
 # V of the gate's probe at most (no kernel's structure depends on V)
 PROBE_MAX_V = 8192
 
@@ -129,51 +118,20 @@ def _launch_rows(shape: TuneShape, policy: KernelPolicy):
 
 def launch_ok(shape: TuneShape, policy: KernelPolicy, device) -> bool:
     """Whether the card can launch ``policy`` at ``shape`` (the port's
-    ``vmem_ok``): knobs any card takes, and on CUDA the block's shared
-    memory within the card's and the grid within the co-resident
-    capacity, both asked of the built library. On another device no
-    kernel launches, so the static rules alone apply."""
-    try:
-        lda_estep.check_launch_knobs(policy.fp_warps, policy.fp_blocks,
-                                     policy.scatter_ids)
-    except ValueError:
-        return False
+    ``vmem_ok``): on CUDA the fixed point's block within the card's shared
+    memory, asked of the built library. On another device no kernel
+    launches, so every lattice point is launchable."""
     if not measurement_available(device):
         return True
     from repro_torch.kernels import build
     lib = build.load()
     b, block_b, group = _launch_rows(shape, policy)
-    if lib.lda_fixed_point_smem_bytes(b, shape.k, block_b, group) \
-            > lib.lda_max_smem_bytes():
-        return False
-    if policy.fp_blocks is not None and policy.fp_blocks > \
-            lda_estep.fixed_point_capacity(lib, b, shape.k, block_b, group):
-        return False
-    return True
+    return lib.lda_fixed_point_smem_bytes(b, shape.k, block_b, group) \
+        <= lib.lda_max_smem_bytes()
 
 
-def _lattice(shape: TuneShape, device, allow_wire: bool
-             ) -> Dict[str, Sequence]:
-    lattice = dict(PADDED_LATTICE if shape.task == "padded"
-                   else CSR_LATTICE)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        lattice["fp_blocks"] = (None,) + tuple(n * sms for n in GRID_WAVES)
-    if allow_wire:
-        lattice["wire_dtype"] = (None, "bfloat16")
-    return lattice
-
-
-def _canonical(shape: TuneShape, policy: KernelPolicy) -> KernelPolicy:
-    """An explicit knob equal to the kernel's own choice at this shape is
-    the default: None."""
-    fields = {}
-    if policy.fp_warps == lda_estep.fixed_point_warps(shape.slots_per_doc):
-        fields["fp_warps"] = None
-    if policy.scatter_ids == 8:
-        fields["scatter_ids"] = None
-    return dataclasses.replace(policy, **fields) if fields else policy
+def _lattice(shape: TuneShape) -> Dict[str, Sequence]:
+    return PADDED_LATTICE if shape.task == "padded" else CSR_LATTICE
 
 
 def _sample_candidates(shape: TuneShape, budget: int, seed: int,
@@ -187,8 +145,7 @@ def _sample_candidates(shape: TuneShape, budget: int, seed: int,
     while len(out) < budget + 1 and attempts < budget * 20:
         attempts += 1
         fields = {knob: rng.choice(vals) for knob, vals in lattice.items()}
-        cand = _canonical(shape, dataclasses.replace(DEFAULT_KERNEL_POLICY,
-                                                     **fields))
+        cand = dataclasses.replace(DEFAULT_KERNEL_POLICY, **fields)
         if cand in seen or not launch_ok(shape, cand, device):
             continue
         seen.add(cand)
@@ -206,9 +163,8 @@ def _deviations(policy: KernelPolicy) -> int:
 def _simplify(shape: TuneShape, policy: KernelPolicy, cost_fn, scored,
               device) -> KernelPolicy:
     """Revert every knob whose reversion to the default is free: random
-    sampling draws all knobs at once, so an incumbent usually carries
-    changed knobs that add nothing to its cost, gate-hostile ones among
-    them (another warps per document)."""
+    sampling draws all knobs at once, so an incumbent may carry changed
+    knobs that add nothing to its cost."""
     cur = policy
     for f in dataclasses.fields(KernelPolicy):
         dv = getattr(DEFAULT_KERNEL_POLICY, f.name)
@@ -224,7 +180,7 @@ def _simplify(shape: TuneShape, policy: KernelPolicy, cost_fn, scored,
     return cur
 
 
-def _neighbors(shape: TuneShape, policy: KernelPolicy,
+def _neighbors(policy: KernelPolicy,
                lattice: Dict[str, Sequence]) -> List[KernelPolicy]:
     """±1 lattice step per knob around ``policy``."""
     out = []
@@ -234,8 +190,8 @@ def _neighbors(shape: TuneShape, policy: KernelPolicy,
         idx = vals.index(cur) if cur in vals else 0
         for j in (idx - 1, idx + 1):
             if 0 <= j < len(vals):
-                out.append(_canonical(shape, dataclasses.replace(
-                    policy, **{knob: vals[j]})))
+                out.append(dataclasses.replace(policy,
+                                               **{knob: vals[j]}))
     return out
 
 
@@ -271,9 +227,8 @@ def _measured_cost(run, policy: KernelPolicy, *, reps: int = 5) -> float:
 
 def probe_shape(shape: TuneShape) -> dict:
     """The gate's shape: the target's batch, width (or token budget and
-    documents) and K, so the kernel instance, the warps per document
-    ``fixed_point_warps`` picks and the stopping tiles are the target's;
-    V cut to ``PROBE_MAX_V``."""
+    documents) and K, so the kernel instance, its warps per document and
+    the stopping tiles are the target's; V cut to ``PROBE_MAX_V``."""
     v = min(shape.v, PROBE_MAX_V)
     if shape.task == "padded":
         return {"b": shape.b_or_t, "v": v, "k": shape.k,
@@ -389,27 +344,21 @@ def _gate_runner(shape: TuneShape, cfg: LDAConfig, inputs):
     return run
 
 
-# documented bf16-wire tolerance (``repro``'s): flipping the memo wire
-# re-rounds π through bfloat16, a ~2^-8 relative step on each element
-BF16_WIRE_ATOL = 2e-2
-
-
 def equality_check(run, default_out, policy: KernelPolicy
                    ) -> Tuple[bool, str, float]:
-    """Gate one candidate against the default policy's outputs.
+    """Gate one candidate against the default policy's outputs, bit for
+    bit in every case: a policy that sets a bf16 ``wire_dtype`` runs with
+    π rounded through bf16 and fails like any other change of result
+    (``repro``'s tolerance for a flipped wire has no use here, as the
+    port's engines take the wire from the memo store).
 
-    Returns ``(ok, mode, max_abs_err)`` with mode ``"bitwise"`` for
-    same-wire candidates and ``"bf16-wire"`` (tolerance compare) when the
-    candidate changes ``wire_dtype``.
+    Returns ``(ok, "bitwise", max_abs_err)``.
     """
     got = run(policy)
     max_err = max(float((g.float() - d.float()).abs().max())
                   for g, d in zip(got, default_out))
-    if policy.wire_dtype in (None, "float32"):
-        ok = all(torch.equal(g, d) for g, d in zip(got, default_out))
-        return ok, "bitwise", max_err
-    scale = max(float(d.abs().max()) for d in default_out) or 1.0
-    return max_err <= BF16_WIRE_ATOL * scale, "bf16-wire", max_err
+    ok = all(torch.equal(g, d) for g, d in zip(got, default_out))
+    return ok, "bitwise", max_err
 
 
 # ---------------------------------------------------------------------------
@@ -437,31 +386,24 @@ class TuneResult:
 
 def effective_record(shape: TuneShape, policy: KernelPolicy,
                      device) -> dict:
-    """The launch that actually runs under ``policy``: warps per document,
-    ids a warp, the stopping tile, and on the card the grid (the
-    library's own choice where the policy leaves it)."""
-    warps = policy.fp_warps or lda_estep.fixed_point_warps(
-        shape.slots_per_doc)
-    rec = {"fp_warps": warps,
-           "scatter_ids": policy.scatter_ids or 8,
-           "block_b": policy.block_b if shape.task == "padded"
-           else shape.docs,
-           "wire_dtype": policy.wire_dtype or "float32",
-           "fp_blocks": policy.fp_blocks}
-    if measurement_available(device) and policy.fp_blocks is None:
+    """The launch that actually runs under ``policy``: the stopping tile
+    and the wire, and on the card the fixed point's warps per document
+    and grid as the library sizes them."""
+    b, block_b, group = _launch_rows(shape, policy)
+    rec = {"block_b": block_b,
+           "wire_dtype": policy.wire_dtype or "float32"}
+    if measurement_available(device):
         from repro_torch.kernels import build
-        b, block_b, group = _launch_rows(shape, policy)
-        dpb = lda_estep.FP_BLOCK_WARPS // warps
-        cap = lda_estep.fixed_point_capacity(build.load(), b, shape.k,
-                                             block_b, group)
-        rec["fp_blocks"] = max(1, min(-(-b // dpb), cap))
+        lib = build.load()
+        rec["fp_warps"] = lib.lda_fixed_point_warps(shape.slots_per_doc)
+        rec["fp_blocks"] = lib.lda_fixed_point_blocks(
+            b, shape.slots_per_doc, shape.k, block_b, group)
     return rec
 
 
 def tune_shape(shape: TuneShape, *, budget: int = 16, seed: int = 0,
                refine_rounds: int = 2, gate_candidates: int = 4,
-               iters: int = 20, allow_bf16_wire: bool = False,
-               device="cuda", reps: int = 5,
+               iters: int = 20, device="cuda", reps: int = 5,
                verbose: bool = False) -> TuneResult:
     """Search the policy lattice for one problem shape on ``device``.
 
@@ -474,7 +416,7 @@ def tune_shape(shape: TuneShape, *, budget: int = 16, seed: int = 0,
     """
     dev = _tune_device(device)
     measured = measurement_available(dev)
-    lattice = _lattice(shape, dev, allow_bf16_wire)
+    lattice = _lattice(shape)
     cands = _sample_candidates(shape, budget, seed, lattice, dev)
 
     probe = probe_shape(shape)
@@ -504,7 +446,7 @@ def tune_shape(shape: TuneShape, *, budget: int = 16, seed: int = 0,
     scored = {p: cost(p) for p in cands}
     for _ in range(refine_rounds):
         best = min(scored, key=scored.get)
-        fresh = [n for n in _neighbors(shape, best, lattice)
+        fresh = [n for n in _neighbors(best, lattice)
                  if n not in scored and launch_ok(shape, n, dev)]
         for n in fresh:
             scored[n] = cost(n)

@@ -115,16 +115,9 @@ def policy_from_dict(d: dict) -> KernelPolicy:
         if not isinstance(val, int) or val <= 0:
             raise ValueError(f"policy field {f} must be a positive int, "
                              f"got {val!r}")
-    for f in ("fp_warps", "fp_blocks", "scatter_ids"):
-        val = getattr(pol, f)
-        if val is not None and (not isinstance(val, int) or val <= 0):
-            raise ValueError(f"policy field {f} must be None or a positive "
-                             f"int, got {val!r}")
     if pol.wire_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"wire_dtype must be None|float32|bfloat16, "
                          f"got {pol.wire_dtype!r}")
-    from repro_torch.kernels.lda_estep import check_launch_knobs
-    check_launch_knobs(pol.fp_warps, pol.fp_blocks, pol.scatter_ids)
     return pol
 
 

@@ -308,7 +308,7 @@ def test_refusals(tmp_path, corpora):
     from repro_torch.obs import Telemetry
     from repro_torch.tune import PolicyKey, PolicyStore
     store = PolicyStore(os.path.join(tmp_path, "store.json"))
-    pol = KernelPolicy(scatter_ids=16)
+    pol = KernelPolicy(block_b=64)
     store.put(PolicyKey(backend="cuda", layout="padded", b_or_t=16,
                         v=SPEC.vocab_size, k=4, w=train.max_unique,
                         device_kind="cpu:cpu"), pol)

@@ -436,7 +436,7 @@ def test_facade_refusals_in_repros_words(corpora, tmp_path):
     from repro_torch.obs import Telemetry
     from repro_torch.tune import PolicyKey, PolicyStore
     store = PolicyStore(os.path.join(tmp_path, "store.json"))
-    pol = KernelPolicy(fp_warps=2)
+    pol = KernelPolicy(double_buffer_depth=3)
     store.put(PolicyKey(backend="cuda", layout="padded", b_or_t=8,
                         v=SPEC.vocab_size, k=8, w=train.max_unique,
                         device_kind="cpu:cpu"), pol)

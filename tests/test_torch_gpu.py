@@ -1361,97 +1361,8 @@ def test_online_learner_trains_on_its_own_stream_on_card(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the launch knobs and the tuner (repro_torch.tune), CVB0's scatters
+# the tuner (repro_torch.tune), CVB0's scatters
 # ---------------------------------------------------------------------------
-
-def _flat_path(path_inputs):
-    """The path batch as one flat stream, segments the row indices."""
-    ids, cnts, eb = path_inputs
-    segs = torch.arange(B, dtype=torch.int32,
-                        device=eb.device).repeat_interleave(L)
-    return ids.reshape(-1), cnts.reshape(-1), segs
-
-
-def _fixed_point_run(path_inputs, layout):
-    ids, cnts, eb = path_inputs
-    gamma0 = torch.full((B, K), 1.5, device=eb.device)
-    if layout == "padded":
-        return lambda **kw: lda_estep.estep_fixed_point_pi(
-            ids, cnts, eb, gamma0, 0.5, 1e-4, 60, **kw)
-    fids, fcnts, segs = _flat_path(path_inputs)
-    return lambda **kw: lda_estep.estep_fixed_point_csr_pi(
-        fids, fcnts, segs, eb, gamma0, 0.5, 1e-4, 60, **kw)
-
-
-@pytest.mark.parametrize("layout", ["padded", "csr"])
-def test_grid_and_scatter_ids_keep_the_bits(path_inputs, layout):
-    """K1/K4 on another grid (one block up to the co-resident capacity) and
-    K3 with other ids a warp give the default launch's bits: documents
-    loop over the grid, the stop test sums fixed chunks in every block,
-    and each id's rows are summed in row order whatever a warp owns."""
-    from repro_torch.kernels import build
-    run = _fixed_point_run(path_inputs, layout)
-    block_b = 128 if layout == "padded" else B
-    cap = lda_estep.fixed_point_capacity(build.load(), B, K, block_b, B)
-    want = run()
-    for blocks in (1, 132, cap):
-        got = run(blocks=blocks)
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), blocks
-    ids, cnts, _ = path_inputs
-    pi = want[3].reshape(-1, K)
-    flat_ids, flat_cnts = ids.reshape(-1), cnts.reshape(-1)
-    s_want = lda_estep.segment_scatter(flat_ids, flat_cnts, pi, pi, V)
-    for n in lda_estep.SCATTER_IDS:
-        s = lda_estep.segment_scatter(flat_ids, flat_cnts, pi, pi, V, ids=n)
-        assert all(torch.equal(a, b) for a, b in zip(s, s_want)), n
-
-
-@pytest.mark.parametrize("layout", ["padded", "csr"])
-@pytest.mark.parametrize("warps", [1, 2, 8])
-def test_warps_knob_against_twin(path_inputs, layout, warps):
-    """Another warps per document regroups each document's sums: it stays
-    within the twin's bar and gives the same bits on two launches (whether
-    it keeps the default's bits the card decides; the tuner's gate reads
-    it)."""
-    run = _fixed_point_run(path_inputs, layout)
-    got = run(warps=warps)
-    again = run(warps=warps)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
-    want = run()
-    torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
-    torch.testing.assert_close(got[3], want[3], rtol=2e-3, atol=2e-3)
-
-
-def test_launch_knobs_the_card_cannot_run_raise(path_inputs):
-    """A grid above the co-resident capacity raises with both numbers,
-    never clamped; so do warps a block cannot split."""
-    from repro_torch.kernels import build
-    cap = lda_estep.fixed_point_capacity(build.load(), B, K, 128, B)
-    for layout in ("padded", "csr"):
-        run = _fixed_point_run(path_inputs, layout)
-        with pytest.raises(ValueError, match=f"fp_blocks={cap + 1} exceeds "
-                                             f"the card's co-resident "
-                                             f"capacity of {cap} blocks"):
-            run(blocks=cap + 1)
-        with pytest.raises(ValueError, match="power of two"):
-            run(warps=3)
-    ids, cnts, _ = path_inputs
-    pi = torch.zeros((B * L, K), device=cnts.device)
-    for ids_a_warp in (1, 33):
-        with pytest.raises(ValueError, match="ids a warp"):
-            lda_estep.segment_scatter(ids.reshape(-1), cnts.reshape(-1), pi,
-                                      None, V, ids=ids_a_warp)
-
-
-def test_warps_rule_matches_the_kernel(cuda):
-    """The tuner's copy of the kernel's warps-per-document rule (for the
-    probe and the default's canonical form) is the built library's."""
-    from repro_torch.kernels import build
-    lib = build.load()
-    for n in (0, 1, 47, 48, 49, 96, 97, 163, 192, 193, 400, 5000):
-        assert lda_estep.fixed_point_warps(n) == \
-            lib.lda_fixed_point_warps(n), n
-
 
 def test_tune_measured_on_the_card(cuda, tmp_path):
     """A small tune on the card: measured seconds, the card's device kind,
@@ -1466,6 +1377,12 @@ def test_tune_measured_on_the_card(cuda, tmp_path):
     assert res.objective == "measured_seconds" and not res.proxy_regime
     assert res.device_kind.startswith("gpu:")
     assert res.tuned_cost <= res.default_cost
+    # the record names the launch the library sizes for the shape
+    from repro_torch.kernels import build
+    lib = build.load()
+    assert res.effective["fp_warps"] == lib.lda_fixed_point_warps(64)
+    assert res.effective["fp_blocks"] == lib.lda_fixed_point_blocks(
+        256, 64, K, res.policy.block_b, 256)
     cfg, inputs = tsearch._probe_inputs(shape, tsearch.probe_shape(shape),
                                         777, 30, cuda)
     fresh = tsearch._gate_runner(shape, cfg, inputs)

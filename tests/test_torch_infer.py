@@ -164,7 +164,7 @@ def test_inferencer_refusals_and_one_shot(setup, tmp_path):
     from repro_torch.obs import Telemetry
     from repro_torch.tune import PolicyKey, PolicyStore
     store = PolicyStore(tmp_path / "store.json")
-    pol = KernelPolicy(scatter_ids=4)
+    pol = KernelPolicy(double_buffer_depth=3)
     store.put(PolicyKey(backend="cuda", layout="padded", b_or_t=8,
                         v=SPEC.vocab_size, k=K, w=16,
                         device_kind="cpu:cpu"), pol)

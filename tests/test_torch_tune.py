@@ -6,9 +6,8 @@ checkpoints and serving.
 One store file serves both packages: the same format, version and key
 paths, each package's entries kept by the other's ``put`` and ``clear``,
 and neither package served the other's (``cuda`` against ``pallas``).
-On the CPU the launch knobs are no-ops (the twins have no warps or grid),
-so every launch policy gives the default's bits here; the card tests and
-``chip_smoke.py``'s ``tune`` phase hold them on the card.
+The gate is bit for bit whatever a candidate changes, the memo wire
+included; ``chip_smoke.py``'s ``tune`` phase holds it on the card.
 """
 import dataclasses
 import json
@@ -51,7 +50,7 @@ def _key(**kw) -> PolicyKey:
     return PolicyKey(**base)
 
 
-_POL = KernelPolicy(block_b=64, fp_warps=2, scatter_ids=16)
+_POL = KernelPolicy(block_b=64, double_buffer_depth=3)
 _META = dict(objective={"kind": "modeled_seconds", "proxy_regime": True,
                         "default_cost": 1.0, "tuned_cost": 0.5,
                         "improvement": 2.0},
@@ -113,8 +112,8 @@ def test_bad_store_warns_and_is_empty(tmp_path, content):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("block_b", -4), ("fp_warps", 3), ("fp_warps", 16), ("fp_blocks", 0),
-    ("scatter_ids", 33), ("wire_dtype", "float16")])
+    ("block_b", -4), ("block_b", "64"), ("double_buffer_depth", 0),
+    ("fp_warps", 2), ("scatter_ids", 16), ("wire_dtype", "float16")])
 def test_bad_policy_entry_is_ignored(tmp_path, field, value):
     store = PolicyStore(tmp_path / "t.json")
     key = _key()
@@ -188,10 +187,10 @@ def test_policy_dict_round_trip_is_strict():
         policy_from_dict({"block_b": 0})
     with pytest.raises(ValueError, match="wire_dtype"):
         policy_from_dict({"wire_dtype": "float16"})
-    with pytest.raises(ValueError, match="power of two"):
-        policy_from_dict({"fp_warps": 6})
-    with pytest.raises(ValueError, match="ids a warp"):
-        policy_from_dict({"scatter_ids": 64})
+    # launch knobs tried on the card and removed are unknown fields now
+    for knob in ("fp_warps", "fp_blocks", "scatter_ids"):
+        with pytest.raises(ValueError, match="unknown policy fields"):
+            policy_from_dict({knob: 8})
 
 
 def test_current_device_kind(monkeypatch):
@@ -238,12 +237,12 @@ def test_one_store_file_shared_with_repro(tmp_path):
     assert port.get_policy(key) == _POL                # repro kept ours
     port.put(_key(b_or_t=16), _POL, **_META)
     assert len(port.entries()) == len(jax_side.entries()) == 4
-    # neither package decodes the other's policy: each refuses it
+    # the port refuses repro's TPU tiles; the port's fields are repro's
+    # too, so repro decodes the port's policy when asked for its key
     with pytest.warns(TuneStoreWarning, match="bad policy"):
         assert port.get_policy(PolicyKey(**jkey.to_dict())) is None
-    from repro.tune.store import TuneStoreWarning as JWarning
-    with pytest.warns(JWarning, match="bad policy"):
-        assert jax_side.get_policy(JKey(**key.to_dict())) is None
+    assert jax_side.get_policy(JKey(**key.to_dict())) == JPolicy(
+        block_b=64, double_buffer_depth=3)
     assert port.clear("pallas/") == 2                  # port clears repro's
     assert set(jax_side.entries()) == {key.path(), _key(b_or_t=16).path()}
     jax_side.put(jkey, jpol, **_META)
@@ -331,15 +330,15 @@ def test_resolver_without_store_resolves_none():
 # ---------------------------------------------------------------------------
 
 def test_launch_ok_static_rules():
+    """The lattice is the padded stopping tile alone (the CSR batch is one
+    tile); off the card no kernel launches, so every point is
+    launchable."""
+    assert set(tsearch.PADDED_LATTICE) == {"block_b"}
+    assert tsearch.CSR_LATTICE == {}
     shape = tsearch.TuneShape(task="padded", b_or_t=64, v=512, k=8, w=16)
     assert tsearch.launch_ok(shape, DEFAULT_KERNEL_POLICY, CPU)
-    for pol in (KernelPolicy(fp_warps=w) for w in (1, 2, 4, 8)):
-        assert tsearch.launch_ok(shape, pol, CPU)
-    for bad in (KernelPolicy(fp_warps=3), KernelPolicy(fp_warps=16),
-                KernelPolicy(scatter_ids=0), KernelPolicy(scatter_ids=33),
-                KernelPolicy(scatter_ids=12),
-                KernelPolicy(fp_blocks=0)):
-        assert not tsearch.launch_ok(shape, bad, CPU)
+    for b in tsearch.PADDED_LATTICE["block_b"]:
+        assert tsearch.launch_ok(shape, KernelPolicy(block_b=b), CPU)
 
 
 def test_probe_keeps_instance_and_warps():
@@ -355,16 +354,12 @@ def test_probe_keeps_instance_and_warps():
     pc = tsearch.probe_shape(csr)
     assert pc == {"t": 131_072, "b": 1024, "v": tsearch.PROBE_MAX_V,
                   "k": 100}
-    from repro_torch.kernels import lda_estep
-    assert lda_estep.fixed_point_warps(163) == 4
-    assert lda_estep.fixed_point_warps(csr.slots_per_doc) == 4
-    assert [lda_estep.fixed_point_warps(n) for n in (1, 48, 49, 97, 400)] \
-        == [1, 1, 2, 4, 8]
+    assert csr.slots_per_doc == 128 and arxiv.slots_per_doc == 163
 
 
 def test_model_bounds_and_launch_knobs():
     """The bound formulas count what the kernels must move and compute;
-    the launch knobs and the wire leave the modeled work as it is."""
+    the wire and the serving depth leave the modeled work as it is."""
     nbytes, ops = tmodel.scatter_work(live=1000, v=50, k=10)
     assert nbytes == 1000 * 8 + 2 * 1000 * 10 * 4 + 2 * 50 * 10 * 4
     assert ops == 4.0 * 1000 * 10
@@ -372,9 +367,8 @@ def test_model_bounds_and_launch_knobs():
     assert by == "bytes" and ms == pytest.approx(1.0)
     kw = dict(b_or_t=1024, v=141_927, k=100, w=163, iters=60)
     base = tmodel.modeled_cost_seconds("padded", policy=None, **kw)
-    for pol in (KernelPolicy(fp_warps=8), KernelPolicy(fp_blocks=132),
-                KernelPolicy(scatter_ids=32),
-                KernelPolicy(wire_dtype="bfloat16")):
+    for pol in (KernelPolicy(wire_dtype="bfloat16"),
+                KernelPolicy(double_buffer_depth=4)):
         assert tmodel.modeled_cost_seconds("padded", policy=pol,
                                            **kw) == base
     fp, sc = tmodel.modeled_update_work("padded", policy=None, **kw)
@@ -400,25 +394,41 @@ def test_policy_none_is_bit_identical_to_default_policy(gate_probe):
 
 
 @pytest.mark.parametrize("pol", [
-    KernelPolicy(fp_warps=1), KernelPolicy(fp_warps=8),
-    KernelPolicy(fp_blocks=7), KernelPolicy(scatter_ids=32),
-    KernelPolicy(block_b=64)])
+    KernelPolicy(block_b=64), KernelPolicy(block_b=256),
+    KernelPolicy(double_buffer_depth=3)])
 def test_twins_ignore_launch_knobs(gate_probe, pol):
-    """The plain twins have no warps, grid or ids a warp: on the CPU every
-    launch policy passes the gate bit for bit."""
+    """At B = 16 every lattice tile holds the whole batch, and the depth
+    is serving's: each policy passes the gate bit for bit."""
     _, run, default_out = gate_probe
     ok, mode, _ = tsearch.equality_check(run, default_out, pol)
     assert ok and mode == "bitwise"
 
 
-def test_bf16_wire_within_documented_tolerance(gate_probe):
+@pytest.mark.parametrize("pol", [
+    KernelPolicy(wire_dtype="bfloat16"),
+    KernelPolicy(block_b=64, wire_dtype="bfloat16")])
+def test_bf16_wire_refused_bit_for_bit(gate_probe, pol):
+    """A candidate that flips the wire is held bit for bit like any other,
+    so a knob riding with it cannot pass on a tolerance."""
     _, run, default_out = gate_probe
-    ok, mode, err = tsearch.equality_check(
-        run, default_out, KernelPolicy(wire_dtype="bfloat16"))
-    assert mode == "bf16-wire" and ok
-    assert 0.0 < err
-    scale = max(float(d.abs().max()) for d in default_out)
-    assert err <= tsearch.BF16_WIRE_ATOL * scale
+    ok, mode, err = tsearch.equality_check(run, default_out, pol)
+    assert mode == "bitwise" and not ok and err > 0.0
+
+
+def test_search_never_stores_a_planted_wire_candidate(monkeypatch):
+    """Plant a cheaper bf16-wire candidate (with a stopping tile that
+    alone keeps the bits) into the lattice: the gate refuses it and the
+    default wins."""
+    monkeypatch.setitem(tsearch.PADDED_LATTICE, "wire_dtype",
+                        (None, "bfloat16"))
+    planted = KernelPolicy(block_b=64, wire_dtype="bfloat16")
+    monkeypatch.setattr(tsearch, "_modeled_cost",
+                        lambda shape, p, iters: 0.5 if p == planted else 1.0)
+    shape = tsearch.TuneShape(task="padded", b_or_t=16, v=512, k=8, w=16)
+    res = tsearch.tune_shape(shape, budget=8, seed=0, device=CPU)
+    assert planted in dict(res.scored)
+    assert [(p, ok) for p, _, ok, _ in res.gated][0] == (planted, False)
+    assert res.policy == DEFAULT_KERNEL_POLICY and res.improvement == 1.0
 
 
 @pytest.mark.parametrize("task", ["padded", "csr"])
@@ -519,10 +529,23 @@ def test_facade_no_store_is_bit_identical(train, tmp_path):
 
 
 @pytest.mark.parametrize("layout", ["padded", "csr"])
+def test_facade_miss_is_counted_once(train, tmp_path, layout):
+    """The trainer looks the store up, not the facade as well: a miss is
+    one ``tune.cache`` miss and leaves ``cfg`` without a policy."""
+    store = PolicyStore(tmp_path / "t.json")
+    _put(store, train, _POL, b_or_t=999)         # another shape only
+    tel = Telemetry()
+    lda = _facade(store=store, layout=layout, token_budget=512 if
+                  layout == "csr" else None,
+                  telemetry=tel).partial_fit(train, steps=0)
+    assert lda.cfg.kernel_policy is None
+    assert _counts(tel) == (0, 1)
+
+
+@pytest.mark.parametrize("layout", ["padded", "csr"])
 def test_facade_store_hit_rides_cfg_and_checkpoint(train, tmp_path, layout):
     store = PolicyStore(tmp_path / "t.json")
-    pol = KernelPolicy(block_b=64, double_buffer_depth=3, fp_warps=2,
-                       scatter_ids=16)
+    pol = KernelPolicy(block_b=64, double_buffer_depth=3)
     if layout == "csr":
         _put(store, train, pol, b_or_t=512, layout="csr", w=None)
     else:
@@ -533,14 +556,11 @@ def test_facade_store_hit_rides_cfg_and_checkpoint(train, tmp_path, layout):
                   telemetry=tel).partial_fit(train, steps=2)
     assert lda.cfg.kernel_policy == pol
     assert lda.trainer.eng.cfg.kernel_policy == pol
-    assert _counts(tel) == (1, 0)        # looked up once, by the facade
+    assert _counts(tel) == (1, 0)        # looked up once, by the engine
     ck = str(tmp_path / "ck")
     lda.save(ck)
     loaded = LDA.load(ck, device=CPU)
-    # the checkpoint carries the shared fields; the launch knobs are not
-    # written (repro's KernelPolicy refuses them) and move no bit
-    assert loaded.cfg.kernel_policy == KernelPolicy(block_b=64,
-                                                    double_buffer_depth=3)
+    assert loaded.cfg.kernel_policy == pol
     loaded.resume(train)
     loaded.partial_fit(steps=1)
     lda.partial_fit(steps=1)
@@ -559,7 +579,7 @@ def test_facade_store_hit_rides_cfg_and_checkpoint(train, tmp_path, layout):
 def test_engine_looks_up_once_and_explicit_policy_wins(train, tmp_path):
     from repro_torch.core.engines import LDAEngine
     store = PolicyStore(tmp_path / "t.json")
-    pol = KernelPolicy(scatter_ids=4)
+    pol = KernelPolicy(block_b=64)
     _put(store, train, pol)
     tel = Telemetry()
     eng = LDAEngine(_cfg(), train, algo="ivi", batch_size=16, device=CPU,
@@ -619,12 +639,10 @@ def test_inferencer_buffer_depth_from_policy(train):
 
 def test_port_checkpoint_with_tuned_policy_loads_in_repro(train, tmp_path):
     """A tuned port run's checkpoint resumes in ``repro``: its policy in
-    ``repro``'s nine fields (the port's block_b, wire and depth), the
-    launch knobs left out."""
+    ``repro``'s nine fields (the port's block_b, wire and depth)."""
     store = PolicyStore(tmp_path / "t.json")
     pol = KernelPolicy(block_b=64, wire_dtype="float32",
-                       double_buffer_depth=3, fp_warps=8, fp_blocks=264,
-                       scatter_ids=32)
+                       double_buffer_depth=3)
     _put(store, train, pol)
     lda = _facade(store=store).partial_fit(train, steps=1)
     ck = str(tmp_path / "ck")
@@ -644,7 +662,7 @@ def test_launch_train_tune_store(tmp_path, monkeypatch, capsys, train):
     at its shape and prints it."""
     from repro_torch.launch import train as launcher
     store = PolicyStore(tmp_path / "t.json")
-    pol = KernelPolicy(scatter_ids=16)
+    pol = KernelPolicy(double_buffer_depth=3)
     _put(store, train, pol, b_or_t=16)
     monkeypatch.setattr("sys.argv", [
         "train", "lda", "--corpus", "tiny", "--topics", "4", "--device",
