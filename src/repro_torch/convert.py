@@ -6,16 +6,25 @@
 that ``repro``'s ``DenseMemoStore.state_dict()`` returns, so a state built
 by either package can continue in the port. ``lda_from_repro_checkpoint``
 loads a whole ``repro`` facade checkpoint (a manifest directory).
+
+``lm_params_from_repro`` takes ``repro``'s LM parameters (its pytree as
+numpy, or the flat dict an npz checkpoint of it holds,
+`repro_torch.checkpoint.io`) to the port's layout, each stage's stacked
+layers unstacked into one dict a layer; ``lm_params_to_repro`` is its
+inverse, so ``repro`` can run on the port's own init.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import STEP_KEY
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.memo import DenseMemoStore
 from repro_torch.core.types import GlobalState, resolve_device
+from repro_torch.models.transformer import check_supported, stage_layout
 
 STATE_FIELDS = ("lam", "m_vk", "init_mass", "init_frac", "t")
 
@@ -66,3 +75,92 @@ def lda_from_repro_checkpoint(path: str, device=None):
     ``load_lda_checkpoint``; the two packages share the format)."""
     from repro_torch.lda.ckpt import load_lda_checkpoint
     return load_lda_checkpoint(path, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the LM template's parameters
+# ---------------------------------------------------------------------------
+
+LM_TOP_ARRAYS = ("embed", "lm_head", "heads")
+
+
+def _tree_map(fn, node):
+    if isinstance(node, Mapping):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    return fn(node)
+
+
+def _child(node, i: int):
+    """Entry ``i`` of a sequence, or of a dict keyed by ``str(i)`` (a tree
+    rebuilt from checkpoint paths)."""
+    return node[str(i)] if isinstance(node, Mapping) else node[i]
+
+
+def _nested(flat: Mapping[str, Any]) -> dict:
+    """``{"a/b/0": x}`` → ``{"a": {"b": {"0": x}}}``; ``__step__`` dropped."""
+    root: dict = {}
+    for key, arr in flat.items():
+        if key == STEP_KEY:
+            continue
+        *parents, name = key.split("/")
+        node = root
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = arr
+    return root
+
+
+def lm_params_from_repro(params_np: Mapping[str, Any], cfg: ModelConfig,
+                         device=None) -> dict:
+    """``repro``'s params (pytree leaves as numpy or any array numpy reads,
+    or the flat ``{path: array}`` of its npz checkpoint) as the port's: the
+    same arrays and dtypes on ``device``, ``params["layers"][i]`` for
+    ``cfg.pattern[i]``."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    tree = params_np if "stages" in params_np else _nested(params_np)
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    out = {k: leaf(tree[k]) for k in LM_TOP_ARRAYS if k in tree}
+    out["final_norm"] = _tree_map(leaf, tree["final_norm"])
+    layers = []
+    for si, (cycle, reps) in enumerate(stage_layout(cfg)):
+        stage = _child(tree["stages"], si)
+        for r in range(reps):
+            for pos in range(len(cycle)):
+                layers.append(_tree_map(lambda a: leaf(np.asarray(a)[r]),
+                                        _child(stage, pos)))
+    out["layers"] = layers
+    return out
+
+
+def lm_params_to_repro(params: Mapping[str, Any], cfg: ModelConfig) -> dict:
+    """The port's LM params as ``repro``'s pytree of numpy arrays: each
+    stage's layers stacked on a leading ``reps`` axis, stages and cycle
+    positions as tuples."""
+    check_supported(cfg)
+
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    out = {k: arr(params[k]) for k in LM_TOP_ARRAYS if k in params}
+    out["final_norm"] = _tree_map(arr, params["final_norm"])
+    layers = [_tree_map(arr, p) for p in params["layers"]]
+
+    def stack(group):
+        first = group[0]
+        if isinstance(first, Mapping):
+            return {k: stack([g[k] for g in group]) for k in first}
+        return np.stack(group)
+
+    stages, start = [], 0
+    for cycle, reps in stage_layout(cfg):
+        n = len(cycle)
+        stages.append(tuple(
+            stack([layers[start + r * n + pos] for r in range(reps)])
+            for pos in range(n)))
+        start += n * reps
+    out["stages"] = tuple(stages)
+    return out

@@ -1,0 +1,249 @@
+"""GQA self-attention: full-sequence prefill and KV-cache decode
+(``repro.models.attention``).
+
+Features required by the assigned architectures: grouped-query attention,
+rotary or no positions, sliding windows (gemma2 local layers and the
+long-context variant), attention-logit softcaps (gemma2), QK-RMSNorm
+(qwen3), QKV biases (qwen2/internvl), custom query scale (gemma2).
+
+Prefill (``attention_train``) has two routes, chosen by
+``attention_route``:
+- ``"flash"``: the flash-attention kernel (K9, ``kernels.ops.flash_mha``),
+  causal, on the rope'd and pre-scaled queries. The default on CUDA. K9
+  computes no sliding window and no logit softcap: such a prefill raises
+  on CUDA rather than run the plain route there.
+- ``"plain"``: ``repro``'s query-chunked scan as a loop over
+  ``cfg.attn_chunk`` query rows, so the (chunk, S) score tile is the only
+  score buffer. The default on the CPU, and what the comparisons on the
+  card call by name.
+
+Decode (``attention_decode``) is plain torch on every device, as ``repro``'s
+is plain XLA: a ring-buffer cache whose ``slot_pos`` tracks the absolute
+position in each slot, which makes the sliding-window mask implicit
+(overwritten slots fall out of the window). The cache is written in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import flash_mha
+from repro_torch.models.layers import (Params, rope, rounded, softcap,
+                                       truncated_normal)
+
+NEG_INF = -2.0 ** 30  # large-but-finite: keeps padded rows NaN-free
+
+ROUTES = ("flash", "plain")
+
+
+def attn_init(cfg: ModelConfig, *, generator, device) -> Params:
+    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    draw = dict(generator=generator, device=device)
+    p: Params = {
+        "wq": truncated_normal((d, h, hd), d ** -0.5, **draw),
+        "wk": truncated_normal((d, kv, hd), d ** -0.5, **draw),
+        "wv": truncated_normal((d, kv, hd), d ** -0.5, **draw),
+        "wo": truncated_normal((h, hd, d), (h * hd) ** -0.5, **draw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, hd), device=device)
+        p["bk"] = torch.zeros((kv, hd), device=device)
+        p["bv"] = torch.zeros((kv, hd), device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), device=device)
+        p["k_norm"] = torch.ones((hd,), device=device)
+    return p
+
+
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    dt = x.dtype
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(dt))
+    k = torch.einsum("btd,dgk->btgk", x, p["wk"].to(dt))
+    v = torch.einsum("btd,dgk->btgk", x, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        q = _rms(q) * p["q_norm"].to(dt)
+        k = _rms(k) * p["k_norm"].to(dt)
+    return q, k, v
+
+
+def _rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps)
+    return y.to(x.dtype)
+
+
+def _scale(cfg: ModelConfig) -> float:
+    return (cfg.query_scale if cfg.query_scale is not None
+            else cfg.resolved_head_dim ** -0.5)
+
+
+# ---------------------------------------------------------------------------
+# prefill — K9, or the q-chunked causal scan
+# ---------------------------------------------------------------------------
+
+def attention_route(cfg: ModelConfig, window: Optional[int], device,
+                    attention: Optional[str] = None) -> str:
+    """The route of a full-sequence attention: ``"flash"`` (K9) or
+    ``"plain"`` (the chunked scan).
+
+    ``attention`` None picks by device: the plain scan on the CPU, K9
+    elsewhere. ``"plain"`` is taken on any device when asked for by name;
+    ``"flash"`` on the CPU runs K9's plain twin. K9 computes causal softmax
+    attention with no window and no logit softcap, so a K9 route for a
+    windowed or softcapped layer raises.
+    """
+    if attention is not None and attention not in ROUTES:
+        raise ValueError(f"attention={attention!r}; expected one of "
+                         f"{ROUTES} or None")
+    if attention == "plain" or (attention is None
+                                and torch.device(device).type == "cpu"):
+        return "plain"
+    missing = []
+    if window is not None:
+        missing.append(f"a sliding window of {window}")
+    if cfg.attn_logit_softcap is not None:
+        missing.append(f"a logit softcap of {cfg.attn_logit_softcap}")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: this prefill needs {' and '.join(missing)}, which "
+            "the flash-attention kernel (K9) does not compute yet (ROADMAP "
+            "§2 C1: K9 gains a sliding-window mask and a logit softcap); "
+            "on the card it does not fall back to the plain attention")
+    return "flash"
+
+
+def _chunked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, positions: torch.Tensor,
+                       window: Optional[int]) -> torch.Tensor:
+    """``repro``'s scan over query chunks. q (B, S, H, hd), pre-scaled;
+    k, v (B, S, KV, hd) → (B, S, H, hd). The bf16 logits are cast to fp32
+    before the mask and the softmax, as in ``repro``."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    # pad queries to the chunk grid; padded rows are sliced off afterwards
+    # and padded keys are masked out by the causal test (their positions
+    # exceed every real query position).
+    c = min(cfg.attn_chunk, s)
+    s_pad = ((s + c - 1) // c) * c
+    kpos = positions.expand(s)
+    qpos_all = kpos
+    if s_pad != s:
+        qpos_all = torch.cat([kpos, kpos[-1] + 1 + torch.arange(
+            s_pad - s, device=kpos.device)])
+    qg = q.reshape(b, s, kv, rep, hd)
+    if s_pad != s:
+        qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, s_pad - s))
+    outs = []
+    for i in range(s_pad // c):
+        qi, qpos = qg[:, i * c:(i + 1) * c], qpos_all[i * c:(i + 1) * c]
+        logits = torch.einsum("bqgrk,bsgk->bgrqs", qi, k)  # (B,kv,rep,c,S)
+        logits = softcap(logits, cfg.attn_logit_softcap)
+        mask = qpos[:, None] >= kpos[None, :]              # causal (c, S)
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        logits = torch.where(mask, logits.float(), NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bgrqs,bsgk->bqgrk", w, v))
+    return torch.cat(outs, dim=1).reshape(b, s_pad, h, hd)[:, :s]
+
+
+def prefill_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: torch.Tensor):
+    """q, k, v of a full sequence as both routes take them: rope'd, and q
+    multiplied by the scale rounded to q's dtype and rounded once after
+    it, as in ``repro``. K9 then runs at scale 1 on the very q the plain
+    scan uses."""
+    q, k, v = _qkv(cfg, p, x)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q * rounded(_scale(cfg), q.dtype), k, v
+
+
+def attention_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    window: Optional[int] = None,
+                    positions: Optional[torch.Tensor] = None, *,
+                    attention: Optional[str] = None) -> torch.Tensor:
+    """Causal (optionally sliding-window) self-attention over full
+    sequences. x: (B, S, D) → (B, S, D); positions (S,) default to
+    arange(S), the only positions the K9 route takes (its causal mask is
+    by index). ``attention`` picks the route (``attention_route``)."""
+    route = attention_route(cfg, window, x.device, attention)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = prefill_qkv(cfg, p, x, positions)
+    if route == "flash":
+        out = flash_mha(q, k, v, causal=True, scale=1.0)
+    else:
+        out = _chunked_attention(cfg, q, k, v, positions, window)
+    return torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# decode — ring-buffer KV cache
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, W, kv, hd) — rope already applied
+    v: torch.Tensor          # (B, W, kv, hd)
+    slot_pos: torch.Tensor   # (B, W) int32 absolute position per slot (−1)
+
+
+def init_cache(cfg: ModelConfig, batch: int, window: int,
+               dtype=torch.bfloat16, device=None) -> KVCache:
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return KVCache(
+        k=torch.zeros((batch, window, kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, window, kv, hd), dtype=dtype, device=device),
+        slot_pos=torch.full((batch, window), -1, dtype=torch.int32,
+                            device=device),
+    )
+
+
+def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     cache: KVCache, pos: torch.Tensor,
+                     window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode. x: (B, 1, D); pos: (B,) absolute positions.
+
+    The new token's K/V overwrite slot ``pos % W`` (ring), in place.
+    Attention runs over the updated cache; masking = slot occupied ∧
+    causal ∧ (window if given). Returns (y, the same cache).
+    """
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rep = h // kv
+    w_slots = cache.k.shape[1]
+
+    q, k, v = _qkv(cfg, p, x)                    # q (B,1,h,hd), k/v (B,1,kv,hd)
+    if cfg.use_rope:
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        k = rope(k, pos[:, None], cfg.rope_theta)
+    q = q * rounded(_scale(cfg), q.dtype)
+
+    slot = (pos % w_slots).long()                # (B,)
+    index = (torch.arange(b, device=x.device), slot)
+    cache.k.index_put_(index, k[:, 0].to(cache.k.dtype))
+    cache.v.index_put_(index, v[:, 0].to(cache.v.dtype))
+    cache.slot_pos.index_put_(index, pos.to(torch.int32))
+
+    qg = q.reshape(b, kv, rep, hd)
+    logits = torch.einsum("bgrk,bsgk->bgrs", qg, cache.k.to(q.dtype))
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    sp = cache.slot_pos
+    valid = (sp >= 0) & (sp <= pos[:, None])     # (B, W)
+    if window is not None:
+        valid &= sp > (pos[:, None] - window)
+    logits = torch.where(valid[:, None, None, :], logits.float(), NEG_INF)
+    wgt = torch.softmax(logits, dim=-1).to(cache.v.dtype)
+    out = torch.einsum("bgrs,bsgk->bgrk", wgt, cache.v).reshape(b, 1, h, hd)
+    y = torch.einsum("bthk,hkd->btd", out.to(x.dtype), p["wo"].to(x.dtype))
+    return y, cache

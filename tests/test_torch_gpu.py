@@ -1416,3 +1416,110 @@ def test_cvb0_scatters_against_twin(cuda):
     assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
     for a, b in zip(runs[0], runs[2]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the LM template's serving path: K9 inside a prefill
+# ---------------------------------------------------------------------------
+
+# relative L2 of the last position's logits, K9 against the plain route
+# and decode against prefill, at 2 layers: on an NVIDIA H100 80GB HBM3 at
+# 700 W they read 0.0100 and 0.0087 (36 layers, chip_smoke.py: 0.0180 and
+# 0.0183); the bars are about twice that
+LM_PREFILL_REL_L2 = 2e-2
+LM_DECODE_REL_L2 = 2e-2
+
+
+def _lm_two_layers(cuda):
+    """Qwen2.5-3B's layer widths (d_model 2,048, 16 query and 2 KV heads
+    of 128, QKV bias, d_ff 11,008) at 2 layers and a 4,096-word
+    vocabulary, bf16 weights from the port's seeded init."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2,
+                              vocab_size=4096)
+    return cfg, T.cast_params(cfg, T.init_params(cfg, 0, device=cuda))
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def test_lm_prefill_launches_k9_once_a_layer(cuda):
+    """A 2-layer bf16 prefill (B = 2, S = 640: five 128-row tiles) through
+    K9 launches it twice and agrees with the plain route's last logits;
+    the plain route launches K9 never."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training import make_prefill_step
+    cfg, params = _lm_two_layers(cuda)
+    gen = torch.Generator(cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 640),
+                                     generator=gen, device=cuda)}
+    fa.reset_launches()
+    got = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    fa.reset_launches()
+    want = make_prefill_step(cfg, attention="plain")(params, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert got.shape == (2, cfg.vocab_size) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel_l2(got, want) <= LM_PREFILL_REL_L2
+
+
+def test_lm_k9_layer_output_matches_twin(cuda):
+    """Layer 0's attention inside that prefill: K9 on the rope'd,
+    pre-scaled q at scale 1 against its twin at the bf16 bar, the same
+    bits on a second launch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import apply_norm, compute_dtype
+    cfg, params = _lm_two_layers(cuda)
+    gen = torch.Generator(cuda).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 1000),
+                                     generator=gen, device=cuda)}
+    x, pos = T._embed(cfg, params, batch, compute_dtype(cfg))
+    layer = params["layers"][0]
+    q, k, v = A.prefill_qkv(cfg, layer["attn"],
+                            apply_norm(cfg, layer["norm1"], x), pos)
+    qf, kf, vf = (t[0].transpose(0, 1).contiguous() for t in (q, k, v))
+    # S = 1,000 padded to the 128-row grid, as flash_mha pads it
+    pad = [torch.nn.functional.pad(t, (0, 0, 0, 24)) for t in (qf, kf, vf)]
+    got = fa.flash_attention(*pad, causal=True, scale=1.0, kv_len=1000)
+    again = fa.flash_attention(*pad, causal=True, scale=1.0, kv_len=1000)
+    want = fa.flash_attention_plain(qf, kf, vf, causal=True, scale=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got[:, :1000].float(), want.float(),
+                               rtol=2.0 ** -7, atol=1e-3)
+
+
+def test_lm_decode_agrees_with_prefill_and_skips_k9(cuda):
+    """The serve step over 16 prompt tokens (fp32 caches) against the K9
+    prefill of the same tokens at the last position; generate twice: the
+    same tokens, no K9 launch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.training import make_prefill_step, make_serve_step
+    cfg, params = _lm_two_layers(cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                           device=cuda)
+    want = make_prefill_step(cfg)(params, {"tokens": prompt})
+    serve = make_serve_step(cfg)
+    caches = T.init_caches(cfg, 4, 16, dtype=torch.float32, device=cuda)
+    fa.reset_launches()
+    for t in range(16):
+        _, got, caches = serve(params, caches, prompt[:, t],
+                               torch.full((4,), t, dtype=torch.int32,
+                                          device=cuda))
+    first = generate(cfg, params, prompt, 8, device=cuda)
+    second = generate(cfg, params, prompt, 8, device=cuda)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert _rel_l2(got, want) <= LM_DECODE_REL_L2
+    assert torch.equal(first, second) and first.shape == (4, 8)

@@ -73,6 +73,20 @@ def test_port_imports_neither_jax_nor_repro():
                                           load_vocab, save_uci)
         from repro_torch.core.cvb0 import CVB0Engine, cvb0_step, init_cvb0
         from repro_torch.core.hyper import update_alpha0, update_beta0
+        # the LM template's serving path
+        from repro_torch.configs import ARCHS, get_config, get_shape
+        from repro_torch.models.transformer import (cast_params,
+                                                    decode_step, forward,
+                                                    init_caches, init_params)
+        from repro_torch.models.attention import (attention_route,
+                                                  attention_train)
+        from repro_torch.training import (make_prefill_step,
+                                          make_serve_step)
+        from repro_torch.checkpoint import (restore_checkpoint,
+                                            save_checkpoint)
+        from repro_torch.convert import (lm_params_from_repro,
+                                         lm_params_to_repro)
+        from repro_torch.launch.serve import generate, main as lm_serve_main
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -107,7 +121,13 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.serve", "repro_torch.serve.admission",
                  "repro_torch.serve.online", "repro_torch.serve.service",
                  "repro_torch.serve.snapshot", "repro_torch.serve.traffic",
-                 "repro_torch.launch.serve_lda"):
+                 "repro_torch.launch.serve_lda",
+                 "repro_torch.configs", "repro_torch.configs.base",
+                 "repro_torch.configs.qwen2_5_3b", "repro_torch.models",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.transformer", "repro_torch.training",
+                 "repro_torch.training.steps", "repro_torch.checkpoint.io",
+                 "repro_torch.launch.serve"):
         assert name in got["modules"]
 
 
