@@ -179,24 +179,50 @@ after):
 and, last, the LM template's serving path (every LDA phase first):
  31. lm      — Qwen2.5-3B unreduced (36 layers, d_model 2,048, 16 query
                and 2 KV heads of 128, d_ff 11,008, vocab 151,936) from
-               the port's seeded init, its bf16 copy made once: a prefill
-               of B = 1, S = 4,096 through make_prefill_step launches K9
-               exactly 36 times (once a layer), finite last logits, ms and
-               tokens/s against its bound, K9's share of device time
+               the port's seeded init, its bf16 copy made once; the
+               serving checks every LM model below shares
+               (lm_serve_checks): a prefill of B = 1, S = 4,096 through
+               make_prefill_step launches K9 once an attention layer (36
+               here), finite last logits, ms and tokens/s against the
+               bound of each token's active weights, K9's share of device
+               time, host syncs (one a MoE layer, so 0 here)
                (profile_lm_prefill: device and host time by operation);
+               the whole prefill against the same prefill through the
+               plain attention (relative L2 of the last logits within the
+               model's LM_BF16_REL_L2); 16 prompt tokens decoded through
+               make_serve_step against the prefill of them (the same
+               bar), no K9 launch in decode (profile_lm_decode);
+               launch/serve.py's generate at batch 4, prompt 16, 32 new
+               tokens: the same tokens twice, ms and host syncs a decode
+               step against the weight-read bound (6.17 GB here). Then
                layer 0's K9 output against its twin at the bf16 bars and
-               the same bits on a second launch; the whole prefill against
-               the same prefill through the plain attention (relative L2
-               of the last logits, LM_PREFILL_REL_L2); a prefill of S =
+               the same bits on a second launch, and a prefill of S =
                32,768 (prefill_32k with its batch cut from 32 to 1): ms
-               against its bound, K9's share, peak memory; 16 prompt
-               tokens decoded through make_serve_step against the prefill
-               of them (LM_DECODE_REL_L2), no K9 launch in decode
-               (profile_lm_decode); launch/serve.py's generate at batch 4,
-               prompt 16, 32 new tokens: the same tokens twice, ms a
-               decode step against the 6.17 GB weight-read bound
-Then the ``kernels`` summary line (K9's row with ``launches_lm``) and,
-last, the ``ok`` line.
+               against its bound, K9's share, peak memory
+ 32. lm_moe  — DeepSeekMoE-16B unreduced (28 layers, d_model 2,048, 16
+               heads of 128, 64 routed experts of 1,408 at top 6, 2
+               shared, layer 0 dense at 10,944, vocab 102,400) from the
+               layer-at-a-time bf16 builder (its peak over the weights at
+               most twice its largest fp32 piece): the serving checks at
+               S = 4,096 (K9 28 times, one host sync a MoE layer in
+               prefill and in a decode step, the MoE FFN's share of
+               device time, each layer's routing flips against the plain
+               route and between decode and prefill, the read bound of
+               the experts the decode steps chose); layer 1's FFN
+               against fp32 (LM_MOE_FFN_REL_L2, top-k flip share). Then
+               Qwen3-MoE-30B-A3B at full width, its depth cut from 48
+               layers to 8: the same checks. After each, lm_fp32: the
+               agreement checks in fp32 at 8 layers (LM_FP32_REL_L2)
+ 33. lm_recurrent — zamba2-1.2B unreduced (38 Mamba2 layers, the shared
+               attention block on 6): the first shared block's K9 output
+               against its twin at the bf16 bars and bit-equal twice; the
+               serving checks at S = 4,096 (K9 6 times, no host sync);
+               then xLSTM-1.3B at full width, its prefill cut to 256
+               tokens (the sLSTM's time loop): no K9 launch. After each,
+               lm_fp32 at 12 and 4 layers
+Then the ``kernels`` summary line (K9's row with ``launches_lm``,
+``launches_lm_moe`` and ``launches_lm_recurrent``) and, last, the ``ok``
+line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -3632,37 +3658,59 @@ LM_SEED = 0
 LM_PREFILL_S = 4096
 LM_LONG_S = 32_768            # prefill_32k's length; its batch of 32 cut to 1
 LM_SERVE = dict(batch=4, prompt=16, new_tokens=32)  # repro's launcher defaults
-# the whole bf16 prefill through K9 (fp32 scores) against the same prefill
-# through the plain chunked scan (bf16 logits), last position's logits,
-# relative L2; and the serve step's logits at the last prompt position
-# against the prefill's on the same 16 tokens (fp32 caches). On an NVIDIA
-# H100 80GB HBM3 at 700 W they read 0.0180 and 0.0183: the bars are about
-# twice that
-LM_PREFILL_REL_L2 = 4e-2
-LM_DECODE_REL_L2 = 4e-2
-
-
-def lm_matmul_weights(params):
-    """The weights of one token's matrix products in the layers: the
-    projections and the MLP (biases and norms are not products)."""
-    return sum(p["attn"][w].numel() for p in params["layers"]
-               for w in ("wq", "wk", "wv", "wo")) + \
-        sum(w.numel() for p in params["layers"] for w in p["mlp"].values())
-
-
-def lm_prefill_bound(cfg, params, b, s):
-    """The least time of a prefill on the card: the layers' products (2
-    operations a weight a token), causal attention's Q·Kᵀ and P·V and the
-    last position's readout, at the bf16 tensor-core rate, beside the bf16
-    weights read once."""
-    hd = cfg.resolved_head_dim
-    attn_bytes, attn_ops = attention_work(b, s, cfg.num_heads,
-                                          cfg.num_kv_heads, hd)
-    ops = 2.0 * lm_matmul_weights(params) * b * s \
-        + cfg.num_layers * attn_ops + 2.0 * b * cfg.d_model * cfg.vocab_size
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in lm_leaves(params)) + cfg.num_layers * attn_bytes
-    return bound_ms(nbytes, ops, BF16_OPS_PER_S)
+LM_MOE_ARCH = "deepseek-moe-16b"   # configs/deepseek_moe_16b.py, unreduced
+# its (layers, d_model, heads, KV heads, experts, top k, shared experts,
+# expert d_ff, dense d_ff, vocab)
+LM_MOE_WIDTH = (28, 2048, 16, 16, 64, 6, 2, 1408, 10_944, 102_400)
+LM_QWEN3_ARCH = "qwen3-moe-30b-a3b"  # configs/qwen3_moe_30b_a3b.py
+# its depth cut from 48 layers to 8 (about 11 GB in bf16: the whole
+# model's 61 GB leaves too thin a margin on an 80 GB card)
+LM_QWEN3_LAYERS = 8
+LM_ZAMBA_ARCH = "zamba2-1.2b"      # configs/zamba2_1_2b.py, unreduced
+# its (layers, d_model, shared-block applications)
+LM_ZAMBA_WIDTH = (38, 2048, 6)
+LM_XLSTM_ARCH = "xlstm-1.3b"       # configs/xlstm_1_3b.py, unreduced
+LM_XLSTM_WIDTH = (48, 2048)        # its (layers, d_model)
+# xLSTM's prefill length, cut from 4,096 to one 256-token chunk: its 24
+# sLSTM layers are a loop over time of ~27 launches a step each (a
+# 512-token prefill read 3.54 s and ~336k launches on an NVIDIA H100 80GB
+# HBM3 at 700 W, PR 26)
+LM_XLSTM_S = 256
+# each model's bf16 agreement bar: the last logits of the whole prefill
+# through K9 (fp32 scores) against the plain route's, and the serve
+# step's at the last of 16 prompt tokens (fp32 caches) against the
+# prefill's; relative L2. Two routes of one function round apart in bf16:
+# a MoE router flips near-tied experts between them (Qwen3-MoE picks 8 of
+# 128 and renormalises), and a recurrent block's chunked scan rounds its
+# intra-chunk products to bf16 where the one-step recurrence keeps an fp32
+# state, as in repro. On an NVIDIA H100 80GB HBM3 at 700 W (PERF §6):
+# Qwen2.5-3B read 0.0180 and 0.0183 (PR 25); DeepSeekMoE-16B 0.0152 and
+# 0.0199 (routing flips 9% of tokens a layer); Qwen3-MoE at 8 layers
+# 0.0134 and 0.0609 (flips 10-20%); zamba2-1.2B 0.0264 and 0.0529;
+# xLSTM-1.3B decode 0.0785 (repro's own bf16 decode is as far from its
+# prefill, tests/test_torch_recurrent.py) (PR 26). Each bar is about twice
+# its reading, 0.04 at least; the fp32 checks (LM_FP32_REL_L2, which read
+# 1e-6 to 7e-5) hold the function itself
+LM_BF16_REL_L2 = {"qwen2.5-3b": 4e-2, "deepseek-moe-16b": 4e-2,
+                  "qwen3-moe-30b-a3b": 0.12, "zamba2-1.2b": 0.11,
+                  "xlstm-1.3b": 0.16}
+# the agreement checks again in fp32 (K9's fp32 mode, fp32 weights: the
+# bf16 model's masters, the same seed) at a cut depth: rounding alone
+# separates the routes there
+LM_FP32_REL_L2 = 1e-3
+LM_FP32_LAYERS = {"deepseek-moe-16b": 8, "qwen3-moe-30b-a3b": 8,
+                  "zamba2-1.2b": 12, "xlstm-1.3b": 4}
+# a MoE layer's bf16 FFN against the same function in fp32 from the same
+# weights and input: bf16 rounding and the tokens whose top-k set flips.
+# A different function (another expert order, a dropped token, another
+# weight) is off by O(1); the bar is a tenth of that
+LM_MOE_FFN_REL_L2 = 0.1
+# the matrices a token multiplies (biases, norms and the depthwise convs
+# are not products)
+PRODUCT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
+                          "w_down", "router", "in_proj", "out_proj", "w_in",
+                          "w_gates", "r"})
+ROUTED_KEYS = ("w_gate", "w_up", "w_down")
 
 
 def lm_leaves(tree):
@@ -3674,6 +3722,10 @@ def lm_leaves(tree):
             yield from lm_leaves(v)
     else:
         yield tree
+
+
+def lm_weight_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in lm_leaves(tree))
 
 
 def rel_l2(got, want):
@@ -3690,28 +3742,516 @@ def device_share(events, name):
     return mine / total, total / 1e3
 
 
+def product_weights(cfg, node, key=None):
+    """The weights one token multiplies in ``node`` (a layer's dict): the
+    product matrices, a MoE layer's routed experts at k of E (each token
+    reads k of them), its router and shared experts whole."""
+    if isinstance(node, dict):
+        if key == "moe":
+            routed = sum(node[w].numel() for w in ROUTED_KEYS)
+            return (node["router"].numel() + routed
+                    * cfg.num_experts_per_tok // cfg.num_experts
+                    + product_weights(cfg, node.get("shared", {})))
+        return sum(product_weights(cfg, v, k) for k, v in node.items())
+    return node.numel() if key in PRODUCT_KEYS else 0
+
+
+def lm_token_weights(cfg, params):
+    """``product_weights`` over the model: every layer, and zamba2's shared
+    block once an application."""
+    from repro_torch.configs.base import MAMBA2_SHARED
+    return sum(product_weights(cfg, p) for p in params["layers"]) + \
+        cfg.pattern.count(MAMBA2_SHARED) * product_weights(
+            cfg, params.get("shared_attn", {}))
+
+
+def lm_active_bound(cfg, params, b, s):
+    """The least time of a prefill: each token's active weights
+    (``lm_token_weights``: k routed experts, the shared experts and the
+    router of a MoE layer) at 2 operations a weight, causal attention's
+    Q·Kᵀ and P·V on every attention layer, the last position's readout,
+    at the bf16 tensor-core rate; beside every bf16 weight read once. The
+    recurrent scans' own operations are not counted. Returns (ms, bound
+    by, operations, bytes)."""
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA2_SHARED, MOE
+    a_bytes, a_ops = attention_work(b, s, cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.resolved_head_dim)
+    n_attn = sum(kind in (ATTN, ATTN_LOCAL, MOE, MAMBA2_SHARED)
+                 for kind in cfg.pattern)
+    ops = 2.0 * lm_token_weights(cfg, params) * b * s + n_attn * a_ops \
+        + 2.0 * b * cfg.d_model * cfg.vocab_size
+    nbytes = lm_weight_bytes(params) + n_attn * a_bytes
+    return bound_ms(nbytes, ops, BF16_OPS_PER_S) + (ops, nbytes)
+
+
+def lm_decode_bound(cfg, params, b, live_experts):
+    """A decode step's least time: every weight read once but an untied
+    input embedding (``b`` rows of it) and the routed experts (only the
+    ``live_experts`` the step chose, summed over the MoE layers), beside
+    2 operations a weight a token and the readout."""
+    layers = params["layers"]
+    routed = sum(p["moe"][w].numel() * p["moe"][w].element_size()
+                 for p in layers if "moe" in p for w in ROUTED_KEYS)
+    n_experts = sum("moe" in p for p in layers) * cfg.num_experts
+    nbytes = lm_weight_bytes(params) - routed
+    if n_experts:
+        nbytes += live_experts * routed / n_experts
+    if not cfg.tie_embeddings:
+        embed = params["embed"]
+        nbytes -= (embed.numel() - b * cfg.d_model) * embed.element_size()
+    ops = 2.0 * b * (lm_token_weights(cfg, params)
+                     + cfg.d_model * cfg.vocab_size)
+    return bound_ms(nbytes, ops, BF16_OPS_PER_S)
+
+
+def wrapped(module, name, make):
+    """Context: ``module.name`` replaced by ``make(original)``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swap():
+        orig = getattr(module, name)
+        setattr(module, name, make(orig))
+        try:
+            yield
+        finally:
+            setattr(module, name, orig)
+    return swap()
+
+
+def moe_recorder(records, inputs=None):
+    """A ``moe_ffn`` that also records each call's top-k expert sets
+    (sorted, (N, k)) and, into ``inputs``, its input."""
+    from repro_torch.models import moe as M
+
+    def make(orig):
+        def moe_ffn(cfg, p, x, ctx=None):
+            y, aux = orig(cfg, p, x, ctx)
+            _, _, top_i = M.route(cfg, p, x.reshape(-1, x.shape[-1]))
+            records.append(top_i.sort(-1).values)
+            if inputs is not None:
+                inputs.append(x)
+            return y, aux
+        return moe_ffn
+    return make
+
+
+def moe_ffn_annotated(orig):
+    """A ``moe_ffn`` inside a ``record_function("moe_ffn")`` range."""
+    import torch
+
+    def moe_ffn(cfg, p, x, ctx=None):
+        with torch.profiler.record_function("moe_ffn"):
+            return orig(cfg, p, x, ctx)
+    return moe_ffn
+
+
+def flip_shares(a, b):
+    """Per MoE layer, the share of tokens whose top-k set differs."""
+    return [float((x != y).any(-1).float().mean()) for x, y in zip(a, b)]
+
+
+def region_device_share(fn, region):
+    """Share of the device time of one call of ``fn`` spent in kernels
+    launched inside ``torch.profiler.record_function(region)`` ranges (a
+    host op's ``device_time_total`` holds its children's kernels), from
+    one profiler session after a warm-up; with the region's call count
+    and both times in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        # the range's own device-side annotation is a span, not a kernel
+        total = sum(e.self_device_time_total for e in events
+                    if e.device_type == cuda and e.name != region)
+        mine = [e for e in events
+                if e.device_type != cuda and e.name == region]
+        inside = sum(e.device_time_total for e in mine)
+        if total > 0 and inside > 0:
+            break
+    check(total > 0 and 0 < inside <= total,
+          f"region_device_share: {region} {inside} of {total} us")
+    return inside / total, len(mine), inside / 1e3, total / 1e3
+
+
+def k9_counted(fn, *args):
+    """``fn(*args)`` and the K9 launches it made."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    fa.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, fa.LAUNCHES["flash_attention"]
+
+
+def k9_against_twin(cfg, p, h, positions, what):
+    """One attention's prefill inputs (``p`` its weights, ``h`` its normed
+    input, batch 1): K9 on the rope'd, pre-scaled q at scale 1 is what
+    ``flash_mha`` returns, the same bits on a second launch, and within
+    the bf16 bars of its twin."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+
+    with torch.inference_mode():
+        q, k, v = A.prefill_qkv(cfg, p, h, positions)
+
+        def heads(t):
+            return t[0].transpose(0, 1).contiguous()     # (H, S, hd)
+
+        qf, kf, vf = heads(q), heads(k), heads(v)
+        got = fa.flash_attention(qf, kf, vf, causal=True, scale=1.0)
+        check(torch.equal(got, heads(ops.flash_mha(q, k, v, causal=True,
+                                                      scale=1.0))),
+              f"{what}'s flash_mha output is not K9's")
+        check(torch.equal(got, fa.flash_attention(qf, kf, vf, causal=True,
+                                                  scale=1.0)),
+              f"{what}: two launches of K9 differ")
+        want = fa.flash_attention_plain(qf, kf, vf, causal=True, scale=1.0)
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
+                         atol=BF16_ATOL),
+          f"{what}'s K9 output off its twin by {err}")
+    return {"heads": cfg.num_heads, "head_dim": cfg.resolved_head_dim,
+            "max_abs_err": err, "tol": f"rtol={BF16_RTOL} atol={BF16_ATOL}",
+            "bit_equal_two_launches": True}
+
+
+def lm_build(cfg, device):
+    """The bf16 parameters by the layer-at-a-time builder, seeded: counts,
+    bytes, seconds and the build's peak memory over the weights (at most
+    twice the largest fp32 piece drawn at once)."""
+    import torch
+    from repro_torch.models import transformer as T
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, LM_SEED, device=device, cast=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = lm_weight_bytes(params)
+    over = torch.cuda.max_memory_allocated() - base - weight_bytes
+    # the largest array or layer drawn at once, in fp32
+    piece = max(2 * lm_weight_bytes(p) for p in
+                [*params["layers"], *(params[k] for k in params
+                                      if k != "layers")])
+    check(over <= 2 * piece,
+          f"{cfg.name}: the bf16 build peaked {over} bytes over its "
+          f"weights, more than twice its largest fp32 piece's {piece}")
+    return params, {"params": sum(t.numel() for t in lm_leaves(params)),
+                    "weight_bytes_bf16": weight_bytes, "init_s": init_s,
+                    "init_peak_over_weights": over,
+                    "largest_piece_fp32_bytes": piece}
+
+
+def lm_serve_checks(cfg, params, device, *, s, k9, name, moe=False):
+    """One model's serving path on the card, from the port's entry points:
+    a B = 1 prefill of ``s`` tokens launching K9 ``k9`` times (ms,
+    tokens/s, its bound, K9's share of device time, host syncs: one a MoE
+    layer; for a MoE model the MoE FFN's share and each layer's routing
+    flips against the plain route), the last logits against the plain
+    route where there is attention, decode against prefill on 16 tokens
+    (relative L2 of the last logits within the model's LM_BF16_REL_L2; a
+    MoE model's routing flips between the two reported per layer), and
+    generate at launch/serve.py's defaults (deterministic, no K9 launch,
+    ms and host syncs a step, against the weight-read bound of what the
+    step read). Profile lines are named ``profile_{name}_*``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import MOE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.training import make_prefill_step, make_serve_step
+
+    n_moe = cfg.pattern.count(MOE)
+    bar = LM_BF16_REL_L2[cfg.name]
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+
+    def tokens(b, n):
+        return torch.randint(0, cfg.vocab_size, (b, n), generator=gen,
+                             device=device)
+
+    prefill = make_prefill_step(cfg)
+    plain_prefill = make_prefill_step(cfg, attention="plain")
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(section):
+        nonlocal t0
+        out["seconds"][section] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # prefill, B = 1 ------------------------------------------------------
+    batch = {"tokens": tokens(1, s)}
+    prefill(params, batch)                               # warm-up
+    logits, launched = k9_counted(prefill, params, batch)
+    check(launched == k9,
+          f"{name}: one prefill launched K9 {launched} times, not {k9}")
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{name}: prefill logits {tuple(logits.shape)} or values")
+    ms = cuda_ms(lambda: prefill(params, batch), 3, warmup=0)
+    syncs = host_syncs(lambda: prefill(params, batch))
+    check(syncs == n_moe,
+          f"{name}: {syncs} host syncs a prefill, not one a MoE layer "
+          f"({n_moe})")
+    bms, by, ops, nbytes = lm_active_bound(cfg, params, 1, s)
+    share, dev_ms = device_share(profiled(lambda: prefill(params, batch), 1),
+                                 "flash") if k9 else (0.0, None)
+    out["prefill"] = {"B": 1, "S": s, "k9_launches": launched, "ms": ms,
+                      "tokens_per_s": s / ms * 1e3, "bound_ms": bms,
+                      "bound_by": by, "bound_ops": ops,
+                      "bound_bytes": nbytes, "share_of_bound": bms / ms,
+                      "k9_device_share": share, "device_ms": dev_ms,
+                      "host_syncs": syncs}
+    if moe:
+        with wrapped(M, "moe_ffn", moe_ffn_annotated):
+            mshare, calls, moe_ms, total_ms = region_device_share(
+                lambda: prefill(params, batch), "moe_ffn")
+        check(calls == n_moe, f"{name}: {calls} MoE FFN calls a prefill")
+        out["prefill"].update(moe_device_share=mshare,
+                              moe_device_ms=moe_ms,
+                              profiled_device_ms=total_ms)
+    phase_profile(lambda: prefill(params, batch), updates=1,
+                  phase=f"profile_{name}_prefill")
+    lap("prefill")
+
+    # the whole prefill against the plain route --------------------------
+    if k9:
+        routes = {"flash": [], "plain": []}
+        inputs = []
+        with wrapped(M, "moe_ffn", moe_recorder(routes["flash"], inputs)):
+            logits, _ = k9_counted(prefill, params, batch)
+        with wrapped(M, "moe_ffn", moe_recorder(routes["plain"])):
+            plain, launched = k9_counted(plain_prefill, params, batch)
+        check(launched == 0,
+              f"{name}: the plain route launched K9 {launched} times")
+        err = rel_l2(logits, plain)
+        out["prefill"].update(
+            plain_ms=cuda_ms(lambda: plain_prefill(params, batch), 1,
+                             warmup=0),
+            rel_l2_vs_plain=err,
+            max_abs_err_vs_plain=float((logits.float() - plain.float())
+                                       .abs().max()),
+            argmax_equal_plain=bool(torch.equal(logits.argmax(-1),
+                                                plain.argmax(-1))),
+            tol=f"relative L2 {bar}")
+        if moe:
+            flips = flip_shares(routes["flash"], routes["plain"])
+            out["prefill"]["routing_flip_share_vs_plain"] = {
+                "per_moe_layer": flips, "max": max(flips),
+                "mean": sum(flips) / len(flips)}
+            out["moe_ffn_layer1"] = moe_ffn_vs_fp32(
+                cfg, params["layers"][1]["moe"],
+                inputs[cfg.pattern[:1].count(MOE)], name)
+        check(err <= bar,
+              f"{name}: the K9 prefill off the plain route's by {err} "
+              "relative L2")
+        del plain, routes, inputs
+        lap("plain")
+    del batch, logits
+
+    # decode against prefill on 16 tokens --------------------------------
+    bsz, plen = LM_SERVE["batch"], LM_SERVE["prompt"]
+    prompt = tokens(bsz, plen)
+    serve = make_serve_step(cfg)
+    routes = {"prefill": [], "decode": []}
+    with wrapped(M, "moe_ffn", moe_recorder(routes["prefill"])):
+        want = prefill(params, {"tokens": prompt})
+    caches = T.init_caches(cfg, bsz, plen, dtype=torch.float32,
+                           device=device)
+    fa.reset_launches()
+    with wrapped(M, "moe_ffn", moe_recorder(routes["decode"])):
+        for t in range(plen):
+            _, got, caches = serve(params, caches, prompt[:, t],
+                                   torch.full((bsz,), t, dtype=torch.int32,
+                                              device=device))
+    torch.cuda.synchronize()
+    check(fa.LAUNCHES["flash_attention"] == 0, f"{name}: decode launched K9")
+    err = rel_l2(got, want)
+    out["decode_vs_prefill"] = {
+        "B": bsz, "prompt": plen, "rel_l2": err,
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "argmax_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+        "tol": f"relative L2 {bar}"}
+    if moe:
+        # step t's call at MoE layer l routes token (b, t): the prefill's
+        # row b·plen + t of that layer
+        dec = [torch.stack([routes["decode"][t * n_moe + l]
+                            for t in range(plen)], 1).reshape(bsz * plen, -1)
+               for l in range(n_moe)]
+        flips = flip_shares(dec, routes["prefill"])
+        out["decode_vs_prefill"]["routing_flip_share"] = {
+            "per_moe_layer": flips, "max": max(flips),
+            "mean": sum(flips) / len(flips)}
+    del routes
+    check(err <= bar,
+          f"{name}: decode's logits off the prefill's by {err} relative L2")
+    pos = torch.full((bsz,), plen - 1, dtype=torch.int32, device=device)
+    step_syncs = host_syncs(lambda: serve(params, caches, prompt[:, -1],
+                                          pos))
+    check(step_syncs == n_moe,
+          f"{name}: {step_syncs} host syncs a decode step, not {n_moe}")
+    step_dev = device_ms(lambda: serve(params, caches, prompt[:, -1], pos),
+                         reps=3)
+    phase_profile(lambda: serve(params, caches, prompt[:, -1], pos),
+                  updates=2, phase=f"profile_{name}_decode")
+    del caches, want, got
+    lap("decode")
+
+    # serving: launch/serve.py's generate --------------------------------
+    new = LM_SERVE["new_tokens"]
+    rng = np.random.default_rng(LM_SEED)
+    host_prompt = rng.integers(0, cfg.vocab_size, (bsz, plen))
+    live = []
+
+    def live_recorder(orig):
+        def moe_ffn(cfg_, p, x, ctx=None):
+            y, aux = orig(cfg_, p, x, ctx)
+            live.append((aux["counts"] > 0).sum())
+            return y, aux
+        return moe_ffn
+
+    with wrapped(M, "moe_ffn", live_recorder):
+        first = generate(cfg, params, host_prompt, new, device=device)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    second = generate(cfg, params, host_prompt, new, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launched = fa.LAUNCHES["flash_attention"]
+    check(launched == 0, f"{name}: generate launched K9 {launched} times")
+    check(torch.equal(first, second), f"{name}: two generate runs differ")
+    check(second.shape == (bsz, new),
+          f"{name}: generated {tuple(second.shape)}")
+    steps = plen + new
+    live_per_step = float(sum(int(n) for n in live)) / steps
+    dec_bound, dec_by = lm_decode_bound(cfg, params, bsz, live_per_step)
+    out["serve"] = {"B": bsz, "prompt": plen, "new_tokens": new,
+                    "wall_s": wall, "ms_per_step": wall * 1e3 / steps,
+                    "step_device_ms": step_dev,
+                    "host_syncs_per_step": step_syncs,
+                    "tokens_per_s": bsz * new / wall,
+                    "tokens_per_s_incl_prompt": bsz * steps / wall,
+                    "bound_ms_per_step": dec_bound, "bound_by": dec_by,
+                    "k9_launches": launched, "deterministic": True,
+                    "sample": second[0, :12].tolist()}
+    if n_moe:
+        out["serve"]["live_experts_per_moe_layer_step"] = \
+            live_per_step / n_moe
+    lap("serve")
+    return out
+
+
+def moe_ffn_vs_fp32(cfg, p, x, name):
+    """A MoE layer's FFN on the card (bf16) against the same function in
+    fp32 from the same weights and input: relative L2 of the outputs and
+    the share of tokens whose top-k set differs."""
+    import dataclasses
+    import torch
+    from repro_torch.models import moe as M
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float()) for k, v in p.items()}
+    y, aux = M.moe_ffn(cfg, p, x)
+    y32, _ = M.moe_ffn(cfg32, p32, x.float())
+    flat = x.reshape(-1, x.shape[-1])
+    top = M.route(cfg, p, flat)[2].sort(-1).values
+    top32 = M.route(cfg32, p32, flat.float())[2].sort(-1).values
+    err = rel_l2(y, y32)
+    flip = flip_shares([top], [top32])[0]
+    check(bool(torch.isfinite(y.float()).all()) and err <= LM_MOE_FFN_REL_L2,
+          f"{name}: layer 1's bf16 MoE FFN off its fp32 function by {err}")
+    del p32
+    return {"tokens": flat.shape[0], "rel_l2_vs_fp32": err,
+            "topk_flip_share": flip, "tol": f"relative L2 "
+            f"{LM_MOE_FFN_REL_L2}", "dropped": float(aux["dropped"]),
+            "counts_max": float(aux["counts"].max()),
+            "counts_min": float(aux["counts"].min())}
+
+
+def lm_fp32_agreement(cfg, device, s):
+    """The agreement checks in fp32 at ``LM_FP32_LAYERS`` layers: fp32
+    weights from the seed (the bf16 model's masters for those layers, the
+    draws coming in the same order), the last logits of the K9 prefill
+    (K9's fp32 mode) against the plain route's, and decode against
+    prefill on 16 tokens, each within LM_FP32_REL_L2; a MoE model's
+    routing flips reported. Emits an ``lm_fp32`` line."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import MAMBA2_SHARED, MOE
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.training import make_prefill_step, make_serve_step
+
+    layers = LM_FP32_LAYERS[cfg.name]
+    cfg = dataclasses.replace(cfg, dtype="float32", num_layers=layers,
+                              layer_pattern=cfg.pattern[:layers])
+    n_moe = cfg.pattern.count(MOE)
+    params = T.init_params(cfg, LM_SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s),
+                                     generator=gen, device=device)}
+    routes = {"flash": [], "plain": []}
+    with wrapped(M, "moe_ffn", moe_recorder(routes["flash"])):
+        logits, k9 = k9_counted(make_prefill_step(cfg), params, batch)
+    with wrapped(M, "moe_ffn", moe_recorder(routes["plain"])):
+        plain = make_prefill_step(cfg, attention="plain")(params, batch)
+    want_k9 = layers if n_moe else cfg.pattern.count(MAMBA2_SHARED)
+    check(k9 == want_k9, f"{cfg.name} fp32: K9 {k9} launches, not {want_k9}")
+    out = {"layers": layers, "dtype": "float32", "S": s, "k9_launches": k9,
+           "rel_l2_vs_plain": rel_l2(logits, plain),
+           "tol": f"relative L2 {LM_FP32_REL_L2}"}
+    if n_moe:
+        out["routing_flips_vs_plain_max"] = max(
+            flip_shares(routes["flash"], routes["plain"]))
+    bsz, plen = LM_SERVE["batch"], LM_SERVE["prompt"]
+    prompt = torch.randint(0, cfg.vocab_size, (bsz, plen), generator=gen,
+                           device=device)
+    want = make_prefill_step(cfg)(params, {"tokens": prompt})
+    serve = make_serve_step(cfg)
+    caches = T.init_caches(cfg, bsz, plen, dtype=torch.float32,
+                           device=device)
+    for t in range(plen):
+        _, got, caches = serve(params, caches, prompt[:, t],
+                               torch.full((bsz,), t, dtype=torch.int32,
+                                          device=device))
+    out["decode_rel_l2_vs_prefill"] = rel_l2(got, want)
+    emit({"phase": "lm_fp32", "arch": cfg.name, **out})
+    check(out["rel_l2_vs_plain"] <= LM_FP32_REL_L2
+          and out["decode_rel_l2_vs_prefill"] <= LM_FP32_REL_L2,
+          f"{cfg.name} fp32: {out}")
+    del params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_lm(device):
     """The LM template's serving path at Qwen2.5-3B's full width (36
     layers, d_model 2,048, 16 query and 2 KV heads of 128, d_ff 11,008,
     vocab 151,936, tied embeddings, QKV bias), weights from the port's
-    seeded init, bf16 copy made once: prefill of one 4,096-token sequence
-    (K9 36 times, once a layer, in one call; ms and tokens/s against its
-    bound), layer 0's K9 output against its twin at the bf16 bars and the
-    same bits twice, the whole prefill against the plain route's, a
-    32,768-token prefill (ms, K9's share of device time, peak memory),
-    decode against prefill on 16 tokens, and generate at batch 4, prompt
-    16, 32 new tokens: deterministic, no K9 launch, ms a decode step
-    against the weight-read bound."""
-    import numpy as np
+    seeded init, bf16 copy made once by cast_params: lm_serve_checks at S
+    = 4,096 (K9 36 times a prefill, no host sync), layer 0's K9 output
+    against its twin at the bf16 bars and the same bits twice, and a
+    32,768-token prefill (ms, K9's share of device time, peak memory)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import attention as A
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import apply_norm, compute_dtype
-    from repro_torch.training import make_prefill_step, make_serve_step
+    from repro_torch.training import make_prefill_step
 
     cfg = get_config(LM_ARCH)
     check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -3726,99 +4266,37 @@ def phase_lm(device):
     del masters
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in lm_leaves(params))
-    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    weight_bytes = lm_weight_bytes(params)
+    out = {"phase": "lm", "arch": cfg.name, "params": n_params,
+           "weight_bytes_bf16": weight_bytes, "init_s": init_s}
+    out.update(lm_serve_checks(cfg, params, device, s=LM_PREFILL_S,
+                               k9=cfg.num_layers, name="lm"))
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 1)
 
-    def tokens(b, s):
-        return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+    def tokens(s):
+        return torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
                              device=device)
 
-    prefill = make_prefill_step(cfg)
-    plain_prefill = make_prefill_step(cfg, attention="plain")
-
-    def counted(fn, *args):
-        fa.reset_launches()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, fa.LAUNCHES["flash_attention"]
-
-    # prefill, B = 1, S = 4,096 ------------------------------------------
-    batch = {"tokens": tokens(1, LM_PREFILL_S)}
-    prefill(params, batch)                               # warm-up
-    logits, k9 = counted(prefill, params, batch)
-    check(k9 == cfg.num_layers,
-          f"lm: one prefill launched K9 {k9} times, not {cfg.num_layers}")
-    check(logits.shape == (1, cfg.vocab_size)
-          and bool(torch.isfinite(logits.float()).all()),
-          f"lm: prefill logits {tuple(logits.shape)} or values")
-    ms = cuda_ms(lambda: prefill(params, batch), 5, warmup=0)
-    bms, by = lm_prefill_bound(cfg, params, 1, LM_PREFILL_S)
-    share, dev_ms = device_share(profiled(lambda: prefill(params, batch), 2),
-                                 "flash")
-    phase_profile(lambda: prefill(params, batch), updates=2,
-                  phase="profile_lm_prefill")
-    out = {"phase": "lm", "arch": cfg.name, "params": n_params,
-           "weight_bytes_bf16": weight_bytes, "init_s": init_s,
-           "prefill": {"B": 1, "S": LM_PREFILL_S, "k9_launches": k9,
-                       "ms": ms, "tokens_per_s": LM_PREFILL_S / ms * 1e3,
-                       "bound_ms": bms, "bound_by": by,
-                       "k9_device_share": share,
-                       "device_ms": dev_ms / 2}}
-
     # layer 0's attention: K9 against its twin ---------------------------
-    dtype = compute_dtype(cfg)
-    x, positions = T._embed(cfg, params, batch, dtype)
-    layer = params["layers"][0]
-    q, k, v = A.prefill_qkv(cfg, layer["attn"],
-                            apply_norm(cfg, layer["norm1"], x), positions)
-
-    def heads(t):
-        return t[0].transpose(0, 1).contiguous()     # (H, S, hd)
-
-    qf, kf, vf = heads(q), heads(k), heads(v)
-    got = fa.flash_attention(qf, kf, vf, causal=True, scale=1.0)
-    check(torch.equal(got, heads(ops.flash_mha(q, k, v, causal=True,
-                                                  scale=1.0))),
-          "lm: layer 0's flash_mha output is not K9's")
-    check(torch.equal(got, fa.flash_attention(qf, kf, vf, causal=True,
-                                              scale=1.0)),
-          "lm: two launches of K9 on layer 0 differ")
-    want = fa.flash_attention_plain(qf, kf, vf, causal=True, scale=1.0)
-    err = float((got.float() - want.float()).abs().max())
-    check(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
-                         atol=BF16_ATOL),
-          f"lm: layer 0's K9 output off its twin by {err}")
-    out["layer0_attention"] = {"max_abs_err": err,
-                               "tol": f"rtol={BF16_RTOL} atol={BF16_ATOL}",
-                               "bit_equal_two_launches": True}
-    del x, q, k, v, qf, kf, vf, got, want
-
-    # the whole prefill against the plain route --------------------------
-    plain, k9_plain = counted(plain_prefill, params, batch)
-    check(k9_plain == 0, f"lm: the plain route launched K9 {k9_plain} times")
-    err = rel_l2(logits, plain)
-    out["prefill"].update(
-        plain_ms=cuda_ms(lambda: plain_prefill(params, batch), 2, warmup=0),
-        rel_l2_vs_plain=err,
-        max_abs_err_vs_plain=float((logits.float() - plain.float()).abs()
-                                   .max()),
-        argmax_equal_plain=bool(torch.equal(logits.argmax(-1),
-                                            plain.argmax(-1))),
-        tol=f"relative L2 {LM_PREFILL_REL_L2}")
-    check(err <= LM_PREFILL_REL_L2,
-          f"lm: the K9 prefill off the plain route's by {err} relative L2")
-    del batch, logits, plain
+    batch = {"tokens": tokens(LM_PREFILL_S)}
+    with torch.inference_mode():
+        x, positions = T._embed(cfg, params, batch, compute_dtype(cfg))
+        layer = params["layers"][0]
+        h = apply_norm(cfg, layer["norm1"], x)
+    out["layer0_attention"] = k9_against_twin(cfg, layer["attn"], h,
+                                              positions, "lm: layer 0")
+    del x, h
 
     # prefill, B = 1, S = 32,768 -----------------------------------------
-    batch = {"tokens": tokens(1, LM_LONG_S)}
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": tokens(LM_LONG_S)}
     torch.cuda.reset_peak_memory_stats()
-    logits, k9 = counted(prefill, params, batch)
+    logits, k9 = k9_counted(prefill, params, batch)
     peak = torch.cuda.max_memory_allocated()
     check(k9 == cfg.num_layers and bool(torch.isfinite(logits.float()).all()),
           f"lm: the 32k prefill launched K9 {k9} times, or its logits")
     ms = cuda_ms(lambda: prefill(params, batch), 2, warmup=0)
-    bms, by = lm_prefill_bound(cfg, params, 1, LM_LONG_S)
+    bms, by, _, _ = lm_active_bound(cfg, params, 1, LM_LONG_S)
     share, dev_ms = device_share(profiled(lambda: prefill(params, batch), 1),
                                  "flash")
     out["prefill_32k"] = {"B": 1, "S": LM_LONG_S, "reduced": "batch 32 -> 1",
@@ -3829,70 +4307,127 @@ def phase_lm(device):
                           "peak_bytes": peak,
                           "peak_bytes_over_weights": peak - weight_bytes}
     del batch, logits
-
-    # decode against prefill on 16 tokens --------------------------------
-    bsz, plen = LM_SERVE["batch"], LM_SERVE["prompt"]
-    prompt = tokens(bsz, plen)
-    want = prefill(params, {"tokens": prompt})
-    serve = make_serve_step(cfg)
-    caches = T.init_caches(cfg, bsz, plen, dtype=torch.float32,
-                           device=device)
-    fa.reset_launches()
-    for t in range(plen):
-        _, got, caches = serve(params, caches, prompt[:, t],
-                               torch.full((bsz,), t, dtype=torch.int32,
-                                          device=device))
-    torch.cuda.synchronize()
-    check(fa.LAUNCHES["flash_attention"] == 0, "lm: decode launched K9")
-    err = rel_l2(got, want)
-    out["decode_vs_prefill"] = {
-        "B": bsz, "prompt": plen, "rel_l2": err,
-        "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "argmax_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
-        "tol": f"relative L2 {LM_DECODE_REL_L2}"}
-    check(err <= LM_DECODE_REL_L2,
-          f"lm: decode's logits off the prefill's by {err} relative L2")
-    pos = torch.full((bsz,), plen - 1, dtype=torch.int32, device=device)
-    step_dev = device_ms(lambda: serve(params, caches, prompt[:, -1], pos),
-                         reps=5)
-    phase_profile(lambda: serve(params, caches, prompt[:, -1], pos),
-                  updates=4, phase="profile_lm_decode")
-    del caches, want, got
-
-    # serving: launch/serve.py's generate --------------------------------
-    new = LM_SERVE["new_tokens"]
-    rng = np.random.default_rng(LM_SEED)
-    host_prompt = rng.integers(0, cfg.vocab_size, (bsz, plen))
-    first = generate(cfg, params, host_prompt, new, device=device)
-    torch.cuda.synchronize()
-    fa.reset_launches()
-    t0 = time.perf_counter()
-    second = generate(cfg, params, host_prompt, new, device=device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k9 = fa.LAUNCHES["flash_attention"]
-    check(k9 == 0, f"lm: generate launched K9 {k9} times")
-    check(torch.equal(first, second), "lm: two generate runs differ")
-    check(second.shape == (bsz, new), f"lm: generated {tuple(second.shape)}")
-    steps = plen + new
-    # every decode step reads the bf16 weights once (the tied embedding
-    # as the readout's matrix)
-    dec_bound, dec_by = bound_ms(weight_bytes, 2.0 * bsz * (
-        lm_matmul_weights(params) + cfg.d_model * cfg.vocab_size),
-        BF16_OPS_PER_S)
-    out["serve"] = {"B": bsz, "prompt": plen, "new_tokens": new,
-                    "wall_s": wall, "ms_per_step": wall * 1e3 / steps,
-                    "step_device_ms": step_dev,
-                    "tokens_per_s": bsz * new / wall,
-                    "tokens_per_s_incl_prompt": bsz * steps / wall,
-                    "bound_ms_per_step": dec_bound, "bound_by": dec_by,
-                    "k9_launches": k9, "deterministic": True,
-                    "sample": second[0, :12].tolist()}
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def phase_lm_moe(device):
+    """DeepSeekMoE-16B unreduced (28 layers, d_model 2,048, 16 heads of
+    128, 64 routed experts of 1,408 at top 6, 2 shared, layer 0 dense at
+    10,944, vocab 102,400) from the bf16 builder: lm_serve_checks at S =
+    4,096 (K9 28 times a prefill), the MoE FFN's share of device time,
+    host syncs a prefill and a decode step (one a MoE layer), layer 1's
+    FFN against fp32, routing flips against the plain route; then
+    Qwen3-MoE-30B-A3B at full width with its depth cut to 8 layers (128
+    experts at top 8, norm_topk_prob, qk-norm, 32 / 4 heads): the same
+    checks. Each model is freed before the next is built, and its
+    agreement checks run again in fp32 at a cut depth
+    (lm_fp32_agreement)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_MOE_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.num_experts, cfg.num_experts_per_tok, cfg.num_shared_experts,
+           cfg.moe_d_ff, cfg.dense_d_ff, cfg.vocab_size) == LM_MOE_WIDTH,
+          f"lm_moe: {LM_MOE_ARCH} is not at its full width: {cfg}")
+    qwen3 = get_config(LM_QWEN3_ARCH)
+    qwen3 = dataclasses.replace(
+        qwen3, num_layers=LM_QWEN3_LAYERS,
+        layer_pattern=qwen3.pattern[:LM_QWEN3_LAYERS])
+    runs = {}
+    for cfg, reduced in ((cfg, None),
+                         (qwen3, f"layers 48 -> {LM_QWEN3_LAYERS}")):
+        params, built = lm_build(cfg, device)
+        row = {"phase": "lm_moe", "arch": cfg.name, "reduced": reduced,
+               **built}
+        row.update(lm_serve_checks(cfg, params, device, s=LM_PREFILL_S,
+                                   k9=cfg.num_layers, name=cfg.name,
+                                   moe=True))
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        emit(row)
+        runs[cfg.name] = row
+        del params
+        torch.cuda.empty_cache()
+        row["fp32"] = lm_fp32_agreement(cfg, device, LM_PREFILL_S)
+    return runs
+
+
+def phase_lm_recurrent(device):
+    """zamba2-1.2B unreduced (38 Mamba2 layers, d_model 2,048, state 64,
+    heads of 64; its shared attention block, 32 heads of 64, on layers 5,
+    11, ..., 35) from the bf16 builder: the first shared block's K9 output
+    against its twin at the bf16 bars, the same bits twice, and
+    lm_serve_checks at S = 4,096 (a multiple of its 256-token chunk; K9 6
+    times a prefill, once a shared block); then xLSTM-1.3B at full width
+    (24 mLSTM and 24 sLSTM layers, 4 heads of 1,024 in the mLSTM), its
+    prefill cut to LM_XLSTM_S tokens: no K9 launch, decode against
+    prefill, generate. Each model's agreement checks run again in fp32 at
+    a cut depth (lm_fp32_agreement)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA2_SHARED
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import apply_norm, compute_dtype
+
+    runs = {}
+    cfg = get_config(LM_ZAMBA_ARCH)
+    shared_at = [i for i, k in enumerate(cfg.pattern) if k == MAMBA2_SHARED]
+    check((cfg.num_layers, cfg.d_model, len(shared_at)) == LM_ZAMBA_WIDTH,
+          f"lm_recurrent: {LM_ZAMBA_ARCH} is not at its full width: {cfg}")
+    params, built = lm_build(cfg, device)
+    row = {"phase": "lm_recurrent", "arch": cfg.name, "reduced": None,
+           "shared_block_layers": shared_at, **built}
+
+    # the first shared block's attention: K9 against its twin ------------
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, LM_PREFILL_S),
+                                     generator=gen, device=device)}
+    shared = params["shared_attn"]
+    first = shared_at[0]
+    with torch.inference_mode():
+        x, positions = T._embed(cfg, params, batch, compute_dtype(cfg))
+        emb0 = x
+        for i in range(first):
+            x, _ = T.apply_layer(cfg, cfg.pattern[i], params["layers"][i], x,
+                                 positions, emb0=emb0, shared=shared)
+        layer = params["layers"][first]
+        x = x + R.mamba2_train(cfg, layer["mamba"],
+                               apply_norm(cfg, layer["norm"], x))
+        h = T._shared_block(cfg, shared, x, emb0)
+    row["shared_block_attention"] = {
+        "layer": first, **k9_against_twin(cfg, shared["attn"], h, positions,
+                                          "lm_recurrent: the shared block")}
+    del batch, x, emb0, h
+    row.update(lm_serve_checks(cfg, params, device, s=LM_PREFILL_S,
+                               k9=len(shared_at), name=cfg.name))
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(row)
+    runs[cfg.name] = row
+    del params, shared
+    torch.cuda.empty_cache()
+    row["fp32"] = lm_fp32_agreement(cfg, device, LM_PREFILL_S)
+
+    cfg = get_config(LM_XLSTM_ARCH)
+    check((cfg.num_layers, cfg.d_model) == LM_XLSTM_WIDTH,
+          f"lm_recurrent: {LM_XLSTM_ARCH} is not at its full width: {cfg}")
+    params, built = lm_build(cfg, device)
+    row = {"phase": "lm_recurrent", "arch": cfg.name,
+           "reduced": f"prefill S 4096 -> {LM_XLSTM_S}", **built}
+    row.update(lm_serve_checks(cfg, params, device, s=LM_XLSTM_S, k9=0,
+                               name=cfg.name))
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(row)
+    runs[cfg.name] = row
+    del params
+    torch.cuda.empty_cache()
+    row["fp32"] = lm_fp32_agreement(cfg, device, LM_XLSTM_S)
+    return runs
 
 
 HYPER_RTOL = 1e-4   # the fp32 update on the card against float64 on the CPU
@@ -4317,6 +4852,10 @@ def main() -> int:
     # masters, then the bf16 copy) come after every LDA phase
     del spec, train, test, ivi, ivi_csr
     lm = phase_lm(device)
+    # the MoE and recurrent blocks after it, each model freed before the
+    # next is built
+    lm_moe = phase_lm_moe(device)
+    lm_recurrent = phase_lm_recurrent(device)
     # each kernel's launches on the path that runs it: K2 and K5 on
     # memo_delta / memo_delta_csr (the training paths run them fused)
     launches.update(fixed_point_csr=launches_csr["fixed_point_csr"],
@@ -4351,6 +4890,13 @@ def main() -> int:
         cvb0["launches"]["segment_scatter"]
     # K9 on the LM path: one launch a layer in one Qwen2.5-3B prefill
     kernels["flash_attention"]["launches_lm"] = lm["prefill"]["k9_launches"]
+    # and on the MoE models' prefills (once a layer) and zamba2's (once a
+    # shared block)
+    kernels["flash_attention"]["launches_lm_moe"] = {
+        arch: row["prefill"]["k9_launches"] for arch, row in lm_moe.items()}
+    kernels["flash_attention"]["launches_lm_recurrent"] = {
+        arch: row["prefill"]["k9_launches"]
+        for arch, row in lm_recurrent.items()}
     for name, task in (("fixed_point", "padded"),
                        ("fixed_point_csr", "csr")):
         row = tune["tasks"][task]

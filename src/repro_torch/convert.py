@@ -11,7 +11,10 @@ loads a whole ``repro`` facade checkpoint (a manifest directory).
 numpy, or the flat dict an npz checkpoint of it holds,
 `repro_torch.checkpoint.io`) to the port's layout, each stage's stacked
 layers unstacked into one dict a layer; ``lm_params_to_repro`` is its
-inverse, so ``repro`` can run on the port's own init.
+inverse, so ``repro`` can run on the port's own init. ``lm_caches_to_repro``
+and ``lm_caches_from_repro`` do the same for the decode caches (KV ring
+buffers, the recurrent blocks' named tuples, zamba2's pairs), so a decode
+can stop in one package and go on in the other.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from repro_torch.checkpoint.io import STEP_KEY
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.memo import DenseMemoStore
 from repro_torch.core.types import GlobalState, resolve_device
-from repro_torch.models.transformer import check_supported, stage_layout
+from repro_torch.models.transformer import stage_layout
 
 STATE_FIELDS = ("lam", "m_vk", "init_mass", "init_frac", "t")
 
@@ -82,12 +85,57 @@ def lda_from_repro_checkpoint(path: str, device=None):
 # ---------------------------------------------------------------------------
 
 LM_TOP_ARRAYS = ("embed", "lm_head", "heads")
+# the top-level dicts: the final norm, zamba2's shared attention block
+LM_TOP_TREES = ("final_norm", "shared_attn")
 
 
 def _tree_map(fn, node):
+    """``fn`` on every leaf of dicts, named tuples and tuples."""
     if isinstance(node, Mapping):
         return {k: _tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_tree_map(fn, v) for v in node))
+    if isinstance(node, tuple):
+        return tuple(_tree_map(fn, v) for v in node)
     return fn(node)
+
+
+def _stack(group):
+    """Trees of one structure → one tree of their leaves stacked."""
+    first = group[0]
+    if isinstance(first, Mapping):
+        return {k: _stack([g[k] for g in group]) for k in first}
+    if isinstance(first, tuple):
+        parts = [_stack([g[i] for g in group]) for i in range(len(first))]
+        return type(first)(*parts) if hasattr(first, "_fields") \
+            else tuple(parts)
+    return np.stack(group)
+
+
+def _to_stages(layers, cfg: ModelConfig) -> tuple:
+    """One tree a layer → ``repro``'s stages: a tuple a stage of a tuple a
+    cycle position, each layer of the position stacked on a leading
+    ``reps`` axis."""
+    stages, start = [], 0
+    for cycle, reps in stage_layout(cfg):
+        n = len(cycle)
+        stages.append(tuple(
+            _stack([layers[start + r * n + pos] for r in range(reps)])
+            for pos in range(n)))
+        start += n * reps
+    return tuple(stages)
+
+
+def _from_stages(stages, cfg: ModelConfig, leaf) -> list:
+    """``_to_stages``' inverse: ``leaf`` of each layer's slice."""
+    layers = []
+    for si, (cycle, reps) in enumerate(stage_layout(cfg)):
+        stage = _child(stages, si)
+        for r in range(reps):
+            for pos in range(len(cycle)):
+                layers.append(_tree_map(lambda a: leaf(np.asarray(a)[r]),
+                                        _child(stage, pos)))
+    return layers
 
 
 def _child(node, i: int):
@@ -115,8 +163,8 @@ def lm_params_from_repro(params_np: Mapping[str, Any], cfg: ModelConfig,
     """``repro``'s params (pytree leaves as numpy or any array numpy reads,
     or the flat ``{path: array}`` of its npz checkpoint) as the port's: the
     same arrays and dtypes on ``device``, ``params["layers"][i]`` for
-    ``cfg.pattern[i]``."""
-    check_supported(cfg)
+    ``cfg.pattern[i]`` (an MoE layer's expert stacks keep their (E, D, F)
+    shape), zamba2's shared block under ``"shared_attn"``."""
     device = resolve_device(device)
     tree = params_np if "stages" in params_np else _nested(params_np)
 
@@ -124,15 +172,10 @@ def lm_params_from_repro(params_np: Mapping[str, Any], cfg: ModelConfig,
         return torch.from_numpy(np.array(a)).to(device)
 
     out = {k: leaf(tree[k]) for k in LM_TOP_ARRAYS if k in tree}
-    out["final_norm"] = _tree_map(leaf, tree["final_norm"])
-    layers = []
-    for si, (cycle, reps) in enumerate(stage_layout(cfg)):
-        stage = _child(tree["stages"], si)
-        for r in range(reps):
-            for pos in range(len(cycle)):
-                layers.append(_tree_map(lambda a: leaf(np.asarray(a)[r]),
-                                        _child(stage, pos)))
-    out["layers"] = layers
+    for k in LM_TOP_TREES:
+        if k in tree:
+            out[k] = _tree_map(leaf, tree[k])
+    out["layers"] = _from_stages(tree["stages"], cfg, leaf)
     return out
 
 
@@ -140,27 +183,30 @@ def lm_params_to_repro(params: Mapping[str, Any], cfg: ModelConfig) -> dict:
     """The port's LM params as ``repro``'s pytree of numpy arrays: each
     stage's layers stacked on a leading ``reps`` axis, stages and cycle
     positions as tuples."""
-    check_supported(cfg)
 
     def arr(t):
         return t.detach().cpu().numpy()
 
     out = {k: arr(params[k]) for k in LM_TOP_ARRAYS if k in params}
-    out["final_norm"] = _tree_map(arr, params["final_norm"])
-    layers = [_tree_map(arr, p) for p in params["layers"]]
-
-    def stack(group):
-        first = group[0]
-        if isinstance(first, Mapping):
-            return {k: stack([g[k] for g in group]) for k in first}
-        return np.stack(group)
-
-    stages, start = [], 0
-    for cycle, reps in stage_layout(cfg):
-        n = len(cycle)
-        stages.append(tuple(
-            stack([layers[start + r * n + pos] for r in range(reps)])
-            for pos in range(n)))
-        start += n * reps
-    out["stages"] = tuple(stages)
+    for k in LM_TOP_TREES:
+        if k in params:
+            out[k] = _tree_map(arr, params[k])
+    out["stages"] = _to_stages([_tree_map(arr, p)
+                                for p in params["layers"]], cfg)
     return out
+
+
+def lm_caches_to_repro(caches, cfg: ModelConfig) -> tuple:
+    """The port's decode caches (one a layer, as ``init_caches`` and
+    ``decode_step`` give them) as ``repro``'s ``init_caches`` layout of
+    numpy arrays: stages of cycle positions, each stacked on ``reps``."""
+    return _to_stages([_tree_map(lambda t: t.detach().cpu().numpy(), c)
+                       for c in caches], cfg)
+
+
+def lm_caches_from_repro(caches_np, cfg: ModelConfig, device=None) -> list:
+    """``repro``'s decode caches (its stage layout, numpy leaves) as the
+    port's, one a layer on ``device``, named tuples kept."""
+    device = resolve_device(device)
+    return _from_stages(caches_np, cfg,
+                        lambda a: torch.from_numpy(np.array(a)).to(device))

@@ -1,10 +1,9 @@
-"""Serving launcher: batched autoregressive decode for the attention-block
-archs (``repro.launch.serve``: the same flags and printout).
+"""Serving launcher: batched autoregressive decode for every arch of the
+LM template (``repro.launch.serve``: the same flags and printout).
 
 ``--reduced`` is ``repro``'s flag as it is: ``store_true`` with default
 True, so the CLI always runs the reduced config; ``generate`` takes any
-config, full width included. The MoE and recurrent archs raise, naming
-the ROADMAP item that ports them. Runs on CUDA unless ``--device cpu``.
+config, full width included. Runs on CUDA unless ``--device cpu``.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
@@ -70,7 +69,7 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(seq_len_hint=args.prompt_len)
-    params = T.cast_params(cfg, T.init_params(cfg, args.seed, device=device))
+    params = T.init_params(cfg, args.seed, device=device, cast=True)
     rng = np.random.default_rng(args.seed)
     b = args.batch
     tok_shape = ((b, args.prompt_len, cfg.num_codebooks)

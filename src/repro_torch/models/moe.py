@@ -1,0 +1,164 @@
+"""Mixture-of-Experts FFN (``repro.models.moe``) on one card.
+
+``repro`` sorts the (token, slot) pairs by routed expert (a stable
+argsort), slices the contiguous segment of a model rank's experts (one
+capacity-bounded slice), runs the expert FFNs with ``jax.lax.ragged_dot``
+and scatters back; over a mesh a ``psum`` combines the ranks' partial sums.
+The port keeps that order of operations with ``ctx=None`` (one rank, a
+dropless capacity):
+- the router's logits are a product in the activations' dtype, cast to
+  fp32, then softmax and top-k; ties go to the lower expert index, as
+  ``jax.lax.top_k`` breaks them (a stable descending sort);
+- each expert's three products run through ``torch.mm`` on its sorted rows,
+  a loop over the non-empty segments, whose sizes it reads on the host
+  (one device-to-host read a call);
+- each token's k expert outputs are added in ascending expert order in the
+  activations' dtype, as ``repro``'s scatter-add over the sorted rows
+  does: deterministic, with no atomics.
+
+A ``MeshCtx`` raises (ROADMAP §1 item 10.4).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Params, truncated_normal
+
+AuxDict = Dict[str, torch.Tensor]
+
+
+def mesh_not_ported(what: str = "ctx") -> NotImplementedError:
+    """The error of a ``MeshCtx``: ``repro``'s sharded layout (its
+    ``_shard`` constraints, the MoE ``shard_map`` islands) is not ported;
+    on one card ``_shard`` is the identity."""
+    return NotImplementedError(
+        f"{what}: sharding the LM over a mesh (repro's sharding/ and "
+        "launch/dryrun.py) is not ported to repro_torch yet (ROADMAP §1 "
+        "item 10.4); one card runs with ctx=None")
+
+
+def moe_init(cfg: ModelConfig, *, generator, device) -> Params:
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    draw = dict(generator=generator, device=device)
+    p: Params = {
+        "router": truncated_normal((d, e), d ** -0.5, **draw),
+        "w_gate": truncated_normal((e, d, f), d ** -0.5, **draw),
+        "w_up": truncated_normal((e, d, f), d ** -0.5, **draw),
+        "w_down": truncated_normal((e, f, d), f ** -0.5, **draw),
+    }
+    if cfg.num_shared_experts:
+        fs = cfg.moe_d_ff * cfg.num_shared_experts
+        p["shared"] = {
+            "w_gate": truncated_normal((d, fs), d ** -0.5, **draw),
+            "w_up": truncated_normal((d, fs), d ** -0.5, **draw),
+            "w_down": truncated_normal((fs, d), fs ** -0.5, **draw),
+        }
+    return p
+
+
+def _capacity(cfg: ModelConfig, n_tokens: int, m_size: int) -> int:
+    """Static per-rank token-slot capacity."""
+    rows = n_tokens * cfg.num_experts_per_tok
+    cap = int(rows * cfg.moe_capacity_factor / m_size) + 8
+    cap = max(cap, 8 * cfg.num_experts_per_tok)
+    cap = min(cap, rows)
+    return ((cap + 7) // 8) * 8 if cap >= 8 else cap
+
+
+def route(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The router: (probs (N, E) fp32, top-k weights (N, k) fp32, top-k
+    expert ids (N, k)), the weights renormalised where
+    ``cfg.norm_topk_prob`` is set. x: (N, D)."""
+    logits = (x @ p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    # the k largest, the lower index first among equals (jax.lax.top_k)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p = top_p[:, :cfg.num_experts_per_tok]
+    top_i = top_i[:, :cfg.num_experts_per_tok]
+    if cfg.norm_topk_prob:
+        top_p = top_p / (top_p.sum(-1, keepdim=True) + 1e-20)
+    return probs, top_p, top_i
+
+
+def expert_ffn(p: Params, g: int, xs: torch.Tensor) -> torch.Tensor:
+    """Routed expert ``g``'s SwiGLU FFN on its rows xs (M, D)."""
+    dt = xs.dtype
+    h = F.silu(xs @ p["w_gate"][g].to(dt)) * (xs @ p["w_up"][g].to(dt))
+    return h @ p["w_down"][g].to(dt)
+
+
+def moe_ffn_local(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  rank: int = 0, m_size: int = 1
+                  ) -> Tuple[torch.Tensor, AuxDict]:
+    """Routed-expert FFN for model rank ``rank`` of ``m_size``; one card
+    runs rank 0 of 1. x: (N, D); ``p["w_*"]``: the rank's expert shard
+    (E/m, D|F, F|D); ``p["router"]``: every expert's. Returns the partial
+    output and the aux statistics."""
+    n, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    el = e // m_size
+    dt = x.dtype
+
+    probs, top_p, top_i = route(cfg, p, x)
+    e_flat = top_i.reshape(-1)                                  # (N·k,)
+    w_flat = top_p.reshape(-1)
+    e_sorted, order = torch.sort(e_flat, stable=True)           # stable
+    # each expert's first sorted row (bincount would read max() on the host)
+    offsets = torch.searchsorted(e_sorted, torch.arange(
+        e + 1, device=x.device, dtype=e_sorted.dtype))          # (E+1,)
+    counts = torch.diff(offsets)                                # (E,)
+
+    cap = _capacity(cfg, n, m_size)
+    # the segment sizes on the host: one device-to-host read a call
+    off = offsets[rank * el: rank * el + el + 1].tolist()
+    lo, hi = off[0], off[-1]
+    live = min(hi - lo, cap)
+    # each (token, slot) pair's output at its sorted position; rows past
+    # the capacity stay 0, as repro's ``live`` mask makes them
+    out = x.new_zeros((n * k, d))
+    for j in range(el):
+        a, b = min(max(off[j] - lo, 0), live), min(max(off[j + 1] - lo, 0),
+                                                    live)
+        if a == b:
+            continue
+        rows = order[lo + a: lo + b]
+        out[lo + a: lo + b] = expert_ffn(p, j, x[rows // k]) \
+            * w_flat[rows].to(dt)[:, None]
+
+    # each token's k rows in ascending expert order, added in ``dt``
+    where = torch.empty_like(order)
+    where[order] = torch.arange(n * k, device=x.device)
+    slots = torch.argsort(top_i, dim=-1)                        # (N, k)
+    flat = torch.arange(n, device=x.device)[:, None] * k + slots
+    parts = out[where[flat]]                                    # (N, k, D)
+    y = parts[:, 0]
+    for j in range(1, k):
+        y = y + parts[:, j]
+
+    if cfg.num_shared_experts:
+        sp = p["shared"]
+        hs = F.silu(x @ sp["w_gate"].to(dt)) * (x @ sp["w_up"].to(dt))
+        y = y + hs @ sp["w_down"].to(dt)
+
+    aux = {
+        "counts": counts.float(),
+        "lb_loss": e * torch.sum((counts / (n * k)) * probs.mean(0)),
+        "dropped": torch.full((), float(max((hi - lo) - cap, 0)),
+                              device=x.device),
+    }
+    return y, aux
+
+
+def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            ctx=None) -> Tuple[torch.Tensor, AuxDict]:
+    """x: (B, S, D) → (B, S, D) and the aux statistics; ``ctx`` (a mesh)
+    raises."""
+    if ctx is not None:
+        raise mesh_not_ported()
+    b, s, d = x.shape
+    y, aux = moe_ffn_local(cfg, p, x.reshape(-1, d))
+    return y.reshape(b, s, d), aux

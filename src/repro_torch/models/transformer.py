@@ -1,4 +1,4 @@
-"""Decoder assembly for the attention-block architectures
+"""Decoder assembly for every architecture of the LM template
 (``repro.models.transformer``).
 
 ``repro`` segments the per-layer ``layer_pattern`` into stages of
@@ -8,12 +8,16 @@ and applies them with ``lax.scan``. The port keeps ``segment_pattern`` and
 one parameter dict a layer, ``params["layers"][i]`` for
 ``cfg.pattern[i]``, and applies the layers one after another.
 
-Served here: the ``ATTN``, ``ATTN_LOCAL`` and ``ATTN_PARALLEL`` blocks,
+Served here, for full-sequence prefill (``forward``) and single-token
+decode (``decode_step``): the ``ATTN``, ``ATTN_LOCAL`` and
+``ATTN_PARALLEL`` blocks, the ``MOE`` block (`repro_torch.models.moe`),
+the recurrent blocks ``MAMBA2``, ``MLSTM`` and ``SLSTM``
+(`repro_torch.models.recurrent`), ``MAMBA2_SHARED`` with zamba2's shared
+attention block (one parameter set, ``params["shared_attn"]``, applied at
+many depths to the concatenation of the stream and the embedded input),
 the VLM patch-embedding prefix and MusicGen's multi-codebook embedding and
-readout, for full-sequence prefill (``forward``) and single-token decode
-(``decode_step``). The MoE blocks, the recurrent blocks and sharding over a
-mesh raise ``NotImplementedError`` naming their ROADMAP item; ``loss_fn``
-waits for the training slice.
+readout. Sharding over a mesh raises naming ROADMAP §1 item 10.4;
+``loss_fn`` waits for the training slice (item 10.3).
 """
 from __future__ import annotations
 
@@ -26,43 +30,23 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_PARALLEL, MAMBA2,
                                       ModelConfig, effective_window)
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm,
                                        compute_dtype, mlp_init, norm_init,
                                        rounded, sinusoidal, softcap,
                                        truncated_normal)
+from repro_torch.models.moe import mesh_not_ported
 
 AuxDict = Dict[str, torch.Tensor]
 
-SERVED_KINDS = (ATTN, ATTN_LOCAL, ATTN_PARALLEL)
-# the block kinds not ported yet, by the ROADMAP §1 item that ports them
-NOT_PORTED = {MOE: ("the MoE block (models/moe.py)", "10.1"),
-              MAMBA2: ("the Mamba2 block (models/recurrent.py)", "10.2"),
-              MAMBA2_SHARED: ("the Mamba2 block with zamba2's shared "
-                              "attention (models/recurrent.py)", "10.2"),
-              MLSTM: ("the mLSTM block (models/recurrent.py)", "10.2"),
-              SLSTM: ("the sLSTM block (models/recurrent.py)", "10.2")}
-# the parameter dicts ``norm_init`` makes: repro multiplies fp32
-# normalised activations by them, so they keep the param dtype
-NORM_KEYS = frozenset({"norm", "norm1", "norm2", "norm1_post", "norm2_post",
-                       "norm_in", "final_norm"})
-
-
-def kind_not_ported(cfg: ModelConfig, kind: str) -> NotImplementedError:
-    what, item = NOT_PORTED[kind]
-    return NotImplementedError(
-        f"{cfg.name}: {what} is not ported to repro_torch yet (ROADMAP §1 "
-        f"item {item}); the port serves the attention blocks "
-        f"{', '.join(SERVED_KINDS)}")
-
-
-def mesh_not_ported(what: str = "ctx") -> NotImplementedError:
-    """The error of a ``MeshCtx``: ``repro``'s sharded layout (its
-    ``_shard`` constraints, the MoE ``shard_map`` islands) is not ported;
-    on one card ``_shard`` is the identity."""
-    return NotImplementedError(
-        f"{what}: sharding the LM over a mesh (repro's sharding/ and "
-        "launch/dryrun.py) is not ported to repro_torch yet (ROADMAP §1 "
-        "item 10.4); one card runs with ctx=None")
+# what ``cast_params`` leaves in the param dtype: the parameter dicts
+# ``norm_init`` makes, and the leaves ``repro`` reads in fp32 (not cast to
+# ``cfg.dtype`` at use): Mamba2's ``dt_bias`` and ``a_log``, the recurrent
+# blocks' ``norm_scale``, the sLSTM's recurrent ``r``
+KEEP_FP32 = frozenset({"norm", "norm1", "norm2", "norm1_post", "norm2_post",
+                       "norm_in", "final_norm", "dt_bias", "a_log",
+                       "norm_scale", "r"})
 
 
 def training_not_ported(what: str) -> NotImplementedError:
@@ -72,19 +56,10 @@ def training_not_ported(what: str) -> NotImplementedError:
         "item 10.3); the port serves (prefill and decode)")
 
 
-def _refused(cfg: ModelConfig, kind: str) -> Exception:
-    """The error of a block kind the port does not serve."""
-    return kind_not_ported(cfg, kind) if kind in NOT_PORTED \
-        else ValueError(kind)
-
-
-def check_supported(cfg: ModelConfig, ctx=None) -> None:
-    """Raise for a mesh or for any block kind the port does not serve."""
+def check_ctx(ctx=None) -> None:
+    """Raise for a mesh: one card runs with ``ctx=None``."""
     if ctx is not None:
         raise mesh_not_ported()
-    for kind in cfg.pattern:
-        if kind not in SERVED_KINDS:
-            raise _refused(cfg, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -130,72 +105,114 @@ def stage_layout(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 # init
 # ---------------------------------------------------------------------------
 
+def _attn_layer_init(cfg: ModelConfig, moe: bool, *, generator,
+                     device) -> Params:
+    draw = dict(generator=generator, device=device)
+    p: Params = {"norm1": norm_init(cfg, cfg.d_model, device),
+                 "attn": attn_mod.attn_init(cfg, **draw),
+                 "norm2": norm_init(cfg, cfg.d_model, device)}
+    if moe:
+        p["moe"] = moe_mod.moe_init(cfg, **draw)
+    else:
+        p["mlp"] = mlp_init(cfg, cfg.d_model, cfg.dense_d_ff or cfg.d_ff,
+                            gated=cfg.mlp_gated, **draw)
+    if cfg.post_block_norm:
+        p["norm1_post"] = norm_init(cfg, cfg.d_model, device)
+        p["norm2_post"] = norm_init(cfg, cfg.d_model, device)
+    return p
+
+
 def layer_init(cfg: ModelConfig, kind: str, *, generator, device) -> Params:
     draw = dict(generator=generator, device=device)
-    if kind in (ATTN, ATTN_LOCAL):
-        p: Params = {"norm1": norm_init(cfg, cfg.d_model, device),
-                     "attn": attn_mod.attn_init(cfg, **draw),
-                     "norm2": norm_init(cfg, cfg.d_model, device),
-                     "mlp": mlp_init(cfg, cfg.d_model,
-                                     cfg.dense_d_ff or cfg.d_ff,
-                                     gated=cfg.mlp_gated, **draw)}
-        if cfg.post_block_norm:
-            p["norm1_post"] = norm_init(cfg, cfg.d_model, device)
-            p["norm2_post"] = norm_init(cfg, cfg.d_model, device)
-        return p
+    if kind in (ATTN, ATTN_LOCAL, MOE):
+        return _attn_layer_init(cfg, kind == MOE, **draw)
     if kind == ATTN_PARALLEL:
         return {"norm": norm_init(cfg, cfg.d_model, device),
                 "attn": attn_mod.attn_init(cfg, **draw),
                 "mlp": mlp_init(cfg, cfg.d_model, cfg.d_ff,
                                 gated=cfg.mlp_gated, **draw)}
-    raise _refused(cfg, kind)
+    if kind in (MAMBA2, MAMBA2_SHARED):
+        return {"norm": norm_init(cfg, cfg.d_model, device),
+                "mamba": rec_mod.mamba2_init(cfg, **draw)}
+    if kind == MLSTM:
+        return {"norm": norm_init(cfg, cfg.d_model, device),
+                "cell": rec_mod.mlstm_init(cfg, **draw)}
+    if kind == SLSTM:
+        return {"norm": norm_init(cfg, cfg.d_model, device),
+                "cell": rec_mod.slstm_init(cfg, **draw)}
+    raise ValueError(kind)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Params:
+def shared_attn_init(cfg: ModelConfig, *, generator, device) -> Params:
+    """Zamba2 shared block: consumes concat(x, emb0) (2D → D) then
+    attn + MLP."""
+    draw = dict(generator=generator, device=device)
+    d2 = 2 * cfg.d_model
+    return {"norm_in": norm_init(cfg, d2, device),
+            "in_proj": truncated_normal((d2, cfg.d_model), d2 ** -0.5,
+                                        **draw),
+            "attn": attn_mod.attn_init(cfg, **draw),
+            "norm2": norm_init(cfg, cfg.d_model, device),
+            "mlp": mlp_init(cfg, cfg.d_model, cfg.d_ff, **draw)}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                cast: bool = False) -> Params:
     """Fresh parameters in ``cfg.param_dtype`` (fp32) from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA unless
     named): ``repro``'s shapes and distributions, not its draws. One dict
-    a layer under ``"layers"``."""
-    check_supported(cfg)
+    a layer under ``"layers"``, zamba2's shared block under
+    ``"shared_attn"``.
+
+    ``cast`` returns the compute copy instead, each array cast as soon as
+    it is drawn (one fp32 layer at a time beside the copy): the same
+    draws, bit-equal to ``cast_params(cfg, init_params(cfg, seed))``."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     draw = dict(generator=gen, device=device)
+    dtype = compute_dtype(cfg)
+
+    def done(node, key=None):
+        return _cast_tree(node, dtype, key) if cast else node
+
     d, v = cfg.d_model, cfg.vocab_size
     params: Params = {}
     if cfg.modality == "audio":
-        params["embed"] = truncated_normal((cfg.num_codebooks, v, d),
-                                           d ** -0.5, **draw)
-        params["heads"] = truncated_normal((cfg.num_codebooks, d, v),
-                                           d ** -0.5, **draw)
+        params["embed"] = done(truncated_normal((cfg.num_codebooks, v, d),
+                                                d ** -0.5, **draw))
+        params["heads"] = done(truncated_normal((cfg.num_codebooks, d, v),
+                                                d ** -0.5, **draw))
     else:
-        params["embed"] = truncated_normal((v, d), d ** -0.5, **draw)
+        params["embed"] = done(truncated_normal((v, d), d ** -0.5, **draw))
         if not cfg.tie_embeddings:
-            params["lm_head"] = truncated_normal((d, v), d ** -0.5, **draw)
+            params["lm_head"] = done(truncated_normal((d, v), d ** -0.5,
+                                                      **draw))
     params["final_norm"] = norm_init(cfg, d, device)
-    params["layers"] = [layer_init(cfg, kind, **draw)
+    if MAMBA2_SHARED in cfg.pattern:
+        params["shared_attn"] = done(shared_attn_init(cfg, **draw))
+    params["layers"] = [done(layer_init(cfg, kind, **draw))
                         for kind in cfg.pattern]
     return params
 
 
+def _cast_tree(node, dtype, key=None):
+    if key in KEEP_FP32:
+        return node
+    if isinstance(node, dict):
+        return {k: _cast_tree(v, dtype, k) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_cast_tree(v, dtype) for v in node]
+    return node.to(dtype)
+
+
 def cast_params(cfg: ModelConfig, params: Params) -> Params:
-    """The compute copy: every weight and bias in ``cfg.dtype``, the norms'
-    parameters as they are.
+    """The compute copy: every weight and bias in ``cfg.dtype``, the
+    ``KEEP_FP32`` parameters as they are.
 
     ``repro`` casts each weight to ``cfg.dtype`` at every use; the cast is
     elementwise, so a copy made once computes the same bits, and at decode
     it is what a step reads (bf16: half the fp32 masters' bytes)."""
-    dtype = compute_dtype(cfg)
-
-    def walk(node, key=None):
-        if key in NORM_KEYS:
-            return node
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        return node.to(dtype)
-
-    return walk(params)
+    return _cast_tree(params, compute_dtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +264,30 @@ def _readout(cfg: ModelConfig, params: Params,
     return softcap(logits, cfg.final_logit_softcap)
 
 
+def _acc_aux(a: AuxDict, b: AuxDict) -> AuxDict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def _shared_block(cfg: ModelConfig, shared: Params, x: torch.Tensor,
+                  emb0: torch.Tensor) -> torch.Tensor:
+    """Zamba2's shared block's input: the normed concat(x, emb0) through
+    its 2D → D projection."""
+    cat = torch.cat([x, emb0], dim=-1)
+    return apply_norm(cfg, shared["norm_in"], cat) \
+        @ shared["in_proj"].to(x.dtype)
+
+
 def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None, *,
-                attention: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence application of one block. x: (B, S, D)."""
+                emb0: Optional[torch.Tensor] = None,
+                shared: Optional[Params] = None,
+                attention: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Optional[AuxDict]]:
+    """Full-sequence application of one block. x: (B, S, D). Returns the
+    new x and, for a MoE block, its aux statistics (None otherwise: the
+    zeros ``repro`` adds change no sum)."""
     window = effective_window(cfg, kind)
-    if kind in (ATTN, ATTN_LOCAL):
+    if kind in (ATTN, ATTN_LOCAL, MOE):
         h = attn_mod.attention_train(cfg, p["attn"],
                                      apply_norm(cfg, p["norm1"], x),
                                      window=window, positions=positions,
@@ -260,31 +295,60 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm1_post"], h)
         x = x + h
-        h = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        hin = apply_norm(cfg, p["norm2"], x)
+        aux = None
+        if kind == MOE:
+            h, aux = moe_mod.moe_ffn(cfg, p["moe"], hin)
+        else:
+            h = apply_mlp(cfg, p["mlp"], hin)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
-        return x + h
+        return x + h, aux
     if kind == ATTN_PARALLEL:
         n = apply_norm(cfg, p["norm"], x)
         return (x + attn_mod.attention_train(cfg, p["attn"], n, window=window,
                                              positions=positions,
                                              attention=attention)
-                + apply_mlp(cfg, p["mlp"], n))
-    raise _refused(cfg, kind)
+                + apply_mlp(cfg, p["mlp"], n)), None
+    if kind in (MAMBA2, MAMBA2_SHARED):
+        x = x + rec_mod.mamba2_train(cfg, p["mamba"],
+                                     apply_norm(cfg, p["norm"], x))
+        if kind == MAMBA2_SHARED:
+            h = _shared_block(cfg, shared, x, emb0)
+            x = x + attn_mod.attention_train(cfg, shared["attn"], h,
+                                             positions=positions,
+                                             attention=attention)
+            x = x + apply_mlp(cfg, shared["mlp"],
+                              apply_norm(cfg, shared["norm2"], x))
+        return x, None
+    if kind == MLSTM:
+        return x + rec_mod.mlstm_train(cfg, p["cell"],
+                                       apply_norm(cfg, p["norm"], x)), None
+    if kind == SLSTM:
+        return x + rec_mod.slstm_train(cfg, p["cell"],
+                                       apply_norm(cfg, p["norm"], x)), None
+    raise ValueError(kind)
 
 
 def forward_hidden(cfg: ModelConfig, params: Params,
                    batch: Dict[str, torch.Tensor], ctx=None, *,
                    attention: Optional[str] = None
                    ) -> Tuple[torch.Tensor, AuxDict]:
-    """Full-sequence forward up to (but not including) the readout.
-    ``attention`` picks the prefill attention's route
+    """Full-sequence forward up to (but not including) the readout, and
+    the MoE layers' aux statistics summed over the layers. ``attention``
+    picks the prefill attention's route
     (`repro_torch.models.attention.attention_route`)."""
-    check_supported(cfg, ctx)
+    check_ctx(ctx)
     x, positions = _embed(cfg, params, batch, compute_dtype(cfg))
+    emb0 = x if MAMBA2_SHARED in cfg.pattern else None
+    shared = params.get("shared_attn")
+    aux = _zero_aux(cfg, x.device)
     for kind, p in zip(cfg.pattern, params["layers"], strict=True):
-        x = apply_layer(cfg, kind, p, x, positions, attention=attention)
-    return x, _zero_aux(cfg, x.device)
+        x, ai = apply_layer(cfg, kind, p, x, positions, emb0=emb0,
+                            shared=shared, attention=attention)
+        if ai is not None:
+            aux = _acc_aux(aux, ai)
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -305,51 +369,97 @@ def loss_fn(*args, **kwargs):
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
-                dtype=torch.bfloat16, device=None) -> List[attn_mod.KVCache]:
-    """One ring-buffer cache a layer: ``cache_len`` slots, or the layer's
-    window where that is shorter."""
-    check_supported(cfg)
+                dtype=torch.bfloat16, device=None) -> List:
+    """One cache a layer: a ring-buffer ``KVCache`` of ``cache_len`` slots
+    (or the layer's window where that is shorter) for the attention and
+    MoE blocks in ``dtype``; a ``Mamba2Cache``, ``MLSTMCache`` or
+    ``SLSTMCache`` in fp32 for the recurrent ones, as ``repro`` makes
+    them; for ``MAMBA2_SHARED`` the pair (``Mamba2Cache``, the shared
+    block's full ``KVCache``)."""
     device = resolve_device(device)
-    caches = []
-    for kind in cfg.pattern:
-        w = effective_window(cfg, kind)
-        caches.append(attn_mod.init_cache(
-            cfg, batch_size, min(w or cache_len, cache_len), dtype, device))
-    return caches
+
+    def one(kind):
+        if kind in (ATTN, ATTN_LOCAL, ATTN_PARALLEL, MOE):
+            w = effective_window(cfg, kind)
+            return attn_mod.init_cache(cfg, batch_size,
+                                       min(w or cache_len, cache_len), dtype,
+                                       device)
+        if kind == MAMBA2:
+            return rec_mod.mamba2_init_cache(cfg, batch_size, device)
+        if kind == MAMBA2_SHARED:
+            return (rec_mod.mamba2_init_cache(cfg, batch_size, device),
+                    attn_mod.init_cache(cfg, batch_size, cache_len, dtype,
+                                        device))
+        if kind == MLSTM:
+            return rec_mod.mlstm_init_cache(cfg, batch_size, device)
+        if kind == SLSTM:
+            return rec_mod.slstm_init_cache(cfg, batch_size, device)
+        raise ValueError(kind)
+
+    return [one(kind) for kind in cfg.pattern]
 
 
 def apply_layer_decode(cfg: ModelConfig, kind: str, p: Params,
-                       x: torch.Tensor, cache: attn_mod.KVCache,
-                       pos: torch.Tensor):
-    """x: (B, 1, D); pos: (B,) absolute positions."""
+                       x: torch.Tensor, cache, pos: torch.Tensor,
+                       emb0: Optional[torch.Tensor] = None,
+                       shared: Optional[Params] = None):
+    """x: (B, 1, D); pos: (B,) absolute positions. Returns the new x and
+    the layer's cache: a ``KVCache`` written in place, a recurrent state
+    as a new named tuple."""
     window = effective_window(cfg, kind)
     if kind == ATTN_PARALLEL:
         n = apply_norm(cfg, p["norm"], x)
         h, cache = attn_mod.attention_decode(cfg, p["attn"], n, cache, pos,
                                              window)
         return x + h + apply_mlp(cfg, p["mlp"], n), cache
-    if kind in (ATTN, ATTN_LOCAL):
+    if kind in (ATTN, ATTN_LOCAL, MOE):
         h, cache = attn_mod.attention_decode(
             cfg, p["attn"], apply_norm(cfg, p["norm1"], x), cache, pos,
             window)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm1_post"], h)
         x = x + h
-        h = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        hin = apply_norm(cfg, p["norm2"], x)
+        if kind == MOE:
+            h, _ = moe_mod.moe_ffn(cfg, p["moe"], hin)
+        else:
+            h = apply_mlp(cfg, p["mlp"], hin)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
         return x + h, cache
-    raise _refused(cfg, kind)
+    if kind in (MAMBA2, MAMBA2_SHARED):
+        mcache = cache[0] if kind == MAMBA2_SHARED else cache
+        h, mcache = rec_mod.mamba2_step(cfg, p["mamba"],
+                                        apply_norm(cfg, p["norm"], x), mcache)
+        x = x + h
+        if kind == MAMBA2_SHARED:
+            hin = _shared_block(cfg, shared, x, emb0)
+            h, acache = attn_mod.attention_decode(cfg, shared["attn"], hin,
+                                                  cache[1], pos, None)
+            x = x + h
+            x = x + apply_mlp(cfg, shared["mlp"],
+                              apply_norm(cfg, shared["norm2"], x))
+            return x, (mcache, acache)
+        return x, mcache
+    if kind == MLSTM:
+        h, cache = rec_mod.mlstm_step(cfg, p["cell"],
+                                      apply_norm(cfg, p["norm"], x), cache)
+        return x + h, cache
+    if kind == SLSTM:
+        h, cache = rec_mod.slstm_step(cfg, p["cell"],
+                                      apply_norm(cfg, p["norm"], x), cache)
+        return x + h, cache
+    raise ValueError(kind)
 
 
 def decode_step(cfg: ModelConfig, params: Params, caches,
                 tokens: torch.Tensor, pos: torch.Tensor, ctx=None):
     """One-token decode. tokens: (B,) (or (B, C) audio); pos: (B,).
 
-    Returns (logits (B, V) or (B, C, V), caches), the caches updated in
-    place.
+    Returns (logits (B, V) or (B, C, V), the new caches: one a layer, the
+    KV caches written in place, the recurrent states new).
     """
-    check_supported(cfg, ctx)
+    check_ctx(ctx)
     dtype = compute_dtype(cfg)
     emb = params["embed"]
     if cfg.modality == "audio":
@@ -361,7 +471,12 @@ def decode_step(cfg: ModelConfig, params: Params, caches,
         x = x * rounded(cfg.d_model ** 0.5, dtype)
     if not cfg.use_rope and cfg.modality == "audio":
         x = x + sinusoidal(pos, cfg.d_model).to(dtype)[:, None]
+    emb0 = x if MAMBA2_SHARED in cfg.pattern else None
+    shared = params.get("shared_attn")
+    new_caches = []
     for kind, p, cache in zip(cfg.pattern, params["layers"], caches,
                               strict=True):
-        x, _ = apply_layer_decode(cfg, kind, p, x, cache, pos)
-    return _readout(cfg, params, x)[:, 0], caches
+        x, cache = apply_layer_decode(cfg, kind, p, x, cache, pos, emb0,
+                                      shared)
+        new_caches.append(cache)
+    return _readout(cfg, params, x)[:, 0], new_caches

@@ -36,7 +36,7 @@ def make_prefill_step(cfg: ModelConfig, ctx=None, *,
     attention's route (`repro_torch.models.attention.attention_route`): by
     default K9 on CUDA, the plain chunked scan on the CPU.
     """
-    T.check_supported(cfg, ctx)
+    T.check_ctx(ctx)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
@@ -47,11 +47,11 @@ def make_prefill_step(cfg: ModelConfig, ctx=None, *,
 
 
 def make_serve_step(cfg: ModelConfig, ctx=None, greedy: bool = True):
-    """One-token decode against the KV caches, which it updates in place.
+    """One-token decode against the caches (`T.decode_step`).
     ``serve_step(params, caches, tokens, pos)`` returns (next tokens, int32
-    argmax of the logits; logits; caches). ``greedy`` is ``repro``'s flag,
+    argmax of the logits; logits; the new caches). ``greedy`` is ``repro``'s flag,
     which its step does not read either."""
-    T.check_supported(cfg, ctx)
+    T.check_ctx(ctx)
 
     @torch.inference_mode()
     def serve_step(params, caches, tokens, pos):

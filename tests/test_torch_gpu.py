@@ -1523,3 +1523,159 @@ def test_lm_decode_agrees_with_prefill_and_skips_k9(cuda):
     assert fa.LAUNCHES["flash_attention"] == 0
     assert _rel_l2(got, want) <= LM_DECODE_REL_L2
     assert torch.equal(first, second) and first.shape == (4, 8)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and recurrent blocks: K9 in a DeepSeekMoE layer and in zamba2's
+# shared attention block
+# ---------------------------------------------------------------------------
+
+def _lm_full_width(cuda, arch, layers):
+    """``arch``'s full layer widths at ``layers`` layers (the first of its
+    pattern) and a 4,096-word vocabulary, bf16 weights from the port's
+    layer-at-a-time builder."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers,
+                              layer_pattern=cfg.pattern[:layers],
+                              vocab_size=4096)
+    return cfg, T.init_params(cfg, 0, device=cuda, cast=True)
+
+
+# a MoE layer's bf16 routes flip experts between the K9 and the plain
+# route (near-tied router probabilities rounded apart): at 2 layers the
+# DeepSeekMoE prefill read 0.0225 on an NVIDIA H100 80GB HBM3 at 700 W,
+# where Qwen2.5-3B's dense layers read 0.0100. So the MoE bar is the whole
+# model's (chip_smoke.py), and the fp32 comparison holds the function
+LM_MOE_REL_L2 = 4e-2
+LM_FP32_REL_L2 = 1e-3
+
+
+def test_moe_prefill_launches_k9_once_a_layer(cuda):
+    """DeepSeekMoE-16B's widths at 2 layers (layer 0 dense at 10,944,
+    layer 1 MoE: 64 experts of 1,408 at top 6, 2 shared): a bf16 prefill
+    (B = 2, S = 640) launches K9 once a layer and agrees with the plain
+    route's last logits at the MoE bar."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training import make_prefill_step
+    cfg, params = _lm_full_width(cuda, "deepseek-moe-16b", 2)
+    assert cfg.pattern == ("attn", "moe")
+    gen = torch.Generator(cuda).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 640),
+                                     generator=gen, device=cuda)}
+    fa.reset_launches()
+    got = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    fa.reset_launches()
+    want = make_prefill_step(cfg, attention="plain")(params, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert got.shape == (2, cfg.vocab_size) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel_l2(got, want) <= LM_MOE_REL_L2
+
+
+def test_moe_prefill_fp32_matches_plain_route(cuda):
+    """The same 2 layers in fp32 (K9's fp32 mode, fp32 weights): the K9
+    prefill against the plain route within 1e-3, rounding alone between
+    them."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.training import make_prefill_step
+    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                              layer_pattern=cfg.pattern[:2],
+                              vocab_size=4096)
+    params = T.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 640),
+                                     generator=gen, device=cuda)}
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fa.reset_launches()
+        got = make_prefill_step(cfg)(params, batch)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+        want = make_prefill_step(cfg, attention="plain")(params, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert got.dtype == torch.float32
+    assert _rel_l2(got, want) <= LM_FP32_REL_L2
+
+
+def test_zamba2_shared_block_k9_matches_twin(cuda):
+    """zamba2-1.2B's widths at 6 layers (layer 5 holds the shared block,
+    32 heads of 64): a prefill launches K9 once, and the shared block's
+    K9 output against its twin at the bf16 bar, the same bits twice."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import apply_norm, compute_dtype
+    from repro_torch.training import make_prefill_step
+    cfg, params = _lm_full_width(cuda, "zamba2-1.2b", 6)
+    assert cfg.pattern[5] == "mamba2_shared"
+    gen = torch.Generator(cuda).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 1024),
+                                     generator=gen, device=cuda)}
+    fa.reset_launches()
+    logits = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert bool(torch.isfinite(logits.float()).all())
+    shared = params["shared_attn"]
+    with torch.inference_mode():
+        x, pos = T._embed(cfg, params, batch, compute_dtype(cfg))
+        emb0 = x
+        for i in range(5):
+            x, _ = T.apply_layer(cfg, cfg.pattern[i], params["layers"][i], x,
+                                 pos, emb0=emb0, shared=shared)
+        layer = params["layers"][5]
+        x = x + R.mamba2_train(cfg, layer["mamba"],
+                               apply_norm(cfg, layer["norm"], x))
+        h = T._shared_block(cfg, shared, x, emb0)
+        q, k, v = A.prefill_qkv(cfg, shared["attn"], h, pos)
+        qf, kf, vf = (t[0].transpose(0, 1).contiguous() for t in (q, k, v))
+        got = fa.flash_attention(qf, kf, vf, causal=True, scale=1.0)
+        again = fa.flash_attention(qf, kf, vf, causal=True, scale=1.0)
+        want = fa.flash_attention_plain(qf, kf, vf, causal=True, scale=1.0)
+    torch.cuda.synchronize()
+    assert got.shape == (32, 1024, 64)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+
+
+def test_moe_decode_deterministic_and_skips_k9(cuda):
+    """The 2-layer DeepSeekMoE model's serve step over 16 prompt tokens
+    against its K9 prefill, and generate twice: the same tokens (each
+    token's routed rows are added in one order, no atomics), no K9
+    launch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.training import make_prefill_step, make_serve_step
+    cfg, params = _lm_full_width(cuda, "deepseek-moe-16b", 2)
+    gen = torch.Generator(cuda).manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                           device=cuda)
+    want = make_prefill_step(cfg)(params, {"tokens": prompt})
+    serve = make_serve_step(cfg)
+    caches = T.init_caches(cfg, 4, 16, dtype=torch.float32, device=cuda)
+    fa.reset_launches()
+    for t in range(16):
+        _, got, caches = serve(params, caches, prompt[:, t],
+                               torch.full((4,), t, dtype=torch.int32,
+                                          device=cuda))
+    first = generate(cfg, params, prompt, 8, device=cuda)
+    second = generate(cfg, params, prompt, 8, device=cuda)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert _rel_l2(got, want) <= LM_DECODE_REL_L2
+    assert torch.equal(first, second) and first.shape == (4, 8)

@@ -87,6 +87,16 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.convert import (lm_params_from_repro,
                                          lm_params_to_repro)
         from repro_torch.launch.serve import generate, main as lm_serve_main
+        # the MoE and recurrent blocks, zamba2's shared block
+        from repro_torch.models.moe import (expert_ffn, moe_ffn,
+                                            moe_ffn_local, moe_init, route)
+        from repro_torch.models.recurrent import (
+            MLSTMCache, Mamba2Cache, RecurrentState, SLSTMCache,
+            chunked_scan, mamba2_step, mamba2_train, mlstm_step,
+            mlstm_train, recurrence_step, slstm_step, slstm_train)
+        from repro_torch.models.transformer import shared_attn_init
+        from repro_torch.convert import (lm_caches_from_repro,
+                                         lm_caches_to_repro)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -125,7 +135,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.configs", "repro_torch.configs.base",
                  "repro_torch.configs.qwen2_5_3b", "repro_torch.models",
                  "repro_torch.models.layers", "repro_torch.models.attention",
-                 "repro_torch.models.transformer", "repro_torch.training",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.moe", "repro_torch.models.recurrent",
+                 "repro_torch.configs.deepseek_moe_16b",
+                 "repro_torch.configs.zamba2_1_2b", "repro_torch.training",
                  "repro_torch.training.steps", "repro_torch.checkpoint.io",
                  "repro_torch.launch.serve"):
         assert name in got["modules"]

@@ -1,11 +1,13 @@
 """Port parity, the LM template's serving path: the configs, the layers,
 attention (both prefill routes and the decode ring buffer), the
-transformer's forward, prefill and decode on the six attention-block
-archs, ``generate``, npz checkpoints and the refusals, held against
-``repro`` on the same numpy inputs: reduced configs in fp32 on the CPU, at
-``repro``'s own bars (``tests/test_model_units.py``: 1e-4 for attention;
-``tests/test_decode_consistency.py``: 2e-4 for logits). The layer units
-(norms, MLPs, rope, softcap, sinusoidal) are held at 1e-5.
+transformer's forward (with the MoE layers' summed aux), prefill and
+decode on all ten archs (zamba2 at 6 layers, so that its layer 5 holds
+the shared attention block), ``generate``, the serving CLI, npz
+checkpoints (parameters and every kind of cache) and the refusals, held
+against ``repro`` on the same numpy inputs: reduced configs in fp32 on the
+CPU, at ``repro``'s own bars (``tests/test_model_units.py``: 1e-4 for
+attention; ``tests/test_decode_consistency.py``: 2e-4 for logits). The
+layer units (norms, MLPs, rope, softcap, sinusoidal) are held at 1e-5.
 """
 import dataclasses
 
@@ -25,7 +27,8 @@ from repro.training import make_serve_step as j_make_serve_step
 from repro_torch import configs as t_configs
 from repro_torch.checkpoint import io as t_io
 from repro_torch.configs import base as t_base
-from repro_torch.convert import lm_params_from_repro, lm_params_to_repro
+from repro_torch.convert import (lm_caches_from_repro, lm_caches_to_repro,
+                                 lm_params_from_repro, lm_params_to_repro)
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
@@ -34,10 +37,12 @@ from repro_torch.training import (TrainState, make_prefill_step,
                                   make_serve_step, make_train_step)
 
 COVERED = ["qwen2.5-3b", "yi-9b", "gemma2-27b", "command-r-35b",
-           "internvl2-1b", "musicgen-medium"]
-# the archs the port refuses, by the ROADMAP §1 item that ports them
-REFUSED = {"deepseek-moe-16b": "10.1", "qwen3-moe-30b-a3b": "10.1",
-           "zamba2-1.2b": "10.2", "xlstm-1.3b": "10.2"}
+           "internvl2-1b", "musicgen-medium", "deepseek-moe-16b",
+           "qwen3-moe-30b-a3b", "zamba2-1.2b", "xlstm-1.3b"]
+MOE_ARCHS = ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
+RECURRENT_ARCHS = ["zamba2-1.2b", "xlstm-1.3b"]
+# zamba2's reduced depth: layer 5 is its first MAMBA2_SHARED
+LAYERS = {"zamba2-1.2b": 6}
 B, S, STEPS = 2, 16, 16
 UNIT_TOL, ATTN_TOL, LOGIT_TOL = 1e-5, 1e-4, 2e-4
 CPU = torch.device("cpu")
@@ -64,8 +69,9 @@ def _torch_tree(tree):
 
 
 def _reduced(arch):
-    return j_configs.ARCHS[arch].reduced(seq_len_hint=S), \
-        t_configs.ARCHS[arch].reduced(seq_len_hint=S)
+    kw = dict(seq_len_hint=S, num_layers=LAYERS.get(arch, 2))
+    return j_configs.ARCHS[arch].reduced(**kw), \
+        t_configs.ARCHS[arch].reduced(**kw)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +367,7 @@ def test_attention_decode_ring_buffer_evicts_gemma2_window(rng):
 
 
 # ---------------------------------------------------------------------------
-# the six archs on repro's params
+# the ten archs on repro's params
 # ---------------------------------------------------------------------------
 
 class _Arch:
@@ -409,6 +415,23 @@ def test_forward_matches_repro(arch):
     assert got.shape == want.shape
     _close(got, want, LOGIT_TOL)
     assert set(aux) == {"lb_loss", "counts", "dropped"}
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_forward_sums_moe_aux_as_repro(arch):
+    """The aux statistics summed over the MoE layers, as ``repro``'s
+    ``_acc_aux`` sums them: the expert counts exactly, the load-balance
+    loss at 2e-4, nothing dropped on one card."""
+    a = _arch(arch)
+    _, want = jax.jit(lambda p, b: JT.forward(a.cfg_j, p, b))(a.jp,
+                                                             a.batch_j())
+    _, got = TT.forward(a.cfg_t, a.tp, a.batch_t())
+    n_moe = a.cfg_t.pattern.count(t_base.MOE)
+    assert np.array_equal(got["counts"].numpy(), np.asarray(want["counts"]))
+    assert float(got["counts"].sum()) == \
+        n_moe * B * S * a.cfg_t.num_experts_per_tok
+    _close(got["lb_loss"], want["lb_loss"], LOGIT_TOL)
+    assert float(got["dropped"]) == float(want["dropped"]) == 0.0
 
 
 @pytest.mark.parametrize("arch", COVERED)
@@ -578,25 +601,66 @@ def test_npz_checkpoint_named_tuples_both_ways(tmp_path):
         assert np.array_equal(x, np.asarray(y))
 
 
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_npz_recurrent_caches_both_ways(arch, tmp_path):
+    """A decode stopped after 8 tokens in one package and saved to npz
+    (``Mamba2Cache``, ``MLSTMCache``, ``SLSTMCache``, ``RecurrentState``
+    and zamba2's (``Mamba2Cache``, ``KVCache``) pair, by ``.field``
+    paths) goes on in the other: the next 8 steps' logits at 2e-4 of the
+    run that never stopped, each way."""
+    a = _arch(arch)
+    half = STEPS // 2
+
+    def pos(t):
+        return np.full((B,), t, np.int32)
+
+    def run_port(caches, steps):
+        out = []
+        for t in steps:
+            lg, caches = TT.decode_step(a.cfg_t, a.tp, caches,
+                                        _t(a.tokens[:, t]), _t(pos(t)))
+            out.append(lg.numpy())
+        return out, caches
+
+    def run_repro(caches, steps):
+        out = []
+        for t in steps:
+            _, lg, caches = a.serve_j(a.jp, caches,
+                                      jnp.asarray(a.tokens[:, t]),
+                                      jnp.asarray(pos(t)))
+            out.append(np.asarray(lg))
+        return out, caches
+
+    fresh_j = JT.init_caches(a.cfg_j, B, STEPS, dtype=jnp.float32)
+    fresh_t = TT.init_caches(a.cfg_t, B, STEPS, dtype=torch.float32,
+                             device=CPU)
+    kinds = {type(c).__name__ for c in jax.tree.leaves(
+        fresh_t, is_leaf=lambda x: hasattr(x, "_fields"))}
+    assert kinds & {"Mamba2Cache", "MLSTMCache", "SLSTMCache"}
+    # the port stops, repro goes on
+    _, caches_t = run_port(fresh_t, range(half))
+    path = str(tmp_path / "port.npz")
+    t_io.save_checkpoint(path, lm_caches_to_repro(caches_t, a.cfg_t))
+    got, _ = run_repro(j_io.restore_checkpoint(path, fresh_j),
+                       range(half, STEPS))
+    want, _ = run_port(caches_t, range(half, STEPS))
+    _close(np.stack(got), np.stack(want), LOGIT_TOL)
+    # repro stops, the port goes on
+    _, caches_j = run_repro(fresh_j, range(half))
+    path = str(tmp_path / "repro.npz")
+    j_io.save_checkpoint(path, caches_j)
+    like = lm_caches_to_repro(fresh_t, a.cfg_t)
+    restored = lm_caches_from_repro(t_io.restore_checkpoint(path, like),
+                                    a.cfg_t, device=CPU)
+    assert jax.tree.structure(restored) == jax.tree.structure(fresh_t)
+    got, _ = run_port(restored, range(half, STEPS))
+    want, _ = run_repro(caches_j, range(half, STEPS))
+    _close(np.stack(got), np.stack(want), LOGIT_TOL)
+
+
 # ---------------------------------------------------------------------------
 # refusals and entry points
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch", sorted(REFUSED))
-def test_moe_and_recurrent_archs_raise_naming_their_item(arch):
-    item = f"item {REFUSED[arch]}"
-    cfg = t_configs.ARCHS[arch].reduced(seq_len_hint=S)
-    for call in (lambda: TT.init_params(cfg, 0, device=CPU),
-                 lambda: TT.init_caches(cfg, B, S, device=CPU),
-                 lambda: TT.forward(cfg, {}, {}),
-                 lambda: TT.decode_step(cfg, {}, [], None, None),
-                 lambda: make_prefill_step(cfg),
-                 lambda: make_serve_step(cfg),
-                 lambda: lm_params_from_repro({"stages": ()}, cfg, "cpu"),
-                 lambda: t_serve.main(["--arch", arch, "--device", "cpu"])):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
-
 
 def test_mesh_and_training_raise_naming_their_item():
     _, cfg = _reduced("qwen2.5-3b")
@@ -638,3 +702,13 @@ def test_serve_cli_prints_repro_lines(capsys):
     assert out[1].startswith("sample: [[")
     sample = eval(out[1][len("sample: "):])
     assert len(sample) == 5 and all(len(s) == 4 for s in sample)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS + RECURRENT_ARCHS)
+def test_serve_cli_runs_moe_and_recurrent_archs(arch, capsys):
+    t_serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                  "--prompt-len", "4", "--new-tokens", "3"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"arch={arch}-smoke decoded 3×2 tokens (")
+    sample = eval(out[1][len("sample: "):])
+    assert len(sample) == 3
