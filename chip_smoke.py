@@ -217,9 +217,29 @@ and, last, the LM template's serving path (every LDA phase first):
                attention block on 6): the first shared block's K9 output
                against its twin at the bf16 bars and bit-equal twice; the
                serving checks at S = 4,096 (K9 6 times, no host sync);
-               then xLSTM-1.3B at full width, its prefill cut to 256
+               then xLSTM-1.3B at full width, its prefill cut to 128
                tokens (the sLSTM's time loop): no K9 launch. After each,
                lm_fp32 at 12 and 4 layers
+and the LM template's training path, after every serving phase:
+ 34. lm_train — Qwen2.5-3B unreduced from the port's seeded fp32 masters
+               (3.086 B; 49.4 GB with gradients and AdamW's moments),
+               bf16 compute, remat, AdamW on cosine_schedule, clip 1.0,
+               S = 4,096 (train_4k's batch of 256 cut to 4, as 2
+               microbatches of 2), 8 steps on one repeated batch: finite
+               losses and grad norms, the last loss below the first, no
+               K9 launch (training takes the plain chunked attention),
+               the host syncs of a step as predicted (one a MoE layer a
+               forward, twice under remat: 0 here); the median ms of the
+               last 6 steps, tokens/s, peak memory, the model FLOPs'
+               share of the dense bf16 peak. lm_train_fp32: at 4 layers
+               in fp32, loss, ce and every gradient leaf on the card
+               against the same port on the CPU (LM_FP32_REL_L2), and
+               microbatches = 2 against 1 after one AdamW step (5e-3).
+               Then DeepSeekMoE-16B, zamba2-1.2B (layers 2-5, the last
+               applying the shared block) and xLSTM-1.3B at full width
+               and 4 layers, 3 steps each (DeepSeekMoE's lb_loss in its
+               loss); lm_train_iag: IAG over 8 shards at 4 layers, two
+               passes, the aggregate against the memo's sum (1e-5)
 Then the ``kernels`` summary line (K9's row with ``launches_lm``,
 ``launches_lm_moe`` and ``launches_lm_recurrent``) and, last, the ``ok``
 line.
@@ -228,6 +248,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1099,11 +1120,14 @@ def phase_fixed_point_warm(eng, kernels, timer, max_batches=4):
     emit({"phase": "kernels_warm", "fixed_point": warm})
 
 
-def phase_profile(step, updates=4, phase="profile"):
+def phase_profile(step, updates=4, phase="profile", regions=()):
     """Where one update's time goes: ``torch.profiler`` over ``updates``
     more updates (``step()`` runs one, after every check above), device
     time by operation, the device's idle share of the wall time, and the
-    host's time by operation (its own CPU time)."""
+    host's time by operation (its own CPU time). With ``regions``, the
+    names of ``record_function`` ranges that ``step`` opens, also each
+    region's device time (``region_device_ms``) and share of the busy
+    time; returns them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1116,24 +1140,66 @@ def phase_profile(step, updates=4, phase="profile"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an aten op on the host carries its
-    # kernels' device time as well, and would count it twice
+    # kernels' device time as well, and would count it twice; a range's
+    # device-side annotation is a span, not a kernel
     ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                   for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0),
+                  and e.self_device_time_total > 0 and e.key not in regions),
                  key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in ops)
     # where the host's time goes: operations by their own CPU time
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.self_cpu_time_total > 0), key=lambda r: -r[1])
+    shares = {}
+    if regions:
+        shares = {r: {"device_ms": ms, "share": ms / busy_ms} for r, ms in
+                  region_device_ms(prof.events(), regions).items()}
     emit({"phase": phase, "updates": updates, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+          **({"regions": shares} if regions else {}),
           "top_device_ms": [{"op": k[:80], "ms": ms, "count": n}
                             for k, ms, n in ops[:12]],
           "top_host_ms": [{"op": k[:80], "ms": ms, "count": n}
                           for k, ms, n in host[:12]]})
+    return shares
+
+
+BACKWARD_NODE = "autograd::engine::evaluate_function"
+
+
+def region_device_ms(events, regions):
+    """Device ms of the kernels launched inside each region: by a host
+    operation inside a ``record_function(region)`` range, or inside the
+    backward of an autograd node that such an operation made (linked by
+    its thread and sequence number; under remat the recompute runs the
+    range again, and the nodes run in the backward are the first
+    forward's)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in events if e.device_type != cuda]
+
+    def under(e, marked):
+        while e is not None:
+            if marked(e):
+                return True
+            e = e.cpu_parent
+        return False
+
+    out = {}
+    for region in regions:
+        made = {(e.thread, e.sequence_nr) for e in host if e.sequence_nr >= 0
+                and under(e, lambda x: x.name == region)}
+
+        def marked(e):
+            return e.name == region or (
+                e.name.startswith(BACKWARD_NODE)
+                and (e.fwd_thread, e.sequence_nr) in made)
+        out[region] = sum(e.self_device_time_total for e in host
+                          if under(e, marked)) / 1e3
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3676,6 +3742,12 @@ LM_XLSTM_WIDTH = (48, 2048)        # its (layers, d_model)
 # 512-token prefill read 3.54 s and ~336k launches on an NVIDIA H100 80GB
 # HBM3 at 700 W, PR 26)
 LM_XLSTM_S = 256
+# ... and its depth in serving, cut from 48 layers to the first 24 (12
+# mLSTM, 12 sLSTM, at full width) to keep the script near half its time
+# limit with the training phase after it: at 48 layers and 256 tokens the
+# model's serving checks took 157 s of a 735 s script (NVIDIA H100 80GB
+# HBM3 at 700 W), most of it the profiled sLSTM loops
+LM_XLSTM_LAYERS = 24
 # each model's bf16 agreement bar: the last logits of the whole prefill
 # through K9 (fp32 scores) against the plain route's, and the serve
 # step's at the last of 16 prompt tokens (fp32 caches) against the
@@ -3713,19 +3785,14 @@ PRODUCT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
 ROUTED_KEYS = ("w_gate", "w_up", "w_down")
 
 
-def lm_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from lm_leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from lm_leaves(v)
-    else:
-        yield tree
-
-
 def lm_weight_bytes(tree):
-    return sum(t.numel() * t.element_size() for t in lm_leaves(tree))
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def lm_numel(tree):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def rel_l2(got, want):
@@ -3836,14 +3903,17 @@ def moe_recorder(records, inputs=None):
     return make
 
 
-def moe_ffn_annotated(orig):
-    """A ``moe_ffn`` inside a ``record_function("moe_ffn")`` range."""
+def annotated(region):
+    """For ``wrapped``: the function inside a
+    ``torch.profiler.record_function(region)`` range."""
     import torch
 
-    def moe_ffn(cfg, p, x, ctx=None):
-        with torch.profiler.record_function("moe_ffn"):
-            return orig(cfg, p, x, ctx)
-    return moe_ffn
+    def make(orig):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(region):
+                return orig(*args, **kwargs)
+        return run
+    return make
 
 
 def flip_shares(a, b):
@@ -3853,10 +3923,9 @@ def flip_shares(a, b):
 
 def region_device_share(fn, region):
     """Share of the device time of one call of ``fn`` spent in kernels
-    launched inside ``torch.profiler.record_function(region)`` ranges (a
-    host op's ``device_time_total`` holds its children's kernels), from
-    one profiler session after a warm-up; with the region's call count
-    and both times in ms."""
+    launched inside ``torch.profiler.record_function(region)`` ranges
+    (``region_device_ms``), from one profiler session after a warm-up;
+    with the region's call count and both times in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
@@ -3870,15 +3939,15 @@ def region_device_share(fn, region):
         events = prof.events()
         # the range's own device-side annotation is a span, not a kernel
         total = sum(e.self_device_time_total for e in events
-                    if e.device_type == cuda and e.name != region)
-        mine = [e for e in events
-                if e.device_type != cuda and e.name == region]
-        inside = sum(e.device_time_total for e in mine)
+                    if e.device_type == cuda and e.name != region) / 1e3
+        calls = sum(e.device_type != cuda and e.name == region
+                    for e in events)
+        inside = region_device_ms(events, [region])[region]
         if total > 0 and inside > 0:
             break
     check(total > 0 and 0 < inside <= total,
-          f"region_device_share: {region} {inside} of {total} us")
-    return inside / total, len(mine), inside / 1e3, total / 1e3
+          f"region_device_share: {region} {inside} of {total} ms")
+    return inside / total, calls, inside, total
 
 
 def k9_counted(fn, *args):
@@ -3948,7 +4017,7 @@ def lm_build(cfg, device):
     check(over <= 2 * piece,
           f"{cfg.name}: the bf16 build peaked {over} bytes over its "
           f"weights, more than twice its largest fp32 piece's {piece}")
-    return params, {"params": sum(t.numel() for t in lm_leaves(params)),
+    return params, {"params": lm_numel(params),
                     "weight_bytes_bf16": weight_bytes, "init_s": init_s,
                     "init_peak_over_weights": over,
                     "largest_piece_fp32_bytes": piece}
@@ -4017,7 +4086,7 @@ def lm_serve_checks(cfg, params, device, *, s, k9, name, moe=False):
                       "k9_device_share": share, "device_ms": dev_ms,
                       "host_syncs": syncs}
     if moe:
-        with wrapped(M, "moe_ffn", moe_ffn_annotated):
+        with wrapped(M, "moe_ffn", annotated("moe_ffn")):
             mshare, calls, moe_ms, total_ms = region_device_share(
                 lambda: prefill(params, batch), "moe_ffn")
         check(calls == n_moe, f"{name}: {calls} MoE FFN calls a prefill")
@@ -4261,7 +4330,7 @@ def phase_lm(device):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     masters = T.init_params(cfg, LM_SEED, device=device)
-    n_params = sum(t.numel() for t in lm_leaves(masters))
+    n_params = lm_numel(masters)
     params = T.cast_params(cfg, masters)
     del masters
     torch.cuda.synchronize()
@@ -4364,10 +4433,11 @@ def phase_lm_recurrent(device):
     against its twin at the bf16 bars, the same bits twice, and
     lm_serve_checks at S = 4,096 (a multiple of its 256-token chunk; K9 6
     times a prefill, once a shared block); then xLSTM-1.3B at full width
-    (24 mLSTM and 24 sLSTM layers, 4 heads of 1,024 in the mLSTM), its
-    prefill cut to LM_XLSTM_S tokens: no K9 launch, decode against
-    prefill, generate. Each model's agreement checks run again in fp32 at
-    a cut depth (lm_fp32_agreement)."""
+    (mLSTM and sLSTM layers alternating, 4 heads of 1,024 in the mLSTM),
+    cut to its first LM_XLSTM_LAYERS layers and a prefill of LM_XLSTM_S
+    tokens: no K9 launch, decode against prefill, generate. Each model's
+    agreement checks run again in fp32 at a cut depth
+    (lm_fp32_agreement)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA2_SHARED
@@ -4416,9 +4486,11 @@ def phase_lm_recurrent(device):
     cfg = get_config(LM_XLSTM_ARCH)
     check((cfg.num_layers, cfg.d_model) == LM_XLSTM_WIDTH,
           f"lm_recurrent: {LM_XLSTM_ARCH} is not at its full width: {cfg}")
+    cfg = lm_cut(cfg, slice(0, LM_XLSTM_LAYERS))
     params, built = lm_build(cfg, device)
     row = {"phase": "lm_recurrent", "arch": cfg.name,
-           "reduced": f"prefill S 4096 -> {LM_XLSTM_S}", **built}
+           "reduced": f"prefill S 4096 -> {LM_XLSTM_S}, layers "
+                      f"{LM_XLSTM_WIDTH[0]} -> {cfg.num_layers}", **built}
     row.update(lm_serve_checks(cfg, params, device, s=LM_XLSTM_S, k9=0,
                                name=cfg.name))
     row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -4427,6 +4499,388 @@ def phase_lm_recurrent(device):
     del params
     torch.cuda.empty_cache()
     row["fp32"] = lm_fp32_agreement(cfg, device, LM_XLSTM_S)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# the LM template's training path
+# ---------------------------------------------------------------------------
+
+# train_4k (configs/base.py): S = 4,096 at a global batch of 256, which
+# does not fit one card at Qwen2.5-3B's width beside its fp32 masters,
+# gradients and AdamW moments (4 x 12.3 GB): cut to 4, as 2 microbatches
+LM_TRAIN_S = 4096
+LM_TRAIN_BATCH = 4
+LM_TRAIN_MICROBATCHES = 2
+LM_TRAIN_STEPS = 8            # on one repeated batch; the last 6 timed
+LM_TRAIN_LR = 3e-4            # repro's launcher default, cosine to 0
+LM_TRAIN_CLIP = 1.0
+# the other families at full width, cut depth: (layers of the pattern,
+# batch, length), 3 steps each. zamba2's four are layers 2-5, so that the
+# last applies the shared block; xLSTM's alternate mLSTM and sLSTM, its
+# length the sLSTM's time loop's 256
+LM_TRAIN_FAMILIES = {"deepseek-moe-16b": (slice(0, 4), 1, 1024),
+                     "zamba2-1.2b": (slice(2, 6), 1, 4096),
+                     "xlstm-1.3b": (slice(0, 4), 2, 256)}
+LM_TRAIN_FAMILY_STEPS = 3
+# fp32 on the card against the same port on the CPU, Qwen2.5-3B at full
+# width and 4 layers: loss, ce and every gradient leaf (relative L2, the
+# lm_fp32 bar); then microbatches=2 against 1: the gradients at the same
+# bar, and the parameters after one AdamW step within repro's own bar
+# (tests/test_optim_checkpoint.py:75-96), which holds little: AdamW's
+# first step moves an element by at most its learning rate
+LM_TRAIN_FP32 = dict(layers=4, batch=2, s=256)
+LM_TRAIN_MICRO_TOL = 5e-3
+# IAG over 8 shards, Qwen2.5-3B at 4 layers (the memo is 8 fp32 copies of
+# the parameters): two passes, so the second subtracts each shard's
+# memoized gradient; the aggregate against the memo's sum at repro's 1e-5
+LM_TRAIN_IAG = dict(layers=4, shards=8, passes=2, batch=1, s=1024)
+LM_TRAIN_IAG_TOL = 1e-5
+
+
+def train_syncs_predicted(cfg, microbatches):
+    """The host syncs of one train step: the MoE dispatch reads its
+    segment sizes once a MoE layer a forward (models/moe.py), and under
+    remat each layer's forward runs twice (the recompute); nothing else in
+    the step reads the device."""
+    from repro_torch.configs.base import MOE
+    return cfg.pattern.count(MOE) * microbatches * (2 if cfg.remat else 1)
+
+
+def lm_cut(cfg, layers):
+    """``cfg`` with its pattern cut to ``layers`` (a slice)."""
+    import dataclasses
+    pattern = cfg.pattern[layers]
+    return dataclasses.replace(cfg, num_layers=len(pattern),
+                               layer_pattern=pattern)
+
+
+def lm_train_batch(cfg, b, s, seed, device):
+    """Seeded tokens and labels, (b, s) each."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=device) for k in ("tokens", "labels")}
+
+
+def lm_train_run(cfg, params, opt, batch, steps, microbatches=1):
+    """``steps`` train steps on one repeated batch through
+    ``make_train_step`` (clip LM_TRAIN_CLIP): each step's loss, ce,
+    grad_norm and host ms (between two synchronize calls); K9 launches
+    over every step; the second step's host syncs, counted. Returns the
+    state, the step function and the readings."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training import TrainState, make_train_step
+    step = make_train_step(cfg, opt, clip_norm=LM_TRAIN_CLIP,
+                           microbatches=microbatches)
+    state = TrainState(params, opt.init(params), 0)
+    rows, syncs = [], None
+    fa.reset_launches()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:
+            box = []
+            syncs = host_syncs(lambda: box.append(step(state, batch)))
+            state, metrics = box[0]
+        else:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"ms": ms, **{k: float(metrics[k]) for k in
+                                  ("loss", "ce", "grad_norm", "lb_loss")}})
+    k9 = fa.LAUNCHES["flash_attention"]
+    losses = [r["loss"] for r in rows]
+    want = train_syncs_predicted(cfg, microbatches)
+    check(all(math.isfinite(r[k]) for r in rows
+              for k in ("loss", "ce", "grad_norm", "lb_loss")),
+          f"{cfg.name}: a loss or grad_norm is not finite: {rows}")
+    check(losses[-1] < losses[0],
+          f"{cfg.name}: the loss did not fall over {steps} steps: {losses}")
+    check(k9 == 0, f"{cfg.name}: training launched K9 {k9} times")
+    check(syncs == want,
+          f"{cfg.name}: {syncs} host syncs a train step, predicted {want}")
+    return state, step, {"steps": steps, "microbatches": microbatches,
+                   "losses": losses, "ce": [r["ce"] for r in rows],
+                   "grad_norms": [r["grad_norm"] for r in rows],
+                   "lb_loss": [r["lb_loss"] for r in rows],
+                   "step_ms": [r["ms"] for r in rows], "k9_launches": k9,
+                   "host_syncs_per_step": syncs,
+                   "host_syncs_predicted": want}
+
+
+TRAIN_REGIONS = ("attention", "optimizer")
+
+
+def lm_train_breakdown(cfg, state, step, batch):
+    """Where a train step's time goes: one more step under torch.profiler
+    (``profile_{cfg.name}_train``: device busy and idle, the top operations
+    by device time), with each attention (``attention_train``: the
+    projections and the plain chunked scan) and the optimizer (clip,
+    update, apply) inside a ``record_function`` range; each region's
+    device ms, its recompute and backward included, and its share of the
+    step's device time. ``step``'s optimizer opens its own range
+    (``annotated_optimizer``). Returns the state after the step and the
+    regions."""
+    from repro_torch.models import attention as A
+    from repro_torch.training import steps as TS
+    box = [state]
+    with wrapped(A, "attention_train", annotated("attention")), \
+            wrapped(TS, "clip_by_global_norm", annotated("optimizer")), \
+            wrapped(TS, "apply_updates", annotated("optimizer")):
+        regions = phase_profile(
+            lambda: box.__setitem__(0, step(box[0], batch)[0]), updates=1,
+            phase=f"profile_{cfg.name}_train", regions=TRAIN_REGIONS)
+    return box[0], regions
+
+
+def annotated_optimizer(opt):
+    """``opt`` with its update inside a ``record_function("optimizer")``
+    range."""
+    from repro_torch.optim import Optimizer
+    return Optimizer(opt.init, annotated("optimizer")(opt.update))
+
+
+def train_flops(cfg, n_params, b, s):
+    """A train step's model FLOPs: 6·N a token, and causal attention's
+    Q·Kᵀ and P·V three times over (forward and backward) on every
+    attention layer; the remat recompute not counted."""
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA2_SHARED, MOE
+    _, a_ops = attention_work(b, s, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.resolved_head_dim)
+    n_attn = sum(kind in (ATTN, ATTN_LOCAL, MOE, MAMBA2_SHARED)
+                 for kind in cfg.pattern)
+    return 6.0 * n_params * b * s + 3.0 * n_attn * a_ops
+
+
+def lm_train_fp32(cfg, device):
+    """Qwen2.5-3B at full width, LM_TRAIN_FP32's depth, in fp32: loss, ce
+    and every gradient leaf on the card against the same port on the CPU
+    (relative L2 within LM_FP32_REL_L2); then, on the card, the gradients
+    accumulated over 2 microbatches against 1 on the same batch, leaf by
+    leaf at the same bar, and one AdamW step with each, the parameters
+    within LM_TRAIN_MICRO_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.training import (TrainState, loss_and_grads,
+                                      make_train_step)
+    run = LM_TRAIN_FP32
+    cfg = dataclasses.replace(lm_cut(cfg, slice(0, run["layers"])),
+                              dtype="float32")
+    params = T.init_params(cfg, LM_SEED, device=device)
+    batch = lm_train_batch(cfg, run["batch"], run["s"], LM_SEED + 3, device)
+    t0 = time.perf_counter()
+    metrics, grads = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cpu_metrics, cpu_grads = loss_and_grads(
+        cfg, tree_map(lambda p: p.to(cpu), params),
+        {k: v.to(cpu) for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    errs = [rel_l2(g.cpu(), w) for g, w in zip(tree_leaves(grads),
+                                                tree_leaves(cpu_grads))]
+    out = {"phase": "lm_train_fp32", "arch": cfg.name,
+           "layers": run["layers"], "dtype": "float32", "B": run["batch"],
+           "S": run["s"], "loss": float(metrics["loss"]),
+           "loss_cpu": float(cpu_metrics["loss"]),
+           "loss_rel_err": abs(float(metrics["loss"])
+                               - float(cpu_metrics["loss"]))
+           / abs(float(cpu_metrics["loss"])),
+           "ce_rel_err": abs(float(metrics["ce"]) - float(cpu_metrics["ce"]))
+           / abs(float(cpu_metrics["ce"])),
+           "grad_leaves": len(errs), "grad_rel_l2_max": max(errs),
+           "grad_rel_l2_median": sorted(errs)[len(errs) // 2],
+           "card_s": card_s, "cpu_s": cpu_s,
+           "tol": f"relative L2 {LM_FP32_REL_L2}"}
+    del cpu_grads
+    check(out["loss_rel_err"] <= LM_FP32_REL_L2
+          and out["ce_rel_err"] <= LM_FP32_REL_L2
+          and out["grad_rel_l2_max"] <= LM_FP32_REL_L2,
+          f"lm_train_fp32: the card's gradients off the CPU's: {out}")
+    # microbatches=2 against 1 on the same batch: the accumulated .grad
+    # buffers, divided by the count, against one backward's, leaf by leaf
+    micro_metrics, micro_grads = loss_and_grads(cfg, params, batch,
+                                                microbatches=2)
+    errs = [rel_l2(g, w) for g, w in zip(tree_leaves(micro_grads),
+                                         tree_leaves(grads), strict=True)]
+    out.update(microbatches_2_vs_1_grad_rel_l2_max=max(errs),
+               microbatches_2_vs_1_loss_rel_err=abs(
+                   float(micro_metrics["loss"]) - float(metrics["loss"]))
+               / abs(float(metrics["loss"])))
+    del grads, micro_grads
+    check(max(errs) <= LM_FP32_REL_L2
+          and out["microbatches_2_vs_1_loss_rel_err"] <= LM_FP32_REL_L2,
+          f"lm_train_fp32: microbatches=2 off 1: {out}")
+    # then one AdamW step each from the same parameters: repro's bar, which
+    # AdamW's first step (at most LM_TRAIN_LR an element) cannot exceed;
+    # the gradients above are the check that holds
+    got = []
+    for mb in (1, 2):
+        opt = adamw(LM_TRAIN_LR)
+        p = tree_map(lambda t: t.clone(), params)
+        state, _ = make_train_step(cfg, opt, clip_norm=LM_TRAIN_CLIP,
+                                   microbatches=mb)(
+            TrainState(p, opt.init(p), 0), batch)
+        got.append(tree_leaves(state.params))
+        del state, opt
+    diff = max(float((a - b).abs().max()) for a, b in zip(*got))
+    out.update(microbatches_2_vs_1_params_max_abs=diff,
+               microbatches_params_tol=LM_TRAIN_MICRO_TOL)
+    emit(out)
+    check(diff <= LM_TRAIN_MICRO_TOL,
+          f"lm_train_fp32: microbatches=2 off 1 by {diff}")
+    del params, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_iag(cfg, device):
+    """IAG (the paper's mechanism on gradients) on Qwen2.5-3B at full width
+    and LM_TRAIN_IAG's depth, bf16 with remat, through the launcher's IAG
+    step: one batch a shard, two passes over the shards; every loss
+    finite, every shard seen, and each leaf's aggregate the sum of its
+    memo's rows within LM_TRAIN_IAG_TOL (relative L2)."""
+    import torch
+    from repro_torch.launch.train import make_iag_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import iag
+    from repro_torch.tree import tree_leaves
+    from repro_torch.training import TrainState
+    run = LM_TRAIN_IAG
+    cfg = lm_cut(cfg, slice(0, run["layers"]))
+    params = T.init_params(cfg, LM_SEED, device=device)
+    opt = iag(LM_TRAIN_LR, run["shards"])
+    step = make_iag_step(cfg, opt)
+    state = TrainState(params, opt.init(params), 0)
+    batches = [lm_train_batch(cfg, run["batch"], run["s"], LM_SEED + 10 + i,
+                              device) for i in range(run["shards"])]
+    losses, times = [], []
+    for i in range(run["shards"] * run["passes"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i % run["shards"]],
+                              i % run["shards"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    os_ = state.opt_state
+    errs = [rel_l2(a, m.sum(0)) for a, m in zip(tree_leaves(os_["agg"]),
+                                                 tree_leaves(os_["memo"]))]
+    out = {"phase": "lm_train_iag", "arch": cfg.name,
+           "layers": run["layers"], "shards": run["shards"],
+           "steps": len(losses), "B": run["batch"], "S": run["s"],
+           "losses": losses, "step_ms": times,
+           "memo_bytes": sum(m.numel() * 4 for m in
+                             tree_leaves(os_["memo"])),
+           "seen": bool(os_["seen"].all()), "count": int(os_["count"]),
+           "agg_vs_memo_sum_rel_l2_max": max(errs),
+           "tol": f"relative L2 {LM_TRAIN_IAG_TOL}",
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(out)
+    check(all(math.isfinite(x) for x in losses) and out["seen"]
+          and out["count"] == len(losses),
+          f"lm_train_iag: {out}")
+    check(max(errs) <= LM_TRAIN_IAG_TOL,
+          f"lm_train_iag: the aggregate off the memo's sum by {max(errs)}")
+    del params, state, os_
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(device):
+    """The LM template's training path on the card, last. Qwen2.5-3B
+    unreduced (3.086 B) from the port's seeded fp32 masters, bf16 compute,
+    remat on, AdamW on cosine_schedule, clip 1.0, S = 4,096, a global
+    batch of 4 as 2 microbatches, 8 steps on one repeated batch: every
+    loss and grad_norm finite, the last loss below the first, K9 launched
+    0 times, the host syncs of a step as train_syncs_predicted says; the
+    median ms of the last 6 steps, tokens/s, peak memory and the model
+    FLOPs' share of the dense bf16 peak. Then lm_train_fp32 and, at cut
+    depth and full width, DeepSeekMoE-16B, zamba2-1.2B and xLSTM-1.3B (3
+    steps each, bf16 with remat; DeepSeekMoE's lb_loss in its loss), and
+    lm_train_iag."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, cosine_schedule
+
+    qwen = get_config(LM_ARCH)
+    check((qwen.num_layers, qwen.d_model, qwen.num_heads, qwen.num_kv_heads,
+           qwen.d_ff, qwen.vocab_size) == LM_WIDTH and qwen.remat
+          and qwen.dtype == "bfloat16",
+          f"lm_train: {LM_ARCH} is not at its full width: {qwen}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(qwen, LM_SEED, device=device)
+    n_params = lm_numel(params)
+    batch = lm_train_batch(qwen, LM_TRAIN_BATCH, LM_TRAIN_S, LM_SEED + 4,
+                           device)
+    opt = annotated_optimizer(
+        adamw(cosine_schedule(LM_TRAIN_LR, 1, LM_TRAIN_STEPS)))
+    state, step, run = lm_train_run(qwen, params, opt, batch,
+                                    LM_TRAIN_STEPS, LM_TRAIN_MICROBATCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ms = median(run["step_ms"][2:])
+    state, split = lm_train_breakdown(qwen, state, step, batch)
+    del state, step, params, batch
+    check(all(split[r]["share"] > 0 for r in TRAIN_REGIONS)
+          and sum(split[r]["share"] for r in TRAIN_REGIONS) <= 1.0,
+          f"lm_train: the profiled regions' shares do not add up: {split}")
+    torch.cuda.empty_cache()
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_S
+    flops = train_flops(qwen, n_params, LM_TRAIN_BATCH, LM_TRAIN_S)
+    out = {"phase": "lm_train", "arch": qwen.name, "params": n_params,
+           "reduced": f"train_4k batch 256 -> {LM_TRAIN_BATCH} "
+                      f"({LM_TRAIN_MICROBATCHES} microbatches)",
+           "dtype": qwen.dtype, "remat": qwen.remat, "B": LM_TRAIN_BATCH,
+           "S": LM_TRAIN_S, **run, "median_ms_last6": ms,
+           "tokens_per_s": tokens / ms * 1e3, "model_flops": flops,
+           "model_flops_share_of_bf16_peak":
+               flops / (ms / 1e3) / BF16_OPS_PER_S,
+           "bound_ms": flops / BF16_OPS_PER_S * 1e3,
+           "peak_bytes": peak, "split": split}
+    emit(out)
+    runs = {"qwen": out, "fp32": lm_train_fp32(qwen, device)}
+    for arch, (layers, b, s) in LM_TRAIN_FAMILIES.items():
+        cfg = lm_cut(get_config(arch), layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, LM_SEED, device=device)
+        n = lm_numel(params)
+        opt = adamw(cosine_schedule(LM_TRAIN_LR, 1, LM_TRAIN_FAMILY_STEPS))
+        batch = lm_train_batch(cfg, b, s, LM_SEED + 5, device)
+        state, step, run = lm_train_run(cfg, params, opt, batch,
+                                        LM_TRAIN_FAMILY_STEPS)
+        row = {"phase": "lm_train", "arch": cfg.name, "params": n,
+               "reduced": f"layers {get_config(arch).num_layers} -> "
+                          f"{cfg.num_layers} ({layers.start}-"
+                          f"{layers.stop - 1})",
+               "pattern": list(cfg.pattern), "B": b, "S": s, **run,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        n_moe = cfg.pattern.count(MOE)
+        if n_moe:
+            # the balance loss is finite and enters the loss
+            gaps = [abs(l - (c + 0.01 * lb / n_moe))
+                    for l, c, lb in zip(run["losses"], run["ce"],
+                                        run["lb_loss"])]
+            row["loss_minus_ce_plus_lb"] = max(gaps)
+            check(all(lb > 0 for lb in run["lb_loss"])
+                  and max(gaps) <= 1e-4 * max(run["losses"]),
+                  f"{cfg.name}: lb_loss {run['lb_loss']} not in the loss")
+            # the MoE dispatch's host syncs under remat: the idle share
+            phase_profile(lambda: step(state, batch), updates=1,
+                          phase=f"profile_{cfg.name}_train")
+        emit(row)
+        runs[arch] = row
+        del state, step, params, batch
+        torch.cuda.empty_cache()
+    runs["iag"] = lm_train_iag(qwen, device)
     return runs
 
 
@@ -4856,6 +5310,9 @@ def main() -> int:
     # next is built
     lm_moe = phase_lm_moe(device)
     lm_recurrent = phase_lm_recurrent(device)
+    # the training path after every serving phase (its 49 GB of masters,
+    # gradients and moments come once the serving models are freed)
+    phase_lm_train(device)
     # each kernel's launches on the path that runs it: K2 and K5 on
     # memo_delta / memo_delta_csr (the training paths run them fused)
     launches.update(fixed_point_csr=launches_csr["fixed_point_csr"],

@@ -10,33 +10,14 @@ other, bit for bit.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map_with_path, tree_paths
+
 STEP_KEY = "__step__"
-
-
-def _is_namedtuple(node) -> bool:
-    return isinstance(node, tuple) and hasattr(node, "_fields")
-
-
-def _leaves(tree: Any, prefix: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[str, Any]]:
-    """(path, leaf) pairs in ``jax.tree_util``'s order: dicts by sorted
-    key, sequences by index, named tuples by field."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (str(k),))
-    elif _is_namedtuple(tree):
-        for f in tree._fields:
-            yield from _leaves(getattr(tree, f), prefix + ("." + f,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, prefix + (str(i),))
-    else:
-        yield "/".join(prefix), tree
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -49,7 +30,7 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
-    return {key: _to_numpy(leaf) for key, leaf in _leaves(tree)}
+    return {key: _to_numpy(leaf) for key, leaf in tree_paths(tree)}
 
 
 def save_checkpoint(path: str, tree: Any, step: Optional[int] = None) -> str:
@@ -71,16 +52,7 @@ def restore_checkpoint(path: str, like: Any = None, device=None) -> Any:
     if like is None:
         return flat
 
-    def build(node, prefix):
-        if isinstance(node, dict):
-            return {k: build(v, prefix + (str(k),)) for k, v in node.items()}
-        if _is_namedtuple(node):
-            return type(node)(*(build(getattr(node, f), prefix + ("." + f,))
-                                for f in node._fields))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v, prefix + (str(i),))
-                              for i, v in enumerate(node))
-        key = "/".join(prefix)
+    def load(key, node):
         arr = flat[key]
         if arr.shape != tuple(node.shape):
             raise ValueError(f"restore_checkpoint: {key} has shape "
@@ -89,4 +61,4 @@ def restore_checkpoint(path: str, like: Any = None, device=None) -> Any:
             return torch.from_numpy(arr).to(device or "cpu")
         return arr
 
-    return build(like, ())
+    return tree_map_with_path(load, like)

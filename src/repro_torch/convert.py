@@ -14,7 +14,12 @@ layers unstacked into one dict a layer; ``lm_params_to_repro`` is its
 inverse, so ``repro`` can run on the port's own init. ``lm_caches_to_repro``
 and ``lm_caches_from_repro`` do the same for the decode caches (KV ring
 buffers, the recurrent blocks' named tuples, zamba2's pairs), so a decode
-can stop in one package and go on in the other.
+can stop in one package and go on in the other. ``lm_train_state_from_repro``
+and ``lm_train_state_to_repro`` carry a whole training state across: the
+parameters, the optimizer's state (AdamW's ``m``/``v``, SGD's ``mu``,
+IAG's ``memo``/``agg``/``seen`` with the memo's leading shard axis, and
+``count``) and the step, so a run can start in one package from the
+other's state.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.memo import DenseMemoStore
 from repro_torch.core.types import GlobalState, resolve_device
 from repro_torch.models.transformer import stage_layout
+from repro_torch.training.steps import TrainState
+from repro_torch.tree import tree_map
 
 STATE_FIELDS = ("lam", "m_vk", "init_mass", "init_frac", "t")
 
@@ -89,17 +96,6 @@ LM_TOP_ARRAYS = ("embed", "lm_head", "heads")
 LM_TOP_TREES = ("final_norm", "shared_attn")
 
 
-def _tree_map(fn, node):
-    """``fn`` on every leaf of dicts, named tuples and tuples."""
-    if isinstance(node, Mapping):
-        return {k: _tree_map(fn, v) for k, v in node.items()}
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*(_tree_map(fn, v) for v in node))
-    if isinstance(node, tuple):
-        return tuple(_tree_map(fn, v) for v in node)
-    return fn(node)
-
-
 def _stack(group):
     """Trees of one structure → one tree of their leaves stacked."""
     first = group[0]
@@ -133,7 +129,7 @@ def _from_stages(stages, cfg: ModelConfig, leaf) -> list:
         stage = _child(stages, si)
         for r in range(reps):
             for pos in range(len(cycle)):
-                layers.append(_tree_map(lambda a: leaf(np.asarray(a)[r]),
+                layers.append(tree_map(lambda a: leaf(np.asarray(a)[r]),
                                         _child(stage, pos)))
     return layers
 
@@ -174,7 +170,7 @@ def lm_params_from_repro(params_np: Mapping[str, Any], cfg: ModelConfig,
     out = {k: leaf(tree[k]) for k in LM_TOP_ARRAYS if k in tree}
     for k in LM_TOP_TREES:
         if k in tree:
-            out[k] = _tree_map(leaf, tree[k])
+            out[k] = tree_map(leaf, tree[k])
     out["layers"] = _from_stages(tree["stages"], cfg, leaf)
     return out
 
@@ -190,8 +186,8 @@ def lm_params_to_repro(params: Mapping[str, Any], cfg: ModelConfig) -> dict:
     out = {k: arr(params[k]) for k in LM_TOP_ARRAYS if k in params}
     for k in LM_TOP_TREES:
         if k in params:
-            out[k] = _tree_map(arr, params[k])
-    out["stages"] = _to_stages([_tree_map(arr, p)
+            out[k] = tree_map(arr, params[k])
+    out["stages"] = _to_stages([tree_map(arr, p)
                                 for p in params["layers"]], cfg)
     return out
 
@@ -200,7 +196,7 @@ def lm_caches_to_repro(caches, cfg: ModelConfig) -> tuple:
     """The port's decode caches (one a layer, as ``init_caches`` and
     ``decode_step`` give them) as ``repro``'s ``init_caches`` layout of
     numpy arrays: stages of cycle positions, each stacked on ``reps``."""
-    return _to_stages([_tree_map(lambda t: t.detach().cpu().numpy(), c)
+    return _to_stages([tree_map(lambda t: t.detach().cpu().numpy(), c)
                        for c in caches], cfg)
 
 
@@ -210,3 +206,70 @@ def lm_caches_from_repro(caches_np, cfg: ModelConfig, device=None) -> list:
     device = resolve_device(device)
     return _from_stages(caches_np, cfg,
                         lambda a: torch.from_numpy(np.array(a)).to(device))
+
+
+# ---------------------------------------------------------------------------
+# the LM template's training state
+# ---------------------------------------------------------------------------
+
+# the optimizer-state entries shaped as the parameters (repro.optim)
+LM_OPT_TREES = ("m", "v", "mu", "agg")
+
+
+def _reps_first(tree: Mapping[str, Any]) -> dict:
+    """An IAG memo in ``repro``'s layout has the shard axis first
+    everywhere, so its stage leaves are (shards, reps, ...): put ``reps``
+    first, where ``_from_stages`` slices it."""
+    out = dict(tree)
+    out["stages"] = tree_map(lambda a: np.moveaxis(np.asarray(a), 1, 0),
+                              tree["stages"])
+    return out
+
+
+def lm_train_state_from_repro(state, cfg: ModelConfig, device=None):
+    """``repro``'s ``TrainState`` (any object with ``params``,
+    ``opt_state`` and ``step``; leaves numpy or anything numpy reads) as
+    the port's ``TrainState`` on ``device``: the parameters and every
+    parameter-shaped optimizer tree in the port's layout (one dict a
+    layer), IAG's memo with its shard axis leading each leaf, the scalars
+    and ``seen`` as tensors."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    opt = {}
+    for key, val in state.opt_state.items():
+        if key in LM_OPT_TREES:
+            opt[key] = lm_params_from_repro(val, cfg, device)
+        elif key == "memo":
+            opt[key] = lm_params_from_repro(_reps_first(val),
+                                            cfg, device)
+        else:
+            opt[key] = leaf(val)
+    return TrainState(lm_params_from_repro(state.params, cfg, device), opt,
+                      leaf(state.step))
+
+
+def lm_train_state_to_repro(state, cfg: ModelConfig):
+    """``lm_train_state_from_repro``'s inverse: a ``TrainState`` of numpy
+    trees in ``repro``'s layout (stacked stages, IAG's memo with the shard
+    axis first), which ``repro.training.TrainState(*...)`` takes field for
+    field."""
+
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    opt = {}
+    for key, val in state.opt_state.items():
+        if key in LM_OPT_TREES:
+            opt[key] = lm_params_to_repro(val, cfg)
+        elif key == "memo":
+            memo = lm_params_to_repro(val, cfg)
+            memo["stages"] = tree_map(lambda a: np.moveaxis(a, 0, 1),
+                                       memo["stages"])
+            opt[key] = memo
+        else:
+            opt[key] = arr(val)
+    return TrainState(lm_params_to_repro(state.params, cfg), opt,
+                      arr(torch.as_tensor(state.step)))

@@ -10,6 +10,13 @@ part, so its products keep about 16 bits), fp32 in fp32 SIMT math.
 ``flash_attention_plain`` is its plain PyTorch twin. The wrapper takes the
 twin only for CPU tensors; for CUDA tensors it launches the kernel or
 raises. Each launch adds one to ``LAUNCHES["flash_attention"]``.
+
+K9 has no backward (nor has ``repro``'s kernel): called through
+``ctypes``, its output would carry no ``grad_fn``, and a training step
+routed through it would get zero gradients for the projections before
+it. So the wrapper raises, on either device, when autograd is recording
+and q, k or v requires grad (``refuse_autograd``); training takes the
+plain chunked scan. ``flash_attention_plain`` stays differentiable.
 """
 from __future__ import annotations
 
@@ -31,6 +38,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def recording(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records through any of ``tensors``: grad mode on
+    (not under ``no_grad`` or ``inference_mode``) and one requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd is recording through any of ``tensors``: K9 has
+    no backward, and it neither detaches nor falls back."""
+    if recording(*tensors):
+        raise RuntimeError(
+            f"{what}: the flash-attention kernel (K9) has no backward, so "
+            "it cannot enter an autograd graph; training takes the plain "
+            "chunked attention (attention='plain'), and a prefill runs "
+            "under torch.inference_mode")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,6 +99,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the output sliced back), and an input whose base is not aligned is
     copied.
     """
+    refuse_autograd("flash_attention", q, k, v)
     bh, s, hd = q.shape
     if k.shape != v.shape or k.ndim != 3 or k.shape[1:] != (s, hd):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "

@@ -45,7 +45,8 @@ from repro_torch.core.estep import (CSRTokenBatch, EStepResult, densify,
 from repro_torch.core.types import (DEFAULT_KERNEL_POLICY, KernelPolicy,
                                     LDAConfig)
 from repro_torch.kernels import lda_estep
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                               refuse_autograd)
 
 #: Host syncs of ``estep_cuda_sweeps`` (one per stopping-rule check) since
 #: the last reset; the baseline's own cost, counted.
@@ -342,8 +343,10 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     before invoking the flash kernel. Query head h reads key/value head
     h // (H / KV) in place (no repeated copy), and the kernel masks the
     padded keys, so the result is ``mha_ref`` on the unpadded inputs,
-    causal or not.
+    causal or not. K9 has no backward: with autograd recording through q,
+    k or v it raises (``flash_attention.refuse_autograd``).
     """
+    refuse_autograd("flash_mha", q, k, v)
     b, s, h, hd = q.shape
     kv = k.shape[2]
     if h % kv:

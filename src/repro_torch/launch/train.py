@@ -1,4 +1,17 @@
-"""Training launcher of the port: MVI / SVI / IVI / S-IVI, or D-IVI with
+"""Training launcher of the port, ``repro.launch.train``'s two modes.
+
+``lm`` trains an arch of the LM template (``repro``'s flags and printout:
+``--arch --reduced --steps --batch --seq --lr --optimizer {adamw,iag}
+--iag-shards --log-every --seed --ckpt``, and ``--device``) on batches
+drawn from ``np.random.default_rng(seed)`` in ``repro``'s order, so both
+packages see the same tokens, labels and vision embeddings. AdamW runs
+``make_train_step`` on a cosine schedule; IAG steps by the aggregate of
+the shards' memoized gradients, one shard a step, with no clipping, as
+``repro``'s launcher does. ``--ckpt`` writes the parameters in ``repro``'s
+stacked-stage layout to one npz (`repro_torch.checkpoint.io`), which
+``repro``'s ``restore_checkpoint`` reads.
+
+``lda``: MVI / SVI / IVI / S-IVI, or D-IVI with
 P simulated workers (``--algo divi --workers --staleness --delay-prob
 --rounds``), on a synthetic paper-shaped corpus, with periodic held-out
 LPP, through the `repro_torch.lda.LDA` facade.
@@ -16,6 +29,10 @@ streamed back), single-host or sharded over D-IVI's workers;
 ``--tune-store`` resolves a tuned kernel policy (`repro_torch.tune`).
 
 Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train lm --arch qwen2.5-3b \\
+      --reduced --steps 20 --log-every 5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train lm --arch xlstm-1.3b \\
+      --reduced --optimizer iag --iag-shards 4 --steps 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus small
   PYTHONPATH=src python -m repro_torch.launch.train lda --corpus tiny \\
       --topics 8 --backend gather --device cpu
@@ -44,6 +61,8 @@ import argparse
 import os
 import tempfile
 import time
+
+import numpy as np
 
 
 def main_lda(args) -> None:
@@ -191,7 +210,84 @@ def _report_telemetry(tel, args) -> None:
         print(f"metrics: wrote {args.metrics_json}")
 
 
-def main() -> None:
+def lm_batch(cfg, rng, batch: int, seq: int, device):
+    """One training batch drawn as ``repro``'s launcher draws it: tokens,
+    then labels (covering a VLM's patch prefix), then the vision
+    embeddings, each from ``rng``."""
+    import torch
+    shape = ((batch, seq, cfg.num_codebooks) if cfg.modality == "audio"
+             else (batch, seq))
+    out = {"tokens": rng.integers(0, cfg.vocab_size, shape)}
+    lab_len = seq + (cfg.num_patches if cfg.modality == "vision" else 0)
+    lab_shape = ((batch, lab_len, cfg.num_codebooks)
+                 if cfg.modality == "audio" else (batch, lab_len))
+    out["labels"] = rng.integers(0, cfg.vocab_size, lab_shape)
+    if cfg.modality == "vision":
+        out["vision_embeds"] = rng.normal(
+            0, 1, (batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def make_iag_step(cfg, opt):
+    """``repro``'s IAG step: the gradients, the optimizer's update for
+    ``shard``, applied; no clipping. ``step(state, batch, shard) →
+    (state, metrics)``."""
+    from repro_torch.optim import apply_updates
+    from repro_torch.training import TrainState, loss_and_grads
+
+    def step(state, batch, shard):
+        metrics, grads = loss_and_grads(cfg, state.params, batch)
+        updates, opt_state = opt.update(grads, state.opt_state, state.params,
+                                        shard=shard)
+        return TrainState(apply_updates(state.params, updates), opt_state,
+                          state.step + 1), metrics
+    return step
+
+
+def main_lm(args) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import resolve_device
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, cosine_schedule, iag
+    from repro_torch.tree import tree_leaves
+    from repro_torch.training import TrainState, make_train_step
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced(seq_len_hint=args.seq)
+    rng = np.random.default_rng(args.seed)
+    params = T.init_params(cfg, args.seed, device=device)
+    n = sum(x.numel() for x in tree_leaves(params))
+    print(f"arch={cfg.name} params={n / 1e6:.2f}M")
+    if args.optimizer == "iag":
+        opt = iag(args.lr, num_shards=args.iag_shards)
+        step = make_iag_step(cfg, opt)
+    else:
+        opt = adamw(cosine_schedule(args.lr, 10, args.steps))
+        step = make_train_step(cfg, opt)
+    state = TrainState(params, opt.init(params), 0)
+    t0 = time.perf_counter()
+    for s in range(args.steps):
+        batch = lm_batch(cfg, rng, args.batch, args.seq, device)
+        if args.optimizer == "iag":
+            state, metrics = step(state, batch, s % args.iag_shards)
+        else:
+            state, metrics = step(state, batch)
+        if (s + 1) % args.log_every == 0:
+            dt = time.perf_counter() - t0
+            print(f"step={s + 1} loss={float(metrics['loss']):.4f} "
+                  f"ce={float(metrics['ce']):.4f} "
+                  f"steps_per_s={(s + 1) / dt:.2f}")
+    if args.ckpt:
+        from repro_torch.checkpoint import save_checkpoint
+        from repro_torch.convert import lm_params_to_repro
+        save_checkpoint(args.ckpt, lm_params_to_repro(state.params, cfg),
+                        step=args.steps)
+        print("saved", args.ckpt)
+
+
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
     lda = sub.add_parser("lda")
@@ -255,8 +351,27 @@ def main() -> None:
     lda.add_argument("--tune-store", default=None, metavar="PATH",
                      help="repro_torch.tune policy store of tuned kernel "
                           "policies, resolved at this run's shape")
-    args = ap.parse_args()
-    main_lda(args)
+    lm = sub.add_parser("lm")
+    lm.add_argument("--arch", required=True)
+    lm.add_argument("--reduced", action="store_true")
+    lm.add_argument("--steps", type=int, default=100)
+    lm.add_argument("--batch", type=int, default=4)
+    lm.add_argument("--seq", type=int, default=128)
+    lm.add_argument("--lr", type=float, default=3e-4)
+    lm.add_argument("--optimizer", default="adamw", choices=["adamw", "iag"])
+    lm.add_argument("--iag-shards", type=int, default=8)
+    lm.add_argument("--log-every", type=int, default=10)
+    lm.add_argument("--seed", type=int, default=0)
+    lm.add_argument("--ckpt", default=None,
+                    help="write the parameters here at the end: one npz in "
+                         "repro's stacked-stage layout")
+    lm.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain versions")
+    args = ap.parse_args(argv)
+    if args.mode == "lda":
+        main_lda(args)
+    else:
+        main_lm(args)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ Prefill (``attention_train``) has two routes, chosen by
 - ``"plain"``: ``repro``'s query-chunked scan as a loop over
   ``cfg.attn_chunk`` query rows, so the (chunk, S) score tile is the only
   score buffer. The default on the CPU, and what the comparisons on the
-  card call by name.
+  card call by name. Training takes it by name on every device, each
+  chunk recomputed in the backward (``repro``'s ``jax.checkpoint``
+  chunk): K9 has no backward, and neither has ``repro``'s kernel.
 
 Decode (``attention_decode``) is plain torch on every device, as ``repro``'s
 is plain XLA: a ring-buffer cache whose ``slot_pos`` tracks the absolute
@@ -29,9 +31,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import recording
 from repro_torch.kernels.ops import flash_mha
-from repro_torch.models.layers import (Params, rope, rounded, softcap,
-                                       truncated_normal)
+from repro_torch.models.layers import (Params, checkpointed, rope, rounded,
+                                       softcap, truncated_normal)
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps padded rows NaN-free
 
@@ -124,7 +127,10 @@ def _chunked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                        window: Optional[int]) -> torch.Tensor:
     """``repro``'s scan over query chunks. q (B, S, H, hd), pre-scaled;
     k, v (B, S, KV, hd) → (B, S, H, hd). The bf16 logits are cast to fp32
-    before the mask and the softmax, as in ``repro``."""
+    before the mask and the softmax, as in ``repro``. Where autograd
+    records, each chunk runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward, as ``repro``'s ``jax.checkpoint`` chunk is:
+    no (chunk, S) score tile outlives its chunk."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     rep = h // kv
@@ -141,9 +147,8 @@ def _chunked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     qg = q.reshape(b, s, kv, rep, hd)
     if s_pad != s:
         qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, s_pad - s))
-    outs = []
-    for i in range(s_pad // c):
-        qi, qpos = qg[:, i * c:(i + 1) * c], qpos_all[i * c:(i + 1) * c]
+
+    def chunk(qi, qpos, k, v):
         logits = torch.einsum("bqgrk,bsgk->bgrqs", qi, k)  # (B,kv,rep,c,S)
         logits = softcap(logits, cfg.attn_logit_softcap)
         mask = qpos[:, None] >= kpos[None, :]              # causal (c, S)
@@ -151,7 +156,12 @@ def _chunked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             mask &= qpos[:, None] - kpos[None, :] < window
         logits = torch.where(mask, logits.float(), NEG_INF)
         w = torch.softmax(logits, dim=-1).to(v.dtype)
-        outs.append(torch.einsum("bgrqs,bsgk->bqgrk", w, v))
+        return torch.einsum("bgrqs,bsgk->bqgrk", w, v)
+
+    if recording(q, k, v):
+        chunk = checkpointed(chunk)
+    outs = [chunk(qg[:, i * c:(i + 1) * c], qpos_all[i * c:(i + 1) * c], k,
+                  v) for i in range(s_pad // c)]
     return torch.cat(outs, dim=1).reshape(b, s_pad, h, hd)[:, :s]
 
 

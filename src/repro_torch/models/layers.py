@@ -9,11 +9,13 @@ activations' dtype at each use (a no-op on a copy already in that dtype,
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -33,6 +35,15 @@ def truncated_normal(shape, std: float, *, generator: torch.Generator,
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     """``cfg.dtype`` ("bfloat16", "float32") as a torch dtype."""
     return getattr(torch, cfg.dtype)
+
+
+def checkpointed(fn):
+    """``fn`` under ``torch.utils.checkpoint``: its activations are dropped
+    after the forward and recomputed in the backward, as under ``repro``'s
+    ``jax.checkpoint``. Nothing in the models draws random numbers, so no
+    RNG state is kept."""
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def rounded(value: float, dtype: torch.dtype) -> float:

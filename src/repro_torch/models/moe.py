@@ -85,7 +85,8 @@ def route(cfg: ModelConfig, p: Params, x: torch.Tensor):
 
 
 def expert_ffn(p: Params, g: int, xs: torch.Tensor) -> torch.Tensor:
-    """Routed expert ``g``'s SwiGLU FFN on its rows xs (M, D)."""
+    """Routed expert ``g``'s SwiGLU FFN on its rows xs (M, D); ``p`` holds
+    the (E, ...) stacks, or a sequence an expert of each."""
     dt = xs.dtype
     h = F.silu(xs @ p["w_gate"][g].to(dt)) * (xs @ p["w_up"][g].to(dt))
     return h @ p["w_down"][g].to(dt)
@@ -120,13 +121,17 @@ def moe_ffn_local(cfg: ModelConfig, p: Params, x: torch.Tensor,
     # each (token, slot) pair's output at its sorted position; rows past
     # the capacity stay 0, as repro's ``live`` mask makes them
     out = x.new_zeros((n * k, d))
+    # the expert stacks as one view an expert, taken once: in training the
+    # backward then stacks the experts' gradients once a stack (indexing an
+    # expert would give each its own zero-filled (E, D, F) gradient)
+    experts = {w: p[w].unbind(0) for w in ("w_gate", "w_up", "w_down")}
     for j in range(el):
         a, b = min(max(off[j] - lo, 0), live), min(max(off[j + 1] - lo, 0),
                                                     live)
         if a == b:
             continue
         rows = order[lo + a: lo + b]
-        out[lo + a: lo + b] = expert_ffn(p, j, x[rows // k]) \
+        out[lo + a: lo + b] = expert_ffn(experts, j, x[rows // k]) \
             * w_flat[rows].to(dt)[:, None]
 
     # each token's k rows in ascending expert order, added in ``dt``

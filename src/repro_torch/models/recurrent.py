@@ -1,5 +1,5 @@
 """Recurrent blocks: Mamba2 (SSD), xLSTM mLSTM / sLSTM
-(``repro.models.recurrent``), forward only.
+(``repro.models.recurrent``).
 
 One chunked scalar-decay linear recurrence serves Mamba2 and the mLSTM:
 
@@ -15,8 +15,9 @@ is fp32 exactly where ``repro`` casts to fp32; the products run in the
 activations' dtype where ``repro``'s do.
 
 The sLSTM has a true hidden-to-hidden recurrence (block-diagonal R), so a
-full sequence is a loop over time, as ``repro``'s ``lax.scan`` is. Its
-custom VJP is training (ROADMAP §1 item 10.3).
+full sequence is a loop over time, as ``repro``'s ``lax.scan`` is. In
+training it runs under ``repro``'s custom VJP (``_SLSTMSeq``); every other
+block is differentiated by autograd, as ``repro``'s are by ``jax.grad``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import recording
 from repro_torch.models.layers import Params, rounded, truncated_normal
 
 NEG_INF = -1e30
@@ -404,7 +406,8 @@ def _headwise_rmsnorm(y: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _slstm_gates(r, wxb, xc, h, state, heads):
-    """One step: the new (c, n, m, h). All fp32; r: (4, H, hd, hd)."""
+    """One step: the new (c, n, m, h), and the step's (z, iz, fz, o,
+    log_f) that the backward reads. All fp32; r: (4, H, hd, hd)."""
     b, d = h.shape
     hd = d // heads
     c, n, m = state
@@ -422,22 +425,99 @@ def _slstm_gates(r, wxb, xc, h, state, heads):
     c_new = fz * c + iz * z
     n_new = fz * n + iz
     h_new = o * c_new / torch.clamp(n_new, min=1e-6)
-    return c_new, n_new, m_new, h_new
+    return (c_new, n_new, m_new, h_new), (z, iz, fz, o, log_f)
+
+
+def _slstm_loop(heads, r, wxb, xc):
+    """The loop over time from the zero state: hs (B, T, D), and each
+    step's (h, c, n, z, iz, fz, o, log_f)."""
+    b, t, d4 = wxb.shape
+    z0 = wxb.new_zeros((b, d4 // 4))
+    c, n, m, h = z0, z0, z0, z0
+    steps = []
+    for step in range(t):
+        (c, n, m, h), gates = _slstm_gates(r, wxb[:, step], xc[:, step], h,
+                                           (c, n, m), heads)
+        steps.append((h, c, n) + gates)
+    return torch.stack([x[0] for x in steps], 1), steps
+
+
+class _SLSTMSeq(torch.autograd.Function):
+    """``repro``'s custom VJP of the sLSTM sequence
+    (``repro.models.recurrent._slstm_seq_fwd`` / ``_slstm_seq_bwd``).
+
+    The forward is the loop over time, saving each step's h, c, n and gate
+    activations. The backward runs the loop in reverse carrying only
+    (gc, gn, gh_rec) and emits each step's gate deltas; dR is then one
+    time-batched product a gate. The stabiliser m is a constant in the
+    backward, as in ``repro``: h = o·c/n does not depend on m while the
+    clamp on n is inactive, and where it is active plain autograd of the
+    loop would carry a cotangent through m that ``repro``'s rule drops."""
+
+    @staticmethod
+    def forward(ctx, heads, r, wxb, xc):
+        hs, steps = _slstm_loop(heads, r, wxb, xc)
+        ctx.heads = heads
+        ctx.save_for_backward(r, *(torch.stack(x) for x in zip(*steps)))
+        return hs
+
+    @staticmethod
+    def backward(ctx, ghs):
+        r, h_seq, c_seq, n_seq, z, iz, fz, o, log_f = ctx.saved_tensors
+        heads = ctx.heads
+        t, b, d = h_seq.shape
+        hd = d // heads
+        sig_f = torch.exp(log_f)
+
+        def shift(x):   # (t − 1); step 0 sees the zero initial state
+            return torch.cat([x.new_zeros((1, b, d)), x[:-1]])
+
+        h_prev, c_prev, n_prev = shift(h_seq), shift(c_seq), shift(n_seq)
+        gh_out = ghs.to(h_seq.dtype).movedim(1, 0)          # (T, B, D)
+        gc = gn = gh_rec = h_seq.new_zeros((b, d))
+        deltas = []
+        for s in reversed(range(t)):
+            gh = gh_out[s] + gh_rec
+            nt, ct, ot = n_seq[s], c_seq[s], o[s]
+            nhat = torch.clamp(nt, min=1e-6)
+            do = gh * ct / nhat
+            dc = gc + gh * ot / nhat
+            dn = gn - torch.where(nt >= 1e-6, gh * ot * ct / (nhat * nhat),
+                                  0.0)
+            dz = dc * iz[s]
+            dlog_i = (dc * z[s] + dn) * iz[s]
+            dlog_f = (dc * c_prev[s] + dn * n_prev[s]) * fz[s]
+            gc = dc * fz[s]
+            gn = dn * fz[s]
+            d_z = dz * (1.0 - z[s] * z[s])
+            d_i = dlog_i
+            d_f = dlog_f * (1.0 - sig_f[s])
+            d_o = do * ot * (1.0 - ot)
+            # the recurrent cotangent: δ_g · R_gᵀ a head, summed over gates
+            delta = torch.stack([d_z, d_i, d_f, d_o]).reshape(4, b, heads, hd)
+            gh_rec = torch.einsum("gbhk,ghjk->gbhj", delta, r).reshape(
+                4, b, d).sum(0)
+            deltas.append(delta)
+        deltas.reverse()
+        delta = torch.stack(deltas, 1)                     # (4, T, B, H, hd)
+        # one time-batched weight product a gate
+        d_r = torch.einsum("tbhj,gtbhk->ghjk", h_prev.reshape(t, b, heads, hd),
+                           delta)
+        d_z, d_i, d_f, d_o = delta.reshape(4, t, b, d)
+        d_wxb = torch.cat([d_z, d_i, d_f, d_o], -1).movedim(0, 1)
+        d_xc = (d_i + d_f).movedim(0, 1)
+        return None, d_r, d_wxb, d_xc
 
 
 def slstm_seq(heads: int, r: torch.Tensor, wxb: torch.Tensor,
               xc: torch.Tensor) -> torch.Tensor:
     """hs (B, T, D) from pre-activations wxb (B, T, 4D) and the conv branch
-    xc (B, T, D), from the zero state. All fp32; r: (4, H, hd, hd)."""
-    b, t, d4 = wxb.shape
-    z0 = wxb.new_zeros((b, d4 // 4))
-    c, n, m, h = z0, z0, z0, z0
-    hs = []
-    for step in range(t):
-        c, n, m, h = _slstm_gates(r, wxb[:, step], xc[:, step], h, (c, n, m),
-                                  heads)
-        hs.append(h)
-    return torch.stack(hs, 1)
+    xc (B, T, D), from the zero state. All fp32; r: (4, H, hd, hd).
+    Differentiable by ``repro``'s custom VJP (``_SLSTMSeq``) where autograd
+    is recording; the bare loop elsewhere."""
+    if recording(r, wxb, xc):
+        return _SLSTMSeq.apply(heads, r, wxb, xc)
+    return _slstm_loop(heads, r, wxb, xc)[0]
 
 
 def slstm_init(cfg: ModelConfig, *, generator, device) -> Params:
@@ -505,8 +585,9 @@ def slstm_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
                            p["conv_b"].to(dt_))
     xc = F.silu(xc)
     wxb = xt @ p["w_in"].to(dt_) + p["b"].to(dt_)
-    c, n, m, hid = _slstm_gates(p["r"].float(), wxb.float(), xc.float(),
-                                cache.h, (cache.c, cache.n, cache.m),
-                                cfg.num_heads)
+    (c, n, m, hid), _ = _slstm_gates(p["r"].float(), wxb.float(),
+                                     xc.float(), cache.h,
+                                     (cache.c, cache.n, cache.m),
+                                     cfg.num_heads)
     y = _slstm_out(cfg, p, hid.to(dt_)[:, None], dt_)
     return y, SLSTMCache(conv, c, n, hid, m)

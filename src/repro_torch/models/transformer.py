@@ -9,33 +9,45 @@ one parameter dict a layer, ``params["layers"][i]`` for
 ``cfg.pattern[i]``, and applies the layers one after another.
 
 Served here, for full-sequence prefill (``forward``) and single-token
-decode (``decode_step``): the ``ATTN``, ``ATTN_LOCAL`` and
-``ATTN_PARALLEL`` blocks, the ``MOE`` block (`repro_torch.models.moe`),
+decode (``decode_step``), and trained (``loss_fn``): the ``ATTN``,
+``ATTN_LOCAL`` and ``ATTN_PARALLEL`` blocks, the ``MOE`` block
+(`repro_torch.models.moe`),
 the recurrent blocks ``MAMBA2``, ``MLSTM`` and ``SLSTM``
 (`repro_torch.models.recurrent`), ``MAMBA2_SHARED`` with zamba2's shared
 attention block (one parameter set, ``params["shared_attn"]``, applied at
 many depths to the concatenation of the stream and the embedded input),
 the VLM patch-embedding prefix and MusicGen's multi-codebook embedding and
-readout. Sharding over a mesh raises naming ROADMAP §1 item 10.4;
-``loss_fn`` waits for the training slice (item 10.3).
+readout. Sharding over a mesh raises naming ROADMAP §1 item 10.4.
+
+Training runs on the fp32 masters (``init_params``), each weight cast to
+``cfg.dtype`` at its use, so the gradients reach the masters in fp32;
+never on the serving copy from ``cast_params``. With ``cfg.remat`` each
+layer (a ``MAMBA2_SHARED`` layer with the shared block it applies) runs
+under ``torch.utils.checkpoint`` and is recomputed in the backward.
+``repro`` checkpoints a stage's scanned cycle body; with one parameter
+dict a layer the port checkpoints one layer: the same values, and a cycle
+of several layers (gemma2's local/global pair) keeps one boundary more.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_PARALLEL, MAMBA2,
                                       MAMBA2_SHARED, MLSTM, MOE, SLSTM,
                                       ModelConfig, effective_window)
 from repro_torch.core.types import resolve_device
+from repro_torch.kernels.flash_attention import recording
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm,
-                                       compute_dtype, mlp_init, norm_init,
-                                       rounded, sinusoidal, softcap,
-                                       truncated_normal)
+                                       checkpointed, compute_dtype, mlp_init,
+                                       norm_init, rounded, sinusoidal,
+                                       softcap, truncated_normal)
 from repro_torch.models.moe import mesh_not_ported
 
 AuxDict = Dict[str, torch.Tensor]
@@ -47,13 +59,6 @@ AuxDict = Dict[str, torch.Tensor]
 KEEP_FP32 = frozenset({"norm", "norm1", "norm2", "norm1_post", "norm2_post",
                        "norm_in", "final_norm", "dt_bias", "a_log",
                        "norm_scale", "r"})
-
-
-def training_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: LM training (loss_fn, make_train_step, optim/, "
-        "launch/train.py lm) is not ported to repro_torch yet (ROADMAP §1 "
-        "item 10.3); the port serves (prefill and decode)")
 
 
 def check_ctx(ctx=None) -> None:
@@ -337,15 +342,19 @@ def forward_hidden(cfg: ModelConfig, params: Params,
     """Full-sequence forward up to (but not including) the readout, and
     the MoE layers' aux statistics summed over the layers. ``attention``
     picks the prefill attention's route
-    (`repro_torch.models.attention.attention_route`)."""
+    (`repro_torch.models.attention.attention_route`). Where autograd
+    records and ``cfg.remat`` is set, each layer is checkpointed."""
     check_ctx(ctx)
     x, positions = _embed(cfg, params, batch, compute_dtype(cfg))
     emb0 = x if MAMBA2_SHARED in cfg.pattern else None
     shared = params.get("shared_attn")
     aux = _zero_aux(cfg, x.device)
+    layer = functools.partial(apply_layer, cfg, positions=positions,
+                              emb0=emb0, shared=shared, attention=attention)
+    if cfg.remat and recording(x):
+        layer = checkpointed(layer)
     for kind, p in zip(cfg.pattern, params["layers"], strict=True):
-        x, ai = apply_layer(cfg, kind, p, x, positions, emb0=emb0,
-                            shared=shared, attention=attention)
+        x, ai = layer(kind, p, x)
         if ai is not None:
             aux = _acc_aux(aux, ai)
     return x, aux
@@ -359,9 +368,52 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     return _readout(cfg, params, x), aux
 
 
-def loss_fn(*args, **kwargs):
-    """Not ported: the training slice (ROADMAP §1 item 10.3)."""
-    raise training_not_ported("loss_fn")
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            ctx=None, lb_coef: float = 0.01, loss_chunk: int = 1024
+            ) -> Tuple[torch.Tensor, AuxDict]:
+    """Next-token cross entropy (labels pre-shifted; −1 = masked), as
+    ``repro``'s. Returns (total, {"loss", "ce", **aux}).
+
+    The forward takes the plain chunked attention on every device (K9 has
+    no backward). The readout and its fp32 log-softmax run in sequence
+    chunks of ``loss_chunk`` (the last padded, its labels −1), each under
+    ``torch.utils.checkpoint`` where autograd records, so the (B, S, V)
+    logits never exist. ``ce = Σ nll / max(#labels, 1)``; a pattern with
+    MoE layers adds ``lb_coef · lb_loss / n_moe``. The labels are (B, S),
+    MusicGen's (B, S, C); a VLM's cover its patch prefix too."""
+    hidden, aux = forward_hidden(cfg, params, batch, ctx, attention="plain")
+    labels = batch["labels"]
+    b, s = hidden.shape[:2]
+    c = min(loss_chunk, s)
+    s_pad = ((s + c - 1) // c) * c
+    if s_pad != s:
+        hidden = F.pad(hidden, (0, 0, 0, s_pad - s))
+        pad_lab = (0, 0) * (labels.ndim - 2) + (0, s_pad - s)
+        labels = F.pad(labels, pad_lab, value=-1)
+
+    def chunk_ce(h, lab):
+        logits = _readout(cfg, params, h)
+        m = (lab >= 0).float()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.take_along_dim(logp, lab.clamp(min=0)[..., None],
+                                    dim=-1)[..., 0]
+        return (nll * m).sum(), m.sum()
+
+    if recording(hidden):
+        chunk_ce = checkpointed(chunk_ce)
+    tot = cnt = torch.zeros((), device=hidden.device)
+    for i in range(s_pad // c):
+        t, n = chunk_ce(hidden[:, i * c:(i + 1) * c],
+                        labels[:, i * c:(i + 1) * c])
+        tot, cnt = tot + t, cnt + n
+    ce = tot / torch.clamp(cnt, min=1.0)
+    n_moe = cfg.pattern.count(MOE)
+    total = ce + lb_coef * aux["lb_loss"] / n_moe if n_moe else ce
+    return total, {"loss": total, "ce": ce, **aux}
 
 
 # ---------------------------------------------------------------------------

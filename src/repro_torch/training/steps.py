@@ -1,30 +1,89 @@
-"""Step builders: the prefill and serve steps (``repro.training.steps``).
+"""Step builders (``repro.training.steps``): the train step (loss,
+gradients, optimizer), and the prefill and serve steps.
 
 ``make_prefill_step`` and ``make_serve_step`` return the functions a
-server calls, run under ``torch.inference_mode`` (no autograd state;
-``repro``'s ``remat`` applies to training only). ``make_train_step`` and
-``TrainState`` wait for the training slice (ROADMAP §1 item 10.3).
+server calls, run under ``torch.inference_mode`` (no autograd state).
+``make_train_step`` runs ``T.loss_fn`` with autograd on the fp32 masters
+(``cfg.remat`` checkpoints each layer), then clips, steps the optimizer
+and applies the updates, all in place (`repro_torch.optim`).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.tree import tree_leaves, tree_map
 
 
+@dataclasses.dataclass
 class TrainState:
-    """Not ported: the training slice (ROADMAP §1 item 10.3)."""
+    params: Any
+    opt_state: Any
+    step: Any
 
-    def __init__(self, *args, **kwargs):
-        raise T.training_not_ported("TrainState")
+
+def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                   microbatches: int = 1) -> Tuple[Dict[str, torch.Tensor],
+                                                    Any]:
+    """``T.loss_fn``'s metrics and its gradients with respect to
+    ``params`` (fp32, the structure of ``params``), as ``repro``'s
+    ``value_and_grad`` gives them.
+
+    With ``microbatches`` > 1 the batch splits on its leading axis into
+    that many equal parts; each part's backward adds its gradients into
+    the same fp32 ``.grad`` buffers, and the sums and the metrics are then
+    divided by the count: the mean of per-microbatch means, as ``repro``
+    takes it. One gradient tree is live, never a second accumulator."""
+    n = next(iter(batch.values())).shape[0]
+    if n % microbatches:
+        raise ValueError(f"a batch of {n} does not split into "
+                         f"{microbatches} microbatches")
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    metrics = None
+    for i in range(microbatches):
+        part = {k: v.reshape((microbatches, n // microbatches) + v.shape[1:])
+                [i] for k, v in batch.items()}
+        with torch.enable_grad():
+            loss, m = T.loss_fn(cfg, live, part)
+            loss.backward()
+        m = {k: v.detach() for k, v in m.items()}
+        metrics = m if metrics is None else {k: metrics[k] + m[k]
+                                             for k in metrics}
+    grads = tree_map(lambda p: p.grad if p.grad is not None
+                     else torch.zeros_like(p), live)
+    if microbatches > 1:
+        for g in tree_leaves(grads):
+            g.div_(microbatches)
+        metrics = {k: v / microbatches for k, v in metrics.items()}
+    return metrics, grads
 
 
-def make_train_step(cfg: ModelConfig, optimizer=None, ctx=None, **kwargs):
-    """Not ported: the training slice (ROADMAP §1 item 10.3)."""
-    raise T.training_not_ported("make_train_step")
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, ctx=None,
+                    clip_norm: float = 1.0, microbatches: int = 1):
+    """Returns ``train_step(state, batch) → (state, metrics)``: the
+    gradients by ``loss_and_grads``, clipped to ``clip_norm`` by global
+    norm, the optimizer's update applied; ``metrics`` adds ``grad_norm``
+    (before clipping). The state's parameters and optimizer buffers are
+    updated in place and returned in a new ``TrainState``; ``ctx`` (a
+    mesh) raises."""
+    T.check_ctx(ctx)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        metrics, grads = loss_and_grads(cfg, state.params, batch,
+                                        microbatches)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.params)
+        params = apply_updates(state.params, updates)
+        return (TrainState(params, opt_state, state.step + 1),
+                dict(metrics, grad_norm=gnorm))
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, ctx=None, *,

@@ -1679,3 +1679,62 @@ def test_moe_decode_deterministic_and_skips_k9(cuda):
     assert fa.LAUNCHES["flash_attention"] == 0
     assert _rel_l2(got, want) <= LM_DECODE_REL_L2
     assert torch.equal(first, second) and first.shape == (4, 8)
+
+
+def test_lm_train_step_at_qwen_width_skips_k9(cuda):
+    """One training step at Qwen2.5-3B's widths (d_model 2,048, 16 / 2
+    heads of 128, d_ff 11,008, the full 151,936 vocabulary) cut to 2
+    layers: bf16 compute over the fp32 masters, remat on, AdamW, clip 1.0,
+    S = 1,024 as 2 microbatches of 1. The loss and the gradient norm are
+    finite, every parameter moves and stays finite, and K9 is never
+    launched (training takes the plain chunked attention)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.tree import tree_leaves
+    from repro_torch.training import TrainState, make_train_step
+    cfg = get_config("qwen2.5-3b")
+    cfg = dataclasses.replace(cfg, num_layers=2,
+                              layer_pattern=cfg.pattern[:2])
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    params = T.init_params(cfg, 0, device=cuda)
+    before = [p.clone() for p in tree_leaves(params)]
+    opt = adamw(cosine_schedule(3e-4, 0, 10))
+    step = make_train_step(cfg, opt, clip_norm=1.0, microbatches=2)
+    gen = torch.Generator(cuda).manual_seed(7)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                              device=cuda) for k in ("tokens", "labels")}
+    fa.reset_launches()
+    state, metrics = step(TrainState(params, opt.init(params), 0), batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert all(bool(torch.isfinite(metrics[k])) for k in ("loss", "ce",
+                                                           "grad_norm"))
+    after = tree_leaves(state.params)
+    assert all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+               for p in after)
+    assert all(not torch.equal(a, b) for a, b in zip(after, before))
+
+
+def test_k9_refuses_autograd_on_cuda(cuda):
+    """K9 has no backward: a grad-requiring call raises on the card as on
+    the CPU, without launching; under inference_mode it launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(cuda).manual_seed(8)
+    q, k, v = (torch.randn((1, 256, 4, 64), generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    fa.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_mha(q.requires_grad_(True), k, v, causal=True)
+    flat = q.detach().permute(0, 2, 1, 3).reshape(4, 256, 64).contiguous()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(flat.requires_grad_(True), flat.detach(),
+                           flat.detach(), causal=True)
+    assert fa.LAUNCHES["flash_attention"] == 0
+    with torch.inference_mode():
+        out = ops.flash_mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1 and out.grad_fn is None

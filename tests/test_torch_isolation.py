@@ -97,6 +97,17 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.models.transformer import shared_attn_init
         from repro_torch.convert import (lm_caches_from_repro,
                                          lm_caches_to_repro)
+        # LM training: the optimizers, the loss, the train step, the
+        # state across, the launcher's lm mode
+        from repro_torch.optim import (Optimizer, adamw, apply_updates,
+                                       clip_by_global_norm, cosine_schedule,
+                                       iag, sgd)
+        from repro_torch.models.transformer import loss_fn
+        from repro_torch.training import (TrainState, loss_and_grads,
+                                          make_train_step)
+        from repro_torch.convert import (lm_train_state_from_repro,
+                                         lm_train_state_to_repro)
+        from repro_torch.launch.train import lm_batch, main_lm, make_iag_step
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -140,7 +151,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.configs.deepseek_moe_16b",
                  "repro_torch.configs.zamba2_1_2b", "repro_torch.training",
                  "repro_torch.training.steps", "repro_torch.checkpoint.io",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.optim",
+                 "repro_torch.optim.optimizers", "repro_torch.tree"):
         assert name in got["modules"]
 
 

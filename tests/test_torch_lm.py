@@ -3,7 +3,7 @@ attention (both prefill routes and the decode ring buffer), the
 transformer's forward (with the MoE layers' summed aux), prefill and
 decode on all ten archs (zamba2 at 6 layers, so that its layer 5 holds
 the shared attention block), ``generate``, the serving CLI, npz
-checkpoints (parameters and every kind of cache) and the refusals, held
+checkpoints (parameters and every kind of cache) and the mesh refusals, held
 against ``repro`` on the same numpy inputs: reduced configs in fp32 on the
 CPU, at ``repro``'s own bars (``tests/test_model_units.py``: 1e-4 for
 attention; ``tests/test_decode_consistency.py``: 2e-4 for logits). The
@@ -33,8 +33,8 @@ from repro_torch.launch import serve as t_serve
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
-from repro_torch.training import (TrainState, make_prefill_step,
-                                  make_serve_step, make_train_step)
+from repro_torch.training import (make_prefill_step, make_serve_step,
+                                  make_train_step)
 
 COVERED = ["qwen2.5-3b", "yi-9b", "gemma2-27b", "command-r-35b",
            "internvl2-1b", "musicgen-medium", "deepseek-moe-16b",
@@ -671,10 +671,10 @@ def test_mesh_and_training_raise_naming_their_item():
                  lambda: make_serve_step(cfg, ctx)):
         with pytest.raises(NotImplementedError, match="item 10.4"):
             call()
-    for call in (lambda: make_train_step(cfg, None),
-                 lambda: TrainState(None, None, 0),
-                 lambda: TT.loss_fn(cfg, {}, {})):
-        with pytest.raises(NotImplementedError, match="item 10.3"):
+    # training is ported (item 10.3); over a mesh it raises as serving does
+    for call in (lambda: make_train_step(cfg, None, ctx),
+                 lambda: TT.loss_fn(cfg, {}, {}, ctx)):
+        with pytest.raises(NotImplementedError, match="item 10.4"):
             call()
 
 

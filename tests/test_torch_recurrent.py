@@ -351,3 +351,85 @@ def test_bf16_decode_strays_from_prefill_as_repros_does(arch, layers, rng):
     got = gap(lt.float(), full_t.float())
     assert want > 1e-3                       # bf16 strays at all
     assert abs(got - want) <= 0.25 * want, (got, want)
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM's custom VJP (training)
+# ---------------------------------------------------------------------------
+
+def _slstm_inputs(rng, clamp, heads=2, hd=4, b=2, t=12, dtype=np.float32):
+    """r (4, H, hd, hd), wxb (B, T, 4D), xc (B, T, D). With ``clamp`` half
+    the units get an input gate e^-14.5 of their forget gate, so their
+    normaliser n starts under 1e-6 (the clamp in h = o·c/max(n, 1e-6) is
+    active) while c/1e-6 is O(1)."""
+    d = heads * hd
+    r = rng.normal(0, 0.5, (4, heads, hd, hd)).astype(dtype)
+    wxb = rng.normal(0, 1, (b, t, 4 * d)).astype(dtype)
+    xc = rng.normal(0, 0.3, (b, t, d)).astype(dtype)
+    if clamp:
+        wxb[..., d: d + d // 2] = -14.5          # the input gate's units
+        wxb[..., 2 * d: 2 * d + d // 2] = 5.0    # their forget gate near 1
+    return r, wxb, xc
+
+
+def _slstm_grads(fn, r, wxb, xc, cot):
+    leaves = [_t(x).requires_grad_(True) for x in (r, wxb, xc)]
+    hs = fn(*leaves)
+    return [g.numpy() for g in torch.autograd.grad(hs, leaves, _t(cot))]
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_slstm_backward_matches_repro_custom_vjp(clamp):
+    """``slstm_seq``'s backward against ``jax.vjp`` of ``repro``'s custom
+    VJP on one cotangent, the clamp on n inactive and active."""
+    heads = 2
+    rng = np.random.default_rng(5)
+    r, wxb, xc = _slstm_inputs(rng, clamp, heads=heads)
+    _, steps = TR._slstm_loop(heads, _t(r), _t(wxb), _t(xc))
+    assert (min(float(n.min()) for _, _, n, *_ in steps) < 1e-6) == clamp
+    cot = rng.normal(0, 1, xc.shape).astype(np.float32)
+    hs, vjp = jax.vjp(lambda *a: JR.slstm_seq(heads, *a), jnp.asarray(r),
+                      jnp.asarray(wxb), jnp.asarray(xc))
+    want = vjp(jnp.asarray(cot))
+    got = _slstm_grads(lambda *a: TR.slstm_seq(heads, *a), r, wxb, xc, cot)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        err = np.linalg.norm(g - w) / np.linalg.norm(w)
+        assert err <= UNIT_TOL, err
+    # the forward is the serving loop's, bit for bit
+    with torch.no_grad():
+        plain = TR.slstm_seq(heads, _t(r), _t(wxb), _t(xc))
+    got_hs = TR.slstm_seq(heads, _t(r).requires_grad_(True), _t(wxb), _t(xc))
+    assert torch.equal(got_hs.detach(), plain)
+    _close(plain, hs, UNIT_TOL)
+
+
+def test_slstm_rule_drops_the_stabilisers_cotangent_where_n_is_clamped():
+    """Where the clamp on n is active, plain autograd through the loop
+    carries a cotangent through the stabiliser m that ``repro``'s rule
+    drops, so the two differ (by ~2e-3 relative here, a hundred times the
+    agreement bar); where it is not, they agree (h = o·c/n does not depend
+    on m)."""
+    heads = 2
+    rng = np.random.default_rng(6)
+    for clamp, differ in ((False, False), (True, True)):
+        r, wxb, xc = _slstm_inputs(rng, clamp, heads=heads)
+        cot = rng.normal(0, 1, xc.shape).astype(np.float32)
+        rule = _slstm_grads(lambda *a: TR.slstm_seq(heads, *a), r, wxb, xc,
+                            cot)
+        plain = _slstm_grads(lambda *a: TR._slstm_loop(heads, *a)[0], r,
+                             wxb, xc, cot)
+        err = max(np.linalg.norm(a - b) / np.linalg.norm(b)
+                  for a, b in zip(rule, plain))
+        assert (err > 100 * UNIT_TOL) if differ else (err <= UNIT_TOL), \
+            (clamp, err)
+
+
+def test_slstm_backward_gradcheck_float64():
+    """``torch.autograd.gradcheck`` in float64 on a tiny case with the
+    clamp inactive, where the rule is the exact derivative."""
+    rng = np.random.default_rng(7)
+    r, wxb, xc = _slstm_inputs(rng, False, heads=1, hd=2, b=1, t=4,
+                               dtype=np.float64)
+    leaves = [_t(x).requires_grad_(True) for x in (r, wxb, xc)]
+    assert torch.autograd.gradcheck(lambda *a: TR.slstm_seq(1, *a), leaves)
