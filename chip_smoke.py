@@ -122,6 +122,18 @@ and the lifted K caps:
                at 16,384 documents, the summed correction against the loop
                over the workers; a mid-run save, load and resume through
                LDA(algo="divi") bit-equal to the run that never stopped
+ 23b. divi_mesh — D-IVI's mesh round (repro_torch.dist.divi) on the card:
+               the corpus and λ₀ written once to an .npz, then 4 ranks of
+               one gloo group on cuda:0 (collectives on host copies) run
+               the (4, 1) and (2, 2) layouts and 1 NCCL rank (1, 1), each
+               two passes at P = 4, B = 1,024, V = 141,952: λ and every
+               worker's memo bit-equal to divi_round_emulated run here,
+               λ within 5e-4 of the simulation (NCCL's bit-equal), 1 K1
+               and 1 K3 a sub-round on every rank, each rank's argument
+               bytes equal to the meta dry run's (its peak beside the
+               rank's max_memory_allocated), ms a round; NCCL across 4
+               ranks needs 4 cards ("nccl_world4" says when it did not
+               run)
  24. kcap    — K1, K4, K2, K5, K3, K6, K7 and K8 at K = 300 and 1,000 against
                their twins on the first 256 documents (K8: 16) at the
                Arxiv V, timed beside their bounds (K6 and K7, on the
@@ -3393,6 +3405,235 @@ def phase_divi(device, spec, train, test, topics, batch, sync, timer):
     return out
 
 
+# D-IVI over a mesh: ranks of one process group on the one card
+DIVI_MESH_LAYOUTS = ((4, 1), (2, 2))    # (data, model), 4 gloo ranks
+DIVI_MESH_VOCAB = 141_952   # repro's padded Arxiv V (launch/dryrun_lda.py:48)
+DIVI_MESH_WORKERS = 4
+DIVI_MESH_BAR = 5e-4        # repro's bar, its shard_map round against vmap
+DIVI_MESH_SPAWN_S = 420.0   # a spawn's whole run: its ranks killed past it
+DIVI_MESH_GLOO_S = 300.0    # a collective's timeout
+DIVI_MESH_DIR = ROOT / "_smoke_mesh"
+
+
+def divi_mesh_config(spec, topics):
+    import dataclasses
+    return dataclasses.replace(train_config(spec, topics),
+                               vocab_size=DIVI_MESH_VOCAB)
+
+
+def memo_digests(shard, first):
+    """sha256 of each worker's memo rows (π, visited), by global worker."""
+    import hashlib
+    return {first + w: hashlib.sha256(
+        shard.pi[w].cpu().numpy().tobytes()
+        + shard.visited[w].cpu().numpy().tobytes()).hexdigest()
+        for w in range(shard.pi.shape[0])}
+
+
+def divi_mesh_rank(rank, world, layouts, rounds, batch):
+    """One rank of the mesh runs: each layout's engine from the parent's
+    corpus and λ₀, ``rounds`` rounds timed on the host clock between
+    syncs (the round's host ingest, ``round_args``, and the whole round
+    with it), its launches counted from 0 over them; the first round's
+    arguments' bytes, peak memory, the gathered λ (rank 0 saves it) and
+    its workers' memo digests. The CUDA device is the one card."""
+    import numpy as np
+    import torch
+    from repro_torch.core.types import Corpus
+    from repro_torch.data.synthetic import PAPER_CORPORA
+    from repro_torch.dist import DIVIConfig, DIVIEngine
+    from repro_torch.kernels import lda_estep
+    from repro_torch.launch.dryrun_lda import tensor_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+
+    device = torch.device("cuda", 0)
+    with np.load(DIVI_MESH_DIR / "corpus.npz") as f:
+        train = Corpus(torch.from_numpy(f["ids"]).to(device),
+                       torch.from_numpy(f["cnts"]).to(device))
+        lam0 = torch.from_numpy(f["lam0"]).to(device)
+    cfg = divi_mesh_config(PAPER_CORPORA["arxiv"], TOPICS)
+    dcfg = DIVIConfig(num_workers=DIVI_MESH_WORKERS, batch_size=batch)
+    out = {}
+    for d, m in layouts:
+        mesh = make_host_mesh(d, m, device=device)
+        eng = DIVIEngine(cfg, dcfg, train, seed=0, mesh=mesh, device=device,
+                         lam0=lam0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lda_estep.reset_launches()
+        ms, ingest_ms = [], []
+        for r in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            args = eng.round_args()
+            t1 = time.perf_counter()
+            if r == 0:
+                arg_bytes = tensor_bytes(args)
+            eng.run_round(args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ingest_ms.append((t1 - t0) * 1e3)
+        launches = dict(lda_estep.LAUNCHES)
+        lam = eng.gather_lam()
+        if rank == 0:
+            np.save(DIVI_MESH_DIR / f"lam_{d}x{m}.npy", lam.cpu().numpy())
+        rnd = eng._round
+        out[f"{d}x{m}"] = {
+            "workers": [eng.workers.start, eng.workers.stop],
+            "rows": [eng.rows.start, eng.rows.stop],
+            "backends": [rnd.data.backend, rnd.model.backend],
+            "ms_per_round": ms, "ingest_ms": ingest_ms,
+            "launches": launches,
+            "argument_bytes": arg_bytes,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+            "lam_finite": bool(torch.isfinite(lam).all()),
+            "lam_sha256": __import__("hashlib").sha256(
+                lam.cpu().numpy().tobytes()).hexdigest(),
+            "memo": memo_digests(eng.shard, eng.workers.start),
+            "received_bytes": [rnd.model.received_bytes,
+                               rnd.data.received_bytes],
+            "docs_seen": eng.docs_seen}
+        del eng, lam
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_divi_mesh(device, spec, train, topics, batch):
+    """D-IVI's mesh round (`repro_torch.dist.divi`) on the one card: one
+    spawn of 4 ranks over gloo (host copies) runs the (4, 1) and (2, 2)
+    layouts, and one of 1 rank runs NCCL, each for two passes at P = 4,
+    B = 1,024 a worker, V = 141,952. Each layout's λ and memos are held
+    bit for bit against ``divi_round_emulated`` run here, and within 5e-4
+    of the one-card simulation (NCCL's at one data rank: bit for bit); the
+    dry run's argument bytes against each rank's live ones, its peak
+    beside the rank's ``max_memory_allocated``; 2 launches a sub-round on
+    every rank. Four processes time-slice one card here: their ms are no
+    scaling result."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core.types import init_global_state
+    from repro_torch.dist import DIVIConfig, DIVIEngine
+    from repro_torch.dist.divi import divi_round_emulated
+    from repro_torch.launch.dryrun_lda import divi_rank_plan
+    from repro_torch.launch.mesh import make_abstract_mesh, spawn_ranks
+
+    cfg = divi_mesh_config(spec, topics)
+    dcfg = DIVIConfig(num_workers=DIVI_MESH_WORKERS, batch_size=batch)
+    rounds = max(2, round(DIVI_PASSES * train.num_docs
+                          / (DIVI_MESH_WORKERS * batch)))
+    gen = torch.Generator(device=device).manual_seed(0)
+    lam0 = init_global_state(cfg, device=device, generator=gen).lam
+    shutil.rmtree(DIVI_MESH_DIR, ignore_errors=True)
+    DIVI_MESH_DIR.mkdir()
+    try:
+        np.savez(DIVI_MESH_DIR / "corpus.npz",
+                 ids=train.token_ids.cpu().numpy(),
+                 cnts=train.counts.cpu().numpy(), lam0=lam0.cpu().numpy())
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gloo = spawn_ranks(divi_mesh_rank, 4, backend="gloo",
+                           args=(DIVI_MESH_LAYOUTS, rounds, batch),
+                           timeout_s=DIVI_MESH_SPAWN_S,
+                           collective_timeout_s=DIVI_MESH_GLOO_S,
+                           store_dir=str(DIVI_MESH_DIR))
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(divi_mesh_rank, 1, backend="nccl",
+                           args=(((1, 1),), rounds, batch),
+                           timeout_s=DIVI_MESH_SPAWN_S,
+                           collective_timeout_s=DIVI_MESH_GLOO_S,
+                           store_dir=str(DIVI_MESH_DIR))
+        nccl_s = time.perf_counter() - t0
+        lams = {f"{d}x{m}": np.load(DIVI_MESH_DIR / f"lam_{d}x{m}.npy")
+                for d, m in DIVI_MESH_LAYOUTS + ((1, 1),)}
+    finally:
+        shutil.rmtree(DIVI_MESH_DIR, ignore_errors=True)
+
+    def twin(data):
+        """The simulation (data None) or the emulated round here."""
+        eng = DIVIEngine(cfg, dcfg, train, seed=0, device=device, lam0=lam0)
+        for _ in range(rounds):
+            if data is None:
+                eng.run_round()
+            else:
+                divi_round_emulated(cfg, *eng.round_args(), data=data)
+        return (eng.state.lam.cpu().numpy(),
+                memo_digests(eng.shard, 0))
+
+    sim_lam, sim_memo = twin(None)
+    layouts = {}
+    for (d, m), ranks, backend in (
+            [((d, m), gloo, "gloo") for d, m in DIVI_MESH_LAYOUTS]
+            + [((1, 1), nccl, "nccl")]):
+        key = f"{d}x{m}"
+        label = f"divi_mesh {key} {backend}"
+        em_lam, em_memo = (sim_lam, sim_memo) if d == 1 else twin(d)
+        lam = lams[key]
+        rows = [r[key] for r in ranks]
+        check(np.array_equal(lam, em_lam), f"{label}: λ is not the "
+              "emulated round's bits")
+        check(len({r["lam_sha256"] for r in rows}) == 1,
+              f"{label}: the ranks gathered different λ")
+        for r in rows:
+            check(all(r["memo"][w] == em_memo[w] for w in r["memo"]),
+                  f"{label}: a worker's memo is not the emulated round's")
+            check(r["backends"] == [backend, backend],
+                  f"{label}: collectives on {r['backends']}")
+            check(r["launches"]["fixed_point"] == rounds
+                  and r["launches"]["segment_scatter"] == rounds,
+                  f"{label}: launches {r['launches']} over {rounds} "
+                  "rounds (1 K1 and 1 K3 a sub-round)")
+            check(r["lam_finite"], f"{label}: non-finite λ")
+        err = float(np.abs(lam - sim_lam).max())
+        check(err < DIVI_MESH_BAR, f"{label}: λ {err} off the simulation")
+        if d == 1:
+            check(err == 0.0, f"{label}: one data rank is not the "
+                  "simulation's bits")
+        plan = divi_rank_plan(cfg, dcfg,
+                              make_abstract_mesh((d, m), ("data", "model")),
+                              num_docs=train.num_docs,
+                              max_unique=train.max_unique)
+        for r in rows:
+            check(r["argument_bytes"] == plan["argument_bytes"],
+                  f"{label}: live argument bytes {r['argument_bytes']} != "
+                  f"the dry run's {plan['argument_bytes']}")
+        layouts[key] = {
+            "backend": backend, "ranks": len(rows), "rounds": rounds,
+            "median_ms_per_round": median(
+                [median(r["ms_per_round"][1:]) for r in rows]),
+            "ms_per_round_by_rank": [r["ms_per_round"] for r in rows],
+            "median_ingest_ms": median(
+                [median(r["ingest_ms"][1:]) for r in rows]),
+            "launches_by_rank": [r["launches"]["fixed_point"]
+                                 + r["launches"]["segment_scatter"]
+                                 for r in rows],
+            "launches_per_subround": 2,
+            "max_abs_err_vs_simulation": err,
+            "bit_equal_to_emulated": True,
+            "argument_bytes": plan["argument_bytes"],
+            "dryrun_peak_bytes": plan["peak_bytes"],
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                             for r in rows],
+            "received_bytes_by_rank": [r["received_bytes"] for r in rows],
+            "collective_bytes_dryrun": plan["collective_bytes"],
+            "_launches": {n: sum(r["launches"][n] for r in rows)
+                          for n in PADDED_KERNELS}}
+    out = {"phase": "divi_mesh", "P": DIVI_MESH_WORKERS, "B": batch,
+           "V": DIVI_MESH_VOCAB, "docs": train.num_docs,
+           "layouts": {k: {f: v for f, v in row.items()
+                           if not f.startswith("_")}
+                       for k, row in layouts.items()},
+           "spawn_s": {"gloo_4": gloo_s, "nccl_1": nccl_s},
+           "tol": f"bit-equal to divi_round_emulated; max |Δλ| < "
+                  f"{DIVI_MESH_BAR} vs the simulation (0 at one data rank)",
+           "time_sliced": "4 processes on one card: no scaling result"}
+    if torch.cuda.device_count() < 4:
+        out["nccl_world4"] = "not run: 1 card"
+    emit(out)
+    return {k: row["_launches"] for k, row in layouts.items()}
+
+
 # ---------------------------------------------------------------------------
 # the tuner, UCI ingest, CVB0 and Minka's updates
 # ---------------------------------------------------------------------------
@@ -5290,6 +5531,7 @@ def main() -> int:
     _, launches_service = phase_service(device, spec, test, TOPICS,
                                         lam_train)
     divi = phase_divi(device, spec, train, test, TOPICS, BATCH, sync, cuda_ms)
+    launches_divi_mesh = phase_divi_mesh(device, spec, train, TOPICS, BATCH)
     phase_kcap(device, spec, train, cuda_ms)
 
     legacy, launches_legacy = phase_legacy(device, spec, train, TOPICS, BATCH,
@@ -5327,6 +5569,9 @@ def main() -> int:
     for name in PADDED_KERNELS:
         kernels[name]["launches_divi"] = sum(r["launches"][name]
                                              for r in divi["runs"])
+        # the mesh round: every rank's launches, by layout and backend
+        kernels[name]["launches_divi_mesh"] = {
+            key: row[name] for key, row in launches_divi_mesh.items()}
     # the serving service: 1 launch a served batch, and the learner's K1
     # and K3 an update
     for name, count in launches_service.items():

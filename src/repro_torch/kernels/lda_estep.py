@@ -41,7 +41,10 @@ the same function. A wrapper takes the twin only for CPU tensors; for CUDA
 tensors it launches the kernel or raises. Each launch adds one to
 ``LAUNCHES[name]``, so a run can show which kernels its path went through;
 the count is taken under a lock, as a serving thread and a training thread
-may launch at once.
+may launch at once. K1 (with or without its π finish) and K3 also take
+``meta`` tensors, for a shape-only run (`repro_torch.launch.dryrun_lda`):
+they allocate on ``meta`` what their launch would allocate, count the
+launch, and compute nothing.
 """
 from __future__ import annotations
 
@@ -93,16 +96,22 @@ def _expect(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for CPU tensors (plain twin), False for CUDA ones (kernel)."""
+def _device_kind(*tensors: torch.Tensor, meta: bool = False) -> str:
+    """"cpu" (plain twin), "cuda" (kernel) or, where ``meta`` allows it,
+    "meta" (shape only) for tensors all on one device."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError("tensors on several devices: "
                          f"{sorted(map(str, devices))}")
     device = devices.pop()
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda") + (("meta",) if meta else ()):
         raise ValueError(f"unsupported device {device}")
-    return device.type == "cpu"
+    return device.type
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain twin), False for CUDA ones (kernel)."""
+    return _device_kind(*tensors) == "cpu"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -293,13 +302,13 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
     group = b if group is None else int(group)
     nb = len(fixed_point_tiles(b, block_b, group))   # checks the group
     with_pi = quantize is not None
-    if _on_cpu(token_ids, counts, eb, gamma0):
+    kind = _device_kind(token_ids, counts, eb, gamma0, meta=True)
+    if kind == "cpu":
         args = (token_ids, counts, eb, gamma0, alpha0, tol, max_iters)
         kw = dict(block_b=block_b, stream_dtype=stream_dtype, group=group)
         if with_pi:
             return estep_fixed_point_pi_plain(*args, quantize=quantize, **kw)
         return (*estep_fixed_point_plain(*args, **kw), None)
-    lib = build.load()
     gamma = torch.empty_like(gamma0)
     et = torch.empty_like(gamma0)
     iters = torch.empty(nb, dtype=torch.int32, device=gamma0.device)
@@ -307,11 +316,17 @@ def _fixed_point(token_ids, counts, eb, gamma0, alpha0, tol, max_iters,
           if with_pi else None)
     if b == 0:
         return gamma, et, iters, pi
-    _check_fixed_point_smem(lib, "estep_fixed_point", b, k, block_b, group)
+    if kind == "cuda":
+        lib = build.load()
+        _check_fixed_point_smem(lib, "estep_fixed_point", b, k, block_b,
+                                group)
     delta = torch.empty(2 * b, dtype=torch.float32, device=gamma0.device)
     # the sweeps' inputs as the stream rounds them (one cast each per call)
     sweep_counts = stream_round(counts, stream_dtype)
     sweep_eb = stream_round(eb, stream_dtype)
+    if kind == "meta":          # shape only: the launch counted, not made
+        _count("fixed_point")
+        return gamma, et, iters, pi
     rc = lib.lda_fixed_point(
         token_ids.data_ptr(), counts.data_ptr(), eb.data_ptr(),
         sweep_counts.data_ptr(), sweep_eb.data_ptr(), gamma0.data_ptr(),
@@ -462,7 +477,7 @@ def segment_scatter(token_ids: torch.Tensor, counts: torch.Tensor,
     if pi_old is not None:
         _expect("pi_old", pi_old, torch.float32, (n, k))
         tensors.append(pi_old)
-    if _on_cpu(*tensors):
+    if _device_kind(*tensors, meta=True) == "cpu":
         return segment_scatter_plain(token_ids, counts, pi_new, pi_old,
                                      vocab_size)
     return segment_scatter_prepared(
@@ -475,17 +490,21 @@ def segment_scatter_prepared(segments, counts: torch.Tensor,
                              pi_old: Optional[torch.Tensor], vocab_size: int):
     """K3 on CUDA tensors, given ``scatter_segments(token_ids, counts,
     vocab_size)``: the kernel launch alone, which writes every output row.
-    ``segment_scatter`` checks the arguments and calls this."""
-    if pi_new.device.type != "cuda":
+    ``segment_scatter`` checks the arguments and calls this. On ``meta``
+    tensors: the outputs' shapes, and the launch counted."""
+    if pi_new.device.type not in ("cuda", "meta"):
         raise ValueError(f"segment_scatter_prepared: CUDA tensors only, got "
                          f"{pi_new.device}")
     order, seg_off = segments
     k = pi_new.shape[1]
     _expect("seg_off", seg_off, torch.int64, (vocab_size + 1,))
-    lib = build.load()
     s_new = torch.empty((vocab_size, k), dtype=torch.float32,
                         device=pi_new.device)
     s_old = None if pi_old is None else torch.empty_like(s_new)
+    if pi_new.device.type == "meta":
+        _count("segment_scatter")
+        return s_new, s_old
+    lib = build.load()
     rc = lib.lda_segment_scatter(
         order.data_ptr(), seg_off.data_ptr(), vocab_size, counts.data_ptr(),
         pi_new.data_ptr(), None if pi_old is None else pi_old.data_ptr(),

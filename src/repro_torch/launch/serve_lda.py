@@ -17,8 +17,9 @@ snapshot swap. ``--ckpt`` reads either package's checkpoint.
 The run is on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain twins). ``--ragged`` and ``--no-double-buffer`` are deprecated
 no-ops, as in ``repro``: the service always consumes ragged requests
-through the admission packer. ``--dryrun`` (the Arxiv-scale lowering)
-is not ported yet and raises.
+through the admission packer. ``--dryrun`` runs the serving batch at the
+Arxiv shape on ``meta`` tensors (``run_serve_dryrun``) and prints its
+bytes, with no card and no model.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve_lda --corpus small \\
@@ -28,6 +29,8 @@ Examples:
       --batch 8 --online
   PYTHONPATH=src python -m repro_torch.launch.serve_lda --device cpu \\
       --corpus tiny --ckpt run1
+  # Arxiv-scale serving dry run (shapes and bytes, no weights, no card):
+  PYTHONPATH=src python -m repro_torch.launch.serve_lda --dryrun
 """
 from __future__ import annotations
 
@@ -36,6 +39,70 @@ import json
 import time
 
 import numpy as np
+
+# Arxiv (Table 1): V = 141,927 padded to 141,952, K = 100 padded to 128
+ARXIV = dict(vocab=141_952, topics=128)
+ARXIV_WIDTHS = (32, 64, 128)            # serving bucket widths at L = 128
+
+
+def run_serve_dryrun(batch: int = 256, widths=ARXIV_WIDTHS,
+                     backend: str = "cuda") -> dict:
+    """The serving batch (``TopicInferencer``'s γ-only solve on Eφ) at the
+    Arxiv shape for each bucket width, on ``meta`` tensors: no weights
+    are made. Per width its argument and peak bytes and launches (one a
+    batch on the ``cuda`` backend), as ``repro``'s serving lowering
+    reports its memory."""
+    import traceback
+
+    import torch
+
+    from repro_torch.core.estep import BowBatch, get_backend
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.kernels import lda_estep
+    from repro_torch.launch.dryrun_lda import LiveBytes, tensor_bytes
+
+    v, k = ARXIV["vocab"], ARXIV["topics"]
+    cfg = LDAConfig(num_topics=k, vocab_size=v, estep_max_iters=50,
+                    estep_backend=backend, estep_stream_dtype="bfloat16")
+    out = {"arch": "lda-serve-arxiv", "mode": "serve", "backend": backend,
+           "shape": f"b{batch}", "widths": list(widths), "device": "meta"}
+    t0 = time.time()
+    try:
+        meta = torch.device("meta")
+        eb = torch.empty((v, k), device=meta)
+        per_width = {}
+        for w in widths:
+            ids = torch.empty((batch, w), dtype=torch.int32, device=meta)
+            cnts = torch.empty((batch, w), device=meta)
+            lda_estep.reset_launches()
+            mode = LiveBytes()
+            with mode:
+                get_backend(backend).solve_gamma(cfg, eb, BowBatch(ids, cnts))
+            per_width[w] = {
+                "temp_gb": mode.peak / 1e9,
+                "argument_gb": tensor_bytes((eb, ids, cnts)) / 1e9,
+                "launches": sum(lda_estep.LAUNCHES.values())}
+        out["compile_s"] = round(time.time() - t0, 1)
+        out["memory"] = per_width
+        out["jit_cache_entries"] = len(widths)
+        out["ok"] = True
+    except Exception as e:  # noqa: BLE001  (the result records it)
+        out["ok"] = False
+        out["error"] = f"{type(e).__name__}: {e}"
+        out["traceback"] = traceback.format_exc()[-1500:]
+    return out
+
+
+def print_serve_dryrun(res: dict, label: str = "arxiv") -> None:
+    """``repro``'s summary line of the serving dry run (``dryrun_lda``
+    labels it ``single-host``)."""
+    if res["ok"]:
+        worst = max(m["temp_gb"] for m in res["memory"].values())
+        print(f"[OK ] lda-serve {label}  compile={res['compile_s']}s "
+              f"widths={res['widths']} max_temp={worst:.2f}GB "
+              f"jit_entries={res['jit_cache_entries']}")
+    else:
+        print(f"[FAIL] lda-serve: {res['error'][:200]}")
 
 
 def main(argv=None) -> None:
@@ -91,8 +158,8 @@ def main(argv=None) -> None:
                     help="quick-train epochs when no --ckpt is given")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dryrun", action="store_true",
-                    help="the Arxiv-scale serving dry run (not ported: "
-                         "raises)")
+                    help="Arxiv-scale serving dry run on meta tensors: "
+                         "bytes and launches, no weights, no card")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain twins")
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -104,9 +171,15 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        raise NotImplementedError(
-            "--dryrun: the Arxiv-scale serving dry run is not ported to "
-            "repro_torch yet (ROADMAP §1 item 9, the meta-device dry run)")
+        res = run_serve_dryrun(batch=args.batch,
+                               backend=args.backend or "cuda")
+        print_serve_dryrun(res)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(res) + "\n")
+        if not res["ok"]:
+            raise SystemExit(1)
+        return
 
     from repro_torch.core.types import resolve_device
     from repro_torch.data.stream import CorpusDocStream

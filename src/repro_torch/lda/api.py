@@ -23,9 +23,20 @@ The facade runs on ``device`` (the card unless the caller names another).
 λ₀ is drawn from a ``torch.Generator``, which cannot reproduce
 ``repro``'s ``jax.random`` draw: to start both packages from one point,
 load a ``repro`` checkpoint or hand λ₀ to ``warm_start`` (single-host
-engines). ``mesh``/``data_axes`` (D-IVI over several cards) raise until
-ROADMAP §1 item 11. ``tune_store`` resolves a tuned kernel policy for the
-bound training shape (`repro_torch.tune`), as ``repro``'s facade does.
+engines). ``tune_store`` resolves a tuned kernel policy for the bound
+training shape (`repro_torch.tune`), as ``repro``'s facade does.
+
+D-IVI over a mesh: ``LDA(algo="divi", mesh=make_host_mesh(D, M))`` in
+every process of the group (`repro_torch.launch.mesh`; one process a
+mesh position, as ``torchrun`` starts them) trains the mesh round
+(`repro_torch.dist.divi`). The estimator is then one rank's, and every
+call that needs the full topics is a collective that every rank makes:
+``fit``/``partial_fit``, ``bound``, ``evaluate``, ``score``,
+``transform``/``posterior``, ``inferencer``, ``top_words``, ``save`` and
+``gather_lam`` (``lam`` itself refuses, as λ is sharded). ``save`` writes
+the one-device run's checkpoint from rank 0; ``LDA.load(path).resume(
+corpus, mesh=...)`` continues it on any layout with the same worker
+count.
 """
 from __future__ import annotations
 
@@ -40,13 +51,27 @@ from repro_torch.core.metrics import top_words as _top_words
 from repro_torch.core.predictive import log_predictive, split_heldout
 from repro_torch.core.types import (Corpus, GlobalState, LDAConfig,
                                     resolve_device)
-from repro_torch.dist.engine import mesh_not_ported
 from repro_torch.dist.protocol import DIVIConfig
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.lda.infer import TopicInferencer
 from repro_torch.lda.trainer import Trainer, make_trainer
 from repro_torch.obs import as_telemetry
 
 _ALGOS = ("mvi", "svi", "ivi", "sivi", "divi")
+
+
+def _check_mesh(mesh, data_axes, distributed) -> None:
+    """A mesh is D-IVI's, a live ``DeviceMesh``; data axes need one."""
+    if mesh is None:
+        if data_axes is not None:
+            raise ValueError("data_axes names axes of a mesh: pass mesh=")
+        return
+    if distributed is None:
+        raise ValueError(
+            "mesh= lays out D-IVI's workers and topics over processes: "
+            "single-host training runs on one device (use algo='divi' or "
+            "distributed=DIVIConfig(...))")
+    check_mesh(mesh)
 
 
 class LDA:
@@ -66,8 +91,10 @@ class LDA:
       layout / token_budget: ``"padded"`` batches, or ``"csr"`` flat token
         batches of ``token_budget`` slots (a padded ``Corpus`` is then
         streamed).
-      mesh / data_axes: D-IVI over several cards; refused until ROADMAP
-        §1 item 11.
+      mesh / data_axes: D-IVI's mesh round: a ``DeviceMesh``
+        (`repro_torch.launch.mesh.make_host_mesh`) and the axes that shard
+        the workers (default: every axis but ``model``); distributed
+        training only.
       telemetry: `repro_torch.obs` (None/False off, True defaults, or a
         ``Telemetry``), threaded through the trainer, the engine, the
         packer and the inferencers this estimator makes.
@@ -112,8 +139,7 @@ class LDA:
             raise ValueError(
                 f"distributed training runs the S-IVI update (eq. 5): "
                 f"algo={algo!r} is incompatible; use algo='sivi' or 'divi'")
-        if mesh is not None or data_axes is not None:
-            raise mesh_not_ported()
+        _check_mesh(mesh, data_axes, distributed)
         self.cfg = cfg
         self.algo = algo
         self.distributed = distributed
@@ -126,6 +152,7 @@ class LDA:
         self.token_budget = token_budget if layout == "csr" else None
         self.telemetry = as_telemetry(telemetry)
         self.tune_store = tune_store
+        self._mesh, self._data_axes = mesh, data_axes
         self._cfg_pre_tune = None     # cfg before the store's policy, if any
         self.device = resolve_device(device)
         self.trainer: Optional[Trainer] = None
@@ -208,7 +235,8 @@ class LDA:
             test_corpus=test_corpus, memo_store=self.memo_store,
             chunk_docs=self.chunk_docs,
             bucket_by_length=self.bucket_by_length, layout=self.layout,
-            token_budget=self.token_budget, telemetry=self.telemetry,
+            token_budget=self.token_budget, mesh=self._mesh,
+            data_axes=self._data_axes, telemetry=self.telemetry,
             device=self.device, tune_store=self.tune_store)
         pol = self.trainer.cfg.kernel_policy
         if pol != self.cfg.kernel_policy:
@@ -293,9 +321,12 @@ class LDA:
         """Rebind the corpus (or ``DocStream``) and restore the
         checkpointed trainer state: the run continues bit-equal to one
         that never stopped. The corpus is data, not state: it is not in
-        the checkpoint and must be passed again."""
+        the checkpoint and must be passed again. ``mesh``/``data_axes``
+        resume a D-IVI checkpoint as the mesh round, on any layout of its
+        worker count (every rank calls this)."""
         if mesh is not None or data_axes is not None:
-            raise mesh_not_ported()
+            _check_mesh(mesh, data_axes, self.distributed)
+            self._mesh, self._data_axes = mesh, data_axes
         if self._pending_restore is None:
             raise ValueError(
                 "nothing to resume: this estimator was not produced by "
@@ -333,7 +364,7 @@ class LDA:
         # policy and looks its own up (an explicit policy still wins)
         cfg = self.cfg if self._cfg_pre_tune is None else self._cfg_pre_tune
         return TopicInferencer(
-            cfg, self.lam, backend=backend, batch_size=batch_size,
+            cfg, self.gather_lam(), backend=backend, batch_size=batch_size,
             layout=layout, token_budget=token_budget,
             telemetry=self.telemetry if telemetry is None else telemetry,
             tune_store=self.tune_store if tune_store is None else tune_store,
@@ -366,7 +397,7 @@ class LDA:
         scored."""
         obs, held = split_heldout(corpus.to(self.device),
                                   seed=self.seed if seed is None else seed)
-        return float(log_predictive(self.cfg, self.lam, obs, held))
+        return float(log_predictive(self.cfg, self.gather_lam(), obs, held))
 
     def perplexity(self, corpus: Corpus, *,
                    seed: Optional[int] = None) -> float:
@@ -375,23 +406,23 @@ class LDA:
 
     def top_words(self, k: int = 10) -> np.ndarray:
         """(K, k) token ids of each topic's most probable words."""
-        return _top_words(self.lam, k)
+        return _top_words(self.gather_lam(), k)
 
     def coherence(self, corpus: Corpus, *, k: int = 10) -> float:
         """Mean NPMI coherence of each topic's top ``k`` words under
         ``corpus``'s co-occurrences."""
         from repro_torch.core.metrics import npmi_coherence
-        return npmi_coherence(self.lam, corpus, k=k)
+        return npmi_coherence(self.gather_lam(), corpus, k=k)
 
     def effective_topics(self) -> float:
         """exp(entropy) of corpus-level topic usage."""
         from repro_torch.core.metrics import effective_topics
-        return effective_topics(self.lam)
+        return effective_topics(self.gather_lam())
 
     def bound(self) -> float:
         """The exact corpus ELBO (for IVI the memoized bound, the objective
         it increases monotonically); it feeds the telemetry watchdog as
-        ``evaluate()`` does."""
+        ``evaluate()`` does. On a mesh a collective."""
         tr = self._require_trainer()
         b = tr.full_bound()
         eng = tr.eng
@@ -413,7 +444,9 @@ class LDA:
     # ------------------------------------------------------------------
 
     def save(self, path: str) -> str:
-        """Write a manifest checkpoint of the full state."""
+        """Write a manifest checkpoint of the full state. On a mesh a
+        collective: rank 0 writes the one-device run's checkpoint, the
+        others wait for it."""
         from repro_torch.lda.ckpt import save_lda_checkpoint
         return save_lda_checkpoint(path, self)
 
@@ -448,6 +481,17 @@ class LDA:
 
     @property
     def lam(self) -> torch.Tensor:
+        """λ (V, K); on a mesh it is sharded and this refuses: call
+        ``gather_lam()`` on every rank."""
+        if self.trainer is not None and self.trainer.kind == "divi":
+            return self.trainer.eng.lam
+        return self.state.lam
+
+    def gather_lam(self) -> torch.Tensor:
+        """The full λ (V, K): ``lam``, or on a mesh a collective that every
+        rank calls."""
+        if self.trainer is not None and self.trainer.kind == "divi":
+            return self.trainer.eng.gather_lam()
         return self.state.lam
 
     @property

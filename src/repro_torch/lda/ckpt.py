@@ -28,6 +28,11 @@ read back as ``cuda``), and a kernel policy is written with all nine of
 packages) and ``repro``'s defaults for its six TPU tile sizes. On load
 those three apply and the TPU tiles are dropped.
 
+A D-IVI estimator on a mesh saves the same files: ``capture`` gathers the
+full λ, every worker's memo and every cursor on each rank, rank 0 writes
+them and the others wait at a barrier; ``resume(corpus, mesh=...)`` takes
+each rank's part back, on any layout with the same worker count.
+
 ``load_lda_checkpoint`` also takes the legacy flat ``.npz`` of a bare
 ``GlobalState`` (``repro``'s old ``train.py`` wrote them): it carries no
 memo, rng or epoch remainder, so the estimator is serve-only
@@ -91,9 +96,11 @@ def _cfg_from_repro(fields: dict) -> LDAConfig:
 
 
 def save_lda_checkpoint(path: str, lda) -> str:
-    """Write the facade and its Trainer's full durable state at ``path``."""
+    """Write the facade and its Trainer's full durable state at ``path``
+    (on a mesh: every rank calls it, rank 0 writes)."""
     trainer = lda._require_trainer()
     trainer_meta, arrays = trainer.capture()
+    on_mesh = trainer.kind == "divi" and trainer.eng.mesh is not None
     meta = {
         "format": SCHEMA_FORMAT,
         "schema_version": SCHEMA_VERSION,
@@ -112,7 +119,13 @@ def save_lda_checkpoint(path: str, lda) -> str:
         },
         "trainer": trainer_meta,
     }
-    return save_manifest(path, meta, arrays)
+    if not on_mesh:
+        return save_manifest(path, meta, arrays)
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        save_manifest(path, meta, arrays)
+    dist.barrier()
+    return path
 
 
 def load_lda_checkpoint(path: str, *, device=None):

@@ -16,6 +16,11 @@ all of it under ``repro``'s keys and meta, so save → load → resume is
 bit-equal to a run that never stopped, and each package resumes the
 other's checkpoints. ``DIVITrainer``'s state adds the worker memo shards,
 every worker's ingest cursor and the shard assignment.
+
+On a mesh (``DIVITrainer(..., mesh=)``) ``evaluate``, ``full_bound`` and
+``capture`` are collectives that every rank calls: they gather λ, the
+bound's per-worker terms and the memos, and reduce in the simulation's
+order, so every rank gets the one-device run's numbers for the same state.
 """
 from __future__ import annotations
 
@@ -44,12 +49,16 @@ def _capture_state(state: GlobalState) -> Dict[str, np.ndarray]:
             for f in _STATE_FIELDS}
 
 
-def _restore_state(arrays: Dict[str, np.ndarray], state: GlobalState) -> None:
+def _restore_state(arrays: Dict[str, np.ndarray], state: GlobalState,
+                   rows: slice = slice(None)) -> None:
     """Copy a checkpoint's state leaves into the live ones, in place (on
-    their device and in their dtype)."""
+    their device and in their dtype); the (V, K) leaves' ``rows`` only
+    (a mesh rank's)."""
     for f in _STATE_FIELDS:
         live = getattr(state, f)
         arr = np.asarray(arrays[f])
+        if arr.ndim == 2:
+            arr = arr[rows]
         if arr.shape != tuple(live.shape):
             raise ValueError(
                 f"state leaf {f!r}: checkpoint shape {arr.shape} != live "
@@ -332,6 +341,13 @@ class DIVITrainer(Trainer):
     mid-pass resumes bit-equal and each package resumes the other's.
     ``restore`` refuses a checkpoint whose shard assignment (worker count,
     partitioner, seed, corpus size) is not the live engine's.
+
+    With a ``mesh`` the trainer is one rank's: ``evaluate``, ``full_bound``
+    and ``capture`` are collectives (every rank calls them and gets the
+    whole run's values); ``restore`` takes a whole checkpoint (any layout
+    of the same worker count wrote it, or the one-device run) and keeps
+    the rank's rows of λ and its workers' memos and cursors, placed on the
+    device the live engine already uses.
     """
 
     kind = "divi"
@@ -380,10 +396,10 @@ class DIVITrainer(Trainer):
 
     def evaluate(self) -> Dict[str, float]:
         """Held-out LPP with a test corpus, else the memoized corpus bound
-        (``full_bound``)."""
+        (``full_bound``). On a mesh a collective."""
         out: Dict[str, float] = {}
         if self._obs is not None:
-            out["lpp"] = float(log_predictive(self.cfg, self.eng.lam,
+            out["lpp"] = float(log_predictive(self.cfg, self.eng.gather_lam(),
                                               self._obs, self._held))
             self.history.lpp.append(out["lpp"])
         else:
@@ -402,11 +418,13 @@ class DIVITrainer(Trainer):
         each worker's documents are read back through its shard view in
         chunks (`data.stream.iter_padded_chunks`) beside its memo rows, and
         the topics term enters once. Every document lies in one shard, so
-        the bound covers the whole corpus."""
+        the bound covers the whole corpus. On a mesh a collective: each
+        rank takes its workers' terms, and the sum runs over every worker's
+        in the simulation's order."""
         eng = self.eng
-        lam = eng.state.lam
+        lam = eng.gather_lam()
         elog_beta = dirichlet_expectation(lam, axis=0)
-        total = 0.0
+        terms = []
         for w, ing in enumerate(eng.ingest):
             for start, ids, cnts in iter_padded_chunks(ing.stream, 512,
                                                        eng.max_unique):
@@ -415,15 +433,23 @@ class DIVITrainer(Trainer):
                 cnts_t = torch.from_numpy(cnts).to(lam.device)
                 gamma = self.cfg.alpha0 + torch.einsum("blk,bl->bk", pi,
                                                        cnts_t)
-                total += float(_memoized_doc_terms(self.cfg, ids_t, cnts_t,
-                                                   gamma, pi, elog_beta))
+                terms.append(float(_memoized_doc_terms(
+                    self.cfg, ids_t, cnts_t, gamma, pi, elog_beta)))
+        terms = [t for part in eng.gather_workers(terms) for t in part]
+        total = 0.0
+        for t in terms:
+            total += t
         return total + float(_topics_term(self.cfg, lam))
 
     def capture(self):
+        """The whole run's state; on a mesh a collective (every rank gets
+        it: λ from every model coordinate, every worker's memo and
+        ingest)."""
         eng = self.eng
+        captured = [c for part in eng.gather_workers(
+            [ing.capture() for ing in eng.ingest]) for c in part]
         ingest_meta, ingest_arrays = [], {}
-        for w, ing in enumerate(eng.ingest):
-            m, arrs = ing.capture()
+        for w, (m, arrs) in enumerate(captured):
             ingest_meta.append(m)
             for k, v in arrs.items():
                 ingest_arrays[f"w{w:03d}_{k}"] = v
@@ -439,11 +465,15 @@ class DIVITrainer(Trainer):
             "sharding": eng.sharded.signature(),
             "ingest": ingest_meta,
         }
+        state = GlobalState(**{
+            f: (eng.gather_rows(getattr(eng.state, f))
+                if f in ("lam", "m_vk", "init_mass")
+                else getattr(eng.state, f)) for f in _STATE_FIELDS})
+        pi, visited = eng.gather_memo()
         arrays = {
-            "state": _capture_state(eng.state),
-            "memo": {"pi": eng.shard.pi.to("cpu", copy=True).numpy(),
-                     "visited": eng.shard.visited.to("cpu",
-                                                     copy=True).numpy()},
+            "state": _capture_state(state),
+            "memo": {"pi": pi.to("cpu", copy=True).numpy(),
+                     "visited": visited.to("cpu", copy=True).numpy()},
             "ingest": ingest_arrays,
         }
         return meta, arrays
@@ -461,20 +491,23 @@ class DIVITrainer(Trainer):
         eng.sharded.check_signature(meta["sharding"])
         memo = arrays["memo"]
         pi = np.asarray(memo["pi"])
-        if pi.shape != tuple(eng.shard.pi.shape):
+        whole = (self.dcfg.num_workers,) + tuple(eng.shard.pi.shape[1:])
+        if pi.shape != whole:
             raise ValueError(f"worker memo: checkpoint shape {pi.shape} != "
-                             f"live {tuple(eng.shard.pi.shape)}: the "
-                             "checkpoint belongs to a different "
-                             "corpus/config")
-        for w, (ing, m) in enumerate(zip(eng.ingest, meta["ingest"])):
+                             f"live {whole}: the checkpoint belongs to a "
+                             "different corpus/config")
+        mine = slice(eng.workers.start, eng.workers.stop)
+        for w, ing in zip(eng.workers, eng.ingest):
             prefix = f"w{w:03d}_"
-            ing.restore(m, {k[len(prefix):]: v
-                            for k, v in arrays.get("ingest", {}).items()
-                            if k.startswith(prefix)})
-        _restore_state(arrays["state"], eng.state)
-        eng.shard.pi.copy_(torch.from_numpy(np.array(pi, dtype=np.float32)))
+            ing.restore(meta["ingest"][w],
+                        {k[len(prefix):]: v
+                         for k, v in arrays.get("ingest", {}).items()
+                         if k.startswith(prefix)})
+        _restore_state(arrays["state"], eng.state, eng.rows)
+        eng.shard.pi.copy_(torch.from_numpy(
+            np.array(pi[mine], dtype=np.float32)))
         eng.shard.visited.copy_(torch.from_numpy(
-            np.array(memo["visited"], dtype=bool)))
+            np.array(np.asarray(memo["visited"])[mine], dtype=bool)))
         eng.rng.bit_generator.state = meta["rng"]
         eng.docs_seen = int(meta["docs_seen"])
         self.history = History(**meta["history"])

@@ -26,7 +26,9 @@ the join:
 ``HW`` is the one hardware row the port's roofline consumers share: the
 published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates,
 at the full 700 W power limit) — the figures ``chip_smoke.py`` bounds its
-kernels by.
+kernels by — and the data sheet's NVLink rate between cards (900 GB/s a
+card, both directions together), which the dry run's collective term
+divides by.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ HW = {"name": "NVIDIA H100 80GB HBM3 (data sheet)",
       "hbm_bw": 3.35e12,            # bytes/s
       "peak_flops_fp32": 67e12,     # op/s, outside the tensor cores
       "peak_flops_bf16": 989e12,    # op/s, dense tensor cores
-      "hbm_bytes": 80e9}
+      "hbm_bytes": 80e9,
+      "nvlink_bw": 900e9}           # bytes/s, NVLink, the data sheet's
 HBM_GB = HW["hbm_bytes"] / 1e9
 
 

@@ -48,6 +48,19 @@ def corpora():
             make_corpus(SPEC, split="test", seed=0, device=CPU))
 
 
+@pytest.fixture
+def world1_mesh(tmp_path):
+    """A (1, 1) CPU mesh over a one-process gloo group in this process."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield make_host_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def _cfg(**kw):
     kw.setdefault("estep_max_iters", 20)
     return LDAConfig(num_topics=4, vocab_size=SPEC.vocab_size, **kw)
@@ -299,9 +312,9 @@ def test_refusals(tmp_path, corpora):
     with pytest.raises(ValueError, match="unknown algo"):
         LDA(_cfg(), algo="vb", device=CPU)
     assert LDA(_cfg(), algo="divi", device=CPU).distributed == DIVIConfig()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         LDA(_cfg(), algo="divi", mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="single-host training"):
         LDA(_cfg(), mesh=object(), device=CPU)
     # a tune store is accepted: the bound training shape's policy is
     # looked up once (one tune.cache hit) and rides the cfg
@@ -326,10 +339,11 @@ def test_refusals(tmp_path, corpora):
         LDA(_cfg(), device=CPU).evaluate()
 
 
-def test_repro_divi_checkpoint_refuses(tmp_path, corpora):
+def test_repro_divi_checkpoint_refuses(tmp_path, corpora, world1_mesh):
     """A ``repro`` D-IVI checkpoint loads in the port (its DIVIConfig in
     the constructor), and what the port still refuses is refused: another
-    corpus (a foreign shard assignment) and a mesh (ROADMAP §1 item 11)."""
+    corpus (a foreign shard assignment). It resumes on a mesh as it does
+    without one (a (1, 1) mesh here: the same bits)."""
     jtrain, train, test = corpora
     jcfg = JConfig(num_topics=4, vocab_size=SPEC.vocab_size,
                    estep_max_iters=10)
@@ -342,9 +356,40 @@ def test_repro_divi_checkpoint_refuses(tmp_path, corpora):
     assert loaded.distributed == DIVIConfig(num_workers=2, batch_size=8)
     with pytest.raises(ValueError, match="num_docs"):
         loaded.resume(test)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        loaded.resume(train, mesh=object())
-    assert loaded.resume(train).docs_seen == 16
+    on_mesh = LDA.load(path, device=CPU).resume(train, mesh=world1_mesh)
+    assert on_mesh.trainer.eng.mesh is world1_mesh
+    assert loaded.resume(train).docs_seen == 16 == on_mesh.docs_seen
+    for lda in (loaded, on_mesh):
+        lda.partial_fit(steps=1)
+    _equal_state(loaded, on_mesh)
+    assert torch.equal(on_mesh.gather_lam(), loaded.lam)
+
+
+def test_divi_mesh_checkpoint_round_trip(tmp_path, corpora, world1_mesh):
+    """``LDA(algo="divi", mesh=...)`` saves the checkpoint a one-device run
+    saves (a (1, 1) mesh: the same bits), resumes on the mesh bit-equal to
+    the run that never stopped, and loads into the simulation."""
+    _, train, _ = corpora
+    dcfg = DIVIConfig(num_workers=2, batch_size=8, staleness=2,
+                      delay_prob=0.5)
+    path = os.path.join(tmp_path, "mesh")
+    a = LDA(_cfg(estep_backend="cuda"), algo="divi", distributed=dcfg,
+            mesh=world1_mesh, device=CPU).partial_fit(train, steps=2)
+    sim = LDA(_cfg(estep_backend="cuda"), algo="divi", distributed=dcfg,
+              device=CPU).partial_fit(train, steps=2)
+    _equal_state(a, sim)
+    a.save(path)
+    with pytest.raises(ValueError, match="gather_lam"):
+        a.lam
+    a.partial_fit(steps=2)
+    b = LDA.load(path, device=CPU).resume(train, mesh=world1_mesh)
+    b.partial_fit(steps=2)
+    _equal_state(a, b)
+    assert torch.equal(a.trainer.eng.shard.pi, b.trainer.eng.shard.pi)
+    c = LDA.load(path, device=CPU).resume(train)
+    c.partial_fit(steps=2)
+    _equal_state(a, c)
+    assert a.bound() == b.bound() == c.bound()
 
 
 def test_launcher_ckpt_then_resume_equals_one_run(tmp_path, monkeypatch):

@@ -67,6 +67,19 @@ def corpora():
             j_make_corpus(J_CORPORA["tiny"], seed=0))
 
 
+@pytest.fixture
+def world1_mesh(tmp_path):
+    """A (1, 1) CPU mesh over a one-process gloo group in this process."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield make_host_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def _cfgs(backend="gather", jbackend="gather", **kw):
     kw.setdefault("estep_max_iters", 40)
     return (JConfig(num_topics=8, vocab_size=SPEC.vocab_size,
@@ -428,7 +441,7 @@ def test_facade_refusals_in_repros_words(corpora, tmp_path):
     sharded = ShardedDocStream(CorpusDocStream(train), 2)
     with pytest.raises(ValueError, match="distributed ingest form"):
         LDA(cfg, algo="sivi", device=CPU).fit(sharded)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="data_axes names axes of a mesh"):
         LDA(cfg, algo="divi", data_axes=("data",), device=CPU)
     # a tune store is accepted: one lookup at the per-worker batch shape
     # (one tune.cache hit), and the workers' engine runs the policy
@@ -455,6 +468,38 @@ def test_facade_refusals_in_repros_words(corpora, tmp_path):
                                                        batch_size=8),
               device=CPU).fit(sharded, rounds=2)
     assert pre.trainer.eng.sharded is sharded and pre.docs_seen == 32
+
+
+def test_facade_on_a_one_rank_mesh_is_the_simulation(corpora, world1_mesh):
+    """``LDA(algo="divi", mesh=, data_axes=("data",))`` on a (1, 1) mesh:
+    the mesh round at one data rank is the simulation bit for bit, through
+    ``fit``, ``evaluate``, ``bound`` and ``score`` (collectives on one
+    rank), against ``repro``'s vmap engine at the module's bars."""
+    train, test, jtrain = corpora
+    jeng, _ = _pair(corpora, num_workers=2, batch_size=8, staleness=2)
+    _, cfg = _cfgs()
+    dcfg = DIVIConfig(num_workers=2, batch_size=8, staleness=2)
+    a = LDA(cfg, algo="divi", distributed=dcfg, mesh=world1_mesh,
+            data_axes=("data",), device=CPU)
+    b = LDA(cfg, algo="divi", distributed=dcfg, device=CPU)
+    for lda in (a, b):
+        lda.fit(train, rounds=3, test_corpus=test, eval_every=3)
+    for f in FIELDS:
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+    assert a.history.lpp == b.history.lpp
+    assert a.bound() == b.bound() and a.score(test) == b.score(test)
+    assert np.array_equal(a.top_words(3), b.top_words(3))
+    with pytest.raises(ValueError, match="gather_lam"):
+        a.lam
+    eng = DIVIEngine(cfg, dcfg, train, seed=0, device=CPU,
+                     lam0=np.asarray(jeng.state.lam).copy(),
+                     mesh=world1_mesh)
+    for _ in range(3):
+        eng.run_round()
+        jeng.run_round()
+    np.testing.assert_allclose(eng.gather_lam().numpy(),
+                               np.asarray(jeng.state.lam), rtol=1e-3,
+                               atol=1e-3)
 
 
 def test_port_resumes_repro_divi_checkpoint(corpora, tmp_path):

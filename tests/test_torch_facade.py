@@ -37,6 +37,19 @@ def corpora():
             make_corpus(SPEC, split="test", seed=0, device=CPU))
 
 
+@pytest.fixture
+def world1_mesh(tmp_path):
+    """A (1, 1) CPU mesh over a one-process gloo group in this process."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield make_host_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def _cfgs(jbackend="gather", backend="gather", **kw):
     kw.setdefault("estep_max_iters", 30)
     return (JConfig(num_topics=4, vocab_size=SPEC.vocab_size,
@@ -181,7 +194,7 @@ def test_facade_views_and_metrics(corpora):
 
 def test_public_api_surface_matches_repro():
     """``repro_torch.lda.__all__`` is ``repro.lda``'s; the D-IVI names are
-    present, and only their multi-card path (a mesh) raises."""
+    present, and a mesh that is no ``DeviceMesh`` is refused."""
     import repro.lda as jpkg
     import repro_torch.lda as pkg
     from repro_torch.lda import DIVITrainer, make_trainer
@@ -195,6 +208,27 @@ def test_public_api_surface_matches_repro():
                       distributed=DIVIConfig(num_workers=2, batch_size=8),
                       device="cpu")
     assert isinstance(tr, DIVITrainer) and tr.kind == "divi"
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_trainer(cfg, corpus, algo="sivi", distributed=DIVIConfig(),
                      mesh=object(), device="cpu")
+
+
+
+def test_make_trainer_takes_a_mesh(world1_mesh):
+    """``make_trainer(..., mesh=)`` builds the D-IVI trainer as one rank of
+    the mesh round (its workers, its rows of V); single-host training
+    refuses a mesh."""
+    from repro_torch.dist import DIVIConfig
+    from repro_torch.lda import DIVITrainer, make_trainer
+    _, cfg = _cfgs()
+    corpus = make_corpus(PAPER_CORPORA["tiny"], seed=0, device="cpu")
+    tr = make_trainer(cfg, corpus, algo="sivi",
+                      distributed=DIVIConfig(num_workers=2, batch_size=8),
+                      mesh=world1_mesh, device="cpu")
+    assert isinstance(tr, DIVITrainer) and tr.eng.mesh is world1_mesh
+    assert tr.eng.workers == range(2)
+    assert tr.eng.rows == slice(0, PAPER_CORPORA["tiny"].vocab_size)
+    tr.run_step()
+    assert torch.equal(tr.eng.gather_lam(), tr.state.lam)
+    with pytest.raises(ValueError, match="single-host training"):
+        LDA(cfg, mesh=world1_mesh, device="cpu")

@@ -42,7 +42,19 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.convert import lda_from_repro_checkpoint
         from repro_torch.dist import DIVIConfig
         # D-IVI: the engine, the protocol, the sharded streams, the raw memo
-        from repro_torch.dist.engine import DIVIEngine, mesh_not_ported
+        from repro_torch.dist.engine import DIVIEngine
+        # D-IVI over a mesh, the mesh helpers and the meta dry run
+        from repro_torch.dist import make_divi_round
+        from repro_torch.dist.divi import (MeshRound, divi_round_emulated,
+                                           ordered_sum)
+        from repro_torch.launch.mesh import (AbstractMesh, check_mesh,
+                                             make_abstract_mesh,
+                                             make_host_mesh,
+                                             make_production_mesh,
+                                             spawn_ranks)
+        from repro_torch.launch.dryrun_lda import (LiveBytes, divi_rank_plan,
+                                                   run_ivi, tensor_bytes)
+        from repro_torch.launch.serve_lda import run_serve_dryrun
         from repro_torch.dist.protocol import (DIVIState, WorkerIngest,
                                                WorkerShard, divi_round,
                                                master_update,

@@ -785,7 +785,16 @@ def test_serve_lda_launcher_from_repro_checkpoint(repro_ckpt, tmp_path,
         assert "serve.latency_ms" in json.dumps(metrics)
 
 
-def test_serve_lda_dryrun_names_its_roadmap_item():
+def test_serve_lda_dryrun_names_its_roadmap_item(capsys, tmp_path):
+    """``--dryrun`` (ROADMAP item 9, done) runs the serving batch at the
+    Arxiv shape on ``meta`` tensors and prints ``repro``'s summary line;
+    ``--out`` appends its record."""
     from repro_torch.launch import serve_lda
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve_lda.main(["--dryrun"])
+    out = tmp_path / "dry.jsonl"
+    serve_lda.main(["--dryrun", "--out", str(out)])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[OK ] lda-serve arxiv  compile=")
+    assert "widths=[32, 64, 128]" in line and "jit_entries=3" in line
+    rec = json.loads(out.read_text().splitlines()[-1])
+    assert rec["ok"] and rec["device"] == "meta" and rec["shape"] == "b32"
+    assert all(m["launches"] == 1 for m in rec["memory"].values())
