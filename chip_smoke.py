@@ -252,9 +252,25 @@ and the LM template's training path, after every serving phase:
                and 4 layers, 3 steps each (DeepSeekMoE's lb_loss in its
                loss); lm_train_iag: IAG over 8 shards at 4 layers, two
                passes, the aggregate against the memo's sum (1e-5)
+and the LM template over a device mesh, after it:
+ 35. lm_mesh — repro_torch.sharding on a (2, 2) ("data", "model") mesh of
+               4 gloo ranks time-slicing the one card (collectives on
+               host copies), each rank building only its blocks, layer by
+               layer: Qwen2.5-3B unreduced in bf16, a prefill at B = 2, S
+               = 4,096 (K9 36 times on every rank, over its 8 query heads
+               and its KV head) and 4 decode steps at B = 4 after a
+               2-token prompt (no K9), the ranks' rows of the last logits
+               against the unsharded model here at its bf16 bar; the same
+               at 4 layers in fp32 at 1e-3; DeepSeekMoE-16B's first 4
+               layers (32 experts a model rank), the first MoE block
+               against moe_block_emulated on the card at the bf16 bars,
+               counts and drops exactly; each rank's argument and
+               collective bytes equal to the meta dry run's
+               (launch/dryrun.py), max_memory_allocated beside its peak;
+               then 1 NCCL rank at (1, 1), bit-equal to ctx=None
 Then the ``kernels`` summary line (K9's row with ``launches_lm``,
-``launches_lm_moe`` and ``launches_lm_recurrent``) and, last, the ``ok``
-line.
+``launches_lm_moe``, ``launches_lm_recurrent`` and ``launches_lm_mesh``)
+and, last, the ``ok`` line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -3413,6 +3429,7 @@ DIVI_MESH_BAR = 5e-4        # repro's bar, its shard_map round against vmap
 DIVI_MESH_SPAWN_S = 420.0   # a spawn's whole run: its ranks killed past it
 DIVI_MESH_GLOO_S = 300.0    # a collective's timeout
 DIVI_MESH_DIR = ROOT / "_smoke_mesh"
+LM_MESH_DIR = ROOT / "_smoke_lm_mesh"    # the LM mesh spawns' stores
 
 
 def divi_mesh_config(spec, topics):
@@ -5125,6 +5142,423 @@ def phase_lm_train(device):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the LM template over a device mesh
+# ---------------------------------------------------------------------------
+
+LM_MESH = (2, 2)               # (data, model): 4 gloo ranks on the one card
+LM_MESH_PREFILL = (2, 4096)    # (B, S): one sequence a data rank
+# (B, prompt tokens, decode steps): each step re-gathers every weight a
+# rank holds over gloo (1.70 GB a rank at Qwen2.5-3B's width, ~6 s a step
+# on an NVIDIA H100 80GB HBM3 at 700 W); the prompt cut from 16 tokens to
+# 2 for the script's time
+LM_MESH_DECODE = (4, 2, 4)
+LM_MESH_FP32_LAYERS = 4
+# DeepSeekMoE-16B's first 4 layers (one dense, three MoE), its prefill
+LM_MESH_MOE_LAYERS = 4
+LM_MESH_MOE_S = 1024
+LM_MESH_SPAWN_S = 600.0        # a spawn's whole run: its ranks killed past it
+LM_MESH_GLOO_S = 300.0         # a collective's timeout
+
+
+def lm_mesh_configs():
+    """The phase's three configurations: Qwen2.5-3B unreduced (bf16), its
+    first LM_MESH_FP32_LAYERS layers in fp32, DeepSeekMoE-16B's first
+    LM_MESH_MOE_LAYERS layers (bf16)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    qwen = get_config(LM_ARCH)
+    fp32 = dataclasses.replace(lm_cut(qwen, slice(0, LM_MESH_FP32_LAYERS)),
+                               dtype="float32")
+    moe = lm_cut(get_config(LM_MOE_ARCH), slice(0, LM_MESH_MOE_LAYERS))
+    return {"qwen2.5-3b": qwen, "qwen2.5-3b_fp32": fp32,
+            "deepseek-moe-16b": moe}
+
+
+def lm_mesh_tokens(cfg, device):
+    """The seeded global inputs: the prefill's (B, S) tokens and the
+    decode's (B, prompt + steps), int32 as repro's inputs."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 3)
+    b, s = LM_MESH_PREFILL
+    db, prompt, steps = LM_MESH_DECODE
+    draw = dict(generator=gen, device=device, dtype=torch.int32)
+    return (torch.randint(0, cfg.vocab_size, (b, s), **draw),
+            torch.randint(0, cfg.vocab_size, (db, prompt + steps), **draw))
+
+
+def lm_mesh_serve(cfg, params, device, ctx=None, decode=True):
+    """A prefill of LM_MESH_PREFILL, then LM_MESH_DECODE's prompt decoded
+    into fresh caches and its steps decoded after it, through the serving
+    entry points (``ctx`` a mesh rank's, or None): the last logits of
+    each (the rank's rows), K9's launches, the collectives' bytes of the
+    prefill and of the last decode step, host ms of the prefill and of
+    each decode step, argument bytes."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.cost import tree_bytes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import compute_dtype
+    from repro_torch.sharding import RankPlan
+    from repro_torch.training import make_prefill_step, make_serve_step
+
+    tokens, dec = lm_mesh_tokens(cfg, device)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(cfg, ctx)
+    out = {"param_bytes": tree_bytes(params)}
+    rows = slice(None) if ctx is None else \
+        RankPlan(cfg, ctx, tokens.shape[0]).rows
+    out["input_bytes"] = tokens[rows].numel() * tokens.element_size()
+    torch.cuda.synchronize()
+    if ctx is not None:
+        ctx.comm.reset()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["k9_prefill"] = fa.LAUNCHES["flash_attention"]
+    if ctx is not None:
+        out["received_prefill"] = dict(ctx.comm.received)
+    out["prefill"] = logits.float().cpu()
+    out["rows"] = [rows.start, rows.stop]
+    if not decode:
+        return out
+    b, prompt, steps = LM_MESH_DECODE
+    caches = T.init_caches(cfg, b, prompt + steps, compute_dtype(cfg),
+                           device, ctx=ctx)
+    out["cache_bytes"] = tree_bytes(list(caches))
+    serve = make_serve_step(cfg, ctx)
+    drows = slice(None) if ctx is None else RankPlan(cfg, ctx, b).rows
+    got, ms = [], []
+    fa.reset_launches()
+    for t in range(prompt + steps):
+        pos = torch.full((b,), t, dtype=torch.int32, device=device)
+        if t == prompt + steps - 1 and ctx is not None:
+            ctx.comm.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lg, caches = serve(params, caches, dec[:, t], pos)
+        torch.cuda.synchronize()
+        if t >= prompt:
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.append(lg.float().cpu())
+    out["k9_decode"] = fa.LAUNCHES["flash_attention"]
+    out["decode_ms"] = ms
+    out["decode"] = torch.stack(got)
+    out["decode_rows"] = [drows.start, drows.stop]
+    out["decode_input_bytes"] = 2 * dec[drows, 0].numel() * 4
+    if ctx is not None:
+        out["received_decode"] = dict(ctx.comm.received)
+    return out
+
+
+def lm_mesh_moe(cfg, params, device, ctx):
+    """DeepSeekMoE-16B's cut prefill on a mesh rank: K9's launches, and the
+    first MoE layer's block input (the rank's rows), output and
+    statistics."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe as M
+    from repro_torch.training import make_prefill_step
+
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_MESH_PREFILL[0],
+                                               LM_MESH_MOE_S),
+                           generator=gen, device=device, dtype=torch.int32)
+    seen = []
+
+    def record(orig):
+        def moe_ffn(cfg_, p, x, tp=None):
+            y, aux = orig(cfg_, p, x, tp)
+            if not seen:
+                seen.append({"x": x.cpu(), "y": y.cpu(),
+                             **{k: v.cpu() for k, v in aux.items()}})
+            return y, aux
+        return moe_ffn
+
+    fa.reset_launches()
+    with wrapped(M, "moe_ffn", record):
+        logits = make_prefill_step(cfg, ctx)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    return {"k9_prefill": fa.LAUNCHES["flash_attention"],
+            "finite": bool(torch.isfinite(logits.float()).all()),
+            "tokens": tokens.cpu(), **seen[0]}
+
+
+def lm_mesh_rank(rank, world, backend):
+    """One rank of the phase's mesh on the one card: each configuration's
+    blocks built layer by layer (``init_params(..., cast=True, ctx=)``),
+    its serving runs, ``max_memory_allocated`` after each. On the NCCL
+    rank at (1, 1), Qwen2.5-3B's prefill again with ctx=None."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_ctx
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, m = (1, 1) if world == 1 else LM_MESH
+    ctx = make_ctx(make_host_mesh(d, m, device=device))
+    out = {"coords": dict(ctx.comm.coords),
+           "backends": dict(ctx.comm.backends)}
+    for name, cfg in lm_mesh_configs().items():
+        if world == 1 and name != "qwen2.5-3b":
+            continue
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, LM_SEED, device=device, cast=True,
+                               ctx=ctx)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if name == "deepseek-moe-16b":
+            row = lm_mesh_moe(cfg, params, device, ctx)
+        else:
+            row = lm_mesh_serve(cfg, params, device, ctx)
+        if world == 1:
+            # (1, 1): the blocks are the whole model; ctx=None's bits
+            single = lm_mesh_serve(cfg, params, device, None, decode=False)
+            row["bit_equal_no_ctx"] = torch.equal(row["prefill"],
+                                                  single["prefill"])
+        row["init_s"] = init_s
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        # by value: tensors would leave as shared-memory handles that die
+        # with the rank
+        out[name] = {k: v.float().numpy() if isinstance(v, torch.Tensor)
+                     else v for k, v in row.items()}
+        del params
+    return out
+
+
+def lm_mesh_dryrun(cfg, mesh_shape, decode=True):
+    """The meta dry run of one rank at the phase's shapes on an abstract
+    (data, model) mesh: argument and collective bytes, peak."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import rank_step
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models.layers import compute_dtype
+    from repro_torch.sharding import make_ctx
+
+    ctx = make_ctx(make_abstract_mesh(mesh_shape, ("data", "model")))
+    b, s = LM_MESH_PREFILL
+    out = {"prefill": rank_step(cfg, InputShape("lm_mesh", s, b, "prefill"),
+                                ctx)}
+    if decode:
+        db, prompt, steps = LM_MESH_DECODE
+        out["decode"] = rank_step(
+            cfg, InputShape("lm_mesh", prompt + steps, db, "decode"), ctx,
+            cache_dtype=compute_dtype(cfg))
+    return out
+
+
+def phase_lm_mesh(device, info):
+    """The LM template over a (2, 2) ("data", "model") mesh on the one
+    card (`repro_torch.sharding`): one spawn of 4 gloo ranks time-slicing
+    it (collectives on host copies in bf16, which gloo takes), then one
+    NCCL rank at (1, 1). Qwen2.5-3B unreduced in bf16: a prefill at B =
+    2, S = 4,096 (one sequence a data rank) launching K9 once a layer on
+    every rank, and 4 decode steps at B = 4 after a 2-token prompt, each
+    rank's rows of the last logits against the unsharded model's here at
+    the model's bf16 bar; the same at 4 layers in fp32 at 1e-3;
+    DeepSeekMoE-16B's first 4 layers (32 experts a model rank): the first
+    MoE block's output against ``moe_block_emulated`` on the card, its
+    counts and drops exactly; the NCCL rank bit-equal to ctx=None. Each
+    rank's argument and collective bytes against the meta dry run's, its
+    ``max_memory_allocated`` beside the dry run's peak. Four processes
+    time-slice one card here: their ms are no scaling result."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import moe_block_emulated
+
+    cfgs = lm_mesh_configs()
+    qwen = cfgs["qwen2.5-3b"]
+    check((qwen.num_layers, qwen.d_model, qwen.num_heads, qwen.num_kv_heads,
+           qwen.d_ff, qwen.vocab_size) == LM_WIDTH,
+          f"lm_mesh: {LM_ARCH} is not at its full width")
+    # the unsharded references, here, before the ranks start ----------
+    refs = {}
+    for name in ("qwen2.5-3b", "qwen2.5-3b_fp32"):
+        cfg = cfgs[name]
+        params = T.init_params(cfg, LM_SEED, device=device, cast=True)
+        refs[name] = lm_mesh_serve(cfg, params, device)
+        del params
+        torch.cuda.empty_cache()
+    store = LM_MESH_DIR
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir()
+    try:
+        t0 = time.perf_counter()
+        gloo = spawn_ranks(lm_mesh_rank, 4, backend="gloo", args=("gloo",),
+                           timeout_s=LM_MESH_SPAWN_S,
+                           collective_timeout_s=LM_MESH_GLOO_S,
+                           store_dir=str(store))
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(lm_mesh_rank, 1, backend="nccl", args=("nccl",),
+                           timeout_s=LM_MESH_SPAWN_S,
+                           collective_timeout_s=LM_MESH_GLOO_S,
+                           store_dir=str(store))[0]
+        nccl_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+    out = {"phase": "lm_mesh", "card": info["nvidia_smi"],
+           "layout": {"data": LM_MESH[0], "model": LM_MESH[1]},
+           "ranks": "4 gloo processes time-slicing one card (collectives on "
+                    "host copies, carried in each tensor's dtype: bf16), "
+                    "then 1 NCCL rank at (1, 1)",
+           "time_sliced": "4 processes time-slicing one card over gloo: no "
+                          "scaling result",
+           "spawn_s": {"gloo_4": gloo_s, "nccl_1": nccl_s}}
+    for r in gloo:
+        check(r["backends"] == {"data": "gloo", "model": "gloo"},
+              f"lm_mesh: collectives on {r['backends']}")
+    check(sorted((r["coords"]["data"], r["coords"]["model"]) for r in gloo)
+          == [(0, 0), (0, 1), (1, 0), (1, 1)], "lm_mesh: rank positions")
+
+    def assembled(name, key, rows_key):
+        parts = {}
+        for r in gloo:
+            row = r[name]
+            lo, hi = row[rows_key]
+            got = torch.from_numpy(row[key])
+            if (lo, hi) in parts:
+                check(torch.equal(parts[(lo, hi)], got),
+                      f"lm_mesh {name}: model ranks' {key} differ")
+            parts[(lo, hi)] = got
+        dim = 1 if key == "decode" else 0
+        return torch.cat([parts[k] for k in sorted(parts)], dim=dim)
+
+    for name, bar in (("qwen2.5-3b", LM_BF16_REL_L2[LM_ARCH]),
+                      ("qwen2.5-3b_fp32", LM_FP32_REL_L2)):
+        cfg, ref = cfgs[name], refs[name]
+        label = f"lm_mesh {name}"
+        pre = rel_l2(assembled(name, "prefill", "rows"), ref["prefill"])
+        dec = [rel_l2(a, b) for a, b in zip(
+            assembled(name, "decode", "decode_rows"), ref["decode"])]
+        dry = lm_mesh_dryrun(cfg, LM_MESH)
+        ranks = [r[name] for r in gloo]
+        for row in ranks:
+            check(row["k9_prefill"] == cfg.num_layers,
+                  f"{label}: {row['k9_prefill']} K9 launches a rank a "
+                  f"prefill, not {cfg.num_layers}")
+            check(row["k9_decode"] == 0, f"{label}: K9 in decode")
+            live = row["param_bytes"] + row["input_bytes"]
+            check(live == dry["prefill"]["argument_bytes"],
+                  f"{label}: live prefill argument bytes {live} != the "
+                  f"dry run's {dry['prefill']['argument_bytes']}")
+            live = row["param_bytes"] + row["cache_bytes"] \
+                + row["decode_input_bytes"]
+            check(live == dry["decode"]["argument_bytes"],
+                  f"{label}: live decode argument bytes {live} != the dry "
+                  f"run's {dry['decode']['argument_bytes']}")
+            for kind in ("prefill", "decode"):
+                got = row[f"received_{kind}"]
+                want = {k[len("coll_"):]: v for k, v in dry[kind].items()
+                        if k.startswith("coll_")}
+                check(got == want, f"{label}: live {kind} collective bytes "
+                      f"{got} != the dry run's {want}")
+        check(pre <= bar and max(dec) <= bar,
+              f"{label}: rel L2 prefill {pre}, decode {dec} over {bar}")
+        out[name] = {
+            "layers": cfg.num_layers, "dtype": cfg.dtype,
+            "prefill": {"B": LM_MESH_PREFILL[0], "S": LM_MESH_PREFILL[1]},
+            "decode": dict(zip(("B", "prompt", "steps"), LM_MESH_DECODE)),
+            "rel_l2_prefill_vs_unsharded": pre,
+            "rel_l2_decode_vs_unsharded": dec,
+            "tol": f"relative L2 {bar}",
+            "k9_launches_per_rank_prefill": [r["k9_prefill"] for r in ranks],
+            "k9_launches_per_rank_decode": [r["k9_decode"] for r in ranks],
+            "prefill_ms_by_rank": [r["prefill_ms"] for r in ranks],
+            "decode_ms_by_rank": [r["decode_ms"] for r in ranks],
+            "unsharded_prefill_ms": ref["prefill_ms"],
+            "unsharded_decode_ms": ref["decode_ms"],
+            "received_prefill_by_rank": [r["received_prefill"]
+                                         for r in ranks],
+            "received_decode_by_rank": [r["received_decode"]
+                                        for r in ranks],
+            "argument_bytes_prefill": dry["prefill"]["argument_bytes"],
+            "argument_bytes_decode": dry["decode"]["argument_bytes"],
+            "live_bytes_equal_dry_run": True,
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                             for r in ranks],
+            "dryrun_peak_bytes": {
+                k: dry[k]["argument_bytes"] + dry[k]["temp_bytes"]
+                for k in ("prefill", "decode")},
+            "init_s_by_rank": [r["init_s"] for r in ranks]}
+
+    # DeepSeekMoE: the first MoE block against its one-process twin -----
+    name, cfg = "deepseek-moe-16b", cfgs["deepseek-moe-16b"]
+    label = f"lm_mesh {name}"
+    ranks = [r[name] for r in gloo]
+    for row in ranks:
+        check(row["k9_prefill"] == cfg.num_layers and row["finite"],
+              f"{label}: K9 {row['k9_prefill']} launches a rank, or logits")
+    params = T.init_params(cfg, LM_SEED, device=device, cast=True)
+    first = cfg.pattern.index("moe")
+    xs = {}
+    for r in gloo:
+        xs[r["coords"]["data"]] = r[name]["x"]
+    x = torch.from_numpy(np.concatenate([xs[d] for d in sorted(xs)])).to(
+        device, torch.bfloat16)
+    y, aux = moe_block_emulated(cfg, params["layers"][first]["moe"], x,
+                                data=LM_MESH[0], model=LM_MESH[1])
+    rows = x.shape[0] // LM_MESH[0]
+    errs, bit_equal = [], True
+    for r in gloo:
+        row, d = r[name], r["coords"]["data"]
+        want = y[d * rows:(d + 1) * rows].float().cpu()
+        got = torch.from_numpy(row["y"])
+        errs.append(float((got - want).abs().max()))
+        bit_equal &= torch.equal(got, want)
+        check(torch.allclose(got, want, rtol=BF16_RTOL, atol=BF16_ATOL),
+              f"{label}: rank {r['coords']} MoE block off its twin by "
+              f"{errs[-1]}")
+        for k in ("counts", "dropped"):
+            check(torch.equal(torch.from_numpy(row[k]), aux[k].float().cpu()),
+                  f"{label}: {k} {row[k]} != the twin's {aux[k]}")
+    del params, x, y
+    torch.cuda.empty_cache()
+    out[name] = {"layers": cfg.num_layers, "S": LM_MESH_MOE_S,
+                 "B": LM_MESH_PREFILL[0],
+                 "experts_per_model_rank": cfg.num_experts // LM_MESH[1],
+                 "moe_layer_checked": first,
+                 "max_abs_err_vs_twin_by_rank": errs,
+                 "bit_equal_to_twin": bit_equal,
+                 "counts_and_dropped_equal": True,
+                 "dropped": float(aux["dropped"]),
+                 "tol": f"rtol={BF16_RTOL} atol={BF16_ATOL}",
+                 "k9_launches_per_rank_prefill": [r["k9_prefill"]
+                                                  for r in ranks],
+                 "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                                  for r in ranks]}
+
+    # NCCL at (1, 1) ---------------------------------------------------
+    row = nccl["qwen2.5-3b"]
+    check(nccl["backends"] == {}, f"lm_mesh nccl: {nccl['backends']}")
+    check(bool(row["bit_equal_no_ctx"]), "lm_mesh nccl (1, 1): the prefill is "
+          "not ctx=None's bits")
+    check(row["k9_prefill"] == qwen.num_layers,
+          f"lm_mesh nccl: {row['k9_prefill']} K9 launches")
+    out["nccl_1x1"] = {"bit_equal_no_ctx": True,
+                       "k9_launches_prefill": row["k9_prefill"],
+                       "prefill_ms": row["prefill_ms"],
+                       "decode_ms": row["decode_ms"],
+                       "max_memory_allocated": row["max_memory_allocated"]}
+    emit(out)
+    fa.reset_launches()
+    return {"per_rank_prefill": out["qwen2.5-3b"][
+        "k9_launches_per_rank_prefill"],
+            "per_rank_decode": out["qwen2.5-3b"][
+        "k9_launches_per_rank_decode"]}
+
+
 HYPER_RTOL = 1e-4   # the fp32 update on the card against float64 on the CPU
 
 
@@ -5555,6 +5989,9 @@ def main() -> int:
     # the training path after every serving phase (its 49 GB of masters,
     # gradients and moments come once the serving models are freed)
     phase_lm_train(device)
+    # the LM over a (2, 2) mesh, last: its ranks start once every model
+    # of the earlier phases is freed
+    lm_mesh = phase_lm_mesh(device, info)
     # each kernel's launches on the path that runs it: K2 and K5 on
     # memo_delta / memo_delta_csr (the training paths run them fused)
     launches.update(fixed_point_csr=launches_csr["fixed_point_csr"],
@@ -5599,6 +6036,8 @@ def main() -> int:
     kernels["flash_attention"]["launches_lm_recurrent"] = {
         arch: row["prefill"]["k9_launches"]
         for arch, row in lm_recurrent.items()}
+    # and on every rank of the (2, 2) mesh: once a layer a prefill
+    kernels["flash_attention"]["launches_lm_mesh"] = lm_mesh
     for name, task in (("fixed_point", "padded"),
                        ("fixed_point_csr", "csr")):
         row = tune["tasks"][task]

@@ -155,24 +155,28 @@ def _nested(flat: Mapping[str, Any]) -> dict:
 
 
 def lm_params_from_repro(params_np: Mapping[str, Any], cfg: ModelConfig,
-                         device=None) -> dict:
+                         device=None, *, mesh=None, coords=None) -> dict:
     """``repro``'s params (pytree leaves as numpy or any array numpy reads,
     or the flat ``{path: array}`` of its npz checkpoint) as the port's: the
     same arrays and dtypes on ``device``, ``params["layers"][i]`` for
     ``cfg.pattern[i]`` (an MoE layer's expert stacks keep their (E, D, F)
-    shape), zamba2's shared block under ``"shared_attn"``."""
+    shape), zamba2's shared block under ``"shared_attn"``.
+
+    With a ``mesh`` (and the position ``coords``, as
+    `repro_torch.sharding.shard_tree` takes them) the rank's blocks under
+    ``param_specs(mesh, ...)``: each leaf is cut on the host, and only its
+    block reaches ``device``."""
     device = resolve_device(device)
     tree = params_np if "stages" in params_np else _nested(params_np)
-
-    def leaf(a):
-        return torch.from_numpy(np.array(a)).to(device)
-
-    out = {k: leaf(tree[k]) for k in LM_TOP_ARRAYS if k in tree}
+    out = {k: np.asarray(tree[k]) for k in LM_TOP_ARRAYS if k in tree}
     for k in LM_TOP_TREES:
         if k in tree:
-            out[k] = tree_map(leaf, tree[k])
-    out["layers"] = _from_stages(tree["stages"], cfg, leaf)
-    return out
+            out[k] = tree_map(np.asarray, tree[k])
+    out["layers"] = _from_stages(tree["stages"], cfg, lambda a: a)
+    if mesh is not None:
+        from repro_torch.sharding.rules import param_specs, shard_tree
+        out = shard_tree(mesh, out, param_specs(mesh, out), coords)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), out)
 
 
 def lm_params_to_repro(params: Mapping[str, Any], cfg: ModelConfig) -> dict:

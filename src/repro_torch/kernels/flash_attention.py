@@ -9,7 +9,13 @@ and V tiles fed by TMA; P enters P·V as a bf16 high part plus a bf16 low
 part, so its products keep about 16 bits), fp32 in fp32 SIMT math.
 ``flash_attention_plain`` is its plain PyTorch twin. The wrapper takes the
 twin only for CPU tensors; for CUDA tensors it launches the kernel or
-raises. Each launch adds one to ``LAUNCHES["flash_attention"]``.
+raises; for ``meta`` tensors (the dry run, `repro_torch.launch.dryrun`)
+it takes a shape-only path that allocates the output and counts the
+launch, and never builds the kernel. Each launch adds one to
+``LAUNCHES["flash_attention"]`` and its operations to
+``FLOPS["flash_attention"]`` (4·hd a kept (query, key) pair: Q·Kᵀ and P·V,
+a multiply-add counting two), which an operation counter cannot see in a
+``ctypes`` launch.
 
 K9 has no backward (nor has ``repro``'s kernel): called through
 ``ctypes``, its output would carry no ``grad_fn``, and a training step
@@ -26,11 +32,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.lda_estep import _on_cpu, _stream
+from repro_torch.kernels.lda_estep import _device_kind, _stream
 from repro_torch.kernels.ref import NEG_INF
 
 #: Launches of the kernel since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+#: Their operations since the last ``reset_launches()``.
+FLOPS: Dict[str, float] = {"flash_attention": 0.0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,6 +46,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        FLOPS[name] = 0.0
+
+
+def attention_flops(bh: int, s: int, hd: int, kv_len: int,
+                    causal: bool) -> float:
+    """K9's operations on a call: 4·hd a (query, key) pair it keeps (keys
+    below ``kv_len``; causal: at or before the query)."""
+    if causal:
+        pairs = kv_len * (kv_len + 1) // 2 + (s - kv_len) * kv_len
+    else:
+        pairs = s * kv_len
+    return 4.0 * hd * bh * pairs
 
 
 def recording(*tensors: torch.Tensor) -> bool:
@@ -119,12 +139,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: kv_len={kv_len} outside [1, {s}]")
     if scale is None:
         scale = hd ** -0.5
-    if _on_cpu(q, k, v):
+    kind = _device_kind(q, k, v, meta=True)
+    if kind == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      kv_len=kv_len)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+    flops = attention_flops(bh, s, hd, kv_len, bool(causal))
+    if kind == "meta":          # shape only: the launch counted, not made
+        LAUNCHES["flash_attention"] += 1
+        FLOPS["flash_attention"] += flops
+        return torch.empty_like(q)
     lib = build.load("flash_attention")
     if hd > lib.attn_max_head_dim():
         raise ValueError(f"flash_attention: hd={hd} exceeds the kernel's "
@@ -142,4 +168,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         _DTYPES[q.dtype], _stream(q))
     build.check(rc, "attn_flash", library="flash_attention")
     LAUNCHES["flash_attention"] += 1
+    FLOPS["flash_attention"] += flops
     return out if width == hd else out[..., :hd].contiguous()

@@ -23,6 +23,14 @@ Decode (``attention_decode``) is plain torch on every device, as ``repro``'s
 is plain XLA: a ring-buffer cache whose ``slot_pos`` tracks the absolute
 position in each slot, which makes the sliding-window mask implicit
 (overwritten slots fall out of the window). The cache is written in place.
+
+Over a mesh (`repro_torch.sharding.ctx`) a rank computes the heads that
+``head_slice`` gives it from the rules' specs: its H/M query heads where
+``wq`` is sharded over ``model`` (then ``wo``'s partial sums are reduced
+over ``model`` by the caller), the local KV heads where ``wk`` is sharded,
+else the whole KV set, of which attention reads the heads its query heads
+map to (query head h reads KV head h // (H / KV)). Every function here
+takes its head counts from the tensors it is given.
 """
 from __future__ import annotations
 
@@ -85,6 +93,44 @@ def _rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def _scale(cfg: ModelConfig) -> float:
     return (cfg.query_scale if cfg.query_scale is not None
             else cfg.resolved_head_dim ** -0.5)
+
+
+class HeadSlice(NamedTuple):
+    """The heads a model rank computes. ``kv`` picks, out of the KV heads
+    it projects (its local ones, or all), the run its query heads read
+    (None: all). ``reduce``: ``wo``'s output is a partial sum over
+    ``model``."""
+
+    kv: Optional[slice]
+    reduce: bool
+
+
+def head_slice(cfg: ModelConfig, spec, plan) -> HeadSlice:
+    """The rank's heads under ``spec`` (the attention dict's specs) on
+    ``plan`` (`repro_torch.sharding.ctx.RankPlan`)."""
+    if not plan.model_sharded(spec["wq"], 1):
+        return HeadSlice(None, False)       # whole on every model rank
+    if plan.model_sharded(spec["wk"], 1):
+        return HeadSlice(None, True)        # local KV heads, rep kept
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    rep = h // kv
+    hl = h // plan.m_size
+    h0 = plan.m * hl
+    lo, hi = h0 // rep, (h0 + hl - 1) // rep + 1
+    # K9 maps local query head j to KV head j // (hl / (hi - lo))
+    if hl % (hi - lo) or any((h0 + j) // rep != lo + j * (hi - lo) // hl
+                             for j in range(hl)):
+        raise ValueError(f"{cfg.name}: a model rank's {hl} query heads "
+                         f"read their {hi - lo} KV heads unevenly")
+    return HeadSlice(slice(lo, hi), True)
+
+
+def select_kv(t: torch.Tensor, sel: Optional[slice],
+              dim: int = 2) -> torch.Tensor:
+    """The KV heads ``sel`` (``HeadSlice.kv``) of ``t`` along ``dim``."""
+    if sel is None:
+        return t
+    return t.narrow(dim, sel.start, sel.stop - sel.start)
 
 
 # ---------------------------------------------------------------------------
@@ -181,15 +227,20 @@ def prefill_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def attention_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     window: Optional[int] = None,
                     positions: Optional[torch.Tensor] = None, *,
-                    attention: Optional[str] = None) -> torch.Tensor:
+                    attention: Optional[str] = None,
+                    heads: Optional[HeadSlice] = None) -> torch.Tensor:
     """Causal (optionally sliding-window) self-attention over full
     sequences. x: (B, S, D) → (B, S, D); positions (S,) default to
     arange(S), the only positions the K9 route takes (its causal mask is
-    by index). ``attention`` picks the route (``attention_route``)."""
+    by index). ``attention`` picks the route (``attention_route``).
+    ``heads``: a model rank's (``head_slice``); ``p`` then holds its
+    heads, and the output is its partial sum where ``heads.reduce``."""
     route = attention_route(cfg, window, x.device, attention)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = prefill_qkv(cfg, p, x, positions)
+    if heads is not None:
+        k, v = select_kv(k, heads.kv), select_kv(v, heads.kv)
     if route == "flash":
         out = flash_mha(q, k, v, causal=True, scale=1.0)
     else:
@@ -220,17 +271,17 @@ def init_cache(cfg: ModelConfig, batch: int, window: int,
 
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      cache: KVCache, pos: torch.Tensor,
-                     window: Optional[int] = None
+                     window: Optional[int] = None,
+                     heads: Optional[HeadSlice] = None
                      ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode. x: (B, 1, D); pos: (B,) absolute positions.
 
     The new token's K/V overwrite slot ``pos % W`` (ring), in place.
     Attention runs over the updated cache; masking = slot occupied ∧
-    causal ∧ (window if given). Returns (y, the same cache).
+    causal ∧ (window if given). Returns (y, the same cache). ``heads``: a
+    model rank's; the cache then holds the KV heads ``p`` projects.
     """
     b = x.shape[0]
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    rep = h // kv
     w_slots = cache.k.shape[1]
 
     q, k, v = _qkv(cfg, p, x)                    # q (B,1,h,hd), k/v (B,1,kv,hd)
@@ -245,15 +296,18 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     cache.v.index_put_(index, v[:, 0].to(cache.v.dtype))
     cache.slot_pos.index_put_(index, pos.to(torch.int32))
 
-    qg = q.reshape(b, kv, rep, hd)
-    logits = torch.einsum("bgrk,bsgk->bgrs", qg, cache.k.to(q.dtype))
+    sel = None if heads is None else heads.kv
+    ck, cv = select_kv(cache.k, sel), select_kv(cache.v, sel)
+    h, kv, hd = q.shape[2], ck.shape[2], q.shape[3]
+    qg = q.reshape(b, kv, h // kv, hd)
+    logits = torch.einsum("bgrk,bsgk->bgrs", qg, ck.to(q.dtype))
     logits = softcap(logits, cfg.attn_logit_softcap)
     sp = cache.slot_pos
     valid = (sp >= 0) & (sp <= pos[:, None])     # (B, W)
     if window is not None:
         valid &= sp > (pos[:, None] - window)
     logits = torch.where(valid[:, None, None, :], logits.float(), NEG_INF)
-    wgt = torch.softmax(logits, dim=-1).to(cache.v.dtype)
-    out = torch.einsum("bgrs,bsgk->bgrk", wgt, cache.v).reshape(b, 1, h, hd)
+    wgt = torch.softmax(logits, dim=-1).to(cv.dtype)
+    out = torch.einsum("bgrs,bsgk->bgrk", wgt, cv).reshape(b, 1, h, hd)
     y = torch.einsum("bthk,hkd->btd", out.to(x.dtype), p["wo"].to(x.dtype))
     return y, cache

@@ -26,8 +26,10 @@ def truncated_normal(shape, std: float, *, generator: torch.Generator,
                      device, dtype=torch.float32) -> torch.Tensor:
     """N(0, std²) cut at ±2σ, ``repro``'s ``truncated_normal``: the same
     distribution, drawn from a ``torch.Generator`` (not ``jax.random``'s
-    draws)."""
+    draws). On ``meta`` (no generator there) the shape alone."""
     t = torch.empty(shape, dtype=dtype, device=device)
+    if t.is_meta:
+        return t
     return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                        generator=generator)
 

@@ -16,7 +16,15 @@ dropless capacity):
   activations' dtype, as ``repro``'s scatter-add over the sorted rows
   does: deterministic, with no atomics.
 
-A ``MeshCtx`` raises (ROADMAP §1 item 10.4).
+Over a mesh (``moe_ffn`` with a rank's plan, `repro_torch.sharding.ctx`)
+the block follows ``repro``'s ``_moe_block``: the experts over ``model``,
+the shared experts' F over ``model``, the router whole; each model rank
+runs ``moe_ffn_local`` on its data shard's tokens with ``repro``'s per-rank
+capacity, ``y`` is summed over ``model``, and the statistics are summed
+over ``model`` and divided by its size, then over the data axes
+(``lb_loss`` divided by their size). A batch the data axes do not divide
+is replicated over them. ``moe_block_emulated`` is the same function in
+one process.
 """
 from __future__ import annotations
 
@@ -27,18 +35,18 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, truncated_normal
+from repro_torch.sharding.ctx import MeshCtx, training_not_ported
 
 AuxDict = Dict[str, torch.Tensor]
 
+__all__ = ["MeshCtx", "moe_block_emulated", "moe_ffn", "moe_ffn_local",
+           "moe_init", "mesh_not_ported"]
+
 
 def mesh_not_ported(what: str = "ctx") -> NotImplementedError:
-    """The error of a ``MeshCtx``: ``repro``'s sharded layout (its
-    ``_shard`` constraints, the MoE ``shard_map`` islands) is not ported;
-    on one card ``_shard`` is the identity."""
-    return NotImplementedError(
-        f"{what}: sharding the LM over a mesh (repro's sharding/ and "
-        "launch/dryrun.py) is not ported to repro_torch yet (ROADMAP §1 "
-        "item 10.4); one card runs with ctx=None")
+    """The error of training over a ``MeshCtx``: serving runs over a mesh,
+    training waits for ROADMAP §1 item 10.5."""
+    return training_not_ported(what)
 
 
 def moe_init(cfg: ModelConfig, *, generator, device) -> Params:
@@ -114,8 +122,14 @@ def moe_ffn_local(cfg: ModelConfig, p: Params, x: torch.Tensor,
     counts = torch.diff(offsets)                                # (E,)
 
     cap = _capacity(cfg, n, m_size)
-    # the segment sizes on the host: one device-to-host read a call
-    off = offsets[rank * el: rank * el + el + 1].tolist()
+    if x.device.type == "meta":
+        # shape only (the dry run): the rank's segment fills its capacity,
+        # its experts' rows spread evenly, as repro's static cap-row
+        # products are sized
+        off = [rank * cap + (j * cap) // el for j in range(el + 1)]
+    else:
+        # the segment sizes on the host: one device-to-host read a call
+        off = offsets[rank * el: rank * el + el + 1].tolist()
     lo, hi = off[0], off[-1]
     live = min(hi - lo, cap)
     # each (token, slot) pair's output at its sorted position; rows past
@@ -158,12 +172,95 @@ def moe_ffn_local(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return y, aux
 
 
+def _expert_blocks(cfg: ModelConfig, p: Params, spec, plan) -> Params:
+    """The rank's experts (E/M) and shared-expert columns (F/M): the
+    block's own placements, whatever the rules gave the leaves."""
+    out = dict(p)
+    for w in ("w_gate", "w_up", "w_down"):
+        if not plan.model_sharded(spec[w], 0):
+            out[w] = plan.model_block(p[w], 0)
+    if cfg.num_shared_experts:
+        sh, ss = p["shared"], spec["shared"]
+        out["shared"] = {
+            w: sh[w] if plan.model_sharded(ss[w], dim)
+            else plan.model_block(sh[w], dim)
+            for w, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 0))}
+    return out
+
+
+def _packed(aux: AuxDict) -> torch.Tensor:
+    return torch.cat([aux["lb_loss"].reshape(1).float(),
+                      aux["dropped"].reshape(1).float(),
+                      aux["counts"].float()])
+
+
+def _unpacked(v: torch.Tensor) -> AuxDict:
+    return {"lb_loss": v[0], "dropped": v[1], "counts": v[2:]}
+
+
 def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
-            ctx=None) -> Tuple[torch.Tensor, AuxDict]:
-    """x: (B, S, D) → (B, S, D) and the aux statistics; ``ctx`` (a mesh)
-    raises."""
-    if ctx is not None:
-        raise mesh_not_ported()
+            tp=None) -> Tuple[torch.Tensor, AuxDict]:
+    """x: (B, S, D) → (B, S, D) and the aux statistics. ``tp``: a model
+    rank's layer plan (`repro_torch.sharding.ctx.LayerPlan`), in the
+    place of ``repro``'s ``ctx``; ``p`` then holds the leaves gathered
+    over the data axes and ``x`` the rank's rows."""
     b, s, d = x.shape
-    y, aux = moe_ffn_local(cfg, p, x.reshape(-1, d))
-    return y.reshape(b, s, d), aux
+    if tp is None:
+        y, aux = moe_ffn_local(cfg, p, x.reshape(-1, d))
+        return y.reshape(b, s, d), aux
+    plan, spec = tp.plan, tp.spec["moe"]
+    m_size = plan.m_size if plan.tp else 1
+    rank = plan.m if plan.tp else 0
+    if m_size > 1:
+        p = _expert_blocks(cfg, p, spec, plan)
+    y, aux = moe_ffn_local(cfg, p, x.reshape(-1, d), rank, m_size)
+    if m_size > 1:
+        y = plan.msum(y)
+        stats = plan.comm.ordered_sum(_packed(aux), (plan.model,)) / m_size
+    else:
+        stats = _packed(aux)
+    if plan.batch_sharded and plan.n_data > 1:
+        # reduce stats over data so outputs are fully replicated
+        stats = plan.comm.ordered_sum(stats, plan.ctx.data_axes)
+        stats = torch.cat([stats[:1] / plan.n_data, stats[1:]])
+    return y.reshape(b, s, d), _unpacked(stats)
+
+
+def moe_block_emulated(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                       data: int, model: int
+                       ) -> Tuple[torch.Tensor, AuxDict]:
+    """The MoE block over a (``data``, ``model``) mesh in one process
+    (``repro``'s sharded ``_moe_block``): each data shard's tokens through
+    each model rank's ``moe_ffn_local`` (its E/M experts, its F/M
+    shared-expert columns, ``repro``'s per-rank capacity), the partials and
+    statistics summed in rank order. ``p``: the whole block; x (B, S, D).
+    A twin for the tests and the card check, on no serving path."""
+    b, s, d = x.shape
+    if b % data:
+        data = 1                # replicated over the data axes
+    e, fsh = cfg.num_experts, cfg.moe_d_ff * cfg.num_shared_experts
+    ys, rows = [], b // data
+    stats = None
+    for i in range(data):
+        xi = x[i * rows:(i + 1) * rows].reshape(-1, d)
+        part, st = None, None
+        for r in range(model):
+            pr = dict(p)
+            for w in ("w_gate", "w_up", "w_down"):
+                pr[w] = p[w][r * e // model:(r + 1) * e // model]
+            if cfg.num_shared_experts:
+                c = slice(r * fsh // model, (r + 1) * fsh // model)
+                sh = p["shared"]
+                pr["shared"] = {"w_gate": sh["w_gate"][:, c],
+                                "w_up": sh["w_up"][:, c],
+                                "w_down": sh["w_down"][c]}
+            y, aux = moe_ffn_local(cfg, pr, xi, r, model)
+            part = y if part is None else part + y
+            v = _packed(aux)
+            st = v if st is None else st + v
+        ys.append(part.reshape(rows, s, d))
+        st = st / model
+        stats = st if stats is None else stats + st
+    if data > 1:
+        stats = torch.cat([stats[:1] / data, stats[1:]])
+    return torch.cat(ys), _unpacked(stats)

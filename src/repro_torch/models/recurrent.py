@@ -514,7 +514,14 @@ def slstm_seq(heads: int, r: torch.Tensor, wxb: torch.Tensor,
     """hs (B, T, D) from pre-activations wxb (B, T, 4D) and the conv branch
     xc (B, T, D), from the zero state. All fp32; r: (4, H, hd, hd).
     Differentiable by ``repro``'s custom VJP (``_SLSTMSeq``) where autograd
-    is recording; the bare loop elsewhere."""
+    is recording; the bare loop elsewhere. On ``meta`` (the dry run) the
+    shape alone, with the loop's recurrent products as one time-batched
+    product of the same operations."""
+    if wxb.is_meta:
+        b, t, d4 = wxb.shape
+        torch.einsum("bthj,ghjk->gbthk",
+                     wxb.new_empty((b, t, heads, d4 // 4 // heads)), r)
+        return wxb.new_empty((b, t, d4 // 4))
     if recording(r, wxb, xc):
         return _SLSTMSeq.apply(heads, r, wxb, xc)
     return _slstm_loop(heads, r, wxb, xc)[0]

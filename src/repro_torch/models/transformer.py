@@ -17,7 +17,19 @@ the recurrent blocks ``MAMBA2``, ``MLSTM`` and ``SLSTM``
 attention block (one parameter set, ``params["shared_attn"]``, applied at
 many depths to the concatenation of the stream and the embedded input),
 the VLM patch-embedding prefix and MusicGen's multi-codebook embedding and
-readout. Sharding over a mesh raises naming ROADMAP §1 item 10.4.
+readout.
+
+Over a device mesh (a ``MeshCtx``, `repro_torch.sharding`) ``forward``,
+``forward_hidden`` and ``decode_step`` run as one program a rank: the
+inputs are the global batch, of which the rank takes its rows; its
+parameters and caches are its blocks (``init_params(..., ctx=)``,
+``init_caches(..., ctx=)``); each layer gathers its leaves over the data
+axes when it runs, computes its heads, FFN columns or experts, and sums
+the partials over ``model``; the embedding is vocab-parallel (a masked
+lookup of the rank's vocabulary range, summed over ``model``) and the
+logits are gathered over ``model``. The recurrent blocks and zamba2's
+shared block run whole on each rank (ROADMAP §1 item 10.6). Training
+over a mesh and ``seq_shard`` raise naming item 10.5.
 
 Training runs on the fp32 masters (``init_params``), each weight cast to
 ``cfg.dtype`` at its use, so the gradients reach the masters in fp32;
@@ -48,7 +60,9 @@ from repro_torch.models.layers import (Params, apply_mlp, apply_norm,
                                        checkpointed, compute_dtype, mlp_init,
                                        norm_init, rounded, sinusoidal,
                                        softcap, truncated_normal)
-from repro_torch.models.moe import mesh_not_ported
+from repro_torch.sharding.ctx import (RankPlan, ShardedCaches,
+                                      check_mesh_ctx, ctx_param_specs)
+from repro_torch.sharding.rules import cache_specs, shard_tree
 
 AuxDict = Dict[str, torch.Tensor]
 
@@ -61,10 +75,18 @@ KEEP_FP32 = frozenset({"norm", "norm1", "norm2", "norm1_post", "norm2_post",
                        "norm_scale", "r"})
 
 
-def check_ctx(ctx=None) -> None:
-    """Raise for a mesh: one card runs with ``ctx=None``."""
-    if ctx is not None:
-        raise mesh_not_ported()
+def check_ctx(ctx=None, *, training: bool = False):
+    """None for one card, else the ``MeshCtx``: serving runs over a mesh;
+    training over one and ``seq_shard`` raise naming ROADMAP §1 item
+    10.5."""
+    return check_mesh_ctx(ctx, training=training)
+
+
+def mesh_plan(cfg: ModelConfig, ctx, batch: int) -> Optional[RankPlan]:
+    """The rank's plan of a call with a global batch of ``batch`` rows
+    (None for one card)."""
+    ctx = check_ctx(ctx)
+    return None if ctx is None else RankPlan(cfg, ctx, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +184,7 @@ def shared_attn_init(cfg: ModelConfig, *, generator, device) -> Params:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
-                cast: bool = False) -> Params:
+                cast: bool = False, ctx=None) -> Params:
     """Fresh parameters in ``cfg.param_dtype`` (fp32) from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA unless
     named): ``repro``'s shapes and distributions, not its draws. One dict
@@ -171,33 +193,59 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 
     ``cast`` returns the compute copy instead, each array cast as soon as
     it is drawn (one fp32 layer at a time beside the copy): the same
-    draws, bit-equal to ``cast_params(cfg, init_params(cfg, seed))``."""
+    draws, bit-equal to ``cast_params(cfg, init_params(cfg, seed))``.
+
+    ``ctx`` (a ``MeshCtx``) keeps the rank's blocks alone
+    (`repro_torch.sharding.shard_tree` under ``param_specs``): each array
+    or layer is drawn whole, as without it, cut, and freed, so no rank
+    holds the whole model. On ``meta`` the shapes alone."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     draw = dict(generator=gen, device=device)
     dtype = compute_dtype(cfg)
+    ctx = check_ctx(ctx)
+    specs = None if ctx is None else ctx_param_specs(cfg, ctx)
 
-    def done(node, key=None):
-        return _cast_tree(node, dtype, key) if cast else node
+    def done(node, key=None, spec_key=None):
+        node = _cast_tree(node, dtype, key) if cast else node
+        if specs is None:
+            return node
+        spec = specs[spec_key] if not isinstance(spec_key, tuple) \
+            else specs[spec_key[0]][spec_key[1]]
+        return shard_tree(ctx.mesh, node, spec, ctx.comm.coords)
 
     d, v = cfg.d_model, cfg.vocab_size
     params: Params = {}
     if cfg.modality == "audio":
         params["embed"] = done(truncated_normal((cfg.num_codebooks, v, d),
-                                                d ** -0.5, **draw))
+                                                d ** -0.5, **draw),
+                               spec_key="embed")
         params["heads"] = done(truncated_normal((cfg.num_codebooks, d, v),
-                                                d ** -0.5, **draw))
+                                                d ** -0.5, **draw),
+                               spec_key="heads")
     else:
-        params["embed"] = done(truncated_normal((v, d), d ** -0.5, **draw))
+        params["embed"] = done(truncated_normal((v, d), d ** -0.5, **draw),
+                               spec_key="embed")
         if not cfg.tie_embeddings:
             params["lm_head"] = done(truncated_normal((d, v), d ** -0.5,
-                                                      **draw))
+                                                      **draw),
+                                     spec_key="lm_head")
     params["final_norm"] = norm_init(cfg, d, device)
     if MAMBA2_SHARED in cfg.pattern:
-        params["shared_attn"] = done(shared_attn_init(cfg, **draw))
-    params["layers"] = [done(layer_init(cfg, kind, **draw))
-                        for kind in cfg.pattern]
+        params["shared_attn"] = done(shared_attn_init(cfg, **draw),
+                                     spec_key="shared_attn")
+    params["layers"] = [done(layer_init(cfg, kind, **draw),
+                             spec_key=("layers", i))
+                        for i, kind in enumerate(cfg.pattern)]
     return params
+
+
+@functools.lru_cache(maxsize=32)
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The full parameter tree of ``cfg`` on ``meta`` (shapes and dtypes,
+    no storage): what the placement rules read."""
+    return init_params(cfg, device="meta")
 
 
 def _cast_tree(node, dtype, key=None):
@@ -230,19 +278,47 @@ def _zero_aux(cfg: ModelConfig, device) -> AuxDict:
             "dropped": torch.zeros((), device=device)}
 
 
-def _embed(cfg: ModelConfig, params: Params,
-           batch: Dict[str, torch.Tensor],
-           dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B, S, D), positions (S,)). Rows are gathered, then cast:
-    ``repro`` casts the whole table first, the same bits."""
-    tokens = batch["tokens"]
+def _lookup(cfg: ModelConfig, params: Params, tokens: torch.Tensor, dtype,
+            plan: Optional[RankPlan] = None) -> torch.Tensor:
+    """The embedded tokens ((B, S) or (B,) ids, MusicGen's with a
+    codebook axis last), cast to ``dtype``. Rows are gathered, then cast:
+    ``repro`` casts the whole table first, the same bits. Over a mesh the
+    table is gathered over the data axes; where its vocabulary is sharded
+    over ``model`` each rank looks up the ids in its range (the others
+    exact zeros) and the ranks' rows are summed."""
     emb = params["embed"]
+    vdim = 1 if cfg.modality == "audio" else 0
+    v0 = None
+    if plan is not None:
+        spec = plan.specs["embed"]
+        emb = plan.gather_data(emb, spec)
+        if plan.model_sharded(spec, vdim):
+            v0 = plan.m * emb.shape[vdim]
+
+    def rows(table, ids):
+        if v0 is None:
+            return table[ids].to(dtype)
+        local = ids - v0
+        mine = (local >= 0) & (local < table.shape[0])
+        got = table[local.clamp(0, table.shape[0] - 1)].to(dtype)
+        return torch.where(mine[..., None], got, torch.zeros((), dtype=dtype,
+                                                             device=got.device))
+
     if cfg.modality == "audio":
-        # tokens: (B, S, C) — sum the codebook embeddings
-        x = sum(emb[c][tokens[..., c]].to(dtype)
+        # tokens: (..., C) — sum the codebook embeddings
+        x = sum(rows(emb[c], tokens[..., c])
                 for c in range(cfg.num_codebooks))
     else:
-        x = emb[tokens].to(dtype)                            # (B, S, D)
+        x = rows(emb, tokens)
+    return x if v0 is None else plan.msum(x)
+
+
+def _embed(cfg: ModelConfig, params: Params,
+           batch: Dict[str, torch.Tensor], dtype,
+           plan: Optional[RankPlan] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B, S, D), positions (S,))."""
+    x = _lookup(cfg, params, batch["tokens"], dtype, plan)   # (B, S, D)
     if cfg.scale_embeddings:
         x = x * rounded(cfg.d_model ** 0.5, dtype)
     if cfg.modality == "vision" and "vision_embeds" in batch:
@@ -254,19 +330,30 @@ def _embed(cfg: ModelConfig, params: Params,
     return x, positions
 
 
-def _readout(cfg: ModelConfig, params: Params,
-             x: torch.Tensor) -> torch.Tensor:
+def _readout(cfg: ModelConfig, params: Params, x: torch.Tensor,
+             plan: Optional[RankPlan] = None) -> torch.Tensor:
+    """The logits of x. Over a mesh the head is gathered over the data
+    axes; where its vocabulary is sharded over ``model`` each rank computes
+    its range and the ranks' logits are gathered."""
     dt = x.dtype
     x = apply_norm(cfg, params["final_norm"], x)
+    name = "heads" if cfg.modality == "audio" else \
+        "embed" if cfg.tie_embeddings else "lm_head"
+    w, vdim = params[name], {"heads": 2, "embed": 0, "lm_head": 1}[name]
+    sharded = False
+    if plan is not None:
+        w = plan.gather_data(w, plan.specs[name])
+        sharded = plan.model_sharded(plan.specs[name], vdim)
     if cfg.modality == "audio":
-        logits = torch.einsum("bsd,cdv->bscv", x, params["heads"].to(dt))
+        logits = torch.einsum("bsd,cdv->bscv", x, w.to(dt))
     elif cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(dt))
+        logits = torch.einsum("bsd,vd->bsv", x, w.to(dt))
     else:
-        logits = x @ params["lm_head"].to(dt)
+        logits = x @ w.to(dt)
     if cfg.logit_scale != 1.0:
         logits = logits * rounded(cfg.logit_scale, dt)
-    return softcap(logits, cfg.final_logit_softcap)
+    logits = softcap(logits, cfg.final_logit_softcap)
+    return plan.mgather(logits, logits.ndim - 1) if sharded else logits
 
 
 def _acc_aux(a: AuxDict, b: AuxDict) -> AuxDict:
@@ -282,39 +369,60 @@ def _shared_block(cfg: ModelConfig, shared: Params, x: torch.Tensor,
         @ shared["in_proj"].to(x.dtype)
 
 
+def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None,
+         reduce: bool = True) -> Tuple[torch.Tensor, bool]:
+    """The MLP on x, and whether the result is a model rank's partial sum
+    (its F columns; summed here unless ``reduce`` is off)."""
+    h = apply_mlp(cfg, p, x)
+    partial = tp is not None and tp.mlp_sharded()
+    if partial and reduce:
+        return tp.msum(h), False
+    return h, partial
+
+
+def _attn_out(h: torch.Tensor, heads, tp, reduce: bool = True):
+    partial = heads is not None and heads.reduce
+    if partial and reduce:
+        return tp.msum(h), False
+    return h, partial
+
+
 def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None, *,
                 emb0: Optional[torch.Tensor] = None,
                 shared: Optional[Params] = None,
-                attention: Optional[str] = None
+                attention: Optional[str] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[AuxDict]]:
     """Full-sequence application of one block. x: (B, S, D). Returns the
     new x and, for a MoE block, its aux statistics (None otherwise: the
-    zeros ``repro`` adds change no sum)."""
+    zeros ``repro`` adds change no sum). ``tp``: a model rank's
+    ``LayerPlan`` (``p`` then its leaves gathered over the data axes)."""
     window = effective_window(cfg, kind)
+    heads = None if tp is None else tp.heads()
     if kind in (ATTN, ATTN_LOCAL, MOE):
         h = attn_mod.attention_train(cfg, p["attn"],
                                      apply_norm(cfg, p["norm1"], x),
                                      window=window, positions=positions,
-                                     attention=attention)
+                                     attention=attention, heads=heads)
+        h, _ = _attn_out(h, heads, tp)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm1_post"], h)
         x = x + h
         hin = apply_norm(cfg, p["norm2"], x)
         aux = None
         if kind == MOE:
-            h, aux = moe_mod.moe_ffn(cfg, p["moe"], hin)
+            h, aux = moe_mod.moe_ffn(cfg, p["moe"], hin, tp)
         else:
-            h = apply_mlp(cfg, p["mlp"], hin)
+            h, _ = _mlp(cfg, p["mlp"], hin, tp)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
         return x + h, aux
     if kind == ATTN_PARALLEL:
         n = apply_norm(cfg, p["norm"], x)
-        return (x + attn_mod.attention_train(cfg, p["attn"], n, window=window,
-                                             positions=positions,
-                                             attention=attention)
-                + apply_mlp(cfg, p["mlp"], n)), None
+        a = attn_mod.attention_train(cfg, p["attn"], n, window=window,
+                                     positions=positions,
+                                     attention=attention, heads=heads)
+        return x + _parallel_sum(cfg, p, a, n, heads, tp), None
     if kind in (MAMBA2, MAMBA2_SHARED):
         x = x + rec_mod.mamba2_train(cfg, p["mamba"],
                                      apply_norm(cfg, p["norm"], x))
@@ -335,26 +443,55 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     raise ValueError(kind)
 
 
+def _parallel_sum(cfg: ModelConfig, p: Params, a: torch.Tensor,
+                  n: torch.Tensor, heads, tp) -> torch.Tensor:
+    """An ATTN_PARALLEL block's attention plus MLP on its normed input
+    ``n``: over a mesh the two partial sums reduced over ``model`` in one
+    collective where both are partial."""
+    a, a_part = _attn_out(a, heads, tp, reduce=False)
+    m, m_part = _mlp(cfg, p["mlp"], n, tp, reduce=False)
+    if a_part and m_part:
+        return tp.msum(a + m)
+    return (tp.msum(a) if a_part else a) + (tp.msum(m) if m_part else m)
+
+
+def _batch_rows(batch: Dict[str, torch.Tensor]) -> int:
+    return int(batch["tokens"].shape[0])
+
+
 def forward_hidden(cfg: ModelConfig, params: Params,
                    batch: Dict[str, torch.Tensor], ctx=None, *,
-                   attention: Optional[str] = None
+                   attention: Optional[str] = None, plan=None
                    ) -> Tuple[torch.Tensor, AuxDict]:
     """Full-sequence forward up to (but not including) the readout, and
     the MoE layers' aux statistics summed over the layers. ``attention``
     picks the prefill attention's route
     (`repro_torch.models.attention.attention_route`). Where autograd
-    records and ``cfg.remat`` is set, each layer is checkpointed."""
-    check_ctx(ctx)
-    x, positions = _embed(cfg, params, batch, compute_dtype(cfg))
+    records and ``cfg.remat`` is set, each layer is checkpointed.
+
+    With a ``MeshCtx`` ``batch`` is the global batch and the result the
+    rank's rows (``plan``: the rank's plan of the call, made here unless
+    given)."""
+    if plan is None:
+        plan = mesh_plan(cfg, ctx, _batch_rows(batch))
+    if plan is not None:
+        batch = plan.local_batch(batch)
+    x, positions = _embed(cfg, params, batch, compute_dtype(cfg), plan)
     emb0 = x if MAMBA2_SHARED in cfg.pattern else None
     shared = params.get("shared_attn")
+    if plan is not None and shared is not None:
+        shared = plan.shared_block(shared)
     aux = _zero_aux(cfg, x.device)
     layer = functools.partial(apply_layer, cfg, positions=positions,
                               emb0=emb0, shared=shared, attention=attention)
     if cfg.remat and recording(x):
         layer = checkpointed(layer)
-    for kind, p in zip(cfg.pattern, params["layers"], strict=True):
-        x, ai = layer(kind, p, x)
+    for i, (kind, p) in enumerate(zip(cfg.pattern, params["layers"],
+                                      strict=True)):
+        tp = None
+        if plan is not None:
+            p, tp = plan.layer(i, kind, p)
+        x, ai = layer(kind, p, x, tp=tp)
         if ai is not None:
             aux = _acc_aux(aux, ai)
     return x, aux
@@ -363,9 +500,12 @@ def forward_hidden(cfg: ModelConfig, params: Params,
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             ctx=None, *, attention: Optional[str] = None
             ) -> Tuple[torch.Tensor, AuxDict]:
-    """Full-sequence forward. Returns (logits, aux)."""
-    x, aux = forward_hidden(cfg, params, batch, ctx, attention=attention)
-    return _readout(cfg, params, x), aux
+    """Full-sequence forward. Returns (logits, aux); over a mesh the
+    rank's rows of the logits, every vocabulary entry."""
+    plan = mesh_plan(cfg, ctx, _batch_rows(batch))
+    x, aux = forward_hidden(cfg, params, batch, ctx, attention=attention,
+                            plan=plan)
+    return _readout(cfg, params, x, plan), aux
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +525,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     logits never exist. ``ce = Σ nll / max(#labels, 1)``; a pattern with
     MoE layers adds ``lb_coef · lb_loss / n_moe``. The labels are (B, S),
     MusicGen's (B, S, C); a VLM's cover its patch prefix too."""
-    hidden, aux = forward_hidden(cfg, params, batch, ctx, attention="plain")
+    check_ctx(ctx, training=True)
+    hidden, aux = forward_hidden(cfg, params, batch, attention="plain")
     labels = batch["labels"]
     b, s = hidden.shape[:2]
     c = min(loss_chunk, s)
@@ -421,14 +562,25 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
-                dtype=torch.bfloat16, device=None) -> List:
+                dtype=torch.bfloat16, device=None, ctx=None) -> List:
     """One cache a layer: a ring-buffer ``KVCache`` of ``cache_len`` slots
     (or the layer's window where that is shorter) for the attention and
     MoE blocks in ``dtype``; a ``Mamba2Cache``, ``MLSTMCache`` or
     ``SLSTMCache`` in fp32 for the recurrent ones, as ``repro`` makes
     them; for ``MAMBA2_SHARED`` the pair (``Mamba2Cache``, the shared
-    block's full ``KVCache``)."""
+    block's full ``KVCache``).
+
+    ``ctx`` (a ``MeshCtx``): the rank's blocks under ``cache_specs``, as
+    ``ShardedCaches``; the full caches are never made."""
     device = resolve_device(device)
+    ctx = check_ctx(ctx)
+    if ctx is not None:
+        full = init_caches(cfg, batch_size, cache_len, dtype,
+                           torch.device("meta"))
+        specs = cache_specs(ctx.mesh, cfg, full)
+        shapes = shard_tree(ctx.mesh, full, specs, ctx.comm.coords)
+        local = _fill_like(full, shapes, device)
+        return ShardedCaches(local, specs, batch_size)
 
     def one(kind):
         if kind in (ATTN, ATTN_LOCAL, ATTN_PARALLEL, MOE):
@@ -451,31 +603,62 @@ def init_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
     return [one(kind) for kind in cfg.pattern]
 
 
+def _fill_like(full, blocks, device):
+    """Fresh cache leaves of the block shapes: the ring buffers' slot
+    positions −1, everything else 0, as ``init_caches`` makes them."""
+    def walk(f, b, field=None):
+        if isinstance(f, attn_mod.KVCache):
+            return attn_mod.KVCache(*(walk(x, y, n) for x, y, n in
+                                      zip(f, b, f._fields)))
+        if isinstance(f, tuple):
+            parts = [walk(x, y) for x, y in zip(f, b)]
+            return type(f)(*parts) if hasattr(f, "_fields") \
+                else tuple(parts)
+        if isinstance(f, list):
+            return [walk(x, y) for x, y in zip(f, b)]
+        return torch.full(b.shape, -1 if field == "slot_pos" else 0,
+                          dtype=f.dtype, device=device)
+    return walk(full, blocks)
+
+
+def shard_caches(cfg: ModelConfig, ctx, caches, batch_size: int
+                 ) -> ShardedCaches:
+    """The rank's blocks of full caches (``init_caches`` without a mesh,
+    or a converted ``repro`` cache), as ``ShardedCaches``."""
+    ctx = check_ctx(ctx)
+    specs = cache_specs(ctx.mesh, cfg, caches)
+    return ShardedCaches(shard_tree(ctx.mesh, caches, specs,
+                                    ctx.comm.coords), specs, batch_size)
+
+
 def apply_layer_decode(cfg: ModelConfig, kind: str, p: Params,
                        x: torch.Tensor, cache, pos: torch.Tensor,
                        emb0: Optional[torch.Tensor] = None,
-                       shared: Optional[Params] = None):
+                       shared: Optional[Params] = None, tp=None):
     """x: (B, 1, D); pos: (B,) absolute positions. Returns the new x and
     the layer's cache: a ``KVCache`` written in place, a recurrent state
-    as a new named tuple."""
+    as a new named tuple. ``tp``: a model rank's ``LayerPlan``; ``cache``
+    then holds the KV heads its ``wk`` projects."""
     window = effective_window(cfg, kind)
+    heads = None if tp is None else tp.heads()
     if kind == ATTN_PARALLEL:
         n = apply_norm(cfg, p["norm"], x)
         h, cache = attn_mod.attention_decode(cfg, p["attn"], n, cache, pos,
-                                             window)
-        return x + h + apply_mlp(cfg, p["mlp"], n), cache
+                                             window, heads)
+        return x + _parallel_sum(cfg, p, h, n, heads, tp), cache
     if kind in (ATTN, ATTN_LOCAL, MOE):
         h, cache = attn_mod.attention_decode(
             cfg, p["attn"], apply_norm(cfg, p["norm1"], x), cache, pos,
-            window)
+            window, heads)
+        h, _ = _attn_out(h, heads, tp)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm1_post"], h)
         x = x + h
         hin = apply_norm(cfg, p["norm2"], x)
         if kind == MOE:
-            h, _ = moe_mod.moe_ffn(cfg, p["moe"], hin)
+            h, _ = moe_mod.moe_ffn(cfg, p["moe"], hin, tp)
         else:
-            h = apply_mlp(cfg, p["mlp"], hin)
+            h, _ = _mlp(cfg, p["mlp"], hin, tp)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
         return x + h, cache
@@ -504,31 +687,63 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p: Params,
     raise ValueError(kind)
 
 
+def _decode_layer(cfg: ModelConfig, plan: RankPlan, i: int, kind: str,
+                  p: Params, x: torch.Tensor, cache, cspec, pos, emb0,
+                  shared):
+    """One decode layer on a rank: its parameters gathered, its cache
+    gathered where the rank does not hold what the layer reads (the ring
+    buffer's W blocks; a recurrent state's sharded dims), the layer run,
+    and the rank's blocks of the cache kept (the new slot written by the
+    rank that holds it)."""
+    p, tp = plan.layer(i, kind, p)
+    # attention reads its own heads: gather W only; a block run whole
+    # gathers every dim past the batch
+    dims = {1} if tp is not None else None
+    work = plan.cache_gather(cache, cspec, dims)
+    x, work = apply_layer_decode(cfg, kind, p, x, work, pos, emb0, shared,
+                                 tp)
+    in_place = isinstance(cache, attn_mod.KVCache)
+    return x, plan.cache_block(cache, work, cspec, dims, in_place)
+
+
 def decode_step(cfg: ModelConfig, params: Params, caches,
                 tokens: torch.Tensor, pos: torch.Tensor, ctx=None):
     """One-token decode. tokens: (B,) (or (B, C) audio); pos: (B,).
 
     Returns (logits (B, V) or (B, C, V), the new caches: one a layer, the
-    KV caches written in place, the recurrent states new).
+    KV caches written in place, the recurrent states new). With a
+    ``MeshCtx``: ``tokens`` and ``pos`` global, ``caches`` the rank's
+    ``ShardedCaches``; the logits are the rank's rows.
     """
-    check_ctx(ctx)
+    plan = mesh_plan(cfg, ctx, int(tokens.shape[0]))
+    if plan is not None:
+        if not isinstance(caches, ShardedCaches) \
+                or caches.batch != plan.batch:
+            raise ValueError("over a mesh decode_step takes the rank's "
+                             "ShardedCaches of the same global batch "
+                             "(init_caches(..., ctx=) or shard_caches)")
+        tokens, pos = plan.local_rows(tokens), plan.local_rows(pos)
     dtype = compute_dtype(cfg)
-    emb = params["embed"]
-    if cfg.modality == "audio":
-        x = sum(emb[c][tokens[:, c]].to(dtype)
-                for c in range(cfg.num_codebooks))[:, None]
-    else:
-        x = emb[tokens].to(dtype)[:, None]                  # (B, 1, D)
+    x = _lookup(cfg, params, tokens, dtype, plan)[:, None]  # (B, 1, D)
     if cfg.scale_embeddings:
         x = x * rounded(cfg.d_model ** 0.5, dtype)
     if not cfg.use_rope and cfg.modality == "audio":
         x = x + sinusoidal(pos, cfg.d_model).to(dtype)[:, None]
     emb0 = x if MAMBA2_SHARED in cfg.pattern else None
     shared = params.get("shared_attn")
+    if plan is not None and shared is not None:
+        shared = plan.shared_block(shared)
     new_caches = []
-    for kind, p, cache in zip(cfg.pattern, params["layers"], caches,
-                              strict=True):
-        x, cache = apply_layer_decode(cfg, kind, p, x, cache, pos, emb0,
-                                      shared)
+    for i, (kind, p, cache) in enumerate(zip(cfg.pattern, params["layers"],
+                                             caches, strict=True)):
+        if plan is None:
+            x, cache = apply_layer_decode(cfg, kind, p, x, cache, pos, emb0,
+                                          shared)
+        else:
+            x, cache = _decode_layer(cfg, plan, i, kind, p, x, cache,
+                                     caches.specs[i], pos, emb0, shared)
         new_caches.append(cache)
-    return _readout(cfg, params, x)[:, 0], new_caches
+    logits = _readout(cfg, params, x, plan)[:, 0]
+    if plan is not None:
+        new_caches = ShardedCaches(new_caches, caches.specs, caches.batch)
+    return logits, new_caches

@@ -3,6 +3,11 @@ gradients, optimizer), and the prefill and serve steps.
 
 ``make_prefill_step`` and ``make_serve_step`` return the functions a
 server calls, run under ``torch.inference_mode`` (no autograd state).
+Over a mesh (a ``MeshCtx``) each rank calls them with the global inputs
+and its blocks of the parameters and caches: the prefill returns the
+rank's rows of the last logits, the serve step the global batch's next
+tokens and the rank's rows of the logits. ``make_train_step`` over a mesh
+raises naming ROADMAP §1 item 10.5.
 ``make_train_step`` runs ``T.loss_fn`` with autograd on the fp32 masters
 (``cfg.remat`` checkpoints each layer), then clips, steps the optimizer
 and applies the updates, all in place (`repro_torch.optim`).
@@ -71,7 +76,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, ctx=None,
     (before clipping). The state's parameters and optimizer buffers are
     updated in place and returned in a new ``TrainState``; ``ctx`` (a
     mesh) raises."""
-    T.check_ctx(ctx)
+    T.check_ctx(ctx, training=True)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         metrics, grads = loss_and_grads(cfg, state.params, batch,
@@ -99,8 +104,10 @@ def make_prefill_step(cfg: ModelConfig, ctx=None, *,
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        hidden, _ = T.forward_hidden(cfg, params, batch, attention=attention)
-        return T._readout(cfg, params, hidden[:, -1:])[:, 0]
+        plan = T.mesh_plan(cfg, ctx, T._batch_rows(batch))
+        hidden, _ = T.forward_hidden(cfg, params, batch, attention=attention,
+                                     plan=plan)
+        return T._readout(cfg, params, hidden[:, -1:], plan)[:, 0]
 
     return prefill_step
 
@@ -114,8 +121,11 @@ def make_serve_step(cfg: ModelConfig, ctx=None, greedy: bool = True):
 
     @torch.inference_mode()
     def serve_step(params, caches, tokens, pos):
-        logits, caches = T.decode_step(cfg, params, caches, tokens, pos)
+        logits, caches = T.decode_step(cfg, params, caches, tokens, pos, ctx)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if ctx is not None:
+            plan = T.mesh_plan(cfg, ctx, int(tokens.shape[0]))
+            next_tok = ctx.comm.all_gather(next_tok, 0, plan.batch_axes)
         return next_tok, logits, caches
 
     return serve_step

@@ -1738,3 +1738,87 @@ def test_k9_refuses_autograd_on_cuda(cuda):
         out = ops.flash_mha(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 1 and out.grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# K9 on a mesh rank's heads: the local query heads and the KV heads they
+# read (sharding/rules.py's placements, models/attention.py::head_slice)
+# ---------------------------------------------------------------------------
+
+def _rank_heads(arch, model, m):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models.attention import head_slice
+    from repro_torch.sharding import RankPlan, make_ctx
+    cfg = get_config(arch)
+    ctx = make_ctx(make_abstract_mesh((1, model), ("data", "model")),
+                   coords={"data": 0, "model": m})
+    plan = RankPlan(cfg, ctx, 1)
+    return cfg, plan, head_slice(cfg, plan.specs["layers"][0]["attn"], plan)
+
+
+@pytest.mark.parametrize("arch,model,rep", [
+    ("qwen2.5-3b", 2, 8),          # 8 query heads, its 1 KV head
+    ("qwen2.5-3b", 16, 1),         # 1 query head, KV head m // 8 picked
+    ("deepseek-moe-16b", 2, 1),    # MHA: 8 and 8
+])
+def test_k9_on_a_mesh_ranks_local_heads(cuda, arch, model, rep):
+    """Each model rank's K9 launch over its query heads and the KV heads
+    they read gives the whole launch's output for those heads bit for
+    bit (a head's attention reads no other head), and its twin's at the
+    bf16 bars; the GQA rule bh // rep reaches the right KV head."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import select_kv
+    cfg, _, _ = _rank_heads(arch, model, 0)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(cuda).manual_seed(9)
+    s = 512
+    q = torch.randn((1, s, h, hd), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, s, kv, hd), generator=gen, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    with torch.inference_mode():
+        whole = ops.flash_mha(q, k, v, causal=True)
+        hl = h // model
+        for m in range(model):
+            _, plan, heads = _rank_heads(arch, model, m)
+            assert heads.reduce
+            qm = q[:, :, m * hl:(m + 1) * hl]
+            if plan.model_sharded(plan.specs["layers"][0]["attn"]["wk"], 1):
+                kl = kv // model
+                km, vm = (t[:, :, m * kl:(m + 1) * kl] for t in (k, v))
+            else:
+                km, vm = select_kv(k, heads.kv), select_kv(v, heads.kv)
+            assert qm.shape[2] // km.shape[2] == rep
+            fa.reset_launches()
+            got = ops.flash_mha(qm, km, vm, causal=True)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES["flash_attention"] == 1
+            assert torch.equal(got, whole[:, :, m * hl:(m + 1) * hl])
+            flat = [t[0].transpose(0, 1).contiguous() for t in (qm, km, vm)]
+            want = fa.flash_attention_plain(*flat, causal=True)
+            torch.testing.assert_close(got[0].transpose(0, 1).float(),
+                                       want.float(), rtol=2.0 ** -7,
+                                       atol=1e-3)
+
+
+def test_k9_meta_path_allocates_on_meta_only(cuda, monkeypatch):
+    """The dry run's K9: on meta tensors the wrapper allocates the output
+    on meta, counts the launch and its operations, and touches neither
+    the kernel library nor the card's memory."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(build, "load", lambda *a, **k: pytest.fail(
+        "the meta path built the kernel"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    q = torch.empty((16, 4096, 128), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((2, 4096, 128), dtype=torch.bfloat16, device="meta")
+    fa.reset_launches()
+    with torch.inference_mode():
+        out = fa.flash_attention(q, k, k, causal=True)
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.FLOPS["flash_attention"] == 4.0 * 128 * 16 * 4096 * 4097 / 2
+    assert torch.cuda.memory_allocated() == before

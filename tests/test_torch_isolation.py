@@ -120,6 +120,19 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.convert import (lm_train_state_from_repro,
                                          lm_train_state_to_repro)
         from repro_torch.launch.train import lm_batch, main_lm, make_iag_step
+        # the LM over a mesh: the rules, the context and its collectives,
+        # the sharded entry points, the dry run and its cost counter
+        from repro_torch.sharding import (MeshCtx, RankPlan, ShardedCaches,
+                                          Spec, batch_specs, cache_specs,
+                                          make_ctx, param_specs, shard_tree,
+                                          unshard_tree)
+        from repro_torch.sharding.comm import (LiveCollectives,
+                                               MetaCollectives)
+        from repro_torch.models.moe import moe_block_emulated
+        from repro_torch.models.transformer import (param_shapes,
+                                                    shard_caches)
+        from repro_torch.launch.dryrun import input_specs, rank_step, run_pair
+        from repro_torch.launch.cost import count_step, tree_bytes
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -164,7 +177,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.configs.zamba2_1_2b", "repro_torch.training",
                  "repro_torch.training.steps", "repro_torch.checkpoint.io",
                  "repro_torch.launch.serve", "repro_torch.optim",
-                 "repro_torch.optim.optimizers", "repro_torch.tree"):
+                 "repro_torch.optim.optimizers", "repro_torch.tree",
+                 "repro_torch.sharding", "repro_torch.sharding.rules",
+                 "repro_torch.sharding.comm", "repro_torch.sharding.ctx",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.cost"):
         assert name in got["modules"]
 
 

@@ -663,19 +663,37 @@ def test_npz_recurrent_caches_both_ways(arch, tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_mesh_and_training_raise_naming_their_item():
+    """Serving runs over a ``MeshCtx`` (ROADMAP §1 item 10.4; the sharded
+    model against ``repro``'s is ``tests/test_torch_lm_mesh.py``): on a
+    (1, 1) mesh it computes ctx=None's bits. Training over a mesh and the
+    ``seq_shard`` lever raise naming item 10.5; anything but a
+    ``MeshCtx`` is refused."""
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.sharding import make_ctx
     _, cfg = _reduced("qwen2.5-3b")
-    ctx = object()    # any MeshCtx
-    for call in (lambda: TT.forward(cfg, {}, {}, ctx),
-                 lambda: TT.decode_step(cfg, {}, [], None, None, ctx),
-                 lambda: make_prefill_step(cfg, ctx),
-                 lambda: make_serve_step(cfg, ctx)):
-        with pytest.raises(NotImplementedError, match="item 10.4"):
-            call()
-    # training is ported (item 10.3); over a mesh it raises as serving does
+    ctx = make_ctx(make_abstract_mesh((1, 1), ("data", "model")))
+    params = TT.init_params(cfg, 0, device=CPU)
+    batch = {"tokens": torch.arange(B * S).reshape(B, S) % cfg.vocab_size}
+    with torch.inference_mode():
+        assert torch.equal(TT.forward(cfg, params, batch, ctx)[0],
+                           TT.forward(cfg, params, batch)[0])
+        assert torch.equal(make_prefill_step(cfg, ctx)(params, batch),
+                           make_prefill_step(cfg)(params, batch))
+    make_serve_step(cfg, ctx)
     for call in (lambda: make_train_step(cfg, None, ctx),
                  lambda: TT.loss_fn(cfg, {}, {}, ctx)):
-        with pytest.raises(NotImplementedError, match="item 10.4"):
+        with pytest.raises(NotImplementedError, match="item 10.5"):
             call()
+    seq = ctx._replace(seq_shard=True)
+    for call in (lambda: TT.forward(cfg, params, batch, seq),
+                 lambda: TT.decode_step(cfg, params, [], batch["tokens"][:, 0],
+                                        None, seq),
+                 lambda: make_prefill_step(cfg, seq),
+                 lambda: make_serve_step(cfg, seq)):
+        with pytest.raises(NotImplementedError, match="item 10.5"):
+            call()
+    with pytest.raises(TypeError, match="MeshCtx"):
+        TT.forward(cfg, params, batch, object())
 
 
 def test_entry_points_run_on_cuda_unless_told():

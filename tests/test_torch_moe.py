@@ -163,9 +163,28 @@ def test_routed_sum_in_ascending_expert_order_and_deterministic(arch, rng):
 
 
 def test_moe_mesh_raises_naming_its_item():
+    """The MoE block serves over a mesh (ROADMAP §1 item 10.4): on a
+    rank's plan of a (1, 1) mesh it is ctx=None's block bit for bit, and
+    ``moe_block_emulated`` at (1, 1) too. Training over a mesh raises
+    naming item 10.5 (``mesh_not_ported``)."""
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.sharding import RankPlan, make_ctx
+    from repro_torch.sharding.ctx import LayerPlan
     _, ct, _, pt = _moe("deepseek-moe-16b")
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        TM.moe_ffn(ct, pt, torch.zeros(1, 2, ct.d_model), ctx=object())
+    x = torch.randn(2, 8, ct.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    ctx = make_ctx(make_abstract_mesh((1, 1), ("data", "model")))
+    cfg = dataclasses.replace(ct, num_layers=2, layer_pattern=("moe",) * 2)
+    plan = RankPlan(cfg, ctx, 2)
+    y0, aux0 = TM.moe_ffn(ct, pt, x)
+    for y, aux in (TM.moe_ffn(ct, pt, x,
+                              LayerPlan(plan, plan.specs["layers"][0])),
+                   TM.moe_block_emulated(ct, pt, x, data=1, model=1)):
+        assert torch.equal(y, y0)
+        assert all(torch.equal(aux[k], aux0[k]) for k in aux0)
+    assert "item 10.5" in str(TM.mesh_not_ported())
+    with pytest.raises(NotImplementedError, match="item 10.5"):
+        TT.loss_fn(cfg, {}, {}, ctx)
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
