@@ -258,8 +258,8 @@ and the LM template over a device mesh, after it:
                host copies), each rank building only its blocks, layer by
                layer: Qwen2.5-3B unreduced in bf16, a prefill at B = 2, S
                = 4,096 (K9 36 times on every rank, over its 8 query heads
-               and its KV head) and 4 decode steps at B = 4 after a
-               2-token prompt (no K9), the ranks' rows of the last logits
+               and its KV head) and 1 decode step at B = 4 after a
+               1-token prompt (no K9), the ranks' rows of the last logits
                against the unsharded model here at its bf16 bar; the same
                at 4 layers in fp32 at 1e-3; DeepSeekMoE-16B's first 4
                layers (32 experts a model rank), the first MoE block
@@ -267,7 +267,18 @@ and the LM template over a device mesh, after it:
                counts and drops exactly; each rank's argument and
                collective bytes equal to the meta dry run's
                (launch/dryrun.py), max_memory_allocated beside its peak;
-               then 1 NCCL rank at (1, 1), bit-equal to ctx=None
+               then 1 NCCL rank at (1, 1), bit-equal to ctx=None. Then
+               in the same ranks, training over the mesh (lm_mesh_train):
+               (a) Qwen2.5-3B unreduced, bf16 over fp32 masters, remat,
+               AdamW, clip 1.0, S = 4,096, B = 2, 2 steps; (b) the NCCL
+               rank's (1, 1) step bit-equal to ctx=None, and the (2, 2)
+               loss, grad norm and layer 0's and the last layer's
+               gradients against its unsharded step; (c) 4 layers in fp32,
+               every gradient and parameter against the unsharded step,
+               microbatches 2 and seq_shard against 1, at 1e-3; (d)
+               DeepSeekMoE-16B's first 4 layers, 2 steps at S = 1,024;
+               every step's bytes by kind equal to the dry run's, no K9
+               launch
 Then the ``kernels`` summary line (K9's row with ``launches_lm``,
 ``launches_lm_moe``, ``launches_lm_recurrent`` and ``launches_lm_mesh``)
 and, last, the ``ok`` line.
@@ -342,7 +353,13 @@ LIBRARY_REL_L2 = 2.0 ** -7
 STREAM_BAR = 2e-4
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        # when the phase ended, in seconds from the script's start
+        obj = dict(obj, t_end_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -4000,12 +4017,12 @@ LM_XLSTM_WIDTH = (48, 2048)        # its (layers, d_model)
 # 512-token prefill read 3.54 s and ~336k launches on an NVIDIA H100 80GB
 # HBM3 at 700 W, PR 26)
 LM_XLSTM_S = 256
-# ... and its depth in serving, cut from 48 layers to the first 24 (12
-# mLSTM, 12 sLSTM, at full width) to keep the script near half its time
-# limit with the training phase after it: at 48 layers and 256 tokens the
-# model's serving checks took 157 s of a 735 s script (NVIDIA H100 80GB
-# HBM3 at 700 W), most of it the profiled sLSTM loops
-LM_XLSTM_LAYERS = 24
+# ... and its depth in serving, cut from 48 layers to the first 12 (6
+# mLSTM, 6 sLSTM, at full width) to keep the script inside its time limit
+# with the mesh training after it: at 48 layers and 256 tokens the
+# model's serving checks took 157 s of a 735 s script, at 24 ~80 s
+# (NVIDIA H100 80GB HBM3 at 700 W), most of it the profiled sLSTM loops
+LM_XLSTM_LAYERS = 12
 # each model's bf16 agreement bar: the last logits of the whole prefill
 # through K9 (fp32 scores) against the plain route's, and the serve
 # step's at the last of 16 prompt tokens (fp32 caches) against the
@@ -5149,15 +5166,16 @@ def phase_lm_train(device):
 LM_MESH = (2, 2)               # (data, model): 4 gloo ranks on the one card
 LM_MESH_PREFILL = (2, 4096)    # (B, S): one sequence a data rank
 # (B, prompt tokens, decode steps): each step re-gathers every weight a
-# rank holds over gloo (1.70 GB a rank at Qwen2.5-3B's width, ~6 s a step
+# rank holds over gloo (1.70 GB a rank at Qwen2.5-3B's width, ~5 s a step
 # on an NVIDIA H100 80GB HBM3 at 700 W); the prompt cut from 16 tokens to
-# 2 for the script's time
-LM_MESH_DECODE = (4, 2, 4)
+# 2 and then 1, the steps from 4 to 1, for the script's time once the
+# mesh training runs in the same ranks
+LM_MESH_DECODE = (4, 1, 1)
 LM_MESH_FP32_LAYERS = 4
 # DeepSeekMoE-16B's first 4 layers (one dense, three MoE), its prefill
 LM_MESH_MOE_LAYERS = 4
 LM_MESH_MOE_S = 1024
-LM_MESH_SPAWN_S = 600.0        # a spawn's whole run: its ranks killed past it
+LM_MESH_SPAWN_S = 1000.0       # a spawn's whole run: its ranks killed past it
 LM_MESH_GLOO_S = 300.0         # a collective's timeout
 
 
@@ -5286,11 +5304,13 @@ def lm_mesh_moe(cfg, params, device, ctx):
             "tokens": tokens.cpu(), **seen[0]}
 
 
-def lm_mesh_rank(rank, world, backend):
+def lm_mesh_rank(rank, world, backend, ref_dir=None):
     """One rank of the phase's mesh on the one card: each configuration's
     blocks built layer by layer (``init_params(..., cast=True, ctx=)``),
     its serving runs, ``max_memory_allocated`` after each. On the NCCL
-    rank at (1, 1), Qwen2.5-3B's prefill again with ctx=None."""
+    rank at (1, 1), Qwen2.5-3B's prefill again with ctx=None. Then the
+    training runs (``lm_mesh_train_rank``; on the NCCL rank
+    ``lm_mesh_train_nccl``)."""
     import torch
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
@@ -5329,6 +5349,10 @@ def lm_mesh_rank(rank, world, backend):
         out[name] = {k: v.float().numpy() if isinstance(v, torch.Tensor)
                      else v for k, v in row.items()}
         del params
+    # then training, the serving models freed
+    torch.cuda.empty_cache()
+    out["train"] = lm_mesh_train_nccl(ctx, device) if world == 1 \
+        else lm_mesh_train_rank(ctx, device, ref_dir)
     return out
 
 
@@ -5353,13 +5377,533 @@ def lm_mesh_dryrun(cfg, mesh_shape, decode=True):
     return out
 
 
+
+# training over the (2, 2) mesh, in the same ranks after their serving:
+# (a) Qwen2.5-3B unreduced, bf16 compute over fp32 masters, remat, AdamW,
+# clip 1.0, train_4k's S = 4,096 with its global batch of 256 cut to 2
+# (one sequence a data rank), LM_MESH_TRAIN_STEPS steps on one batch;
+# (b) the NCCL rank's unsharded step at (1, 1) against ctx=None, bit for
+# bit, and the (2, 2) ranks' loss, grad norm and layer 0's and the last
+# layer's gradients against it within LM_MESH_TRAIN_BARS; (c) the first
+# LM_MESH_FP32_LAYERS layers in fp32: every gradient and every parameter
+# after the step against the unsharded port's on the card, microbatches 2
+# against 1 and seq_shard against not, at LM_MESH_TRAIN_FP32_TOL; (d)
+# DeepSeekMoE-16B's first LM_MESH_MOE_LAYERS layers at S = LM_MESH_MOE_S
+LM_MESH_TRAIN = dict(batch=2, s=4096)
+LM_MESH_TRAIN_STEPS = 2
+LM_MESH_TRAIN_LR = 3e-4
+# (2, 2) against (1, 1) in bf16: relative |Δ| of the first step's loss and
+# grad norm, relative L2 of a layer's gradient (every leaf of layer 0 and
+# of the last layer, put together); set before the first card run, with
+# the prediction in PERF.md §6
+LM_MESH_TRAIN_BARS = {"loss": 1e-2, "grad_norm": 5e-2, "grads": 0.15}
+LM_MESH_TRAIN_FP32_TOL = 1e-3
+# AdamW's first step moves an element by lr · g / (|g| + eps): where |g|
+# is below this, its rounding decides the move (up to 2 lr apart), and
+# the parameter after the step is held to that bound instead
+LM_MESH_TRAIN_ILL_G = 1e-6
+LM_MESH_TRAIN_GRAD_LAYERS = (0, -1)
+
+
+def lm_mesh_train_batch(cfg, b, s, device):
+    """The seeded global tokens and labels, int32 as repro's inputs."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 5)
+    return {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=device, dtype=torch.int32)
+            for k in ("tokens", "labels")}
+
+
+def bits_digest(t):
+    """Two integer digests of ``t``'s bits (the plain and a
+    position-weighted sum of its 32-bit words), in chunks on the card:
+    equal bits give equal digests."""
+    import torch
+    words = t.detach().contiguous().view(-1).view(torch.int32)
+    plain = weighted = 0
+    step = 1 << 24
+    for i in range(0, words.numel(), step):
+        w = words[i:i + step].long()
+        pos = torch.arange(i, i + w.numel(), device=w.device) % 65521 + 1
+        plain += int(w.sum())
+        weighted += int((w * pos).sum())
+    return plain, weighted
+
+
+def lm_mesh_train_run(cfg, params, device, ctx, batch, steps,
+                      microbatches=1, capture=None):
+    """``steps`` AdamW steps (LM_MESH_TRAIN_LR, clip LM_TRAIN_CLIP) on one
+    repeated batch through ``make_train_step(cfg, opt, ctx)``: each step's
+    metrics, host ms and bytes brought in by kind; K9's launches over the
+    steps; argument bytes; ``max_memory_allocated``. ``capture``: the
+    first step's gradients (clipped, as the optimizer gets them) of the
+    paths it selects, fp32 copies on the device. Returns (the state, the
+    readings)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.cost import tree_bytes
+    from repro_torch.optim import Optimizer, adamw
+    from repro_torch.sharding import RankPlan
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.tree import tree_paths
+
+    base, grads = adamw(LM_MESH_TRAIN_LR), {}
+
+    def update(g, state, p):
+        if capture is not None and not grads:
+            # copies: the update is written into these buffers
+            grads.update({k: v.detach().float().clone()
+                          for k, v in tree_paths(g) if capture(k)})
+        return base.update(g, state, p)
+
+    opt = Optimizer(base.init, update)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device))
+    rows = slice(None) if ctx is None else RankPlan(
+        cfg, ctx, batch["tokens"].shape[0]).rows
+    out = {"param_bytes": tree_bytes(params),
+           "opt_bytes": tree_bytes(state.opt_state),
+           "input_bytes": sum(v[rows].numel() * v.element_size()
+                              for v in batch.values()),
+           "steps": []}
+    step = make_train_step(cfg, opt, ctx, clip_norm=LM_TRAIN_CLIP,
+                           microbatches=microbatches)
+    fa.reset_launches()
+    for _ in range(steps):
+        if ctx is not None:
+            ctx.comm.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        row = {"ms": (time.perf_counter() - t0) * 1e3,
+               **{k: v.float().cpu().numpy() for k, v in metrics.items()}}
+        if ctx is not None:
+            row["received"] = dict(ctx.comm.received)
+        out["steps"].append(row)
+    out["k9_launches"] = fa.LAUNCHES["flash_attention"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    out["grads"] = grads
+    return state, out
+
+
+def _layer_paths(cfg, layers):
+    names = {f"layers/{i % cfg.num_layers}/" for i in layers}
+    return lambda path: any(path.startswith(n) for n in names)
+
+
+def lm_mesh_train_rank(ctx, device, ref_dir):
+    """(a), (c) and (d) on one gloo rank of (2, 2); ``ref_dir`` holds the
+    unsharded step of (c) (``save_reference``), of which the rank reads
+    its blocks."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_ctx
+    from repro_torch.tree import tree_paths
+
+    cfgs = lm_mesh_configs()
+    out, seconds, t0 = {}, {}, time.perf_counter()
+
+    def mark(part):
+        nonlocal t0
+        seconds[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # (a) Qwen2.5-3B unreduced
+    cfg = cfgs["qwen2.5-3b"]
+    b, s = LM_MESH_TRAIN["batch"], LM_MESH_TRAIN["s"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = T.init_params(cfg, LM_SEED, device=device, ctx=ctx)
+    mark("a_init")
+    state, row = lm_mesh_train_run(
+        cfg, params, device, ctx, lm_mesh_train_batch(cfg, b, s, device),
+        LM_MESH_TRAIN_STEPS,
+        capture=_layer_paths(cfg, LM_MESH_TRAIN_GRAD_LAYERS))
+    row["grads"] = numpy_tree(row["grads"])
+    out["qwen2.5-3b"] = row
+    del params, state
+    mark("a_steps")
+    # (c) its first layers in fp32: one step a layout from the same init
+    cfg = cfgs["qwen2.5-3b_fp32"]
+    batch = lm_mesh_train_batch(cfg, b, s, device)
+    seq_ctx = make_ctx(ctx.mesh, seq_shard=True)
+    fp32 = {}
+    for name, c, mb in (("mb1", ctx, 1), ("mb2", ctx, 2),
+                        ("seq", seq_ctx, 1)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        params = T.init_params(cfg, LM_SEED, device=device, ctx=c)
+        state, row = lm_mesh_train_run(cfg, params, device, c, batch, 1,
+                                       microbatches=mb,
+                                       capture=lambda p: True)
+        # on the host, so the next run's peak is its own
+        row["grads"] = {k: v.cpu() for k, v in row["grads"].items()}
+        row["params"] = {k: v.cpu() for k, v in tree_paths(state.params)}
+        fp32[name] = row
+        del params, state
+        mark(f"c_{name}")
+    # the layouts against mb1, on the rank's blocks: Σ (x − ref)², Σ ref²
+    # a leaf (the parent adds the ranks' sums), leaf by leaf on the card
+    for name in ("mb2", "seq"):
+        fp32[name]["vs_mb1"] = {
+            key: {p: param_sums(v, fp32["mb1"][key][p],
+                                fp32["mb1"]["grads"][p] if key == "params"
+                                else None, device)
+                  for p, v in fp32[name][key].items()}
+            for key in ("grads", "params")}
+        del fp32[name]["grads"], fp32[name]["params"]
+    # and mb1 against the unsharded step, on the rank's blocks of it
+    mb1 = fp32["mb1"]
+    got = {"grads": unclipped(mb1.pop("grads"),
+                              mb1["steps"][0]["grad_norm"]),
+           "params": mb1.pop("params")}
+    want = load_reference_blocks(cfg, ctx, ref_dir, torch.device("cpu"))
+    mb1["vs_unsharded"] = {
+        key: {p: param_sums(v, want[key][p],
+                            want["grads"][p] if key == "params" else None,
+                            device)
+              for p, v in got[key].items()}
+        for key in ("grads", "params")}
+    del got, want
+    out["qwen2.5-3b_fp32"] = fp32
+    mark("c_compare")
+    # (d) DeepSeekMoE-16B's first layers
+    cfg = cfgs["deepseek-moe-16b"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = T.init_params(cfg, LM_SEED, device=device, ctx=ctx)
+    state, row = lm_mesh_train_run(
+        cfg, params, device, ctx,
+        lm_mesh_train_batch(cfg, b, LM_MESH_MOE_S, device),
+        LM_MESH_TRAIN_STEPS)
+    out["deepseek-moe-16b"] = row
+    del params, state
+    torch.cuda.empty_cache()
+    mark("d")
+    out["seconds"] = seconds
+    return out
+
+
+def lm_mesh_train_nccl(ctx, device):
+    """(b) on the NCCL rank at (1, 1): Qwen2.5-3B's steps with ctx=None,
+    then from the same init with the (1, 1) context: the metrics, the
+    captured gradients and the parameters' bits after the steps."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    cfg = lm_mesh_configs()["qwen2.5-3b"]
+    batch = lm_mesh_train_batch(cfg, LM_MESH_TRAIN["batch"],
+                                LM_MESH_TRAIN["s"], device)
+    runs = {}
+    for name, c in (("no_ctx", None), ("mesh_1x1", ctx)):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        params = T.init_params(cfg, LM_SEED, device=device, ctx=c)
+        state, row = lm_mesh_train_run(
+            cfg, params, device, c, batch, LM_MESH_TRAIN_STEPS,
+            capture=_layer_paths(cfg, LM_MESH_TRAIN_GRAD_LAYERS))
+        row["grads"] = numpy_tree(row["grads"])
+        row["digests"] = [bits_digest(t) for t in tree_leaves(
+            (state.params, state.opt_state["m"], state.opt_state["v"]))]
+        row["seconds"] = time.perf_counter() - t0
+        runs[name] = row
+        del params, state
+    torch.cuda.empty_cache()
+    a, b = runs["no_ctx"], runs["mesh_1x1"]
+    runs["bit_equal_no_ctx"] = bool(
+        a["digests"] == b["digests"]
+        and all(all((x[k] == y[k]).all() for k in x if k not in ("ms",
+                                                                 "received"))
+                for x, y in zip(a["steps"], b["steps"]))
+        and all((a["grads"][k] == b["grads"][k]).all() for k in a["grads"]))
+    del b["grads"]
+    return runs
+
+
+def lm_mesh_train_reference(cfg, device):
+    """The unsharded port on the card for (c): one step's gradients and
+    parameters after it, as numpy."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_paths
+    params = T.init_params(cfg, LM_SEED, device=device)
+    batch = lm_mesh_train_batch(cfg, LM_MESH_TRAIN["batch"],
+                                LM_MESH_TRAIN["s"], device)
+    state, row = lm_mesh_train_run(cfg, params, device, None, batch, 1,
+                                   capture=lambda p: True)
+    row["grads"] = numpy_tree(row["grads"])
+    row["params"] = numpy_tree(dict(tree_paths(state.params)))
+    del params, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def unclipped(grads, norm):
+    """The gradients before ``clip_by_global_norm`` scaled them."""
+    scale = min(1.0, LM_TRAIN_CLIP / (float(norm) + 1e-9))
+    return {k: v / scale for k, v in grads.items()}
+
+
+def param_layout(cfg, ctx):
+    """{path: (Spec, full shape)} of ``cfg``'s parameters on ``ctx``."""
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.sharding.ctx import ctx_param_specs
+    from repro_torch.tree import tree_map, tree_map_with_path
+    shapes, specs, paths = param_shapes(cfg), [], []
+    tree_map(lambda t, s: specs.append((s, tuple(t.shape))), shapes,
+             ctx_param_specs(cfg, ctx))
+    tree_map_with_path(lambda p, t: paths.append(p), shapes)
+    return dict(zip(paths, specs))
+
+
+def save_reference(ref, path):
+    """The unsharded step's gradients (unclipped) and parameters, one
+    .npy a leaf under ``path``, for the ranks to read their blocks of."""
+    import numpy as np
+    path.mkdir(parents=True, exist_ok=True)
+    trees = {"grads": unclipped(ref["grads"], ref["steps"][0]["grad_norm"]),
+             "params": ref["params"]}
+    for key, tree in trees.items():
+        for leaf, arr in tree.items():
+            np.save(path / f"{key}@{leaf.replace('/', '@')}.npy", arr)
+
+
+def load_reference_blocks(cfg, ctx, path, device):
+    """This rank's blocks of ``save_reference``'s leaves, on ``device``."""
+    import numpy as np
+    import torch
+    from pathlib import Path
+    from repro_torch.sharding.rules import block_slices, mesh_shape
+    shape = mesh_shape(ctx.mesh)
+    out = {"grads": {}, "params": {}}
+    for leaf, (spec, dims) in param_layout(cfg, ctx).items():
+        cut = block_slices(shape, ctx.comm.coords, dims, spec)
+        for key in out:
+            arr = np.load(Path(path) / f"{key}@{leaf.replace('/', '@')}.npy",
+                          mmap_mode="r")
+            out[key][leaf] = torch.from_numpy(np.ascontiguousarray(
+                arr[cut])).to(device)
+    return out
+
+
+def lm_mesh_assemble(cfg, ranks, key, select=None):
+    """The full leaves of ``key`` (a {path: block} dict a rank) from the
+    four ranks' blocks: {path: array}."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.sharding import make_ctx
+    from repro_torch.sharding.rules import block_slices, mesh_shape
+    ctx = make_ctx(make_abstract_mesh(LM_MESH, ("data", "model")))
+    shape = mesh_shape(ctx.mesh)
+    out = {}
+    for path, (spec, dims) in param_layout(cfg, ctx).items():
+        if path not in ranks[0][1][key] or (select and not select(path)):
+            continue
+        full = np.empty(dims, dtype=np.float32)
+        for coords, row in ranks:
+            full[block_slices(shape, coords, dims, spec)] = row[key][path]
+        out[path] = full
+    return out
+
+
+def param_sums(got, want, grad=None, device=None):
+    """(Σ (got − want)², Σ want², max |got − want|) over the elements of a
+    leaf, in float64 on ``device`` (tensors, or numpy arrays); with
+    ``grad`` (the step's gradient) the sums over the elements whose
+    |gradient| is at least LM_MESH_TRAIN_ILL_G, the max over the rest (0
+    if none)."""
+    import torch
+    got, want = (torch.as_tensor(x).to(device).double() for x in (got, want))
+    d = got - want
+    ok = torch.ones_like(d, dtype=torch.bool) if grad is None \
+        else torch.as_tensor(grad).to(device).abs() >= LM_MESH_TRAIN_ILL_G
+    big = d.abs().masked_fill(ok, 0.0)
+    return (float((d.square() * ok).sum()), float((want.square() * ok).sum()),
+            float(big.max()) if big.numel() else 0.0)
+
+
+def numpy_tree(flat):
+    """{path: tensor} as {path: numpy array} on the host."""
+    return {k: v.cpu().numpy() for k, v in flat.items()}
+
+
+def lm_mesh_train_dryrun(cfg, s, microbatches=1, seq_shard=False):
+    """The meta dry run of one (2, 2) rank's train step at (B, S) =
+    (LM_MESH_TRAIN's batch, s)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import rank_step
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.sharding import make_ctx
+    ctx = make_ctx(make_abstract_mesh(LM_MESH, ("data", "model")),
+                   seq_shard=seq_shard)
+    return rank_step(cfg, InputShape("lm_mesh_train", s,
+                                     LM_MESH_TRAIN["batch"], "train"),
+                     ctx, microbatches=microbatches)
+
+
+def check_train_bytes(label, rows, dry):
+    """Every rank's every step: bytes by kind and argument bytes equal the
+    dry run's; K9 launched 0 times."""
+    want = {k[len("coll_"):]: v for k, v in dry.items()
+            if k.startswith("coll_")}
+    for row in rows:
+        for st in row["steps"]:
+            check(st["received"] == want, f"{label}: live train-step bytes "
+                  f"{st['received']} != the dry run's {want}")
+        live = row["param_bytes"] + row["opt_bytes"] + row["input_bytes"]
+        check(live == dry["argument_bytes"], f"{label}: live argument bytes "
+              f"{live} != the dry run's {dry['argument_bytes']}")
+        check(row["k9_launches"] == 0,
+              f"{label}: {row['k9_launches']} K9 launches in training")
+
+
+def lm_mesh_train_report(cfgs, gloo, nccl):
+    """The parent's checks of (a)-(d), and their line's fields."""
+    import numpy as np
+    import torch
+    out = {}
+    coords = [r["coords"] for r in gloo]
+    # (a) and (b): Qwen2.5-3B unreduced ------------------------------
+    cfg, label = cfgs["qwen2.5-3b"], "lm_mesh_train qwen2.5-3b"
+    rows = [r["train"]["qwen2.5-3b"] for r in gloo]
+    dry = lm_mesh_train_dryrun(cfg, LM_MESH_TRAIN["s"])
+    check_train_bytes(label, rows, dry)
+    for row in rows:
+        losses = [float(st["loss"]) for st in row["steps"]]
+        check(all(math.isfinite(x) for x in losses) and losses[-1]
+              < losses[0], f"{label}: losses {losses}")
+        for k in ("loss", "grad_norm"):
+            vals = {np.asarray(st[k]).tobytes() for st in row["steps"][:1]}
+            check(vals == {np.asarray(rows[0]["steps"][0][k]).tobytes()},
+                  f"{label}: the ranks' {k} differ")
+    check(bool(nccl["bit_equal_no_ctx"]), f"{label}: the (1, 1) NCCL train "
+          "step is not ctx=None's bits")
+    single = nccl["no_ctx"]
+    s0, m0 = single["steps"][0], rows[0]["steps"][0]
+    d_loss = abs(float(m0["loss"]) - float(s0["loss"])) / float(s0["loss"])
+    d_norm = abs(float(m0["grad_norm"]) - float(s0["grad_norm"])) \
+        / float(s0["grad_norm"])
+    got = lm_mesh_assemble(cfg, [(c, {"g": unclipped(
+        r["grads"], r["steps"][0]["grad_norm"])}) for c, r in
+        zip(coords, rows)], "g")
+    want = unclipped(single["grads"], s0["grad_norm"])
+    grads = {}
+    for layer in LM_MESH_TRAIN_GRAD_LAYERS:
+        pre = f"layers/{layer % cfg.num_layers}/"
+        keys = sorted(k for k in want if k.startswith(pre))
+        grads[pre[:-1]] = rel_l2(*(torch.from_numpy(np.concatenate(
+            [t[k].ravel() for k in keys])) for t in (got, want)))
+    bars = LM_MESH_TRAIN_BARS
+    check(d_loss <= bars["loss"] and d_norm <= bars["grad_norm"]
+          and max(grads.values()) <= bars["grads"],
+          f"{label}: (2, 2) against (1, 1): loss {d_loss}, grad norm "
+          f"{d_norm}, gradients {grads} over {bars}")
+    out["qwen2.5-3b"] = {
+        "layers": cfg.num_layers, "dtype": cfg.dtype, "remat": cfg.remat,
+        "B": LM_MESH_TRAIN["batch"], "S": LM_MESH_TRAIN["s"],
+        "steps": LM_MESH_TRAIN_STEPS, "lr": LM_MESH_TRAIN_LR,
+        "clip": LM_TRAIN_CLIP,
+        "losses_by_rank": [[float(st["loss"]) for st in r["steps"]]
+                           for r in rows],
+        "grad_norms": [float(st["grad_norm"]) for st in rows[0]["steps"]],
+        "step_ms_by_rank": [[st["ms"] for st in r["steps"]] for r in rows],
+        "received_per_step": rows[0]["steps"][0]["received"],
+        "received_equal_dry_run": True,
+        "argument_bytes": dry["argument_bytes"],
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                         for r in rows],
+        "dryrun_peak_bytes": dry["argument_bytes"] + dry["temp_bytes"],
+        "dryrun_dot_flops": dry["dot_flops"],
+        "k9_launches_per_step": 0,
+        "vs_1x1": {"loss_rel": d_loss, "grad_norm_rel": d_norm,
+                   "grads_rel_l2": grads, "bars": bars},
+        "nccl_1x1": {"bit_equal_no_ctx": True,
+                     "losses": [float(st["loss"]) for st in
+                                single["steps"]],
+                     "step_ms": [st["ms"] for st in single["steps"]],
+                     "step_ms_1x1": [st["ms"] for st in
+                                     nccl["mesh_1x1"]["steps"]],
+                     "max_memory_allocated": single["max_memory_allocated"]}}
+    # (c) fp32 at LM_MESH_FP32_LAYERS layers -----------------------------
+    cfg, label = cfgs["qwen2.5-3b_fp32"], "lm_mesh_train qwen2.5-3b_fp32"
+    tol = LM_MESH_TRAIN_FP32_TOL
+    fp = [r["train"]["qwen2.5-3b_fp32"] for r in gloo]
+    row = {}
+    for name, mb, seq in (("mb1", 1, False), ("mb2", 2, False),
+                          ("seq", 1, True)):
+        check_train_bytes(f"{label} {name}", [f[name] for f in fp],
+                          lm_mesh_train_dryrun(cfg, LM_MESH_TRAIN["s"], mb,
+                                               seq))
+    # each leaf's relative L2 from the ranks' sums (a replicated block
+    # counts in both sums alike), the ill-posed elements' largest move
+    for name, against in (("mb1", "vs_unsharded"), ("mb2", "vs_mb1"),
+                          ("seq", "vs_mb1")):
+        for key in ("grads", "params"):
+            errs = {}
+            for p in fp[0][name][against][key]:
+                num = sum(f[name][against][key][p][0] for f in fp)
+                den = sum(f[name][against][key][p][1] for f in fp)
+                errs[p] = math.sqrt(num / max(den, 1e-30))
+                big = max(f[name][against][key][p][2] for f in fp)
+                check(big <= 2 * LM_MESH_TRAIN_LR * (1 + 1e-3),
+                      f"{label}: {name} {against}, {p}: an ill-posed "
+                      f"element moved {big}")
+            w = max(errs.items(), key=lambda kv: kv[1])
+            check(w[1] <= tol, f"{label}: {name} {against}, {key}: {w}")
+            row[f"{name}_{against}_worst_rel_l2_{key}"] = w
+    row.update(layers=cfg.num_layers, tol=f"relative L2 {tol} a leaf",
+               step_ms_by_rank={n: [f[n]["steps"][0]["ms"] for f in fp]
+                                for n in ("mb1", "mb2", "seq")},
+               received_per_step={n: fp[0][n]["steps"][0]["received"]
+                                  for n in ("mb1", "mb2", "seq")},
+               max_memory_allocated_by_rank={
+                   n: [f[n]["max_memory_allocated"] for f in fp]
+                   for n in ("mb1", "mb2", "seq")},
+               received_equal_dry_run=True)
+    out["qwen2.5-3b_fp32"] = row
+    # (d) DeepSeekMoE-16B ---------------------------------------------
+    cfg, label = cfgs["deepseek-moe-16b"], "lm_mesh_train deepseek-moe-16b"
+    rows = [r["train"]["deepseek-moe-16b"] for r in gloo]
+    dry = lm_mesh_train_dryrun(cfg, LM_MESH_MOE_S)
+    check_train_bytes(label, rows, dry)
+    for row in rows:
+        losses = [float(st["loss"]) for st in row["steps"]]
+        check(all(math.isfinite(x) for x in losses) and losses[-1]
+              < losses[0], f"{label}: losses {losses}")
+        for st, st0 in zip(row["steps"], rows[0]["steps"]):
+            for k in ("counts", "dropped", "loss"):
+                check(np.array_equal(st[k], st0[k]),
+                      f"{label}: the ranks' {k} differ")
+    out["deepseek-moe-16b"] = {
+        "layers": cfg.num_layers, "B": LM_MESH_TRAIN["batch"],
+        "S": LM_MESH_MOE_S,
+        "losses": [float(st["loss"]) for st in rows[0]["steps"]],
+        "lb_loss": [float(st["lb_loss"]) for st in rows[0]["steps"]],
+        "dropped": [float(st["dropped"]) for st in rows[0]["steps"]],
+        "counts_and_dropped_equal_on_every_rank": True,
+        "step_ms_by_rank": [[st["ms"] for st in r["steps"]] for r in rows],
+        "received_per_step": rows[0]["steps"][0]["received"],
+        "received_equal_dry_run": True,
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                         for r in rows],
+        "dryrun_peak_bytes": dry["argument_bytes"] + dry["temp_bytes"],
+        "k9_launches_per_step": 0}
+    out["rank_seconds"] = {"gloo_rank0": gloo[0]["train"]["seconds"],
+                           "nccl": {k: nccl[k]["seconds"]
+                                    for k in ("no_ctx", "mesh_1x1")}}
+    return out
+
+
 def phase_lm_mesh(device, info):
     """The LM template over a (2, 2) ("data", "model") mesh on the one
     card (`repro_torch.sharding`): one spawn of 4 gloo ranks time-slicing
     it (collectives on host copies in bf16, which gloo takes), then one
     NCCL rank at (1, 1). Qwen2.5-3B unreduced in bf16: a prefill at B =
     2, S = 4,096 (one sequence a data rank) launching K9 once a layer on
-    every rank, and 4 decode steps at B = 4 after a 2-token prompt, each
+    every rank, and 1 decode step at B = 4 after a 1-token prompt, each
     rank's rows of the last logits against the unsharded model's here at
     the model's bf16 bar; the same at 4 layers in fp32 at 1e-3;
     DeepSeekMoE-16B's first 4 layers (32 experts a model rank): the first
@@ -5393,8 +5937,12 @@ def phase_lm_mesh(device, info):
     shutil.rmtree(store, ignore_errors=True)
     store.mkdir()
     try:
+        # and the unsharded fp32 train step of (c), for the ranks to read
+        save_reference(lm_mesh_train_reference(cfgs["qwen2.5-3b_fp32"],
+                                               device), store / "ref32")
         t0 = time.perf_counter()
-        gloo = spawn_ranks(lm_mesh_rank, 4, backend="gloo", args=("gloo",),
+        gloo = spawn_ranks(lm_mesh_rank, 4, backend="gloo",
+                           args=("gloo", str(store / "ref32")),
                            timeout_s=LM_MESH_SPAWN_S,
                            collective_timeout_s=LM_MESH_GLOO_S,
                            store_dir=str(store))
@@ -5552,6 +6100,11 @@ def phase_lm_mesh(device, info):
                        "decode_ms": row["decode_ms"],
                        "max_memory_allocated": row["max_memory_allocated"]}
     emit(out)
+    # training over the mesh --------------------------------------------
+    train = lm_mesh_train_report(cfgs, gloo, nccl["train"])
+    emit({"phase": "lm_mesh_train", "card": info["nvidia_smi"],
+          "layout": {"data": LM_MESH[0], "model": LM_MESH[1]},
+          "ranks": out["ranks"], "time_sliced": out["time_sliced"], **train})
     fa.reset_launches()
     return {"per_rank_prefill": out["qwen2.5-3b"][
         "k9_launches_per_rank_prefill"],

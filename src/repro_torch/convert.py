@@ -33,7 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.memo import DenseMemoStore
 from repro_torch.core.types import GlobalState, resolve_device
 from repro_torch.models.transformer import stage_layout
-from repro_torch.training.steps import TrainState
+from repro_torch.training.steps import TrainState, shard_train_state
 from repro_torch.tree import tree_map
 
 STATE_FIELDS = ("lam", "m_vk", "init_mass", "init_frac", "t")
@@ -230,14 +230,25 @@ def _reps_first(tree: Mapping[str, Any]) -> dict:
     return out
 
 
-def lm_train_state_from_repro(state, cfg: ModelConfig, device=None):
+def lm_train_state_from_repro(state, cfg: ModelConfig, device=None, *,
+                              ctx=None):
     """``repro``'s ``TrainState`` (any object with ``params``,
     ``opt_state`` and ``step``; leaves numpy or anything numpy reads) as
     the port's ``TrainState`` on ``device``: the parameters and every
     parameter-shaped optimizer tree in the port's layout (one dict a
     layer), IAG's memo with its shard axis leading each leaf, the scalars
-    and ``seen`` as tensors."""
+    and ``seen`` as tensors.
+
+    With a ``MeshCtx`` the rank's blocks of it
+    (`repro_torch.training.shard_train_state`): the state is put together
+    on the host, cut, and only the blocks reach ``device``."""
     device = resolve_device(device)
+    if ctx is not None:
+        full = lm_train_state_from_repro(state, cfg, torch.device("cpu"))
+        blocks = shard_train_state(cfg, full, ctx)
+        return TrainState(*(tree_map(lambda t: t.to(device), part)
+                            for part in (blocks.params, blocks.opt_state,
+                                         blocks.step)))
 
     def leaf(a):
         return torch.from_numpy(np.array(a)).to(device)

@@ -10,13 +10,18 @@ make_abstract_mesh`, the meta collectives of `repro_torch.sharding.comm`):
 its blocks of the bf16 serving copy (``init_params(..., cast=True,
 ctx=)``), its caches (``init_caches(..., ctx=)``) and the global inputs, of
 which it takes its rows, through the entry points a server calls
-(``make_prefill_step``, ``make_serve_step``). K9's wrapper takes its
+(``make_prefill_step``, ``make_serve_step``); a ``train_4k`` pair runs one
+``make_train_step`` (AdamW at 3e-4, clip 1.0, ``--microbatches``) under
+autograd on the rank's fp32 master blocks and AdamW moments, as
+``repro``'s dry run places the optimizer state: its forward, each
+checkpointed layer's recompute, the backward (its reduce-scatters) and
+the update. K9's wrapper takes its
 shape-only path on ``meta`` (the card's route: a windowed or softcapped
 prefill raises, ROADMAP §2 C1), and the MoE's segments fill the rank's
 capacity. Per pair:
 
-* ``memory``: argument bytes (the rank's parameters, caches and rows of
-  the inputs), the step's temporaries at their peak (`launch.dryrun_lda.
+* ``memory``: argument bytes (the rank's parameters, optimizer state,
+  caches and rows of the inputs), the step's temporaries at their peak (`launch.dryrun_lda.
   LiveBytes`) and their sum, against the card's 80 GB;
 * ``hlo``'s counterpart (`launch.cost.count_step`): the products' FLOPs
   (K9's added by its wrapper), their output bytes, the parameter bytes,
@@ -27,8 +32,8 @@ capacity. Per pair:
 * ``whole_blocks``: the block kinds that gathered their leaves and ran
   whole (ROADMAP §1 item 10.6).
 
-The ``train_4k`` pairs record ``ok: false`` with the refusal of training
-over a mesh (item 10.5).
+``--seq-shard`` runs the sequence-parallel residual stream (prefill and
+train pairs).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape decode_32k
@@ -53,10 +58,11 @@ from repro_torch.launch.cost import count_step, tree_bytes
 from repro_torch.launch.mesh import PRODUCTION_SHAPES, make_abstract_mesh
 from repro_torch.models import transformer as T
 from repro_torch.obs.roofline import HW
+from repro_torch.optim import adamw
 from repro_torch.sharding import RankPlan, make_ctx
 from repro_torch.sharding.ctx import MeshCtx, whole_blocks
-from repro_torch.training import (make_prefill_step, make_serve_step,
-                                  make_train_step)
+from repro_torch.training import (TrainState, make_prefill_step,
+                                  make_serve_step, make_train_step)
 
 META = torch.device("meta")
 GB = 1e9
@@ -96,24 +102,34 @@ def input_specs(cfg: ModelConfig, shape: InputShape
 
 
 def rank_step(cfg: ModelConfig, shape: InputShape, ctx: MeshCtx,
-              params=None, cache_dtype=torch.bfloat16) -> Dict[str, Any]:
-    """One rank's step of ``shape`` on ``ctx`` (a prefill, or a decode
-    step against caches of ``shape.seq_len`` slots in ``cache_dtype``;
-    tensors on ``meta`` for an abstract mesh): argument bytes, the counts
-    of ``count_step``, the blocks run whole. ``params``: the rank's
-    blocks, the bf16 serving copy built on ``meta`` unless given."""
-    if shape.kind == "train":
-        make_train_step(cfg, None, ctx)     # raises: ROADMAP §1 item 10.5
+              params=None, cache_dtype=torch.bfloat16,
+              microbatches: int = 1) -> Dict[str, Any]:
+    """One rank's step of ``shape`` on ``ctx`` (a train step, a prefill,
+    or a decode step against caches of ``shape.seq_len`` slots in
+    ``cache_dtype``; tensors on ``meta`` for an abstract mesh): argument
+    bytes, the counts of ``count_step``, the blocks run whole.
+    ``params``: the rank's blocks; unless given, the fp32 masters for a
+    train step, the bf16 serving copy otherwise, built on ``meta``."""
+    train = shape.kind == "train"
     if params is None:
-        params = T.init_params(cfg, device=META, cast=True, ctx=ctx)
+        params = T.init_params(cfg, device=META, cast=not train, ctx=ctx)
     inputs = input_specs(cfg, shape)
     plan = RankPlan(cfg, ctx, shape.global_batch)
     local_inputs = tree_bytes(plan.local_batch(inputs))
     param_bytes = tree_bytes(params)
-    if shape.kind == "prefill":
+    opt_bytes = cache_bytes = 0
+    if train:
+        opt = adamw(3e-4)
+        state = TrainState(params, opt.init(params),
+                           torch.zeros((), dtype=torch.int32,
+                                       device=next(iter(
+                                           params.values())).device))
+        opt_bytes = tree_bytes(state.opt_state)
+        step = make_train_step(cfg, opt, ctx, microbatches=microbatches)
+        out, counts = count_step(lambda: step(state, inputs), ctx.comm)
+    elif shape.kind == "prefill":
         step = make_prefill_step(cfg, ctx)
         out, counts = count_step(lambda: step(params, inputs), ctx.comm)
-        cache_bytes = 0
     else:
         caches = T.init_caches(cfg, shape.global_batch, shape.seq_len,
                                cache_dtype, META, ctx=ctx)
@@ -122,9 +138,10 @@ def rank_step(cfg: ModelConfig, shape: InputShape, ctx: MeshCtx,
         out, counts = count_step(
             lambda: step(params, caches, inputs["tokens"], inputs["pos"]),
             ctx.comm)
-    return {"argument_bytes": param_bytes + cache_bytes + local_inputs,
-            "param_bytes": param_bytes, "cache_bytes": cache_bytes,
-            "input_bytes": local_inputs,
+    return {"argument_bytes": param_bytes + opt_bytes + cache_bytes
+            + local_inputs,
+            "param_bytes": param_bytes, "opt_bytes": opt_bytes,
+            "cache_bytes": cache_bytes, "input_bytes": local_inputs,
             "whole_blocks": sorted(whole_blocks(cfg)),
             "batch_rows": [plan.rows.start, plan.rows.stop], **counts}
 
@@ -150,10 +167,11 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str,
             raise ValueError("fsdp_only profile is incompatible with MoE "
                              "archs")
         ctx = make_ctx(mesh, seq_shard=seq_shard, profile=profile)
-        r = rank_step(cfg, shape, ctx)
+        r = rank_step(cfg, shape, ctx, microbatches=microbatches)
         peak = r["argument_bytes"] + r["temp_bytes"]
         out["memory"] = {"argument_gb": r["argument_bytes"] / GB,
                          "param_gb": r["param_bytes"] / GB,
+                         "opt_gb": r["opt_bytes"] / GB,
                          "cache_gb": r["cache_bytes"] / GB,
                          "temp_gb": r["temp_bytes"] / GB,
                          "peak_gb": peak / GB,
@@ -161,7 +179,8 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str,
                          "fits_card": peak <= HW["hbm_bytes"]}
         out["hlo"] = {k: r[k] for k in (
             "dot_flops", "k9_flops", "dot_bytes", "param_bytes",
-            "collective_bytes", "coll_all_gather", "coll_all_reduce")}
+            "collective_bytes", "coll_all_gather", "coll_all_reduce",
+            "coll_reduce_scatter")}
         out["k9_launches"] = r["k9_launches"]
         out["whole_blocks"] = r["whole_blocks"]
         out["roofline"] = {
@@ -200,8 +219,8 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None, help="append JSONL here")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="sequence-parallel residual stream (raises: "
-                         "ROADMAP §1 item 10.5)")
+                    help="sequence-parallel residual stream (prefill and "
+                         "train shapes)")
     ap.add_argument("--profile", default="tp_fsdp",
                     choices=["tp_fsdp", "fsdp_only"],
                     help="parallelism profile")

@@ -69,21 +69,57 @@ def _storage_key(t: torch.Tensor) -> int:
 class LiveBytes(TorchDispatchMode):
     """Bytes of the tensors made while the mode is on: ``live`` now,
     ``peak`` at most. Each new storage adds its ``nbytes`` and is
-    subtracted when the tensor that brought it is freed (a view keeps its
-    base alive); views and in-place results share an input's storage and
-    add nothing. ``last_op`` is the last operation dispatched."""
+    subtracted when the tensor that brought it is freed and nothing else
+    holds the storage (a view keeps its base alive, and so does a tensor
+    that aliases it, as autograd's accumulated ``.grad`` may: such a
+    storage is looked at again every ``SWEEP`` operations); views and
+    in-place results share an input's storage and add nothing.
+    ``last_op`` is the last operation dispatched."""
+
+    SWEEP = 64
 
     def __init__(self):
         super().__init__()
         self.live = self.peak = 0
         self.last_op = None
         self._held: Dict[int, int] = {}
+        self._storage: Dict[int, torch.UntypedStorage] = {}
+        self._young: set = set()        # looked at again at the next op
+        self._lingering: set = set()    # and then every SWEEP ops
+        self._ops = 0
+
+    def _uses(self, key: int) -> int:
+        return torch._C._storage_Use_Count(self._storage[key]._cdata)
+
+    def _release(self, key: int) -> None:
+        del self._storage[key]
+        self.live -= self._held.pop(key)
 
     def _free(self, key: int) -> None:
-        self.live -= self._held.pop(key)
+        # this mode's reference and the dying tensor's are two: any other
+        # holds the bytes (a view or an alias dying with it, or living on)
+        if self._uses(key) > 2:
+            self._young.add(key)
+        else:
+            self._release(key)
+
+    def _sweep(self, keys: set) -> set:
+        left = set()
+        for key in keys:
+            if self._uses(key) > 1:
+                left.add(key)
+            else:
+                self._release(key)
+        return left
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.last_op = func
+        self._ops += 1
+        if self._young:
+            self._lingering |= self._sweep(self._young)
+            self._young = set()
+        if self._lingering and self._ops % self.SWEEP == 0:
+            self._lingering = self._sweep(self._lingering)
         out = func(*args, **(kwargs or {}))
         inputs = {_storage_key(t) for t in tree_leaves((args, kwargs))
                   if isinstance(t, torch.Tensor)}
@@ -95,6 +131,7 @@ class LiveBytes(TorchDispatchMode):
                 continue
             n = t.untyped_storage().nbytes()
             self._held[key] = n
+            self._storage[key] = t.untyped_storage()
             self.live += n
             self.peak = max(self.peak, self.live)
             weakref.finalize(t, self._free, key)

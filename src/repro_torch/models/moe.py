@@ -24,7 +24,10 @@ capacity, ``y`` is summed over ``model``, and the statistics are summed
 over ``model`` and divided by its size, then over the data axes
 (``lb_loss`` divided by their size). A batch the data axes do not divide
 is replicated over them. ``moe_block_emulated`` is the same function in
-one process.
+one process. Under autograd the block's input and its router enter
+through Megatron's *f* (their gradients summed over ``model``), the
+capacity stays ``repro``'s per-rank one, and ``lb_loss``'s division by
+the model axis's size makes the ranks' repeated statistics count once.
 """
 from __future__ import annotations
 
@@ -35,18 +38,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, truncated_normal
-from repro_torch.sharding.ctx import MeshCtx, training_not_ported
+from repro_torch.sharding.ctx import MeshCtx
 
 AuxDict = Dict[str, torch.Tensor]
 
 __all__ = ["MeshCtx", "moe_block_emulated", "moe_ffn", "moe_ffn_local",
-           "moe_init", "mesh_not_ported"]
-
-
-def mesh_not_ported(what: str = "ctx") -> NotImplementedError:
-    """The error of training over a ``MeshCtx``: serving runs over a mesh,
-    training waits for ROADMAP §1 item 10.5."""
-    return training_not_ported(what)
+           "moe_init"]
 
 
 def moe_init(cfg: ModelConfig, *, generator, device) -> Params:
@@ -139,10 +136,14 @@ def moe_ffn_local(cfg: ModelConfig, p: Params, x: torch.Tensor,
     # backward then stacks the experts' gradients once a stack (indexing an
     # expert would give each its own zero-filled (E, D, F) gradient)
     experts = {w: p[w].unbind(0) for w in ("w_gate", "w_up", "w_down")}
+    # under autograd an empty expert runs on no rows all the same: every
+    # rank's graph then reaches every weight, so every rank runs the
+    # backward's collectives of its gathered experts
+    keep_empty = torch.is_grad_enabled() and p["w_up"].requires_grad
     for j in range(el):
         a, b = min(max(off[j] - lo, 0), live), min(max(off[j + 1] - lo, 0),
                                                     live)
-        if a == b:
+        if a == b and not keep_empty:
             continue
         rows = order[lo + a: lo + b]
         out[lo + a: lo + b] = expert_ffn(experts, j, x[rows // k]) \
@@ -211,11 +212,13 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     plan, spec = tp.plan, tp.spec["moe"]
     m_size = plan.m_size if plan.tp else 1
     rank = plan.m if plan.tp else 0
+    x = tp.enter(x, m_size > 1)
+    b, s, d = x.shape
     if m_size > 1:
         p = _expert_blocks(cfg, p, spec, plan)
     y, aux = moe_ffn_local(cfg, p, x.reshape(-1, d), rank, m_size)
+    y = tp.leave(y.reshape(b, s, d), m_size > 1)
     if m_size > 1:
-        y = plan.msum(y)
         stats = plan.comm.ordered_sum(_packed(aux), (plan.model,)) / m_size
     else:
         stats = _packed(aux)
@@ -223,7 +226,7 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
         # reduce stats over data so outputs are fully replicated
         stats = plan.comm.ordered_sum(stats, plan.ctx.data_axes)
         stats = torch.cat([stats[:1] / plan.n_data, stats[1:]])
-    return y.reshape(b, s, d), _unpacked(stats)
+    return y, _unpacked(stats)
 
 
 def moe_block_emulated(cfg: ModelConfig, p: Params, x: torch.Tensor, *,

@@ -28,8 +28,13 @@ axes when it runs, computes its heads, FFN columns or experts, and sums
 the partials over ``model``; the embedding is vocab-parallel (a masked
 lookup of the rank's vocabulary range, summed over ``model``) and the
 logits are gathered over ``model``. The recurrent blocks and zamba2's
-shared block run whole on each rank (ROADMAP §1 item 10.6). Training
-over a mesh and ``seq_shard`` raise naming item 10.5.
+shared block run whole on each rank (ROADMAP §1 item 10.6). ``loss_fn``
+over a mesh is ``repro``'s sharded one, under autograd: the readout is
+vocab-parallel (each rank's vocabulary range, the softmax's max, Σ exp and
+the target's logit combined over ``model``) and the loss's sums are taken
+over the data axes, so every rank returns the global batch's loss. With
+``seq_shard`` the residual stream between layers holds the rank's S / M
+rows (`repro_torch.sharding.ctx`).
 
 Training runs on the fp32 masters (``init_params``), each weight cast to
 ``cfg.dtype`` at its use, so the gradients reach the masters in fp32;
@@ -75,18 +80,17 @@ KEEP_FP32 = frozenset({"norm", "norm1", "norm2", "norm1_post", "norm2_post",
                        "norm_scale", "r"})
 
 
-def check_ctx(ctx=None, *, training: bool = False):
-    """None for one card, else the ``MeshCtx``: serving runs over a mesh;
-    training over one and ``seq_shard`` raise naming ROADMAP §1 item
-    10.5."""
-    return check_mesh_ctx(ctx, training=training)
+def check_ctx(ctx=None):
+    """None for one card, else the ``MeshCtx``."""
+    return check_mesh_ctx(ctx)
 
 
-def mesh_plan(cfg: ModelConfig, ctx, batch: int) -> Optional[RankPlan]:
-    """The rank's plan of a call with a global batch of ``batch`` rows
-    (None for one card)."""
+def mesh_plan(cfg: ModelConfig, ctx, batch: int,
+              seq_len: Optional[int] = None) -> Optional[RankPlan]:
+    """The rank's plan of a call with a global batch of ``batch`` rows of
+    ``seq_len`` positions (None for one card)."""
     ctx = check_ctx(ctx)
-    return None if ctx is None else RankPlan(cfg, ctx, batch)
+    return None if ctx is None else RankPlan(cfg, ctx, batch, seq_len)
 
 
 # ---------------------------------------------------------------------------
@@ -330,20 +334,32 @@ def _embed(cfg: ModelConfig, params: Params,
     return x, positions
 
 
-def _readout(cfg: ModelConfig, params: Params, x: torch.Tensor,
-             plan: Optional[RankPlan] = None) -> torch.Tensor:
-    """The logits of x. Over a mesh the head is gathered over the data
-    axes; where its vocabulary is sharded over ``model`` each rank computes
-    its range and the ranks' logits are gathered."""
-    dt = x.dtype
-    x = apply_norm(cfg, params["final_norm"], x)
+def _head(cfg: ModelConfig, params: Params, plan: Optional[RankPlan] = None):
+    """The readout's weights as the rank computes with them: (the head's
+    name, the final norm, the head, whether the rank holds a block of the
+    vocabulary over ``model``). Over a mesh both are gathered over the
+    data axes."""
     name = "heads" if cfg.modality == "audio" else \
         "embed" if cfg.tie_embeddings else "lm_head"
-    w, vdim = params[name], {"heads": 2, "embed": 0, "lm_head": 1}[name]
+    vdim = {"heads": 2, "embed": 0, "lm_head": 1}[name]
+    fn, w = params["final_norm"], params[name]
     sharded = False
     if plan is not None:
+        fn = plan.gather_data(fn, plan.specs["final_norm"])
         w = plan.gather_data(w, plan.specs[name])
         sharded = plan.model_sharded(plan.specs[name], vdim)
+    return name, fn, w, sharded
+
+
+def _logits(cfg: ModelConfig, head, x: torch.Tensor,
+            plan: Optional[RankPlan] = None) -> torch.Tensor:
+    """The logits of x under ``head`` (``_head``'s): where the vocabulary
+    is sharded, the rank's range, its normed input entering through *f*."""
+    name, fn, w, sharded = head
+    dt = x.dtype
+    x = apply_norm(cfg, fn, x)
+    if sharded:
+        x = plan.enter(x)
     if cfg.modality == "audio":
         logits = torch.einsum("bsd,cdv->bscv", x, w.to(dt))
     elif cfg.tie_embeddings:
@@ -352,8 +368,17 @@ def _readout(cfg: ModelConfig, params: Params, x: torch.Tensor,
         logits = x @ w.to(dt)
     if cfg.logit_scale != 1.0:
         logits = logits * rounded(cfg.logit_scale, dt)
-    logits = softcap(logits, cfg.final_logit_softcap)
-    return plan.mgather(logits, logits.ndim - 1) if sharded else logits
+    return softcap(logits, cfg.final_logit_softcap)
+
+
+def _readout(cfg: ModelConfig, params: Params, x: torch.Tensor,
+             plan: Optional[RankPlan] = None) -> torch.Tensor:
+    """The logits of x. Over a mesh the head is gathered over the data
+    axes; where its vocabulary is sharded over ``model`` each rank computes
+    its range and the ranks' logits are gathered."""
+    head = _head(cfg, params, plan)
+    logits = _logits(cfg, head, x, plan)
+    return plan.mgather(logits, logits.ndim - 1) if head[3] else logits
 
 
 def _acc_aux(a: AuxDict, b: AuxDict) -> AuxDict:
@@ -369,22 +394,12 @@ def _shared_block(cfg: ModelConfig, shared: Params, x: torch.Tensor,
         @ shared["in_proj"].to(x.dtype)
 
 
-def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None,
-         reduce: bool = True) -> Tuple[torch.Tensor, bool]:
-    """The MLP on x, and whether the result is a model rank's partial sum
-    (its F columns; summed here unless ``reduce`` is off)."""
-    h = apply_mlp(cfg, p, x)
-    partial = tp is not None and tp.mlp_sharded()
-    if partial and reduce:
-        return tp.msum(h), False
-    return h, partial
+def _enter(tp, x: torch.Tensor, partial: bool) -> torch.Tensor:
+    return x if tp is None else tp.enter(x, partial)
 
 
-def _attn_out(h: torch.Tensor, heads, tp, reduce: bool = True):
-    partial = heads is not None and heads.reduce
-    if partial and reduce:
-        return tp.msum(h), False
-    return h, partial
+def _leave(tp, h: torch.Tensor, partial: bool) -> torch.Tensor:
+    return h if tp is None else tp.leave(h, partial)
 
 
 def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
@@ -396,15 +411,18 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     """Full-sequence application of one block. x: (B, S, D). Returns the
     new x and, for a MoE block, its aux statistics (None otherwise: the
     zeros ``repro`` adds change no sum). ``tp``: a model rank's
-    ``LayerPlan`` (``p`` then its leaves gathered over the data axes)."""
+    ``LayerPlan`` (``p`` then its leaves gathered over the data axes);
+    under ``seq_shard`` x holds the rank's S / M rows, and each region
+    gathers S at its entry (``positions`` are the whole sequence's)."""
     window = effective_window(cfg, kind)
     heads = None if tp is None else tp.heads()
+    part = heads is not None and heads.reduce
     if kind in (ATTN, ATTN_LOCAL, MOE):
-        h = attn_mod.attention_train(cfg, p["attn"],
-                                     apply_norm(cfg, p["norm1"], x),
-                                     window=window, positions=positions,
+        n = _enter(tp, apply_norm(cfg, p["norm1"], x), part)
+        h = attn_mod.attention_train(cfg, p["attn"], n, window=window,
+                                     positions=positions,
                                      attention=attention, heads=heads)
-        h, _ = _attn_out(h, heads, tp)
+        h = _leave(tp, h, part)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm1_post"], h)
         x = x + h
@@ -413,16 +431,24 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         if kind == MOE:
             h, aux = moe_mod.moe_ffn(cfg, p["moe"], hin, tp)
         else:
-            h, _ = _mlp(cfg, p["mlp"], hin, tp)
+            m_part = tp is not None and tp.mlp_sharded()
+            h = _leave(tp, apply_mlp(cfg, p["mlp"], _enter(tp, hin, m_part)),
+                       m_part)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
         return x + h, aux
     if kind == ATTN_PARALLEL:
         n = apply_norm(cfg, p["norm"], x)
-        a = attn_mod.attention_train(cfg, p["attn"], n, window=window,
+        m_part = tp is not None and tp.mlp_sharded()
+        if tp is not None and tp.plan.seq:
+            na = nm = tp.plan.seq_gather(n, partial=True)
+        else:
+            na, nm = _enter(tp, n, part), _enter(tp, n, m_part)
+        a = attn_mod.attention_train(cfg, p["attn"], na, window=window,
                                      positions=positions,
                                      attention=attention, heads=heads)
-        return x + _parallel_sum(cfg, p, a, n, heads, tp), None
+        return x + _parallel_out(tp, a, apply_mlp(cfg, p["mlp"], nm), part,
+                                 m_part), None
     if kind in (MAMBA2, MAMBA2_SHARED):
         x = x + rec_mod.mamba2_train(cfg, p["mamba"],
                                      apply_norm(cfg, p["norm"], x))
@@ -443,20 +469,73 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     raise ValueError(kind)
 
 
-def _parallel_sum(cfg: ModelConfig, p: Params, a: torch.Tensor,
-                  n: torch.Tensor, heads, tp) -> torch.Tensor:
-    """An ATTN_PARALLEL block's attention plus MLP on its normed input
-    ``n``: over a mesh the two partial sums reduced over ``model`` in one
-    collective where both are partial."""
-    a, a_part = _attn_out(a, heads, tp, reduce=False)
-    m, m_part = _mlp(cfg, p["mlp"], n, tp, reduce=False)
+def _parallel_out(tp, a: torch.Tensor, m: torch.Tensor, a_part: bool,
+                  m_part: bool) -> torch.Tensor:
+    """An ATTN_PARALLEL block's attention plus MLP: over a mesh the two
+    partial sums reduced over ``model`` in one collective where both are
+    partial."""
     if a_part and m_part:
-        return tp.msum(a + m)
-    return (tp.msum(a) if a_part else a) + (tp.msum(m) if m_part else m)
+        return _leave(tp, a + m, True)
+    return _leave(tp, a, a_part) + _leave(tp, m, m_part)
 
 
 def _batch_rows(batch: Dict[str, torch.Tensor]) -> int:
     return int(batch["tokens"].shape[0])
+
+
+def _seq_len(cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> int:
+    """The embedded sequence's length: the tokens' and a VLM's patches."""
+    s = int(batch["tokens"].shape[1])
+    if cfg.modality == "vision" and "vision_embeds" in batch:
+        s += int(batch["vision_embeds"].shape[1])
+    return s
+
+
+def batch_plan(cfg: ModelConfig, ctx, batch: Dict[str, torch.Tensor]
+               ) -> Optional[RankPlan]:
+    """The rank's plan of a full-sequence call on the global ``batch``."""
+    return mesh_plan(cfg, ctx, _batch_rows(batch), _seq_len(cfg, batch))
+
+
+def _hidden(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            plan: Optional[RankPlan], attention: Optional[str]
+            ) -> Tuple[torch.Tensor, AuxDict]:
+    """The stack's output and aux: under ``seq_shard`` the rank's S / M
+    rows of it."""
+    if plan is not None:
+        batch = plan.local_batch(batch)
+    x, positions = _embed(cfg, params, batch, compute_dtype(cfg), plan)
+    emb0 = x if MAMBA2_SHARED in cfg.pattern else None
+    shared = params.get("shared_attn")
+    if plan is not None and shared is not None:
+        shared = plan.shared_block(shared)
+    seq = plan is not None and plan.seq
+    if seq:
+        x = plan.seq_split(x)
+    aux = _zero_aux(cfg, x.device)
+    layer = functools.partial(apply_layer, cfg, positions=positions,
+                              emb0=emb0, shared=shared, attention=attention)
+
+    def run(i, kind, p, x):
+        """One layer: over a mesh its leaves gathered here, so a
+        checkpointed layer gathers them again in its recompute."""
+        if plan is None:
+            return layer(kind, p, x)
+        p, tp = plan.layer(i, kind, p)
+        if seq and tp is None:
+            # a block run whole: every model rank the whole sequence
+            x, ai = layer(kind, p, plan.seq_gather(x, partial=False))
+            return plan.seq_split(x), ai
+        return layer(kind, p, x, tp=tp)
+
+    if cfg.remat and recording(x):
+        run = checkpointed(run)
+    for i, (kind, p) in enumerate(zip(cfg.pattern, params["layers"],
+                                      strict=True)):
+        x, ai = run(i, kind, p, x)
+        if ai is not None:
+            aux = _acc_aux(aux, ai)
+    return x, aux
 
 
 def forward_hidden(cfg: ModelConfig, params: Params,
@@ -471,29 +550,12 @@ def forward_hidden(cfg: ModelConfig, params: Params,
 
     With a ``MeshCtx`` ``batch`` is the global batch and the result the
     rank's rows (``plan``: the rank's plan of the call, made here unless
-    given)."""
+    given), every position."""
     if plan is None:
-        plan = mesh_plan(cfg, ctx, _batch_rows(batch))
-    if plan is not None:
-        batch = plan.local_batch(batch)
-    x, positions = _embed(cfg, params, batch, compute_dtype(cfg), plan)
-    emb0 = x if MAMBA2_SHARED in cfg.pattern else None
-    shared = params.get("shared_attn")
-    if plan is not None and shared is not None:
-        shared = plan.shared_block(shared)
-    aux = _zero_aux(cfg, x.device)
-    layer = functools.partial(apply_layer, cfg, positions=positions,
-                              emb0=emb0, shared=shared, attention=attention)
-    if cfg.remat and recording(x):
-        layer = checkpointed(layer)
-    for i, (kind, p) in enumerate(zip(cfg.pattern, params["layers"],
-                                      strict=True)):
-        tp = None
-        if plan is not None:
-            p, tp = plan.layer(i, kind, p)
-        x, ai = layer(kind, p, x, tp=tp)
-        if ai is not None:
-            aux = _acc_aux(aux, ai)
+        plan = batch_plan(cfg, ctx, batch)
+    x, aux = _hidden(cfg, params, batch, plan, attention)
+    if plan is not None and plan.seq:
+        x = plan.seq_gather(x, partial=False)
     return x, aux
 
 
@@ -502,7 +564,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, AuxDict]:
     """Full-sequence forward. Returns (logits, aux); over a mesh the
     rank's rows of the logits, every vocabulary entry."""
-    plan = mesh_plan(cfg, ctx, _batch_rows(batch))
+    plan = batch_plan(cfg, ctx, batch)
     x, aux = forward_hidden(cfg, params, batch, ctx, attention=attention,
                             plan=plan)
     return _readout(cfg, params, x, plan), aux
@@ -511,6 +573,32 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
+
+def _nll(cfg: ModelConfig, logits: torch.Tensor, lab: torch.Tensor,
+         plan: Optional[RankPlan] = None) -> torch.Tensor:
+    """−log softmax(logits)[lab] in fp32 (lab ≥ 0 where it counts). With a
+    ``plan`` the logits are the rank's vocabulary range: the max from
+    every rank's (no gradient), Σ exp and the target's logit (from the
+    rank whose range holds it) summed over ``model`` in rank order."""
+    lf, lab = logits.float(), lab.long()
+    if plan is None:
+        logp = torch.log_softmax(lf, dim=-1)
+        return -torch.take_along_dim(logp, lab.clamp(min=0)[..., None],
+                                     dim=-1)[..., 0]
+    comm, model = plan.comm, (plan.model,)
+    vl = lf.shape[-1]
+    with torch.no_grad():
+        mx = comm.all_gather(lf.amax(-1, keepdim=True), lf.ndim - 1, model)
+        mx = mx.amax(-1, keepdim=True)
+    se = comm.ordered_sum(torch.exp(lf - mx).sum(-1), model)
+    loc = lab - plan.m * vl
+    mine = (loc >= 0) & (loc < vl)
+    tl = torch.take_along_dim(lf, loc.clamp(0, vl - 1)[..., None],
+                              dim=-1)[..., 0]
+    tl = comm.ordered_sum(torch.where(mine, tl, torch.zeros_like(tl)),
+                          model)
+    return torch.log(se) + mx[..., 0] - tl
+
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             ctx=None, lb_coef: float = 0.01, loss_chunk: int = 1024
@@ -524,10 +612,19 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     ``torch.utils.checkpoint`` where autograd records, so the (B, S, V)
     logits never exist. ``ce = Σ nll / max(#labels, 1)``; a pattern with
     MoE layers adds ``lb_coef · lb_loss / n_moe``. The labels are (B, S),
-    MusicGen's (B, S, C); a VLM's cover its patch prefix too."""
-    check_ctx(ctx, training=True)
-    hidden, aux = forward_hidden(cfg, params, batch, attention="plain")
-    labels = batch["labels"]
+    MusicGen's (B, S, C); a VLM's cover its patch prefix too.
+
+    With a ``MeshCtx`` (``batch`` global) every rank returns the global
+    batch's loss and metrics: the readout is vocab-parallel where the
+    head's vocabulary is sharded over ``model`` (`_nll`), the head
+    gathered over the data axes once for every chunk, and Σ nll and the
+    label count are summed over the batch's data axes in rank order."""
+    ctx = check_ctx(ctx)
+    plan = batch_plan(cfg, ctx, batch)
+    hidden, aux = forward_hidden(cfg, params, batch, attention="plain",
+                                 plan=plan)
+    labels = batch["labels"] if plan is None \
+        else plan.local_rows(batch["labels"])
     b, s = hidden.shape[:2]
     c = min(loss_chunk, s)
     s_pad = ((s + c - 1) // c) * c
@@ -535,13 +632,13 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         hidden = F.pad(hidden, (0, 0, 0, s_pad - s))
         pad_lab = (0, 0) * (labels.ndim - 2) + (0, s_pad - s)
         labels = F.pad(labels, pad_lab, value=-1)
+    name, fn, w, sharded = _head(cfg, params, plan)
+    vocab_plan = plan if sharded and plan.m_size > 1 else None
 
-    def chunk_ce(h, lab):
-        logits = _readout(cfg, params, h)
+    def chunk_ce(h, lab, fn, w):
+        logits = _logits(cfg, (name, fn, w, sharded), h, plan)
         m = (lab >= 0).float()
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.take_along_dim(logp, lab.clamp(min=0)[..., None],
-                                    dim=-1)[..., 0]
+        nll = _nll(cfg, logits, lab, vocab_plan)
         return (nll * m).sum(), m.sum()
 
     if recording(hidden):
@@ -549,8 +646,11 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     tot = cnt = torch.zeros((), device=hidden.device)
     for i in range(s_pad // c):
         t, n = chunk_ce(hidden[:, i * c:(i + 1) * c],
-                        labels[:, i * c:(i + 1) * c])
+                        labels[:, i * c:(i + 1) * c], fn, w)
         tot, cnt = tot + t, cnt + n
+    if plan is not None:
+        tot = plan.comm.ordered_sum(tot, plan.batch_axes)
+        cnt = plan.comm.ordered_sum(cnt, plan.batch_axes)
     ce = tot / torch.clamp(cnt, min=1.0)
     n_moe = cfg.pattern.count(MOE)
     total = ce + lb_coef * aux["lb_loss"] / n_moe if n_moe else ce
@@ -641,16 +741,19 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p: Params,
     then holds the KV heads its ``wk`` projects."""
     window = effective_window(cfg, kind)
     heads = None if tp is None else tp.heads()
+    part = heads is not None and heads.reduce
     if kind == ATTN_PARALLEL:
         n = apply_norm(cfg, p["norm"], x)
         h, cache = attn_mod.attention_decode(cfg, p["attn"], n, cache, pos,
                                              window, heads)
-        return x + _parallel_sum(cfg, p, h, n, heads, tp), cache
+        m_part = tp is not None and tp.mlp_sharded()
+        return x + _parallel_out(tp, h, apply_mlp(cfg, p["mlp"], n), part,
+                                 m_part), cache
     if kind in (ATTN, ATTN_LOCAL, MOE):
         h, cache = attn_mod.attention_decode(
             cfg, p["attn"], apply_norm(cfg, p["norm1"], x), cache, pos,
             window, heads)
-        h, _ = _attn_out(h, heads, tp)
+        h = _leave(tp, h, part)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm1_post"], h)
         x = x + h
@@ -658,7 +761,8 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p: Params,
         if kind == MOE:
             h, _ = moe_mod.moe_ffn(cfg, p["moe"], hin, tp)
         else:
-            h, _ = _mlp(cfg, p["mlp"], hin, tp)
+            m_part = tp is not None and tp.mlp_sharded()
+            h = _leave(tp, apply_mlp(cfg, p["mlp"], hin), m_part)
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
         return x + h, cache

@@ -31,6 +31,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.sharding.rules import entry_axes
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -62,20 +63,46 @@ def apply_updates(params, updates):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, comm=None, specs=None):
     """Scale ``grads`` in place by min(1, max_norm / (‖g‖ + 1e-9)), the
     norm's squares summed in fp32 over the leaves in ``repro``'s
     (``jax.tree_util``'s) order. Returns (grads, the norm before
-    clipping)."""
+    clipping).
+
+    Over a mesh ``grads`` are a rank's blocks placed by ``specs`` (the
+    parameters' ``Spec`` tree) and ``comm`` its collectives: each element
+    counts once, a block replicated over an axis at that axis's first
+    position only (as ``unshard_tree`` takes it), and the ranks' sums are
+    added in coordinate order over every axis."""
+    leaves = tree_leaves(grads)
+    counted = [True] * len(leaves)
+    if comm is not None:
+        counted = [all(comm.coords[a] == 0 for a in comm.shape
+                       if a not in {x for e in spec for x in entry_axes(e)})
+                   for spec in _spec_leaves(grads, specs)]
     total = None
-    for g in tree_leaves(grads):
+    for g, c in zip(leaves, counted):
+        if not c:
+            continue
         sq = torch.sum(torch.square(g.float()))
         total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), device=leaves[0].device)
+    if comm is not None:
+        total = comm.ordered_sum(total, tuple(comm.shape))
     norm = torch.sqrt(total)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    for g in tree_leaves(grads):
+    for g in leaves:
         g.mul_(scale)
     return grads, norm
+
+
+def _spec_leaves(tree, specs):
+    """The ``Spec`` of each leaf of ``tree``, in ``tree_leaves``' order
+    (a ``Spec`` is a tuple: the walk follows ``tree``)."""
+    by_id = {}
+    tree_map(lambda t, s: by_id.__setitem__(id(t), s), tree, specs)
+    return [by_id[id(t)] for t in tree_leaves(tree)]
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):

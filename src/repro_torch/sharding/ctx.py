@@ -21,7 +21,23 @@ nothing else:
   sums reduced over ``model`` (``msum``); a leaf the rules replicate over
   ``model`` is computed on whole on every model rank;
 * the recurrent blocks (and zamba2's shared block) gather every leaf and
-  compute whole (``gather_whole``): the same function, more bytes.
+  compute whole (``gather_whole``): the same function, more bytes;
+* with ``seq_shard`` (and S > 1 divisible by the model axis) the residual
+  stream between layers holds the rank's S / M rows: a tensor-parallel
+  layer gathers its normed input over ``model`` and reduce-scatters its
+  partial sums over S (Megatron's sequence parallelism); a block run whole
+  gathers S, runs, and keeps its rows.
+
+Under autograd every rank returns the same loss and calls its backward;
+the gradient of each of its blocks is then the global loss's. A gather
+sums the ranks' cotangents of a block over the axes whose ranks each do a
+part of the work (``resp``: the batch's axes, and ``model`` in a
+sequence-parallel layer) and keeps the rank's own over the axes whose
+ranks repeat it; a leaf replicated over such an axis has its gradient
+summed over it (``sum_grad``, in coordinate order), and so has a
+model-replicated leaf inside a tensor-parallel region (the router, a KV
+projection whose heads do not divide ``model``, qk-norms). Each region's
+replicated input enters through Megatron's *f* (``LayerPlan.enter``).
 """
 from __future__ import annotations
 
@@ -35,10 +51,6 @@ from repro_torch.sharding.comm import Collectives, make_collectives
 from repro_torch.sharding.rules import (Spec, entry_axes, fsdp_axes,
                                         mesh_shape, param_specs)
 from repro_torch.tree import is_namedtuple
-
-#: ROADMAP §1's next item, named by the refusals.
-TRAINING_ITEM = "ROADMAP §1 item 10.5"
-
 
 class MeshCtx(NamedTuple):
     """Axis names and collectives of a sharded call (None → one card)."""
@@ -69,33 +81,14 @@ def ctx_profile(ctx: MeshCtx) -> str:
     return "fsdp_only" if ctx.model_axis in ctx.data_axes else "tp_fsdp"
 
 
-def training_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: training over a mesh (autograd through the collectives, "
-        "the vocab-parallel loss, the FSDP gradients, the optimizer on the "
-        f"local blocks) is not ported to repro_torch yet ({TRAINING_ITEM}); "
-        "serving runs over a MeshCtx, training with ctx=None")
-
-
-def seq_shard_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "seq_shard=True: the sequence-parallel residual stream is not "
-        f"ported to repro_torch yet ({TRAINING_ITEM})")
-
-
-def check_mesh_ctx(ctx, *, training: bool = False,
-                   what: str = "ctx") -> Optional[MeshCtx]:
-    """None for one card; a ``MeshCtx`` that serving runs on; raises for
-    training over a mesh and for ``seq_shard``."""
+def check_mesh_ctx(ctx, *, what: str = "ctx") -> Optional[MeshCtx]:
+    """None for one card, else the ``MeshCtx`` that serving and training
+    run on."""
     if ctx is None:
         return None
     if not isinstance(ctx, MeshCtx):
         raise TypeError(f"{what}: expected a MeshCtx (sharding.make_ctx) or "
                         f"None, got {type(ctx).__name__}")
-    if training:
-        raise training_not_ported(what)
-    if ctx.seq_shard:
-        raise seq_shard_not_ported()
     if ctx.comm is None:
         raise ValueError(f"{what}: the MeshCtx has no collectives; build it "
                          "with sharding.make_ctx")
@@ -166,9 +159,11 @@ def _map(fn, tree, specs):
 
 class RankPlan:
     """What this rank computes in one sharded call of ``cfg`` with a
-    global batch of ``batch`` rows."""
+    global batch of ``batch`` rows (sequences of ``seq_len`` positions;
+    None for a decode step)."""
 
-    def __init__(self, cfg, ctx: MeshCtx, batch: int):
+    def __init__(self, cfg, ctx: MeshCtx, batch: int,
+                 seq_len: Optional[int] = None):
         self.cfg, self.ctx, self.comm = cfg, ctx, ctx.comm
         self.specs = ctx_param_specs(cfg, ctx)
         self.model = ctx.model_axis
@@ -192,6 +187,10 @@ class RankPlan:
         i = self.comm.index(self.batch_axes)
         self.rows = slice(i * b_local, (i + 1) * b_local)
         self.b_local = b_local
+        # repro's _shard: the stream S-sharded over model where S divides
+        self.seq = bool(ctx.seq_shard and self.tp and self.m_size > 1
+                        and seq_len is not None and seq_len > 1
+                        and seq_len % self.m_size == 0)
 
     # -- the batch -----------------------------------------------------
     @property
@@ -207,57 +206,93 @@ class RankPlan:
     def local_rows(self, t: torch.Tensor) -> torch.Tensor:
         return t[self.rows]
 
+    def resp(self, seq_layer: bool = False) -> Tuple[str, ...]:
+        """The axes whose ranks each compute a part of a call's work: the
+        batch's, and ``model`` in a sequence-parallel layer."""
+        return self.batch_axes + ((self.model,) if seq_layer and self.seq
+                                  else ())
+
     # -- parameters ----------------------------------------------------
-    def _gather_leaf(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
-        for dim, entry in enumerate(spec):
-            axes = entry_axes(entry)
-            if axes:
-                t = self.comm.all_gather(t, dim, axes)
-        return t
+    def _sum_axes(self, spec: Spec, resp, partial: bool) -> Tuple[str, ...]:
+        """The axes a leaf of ``spec`` is replicated over whose ranks each
+        contribute a part of its gradient."""
+        held = {a for e in spec for a in entry_axes(e)}
+        want = set(resp) | ({self.model} if partial else set())
+        return tuple(a for a in self.comm.shape
+                     if a in want and a not in held
+                     and self.comm.shape[a] > 1)
 
-    def gather_data(self, tree, specs):
+    def gather_data(self, tree, specs, resp=None, partial=()):
         """``tree``'s leaves gathered over the data axes (model-sharded
-        dims stay the rank's block): one all-gather a dtype for the whole
-        tree (a layer's FSDP gather, as XLA combines it), its leaves'
-        blocks packed into one flat buffer and cut back out."""
-        jobs = {}                       # (dtype, axes) -> [(leaf, dim)]
+        dims stay the rank's block): one all-gather for the leaves of a
+        dtype and placement (a layer's FSDP gather, as XLA combines it),
+        their blocks packed into one flat buffer and cut back out.
+        ``resp``: the axes whose ranks each use the leaves on their part
+        (default the batch's); ``partial``: the top-level keys of ``tree``
+        computed on in a tensor-parallel region, their model-replicated
+        leaves' gradients summed over ``model``."""
+        resp = self.batch_axes if resp is None else tuple(resp)
+        jobs = {}           # (dtype, axes, grad-sum axes, sum axes) -> leaves
 
-        def plan(t, s):
-            for dim, entry in enumerate(s):
-                axes = entry_axes(entry)
-                if axes and self.model not in axes:
-                    jobs.setdefault((t.dtype, axes), []).append((t, dim))
-                    return t
-                if len(axes) > 1:
-                    raise ValueError(f"spec {s}: a dim over {axes}")
+        def plan(t, s, top):
+            dim, axes = None, ()
+            for d, entry in enumerate(s):
+                ax = entry_axes(entry)
+                if ax and self.model not in ax:
+                    dim, axes = d, ax
+                    break
+                if len(ax) > 1:
+                    raise ValueError(f"spec {s}: a dim over {ax}")
+            axes = self.comm.live_axes(axes)
+            sums = self._sum_axes(s, resp, top in partial) \
+                if torch.is_grad_enabled() and t.requires_grad else ()
+            if axes or sums:
+                key = (t.dtype, axes, tuple(a for a in axes if a in resp),
+                       sums)
+                jobs.setdefault(key, []).append((t, dim))
             return t
 
-        _map(plan, tree, specs)
+        _map_top(plan, tree, specs)
         done = {}
-        for (_, axes), leaves in jobs.items():
+        for (_, axes, gsum, sums), leaves in jobs.items():
             g = self.comm.size(axes)
             flat = torch.cat([t.reshape(-1) for t, _ in leaves])
-            parts = self.comm.all_gather(flat[None], 0, axes)   # (G, n)
+            flat = self.comm.sum_grad(flat, sums)
+            parts = self.comm.all_gather(flat[None], 0, axes, grad_sum=gsum)
             off = 0
             for t, dim in leaves:
                 n = t.numel()
                 block = parts[:, off:off + n].reshape((g,) + tuple(t.shape))
                 shape = list(t.shape)
-                shape[dim] *= g
-                # coordinate-major along ``dim``: (.., G, block dim, ..)
-                done[id(t)] = block.movedim(0, dim).reshape(shape)
+                if dim is not None:
+                    shape[dim] *= g
+                    # coordinate-major along ``dim``: (.., G, block dim, ..)
+                    block = block.movedim(0, dim)
+                done[id(t)] = block.reshape(shape)
                 off += n
         return _map(lambda t, s: done.get(id(t), t), tree, specs)
 
-    def gather_whole(self, tree, specs):
-        """``tree``'s leaves gathered over every axis."""
-        return _map(self._gather_leaf, tree, specs)
+    def gather_whole(self, tree, specs, resp=None):
+        """``tree``'s leaves gathered over every axis, for a computation
+        every model rank repeats."""
+        resp = self.batch_axes if resp is None else tuple(resp)
+
+        def one(t, spec):
+            t = self.comm.sum_grad(t, self._sum_axes(spec, resp, False))
+            for dim, entry in enumerate(spec):
+                axes = entry_axes(entry)
+                if axes:
+                    t = self.comm.all_gather(t, dim, axes, grad_sum=resp)
+            return t
+        return _map(one, tree, specs)
 
     def model_sharded(self, spec: Spec, dim: int) -> bool:
         return self.model in entry_axes(spec[dim])
 
     def model_block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's block of ``t`` along ``dim`` over ``model``."""
+        """This rank's block of ``t`` along ``dim`` over ``model`` (a
+        model-replicated leaf of a tensor-parallel region: ``layer`` sums
+        its gradient over ``model``)."""
         n = t.shape[dim]
         if n % self.m_size:
             raise ValueError(f"dim {n} does not divide over the model axis "
@@ -270,8 +305,33 @@ class RankPlan:
         return self.comm.all_reduce(x, self.model)
 
     def mgather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The model ranks' blocks along ``dim``, concatenated."""
+        """The model ranks' blocks along ``dim``, concatenated (every rank
+        then computes on the whole)."""
         return self.comm.all_gather(x, dim, (self.model,))
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's *f*: ``x``, which every model rank holds, into a
+        computation each does a part of; the backward sums over
+        ``model``."""
+        return self.comm.sum_grad(x, (self.model,), ordered=False)
+
+    # -- the sequence-parallel stream ------------------------------------
+    def seq_gather(self, x: torch.Tensor, partial: bool) -> torch.Tensor:
+        """The model ranks' S blocks of ``x`` (B, S / M, ...), gathered;
+        ``partial``: each rank then answers for its own rows only (the
+        backward sums the ranks' cotangents), else every rank computes on
+        the whole (the backward keeps the rank's rows)."""
+        return self.comm.all_gather(x, 1, (self.model,),
+                                    grad_sum=(self.model,) if partial else ())
+
+    def seq_split(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's S block of ``x`` (B, S, ...), which every model rank
+        holds."""
+        return self.comm.split(x, 1, (self.model,))
+
+    def seq_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's S block of its own ``x`` (B, S, ...)."""
+        return self.comm.own(x, 1, (self.model,))
 
     def layer(self, i: int, kind: str, p):
         """Layer ``i``'s parameters as the rank computes with them, and
@@ -279,7 +339,9 @@ class RankPlan:
         spec = self.specs["layers"][i]
         if kind in WHOLE_KINDS:
             return self.gather_whole(p, spec), None
-        return self.gather_data(p, spec), LayerPlan(self, spec)
+        lp = LayerPlan(self, spec)
+        partial = () if self.seq else lp.partial_keys()
+        return self.gather_data(p, spec, self.resp(True), partial), lp
 
     def shared_block(self, shared):
         """zamba2's shared block, whole."""
@@ -366,12 +428,52 @@ class LayerPlan:
         return head_slice(self.plan.cfg, self.spec["attn"], self.plan)
 
     def mlp_sharded(self) -> bool:
-        return self.plan.model_sharded(self.spec["mlp"]["w_up"], 1)
+        return "mlp" in self.spec \
+            and self.plan.model_sharded(self.spec["mlp"]["w_up"], 1)
 
-    def msum(self, x):
-        return self.plan.msum(x)
+    def moe_sharded(self) -> bool:
+        return self.plan.tp and self.plan.m_size > 1
+
+    def partial_keys(self) -> Tuple[str, ...]:
+        """The top-level keys of the layer computed on in a
+        tensor-parallel region (each model rank a part, summed after)."""
+        keys = []
+        if "attn" in self.spec and self.heads().reduce:
+            keys.append("attn")
+        if self.mlp_sharded():
+            keys.append("mlp")
+        if "moe" in self.spec and self.moe_sharded():
+            keys.append("moe")
+        return tuple(keys)
+
+    def enter(self, x: torch.Tensor, partial: bool) -> torch.Tensor:
+        """A region's normed input ``x``: under ``seq_shard`` its S blocks
+        gathered (the backward a reduce-scatter), else *f* where the
+        region is ``partial``."""
+        if self.plan.seq:
+            return self.plan.seq_gather(x, partial=True)
+        return self.plan.enter(x) if partial else x
+
+    def leave(self, h: torch.Tensor, partial: bool) -> torch.Tensor:
+        """A region's output: the model ranks' partials summed (under
+        ``seq_shard`` reduce-scattered over S; a whole region's rows
+        kept)."""
+        plan = self.plan
+        if plan.seq:
+            return plan.comm.reduce_scatter(h, 1, (plan.model,)) if partial \
+                else plan.seq_rows(h)
+        return plan.msum(h) if partial else h
+
+
+def _map_top(fn, tree, specs):
+    """``fn(leaf, spec, top)`` over ``tree``'s leaves, ``top`` the
+    top-level key a leaf lies under (None at the top)."""
+    if isinstance(tree, dict):
+        return {k: _map(lambda t, s, k=k: fn(t, s, k), v, specs[k])
+                for k, v in tree.items()}
+    return _map(lambda t, s: fn(t, s, None), tree, specs)
 
 
 __all__ = ["LayerPlan", "MeshCtx", "RankPlan", "ShardedCaches",
            "check_mesh_ctx", "ctx_param_specs", "ctx_profile", "make_ctx",
-           "seq_shard_not_ported", "training_not_ported", "whole_blocks"]
+           "whole_blocks"]

@@ -18,8 +18,11 @@
   doubles the per-layer part (the counterpart of ``repro``'s trip-count
   tests, ``tests/test_sharding_launch.py``: the port's layers are a Python
   loop, each counted as it runs).
-* The refusals: the ``train_4k`` pairs (item 10.5) and
-  ``gemma2-27b × prefill_32k`` (K9's C1), and the CLI's lines.
+* The items: the ``train_4k`` pairs that item 10.5 made run record
+  ``ok`` (argument bytes with the AdamW moments, the backward's
+  reduce-scatters, no K9 launch), and so does a ``seq_shard`` pair, whose
+  rank keeps smaller activations; ``gemma2-27b × prefill_32k`` refuses
+  (K9's C1); the CLI's lines.
 """
 import dataclasses
 import math
@@ -175,18 +178,66 @@ def test_flops_split_over_a_mesh():
     ("gemma2-27b", "prefill_32k", "C1"),
 ])
 def test_refusals_name_their_items(arch, shape, match):
+    """Each pair under the ROADMAP item that decides it: the ``train_4k``
+    pairs run since item 10.5 (training over a mesh), the windowed
+    softcapped prefill refuses naming C1 (K9's window and softcap)."""
     res = D.run_pair(arch, shape, "single")
-    assert not res["ok"]
-    assert match in res["error"]
     assert res["chips"] == 256
+    if match == "C1":
+        assert not res["ok"]
+        assert match in res["error"]
+        return
+    assert res["ok"], res.get("error")
+    mem, hlo = res["memory"], res["hlo"]
+    # fp32 masters and two fp32 moments of the same blocks, and a count
+    assert abs(mem["opt_gb"] - 2 * mem["param_gb"] - 4e-9) < 1e-12
+    assert hlo["coll_reduce_scatter"] > 0 and hlo["coll_all_gather"] > 0
+    assert res["k9_launches"] == 0 and hlo["k9_flops"] == 0
+    assert res["roofline"]["compute_s"] > 0 and mem["fits_card"]
 
 
 def test_refusals_of_levers():
     res = D.run_pair("qwen2.5-3b", "prefill_32k", "single", seq_shard=True)
-    assert not res["ok"] and "item 10.5" in res["error"]
+    assert res["ok"], res.get("error")
+    base = D.run_pair("qwen2.5-3b", "prefill_32k", "single")
+    assert res["memory"]["temp_gb"] < base["memory"]["temp_gb"]
     res = D.run_pair("deepseek-moe-16b", "prefill_32k", "single",
                      profile="fsdp_only")
     assert not res["ok"] and "fsdp_only" in res["error"]
+
+
+def test_train_pair_seq_shard_keeps_smaller_activations():
+    """A train step at (2, 2) on a reduced config: the rank's argument
+    bytes are its parameter blocks, their two AdamW moments and its rows
+    of the inputs; the products are the forward's, each layer's recompute
+    and the backward's (three to five times the loss's forward); with
+    ``seq_shard`` the same products and a smaller peak (the remat carries
+    hold S / M rows), the model-axis sums turned into reduce-scatters."""
+    from repro_torch.launch.cost import count_step
+    cfg = dataclasses.replace(
+        t_configs.get_config("qwen2.5-3b").reduced(num_layers=2),
+        remat=True)
+    shape = InputShape("t", 256, 4, "train")
+    runs = {}
+    for seq in (False, True):
+        ctx = make_ctx(make_abstract_mesh((2, 2), ("data", "model")),
+                       seq_shard=seq)
+        runs[seq] = D.rank_step(cfg, shape, ctx)
+    off, on = runs[False], runs[True]
+    assert off["opt_bytes"] == 2 * off["param_bytes"] + 4
+    assert off["argument_bytes"] == off["param_bytes"] + off["opt_bytes"] \
+        + off["input_bytes"]
+    assert on["dot_flops"] == off["dot_flops"]
+    assert on["temp_bytes"] < off["temp_bytes"]
+    assert on["coll_all_reduce"] < off["coll_all_reduce"]
+    assert on["coll_reduce_scatter"] > off["coll_reduce_scatter"] > 0
+    assert off["k9_launches"] == 0
+    ctx = make_ctx(make_abstract_mesh((2, 2), ("data", "model")))
+    params = TT.init_params(cfg, device="meta", ctx=ctx)
+    _, fwd = count_step(lambda: TT.loss_fn(cfg, params,
+                                           D.input_specs(cfg, shape), ctx),
+                        ctx.comm)
+    assert 3 * fwd["dot_flops"] < off["dot_flops"] < 5 * fwd["dot_flops"]
 
 
 def test_fsdp_only_profile_runs():
@@ -206,12 +257,13 @@ def test_fsdp_only_profile_runs():
 
 def test_cli_lines(tmp_path, capsys):
     out = tmp_path / "d.jsonl"
-    D.main(["--arch", "qwen2.5-3b", "--shape", "train_4k", "--mesh", "both",
-            "--out", str(out)])
+    D.main(["--arch", "gemma2-27b", "--shape", "prefill_32k", "--mesh",
+            "both", "--out", str(out)])
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 2
-    assert lines[0].startswith("[FAIL] qwen2.5-3b × train_4k × single: ")
-    assert lines[1].startswith("[FAIL] qwen2.5-3b × train_4k × multi: ")
+    assert lines[0].startswith("[FAIL] gemma2-27b × prefill_32k × single: ")
+    assert lines[1].startswith("[FAIL] gemma2-27b × prefill_32k × multi: ")
+    assert all("C1" in ln for ln in lines)
     recs = [__import__("json").loads(x) for x in
             out.read_text().splitlines()]
     assert [r["chips"] for r in recs] == [256, 512]

@@ -1822,3 +1822,100 @@ def test_k9_meta_path_allocates_on_meta_only(cuda, monkeypatch):
     assert fa.LAUNCHES["flash_attention"] == 1
     assert fa.FLOPS["flash_attention"] == 4.0 * 128 * 16 * 4096 * 4097 / 2
     assert torch.cuda.memory_allocated() == before
+
+
+# ---------------------------------------------------------------------------
+# LM training over a mesh on the card: the autograd collectives on CUDA
+# tensors (sharding/comm.py), a rank of a spawned group on cuda:0
+# ---------------------------------------------------------------------------
+
+def _train_mesh_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2.5-3b").reduced(
+        seq_len_hint=64, num_layers=2), dtype="float32")
+
+
+def _train_mesh_rank(rank, world, shape):
+    """One rank on cuda:0: its blocks' gradients (``loss_and_grads``) of
+    the reduced model in fp32, and on a (1, 1) mesh one AdamW step
+    against ctx=None's, bit for bit."""
+    import copy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import make_ctx
+    from repro_torch.training import (TrainState, loss_and_grads,
+                                      make_train_step, shard_train_state)
+    from repro_torch.tree import tree_leaves, tree_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = _train_mesh_cfg()
+    ctx = make_ctx(make_host_mesh(*shape, device=dev))
+    gen = torch.Generator(dev).manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                              device=dev) for k in ("tokens", "labels")}
+    params = T.init_params(cfg, 0, device=dev, ctx=ctx)
+    _, grads = loss_and_grads(cfg, params, batch, 1, ctx)
+    out = {"coords": dict(ctx.comm.coords),
+           "received": dict(ctx.comm.received),
+           "grads": {p: g.cpu().numpy() for p, g in tree_paths(grads)}}
+    if world == 1:
+        opt = adamw(3e-4)
+        full = T.init_params(cfg, 0, device=dev)
+
+        def fresh():
+            p = copy.deepcopy(full)
+            return TrainState(p, opt.init(p), 0)
+        a, ma = make_train_step(cfg, opt)(fresh(), batch)
+        b, mb = make_train_step(cfg, opt, ctx)(
+            shard_train_state(cfg, fresh(), ctx), batch)
+        out["bit_equal"] = all(torch.equal(ma[k], mb[k]) for k in ma) and \
+            all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                                  tree_leaves(b.params)))
+    return out
+
+
+def test_train_step_at_one_nccl_rank_equals_no_ctx(cuda):
+    """One NCCL rank on the card at (1, 1): the sharded train step is
+    ctx=None's bits, and its collectives (all of size 1) move nothing."""
+    from repro_torch.launch.mesh import spawn_ranks
+    (r,) = spawn_ranks(_train_mesh_rank, 1, backend="nccl",
+                       args=((1, 1),), timeout_s=240.0)
+    assert r["bit_equal"]
+    assert sum(r["received"].values()) == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_autograd_collectives_on_cuda_tensors(cuda, shape):
+    """Two gloo ranks on cuda:0 (host copies of CUDA tensors): the
+    gradients of their blocks, put together, are the unsharded model's
+    on the card within 1e-5 relative L2 a leaf (fp32); the data axis
+    reduce-scatters the FSDP gradients, the model axis sums the
+    tensor-parallel inputs' cotangents."""
+    from repro_torch.launch.mesh import make_abstract_mesh, spawn_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.sharding import make_ctx
+    from repro_torch.sharding.ctx import ctx_param_specs
+    from repro_torch.sharding.rules import unshard_tree
+    from repro_torch.training import loss_and_grads
+    from repro_torch.tree import tree_map_with_path, tree_paths
+    ranks = spawn_ranks(_train_mesh_rank, 2, args=(shape,), timeout_s=240.0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_mesh_cfg()
+    gen = torch.Generator(cuda).manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                              device=cuda) for k in ("tokens", "labels")}
+    _, want = loss_and_grads(cfg, T.init_params(cfg, 0, device=cuda), batch)
+    actx = make_ctx(make_abstract_mesh(shape, ("data", "model")))
+    blocks = [tree_map_with_path(
+        lambda p, _, r=r: torch.from_numpy(r["grads"][p]), param_shapes(cfg))
+        for r in ranks]
+    got = dict(tree_paths(unshard_tree(actx.mesh, blocks,
+                                       ctx_param_specs(cfg, actx))))
+    for path, w in tree_paths(want):
+        w = w.cpu()
+        assert float((got[path] - w).norm() / w.norm()) < 1e-5, path
+    kind = "reduce_scatter" if shape[0] > 1 else "all_reduce"
+    assert all(r["received"][kind] > 0 for r in ranks)

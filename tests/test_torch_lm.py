@@ -663,37 +663,57 @@ def test_npz_recurrent_caches_both_ways(arch, tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_mesh_and_training_raise_naming_their_item():
-    """Serving runs over a ``MeshCtx`` (ROADMAP §1 item 10.4; the sharded
-    model against ``repro``'s is ``tests/test_torch_lm_mesh.py``): on a
-    (1, 1) mesh it computes ctx=None's bits. Training over a mesh and the
-    ``seq_shard`` lever raise naming item 10.5; anything but a
-    ``MeshCtx`` is refused."""
+    """Serving and training run over a ``MeshCtx`` (ROADMAP §1 items 10.4
+    and 10.5; the sharded model against ``repro``'s is
+    ``tests/test_torch_lm_mesh.py``, its training
+    ``tests/test_torch_train_mesh.py``): on a (1, 1) mesh the forward,
+    the prefill, decode, ``loss_fn`` and a train step compute ctx=None's
+    bits, with the ``seq_shard`` lever on too (every axis of size 1).
+    Anything but a ``MeshCtx`` is refused."""
+    import copy
     from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.optim import adamw
     from repro_torch.sharding import make_ctx
+    from repro_torch.training import TrainState, shard_train_state
     _, cfg = _reduced("qwen2.5-3b")
-    ctx = make_ctx(make_abstract_mesh((1, 1), ("data", "model")))
     params = TT.init_params(cfg, 0, device=CPU)
     batch = {"tokens": torch.arange(B * S).reshape(B, S) % cfg.vocab_size}
-    with torch.inference_mode():
-        assert torch.equal(TT.forward(cfg, params, batch, ctx)[0],
-                           TT.forward(cfg, params, batch)[0])
-        assert torch.equal(make_prefill_step(cfg, ctx)(params, batch),
-                           make_prefill_step(cfg)(params, batch))
-    make_serve_step(cfg, ctx)
-    for call in (lambda: make_train_step(cfg, None, ctx),
-                 lambda: TT.loss_fn(cfg, {}, {}, ctx)):
-        with pytest.raises(NotImplementedError, match="item 10.5"):
-            call()
-    seq = ctx._replace(seq_shard=True)
-    for call in (lambda: TT.forward(cfg, params, batch, seq),
-                 lambda: TT.decode_step(cfg, params, [], batch["tokens"][:, 0],
-                                        None, seq),
-                 lambda: make_prefill_step(cfg, seq),
-                 lambda: make_serve_step(cfg, seq)):
-        with pytest.raises(NotImplementedError, match="item 10.5"):
-            call()
+    train = dict(batch, labels=(batch["tokens"] * 7 + 3) % cfg.vocab_size)
+    opt = adamw(3e-4)
+    for seq_shard in (False, True):
+        ctx = make_ctx(make_abstract_mesh((1, 1), ("data", "model")),
+                       seq_shard=seq_shard)
+        with torch.inference_mode():
+            assert torch.equal(TT.forward(cfg, params, batch, ctx)[0],
+                               TT.forward(cfg, params, batch)[0])
+            assert torch.equal(make_prefill_step(cfg, ctx)(params, batch),
+                               make_prefill_step(cfg)(params, batch))
+            c1 = TT.init_caches(cfg, B, S, torch.float32, device=CPU)
+            c2 = TT.init_caches(cfg, B, S, torch.float32, device=CPU,
+                                ctx=ctx)
+            pos = torch.zeros((B,), dtype=torch.int32)
+            assert torch.equal(
+                make_serve_step(cfg)(params, c1, batch["tokens"][:, 0],
+                                     pos)[1],
+                make_serve_step(cfg, ctx)(params, c2, batch["tokens"][:, 0],
+                                          pos)[1])
+        assert torch.equal(TT.loss_fn(cfg, params, train, ctx)[0],
+                           TT.loss_fn(cfg, params, train)[0])
+
+        def fresh():
+            p = copy.deepcopy(params)
+            return TrainState(p, opt.init(p),
+                              torch.zeros((), dtype=torch.int32))
+        a, ma = make_train_step(cfg, opt)(fresh(), train)
+        b, mb = make_train_step(cfg, opt, ctx)(
+            shard_train_state(cfg, fresh(), ctx), train)
+        assert all(torch.equal(ma[k], mb[k]) for k in ma)
+        assert all(torch.equal(x, y) for x, y in
+                   zip(jax.tree.leaves(a.params), jax.tree.leaves(b.params)))
     with pytest.raises(TypeError, match="MeshCtx"):
         TT.forward(cfg, params, batch, object())
+    with pytest.raises(TypeError, match="MeshCtx"):
+        make_train_step(cfg, opt, object())
 
 
 def test_entry_points_run_on_cuda_unless_told():

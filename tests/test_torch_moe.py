@@ -163,10 +163,12 @@ def test_routed_sum_in_ascending_expert_order_and_deterministic(arch, rng):
 
 
 def test_moe_mesh_raises_naming_its_item():
-    """The MoE block serves over a mesh (ROADMAP §1 item 10.4): on a
-    rank's plan of a (1, 1) mesh it is ctx=None's block bit for bit, and
-    ``moe_block_emulated`` at (1, 1) too. Training over a mesh raises
-    naming item 10.5 (``mesh_not_ported``)."""
+    """The MoE block serves and trains over a mesh (ROADMAP §1 items 10.4
+    and 10.5): on a rank's plan of a (1, 1) mesh it is ctx=None's block
+    bit for bit, and ``moe_block_emulated`` at (1, 1) too; under autograd
+    its gradients are ctx=None's bits, and so are ``loss_fn``'s on a MoE
+    pattern (the sharded block against ``repro``'s is
+    ``tests/test_torch_train_mesh.py``)."""
     from repro_torch.launch.mesh import make_abstract_mesh
     from repro_torch.sharding import RankPlan, make_ctx
     from repro_torch.sharding.ctx import LayerPlan
@@ -182,9 +184,23 @@ def test_moe_mesh_raises_naming_its_item():
                    TM.moe_block_emulated(ct, pt, x, data=1, model=1)):
         assert torch.equal(y, y0)
         assert all(torch.equal(aux[k], aux0[k]) for k in aux0)
-    assert "item 10.5" in str(TM.mesh_not_ported())
-    with pytest.raises(NotImplementedError, match="item 10.5"):
-        TT.loss_fn(cfg, {}, {}, ctx)
+    def grads(tp):
+        p = {k: (v.detach().requires_grad_(True) if torch.is_tensor(v)
+                 else v) for k, v in pt.items()}
+        xx = x.clone().requires_grad_(True)
+        y, aux = TM.moe_ffn(ct, p, xx, tp)
+        (y.square().sum() + aux["lb_loss"]).backward()
+        return [xx.grad] + [p[k].grad for k in ("router", "w_gate", "w_up",
+                                                "w_down")]
+    for g0, g1 in zip(grads(None),
+                      grads(LayerPlan(plan, plan.specs["layers"][0])),
+                      strict=True):
+        assert torch.equal(g0, g1)
+    params = TT.init_params(cfg, 0, device=CPU)
+    toks = torch.arange(2 * 8).reshape(2, 8) % cfg.vocab_size
+    train = {"tokens": toks, "labels": (toks * 5 + 1) % cfg.vocab_size}
+    assert torch.equal(TT.loss_fn(cfg, params, train, ctx)[0],
+                       TT.loss_fn(cfg, params, train)[0])
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
