@@ -264,10 +264,17 @@ and the LM template over a device mesh, after it:
                at 4 layers in fp32 at 1e-3; DeepSeekMoE-16B's first 4
                layers (32 experts a model rank), the first MoE block
                against moe_block_emulated on the card at the bf16 bars,
-               counts and drops exactly; each rank's argument and
-               collective bytes equal to the meta dry run's
-               (launch/dryrun.py), max_memory_allocated beside its peak;
-               then 1 NCCL rank at (1, 1), bit-equal to ctx=None. Then
+               counts and drops exactly; the recurrent models, their
+               blocks split by heads over model: zamba2-1.2B's first 6
+               layers in bf16 (its bar) and fp32 (1e-3), K9 once a rank
+               a prefill (the shared block on the rank's 16 heads), and
+               xLSTM-1.3B's first 2 layers in fp32 at S = 256, the same
+               prefill and decode step; each rank's argument and
+               collective bytes (a decode step's state restore apart)
+               equal to the meta dry run's (launch/dryrun.py),
+               max_memory_allocated beside its peak (the recurrent
+               models' within 1.5 × it + 1 GiB); then 1 NCCL rank at
+               (1, 1), bit-equal to ctx=None. Then
                in the same ranks, training over the mesh (lm_mesh_train):
                (a) Qwen2.5-3B unreduced, bf16 over fp32 masters, remat,
                AdamW, clip 1.0, S = 4,096, B = 2, 2 steps; (b) the NCCL
@@ -5175,22 +5182,68 @@ LM_MESH_FP32_LAYERS = 4
 # DeepSeekMoE-16B's first 4 layers (one dense, three MoE), its prefill
 LM_MESH_MOE_LAYERS = 4
 LM_MESH_MOE_S = 1024
+# the recurrent models over the mesh, their blocks split by heads:
+# zamba2-1.2B's first 6 layers (layer 5 applies the shared block) in bf16
+# and fp32, xLSTM-1.3B's first 2 (one mLSTM, one sLSTM) in fp32 with a
+# prefill of LM_MESH_XLSTM_S (the sLSTM's loop over time a step a token)
+LM_MESH_ZAMBA_LAYERS = 6
+LM_MESH_XLSTM_LAYERS = 2
+LM_MESH_XLSTM_S = 256
+# a recurrent model's max_memory_allocated a rank against the dry run's
+# peak at the same shapes: at most its peak × this + LM_MESH_MEM_PAD
+# bytes (the caching allocator's blocks, the init's one whole array at a
+# time); set before the first card run, with the prediction in PERF.md §6
+LM_MESH_MEM_SLACK = 1.5
+LM_MESH_MEM_PAD = 1 << 30
 LM_MESH_SPAWN_S = 1000.0       # a spawn's whole run: its ranks killed past it
 LM_MESH_GLOO_S = 300.0         # a collective's timeout
 
 
 def lm_mesh_configs():
-    """The phase's three configurations: Qwen2.5-3B unreduced (bf16), its
-    first LM_MESH_FP32_LAYERS layers in fp32, DeepSeekMoE-16B's first
-    LM_MESH_MOE_LAYERS layers (bf16)."""
+    """The phase's configurations: Qwen2.5-3B unreduced (bf16), its first
+    LM_MESH_FP32_LAYERS layers in fp32, DeepSeekMoE-16B's first
+    LM_MESH_MOE_LAYERS layers (bf16); zamba2-1.2B's first
+    LM_MESH_ZAMBA_LAYERS (bf16 and fp32) and xLSTM-1.3B's first
+    LM_MESH_XLSTM_LAYERS (fp32), at full width."""
     import dataclasses
     from repro_torch.configs import get_config
     qwen = get_config(LM_ARCH)
     fp32 = dataclasses.replace(lm_cut(qwen, slice(0, LM_MESH_FP32_LAYERS)),
                                dtype="float32")
     moe = lm_cut(get_config(LM_MOE_ARCH), slice(0, LM_MESH_MOE_LAYERS))
+    zamba = lm_cut(get_config(LM_ZAMBA_ARCH),
+                   slice(0, LM_MESH_ZAMBA_LAYERS))
+    xlstm = dataclasses.replace(
+        lm_cut(get_config(LM_XLSTM_ARCH), slice(0, LM_MESH_XLSTM_LAYERS)),
+        dtype="float32")
     return {"qwen2.5-3b": qwen, "qwen2.5-3b_fp32": fp32,
-            "deepseek-moe-16b": moe}
+            "deepseek-moe-16b": moe, "zamba2-1.2b": zamba,
+            "zamba2-1.2b_fp32": dataclasses.replace(zamba, dtype="float32"),
+            "xlstm-1.3b_fp32": xlstm}
+
+
+#: the configurations the phase serves and holds against the unsharded
+#: model (the NCCL rank serves the first alone)
+LM_MESH_SERVED = ("qwen2.5-3b", "qwen2.5-3b_fp32", "zamba2-1.2b",
+                  "zamba2-1.2b_fp32", "xlstm-1.3b_fp32")
+LM_MESH_RECURRENT = LM_MESH_SERVED[2:]
+
+
+def lm_mesh_bar(cfg):
+    """A served configuration's relative-L2 bar against the unsharded
+    model: LM_FP32_REL_L2 in fp32, else its model's bf16 bar."""
+    import torch
+    from repro_torch.models.layers import compute_dtype
+    if compute_dtype(cfg) == torch.float32:
+        return LM_FP32_REL_L2
+    return LM_BF16_REL_L2[LM_ZAMBA_ARCH if cfg.name == LM_ZAMBA_ARCH
+                          else LM_ARCH]
+
+
+def lm_mesh_prefill(cfg):
+    """The phase's prefill (B, S) for ``cfg``."""
+    b, s = LM_MESH_PREFILL
+    return b, LM_MESH_XLSTM_S if cfg.name == LM_XLSTM_ARCH else s
 
 
 def lm_mesh_tokens(cfg, device):
@@ -5198,7 +5251,7 @@ def lm_mesh_tokens(cfg, device):
     decode's (B, prompt + steps), int32 as repro's inputs."""
     import torch
     gen = torch.Generator(device=device).manual_seed(LM_SEED + 3)
-    b, s = LM_MESH_PREFILL
+    b, s = lm_mesh_prefill(cfg)
     db, prompt, steps = LM_MESH_DECODE
     draw = dict(generator=gen, device=device, dtype=torch.int32)
     return (torch.randint(0, cfg.vocab_size, (b, s), **draw),
@@ -5304,13 +5357,14 @@ def lm_mesh_moe(cfg, params, device, ctx):
             "tokens": tokens.cpu(), **seen[0]}
 
 
-def lm_mesh_rank(rank, world, backend, ref_dir=None):
+def lm_mesh_rank(rank, world, backend, ref_dir=None, names=None):
     """One rank of the phase's mesh on the one card: each configuration's
     blocks built layer by layer (``init_params(..., cast=True, ctx=)``),
     its serving runs, ``max_memory_allocated`` after each. On the NCCL
     rank at (1, 1), Qwen2.5-3B's prefill again with ctx=None. Then the
     training runs (``lm_mesh_train_rank``; on the NCCL rank
-    ``lm_mesh_train_nccl``)."""
+    ``lm_mesh_train_nccl``). ``names``: serve those configurations alone,
+    and train none."""
     import torch
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
@@ -5323,7 +5377,8 @@ def lm_mesh_rank(rank, world, backend, ref_dir=None):
     out = {"coords": dict(ctx.comm.coords),
            "backends": dict(ctx.comm.backends)}
     for name, cfg in lm_mesh_configs().items():
-        if world == 1 and name != "qwen2.5-3b":
+        if (world == 1 and name != "qwen2.5-3b") \
+                or (names is not None and name not in names):
             continue
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -5349,10 +5404,126 @@ def lm_mesh_rank(rank, world, backend, ref_dir=None):
         out[name] = {k: v.float().numpy() if isinstance(v, torch.Tensor)
                      else v for k, v in row.items()}
         del params
+    if names is not None:
+        return out
     # then training, the serving models freed
     torch.cuda.empty_cache()
     out["train"] = lm_mesh_train_nccl(ctx, device) if world == 1 \
         else lm_mesh_train_rank(ctx, device, ref_dir)
+    return out
+
+
+def lm_mesh_references(cfgs, names, device):
+    """The unsharded serving runs of ``names``, on the card, before the
+    ranks start."""
+    import torch
+    from repro_torch.models import transformer as T
+    refs = {}
+    for name in names:
+        cfg = cfgs[name]
+        params = T.init_params(cfg, LM_SEED, device=device, cast=True)
+        refs[name] = lm_mesh_serve(cfg, params, device)
+        del params
+        torch.cuda.empty_cache()
+    return refs
+
+
+def lm_mesh_serve_report(cfgs, refs, gloo, names):
+    """Each of ``names`` over the 4 gloo ranks (``lm_mesh_rank``'s rows)
+    against its unsharded run: the assembled last logits of the prefill
+    and the decode step within the configuration's bar, K9 once an
+    attention layer and a shared-block application a rank a prefill and
+    never in decode, each rank's argument and collective bytes equal to
+    the meta dry run's, a recurrent model's ``max_memory_allocated``
+    within LM_MESH_MEM_SLACK of the dry run's peak."""
+    import torch
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA2_SHARED, MOE
+
+    def assembled(name, key, rows_key):
+        parts = {}
+        for r in gloo:
+            row = r[name]
+            lo, hi = row[rows_key]
+            got = torch.from_numpy(row[key])
+            if (lo, hi) in parts:
+                check(torch.equal(parts[(lo, hi)], got),
+                      f"lm_mesh {name}: model ranks' {key} differ")
+            parts[(lo, hi)] = got
+        dim = 1 if key == "decode" else 0
+        return torch.cat([parts[k] for k in sorted(parts)], dim=dim)
+
+    out = {}
+    for name in names:
+        cfg, ref = cfgs[name], refs[name]
+        bar = lm_mesh_bar(cfg)
+        label = f"lm_mesh {name}"
+        pre = rel_l2(assembled(name, "prefill", "rows"), ref["prefill"])
+        dec = [rel_l2(a, b) for a, b in zip(
+            assembled(name, "decode", "decode_rows"), ref["decode"])]
+        dry = lm_mesh_dryrun(cfg, LM_MESH)
+        ranks = [r[name] for r in gloo]
+        # K9 once an attention layer, and once a shared-block application
+        # on the rank's heads
+        k9 = sum(k in (ATTN, ATTN_LOCAL, MOE, MAMBA2_SHARED)
+                 for k in cfg.pattern)
+        peak = max(dry[k]["argument_bytes"] + dry[k]["temp_bytes"]
+                   for k in ("prefill", "decode"))
+        for row in ranks:
+            check(row["k9_prefill"] == k9,
+                  f"{label}: {row['k9_prefill']} K9 launches a rank a "
+                  f"prefill, not {k9}")
+            if name in LM_MESH_RECURRENT:
+                mem = row["max_memory_allocated"]
+                check(mem <= LM_MESH_MEM_SLACK * peak + LM_MESH_MEM_PAD,
+                      f"{label}: max_memory_allocated {mem} over "
+                      f"{LM_MESH_MEM_SLACK} × the dry run's peak {peak} "
+                      f"+ {LM_MESH_MEM_PAD}")
+            check(row["k9_decode"] == 0, f"{label}: K9 in decode")
+            live = row["param_bytes"] + row["input_bytes"]
+            check(live == dry["prefill"]["argument_bytes"],
+                  f"{label}: live prefill argument bytes {live} != the "
+                  f"dry run's {dry['prefill']['argument_bytes']}")
+            live = row["param_bytes"] + row["cache_bytes"] \
+                + row["decode_input_bytes"]
+            check(live == dry["decode"]["argument_bytes"],
+                  f"{label}: live decode argument bytes {live} != the dry "
+                  f"run's {dry['decode']['argument_bytes']}")
+            for kind in ("prefill", "decode"):
+                got = row[f"received_{kind}"]
+                want = {k[len("coll_"):]: v for k, v in dry[kind].items()
+                        if k.startswith("coll_")}
+                check(got == want, f"{label}: live {kind} collective bytes "
+                      f"{got} != the dry run's {want}")
+        check(pre <= bar and max(dec) <= bar,
+              f"{label}: rel L2 prefill {pre}, decode {dec} over {bar}")
+        out[name] = {
+            "layers": cfg.num_layers, "dtype": cfg.dtype,
+            "prefill": dict(zip(("B", "S"), lm_mesh_prefill(cfg))),
+            "decode": dict(zip(("B", "prompt", "steps"), LM_MESH_DECODE)),
+            "rel_l2_prefill_vs_unsharded": pre,
+            "rel_l2_decode_vs_unsharded": dec,
+            "tol": f"relative L2 {bar}",
+            "k9_launches_per_rank_prefill": [r["k9_prefill"] for r in ranks],
+            "k9_launches_per_rank_decode": [r["k9_decode"] for r in ranks],
+            "prefill_ms_by_rank": [r["prefill_ms"] for r in ranks],
+            "decode_ms_by_rank": [r["decode_ms"] for r in ranks],
+            "unsharded_prefill_ms": ref["prefill_ms"],
+            "unsharded_decode_ms": ref["decode_ms"],
+            "received_prefill_by_rank": [r["received_prefill"]
+                                         for r in ranks],
+            "received_decode_by_rank": [r["received_decode"]
+                                        for r in ranks],
+            "argument_bytes_prefill": dry["prefill"]["argument_bytes"],
+            "argument_bytes_decode": dry["decode"]["argument_bytes"],
+            "live_bytes_equal_dry_run": True,
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                             for r in ranks],
+            "dryrun_peak_bytes": {
+                k: dry[k]["argument_bytes"] + dry[k]["temp_bytes"]
+                for k in ("prefill", "decode")},
+            "max_memory_over_dryrun_peak": [r["max_memory_allocated"] / peak
+                                            for r in ranks],
+            "init_s_by_rank": [r["init_s"] for r in ranks]}
     return out
 
 
@@ -5366,7 +5537,7 @@ def lm_mesh_dryrun(cfg, mesh_shape, decode=True):
     from repro_torch.sharding import make_ctx
 
     ctx = make_ctx(make_abstract_mesh(mesh_shape, ("data", "model")))
-    b, s = LM_MESH_PREFILL
+    b, s = lm_mesh_prefill(cfg)
     out = {"prefill": rank_step(cfg, InputShape("lm_mesh", s, b, "prefill"),
                                 ctx)}
     if decode:
@@ -5908,10 +6079,16 @@ def phase_lm_mesh(device, info):
     the model's bf16 bar; the same at 4 layers in fp32 at 1e-3;
     DeepSeekMoE-16B's first 4 layers (32 experts a model rank): the first
     MoE block's output against ``moe_block_emulated`` on the card, its
-    counts and drops exactly; the NCCL rank bit-equal to ctx=None. Each
-    rank's argument and collective bytes against the meta dry run's, its
-    ``max_memory_allocated`` beside the dry run's peak. Four processes
-    time-slice one card here: their ms are no scaling result."""
+    counts and drops exactly; the NCCL rank bit-equal to ctx=None. The
+    recurrent models with their blocks split by heads: zamba2-1.2B's
+    first 6 layers in bf16 (its bar) and fp32 (1e-3), K9 once a rank a
+    prefill (the shared block on the rank's 16 of 32 heads); xLSTM-1.3B's
+    first 2 layers in fp32 at S = 256; the same prefill and decode step.
+    Each rank's argument and collective bytes
+    against the meta dry run's, its ``max_memory_allocated`` beside the
+    dry run's peak (the recurrent models' held to LM_MESH_MEM_SLACK of
+    it). Four processes time-slice one card here: their ms are no scaling
+    result."""
     import shutil
     import numpy as np
     import torch
@@ -5926,13 +6103,7 @@ def phase_lm_mesh(device, info):
            qwen.d_ff, qwen.vocab_size) == LM_WIDTH,
           f"lm_mesh: {LM_ARCH} is not at its full width")
     # the unsharded references, here, before the ranks start ----------
-    refs = {}
-    for name in ("qwen2.5-3b", "qwen2.5-3b_fp32"):
-        cfg = cfgs[name]
-        params = T.init_params(cfg, LM_SEED, device=device, cast=True)
-        refs[name] = lm_mesh_serve(cfg, params, device)
-        del params
-        torch.cuda.empty_cache()
+    refs = lm_mesh_references(cfgs, LM_MESH_SERVED, device)
     store = LM_MESH_DIR
     shutil.rmtree(store, ignore_errors=True)
     store.mkdir()
@@ -5970,76 +6141,7 @@ def phase_lm_mesh(device, info):
     check(sorted((r["coords"]["data"], r["coords"]["model"]) for r in gloo)
           == [(0, 0), (0, 1), (1, 0), (1, 1)], "lm_mesh: rank positions")
 
-    def assembled(name, key, rows_key):
-        parts = {}
-        for r in gloo:
-            row = r[name]
-            lo, hi = row[rows_key]
-            got = torch.from_numpy(row[key])
-            if (lo, hi) in parts:
-                check(torch.equal(parts[(lo, hi)], got),
-                      f"lm_mesh {name}: model ranks' {key} differ")
-            parts[(lo, hi)] = got
-        dim = 1 if key == "decode" else 0
-        return torch.cat([parts[k] for k in sorted(parts)], dim=dim)
-
-    for name, bar in (("qwen2.5-3b", LM_BF16_REL_L2[LM_ARCH]),
-                      ("qwen2.5-3b_fp32", LM_FP32_REL_L2)):
-        cfg, ref = cfgs[name], refs[name]
-        label = f"lm_mesh {name}"
-        pre = rel_l2(assembled(name, "prefill", "rows"), ref["prefill"])
-        dec = [rel_l2(a, b) for a, b in zip(
-            assembled(name, "decode", "decode_rows"), ref["decode"])]
-        dry = lm_mesh_dryrun(cfg, LM_MESH)
-        ranks = [r[name] for r in gloo]
-        for row in ranks:
-            check(row["k9_prefill"] == cfg.num_layers,
-                  f"{label}: {row['k9_prefill']} K9 launches a rank a "
-                  f"prefill, not {cfg.num_layers}")
-            check(row["k9_decode"] == 0, f"{label}: K9 in decode")
-            live = row["param_bytes"] + row["input_bytes"]
-            check(live == dry["prefill"]["argument_bytes"],
-                  f"{label}: live prefill argument bytes {live} != the "
-                  f"dry run's {dry['prefill']['argument_bytes']}")
-            live = row["param_bytes"] + row["cache_bytes"] \
-                + row["decode_input_bytes"]
-            check(live == dry["decode"]["argument_bytes"],
-                  f"{label}: live decode argument bytes {live} != the dry "
-                  f"run's {dry['decode']['argument_bytes']}")
-            for kind in ("prefill", "decode"):
-                got = row[f"received_{kind}"]
-                want = {k[len("coll_"):]: v for k, v in dry[kind].items()
-                        if k.startswith("coll_")}
-                check(got == want, f"{label}: live {kind} collective bytes "
-                      f"{got} != the dry run's {want}")
-        check(pre <= bar and max(dec) <= bar,
-              f"{label}: rel L2 prefill {pre}, decode {dec} over {bar}")
-        out[name] = {
-            "layers": cfg.num_layers, "dtype": cfg.dtype,
-            "prefill": {"B": LM_MESH_PREFILL[0], "S": LM_MESH_PREFILL[1]},
-            "decode": dict(zip(("B", "prompt", "steps"), LM_MESH_DECODE)),
-            "rel_l2_prefill_vs_unsharded": pre,
-            "rel_l2_decode_vs_unsharded": dec,
-            "tol": f"relative L2 {bar}",
-            "k9_launches_per_rank_prefill": [r["k9_prefill"] for r in ranks],
-            "k9_launches_per_rank_decode": [r["k9_decode"] for r in ranks],
-            "prefill_ms_by_rank": [r["prefill_ms"] for r in ranks],
-            "decode_ms_by_rank": [r["decode_ms"] for r in ranks],
-            "unsharded_prefill_ms": ref["prefill_ms"],
-            "unsharded_decode_ms": ref["decode_ms"],
-            "received_prefill_by_rank": [r["received_prefill"]
-                                         for r in ranks],
-            "received_decode_by_rank": [r["received_decode"]
-                                        for r in ranks],
-            "argument_bytes_prefill": dry["prefill"]["argument_bytes"],
-            "argument_bytes_decode": dry["decode"]["argument_bytes"],
-            "live_bytes_equal_dry_run": True,
-            "max_memory_allocated_by_rank": [r["max_memory_allocated"]
-                                             for r in ranks],
-            "dryrun_peak_bytes": {
-                k: dry[k]["argument_bytes"] + dry[k]["temp_bytes"]
-                for k in ("prefill", "decode")},
-            "init_s_by_rank": [r["init_s"] for r in ranks]}
+    out.update(lm_mesh_serve_report(cfgs, refs, gloo, LM_MESH_SERVED))
 
     # DeepSeekMoE: the first MoE block against its one-process twin -----
     name, cfg = "deepseek-moe-16b", cfgs["deepseek-moe-16b"]
@@ -6109,7 +6211,9 @@ def phase_lm_mesh(device, info):
     return {"per_rank_prefill": out["qwen2.5-3b"][
         "k9_launches_per_rank_prefill"],
             "per_rank_decode": out["qwen2.5-3b"][
-        "k9_launches_per_rank_decode"]}
+        "k9_launches_per_rank_decode"],
+            "per_rank_prefill_zamba2": out["zamba2-1.2b"][
+        "k9_launches_per_rank_prefill"]}
 
 
 HYPER_RTOL = 1e-4   # the fp32 update on the card against float64 on the CPU

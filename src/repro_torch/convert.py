@@ -155,7 +155,8 @@ def _nested(flat: Mapping[str, Any]) -> dict:
 
 
 def lm_params_from_repro(params_np: Mapping[str, Any], cfg: ModelConfig,
-                         device=None, *, mesh=None, coords=None) -> dict:
+                         device=None, *, mesh=None, coords=None,
+                         profile: str = "tp_fsdp") -> dict:
     """``repro``'s params (pytree leaves as numpy or any array numpy reads,
     or the flat ``{path: array}`` of its npz checkpoint) as the port's: the
     same arrays and dtypes on ``device``, ``params["layers"][i]`` for
@@ -164,7 +165,8 @@ def lm_params_from_repro(params_np: Mapping[str, Any], cfg: ModelConfig,
 
     With a ``mesh`` (and the position ``coords``, as
     `repro_torch.sharding.shard_tree` takes them) the rank's blocks under
-    ``param_specs(mesh, ...)``: each leaf is cut on the host, and only its
+    ``param_specs(mesh, ..., profile)`` (the ``MeshCtx``'s profile,
+    "tp_fsdp" or "fsdp_only"): each leaf is cut on the host, and only its
     block reaches ``device``."""
     device = resolve_device(device)
     tree = params_np if "stages" in params_np else _nested(params_np)
@@ -175,7 +177,7 @@ def lm_params_from_repro(params_np: Mapping[str, Any], cfg: ModelConfig,
     out["layers"] = _from_stages(tree["stages"], cfg, lambda a: a)
     if mesh is not None:
         from repro_torch.sharding.rules import param_specs, shard_tree
-        out = shard_tree(mesh, out, param_specs(mesh, out), coords)
+        out = shard_tree(mesh, out, param_specs(mesh, out, profile), coords)
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), out)
 
 

@@ -25,12 +25,12 @@ capacity. Per pair:
   LiveBytes`) and their sum, against the card's 80 GB;
 * ``hlo``'s counterpart (`launch.cost.count_step`): the products' FLOPs
   (K9's added by its wrapper), their output bytes, the parameter bytes,
-  the collectives' bytes by kind;
+  the collectives' bytes by kind (a decode step's restore of the
+  replicated recurrent states apart, ``coll_state_restore``; it is in
+  ``collective_bytes``);
 * ``roofline``: those over an H100's data-sheet rates (`obs.roofline.HW`:
   bf16 tensor-core peak, HBM bytes/s, and NVLink's 900 GB/s, the
-  intra-node rate, for the collectives);
-* ``whole_blocks``: the block kinds that gathered their leaves and ran
-  whole (ROADMAP §1 item 10.6).
+  intra-node rate, for the collectives).
 
 ``--seq-shard`` runs the sequence-parallel residual stream (prefill and
 train pairs).
@@ -60,7 +60,7 @@ from repro_torch.models import transformer as T
 from repro_torch.obs.roofline import HW
 from repro_torch.optim import adamw
 from repro_torch.sharding import RankPlan, make_ctx
-from repro_torch.sharding.ctx import MeshCtx, whole_blocks
+from repro_torch.sharding.ctx import MeshCtx
 from repro_torch.training import (TrainState, make_prefill_step,
                                   make_serve_step, make_train_step)
 
@@ -107,7 +107,7 @@ def rank_step(cfg: ModelConfig, shape: InputShape, ctx: MeshCtx,
     """One rank's step of ``shape`` on ``ctx`` (a train step, a prefill,
     or a decode step against caches of ``shape.seq_len`` slots in
     ``cache_dtype``; tensors on ``meta`` for an abstract mesh): argument
-    bytes, the counts of ``count_step``, the blocks run whole.
+    bytes, the counts of ``count_step``.
     ``params``: the rank's blocks; unless given, the fp32 masters for a
     train step, the bf16 serving copy otherwise, built on ``meta``."""
     train = shape.kind == "train"
@@ -142,7 +142,6 @@ def rank_step(cfg: ModelConfig, shape: InputShape, ctx: MeshCtx,
             + local_inputs,
             "param_bytes": param_bytes, "opt_bytes": opt_bytes,
             "cache_bytes": cache_bytes, "input_bytes": local_inputs,
-            "whole_blocks": sorted(whole_blocks(cfg)),
             "batch_rows": [plan.rows.start, plan.rows.stop], **counts}
 
 
@@ -180,9 +179,8 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str,
         out["hlo"] = {k: r[k] for k in (
             "dot_flops", "k9_flops", "dot_bytes", "param_bytes",
             "collective_bytes", "coll_all_gather", "coll_all_reduce",
-            "coll_reduce_scatter")}
+            "coll_reduce_scatter", "coll_state_restore")}
         out["k9_launches"] = r["k9_launches"]
-        out["whole_blocks"] = r["whole_blocks"]
         out["roofline"] = {
             "compute_s": r["dot_flops"] / HW["peak_flops_bf16"],
             "memory_s": max(r["dot_bytes"], r["param_bytes"])

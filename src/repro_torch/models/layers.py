@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +54,31 @@ def rounded(value: float, dtype: torch.dtype) -> float:
     the array's dtype). Multiplying a bf16 tensor by it rounds once, as
     ``repro`` does."""
     return float(torch.tensor(value, dtype=dtype))
+
+
+Runs = Sequence[Tuple[int, int]]
+
+
+def merge_runs(runs: Runs) -> List[Tuple[int, int]]:
+    """``runs`` ((start, stop) pairs in order) with touching runs joined."""
+    out: List[Tuple[int, int]] = []
+    for a, b in runs:
+        if out and out[-1][1] == a:
+            out[-1] = (out[-1][0], b)
+        else:
+            out.append((int(a), int(b)))
+    return out
+
+
+def take_runs(t: torch.Tensor, dim: int, runs: Runs) -> torch.Tensor:
+    """The entries ``runs`` of ``t`` along ``dim``, in order: ``t`` itself
+    where they cover it, a view where they are one run, else one copy."""
+    runs = merge_runs(runs)
+    dim = dim % t.ndim
+    if runs == [(0, t.shape[dim])]:
+        return t
+    parts = [t.narrow(dim, a, b - a) for a, b in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 # ---------------------------------------------------------------------------

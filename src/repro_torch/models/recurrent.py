@@ -18,6 +18,11 @@ The sLSTM has a true hidden-to-hidden recurrence (block-diagonal R), so a
 full sequence is a loop over time, as ``repro``'s ``lax.scan`` is. In
 training it runs under ``repro``'s custom VJP (``_SLSTMSeq``); every other
 block is differentiated by autograd, as ``repro``'s are by ``jax.grad``.
+
+Over a mesh each block takes a model rank's ``LayerPlan`` (``tp``) and
+computes the rank's heads (``Share``); the caller sums its output over
+``model``. A decode step updates the rank's heads of the replicated
+recurrent state and restores the whole state with one all-gather.
 """
 from __future__ import annotations
 
@@ -28,9 +33,163 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import recording
-from repro_torch.models.layers import Params, rounded, truncated_normal
+from repro_torch.models.layers import (Params, Runs, rounded, take_runs,
+                                       truncated_normal)
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# a rank's share of a block's heads
+# ---------------------------------------------------------------------------
+
+class Share:
+    """The heads of a recurrent block that one rank computes, and the
+    leaves' columns they read.
+
+    ``tp``: None (one card: every head) or a model rank's ``LayerPlan``,
+    whose ``split`` puts the block's ``heads`` over M model ranks:
+    * H divisible by M: the rank computes H / M heads;
+    * M divisible by H (``group``, fewer heads than ranks): H groups of
+      g = M / H ranks, one a head; with ``group="values"`` a group's ranks
+      split the head's value columns (the mLSTM), with ``"repeat"`` each
+      repeats the head (the sLSTM, whose recurrence a split would cross at
+      every step). What the ranks of a group hold alike, each passes on
+      its g-th of (``block``), so a gather brings in each head once;
+    * else it raises with both numbers.
+    ``rows``: a decode step, whose products gather their rows rather than
+    the weights' columns (``LayerPlan.project``)."""
+
+    def __init__(self, cfg: ModelConfig, tp, p: Params, key: str,
+                 heads: int, width: int, group: Optional[str] = None,
+                 rows: bool = False):
+        self.tp, self.p, self.rows = tp, p, rows
+        self.spec = None if tp is None else tp.spec[key]
+        split = tp is not None and tp.split
+        self.ranks, self.rank = ((tp.plan.m_size, tp.plan.m) if split
+                                 else (1, 0))
+        m = self.ranks
+        if heads % m == 0:
+            self.group, self.hl = 1, heads // m
+            self.h0, self.j = self.rank * self.hl, 0
+        elif group is not None and m % heads == 0 \
+                and width % (m // heads) == 0:
+            self.group, self.hl = m // heads, 1
+            self.h0, self.j = self.rank // self.group, self.rank % self.group
+        else:
+            raise ValueError(f"{cfg.name}: {key}'s {heads} heads of width "
+                             f"{width} do not split over a model axis of {m}")
+        self.values = group == "values"
+        self.width = width
+        # the columns of the rank's values: its heads', or its block of
+        # its head's under a split group
+        vl = width // self.group if self.values else width
+        self.vl = self.hl * vl
+        v0 = self.h0 * width + (self.j * vl if self.values else 0)
+        self.vcols = (v0, v0 + self.vl)
+
+    @property
+    def split(self) -> bool:
+        return self.ranks > 1
+
+    def heads(self) -> Tuple[int, int]:
+        return self.h0, self.h0 + self.hl
+
+    def cols(self) -> Tuple[int, int]:
+        """The channels of the rank's heads."""
+        return self.h0 * self.width, (self.h0 + self.hl) * self.width
+
+    def part(self, n: int) -> Tuple[int, int]:
+        """The rank's share of ``n`` independent columns (an FFN's): its
+        block where the rules shard them, the same cut where they do
+        not."""
+        return self.rank * n // self.ranks, (self.rank + 1) * n // self.ranks
+
+    def w(self, name: str, dim: int, runs: Runs) -> torch.Tensor:
+        """The entries ``runs`` of leaf ``name`` along ``dim``."""
+        if self.tp is None:
+            return take_runs(self.p[name], dim, runs)
+        return self.tp.take(self.p[name], self.spec[name], dim, runs)
+
+    def proj(self, x: torch.Tensor, name: str, runs: Runs) -> torch.Tensor:
+        """``x @ W[:, runs]`` for the (K, N) leaf ``name``."""
+        if self.tp is None:
+            return x @ take_runs(self.p[name], 1, runs).to(x.dtype)
+        return self.tp.project(x, self.p[name], self.spec[name], runs,
+                               self.rows)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model ranks of a statistic each computed on its
+        part (a norm's sum of squares), inside the block: the backward
+        sums the ranks' cotangents too, every rank's part having used
+        it."""
+        if not self.split:
+            return x
+        comm, model = self.tp.plan.comm, self.tp.plan.model
+        return comm.sum_grad(comm.all_reduce(x, model), (model,),
+                             ordered=False)
+
+    def group_mean(self, ms: torch.Tensor) -> torch.Tensor:
+        """The mean over a value-split group of each rank's mean ``ms``
+        (..., 1, 1) of its columns of its head: the rank's partial in its
+        head's slot, zeros elsewhere, summed over ``model``."""
+        if self.group == 1:
+            return ms
+        heads = self.ranks // self.group
+        slots = F.pad(ms[..., 0], (self.h0, heads - self.h0 - 1))
+        return self.psum(slots)[..., self.h0:self.h0 + 1, None] / self.group
+
+    def block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's g-th along ``dim`` of what its group's ranks hold
+        alike (all of it when each rank has heads of its own)."""
+        if self.group == 1:
+            return x
+        n = x.shape[dim] // self.group
+        return x.narrow(dim, self.j * n, n)
+
+    def _assemble(self, parts: torch.Tensor, dim: int,
+                  vdim: Optional[int]) -> torch.Tensor:
+        """(M, *S) of the ranks' parts, coordinate order → the whole along
+        ``dim`` (S[dim] = the rank's heads); a group's blocks along
+        ``vdim`` joined (a split group's values, or ``block``'s parts),
+        else the group's first rank's part kept."""
+        a, g = self.ranks // self.group, self.group
+        parts = parts.reshape((a, g) + parts.shape[1:])
+        if vdim is not None and g > 1:
+            y = parts.movedim(1, 1 + vdim).flatten(1 + vdim, 2 + vdim)
+        else:
+            y = parts[:, 0]
+        return y.movedim(0, dim).flatten(dim, dim + 1)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of a tensor of which the rank holds its heads' channels
+        along ``dim``, for the block's column-parallel remainder: each rank
+        passes on its ``block``; the backward sums the ranks' cotangents of
+        it (each a part of the remainder's). A repeating group's ranks
+        each take their block's cotangent back through their copy of the
+        head: the sum over the group is the head's, the backward being
+        linear in it."""
+        if not self.split:
+            return x
+        comm, model = self.tp.plan.comm, (self.tp.plan.model,)
+        parts = comm.all_gather(self.block(x, dim)[None], 0, model,
+                                grad_sum=model)
+        return self._assemble(parts, dim, dim)
+
+    def restore(self, x: torch.Tensor, dim: int,
+                vdim: Optional[int] = None) -> torch.Tensor:
+        """A decode step's new recurrent state, replicated over ``model``
+        as the rules place it, from the rank's part of it: its heads along
+        ``dim``, under a group its block along ``vdim`` (its value columns,
+        or ``block``'s part of what the group holds alike; else the group's
+        first rank's part is kept). One all-gather, counted as
+        ``state_restore``."""
+        if not self.split:
+            return x
+        comm = self.tp.plan.comm
+        parts = comm.all_gather(x[None], 0, (self.tp.plan.model,),
+                                kind="state_restore")
+        return self._assemble(parts, dim, vdim)
 
 
 # ---------------------------------------------------------------------------
@@ -173,12 +332,15 @@ def conv1d_train(x: torch.Tensor, w: torch.Tensor,
 
 
 def conv1d_step(x: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
-                b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                b: torch.Tensor, runs: Optional[Runs] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, C); conv_state: (B, K−1, C) of previous inputs (oldest
     first). Computes in the activation dtype; the returned state keeps
-    the cache dtype."""
+    the cache dtype. ``runs``: the channels (of C) the output is computed
+    for, ``w`` and ``b`` theirs; the state keeps every channel."""
     full = torch.cat([conv_state.to(x.dtype), x[:, None]], dim=1)
-    y = torch.einsum("bkc,kc->bc", full, w) + b
+    win = full if runs is None else take_runs(full, 2, runs)
+    y = torch.einsum("bkc,kc->bc", win, w) + b
     return y, full[:, 1:].to(conv_state.dtype)
 
 
@@ -231,32 +393,58 @@ def mamba2_init_cache(cfg: ModelConfig, batch: int,
         ssm=init_state(batch, nh, ns, cfg.ssm_head_dim, device=device))
 
 
-def _mamba2_pre(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    """Split in_proj output; returns (z, xbc, dt)."""
+def _mamba2_share(cfg: ModelConfig, p: Params, tp, rows: bool):
+    """The rank's share of a Mamba2 block: its heads (B and C, one group,
+    are read by every head), the in_proj columns of its z, x and dt, the
+    conv channels of its x and of B and C."""
     d_in, nh, ns = mamba2_dims(cfg)
-    return torch.split(zxbcdt, [d_in, d_in + 2 * ns, nh], dim=-1)
+    sh = Share(cfg, tp, p, "mamba", nh, cfg.ssm_head_dim, rows=rows)
+    c0, c1 = sh.cols()
+    h0, h1 = sh.heads()
+    dt0 = 2 * d_in + 2 * ns
+    z, x, bc, dt = ((c0, c1), (d_in + c0, d_in + c1),
+                    (2 * d_in, dt0), (dt0 + h0, dt0 + h1))
+    return sh, (z, x, bc, dt), [(c0, c1), (d_in, d_in + 2 * ns)]
 
 
-def _mamba2_core(cfg: ModelConfig, p: Params, xbc: torch.Tensor,
+def _mamba2_core(cfg: ModelConfig, sh: Share, xbc: torch.Tensor,
                  dt: torch.Tensor):
-    """Common post-conv math: split conv output and build SSD operands."""
-    d_in, nh, ns = mamba2_dims(cfg)
-    xs, bmat, cmat = torch.split(xbc, [d_in, ns, ns], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])                 # (..., nh)
-    a = -torch.exp(p["a_log"])                                 # (nh,)
+    """Common post-conv math: split the rank's conv output and build its
+    heads' SSD operands."""
+    ns = cfg.ssm_state
+    xs, bmat, cmat = torch.split(xbc, [sh.vl, ns, ns], dim=-1)
+    heads = [sh.heads()]
+    dt = F.softplus(dt.float() + sh.w("dt_bias", 0, heads))    # (..., nh)
+    a = -torch.exp(sh.w("a_log", 0, heads))                    # (nh,)
     return xs, bmat, cmat, dt, dt * a
 
 
-def mamba2_train(cfg: ModelConfig, p: Params, x: torch.Tensor
+def _mamba2_out(cfg: ModelConfig, sh: Share, y: torch.Tensor,
+                xh: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The skip, the gated RMS norm over the whole d_in and the rank's
+    rows of out_proj: the rank's partial of the block's output."""
+    dt_ = xh.dtype
+    y = y + sh.w("d_skip", 0, [sh.heads()]).to(dt_)[:, None] * xh
+    y = _gated_rmsnorm(y.flatten(-2), z, sh.w("norm_scale", 0, [sh.cols()]),
+                       sh)
+    return y @ sh.w("out_proj", 0, [sh.cols()]).to(dt_)
+
+
+def mamba2_train(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None
                  ) -> torch.Tensor:
-    """x: (B, T, D) → (B, T, D)."""
-    b, t, d = x.shape
-    d_in, nh, ns = mamba2_dims(cfg)
+    """x: (B, T, D) → (B, T, D). ``tp``: a model rank's ``LayerPlan``; the
+    output is then the rank's partial sum."""
+    b, t, _ = x.shape
+    ns = cfg.ssm_state
     hd = cfg.ssm_head_dim
     dt_ = x.dtype
-    z, xbc, dt = _mamba2_pre(cfg, x @ p["in_proj"].to(dt_))
-    xbc = F.silu(conv1d_train(xbc, p["conv_w"].to(dt_), p["conv_b"].to(dt_)))
-    xs, bmat, cmat, dtf, log_a = _mamba2_core(cfg, p, xbc, dt)
+    sh, (z, xr, bc, dt), conv = _mamba2_share(cfg, p, tp, rows=False)
+    z, xbc, dt = torch.split(sh.proj(x, "in_proj", [z, xr, bc, dt]),
+                             [sh.vl, sh.vl + 2 * ns, sh.hl], dim=-1)
+    xbc = F.silu(conv1d_train(xbc, sh.w("conv_w", 1, conv).to(dt_),
+                              sh.w("conv_b", 0, conv).to(dt_)))
+    xs, bmat, cmat, dtf, log_a = _mamba2_core(cfg, sh, xbc, dt)
+    nh = sh.hl
     xh = xs.reshape(b, t, nh, hd)
     v = xh * dtf[..., None].to(dt_)                           # fold Δ into v
     k = bmat[:, :, None, :].expand(b, t, nh, ns)
@@ -264,39 +452,52 @@ def mamba2_train(cfg: ModelConfig, p: Params, x: torch.Tensor
     y, _ = chunked_scan(q, k, v, log_a, None,
                         init_state(b, nh, ns, hd, device=x.device),
                         cfg.chunk_size, stabilize=False)
-    y = y + p["d_skip"].to(dt_)[:, None] * xh
-    y = _gated_rmsnorm(y.reshape(b, t, d_in), z, p["norm_scale"])
-    return y @ p["out_proj"].to(dt_)
+    return _mamba2_out(cfg, sh, y, xh, z)
 
 
 def mamba2_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                cache: Mamba2Cache) -> Tuple[torch.Tensor, Mamba2Cache]:
-    """x: (B, 1, D) single-token decode."""
+                cache: Mamba2Cache, tp=None
+                ) -> Tuple[torch.Tensor, Mamba2Cache]:
+    """x: (B, 1, D) single-token decode. ``tp``: a model rank's; the cache
+    is then replicated over ``model``: the rank steps its heads' state and
+    restores the whole."""
     b = x.shape[0]
-    d_in, nh, ns = mamba2_dims(cfg)
+    d_in, _, ns = mamba2_dims(cfg)
     hd = cfg.ssm_head_dim
     dt_ = x.dtype
-    z, xbc, dt = _mamba2_pre(cfg, x[:, 0] @ p["in_proj"].to(dt_))
-    xbc, conv = conv1d_step(xbc, cache.conv, p["conv_w"].to(dt_),
-                            p["conv_b"].to(dt_))
+    sh, (z, _, _, dt), conv = _mamba2_share(cfg, p, tp, rows=True)
+    # every conv channel's input: the state keeps them all
+    z, xbc, dt = torch.split(
+        sh.proj(x[:, 0], "in_proj", [z, (d_in, 2 * d_in + 2 * ns), dt]),
+        [sh.vl, d_in + 2 * ns, sh.hl], dim=-1)
+    xbc, conv = conv1d_step(xbc, cache.conv, sh.w("conv_w", 1, conv).to(dt_),
+                            sh.w("conv_b", 0, conv).to(dt_), conv)
     xbc = F.silu(xbc)
-    xs, bmat, cmat, dtf, log_a = _mamba2_core(cfg, p, xbc, dt)
+    xs, bmat, cmat, dtf, log_a = _mamba2_core(cfg, sh, xbc, dt)
+    nh = sh.hl
     xh = xs.reshape(b, nh, hd)
     v = xh * dtf[..., None].to(dt_)
     k = bmat[:, None, :].expand(b, nh, ns)
     q = cmat[:, None, :].expand(b, nh, ns)
-    y, ssm = recurrence_step(q, k, v, log_a, None, cache.ssm,
-                             stabilize=False)
-    y = y + p["d_skip"].to(dt_)[:, None] * xh
-    y = _gated_rmsnorm(y.reshape(b, 1, d_in), z[:, None], p["norm_scale"])
-    return y @ p["out_proj"].to(dt_), Mamba2Cache(conv, ssm)
+    state = RecurrentState(*(take_runs(s, 1, [sh.heads()])
+                             for s in cache.ssm))
+    y, ssm = recurrence_step(q, k, v, log_a, None, state, stabilize=False)
+    ssm = RecurrentState(*(sh.restore(s, 1) for s in ssm))
+    return _mamba2_out(cfg, sh, y[:, None], xh[:, None], z[:, None]), \
+        Mamba2Cache(conv, ssm)
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   sh: Optional[Share] = None,
                    eps: float = 1e-6) -> torch.Tensor:
+    """RMS over the whole d_in: a rank's channels' mean averaged over the
+    model ranks (``sh``)."""
     g = y * F.silu(z)
     gf = g.float()
-    out = gf * torch.rsqrt((gf ** 2).mean(-1, keepdim=True) + eps)
+    ms = (gf ** 2).mean(-1, keepdim=True)
+    if sh is not None and sh.split:
+        ms = sh.psum(ms) / sh.ranks
+    out = gf * torch.rsqrt(ms + eps)
     return (out * scale).to(y.dtype)
 
 
@@ -342,61 +543,110 @@ def mlstm_init_cache(cfg: ModelConfig, batch: int,
                       cell=init_state(batch, h, hd, hd, device=device))
 
 
-def _mlstm_qkvg(cfg: ModelConfig, p: Params, xi: torch.Tensor,
+def _mlstm_share(cfg: ModelConfig, p: Params, tp, rows: bool) -> Share:
+    """The rank's share of an mLSTM block: q and k of its heads, which
+    read the whole conv output; v, the skip, zg and w_down's rows on its
+    value channels (its block of d_in); the gates whole."""
+    _, h, hd = mlstm_dims(cfg)
+    return Share(cfg, tp, p, "cell", h, hd, group="values", rows=rows)
+
+
+def _mlstm_up(cfg: ModelConfig, sh: Share, x: torch.Tensor):
+    """xi whole (the conv and q, k read every channel) and the rank's zg."""
+    d_in = mlstm_dims(cfg)[0]
+    v0, v1 = sh.vcols
+    return torch.split(sh.proj(x, "w_up", [(0, d_in), (d_in + v0,
+                                                       d_in + v1)]),
+                       [d_in, sh.vl], dim=-1)
+
+
+def _mlstm_qkvg(cfg: ModelConfig, sh: Share, xi: torch.Tensor,
                 xc: torch.Tensor):
-    """xi: pre-conv branch, xc: post-conv. Returns q, k, v, log_f,
-    log_i."""
-    d_in, h, hd = mlstm_dims(cfg)
+    """xi: pre-conv branch, xc: post-conv, both whole. Returns the rank's
+    q, k, v, log_f, log_i."""
+    d_in, _, hd = mlstm_dims(cfg)
     shp = xi.shape[:-1]
+    hl = sh.hl
     scale = rounded(hd ** -0.5, xc.dtype)
-    q = (xc @ p["wq"].to(xc.dtype)).reshape(shp + (h, hd)) * scale
-    k = (xc @ p["wk"].to(xc.dtype)).reshape(shp + (h, hd)) * scale
-    v = xi.reshape(shp + (h, hd))
-    gates = xi @ p["w_gates"].to(xi.dtype) + p["b_gates"].to(xi.dtype)
-    log_i, f_raw = torch.chunk(gates.float(), 2, dim=-1)
+    q = sh.proj(xc, "wq", [sh.cols()]).reshape(shp + (hl, hd)) * scale
+    k = sh.proj(xc, "wk", [sh.cols()]).reshape(shp + (hl, hd)) * scale
+    v = take_runs(xi, xi.ndim - 1, [sh.vcols]).reshape(shp + (hl, -1))
+    gates = xi @ sh.w("w_gates", 0, [(0, d_in)]).to(xi.dtype) \
+        + sh.p["b_gates"].to(xi.dtype)
+    log_i, f_raw = (take_runs(g, g.ndim - 1, [sh.heads()])
+                    for g in torch.chunk(gates.float(), 2, dim=-1))
     return q, k, v, F.logsigmoid(f_raw), log_i
 
 
-def mlstm_train(cfg: ModelConfig, p: Params, x: torch.Tensor
-                ) -> torch.Tensor:
-    b, t, d = x.shape
-    d_in, h, hd = mlstm_dims(cfg)
-    dt_ = x.dtype
-    xi, zg = torch.chunk(x @ p["w_up"].to(dt_), 2, dim=-1)
-    xc = F.silu(conv1d_train(xi, p["conv_w"].to(dt_), p["conv_b"].to(dt_)))
-    q, k, v, log_f, log_i = _mlstm_qkvg(cfg, p, xi, xc)
-    y, _ = chunked_scan(q, k, v, log_f, log_i,
-                        init_state(b, h, hd, hd, device=x.device),
-                        cfg.chunk_size, stabilize=True)
-    y = _headwise_rmsnorm(y, p["norm_scale"]).reshape(b, t, d_in)
-    y = y + p["skip"].to(dt_) * xc
+def _mlstm_out(sh: Share, y: torch.Tensor, xc: torch.Tensor,
+               zg: torch.Tensor) -> torch.Tensor:
+    """The head-wise norm, the skip, the output gate and the rank's rows of
+    w_down: the rank's partial of the block's output."""
+    dt_ = xc.dtype
+    vc = [sh.vcols]
+    y = _headwise_rmsnorm(y, sh.w("norm_scale", 0, vc), sh)
+    y = y + sh.w("skip", 0, vc).to(dt_) * take_runs(xc, xc.ndim - 1, vc)
     y = y * F.silu(zg)
-    return y @ p["w_down"].to(dt_)
+    return y @ sh.w("w_down", 0, vc).to(dt_)
+
+
+def mlstm_train(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None
+                ) -> torch.Tensor:
+    """``tp``: a model rank's ``LayerPlan``; the output is then the rank's
+    partial sum."""
+    b = x.shape[0]
+    d_in, _, hd = mlstm_dims(cfg)
+    dt_ = x.dtype
+    sh = _mlstm_share(cfg, p, tp, rows=False)
+    xi, zg = _mlstm_up(cfg, sh, x)
+    whole = [(0, d_in)]
+    xc = F.silu(conv1d_train(xi, sh.w("conv_w", 1, whole).to(dt_),
+                             sh.w("conv_b", 0, whole).to(dt_)))
+    q, k, v, log_f, log_i = _mlstm_qkvg(cfg, sh, xi, xc)
+    y, _ = chunked_scan(q, k, v, log_f, log_i,
+                        init_state(b, sh.hl, hd, v.shape[-1],
+                                   device=x.device),
+                        cfg.chunk_size, stabilize=True)
+    return _mlstm_out(sh, y, xc, zg)
 
 
 def mlstm_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               cache: MLSTMCache) -> Tuple[torch.Tensor, MLSTMCache]:
-    b = x.shape[0]
-    d_in, h, hd = mlstm_dims(cfg)
+               cache: MLSTMCache, tp=None
+               ) -> Tuple[torch.Tensor, MLSTMCache]:
+    """``tp``: a model rank's; the rank steps its heads' (value columns')
+    cell and restores the whole replicated cell."""
+    d_in = mlstm_dims(cfg)[0]
     dt_ = x.dtype
-    xi, zg = torch.chunk(x[:, 0] @ p["w_up"].to(dt_), 2, dim=-1)
-    xc, conv = conv1d_step(xi, cache.conv, p["conv_w"].to(dt_),
-                           p["conv_b"].to(dt_))
+    sh = _mlstm_share(cfg, p, tp, rows=True)
+    xi, zg = _mlstm_up(cfg, sh, x[:, 0])
+    whole = [(0, d_in)]
+    xc, conv = conv1d_step(xi, cache.conv, sh.w("conv_w", 1, whole).to(dt_),
+                           sh.w("conv_b", 0, whole).to(dt_))
     xc = F.silu(xc)
-    q, k, v, log_f, log_i = _mlstm_qkvg(cfg, p, xi, xc)
-    y, cell = recurrence_step(q, k, v, log_f, log_i, cache.cell,
+    q, k, v, log_f, log_i = _mlstm_qkvg(cfg, sh, xi, xc)
+    heads = [sh.heads()]
+    vl = v.shape[-1]
+    c, n, m = (take_runs(s, 1, heads) for s in cache.cell)
+    c = take_runs(c, 3, [(sh.j * vl, (sh.j + 1) * vl)])
+    y, cell = recurrence_step(q, k, v, log_f, log_i, RecurrentState(c, n, m),
                               stabilize=True)
-    y = _headwise_rmsnorm(y[:, None], p["norm_scale"])[:, 0]
-    y = y.reshape(b, d_in) + p["skip"].to(dt_) * xc
-    y = y * F.silu(zg)
-    return (y @ p["w_down"].to(dt_))[:, None], MLSTMCache(conv, cell)
+    cell = RecurrentState(sh.restore(cell.c, 1, vdim=3),
+                          sh.restore(sh.block(cell.n, 2), 1, vdim=2),
+                          sh.restore(cell.m, 1))
+    return _mlstm_out(sh, y[:, None], xc[:, None], zg[:, None]), \
+        MLSTMCache(conv, cell)
 
 
 def _headwise_rmsnorm(y: torch.Tensor, scale: torch.Tensor,
+                      sh: Optional[Share] = None,
                       eps: float = 1e-6) -> torch.Tensor:
-    """y: (..., H, hd) — RMS per head, then flatten and scale."""
+    """y: (..., H, hd) — RMS per head, then flatten and scale. Under a
+    value-split group (``sh``) a head's mean is its ranks' means'."""
     yf = y.float()
-    yn = yf * torch.rsqrt((yf ** 2).mean(-1, keepdim=True) + eps)
+    ms = (yf ** 2).mean(-1, keepdim=True)
+    if sh is not None:
+        ms = sh.group_mean(ms)
+    yn = yf * torch.rsqrt(ms + eps)
     flat = yn.reshape(y.shape[:-2] + (-1,))
     return (flat * scale).to(y.dtype)
 
@@ -527,11 +777,16 @@ def slstm_seq(heads: int, r: torch.Tensor, wxb: torch.Tensor,
     return _slstm_loop(heads, r, wxb, xc)[0]
 
 
+def slstm_ffn(cfg: ModelConfig) -> int:
+    """The sLSTM's FFN width."""
+    return int(cfg.d_model * 4 / 3)
+
+
 def slstm_init(cfg: ModelConfig, *, generator, device) -> Params:
     d = cfg.d_model
     h = cfg.num_heads
     hd = d // h
-    f_up = int(d * 4 / 3)
+    f_up = slstm_ffn(cfg)
     draw = dict(generator=generator, device=device)
     return {
         "conv_w": truncated_normal((4, d), 0.2, **draw),
@@ -564,37 +819,71 @@ def slstm_init_cache(cfg: ModelConfig, batch: int,
                       c=z, n=z.clone(), h=z.clone(), m=z.clone())
 
 
-def _slstm_out(cfg: ModelConfig, p: Params, hs: torch.Tensor,
+def _slstm_share(cfg: ModelConfig, p: Params, tp, rows: bool):
+    """The rank's share of an sLSTM block: its heads' recurrence (with
+    fewer heads than ranks, a group's ranks repeat their head's), on its
+    heads' channels of the conv and of each gate's w_in columns; then the
+    FFN's columns, on hs gathered whole."""
+    d, h = cfg.d_model, cfg.num_heads
+    sh = Share(cfg, tp, p, "cell", h, d // h, group="repeat", rows=rows)
+    ch = sh.cols()
+    return sh, ch, [(g * d + ch[0], g * d + ch[1]) for g in range(4)]
+
+
+def _slstm_in(sh: Share, x: torch.Tensor, gates: Runs) -> torch.Tensor:
+    """The rank's heads' pre-activations [z | i | f | o] of x."""
+    return sh.proj(x, "w_in", gates) + sh.w("b", 0, gates).to(x.dtype)
+
+
+def _slstm_r(sh: Share) -> torch.Tensor:
+    """The rank's heads' recurrent weights (4, hl, hd, hd), fp32."""
+    return sh.w("r", 1, [sh.heads()]).float()
+
+
+def _slstm_out(cfg: ModelConfig, sh: Share, hs: torch.Tensor,
                dt_) -> torch.Tensor:
-    """hs (B, T, D) in ``dt_`` → the block's output: headwise norm, the
-    gelu (tanh) up projection, the down projection."""
-    b, t, _ = hs.shape
+    """hs (B, T, D) in ``dt_`` → the rank's partial of the block's output:
+    headwise norm, the rank's columns of the gelu (tanh) up projection, the
+    down projection's rows."""
+    b, t, d = hs.shape
     y = _headwise_rmsnorm(hs.reshape(b, t, cfg.num_heads, -1),
-                          p["norm_scale"])
-    y = F.gelu(y @ p["w_up"].to(dt_), approximate="tanh")
-    return y @ p["w_down"].to(dt_)
+                          sh.w("norm_scale", 0, [(0, d)]))
+    cols = [sh.part(slstm_ffn(cfg))]
+    y = F.gelu(y @ sh.w("w_up", 1, cols).to(dt_), approximate="tanh")
+    return y @ sh.w("w_down", 0, cols).to(dt_)
 
 
-def slstm_train(cfg: ModelConfig, p: Params, x: torch.Tensor
+def slstm_train(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None
                 ) -> torch.Tensor:
+    """``tp``: a model rank's ``LayerPlan``; the output is then the rank's
+    partial sum."""
     dt_ = x.dtype
-    xc = F.silu(conv1d_train(x, p["conv_w"].to(dt_), p["conv_b"].to(dt_)))
-    wxb = x @ p["w_in"].to(dt_) + p["b"].to(dt_)
-    hs = slstm_seq(cfg.num_heads, p["r"].float(), wxb.float(), xc.float())
-    return _slstm_out(cfg, p, hs.to(dt_), dt_)
+    sh, ch, gates = _slstm_share(cfg, p, tp, rows=False)
+    xc = F.silu(conv1d_train(take_runs(x, 2, [ch]),
+                             sh.w("conv_w", 1, [ch]).to(dt_),
+                             sh.w("conv_b", 0, [ch]).to(dt_)))
+    wxb = _slstm_in(sh, x, gates)
+    hs = slstm_seq(sh.hl, _slstm_r(sh), wxb.float(), xc.float())
+    return _slstm_out(cfg, sh, sh.gather(hs.to(dt_), 2), dt_)
 
 
 def slstm_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               cache: SLSTMCache) -> Tuple[torch.Tensor, SLSTMCache]:
+               cache: SLSTMCache, tp=None
+               ) -> Tuple[torch.Tensor, SLSTMCache]:
+    """``tp``: a model rank's; the rank steps its heads' state and restores
+    the whole replicated state."""
     dt_ = x.dtype
+    sh, ch, gates = _slstm_share(cfg, p, tp, rows=True)
     xt = x[:, 0]
-    xc, conv = conv1d_step(xt, cache.conv, p["conv_w"].to(dt_),
-                           p["conv_b"].to(dt_))
+    xc, conv = conv1d_step(xt, cache.conv, sh.w("conv_w", 1, [ch]).to(dt_),
+                           sh.w("conv_b", 0, [ch]).to(dt_), [ch])
     xc = F.silu(xc)
-    wxb = xt @ p["w_in"].to(dt_) + p["b"].to(dt_)
-    (c, n, m, hid), _ = _slstm_gates(p["r"].float(), wxb.float(),
-                                     xc.float(), cache.h,
-                                     (cache.c, cache.n, cache.m),
-                                     cfg.num_heads)
-    y = _slstm_out(cfg, p, hid.to(dt_)[:, None], dt_)
+    wxb = _slstm_in(sh, xt, gates)
+    c, n, m, h = (take_runs(s, 1, [ch])
+                  for s in (cache.c, cache.n, cache.m, cache.h))
+    (c, n, m, hid), _ = _slstm_gates(_slstm_r(sh), wxb.float(), xc.float(),
+                                     h, (c, n, m), sh.hl)
+    c, n, m, hid = (sh.restore(sh.block(s, 1), 1, vdim=1)
+                    for s in (c, n, m, hid))
+    y = _slstm_out(cfg, sh, hid.to(dt_)[:, None], dt_)
     return y, SLSTMCache(conv, c, n, hid, m)

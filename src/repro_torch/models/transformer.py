@@ -28,7 +28,8 @@ axes when it runs, computes its heads, FFN columns or experts, and sums
 the partials over ``model``; the embedding is vocab-parallel (a masked
 lookup of the rank's vocabulary range, summed over ``model``) and the
 logits are gathered over ``model``. The recurrent blocks and zamba2's
-shared block run whole on each rank (ROADMAP §1 item 10.6). ``loss_fn``
+shared block compute the rank's heads too (`repro_torch.models.recurrent.
+Share`; the shared block through its own ``LayerPlan``). ``loss_fn``
 over a mesh is ``repro``'s sharded one, under autograd: the readout is
 vocab-parallel (each rank's vocabulary range, the softmax's max, Σ exp and
 the target's logit combined over ``model``) and the loss's sums are taken
@@ -386,12 +387,35 @@ def _acc_aux(a: AuxDict, b: AuxDict) -> AuxDict:
 
 
 def _shared_block(cfg: ModelConfig, shared: Params, x: torch.Tensor,
-                  emb0: torch.Tensor) -> torch.Tensor:
+                  emb0: torch.Tensor, tp=None, part: bool = False,
+                  rows: bool = False) -> torch.Tensor:
     """Zamba2's shared block's input: the normed concat(x, emb0) through
-    its 2D → D projection."""
+    its 2D → D projection. ``tp``: a model rank's ``LayerPlan`` of the
+    block; the projection is then whole on every rank (its columns
+    gathered, or with ``rows`` its product's rows), entered through *f*
+    where the attention after it is ``part``ial."""
     cat = torch.cat([x, emb0], dim=-1)
-    return apply_norm(cfg, shared["norm_in"], cat) \
-        @ shared["in_proj"].to(x.dtype)
+    n = _enter(tp, apply_norm(cfg, shared["norm_in"], cat), part)
+    if tp is None:
+        return n @ shared["in_proj"].to(x.dtype)
+    return tp.project(n, shared["in_proj"], tp.spec["in_proj"],
+                      [(0, cfg.d_model)], rows, part or tp.plan.seq)
+
+
+def _shared_train(cfg: ModelConfig, shared: Params, x: torch.Tensor,
+                  emb0: torch.Tensor, positions, attention, tp
+                  ) -> torch.Tensor:
+    """Zamba2's shared attention and MLP after a MAMBA2_SHARED layer's
+    Mamba2 block, the rank's heads and FFN columns under ``tp``."""
+    heads = None if tp is None else tp.heads()
+    part = heads is not None and heads.reduce
+    h = _shared_block(cfg, shared, x, emb0, tp, part)
+    x = x + _leave(tp, attn_mod.attention_train(
+        cfg, shared["attn"], h, positions=positions, attention=attention,
+        heads=heads), part)
+    m_part = tp is not None and tp.mlp_sharded()
+    return x + _leave(tp, apply_mlp(cfg, shared["mlp"], _enter(
+        tp, apply_norm(cfg, shared["norm2"], x), m_part)), m_part)
 
 
 def _enter(tp, x: torch.Tensor, partial: bool) -> torch.Tensor:
@@ -406,15 +430,19 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None, *,
                 emb0: Optional[torch.Tensor] = None,
                 shared: Optional[Params] = None,
-                attention: Optional[str] = None, tp=None
+                attention: Optional[str] = None, tp=None, shared_tp=None
                 ) -> Tuple[torch.Tensor, Optional[AuxDict]]:
     """Full-sequence application of one block. x: (B, S, D). Returns the
     new x and, for a MoE block, its aux statistics (None otherwise: the
     zeros ``repro`` adds change no sum). ``tp``: a model rank's
-    ``LayerPlan`` (``p`` then its leaves gathered over the data axes);
-    under ``seq_shard`` x holds the rank's S / M rows, and each region
-    gathers S at its entry (``positions`` are the whole sequence's)."""
+    ``LayerPlan`` (``p`` then its leaves gathered over the data axes;
+    ``shared_tp`` the shared block's); under ``seq_shard`` x (and emb0)
+    holds the rank's S / M rows, and each region gathers S at its entry
+    (``positions`` are the whole sequence's)."""
     window = effective_window(cfg, kind)
+    if kind in _RECURRENT:
+        return _recurrent_layer(cfg, kind, p, x, positions, emb0, shared,
+                                attention, tp, shared_tp), None
     heads = None if tp is None else tp.heads()
     part = heads is not None and heads.reduce
     if kind in (ATTN, ATTN_LOCAL, MOE):
@@ -449,24 +477,32 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                                      attention=attention, heads=heads)
         return x + _parallel_out(tp, a, apply_mlp(cfg, p["mlp"], nm), part,
                                  m_part), None
-    if kind in (MAMBA2, MAMBA2_SHARED):
-        x = x + rec_mod.mamba2_train(cfg, p["mamba"],
-                                     apply_norm(cfg, p["norm"], x))
-        if kind == MAMBA2_SHARED:
-            h = _shared_block(cfg, shared, x, emb0)
-            x = x + attn_mod.attention_train(cfg, shared["attn"], h,
-                                             positions=positions,
-                                             attention=attention)
-            x = x + apply_mlp(cfg, shared["mlp"],
-                              apply_norm(cfg, shared["norm2"], x))
-        return x, None
-    if kind == MLSTM:
-        return x + rec_mod.mlstm_train(cfg, p["cell"],
-                                       apply_norm(cfg, p["norm"], x)), None
-    if kind == SLSTM:
-        return x + rec_mod.slstm_train(cfg, p["cell"],
-                                       apply_norm(cfg, p["norm"], x)), None
     raise ValueError(kind)
+
+
+#: a recurrent layer's block: its parameters' key, its full-sequence and
+#: decode functions
+_RECURRENT = {MAMBA2: ("mamba", rec_mod.mamba2_train, rec_mod.mamba2_step),
+              MAMBA2_SHARED: ("mamba", rec_mod.mamba2_train,
+                              rec_mod.mamba2_step),
+              MLSTM: ("cell", rec_mod.mlstm_train, rec_mod.mlstm_step),
+              SLSTM: ("cell", rec_mod.slstm_train, rec_mod.slstm_step)}
+
+
+def _recurrent_layer(cfg: ModelConfig, kind: str, p: Params, x, positions,
+                     emb0, shared, attention, tp, shared_tp) -> torch.Tensor:
+    """A recurrent layer over a full sequence: its block on the normed
+    stream, the rank's heads entered through *f* (or S gathered) and summed
+    over ``model`` at its exit where the model axis splits it; then
+    zamba2's shared block after a MAMBA2_SHARED layer's."""
+    key, block, _ = _RECURRENT[kind]
+    part = tp is not None and tp.split
+    n = _enter(tp, apply_norm(cfg, p["norm"], x), part)
+    x = x + _leave(tp, block(cfg, p[key], n, tp), part)
+    if kind == MAMBA2_SHARED:
+        x = _shared_train(cfg, shared, x, emb0, positions, attention,
+                          shared_tp)
+    return x
 
 
 def _parallel_out(tp, a: torch.Tensor, m: torch.Tensor, a_part: bool,
@@ -506,15 +542,18 @@ def _hidden(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         batch = plan.local_batch(batch)
     x, positions = _embed(cfg, params, batch, compute_dtype(cfg), plan)
     emb0 = x if MAMBA2_SHARED in cfg.pattern else None
-    shared = params.get("shared_attn")
+    shared, shared_tp = params.get("shared_attn"), None
     if plan is not None and shared is not None:
-        shared = plan.shared_block(shared)
+        shared, shared_tp = plan.shared_block(shared)
     seq = plan is not None and plan.seq
     if seq:
         x = plan.seq_split(x)
+        if emb0 is not None:
+            emb0 = plan.seq_split(emb0)
     aux = _zero_aux(cfg, x.device)
     layer = functools.partial(apply_layer, cfg, positions=positions,
-                              emb0=emb0, shared=shared, attention=attention)
+                              emb0=emb0, shared=shared, attention=attention,
+                              shared_tp=shared_tp)
 
     def run(i, kind, p, x):
         """One layer: over a mesh its leaves gathered here, so a
@@ -522,10 +561,6 @@ def _hidden(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         if plan is None:
             return layer(kind, p, x)
         p, tp = plan.layer(i, kind, p)
-        if seq and tp is None:
-            # a block run whole: every model rank the whole sequence
-            x, ai = layer(kind, p, plan.seq_gather(x, partial=False))
-            return plan.seq_split(x), ai
         return layer(kind, p, x, tp=tp)
 
     if cfg.remat and recording(x):
@@ -734,12 +769,26 @@ def shard_caches(cfg: ModelConfig, ctx, caches, batch_size: int
 def apply_layer_decode(cfg: ModelConfig, kind: str, p: Params,
                        x: torch.Tensor, cache, pos: torch.Tensor,
                        emb0: Optional[torch.Tensor] = None,
-                       shared: Optional[Params] = None, tp=None):
+                       shared: Optional[Params] = None, tp=None,
+                       shared_tp=None):
     """x: (B, 1, D); pos: (B,) absolute positions. Returns the new x and
     the layer's cache: a ``KVCache`` written in place, a recurrent state
-    as a new named tuple. ``tp``: a model rank's ``LayerPlan``; ``cache``
-    then holds the KV heads its ``wk`` projects."""
+    as a new named tuple. ``tp``: a model rank's ``LayerPlan`` (the shared
+    block's ``shared_tp``); ``cache`` then holds the KV heads its ``wk``
+    projects, a recurrent state whole (the rank steps its heads and
+    restores the whole)."""
     window = effective_window(cfg, kind)
+    if kind in _RECURRENT:
+        key, _, step = _RECURRENT[kind]
+        part = tp is not None and tp.split
+        rc = cache[0] if kind == MAMBA2_SHARED else cache
+        h, rc = step(cfg, p[key], apply_norm(cfg, p["norm"], x), rc, tp)
+        x = x + _leave(tp, h, part)
+        if kind != MAMBA2_SHARED:
+            return x, rc
+        x, acache = _shared_decode(cfg, shared, x, emb0, cache[1], pos,
+                                   shared_tp)
+        return x, (rc, acache)
     heads = None if tp is None else tp.heads()
     part = heads is not None and heads.reduce
     if kind == ATTN_PARALLEL:
@@ -766,48 +815,39 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p: Params,
         if cfg.post_block_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
         return x + h, cache
-    if kind in (MAMBA2, MAMBA2_SHARED):
-        mcache = cache[0] if kind == MAMBA2_SHARED else cache
-        h, mcache = rec_mod.mamba2_step(cfg, p["mamba"],
-                                        apply_norm(cfg, p["norm"], x), mcache)
-        x = x + h
-        if kind == MAMBA2_SHARED:
-            hin = _shared_block(cfg, shared, x, emb0)
-            h, acache = attn_mod.attention_decode(cfg, shared["attn"], hin,
-                                                  cache[1], pos, None)
-            x = x + h
-            x = x + apply_mlp(cfg, shared["mlp"],
-                              apply_norm(cfg, shared["norm2"], x))
-            return x, (mcache, acache)
-        return x, mcache
-    if kind == MLSTM:
-        h, cache = rec_mod.mlstm_step(cfg, p["cell"],
-                                      apply_norm(cfg, p["norm"], x), cache)
-        return x + h, cache
-    if kind == SLSTM:
-        h, cache = rec_mod.slstm_step(cfg, p["cell"],
-                                      apply_norm(cfg, p["norm"], x), cache)
-        return x + h, cache
     raise ValueError(kind)
+
+
+def _shared_decode(cfg: ModelConfig, shared: Params, x: torch.Tensor,
+                   emb0: torch.Tensor, cache, pos: torch.Tensor, tp):
+    """Zamba2's shared block in a decode step: its in_proj's rows gathered,
+    its attention on the rank's KV heads of its cache, its MLP's
+    columns."""
+    heads = None if tp is None else tp.heads()
+    part = heads is not None and heads.reduce
+    hin = _shared_block(cfg, shared, x, emb0, tp, part, rows=True)
+    h, cache = attn_mod.attention_decode(cfg, shared["attn"], hin, cache,
+                                         pos, None, heads)
+    x = x + _leave(tp, h, part)
+    m_part = tp is not None and tp.mlp_sharded()
+    return x + _leave(tp, apply_mlp(cfg, shared["mlp"], apply_norm(
+        cfg, shared["norm2"], x)), m_part), cache
 
 
 def _decode_layer(cfg: ModelConfig, plan: RankPlan, i: int, kind: str,
                   p: Params, x: torch.Tensor, cache, cspec, pos, emb0,
-                  shared):
+                  shared, shared_tp):
     """One decode layer on a rank: its parameters gathered, its cache
     gathered where the rank does not hold what the layer reads (the ring
-    buffer's W blocks; a recurrent state's sharded dims), the layer run,
-    and the rank's blocks of the cache kept (the new slot written by the
-    rank that holds it)."""
+    buffer's W blocks; a B = 1 recurrent state's dim 1 over the data
+    axes), the layer run, and the rank's blocks of the cache kept (the new
+    slot written by the rank that holds it)."""
     p, tp = plan.layer(i, kind, p)
-    # attention reads its own heads: gather W only; a block run whole
-    # gathers every dim past the batch
-    dims = {1} if tp is not None else None
-    work = plan.cache_gather(cache, cspec, dims)
+    work = plan.cache_gather(cache, cspec)
     x, work = apply_layer_decode(cfg, kind, p, x, work, pos, emb0, shared,
-                                 tp)
+                                 tp, shared_tp)
     in_place = isinstance(cache, attn_mod.KVCache)
-    return x, plan.cache_block(cache, work, cspec, dims, in_place)
+    return x, plan.cache_block(cache, work, cspec, in_place)
 
 
 def decode_step(cfg: ModelConfig, params: Params, caches,
@@ -834,9 +874,9 @@ def decode_step(cfg: ModelConfig, params: Params, caches,
     if not cfg.use_rope and cfg.modality == "audio":
         x = x + sinusoidal(pos, cfg.d_model).to(dtype)[:, None]
     emb0 = x if MAMBA2_SHARED in cfg.pattern else None
-    shared = params.get("shared_attn")
+    shared, shared_tp = params.get("shared_attn"), None
     if plan is not None and shared is not None:
-        shared = plan.shared_block(shared)
+        shared, shared_tp = plan.shared_block(shared)
     new_caches = []
     for i, (kind, p, cache) in enumerate(zip(cfg.pattern, params["layers"],
                                              caches, strict=True)):
@@ -845,7 +885,8 @@ def decode_step(cfg: ModelConfig, params: Params, caches,
                                           shared)
         else:
             x, cache = _decode_layer(cfg, plan, i, kind, p, x, cache,
-                                     caches.specs[i], pos, emb0, shared)
+                                     caches.specs[i], pos, emb0, shared,
+                                     shared_tp)
         new_caches.append(cache)
     logits = _readout(cfg, params, x, plan)[:, 0]
     if plan is not None:

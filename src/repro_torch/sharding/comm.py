@@ -17,7 +17,10 @@ collective the others skip. Four operations:
   other ranks' partials of its own block (``all_to_all``) and adds them in
   coordinate order in fp32: the same sum on gloo, NCCL and ``meta``.
 
-Axes of size 1 cost nothing and leave ``x`` as it is.
+Axes of size 1 cost nothing and leave ``x`` as it is. An all-gather
+may name the kind its bytes count under (``kind``): a decode step's
+restore of the replicated recurrent states counts as ``state_restore``,
+apart from the ``all_gather`` of weights and activations.
 
 Autograd goes through all four (``torch.autograd.Function``s where
 autograd records). Where a backward goes depends on what the ranks do
@@ -69,7 +72,8 @@ class Collectives:
         self.coords: Dict[str, int] = dict(coords)
         self.received: Dict[str, float] = {"all_gather": 0.0,
                                            "all_reduce": 0.0,
-                                           "reduce_scatter": 0.0}
+                                           "reduce_scatter": 0.0,
+                                           "state_restore": 0.0}
 
     # -- the rank's place ----------------------------------------------
     def size(self, axes) -> int:
@@ -96,15 +100,15 @@ class Collectives:
 
     # -- the operations, autograd through them -------------------------
     def all_gather(self, x: torch.Tensor, dim: int, axes,
-                   grad_sum=()) -> torch.Tensor:
+                   grad_sum=(), kind: str = "all_gather") -> torch.Tensor:
         axes = self.live_axes(axes)
         if not axes:
             return x
         if _recording(x):
             return _Gather.apply(x, self, dim, axes,
                                  tuple(a for a in axes
-                                       if a in entry_axes(grad_sum)))
-        return self._all_gather(x, dim, axes)
+                                       if a in entry_axes(grad_sum)), kind)
+        return self._all_gather(x, dim, axes, kind)
 
     def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         if self.shape[axis] == 1:
@@ -158,12 +162,12 @@ class Collectives:
         return _SumGrad.apply(x, self, axes, ordered)
 
     # -- the operations themselves (no autograd) -----------------------
-    def _all_gather(self, x, dim, axes):
+    def _all_gather(self, x, dim, axes, kind="all_gather"):
         for axis in reversed(entry_axes(axes)):
             g = self.shape[axis]
             if g == 1:
                 continue
-            self.received["all_gather"] += (g - 1) * _nbytes(x)
+            self.received[kind] += (g - 1) * _nbytes(x)
             x = self._gather(x, dim, axis)
         return x
 
@@ -233,9 +237,9 @@ def own_blocks(comm: Collectives, ct: torch.Tensor, dim: int,
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, comm, dim, axes, grad_sum):
+    def forward(ctx, x, comm, dim, axes, grad_sum, kind):
         ctx.comm, ctx.dim, ctx.axes, ctx.grad_sum = comm, dim, axes, grad_sum
-        return comm._all_gather(x, dim, axes)
+        return comm._all_gather(x, dim, axes, kind)
 
     @staticmethod
     def backward(ctx, ct):
@@ -243,7 +247,7 @@ class _Gather(torch.autograd.Function):
         g = own_blocks(comm, ct, dim, ctx.axes, ctx.grad_sum)
         if ctx.grad_sum:
             g = comm._reduce_scatter(g, dim, ctx.grad_sum)
-        return g.contiguous(), None, None, None, None
+        return g.contiguous(), None, None, None, None, None
 
 
 class _Reduce(torch.autograd.Function):

@@ -20,13 +20,17 @@ nothing else:
 * a leaf sharded over ``model`` is computed on in parallel, its partial
   sums reduced over ``model`` (``msum``); a leaf the rules replicate over
   ``model`` is computed on whole on every model rank;
-* the recurrent blocks (and zamba2's shared block) gather every leaf and
-  compute whole (``gather_whole``): the same function, more bytes;
+* a recurrent block (Mamba2, the mLSTM, the sLSTM) and zamba2's shared
+  block compute the rank's heads (`repro_torch.models.recurrent.Share`):
+  the rules store their leaves in contiguous blocks of concatenated
+  dimensions, which do not line up with heads, so a layer assembles the
+  columns its heads read (``LayerPlan.take`` and ``project``: the leaf
+  gathered over ``model`` in a full-sequence call, the product's few rows
+  in a decode step) and ends in one sum over ``model``;
 * with ``seq_shard`` (and S > 1 divisible by the model axis) the residual
   stream between layers holds the rank's S / M rows: a tensor-parallel
   layer gathers its normed input over ``model`` and reduce-scatters its
-  partial sums over S (Megatron's sequence parallelism); a block run whole
-  gathers S, runs, and keeps its rows.
+  partial sums over S (Megatron's sequence parallelism).
 
 Under autograd every rank returns the same loss and calls its backward;
 the gradient of each of its blocks is then the global loss's. A gather
@@ -46,7 +50,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import MAMBA2, MAMBA2_SHARED, MLSTM, SLSTM
+from repro_torch.models.layers import Runs, merge_runs, take_runs
 from repro_torch.sharding.comm import Collectives, make_collectives
 from repro_torch.sharding.rules import (Spec, entry_axes, fsdp_axes,
                                         mesh_shape, param_specs)
@@ -128,19 +132,6 @@ class ShardedCaches(list):
         super().__init__(caches)
         self.specs = specs
         self.batch = int(batch)
-
-
-#: the blocks a rank runs whole, every leaf gathered (no head-parallel
-#: form yet: ROADMAP §1 item 10.6)
-WHOLE_KINDS = (MAMBA2, MAMBA2_SHARED, MLSTM, SLSTM)
-
-
-def whole_blocks(cfg) -> set:
-    """The block kinds of ``cfg`` a rank runs whole, and zamba2's shared
-    block."""
-    kinds = {k for k in cfg.pattern if k in WHOLE_KINDS}
-    return kinds | ({"shared_attn"} if MAMBA2_SHARED in cfg.pattern
-                    else set())
 
 
 # ---------------------------------------------------------------------------
@@ -272,20 +263,6 @@ class RankPlan:
                 off += n
         return _map(lambda t, s: done.get(id(t), t), tree, specs)
 
-    def gather_whole(self, tree, specs, resp=None):
-        """``tree``'s leaves gathered over every axis, for a computation
-        every model rank repeats."""
-        resp = self.batch_axes if resp is None else tuple(resp)
-
-        def one(t, spec):
-            t = self.comm.sum_grad(t, self._sum_axes(spec, resp, False))
-            for dim, entry in enumerate(spec):
-                axes = entry_axes(entry)
-                if axes:
-                    t = self.comm.all_gather(t, dim, axes, grad_sum=resp)
-            return t
-        return _map(one, tree, specs)
-
     def model_sharded(self, spec: Spec, dim: int) -> bool:
         return self.model in entry_axes(spec[dim])
 
@@ -333,19 +310,21 @@ class RankPlan:
         """The rank's S block of its own ``x`` (B, S, ...)."""
         return self.comm.own(x, 1, (self.model,))
 
-    def layer(self, i: int, kind: str, p):
-        """Layer ``i``'s parameters as the rank computes with them, and
-        its ``LayerPlan`` (None for a block computed whole)."""
-        spec = self.specs["layers"][i]
-        if kind in WHOLE_KINDS:
-            return self.gather_whole(p, spec), None
+    def _planned(self, p, spec):
         lp = LayerPlan(self, spec)
         partial = () if self.seq else lp.partial_keys()
         return self.gather_data(p, spec, self.resp(True), partial), lp
 
+    def layer(self, i: int, kind: str, p):
+        """Layer ``i``'s parameters as the rank computes with them (its
+        leaves gathered over the data axes), and its ``LayerPlan``."""
+        return self._planned(p, self.specs["layers"][i])
+
     def shared_block(self, shared):
-        """zamba2's shared block, whole."""
-        return self.gather_whole(shared, self.specs["shared_attn"])
+        """zamba2's shared block as the rank computes with it, and its
+        ``LayerPlan``: gathered once a call for every layer that applies
+        it."""
+        return self._planned(shared, self.specs["shared_attn"])
 
     # -- caches --------------------------------------------------------
     def cache_sub_rows(self, spec: Spec) -> Optional[slice]:
@@ -361,46 +340,35 @@ class RankPlan:
         i = self.comm.index(tuple(extra))
         return slice(i * self.b_local, (i + 1) * self.b_local)
 
-    def cache_gather(self, cache, specs, dims=None):
-        """A cache's leaves gathered over the axes of their dims past the
-        batch (``dims``: which, default all), restricted to this rank's
-        rows."""
+    def cache_gather(self, cache, specs):
+        """A cache's leaves gathered over the axes of their dim 1 (a ring
+        buffer's W blocks, a B = 1 recurrent state's blocks over the data
+        axes; a layer reads its heads of what the rank holds past it),
+        restricted to this rank's rows."""
         def one(t, s):
             sub = self.cache_sub_rows(s)
             if sub is not None:
                 t = t[sub]
-            for d in range(1, len(s)):
-                if dims is None or d in dims:
-                    axes = entry_axes(s[d])
-                    if axes:
-                        t = self.comm.all_gather(t, d, axes)
-            return t
+            axes = entry_axes(s[1]) if len(s) > 1 else ()
+            return self.comm.all_gather(t, 1, axes) if axes else t
         return _map(one, cache, specs)
 
-    def cache_block(self, local, work, specs, dims=None, in_place=False):
+    def cache_block(self, local, work, specs, in_place=False):
         """``cache_gather``'s inverse: the rank's block of each gathered
         leaf of ``work``, written into ``local`` in place (``in_place``)
         or returned as new leaves."""
         def one(t_local, t_work, s):
-            sl = [slice(None)] * t_work.ndim
-            for d in range(1, len(s)):
-                if dims is None or d in dims:
-                    axes = entry_axes(s[d])
-                    if axes:
-                        n = t_work.shape[d] // self.comm.size(axes)
-                        i = self.comm.index(axes)
-                        sl[d] = slice(i * n, (i + 1) * n)
-            sub = self.cache_sub_rows(s)
             if t_work is t_local:       # nothing gathered: written in place
                 return t_local
-            cut = any(x != slice(None) for x in sl)
-            block = t_work[tuple(sl)]
+            axes = entry_axes(s[1]) if len(s) > 1 else ()
+            block = self.comm.own(t_work, 1, axes) if axes else t_work
+            sub = self.cache_sub_rows(s)
             if in_place:
                 (t_local if sub is None else t_local[sub]).copy_(block)
                 return t_local
             if sub is None:
                 return block.clone(memory_format=torch.contiguous_format) \
-                    if cut else block
+                    if axes else block
             out = t_local.clone()
             out[sub] = block
             return out
@@ -415,13 +383,18 @@ class RankPlan:
 
 
 class LayerPlan:
-    """One attention-bearing layer's tensor-parallel placement: its
-    parameters' specs decide which heads, FFN columns and experts the rank
-    computes."""
+    """One layer's tensor-parallel placement: its parameters' specs decide
+    which heads, FFN columns and experts the rank computes."""
 
     def __init__(self, plan: RankPlan, spec):
         self.plan = plan
         self.spec = spec
+
+    @property
+    def split(self) -> bool:
+        """Whether the model axis splits the layer's work over more than
+        one rank (tensor parallelism; not under fsdp_only)."""
+        return self.plan.tp and self.plan.m_size > 1
 
     def heads(self):
         from repro_torch.models.attention import head_slice
@@ -431,8 +404,6 @@ class LayerPlan:
         return "mlp" in self.spec \
             and self.plan.model_sharded(self.spec["mlp"]["w_up"], 1)
 
-    def moe_sharded(self) -> bool:
-        return self.plan.tp and self.plan.m_size > 1
 
     def partial_keys(self) -> Tuple[str, ...]:
         """The top-level keys of the layer computed on in a
@@ -442,9 +413,57 @@ class LayerPlan:
             keys.append("attn")
         if self.mlp_sharded():
             keys.append("mlp")
-        if "moe" in self.spec and self.moe_sharded():
+        if "moe" in self.spec and self.split:
             keys.append("moe")
+        if "in_proj" in self.spec and "attn" in keys:
+            keys.append("in_proj")          # zamba2's shared block
+        keys += [k for k in ("mamba", "cell") if k in self.spec
+                 and self.split]
         return tuple(keys)
+
+    # -- a leaf's columns the rank's heads read ---------------------------
+    def _own(self, t: torch.Tensor, dim: int) -> Runs:
+        n = t.shape[dim]
+        return [(self.plan.m * n, (self.plan.m + 1) * n)]
+
+    def take(self, t: torch.Tensor, spec: Spec, dim: int, runs: Runs,
+             partial: bool = True) -> torch.Tensor:
+        """The entries ``runs`` ((start, stop) pairs of the full leaf) of a
+        leaf along ``dim`` from the rank's block ``t``: where the rank's
+        block holds exactly them, ``t``; else each dim sharded over
+        ``model`` gathered first. ``partial``: the entries are computed on
+        in a tensor-parallel region (each model rank a part), so the
+        gather's backward sums the ranks' cotangents; else every rank
+        repeats the computation and keeps its own block's."""
+        plan = self.plan
+        for d, entry in enumerate(spec):
+            if plan.model not in entry_axes(entry) or plan.m_size == 1:
+                continue
+            if d == dim and merge_runs(runs) == self._own(t, d):
+                return t
+            t = plan.comm.all_gather(t, d, (plan.model,),
+                                     grad_sum=(plan.model,) if partial
+                                     else ())
+        return take_runs(t, dim, runs)
+
+    def project(self, x: torch.Tensor, t: torch.Tensor, spec: Spec,
+                runs: Runs, rows: bool, partial: bool = True
+                ) -> torch.Tensor:
+        """``x @ W[:, runs]`` for a (K, N) leaf ``W`` of which the rank
+        holds ``t``. Where ``W``'s columns are sharded over ``model`` and
+        ``runs`` are not the rank's own: with ``rows`` (a decode step's few
+        rows) the product of the rank's block, its rows gathered over
+        ``model``; else ``take``'s columns (a full sequence: the weight's
+        bytes are the smaller). Both compute the same function."""
+        plan = self.plan
+        if rows and plan.m_size > 1 and plan.model_sharded(spec, 1) \
+                and merge_runs(runs) != self._own(t, 1):
+            y = x @ t.to(x.dtype)
+            y = plan.comm.all_gather(y, y.ndim - 1, (plan.model,),
+                                     grad_sum=(plan.model,) if partial
+                                     else ())
+            return take_runs(y, y.ndim - 1, runs)
+        return x @ self.take(t, spec, 1, runs, partial).to(x.dtype)
 
     def enter(self, x: torch.Tensor, partial: bool) -> torch.Tensor:
         """A region's normed input ``x``: under ``seq_shard`` its S blocks
@@ -475,5 +494,4 @@ def _map_top(fn, tree, specs):
 
 
 __all__ = ["LayerPlan", "MeshCtx", "RankPlan", "ShardedCaches",
-           "check_mesh_ctx", "ctx_param_specs", "ctx_profile", "make_ctx",
-           "whole_blocks"]
+           "check_mesh_ctx", "ctx_param_specs", "ctx_profile", "make_ctx"]

@@ -23,6 +23,14 @@
   reduce-scatters, no K9 launch), and so does a ``seq_shard`` pair, whose
   rank keeps smaller activations; ``gemma2-27b × prefill_32k`` refuses
   (K9's C1); the CLI's lines.
+* The recurrent blocks' head-parallel form: no block runs whole (no ``whole_blocks`` field); the
+  recurrent pairs sum their heads' partials over ``model``, a decode step
+  restores its replicated states apart (``coll_state_restore``); a rank's
+  products at ``prefill_32k`` are at most an eighth (zamba2-1.2b) and a
+  third (xlstm-1.3b) of the whole-block figures, and zamba2's decode
+  brings in at most a tenth of their all-gather bytes; a (2, 2) rank of
+  the reduced recurrent models computes a part of the whole model's
+  recurrent products, with and without ``seq_shard``.
 """
 import dataclasses
 import math
@@ -81,8 +89,56 @@ def test_pairs_covering_the_branches(arch, shape):
         cfg = t_configs.get_config(arch)
         assert res["k9_launches"] == cfg.num_layers
         assert res["hlo"]["k9_flops"] > 0
+    assert "whole_blocks" not in res
     if arch in ("zamba2-1.2b", "xlstm-1.3b"):
-        assert res["whole_blocks"]
+        # the recurrent blocks' partials summed over model, the decode's
+        # replicated states restored apart from the weights' gathers
+        assert res["hlo"]["coll_all_reduce"] > 0
+        assert res["hlo"]["coll_state_restore"] > 0
+    if (arch, shape) == ("zamba2-1.2b", "decode_32k"):
+        # a tenth of the 1.418e10 bytes the whole blocks gathered (the
+        # shared block's KV cache over model), the restore included
+        assert res["hlo"]["coll_all_gather"] \
+            + res["hlo"]["coll_state_restore"] <= 1.42e9
+
+
+#: a rank's dot FLOPs at prefill_32k on (16, 16) when every model rank ran
+#: the recurrent blocks whole, before their head-parallel form, the factor
+#: that form must take off them, and that run's largest roofline term
+#: (compute_s)
+WHOLE_PREFILL = {"zamba2-1.2b": (2.53e14, 8, 0.255),
+                 "xlstm-1.3b": (3.19e14, 3, 0.323)}
+
+
+@pytest.mark.parametrize("arch", list(WHOLE_PREFILL))
+def test_recurrent_prefill_flops_split_over_model(arch):
+    res = D.run_pair(arch, "prefill_32k", "single")
+    assert res["ok"], res.get("error")
+    flops, factor, term = WHOLE_PREFILL[arch]
+    assert res["hlo"]["dot_flops"] <= flops / factor
+    rf = res["roofline"]
+    assert max(rf["compute_s"], rf["memory_s"], rf["collective_s"]) < term
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_recurrent_rank_computes_a_part(arch):
+    """At (2, 2) a rank computes half the batch rows and a part of the
+    heads: under half the (1, 1) rank's products (the readout's whole
+    rows aside, each rank repeats only the small whole pieces: Mamba2's B
+    and C, the mLSTM's xi and gates, the shared block's in_proj); with
+    ``seq_shard`` the same products, the exits reduce-scattered."""
+    cfg = t_configs.get_config(arch).reduced(
+        num_layers=6 if arch == "zamba2-1.2b" else 2)
+    shape = InputShape("t", 64, 4, "prefill")
+    one = D.rank_step(cfg, shape, make_ctx(make_abstract_mesh(
+        (1, 1), ("data", "model"))))
+    runs = {seq: D.rank_step(cfg, shape, make_ctx(make_abstract_mesh(
+        (2, 2), ("data", "model")), seq_shard=seq)) for seq in (False, True)}
+    off, on = runs[False], runs[True]
+    assert off["dot_flops"] < one["dot_flops"] / 2
+    assert off["coll_all_reduce"] > 0 and off["coll_state_restore"] == 0
+    assert on["dot_flops"] == off["dot_flops"]
+    assert on["coll_reduce_scatter"] > 0
 
 
 def _repro_arg_bytes(arch, shape_name, dtypes):

@@ -23,7 +23,11 @@ S = 32, held at the LM tests' 2e-4:
   is not its one-device one, and the ranks must give the sharded one,
   with ``counts`` and ``dropped`` exactly;
 * zamba2-1.2b at 6 layers (its shared block at layer 5) and xlstm-1.3b,
-  whose recurrent blocks gather their leaves and run whole.
+  whose recurrent blocks and shared block compute the rank's heads
+  (`repro_torch.models.recurrent.Share`) and sum over ``model``; and
+  xlstm-1.3b with one head, fewer heads than model ranks: the two model
+  ranks split the mLSTM's value columns and repeat the sLSTM's head
+  (``repro``'s rules shard its ``r`` on hd).
 
 The children import this module, so JAX is imported inside the fixture
 that needs it, never at the top.
@@ -49,7 +53,8 @@ CASES = {"qwen2.5-3b": ("qwen2.5-3b", 2, {}),
          "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", 2,
                                {"moe_capacity_factor": 1.0}),
          "zamba2-1.2b": ("zamba2-1.2b", 6, {}),
-         "xlstm-1.3b": ("xlstm-1.3b", 2, {})}
+         "xlstm-1.3b": ("xlstm-1.3b", 2, {}),
+         "xlstm-1.3b-h1": ("xlstm-1.3b", 2, {"num_heads": 1})}
 # the decode batches of each case: B = 1 is replicated over the data axes
 DECODE = {name: (B, 1) if name == "qwen2.5-3b-kv1" else (B,)
           for name in CASES}
@@ -126,8 +131,8 @@ def _cfg(name):
 def _rank(rank, world, ref_dir):
     """Every case on this rank of the (2, 2) mesh: its rows of the
     forward's logits, the prefill's and each decode step's, the MoE
-    statistics, where its batch rows lie, the bytes its collectives
-    brought in and the blocks it ran whole."""
+    statistics, where its batch rows lie and the bytes its collectives
+    brought in."""
     torch.set_num_threads(1)
     from repro_torch.convert import lm_params_from_repro
     from repro_torch.launch.mesh import make_host_mesh
@@ -298,13 +303,14 @@ def test_moe_sharded_function_is_not_the_one_device_one(ranks, reference):
 
 
 def test_recurrent_blocks_run_whole_and_layouts_move_bytes(ranks):
-    """Every rank's collectives brought bytes in, and the dense attention
-    model's FSDP gathers bring in half of each data-sharded leaf."""
+    """Every rank's collectives brought bytes in: every case, the
+    recurrent ones included, sums its blocks' partials over ``model`` (no
+    block runs whole), and the forward restores no recurrent state."""
     for r in ranks:
         for name in CASES:
-            assert r[name]["received"]["all_gather"] > 0
-            if name != "xlstm-1.3b":
-                assert r[name]["received"]["all_reduce"] > 0
+            got = r[name]["received"]
+            assert got["all_gather"] > 0 and got["all_reduce"] > 0, name
+            assert got["state_restore"] == 0, name
 
 
 @pytest.mark.parametrize("name", list(CASES))

@@ -10,6 +10,8 @@ stacked lead entry dropped. The same for ``cache_specs`` (every arch, at
 the decode shapes: B = 128 and B = 1, whose cache length takes the data
 axes) and ``batch_specs``. Every local block has the shape its spec
 gives, and ``shard_tree`` / ``unshard_tree`` round-trip bit for bit.
+``lm_params_from_repro(..., mesh=, profile=)`` cuts each position's blocks
+under the profile's specs.
 """
 import jax
 import numpy as np
@@ -223,3 +225,31 @@ def test_mesh_coords_are_row_major():
     assert mesh_coords(mesh, 0) == {"pod": 0, "data": 0, "model": 0}
     assert mesh_coords(mesh, 5) == {"pod": 0, "data": 1, "model": 1}
     assert mesh_coords(mesh, 23) == {"pod": 1, "data": 2, "model": 3}
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_params_from_repro_take_the_profile(profile):
+    """Each position's blocks of ``repro``'s parameters, cut by
+    ``lm_params_from_repro(..., mesh=, profile=)``, equal ``shard_tree``
+    of the whole tree under ``param_specs(..., profile)``, leaf by
+    leaf."""
+    from repro_torch.convert import lm_params_from_repro, lm_params_to_repro
+    mesh = make_abstract_mesh((2, 2), ("data", "model"))
+    for arch in ("qwen2.5-3b", "zamba2-1.2b", "xlstm-1.3b"):
+        cfg = t_configs.ARCHS[arch].reduced(
+            num_layers=6 if arch == "zamba2-1.2b" else 2)
+        theirs = lm_params_to_repro(TT.init_params(cfg, 5, device="cpu"),
+                                    cfg)
+        whole = lm_params_from_repro(theirs, cfg, device="cpu")
+        specs = param_specs(mesh, whole, profile)
+        for r in range(mesh.size):
+            at = mesh_coords(mesh, r)
+            want = shard_tree(mesh, whole, specs, at)
+            got = lm_params_from_repro(theirs, cfg, device="cpu", mesh=mesh,
+                                       coords=at, profile=profile)
+            for (p, a), (q, b) in zip(tree_paths(want), tree_paths(got),
+                                      strict=True):
+                assert p == q and torch.equal(a, b), (arch, r, p)
+    # the two profiles cut the model axis differently
+    assert param_specs(mesh, whole, "fsdp_only") != \
+        param_specs(mesh, whole, "tp_fsdp")

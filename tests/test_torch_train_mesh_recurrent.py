@@ -1,9 +1,11 @@
 """Port parity, LM training over a device mesh for the recurrent archs:
 zamba2-1.2b at 6 layers (its shared block at layer 5) and xlstm-1.3b at 2,
-whose recurrent blocks (and zamba2's shared block) gather their leaves and
-run whole on every model rank, their gradients taken block by block with
-no sum over ``model`` (the sLSTM's custom backward inside). Microbatches 1
-and 2 each.
+whose recurrent blocks (and zamba2's shared block) compute the rank's
+heads, each leaf's gradient summed once over the model ranks that each
+computed a part (the sLSTM's custom backward inside), microbatches 1 and
+2 each; and xlstm-1.3b with one head over the two model ranks, where the
+mLSTM's ranks split the head's value columns and the sLSTM's repeat it
+(its gradient taken from one rank of the group, not summed twice).
 
 The machinery is ``tests/test_torch_train_mesh.py``'s: ``repro``'s sharded
 ``jax.value_and_grad(loss_fn)`` and one AdamW ``make_train_step`` on a
@@ -21,11 +23,13 @@ from test_torch_train_mesh import (Suite, check_loss_and_grads,
 
 SUITE = Suite(
     cases={"zamba2-1.2b": ("zamba2-1.2b", 6, {}),
-           "xlstm-1.3b": ("xlstm-1.3b", 2, {})},
+           "xlstm-1.3b": ("xlstm-1.3b", 2, {}),
+           "xlstm-1.3b-h1": ("xlstm-1.3b", 2, {"num_heads": 1})},
     variants={"zamba2-1.2b-mb1": ("zamba2-1.2b", 4, 1, False),
               "zamba2-1.2b-mb2": ("zamba2-1.2b", 4, 2, False),
               "xlstm-1.3b-mb1": ("xlstm-1.3b", 4, 1, False),
-              "xlstm-1.3b-mb2": ("xlstm-1.3b", 4, 2, False)})
+              "xlstm-1.3b-mb2": ("xlstm-1.3b", 4, 2, False),
+              "xlstm-1.3b-h1-mb1": ("xlstm-1.3b-h1", 4, 1, False)})
 
 reference = reference_fixture(SUITE)
 ranks = ranks_fixture(SUITE)
