@@ -159,7 +159,18 @@ then the pre-fusion baseline and attention:
                against its twin, the same bits on two launches, timed beside
                scaled_dot_product_attention; the count of wgmma (HGMMA) and
                TMA load (UTMALDG) instructions in the built library's SASS;
-               then fp32, not causal, S = 1000 against mha_ref
+               then fp32, not causal, S = 1000 against mha_ref; then
+               (attention_band) K9's sliding window and logit softcap at
+               the same widths, in bf16 and fp32, against its twin: W =
+               4,096 at S = 8,192, W = 100 at S = 1,000 (padded to 1,024),
+               W = 1 (v's rows exactly), the softcap of 50 alone and with
+               the window; K9 at S = 32,768 with W = 4,096 against the
+               same call without the window (at most half its time: the
+               skipped tiles), each beside its bound over the kept pairs;
+               at S = 8,192 the window, the softcap and both beside the
+               twin and flex_attention (compiled, the band's block mask
+               and softcap score_mod), the window also beside SDPA with a
+               dense boolean band mask
 and the tuner, UCI ingest, CVB0 and Minka's updates (hyper right after
 train, the other three after attention, so every earlier phase runs as
 it did; each path's launch counts set to 0 just before it and read just
@@ -210,7 +221,11 @@ and, last, the LM template's serving path (every LDA phase first):
                layer 0's K9 output against its twin at the bf16 bars and
                the same bits on a second launch, and a prefill of S =
                32,768 (prefill_32k with its batch cut from 32 to 1): ms
-               against its bound, K9's share, peak memory
+               against its bound, K9's share, peak memory; and the
+               long_500k variant (a window of 4,096 on all 36 layers) at
+               S = 8,192: K9 36 times, the last logits against the plain
+               route's at the model's bar, ms beside the same prefill
+               without the window
  32. lm_moe  — DeepSeekMoE-16B unreduced (28 layers, d_model 2,048, 16
                heads of 128, 64 routed experts of 1,408 at top 6, 2
                shared, layer 0 dense at 10,944, vocab 102,400) from the
@@ -229,11 +244,20 @@ and, last, the LM template's serving path (every LDA phase first):
                attention block on 6): the first shared block's K9 output
                against its twin at the bf16 bars and bit-equal twice; the
                serving checks at S = 4,096 (K9 6 times, no host sync);
-               then xLSTM-1.3B at full width, its prefill cut to 128
-               tokens (the sLSTM's time loop): no K9 launch. After each,
-               lm_fp32 at 12 and 4 layers
+               then xLSTM-1.3B at full width, its first 12 layers, its
+               prefill cut to 256 tokens (the sLSTM's time loop): no K9
+               launch. After each, lm_fp32 at 12 and 4 layers
+ 34. lm_gemma2 — gemma2-27B at full width (d_model 4,608, 32 query and
+               16 KV heads of 128, d_ff 36,864, vocab 256,000, tied; a
+               window of 4,096 on its local layers, a logit softcap of 50
+               on all), its depth cut from 46 layers to the first 12 (6
+               local, 6 global), from the bf16 builder: K9 on layer 0
+               (window and softcap) and layer 1 (softcap) against its twin
+               on the first 8 heads at S = 8,192; the serving checks at S
+               = 8,192, its context length and twice its window (K9 12
+               times a prefill); lm_fp32 at 4 layers
 and the LM template's training path, after every serving phase:
- 34. lm_train — Qwen2.5-3B unreduced from the port's seeded fp32 masters
+ 35. lm_train — Qwen2.5-3B unreduced from the port's seeded fp32 masters
                (3.086 B; 49.4 GB with gradients and AdamW's moments),
                bf16 compute, remat, AdamW on cosine_schedule, clip 1.0,
                S = 4,096 (train_4k's batch of 256 cut to 4, as 2
@@ -253,7 +277,7 @@ and the LM template's training path, after every serving phase:
                loss); lm_train_iag: IAG over 8 shards at 4 layers, two
                passes, the aggregate against the memo's sum (1e-5)
 and the LM template over a device mesh, after it:
- 35. lm_mesh — repro_torch.sharding on a (2, 2) ("data", "model") mesh of
+ 36. lm_mesh — repro_torch.sharding on a (2, 2) ("data", "model") mesh of
                4 gloo ranks time-slicing the one card (collectives on
                host copies), each rank building only its blocks, layer by
                layer: Qwen2.5-3B unreduced in bf16, a prefill at B = 2, S
@@ -287,7 +311,9 @@ and the LM template over a device mesh, after it:
                every step's bytes by kind equal to the dry run's, no K9
                launch
 Then the ``kernels`` summary line (K9's row with ``launches_lm``,
-``launches_lm_moe``, ``launches_lm_recurrent`` and ``launches_lm_mesh``)
+``launches_lm_moe``, ``launches_lm_recurrent``, ``launches_lm_gemma2``,
+``launches_lm_long_500k``, ``launches_lm_mesh`` and the window's and
+softcap's checks and times under ``band``)
 and, last, the ``ok`` line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -347,6 +373,25 @@ LEGACY_KERNELS = ("sweep", "sstats", "memo_delta_onehot")
 BENCH_ESTEP = dict(b=128, v=4096, k=128, l=64, iters=30)
 # Qwen2.5-3B's attention (src/repro/configs/qwen2_5_3b.py), one sequence
 QWEN_ATTENTION = dict(b=1, s=4096, h=16, kv=2, hd=128)
+# K9's sliding window and logit softcap at those widths: (name, S, window,
+# softcap, scale). Every windowed case runs at S above its window (at S =
+# 4,096 a window of 4,096 masks nothing); W = 100 at S = 1,000 pads to
+# 1,024 in flash_mha; W = 1 keeps each row's own key alone, so the output
+# is v's row bit for bit; the softcap cases run at scale 1, where the
+# logits (standard deviation √hd = 11.3) reach gemma2's cap of 50
+K9_BAND_CASES = (("w4096_s8192", 8192, 4096, None, None),
+                 ("w100_s1000", 1000, 100, None, None),
+                 ("w1_s1000", 1000, 1, None, None),
+                 ("cap50_s8192", 8192, None, 50.0, 1.0),
+                 ("w4096_cap50_s8192", 8192, 4096, 50.0, 1.0))
+K9_BAND_WINDOW = 4096       # gemma2's local window, the long_500k variant's
+# the window's tile skip, timed at prefill_32k's length against the same
+# call without it: the window keeps 23.4% of the causal pairs there, and
+# the windowed call may take at most this share of the causal one's time
+K9_BAND_LONG_S = 32_768
+K9_BAND_SKIP_SHARE = 0.5
+# timed beside its twin and SDPA (the twin's fp32 scores: 4.3 GB)
+K9_BAND_S = 8192
 # K9's bf16 output against its fp32-math twin, both rounded once to bf16:
 # about two bf16 ulps (2^-7 relative) plus a floor for values near 0
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
@@ -1194,15 +1239,16 @@ def phase_profile(step, updates=4, phase="profile", regions=()):
     # device-side events only: an aten op on the host carries its
     # kernels' device time as well, and would count it twice; a range's
     # device-side annotation is a span, not a kernel
+    averages = prof.key_averages()
     ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in prof.key_averages()
+                  for e in averages
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0 and e.key not in regions),
                  key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in ops)
     # where the host's time goes: operations by their own CPU time
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.self_cpu_time_total > 0), key=lambda r: -r[1])
     shares = {}
     if regions:
@@ -2652,6 +2698,8 @@ def phase_attention(device, timer):
     row["padded_fp32"] = {"causal": False,
                           "max_abs_err_vs_mha_ref": pad_err,
                           "tol": "rtol=atol=2e-5"}
+    del q, k, v, got, want
+    row["band"] = attention_band(device, timer)
     # the shapes and the bounds derived from them: this line only, never
     # the kernels line
     emit({"phase": "attention",
@@ -2665,6 +2713,196 @@ def phase_attention(device, timer):
                       "design_floor_ms": 1.5 * ops_count / BF16_OPS_PER_S
                       * 1e3}})
     return {"flash_attention": row}, launches
+
+
+def band_library(s, device):
+    """The library call that computes K9's band at length ``s``:
+    ``torch.compile(flex_attention)`` (compiled in this process, no worker
+    processes), its block masks (``"causal"``, ``"window"``: K9_BAND_WINDOW
+    keys back, so that it skips the tiles outside the band as K9 does) and
+    ``softcapped(cap)``, the score_mod ``cap·tanh(x / cap)`` on the scaled
+    score, one function a cap: two compiles in all, with and without the
+    cap. Used only to time the library beside K9; the port never calls
+    it."""
+    import functools
+    import torch
+    import torch._inductor.config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    torch._inductor.config.compile_threads = 1
+
+    def banded(keys):
+        # the band's width a tensor, not a constant: one compiled kernel
+        # serves both masks
+        width = torch.tensor(keys, device=device)
+
+        def mask_mod(b, h, q, k):
+            return (q >= k) & (q - k < width)
+        return mask_mod
+
+    masks = {name: create_block_mask(banded(keys), None, None, s, s,
+                                     device=device)
+             for name, keys in (("causal", s), ("window", K9_BAND_WINDOW))}
+
+    @functools.lru_cache(maxsize=None)
+    def softcapped(cap):
+        def score_mod(score, b, h, q, k):
+            return cap * torch.tanh(score / cap)
+        return score_mod
+
+    return torch.compile(flex_attention, dynamic=False), masks, softcapped
+
+
+def attention_band(device, timer):
+    """K9's sliding window and logit softcap (K9_BAND_CASES) at Qwen2.5-3B's
+    attention widths through flash_mha, one launch each, against the twin
+    on the unpadded inputs: in bf16 at the bf16 bars and in fp32 at 2e-5,
+    W = 1 equal to v. Then in bf16: K9 at S = 32,768 with a window of
+    4,096 against the same call without it, in turns (at most
+    K9_BAND_SKIP_SHARE of its time: the skipped tiles), each beside its
+    bound (its kept pairs' operations); at S = 8,192 each band (the window,
+    the softcap, both) beside the twin and the library's one call,
+    flex_attention compiled with the band's block mask and softcap
+    score_mod (band_library), and the window also beside
+    scaled_dot_product_attention with a dense boolean band mask; each
+    library output held to the twin."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    qa = QWEN_ATTENTION
+    h, kvh, hd = qa["h"], qa["kv"], qa["hd"]
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def inputs(s, dtype):
+        return [torch.randn((1, s, n, hd), generator=gen, device=device)
+                .to(dtype) for n in (h, kvh, kvh)]
+
+    def heads(x):
+        return x[0].transpose(0, 1).contiguous()          # (heads, S, hd)
+
+    checks = {}
+    for dtype, tol in ((torch.bfloat16, (BF16_RTOL, BF16_ATOL)),
+                       (torch.float32, (2e-5, 2e-5))):
+        for name, s, window, cap, scale in K9_BAND_CASES:
+            label = f"{name}_{str(dtype).split('.')[-1]}"
+            band = dict(window=window, softcap=cap, scale=scale)
+            q, k, v = inputs(s, dtype)
+            fa.reset_launches()
+            got = heads(ops.flash_mha(q, k, v, causal=True, **band))
+            torch.cuda.synchronize()
+            launched = fa.LAUNCHES["flash_attention"]
+            check(launched == 1,
+                  f"attention_band: {label}: flash_mha launched K9 "
+                  f"{launched} times")
+            want = fa.flash_attention_plain(heads(q), heads(k), heads(v),
+                                            causal=True, **band)
+            err = float((got.float() - want.float()).abs().max())
+            check(torch.allclose(got.float(), want.float(), rtol=tol[0],
+                                 atol=tol[1]),
+                  f"attention_band: K9 {label} off its twin by {err}")
+            entry = {"S": s, "padded_to": -(-s // 128) * 128,
+                     "window": window, "softcap": cap, "scale": scale,
+                     "max_abs_err": err,
+                     "tol": f"rtol={tol[0]} atol={tol[1]}"}
+            if window == 1:
+                check(torch.equal(got, heads(v).repeat_interleave(
+                    h // kvh, 0)), f"attention_band: K9 {label} is not v")
+                entry["equals_v"] = True
+            checks[label] = entry
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    def bound(s, window):
+        nbytes, ops_count = attention_work(1, s, h, kvh, hd, window)
+        bms, by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
+        return {"bound_ms": bms, "bound_by": by, "bound_ops": ops_count}
+
+    # the tile skip at S = 32,768: causal, window, window, causal --------
+    w, s = K9_BAND_WINDOW, K9_BAND_LONG_S
+    qf, kf, vf = (heads(x) for x in inputs(s, torch.bfloat16))
+    runs = {"causal": {}, "window": {"window": w}}
+    ms = {name: [] for name in runs}
+    for name in ("causal", "window", "window", "causal"):
+        ms[name].append(timer(lambda: fa.flash_attention(
+            qf, kf, vf, causal=True, **runs[name]), 5))
+    timed = {f"{name}_s{s}": {"ms": sum(ms[name]) / 2, "ms_runs": ms[name],
+                              "window": runs[name].get("window"),
+                              **bound(s, runs[name].get("window"))}
+             for name in runs}
+    share = timed[f"window_s{s}"]["ms"] / timed[f"causal_s{s}"]["ms"]
+    out = fa.flash_attention(qf, kf, vf, causal=True, window=w)
+    check(bool(torch.isfinite(out.float()).all()),
+          f"attention_band: K9 at S={s}, W={w}: values")
+    check(share <= K9_BAND_SKIP_SHARE,
+          f"attention_band: K9 at S={s} with W={w} took {share} of the "
+          f"causal call's time, more than {K9_BAND_SKIP_SHARE}")
+    timed[f"window_over_causal_s{s}"] = share
+    timed[f"kept_pairs_share_s{s}"] = (timed[f"window_s{s}"]["bound_ops"]
+                                       / timed[f"causal_s{s}"]["bound_ops"])
+    del qf, kf, vf, out
+
+    # S = 8,192: each band beside the twin and flex_attention -------------
+    s = K9_BAND_S
+    qf, kf, vf = (heads(x) for x in inputs(s, torch.bfloat16))
+    q4, k4, v4 = (x.unsqueeze(0) for x in (qf, kf, vf))
+    pos = torch.arange(s, device=device)
+    dense = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < w)
+    flex, flex_masks, softcapped = band_library(s, device)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=dense,
+                                              enable_gqa=True)
+
+    for name, band in (("causal", {}), ("window", dict(window=w)),
+                       ("softcap", dict(softcap=50.0, scale=1.0)),
+                       ("window_softcap", dict(window=w, softcap=50.0,
+                                               scale=1.0))):
+        entry = {"ms": timer(lambda: fa.flash_attention(
+                     qf, kf, vf, causal=True, **band), 10),
+                 "plain_ms": timer(lambda: fa.flash_attention_plain(
+                     qf, kf, vf, causal=True, **band), 3),
+                 **band, **bound(s, band.get("window"))}
+        if name != "causal":
+            mask = flex_masks["window" if "window" in band else "causal"]
+            cap = band.get("softcap")
+
+            def library():
+                return flex(q4, k4, v4, block_mask=mask, enable_gqa=True,
+                            score_mod=softcapped(cap) if cap else None,
+                            scale=band.get("scale"))
+
+            want = fa.flash_attention_plain(qf, kf, vf, causal=True, **band)
+            lib_rel = rel_l2(library()[0], want)
+            del want
+            check(lib_rel <= LIBRARY_REL_L2,
+                  f"attention_band: flex_attention's {name} off the twin "
+                  f"by {lib_rel}")
+            entry.update(library_ms=timer(library, 10),
+                         library_call="torch.compile(flex_attention)(block_"
+                                      "mask=" + ("window" if "window" in band
+                                                 else "causal")
+                                      + (", score_mod=softcap" if cap else "")
+                                      + ", enable_gqa)",
+                         rel_l2_err_library_vs_twin=lib_rel)
+        if name == "window":
+            # the same band as a dense boolean mask: SDPA visits every tile
+            want = fa.flash_attention_plain(qf, kf, vf, causal=True, **band)
+            sdpa_rel = rel_l2(sdpa()[0], want)
+            del want
+            check(sdpa_rel <= LIBRARY_REL_L2,
+                  f"attention_band: SDPA's band off the twin by {sdpa_rel}")
+            entry.update(sdpa_dense_mask_ms=timer(sdpa, 10),
+                         rel_l2_err_sdpa_vs_twin=sdpa_rel)
+        timed[f"{name}_s{s}"] = entry
+    del qf, kf, vf, q4, k4, v4, dense, flex_masks
+    torch.cuda.empty_cache()
+    emit({"phase": "attention_band",
+          "shape": {"B": 1, "H": h, "KV": kvh, "hd": hd, "causal": True},
+          "checks": checks, "timed": timed})
+    return {"checks": checks, "timed": timed}
 
 
 # ---------------------------------------------------------------------------
@@ -4005,6 +4243,9 @@ LM_WIDTH = (36, 2048, 16, 2, 11008, 151_936)
 LM_SEED = 0
 LM_PREFILL_S = 4096
 LM_LONG_S = 32_768            # prefill_32k's length; its batch of 32 cut to 1
+# the long_500k variant (force_local: a window of 4,096 on every layer):
+# its prefill at twice the window, its 524,288 tokens cut to 8,192
+LM_WINDOW_S = 8192
 LM_SERVE = dict(batch=4, prompt=16, new_tokens=32)  # repro's launcher defaults
 LM_MOE_ARCH = "deepseek-moe-16b"   # configs/deepseek_moe_16b.py, unreduced
 # its (layers, d_model, heads, KV heads, experts, top k, shared experts,
@@ -4030,6 +4271,23 @@ LM_XLSTM_S = 256
 # model's serving checks took 157 s of a 735 s script, at 24 ~80 s
 # (NVIDIA H100 80GB HBM3 at 700 W), most of it the profiled sLSTM loops
 LM_XLSTM_LAYERS = 12
+LM_GEMMA2_ARCH = "gemma2-27b"      # configs/gemma2_27b.py, unreduced
+# its (layers, d_model, heads, KV heads, head dim, d_ff, vocab, window,
+# logit softcap)
+LM_GEMMA2_WIDTH = (46, 4608, 32, 16, 128, 36_864, 256_000, 4096, 50.0)
+# its prefill at its context length, 8,192 [arXiv:2408.00118], twice its
+# local layers' window (at 4,096 the window would mask nothing)
+LM_GEMMA2_S = 8192
+# its depth in serving, cut from 46 layers to the first 12 (6 local and 6
+# global, at full width) to keep the script inside its time limit with
+# xLSTM's 12 layers and the flex_attention compiles of attention_band: at
+# 46 the phase took 48-55 s of a 1,056-1,189 s script, at 24 26-29 s
+# (NVIDIA H100 80GB HBM3 at 700 W)
+LM_GEMMA2_LAYERS = 12
+# K9 against its twin on layers 0 (local) and 1 (global): the first 8
+# query heads and the 4 KV heads they read, so that the twin's fp32
+# scores take 2.1 GB beside the 54.5 GB of weights
+LM_GEMMA2_TWIN_HEADS = 8
 # each model's bf16 agreement bar: the last logits of the whole prefill
 # through K9 (fp32 scores) against the plain route's, and the serve
 # step's at the last of 16 prompt tokens (fp32 caches) against the
@@ -4044,16 +4302,19 @@ LM_XLSTM_LAYERS = 12
 # xLSTM-1.3B decode 0.0785 (repro's own bf16 decode is as far from its
 # prefill, tests/test_torch_recurrent.py) (PR 26). Each bar is about twice
 # its reading, 0.04 at least; the fp32 checks (LM_FP32_REL_L2, which read
-# 1e-6 to 7e-5) hold the function itself
+# 1e-6 to 7e-5) hold the function itself. gemma2-27B at S = 8,192 read
+# 0.0223 and 0.0281 at its 46 layers, 0.0175 and 0.0213 at 24
 LM_BF16_REL_L2 = {"qwen2.5-3b": 4e-2, "deepseek-moe-16b": 4e-2,
                   "qwen3-moe-30b-a3b": 0.12, "zamba2-1.2b": 0.11,
-                  "xlstm-1.3b": 0.16}
+                  "xlstm-1.3b": 0.16, "gemma2-27b": 0.06}
 # the agreement checks again in fp32 (K9's fp32 mode, fp32 weights: the
 # bf16 model's masters, the same seed) at a cut depth: rounding alone
 # separates the routes there
 LM_FP32_REL_L2 = 1e-3
 LM_FP32_LAYERS = {"deepseek-moe-16b": 8, "qwen3-moe-30b-a3b": 8,
-                  "zamba2-1.2b": 12, "xlstm-1.3b": 4}
+                  "zamba2-1.2b": 12, "xlstm-1.3b": 4,
+                  # two (local, global) pairs
+                  "gemma2-27b": 4}
 # a MoE layer's bf16 FFN against the same function in fp32 from the same
 # weights and input: bf16 rounding and the tokens whose top-k set flips.
 # A different function (another expert order, a dropped token, another
@@ -4118,18 +4379,21 @@ def lm_active_bound(cfg, params, b, s):
     """The least time of a prefill: each token's active weights
     (``lm_token_weights``: k routed experts, the shared experts and the
     router of a MoE layer) at 2 operations a weight, causal attention's
-    Q·Kᵀ and P·V on every attention layer, the last position's readout,
-    at the bf16 tensor-core rate; beside every bf16 weight read once. The
-    recurrent scans' own operations are not counted. Returns (ms, bound
-    by, operations, bytes)."""
-    from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA2_SHARED, MOE
-    a_bytes, a_ops = attention_work(b, s, cfg.num_heads, cfg.num_kv_heads,
-                                    cfg.resolved_head_dim)
-    n_attn = sum(kind in (ATTN, ATTN_LOCAL, MOE, MAMBA2_SHARED)
-                 for kind in cfg.pattern)
-    ops = 2.0 * lm_token_weights(cfg, params) * b * s + n_attn * a_ops \
-        + 2.0 * b * cfg.d_model * cfg.vocab_size
-    nbytes = lm_weight_bytes(params) + n_attn * a_bytes
+    Q·Kᵀ and P·V on every attention layer (over its band where the layer
+    has a window), the last position's readout, at the bf16 tensor-core
+    rate; beside every bf16 weight read once. The recurrent scans' own
+    operations are not counted. Returns (ms, bound by, operations,
+    bytes)."""
+    from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA2_SHARED,
+                                          MOE, effective_window)
+    works = [attention_work(b, s, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.resolved_head_dim,
+                            effective_window(cfg, kind))
+             for kind in cfg.pattern
+             if kind in (ATTN, ATTN_LOCAL, MOE, MAMBA2_SHARED)]
+    ops = 2.0 * lm_token_weights(cfg, params) * b * s \
+        + sum(w[1] for w in works) + 2.0 * b * cfg.d_model * cfg.vocab_size
+    nbytes = lm_weight_bytes(params) + sum(w[0] for w in works)
     return bound_ms(nbytes, ops, BF16_OPS_PER_S) + (ops, nbytes)
 
 
@@ -4242,16 +4506,20 @@ def k9_counted(fn, *args):
     return out, fa.LAUNCHES["flash_attention"]
 
 
-def k9_against_twin(cfg, p, h, positions, what):
+def k9_against_twin(cfg, p, h, positions, what, window=None,
+                    twin_heads=None):
     """One attention's prefill inputs (``p`` its weights, ``h`` its normed
-    input, batch 1): K9 on the rope'd, pre-scaled q at scale 1 is what
+    input, batch 1), with the layer's ``window`` and the config's logit
+    softcap: K9 on the rope'd, pre-scaled q at scale 1 is what
     ``flash_mha`` returns, the same bits on a second launch, and within
-    the bf16 bars of its twin."""
+    the bf16 bars of its twin, the twin over the first ``twin_heads``
+    query heads (all by default) and the KV heads they read."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
 
+    band = dict(window=window, softcap=cfg.attn_logit_softcap)
     with torch.inference_mode():
         q, k, v = A.prefill_qkv(cfg, p, h, positions)
 
@@ -4259,19 +4527,24 @@ def k9_against_twin(cfg, p, h, positions, what):
             return t[0].transpose(0, 1).contiguous()     # (H, S, hd)
 
         qf, kf, vf = heads(q), heads(k), heads(v)
-        got = fa.flash_attention(qf, kf, vf, causal=True, scale=1.0)
+        got = fa.flash_attention(qf, kf, vf, causal=True, scale=1.0, **band)
         check(torch.equal(got, heads(ops.flash_mha(q, k, v, causal=True,
-                                                      scale=1.0))),
+                                                      scale=1.0, **band))),
               f"{what}'s flash_mha output is not K9's")
         check(torch.equal(got, fa.flash_attention(qf, kf, vf, causal=True,
-                                                  scale=1.0)),
+                                                  scale=1.0, **band)),
               f"{what}: two launches of K9 differ")
-        want = fa.flash_attention_plain(qf, kf, vf, causal=True, scale=1.0)
+        n = twin_heads or qf.shape[0]
+        nkv = n * kf.shape[0] // qf.shape[0]
+        got = got[:n]
+        want = fa.flash_attention_plain(qf[:n], kf[:nkv], vf[:nkv],
+                                        causal=True, scale=1.0, **band)
     err = float((got.float() - want.float()).abs().max())
     check(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
                          atol=BF16_ATOL),
           f"{what}'s K9 output off its twin by {err}")
     return {"heads": cfg.num_heads, "head_dim": cfg.resolved_head_dim,
+            "twin_heads": n, "S": qf.shape[1], **band,
             "max_abs_err": err, "tol": f"rtol={BF16_RTOL} atol={BF16_ATOL}",
             "bit_equal_two_launches": True}
 
@@ -4543,7 +4816,8 @@ def lm_fp32_agreement(cfg, device, s):
     routing flips reported. Emits an ``lm_fp32`` line."""
     import dataclasses
     import torch
-    from repro_torch.configs.base import MAMBA2_SHARED, MOE
+    from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA2_SHARED,
+                                          MOE)
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
     from repro_torch.training import make_prefill_step, make_serve_step
@@ -4561,7 +4835,8 @@ def lm_fp32_agreement(cfg, device, s):
         logits, k9 = k9_counted(make_prefill_step(cfg), params, batch)
     with wrapped(M, "moe_ffn", moe_recorder(routes["plain"])):
         plain = make_prefill_step(cfg, attention="plain")(params, batch)
-    want_k9 = layers if n_moe else cfg.pattern.count(MAMBA2_SHARED)
+    want_k9 = sum(kind in (ATTN, ATTN_LOCAL, MOE, MAMBA2_SHARED)
+                  for kind in cfg.pattern)
     check(k9 == want_k9, f"{cfg.name} fp32: K9 {k9} launches, not {want_k9}")
     out = {"layers": layers, "dtype": "float32", "S": s, "k9_launches": k9,
            "rel_l2_vs_plain": rel_l2(logits, plain),
@@ -4596,10 +4871,15 @@ def phase_lm(device):
     vocab 151,936, tied embeddings, QKV bias), weights from the port's
     seeded init, bf16 copy made once by cast_params: lm_serve_checks at S
     = 4,096 (K9 36 times a prefill, no host sync), layer 0's K9 output
-    against its twin at the bf16 bars and the same bits twice, and a
-    32,768-token prefill (ms, K9's share of device time, peak memory)."""
+    against its twin at the bf16 bars and the same bits twice, a
+    32,768-token prefill (ms, K9's share of device time, peak memory),
+    and the long_500k variant's prefill at S = 8,192 (a window of 4,096
+    on all 36 layers): K9 once a layer, the last logits against the plain
+    route's within the model's bar, ms beside the same prefill without
+    the window."""
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.configs.base import ATTN, effective_window, shape_variant
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import apply_norm, compute_dtype
     from repro_torch.training import make_prefill_step
@@ -4658,6 +4938,39 @@ def phase_lm(device):
                           "peak_bytes": peak,
                           "peak_bytes_over_weights": peak - weight_bytes}
     del batch, logits
+
+    # the long_500k variant: a window of 4,096 on every layer, S = 8,192 --
+    long_cfg, note = shape_variant(cfg, get_shape("long_500k"))
+    window = effective_window(long_cfg, ATTN)
+    check(window == K9_BAND_WINDOW and LM_WINDOW_S > window,
+          f"lm: the long_500k variant's window is {window}")
+    batch = {"tokens": tokens(LM_WINDOW_S)}
+    prefill_long = make_prefill_step(long_cfg)
+    prefill_long(params, batch)                          # warm-up
+    logits, k9 = k9_counted(prefill_long, params, batch)
+    plain, plain_k9 = k9_counted(make_prefill_step(long_cfg,
+                                                   attention="plain"),
+                                 params, batch)
+    err = rel_l2(logits, plain)
+    bar = LM_BF16_REL_L2[cfg.name]
+    check(k9 == cfg.num_layers and plain_k9 == 0
+          and bool(torch.isfinite(logits.float()).all()),
+          f"lm: the long_500k prefill launched K9 {k9} times (plain "
+          f"{plain_k9}), or its logits")
+    check(err <= bar, f"lm: the long_500k prefill off the plain route's "
+          f"by {err} relative L2")
+    bms, by, _, _ = lm_active_bound(long_cfg, params, 1, LM_WINDOW_S)
+    ms = cuda_ms(lambda: prefill_long(params, batch), 3, warmup=0)
+    out["prefill_long_500k"] = {
+        "variant": note, "window": window, "B": 1, "S": LM_WINDOW_S,
+        "reduced": f"S 524288 -> {LM_WINDOW_S}", "k9_launches": k9,
+        "ms": ms, "tokens_per_s": LM_WINDOW_S / ms * 1e3,
+        "bound_ms": bms, "bound_by": by,
+        "ms_without_window": cuda_ms(lambda: prefill(params, batch), 3),
+        "rel_l2_vs_plain": err, "tol": f"relative L2 {bar}",
+        "argmax_equal_plain": bool(torch.equal(logits.argmax(-1),
+                                               plain.argmax(-1)))}
+    del batch, logits, plain
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
     del params
@@ -4782,6 +5095,61 @@ def phase_lm_recurrent(device):
     torch.cuda.empty_cache()
     row["fp32"] = lm_fp32_agreement(cfg, device, LM_XLSTM_S)
     return runs
+
+
+def phase_lm_gemma2(device):
+    """gemma2-27B at full width (46 layers alternating local and global
+    attention, d_model 4,608, 32 query and 16 KV heads of 128, d_ff
+    36,864, vocab 256,000, tied; a window of 4,096 on the local layers, a
+    logit softcap of 50.0 on all), its depth cut to the first
+    LM_GEMMA2_LAYERS, from the layer-at-a-time bf16 builder (its peak over
+    the weights at most twice its largest fp32 piece, the embedding): K9
+    on layers 0 (window and softcap) and 1 (softcap) at S = 8,192 against
+    its twin at the bf16 bars on the first LM_GEMMA2_TWIN_HEADS heads, the
+    same bits twice; the serving checks at S = 8,192, its context length
+    and twice its window (K9 once a layer a prefill, none in decode);
+    lm_fp32 at 4 layers (two local, two global)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import effective_window
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import apply_norm, compute_dtype
+
+    cfg = get_config(LM_GEMMA2_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.sliding_window, cfg.attn_logit_softcap) == LM_GEMMA2_WIDTH,
+          f"lm_gemma2: {LM_GEMMA2_ARCH} is not at its full width: {cfg}")
+    cfg = lm_cut(cfg, slice(0, LM_GEMMA2_LAYERS))
+    params, built = lm_build(cfg, device)
+    row = {"phase": "lm_gemma2", "arch": cfg.name,
+           "reduced": f"layers {LM_GEMMA2_WIDTH[0]} -> {cfg.num_layers}",
+           **built}
+
+    # layers 0 (local) and 1 (global): K9 against its twin ---------------
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, LM_GEMMA2_S),
+                                     generator=gen, device=device)}
+    with torch.inference_mode():
+        x, positions = T._embed(cfg, params, batch, compute_dtype(cfg))
+        for i in (0, 1):
+            kind, layer = cfg.pattern[i], params["layers"][i]
+            h = apply_norm(cfg, layer["norm1"], x)
+            row[f"layer{i}_attention"] = {"kind": kind, **k9_against_twin(
+                cfg, layer["attn"], h, positions, f"lm_gemma2: layer {i}",
+                window=effective_window(cfg, kind),
+                twin_heads=LM_GEMMA2_TWIN_HEADS)}
+            x, _ = T.apply_layer(cfg, kind, layer, x, positions)
+    del batch, x, h
+    torch.cuda.empty_cache()
+    row.update(lm_serve_checks(cfg, params, device, s=LM_GEMMA2_S,
+                               k9=cfg.num_layers, name=cfg.name))
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(row)
+    del params
+    torch.cuda.empty_cache()
+    row["fp32"] = lm_fp32_agreement(cfg, device, LM_GEMMA2_S)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -6643,6 +7011,9 @@ def main() -> int:
     # next is built
     lm_moe = phase_lm_moe(device)
     lm_recurrent = phase_lm_recurrent(device)
+    # gemma2-27B at full width (12 of its 46 layers, 15.9 GB of bf16
+    # weights), freed before the training path
+    lm_gemma2 = phase_lm_gemma2(device)
     # the training path after every serving phase (its 49 GB of masters,
     # gradients and moments come once the serving models are freed)
     phase_lm_train(device)
@@ -6693,6 +7064,12 @@ def main() -> int:
     kernels["flash_attention"]["launches_lm_recurrent"] = {
         arch: row["prefill"]["k9_launches"]
         for arch, row in lm_recurrent.items()}
+    # with gemma2's window and softcap: once a layer in its prefill, and
+    # once a layer in the Qwen2.5-3B long_500k variant's windowed prefill
+    kernels["flash_attention"]["launches_lm_gemma2"] = \
+        lm_gemma2["prefill"]["k9_launches"]
+    kernels["flash_attention"]["launches_lm_long_500k"] = \
+        lm["prefill_long_500k"]["k9_launches"]
     # and on every rank of the (2, 2) mesh: once a layer a prefill
     kernels["flash_attention"]["launches_lm_mesh"] = lm_mesh
     for name, task in (("fixed_point", "padded"),

@@ -57,7 +57,8 @@ _RESTYPES = {"lda_dense_scratch_bytes": ctypes.c_int64}
 
 # C entry points of flash_attention.cu and their argument types
 _ATTENTION_SIGNATURES = {
-    "attn_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "attn_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I,
+                   _P],
     "attn_max_head_dim": [],
     "attn_error_string": [_I],
 }

@@ -2,11 +2,29 @@
 //
 // Replaces _flash_kernel (repro/kernels/flash_attention.py:31): online-
 // softmax attention over (BH, S, hd), causal or not, output in the inputs'
-// dtype. The (S, S) score matrix never reaches device memory. Scores of
-// keys at or past kv_len, and above the diagonal when causal, are -1e30,
-// as in the TPU kernel; key tiles past the causal limit are skipped (a tile
-// runs when its first key is <= the query tile's last row, the TPU
-// kernel's rule); the row sum is clamped at 1e-30 before the division.
+// dtype, and two functions of the LM template's chunked attention
+// (repro/models/attention.py:119-122) that the TPU kernel lacks: a sliding
+// window and an attention-logit softcap. The (S, S) score matrix never
+// reaches device memory.
+// The softcap: the scaled score x = s * scale becomes cap * tanh(x / cap)
+// before the mask and the running max, by tanhf in both bodies (the bf16
+// body takes it as cap log2(e) tanh(s (scale / cap)), in log2 units). Each
+// body has an instance with the softcap and one without (kCap), so a call
+// without it runs no tanhf and holds no register for it. The window is a
+// run-time bound: no window is a window of INT_MAX.
+// The masks: a (row, col) pair is kept iff col < kv_len, and when causal
+// row >= col, and with a window W row - col < W (a window needs causal).
+// A dropped score is -1e30, as in the TPU kernel. The row sum is clamped at
+// 1e-30 before the division; a row that keeps no key at all (a padded row
+// W or more past kv_len) is written as zeros.
+// The skip rule: a block visits the key tiles from the one holding key
+// max(0, q0 - W + 1) (q0 its first row; 0 without a window) to the causal
+// limit (a tile runs when its first key is <= the query tile's last row,
+// the TPU kernel's rule); the tiles outside every row's window are never
+// loaded. A row can still meet whole tiles outside its own window first:
+// their keys give p = exp(-1e30 - (-1e30)) = 1, and its first kept key
+// wipes them (the correction exp(-1e30 - m) is 0). A causal row below
+// kv_len keeps its diagonal key, so a kept key comes in every such row.
 // Keys and values are read from head bh / rep, so grouped-query attention
 // needs no repeated copy. Two bodies:
 //
@@ -26,11 +44,12 @@
 // the columns past hd; hd must be a multiple of 8 (TMA's 16-byte row
 // pitch: the wrapper pads other widths). No atomics: the same bits on
 // every launch.
-// Bound: operations on the bf16 tensor cores. The function needs 2
-// products of S x S x hd per head (halved when causal): 68.7 GFLOP at
-// Qwen2.5-3B's widths (16 heads, hd = 128, S = 4096, causal), 0.0695 ms at
-// 989 TFLOP/s. The split makes P.V twice the work, 103 GFLOP in all: this
-// design's floor is 0.104 ms.
+// Bound: operations on the bf16 tensor cores. The function needs Q.K^T and
+// P.V over the kept (query, key) pairs, 4 hd operations a pair: S(S+1)/2
+// pairs a head when causal, 68.7 GFLOP at Qwen2.5-3B's widths (16 heads,
+// hd = 128, S = 4096), 0.0695 ms at 989 TFLOP/s; with a window W, W(W+1)/2
+// + (S - W) W pairs (23.4% of the causal ones at S = 32768, W = 4096). The
+// split makes P.V twice the work: this design's floor is 1.5x the bound.
 // Shared memory: the query tile (128 x D), 2 stages of K and V tiles
 // (BK x D each; BK = 128 up to D = 128, 64 at D = 256): 160 KB at D = 128,
 // 192 KB at D = 256, one block per SM.
@@ -53,6 +72,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "hopper_wgmma.cuh"
@@ -92,12 +112,12 @@ struct Tile {
       sizeof(float);
 };
 
-template <int DPL, int BK>
+template <int DPL, int BK, bool kCap>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int BH,
                  int rep, int S, int hd, int kv_len, float scale,
-                 int causal) {
+                 int causal, int window, float softcap) {
   using Tl = Tile<DPL, BK>;
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);   // [BQ][stride]
@@ -132,7 +152,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int kv_end = causal ? min(kv_len, q0 + kBQ) : kv_len;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  // the first tile that holds a key inside some row's window
+  const int k_begin = max(0, q0 - window + 1) / BK * BK;
+  for (int k0 = k_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();   // the last tile's reads of s_k, s_v, s_p are done
     for (int i = tid; i < BK * Tl::kD; i += kThreads) {
       const int c = i / Tl::kD, d = i % Tl::kD;
@@ -180,8 +202,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int cc = 0; cc < Tl::kCols; ++cc) {
         const int col = k0 + lane + kWarp * cc;
-        const bool keep = col < kv_len && (!causal || row >= col);
-        s[i][cc] = keep ? s[i][cc] : kNegInf;
+        const bool keep = col < kv_len && (!causal || row >= col) &&
+                          row - col < window;
+        float x = s[i][cc];
+        if (kCap) x = softcap * tanhf(x / softcap);
+        s[i][cc] = keep ? x : kNegInf;
         mx = fmaxf(mx, s[i][cc]);
       }
       const float m_new = fmaxf(m[i], warp_max(mx));
@@ -218,7 +243,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + warp * kRows + i;
     if (row >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // m stays at -1e30 only in a row that kept no key
+    const float inv = m[i] > kNegInf ? 1.f / fmaxf(l[i], 1e-30f) : 0.f;
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd) {
       const int d = lane + kWarp * dd;
@@ -229,35 +255,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DPL>
+template <int DPL, bool kCap>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          void* out, int BH, int rep, int S, int hd,
-                         int kv_len, float scale, int causal,
-                         cudaStream_t stream) {
+                         int kv_len, float scale, int causal, int window,
+                         float softcap, cudaStream_t stream) {
   constexpr int BK = DPL <= 4 ? 64 : 32;
   using Tl = Tile<DPL, BK>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<DPL, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<DPL, BK, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Tl::kSmem));
   if (err != cudaSuccess) return err;
   const int64_t blocks = static_cast<int64_t>(BH) * ((S + kBQ - 1) / kBQ);
-  flash_kernel<DPL, BK>
+  flash_kernel<DPL, BK, kCap>
       <<<static_cast<unsigned>(blocks), kThreads, Tl::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), BH, rep, S, hd,
-      kv_len, scale, causal);
+      kv_len, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_flash_f32(const void* q, const void* k, const void* v,
                                void* out, int BH, int rep, int S, int hd,
                                int kv_len, float scale, int causal,
+                               int window, float softcap,
                                cudaStream_t stream) {
   const int dpl = (hd + kWarp - 1) / kWarp;
-#define ATTN_CASE(N)                                                     \
-  case N:                                                                \
-    return launch_flash<N>(q, k, v, out, BH, rep, S, hd, kv_len, scale, \
-                           causal, stream);
+#define ATTN_CASE(N)                                                        \
+  case N:                                                                   \
+    return softcap > 0.f                                                    \
+               ? launch_flash<N, true>(q, k, v, out, BH, rep, S, hd,        \
+                                       kv_len, scale, causal, window,       \
+                                       softcap, stream)                     \
+               : launch_flash<N, false>(q, k, v, out, BH, rep, S, hd,       \
+                                        kv_len, scale, causal, window,      \
+                                        softcap, stream);
   switch (dpl) {
     ATTN_CASE(1)
     ATTN_CASE(2)
@@ -352,13 +384,14 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
 
 // P is handed to the P.V product in registers: a register-A operand has
 // the accumulator's rows and columns (hopper_wgmma.cuh).
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     __nv_bfloat16* __restrict__ out, int BH, int rep, int S,
-                    int hd, int kv_len, float scale, int causal) {
+                    int hd, int kv_len, float scale, int causal, int window,
+                    float softcap) {
   using C = Cfg<D>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -377,7 +410,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qt = nqt - 1 - static_cast<int>(blockIdx.x / BH);
   const int q0 = qt * kBQ;
   const int kv_end = causal ? min(kv_len, q0 + kBQ) : kv_len;
-  const int ntiles = (kv_end + BK - 1) / BK;
+  const int t_end = (kv_end + BK - 1) / BK;
+  // the first tile that holds a key inside some row's window; the ring's
+  // stages and parities count from it
+  const int t_first = max(0, q0 - window + 1) / BK;
 
   if (threadIdx.x == 0) {
     mbar_init(&q_full, 1);
@@ -400,8 +436,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_load_3d(s_q + c * kBQ * kRowBytes, &tm_q, &q_full, c * kChunk,
                     q0, bh);
       }
-      for (int t = 0; t < ntiles; ++t) {
-        const int st = t % kStages, round = t / kStages;
+      for (int t = t_first; t < t_end; ++t) {
+        const int st = (t - t_first) % kStages;
+        const int round = (t - t_first) / kStages;
         if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
         const uint32_t s_k = s_kv + st * C::kTileBytes;
         const uint32_t s_v = s_kv + (kStages + st) * C::kTileBytes;
@@ -427,15 +464,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;   // and +8
   const int col0 = 2 * (lane % 4);
   const float scale2 = scale * kLog2e;   // scores in log2 units
+  // softcapped: cap * tanh(s * scale / cap), then in log2 units
+  const float cap_in = kCap ? scale / softcap : 0.f;
+  const float cap_out = softcap * kLog2e;
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(&q_full, 0);
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t % kStages;
-    const uint32_t parity = (t / kStages) & 1;
+  for (int t = t_first; t < t_end; ++t) {
+    const int st = (t - t_first) % kStages;
+    const uint32_t parity = ((t - t_first) / kStages) & 1;
     const uint32_t s_k = s_kv + st * C::kTileBytes;
     const uint32_t s_v = s_kv + (kStages + st) * C::kTileBytes;
     const int k0 = t * BK;
@@ -461,7 +501,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait_all();
     fence_regs(s);
 
-    // masks and the running max (rows row0 and row0 + 8)
+    // the softcap, the masks and the running max (rows row0 and row0 + 8),
+    // the kept scores in log2 units
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -469,8 +510,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + 8 * (e >> 1);
         const int col = k0 + 8 * j + col0 + (e & 1);
-        const bool keep = col < kv_len && (!causal || row >= col);
-        const float x = keep ? s[4 * j + e] * scale2 : kNegInf;
+        const bool keep = col < kv_len && (!causal || row >= col) &&
+                          row - col < window;
+        float x = s[4 * j + e] * scale2;
+        if (kCap) x = cap_out * tanhf(s[4 * j + e] * cap_in);
+        x = keep ? x : kNegInf;
         s[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -533,7 +577,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+    // m stays at -1e30 only in a row that kept no key
+    inv[h] = m[h] > kNegInf ? 1.f / fmaxf(l[h], 1e-30f) : 0.f;
   }
   const size_t base = static_cast<size_t>(bh) * S;
 #pragma unroll
@@ -600,25 +645,27 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int S,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int BH, int rep, int S, int hd, int kv_len, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, int window, float softcap,
+                   cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap mq, mk, mv;
   cudaError_t err = make_map(&mq, q, BH, S, hd, kBQ);
   if (err == cudaSuccess) err = make_map(&mk, k, BH / rep, S, hd, C::BK);
   if (err == cudaSuccess) err = make_map(&mv, v, BH / rep, S, hd, C::BK);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+  err = cudaFuncSetAttribute(flash_tc_kernel<D, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmem);
   if (err != cudaSuccess) return err;
   const int64_t blocks = static_cast<int64_t>(BH) * ((S + kBQ - 1) / kBQ);
-  flash_tc_kernel<D><<<static_cast<unsigned>(blocks), kThreads, C::kSmem,
+  flash_tc_kernel<D, kCap><<<static_cast<unsigned>(blocks), kThreads, C::kSmem,
                        stream>>>(mq, mk, mv,
                                  static_cast<__nv_bfloat16*>(out), BH, rep,
-                                 S, hd, kv_len, scale, causal);
+                                 S, hd, kv_len, scale, causal, window,
+                                 softcap);
   return cudaGetLastError();
 }
 
@@ -627,24 +674,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 cudaError_t dispatch_flash_bf16(const void* q, const void* k, const void* v,
                                 void* out, int BH, int rep, int S, int hd,
                                 int kv_len, float scale, int causal,
+                                int window, float softcap,
                                 cudaStream_t stream) {
   // TMA: 16-byte row pitch and base addresses
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v);
   if (hd % 8 != 0 || (addr & 15) != 0) return cudaErrorInvalidValue;
-  if (hd <= 64) {
-    return tc::launch<64>(q, k, v, out, BH, rep, S, hd, kv_len, scale, causal,
-                          stream);
-  }
-  if (hd <= 128) {
-    return tc::launch<128>(q, k, v, out, BH, rep, S, hd, kv_len, scale,
-                           causal, stream);
-  }
-  if (hd <= 256) {
-    return tc::launch<256>(q, k, v, out, BH, rep, S, hd, kv_len, scale,
-                           causal, stream);
-  }
+#define TC_CASE(D)                                                          \
+  return softcap > 0.f                                                      \
+             ? tc::launch<D, true>(q, k, v, out, BH, rep, S, hd, kv_len,    \
+                                   scale, causal, window, softcap, stream)  \
+             : tc::launch<D, false>(q, k, v, out, BH, rep, S, hd, kv_len,   \
+                                    scale, causal, window, softcap, stream);
+  if (hd <= 64) TC_CASE(64)
+  if (hd <= 128) TC_CASE(128)
+  if (hd <= 256) TC_CASE(256)
+#undef TC_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -661,25 +707,30 @@ int attn_max_head_dim() { return kMaxDpl * kWarp; }
 
 // out = softmax(q k^T * scale, masked) v for BH query heads of S rows and
 // hd dims; keys and values have BH / rep heads (head bh reads bh / rep).
-// Keys at or past kv_len are masked; causal masks keys after the query.
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike; hd a multiple of 8
-// and 16-byte aligned bases for bfloat16).
+// Keys at or past kv_len are masked; causal masks keys after the query;
+// window > 0 (causal only) masks keys window or more before it (0: none);
+// softcap > 0 caps the scaled scores at softcap * tanh(x / softcap) (0:
+// none). dtype: 0 float32, 1 bfloat16 (q, k, v and out alike; hd a
+// multiple of 8 and 16-byte aligned bases for bfloat16).
 int attn_flash(const void* q, const void* k, const void* v, void* out,
                int BH, int rep, int S, int hd, int kv_len, float scale,
-               int causal, int dtype, void* stream) {
+               int causal, int window, float softcap, int dtype,
+               void* stream) {
   cudaGetLastError();
-  if (rep < 1 || BH % rep != 0 || kv_len < 1 || kv_len > S || hd < 1) {
+  if (rep < 1 || BH % rep != 0 || kv_len < 1 || kv_len > S || hd < 1 ||
+      window < 0 || (window > 0 && !causal) || !(softcap >= 0.f)) {
     return cudaErrorInvalidValue;
   }
   if (BH == 0 || S == 0) return cudaSuccess;
+  if (window == 0) window = INT_MAX;   // the kernels' bound: no window
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return dispatch_flash_f32(q, k, v, out, BH, rep, S, hd, kv_len, scale,
-                              causal, s);
+                              causal, window, softcap, s);
   }
   if (dtype == 1) {
     return dispatch_flash_bf16(q, k, v, out, BH, rep, S, hd, kv_len, scale,
-                               causal, s);
+                               causal, window, softcap, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -334,8 +334,9 @@ def estep_cuda_sweeps(cfg: LDAConfig, exp_elog_beta: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True,
-              scale: Optional[float] = None) -> torch.Tensor:
+              causal: bool = True, scale: Optional[float] = None,
+              window: Optional[int] = None,
+              softcap: Optional[float] = None) -> torch.Tensor:
     """GQA-aware wrapper: q (B, S, H, hd), k/v (B, S, KV, hd) → (B, S, H,
     hd).
 
@@ -343,8 +344,10 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     before invoking the flash kernel. Query head h reads key/value head
     h // (H / KV) in place (no repeated copy), and the kernel masks the
     padded keys, so the result is ``mha_ref`` on the unpadded inputs,
-    causal or not. K9 has no backward: with autograd recording through q,
-    k or v it raises (``flash_attention.refuse_autograd``).
+    causal or not. ``window`` and ``softcap`` go to the kernel as they are
+    (``flash_attention``: a causal sliding window, a logit softcap). K9 has
+    no backward: with autograd recording through q, k or v it raises
+    (``flash_attention.refuse_autograd``).
     """
     refuse_autograd("flash_mha", q, k, v)
     b, s, h, hd = q.shape
@@ -363,5 +366,6 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qf, kf, vf = (F.pad(x, (0, 0, 0, s_pad - s)) for x in (qf, kf, vf))
     out = flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous(),
                           causal=causal, scale=scale, block_q=blk,
-                          block_k=blk, kv_len=s)
+                          block_k=blk, kv_len=s, window=window,
+                          softcap=softcap)
     return out[:, :s].reshape(b, h, s, hd).permute(0, 2, 1, 3)

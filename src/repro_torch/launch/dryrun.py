@@ -16,9 +16,10 @@ autograd on the rank's fp32 master blocks and AdamW moments, as
 ``repro``'s dry run places the optimizer state: its forward, each
 checkpointed layer's recompute, the backward (its reduce-scatters) and
 the update. K9's wrapper takes its
-shape-only path on ``meta`` (the card's route: a windowed or softcapped
-prefill raises, ROADMAP §2 C1), and the MoE's segments fill the rank's
-capacity. Per pair:
+shape-only path on ``meta`` (the card's route, with gemma2's softcap and
+the windows of its local layers and of the ``long_500k`` variant; its
+operations count only the pairs the masks keep), and the MoE's segments
+fill the rank's capacity. Per pair:
 
 * ``memory``: argument bytes (the rank's parameters, optimizer state,
   caches and rows of the inputs), the step's temporaries at their peak (`launch.dryrun_lda.

@@ -9,9 +9,10 @@ long-context variant), attention-logit softcaps (gemma2), QK-RMSNorm
 Prefill (``attention_train``) has two routes, chosen by
 ``attention_route``:
 - ``"flash"``: the flash-attention kernel (K9, ``kernels.ops.flash_mha``),
-  causal, on the rope'd and pre-scaled queries. The default on CUDA. K9
-  computes no sliding window and no logit softcap: such a prefill raises
-  on CUDA rather than run the plain route there.
+  causal, on the rope'd and pre-scaled queries, with the layer's sliding
+  window (gemma2's local layers, the long-context variant) and the
+  config's logit softcap (gemma2) computed in the kernel. The default on
+  CUDA.
 - ``"plain"``: ``repro``'s query-chunked scan as a loop over
   ``cfg.attn_chunk`` query rows, so the (chunk, S) score tile is the only
   score buffer. The default on the CPU, and what the comparisons on the
@@ -137,16 +138,15 @@ def select_kv(t: torch.Tensor, sel: Optional[slice],
 # prefill — K9, or the q-chunked causal scan
 # ---------------------------------------------------------------------------
 
-def attention_route(cfg: ModelConfig, window: Optional[int], device,
-                    attention: Optional[str] = None) -> str:
+def attention_route(device, attention: Optional[str] = None) -> str:
     """The route of a full-sequence attention: ``"flash"`` (K9) or
     ``"plain"`` (the chunked scan).
 
     ``attention`` None picks by device: the plain scan on the CPU, K9
     elsewhere. ``"plain"`` is taken on any device when asked for by name;
     ``"flash"`` on the CPU runs K9's plain twin. K9 computes causal softmax
-    attention with no window and no logit softcap, so a K9 route for a
-    windowed or softcapped layer raises.
+    attention with the layer's sliding window and the config's logit
+    softcap, so every layer of every config has the K9 route.
     """
     if attention is not None and attention not in ROUTES:
         raise ValueError(f"attention={attention!r}; expected one of "
@@ -154,17 +154,6 @@ def attention_route(cfg: ModelConfig, window: Optional[int], device,
     if attention == "plain" or (attention is None
                                 and torch.device(device).type == "cpu"):
         return "plain"
-    missing = []
-    if window is not None:
-        missing.append(f"a sliding window of {window}")
-    if cfg.attn_logit_softcap is not None:
-        missing.append(f"a logit softcap of {cfg.attn_logit_softcap}")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: this prefill needs {' and '.join(missing)}, which "
-            "the flash-attention kernel (K9) does not compute yet (ROADMAP "
-            "§2 C1: K9 gains a sliding-window mask and a logit softcap); "
-            "on the card it does not fall back to the plain attention")
     return "flash"
 
 
@@ -235,14 +224,15 @@ def attention_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
     by index). ``attention`` picks the route (``attention_route``).
     ``heads``: a model rank's (``head_slice``); ``p`` then holds its
     heads, and the output is its partial sum where ``heads.reduce``."""
-    route = attention_route(cfg, window, x.device, attention)
+    route = attention_route(x.device, attention)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = prefill_qkv(cfg, p, x, positions)
     if heads is not None:
         k, v = select_kv(k, heads.kv), select_kv(v, heads.kv)
     if route == "flash":
-        out = flash_mha(q, k, v, causal=True, scale=1.0)
+        out = flash_mha(q, k, v, causal=True, scale=1.0, window=window,
+                        softcap=cfg.attn_logit_softcap)
     else:
         out = _chunked_attention(cfg, q, k, v, positions, window)
     return torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))

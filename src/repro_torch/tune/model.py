@@ -125,10 +125,13 @@ def sweep_tc_bound(b: int, v: int, k: int,
                     24.0 * b * v * k, BF16_OPS_PER_S)
 
 
-def attention_work(b: int, s: int, h: int, kvh: int, hd: int) -> Work:
+def attention_work(b: int, s: int, h: int, kvh: int, hd: int,
+                   window: Optional[int] = None) -> Work:
     """K9 causal in bf16: Q, K, V read and O written once; Q·Kᵀ and P·V
-    over the (query, key) pairs a causal mask keeps."""
-    pairs = b * h * s * (s + 1) / 2
+    over the (query, key) pairs a causal mask keeps, with a ``window``
+    the pairs of its band (``kernels.flash_attention.kept_pairs``)."""
+    from repro_torch.kernels.flash_attention import kept_pairs
+    pairs = b * h * kept_pairs(s, s, True, window)
     return float(2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)), \
         4.0 * hd * pairs
 

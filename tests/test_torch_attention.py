@@ -2,21 +2,32 @@
 the grouped-query wrapper ``flash_mha``, held against ``repro``'s Pallas
 kernel (interpret mode), its ``flash_mha`` and its oracle ``mha_ref`` on
 the same numpy inputs, at ``repro``'s own bars (``tests/
-test_extensions.py``): 2e-5 in fp32, 3e-2 in bf16.
+test_extensions.py``): 2e-5 in fp32, 3e-2 in bf16. K9's sliding window and
+logit softcap, which ``repro``'s kernel lacks, are held against the
+function that ``repro``'s chunked LM attention computes
+(``repro.models.attention.attention_train``) at its bar, 1e-4
+(``tests/test_model_units.py``).
 """
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as j_configs
 from repro.kernels import ops as j_ops
 from repro.kernels import ref as j_ref
 from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.models import attention as JA
+from repro_torch.configs import base as t_base
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (attention_flops,
+                                                 flash_attention,
+                                                 flash_attention_plain,
+                                                 kept_pairs)
+from repro_torch.models import attention as TA
 
 # (BH, S, hd, block_q, block_k, causal): tests/test_extensions.py's FA_SHAPES
 FA_SHAPES = [
@@ -142,6 +153,87 @@ def test_flash_mha_masks_padded_keys_when_not_causal():
     assert np.abs(faulty - _mha_ref_gqa(q, k, v, causal=False)).max() > 1e-2
 
 
+@pytest.mark.parametrize("s,window,cap", [(130, 6, 30.0), (200, 64, 50.0),
+                                          (256, 100, None), (200, None, 50.0),
+                                          (96, 1, 30.0)])
+def test_banded_twin_matches_repro_attention(s, window, cap):
+    """The twin with a window and a softcap (flash_attention on CPU
+    tensors) on the rope'd, pre-scaled q, k, v of a GQA layer, projected
+    by wo, against ``repro``'s chunked ``attention_train`` of the same
+    layer at 1e-4. The query scale puts the logits near the cap, so the
+    cap bends them."""
+    base = dict(name="t", family="dense", num_layers=1, d_model=64,
+                num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=97,
+                attn_chunk=64, dtype="float32", attn_logit_softcap=cap,
+                query_scale=2.0)
+    jc, tc = j_configs.base.ModelConfig(**base), t_base.ModelConfig(**base)
+    p = {k: np.array(v) for k, v in JA.attn_init(
+        jc, jax.random.key(s)).items()}
+    x = np.random.default_rng(s).normal(0, 1, (2, s, 64)).astype(np.float32)
+    want = JA.attention_train(jc, p, jnp.asarray(x), window=window)
+    tp = {k: _t(v) for k, v in p.items()}
+    q, k, v = TA.prefill_qkv(tc, tp, _t(x), torch.arange(s))
+    b, _, h, hd = q.shape
+
+    def flat(t):
+        return t.permute(0, 2, 1, 3).reshape(-1, s, hd)
+
+    blk = 128 if s >= 128 else s
+    pad = -s % blk
+    qf, kf, vf = (torch.nn.functional.pad(flat(t), (0, 0, 0, pad))
+                  for t in (q, k, v))
+    out = flash_attention(qf, kf, vf, causal=True, scale=1.0, block_q=blk,
+                          block_k=blk, kv_len=s, window=window, softcap=cap)
+    out = out[:, :s].reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    got = torch.einsum("bthk,hkd->btd", out, tp["wo"])
+    _close(got, want, 1e-4)
+    uncapped = flash_attention(qf, kf, vf, causal=True, scale=1.0,
+                               block_q=blk, block_k=blk, kv_len=s,
+                               window=window)[:, :s]
+    bend = float((uncapped.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+                  - out).abs().max())
+    if window == 1:           # a row keeps its own key: v's row, capped or not
+        assert torch.equal(out, v.repeat_interleave(h // v.shape[2], 2))
+    elif cap is not None:     # the cap is not a no-op at these logits
+        assert bend > 1e-2
+
+
+@pytest.mark.parametrize("s,kv_len,window", [
+    (256, 256, 1), (256, 256, 100), (256, 200, 100), (256, 200, 1),
+    (300, 300, 4096), (128, 100, 40), (1024, 1000, 100), (64, 10, 30),
+    (200, 130, None), (200, 130, 200)])
+def test_attention_flops_counts_the_kept_mask(s, kv_len, window):
+    """K9's operation count (and the dry run's) against a brute-force count
+    of the entries its masks keep, causal, padded rows included."""
+    rows, cols = np.arange(s)[:, None], np.arange(s)[None, :]
+    keep = (cols < kv_len) & (rows >= cols)
+    if window is not None:
+        keep &= rows - cols < window
+    assert kept_pairs(s, kv_len, True, window) == int(keep.sum())
+    assert attention_flops(3, s, 64, kv_len, True, window) == \
+        4.0 * 64 * 3 * int(keep.sum())
+    assert attention_flops(3, s, 64, kv_len, False) == 4.0 * 64 * 3 * s * \
+        kv_len
+
+
+def test_flash_wrapper_checks_its_band():
+    """A window needs causal attention and is an int >= 1; a softcap is
+    > 0; the twin computes a row with no kept key as zeros."""
+    q, k, v = (_t(x) for x in _normal(6, *[(2, 128, 16)] * 3))
+    with pytest.raises(ValueError, match="needs causal"):
+        flash_attention(q, k, v, causal=False, window=8)
+    for bad in (0, -3, 2.5, True):
+        with pytest.raises(ValueError, match="window"):
+            flash_attention(q, k, v, window=bad)
+    for bad in (0.0, -50.0):
+        with pytest.raises(ValueError, match="softcap"):
+            flash_attention(q, k, v, softcap=bad)
+    # kv_len 100, window 8: rows 107 and up keep no key
+    out = flash_attention(q, k, v, kv_len=100, window=8)
+    assert torch.equal(out[:, 107:], torch.zeros_like(out[:, 107:]))
+    assert bool((out[:, :107].abs().sum(-1) > 0).all())
+
+
 def test_flash_attention_plain_masks_keys_past_kv_len():
     q, k, v = _normal(5, *[(2, 64, 16)] * 3)
     got = flash_attention_plain(_t(q), _t(k), _t(v), causal=False, kv_len=50)
@@ -167,42 +259,64 @@ def _kernel_key_tile(hd):
     return small if width <= cut else large
 
 
-def _tensor_core_arithmetic(q, k, v, causal, kv_len, split):
-    """K9's bf16 body in plain torch: fp32 scores of the bf16 inputs, the
-    online softmax over the kernel's key tiles in log2 units, P from fp32
-    exponentials entering P·V as bf16 — as P_hi + P_lo (P_lo = bf16(P −
-    P_hi)) with ``split``, as one bf16 P without — the products and the row
-    sum in fp32, the output rounded to bf16. This checks the design's
-    numerics on the CPU; K9 itself is held to the same bar by the card
-    tests (tests/test_torch_gpu.py)."""
+def _tensor_core_arithmetic(q, k, v, causal, kv_len, split, window=None,
+                            softcap=None, scale=None):
+    """K9's bf16 body in plain torch: per 128-row query tile, the key
+    tiles from the first that holds a key of some row's window (the
+    kernel's skip rule; tile 0 without a window) to the causal limit; fp32
+    scores of the bf16 inputs, softcapped as the kernel does it (cap·log2e
+    ·tanh(s·(scale / cap))), masked, the online softmax in log2 units, P
+    from fp32 exponentials entering P·V as bf16 — as P_hi + P_lo (P_lo =
+    bf16(P − P_hi)) with ``split``, as one bf16 P without — the products
+    and the row sum in fp32, the output rounded to bf16; a row that kept
+    no key is zeros. This checks the design's numerics on the CPU; K9
+    itself is held to the same bar by the card tests
+    (tests/test_torch_gpu.py)."""
     bh, s, hd = q.shape
     rep = bh // k.shape[0]
-    bk = _kernel_key_tile(hd)
+    bk, bq = _kernel_key_tile(hd), 128
     log2e = 1.4426950408889634
+    scale = hd ** -0.5 if scale is None else scale
+    f32 = np.float32
     qf = q.float()
     kf = k.float().repeat_interleave(rep, 0)
     vf = v.float().repeat_interleave(rep, 0)
-    m = torch.full((bh, s, 1), -1e30)
-    l = torch.zeros((bh, s, 1))
-    o = torch.zeros((bh, s, hd))
-    rows = torch.arange(s)[:, None]
-    for k0 in range(0, s, bk):
-        cols = torch.arange(k0, min(k0 + bk, s))[None, :]
-        keep = cols < kv_len
-        if causal:
-            keep = keep & (rows >= cols)
-        sc = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + bk]) * (
-            hd ** -0.5 * log2e)
-        sc = torch.where(keep, sc, -1e30)
-        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-        corr, p = torch.exp2(m - m_new), torch.exp2(sc - m_new)
-        l = l * corr + p.sum(-1, keepdim=True)
-        hi = p.to(torch.bfloat16).float()
-        pv = hi @ vf[:, k0:k0 + bk]
-        if split:
-            pv = pv + (p - hi).to(torch.bfloat16).float() @ vf[:, k0:k0 + bk]
-        o, m = o * corr + pv, m_new
-    return (o / l.clamp_min(1e-30)).to(torch.bfloat16)
+    out = torch.zeros((bh, s, hd))
+    for q0 in range(0, s, bq):
+        rows = torch.arange(q0, min(q0 + bq, s))[:, None]
+        n = rows.shape[0]
+        m = torch.full((bh, n, 1), -1e30)
+        l = torch.zeros((bh, n, 1))
+        o = torch.zeros((bh, n, hd))
+        kv_end = min(kv_len, q0 + bq) if causal else kv_len
+        t_first = max(0, q0 - window + 1) // bk if window else 0
+        for k0 in range(t_first * bk, kv_end, bk):
+            cols = torch.arange(k0, min(k0 + bk, s))[None, :]
+            keep = cols < kv_len
+            if causal:
+                keep = keep & (rows >= cols)
+            if window:
+                keep = keep & (rows - cols < window)
+            sc = torch.einsum("bqd,bkd->bqk", qf[:, q0:q0 + n],
+                              kf[:, k0:k0 + bk])
+            if softcap:
+                sc = float(f32(softcap) * f32(log2e)) * torch.tanh(
+                    sc * float(f32(scale) / f32(softcap)))
+            else:
+                sc = sc * float(f32(scale) * f32(log2e))
+            sc = torch.where(keep, sc, -1e30)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            corr, p = torch.exp2(m - m_new), torch.exp2(sc - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            hi = p.to(torch.bfloat16).float()
+            pv = hi @ vf[:, k0:k0 + bk]
+            if split:
+                pv = pv + (p - hi).to(torch.bfloat16).float() @ \
+                    vf[:, k0:k0 + bk]
+            o, m = o * corr + pv, m_new
+        inv = torch.where(m > -1e30, 1.0 / l.clamp_min(1e-30), 0.0)
+        out[:, q0:q0 + n] = o * inv
+    return out.to(torch.bfloat16)
 
 
 def _card_inputs(s, hd, rep, seed):
@@ -225,6 +339,36 @@ def test_split_p_arithmetic_meets_the_card_bar(s, hd, rep, kv_len, causal):
     want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
                                atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("window", [1, 100, "S"])
+@pytest.mark.parametrize("s,hd,rep,kv_len", CARD_SHAPES)
+def test_banded_arithmetic_meets_the_card_bar(s, hd, rep, kv_len, window,
+                                              softcap):
+    """The bf16 body with a window (W = 1 and 100, under one key tile, and
+    W = S, which masks nothing) and the softcap, over the key tiles the
+    kernel visits, within the card bar of the twin. The softcap cases run
+    at scale 1, so the logits (standard deviation √hd) reach the cap. At
+    W = 1 a row keeps its diagonal key alone (P = 1 = 1 + 0 through the
+    split) and its output is v's row, bit for bit."""
+    q, k, v = _card_inputs(s, hd, rep, s + hd + 1)
+    kv_len = s if kv_len is None else kv_len
+    window = s if window == "S" else window
+    scale = 1.0 if softcap else None
+    got = _tensor_core_arithmetic(q, k, v, True, kv_len, split=True,
+                                  window=window, softcap=softcap,
+                                  scale=scale)
+    want = flash_attention_plain(q, k, v, causal=True, kv_len=kv_len,
+                                 window=window, softcap=softcap, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    if window == 1:
+        rows = min(kv_len, s)
+        assert torch.equal(got[:, :rows],
+                           v.repeat_interleave(rep, 0)[:, :rows])
+        assert torch.equal(want[:, :rows],
+                           v.repeat_interleave(rep, 0)[:, :rows])
 
 
 @pytest.mark.parametrize("s,hd,rep,kv_len", CARD_SHAPES)

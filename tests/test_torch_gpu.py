@@ -779,7 +779,13 @@ def test_memo_delta_onehot_allocates_no_partials_and_takes_skew(cuda, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (False, None, None),
+    (True, 1, None),         # each row its diagonal key alone
+    (True, 40, None),        # a window under one key tile
+    (True, None, 30.0),      # the softcap alone, at scale 1
+    (True, 100, 50.0),       # both
+])
 @pytest.mark.parametrize("s,hd,rep,kv_len", [
     (256, 128, 4, None),     # Qwen2.5-3B's head width, GQA 4
     (70, 64, 1, None),       # one ragged 64-row tile past the first
@@ -787,19 +793,24 @@ def test_memo_delta_onehot_allocates_no_partials_and_takes_skew(cuda, k):
     (128, 40, 1, 100),       # a head width that is no multiple of 32
     (96, 36, 2, 90),         # no multiple of 8: bf16 pads it to 40
 ])
-def test_flash_attention_kernel_matches_twin(cuda, dtype, causal, s, hd, rep,
-                                             kv_len):
+def test_flash_attention_kernel_matches_twin(cuda, dtype, causal, window,
+                                             softcap, s, hd, rep, kv_len):
     """K9 against its twin: 2e-5 in fp32; in bf16, where both round one
-    fp32 result once, about two bf16 ulps (rtol 2^-7, atol 1e-3)."""
+    fp32 result once, about two bf16 ulps (rtol 2^-7, atol 1e-3). With a
+    window (padded rows past kv_len keep no key there: zeros in both) and
+    a softcap (at scale 1, so the logits reach the cap)."""
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(cuda).manual_seed(s + hd)
     bh = 4 * rep
     q = torch.randn((bh, s, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((bh // rep, s, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((bh // rep, s, hd), generator=gen, device=cuda).to(dtype)
+    band = dict(window=window, softcap=softcap,
+                scale=1.0 if softcap else None)
     got = fa.flash_attention(q, k, v, causal=causal, block_q=s, block_k=s,
-                             kv_len=kv_len)
-    want = fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+                             kv_len=kv_len, **band)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                    **band)
     torch.cuda.synchronize()
     assert got.dtype == dtype
     rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-3)
@@ -840,6 +851,24 @@ def _qwen_heads(cuda, dtype=torch.bfloat16, s=4096):
     k = torch.randn((2, s, 128), generator=gen, device=cuda).to(dtype)
     v = torch.randn((2, s, 128), generator=gen, device=cuda).to(dtype)
     return q, k, v
+
+
+@pytest.mark.parametrize("s", [1024, 1000])
+def test_flash_attention_bf16_window_one_returns_v(cuda, s):
+    """K9 in bf16 at W = 1 through flash_mha (S = 1,000 padded to 1,024):
+    each row keeps its diagonal key alone, P = 1 enters P·V as 1 + 0, and
+    the output is v's row bit for bit, softcapped or not."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(cuda).manual_seed(s)
+    q, k, v = (torch.randn((1, s, n, 128), generator=gen, device=cuda)
+               .to(torch.bfloat16) for n in (16, 2, 2))
+    fa.reset_launches()
+    for cap in (None, 50.0):
+        got = ops.flash_mha(q, k, v, causal=True, window=1, softcap=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, v.repeat_interleave(8, dim=2))
+    assert fa.LAUNCHES["flash_attention"] == 2
 
 
 def test_flash_attention_bf16_kernel_is_deterministic(cuda):
@@ -1467,6 +1496,34 @@ def test_lm_prefill_launches_k9_once_a_layer(cuda):
     assert got.shape == (2, cfg.vocab_size) and got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got.float()).all())
     assert _rel_l2(got, want) <= LM_PREFILL_REL_L2
+
+
+def test_gemma2_prefill_launches_k9_once_a_layer(cuda):
+    """Reduced gemma2 (fp32, 4 layers: local, global, local, global; the
+    window cut to 256, the 50.0 softcap on every layer) at S = 512, above
+    the window: one K9 launch a layer (K9's fp32 body with the window and
+    the cap) and the last logits within 1e-3 relative L2 of the plain
+    route, which launches K9 never."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.training import make_prefill_step
+    cfg = get_config("gemma2-27b").reduced(seq_len_hint=512, num_layers=4)
+    assert cfg.sliding_window == 256 and cfg.attn_logit_softcap == 50.0
+    params = T.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                     generator=gen, device=cuda)}
+    fa.reset_launches()
+    got = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    fa.reset_launches()
+    want = make_prefill_step(cfg, attention="plain")(params, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert bool(torch.isfinite(got).all())
+    assert _rel_l2(got, want) <= 1e-3
 
 
 def test_lm_k9_layer_output_matches_twin(cuda):

@@ -275,63 +275,89 @@ def test_attention_softcap_and_qknorm(rng):
         _close(got, want, ATTN_TOL)
 
 
-@pytest.mark.parametrize("s,chunk", [(16, 8), (19, 8), (130, 64),
-                                     (200, 512)])
-def test_k9_route_matches_chunked_path(s, chunk, rng):
+K9_ROUTE_CASES = [(16, 8, None, None), (19, 8, None, None),
+                  (130, 64, None, None), (200, 512, None, None),
+                  # the window and the softcap, S above the window
+                  (130, 64, 6, 30.0), (130, 8, 100, None),
+                  (200, 512, 64, 50.0), (200, 64, 100, 50.0),
+                  (130, 64, None, 30.0)]
+
+
+@pytest.mark.parametrize(
+    "s,chunk,window,cap", K9_ROUTE_CASES,
+    ids=[f"{s}-{c}" + (f"-w{w}" if w else "") + (f"-cap{a:g}" if a else "")
+         for s, c, w, a in K9_ROUTE_CASES])
+def test_k9_route_matches_chunked_path(s, chunk, window, cap, rng):
     """The K9 route (``flash_mha``: its plain twin on the CPU, on S padded
-    to its block grid) against the chunked scan and ``repro``'s."""
-    jc, tc = _unit_cfg(attn_chunk=chunk, qkv_bias=True)
+    to its block grid) against the chunked scan and ``repro``'s, with and
+    without a sliding window and a logit softcap (a query scale of 4
+    spreads the logits over the caps' bend, a standard deviation above
+    10)."""
+    band = {} if cap is None else dict(attn_logit_softcap=cap,
+                                       query_scale=4.0)
+    jc, tc = _unit_cfg(attn_chunk=chunk, qkv_bias=True, **band)
     p = _attn_params(jc, seed=s)
     x = rng.normal(0, 1, (2, s, 64)).astype(np.float32)
-    flash = TA.attention_train(tc, _torch_tree(p), _t(x), attention="flash")
-    plain = TA.attention_train(tc, _torch_tree(p), _t(x), attention="plain")
+    flash = TA.attention_train(tc, _torch_tree(p), _t(x), window=window,
+                               attention="flash")
+    plain = TA.attention_train(tc, _torch_tree(p), _t(x), window=window,
+                               attention="plain")
     _close(flash, plain, ATTN_TOL)
-    _close(flash, JA.attention_train(jc, p, jnp.asarray(x)), ATTN_TOL)
+    _close(flash, JA.attention_train(jc, p, jnp.asarray(x), window=window),
+           ATTN_TOL)
 
 
 def test_attention_route_decision():
-    """K9 on CUDA by default, the plain scan on the CPU or by name; a
-    window or a logit softcap has no K9 route, and on CUDA that prefill
-    raises naming ROADMAP §2 C1 instead of taking the plain scan. The
-    decision needs no card: it reads the device, not a tensor."""
+    """K9 on CUDA by default, the plain scan on the CPU or by name. K9
+    computes the window and the logit softcap, so gemma2's layers and the
+    long-context variant's take it on CUDA too. The decision needs no
+    card: it reads the device, not a tensor."""
     cuda = torch.device("cuda")
     qwen = t_configs.ARCHS["qwen2.5-3b"]
     gemma = t_configs.ARCHS["gemma2-27b"]
-    assert TA.attention_route(qwen, None, cuda) == "flash"
-    assert TA.attention_route(qwen, None, CPU) == "plain"
-    assert TA.attention_route(qwen, None, CPU, "flash") == "flash"
-    for cfg in (qwen, gemma):
-        assert TA.attention_route(cfg, 4096, cuda, "plain") == "plain"
-    # gemma2: the softcap on every layer, the window on its local ones
+    assert TA.attention_route(cuda) == "flash"
+    assert TA.attention_route(CPU) == "plain"
+    assert TA.attention_route(CPU, "flash") == "flash"
+    assert TA.attention_route(cuda, "plain") == "plain"
+    # gemma2: the softcap on every layer, the window on its local ones;
+    # force_local (the long_500k variant) windows every layer. The route
+    # reads neither: the windowed and softcapped layers take K9 on CUDA
+    assert gemma.attn_logit_softcap == 50.0
     for kind in (t_base.ATTN, t_base.ATTN_LOCAL):
         window = t_base.effective_window(gemma, kind)
-        with pytest.raises(NotImplementedError, match="ROADMAP §2 C1"):
-            TA.attention_route(gemma, window, cuda)
-    # force_local (the long_500k variant) windows every layer
+        assert window == (4096 if kind == t_base.ATTN_LOCAL else None)
     long_qwen, _ = t_base.shape_variant(qwen, t_configs.get_shape(
         "long_500k"))
-    window = t_base.effective_window(long_qwen, t_base.ATTN)
-    assert window == 4096
-    with pytest.raises(NotImplementedError, match="sliding window of 4096"):
-        TA.attention_route(long_qwen, window, cuda)
+    assert t_base.effective_window(long_qwen, t_base.ATTN) == 4096
     with pytest.raises(ValueError):
-        TA.attention_route(qwen, None, cuda, "sdpa")
+        TA.attention_route(cuda, "sdpa")
 
 
-def test_windowed_prefill_refuses_the_k9_route(rng):
-    """The same decision inside a whole prefill: gemma2's reduced config
-    asked for the K9 route raises before any work."""
-    _, tc = _reduced("gemma2-27b")
-    params = TT.init_params(tc, 0, device=CPU)
-    tokens = torch.from_numpy(rng.integers(0, tc.vocab_size, (B, S)))
-    with pytest.raises(NotImplementedError, match="ROADMAP §2 C1"):
-        make_prefill_step(tc, attention="flash")(params, {"tokens": tokens})
+def test_windowed_prefill_takes_the_k9_route(rng):
+    """The same route inside a whole prefill, S = 16 above the window of
+    8: gemma2's reduced config (softcap 50 on both layers, the window on
+    its local one) and the ``force_local`` Qwen forward (the window on
+    every layer) on the K9 route (its twin on the CPU) against
+    ``repro``'s prefill and forward of the same params."""
+    a = _arch("gemma2-27b")
+    assert a.cfg_t.sliding_window == 8 < S
+    want = jax.jit(j_make_prefill_step(a.cfg_j))(a.jp, a.batch_j())
+    got = make_prefill_step(a.cfg_t, attention="flash")(a.tp, a.batch_t())
+    _close(got, want, LOGIT_TOL)
     qwen_j, qwen_t = _reduced("qwen2.5-3b")
-    long_qwen = dataclasses.replace(qwen_t, force_local=True,
-                                    sliding_window=8)
-    params = TT.init_params(long_qwen, 0, device=CPU)
-    with pytest.raises(NotImplementedError, match="sliding window of 8"):
-        TT.forward(long_qwen, params, {"tokens": tokens}, attention="flash")
+    long_j = dataclasses.replace(qwen_j, force_local=True, sliding_window=8)
+    long_t = dataclasses.replace(qwen_t, force_local=True, sliding_window=8)
+    jp = JT.init_params(long_j, jax.random.key(1))
+    tp = lm_params_from_repro(_np_tree(jp), long_t, device=CPU)
+    tokens = rng.integers(0, long_t.vocab_size, (B, S))
+    want, _ = jax.jit(lambda p, b: JT.forward(long_j, p, b))(
+        jp, {"tokens": jnp.asarray(tokens)})
+    got, _ = TT.forward(long_t, tp, {"tokens": _t(tokens)},
+                        attention="flash")
+    _close(got, want, LOGIT_TOL)
+    plain, _ = TT.forward(long_t, tp, {"tokens": _t(tokens)},
+                          attention="plain")
+    _close(got, plain, LOGIT_TOL)
 
 
 def test_attention_decode_ring_buffer_evicts_gemma2_window(rng):
@@ -441,11 +467,8 @@ def test_prefill_step_matches_repro(arch):
     got = make_prefill_step(a.cfg_t)(a.tp, a.batch_t())
     assert got.shape == want.shape
     _close(got, want, LOGIT_TOL)
-    if a.cfg_t.attn_logit_softcap is None \
-            and t_base.ATTN_LOCAL not in a.cfg_t.pattern:
-        flash = make_prefill_step(a.cfg_t, attention="flash")(a.tp,
-                                                              a.batch_t())
-        _close(flash, want, LOGIT_TOL)
+    flash = make_prefill_step(a.cfg_t, attention="flash")(a.tp, a.batch_t())
+    _close(flash, want, LOGIT_TOL)
 
 
 @pytest.mark.parametrize("arch", COVERED)

@@ -486,4 +486,4 @@ def test_prefill_runs_k9_route_on_trainable_params_and_training_never(rng):
             TT.forward(tcfg, trainable, batch, attention="flash")
     finally:
         ops.flash_attention = real
-    assert TA.attention_route(tcfg, None, CPU, "plain") == "plain"
+    assert TA.attention_route(CPU, "plain") == "plain"
