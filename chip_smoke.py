@@ -3044,7 +3044,8 @@ def phase_serve_infer(device, spec, test, topics, lam):
         check(np.array_equal(got, sync_got),
               f"serve_infer ({layout}): double-buffered bits differ")
         syncs = host_syncs(lambda: inf._solve_docs(stream,
-                                                   double_buffer=True))
+                                                   double_buffer=True,
+                                                   on=False))
         check(syncs == 0, f"serve_infer ({layout}): {syncs} host syncs "
                           "before the final gather")
         # γ against the gather backend: tile by tile (K1's stopping tiles)

@@ -548,12 +548,17 @@ class LDAEngine:
         if rows is None:
             rows = self.rng.choice(self.num_docs, size=self.batch_size,
                                    replace=False)
+        trace = self.tel.trace
+        on = self.tel.spans_on
+        sp = trace.begin("train/batch", docs=len(rows)) if on else None
         idx = torch.as_tensor(np.asarray(rows), dtype=torch.int64,
                               device=self.device)
         ids, cnts = self.corpus.token_ids[idx], self.corpus.counts[idx]
         if width is not None and width < self.corpus.max_unique:
             ids = ids[:, :width].contiguous()
             cnts = cnts[:, :width].contiguous()
+        if sp is not None:
+            trace.end(sp)
         self._update_batch(rows, ids, cnts)
 
     def _update_batch(self, rows: np.ndarray, ids: torch.Tensor,
@@ -562,52 +567,52 @@ class LDAEngine:
         the materialized (``run_minibatch``) and stream (``stream_step``)
         paths; W is the width the batch was packed or sliced to.
 
-        Every telemetry touch is gated on ``tel.enabled``: with telemetry
+        Spans open when ``tel.spans_on`` holds (read once here); every
+        other telemetry touch is gated on ``tel.enabled``: with telemetry
         off the update launches, syncs and allocates nothing more than
-        without the hooks.
+        without the hooks, profiler or not.
         """
         tel = self.tel
-        on = tel.enabled
+        trace = tel.trace
+        on = tel.spans_on
         width = ids.shape[1]
-        sp = tel.trace.begin("train/update", algo=self.algo, width=width,
-                             docs=len(rows)) if on else None
+        sp = trace.begin("train/update", algo=self.algo, width=width,
+                         docs=len(rows)) if on else None
         if self.algo == "svi":
             self.state, self.last_iters = svi_step(
                 self.cfg, self.state, ids, cnts, float(self.num_docs))
         elif self.algo in ("ivi", "sivi"):
-            g = tel.trace.begin("train/memo_gather", width=width) \
-                if on else None
+            g = trace.begin("train/memo_gather", width=width) if on else None
             old_pi, visited = self.memo.gather(rows, width=width)
             if g is not None:
-                tel.trace.end(g)
-            s = tel.trace.begin("train/solve", width=width) if on else None
+                trace.end(g)
+            s = trace.begin("train/solve", width=width) if on else None
             self.state, res, eb = incremental_update(
                 self.cfg, self.algo == "sivi", self.state, ids, cnts, old_pi,
                 visited, self.num_words_total, self.memo.pi_wire_dtype)
             self.last_iters = res.iters
             if s is not None:
-                tel.trace.end(s, sync=self.state.lam)
-            u = tel.trace.begin("train/memo_update", width=width) \
-                if on else None
+                trace.end(s, sync=self.state.lam)
+            u = trace.begin("train/memo_update", width=width) if on else None
             self.memo = self.memo.update(rows, res.pi, exp_elog_beta=eb)
             if u is not None:
-                tel.trace.end(u)
+                trace.end(u)
         else:
             raise ValueError(f"{self.algo} has no mini-batch update: "
                              "use run_epoch")
         self.docs_seen += len(rows)
         if sp is not None:
+            trace.end(sp, sync=self.state.lam)
+        if tel.enabled:
             tokens = (float(self._doc_tokens[rows].sum())
                       if self._doc_tokens is not None
                       else float(cnts.cpu().numpy().sum()))
-            self._record_update(sp, len(rows), width, tokens)
+            self._record_update(len(rows), width, tokens)
 
-    def _record_update(self, span, docs: int, width: int,
-                       tokens: float) -> None:
-        """Close an update's span and write its counters, the memo gauge
-        and, at the watchdog's cadence, a bound check (telemetry on)."""
+    def _record_update(self, docs: int, width: int, tokens: float) -> None:
+        """Write an update's counters, the memo gauge and, at the
+        watchdog's cadence, a bound check (telemetry on)."""
         tel = self.tel
-        tel.trace.end(span, sync=self.state.lam)
         self._updates += 1
         m = tel.metrics
         m.inc("train.docs", docs)
@@ -688,13 +693,14 @@ class LDAEngine:
         first-visit count, but they do count in the fixed point's
         batch-wide mean, as in ``repro``."""
         tel = self.tel
-        on = tel.enabled
+        trace = tel.trace
+        on = tel.spans_on
         rows = batch.rows
         b_real, b_pad = len(rows), self.batch_size
         width = self._packer.width_for(
             int(batch.doc_lengths.max()) if b_real else 1)
-        sp = tel.trace.begin("train/update", algo=self.algo, width=width,
-                             docs=b_real) if on else None
+        sp = trace.begin("train/update", algo=self.algo, width=width,
+                         docs=b_real) if on else None
         ids = self._to_device(batch.token_ids)
         cnts = self._to_device(batch.counts)
         segs = self._to_device(batch.segments)
@@ -705,29 +711,29 @@ class LDAEngine:
         else:
             rows_pad = np.concatenate([rows,
                                        np.zeros(b_pad - b_real, np.int64)])
-            g = tel.trace.begin("train/memo_gather", width=width) \
-                if on else None
+            g = trace.begin("train/memo_gather", width=width) if on else None
             old_pi, visited = self.memo.gather(rows_pad, width=width)
             if g is not None:
-                tel.trace.end(g)
+                trace.end(g)
             ix = self._to_device(self._csr_flat_index(batch, width))
-            s = tel.trace.begin("train/solve", width=width) if on else None
+            s = trace.begin("train/solve", width=width) if on else None
             self.state, res, eb = incremental_update_csr(
                 self.cfg, self.algo == "sivi", self.state, ids, cnts, segs,
                 ix, old_pi, visited, self.num_words_total,
                 self.memo.pi_wire_dtype)
             self.last_iters = res.iters
             if s is not None:
-                tel.trace.end(s, sync=self.state.lam)
-            u = tel.trace.begin("train/memo_update", width=width) \
-                if on else None
+                trace.end(s, sync=self.state.lam)
+            u = trace.begin("train/memo_update", width=width) if on else None
             self.memo = self.memo.update(rows, res.pi[:b_real],
                                          exp_elog_beta=eb)
             if u is not None:
-                tel.trace.end(u)
+                trace.end(u)
         self.docs_seen += b_real
         if sp is not None:
-            self._record_update(sp, b_real, width, float(batch.counts.sum()))
+            trace.end(sp, sync=self.state.lam)
+        if tel.enabled:
+            self._record_update(b_real, width, float(batch.counts.sum()))
 
     def stream_padding_stats(self) -> dict:
         """Pad-waste accounting of everything packed so far (stream mode)."""

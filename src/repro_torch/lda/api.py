@@ -276,10 +276,15 @@ class LDA:
     def partial_fit(self, corpus=None, *, steps: int = 1,
                     test_corpus: Optional[Corpus] = None) -> "LDA":
         """Run ``steps`` smallest resumable units (mini-batches; D-IVI:
-        rounds)."""
+        rounds), each in a ``train/step`` span while spans are on."""
         tr = self._bind(corpus, test_corpus)
+        trace = self.telemetry.trace
         for _ in range(steps):
+            sp = trace.begin("train/step") if self.telemetry.spans_on \
+                else None
             tr.run_step()
+            if sp is not None:
+                trace.end(sp)
         return self
 
     def warm_start(self, lam) -> "LDA":

@@ -93,8 +93,12 @@ class TopicInferencer:
         batches of ``token_budget`` slots, default
         ``min(64·batch_size, 8192)``, ``repro``'s).
       telemetry: a `repro_torch.obs` bundle (None/False = off): spans
-        ``serve/stage`` and ``serve/solve`` (never synced), counters of
-        documents and batches per width, the queue depth.
+        ``serve/request`` around a ``posterior``/``posterior_docs`` call,
+        ``serve/bucket`` (the request's host copy and bucketing, each
+        batch's row cut), ``serve/stage``, ``serve/solve`` and
+        ``serve/gather`` (never synced; under a profiler they open with
+        telemetry off too), counters of documents and batches per width,
+        the queue depth.
       tune_store: a `repro_torch.tune` policy store (path or
         ``PolicyStore``). Padded serving resolves a policy per bucket
         width, the first time a width is dispatched (each width is its own
@@ -230,19 +234,36 @@ class TopicInferencer:
     def posterior(self, corpus: Corpus) -> np.ndarray:
         """γ (D, K) for every document, bucketed and batch-padded. Empty
         documents come back at the prior γ = α₀."""
+        trace = self.tel.trace
+        on = self.tel.spans_on
+        req = trace.begin("serve/request", docs=corpus.num_docs) \
+            if on else None
         if self.layout == "csr":
             from repro_torch.data.stream import CorpusDocStream
-            return self.posterior_docs(CorpusDocStream(corpus))
-        ids_all = corpus.token_ids.cpu().numpy()
-        cnts_all = corpus.counts.cpu().numpy()
-        results: List[_Result] = []
-        for rows_all, width in bucket_rows(cnts_all):
-            for lo in range(0, len(rows_all), self.batch_size):
-                rows = rows_all[lo:lo + self.batch_size]
-                batch = PackedBatch(rows, ids_all[rows, :width],
-                                    cnts_all[rows, :width], width)
-                results.append(self._dispatch(self._stage(batch)))
-        return self._gather(results, corpus.num_docs)
+            gamma = self._posterior_docs(CorpusDocStream(corpus), True, on)
+        else:
+            sp = trace.begin("serve/bucket") if on else None
+            ids_all = corpus.token_ids.cpu().numpy()
+            cnts_all = corpus.counts.cpu().numpy()
+            buckets = bucket_rows(cnts_all)
+            if sp is not None:
+                trace.end(sp)
+            results: List[_Result] = []
+            for rows_all, width in buckets:
+                for lo in range(0, len(rows_all), self.batch_size):
+                    sp = trace.begin("serve/bucket", width=width) \
+                        if on else None
+                    rows = rows_all[lo:lo + self.batch_size]
+                    batch = PackedBatch(rows, ids_all[rows, :width],
+                                        cnts_all[rows, :width], width)
+                    if sp is not None:
+                        trace.end(sp)
+                    results.append(self._dispatch(self._stage(batch, on),
+                                                  on))
+            gamma = self._gather(results, corpus.num_docs, on)
+        if req is not None:
+            trace.end(req)
+        return gamma
 
     def transform(self, corpus: Corpus) -> np.ndarray:
         """θ̄ (D, K): the normalised topic posterior."""
@@ -258,15 +279,26 @@ class TopicInferencer:
         module docstring for ``double_buffer``; both paths give the same
         bits.
         """
-        results = self._solve_docs(docs, double_buffer=double_buffer)
-        return self._gather(results, sum(n for _, _, n, _ in results))
+        trace = self.tel.trace
+        on = self.tel.spans_on
+        req = trace.begin("serve/request") if on else None
+        gamma = self._posterior_docs(docs, double_buffer, on)
+        if req is not None:
+            trace.end(req)
+        return gamma
 
-    def _solve_docs(self, docs, *, double_buffer: bool) -> List[_Result]:
+    def _posterior_docs(self, docs, double_buffer: bool,
+                        on: bool) -> np.ndarray:
+        results = self._solve_docs(docs, double_buffer=double_buffer, on=on)
+        return self._gather(results, sum(n for _, _, n, _ in results), on)
+
+    def _solve_docs(self, docs, *, double_buffer: bool,
+                    on: bool) -> List[_Result]:
         """Every batch of ``docs`` dispatched, γ left on the device."""
         if not double_buffer:
             results = []
             for batch in self._packed(docs):
-                res = self._dispatch(self._stage(batch))
+                res = self._dispatch(self._stage(batch, on), on)
                 res[1].cpu()                  # the synchronous reference
                 results.append(res)
             return results
@@ -295,7 +327,7 @@ class TopicInferencer:
                     torch.cuda.set_device(side.device)   # this thread's
                 for i, batch in enumerate(self._packed(docs)):
                     slot = ring[i % len(ring)] if ring else None
-                    if not put(self._stage(batch, side, slot)):
+                    if not put(self._stage(batch, on, side, slot)):
                         return
             except BaseException as e:  # noqa: BLE001, re-raised below
                 err.append(e)
@@ -313,7 +345,7 @@ class TopicInferencer:
                     break
                 if self.tel.enabled:
                     self.tel.metrics.observe("serve.queue_depth", q.qsize())
-                results.append(self._dispatch(staged))
+                results.append(self._dispatch(staged, on))
         finally:
             abort.set()
             t.join()
@@ -334,18 +366,18 @@ class TopicInferencer:
                 yield batch
         yield from packer.flush()
 
-    def _stage(self, batch, side: Optional[torch.cuda.Stream] = None,
+    def _stage(self, batch, on: bool,
+               side: Optional[torch.cuda.Stream] = None,
                slot: Optional[_Pinned] = None) -> _Staged:
         """Pad a packed batch to ``batch_size`` rows (padded layout) and put
         it on the device: through ``slot``'s pinned buffers on the ``side``
         stream, ending in an event, when given (the double buffer), else
-        with blocking copies."""
-        tel = self.tel
+        with blocking copies. A ``serve/stage`` span when ``on``."""
+        trace = self.tel.trace
         n = len(batch.rows)
         csr = isinstance(batch, CSRBatch)
         width = batch.token_budget if csr else batch.width
-        sp = tel.trace.begin("serve/stage", width=width, docs=n) \
-            if tel.enabled else None
+        sp = trace.begin("serve/stage", width=width, docs=n) if on else None
         if csr:
             host = {"ids": batch.token_ids, "cnts": batch.counts,
                     "segs": batch.segments}
@@ -372,17 +404,18 @@ class TopicInferencer:
             dev = {k: torch.from_numpy(np.ascontiguousarray(a))
                    .to(self.device) for k, a in host.items()}
         if sp is not None:
-            tel.trace.end(sp)
+            trace.end(sp)
         aux = dev["segs"] if csr else width
         return batch.rows, dev["ids"], dev["cnts"], aux, n, event
 
-    def _dispatch(self, staged: _Staged) -> _Result:
+    def _dispatch(self, staged: _Staged, on: bool) -> _Result:
         """One batch's γ on the current stream: one read of the snapshot
-        tuple, then the backend's γ-only solve. The snapshot may come from
-        another stream (a publisher's): it is marked as used on this one,
-        so its memory outlives the batch's kernel even if a swap drops the
-        last reference to it meanwhile."""
-        tel = self.tel
+        tuple, then the backend's γ-only solve (a ``serve/solve`` span when
+        ``on``). The snapshot may come from another stream (a
+        publisher's): it is marked as used on this one, so its memory
+        outlives the batch's kernel even if a swap drops the last reference
+        to it meanwhile."""
+        trace = self.tel.trace
         rows, ids, cnts, aux, n, event = staged
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
@@ -395,8 +428,7 @@ class TopicInferencer:
             eb.record_stream(stream)
         backend = get_backend(self.cfg.estep_backend)
         width = self.token_budget if self.layout == "csr" else aux
-        sp = tel.trace.begin("serve/solve", width=width, docs=n) \
-            if tel.enabled else None
+        sp = trace.begin("serve/solve", width=width, docs=n) if on else None
         if self.layout == "csr":
             gamma = backend.solve_tokens_gamma(
                 self.cfg, eb, CSRTokenBatch(ids, cnts, aux),
@@ -405,18 +437,23 @@ class TopicInferencer:
             gamma = backend.solve_gamma(self._cfg_for_width(width), eb,
                                         BowBatch(ids, cnts))
         if sp is not None:
-            tel.trace.end(sp)
+            trace.end(sp)
         self._note_width(width, n)
         return rows, gamma, n, version
 
-    def _gather(self, results: List[_Result], total: int) -> np.ndarray:
+    def _gather(self, results: List[_Result], total: int,
+                on: bool) -> np.ndarray:
         """Every result's γ to the host in one copy, placed by request
-        position."""
+        position (a ``serve/gather`` span when ``on``)."""
+        trace = self.tel.trace
+        sp = trace.begin("serve/gather") if on else None
         out = np.zeros((total, self.cfg.num_topics), np.float32)
-        if not results:
-            return out
-        gamma = torch.cat([g[:n] for _, g, n, _ in results]).cpu().numpy()
-        out[np.concatenate([rows for rows, _, _, _ in results])] = gamma
+        if results:
+            gamma = torch.cat([g[:n] for _, g, n, _ in results])
+            gamma = gamma.cpu().numpy()
+            out[np.concatenate([rows for rows, _, _, _ in results])] = gamma
+        if sp is not None:
+            trace.end(sp)
         return out
 
     def posterior_packed(self, batch) -> _Result:
@@ -426,8 +463,9 @@ class TopicInferencer:
         the same bits. On the card the batch is staged through pinned
         buffers of this thread's own ring, copied without a host sync on
         the current stream, so the serving loop's only waits are its own."""
+        on = self.tel.spans_on
         if self.device.type != "cuda":
-            return self._dispatch(self._stage(batch))
+            return self._dispatch(self._stage(batch, on), on)
         local = self._pinned_local
         if not hasattr(local, "ring"):
             local.ring = [_Pinned() for _ in range(self._buffer_depth() + 1)]
@@ -435,7 +473,7 @@ class TopicInferencer:
         slot = local.ring[local.next % len(local.ring)]
         local.next += 1
         return self._dispatch(self._stage(
-            batch, torch.cuda.current_stream(self.device), slot))
+            batch, on, torch.cuda.current_stream(self.device), slot), on)
 
     def packer_kwargs(self) -> Dict[str, object]:
         """The ``BatchPacker`` arguments this inferencer packs with."""

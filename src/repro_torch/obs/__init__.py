@@ -1,8 +1,8 @@
 """repro_torch.obs — structured run telemetry for the IVI/LDA engines.
 
-The port's copy of ``repro.obs`` (pure Python and numpy; nothing here
-imports ``repro``). One ``Telemetry`` bundle carries the three observers
-every instrumented layer shares:
+The port's copy of ``repro.obs`` (Python, numpy and torch's profiler
+hooks; nothing here imports ``repro``). One ``Telemetry`` bundle carries
+the three observers every instrumented layer shares:
 
 * ``trace`` — a :class:`~repro_torch.obs.trace.SpanRecorder` (nested spans
   + instant events, JSONL export, Chrome-trace conversion);
@@ -18,6 +18,11 @@ no-ops, and ``enabled`` is False so hot paths pay exactly one attribute
 check + branch (``if tel.enabled: ...``) and allocate nothing. With
 telemetry off an engine update launches, syncs and allocates exactly what
 it does without the hooks, so its bits are unchanged.
+
+Spans have a second reader: a ``torch.profiler`` (`obs/trace.py`). The
+layers open their spans when ``tel.spans_on`` holds, telemetry on or a
+profiler recording (one flag read where a layer is entered); with
+telemetry off the spans reach the profiler's trace alone.
 
 ``as_telemetry`` is the facade-level coercion::
 
@@ -35,13 +40,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from .metrics import NULL_METRICS, MetricsRegistry, NullMetrics
-from .roofline import roofline_check, roofline_from_trace, spans_by_name
+from .roofline import spans_by_name
 from .trace import (
     NULL_TRACE,
     NullSpanRecorder,
     SpanRecorder,
     chrome_trace_from_jsonl,
     load_jsonl,
+    profiling,
     to_chrome_trace,
     validate_jsonl,
     validate_records,
@@ -62,7 +68,7 @@ __all__ = [
     "MetricsRegistry", "NullMetrics", "NULL_METRICS",
     "ElboWatchdog", "NullElboWatchdog", "NULL_WATCHDOG",
     "BoundMonotonicityError", "ElboMonotonicityWarning",
-    "roofline_check", "roofline_from_trace", "spans_by_name",
+    "spans_by_name",
 ]
 
 
@@ -92,6 +98,12 @@ class Telemetry:
                 and getattr(wd, "metrics", None) is None
                 and getattr(self.metrics, "enabled", False)):
             wd.metrics = self.metrics
+
+    @property
+    def spans_on(self) -> bool:
+        """Whether instrumented code opens its spans: telemetry on, or a
+        torch profiler recording (the spans then reach its trace alone)."""
+        return self.enabled or profiling()
 
     def summary(self) -> dict:
         """A JSON-able roll-up: metrics snapshot + watchdog status +

@@ -31,12 +31,28 @@ JSONL schema (``TRACE_SCHEMA``, guarded by ``validate_records``):
      "attrs": {...}}
 
 Timestamps are microseconds relative to the recorder's construction
-(``perf_counter_ns`` based — monotonic, immune to wall-clock steps).
+(``perf_counter_ns`` based — monotonic, immune to wall-clock steps). That
+clock is the recorder's own: the JSONL is an operator's record of where
+the host's time went, not a timeline shared with the card.
 
-The module-level ``NULL_TRACE`` is the disabled recorder: every method is
-a no-op, ``span()`` returns one shared context-manager singleton, and no
-record is ever allocated — the single-branch null object the instrumented
-hot paths check against.
+**The profiler's clock.** While a ``torch.profiler`` is recording
+(``profiling()``), every span also opens a ``record_function`` range of
+the same name, entered in ``begin`` and exited in ``end`` (the range rides
+in the token). The profiler's trace, not the JSONL, is the timeline on
+which the spans sit beside the device's operations: its host events of
+the spans' names carry them (category ``cpu_op``), nested as the spans
+nest. The instrumented layers open their spans when
+``Telemetry.spans_on`` holds (telemetry on, or a profiler recording), and
+touch counters, gauges and the watchdog only when telemetry is on, so a
+profiler-only run launches, syncs and allocates on the device exactly
+what an untraced run does.
+
+The module-level ``NULL_TRACE`` is the disabled recorder: it records
+nothing, ``span()`` returns one shared context-manager singleton, and
+with no profiler recording ``begin`` returns None and nothing is
+allocated — the single-branch null object the instrumented hot paths
+check against. Under a profiler its ``begin``/``end`` enter and exit the
+range alone.
 
 The schema name is ``repro``'s, so a trace from either package validates
 with either validator.
@@ -52,11 +68,39 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
 TRACE_SCHEMA = "repro.obs.trace"
 TRACE_SCHEMA_VERSION = 1
 
-# (name, attrs, depth, start_ns) — what ``begin`` hands to ``end``
-SpanToken = Tuple[str, dict, int, int]
+# (name, attrs, depth, start_ns, the profiler range or None) — what
+# ``begin`` hands to ``end``
+SpanToken = Tuple[str, dict, int, int, object]
+
+
+def profiling() -> bool:
+    """Whether a torch profiler is recording in this process (one read of
+    the flag the profiler sets on entry and clears on exit)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _range_enter(name: str):
+    """A ``record_function`` range named ``name``, entered, while a
+    profiler records, else None. ``_RecordFunctionFast`` enters it from
+    C++; the ``torch.ops.profiler._record_function_enter_new``/``_exit``
+    pair goes through the dispatcher at an order of magnitude more a range
+    (PERF.md), which the traced window would count as idle time."""
+    if not profiling():
+        return None
+    rf = _RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
+def _range_exit(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
 
 
 class _NullSpan:
@@ -75,13 +119,13 @@ NULL_SPAN = _NullSpan()
 
 
 class NullSpanRecorder:
-    """The disabled recorder: true no-ops, zero allocations.
+    """The disabled recorder: it records nothing.
 
-    ``span()`` hands back the process-wide ``NULL_SPAN`` singleton and
-    ``begin()`` returns ``None`` — the instrumentation pattern
-    ``tok = tel.trace.begin(...) if tel.enabled else None`` therefore
-    allocates nothing at all on the disabled path
-    (tests/test_obs.py::test_disabled_telemetry_is_noop).
+    ``span()`` hands back the process-wide ``NULL_SPAN`` singleton. With no
+    profiler recording ``begin()`` returns ``None``, so the
+    instrumentation pattern ``tok = tel.trace.begin(...) if tel.spans_on
+    else None`` allocates nothing at all on the disabled path; under a
+    profiler ``begin`` returns the entered range and ``end`` exits it.
     """
 
     enabled = False
@@ -90,11 +134,11 @@ class NullSpanRecorder:
     def span(self, name: str, **attrs) -> _NullSpan:
         return NULL_SPAN
 
-    def begin(self, name: str, **attrs) -> None:
-        return None
+    def begin(self, name: str, **attrs):
+        return _range_enter(name)
 
     def end(self, token, sync=None) -> None:
-        pass
+        _range_exit(token)
 
     def event(self, name: str, **attrs) -> None:
         pass
@@ -164,10 +208,12 @@ class SpanRecorder:
         return tid
 
     def begin(self, name: str, **attrs) -> SpanToken:
-        """Open a span; pass the returned token to ``end``."""
+        """Open a span (and its profiler range while a profiler records);
+        pass the returned token to ``end``."""
         depth = getattr(self._tls, "depth", 0)
         self._tls.depth = depth + 1
-        return (name, attrs, depth, time.perf_counter_ns())
+        return (name, attrs, depth, time.perf_counter_ns(),
+                _range_enter(name))
 
     def end(self, token: SpanToken, sync=None) -> None:
         """Close a span. With ``device_sync`` and a CUDA tensor ``sync``,
@@ -179,7 +225,8 @@ class SpanRecorder:
 
             torch.cuda.synchronize(sync.device)
         t1 = time.perf_counter_ns()
-        name, attrs, depth, t0 = token
+        name, attrs, depth, t0, rf = token
+        _range_exit(rf)
         self._tls.depth = depth
         self._records.append({
             "type": "span", "name": name,

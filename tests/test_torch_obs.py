@@ -1,9 +1,10 @@
 """The port's telemetry (`repro_torch.obs`) and quality metrics
 (`repro_torch.core.metrics`): ``tests/test_obs.py``'s recorder, registry,
-watchdog and bundle cases on the port's copies, the roofline join over the
-H100 row, the engine's hooks (off: the same bits as on; on: the span names
-and counter totals of ``repro``'s engine on the same batches), and the
-metrics against ``repro``'s."""
+watchdog and bundle cases on the port's copies, the H100 row, the engine's
+hooks (off: the same bits as on; on: the span names and counter totals of
+``repro``'s engine on the same batches, plus the port's own spans), the
+spans as ranges of a ``torch.profiler`` trace, and the metrics against
+``repro``'s."""
 import json
 import warnings
 
@@ -25,6 +26,7 @@ from repro_torch.core.engines import LDAEngine
 from repro_torch.core.types import LDAConfig
 from repro_torch.data.stream import CorpusDocStream
 from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+from repro_torch.lda import LDA
 from repro_torch.obs import (NULL_TELEMETRY, BoundMonotonicityError,
                              ElboMonotonicityWarning, ElboWatchdog,
                              MetricsRegistry, SpanRecorder, Telemetry,
@@ -36,6 +38,9 @@ CPU = "cpu"
 SPEC = PAPER_CORPORA["tiny"]
 SPANS = ("train/update", "train/memo_gather", "train/solve",
          "train/memo_update")
+#: The port's spans beyond ``repro``'s, by engine path: the materialized
+#: batch's cut (``run_minibatch``); the stream paths add none.
+PORT_SPANS = {"padded": {"train/batch"}, "csr": set()}
 
 
 # ---------------------------------------------------------------------------
@@ -212,27 +217,11 @@ def test_null_telemetry_is_inert():
 
 
 def test_roofline_join_over_the_h100_row():
-    """The measured-vs-modeled join at the H100 row's memory rate: a span
-    that took exactly its bytes over 3.35 TB/s agrees, one 10× slower is
-    flagged, a span the trace lacks is listed. The row holds the H100 data
-    sheet's figures and nothing else."""
+    """The row holds the H100 data sheet's figures and nothing else."""
     hw = roofline.HW
     assert hw["name"] == "NVIDIA H100 80GB HBM3 (data sheet)"
     assert (hw["hbm_bw"], hw["peak_flops_fp32"], hw["peak_flops_bf16"],
             roofline.HBM_GB) == (3.35e12, 67e12, 989e12, 80.0)
-    gbps = hw["hbm_bw"] / 1e9
-    rec = [{"type": "span", "name": name, "dur_us": us, "ts_us": 0.0,
-            "tid": 0, "depth": 0, "attrs": {}}
-           for name, us in (("fast", 100.0), ("slow", 1000.0))]
-    nbytes = 100e-6 * hw["hbm_bw"]
-    out = roofline.roofline_from_trace(
-        rec, {"fast": nbytes, "slow": nbytes, "absent": 1.0}, hbm_gbps=gbps)
-    assert out["missing_spans"] == ["absent"]
-    assert out["flagged"] == ["slow"] and out["n_agree"] == 1
-    fast = out["records"][0]
-    assert fast["measured_vs_modeled"] == pytest.approx(1.0)
-    with pytest.raises(ValueError):
-        roofline.roofline_check([], hbm_gbps=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +285,8 @@ def _repro_pair(layout, algo, seed=0):
 @pytest.mark.parametrize("layout,algo", [("padded", "ivi"), ("csr", "ivi"),
                                          ("padded", "svi"), ("csr", "sivi")])
 def test_span_names_and_counters_equal_repro(layout, algo):
-    """After one epoch each: the same span names with the same counts, and
+    """After one epoch each: ``repro``'s span names with ``repro``'s counts
+    and exactly the port's added names (``PORT_SPANS``, one a batch), and
     the same counters (``train.*`` and, on a stream, the packer's
     ``pack.*``) with the same labels and totals, and the same memo gauge;
     then ``evaluate`` sets the effective-topics gauge and feeds the
@@ -306,10 +296,15 @@ def test_span_names_and_counters_equal_repro(layout, algo):
     teng.run_epoch()
     jagg = spans_by_name(jtel.trace.records)
     tagg = spans_by_name(ttel.trace.records)
-    assert {n: a["count"] for n, a in tagg.items()} == \
+    added = PORT_SPANS[layout]
+    assert {n: a["count"] for n, a in tagg.items() if n not in added} == \
         {n: a["count"] for n, a in jagg.items()}
+    updates = jagg["train/update"]["count"]
+    assert {n: tagg[n]["count"] for n in added} == \
+        {n: updates for n in added}
     want = set(SPANS) if algo != "svi" else {"train/update"}
-    assert set(tagg) == want
+    assert set(jagg) == want
+    assert set(tagg) == want | added
     jsnap, tsnap = jtel.metrics.snapshot(), ttel.metrics.snapshot()
     assert tsnap["counters"] == jsnap["counters"]
     assert tsnap["gauges"] == jsnap["gauges"]
@@ -335,6 +330,124 @@ def test_watchdog_catches_real_bound_decrease():
     with pytest.raises(BoundMonotonicityError):
         eng.run_epoch()
     assert tel.watchdog.status()["violations"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the spans on the profiler's clock
+# ---------------------------------------------------------------------------
+
+def _lda(telemetry=None):
+    cfg = LDAConfig(num_topics=4, vocab_size=SPEC.vocab_size,
+                    estep_max_iters=15)
+    return LDA(cfg, algo="ivi", batch_size=16, seed=3, telemetry=telemetry,
+               device=CPU)
+
+
+def _profiled(fn, tmp_path):
+    """Run ``fn`` under a CPU ``torch.profiler``; the program's ranges of
+    the exported trace as (name, start, end, thread)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+             e["tid"]) for e in events
+            if e.get("ph") == "X" and e["name"].startswith(("train/",
+                                                            "serve/"))]
+
+
+def _parent(ranges, r):
+    """The innermost other range of ``r``'s thread that contains it."""
+    outer = [o for o in ranges if o is not r and o[3] == r[3]
+             and o[1] <= r[1] and r[2] <= o[2]]
+    return min(outer, key=lambda o: o[2] - o[1])[0] if outer else None
+
+
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_spans_are_profiler_ranges(tmp_path, telemetry):
+    """Two facade steps and one request under a profiler, telemetry off
+    or on: each span is a range of the trace, as often as stated and
+    nested as stated; with telemetry on the JSONL records the same spans
+    as often."""
+    train = make_corpus(SPEC, seed=0, device=CPU)
+    tel = Telemetry() if telemetry else None
+    lda = _lda(tel).partial_fit(train, steps=0)
+    inf = lda.inferencer(batch_size=16)
+    request = make_corpus(SPEC, seed=1, device=CPU)
+    from repro_torch.data.stream import bucket_rows
+    batches = sum(-(-len(rows) // 16) for rows, _ in
+                  bucket_rows(request.counts.numpy()))
+
+    def run():
+        lda.partial_fit(steps=2)
+        inf.posterior(request)
+
+    ranges = _profiled(run, tmp_path)
+    counts = {}
+    for name, *_ in ranges:
+        counts[name] = counts.get(name, 0) + 1
+    assert counts == {"train/step": 2, "train/batch": 2, "train/update": 2,
+                      "train/memo_gather": 2, "train/solve": 2,
+                      "train/memo_update": 2, "serve/request": 1,
+                      "serve/bucket": 1 + batches, "serve/stage": batches,
+                      "serve/solve": batches, "serve/gather": 1}
+    parent = {"train/step": None, "train/batch": "train/step",
+              "train/update": "train/step",
+              "train/memo_gather": "train/update",
+              "train/solve": "train/update",
+              "train/memo_update": "train/update",
+              "serve/request": None, "serve/bucket": "serve/request",
+              "serve/stage": "serve/request", "serve/solve": "serve/request",
+              "serve/gather": "serve/request"}
+    for r in ranges:
+        assert _parent(ranges, r) == parent[r[0]], r
+    # within a step the batch's cut comes before the update
+    order = sorted((r for r in ranges
+                    if r[0] in ("train/batch", "train/update")),
+                   key=lambda r: r[1])
+    assert [r[0] for r in order] == ["train/batch", "train/update"] * 2
+    if telemetry:
+        agg = spans_by_name(tel.trace.records)
+        assert {n: a["count"] for n, a in agg.items()} == counts
+        assert tel.metrics.total("train.docs") == 32
+    else:
+        assert lda.telemetry is NULL_TELEMETRY
+
+
+def test_no_range_without_telemetry_or_profiler(monkeypatch):
+    """With telemetry off and no profiler, no range is entered; the same
+    calls under a profiler do enter one (the patched entry raises)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+
+    def refuse(*a, **k):
+        raise AssertionError("a profiler range was entered")
+
+    monkeypatch.setattr(trace, "_RecordFunctionFast", refuse)
+    train = make_corpus(SPEC, seed=0, device=CPU)
+    lda = _lda().partial_fit(train, steps=2)
+    inf = lda.inferencer(batch_size=16)
+    inf.posterior(make_corpus(SPEC, seed=1, device=CPU))
+    with pytest.raises(AssertionError, match="range was entered"):
+        with profile(activities=[ProfilerActivity.CPU]):
+            lda.partial_fit(steps=1)
+
+
+def test_profiler_leaves_the_bits():
+    """λ after the same steps with and without a profiler recording: the
+    same bits."""
+    from torch.profiler import ProfilerActivity, profile
+    train = make_corpus(SPEC, seed=0, device=CPU)
+    plain = _lda().partial_fit(train, steps=3)
+    traced = _lda().partial_fit(train, steps=0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced.partial_fit(steps=3)
+    assert torch.equal(plain.lam, traced.lam)
+    assert torch.equal(plain.trainer.state.m_vk, traced.trainer.state.m_vk)
 
 
 # ---------------------------------------------------------------------------
