@@ -76,10 +76,17 @@ def bucket_rows(counts: np.ndarray,
     Returns ``[(row_indices int64, width)]`` with ascending widths; every
     row appears in exactly one bucket (empty rows in the first)."""
     counts = np.asarray(counts)
-    last = _last_live(counts)
+    return bucket_last(_last_live(counts), counts.shape[1], boundaries)
+
+
+def bucket_last(last: np.ndarray, max_width: int,
+                boundaries: Sequence[int] = WIDTH_BOUNDARIES,
+                ) -> List[Tuple[np.ndarray, int]]:
+    """``bucket_rows`` from each row's last live column + 1 (``_last_live``,
+    0 for an empty row) and the padded width ``max_width``."""
     out: List[Tuple[np.ndarray, int]] = []
     lo = -1                   # first rung includes last == 0 (empty docs)
-    for w in width_ladder(counts.shape[1], boundaries):
+    for w in width_ladder(max_width, boundaries):
         rows = np.nonzero((last > lo) & (last <= w))[0]
         if len(rows):
             out.append((rows.astype(np.int64), int(w)))

@@ -10,6 +10,17 @@ batch is one launch on the card: the fixed point without its π finish
   token pipeline (`repro_torch.data.stream.bucket_rows`: the ladder rung
   covering the last live slot), each bucket padded to one fixed
   ``batch_size``, so a request's work scales with its own length.
+* ``posterior`` packs a padded request on the device: one copy in of its
+  ids and counts, with an all-zero row after the last document that every
+  batch's padding indexes; each row's last live slot and the live-slot
+  count come back in one small read (the request's first wait), the host
+  cuts the batches from them by ``bucket_rows``' rule and sends their row
+  indices in one copy, and every batch is gathered by row index and
+  solved without a host wait; γ is placed by one gather and comes back in
+  one copy (the second wait). The same rows at the same widths as host
+  padding, so the same bits. The copies are plain ones from the request's
+  own tensors: CUDA's own staging of pageable memory moves a host request
+  faster than a fill of pinned buffers would.
 * ``posterior_docs`` takes ragged documents (a ``DocStream`` or any
   iterable) through a ``BatchPacker``. Double-buffered by default: a
   producer thread packs batch t+1 into pinned host buffers and copies it
@@ -44,14 +55,14 @@ import torch
 from repro_torch.core.estep import BowBatch, CSRTokenBatch, get_backend
 from repro_torch.core.math import exp_dirichlet_expectation, safe_normalize
 from repro_torch.core.types import Corpus, LDAConfig, resolve_device
-from repro_torch.data.stream import (BatchPacker, CSRBatch, PackedBatch,
+from repro_torch.data.stream import (BatchPacker, CSRBatch,
                                      TOKEN_SLOT_BYTES, as_ragged_doc,
-                                     bucket_rows)
+                                     bucket_last)
 from repro_torch.obs import as_telemetry
 
-# one staged request batch: (request positions, device ids, device counts,
-# bucket width (padded) or device segments (csr), live rows, the event
-# after its copy or None)
+# one staged request batch: (request positions (a device index in a padded
+# ``posterior``), device ids, device counts, bucket width (padded) or
+# device segments (csr), live rows, the event after its copy or None)
 _Staged = Tuple[np.ndarray, torch.Tensor, torch.Tensor, object, int,
                 Optional[torch.cuda.Event]]
 
@@ -94,11 +105,13 @@ class TopicInferencer:
         ``min(64·batch_size, 8192)``, ``repro``'s).
       telemetry: a `repro_torch.obs` bundle (None/False = off): spans
         ``serve/request`` around a ``posterior``/``posterior_docs`` call,
-        ``serve/bucket`` (the request's host copy and bucketing, each
-        batch's row cut), ``serve/stage``, ``serve/solve`` and
-        ``serve/gather`` (never synced; under a profiler they open with
-        telemetry off too), counters of documents and batches per width,
-        the queue depth.
+        ``serve/bucket`` (padded ``posterior``: the live-slot read and the
+        cut), ``serve/stage`` (the copy in and each batch's gather, or a
+        packed batch's padding and copies), ``serve/solve`` and
+        ``serve/gather`` (placement, γ to the host) (never synced; under a
+        profiler they open with telemetry off too), counters of documents
+        and batches per width, the queue depth, ``serve.host_waits``
+        (padded ``posterior``: 2 a request).
       tune_store: a `repro_torch.tune` policy store (path or
         ``PolicyStore``). Padded serving resolves a policy per bucket
         width, the first time a width is dispatched (each width is its own
@@ -242,28 +255,72 @@ class TopicInferencer:
             from repro_torch.data.stream import CorpusDocStream
             gamma = self._posterior_docs(CorpusDocStream(corpus), True, on)
         else:
-            sp = trace.begin("serve/bucket") if on else None
-            ids_all = corpus.token_ids.cpu().numpy()
-            cnts_all = corpus.counts.cpu().numpy()
-            buckets = bucket_rows(cnts_all)
-            if sp is not None:
-                trace.end(sp)
-            results: List[_Result] = []
-            for rows_all, width in buckets:
-                for lo in range(0, len(rows_all), self.batch_size):
-                    sp = trace.begin("serve/bucket", width=width) \
-                        if on else None
-                    rows = rows_all[lo:lo + self.batch_size]
-                    batch = PackedBatch(rows, ids_all[rows, :width],
-                                        cnts_all[rows, :width], width)
-                    if sp is not None:
-                        trace.end(sp)
-                    results.append(self._dispatch(self._stage(batch, on),
-                                                  on))
-            gamma = self._gather(results, corpus.num_docs, on)
+            gamma = self._posterior_padded(corpus, on)
         if req is not None:
             trace.end(req)
         return gamma
+
+    def _posterior_padded(self, corpus: Corpus, on: bool) -> np.ndarray:
+        """A padded request packed on the device (module docstring)."""
+        trace = self.tel.trace
+        d, l = corpus.token_ids.shape
+        bs = self.batch_size
+        sp = trace.begin("serve/stage", docs=d) if on else None
+        ids = torch.empty((d + 1, l), dtype=torch.int32, device=self.device)
+        cnts = torch.empty((d + 1, l), dtype=torch.float32,
+                           device=self.device)
+        for dev, src in ((ids, corpus.token_ids), (cnts, corpus.counts)):
+            dev[:d].copy_(src, non_blocking=True)
+            dev[d].zero_()             # the row every batch's padding reads
+        if sp is not None:
+            trace.end(sp)
+        sp = trace.begin("serve/bucket") if on else None
+        live = cnts > 0
+        marks = torch.where(live, torch.arange(1, l + 1, device=self.device),
+                            0).amax(1)
+        marks[d] = live.sum()          # the zero row's slot: the live count
+        marks = self._wait_host(marks)
+        cuts = [(rows[lo:lo + bs], width)
+                for rows, width in bucket_last(marks[:d], l)
+                for lo in range(0, len(rows), bs)]
+        # each batch's rows (padding: the zero row d), then each document's
+        # row in the batches' γ stacked
+        nb = len(cuts) * bs
+        index = np.full(nb + d, d, np.int64)
+        for i, (rows, _) in enumerate(cuts):
+            index[i * bs:i * bs + len(rows)] = rows
+        stacked = np.flatnonzero(index[:nb] < d)
+        index[nb + index[stacked]] = stacked
+        self._note_padding(marks[d], bs * sum(w for _, w in cuts))
+        index = torch.from_numpy(index).to(self.device, non_blocking=True)
+        if sp is not None:
+            trace.end(sp)
+        results = []
+        for i, (rows, width) in enumerate(cuts):
+            n = len(rows)
+            sp = trace.begin("serve/stage", width=width, docs=n) if on \
+                else None
+            pos = index[i * bs:(i + 1) * bs]
+            staged = (pos, ids[:, :width].index_select(0, pos),
+                      cnts[:, :width].index_select(0, pos), width, n, None)
+            if sp is not None:
+                trace.end(sp)
+            results.append(self._dispatch(staged, on))
+        sp = trace.begin("serve/gather") if on else None
+        out = torch.cat([g for _, g, _, _ in results]).index_select(
+            0, index[nb:]) if results else \
+            torch.empty((0, self.cfg.num_topics), device=self.device)
+        gamma = self._wait_host(out)
+        if sp is not None:
+            trace.end(sp)
+        return gamma
+
+    def _wait_host(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` in a new host array: one of a padded request's two waits
+        on the device."""
+        if self.tel.enabled:
+            self.tel.metrics.inc("serve.host_waits")
+        return t.cpu().numpy()
 
     def transform(self, corpus: Corpus) -> np.ndarray:
         """θ̄ (D, K): the normalised topic posterior."""

@@ -5,8 +5,9 @@ batches, K5 on a small flat CSR batch, K2/K5 and K1/K4's π finish bit
 for bit against them at K from 9 to 1,000, their bf16 stream against the twins, K4 on a shuffled
 stream, K6–K9 (the pre-fusion baseline and flash attention) at small
 sizes; K1, K4, K3 and K6–K8 above their old K caps (K = 300 and 1,000),
-the K = 100 instances' bits against the parent commit's, and one facade
-save → load → resume. Whether a card is present is
+the K = 100 instances' bits against the parent commit's, one facade
+save → load → resume, and the padded ``posterior`` packed on the card
+against its host-staged twin. Whether a card is present is
 decided inside the ``cuda`` fixture, so every worker collects the same
 tests; without a card they skip.
 
@@ -1147,6 +1148,73 @@ def test_inferencer_double_buffer_on_card(cuda, layout):
                           token_budget=256, backend="gather", device=cuda)
     np.testing.assert_allclose(got, ref.posterior_docs(CorpusDocStream(test)),
                                rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("where", ["host", "card"])
+def test_padded_posterior_on_card_bit_equal_to_host_staged(cuda, where):
+    """The padded ``posterior`` on the card, its request in host memory
+    (copied in from there) or already on the card, against the host-staged
+    algorithm it replaced (``bucket_rows``, numpy-padded 256-row batches
+    through K1, placement by request position): γ bit for bit on two
+    requests in a row, the first request's array unchanged by the second,
+    the padding bookkeeping equal, two host waits a request."""
+    from repro_torch.core.estep import BowBatch, get_backend
+    from repro_torch.core.types import Corpus, LDAConfig
+    from repro_torch.data.stream import bucket_rows
+    from repro_torch.lda import TopicInferencer
+    from repro_torch.obs import Telemetry
+    v, k, bs = 5000, 100, 256
+    rng = np.random.default_rng(7)
+    lam = torch.from_numpy(rng.gamma(100.0, 0.01, (v, k)).astype(np.float32))
+    cfg = LDAConfig(num_topics=k, vocab_size=v, estep_backend="cuda")
+    tel = Telemetry()
+    inf = TopicInferencer(cfg, lam, batch_size=bs, telemetry=tel,
+                          device=cuda)
+
+    def request(d, seed):
+        r = np.random.default_rng(seed)
+        ids = np.zeros((d, L), np.int32)
+        cnts = np.zeros((d, L), np.float32)
+        for i in range(d):
+            n = int(np.clip(r.poisson(90), 0, L)) if i % 50 else 0
+            ids[i, :n] = r.choice(v, size=n, replace=False)
+            cnts[i, :n] = r.integers(1, 5, size=n)
+            cnts[i, :n:7] = 0                  # zero-count holes
+        c = Corpus(torch.from_numpy(ids), torch.from_numpy(cnts))
+        return c if where == "host" else c.to(cuda)
+
+    def host_staged(c):
+        ids_all, cnts_all = c.token_ids.cpu().numpy(), c.counts.cpu().numpy()
+        out = np.zeros((c.num_docs, k), np.float32)
+        live = padded = 0
+        for rows_all, w in bucket_rows(cnts_all):
+            for lo in range(0, len(rows_all), bs):
+                rows = rows_all[lo:lo + bs]
+                ids = np.zeros((bs, w), np.int32)
+                cnts = np.zeros((bs, w), np.float32)
+                ids[:len(rows)] = ids_all[rows, :w]
+                cnts[:len(rows)] = cnts_all[rows, :w]
+                live += int((cnts > 0).sum())
+                padded += cnts.size
+                g = get_backend("cuda").solve_gamma(
+                    cfg, inf.exp_elog_beta,
+                    BowBatch(torch.from_numpy(ids).to(cuda),
+                             torch.from_numpy(cnts).to(cuda)))
+                out[rows] = g[:len(rows)].cpu().numpy()
+        return out, live, padded
+
+    first, second = request(1500, 1), request(700, 2)
+    got = inf.posterior(first)
+    kept = got.copy()
+    got2 = inf.posterior(second)
+    want, live, padded = host_staged(first)
+    want2, live2, padded2 = host_staged(second)
+    assert np.array_equal(got, want) and np.array_equal(got2, want2)
+    assert np.array_equal(got, kept)
+    stats = inf.padding_stats()
+    assert (stats["live_slots"], stats["padded_slots"]) == (
+        live + live2, padded + padded2)
+    assert tel.metrics.total("serve.host_waits") == 4
 
 
 def test_fixed_point_refuses_past_shared_memory(cuda):

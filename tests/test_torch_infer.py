@@ -1,13 +1,16 @@
 """Port parity, serving: ``repro_torch.lda.TopicInferencer`` against
 ``repro.lda.TopicInferencer`` on the same λ, on both layouts; the
-double-buffered path bit-equal to the synchronous one; ``swap_model``
-under a concurrent swapper; the bookkeeping.
+double-buffered path bit-equal to the synchronous one; the padded
+``posterior``, packed on the device, bit-equal to the host-staged
+algorithm it replaced (kept here as a twin); ``swap_model`` under a
+concurrent swapper; the bookkeeping.
 
 Tolerances: γ at ``tests/test_torch_estep.py``'s backend bar, rtol 2e-3 /
 atol 2e-3 (the fixed points stop at a mean |Δγ| of ``estep_tol``, so two
 packages agree to about that); θ̄ likewise; bookkeeping (padding, widths,
 versions) exactly.
 """
+import dataclasses
 import threading
 
 import jax.numpy as jnp
@@ -20,8 +23,10 @@ from repro.data import PAPER_CORPORA as J_CORPORA
 from repro.data import make_corpus as j_make_corpus
 from repro.data.stream import CorpusDocStream as JStream
 from repro.lda import TopicInferencer as JInferencer
-from repro_torch.core.types import LDAConfig
-from repro_torch.data.stream import BatchPacker, CorpusDocStream
+from repro_torch.core.estep import BowBatch, get_backend
+from repro_torch.core.types import Corpus, LDAConfig
+from repro_torch.data.stream import (TOKEN_SLOT_BYTES, BatchPacker,
+                                     CorpusDocStream, bucket_rows)
 from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
 from repro_torch.lda import TopicInferencer, topic_posterior
 
@@ -90,6 +95,122 @@ def test_double_buffer_bit_equal_to_synchronous(setup, layout):
     assert a.shape == (train.num_docs, K)
     np.testing.assert_array_equal(inf.posterior_docs(docs[:0]),
                                   np.zeros((0, K), np.float32))
+
+
+def _host_staged(inf, corpus):
+    """The padded ``posterior`` as the host staged it: ``bucket_rows``,
+    ``batch_size``-row numpy batches padded with id 0 and count 0, each
+    through the backend's ``solve_gamma`` at its width's cfg, γ placed by
+    request position. Returns (γ, ``padding_stats()``, ``cache_info()``) as
+    a fresh inferencer would report them."""
+    ids_all = corpus.token_ids.numpy()
+    cnts_all = corpus.counts.numpy()
+    bs = inf.batch_size
+    backend = get_backend(inf.cfg.estep_backend)
+    gamma = np.zeros((corpus.num_docs, K), np.float32)
+    live = padded = 0
+    widths = {}
+    for rows_all, width in bucket_rows(cnts_all):
+        for lo in range(0, len(rows_all), bs):
+            rows = rows_all[lo:lo + bs]
+            ids = np.zeros((bs, width), np.int32)
+            cnts = np.zeros((bs, width), np.float32)
+            ids[:len(rows)] = ids_all[rows, :width]
+            cnts[:len(rows)] = cnts_all[rows, :width]
+            live += int((cnts > 0).sum())
+            padded += cnts.size
+            widths[width] = widths.get(width, 0) + 1
+            g = backend.solve_gamma(inf._cfg_for_width(width),
+                                    inf.exp_elog_beta,
+                                    BowBatch(torch.from_numpy(ids),
+                                             torch.from_numpy(cnts)))
+            gamma[rows] = g[:len(rows)].numpy()
+    stats = {"live_slots": live, "padded_slots": padded,
+             "pad_frac": 1.0 - live / max(padded, 1),
+             "wasted_token_bytes": (padded - live) * TOKEN_SLOT_BYTES}
+    info = {"batches_per_width": widths, "compiled_widths": sorted(widths),
+            "jit_entries": len(widths)}
+    return gamma, stats, info
+
+
+def _edge_request(rows=24, width=20, seed=5):
+    """Rows of every shape the cut must get right at ``width`` 20 (ladder
+    8, 16, 20): empty documents, a last live slot exactly on the rungs 8
+    and 16 and on the full width, one just past a rung, zero-count holes
+    (a live id kept under a count 0) before the last live slot, one live
+    slot; then random rows."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((rows, width), np.int32)
+    cnts = np.zeros((rows, width), np.float32)
+    lives = {0: [], 1: list(range(8)), 2: list(range(16)),
+             3: [0, 1, 2] + list(range(4, 10)), 4: list(range(20)), 5: [],
+             6: list(range(9)), 7: [0], 8: [1, 15], 9: [0, 19]}
+    for r in range(rows):
+        cols = lives.get(r)
+        if cols is None:
+            n = int(rng.integers(1, width + 1))
+            cols = sorted(rng.choice(n, size=max(1, n - 2), replace=False))
+        ids[r] = rng.choice(SPEC.vocab_size, size=width, replace=False)
+        cnts[r, cols] = rng.integers(1, 5, size=len(cols))
+    ids[5] = 0                                  # an all-padding row
+    return Corpus(torch.from_numpy(ids), torch.from_numpy(cnts))
+
+
+@pytest.mark.parametrize("backend", ["gather", "cuda"])
+@pytest.mark.parametrize("request_kind", ["corpus", "edges", "short"])
+def test_posterior_bit_equal_to_host_staged(setup, backend, request_kind):
+    """The padded ``posterior`` (packed on the device, here CPU tensors on
+    the CPU: a request already on the solving device) gives the
+    host-staged twin's γ bit for bit, and its padding and width
+    bookkeeping; a second request leaves the first one's array as it
+    was. ``short``: fewer documents than one batch. A loose tolerance
+    stops the batches before the sweep cap, so a padding row with content
+    would move the stop, and the bits."""
+    lam, _, _, test, _ = setup
+    cfg = dataclasses.replace(_cfgs(backend)[1], estep_tol=1e-2)
+    request = {"corpus": test, "edges": _edge_request(),
+               "short": Corpus(test.token_ids[:3], test.counts[:3])
+               }[request_kind]
+    inf = TopicInferencer(cfg, lam, batch_size=8, device=CPU)
+    want, stats, info = _host_staged(inf, request)
+    got = inf.posterior(request)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32 and got.shape == (request.num_docs, K)
+    assert inf.padding_stats() == stats
+    assert inf.cache_info() == info
+    kept = got.copy()
+    other = _edge_request(seed=6)
+    np.testing.assert_array_equal(inf.posterior(other),
+                                  _host_staged(inf, other)[0])
+    np.testing.assert_array_equal(got, kept)
+
+
+def test_posterior_host_waits_and_spans(setup):
+    """With telemetry on, each padded ``posterior`` waits on the device
+    twice (``serve.host_waits``) and opens ``serve/bucket`` once,
+    ``serve/stage`` once for the copy in and once a batch, ``serve/solve``
+    once a batch and ``serve/gather`` once: the names the benchmark's idle
+    readers sum under."""
+    from repro_torch.obs import Telemetry, spans_by_name
+    lam, _, _, test, _ = setup
+    _, cfg = _cfgs("cuda")
+    tel = Telemetry()
+    inf = TopicInferencer(cfg, lam, batch_size=8, telemetry=tel, device=CPU)
+    short = Corpus(test.token_ids[:3], test.counts[:3])
+    for calls, request in ((1, test), (2, short)):
+        n = sum(-(-len(rows) // 8)
+                for rows, _ in bucket_rows(request.counts.numpy()))
+        before = {k: v["count"]
+                  for k, v in spans_by_name(tel.trace.records).items()}
+        inf.posterior(request)
+        assert tel.metrics.total("serve.host_waits") == 2 * calls
+        spans = {k: v["count"] - before.get(k, 0)
+                 for k, v in spans_by_name(tel.trace.records).items()}
+        assert spans == {"serve/request": 1, "serve/bucket": 1,
+                         "serve/stage": 1 + n, "serve/solve": n,
+                         "serve/gather": 1}
+    inf.posterior_docs(CorpusDocStream(short))
+    assert tel.metrics.total("serve.host_waits") == 4
 
 
 def test_posterior_packed_and_packer_kwargs(setup):
