@@ -430,7 +430,8 @@ class LDAEngine:
                     "sivi, or pick dense/chunked for ivi")
             self.memo = make_memo_store(
                 memo_store, cfg, self.num_docs, corpus.max_unique,
-                corpus=self.corpus, chunk_docs=chunk_docs, device=self.device)
+                corpus=self.corpus, chunk_docs=chunk_docs, device=self.device,
+                telemetry=self.tel)
         elif algo == "mvi":
             # per-document warm starts carried across epochs (see mvi_scan);
             # row D is the sentinel slot of the tail batch's padding

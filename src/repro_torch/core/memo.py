@@ -17,7 +17,10 @@ with three implementations, as in ``repro``:
   copies the touched rows to the device as bf16 and widens them there;
   each update rounds π to bf16 on the device and copies it back (the
   engines round π through bf16 before the add-new side, so that rounding
-  is exact).
+  is exact). It opens four spans of its own inside the engine's
+  ``train/memo_gather`` and ``train/memo_update`` (``train/memo_assemble``,
+  ``train/memo_copy_in``, ``train/memo_copy_out``, ``train/memo_scatter``)
+  and counts the bytes it moves across the link (``link_stats``).
 * ``GammaMemoStore`` — γ (D, K) fp32 plus one bf16 snapshot of Eφ per
   touched chunk, on the device; π_old is reconstructed on gather as
   Eθ(γ)·Eφ_snap[ids]/φnorm. Exact only while every document of a chunk was
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch.core.math import exp_dirichlet_expectation
 from repro_torch.core.types import Corpus, LDAConfig, resolve_device
+from repro_torch.obs import as_telemetry
 
 _EPS = 1e-30
 
@@ -214,6 +218,23 @@ class ChunkedMemoStore(MemoStore):
     into the chunks. Each ``update`` waits for its copy, as ``repro``'s
     does (the host needs the values).
 
+    Its spans open when ``telemetry.spans_on`` holds, nested in the
+    engine's: ``train/memo_assemble`` (the rows gathered from the chunks
+    into the staging buffer) and ``train/memo_copy_in`` (the copy to the
+    device and the widening) inside ``train/memo_gather``;
+    ``train/memo_copy_out`` (the rounding and the waited copy back) and
+    ``train/memo_scatter`` (the rows written into the chunks) inside
+    ``train/memo_update``. ``link_stats()`` counts, always, the π bytes
+    copied in and out and the chunks each direction touched; with
+    telemetry on they go to its registry too (``memo.link_bytes_in``,
+    ``memo.link_bytes_out``, ``memo.chunks_touched``).
+
+    The store needs D·L·K·2 bytes of host memory for the chunks and D for
+    the visited flags (78.4 GB at Table 1's Arxiv with K = 300: 782,385
+    documents × 167 slots × 300 topics × 2 B) and none of the device's.
+    An update of B documents at width W moves B·W·K·2 bytes of π across
+    the link each way (102.6 MB at B = 1,024, W = 167, K = 300).
+
     ``state_dict`` exports each chunk as its raw 16-bit patterns
     (``uint16``; numpy has no bf16 dtype without ``ml_dtypes``), the bits
     ``repro``'s bf16 chunks hold: ``repro_chunk.view(np.uint16)`` compares
@@ -225,8 +246,9 @@ class ChunkedMemoStore(MemoStore):
     bf16_prefix = "chunk_"
 
     def __init__(self, cfg: LDAConfig, num_docs: int, max_unique: int, *,
-                 chunk_docs: int = 8192, device=None):
+                 chunk_docs: int = 8192, device=None, telemetry=None):
         self.device = resolve_device(device)
+        self.tel = as_telemetry(telemetry)
         self.num_docs = num_docs
         self.max_unique = max_unique
         self.num_topics = cfg.num_topics
@@ -241,6 +263,8 @@ class ChunkedMemoStore(MemoStore):
         self._visited = np.zeros((num_docs,), bool)
         self._stage = {"in": None, "out": None}
         self._copied_in: Optional[torch.cuda.Event] = None
+        self._link = {"bytes_in": 0, "bytes_out": 0, "chunks_in": 0,
+                      "chunks_out": 0}
 
     def _staging(self, direction: str, shape) -> torch.Tensor:
         """A ``shape`` view of the direction's staging buffer, grown (never
@@ -252,35 +276,74 @@ class ChunkedMemoStore(MemoStore):
             self._stage[direction] = buf
         return buf[:n].view(shape)
 
+    def _count(self, direction: str, nbytes: int, chunks: int) -> None:
+        self._link["bytes_" + direction] += nbytes
+        self._link["chunks_" + direction] += chunks
+        if self.tel.enabled:
+            m = self.tel.metrics
+            m.inc("memo.link_bytes_" + direction, nbytes)
+            m.inc("memo.chunks_touched", chunks, direction=direction)
+
+    def link_stats(self) -> Dict[str, int]:
+        """π bytes copied to the wire device (``bytes_in``) and back
+        (``bytes_out``), and the chunks the gathers and the updates touched
+        (a chunk once a call), since the store was made."""
+        return dict(self._link)
+
     def gather(self, doc_idx, width: Optional[int] = None):
         idx = np.asarray(doc_idx)
         w = self.max_unique if width is None else width
+        trace, on = self.tel.trace, self.tel.spans_on
+        sp = trace.begin("train/memo_assemble", docs=len(idx)) if on \
+            else None
         if self._copied_in is not None:
             # the previous gather's copy may still read the staging buffer
             self._copied_in.synchronize()
         host = self._staging("in", (len(idx), w, self.num_topics))
+        chunks = 0
         for c, sel, local in _chunk_partition(idx, self.chunk_docs):
             host[torch.from_numpy(sel)] = \
                 self._chunks[c][torch.from_numpy(local), :w]
+            chunks += 1
+        if sp is not None:
+            trace.end(sp)
+        sp = trace.begin("train/memo_copy_in", docs=len(idx)) if on \
+            else None
         pi = host.to(self.device, non_blocking=True)
         if self._pin:
             self._copied_in = torch.cuda.Event()
             self._copied_in.record()
         visited = torch.from_numpy(self._visited[idx]).to(self.device)
-        return pi.float(), visited
+        pi = pi.float()
+        if sp is not None:
+            trace.end(sp, sync=pi)
+        self._count("in", host.numel() * host.element_size(), chunks)
+        return pi, visited
 
     def update(self, doc_idx, pi, *,
                exp_elog_beta=None) -> "ChunkedMemoStore":
         idx = np.asarray(doc_idx)
         w = pi.shape[1]
+        trace, on = self.tel.trace, self.tel.spans_on
+        sp = trace.begin("train/memo_copy_out", docs=len(idx)) if on \
+            else None
         host = self._staging("out", tuple(pi.shape))
         host.copy_(pi.to(torch.bfloat16))      # device→host, waits
+        if sp is not None:
+            trace.end(sp)
+        sp = trace.begin("train/memo_scatter", docs=len(idx)) if on \
+            else None
+        chunks = 0
         for c, sel, local in _chunk_partition(idx, self.chunk_docs):
             rows = torch.from_numpy(local)
             self._chunks[c][rows, :w] = host[torch.from_numpy(sel)]
             if w < self.max_unique:
                 self._chunks[c][rows, w:] = 0
+            chunks += 1
         self._visited[idx] = True
+        if sp is not None:
+            trace.end(sp)
+        self._count("out", host.numel() * host.element_size(), chunks)
         return self
 
     def footprint_bytes(self) -> int:
@@ -420,9 +483,12 @@ class GammaMemoStore(MemoStore):
 
 def make_memo_store(kind: str, cfg: LDAConfig, num_docs: int,
                     max_unique: int, *, corpus: Optional[Corpus] = None,
-                    chunk_docs: int = 8192, device=None) -> MemoStore:
+                    chunk_docs: int = 8192, device=None,
+                    telemetry=None) -> MemoStore:
     """A zeroed store with nothing visited. ``device`` is the wire device
-    (where ``gather`` returns π); the γ-only store lives on the corpus's."""
+    (where ``gather`` returns π); the γ-only store lives on the corpus's.
+    ``telemetry`` is the engine's bundle: the chunked store's spans and
+    counters go there."""
     if kind == "dense":
         device = resolve_device(device)
         return DenseMemoStore(
@@ -432,7 +498,8 @@ def make_memo_store(kind: str, cfg: LDAConfig, num_docs: int,
                                 device=device))
     if kind == "chunked":
         return ChunkedMemoStore(cfg, num_docs, max_unique,
-                                chunk_docs=chunk_docs, device=device)
+                                chunk_docs=chunk_docs, device=device,
+                                telemetry=telemetry)
     if kind == "gamma":
         if corpus is None:
             raise ValueError("gamma store needs the corpus (π reconstruction)")

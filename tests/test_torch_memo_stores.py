@@ -24,6 +24,8 @@ from repro_torch.core.engines import LDAEngine
 from repro_torch.core.estep import scatter_sstats
 from repro_torch.core.types import LDAConfig
 from repro_torch.data.synthetic import PAPER_CORPORA, make_corpus
+from repro_torch.lda import LDA
+from repro_torch.obs import Telemetry
 
 CPU = "cpu"
 SPEC = PAPER_CORPORA["tiny"]
@@ -253,3 +255,65 @@ def test_host_store_engine_tracks_repro(store):
                                np.asarray(jeng.state.lam), rtol=1e-3,
                                atol=1e-3)
     assert teng.memo.footprint_bytes() == jeng.memo.footprint_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the chunked store's link counters
+# ---------------------------------------------------------------------------
+
+def test_chunked_store_link_counters_count_each_call():
+    """``link_stats`` after gathers and updates at two widths: the π bytes
+    each way are rows × width × K × 2, and each call touches each chunk
+    its rows fall in once; with telemetry on the registry holds the same
+    totals, with it off the counters run all the same."""
+    k, l = 5, 10
+    tel = Telemetry()
+    on = memo.make_memo_store("chunked", LDAConfig(num_topics=k), 37, l,
+                              chunk_docs=8, device=CPU, telemetry=tel)
+    off = memo.make_memo_store("chunked", LDAConfig(num_topics=k), 37, l,
+                               chunk_docs=8, device=CPU)
+    assert off.tel.enabled is False
+    want = {"bytes_in": 0, "bytes_out": 0, "chunks_in": 0, "chunks_out": 0}
+    for rows, w in ((np.array([0, 7, 8, 36]), l),      # chunks 0, 1, 4
+                    (np.array([9, 10, 11]), 4),         # chunk 1
+                    (np.arange(37)[::-1], l)):          # chunks 0-4
+        chunks = len(np.unique(rows // 8))
+        for s in (on, off):
+            pi, _ = s.gather(rows, width=w)
+            s.update(rows, pi + 0.25)
+        for d in ("in", "out"):
+            want["bytes_" + d] += len(rows) * w * k * 2
+            want["chunks_" + d] += chunks
+        assert on.link_stats() == off.link_stats() == want
+    m = tel.metrics
+    assert m.total("memo.link_bytes_in") == want["bytes_in"]
+    assert m.total("memo.link_bytes_out") == want["bytes_out"]
+    assert m.total("memo.chunks_touched") == want["chunks_in"] \
+        + want["chunks_out"]
+    # the counters change nothing the store holds
+    np.testing.assert_array_equal(on.gather(np.arange(37))[0].numpy(),
+                                  off.gather(np.arange(37))[0].numpy())
+
+
+def test_chunked_store_moves_bwk2_bytes_each_way_an_update():
+    """Two IVI epochs of the facade over the chunked store (every document
+    revisited): each update moves B·W·K·2 bytes of π each way, W the
+    corpus's width, and the store's counters equal the engine's registry
+    totals when telemetry is on."""
+    k, b = 6, 16
+    train = make_corpus(SPEC, seed=0, device=CPU)
+    tel = Telemetry()
+    lda = LDA(LDAConfig(num_topics=k, vocab_size=SPEC.vocab_size,
+                        estep_max_iters=15), algo="ivi", batch_size=b,
+              seed=2, memo_store="chunked", chunk_docs=40, telemetry=tel,
+              device=CPU)
+    lda.partial_fit(train, steps=0)
+    store = lda.trainer.eng.memo
+    steps = 2 * (train.num_docs // b)
+    lda.partial_fit(steps=steps)
+    per = b * train.max_unique * k * 2
+    stats = store.link_stats()
+    assert stats["bytes_in"] == stats["bytes_out"] == steps * per
+    assert steps <= stats["chunks_in"] == stats["chunks_out"] <= 3 * steps
+    assert tel.metrics.total("memo.link_bytes_in") == steps * per
+    assert tel.metrics.total("memo.link_bytes_out") == steps * per

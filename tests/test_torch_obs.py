@@ -469,3 +469,72 @@ def test_quality_metrics_equal_repro():
             j_metrics.npmi_coherence(lam, jc, k=6), abs=1e-12)
         assert metrics.effective_topics(arg) == pytest.approx(
             j_metrics.effective_topics(jax.numpy.asarray(lam)), rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the chunked memo store's spans
+# ---------------------------------------------------------------------------
+
+CHUNKED_SPANS = {"train/memo_assemble": "train/memo_gather",
+                 "train/memo_copy_in": "train/memo_gather",
+                 "train/memo_copy_out": "train/memo_update",
+                 "train/memo_scatter": "train/memo_update"}
+
+
+def _chunked_lda(telemetry=None, store="chunked"):
+    cfg = LDAConfig(num_topics=4, vocab_size=SPEC.vocab_size,
+                    estep_max_iters=15)
+    return LDA(cfg, algo="ivi", batch_size=16, seed=3, memo_store=store,
+               chunk_docs=40, telemetry=telemetry, device=CPU)
+
+
+def _record_parent(records, r):
+    """The innermost other span of ``r``'s thread, one level out, that
+    holds it, in a recorder's records."""
+    outer = [o for o in records if o is not r and o["type"] == "span"
+             and o["tid"] == r["tid"] and o["depth"] == r["depth"] - 1
+             and o["ts_us"] <= r["ts_us"]
+             and r["ts_us"] + r["dur_us"] <= o["ts_us"] + o["dur_us"]]
+    return outer[0]["name"] if len(outer) == 1 else None
+
+
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_chunked_store_spans_nest_in_the_memo_spans(tmp_path, telemetry):
+    """Two facade steps over the chunked store, two epochs in (every
+    document revisited), under a profiler with telemetry off or on: each
+    of the store's four spans is a range once a step, inside the engine's
+    ``train/memo_gather`` (assembly, copy in) or ``train/memo_update``
+    (copy out, scatter), in that order; with telemetry on the JSONL
+    records the same spans, one level deeper than their parents."""
+    tel = Telemetry() if telemetry else None
+    train = make_corpus(SPEC, seed=0, device=CPU)
+    lda = _chunked_lda(tel).partial_fit(train, steps=2 * 96 // 16)
+    ranges = _profiled(lambda: lda.partial_fit(steps=2), tmp_path)
+    for name, parent in CHUNKED_SPANS.items():
+        mine = [r for r in ranges if r[0] == name]
+        assert len(mine) == 2, name
+        assert all(_parent(ranges, r) == parent for r in mine), name
+    order = [r[0] for r in sorted(ranges, key=lambda r: r[1])
+             if r[0] in CHUNKED_SPANS]
+    assert order == list(CHUNKED_SPANS) * 2
+    if telemetry:
+        spans = [r for r in tel.trace.records if r["type"] == "span"
+                 and r["name"] in CHUNKED_SPANS]
+        assert len(spans) == 4 * (2 * 96 // 16 + 2)
+        for r in spans:
+            assert _record_parent(tel.trace.records, r) == \
+                CHUNKED_SPANS[r["name"]], r
+
+
+def test_dense_store_opens_no_chunked_span(tmp_path):
+    """The dense store opens none of the chunked store's spans, with
+    telemetry on and under a profiler: the dense cells' layers read as
+    before."""
+    tel = Telemetry()
+    train = make_corpus(SPEC, seed=0, device=CPU)
+    lda = _chunked_lda(tel, store="dense").partial_fit(train, steps=2)
+    ranges = _profiled(lambda: lda.partial_fit(steps=2), tmp_path)
+    names = {r[0] for r in ranges} | {r["name"] for r in tel.trace.records}
+    assert "train/memo_gather" in names
+    assert not names & set(CHUNKED_SPANS)
+    assert tel.metrics.total("memo.link_bytes_in") == 0
